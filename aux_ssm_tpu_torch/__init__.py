@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of `aux_ssm_tpu`: the auxiliary-Kalman MH step, run
-parallel-in-time through hand-written CUDA kernels on an NVIDIA Hopper card
-(plain PyTorch on the CPU).
+parallel-in-time, and the sequential auxiliary particle Gibbs (cSMC) of the
+stochastic-volatility model, through hand-written CUDA kernels on an NVIDIA
+Hopper card (plain PyTorch on the CPU).
 
 Float32 matmuls must stay IEEE: reduced precision (TF32 on the card) makes
 the forward and reverse proposal densities disagree and collapses the MH
@@ -12,15 +13,21 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .convert import lgssm_from_numpy  # noqa: E402
+from .convert import lgssm_from_numpy, sv_from_numpy  # noqa: E402
+from .experiments.runner import RunConfig, RunResult, run_chain  # noqa: E402
 from .kernels.adaptation import delta_adaptation  # noqa: E402
+from .kernels.csmc_base import CSMCState  # noqa: E402
 from .kernels.kalman import KalmanSampler, get_kernel  # noqa: E402
+from .models import stochastic_volatility  # noqa: E402
 from .ops import (LGSSM, filtering, log_likelihood, make_target_logpdf,  # noqa: E402
                   posterior_logpdf, prior_logpdf, sampling)
 
 __all__ = [
+    "CSMCState",
     "LGSSM",
     "KalmanSampler",
+    "RunConfig",
+    "RunResult",
     "delta_adaptation",
     "filtering",
     "get_kernel",
@@ -29,5 +36,8 @@ __all__ = [
     "make_target_logpdf",
     "posterior_logpdf",
     "prior_logpdf",
+    "run_chain",
     "sampling",
+    "stochastic_volatility",
+    "sv_from_numpy",
 ]

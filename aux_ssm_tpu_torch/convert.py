@@ -1,5 +1,6 @@
-"""From the JAX package's parameters, given as NumPy arrays (for example
-`np.asarray` of each field of an `aux_ssm_tpu.ops.LGSSM`), to the port's."""
+"""From the JAX package's parameters and data, given as NumPy arrays (for
+example `np.asarray` of each field of an `aux_ssm_tpu.ops.LGSSM`), to the
+port's tensors."""
 import torch
 
 from .ops.lgssm import LGSSM
@@ -10,3 +11,12 @@ def lgssm_from_numpy(m0, P0, Fs, Qs, bs, Hs, Rs, cs, ys, *, device, dtype):
     params = tuple(torch.as_tensor(z, dtype=dtype, device=device)
                    for z in (m0, P0, Fs, Qs, bs, Hs, Rs, cs))
     return LGSSM(*params), torch.as_tensor(ys, dtype=dtype, device=device)
+
+
+def sv_from_numpy(ys, xs=None, *, device, dtype):
+    """The stochastic-volatility data of the JAX package (`sv.get_data`'s
+    (xs, ys), or the `ys` and `xs_true` of an `experiments.sv` result file)
+    as tensors: returns `(ys, xs)`, `xs` None when not given. The model's
+    parameters (nu, phi, tau, rho) are Python floats on both sides."""
+    ys = torch.as_tensor(ys, dtype=dtype, device=device)
+    return ys, None if xs is None else torch.as_tensor(xs, dtype=dtype, device=device)

@@ -21,13 +21,13 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("kalman_fused.cu", "scan.cu")
-HEADERS = ("smallmat.cuh",)
+SOURCES = ("kalman_fused.cu", "scan.cu", "csmc_fwd.cu", "csmc_block_lane.cu")
+HEADERS = ("smallmat.cuh", "csmc_common.cuh", "csmc_models.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "aux_ssm_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-MAX_DIM = 16  # kMaxD of csrc/*.cu: the largest dx, dy the kernels are built for
+MAX_DIM = 16  # kMaxD of the main-path kernels: the largest dx, dy they are built for
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

@@ -1,0 +1,204 @@
+"""cSMC sweeps: wrappers of `csrc/csmc_fwd.cu` and `csrc/csmc_block_lane.cu`
+with their plain PyTorch versions (counterpart of
+`aux_ssm_tpu/ops/pallas/csmc_fwd.py`).
+
+Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
+launches the kernel or raises. Each wrapper counts its kernel launches in
+its `launches` attribute. The plain versions follow the XLA oracles of the
+JAX package (`factor_scan_xla`, `backward_factor_scan_xla`,
+`block_lane_scan_xla`) step for step; indices are int64.
+
+Shapes (n = T - 1 steps, N particles, k factor width, d state width):
+rf, cf (n, N, k); rb, cb, log_ws, res_u (n, N); anc_u, us (n,); w0 (N,);
+eps, xs (n, d, N); x_star (n, d); x0 (d, N).
+"""
+import torch
+
+from ...kernels.csmc_base import tree_map
+from ._build import check_cuda_inputs, launch
+from .kalman_fused import _on_cuda
+
+MAX_N = 8192        # factor kernels (the TPU kernels' _LANE_MAX_N)
+MAX_BLOCK_N = 1024  # block-lane kernel (the TPU kernel's dense cap)
+MAX_BLOCK_D = 32    # kMaxBlockD of csrc/csmc_block_lane.cu
+
+
+def _at(tree, t):
+    return tree_map(lambda z: z[t], tree)
+
+
+def _carry(log_w):
+    """The normalised carry exp(lw - max) / sum, as the oracles and kernels
+    compute it."""
+    wn = torch.exp(log_w - log_w.max())
+    return wn / wn.sum()
+
+
+def _resample(cw, u, N):
+    """#{i : cw[i] < u[j]} for each j, clamped to N - 1."""
+    return torch.searchsorted(cw, u.contiguous()).clamp_(max=N - 1)
+
+
+def _check_n(name, N, cap):
+    if not 1 <= N <= cap:
+        raise ValueError(f"{name}: the CUDA kernel takes 1..{cap} particles, got {N}")
+
+
+def _check_shape(name, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+# --------------------------------------------------------------------------
+# Forward factor sweep (fused_forward_scan)
+# --------------------------------------------------------------------------
+
+def forward_factor_scan_plain(rf, cf, rb, cb, res_u, anc_u, w0, pgas=False):
+    """T-1 steps of conditional multinomial resampling from `res_u` and
+    reweighting log_w = cb + rb[anc] + rf[anc] . cf, the weights carried
+    normalised; lane 0 pinned to 0, or redrawn under PGAS from
+    log(max(w, 1e-37)) + rb + rf . cf[0] at anc_u * total.
+    Returns (log_ws (n, N), ancestors (n, N) int64)."""
+    n, N, _ = rf.shape
+    log_ws = rf.new_empty(n, N)
+    ancestors = torch.empty(n, N, dtype=torch.int64, device=rf.device)
+    w = w0
+    for t in range(n):
+        anc = _resample(torch.cumsum(w, 0), res_u[t], N)
+        if pgas:
+            score = torch.log(torch.clamp_min(w, 1e-37)) + rb[t] + rf[t] @ cf[t, 0]
+            cwa = torch.cumsum(torch.exp(score - score.max()), 0)
+            anc[0] = (cwa < anc_u[t] * cwa[-1]).sum().clamp(max=N - 1)
+        else:
+            anc[0] = 0
+        log_w = cb[t] + rb[t][anc] + (rf[t][anc] * cf[t]).sum(-1)
+        log_ws[t], ancestors[t] = log_w, anc
+        w = _carry(log_w)
+    return log_ws, ancestors
+
+
+def forward_factor_scan(rf, cf, rb, cb, res_u, anc_u, w0, pgas=False):
+    """The forward factor sweep; see `forward_factor_scan_plain`."""
+    if not _on_cuda("forward_factor_scan", rf):
+        return forward_factor_scan_plain(rf, cf, rb, cb, res_u, anc_u, w0, pgas)
+    n, N, k = rf.shape
+    _check_n("forward_factor_scan", N, MAX_N)
+    for t, shape in ((cf, (n, N, k)), (rb, (n, N)), (cb, (n, N)), (res_u, (n, N)),
+                     (anc_u, (n,)), (w0, (N,))):
+        _check_shape("forward_factor_scan", t, shape)
+    args = check_cuda_inputs("forward_factor_scan", (rf, cf, rb, cb, res_u, anc_u, w0),
+                             rf.dtype, 1, ())
+    log_ws = rf.new_empty(n, N)
+    ancestors = torch.empty(n, N, dtype=torch.int64, device=rf.device)
+    if n:
+        launch("csmc_forward_factor", rf.dtype, n, N, k, int(pgas), *args, log_ws, ancestors)
+        forward_factor_scan.launches += 1
+    return log_ws, ancestors
+
+
+forward_factor_scan.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Backward factor sweep (fused_backward_scan)
+# --------------------------------------------------------------------------
+
+def backward_factor_scan_plain(rf, cf, rb, log_ws, us, b_T):
+    """Whiteley backward sampling through pair factors, t = n-1 .. 0:
+    score = log_ws[t] + rb[t] + rf[t] . cf[t, b_next], index = inverse CDF of
+    exp(score - max) at us[t] * total. `b_T` is a 0-d int64 tensor (the draw
+    at the last step). Returns picked (n,) int64, the indices at steps 0..n-1."""
+    n, N, _ = rf.shape
+    picked = torch.empty(n, dtype=torch.int64, device=rf.device)
+    b = b_T.reshape(1)
+    for t in range(n - 1, -1, -1):
+        score = log_ws[t] + rb[t] + rf[t] @ cf[t][b][0]
+        cw = torch.cumsum(torch.exp(score - score.max()), 0)
+        b = (cw < us[t] * cw[-1]).sum().clamp(max=N - 1).reshape(1)
+        picked[t] = b[0]
+    return picked
+
+
+def backward_factor_scan(rf, cf, rb, log_ws, us, b_T):
+    """The backward factor sweep; see `backward_factor_scan_plain`."""
+    if not _on_cuda("backward_factor_scan", rf):
+        return backward_factor_scan_plain(rf, cf, rb, log_ws, us, b_T)
+    n, N, k = rf.shape
+    _check_n("backward_factor_scan", N, MAX_N)
+    for t, shape in ((cf, (n, N, k)), (rb, (n, N)), (log_ws, (n, N)), (us, (n,))):
+        _check_shape("backward_factor_scan", t, shape)
+    args = check_cuda_inputs("backward_factor_scan", (rf, cf, rb, log_ws, us), rf.dtype, 1, ())
+    b_T = b_T.reshape(1).to(torch.int64)
+    if b_T.device != rf.device:
+        raise ValueError(f"backward_factor_scan: b_T must be on {rf.device}, got {b_T.device}")
+    picked = torch.empty(n, dtype=torch.int64, device=rf.device)
+    if n:
+        launch("csmc_backward_factor", rf.dtype, n, N, k, *args, b_T.contiguous(), picked)
+        backward_factor_scan.launches += 1
+    return picked
+
+
+backward_factor_scan.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Block-lane forward sweep (block_lane_forward_scan)
+# --------------------------------------------------------------------------
+
+def block_lane_scan_plain(propagate, logw, mt_params, gt_params, eps, res_u, x_star, x0, w0):
+    """State-dependent cSMC forward sweep on (d, N) particle blocks.
+    `propagate(eps, x_prev, mt_p) -> (d, N)` and `logw(x_next, x_prev, gt_p)
+    -> (N,)` are the model's block callables; `mt_p`, `gt_p` one time step
+    of the params. Conditional multinomial resampling, lane 0 pinned to 0
+    and its particle to x_star; no PGAS.
+    Returns (xs (n, d, N), log_ws (n, N), ancestors (n, N) int64)."""
+    n, d, N = eps.shape
+    xs = eps.new_empty(n, d, N)
+    log_ws = eps.new_empty(n, N)
+    ancestors = torch.empty(n, N, dtype=torch.int64, device=eps.device)
+    x_prev, w = x0, w0
+    for t in range(n):
+        anc = _resample(torch.cumsum(w, 0), res_u[t], N)
+        anc[0] = 0
+        x_res = x_prev[:, anc]
+        x_t = propagate(eps[t], x_res, _at(mt_params, t))
+        x_t[:, 0] = x_star[t]
+        log_w = logw(x_t, x_res, _at(gt_params, t))
+        xs[t], log_ws[t], ancestors[t] = x_t, log_w, anc
+        x_prev, w = x_t, _carry(log_w)
+    return xs, log_ws, ancestors
+
+
+def block_lane_scan(Mt, Gt, eps, res_u, x_star, x0, w0):
+    """The block-lane sweep of the model (Mt, Gt); see `block_lane_scan_plain`.
+    On the card the model's step is a functor compiled into the kernel,
+    named by the class attribute `cuda_model` of Mt and Gt; Gt's
+    `cuda_operands()` hands over its constants and per-step parameters."""
+    if not _on_cuda("block_lane_scan", eps):
+        return block_lane_scan_plain(Mt.block_propagate, Gt.block_logw, Mt.params, Gt.params,
+                                     eps, res_u, x_star, x0, w0)
+    model = getattr(Gt, "cuda_model", None)
+    if model != "sv_guided" or getattr(Mt, "cuda_model", None) != model:
+        raise NotImplementedError(
+            f"block_lane_scan: no CUDA functor for {type(Mt).__name__}/{type(Gt).__name__} "
+            "(csrc/csmc_models.cuh has SvGuided only)")
+    n, d, N = eps.shape
+    _check_n("block_lane_scan", N, MAX_BLOCK_N)
+    if not 1 <= d <= MAX_BLOCK_D:
+        raise ValueError(f"block_lane_scan: the CUDA kernel takes d in 1..{MAX_BLOCK_D}, got {d}")
+    consts, params = Gt.cuda_operands()
+    for t, shape in ((res_u, (n, N)), (x_star, (n, d)), (x0, (d, N)), (w0, (N,)),
+                     (consts, (3 * d * d + 2 * d + 1,)), (params, (n, 6 * d + 2))):
+        _check_shape("block_lane_scan", t, shape)
+    args = check_cuda_inputs("block_lane_scan", (eps, res_u, x_star, x0, w0, consts, params),
+                             eps.dtype, 1, ())
+    xs = eps.new_empty(n, d, N)
+    log_ws = eps.new_empty(n, N)
+    ancestors = torch.empty(n, N, dtype=torch.int64, device=eps.device)
+    if n:
+        launch("csmc_block_lane_sv_guided", eps.dtype, n, N, d, *args, xs, log_ws, ancestors)
+        block_lane_scan.launches += 1
+    return xs, log_ws, ancestors
+
+
+block_lane_scan.launches = 0

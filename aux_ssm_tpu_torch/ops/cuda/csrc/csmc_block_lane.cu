@@ -1,0 +1,134 @@
+// Block-lane cSMC forward sweep: state-dependent proposals of small-d models
+// with the model's step compiled into the kernel. It replaces
+// aux_ssm_tpu/ops/pallas/csmc_fwd.py block_lane_forward_scan
+// (_block_lane_fwd_kernel), with the SV guided proposal (csmc_models.cuh
+// SvGuided) as its one model so far.
+//
+// Semantics are those of the XLA oracle block_lane_scan_xla: conditional
+// multinomial resampling of the normalised carry (anc[j] = #{i : cw[i] <
+// u[j]} clamped to N-1, lane 0 pinned to 0, no PGAS), the ancestors' columns
+// propagated by the model with the step's noise, particle 0 pinned to x*_t,
+// the model's log weight, and the carry exp(lw - max) / sum.
+//
+// What bounds it: T-1 dependent steps; at the published SV width (d=30,
+// N=25) a step is three d x d mat-vecs per particle (~2.7k FMA) plus the
+// resampling collectives. One thread block runs the time loop and one warp
+// owns a particle's step (warps stride over the particles past 32): its
+// lanes own the state components, so a step costs ~3d dependent FMAs a lane
+// and a few warp and block barriers. (A first version with one thread per
+// particle spent ~53 us a step in that thread's 3 d^2 dependent FMAs.) The
+// model's constants (3 d x d matrices, 2 d-vectors), the weights and each
+// warp's three d-vectors of scratch live in dynamic shared memory (62 KB at
+// d=30, N=1024 in f64); the particle blocks stay in global memory: x_prev is
+// the previous step's output block (written by this block, visible after its
+// barrier, L2-resident at 120 KB for d=30, N=1024 f32). The TPU's one-hot
+// gather matmul and lane-broadcast (T-1, L, N) parameter blocks are not
+// carried over: a warp reads its ancestor's column directly and the per-step
+// parameters come as compact (T-1, 6 d + 2) rows.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3, no fast math (the
+// weight needs nan_to_num's NaN/inf semantics and IEEE exp/log).
+#include "csmc_common.cuh"
+#include "csmc_models.cuh"
+
+namespace {
+
+using namespace csmc;
+
+// scratch: Model::kScratch * d entries for each warp of the block.
+template <typename S, class Model>
+AUX_HD void block_lane_sweep(const Block<S>& b, int n, int N, int d, const S* eps,
+                             const S* res_u, const S* x_star, const S* x0, const S* w0,
+                             const Model& model, S* xs, S* log_ws, long long* anc, S* w,
+                             S* cw, S* scratch) {
+  const int lane = b.tid % AUX_LANES, warp = b.tid / AUX_LANES, nwarps = b.nt / AUX_LANES;
+  S* buf = scratch + (long)warp * Model::kScratch * d;
+  for (int j = b.tid; j < N; j += b.nt) w[j] = w0[j];
+  AUX_BSYNC();
+  for (int t = 0; t < n; ++t) {
+    const long base = (long)t * N, blk = (long)t * d * N;
+    const S* x_prev = t == 0 ? x0 : xs + blk - (long)d * N;
+    block_cumsum(b, w, cw, N);
+    S m = neg_inf<S>();
+    for (int j = warp; j < N; j += nwarps) {
+      const int a = j == 0 ? 0 : imin(count_less(cw, N, res_u[base + j]), N - 1);
+      const S lw = model.step(t, j, a, lane, AUX_LANES, x_prev, eps + blk,
+                              x_star + (long)t * d, xs + blk, buf);
+      if (lane == 0) {
+        log_ws[base + j] = lw;
+        anc[base + j] = a;
+        w[j] = lw;
+      }
+      m = fmax(m, lw);
+    }
+    block_softmax(b, w, N, m);  // its barriers also publish xs[t] and w to every thread
+  }
+}
+
+}  // namespace
+
+#ifdef __CUDACC__
+// ---------------------------------------------------------------------------
+// Launch section: everything above is plain C++ on pointers and also builds
+// as host code (one thread, no barriers); what follows needs nvcc.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kMaxBlockN = 1024;  // the TPU kernel's dense cap (_DENSE_MAX_N)
+constexpr int kMaxBlockD = 32;    // one lane per state component
+
+// Threads for N particles: a warp each, at most 32 warps.
+inline int block_lane_threads(int N) { return N < 32 ? 32 * N : 1024; }
+
+// Dynamic shared memory: consts [FRT, VQ, VQT (d*d each), bR, isl (d each)],
+// w and cw (N each), 33 reduction partials, the warps' scratch.
+template <typename S>
+size_t block_lane_shmem(int N, int d) {
+  const size_t warps = block_lane_threads(N) / 32;
+  return (3 * (size_t)d * d + 2 * d + 2 * (size_t)N + 33 +
+          warps * SvGuided<S>::kScratch * d) * sizeof(S);
+}
+
+template <typename S>
+__global__ void __launch_bounds__(1024)
+block_lane_sv_guided_kernel(int n, int N, int d, const S* eps, const S* res_u,
+                            const S* x_star, const S* x0, const S* w0, const S* consts,
+                            const S* params, S* xs, S* log_ws, long long* anc) {
+  extern __shared__ unsigned char smem[];
+  const int dd = d * d;
+  S* FRT = reinterpret_cast<S*>(smem);
+  S* VQ = FRT + dd;
+  S* VQT = VQ + dd;
+  S* bR = VQT + dd;
+  S* isl = bR + d;
+  S* w = isl + d;
+  S* cw = w + N;
+  S* red = cw + N;
+  S* scratch = red + 33;
+  // consts = [FRT (d*d), VQ (d*d), VQT (d*d), bR (d), isl (d), half_logdet_Q]
+  for (int i = threadIdx.x; i < 3 * dd + 2 * d; i += blockDim.x) FRT[i] = consts[i];
+  __syncthreads();
+  const SvGuided<S> model{d, N, FRT, VQ, VQT, bR, isl, consts[3 * dd + 2 * d], params};
+  block_lane_sweep<S>(Block<S>{(int)threadIdx.x, (int)blockDim.x, red}, n, N, d, eps, res_u,
+                      x_star, x0, w0, model, xs, log_ws, anc, w, cw, scratch);
+}
+
+}  // namespace
+
+#define AUX_DEFINE_BLOCK_LANE(SUFFIX, S)                                                    \
+  extern "C" int aux_csmc_block_lane_sv_guided_##SUFFIX(                                    \
+      int n, int N, int d, const S* eps, const S* res_u, const S* x_star, const S* x0,      \
+      const S* w0, const S* consts, const S* params, S* xs, S* log_ws, long long* anc,      \
+      void* stream) {                                                                       \
+    if (n <= 0 || N < 1 || N > kMaxBlockN || d < 1 || d > kMaxBlockD)                       \
+      return (int)cudaErrorInvalidValue;                                                    \
+    void* args[] = {&n, &N, &d, &eps, &res_u, &x_star, &x0, &w0, &consts, &params, &xs,    \
+                    &log_ws, &anc};                                                         \
+    return launch_one_block(block_lane_sv_guided_kernel<S>, block_lane_shmem<S>(N, d),      \
+                            block_lane_threads(N), (cudaStream_t)stream, args);             \
+  }
+
+AUX_DEFINE_BLOCK_LANE(f32, float)
+AUX_DEFINE_BLOCK_LANE(f64, double)
+#endif  // __CUDACC__

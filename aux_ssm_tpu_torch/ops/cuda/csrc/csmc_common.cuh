@@ -1,0 +1,202 @@
+// Block-wide collectives of the cSMC sweeps (csmc_fwd.cu, csmc_block_lane.cu):
+// prefix sums, max and sum over the particles, and the inverse-CDF count.
+//
+// One thread block runs a whole sweep. Thread tid of nt owns particles
+// tid, tid + nt, ... for per-particle work and the contiguous chunk
+// [tid * ceil(N / nt), ...) for the prefix sum. On the card nt is a multiple
+// of 32 (at most 1024) and the collectives combine warps with shuffles and
+// one shared array of 33 partials; built as host C++ (nt = 1, AUX_BSYNC()
+// empty) they reduce to the sequential loops, which is how the CPU tests run
+// the sweeps' arithmetic. Work shared by the AUX_LANES lanes of one warp
+// (lane l owns components l, l + AUX_LANES, ...) is fenced by AUX_WSYNC();
+// the host build has one lane and no fence.
+#pragma once
+
+#ifndef AUX_HD
+#define AUX_HD __device__ __forceinline__
+#endif
+#ifndef AUX_BSYNC
+#define AUX_BSYNC() __syncthreads()
+#endif
+#ifndef AUX_LANES
+#define AUX_LANES 32
+#endif
+#ifndef AUX_WSYNC
+#define AUX_WSYNC() __syncwarp()
+#endif
+
+#ifdef __CUDACC__
+#include <math.h>
+#else
+#include <cmath>
+using std::exp;
+using std::fmax;
+using std::isinf;
+using std::isnan;
+using std::log;
+#endif
+
+namespace csmc {
+
+template <typename S>
+struct Block {
+  int tid, nt;
+  S* red;  // shared scratch of at least 33 entries
+};
+
+template <typename T>
+AUX_HD T imin(T a, T b) { return a < b ? a : b; }
+
+template <typename S>
+AUX_HD S neg_inf() { return -(S)INFINITY; }
+
+template <typename S>
+AUX_HD S nan_to_num(S x) {
+  // jnp.nan_to_num: NaN -> 0, +-inf -> +-max of the type.
+  const S big = sizeof(S) == 4 ? (S)3.4028234663852886e38 : (S)1.7976931348623157e308;
+  if (isnan(x)) return (S)0;
+  if (isinf(x)) return x > 0 ? big : -big;
+  return x;
+}
+
+// #{i : a[i] < v} for a nondecreasing a[0..N): a lower-bound binary search,
+// the count jnp.searchsorted(a, v) (side='left') and the Pallas rank count give.
+template <typename S>
+AUX_HD int count_less(const S* a, int N, S v) {
+  int lo = 0, hi = N;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+template <typename S>
+AUX_HD S dot(const S* a, const S* b, int k) {
+  S s = 0;
+  for (int i = 0; i < k; ++i) s += a[i] * b[i];
+  return s;
+}
+
+#ifdef __CUDACC__
+constexpr unsigned kFull = 0xffffffffu;
+
+// max (kMax) or sum of v over the block; every thread gets the result.
+template <bool kMax, typename S>
+__device__ S block_all(const Block<S>& b, S v) {
+  const int lane = b.tid & 31, warp = b.tid >> 5, nw = b.nt >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    const S y = __shfl_xor_sync(kFull, v, o);
+    v = kMax ? fmax(v, y) : v + y;
+  }
+  if (lane == 0) b.red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    S x = lane < nw ? b.red[lane] : (kMax ? neg_inf<S>() : (S)0);
+    for (int o = 16; o > 0; o >>= 1) {
+      const S y = __shfl_xor_sync(kFull, x, o);
+      x = kMax ? fmax(x, y) : x + y;
+    }
+    if (lane == 0) b.red[32] = x;
+  }
+  __syncthreads();
+  const S r = b.red[32];
+  __syncthreads();  // b.red is free again for the next collective
+  return r;
+}
+
+// Sum of v over the lanes of a warp; every lane gets the result.
+template <typename S>
+__device__ S warp_sum(S v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+#else
+template <bool kMax, typename S>
+AUX_HD S block_all(const Block<S>&, S v) { return v; }  // nt == 1
+template <typename S>
+AUX_HD S warp_sum(S v) { return v; }  // one lane
+#endif
+
+template <typename S>
+AUX_HD S block_max(const Block<S>& b, S v) { return block_all<true>(b, v); }
+template <typename S>
+AUX_HD S block_sum(const Block<S>& b, S v) { return block_all<false>(b, v); }
+
+// dst[0..N) = inclusive prefix sums of src (dst may alias src). Ends with a
+// barrier: dst is complete for every thread on return.
+template <typename S>
+AUX_HD void block_cumsum(const Block<S>& b, const S* src, S* dst, int N) {
+  const int per = (N + b.nt - 1) / b.nt;
+  const int lo = imin(b.tid * per, N), hi = imin(lo + per, N);
+  S run = 0;
+  for (int i = lo; i < hi; ++i) {
+    run += src[i];
+    dst[i] = run;
+  }
+#ifdef __CUDACC__
+  const int lane = b.tid & 31, warp = b.tid >> 5, nw = b.nt >> 5;
+  S inc = run;  // inclusive scan of the chunk totals within the warp
+  for (int o = 1; o < 32; o <<= 1) {
+    const S y = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) b.red[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    S x = lane < nw ? b.red[lane] : (S)0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const S y = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane < nw) b.red[lane] = x;
+  }
+  __syncthreads();
+  const S off = (inc - run) + (warp > 0 ? b.red[warp - 1] : (S)0);
+  if (off != (S)0)
+    for (int i = lo; i < hi; ++i) dst[i] += off;
+  __syncthreads();
+#endif
+}
+
+// w[0..N) = exp(lw - max lw) / sum, in place (lw given in w, per-particle
+// ownership). Ends with a barrier.
+template <typename S>
+AUX_HD void block_softmax(const Block<S>& b, S* w, int N, S m_local) {
+  const S m = block_max(b, m_local);
+  S part = 0;
+  for (int j = b.tid; j < N; j += b.nt) {
+    const S e = exp(w[j] - m);
+    w[j] = e;
+    part += e;
+  }
+  const S tot = block_sum(b, part);
+  for (int j = b.tid; j < N; j += b.nt) w[j] = w[j] / tot;
+  AUX_BSYNC();
+}
+
+}  // namespace csmc
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+
+namespace csmc {
+
+// Launch `kernel` as one block of `threads` with `shmem` bytes of dynamic
+// shared memory (above the 48 KB default after the kernel's opt-in).
+template <typename K>
+int launch_one_block(K kernel, size_t shmem, int threads, cudaStream_t stream, void** args) {
+  if (shmem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaError_t err = cudaLaunchKernel((const void*)kernel, dim3(1), dim3(threads), args, shmem,
+                                     stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace csmc
+#endif  // __CUDACC__

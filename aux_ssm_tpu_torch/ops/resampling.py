@@ -1,0 +1,96 @@
+"""Conditional resampling schemes for cSMC (counterpart of
+`aux_ssm_tpu/ops/resampling.py`). Index 0 of every draw is pinned to 0, the
+reference particle.
+
+Every scheme runs from uniforms: `multinomial_from_uniforms` takes (N,)
+uniforms, `systematic_from_uniforms` three. `multinomial` and `systematic`
+draw those uniforms from a `torch.Generator`. Inverse CDFs use
+`torch.searchsorted(..., right=False)`, `jnp.searchsorted`'s `side='left'`:
+the index of u is #{i : cdf[i] < u}.
+"""
+import torch
+
+
+def _uniform(shape, like, generator):
+    return torch.rand(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
+def multinomial_from_uniforms(u, weights):
+    """Conditional multinomial resampling from iid uniforms `u` (N,):
+    inverse CDF of the (normalised) weights, index 0 pinned to 0."""
+    idx = torch.searchsorted(torch.cumsum(weights, 0), u.contiguous())
+    idx = idx.clamp(0, weights.shape[0] - 1)
+    idx[0] = 0
+    return idx
+
+
+def categorical_from_uniform(u, weights):
+    """One categorical draw by inverse CDF from the uniform `u` (a 0-d
+    tensor); inverts u * total mass, so the weights need not be normalised.
+    Returns a 0-d int64 tensor on the weights' device (no host sync)."""
+    cdf = torch.cumsum(weights, 0)
+    idx = torch.searchsorted(cdf, (u * cdf[-1]).reshape(1))
+    return idx.clamp(0, weights.shape[0] - 1)[0]
+
+
+def choice_from_uniform(u, weights):
+    """The index `jax.random.choice(key, M, p=weights)` draws from its
+    uniform u: the inverse CDF at (1 - u) * total. Returns a (1,) int64
+    tensor on the weights' device."""
+    cdf = torch.cumsum(weights, 0)
+    idx = torch.searchsorted(cdf, (cdf[-1] * (1 - u)).reshape(1))
+    return idx.clamp_(max=weights.shape[0] - 1)
+
+
+def systematic_from_uniforms(u, weights, N=None):
+    """Conditional systematic resampling from three uniforms `u` (3,)."""
+    return _systematic_core(u[0], u[1], u[2], weights, N)
+
+
+def _systematic_core(u_mix, u_off, u_rot, weights, N=None):
+    """Chopin & Singh (2015), Alg. 4: conditioned on at least one copy of
+    particle 0, the offset is a two-component uniform mixture; a uniformly
+    chosen copy of particle 0 is then rotated into slot 0."""
+    M = weights.shape[0]
+    N = M if N is None else N
+
+    copies = N * weights[0]
+    whole = torch.floor(copies)
+    part = copies - whole
+
+    pick_low = u_mix * copies < part * (whole + 1.0)
+    offset = torch.where(pick_low, part * u_off, part + (1.0 - part) * u_off)
+    # If w_0 underflowed to exactly 0, "at least one copy of particle 0" has
+    # numerical probability 0: force offset 0 so slot 0 still maps to index 0.
+    offset = torch.where(copies > 0.0, offset, torch.zeros_like(offset))
+
+    positions = (offset + torch.arange(N, dtype=weights.dtype, device=weights.device)) / N
+    idx = torch.searchsorted(torch.cumsum(weights, 0), positions)
+
+    n0 = (idx == 0).sum().to(weights.dtype)
+    chosen = torch.floor(n0 * u_rot).long()
+    # jnp.roll(idx, -chosen) without a host read of `chosen`.
+    ar = torch.arange(N, device=weights.device)
+    idx = idx[(ar + chosen) % N].clamp(0, M - 1)
+    idx[0] = 0
+    return idx
+
+
+def multinomial(weights, generator=None, N=None):
+    """Conditional multinomial resampling with uniforms from `generator`."""
+    N = weights.shape[0] if N is None else N
+    return multinomial_from_uniforms(_uniform((N,), weights, generator), weights)
+
+
+def systematic(weights, generator=None, N=None):
+    """Conditional systematic resampling with uniforms from `generator`."""
+    u = _uniform((3,), weights, generator)
+    return _systematic_core(u[0], u[1], u[2], weights, N)
+
+
+def get(name):
+    """Look up a resampling scheme by name ('multinomial' | 'systematic')."""
+    try:
+        return {"multinomial": multinomial, "systematic": systematic}[name]
+    except KeyError:
+        raise ValueError(f"unknown resampling scheme: {name!r}") from None

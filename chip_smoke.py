@@ -16,19 +16,54 @@ Phases (any failure raises, and the script exits non-zero):
      launches per step;
   3. 200 first-order MH steps at delta=0.05: finite states, acceptance in
      (0, 1], samples/s.
+The stochastic-volatility (SV) particle-Gibbs path, T=250, D=30, N=25:
+  4. the three cSMC sweep kernels against their plain versions on the inputs
+     a real SV step hands them (csmc and csmc-guided, f32 and f64), and at
+     T=1024, N=4096, k=1 (factor sweeps) and N=1024 (block-lane sweep);
+  5. f64 aux-cSMC steps of both styles on the card against the CPU (T=32,
+     D=4, N=16), given the same noise;
+  6. csmc-guided from the committed run's data, start and adapted delta
+     (`benchmarks/results_r5/sv/csmc_guided_*.npz`), without and with the
+     gradient shift: 100 + 500 iterations at frozen delta, mean update rate
+     in [0.4, 0.6], exactly one block-lane and one backward sweep launch per
+     iteration, samples/s;
+  7. csmc (sequential sweep): 200 burn-in iterations adapting a (T,) delta
+     from 1e-2, then 300 sampling iterations: update rate in (0, 1), exactly
+     one forward and one backward factor sweep launch per iteration.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 T, DX = 1024, 16
 DELTA = 0.05
 NREL_F32 = 1e-4   # norm-relative bound, f32 kernel vs f32 plain and vs f64 plain
 NREL_F64 = 1e-8   # norm-relative bound, f64 kernel vs f64 plain (logic check)
 STEP_RTOL = 1e-9  # f64 step on the card vs the CPU
+
+SV_PARAMS = (0.0, 0.9, 2.0, 0.25)  # nu, phi, tau, rho of experiments/sv.py
+SV_T, SV_D, SV_N = 250, 30, 25     # the published grid (benchmarks/sv_sweep.sh)
+SV_NPZ = str(Path(__file__).resolve().parent / "benchmarks/results_r5/sv/{}.npz")
+# f32 sweeps: prefix sums in another order may flip an index where a uniform
+# falls within rounding of a CDF step; the JAX package's own bound between
+# its kernel and its oracle (tests/test_csmc_fwd.py) is >= 99.5% of indices
+# equal and values within 2e-4 where they are.
+AGREE_F32, TOL_F32 = 0.995, 2e-4
+RTOL_F64 = 1e-9   # f64 sweeps: identical indices, values to rtol (and atol) 1e-9
+
+CSMC_KERNELS = {  # wrapper name -> (source, the TPU kernel it replaces)
+    "forward_factor_scan": ("aux_ssm_tpu_torch/ops/cuda/csrc/csmc_fwd.cu",
+                            "aux_ssm_tpu/ops/pallas/csmc_fwd.py:296"),
+    "backward_factor_scan": ("aux_ssm_tpu_torch/ops/cuda/csrc/csmc_fwd.cu",
+                             "aux_ssm_tpu/ops/pallas/csmc_fwd.py:455"),
+    "block_lane_scan": ("aux_ssm_tpu_torch/ops/cuda/csrc/csmc_block_lane.cu",
+                        "aux_ssm_tpu/ops/pallas/csmc_fwd.py:932"),
+}
 
 KERNELS = {  # wrapper name -> (source, the TPU kernel it replaces, launches per MH step)
     "make_elements": ("aux_ssm_tpu_torch/ops/cuda/csrc/kalman_fused.cu",
@@ -236,6 +271,358 @@ def run_chain(dev, order, n_steps, seed):
     return state, acc, seconds, launches
 
 
+# ---------------------------------------------------------------------------
+# The stochastic-volatility particle-Gibbs path
+# ---------------------------------------------------------------------------
+
+def load_sv(name, dev, dtype):
+    """(ys, xs_true, adapted delta (T,)) of a committed SV run, T=250, D=30."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch import sv_from_numpy
+    z = np.load(SV_NPZ.format(name))
+    ys, xs = sv_from_numpy(z["ys"], z["xs_true"], device=dev, dtype=dtype)
+    return ys, xs, torch.as_tensor(z["delta"], dtype=dtype, device=dev)
+
+
+def sv_kernel(style, ys, N, gradient=False):
+    """(init, kernel) of the SV sampler `style` with backward sampling."""
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    get = sv.get_csmc_kernel if style == "csmc" else sv.get_guided_csmc_kernel
+    return get(ys, *SV_PARAMS, N, backward=True, gradient=gradient)
+
+
+@contextlib.contextmanager
+def recording_sweeps():
+    """Record the arguments each cSMC sweep wrapper is called with; the calls
+    go through. A wrapper counts its launches on its module's name, which is
+    the recorder meanwhile, so these launches count on the recorder."""
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF
+    seen, originals = {}, {name: getattr(CF, name) for name in CSMC_KERNELS}
+
+    def recorder(name, fn):
+        def record(*args, **kwargs):
+            seen[name] = args
+            return fn(*args, **kwargs)
+        record.launches = 0
+        return record
+
+    for name, fn in originals.items():
+        setattr(CF, name, recorder(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in originals.items():
+            setattr(CF, name, fn)
+
+
+def sv_sweep_inputs(dev, dtype, style, N, seed):
+    """The arguments of each sweep in one SV aux-cSMC step at T=250, D=30,
+    from the committed xs_true at the committed run's adapted delta."""
+    import torch
+    ys, xs, delta = load_sv("csmc_no-gradient" if style == "csmc"
+                            else "csmc_guided_no-gradient", dev, dtype)
+    init, kernel = sv_kernel(style, ys, N)
+    with recording_sweeps() as seen:
+        kernel(init(xs), delta, generator=torch.Generator(device=dev).manual_seed(seed))
+    return seen
+
+
+def random_factor_inputs(dev, n, N, k, seed):
+    """Factor-sweep inputs (rf, cf, rb, cb, res_u, anc_u, w0) in f64."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(generator=g, device=dev, dtype=torch.float64)
+    w0 = 0.1 + 0.9 * torch.rand(N, **kw)
+    return (0.5 * torch.randn(n, N, k, **kw), 0.5 * torch.randn(n, N, k, **kw),
+            torch.randn(n, N, **kw), torch.randn(n, N, **kw), torch.rand(n, N, **kw),
+            torch.rand(n, **kw), w0 / w0.sum())
+
+
+def carry(log_w):
+    """The sweeps' normalised carry exp(lw - max) / sum."""
+    import torch
+    w = torch.exp(log_w - log_w.max())
+    return w / w.sum()
+
+
+def agree_f32(name, idx, idx_plain, values=()):
+    """f32 bounds: >= AGREE_F32 of the indices equal, and each (got, want,
+    mask) within TOL_F32 (rtol and atol) where mask. Returns (share of equal
+    indices, largest abs error of the values, or of the indices if none)."""
+    share = float((idx == idx_plain).double().mean())
+    err = float((idx - idx_plain).abs().max()) if not values else 0.0
+    for got, want, mask in values:
+        g, w = got[mask].double(), want[mask].double()
+        if g.numel():
+            if bool(((g - w).abs() > TOL_F32 * (1 + w.abs())).any()):
+                raise AssertionError(f"{name} f32: values differ by more than {TOL_F32}")
+            err = max(err, float((g - w).abs().max()))
+    if not share >= AGREE_F32:
+        raise AssertionError(f"{name} f32: only {share:.4f} of the indices agree")
+    return share, err
+
+
+def exact_f64(name, idx, idx_plain, values=()):
+    """f64 bounds: identical indices, each (got, want) to RTOL_F64. Returns the
+    largest |got - want| / (1 + |want|)."""
+    import torch
+    if not torch.equal(idx, idx_plain):
+        raise AssertionError(f"{name} f64: {int((idx != idx_plain).sum())} indices differ")
+    err = 0.0
+    for got, want in values:
+        err = max(err, float(((got - want).abs() / (1 + want.abs())).max()))
+    if not err <= RTOL_F64:
+        raise AssertionError(f"{name} f64: values differ by {err:.3e}")
+    return err
+
+
+def resynced(n, step):
+    """Concatenate step(t), t < n: the plain version of each step run from
+    the kernel's own previous carry."""
+    import torch
+    outs = [step(t) for t in range(n)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(z) for z in zip(*outs))
+    return torch.cat(outs)
+
+
+def check_forward_factor(label, args32, args64, pgas, reps):
+    """f32: each step of the plain sweep from the kernel's previous carry;
+    f64: whole sweeps. Returns the result entry."""
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF
+    name = f"forward_factor_scan[{label}, pgas={pgas}]"
+    rf, cf, rb, cb, res_u, anc_u, w0 = args32
+    lw, anc = CF.forward_factor_scan(*args32, pgas=pgas)
+    lw_p, anc_p = resynced(rf.shape[0], lambda t: CF.forward_factor_scan_plain(
+        *(z[t:t + 1] for z in (rf, cf, rb, cb, res_u, anc_u)),
+        w0 if t == 0 else carry(lw[t - 1]), pgas))
+    share, err = agree_f32(name, anc, anc_p, [(lw, lw_p, anc == anc_p)])
+    lw64, anc64 = CF.forward_factor_scan(*args64, pgas=pgas)
+    lw64_p, anc64_p = CF.forward_factor_scan_plain(*args64, pgas=pgas)
+    err64 = exact_f64(name, anc64, anc64_p, [(lw64, lw64_p)])
+    return timed(name, {"max_abs_err": err, "index_agree_f32": share, "max_rel_err_f64": err64},
+                 lambda: CF.forward_factor_scan(*args32, pgas=pgas),
+                 lambda: CF.forward_factor_scan_plain(*args32, pgas=pgas), reps)
+
+
+def check_backward_factor(label, args32, args64, reps):
+    """f32: each step of the plain sweep from the kernel's next index; f64:
+    whole sweeps. Returns the result entry."""
+    import torch
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF
+    name = f"backward_factor_scan[{label}]"
+    rf, cf, rb, lw, us, b_T = args32
+    picked = CF.backward_factor_scan(*args32)
+    nxt = torch.cat([picked[1:], b_T.reshape(1).to(picked.dtype)])
+    picked_p = resynced(rf.shape[0], lambda t: CF.backward_factor_scan_plain(
+        *(z[t:t + 1] for z in (rf, cf, rb, lw, us)), nxt[t]))
+    share, err = agree_f32(name, picked, picked_p)
+    err64 = exact_f64(name, CF.backward_factor_scan(*args64),
+                      CF.backward_factor_scan_plain(*args64))
+    return timed(name, {"max_abs_err": err, "index_agree_f32": share, "max_rel_err_f64": err64},
+                 lambda: CF.backward_factor_scan(*args32),
+                 lambda: CF.backward_factor_scan_plain(*args32), reps)
+
+
+def check_block_lane(label, args32, args64, reps):
+    """f32: each step of the plain sweep from the kernel's previous particles
+    and carry; f64: whole sweeps. Returns the result entry."""
+    from aux_ssm_tpu_torch.kernels.csmc_base import tree_map
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF
+    name = f"block_lane_scan[{label}]"
+
+    def plain(Mt, Gt, *rest):
+        return CF.block_lane_scan_plain(Mt.block_propagate, Gt.block_logw, Mt.params,
+                                        Gt.params, *rest)
+
+    def plain_step(t):
+        sl = slice(t, t + 1)
+        return CF.block_lane_scan_plain(
+            Mt.block_propagate, Gt.block_logw, tree_map(lambda z: z[sl], Mt.params),
+            tree_map(lambda z: z[sl], Gt.params), eps[sl], res_u[sl], x_star[sl],
+            x0 if t == 0 else xs[t - 1], w0 if t == 0 else carry(lw[t - 1]))
+
+    Mt, Gt, eps, res_u, x_star, x0, w0 = args32
+    xs, lw, anc = CF.block_lane_scan(*args32)
+    xs_p, lw_p, anc_p = resynced(eps.shape[0], plain_step)
+    same = anc == anc_p
+    share, err = agree_f32(name, anc, anc_p, [(lw, lw_p, same),
+                                              (xs, xs_p, same[:, None, :].expand_as(xs))])
+    xs64, lw64, anc64 = CF.block_lane_scan(*args64)
+    xs64_p, lw64_p, anc64_p = plain(*args64)
+    err64 = exact_f64(name, anc64, anc64_p, [(lw64, lw64_p), (xs64, xs64_p)])
+    return timed(name, {"max_abs_err": err, "index_agree_f32": share, "max_rel_err_f64": err64},
+                 lambda: CF.block_lane_scan(*args32), lambda: plain(*args32), reps)
+
+
+def timed(name, result, kernel, plain, reps):
+    """Add the f32 kernel's and plain version's CUDA-event times; log."""
+    result["ms"] = cuda_ms(kernel, reps)
+    result["plain_ms"] = cuda_ms(plain, 1)
+    log(f"  {name}: index agreement f32 {result['index_agree_f32']:.4f}, max abs err f32 "
+        f"{result['max_abs_err']:.3e}, f64 rel err {result['max_rel_err_f64']:.3e}; "
+        f"kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms")
+    return result
+
+
+def phase_csmc_kernels(dev):
+    """The three sweeps against their plain versions: on the inputs of real SV
+    steps (T=250, D=30, N=25), and at the larger sizes the TPU served with
+    its chunked (factor, N > 1024) and dense (block-lane, N = 1024) kernels."""
+    import torch
+    f32, f64 = torch.float32, torch.float64
+    log(f"phase 4: cSMC sweeps at SV T={SV_T}, D={SV_D}, N={SV_N} (f32: >= {AGREE_F32} of "
+        f"indices equal, values to {TOL_F32} where equal; f64: identical indices, "
+        f"rtol {RTOL_F64:g})")
+    csmc = {dt: sv_sweep_inputs(dev, dt, "csmc", SV_N, seed=4) for dt in (f32, f64)}
+    guided = {dt: sv_sweep_inputs(dev, dt, "csmc-guided", SV_N, seed=4) for dt in (f32, f64)}
+    label = f"SV T={SV_T} N={SV_N}"
+    results = {
+        "forward_factor_scan": check_forward_factor(
+            label, csmc[f32]["forward_factor_scan"], csmc[f64]["forward_factor_scan"],
+            False, reps=20),
+        "backward_factor_scan": check_backward_factor(
+            label, guided[f32]["backward_factor_scan"], guided[f64]["backward_factor_scan"],
+            reps=20),
+        "block_lane_scan": check_block_lane(
+            label, guided[f32]["block_lane_scan"], guided[f64]["block_lane_scan"], reps=20),
+    }
+    check_forward_factor(label, csmc[f32]["forward_factor_scan"],
+                         csmc[f64]["forward_factor_scan"], True, reps=20)
+    check_backward_factor(label + " csmc", csmc[f32]["backward_factor_scan"],
+                          csmc[f64]["backward_factor_scan"], reps=20)
+
+    n, N = 1023, 4096
+    log(f"  factor sweeps at T={n + 1}, N={N}, k=1 (random inputs):")
+    args64 = random_factor_inputs(dev, n, N, 1, seed=5)
+    args32 = tuple(z.float() for z in args64)
+    for pgas in (False, True):
+        check_forward_factor(f"T={n + 1} N={N}", args32, args64, pgas, reps=3)
+    b_T = torch.tensor(3, device=dev)
+    bwd64 = args64[:3] + (args64[3], args64[5], b_T)
+    check_backward_factor(f"T={n + 1} N={N}", tuple(z.float() for z in bwd64[:5]) + (b_T,),
+                          bwd64, reps=3)
+
+    big = {dt: sv_sweep_inputs(dev, dt, "csmc-guided", 1024, seed=6) for dt in (f32, f64)}
+    check_block_lane(f"SV T={SV_T} N=1024", big[f32]["block_lane_scan"],
+                     big[f64]["block_lane_scan"], reps=3)
+    return results
+
+
+def phase_csmc_step_reference(dev):
+    """Two f64 aux-cSMC steps of each SV style (T=32, D=4, N=16, backward
+    sampling, gradient shift off and on) on the card against the CPU, given
+    the same noise; the card's steps must have launched their sweeps."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    from aux_ssm_tpu_torch.ops import cuda as K
+
+    T_, D_, N_ = 32, 4, 16
+    xs, ys = sv.get_data(*SV_PARAMS, D_, T_, generator=torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(5)
+    delta = rng.uniform(0.2, 1.0, T_)
+    sweeps = {"csmc": ("forward_factor_scan", "backward_factor_scan"),
+              "csmc-guided": ("block_lane_scan", "backward_factor_scan")}
+    for style, used in sweeps.items():
+        for gradient in (False, True):
+            noises = [(rng.standard_normal((T_, D_)), rng.standard_normal((N_, D_)),
+                       rng.uniform(size=(T_ - 1, N_)), rng.standard_normal((T_ - 1, N_, D_)),
+                       rng.uniform(size=T_ - 1), rng.uniform(size=T_)) for _ in range(2)]
+            runs = {}
+            for where in ("cpu", dev):
+                init, kernel = sv_kernel(style, ys.to(where), N_, gradient)
+                state = init(xs.to(where))
+                K.reset_launches()
+                out = []
+                for noise in noises:
+                    state = kernel(state, torch.as_tensor(delta, device=where),
+                                   noise=tuple(torch.as_tensor(z, device=where) for z in noise))
+                    out.append((state.x.cpu(), state.updated.cpu()))
+                runs[str(where)] = out
+            launches = K.launches()
+            for name in CSMC_KERNELS:
+                want = len(noises) if name in used else 0
+                if launches[name] != want:
+                    raise AssertionError(f"{style}: {name} launched {launches[name]} times on "
+                                         f"the card, expected {want}")
+            worst = 0.0
+            for (xc, uc), (xg, ug) in zip(runs["cpu"], runs[str(dev)]):
+                if not torch.equal(uc, ug):
+                    raise AssertionError(f"{style}: `updated` differs between card and CPU")
+                worst = max(worst, float(((xg - xc).abs() / (1 + xc.abs())).max()))
+            log(f"  {style} gradient={gradient}, T={T_}, D={D_}, N={N_}, f64: card vs CPU "
+                f"rel err {worst:.3e} (bound {RTOL_F64:g})")
+            if not worst <= RTOL_F64:
+                raise AssertionError(f"{style}: card and CPU steps differ by {worst:.3e}")
+
+
+def sv_chain(dev, label, style, ys, x0, cfg, delta_init, gradient, seed, per_iter):
+    """run_chain of the SV sampler `style` on the card from x0; checks a finite
+    state and the exact sweep launches per iteration (`per_iter`). Returns
+    (mean update rate of the sampling phase, samples/s, launches, result)."""
+    import torch
+    from aux_ssm_tpu_torch.experiments import runner
+    from aux_ssm_tpu_torch.ops import cuda as K
+
+    init, kernel = sv_kernel(style, ys, SV_N, gradient)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    K.reset_launches()
+    res = runner.run_chain(kernel, init(x0), cfg, generator=gen, delta_init=delta_init)
+    launches = K.launches()
+    n_iter = max(cfg.burnin, 1) + cfg.n_samples
+    if tuple(res.state.x.shape) != tuple(x0.shape) or not bool(torch.isfinite(res.state.x).all()):
+        raise AssertionError(f"{label}: the chain's state is not finite")
+    for name, count in launches.items():
+        if count != per_iter.get(name, 0) * n_iter:
+            raise AssertionError(f"{label}: {name} launched {count} times in {n_iter} "
+                                 f"iterations, expected {per_iter.get(name, 0)} per iteration")
+    rate = float(res.stats.accept_cum.mean())
+    sps = cfg.n_samples / res.sampling_time
+    log(f"  {label}: {n_iter} iterations, mean update rate {rate:.4f}, {sps:.2f} samples/s, "
+        f"launches {({k: v for k, v in launches.items() if v})}")
+    return rate, sps, launches, res
+
+
+def phase_sv_chains(dev):
+    """Phases 6 and 7; returns the sweeps' launches summed over the chains."""
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig
+
+    f32 = torch.float32
+    total = dict.fromkeys(CSMC_KERNELS, 0)
+    guided_iter = {"block_lane_scan": 1, "backward_factor_scan": 1}
+    log(f"phase 6: csmc-guided, T={SV_T}, D={SV_D}, N={SV_N}, f32, frozen committed delta, "
+        f"from xs_true")
+    for gradient in (False, True):
+        name = "csmc_guided_gradient" if gradient else "csmc_guided_no-gradient"
+        ys, xs, delta = load_sv(name, dev, f32)
+        rate, _, launches, _ = sv_chain(
+            dev, f"csmc-guided gradient={gradient}", "csmc-guided", ys, xs,
+            RunConfig(n_samples=500, burnin=100, learning_rate=0.0), delta, gradient,
+            seed=10 + gradient, per_iter=guided_iter)
+        if not 0.4 <= rate <= 0.6:
+            raise AssertionError(f"csmc-guided gradient={gradient}: update rate {rate:.4f} "
+                                 "outside [0.4, 0.6]")
+        for k in total:
+            total[k] += launches[k]
+
+    log(f"phase 7: csmc (sequential sweep), T={SV_T}, D={SV_D}, N={SV_N}, f32, (T,) delta "
+        "adapted from 1e-2 toward 0.5, from xs_true")
+    ys, xs, _ = load_sv("csmc_no-gradient", dev, f32)
+    rate, _, launches, res = sv_chain(
+        dev, "csmc", "csmc", ys, xs, RunConfig(n_samples=300, burnin=200, target_alpha=0.5),
+        torch.full((SV_T,), 1e-2, dtype=f32, device=dev), False, seed=12,
+        per_iter={"forward_factor_scan": 1, "backward_factor_scan": 1})
+    if not 0.0 < rate < 1.0:
+        raise AssertionError(f"csmc: update rate {rate:.4f} outside (0, 1)")
+    log(f"  csmc: adapted delta in [{float(res.delta.min()):.4e}, {float(res.delta.max()):.4e}]")
+    for k in total:
+        total[k] += launches[k]
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -264,10 +651,15 @@ def main():
     if not 0.0 < acc1 <= 1.0:
         raise AssertionError(f"order 1: acceptance {acc1} outside (0, 1]")
 
+    results.update(phase_csmc_kernels(dev))
+    log("phase 5: f64 aux-cSMC steps, card vs CPU")
+    phase_csmc_step_reference(dev)
+    launches.update(phase_sv_chains(dev))
+
+    sources = {name: entry[:2] for name, entry in KERNELS.items()} | CSMC_KERNELS
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
-                "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
-               for name, (src, rep, _) in KERNELS.items()]
+                "launches": launches[name], **results[name]}
+               for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

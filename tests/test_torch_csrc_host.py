@@ -3,8 +3,9 @@ built as host C++ with g++ and run one "thread" at a time, against the plain
 PyTorch versions in float64.
 
 Everything above each source's launch section is plain C++ on pointers, so
-the per-step maps and the three scan passes run here unchanged; only the
-launch itself needs nvcc and a card. Tolerance: both sides compute the same
+the per-step maps, the three scan passes and the three cSMC sweeps run here
+unchanged; only the launch itself needs nvcc and a card. The sweeps'
+indices must be identical. Tolerance: both sides compute the same
 algebra in float64 with different summation orders and solvers (substitution
 here, LAPACK there), so they agree to ~1e-12; rtol 1e-9 leaves margin and
 still catches any wrong term.
@@ -19,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda._build import CSRC, MAX_DIM  # noqa: E402
@@ -103,6 +105,57 @@ void h_affine_scan(int n, int d, int rev, double* G, double* e, double* oG, doub
 """
 
 
+_CSMC_PRELUDE = """
+#define AUX_HD inline
+#define AUX_BSYNC()
+#define AUX_LANES 1
+#define AUX_WSYNC()
+"""
+
+_CSMC_FWD = """
+#include "csmc_fwd.cu"
+extern "C" {
+void h_forward_factor(int n, int N, int k, int pgas, const double* rf, const double* cf,
+    const double* rb, const double* cb, const double* res_u, const double* anc_u,
+    const double* w0, double* log_ws, long long* anc, double* w, double* cw) {
+  double red[33];
+  int a0 = 0;
+  const csmc::Block<double> b{0, 1, red};
+  if (pgas)
+    forward_factor_sweep<double, true>(b, n, N, k, rf, cf, rb, cb, res_u, anc_u, w0, log_ws,
+                                       anc, w, cw, &a0);
+  else
+    forward_factor_sweep<double, false>(b, n, N, k, rf, cf, rb, cb, res_u, anc_u, w0, log_ws,
+                                        anc, w, cw, &a0);
+}
+void h_backward_factor(int n, int N, int k, const double* rf, const double* cf,
+    const double* rb, const double* lw, const double* us, const long long* b_T,
+    long long* picked, double* w) {
+  double red[33];
+  int bsel = 0;
+  backward_factor_sweep<double>(csmc::Block<double>{0, 1, red}, n, N, k, rf, cf, rb, lw, us,
+                                b_T, picked, w, &bsel);
+}
+}
+"""
+
+_CSMC_BLOCK = """
+#include "csmc_block_lane.cu"
+extern "C" {
+void h_block_lane_sv_guided(int n, int N, int d, const double* eps, const double* res_u,
+    const double* x_star, const double* x0, const double* w0, const double* consts,
+    const double* params, double* xs, double* log_ws, long long* anc, double* w, double* cw) {
+  double red[33], scratch[csmc::SvGuided<double>::kScratch * 32];
+  const int dd = d * d;
+  const csmc::SvGuided<double> model{d, N, consts, consts + dd, consts + 2 * dd,
+      consts + 3 * dd, consts + 3 * dd + d, consts[3 * dd + 2 * d], params};
+  block_lane_sweep<double>(csmc::Block<double>{0, 1, red}, n, N, d, eps, res_u, x_star, x0,
+                           w0, model, xs, log_ws, anc, w, cw, scratch);
+}
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
@@ -110,9 +163,12 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs g++ to build the kernel sources as host code")
     out = tmp_path_factory.mktemp("csrc_host")
     libs = {}
-    for name, body in (("maps", _MAPS), ("scan", _SCAN)):
+    for name, body in (("maps", _PRELUDE + _MAPS % {"D": MAX_DIM}),
+                       ("scan", _PRELUDE + _SCAN % {"D": MAX_DIM}),
+                       ("csmc_fwd", _CSMC_PRELUDE + _CSMC_FWD),
+                       ("csmc_block", _CSMC_PRELUDE + _CSMC_BLOCK)):
         src = out / f"{name}.cpp"
-        src.write_text(_PRELUDE + body % {"D": MAX_DIM})
+        src.write_text(body)
         so = out / f"lib{name}.so"
         subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(CSRC),
                         "-o", str(so), str(src)], check=True, capture_output=True)
@@ -206,3 +262,62 @@ def test_host_affine_scan_matches_plain(host_lib, T, d, reverse):
     _call(host_lib["scan"].h_affine_scan, T, d, reverse, gains, incs, *got, scratch)
     for g, w in zip(got, want):
         _close(g, w)
+
+
+def _factor_inputs(n, N, k, seed):
+    rng = np.random.default_rng(seed)
+    w0 = rng.uniform(0.1, 1.0, N)
+    return tuple(torch.as_tensor(z) for z in (
+        0.5 * rng.standard_normal((n, N, k)), 0.5 * rng.standard_normal((n, N, k)),
+        rng.standard_normal((n, N)), rng.standard_normal((n, N)), rng.uniform(size=(n, N)),
+        rng.uniform(size=n), w0 / w0.sum()))
+
+
+@pytest.mark.parametrize("n,N,k,pgas", [(23, 32, 2, False), (23, 32, 2, True),
+                                        (9, 300, 30, False), (5, 2048, 1, True)])
+def test_host_forward_factor_matches_plain(host_lib, n, N, k, pgas):
+    args = _factor_inputs(n, N, k, seed=N + k)
+    want_lw, want_anc = CF.forward_factor_scan_plain(*args, pgas=pgas)
+    lw, anc = torch.empty(n, N, dtype=torch.float64), torch.empty(n, N, dtype=torch.int64)
+    w, cw = torch.empty(N, dtype=torch.float64), torch.empty(N, dtype=torch.float64)
+    _call(host_lib["csmc_fwd"].h_forward_factor, n, N, k, pgas, *args, lw, anc, w, cw)
+    np.testing.assert_array_equal(anc.numpy(), want_anc.numpy())
+    _close(lw, want_lw)
+
+
+@pytest.mark.parametrize("n,N,k", [(19, 16, 3), (6, 2048, 1), (24, 25, 30)])
+def test_host_backward_factor_matches_plain(host_lib, n, N, k):
+    rf, cf, rb, lw, _, us, _ = _factor_inputs(n, N, k, seed=k)
+    b_T = torch.tensor(3, dtype=torch.int64)
+    want = CF.backward_factor_scan_plain(rf, cf, rb, lw, us, b_T)
+    got = torch.empty(n, dtype=torch.int64)
+    w = torch.empty(N, dtype=torch.float64)
+    _call(host_lib["csmc_fwd"].h_backward_factor, n, N, k, rf, cf, rb, lw, us, b_T.reshape(1),
+          got, w)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("T,D,N", [(12, 3, 16), (9, 30, 25)])
+def test_host_block_lane_sv_guided_matches_plain(host_lib, T, D, N):
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    _, ys = sv.get_data(0.0, 0.9, 2.0, 0.25, D, T, generator=torch.Generator().manual_seed(T))
+    factory, _ = sv.make_guided_factory(ys, 0.0, 0.9, 2.0, 0.25)
+    rng = np.random.default_rng(D)
+    u = torch.as_tensor(rng.standard_normal((T, D)))
+    scale = torch.as_tensor(rng.uniform(0.3, 0.6, size=T))
+    _, _, Mt, Gt = factory(u, scale)
+    n = T - 1
+    eps, x0 = (torch.as_tensor(rng.standard_normal(s)) for s in ((n, D, N), (D, N)))
+    res_u = torch.as_tensor(rng.uniform(size=(n, N)))
+    x_star = torch.as_tensor(rng.standard_normal((n, D)))
+    w0 = torch.full((N,), 1.0 / N, dtype=torch.float64)
+    want = CF.block_lane_scan(Mt, Gt, eps, res_u, x_star, x0, w0)
+    consts, params = Gt.cuda_operands()
+    xs, lw = torch.empty(n, D, N, dtype=torch.float64), torch.empty(n, N, dtype=torch.float64)
+    anc = torch.empty(n, N, dtype=torch.int64)
+    w, cw = torch.empty(N, dtype=torch.float64), torch.empty(N, dtype=torch.float64)
+    _call(host_lib["csmc_block"].h_block_lane_sv_guided, n, N, D, eps, res_u, x_star, x0, w0,
+          consts, params.contiguous(), xs, lw, anc, w, cw)
+    np.testing.assert_array_equal(anc.numpy(), want[2].numpy())
+    _close(xs, want[0])
+    _close(lw, want[1])

@@ -6,8 +6,8 @@ card. On a machine with a card and without JAX run them with
 
 Tolerances: in float64 kernel and plain compute the same algebra with other
 summation orders and solvers, so they agree to ~1e-12 (rtol 1e-9 checks
-every term); in float32 at the main path's shapes the bound is 1e-4
-norm-relative against the float64 plain run.
+every term), and the cSMC sweeps' indices are identical. The float32 bounds
+at the main path's shapes are in `chip_smoke.py`.
 """
 import numpy as np
 import pytest
@@ -17,6 +17,7 @@ torch.set_num_threads(1)
 
 from aux_ssm_tpu_torch import get_kernel  # noqa: E402
 from aux_ssm_tpu_torch.models import lgssm_flagship  # noqa: E402
+from aux_ssm_tpu_torch.models import stochastic_volatility as sv  # noqa: E402
 from aux_ssm_tpu_torch.ops import cuda as K  # noqa: E402
 from aux_ssm_tpu_torch.ops.filtering import (  # noqa: E402
     _make_associative_elements, filtering, kalman_update)
@@ -24,7 +25,7 @@ from aux_ssm_tpu_torch.ops.lgssm import LGSSM  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-KF, FS = K.kalman_fused, K.filter_scan
+KF, FS, CF = K.kalman_fused, K.filter_scan, K.csmc_fwd
 
 
 @pytest.fixture(scope="module")
@@ -141,3 +142,81 @@ def test_step_matches_cpu(dev, order):
         assert uc == ug
         np.testing.assert_allclose(xg.numpy(), xc.numpy(), rtol=1e-9, atol=1e-11)
         np.testing.assert_allclose(lg, lc, rtol=1e-9)
+
+
+# --------------------------------------------------------------------------
+# The cSMC sweeps and the stochastic-volatility particle-Gibbs step
+# --------------------------------------------------------------------------
+
+SV_PARAMS = (0.0, 0.9, 2.0, 0.25)
+
+
+def _factor_inputs(n, N, k, seed):
+    rng = np.random.default_rng(seed)
+    w0 = rng.uniform(0.1, 1.0, N)
+    return tuple(torch.as_tensor(z) for z in (
+        0.5 * rng.standard_normal((n, N, k)), 0.5 * rng.standard_normal((n, N, k)),
+        rng.standard_normal((n, N)), rng.standard_normal((n, N)), rng.uniform(size=(n, N)),
+        rng.uniform(size=n), w0 / w0.sum()))
+
+
+@pytest.mark.parametrize("n,N,k,pgas", [(23, 32, 2, False), (23, 32, 2, True),
+                                        (9, 300, 30, False), (5, 4096, 1, True)])
+def test_forward_factor_matches_plain(dev, n, N, k, pgas):
+    _close(*_both(CF.forward_factor_scan, _factor_inputs(n, N, k, seed=N) + (pgas,), dev))
+
+
+@pytest.mark.parametrize("n,N,k", [(19, 16, 3), (24, 25, 30), (6, 4096, 1)])
+def test_backward_factor_matches_plain(dev, n, N, k):
+    rf, cf, rb, lw, _, us, _ = _factor_inputs(n, N, k, seed=k)
+    _close(*_both(CF.backward_factor_scan, (rf, cf, rb, lw, us, torch.tensor(3)), dev))
+
+
+@pytest.mark.parametrize("T,D,N", [(12, 3, 16), (40, 30, 25), (9, 30, 1024)])
+def test_block_lane_matches_plain(dev, T, D, N):
+    _, ys = sv.get_data(*SV_PARAMS, D, T, generator=torch.Generator().manual_seed(T))
+    rng = np.random.default_rng(D)
+    n = T - 1
+    inputs = tuple(torch.as_tensor(z) for z in (
+        rng.standard_normal((T, D)), rng.uniform(0.3, 0.6, size=T),
+        rng.standard_normal((n, D, N)), rng.uniform(size=(n, N)),
+        rng.standard_normal((n, D)), rng.standard_normal((D, N)), np.full(N, 1.0 / N)))
+    out = []
+    for where in ("cpu", dev):
+        u, scale, *sweep = (z.to(where) for z in inputs)
+        factory, _ = sv.make_guided_factory(ys.to(where), *SV_PARAMS)
+        _, _, Mt, Gt = factory(u, scale)
+        before = CF.block_lane_scan.launches
+        out.append(tuple(z.cpu() for z in CF.block_lane_scan(Mt, Gt, *sweep)))
+    assert CF.block_lane_scan.launches == before + 1
+    _close(out[1], out[0])
+
+
+@pytest.mark.parametrize("style", ["csmc", "csmc-guided"])
+@pytest.mark.parametrize("gradient", [False, True])
+def test_csmc_step_matches_cpu(dev, style, gradient):
+    """Two f64 aux-cSMC steps of the SV model (T=32, D=4, N=16, backward
+    sampling) on the card against the CPU, given the same noise."""
+    T, D, N = 32, 4, 16
+    xs, ys = sv.get_data(*SV_PARAMS, D, T, generator=torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(5)
+    delta = torch.as_tensor(rng.uniform(0.2, 1.0, T))
+    noises = [tuple(torch.as_tensor(z) for z in (
+        rng.standard_normal((T, D)), rng.standard_normal((N, D)), rng.uniform(size=(T - 1, N)),
+        rng.standard_normal((T - 1, N, D)), rng.uniform(size=T - 1), rng.uniform(size=T)))
+        for _ in range(2)]
+    get = sv.get_csmc_kernel if style == "csmc" else sv.get_guided_csmc_kernel
+    out = []
+    for where in ("cpu", dev):
+        init, kernel = get(ys.to(where), *SV_PARAMS, N, backward=True, gradient=gradient)
+        state = init(xs.to(where))
+        before = CF.backward_factor_scan.launches
+        steps = []
+        for noise in noises:
+            state = kernel(state, delta.to(where), noise=_to(noise, where))
+            steps.append((state.x.cpu(), state.updated.cpu()))
+        out.append(steps)
+    assert CF.backward_factor_scan.launches == before + len(noises)
+    for (xc, uc), (xg, ug) in zip(*out):
+        assert torch.equal(uc, ug)
+        np.testing.assert_allclose(xg.numpy(), xc.numpy(), rtol=1e-9, atol=1e-11)
