@@ -1,7 +1,11 @@
 """PyTorch/CUDA port of `aux_ssm_tpu`: the auxiliary-Kalman MH step, run
-parallel-in-time, and the sequential auxiliary particle Gibbs (cSMC) of the
-stochastic-volatility model, through hand-written CUDA kernels on an NVIDIA
-Hopper card (plain PyTorch on the CPU).
+parallel-in-time, the sequential auxiliary particle Gibbs (cSMC) of the
+stochastic-volatility model, and the scalar-state particle Gibbs of the
+theta-logistic (PGAS) and rare-event models, through hand-written CUDA
+kernels on an NVIDIA Hopper card (plain PyTorch on the CPU).
+
+Entry points that take a `device` allocate on the card when it is None
+(`default_device`); a caller that wants the CPU asks for it.
 
 Float32 matmuls must stay IEEE: reduced precision (TF32 on the card) makes
 the forward and reverse proposal densities disagree and collapses the MH
@@ -13,12 +17,14 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .convert import lgssm_from_numpy, sv_from_numpy  # noqa: E402
+from .convert import (lgssm_from_numpy, rare_event_from_numpy, sv_from_numpy,  # noqa: E402
+                      theta_logistic_from_numpy)
+from .device import default_device  # noqa: E402
 from .experiments.runner import RunConfig, RunResult, run_chain  # noqa: E402
 from .kernels.adaptation import delta_adaptation  # noqa: E402
 from .kernels.csmc_base import CSMCState  # noqa: E402
 from .kernels.kalman import KalmanSampler, get_kernel  # noqa: E402
-from .models import stochastic_volatility  # noqa: E402
+from .models import rare_event, stochastic_volatility, theta_logistic  # noqa: E402
 from .ops import (LGSSM, filtering, log_likelihood, make_target_logpdf,  # noqa: E402
                   posterior_logpdf, prior_logpdf, sampling)
 
@@ -28,6 +34,7 @@ __all__ = [
     "KalmanSampler",
     "RunConfig",
     "RunResult",
+    "default_device",
     "delta_adaptation",
     "filtering",
     "get_kernel",
@@ -36,8 +43,12 @@ __all__ = [
     "make_target_logpdf",
     "posterior_logpdf",
     "prior_logpdf",
+    "rare_event",
+    "rare_event_from_numpy",
     "run_chain",
     "sampling",
     "stochastic_volatility",
     "sv_from_numpy",
+    "theta_logistic",
+    "theta_logistic_from_numpy",
 ]

@@ -20,3 +20,19 @@ def sv_from_numpy(ys, xs=None, *, device, dtype):
     parameters (nu, phi, tau, rho) are Python floats on both sides."""
     ys = torch.as_tensor(ys, dtype=dtype, device=device)
     return ys, None if xs is None else torch.as_tensor(xs, dtype=dtype, device=device)
+
+
+def theta_logistic_from_numpy(ys, xs=None, *, device, dtype):
+    """The theta-logistic data of the JAX package (`theta_logistic.get_data`'s
+    (xs, ys), each (T, 1)) as tensors: returns `(ys, xs)`, `xs` None when not
+    given. The model's parameters are Python floats on both sides."""
+    return sv_from_numpy(ys, xs, device=device, dtype=dtype)
+
+
+def rare_event_from_numpy(x, delta=None, *, device, dtype):
+    """A rare-event chain's state carried across: the trajectory `x` ((T,) or
+    (T, 1), e.g. `rare_event.init_x`'s draw) and, when given, the step size
+    `delta` (a scalar or (T,)). Returns `(x (T, 1), delta)`. The model itself
+    is (y, rho, r2, T), Python numbers on both sides."""
+    x = torch.as_tensor(x, dtype=dtype, device=device).reshape(-1, 1)
+    return x, None if delta is None else torch.as_tensor(delta, dtype=dtype, device=device)

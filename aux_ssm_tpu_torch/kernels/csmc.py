@@ -16,13 +16,12 @@ Dispatch by model capability, as in the JAX package (there by platform and
 environment flags; here the same path runs everywhere, a CPU tensor through
 the kernels' plain versions and a CUDA tensor through the kernels):
   - forward: the factor sweep (`ops/cuda/csmc_fwd.forward_factor_scan`) for
-    independent proposals with pair-factorising weights; the block-lane
-    sweep (`block_lane_scan`) for d > 1 models with (d, N)-block callables;
-    otherwise the generic step loop;
+    independent proposals with pair-factorising weights; the lane sweep
+    (`lane_scan`) for scalar-state models with (N,)-row lane callables,
+    PGAS included; the block-lane sweep (`block_lane_scan`) for d > 1 models
+    with (d, N)-block callables; otherwise the generic step loop;
   - backward sampling: the factor sweep (`backward_factor_scan`) when the
     true dynamics have `logpdf_factors`; otherwise the generic loop.
-The lane sweep of scalar-state models (`_use_lane_forward` in JAX) is not
-ported yet: such models take the generic loop here.
 """
 import torch
 
@@ -112,6 +111,17 @@ def _use_fused_forward(Mt, Gt, resample, ancestor_Pt, N):
     return _factor_sweep_takes(N)
 
 
+def _use_lane_forward(x_star, Mt, Gt, resample, ancestor_Pt, N):
+    """(N,)-row lane callables of a scalar-state model; PGAS needs
+    `lane_logpdf` on the ancestor dynamics."""
+    if x_star.shape[-1] != 1 or not _factor_sweep_takes(N):
+        return False
+    if not (hasattr(Mt, "lane_propagate") and hasattr(Gt, "lane_logw")
+            and hasattr(Mt, "sample_from_noise") and resample is resampling_mod.multinomial):
+        return False
+    return ancestor_Pt is None or hasattr(ancestor_Pt, "lane_logpdf")
+
+
 def _use_block_lane_forward(x_star, Mt, Gt, resample, ancestor_Pt, N):
     """(d, N)-block callables of a d > 1 model, dense N <= 1024, no PGAS."""
     if x_star.shape[-1] <= 1 or N > csmc_fwd.MAX_BLOCK_N or ancestor_Pt is not None:
@@ -153,6 +163,19 @@ def _fused_forward_pass(x_star, M0, G0, Mt, Gt, N, ancestor_Pt, noise):
     return normalize(log_ws_rest[-1]), xs, log_ws, ancestors
 
 
+def _lane_forward_pass(x_star, M0, G0, Mt, Gt, N, ancestor_Pt, noise):
+    """State-dependent proposals of a scalar-state model through the lane
+    sweep; the noise is the generic draw with its unit state axis dropped."""
+    eps_m0, res_u, eps_prop, anc_u = noise
+    x0, log_w0, w0 = _initial(x_star, M0, G0, eps_m0)
+    xs_r, log_ws_r, ancestors = csmc_fwd.lane_scan(
+        Mt, Gt, ancestor_Pt, eps_prop[:, :, 0].contiguous(), res_u.contiguous(),
+        anc_u.contiguous(), x_star[1:, 0].contiguous(), x0[:, 0].contiguous(), w0)
+    xs = torch.cat([x0[None], xs_r[..., None]])
+    log_ws = torch.cat([log_w0[None], log_ws_r])
+    return normalize(log_ws_r[-1]), xs, log_ws, ancestors
+
+
 def _block_lane_forward_pass(x_star, M0, G0, Mt, Gt, N, noise):
     """State-dependent proposals through the block-lane sweep; the noise is
     the generic (T-1, N, d) draw transposed, so the values used are the
@@ -174,6 +197,8 @@ def forward_pass(x_star, M0, G0, Mt, Gt, N, resample, noise, ancestor_Pt=None):
     if x_star.shape[0] >= 2:  # T == 1: nothing to sweep; the loop degrades correctly
         if _use_fused_forward(Mt, Gt, resample, ancestor_Pt, N):
             return _fused_forward_pass(x_star, M0, G0, Mt, Gt, N, ancestor_Pt, noise)
+        if _use_lane_forward(x_star, Mt, Gt, resample, ancestor_Pt, N):
+            return _lane_forward_pass(x_star, M0, G0, Mt, Gt, N, ancestor_Pt, noise)
         if _use_block_lane_forward(x_star, Mt, Gt, resample, ancestor_Pt, N):
             return _block_lane_forward_pass(x_star, M0, G0, Mt, Gt, N, noise)
 

@@ -121,6 +121,11 @@ def chol_gaussian_pair_factors(mean_prev, x_next, chol):
     return row_feat, col_feat, row_bias, col_bias
 
 
+def rows(p, x):
+    """A per-step (..., d) parameter aligned with particles (..., N, d)."""
+    return p.unsqueeze(-2) if x.dim() > p.dim() else p
+
+
 def tree_map(fn, tree):
     """Apply `fn` to every tensor of a nested tuple/list/dict (None kept)."""
     if tree is None:

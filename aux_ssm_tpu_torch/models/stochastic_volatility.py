@@ -16,17 +16,20 @@ main-path kernels are built for d <= 16.
 
 Constant factorisations (Cholesky, eigendecomposition) are computed once,
 in float64 on the CPU, then cast to the data's dtype and device, so the card
-and the CPU use the same ones.
+and the CPU use the same ones. Functions that take a `device` allocate on the
+card when it is None (`device.default_device`).
 """
 import math
 from dataclasses import dataclass
 
 import torch
 
+from ..device import resolve
 from ..kernels import csmc_aux, csmc_independent
 from ..kernels.csmc_base import (Distribution, Dynamics, Potential, UnivariatePotential,
-                                 chol_gaussian_pair_factors)
+                                 chol_gaussian_pair_factors, rows as _rows)
 from ..ops import mvn
+from ..ops.mvn import norm_logpdf as _norm_logpdf
 from ..ops.resampling import choice_from_uniform
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -36,15 +39,17 @@ _LOG_2PI = math.log(2.0 * math.pi)
 # Model definition
 # --------------------------------------------------------------------------
 
-def stationary_covariance(phi, tau, rho, dim, *, dtype=torch.float64, device="cpu"):
+def stationary_covariance(phi, tau, rho, dim, *, dtype=torch.float64, device=None):
     """tau ((1-rho) I + rho 11^T) / (1 - phi^2)."""
+    device = resolve(device)
     U = tau * (rho * torch.ones(dim, dim, dtype=dtype, device=device)
                + (1.0 - rho) * torch.eye(dim, dtype=dtype, device=device))
     return U / (1.0 - phi ** 2)
 
 
-def get_dynamics(nu, phi, tau, rho, dim, *, dtype=torch.float64, device="cpu"):
+def get_dynamics(nu, phi, tau, rho, dim, *, dtype=torch.float64, device=None):
     """LGSSM dynamics (m0, P0, F, Q, b) of the log-volatility chain."""
+    device = resolve(device)
     F = phi * torch.eye(dim, dtype=dtype, device=device)
     Q = stationary_covariance(phi, tau, rho, dim, dtype=dtype, device=device)
     mu = nu * torch.ones(dim, dtype=dtype, device=device)
@@ -58,13 +63,16 @@ def _cast(like, *tensors):
 def _factored_dynamics(nu, phi, tau, rho, like):
     """(m0, chol_P0, F, Q, chol_Q, b) factored in float64 on the CPU, cast to
     `like`'s dtype and device."""
-    m0, P0, F, Q, b = get_dynamics(nu, phi, tau, rho, like.shape[-1])
+    m0, P0, F, Q, b = get_dynamics(nu, phi, tau, rho, like.shape[-1], device="cpu")
     return _cast(like, m0, torch.linalg.cholesky(P0), F, Q, torch.linalg.cholesky(Q), b)
 
 
-def get_data(nu, phi, tau, rho, dim, T, *, generator=None, dtype=torch.float64, device="cpu"):
-    """Simulate (xs, ys), each (T, dim), with normals from `generator`."""
-    m0, P0, F, Q, b = get_dynamics(nu, phi, tau, rho, dim)
+def get_data(nu, phi, tau, rho, dim, T, *, generator=None, dtype=torch.float64, device=None):
+    """Simulate (xs, ys), each (T, dim), with normals from `generator` (a CPU
+    generator: the simulation runs in float64 on the CPU, and the result is
+    moved to `device`)."""
+    device = resolve(device)
+    m0, P0, F, Q, b = get_dynamics(nu, phi, tau, rho, dim, device="cpu")
     chol_P0, chol_Q = torch.linalg.cholesky(P0), torch.linalg.cholesky(Q)
     eps = torch.randn(2 * T + 1, dim, generator=generator, dtype=torch.float64)
     x = m0 + chol_P0 @ eps[0]
@@ -75,13 +83,6 @@ def get_data(nu, phi, tau, rho, dim, T, *, generator=None, dtype=torch.float64, 
     xs = torch.stack(xs)
     ys = torch.exp(0.5 * xs) * eps[T + 1:]
     return xs.to(dtype=dtype, device=device), ys.to(dtype=dtype, device=device)
-
-
-def _norm_logpdf(x, loc, scale):
-    """log N(x; loc, scale^2) as jax.scipy.stats.norm.logpdf computes it."""
-    s2 = scale * scale
-    z = x - loc
-    return (torch.log((2.0 * math.pi) * s2) + z * z / s2) / -2.0
 
 
 def _log_potential_one(x, y):
@@ -139,11 +140,6 @@ def init_x_fn(ys, nu, phi, tau, rho, N, generator=None, noise=None):
 # --------------------------------------------------------------------------
 # Feynman–Kac components (cSMC styles); broadcast convention of `csmc_base`
 # --------------------------------------------------------------------------
-
-def _rows(p, x):
-    """A per-step (..., d) parameter aligned with particles (..., N, d)."""
-    return p.unsqueeze(-2) if x.dim() > p.dim() else p
-
 
 @dataclass(frozen=True)
 class SvPrior(Distribution, UnivariatePotential):
@@ -401,7 +397,7 @@ def make_guided_factory(ys, nu, phi, tau, rho, gradient=False, eig=None):
     draws from the same noise needs its basis.
     """
     T, d = ys.shape
-    m0, P0, F, Q, b = get_dynamics(nu, phi, tau, rho, d)
+    m0, P0, F, Q, b = get_dynamics(nu, phi, tau, rho, d, device="cpu")
     _, _, Pt, _ = get_feynman_kac(ys, nu, phi, tau, rho)
     if eig is None:
         lamQ, VQ = torch.linalg.eigh(Q)

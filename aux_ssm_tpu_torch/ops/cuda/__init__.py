@@ -7,7 +7,7 @@ from . import csmc_fwd, filter_scan, kalman_fused
 WRAPPERS = (kalman_fused.make_elements, filter_scan.filter_scan, kalman_fused.ell,
             kalman_fused.backward_maps, filter_scan.affine_scan, kalman_fused.logdensity_steps,
             csmc_fwd.forward_factor_scan, csmc_fwd.backward_factor_scan,
-            csmc_fwd.block_lane_scan)
+            csmc_fwd.lane_scan, csmc_fwd.block_lane_scan)
 
 
 def reset_launches():

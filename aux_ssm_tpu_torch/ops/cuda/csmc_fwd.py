@@ -1,16 +1,17 @@
-"""cSMC sweeps: wrappers of `csrc/csmc_fwd.cu` and `csrc/csmc_block_lane.cu`
-with their plain PyTorch versions (counterpart of
+"""cSMC sweeps: wrappers of `csrc/csmc_fwd.cu`, `csrc/csmc_lane.cu` and
+`csrc/csmc_block_lane.cu` with their plain PyTorch versions (counterpart of
 `aux_ssm_tpu/ops/pallas/csmc_fwd.py`).
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel or raises. Each wrapper counts its kernel launches in
 its `launches` attribute. The plain versions follow the XLA oracles of the
-JAX package (`factor_scan_xla`, `backward_factor_scan_xla`,
+JAX package (`factor_scan_xla`, `backward_factor_scan_xla`, `lane_scan_xla`,
 `block_lane_scan_xla`) step for step; indices are int64.
 
 Shapes (n = T - 1 steps, N particles, k factor width, d state width):
 rf, cf (n, N, k); rb, cb, log_ws, res_u (n, N); anc_u, us (n,); w0 (N,);
-eps, xs (n, d, N); x_star (n, d); x0 (d, N).
+block-lane sweep: eps, xs (n, d, N); x_star (n, d); x0 (d, N);
+lane sweep (scalar state): eps, xs (n, N); x_star (n,); x0 (N,).
 """
 import torch
 
@@ -18,7 +19,7 @@ from ...kernels.csmc_base import tree_map
 from ._build import check_cuda_inputs, launch
 from .kalman_fused import _on_cuda
 
-MAX_N = 8192        # factor kernels (the TPU kernels' _LANE_MAX_N)
+MAX_N = 8192        # factor and lane kernels (the TPU kernels' _LANE_MAX_N)
 MAX_BLOCK_N = 1024  # block-lane kernel (the TPU kernel's dense cap)
 MAX_BLOCK_D = 32    # kMaxBlockD of csrc/csmc_block_lane.cu
 
@@ -139,6 +140,93 @@ def backward_factor_scan(rf, cf, rb, log_ws, us, b_T):
 
 
 backward_factor_scan.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Lane forward sweep (lane_forward_scan): scalar state, the model in the kernel
+# --------------------------------------------------------------------------
+
+# cuda_model -> (constants, per-step parameters) of its functor in
+# csrc/csmc_models.cuh.
+LANE_MODELS = {"theta_logistic": (5, 1), "rare_event_guided": (2, 10),
+               "rare_event_bootstrap": (1, 5), "ar1_gauss": (3, 1)}
+
+
+def lane_scan_plain(propagate, logw, pgas_logpdf, mt_params, gt_params, pt_params, eps, res_u,
+                    anc_u, x_star, x0, w0):
+    """State-dependent cSMC forward sweep of a scalar-state model on (N,)
+    particle rows. `propagate(eps, x_prev, mt_p) -> (N,)`, `logw(x_next,
+    x_prev, gt_p) -> (N,)` and `pgas_logpdf(x_star, x_prev, pt_p) -> (N,)`
+    (None: no ancestor sampling) are the model's lane callables; `mt_p`,
+    `gt_p`, `pt_p` one time step of the params. Conditional multinomial
+    resampling of the carried weights; lane 0 pinned to 0, or redrawn under
+    PGAS from log(max(w, 1e-37)) + pgas_logpdf(x*_t, x_prev) at anc_u * total;
+    particle 0 pinned to x*_t.
+    Returns (xs (n, N), log_ws (n, N), ancestors (n, N) int64)."""
+    n, N = res_u.shape
+    xs = eps.new_empty(n, N)
+    log_ws = eps.new_empty(n, N)
+    ancestors = torch.empty(n, N, dtype=torch.int64, device=eps.device)
+    x_prev, w = x0, w0
+    for t in range(n):
+        anc = _resample(torch.cumsum(w, 0), res_u[t], N)
+        if pgas_logpdf is not None:
+            score = (torch.log(torch.clamp_min(w, 1e-37))
+                     + pgas_logpdf(x_star[t], x_prev, _at(pt_params, t)))
+            cwa = torch.cumsum(torch.exp(score - score.max()), 0)
+            anc[0] = (cwa < anc_u[t] * cwa[-1]).sum().clamp(max=N - 1)
+        else:
+            anc[0] = 0
+        x_res = x_prev[anc]
+        x_t = propagate(eps[t], x_res, _at(mt_params, t))
+        x_t[0] = x_star[t]
+        log_w = logw(x_t, x_res, _at(gt_params, t))
+        xs[t], log_ws[t], ancestors[t] = x_t, log_w, anc
+        x_prev, w = x_t, _carry(log_w)
+    return xs, log_ws, ancestors
+
+
+def lane_scan(Mt, Gt, Pt, eps, res_u, anc_u, x_star, x0, w0):
+    """The lane sweep of the scalar-state model (Mt, Gt), with ancestor
+    sampling from `Pt.lane_logpdf` when `Pt` is given; see `lane_scan_plain`.
+    On the card the model's step is a functor compiled into the kernel, named
+    by the class attribute `cuda_model` of Mt and Gt; Gt's `cuda_operands()`
+    hands over its constants and compact per-step rows. The functor scores
+    ancestors with Mt's own transition, so there `Pt` must be Mt."""
+    if not _on_cuda("lane_scan", eps):
+        return lane_scan_plain(Mt.lane_propagate, Gt.lane_logw,
+                               None if Pt is None else Pt.lane_logpdf, Mt.params, Gt.params,
+                               None if Pt is None else Pt.params, eps, res_u, anc_u, x_star,
+                               x0, w0)
+    model = getattr(Gt, "cuda_model", None)
+    if model not in LANE_MODELS or getattr(Mt, "cuda_model", None) != model:
+        raise NotImplementedError(
+            f"lane_scan: no CUDA functor for {type(Mt).__name__}/{type(Gt).__name__} "
+            f"(csrc/csmc_models.cuh has {', '.join(LANE_MODELS)})")
+    if Pt is not None and Pt is not Mt:
+        raise NotImplementedError(
+            "lane_scan: the CUDA functor scores ancestors with Mt's own transition; "
+            f"got another Pt ({type(Pt).__name__})")
+    n, N = res_u.shape
+    _check_n("lane_scan", N, MAX_N)
+    consts, params = Gt.cuda_operands()
+    n_consts, n_params = LANE_MODELS[model]
+    for t, shape in ((eps, (n, N)), (anc_u, (n,)), (x_star, (n,)), (x0, (N,)), (w0, (N,)),
+                     (consts, (n_consts,)), (params, (n, n_params))):
+        _check_shape("lane_scan", t, shape)
+    args = check_cuda_inputs("lane_scan", (eps, res_u, anc_u, x_star, x0, w0, consts, params),
+                             eps.dtype, 1, ())
+    xs = eps.new_empty(n, N)
+    log_ws = eps.new_empty(n, N)
+    ancestors = torch.empty(n, N, dtype=torch.int64, device=eps.device)
+    if n:
+        launch(f"csmc_lane_{model}", eps.dtype, n, N, int(Pt is not None), *args, xs, log_ws,
+               ancestors)
+        lane_scan.launches += 1
+    return xs, log_ws, ancestors
+
+
+lane_scan.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-// Block-wide collectives of the cSMC sweeps (csmc_fwd.cu, csmc_block_lane.cu):
+// Block-wide collectives of the cSMC sweeps (csmc_fwd.cu, csmc_lane.cu,
+// csmc_block_lane.cu):
 // prefix sums, max and sum over the particles, and the inverse-CDF count.
 //
 // One thread block runs a whole sweep. Thread tid of nt owns particles

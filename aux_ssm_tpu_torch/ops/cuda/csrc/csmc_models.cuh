@@ -1,8 +1,10 @@
-// Model functors of the block-lane cSMC sweep (csmc_block_lane.cu): the
-// per-particle step that aux_ssm_tpu traces into its Pallas kernel as the
-// model's `block_propagate` / `block_logw` callables.
+// Model functors of the cSMC sweeps with the model's step compiled in: what
+// aux_ssm_tpu traces into its Pallas kernels as the model's Python callables
+// (`block_propagate` / `block_logw` of the block-lane sweep,
+// csmc_block_lane.cu; `lane_propagate` / `lane_logw` / `lane_logpdf` of the
+// scalar-state lane sweep, csmc_lane.cu).
 //
-// A functor gives
+// A block-lane functor gives
 //   S step(int t, int j, int a, int lane, int lanes, const S* x_prev, const S* eps,
 //          const S* x_star, S* x_out, S* buf)
 // run by the `lanes` lanes of one warp together: it propagates particle j of
@@ -11,6 +13,15 @@
 // and returns its log weight on every lane. Lane l owns the state components
 // l, l + lanes, ...; buf is the warp's shared scratch of kScratch * d
 // entries. The lanes must not diverge around a call.
+//
+// A lane functor is built from (consts, params): its kConsts constants and
+// the compact (n, kParams) per-step rows, and gives, on scalars, for step t
+//   S propagate(int t, S eps, S x_prev)         the proposal draw
+//   S logw(int t, S x_next, S x_prev)           the log weight
+//   S pgas_logpdf(int t, S x_star, S x_prev)    log density of x*_t given an
+//                                               ancestor (its own transition)
+// written in the operation order of the Python callables, so that float64
+// agrees with them to rounding. No fast math: exp and log are IEEE.
 #pragma once
 
 #include "csmc_common.cuh"
@@ -96,6 +107,109 @@ struct SvGuided {
     out += prop;
     out -= -(S)0.5 * ll - hld - half_d_log2pi;
     return out;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Lane functors (scalar state)
+// ---------------------------------------------------------------------------
+
+// aux_ssm_tpu/models/theta_logistic.py: x' = x + tau0 - tau1 exp(tau2 x) +
+// sig_x eps, y ~ N(x, sig_y^2). consts [tau0, tau1, tau2, sig_x, sig_y];
+// row t = [y_t].
+template <typename S>
+struct ThetaLogistic {
+  static constexpr int kConsts = 5, kParams = 1;
+  S tau0, tau1, tau2, sig_x, sig_y;
+  const S* y;
+
+  AUX_HD ThetaLogistic(const S* c, const S* p)
+      : tau0(c[0]), tau1(c[1]), tau2(c[2]), sig_x(c[3]), sig_y(c[4]), y(p) {}
+  AUX_HD S drift(S x) const { return x + tau0 - tau1 * exp(tau2 * x); }
+  AUX_HD S propagate(int, S eps, S x_prev) const { return drift(x_prev) + sig_x * eps; }
+  AUX_HD S logw(int t, S x_next, S) const { return norm_logpdf(y[t], x_next, sig_y); }
+  AUX_HD S pgas_logpdf(int, S x_star, S x_prev) const {
+    return norm_logpdf(x_star, drift(x_prev), sig_x);
+  }
+};
+
+// The benchmark toy 0.9 x + 0.5 eps, y ~ N(x, 0.5^2), with its three numbers
+// as constants: consts [a, sig_x, sig_y]; row t = [y_t].
+template <typename S>
+struct Ar1Gauss {
+  static constexpr int kConsts = 3, kParams = 1;
+  S a, sig_x, sig_y;
+  const S* y;
+
+  AUX_HD Ar1Gauss(const S* c, const S* p) : a(c[0]), sig_x(c[1]), sig_y(c[2]), y(p) {}
+  AUX_HD S propagate(int, S eps, S x_prev) const { return a * x_prev + sig_x * eps; }
+  AUX_HD S logw(int t, S x_next, S) const { return norm_logpdf(y[t], x_next, sig_y); }
+  AUX_HD S pgas_logpdf(int, S x_star, S x_prev) const {
+    return norm_logpdf(x_star, a * x_prev, sig_x);
+  }
+};
+
+// aux_ssm_tpu/models/rare_event.py get_feynman_kac (bootstrap): x' = rho x +
+// sig eps, and the single observation y ~ N(x_{T-1}, r^2) as an indicator
+// times a density (a product, not a select). consts [T]; row t =
+// [rho, sig, t, y, r], t the step's time index 1..T-1 as a float.
+template <typename S>
+struct RareEventBootstrap {
+  static constexpr int kConsts = 1, kParams = 5;
+  S last;  // T - 1
+  const S* params;
+
+  AUX_HD RareEventBootstrap(const S* c, const S* p) : last(c[0] - (S)1), params(p) {}
+  AUX_HD S propagate(int t, S eps, S x_prev) const {
+    const S* p = params + (long)t * kParams;
+    return p[0] * x_prev + p[1] * eps;
+  }
+  AUX_HD S logw(int t, S x_next, S) const {
+    const S* p = params + (long)t * kParams;
+    return (p[2] == last ? (S)1 : (S)0) * norm_logpdf(p[3], x_next, p[4]);
+  }
+  AUX_HD S pgas_logpdf(int t, S x_star, S x_prev) const {
+    const S* p = params + (long)t * kParams;
+    return norm_logpdf(x_star, p[0] * x_prev, p[1]);
+  }
+};
+
+// aux_ssm_tpu/models/rare_event.py get_guided_csmc_kernel: the proposal
+// recentred on the auxiliary observation u with the scalar Kalman gain K,
+//   mu(x_pred) = x_pred + K (u + grad scale^2 [t = T-1] (y - x_pred) / r2 - x_pred)
+//   propagate    mu(rho x_prev) + sig_p eps
+//   logw         log N(x'; rho x_prev, sig) + log N(x'; u, scale)
+//                - log N(x'; mu, sig_p) + [t = T-1] log N(y; x', r)
+// consts [T, gradient (0 or 1)]; row t = [K, sig_p, u, scale, t, rho, sig, y,
+// r, r2].
+template <typename S>
+struct RareEventGuided {
+  static constexpr int kConsts = 2, kParams = 10;
+  S last, grad;
+  const S* params;
+
+  AUX_HD RareEventGuided(const S* c, const S* p) : last(c[0] - (S)1), grad(c[1]), params(p) {}
+  AUX_HD S mu(const S* p, S x_pred) const {
+    const S g = (p[4] == last ? (S)1 : (S)0) * (p[7] - x_pred) / p[9];
+    const S su = p[2] + grad * (p[3] * p[3]) * g;
+    return x_pred + p[0] * (su - x_pred);
+  }
+  AUX_HD S propagate(int t, S eps, S x_prev) const {
+    const S* p = params + (long)t * kParams;
+    return mu(p, p[5] * x_prev) + p[1] * eps;
+  }
+  AUX_HD S logw(int t, S x_next, S x_prev) const {
+    const S* p = params + (long)t * kParams;
+    const S x_pred = p[5] * x_prev;
+    S out = norm_logpdf(x_next, x_pred, p[6]);
+    out += norm_logpdf(x_next, p[2], p[3]);
+    out -= norm_logpdf(x_next, mu(p, x_pred), p[1]);
+    out += (p[4] == last ? (S)1 : (S)0) * norm_logpdf(p[7], x_next, p[8]);
+    return out;
+  }
+  AUX_HD S pgas_logpdf(int t, S x_star, S x_prev) const {
+    const S* p = params + (long)t * kParams;
+    return norm_logpdf(x_star, mu(p, p[5] * x_prev), p[1]);
   }
 };
 

@@ -1,5 +1,6 @@
 """Multivariate-normal log-density, Cholesky-parameterised (counterpart of
-`aux_ssm_tpu/ops/mvn.py`: `logpdf` and `tril_log_det`).
+`aux_ssm_tpu/ops/mvn.py`: `logpdf` and `tril_log_det`), and the scalar
+`norm_logpdf` the models share.
 
 Non-finite rows of `chol` are "infinite-variance" dimensions that contribute
 nothing; the 2-pi normalisation counts only finite diagonal entries."""
@@ -8,6 +9,17 @@ import math
 import torch
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+
+def norm_logpdf(x, loc, scale):
+    """log N(x; loc, scale^2), elementwise, as jax.scipy.stats.norm.logpdf
+    computes it: -(log(2 pi scale^2) + (x - loc)^2 / scale^2) / 2. `scale` is
+    a tensor or a Python float."""
+    s2 = scale * scale
+    z = x - loc
+    log_norm = (torch.log((2.0 * math.pi) * s2) if isinstance(s2, torch.Tensor)
+                else math.log((2.0 * math.pi) * s2))
+    return (log_norm + z * z / s2) / -2.0
 
 
 def tril_log_det(chol):

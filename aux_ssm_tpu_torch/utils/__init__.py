@@ -1,4 +1,6 @@
 """Utilities (counterpart of `aux_ssm_tpu/utils/`)."""
+from .ess import effective_sample_size, potential_scale_reduction, rhat_from_moments
 from .stats import OnlineStats, init_stats, update_stats, variance
 
-__all__ = ["OnlineStats", "init_stats", "update_stats", "variance"]
+__all__ = ["OnlineStats", "init_stats", "update_stats", "variance", "effective_sample_size",
+           "potential_scale_reduction", "rhat_from_moments"]

@@ -24,17 +24,41 @@ The stochastic-volatility (SV) particle-Gibbs path, T=250, D=30, N=25:
      D=4, N=16), given the same noise;
   6. csmc-guided from the committed run's data, start and adapted delta
      (`benchmarks/results_r5/sv/csmc_guided_*.npz`), without and with the
-     gradient shift: 100 + 500 iterations at frozen delta, mean update rate
+     gradient shift: 100 + 200 iterations at frozen delta, mean update rate
      in [0.4, 0.6], exactly one block-lane and one backward sweep launch per
      iteration, samples/s;
   7. csmc (sequential sweep): 200 burn-in iterations adapting a (T,) delta
-     from 1e-2, then 300 sampling iterations: update rate in (0, 1), exactly
+     from 1e-2, then 100 sampling iterations: update rate in (0, 1), exactly
      one forward and one backward factor sweep launch per iteration.
+The scalar-state particle-Gibbs path (theta-logistic PGAS, T=256, N=256, and
+the rare-event model at T=2, N=25):
+  8. the lane sweep kernel against its plain version for each model functor
+     (f32 step by step from the kernel's own carry, f64 whole sweeps with
+     identical ancestors; PGAS on and off): theta-logistic on the inputs of a
+     real PGAS step, the AR(1) toy at T=1024, N=4096, the rare-event guided
+     (on a real step's inputs, gradient off and on) and bootstrap models;
+  9. f64 theta-logistic PGAS steps and rare-event steps of every style on the
+     card against the CPU, given the same noise;
+ 10. the theta-logistic PGAS chain, f32, 300 + 2000 iterations: exactly one
+     lane sweep launch per iteration, update rate in (0, 1), samples/s, mean
+     interior ESS and ESS/s;
+ 11. rare-event chains in f64 at (y, rho, r2, T) = (5, 0.8, 0.5, 2), styles
+     kalman, csmc, csmc-guided (without and with the gradient shift), delta
+     adapted toward an update rate of 0.5: posterior mean and standard
+     deviation of x_0 and x_{T-1} within an ESS-scaled tolerance of the
+     closed form (a miss fails the run); then the hardest cell of the
+     published grid (rho = 0.999, r2 = 1e-3), reported without a bound.
+Each kernel's entry of the JSON summary carries its bound: the least time the
+card could take for the call, the larger of its bytes (every input read once,
+every output written once) over 3.35 TB/s and its operations over the 67
+TFLOP/s of float32 outside the tensor cores. No single PyTorch call computes
+any of these kernels' functions, so `library_ms` is null throughout.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -56,11 +80,16 @@ SV_NPZ = str(Path(__file__).resolve().parent / "benchmarks/results_r5/sv/{}.npz"
 AGREE_F32, TOL_F32 = 0.995, 2e-4
 RTOL_F64 = 1e-9   # f64 sweeps: identical indices, values to rtol (and atol) 1e-9
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+
 CSMC_KERNELS = {  # wrapper name -> (source, the TPU kernel it replaces)
     "forward_factor_scan": ("aux_ssm_tpu_torch/ops/cuda/csrc/csmc_fwd.cu",
                             "aux_ssm_tpu/ops/pallas/csmc_fwd.py:296"),
     "backward_factor_scan": ("aux_ssm_tpu_torch/ops/cuda/csrc/csmc_fwd.cu",
                              "aux_ssm_tpu/ops/pallas/csmc_fwd.py:455"),
+    "lane_scan": ("aux_ssm_tpu_torch/ops/cuda/csrc/csmc_lane.cu",
+                  "aux_ssm_tpu/ops/pallas/csmc_fwd.py:667"),
     "block_lane_scan": ("aux_ssm_tpu_torch/ops/cuda/csrc/csmc_block_lane.cu",
                         "aux_ssm_tpu/ops/pallas/csmc_fwd.py:932"),
 }
@@ -100,6 +129,23 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(tensors, elements, operations):
+    """The least time the card could take: `tensors` (inputs and outputs, each
+    moved once) plus `elements` more values of the first tensor's width, over
+    the memory rate, against `operations` over the float32 rate."""
+    import torch
+    flat = [t for t in tensors if isinstance(t, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in flat) + elements * flat[0].element_size()
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, operations / F32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "operations": int(operations), "library_ms": None}
+
+
+def flatten(args):
+    return [z for a in args for z in (a if isinstance(a, tuple) else (a,))]
+
+
 def as_tuple(z):
     return z if isinstance(z, tuple) else (z,)
 
@@ -110,9 +156,10 @@ def nrel(got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-300))
 
 
-def compare(name, wrapper, plain, args, reps=20):
+def compare(name, wrapper, plain, args, ops, reps=20):
     """Kernel vs plain on the same f32 inputs and vs plain on their f64 cast;
-    the f64 kernel vs the f64 plain version; times of kernel and plain (f32)."""
+    the f64 kernel vs the f64 plain version; times of kernel and plain (f32);
+    the bound from the call's tensors and `ops` operations."""
     import torch
     args64 = tuple(tuple(z.double() for z in a) if isinstance(a, tuple)
                    else a.double() if isinstance(a, torch.Tensor) else a for a in args)
@@ -139,7 +186,10 @@ def compare(name, wrapper, plain, args, reps=20):
         raise AssertionError(f"{name}: error above bound: {bad}")
     result["ms"] = cuda_ms(lambda: wrapper(*args), reps)
     result["plain_ms"] = cuda_ms(lambda: plain(*args), max(1, reps // 4))
-    log(f"  {name}: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms")
+    result.update(bound(flatten(args) + list(got), 0, ops))
+    log(f"  {name}: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, bound "
+        f"{result['bound_ms']:.5f} ms by {result['bound_by']} ({result['bytes']} B, "
+        f"{result['operations']} operations)")
     return result
 
 
@@ -160,6 +210,16 @@ def phase_kernels(dev):
     ys, Hs, Rs, cs = (z.contiguous() for z in obs1(x, u, DELTA))
     steps = (Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:])
     n = T - 1
+    # Operations, counted as the flops of the d x d products, factorisations
+    # and solves each step's formulas need (d = dx = dy here): elements 12
+    # products + a Cholesky solve; one scan combine 8 products + an inverse;
+    # ell 4 products + a Cholesky; backward maps 5 products + 2 Choleskys;
+    # an affine combine 1 product + 1 mat-vec; log-density 2 Choleskys + 4
+    # triangular solves or mat-vecs. A scan needs n - 1 combines at least.
+    d3, d2 = DX ** 3, DX ** 2
+    ops = {"make_elements": n * 26 * d3, "filter_scan": (n - 1) * 18 * d3, "ell": n * 9 * d3,
+           "backward_maps": n * 11 * d3, "affine_scan": (T - 1) * (2 * d3 + 2 * d2),
+           "logdensity_steps": n * (d3 + 8 * d2)}
 
     results = {}
     log(f"phase 1: kernels at T={T}, dx={DX}, dy={ys.shape[-1]} (f32; bounds: nrel "
@@ -168,32 +228,35 @@ def phase_kernels(dev):
     m_el = torch.cat([m0u[None], m0u.new_zeros(n - 1, DX)])
     P_el = torch.cat([P0u[None], P0u.new_zeros(n - 1, DX, DX)])
     results["make_elements"] = compare("make_elements", KF.make_elements,
-                                       KF.make_elements_plain, steps + (m_el, P_el))
+                                       KF.make_elements_plain, steps + (m_el, P_el),
+                                       ops["make_elements"])
 
     elems = _make_associative_elements(*steps, m0u, P0u)
     results["filter_scan"] = compare("filter_scan", FS.filter_scan, FS.filter_scan_plain,
-                                     (elems,))
+                                     (elems,), ops["filter_scan"])
     log("  scan at T=300 (the TPU's Hillis-Steele range):")
     compare("filter_scan_T300", FS.filter_scan, FS.filter_scan_plain,
-            (tuple(z[:299].contiguous() for z in elems),))
+            (tuple(z[:299].contiguous() for z in elems),), 298 * 18 * d3)
 
     _, ms, Ps, _, _ = FS.filter_scan(elems)
     ms, Ps = torch.cat([m0u[None], ms]), torch.cat([P0u[None], Ps])
-    results["ell"] = compare("ell", KF.ell, KF.ell_plain, steps + (ms[:-1], Ps[:-1]))
+    results["ell"] = compare("ell", KF.ell, KF.ell_plain, steps + (ms[:-1], Ps[:-1]),
+                             ops["ell"])
 
     eps = torch.randn(T, DX, generator=gen, device=dev)
     results["backward_maps"] = compare(
         "backward_maps", KF.backward_maps, KF.backward_maps_plain,
-        (Fs, Qs, bs, ms[:-1].contiguous(), Ps[:-1].contiguous(), eps[:-1].contiguous()))
+        (Fs, Qs, bs, ms[:-1].contiguous(), Ps[:-1].contiguous(), eps[:-1].contiguous()),
+        ops["backward_maps"])
 
     gains, incs = _backward_maps(eps, ms, Ps, Fs, Qs, bs)
     results["affine_scan"] = compare("affine_scan", FS.affine_scan, FS.affine_scan_plain,
-                                     (gains, incs, True))
+                                     (gains, incs, True), ops["affine_scan"])
 
     xs = FS.affine_scan(gains, incs, reverse=True)[1]
     results["logdensity_steps"] = compare(
         "logdensity_steps", KF.logdensity_steps, KF.logdensity_steps_plain,
-        steps + (xs[:-1].contiguous(), xs[1:].contiguous()))
+        steps + (xs[:-1].contiguous(), xs[1:].contiguous()), ops["logdensity_steps"])
     return results
 
 
@@ -401,9 +464,14 @@ def check_forward_factor(label, args32, args64, pgas, reps):
     lw64, anc64 = CF.forward_factor_scan(*args64, pgas=pgas)
     lw64_p, anc64_p = CF.forward_factor_scan_plain(*args64, pgas=pgas)
     err64 = exact_f64(name, anc64, anc64_p, [(lw64, lw64_p)])
+    n, N, k = rf.shape
+    # A step: N ancestor searches, N k-dots, a prefix sum and a softmax (and
+    # N more k-dots with their softmax and prefix sum under PGAS).
+    ops = n * N * (2 * k + math.log2(N) + 8 + pgas * (2 * k + 6))
     return timed(name, {"max_abs_err": err, "index_agree_f32": share, "max_rel_err_f64": err64},
                  lambda: CF.forward_factor_scan(*args32, pgas=pgas),
-                 lambda: CF.forward_factor_scan_plain(*args32, pgas=pgas), reps)
+                 lambda: CF.forward_factor_scan_plain(*args32, pgas=pgas), reps,
+                 bound(list(args32) + [lw, anc], 0, ops))
 
 
 def check_backward_factor(label, args32, args64, reps):
@@ -420,9 +488,12 @@ def check_backward_factor(label, args32, args64, reps):
     share, err = agree_f32(name, picked, picked_p)
     err64 = exact_f64(name, CF.backward_factor_scan(*args64),
                       CF.backward_factor_scan_plain(*args64))
+    n, N, k = rf.shape
+    # Of cf the draws read one row a step: n k values, not n N k.
+    least = bound([rf, rb, lw, us, b_T, picked], n * k, n * N * (2 * k + 6))
     return timed(name, {"max_abs_err": err, "index_agree_f32": share, "max_rel_err_f64": err64},
                  lambda: CF.backward_factor_scan(*args32),
-                 lambda: CF.backward_factor_scan_plain(*args32), reps)
+                 lambda: CF.backward_factor_scan_plain(*args32), reps, least)
 
 
 def check_block_lane(label, args32, args64, reps):
@@ -452,17 +523,25 @@ def check_block_lane(label, args32, args64, reps):
     xs64, lw64, anc64 = CF.block_lane_scan(*args64)
     xs64_p, lw64_p, anc64_p = plain(*args64)
     err64 = exact_f64(name, anc64, anc64_p, [(lw64, lw64_p), (xs64, xs64_p)])
+    n, d, N = eps.shape
+    # A particle's step: three d x d mat-vecs and ~20 elementwise operations a component.
+    least = bound([eps, res_u, x_star, x0, w0, *Gt.cuda_operands(), xs, lw, anc], 0,
+                  n * N * (6 * d * d + 20 * d))
     return timed(name, {"max_abs_err": err, "index_agree_f32": share, "max_rel_err_f64": err64},
-                 lambda: CF.block_lane_scan(*args32), lambda: plain(*args32), reps)
+                 lambda: CF.block_lane_scan(*args32), lambda: plain(*args32), reps, least)
 
 
-def timed(name, result, kernel, plain, reps):
-    """Add the f32 kernel's and plain version's CUDA-event times; log."""
+def timed(name, result, kernel, plain, reps, least):
+    """Add the f32 kernel's and plain version's CUDA-event times and the
+    call's bound (`least`, from `bound`); log."""
     result["ms"] = cuda_ms(kernel, reps)
     result["plain_ms"] = cuda_ms(plain, 1)
+    result.update(least)
     log(f"  {name}: index agreement f32 {result['index_agree_f32']:.4f}, max abs err f32 "
         f"{result['max_abs_err']:.3e}, f64 rel err {result['max_rel_err_f64']:.3e}; "
-        f"kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms")
+        f"kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, bound "
+        f"{result['bound_ms']:.5f} ms by {result['bound_by']} ({result['bytes']} B, "
+        f"{result['operations']} operations)")
     return result
 
 
@@ -520,7 +599,8 @@ def phase_csmc_step_reference(dev):
     from aux_ssm_tpu_torch.ops import cuda as K
 
     T_, D_, N_ = 32, 4, 16
-    xs, ys = sv.get_data(*SV_PARAMS, D_, T_, generator=torch.Generator().manual_seed(5))
+    xs, ys = sv.get_data(*SV_PARAMS, D_, T_, generator=torch.Generator().manual_seed(5),
+                         device="cpu")
     rng = np.random.default_rng(5)
     delta = rng.uniform(0.2, 1.0, T_)
     sweeps = {"csmc": ("forward_factor_scan", "backward_factor_scan"),
@@ -600,7 +680,7 @@ def phase_sv_chains(dev):
         ys, xs, delta = load_sv(name, dev, f32)
         rate, _, launches, _ = sv_chain(
             dev, f"csmc-guided gradient={gradient}", "csmc-guided", ys, xs,
-            RunConfig(n_samples=500, burnin=100, learning_rate=0.0), delta, gradient,
+            RunConfig(n_samples=200, burnin=100, learning_rate=0.0), delta, gradient,
             seed=10 + gradient, per_iter=guided_iter)
         if not 0.4 <= rate <= 0.6:
             raise AssertionError(f"csmc-guided gradient={gradient}: update rate {rate:.4f} "
@@ -612,7 +692,7 @@ def phase_sv_chains(dev):
         "adapted from 1e-2 toward 0.5, from xs_true")
     ys, xs, _ = load_sv("csmc_no-gradient", dev, f32)
     rate, _, launches, res = sv_chain(
-        dev, "csmc", "csmc", ys, xs, RunConfig(n_samples=300, burnin=200, target_alpha=0.5),
+        dev, "csmc", "csmc", ys, xs, RunConfig(n_samples=100, burnin=200, target_alpha=0.5),
         torch.full((SV_T,), 1e-2, dtype=f32, device=dev), False, seed=12,
         per_iter={"forward_factor_scan": 1, "backward_factor_scan": 1})
     if not 0.0 < rate < 1.0:
@@ -621,6 +701,388 @@ def phase_sv_chains(dev):
     for k in total:
         total[k] += launches[k]
     return total
+
+
+# ---------------------------------------------------------------------------
+# The scalar-state particle-Gibbs path: theta-logistic PGAS and rare-event
+# ---------------------------------------------------------------------------
+
+TL_T, TL_N = 256, 256                   # theta-logistic PGAS (benchmarks/particle_ess.py)
+RE_CELL = (5.0, 0.8, 0.5, 2)            # y, rho, r2, T: tests/test_models_rare_event.py
+RE_HARD = (5.0, 0.999, 1e-3, 2)         # the published grid's hardest corner
+RE_N = 25                               # benchmarks/rare_event_sweep.sh
+
+
+def lane_plain(Mt, Gt, Pt, *rest):
+    """`lane_scan_plain` on a model, as the wrapper calls it for a CPU tensor."""
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF
+    return CF.lane_scan_plain(Mt.lane_propagate, Gt.lane_logw,
+                              None if Pt is None else Pt.lane_logpdf, Mt.params, Gt.params,
+                              None if Pt is None else Pt.params, *rest)
+
+
+def check_lane(label, args32, args64, reps):
+    """f32: each step of the plain sweep from the kernel's previous particles
+    and carry; f64: whole sweeps. Returns the result entry."""
+    from aux_ssm_tpu_torch.kernels.csmc_base import tree_map
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF
+    Mt, Gt, Pt, eps, res_u, anc_u, x_star, x0, w0 = args32
+    name = f"lane_scan[{label}, pgas={Pt is not None}]"
+
+    def plain_step(t):
+        sl = slice(t, t + 1)
+        mt_p, gt_p = (tree_map(lambda z: z[sl], m.params) for m in (Mt, Gt))
+        return CF.lane_scan_plain(
+            Mt.lane_propagate, Gt.lane_logw, None if Pt is None else Pt.lane_logpdf, mt_p, gt_p,
+            None if Pt is None else mt_p, eps[sl], res_u[sl], anc_u[sl], x_star[sl],
+            x0 if t == 0 else xs[t - 1], w0 if t == 0 else carry(lw[t - 1]))
+
+    xs, lw, anc = CF.lane_scan(*args32)
+    xs_p, lw_p, anc_p = resynced(eps.shape[0], plain_step)
+    same = anc == anc_p
+    share, err = agree_f32(name, anc, anc_p, [(lw, lw_p, same), (xs, xs_p, same)])
+    xs64, lw64, anc64 = CF.lane_scan(*args64)
+    xs64_p, lw64_p, anc64_p = lane_plain(*args64)
+    err64 = exact_f64(name, anc64, anc64_p, [(lw64, lw64_p), (xs64, xs64_p)])
+    n, N = eps.shape
+    # A particle's step: an ancestor search, the model's propagate and weight
+    # (~25 operations, an exp and a log or two among them), its share of the
+    # prefix sum and the softmax (and the ancestor score under PGAS).
+    ops = n * N * (40 + math.log2(N) + (Pt is not None) * 30)
+    least = bound([eps, res_u, anc_u, x_star, x0, w0, *Gt.cuda_operands(), xs, lw, anc], 0, ops)
+    return timed(name, {"max_abs_err": err, "index_agree_f32": share, "max_rel_err_f64": err64},
+                 lambda: CF.lane_scan(*args32), lambda: lane_plain(*args32), reps, least)
+
+
+def random_lane_inputs(dev, dtype, n, N, seed):
+    """Lane-sweep inputs (eps, res_u, anc_u, x_star, x0, w0) around x = 1."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(generator=g, device=dev, dtype=torch.float64)
+    w0 = 0.1 + 0.9 * torch.rand(N, **kw)
+    return tuple(z.to(dtype) for z in (
+        torch.randn(n, N, **kw), torch.rand(n, N, **kw), torch.rand(n, **kw),
+        1.0 + 0.5 * torch.randn(n, **kw), 1.0 + 0.5 * torch.randn(N, **kw), w0 / w0.sum()))
+
+
+def theta_data(dev, dtype, T=None):
+    """(xs, ys) of the theta-logistic model from a fixed seed, T=256 by default."""
+    import torch
+    from aux_ssm_tpu_torch.models import theta_logistic as tl
+    return tl.get_data(T or TL_T, generator=torch.Generator().manual_seed(0), dtype=dtype, device=dev)
+
+
+def rare_kernel(style, cell, dev, N=RE_N):
+    """(init, kernel) of the f64 rare-event sampler `style` at `cell`."""
+    import torch
+    from aux_ssm_tpu_torch.models import rare_event as rev
+    y, rho, r2, T_ = cell
+    kw = dict(dtype=torch.float64, device=dev)
+    gradient = style.endswith("-grad")
+    if style.startswith("kalman"):
+        return rev.get_kalman_kernel(y, rho, r2, T_, True, gradient=gradient, **kw)
+    if style.startswith("csmc-guided"):
+        return rev.get_guided_csmc_kernel(y, rho, r2, T_, N, backward=True, gradient=gradient,
+                                          **kw)
+    return rev.get_csmc_kernel(y, rho, r2, T_, N, backward=True, gradient=gradient, **kw)
+
+
+def phase_lane_kernel(dev):
+    """Phase 8; returns the lane sweep's result entry (theta-logistic, PGAS,
+    at the main path's T=256, N=256)."""
+    import torch
+    from aux_ssm_tpu_torch.models import ar1_gauss, rare_event as rev, theta_logistic as tl
+    f32, f64 = torch.float32, torch.float64
+    log(f"phase 8: the lane sweep against its plain version (f32: >= {AGREE_F32} of ancestors "
+        f"equal step by step, values to {TOL_F32} where equal; f64: identical ancestors, "
+        f"rtol {RTOL_F64:g})")
+
+    seen = {}
+    for dt in (f32, f64):  # the inputs of a real PGAS step from the data's neighbourhood
+        xs, ys = theta_data(dev, dt)
+        init, kernel = tl.get_pgas_kernel(ys, TL_N)
+        with recording_sweeps() as rec:
+            kernel(init(xs), generator=torch.Generator(device=dev).manual_seed(8))
+        seen[dt] = rec["lane_scan"]
+    label = f"theta-logistic T={TL_T} N={TL_N}"
+    result = check_lane(label, seen[f32], seen[f64], reps=20)
+    no_pgas = {dt: a[:2] + (None,) + a[3:] for dt, a in seen.items()}
+    check_lane(label, no_pgas[f32], no_pgas[f64], reps=20)
+
+    n, N = 1023, 4096
+    for pgas in (False, True):
+        args = {}
+        for dt in (f32, f64):
+            _, _, Mt, Gt = ar1_gauss.get_feynman_kac(torch.zeros(n, 1, dtype=dt, device=dev))
+            args[dt] = (Mt, Gt, Mt if pgas else None) + random_lane_inputs(dev, dt, n, N, seed=9)
+        check_lane(f"AR(1) toy T={n + 1} N={N}", args[f32], args[f64], reps=3)
+
+    y, rho, r2, T_ = RE_CELL
+    for style in ("csmc-guided", "csmc-guided-grad"):  # the inputs of a real step, T=2
+        seen = {}
+        for dt in (f32, f64):
+            init, kernel = rev.get_guided_csmc_kernel(y, rho, r2, T_, RE_N, backward=True,
+                                                      gradient=style.endswith("-grad"),
+                                                      dtype=dt, device=dev)
+            x0 = torch.tensor([[3.0], [3.4]], dtype=dt, device=dev)
+            with recording_sweeps() as rec:
+                kernel(init(x0), 1.0, generator=torch.Generator(device=dev).manual_seed(10))
+            seen[dt] = rec["lane_scan"]
+        check_lane(f"rare-event {style} T={T_} N={RE_N}", seen[f32], seen[f64], reps=20)
+        pgas = {dt: a[:2] + (a[0],) + a[3:] for dt, a in seen.items()}
+        check_lane(f"rare-event {style} T={T_} N={RE_N}", pgas[f32], pgas[f64], reps=20)
+    for T_b in (2, 9):
+        for pgas in (False, True):
+            args = {}
+            for dt in (f32, f64):
+                _, _, Mt, Gt = rev.get_feynman_kac(y, rho, r2, T_b, dtype=dt, device=dev)
+                args[dt] = (Mt, Gt, Mt if pgas else None) + random_lane_inputs(
+                    dev, dt, T_b - 1, RE_N, seed=11)
+            check_lane(f"rare-event bootstrap T={T_b} N={RE_N}", args[f32], args[f64], reps=20)
+    return result
+
+
+def steps_on_both(label, build, state0, delta, noises, dev, used):
+    """The f64 steps of `build(where) -> (init, kernel)` on the card and on
+    the CPU from the same state and noise: `updated` identical, states to
+    RTOL_F64; the card's steps launched each wrapper of `used` once a step."""
+    import torch
+    from aux_ssm_tpu_torch.ops import cuda as K
+    runs = {}
+    for where in ("cpu", dev):
+        init, kernel = build(where)
+        state = init(state0.to(where))
+        K.reset_launches()
+        out = []
+        for noise in noises:
+            noise = tuple(torch.as_tensor(z, dtype=torch.float64, device=where) for z in noise)
+            args = () if delta is None else (torch.as_tensor(delta, dtype=torch.float64,
+                                                             device=where),)
+            state = kernel(state, *args, noise=noise)
+            out.append((state.x.cpu(), state.updated.cpu()))
+        runs[str(where)] = out
+    launches = K.launches()
+    for name in used:
+        if launches[name] != len(noises):
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times on the "
+                                 f"card, expected {len(noises)}")
+    worst = 0.0
+    for (xc, uc), (xg, ug) in zip(runs["cpu"], runs[str(dev)]):
+        if not torch.equal(uc, ug):
+            raise AssertionError(f"{label}: `updated` differs between card and CPU")
+        worst = max(worst, float(((xg - xc).abs() / (1 + xc.abs())).max()))
+    log(f"  {label}, f64: card vs CPU rel err {worst:.3e} (bound {RTOL_F64:g})")
+    if not worst <= RTOL_F64:
+        raise AssertionError(f"{label}: card and CPU steps differ by {worst:.3e}")
+
+
+def phase_scalar_step_reference(dev):
+    """Phase 9: f64 steps on the card against the CPU, given the same noise."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.models import theta_logistic as tl
+
+    T_, N_ = 64, 64
+    xs, ys = theta_data("cpu", torch.float64, T_)
+    rng = np.random.default_rng(9)
+
+    def csmc_noise(T_, N_, aux):
+        head = (rng.standard_normal((T_, 1)),) if aux else ()
+        return head + (rng.standard_normal((N_, 1)), rng.uniform(size=(T_ - 1, N_)),
+                       rng.standard_normal((T_ - 1, N_, 1)), rng.uniform(size=T_ - 1),
+                       rng.uniform(size=T_))
+
+    for ancestor_sampling in (False, True):
+        for backward in (False, True):
+            steps_on_both(
+                f"theta-logistic PGAS step T={T_} N={N_} ancestor_sampling={ancestor_sampling} "
+                f"backward={backward}",
+                lambda where: tl.get_pgas_kernel(ys.to(where), N_, backward=backward,
+                                                 ancestor_sampling=ancestor_sampling),
+                xs, None, [csmc_noise(T_, N_, aux=False) for _ in range(2)], dev,
+                ("lane_scan",) + (("backward_factor_scan",) if backward else ()))
+
+    sweeps = {"kalman": ("filter_scan", "affine_scan"),
+              "csmc": ("forward_factor_scan", "backward_factor_scan"),
+              "csmc-guided": ("lane_scan", "backward_factor_scan")}
+    for T_ in (2, 6):
+        cell = RE_CELL[:3] + (T_,)
+        x0 = torch.as_tensor(3.0 + rng.standard_normal((T_, 1)))
+        for style in ("kalman", "kalman-grad", "csmc", "csmc-guided", "csmc-guided-grad"):
+            if style.startswith("kalman"):
+                delta = 0.7
+                noises = [(rng.standard_normal((T_, 1)), rng.standard_normal((T_, 1)),
+                           rng.uniform()) for _ in range(2)]
+                used = ()  # the MH wrappers launch twice a step; counted in phases 2, 3 and 11
+            else:
+                delta = rng.uniform(0.3, 1.5, T_)
+                noises = [csmc_noise(T_, RE_N, aux=True) for _ in range(2)]
+                used = sweeps[style.removesuffix("-grad")]
+            steps_on_both(f"rare-event {style} step T={T_} N={RE_N}",
+                          lambda where: rare_kernel(style, cell, where), x0, delta, noises, dev,
+                          used)
+
+
+def profile_steps(label, step, n=30):
+    """Where `n` calls of `step()` spend their time, through torch.profiler:
+    wall ms a call, the device's busy ms a call (the sum of its kernels' times,
+    one stream) with its share of the wall, kernel launches a call, and the
+    kernels that take most of the device time. Printed; nothing is bounded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - tic) / n
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if not busy_ms:
+        log(f"  profile, {label}: {wall_ms:.3f} ms a step; device time not visible to the "
+            "profiler: not measured")
+        return
+    launched = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel")) / n
+    top = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} ms x{e.count / n:.0f}"
+                    for e in kernels[:4])
+    log(f"  profile, {label}: {wall_ms:.3f} ms a step under the profiler, device busy "
+        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.0f}%), {launched:.0f} kernel launches a "
+        f"step; most device time: {top}")
+
+
+def interior_ess(samples, max_coords=64):
+    """Mean ESS over up to `max_coords` interior trajectory coordinates (the
+    middle half of time, strided), the recipe of benchmarks/particle_ess.py."""
+    import numpy as np
+    from aux_ssm_tpu_torch.utils.ess import effective_sample_size
+    T_ = samples.shape[1]
+    stride = max(1, (T_ // 2) // 16)
+    mid = samples[:, T_ // 4: 3 * T_ // 4: stride, :]
+    flat = mid.reshape(mid.shape[0], -1)
+    idx = np.unique(np.linspace(0, flat.shape[1] - 1, max_coords).astype(int))
+    return float(np.mean([float(effective_sample_size(flat[:, i])) for i in idx]))
+
+
+def phase_theta_chain(dev):
+    """Phase 10; returns the chain's launches."""
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig, runner
+    from aux_ssm_tpu_torch.models import theta_logistic as tl
+    from aux_ssm_tpu_torch.ops import cuda as K
+
+    burnin, n_samples = 300, 2000
+    log(f"phase 10: theta-logistic PGAS, T={TL_T}, N={TL_N}, f32, {burnin} + {n_samples} "
+        "iterations from x = 0, ancestor sampling and ancestor tracing")
+    _, ys = theta_data(dev, torch.float32)
+    init, kern = tl.get_pgas_kernel(ys, TL_N, ancestor_sampling=True)
+    # Bootstrap PGAS has no step size; the runner's delta is ignored.
+    K.reset_launches()
+    res = runner.run_chain(lambda state, delta, generator=None: kern(state, generator=generator),
+                           init(torch.zeros_like(ys)), RunConfig(n_samples=n_samples,
+                                                                 burnin=burnin),
+                           generator=torch.Generator(device=dev).manual_seed(13),
+                           collect_samples=True, delta_init=torch.ones(TL_T, device=dev))
+    launches = K.launches()
+    if launches["lane_scan"] != burnin + n_samples or any(
+            v for k, v in launches.items() if k != "lane_scan"):
+        raise AssertionError(f"theta-logistic: launches {launches}, expected exactly one lane "
+                             f"sweep in each of {burnin + n_samples} iterations")
+    if res.samples.shape != (n_samples, TL_T, 1) or not bool(torch.isfinite(res.state.x).all()):
+        raise AssertionError("theta-logistic: the chain's state is not finite")
+    rate = float(res.stats.accept_cum.mean())
+    if not 0.0 < rate < 1.0:
+        raise AssertionError(f"theta-logistic: update rate {rate:.4f} outside (0, 1)")
+    ess = interior_ess(res.samples)
+    # The posterior mean must track the data (sig_y = 0.1) once the chain has mixed.
+    gap = float((res.stats.mean_x - ys).abs().mean())
+    log(f"  theta-logistic PGAS: update rate {rate:.4f}, {n_samples / res.sampling_time:.2f} "
+        f"samples/s, mean interior ESS {ess:.1f} of {n_samples}, "
+        f"{ess / res.sampling_time:.2f} ESS/s, mean |E x - y| {gap:.4f}")
+    if not gap < 0.3:
+        raise AssertionError(f"theta-logistic: posterior mean {gap:.4f} away from the data")
+    gen, box = torch.Generator(device=dev).manual_seed(14), [res.state]
+    profile_steps("theta-logistic PGAS", lambda: box.__setitem__(0, kern(box[0], generator=gen)))
+    return launches
+
+
+def rare_chain(dev, style, cell, burnin, n_samples, seed, bounded):
+    """run_chain of the f64 rare-event sampler `style` at `cell`, delta
+    adapted from 0.5 toward an update rate of 0.5. With `bounded`, the
+    posterior mean and standard deviation of x_0 and x_{T-1} must lie within 6
+    Monte-Carlo standard errors (from the ESS at the known variance) of the
+    closed form. Returns the chain's launches."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig, runner
+    from aux_ssm_tpu_torch.models import rare_event as rev
+    from aux_ssm_tpu_torch.ops import cuda as K
+    from aux_ssm_tpu_torch.utils.ess import effective_sample_size
+
+    y, rho, r2, T_ = cell
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    init, kernel = rare_kernel(style, cell, dev)
+    x0 = rev.init_x(y, rho, r2, T_, generator=gen, dtype=torch.float64, device=dev)
+    delta0 = torch.full((T_,) if "csmc" in style else (), 0.5, dtype=torch.float64, device=dev)
+    K.reset_launches()
+    res = runner.run_chain(kernel, init(x0), RunConfig(n_samples=n_samples, burnin=burnin,
+                                                       target_alpha=0.5),
+                           generator=gen, collect_samples=True, delta_init=delta0)
+    launches = K.launches()
+    n_iter = burnin + n_samples
+    per_iter = {"kalman": {k: v for k, (_, _, v) in KERNELS.items()},
+                "csmc": {"forward_factor_scan": 1, "backward_factor_scan": 1},
+                "csmc-guided": {"lane_scan": 1, "backward_factor_scan": 1}}[
+                    style.removesuffix("-grad")]
+    for name, count in launches.items():
+        if count != per_iter.get(name, 0) * n_iter:
+            raise AssertionError(f"rare-event {style}: {name} launched {count} times in "
+                                 f"{n_iter} iterations, expected {per_iter.get(name, 0)} each")
+    rate = float(res.stats.accept_cum.mean())
+    moments = rev.conditional_moments(y, rho, r2, T_)
+    parts, ok = [], True
+    for which, col, (mean, var) in (("x_0", 0, moments[0]), ("x_T-1", -1, moments[1])):
+        chain = res.samples[:, col, 0]
+        ess = float(effective_sample_size(chain, known_variance=var))
+        err_mean = (chain.mean() - mean) / np.sqrt(var)
+        err_std = (chain.std() - np.sqrt(var)) / np.sqrt(var)
+        tol_mean, tol_std = 6.0 / np.sqrt(ess), 6.0 / np.sqrt(2.0 * ess)
+        ok = ok and abs(err_mean) <= tol_mean and abs(err_std) <= tol_std
+        parts.append(f"{which}: ESS {ess:.0f}, mean err {err_mean:+.4f} sd (tol {tol_mean:.4f}), "
+                     f"std err {err_std:+.4f} (tol {tol_std:.4f})")
+    log(f"  {style} at rho={rho}, r2={r2}: update rate {rate:.4f}, "
+        f"{n_samples / res.sampling_time:.2f} samples/s, delta "
+        f"[{float(res.delta.min()):.3e}, {float(res.delta.max()):.3e}]; " + "; ".join(parts))
+    if not bool(torch.isfinite(res.state.x).all()) or not np.isfinite(res.samples).all():
+        raise AssertionError(f"rare-event {style}: the chain's state is not finite")
+    if bounded and not (ok and 0.0 < rate < 1.0):
+        raise AssertionError(f"rare-event {style}: moments outside the ESS-scaled tolerance of "
+                             "the closed form, or update rate outside (0, 1)")
+    if bounded and not style.endswith("-grad"):
+        box = [res.state]
+        profile_steps(f"rare-event {style}",
+                      lambda: box.__setitem__(0, kernel(box[0], res.delta, generator=gen)))
+    return launches
+
+
+def phase_rare_chains(dev):
+    """Phase 11; returns the lane sweep's launches summed over the chains."""
+    y, rho, r2, T_ = RE_CELL
+    log(f"phase 11: rare-event chains, f64, y={y}, rho={rho}, r2={r2}, T={T_}, N={RE_N}, "
+        "backward sampling, delta adapted from 0.5 toward 0.5; moments against the closed form "
+        "(mean and std errors in units of the posterior std; tolerance 6 standard errors)")
+    lane = 0
+    for i, style in enumerate(("kalman", "csmc", "csmc-guided", "csmc-guided-grad")):
+        lane += rare_chain(dev, style, RE_CELL, 500, 2500, 20 + i, bounded=True)["lane_scan"]
+    log(f"  the hardest cell of the published grid, rho={RE_HARD[1]}, r2={RE_HARD[2]} "
+        "(reported, not bounded):")
+    for i, style in enumerate(("kalman", "csmc", "csmc-guided")):
+        lane += rare_chain(dev, style, RE_HARD, 500, 1500, 30 + i, bounded=False)["lane_scan"]
+    return lane
 
 
 def main():
@@ -655,6 +1117,11 @@ def main():
     log("phase 5: f64 aux-cSMC steps, card vs CPU")
     phase_csmc_step_reference(dev)
     launches.update(phase_sv_chains(dev))
+
+    results["lane_scan"] = phase_lane_kernel(dev)
+    log("phase 9: f64 scalar-state particle-Gibbs steps, card vs CPU")
+    phase_scalar_step_reference(dev)
+    launches["lane_scan"] = phase_theta_chain(dev)["lane_scan"] + phase_rare_chains(dev)
 
     sources = {name: entry[:2] for name, entry in KERNELS.items()} | CSMC_KERNELS
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -3,8 +3,8 @@ built as host C++ with g++ and run one "thread" at a time, against the plain
 PyTorch versions in float64.
 
 Everything above each source's launch section is plain C++ on pointers, so
-the per-step maps, the three scan passes and the three cSMC sweeps run here
-unchanged; only the launch itself needs nvcc and a card. The sweeps'
+the per-step maps, the three scan passes and the four cSMC sweeps (the lane
+sweep with each of its model functors) run here unchanged; only the launch itself needs nvcc and a card. The sweeps'
 indices must be identical. Tolerance: both sides compute the same
 algebra in float64 with different summation orders and solvers (substitution
 here, LAPACK there), so they agree to ~1e-12; rtol 1e-9 leaves margin and
@@ -155,6 +155,39 @@ void h_block_lane_sv_guided(int n, int N, int d, const double* eps, const double
 }
 """
 
+_CSMC_LANE = """
+#include "csmc_lane.cu"
+template <class Model>
+static void host_lane(int n, int N, int pgas, const double* eps, const double* res_u,
+    const double* anc_u, const double* x_star, const double* x0, const double* w0,
+    const double* consts, const double* params, double* xs, double* log_ws, long long* anc,
+    double* scratch) {
+  double red[33];
+  int a0 = 0;
+  const csmc::Block<double> b{0, 1, red};
+  const Model model(consts, params);
+  double *w = scratch, *cw = scratch + N, *xp = scratch + 2 * N;
+  if (pgas)
+    lane_sweep<double, true>(b, n, N, eps, res_u, anc_u, x_star, x0, w0, model, xs, log_ws,
+                             anc, w, cw, xp, &a0);
+  else
+    lane_sweep<double, false>(b, n, N, eps, res_u, anc_u, x_star, x0, w0, model, xs, log_ws,
+                              anc, w, cw, xp, &a0);
+}
+#define HOST_LANE(NAME, MODEL)                                                               \
+  extern "C" void h_lane_##NAME(int n, int N, int pgas, const double* eps,                   \
+      const double* res_u, const double* anc_u, const double* x_star, const double* x0,      \
+      const double* w0, const double* consts, const double* params, double* xs,              \
+      double* log_ws, long long* anc, double* scratch) {                                     \
+    host_lane<csmc::MODEL<double>>(n, N, pgas, eps, res_u, anc_u, x_star, x0, w0, consts,    \
+                                   params, xs, log_ws, anc, scratch);                        \
+  }
+HOST_LANE(theta_logistic, ThetaLogistic)
+HOST_LANE(rare_event_guided, RareEventGuided)
+HOST_LANE(rare_event_bootstrap, RareEventBootstrap)
+HOST_LANE(ar1_gauss, Ar1Gauss)
+"""
+
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
@@ -166,7 +199,8 @@ def host_lib(tmp_path_factory):
     for name, body in (("maps", _PRELUDE + _MAPS % {"D": MAX_DIM}),
                        ("scan", _PRELUDE + _SCAN % {"D": MAX_DIM}),
                        ("csmc_fwd", _CSMC_PRELUDE + _CSMC_FWD),
-                       ("csmc_block", _CSMC_PRELUDE + _CSMC_BLOCK)):
+                       ("csmc_block", _CSMC_PRELUDE + _CSMC_BLOCK),
+                       ("csmc_lane", _CSMC_PRELUDE + _CSMC_LANE)):
         src = out / f"{name}.cpp"
         src.write_text(body)
         so = out / f"lib{name}.so"
@@ -300,7 +334,8 @@ def test_host_backward_factor_matches_plain(host_lib, n, N, k):
 @pytest.mark.parametrize("T,D,N", [(12, 3, 16), (9, 30, 25)])
 def test_host_block_lane_sv_guided_matches_plain(host_lib, T, D, N):
     from aux_ssm_tpu_torch.models import stochastic_volatility as sv
-    _, ys = sv.get_data(0.0, 0.9, 2.0, 0.25, D, T, generator=torch.Generator().manual_seed(T))
+    _, ys = sv.get_data(0.0, 0.9, 2.0, 0.25, D, T, generator=torch.Generator().manual_seed(T),
+                        device="cpu")
     factory, _ = sv.make_guided_factory(ys, 0.0, 0.9, 2.0, 0.25)
     rng = np.random.default_rng(D)
     u = torch.as_tensor(rng.standard_normal((T, D)))
@@ -318,6 +353,53 @@ def test_host_block_lane_sv_guided_matches_plain(host_lib, T, D, N):
     w, cw = torch.empty(N, dtype=torch.float64), torch.empty(N, dtype=torch.float64)
     _call(host_lib["csmc_block"].h_block_lane_sv_guided, n, N, D, eps, res_u, x_star, x0, w0,
           consts, params.contiguous(), xs, lw, anc, w, cw)
+    np.testing.assert_array_equal(anc.numpy(), want[2].numpy())
+    _close(xs, want[0])
+    _close(lw, want[1])
+
+
+def _lane_model(model, T):
+    """(Mt, Gt) of a model with lane callables, float64 on the CPU."""
+    from aux_ssm_tpu_torch.models import ar1_gauss, rare_event, theta_logistic
+    rng = np.random.default_rng(T)
+    if model == "theta_logistic":
+        return theta_logistic.get_feynman_kac(
+            torch.as_tensor(1.0 + 0.3 * rng.standard_normal((T, 1))))[2:]
+    if model == "ar1_gauss":
+        return ar1_gauss.get_feynman_kac(torch.as_tensor(rng.standard_normal((T - 1, 1))))[2:]
+    if model == "rare_event_bootstrap":
+        return rare_event.get_feynman_kac(5.0, 0.8, 0.5, T, device="cpu")[2:]
+    captured = {}
+    with pytest.MonkeyPatch.context() as mp:  # the factory, from where csmc_aux receives it
+        mp.setattr(rare_event.csmc_aux, "get_kernel",
+                   lambda factory, *a, **k: captured.setdefault("factory", factory))
+        rare_event.get_guided_csmc_kernel(5.0, 0.8, 0.5, T, 8, gradient=model.endswith("grad"),
+                                          device="cpu")
+    return captured["factory"](torch.as_tensor(rng.standard_normal((T, 1))),
+                               torch.as_tensor(rng.uniform(0.3, 0.9, T)))[2:]
+
+
+@pytest.mark.parametrize("pgas", [False, True])
+@pytest.mark.parametrize("model,T,N", [
+    ("theta_logistic", 24, 32), ("theta_logistic", 5, 2048), ("rare_event_guided", 2, 25),
+    ("rare_event_guided", 9, 16), ("rare_event_guided_grad", 9, 16),
+    ("rare_event_bootstrap", 9, 16), ("ar1_gauss", 12, 300)])
+def test_host_lane_matches_plain(host_lib, model, T, N, pgas):
+    Mt, Gt = _lane_model(model, T)
+    n = T - 1
+    rng = np.random.default_rng(N)
+    w0 = rng.uniform(0.1, 1.0, N)
+    inputs = tuple(torch.as_tensor(z) for z in (
+        rng.standard_normal((n, N)), rng.uniform(size=(n, N)), rng.uniform(size=n),
+        1.0 + 0.5 * rng.standard_normal(n), 1.0 + 0.5 * rng.standard_normal(N), w0 / w0.sum()))
+    want = CF.lane_scan(Mt, Gt, Mt if pgas else None, *inputs)
+    consts, params = Gt.cuda_operands()
+    assert (consts.numel(), params.shape[1]) == CF.LANE_MODELS[Gt.cuda_model]
+    xs, lw = (torch.empty(n, N, dtype=torch.float64) for _ in range(2))
+    anc = torch.empty(n, N, dtype=torch.int64)
+    scratch = torch.empty(3 * N, dtype=torch.float64)
+    _call(getattr(host_lib["csmc_lane"], f"h_lane_{Gt.cuda_model}"), n, N, pgas, *inputs,
+          consts, params.contiguous(), xs, lw, anc, scratch)
     np.testing.assert_array_equal(anc.numpy(), want[2].numpy())
     _close(xs, want[0])
     _close(lw, want[1])

@@ -174,7 +174,8 @@ def test_backward_factor_matches_plain(dev, n, N, k):
 
 @pytest.mark.parametrize("T,D,N", [(12, 3, 16), (40, 30, 25), (9, 30, 1024)])
 def test_block_lane_matches_plain(dev, T, D, N):
-    _, ys = sv.get_data(*SV_PARAMS, D, T, generator=torch.Generator().manual_seed(T))
+    _, ys = sv.get_data(*SV_PARAMS, D, T, generator=torch.Generator().manual_seed(T),
+                        device="cpu")
     rng = np.random.default_rng(D)
     n = T - 1
     inputs = tuple(torch.as_tensor(z) for z in (
@@ -198,7 +199,8 @@ def test_csmc_step_matches_cpu(dev, style, gradient):
     """Two f64 aux-cSMC steps of the SV model (T=32, D=4, N=16, backward
     sampling) on the card against the CPU, given the same noise."""
     T, D, N = 32, 4, 16
-    xs, ys = sv.get_data(*SV_PARAMS, D, T, generator=torch.Generator().manual_seed(5))
+    xs, ys = sv.get_data(*SV_PARAMS, D, T, generator=torch.Generator().manual_seed(5),
+                         device="cpu")
     rng = np.random.default_rng(5)
     delta = torch.as_tensor(rng.uniform(0.2, 1.0, T))
     noises = [tuple(torch.as_tensor(z) for z in (
@@ -217,6 +219,128 @@ def test_csmc_step_matches_cpu(dev, style, gradient):
             steps.append((state.x.cpu(), state.updated.cpu()))
         out.append(steps)
     assert CF.backward_factor_scan.launches == before + len(noises)
+    for (xc, uc), (xg, ug) in zip(*out):
+        assert torch.equal(uc, ug)
+        np.testing.assert_allclose(xg.numpy(), xc.numpy(), rtol=1e-9, atol=1e-11)
+
+
+# --------------------------------------------------------------------------
+# The lane sweep and the scalar-state particle-Gibbs steps
+# --------------------------------------------------------------------------
+
+def _lane_model(model, T, where):
+    """(Mt, Gt) of a model with lane callables, float64 on `where`."""
+    from aux_ssm_tpu_torch.models import ar1_gauss, rare_event, theta_logistic
+    rng = np.random.default_rng(T)
+    if model == "theta_logistic":
+        return theta_logistic.get_feynman_kac(
+            torch.as_tensor(1.0 + 0.3 * rng.standard_normal((T, 1))).to(where))[2:]
+    if model == "ar1_gauss":
+        return ar1_gauss.get_feynman_kac(
+            torch.as_tensor(rng.standard_normal((T - 1, 1))).to(where))[2:]
+    if model == "rare_event_bootstrap":
+        return rare_event.get_feynman_kac(5.0, 0.8, 0.5, T, device=where)[2:]
+    captured = {}
+    with pytest.MonkeyPatch.context() as mp:  # the factory, from where csmc_aux receives it
+        mp.setattr(rare_event.csmc_aux, "get_kernel",
+                   lambda factory, *a, **k: captured.setdefault("factory", factory))
+        rare_event.get_guided_csmc_kernel(5.0, 0.8, 0.5, T, 8, gradient=model.endswith("grad"),
+                                          device=where)
+    return captured["factory"](torch.as_tensor(rng.standard_normal((T, 1))).to(where),
+                               torch.as_tensor(rng.uniform(0.3, 0.9, T)).to(where))[2:]
+
+
+@pytest.mark.parametrize("pgas", [False, True])
+@pytest.mark.parametrize("model,T,N", [
+    ("theta_logistic", 24, 32), ("theta_logistic", 40, 256), ("theta_logistic", 5, 8192),
+    ("rare_event_guided", 2, 25), ("rare_event_guided_grad", 9, 16),
+    ("rare_event_bootstrap", 9, 16), ("ar1_gauss", 12, 4096)])
+def test_lane_matches_plain(dev, model, T, N, pgas):
+    n = T - 1
+    rng = np.random.default_rng(N)
+    w0 = rng.uniform(0.1, 1.0, N)
+    inputs = tuple(torch.as_tensor(z) for z in (
+        rng.standard_normal((n, N)), rng.uniform(size=(n, N)), rng.uniform(size=n),
+        1.0 + 0.5 * rng.standard_normal(n), 1.0 + 0.5 * rng.standard_normal(N), w0 / w0.sum()))
+    out = []
+    for where in ("cpu", dev):
+        Mt, Gt = _lane_model(model, T, where)
+        before = CF.lane_scan.launches
+        out.append(tuple(z.cpu() for z in CF.lane_scan(Mt, Gt, Mt if pgas else None,
+                                                       *_to(inputs, where))))
+    assert CF.lane_scan.launches == before + 1
+    assert torch.equal(out[1][2], out[0][2])
+    _close(out[1][:2], out[0][:2])
+
+
+@pytest.mark.parametrize("ancestor_sampling", [False, True])
+@pytest.mark.parametrize("backward", [False, True])
+def test_theta_logistic_step_matches_cpu(dev, ancestor_sampling, backward):
+    """Two f64 PGAS steps (T=24, N=32) on the card against the CPU, given the
+    same noise; the card's steps launch the lane sweep."""
+    from aux_ssm_tpu_torch.models import theta_logistic as tl
+    T, N = 24, 32
+    xs, ys = tl.get_data(T, generator=torch.Generator().manual_seed(2), device="cpu")
+    rng = np.random.default_rng(2)
+    noises = [tuple(torch.as_tensor(z) for z in (
+        rng.standard_normal((N, 1)), rng.uniform(size=(T - 1, N)),
+        rng.standard_normal((T - 1, N, 1)), rng.uniform(size=T - 1), rng.uniform(size=T)))
+        for _ in range(2)]
+    out = []
+    for where in ("cpu", dev):
+        init, kernel = tl.get_pgas_kernel(ys.to(where), N, backward=backward,
+                                          ancestor_sampling=ancestor_sampling)
+        state = init(xs.to(where))
+        before = CF.lane_scan.launches
+        steps = []
+        for noise in noises:
+            state = kernel(state, noise=_to(noise, where))
+            steps.append((state.x.cpu(), state.updated.cpu()))
+        out.append(steps)
+    assert CF.lane_scan.launches == before + len(noises)
+    for (xc, uc), (xg, ug) in zip(*out):
+        assert torch.equal(uc, ug)
+        np.testing.assert_allclose(xg.numpy(), xc.numpy(), rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("T", [2, 6])
+@pytest.mark.parametrize("style", ["kalman", "kalman-grad", "csmc", "csmc-guided",
+                                   "csmc-guided-grad"])
+def test_rare_event_step_matches_cpu(dev, style, T):
+    """Two f64 steps of each rare-event style on the card against the CPU,
+    given the same noise; T = 2 is the published grid's one-step sweep and
+    runs the MH scans with a single element."""
+    from aux_ssm_tpu_torch.models import rare_event as rev
+    N = 25
+    gradient = style.endswith("-grad")
+    rng = np.random.default_rng(T)
+    x0 = torch.as_tensor(rng.standard_normal((T, 1)) + 3.0)
+    if style.startswith("kalman"):
+        delta = 0.7
+        noises = [(rng.standard_normal((T, 1)), rng.standard_normal((T, 1)), rng.uniform())
+                  for _ in range(2)]
+    else:
+        delta = torch.as_tensor(rng.uniform(0.3, 1.5, T))
+        noises = [(rng.standard_normal((T, 1)), rng.standard_normal((N, 1)),
+                   rng.uniform(size=(T - 1, N)), rng.standard_normal((T - 1, N, 1)),
+                   rng.uniform(size=T - 1), rng.uniform(size=T)) for _ in range(2)]
+    out = []
+    for where in ("cpu", dev):
+        kw = dict(dtype=torch.float64, device=where)
+        if style.startswith("kalman"):
+            init, kernel = rev.get_kalman_kernel(5.0, 0.8, 0.5, T, True, gradient=gradient, **kw)
+        elif style.startswith("csmc-guided"):
+            init, kernel = rev.get_guided_csmc_kernel(5.0, 0.8, 0.5, T, N, gradient=gradient,
+                                                      **kw)
+        else:
+            init, kernel = rev.get_csmc_kernel(5.0, 0.8, 0.5, T, N, **kw)
+        state = init(x0.to(where))
+        steps = []
+        for noise in noises:
+            noise = tuple(torch.as_tensor(z, dtype=torch.float64, device=where) for z in noise)
+            state = kernel(state, _to(delta, where), noise=noise)
+            steps.append((state.x.cpu(), state.updated.cpu()))
+        out.append(steps)
     for (xc, uc), (xg, ug) in zip(*out):
         assert torch.equal(uc, ug)
         np.testing.assert_allclose(xg.numpy(), xc.numpy(), rtol=1e-9, atol=1e-11)

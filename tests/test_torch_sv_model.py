@@ -46,7 +46,7 @@ def _eig():
 
 def test_dynamics_potentials_and_hessian_match_jax(data):
     xs, ys = data
-    for got, want in zip(tsv.get_dynamics(NU, PHI, TAU, RHO, D),
+    for got, want in zip(tsv.get_dynamics(NU, PHI, TAU, RHO, D, device="cpu"),
                          jsv.get_dynamics(NU, PHI, TAU, RHO, D)):
         _close(got, want)
     x = np.random.default_rng(0).standard_normal((T, D))
@@ -131,8 +131,9 @@ def test_init_x_fn_matches_jax_given_its_draws(data):
 
 def test_get_data_law_and_sv_from_numpy():
     phi, tau, rho = 0.9, 2.0, 0.25
-    xs, ys = tsv.get_data(NU, phi, tau, rho, 3, 4000, generator=torch.Generator().manual_seed(1))
-    _, _, F, Q, b = tsv.get_dynamics(NU, phi, tau, rho, 3)
+    xs, ys = tsv.get_data(NU, phi, tau, rho, 3, 4000, generator=torch.Generator().manual_seed(1),
+                          device="cpu")
+    _, _, F, Q, b = tsv.get_dynamics(NU, phi, tau, rho, 3, device="cpu")
     resid = (xs[1:] - xs[:-1] @ F.T - b).numpy()
     np.testing.assert_allclose(np.cov(resid.T), Q.numpy(), atol=0.25)  # ~5 SE at n = 4000
     z = (ys / torch.exp(0.5 * xs)).numpy()
