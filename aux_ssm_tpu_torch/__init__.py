@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of `aux_ssm_tpu`: the auxiliary-Kalman MH step, run
 parallel-in-time, the sequential auxiliary particle Gibbs (cSMC) of the
-stochastic-volatility model, and the scalar-state particle Gibbs of the
-theta-logistic (PGAS) and rare-event models, through hand-written CUDA
+stochastic-volatility model, the scalar-state particle Gibbs of the
+theta-logistic (PGAS) and rare-event models, and the spatio-temporal
+Student-t model (auxiliary Kalman in the batched scalar layout, csmc and
+csmc-guided), through hand-written CUDA
 kernels on an NVIDIA Hopper card (plain PyTorch on the CPU).
 
 Entry points that take a `device` allocate on the card when it is None
@@ -17,14 +19,14 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .convert import (lgssm_from_numpy, rare_event_from_numpy, sv_from_numpy,  # noqa: E402
-                      theta_logistic_from_numpy)
+from .convert import (lgssm_from_numpy, rare_event_from_numpy, spatial_from_numpy,  # noqa: E402
+                      sv_from_numpy, theta_logistic_from_numpy)
 from .device import default_device  # noqa: E402
 from .experiments.runner import RunConfig, RunResult, run_chain  # noqa: E402
 from .kernels.adaptation import delta_adaptation  # noqa: E402
 from .kernels.csmc_base import CSMCState  # noqa: E402
 from .kernels.kalman import KalmanSampler, get_kernel  # noqa: E402
-from .models import rare_event, stochastic_volatility, theta_logistic  # noqa: E402
+from .models import rare_event, spatial, stochastic_volatility, theta_logistic  # noqa: E402
 from .ops import (LGSSM, filtering, log_likelihood, make_target_logpdf,  # noqa: E402
                   posterior_logpdf, prior_logpdf, sampling)
 
@@ -47,6 +49,8 @@ __all__ = [
     "rare_event_from_numpy",
     "run_chain",
     "sampling",
+    "spatial",
+    "spatial_from_numpy",
     "stochastic_volatility",
     "sv_from_numpy",
     "theta_logistic",

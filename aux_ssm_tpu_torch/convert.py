@@ -29,6 +29,16 @@ def theta_logistic_from_numpy(ys, xs=None, *, device, dtype):
     return sv_from_numpy(ys, xs, device=device, dtype=dtype)
 
 
+def spatial_from_numpy(ys, xs=None, x0=None, *, device, dtype):
+    """The spatial model's data and a start carried across: `ys` and, when
+    given, `xs` (`spatial.get_data`'s, each (T, B)) and a trajectory `x0`
+    (T, B) (e.g. `spatial.init_x_fn`'s draw). Returns `(ys, xs, x0)`, None
+    where not given. The model's numbers (sigma_x, nu, tau, r_y, d) are
+    Python numbers on both sides."""
+    return tuple(None if z is None else torch.as_tensor(z, dtype=dtype, device=device)
+                 for z in (ys, xs, x0))
+
+
 def rare_event_from_numpy(x, delta=None, *, device, dtype):
     """A rare-event chain's state carried across: the trajectory `x` ((T,) or
     (T, 1), e.g. `rare_event.init_x`'s draw) and, when given, the step size

@@ -10,6 +10,8 @@ def mT(M):
 
 def mv(M, v):
     """Batched matrix-vector product (..., i, j), (..., j) -> (..., i)."""
+    if M.shape[-2:] == (1, 1):  # a product of scalars, not a batch of 1 x 1 matmuls
+        return M[..., 0] * v
     return (M @ v.unsqueeze(-1)).squeeze(-1)
 
 

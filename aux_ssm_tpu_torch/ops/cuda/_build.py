@@ -21,7 +21,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("kalman_fused.cu", "scan.cu", "csmc_fwd.cu", "csmc_lane.cu",
+SOURCES = ("kalman_fused.cu", "scan.cu", "scalar_scan.cu", "csmc_fwd.cu", "csmc_lane.cu",
            "csmc_block_lane.cu")
 HEADERS = ("smallmat.cuh", "csmc_common.cuh", "csmc_models.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "aux_ssm_tpu_torch"

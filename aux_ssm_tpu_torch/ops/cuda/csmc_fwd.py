@@ -21,7 +21,7 @@ from .kalman_fused import _on_cuda
 
 MAX_N = 8192        # factor and lane kernels (the TPU kernels' _LANE_MAX_N)
 MAX_BLOCK_N = 1024  # block-lane kernel (the TPU kernel's dense cap)
-MAX_BLOCK_D = 32    # kMaxBlockD of csrc/csmc_block_lane.cu
+MAX_BLOCK_D = 64    # kMaxBlockD of csrc/csmc_block_lane.cu
 
 
 def _at(tree, t):
@@ -233,6 +233,14 @@ lane_scan.launches = 0
 # Block-lane forward sweep (block_lane_forward_scan)
 # --------------------------------------------------------------------------
 
+# cuda_model -> the sizes the wrapper checks before a launch: (d x d matrices,
+# d-vectors, scalars) of the constants, as kConstMats, kConstVecs and
+# kConstScalars of the functor in csrc/csmc_models.cuh size the kernel's shared
+# memory, then (d-vectors, scalars) of a per-step row, which the C++ states
+# nowhere but in the functor's own indexing.
+BLOCK_LANE_MODELS = {"sv_guided": (3, 2, 1, 6, 2), "spatial_guided": (1, 0, 3, 2, 1)}
+
+
 def block_lane_scan_plain(propagate, logw, mt_params, gt_params, eps, res_u, x_star, x0, w0):
     """State-dependent cSMC forward sweep on (d, N) particle blocks.
     `propagate(eps, x_prev, mt_p) -> (d, N)` and `logw(x_next, x_prev, gt_p)
@@ -266,17 +274,19 @@ def block_lane_scan(Mt, Gt, eps, res_u, x_star, x0, w0):
         return block_lane_scan_plain(Mt.block_propagate, Gt.block_logw, Mt.params, Gt.params,
                                      eps, res_u, x_star, x0, w0)
     model = getattr(Gt, "cuda_model", None)
-    if model != "sv_guided" or getattr(Mt, "cuda_model", None) != model:
+    if model not in BLOCK_LANE_MODELS or getattr(Mt, "cuda_model", None) != model:
         raise NotImplementedError(
             f"block_lane_scan: no CUDA functor for {type(Mt).__name__}/{type(Gt).__name__} "
-            "(csrc/csmc_models.cuh has SvGuided only)")
+            f"(csrc/csmc_models.cuh has {', '.join(BLOCK_LANE_MODELS)})")
     n, d, N = eps.shape
     _check_n("block_lane_scan", N, MAX_BLOCK_N)
     if not 1 <= d <= MAX_BLOCK_D:
         raise ValueError(f"block_lane_scan: the CUDA kernel takes d in 1..{MAX_BLOCK_D}, got {d}")
     consts, params = Gt.cuda_operands()
+    mats, vecs, scalars, row_vecs, row_scalars = BLOCK_LANE_MODELS[model]
     for t, shape in ((res_u, (n, N)), (x_star, (n, d)), (x0, (d, N)), (w0, (N,)),
-                     (consts, (3 * d * d + 2 * d + 1,)), (params, (n, 6 * d + 2))):
+                     (consts, (mats * d * d + vecs * d + scalars,)),
+                     (params, (n, row_vecs * d + row_scalars))):
         _check_shape("block_lane_scan", t, shape)
     args = check_cuda_inputs("block_lane_scan", (eps, res_u, x_star, x0, w0, consts, params),
                              eps.dtype, 1, ())
@@ -284,7 +294,7 @@ def block_lane_scan(Mt, Gt, eps, res_u, x_star, x0, w0):
     log_ws = eps.new_empty(n, N)
     ancestors = torch.empty(n, N, dtype=torch.int64, device=eps.device)
     if n:
-        launch("csmc_block_lane_sv_guided", eps.dtype, n, N, d, *args, xs, log_ws, ancestors)
+        launch(f"csmc_block_lane_{model}", eps.dtype, n, N, d, *args, xs, log_ws, ancestors)
         block_lane_scan.launches += 1
     return xs, log_ws, ancestors
 

@@ -35,6 +35,8 @@ using std::fmax;
 using std::isinf;
 using std::isnan;
 using std::log;
+using std::log1p;
+using std::sqrt;
 #endif
 
 namespace csmc {

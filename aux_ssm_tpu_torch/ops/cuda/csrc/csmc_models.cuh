@@ -12,7 +12,11 @@
 // particle 0 to x_star (d,), stores the particle in column j of x_out (d, N)
 // and returns its log weight on every lane. Lane l owns the state components
 // l, l + lanes, ...; buf is the warp's shared scratch of kScratch * d
-// entries. The lanes must not diverge around a call.
+// entries. The lanes must not diverge around a call. It is built as
+// Model(d, N, consts, params) from its packed constants (kConstMats d x d
+// matrices, then kConstVecs d-vectors, then kConstScalars scalars; the sweep
+// keeps them in shared memory and sizes it by these three) and the compact
+// per-step rows, whose width only the functor knows (each names its row).
 //
 // A lane functor is built from (consts, params): its kConsts constants and
 // the compact (n, kParams) per-step rows, and gives, on scalars, for step t
@@ -58,6 +62,12 @@ struct SvGuided {
   const S* params;
 
   static constexpr int kScratch = 3;  // d-vectors of a warp's scratch
+  static constexpr int kConstMats = 3, kConstVecs = 2, kConstScalars = 1;
+
+  // consts = [FRT, VQ, VQT (d*d each), bR, isl (d each), half_logdet_Q]
+  AUX_HD SvGuided(int d_, int N_, const S* c, const S* p)
+      : d(d_), N(N_), FRT(c), VQ(c + d_ * d_), VQT(c + 2 * d_ * d_), bR(c + 3 * d_ * d_),
+        isl(c + 3 * d_ * d_ + d_), half_logdet_Q(c[3 * d_ * d_ + 2 * d_]), params(p) {}
 
   AUX_HD S step(int t, int j, int a, int lane, int lanes, const S* x_prev, const S* eps,
                 const S* x_star, S* x_out, S* buf) const {
@@ -106,6 +116,105 @@ struct SvGuided {
     S out = obs - (S)0.5 * qq - half_logdet_Q - half_d_log2pi;
     out += prop;
     out -= -(S)0.5 * ll - hld - half_d_log2pi;
+    return out;
+  }
+};
+
+// The guided proposal of the spatio-temporal Student-t model,
+// aux_ssm_tpu/models/spatial.py get_guided_csmc_kernel (_block_moments,
+// _block_tpot, GuidedMt.block_propagate and GuidedGt.block_logw): d = B
+// independent random walks of scale sig_x recentred on the auxiliary
+// observation u with the scalar gain K = sig_x^2 / (sig_x^2 + scale^2),
+//   moments    mu = x_prev + K (u' - x_prev),  lam = sqrt(sig_x^2 (1 - K)),
+//              u' = u + scale^2 (nu + d) P (y - x_prev) / (nu + q(x_prev))
+//              with the gradient shift, else u' = u;  q(x) = (y-x)^T P (y-x)
+//   propagate  x = mu + lam eps
+//   logw       nan_to_num(-(nu + d) / 2 log1p(q(x) / nu))
+//              + sum_i log N(x_i; x_prev_i, sig_x) + sum_i log N(x_i; u_i, scale)
+//              - sum_i log N(x_i; mu_i, lam)
+// consts = [P^T (d*d, row-major: the dense precision, read by columns so that
+// the lanes of a warp read consecutive shared-memory words), sig_x, nu,
+// gradient (0 or 1)]; row t = [u (d), y (d), scale]. Each lane computes the
+// rows of the one or two d x d mat-vecs for the components it owns, from the
+// warp's vectors in `buf`.
+template <typename S>
+struct SpatialGuided {
+  int d, N;
+  const S* PT;
+  S sig_x, nu;
+  bool gradient;
+  const S* params;
+
+  static constexpr int kScratch = 4;
+  static constexpr int kConstMats = 1, kConstVecs = 0, kConstScalars = 3;
+
+  AUX_HD SpatialGuided(int d_, int N_, const S* c, const S* p)
+      : d(d_), N(N_), PT(c), sig_x(c[d_ * d_]), nu(c[d_ * d_ + 1]),
+        gradient(c[d_ * d_ + 2] != (S)0), params(p) {}
+
+  // (P v)_i from P^T.
+  AUX_HD S apply_row(int i, const S* v) const {
+    S s = 0;
+    for (int k = 0; k < d; ++k) s += PT[k * d + i] * v[k];
+    return s;
+  }
+
+  AUX_HD S step(int t, int j, int a, int lane, int lanes, const S* x_prev, const S* eps,
+                const S* x_star, S* x_out, S* buf) const {
+    const S* p = params + (long)t * (2 * d + 1);
+    const S *u = p, *y = p + d;
+    const S scale = p[2 * d];
+    S* xa = buf;          // the ancestor x_prev[:, a]
+    S* df = buf + d;      // y - x_prev, then y - x
+    S* mu = buf + 2 * d;  // P (y - x_prev), then the proposal mean
+    S* xn = buf + 3 * d;  // the new particle
+    const S s2 = sig_x * sig_x, sc2 = scale * scale;
+    const S K = s2 / (s2 + sc2);
+    const S lam = sqrt(s2 * ((S)1 - K));
+
+    for (int i = lane; i < d; i += lanes) {
+      xa[i] = x_prev[(long)i * N + a];
+      df[i] = y[i] - xa[i];
+    }
+    AUX_WSYNC();
+    S q = 0;
+    if (gradient) {
+      for (int i = lane; i < d; i += lanes) {
+        mu[i] = apply_row(i, df);
+        q += df[i] * mu[i];
+      }
+      q = warp_sum(q);
+      AUX_WSYNC();  // every lane is done with y - x_prev in df
+    }
+    for (int i = lane; i < d; i += lanes) {
+      S u_i = u[i];
+      if (gradient) u_i = u_i + sc2 * (nu + (S)d) * mu[i] / (nu + q);
+      const S mu_i = xa[i] + K * (u_i - xa[i]);
+      const S x_i = j == 0 ? x_star[i] : mu_i + lam * eps[(long)i * N + j];
+      mu[i] = mu_i;
+      xn[i] = x_i;
+      df[i] = y[i] - x_i;
+      x_out[(long)i * N + j] = x_i;
+    }
+    AUX_WSYNC();
+
+    S qq = 0, trans = 0, prop = 0, ll = 0;
+    for (int i = lane; i < d; i += lanes) {
+      qq += df[i] * apply_row(i, df);
+      trans += norm_logpdf(xn[i], xa[i], sig_x);
+      prop += norm_logpdf(xn[i], u[i], scale);
+      ll += norm_logpdf(xn[i], mu[i], lam);
+    }
+    qq = warp_sum(qq);
+    trans = warp_sum(trans);
+    prop = warp_sum(prop);
+    ll = warp_sum(ll);
+    AUX_WSYNC();  // buf is free for the warp's next particle
+
+    S out = nan_to_num(-(S)0.5 * (nu + (S)d) * log1p(qq / nu));
+    out += trans;
+    out += prop;
+    out -= ll;
     return out;
   }
 };

@@ -3,18 +3,31 @@
 
 The parallel filter is the Särkkä & García-Fernández (2021) formulation:
 each time step contributes a 5-tuple element (A, b, C, eta, J) and filtering
-is their inclusive associative scan. Elements, scan and log-likelihood
-increments go through the wrappers of `ops/cuda/`, which launch the CUDA
-kernels for CUDA tensors and run the plain versions for CPU tensors. The
-t = 0 update stays in plain torch.
+is their inclusive associative scan.
+
+Two layouts, told apart by `bs.ndim` (see `lgssm`):
+  - unbatched, one filter of state width dx: ys (T, dy), m0 (dx,), P0 (dx, dx),
+    Fs/Qs (T-1, dx, dx), bs (T-1, dx), Hs (T, dy, dx), Rs (T, dy, dy),
+    cs (T, dy). Elements, scan and log-likelihood increments go through the
+    d x d wrappers of `ops/cuda/`; the t = 0 update stays in plain torch.
+  - batched scalar, B independent filters with dx = dy = 1 (the spatial
+    model): ys (T, B, 1), m0 (B, 1), P0 (B, 1, 1), Fs/Qs (T-1, B, 1, 1),
+    bs (T-1, B, 1), Hs/Rs (T, B, 1, 1), cs (T, B, 1). Elements and
+    log-likelihood increments are elementwise closed forms on (n, B) tensors
+    in plain torch (the JAX package computes them outside any kernel too);
+    only the scan goes through a kernel, `ops/cuda/scalar_scan`. The
+    log-likelihood is summed over B.
+Every wrapper of `ops/cuda/` launches its CUDA kernel for CUDA tensors and
+runs its plain version for CPU tensors.
 """
 import torch
 
 from .batched import mT, mv, sym, bdiag
 from .chol import cholesky
-from .lgssm import LGSSM, mask_observation, _LOG_2PI
+from .lgssm import LGSSM, batched_scalar_layout, mask_observation, _LOG_2PI
 from .cuda import kalman_fused as _fused
 from .cuda.filter_scan import filter_scan
+from .cuda.scalar_scan import scalar_filter_scan
 
 
 def filtering(ys, lgssm: LGSSM, parallel: bool):
@@ -22,7 +35,7 @@ def filtering(ys, lgssm: LGSSM, parallel: bool):
 
     Parameters
     ----------
-    ys : Tensor (T, dy)
+    ys : Tensor (T, dy), or (T, B, 1) in the batched scalar layout
         Observations; NaN components are treated as missing.
     lgssm : LGSSM
         Model parameters (see `lgssm.LGSSM` for shapes).
@@ -31,11 +44,17 @@ def filtering(ys, lgssm: LGSSM, parallel: bool):
 
     Returns
     -------
-    ms : Tensor (T, dx) — filtered means
-    Ps : Tensor (T, dx, dx) — filtered covariances
-    ell : scalar — marginal log-likelihood log p(y_{0:T})
+    ms : Tensor (T, [B,] dx) — filtered means
+    Ps : Tensor (T, [B,] dx, dx) — filtered covariances
+    ell : scalar — marginal log-likelihood log p(y_{0:T}) (summed over B)
     """
-    impl = _parallel_filtering if parallel else _sequential_filtering
+    if not parallel:
+        batched_scalar_layout(lgssm.bs, lgssm.cs)  # raises for d > 1; the loop broadcasts over B
+        impl = _sequential_filtering
+    elif batched_scalar_layout(lgssm.bs, lgssm.cs):
+        impl = _parallel_filtering_scalar
+    else:
+        impl = _parallel_filtering
     ms, Ps, ell = impl(ys, *lgssm)
     if ell.ndim >= 1:
         ell = ell.sum()
@@ -103,6 +122,62 @@ def _parallel_filtering(ys, m0, P0, Fs, Qs, bs, Hs, Rs, cs):
     # one embarrassingly parallel predict + update per step.
     ell_incs = _fused.ell(Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], ms[:-1], Ps[:-1])
     return ms, Ps, ell0 + ell_incs.sum(0)
+
+
+# --- batched scalar layout ------------------------------------------------
+
+def _scalar_update(y, m, P, H, c, R):
+    """`kalman_update` for dx = dy = 1 on tensors without the unit axes."""
+    mask = torch.isfinite(y)
+    H_eff = torch.where(mask, torch.nan_to_num(H), 0.0)
+    innov = torch.where(mask, torch.nan_to_num(y) - (H_eff * m + torch.nan_to_num(c)), 0.0)
+    S = torch.where(mask, torch.nan_to_num(R), 1.0) + H_eff * P * H_eff
+    G = P * H_eff / S
+    ell_inc = -0.5 * (innov * innov / S + torch.log(S)) - 0.5 * _LOG_2PI * mask.to(m.dtype)
+    return m + G * innov, P - G * S * G, ell_inc
+
+
+def _scalar_elements(F, Q, b, H, R, c, y, m0, P0):
+    """`_make_associative_elements` for dx = dy = 1: (A, b, C, eta, J), each
+    (n, B), from (n, B) parameters and the updated initial state (B,)."""
+    mask = torch.isfinite(y)
+    H_eff = torch.where(mask, torch.nan_to_num(H), 0.0)
+    resid = torch.where(mask, torch.nan_to_num(y) - torch.nan_to_num(c), 0.0)
+
+    # Only the first element carries a state: m_pred = b and P_pred = Q elsewhere.
+    m_pred, P_pred = b.clone(), Q.clone()
+    m_pred[0] += F[0] * m0
+    P_pred[0] += F[0] * P0 * F[0]
+
+    S = H_eff * P_pred * H_eff + torch.where(mask, torch.nan_to_num(R), 1.0)
+    S_invH = H_eff / S
+    K = P_pred * S_invH
+    HF = H_eff * F
+    A = F - K * HF
+    b_el = m_pred + K * (resid - H_eff * m_pred)
+    C = P_pred - K * S * K
+    temp = F * S_invH
+    eta = temp * (resid - H_eff * b)
+    J = temp * HF
+    return A, b_el, C, eta, J
+
+
+def _parallel_filtering_scalar(ys, m0, P0, Fs, Qs, bs, Hs, Rs, cs):
+    y, m0, P0 = ys[..., 0], m0[..., 0], P0[..., 0, 0]
+    F, Q, b = Fs[..., 0, 0], Qs[..., 0, 0], bs[..., 0]
+    H, R, c = Hs[..., 0, 0], Rs[..., 0, 0], cs[..., 0]
+    m0, P0, ell0 = _scalar_update(y[0], m0, P0, H[0], c[0], R[0])
+    if y.shape[0] == 1:
+        return m0[None, :, None], P0[None, :, None, None], ell0
+    shape = y[1:].shape
+    elems = tuple(z.expand(shape) for z in
+                  _scalar_elements(F, Q, b, H[1:], R[1:], c[1:], y[1:], m0, P0))
+    _, ms, Ps, _, _ = scalar_filter_scan(elems)
+    ms = torch.cat([m0[None], ms])
+    Ps = torch.cat([P0[None], Ps])
+    *_, ell_incs = _scalar_update(y[1:], F * ms[:-1] + b, Q + F * Ps[:-1] * F,
+                                  H[1:], c[1:], R[1:])
+    return ms[..., None], Ps[..., None, None], ell0 + ell_incs.sum(0)
 
 
 # --- associative elements -------------------------------------------------

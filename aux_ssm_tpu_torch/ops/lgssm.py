@@ -1,8 +1,12 @@
 """Linear-Gaussian state-space model container and trajectory log-densities
 (counterpart of `aux_ssm_tpu/ops/lgssm.py`).
 
-Shapes (unbatched layout): m0 (dx,), P0 (dx, dx), Fs/Qs (T-1, dx, dx),
-bs (T-1, dx), Hs (T, dy, dx), Rs (T, dy, dy), cs/ys (T, dy).
+Shapes, unbatched layout: m0 (dx,), P0 (dx, dx), Fs/Qs (T-1, dx, dx),
+bs (T-1, dx), Hs (T, dy, dx), Rs (T, dy, dy), cs/ys (T, dy), xs (T, dx).
+Batched scalar layout (B independent filters with dx = dy = 1, the spatial
+model): m0 (B, 1), P0 (B, 1, 1), Fs/Qs (T-1, B, 1, 1), bs (T-1, B, 1),
+Hs/Rs (T, B, 1, 1), cs/ys (T, B, 1), xs (T, B, 1); every density is summed
+over B. A batched layout with dx or dy above 1 is not ported.
 
 Missing data: NaN entries of `ys` are unobserved components. Every function
 uses the exact masked projection of the observation model (rows of H and
@@ -32,6 +36,18 @@ class LGSSM(NamedTuple):
     Hs: torch.Tensor
     Rs: torch.Tensor
     cs: torch.Tensor
+
+
+def batched_scalar_layout(bs, cs):
+    """True for the batched scalar layout (bs (T-1, B, 1), cs (T, B, 1)),
+    False for the unbatched one; a batched layout of wider filters raises."""
+    if bs.ndim != 3:
+        return False
+    if bs.shape[-1] != 1 or cs.shape[-1] != 1:
+        raise NotImplementedError(
+            "the batched (T, B, d) layout is ported for dx = dy = 1 only; wider batched "
+            "filters belong to the chain-batching slice (ROADMAP.md)")
+    return True
 
 
 def _eye_like(R):
@@ -109,11 +125,15 @@ def prior_logpdf(xs, lgssm):
 
 
 def trajectory_logdensity(ys, xs, lgssm):
-    """log p(x_{0:T}) + log p(y_{0:T} | x_{0:T}): the t = 0 terms in plain
-    torch, the t >= 1 steps through `kalman_fused.logdensity_steps`."""
+    """log p(x_{0:T}) + log p(y_{0:T} | x_{0:T}). Unbatched layout: the t = 0
+    terms in plain torch, the t >= 1 steps through
+    `kalman_fused.logdensity_steps`. Batched scalar layout: the elementwise
+    closed forms of `log_likelihood` and `prior_logpdf`."""
     from .cuda.kalman_fused import logdensity_steps  # that module imports this one
 
     m0, P0, Fs, Qs, bs, Hs, Rs, cs = lgssm
+    if batched_scalar_layout(bs, cs):
+        return log_likelihood(ys, xs, lgssm) + prior_logpdf(xs, lgssm)
     steps = logdensity_steps(Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], xs[:-1], xs[1:])
     pred0 = mv(Hs[0], xs[0]) + cs[0]
     first = _first_logpdf(xs[0], m0, P0) + _masked_step_logpdf(ys[0], pred0, Rs[0])

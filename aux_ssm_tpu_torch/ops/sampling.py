@@ -4,16 +4,22 @@
 Given filtered moments (ms, Ps), one joint smoothing draw x_{0:T} composes
 the backward maps x_t = G_t x_{t+1} + e_t, where e_t carries the sampled
 noise. Composition of affine maps is associative, so the trajectory is a
-reverse associative scan or a reverse sequential loop. The maps and the scan
-go through the wrappers of `ops/cuda/`; the last step is plain torch.
+reverse associative scan or a reverse sequential loop.
+
+Two layouts (see `lgssm`). Unbatched, ms (T, dx), Ps (T, dx, dx), eps (T, dx):
+the maps and the scan go through the d x d wrappers of `ops/cuda/`; the last
+step is plain torch. Batched scalar, ms (T, B, 1), Ps (T, B, 1, 1), eps
+(T, B, 1): the maps are elementwise closed forms in plain torch and the scan
+goes through `ops/cuda/scalar_scan.scalar_affine_scan`.
 """
 import torch
 
 from .batched import mT, mv, sym
 from .chol import safe_cholesky
-from .lgssm import LGSSM
+from .lgssm import LGSSM, batched_scalar_layout
 from .cuda.filter_scan import affine_scan
 from .cuda.kalman_fused import backward_maps
+from .cuda.scalar_scan import scalar_affine_scan
 
 
 def sampling(eps, ms, Ps, lgssm: LGSSM, parallel: bool):
@@ -21,7 +27,7 @@ def sampling(eps, ms, Ps, lgssm: LGSSM, parallel: bool):
 
     Parameters
     ----------
-    eps : Tensor (T, dx)
+    eps : Tensor (T, dx), or (T, B, 1) in the batched scalar layout
         Standard normal noise of the draw (the JAX package draws it from its
         key inside; the port takes it explicitly).
     ms, Ps : filtered means/covariances from `filtering`
@@ -33,6 +39,9 @@ def sampling(eps, ms, Ps, lgssm: LGSSM, parallel: bool):
     -------
     xs : Tensor with the same shape as `ms`.
     """
+    if batched_scalar_layout(lgssm.bs, lgssm.cs):
+        return _scalar_sampling(eps[..., 0], ms[..., 0], Ps[..., 0, 0], lgssm.Fs[..., 0, 0],
+                                lgssm.Qs[..., 0, 0], lgssm.bs[..., 0], parallel)[..., None]
     gains, incs = _backward_maps(eps, ms, Ps, lgssm.Fs, lgssm.Qs, lgssm.bs)
     if parallel:
         return affine_scan(gains, incs, reverse=True)[1]
@@ -40,6 +49,27 @@ def sampling(eps, ms, Ps, lgssm: LGSSM, parallel: bool):
     xs = [x]
     for t in range(incs.shape[0] - 2, -1, -1):
         x = sampling_operator((gains[t + 1], x), (gains[t], incs[t]))[1]
+        xs.append(x)
+    return torch.stack(xs[::-1])
+
+
+def _scalar_sampling(eps, ms, Ps, F, Q, b, parallel):
+    """`sampling` for B scalar filters on (T, B) tensors: the backward maps of
+    `backward_map_moments` in scalar form, then the reverse affine scan."""
+    m, P = ms[:-1], Ps[:-1]
+    S = F * P * F + Q
+    gain = P * F / S
+    L = torch.sqrt(torch.clamp(P - gain * S * gain, min=0.0))
+    incs = m - gain * (F * m + b) + L * eps[:-1]
+    last_inc = ms[-1] + torch.sqrt(torch.clamp(Ps[-1], min=0.0)) * eps[-1]
+    gains = torch.cat([gain.expand(m.shape), torch.zeros_like(last_inc)[None]])
+    incs = torch.cat([incs, last_inc[None]])
+    if parallel:
+        return scalar_affine_scan(gains, incs, reverse=True)[1]
+    x = incs[-1]
+    xs = [x]
+    for t in range(incs.shape[0] - 2, -1, -1):
+        x = gains[t] * x + incs[t]
         xs.append(x)
     return torch.stack(xs[::-1])
 

@@ -3,8 +3,9 @@ built as host C++ with g++ and run one "thread" at a time, against the plain
 PyTorch versions in float64.
 
 Everything above each source's launch section is plain C++ on pointers, so
-the per-step maps, the three scan passes and the four cSMC sweeps (the lane
-sweep with each of its model functors) run here unchanged; only the launch itself needs nvcc and a card. The sweeps'
+the per-step maps, the scans' passes (dense and scalar) and the four cSMC
+sweeps (the lane and block-lane sweeps with each of their model functors) run
+here unchanged; only the launch itself needs nvcc and a card. The sweeps'
 indices must be identical. Tolerance: both sides compute the same
 algebra in float64 with different summation orders and solvers (substitution
 here, LAPACK there), so they agree to ~1e-12; rtol 1e-9 leaves margin and
@@ -23,6 +24,7 @@ torch.set_num_threads(1)
 from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF  # noqa: E402
+from aux_ssm_tpu_torch.ops.cuda import scalar_scan as SS  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda._build import CSRC, MAX_DIM  # noqa: E402
 from aux_ssm_tpu_torch.ops.filtering import (  # noqa: E402
     _make_associative_elements, filtering, kalman_update)
@@ -141,16 +143,64 @@ void h_backward_factor(int n, int N, int k, const double* rf, const double* cf,
 
 _CSMC_BLOCK = """
 #include "csmc_block_lane.cu"
-extern "C" {
-void h_block_lane_sv_guided(int n, int N, int d, const double* eps, const double* res_u,
+template <class Model>
+static void host_block_lane(int n, int N, int d, const double* eps, const double* res_u,
     const double* x_star, const double* x0, const double* w0, const double* consts,
     const double* params, double* xs, double* log_ws, long long* anc, double* w, double* cw) {
-  double red[33], scratch[csmc::SvGuided<double>::kScratch * 32];
-  const int dd = d * d;
-  const csmc::SvGuided<double> model{d, N, consts, consts + dd, consts + 2 * dd,
-      consts + 3 * dd, consts + 3 * dd + d, consts[3 * dd + 2 * d], params};
+  double red[33], scratch[Model::kScratch * 64];
+  const Model model(d, N, consts, params);
   block_lane_sweep<double>(csmc::Block<double>{0, 1, red}, n, N, d, eps, res_u, x_star, x0,
                            w0, model, xs, log_ws, anc, w, cw, scratch);
+}
+#define HOST_BLOCK_LANE(NAME, MODEL)                                                         \
+  extern "C" void h_block_lane_##NAME(int n, int N, int d, const double* eps,                \
+      const double* res_u, const double* x_star, const double* x0, const double* w0,         \
+      const double* consts, const double* params, double* xs, double* log_ws,                \
+      long long* anc, double* w, double* cw) {                                               \
+    host_block_lane<csmc::MODEL<double>>(n, N, d, eps, res_u, x_star, x0, w0, consts,        \
+                                         params, xs, log_ws, anc, w, cw);                    \
+  }
+HOST_BLOCK_LANE(sv_guided, SvGuided)
+HOST_BLOCK_LANE(spatial_guided, SpatialGuided)
+"""
+
+_SCALAR_SCAN = """
+#include "scalar_scan.cu"
+// The kernel's three passes, one (chunk, lane) "thread" at a time.
+template <class Op>
+static void host_scalar_scan(int n, int B, bool rev, const Arrays<Op>& x, const Arrays<Op>& out) {
+  using S = typename Op::Scalar;
+  static S tot[Op::kN][kChunks], acc[kChunks][Op::kN];
+  for (int b = 0; b < B; ++b) {
+    for (int c = 0; c < kChunks; ++c) {
+      scan_chunk<Op>(c, b, n, B, rev, x, out, acc[c]);
+      for (int a = 0; a < Op::kN; ++a) tot[a][c] = acc[c][a];
+    }
+    for (int off = 1; off < kChunks; off *= 2) {
+      for (int c = off; c < kChunks; ++c) {
+        S left[Op::kN];
+        for (int a = 0; a < Op::kN; ++a) left[a] = tot[a][c - off];
+        Op::combine(left, acc[c], acc[c]);
+      }
+      for (int c = 0; c < kChunks; ++c)
+        for (int a = 0; a < Op::kN; ++a) tot[a][c] = acc[c][a];
+    }
+    for (int c = 1; c < kChunks; ++c) {
+      S pre[Op::kN];
+      for (int a = 0; a < Op::kN; ++a) pre[a] = tot[a][c - 1];
+      scan_apply<Op>(c, b, n, B, rev, pre, out);
+    }
+  }
+}
+extern "C" {
+void h_scalar_filter_scan(int n, int B, double* A, double* b, double* C, double* e, double* J,
+                          double* oA, double* ob, double* oC, double* oe, double* oJ) {
+  using Op = ScalarFilterOp<double>;
+  host_scalar_scan<Op>(n, B, false, Arrays<Op>{{A, b, C, e, J}}, Arrays<Op>{{oA, ob, oC, oe, oJ}});
+}
+void h_scalar_affine_scan(int n, int B, int rev, double* g, double* e, double* og, double* oe) {
+  using Op = ScalarAffineOp<double>;
+  host_scalar_scan<Op>(n, B, rev != 0, Arrays<Op>{{g, e}}, Arrays<Op>{{og, oe}});
 }
 }
 """
@@ -199,6 +249,7 @@ def host_lib(tmp_path_factory):
     for name, body in (("maps", _PRELUDE + _MAPS % {"D": MAX_DIM}),
                        ("scan", _PRELUDE + _SCAN % {"D": MAX_DIM}),
                        ("csmc_fwd", _CSMC_PRELUDE + _CSMC_FWD),
+                       ("scalar_scan", _PRELUDE + _SCALAR_SCAN),
                        ("csmc_block", _CSMC_PRELUDE + _CSMC_BLOCK),
                        ("csmc_lane", _CSMC_PRELUDE + _CSMC_LANE)):
         src = out / f"{name}.cpp"
@@ -356,6 +407,67 @@ def test_host_block_lane_sv_guided_matches_plain(host_lib, T, D, N):
     np.testing.assert_array_equal(anc.numpy(), want[2].numpy())
     _close(xs, want[0])
     _close(lw, want[1])
+
+
+@pytest.mark.parametrize("gradient", [False, True])
+@pytest.mark.parametrize("T,D,N", [(12, 2, 16), (9, 3, 25), (6, 8, 25)])
+def test_host_block_lane_spatial_guided_matches_plain(host_lib, T, D, N, gradient):
+    """The functor SpatialGuided at d = D * D in {4, 9, 64} against the
+    model's (d, N)-block callables."""
+    from aux_ssm_tpu_torch.models import spatial
+    rng = np.random.default_rng(T + D)
+    d = D * D
+    _, ys = spatial.get_data(rng, 0.3, 1, -0.25, 4.0, D, T, device="cpu")
+    factory, _ = spatial.make_guided_factory(ys, 0.3, 4.0, -0.25, 1, D, gradient)
+    u = ys + torch.as_tensor(0.3 * rng.standard_normal((T, d)))
+    scale = torch.as_tensor(rng.uniform(0.2, 0.6, size=T))
+    _, _, Mt, Gt = factory(u, scale)
+    n = T - 1
+    eps = torch.as_tensor(rng.standard_normal((n, d, N)))
+    x0 = ys[0][:, None] + torch.as_tensor(0.3 * rng.standard_normal((d, N)))
+    res_u = torch.as_tensor(rng.uniform(size=(n, N)))
+    x_star = ys[1:] + torch.as_tensor(0.3 * rng.standard_normal((n, d)))
+    w0 = torch.full((N,), 1.0 / N, dtype=torch.float64)
+    want = CF.block_lane_scan(Mt, Gt, eps, res_u, x_star, x0, w0)
+    consts, params = Gt.cuda_operands()
+    mats, vecs, scalars, row_vecs, row_scalars = CF.BLOCK_LANE_MODELS[Gt.cuda_model]
+    assert consts.shape == (mats * d * d + vecs * d + scalars,)
+    assert params.shape == (n, row_vecs * d + row_scalars)
+    xs, lw = torch.empty(n, d, N, dtype=torch.float64), torch.empty(n, N, dtype=torch.float64)
+    anc = torch.empty(n, N, dtype=torch.int64)
+    w, cw = torch.empty(N, dtype=torch.float64), torch.empty(N, dtype=torch.float64)
+    _call(host_lib["csmc_block"].h_block_lane_spatial_guided, n, N, d, eps, res_u, x_star, x0,
+          w0, consts, params.contiguous(), xs, lw, anc, w, cw)
+    assert len(np.unique(want[2].numpy())) > 2  # the sweep did resample
+    np.testing.assert_array_equal(anc.numpy(), want[2].numpy())
+    _close(xs, want[0])
+    _close(lw, want[1])
+
+
+@pytest.mark.parametrize("n,B", [(1, 5), (37, 1), (100, 36), (513, 13), (1023, 64)])
+def test_host_scalar_filter_scan_matches_plain(host_lib, n, B):
+    rng = np.random.default_rng(n + B)
+    elems = tuple(torch.as_tensor(z) for z in (
+        rng.uniform(0.5, 1.0, (n, B)), rng.standard_normal((n, B)), rng.uniform(0.1, 1.0, (n, B)),
+        rng.standard_normal((n, B)), rng.uniform(0.0, 0.5, (n, B))))
+    want = SS.scalar_filter_scan_plain(elems)
+    got = tuple(torch.full_like(z, float("nan")) for z in elems)
+    _call(host_lib["scalar_scan"].h_scalar_filter_scan, n, B, *elems, *got)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n,B", [(1, 3), (50, 7), (300, 64), (1024, 9)])
+def test_host_scalar_affine_scan_matches_plain(host_lib, n, B, reverse):
+    rng = np.random.default_rng(n + B)
+    gains = torch.as_tensor(rng.uniform(-0.9, 0.9, (n, B)))
+    incs = torch.as_tensor(rng.standard_normal((n, B)))
+    want = SS.scalar_affine_scan_plain(gains, incs, reverse=reverse)
+    got = tuple(torch.full_like(z, float("nan")) for z in want)
+    _call(host_lib["scalar_scan"].h_scalar_affine_scan, n, B, reverse, gains, incs, *got)
+    for g, w in zip(got, want):
+        _close(g, w)
 
 
 def _lane_model(model, T):

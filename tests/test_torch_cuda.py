@@ -344,3 +344,131 @@ def test_rare_event_step_matches_cpu(dev, style, T):
     for (xc, uc), (xg, ug) in zip(*out):
         assert torch.equal(uc, ug)
         np.testing.assert_allclose(xg.numpy(), xc.numpy(), rtol=1e-9, atol=1e-11)
+
+
+# --------------------------------------------------------------------------
+# The scalar scans and the spatio-temporal Student-t steps
+# --------------------------------------------------------------------------
+
+SP_PARAMS = (0.3, 4.0, -0.25, 1)  # sigma_x, nu, tau, r_y
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-9), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("n,B", [(1, 5), (37, 1), (100, 36), (299, 64), (513, 130), (1023, 64),
+                                 (1024, 4096)])
+def test_scalar_scans_match_plain(dev, n, B, dtype, rtol):
+    """Both scalar scans (the affine one forward and reversed) on the card
+    against their plain versions on the CPU; float32 at the JAX package's own
+    kernel-vs-XLA bound."""
+    SS = K.scalar_scan
+    rng = np.random.default_rng(n + B)
+    elems = tuple(torch.as_tensor(z, dtype=dtype) for z in (
+        rng.uniform(0.5, 1.0, (n, B)), rng.standard_normal((n, B)), rng.uniform(0.1, 1.0, (n, B)),
+        rng.standard_normal((n, B)), rng.uniform(0.0, 0.5, (n, B))))
+    _close(*_both(SS.scalar_filter_scan, (elems,), dev), rtol=rtol, atol=rtol)
+    gains = torch.as_tensor(rng.uniform(-0.9, 0.9, (n, B)), dtype=dtype)
+    for reverse in (False, True):
+        _close(*_both(SS.scalar_affine_scan, (gains, elems[1], reverse), dev), rtol=rtol,
+               atol=rtol)
+
+
+def test_scalar_scans_reject_what_the_kernel_does_not_take(dev):
+    SS = K.scalar_scan
+    g = torch.zeros(8, 3, device=dev)
+    with pytest.raises(TypeError):
+        SS.scalar_affine_scan(g.half(), g.half())
+    with pytest.raises(ValueError, match="must be on"):
+        SS.scalar_affine_scan(torch.zeros(8, 3), g)
+    strided = torch.zeros(8, 6, device=dev)[:, ::2]  # made contiguous by the wrapper
+    assert SS.scalar_affine_scan(strided, g)[1].shape == (8, 3)
+
+
+@pytest.mark.parametrize("gradient", [False, True])
+@pytest.mark.parametrize("T,D,N", [(12, 2, 16), (9, 3, 25), (20, 8, 25), (5, 8, 1024)])
+def test_block_lane_spatial_matches_plain(dev, T, D, N, gradient):
+    from aux_ssm_tpu_torch.models import spatial
+    sigma_x, nu, tau, r_y = SP_PARAMS
+    rng = np.random.default_rng(T + D)
+    d, n = D * D, T - 1
+    _, ys = spatial.get_data(rng, sigma_x, r_y, tau, nu, D, T, device="cpu")
+    inputs = tuple(torch.as_tensor(z) for z in (
+        ys.numpy() + 0.3 * rng.standard_normal((T, d)), rng.uniform(0.2, 0.6, size=T),
+        rng.standard_normal((n, d, N)), rng.uniform(size=(n, N)),
+        ys[1:].numpy() + 0.3 * rng.standard_normal((n, d)),
+        ys[0].numpy()[:, None] + 0.3 * rng.standard_normal((d, N)), np.full(N, 1.0 / N)))
+    out = []
+    for where in ("cpu", dev):
+        u, scale, *sweep = (z.to(where) for z in inputs)
+        factory, _ = spatial.make_guided_factory(ys.to(where), sigma_x, nu, tau, r_y, D, gradient)
+        _, _, Mt, Gt = factory(u, scale)
+        before = CF.block_lane_scan.launches
+        out.append(tuple(z.cpu() for z in CF.block_lane_scan(Mt, Gt, *sweep)))
+    assert CF.block_lane_scan.launches == before + 1
+    assert torch.equal(out[1][2], out[0][2])
+    _close(out[1][:2], out[0][:2])
+
+
+@pytest.mark.parametrize("style", ["kalman-1", "kalman-2", "csmc", "csmc-grad", "csmc-guided",
+                                   "csmc-guided-grad"])
+def test_spatial_step_matches_cpu(dev, style):
+    """Two f64 steps of each spatial style (T=32, a 3 x 3 grid, N=16, backward
+    sampling) on the card against the CPU, given the same noise; a kalman step
+    launches the scalar scans (2 + 1) and none of the d x d kernels."""
+    from aux_ssm_tpu_torch.models import spatial
+    sigma_x, nu, tau, r_y = SP_PARAMS
+    T, D, N = 32, 3, 16
+    B = D * D
+    rng = np.random.default_rng(14)
+    xs, ys = spatial.get_data(rng, sigma_x, r_y, tau, nu, D, T, device="cpu")
+    x0 = xs + torch.as_tensor(0.2 * rng.standard_normal((T, B)))
+    gradient = style.endswith("-grad")
+    if style.startswith("kalman"):
+        delta = 0.05
+        noises = [(rng.standard_normal((T, B, 1)), rng.standard_normal((T, B, 1)), rng.uniform())
+                  for _ in range(2)]
+        want = {"scalar_filter_scan": 4, "scalar_affine_scan": 2}
+    else:
+        delta = torch.as_tensor(rng.uniform(0.05, 0.3, T))
+        noises = [(rng.standard_normal((T, B)), rng.standard_normal((N, B)),
+                   rng.uniform(size=(T - 1, N)), rng.standard_normal((T - 1, N, B)),
+                   rng.uniform(size=T - 1), rng.uniform(size=T)) for _ in range(2)]
+        want = {"backward_factor_scan": 2,
+                "block_lane_scan" if "guided" in style else "forward_factor_scan": 2}
+    out = []
+    for where in ("cpu", dev):
+        common = (ys.to(where), sigma_x, nu, tau, r_y, D)
+        if style.startswith("kalman"):
+            init, kernel = spatial.get_kalman_kernel(*common, True, order=int(style[-1]))
+        elif "guided" in style:
+            init, kernel = spatial.get_guided_csmc_kernel(*common, N, backward=True,
+                                                          gradient=gradient)
+        else:
+            init, kernel = spatial.get_csmc_kernel(*common, N, backward=True, gradient=gradient)
+        state = init(x0.to(where))
+        K.reset_launches()
+        steps = []
+        for noise in noises:
+            noise = tuple(torch.as_tensor(z, dtype=torch.float64, device=where) for z in noise)
+            state = kernel(state, _to(delta, where), noise=noise)
+            steps.append((state.x.cpu(), state.updated.cpu()))
+        out.append(steps)
+    assert {k: v for k, v in K.launches().items() if v} == want
+    for (xc, uc), (xg, ug) in zip(*out):
+        assert torch.equal(uc, ug)
+        np.testing.assert_allclose(xg.numpy(), xc.numpy(), rtol=1e-9, atol=1e-11)
+
+
+def test_stencil_convolution_is_ieee_float32(dev):
+    """The precision stencil goes through a library convolution: in float32
+    on the card it must agree with the float64 apply to float32 rounding
+    (TF32 would keep three digits); the package turns cuDNN's TF32 off at
+    import."""
+    from aux_ssm_tpu_torch.models import t_distribution as tdist
+    from aux_ssm_tpu_torch.native.precision import precision_stencil
+    assert torch.backends.cudnn.allow_tf32 is False
+    rng = np.random.default_rng(0)
+    v = torch.as_tensor(rng.standard_normal((1024, 25, 64)))
+    stencil = torch.as_tensor(precision_stencil(-0.25, 1))
+    want = tdist.apply_precision_stencil(v, stencil, 8)
+    got = tdist.apply_precision_stencil(v.float().to(dev), stencil.float().to(dev), 8).cpu()
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=0, atol=2e-6)
