@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of `aux_ssm_tpu`: the auxiliary-Kalman MH step, run
-parallel-in-time, the sequential auxiliary particle Gibbs (cSMC) of the
-stochastic-volatility model, the scalar-state particle Gibbs of the
+parallel-in-time, the auxiliary particle Gibbs (cSMC) of the
+stochastic-volatility model, sequential or parallel-in-time (PIT), the
+scalar-state particle Gibbs of the
 theta-logistic (PGAS) and rare-event models, and the spatio-temporal
 Student-t model (auxiliary Kalman in the batched scalar layout, csmc and
 csmc-guided), through hand-written CUDA

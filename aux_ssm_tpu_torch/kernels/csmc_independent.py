@@ -1,6 +1,7 @@
 """Auxiliary particle Gibbs with independent per-time-step Gaussian
-proposals (counterpart of `aux_ssm_tpu/kernels/csmc_independent.py`, the
-sequential path).
+proposals (counterpart of `aux_ssm_tpu/kernels/csmc_independent.py`): the
+sequential inner cSMC, or with `parallel=True` the parallel-in-time one
+(`kernels/pit.py`).
 
 Given a Feynman–Kac model (M0, G0, Mt, Gt) and auxiliary observations
 u_t = x_t + s_t eps with s_t = sqrt(delta_t / 2), the inner cSMC proposes
@@ -11,7 +12,8 @@ potentials absorb the model density and the closed-form proposal ratio
     corr(x) = sum_d shift_d (shift_d - 2 (x_d - u_d)) / (2 s^2).
 
 Independent proposals with a pair-factorising weight make the forward
-sweep the factor kernel (`ops/cuda/csmc_fwd.forward_factor_scan`).
+sweep the factor kernel (`ops/cuda/csmc_fwd.forward_factor_scan`), and the
+PIT tree's stitching the stitching kernels (`ops/cuda/stitching.py`).
 """
 import math
 from dataclasses import dataclass
@@ -19,21 +21,23 @@ from typing import Any
 
 import torch
 
+from . import pit
 from .csmc_aux import get_kernel as get_aux_kernel
-from .csmc_base import Distribution, Dynamics, Potential, UnivariatePotential
+from .csmc_base import CSMCState, Distribution, Dynamics, Potential, UnivariatePotential
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 def get_kernel(M0, G0, Mt, Gt, N, backward=False, Pt=None, gradient=False, parallel=False,
-               resampling="multinomial"):
+               resampling="multinomial", stitch="auto"):
     """Auxiliary PG kernel with independent per-step proposals; returns
-    (init, kernel) with `kernel(state, delta, generator=None, noise=None)`
-    (see `csmc_aux.get_kernel`); delta a scalar or a (T,) vector."""
+    (init, kernel) with `kernel(state, delta, generator=None, noise=None)`;
+    delta a scalar or a (T,) vector. `parallel=False`: the sequential sweep
+    (see `csmc_aux.get_kernel` for its noise). `parallel=True`: the PIT
+    cSMC (`_pit_path`; `stitch` forces its stitching route, see
+    `pit.get_kernel`; `backward`, `Pt` and `resampling` do not apply)."""
     if parallel:
-        raise NotImplementedError(
-            "parallel=True is the parallel-in-time (PIT) cSMC, not ported yet "
-            "(ROADMAP.md queue 2, the PIT slice); use parallel=False for the sequential sweep")
+        return _pit_path(M0, G0, Mt, Gt, N, gradient, stitch)
     return _sequential_path(M0, G0, Mt, Gt, N, backward, Pt, gradient, resampling)
 
 
@@ -71,6 +75,45 @@ def _sequential_path(M0, G0, Mt, Gt, N, backward, Pt, gradient, resampling):
     return get_aux_kernel(factory, N, backward, Pt, resampling)
 
 
+def _pit_path(M0, G0, Mt, Gt, N, gradient, stitch):
+    """Parallel-in-time execution: the proposals N(u_t + shift_t, s_t^2 I) are
+    one time-batched distribution; the gradient correction enters through
+    the importance distribution Qt = N(u, s^2 I), not the potentials.
+
+    `noise = (eps_u (T, d), eps (T, N, d), levels, root)` in the JAX
+    package's draw order: the auxiliary draw's normals, the proposals'
+    normals, and the tree's noise (`pit` module docstring); drawn from
+    `generator` when not given."""
+    def kernel(state, delta, generator=None, noise=None):
+        x = state.x
+        T = x.shape[0]
+        if noise is None:
+            kw = dict(generator=generator, dtype=x.dtype, device=x.device)
+            noise = (torch.randn(x.shape, **kw), torch.randn(T, N, x.shape[1], **kw)) \
+                + pit.draw_noise(T, N, x, generator)
+        eps_u, eps, levels, root = noise
+        delta = torch.as_tensor(delta, dtype=x.dtype, device=x.device)
+        scale = torch.sqrt(0.5 * delta).expand(T)
+        u = x + scale[:, None] * eps_u
+        loc, _ = _proposal_geometry(u, scale, M0, G0, Mt, Gt, gradient)
+        proposals = DiagonalGaussian(loc=loc, scale=scale)
+        qt = DiagonalGaussian(loc=u, scale=scale) if gradient else None
+        zeros_d = torch.zeros_like(u[0])
+        g0 = AbsorbedG0(prior=M0, pot=G0, u=zeros_d, shift=zeros_d,
+                        scale=torch.ones_like(scale[0]))
+        gt = AbsorbedGt(trans=Mt, pot=Gt,
+                        params=(Mt.params, Gt.params, (torch.zeros_like(u[1:]),
+                                                       torch.zeros_like(u[1:]),
+                                                       torch.ones_like(scale[1:]))))
+        _, pit_kernel = pit.get_kernel(proposals, g0, gt, N, qt, stitch=stitch)
+        return pit_kernel(state, noise=(eps, levels, root))
+
+    def init(x):
+        return CSMCState(x=x, updated=torch.zeros(x.shape[0], dtype=torch.bool, device=x.device))
+
+    return init, kernel
+
+
 # --------------------------------------------------------------------------
 # Building blocks (broadcast convention of `csmc_base`)
 # --------------------------------------------------------------------------
@@ -95,12 +138,17 @@ def _shift_correction(x, u, shift, scale):
 
 @dataclass(frozen=True)
 class DiagonalGaussian(Distribution):
-    """N(loc, scale^2 I) over one time step: loc (d,), scale a scalar."""
+    """N(loc, scale^2 I) over one time step: loc (d,), scale a scalar; with
+    loc (T, d) and scale (T,) the time-batched proposals of the PIT kernel
+    (particles (T, N, d))."""
     loc: torch.Tensor
     scale: torch.Tensor
 
     def sample_from_noise(self, eps):
-        return self.loc + self.scale * eps
+        loc, scale = self.loc, self.scale
+        if eps.dim() > loc.dim():
+            loc, scale = loc.unsqueeze(-2), scale[..., None]
+        return loc + scale[..., None] * eps
 
     def logpdf(self, x):
         return _diag_gauss_logpdf(x, self.loc, self.scale)

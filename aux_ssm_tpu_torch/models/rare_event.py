@@ -10,7 +10,8 @@ The conditional moments of x_0 and x_{T-1} given y are known in closed form
 sampler styles:
     kalman        auxiliary Kalman MH (`get_kalman_kernel`), the MH kernels at d = 1
     csmc          auxiliary PG with independent proposals (`get_csmc_kernel`),
-                  the factor sweeps; `parallel=True` is PIT, not ported
+                  the factor sweeps, or with `parallel=True` (the default of
+                  `experiments/cli.py`) the PIT cSMC through the stitching kernels
     csmc-guided   Kalman-gain guided auxiliary PG (`get_guided_csmc_kernel`),
                   the lane sweep with the functor `RareEventGuided`
 y, rho, r2 are Python floats. The functions take `dtype` and `device`; the

@@ -11,7 +11,8 @@ Sampler styles:
                   batched scalar LGSSM layout (T, B, 1, 1): B independent
                   scalar filters, the scans through `ops/cuda/scalar_scan`
     csmc          auxiliary PG with independent proposals (`get_csmc_kernel`),
-                  the factor sweeps; `parallel=True` is PIT, not ported
+                  the factor sweeps, or with `parallel=True` (the default of
+                  `experiments/cli.py`) the PIT cSMC through the stitching kernels
     csmc-guided   scalar-gain guided auxiliary PG (`get_guided_csmc_kernel`),
                   the block-lane sweep with the functor `SpatialGuided`
 sigma_x, nu, tau, r_y are Python floats; trajectories and data are (T, B)

@@ -8,8 +8,9 @@ with Q the stationary covariance tau ((1-rho) I + rho 11^T) / (1 - phi^2).
 
 Sampler styles ported:
     csmc          auxiliary PG with independent proposals (optionally
-                  gradient-shifted); sequential sweep only (`parallel=True`
-                  is the PIT slice, not ported)
+                  gradient-shifted): the factor sweeps, or with
+                  `parallel=True` (the default of `experiments/cli.py`) the
+                  PIT cSMC through the stitching kernels
     csmc-guided   Kalman-gain guided auxiliary PG
 The auxiliary Kalman styles (kalman-1/2) are not in the port yet: the
 main-path kernels are built for d <= 16.

@@ -1,15 +1,16 @@
 """Hand-written CUDA kernels of the auxiliary-Kalman MH step (dense d x d and
-batched scalar layouts) and the cSMC sweeps (counterpart of
-`aux_ssm_tpu/ops/pallas/`). Sources are in `csrc/`, built by `_build.py` at
-first use. Every wrapper runs its plain PyTorch version for CPU tensors and
+batched scalar layouts), the cSMC sweeps and the parallel-in-time stitching
+(counterpart of `aux_ssm_tpu/ops/pallas/`). Sources are in `csrc/`, built by
+`_build.py` at first use. Every wrapper runs its plain PyTorch version for CPU tensors and
 launches its kernel (or raises) for CUDA tensors, and counts its launches."""
-from . import csmc_fwd, filter_scan, kalman_fused, scalar_scan
+from . import csmc_fwd, filter_scan, kalman_fused, scalar_scan, stitching
 
 WRAPPERS = (kalman_fused.make_elements, filter_scan.filter_scan, kalman_fused.ell,
             kalman_fused.backward_maps, filter_scan.affine_scan, kalman_fused.logdensity_steps,
             csmc_fwd.forward_factor_scan, csmc_fwd.backward_factor_scan,
             csmc_fwd.lane_scan, csmc_fwd.block_lane_scan,
-            scalar_scan.scalar_filter_scan, scalar_scan.scalar_affine_scan)
+            scalar_scan.scalar_filter_scan, scalar_scan.scalar_affine_scan,
+            stitching.row_lse, stitching.col_sample, stitching.block_masses)
 
 
 def reset_launches():

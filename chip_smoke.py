@@ -92,16 +92,47 @@ nu=4, tau=-0.25, r_y=1, sigma_x=0.3; benchmarks/spatial_sweep.sh):
      (c) their posterior means of 1024 interior coordinates: max |z| <= 6,
      RMS z <= 2. The posterior-mean fields must also differ by less than the
      posterior deviation in RMS and lie nearer the truth than the data do.
+The parallel-in-time (PIT) cSMC path, the `csmc` style's default in the
+JAX package's experiment scripts (`--parallel`): the stitching kernels row_lse,
+col_sample and block_masses, one launch a tree level:
+ 16. the three kernels against their plain versions on the inputs real PIT
+     steps hand them (f32, and f64 on the same inputs cast): SV T=250, D=30,
+     N=25 level 0 (P=125, k=30) and root; spatial T=1024, 8x8, N=25 level 0
+     (P=512, k=64) and root, held against f64 with COND_F32's slack of the
+     terms as phase 13 holds the factor sweeps; SV D=1, T=1024, N=4096
+     level 0 (block_masses, P=512, k=1; both stabilisers) and root
+     (row_lse, P=1). row_lse and block_masses norm-relative; col_sample f64
+     columns identical, f32 columns >= COL_AGREE_F32 equal;
+ 17. f64 PIT steps on the card against the CPU, given the same noise: SV
+     (T=32, D=4), spatial (T=32, 3x3), rare-event (T=6), each on the
+     two-pass route (N=16) and the blocked route (forced at N=128), the
+     gradient shift off and on, with the exact launches a step;
+ 18. PIT chains at full width, f32: SV csmc (T=250, D=30, N=25, delta (T,)
+     adapted from 1e-2 toward 0.5) without and with the gradient shift;
+     spatial csmc (T=1024, 8x8, N=25, toward 0.25); SV D=1, T=1024, N=4096
+     (`benchmarks/csmc_speed.py:_pit`, the blocked route, delta frozen at
+     0.05, 3 + 10 iterations from the simulated states). Asserted: the
+     exact stitching launches a step (SV: 8 row_lse and 7 col_sample;
+     spatial 10 and 9; N=4096 9 block_masses and 1 row_lse), update rates
+     in [0.05, 0.95] (N=4096: [0.95, 1], the JAX package's chain updated
+     0.997); samples/s and a profile of each;
+ 19. the rare-event csmc with parallel=True in f64 at (y, rho, r2) = (5,
+     0.8, 0.5): T=2 (the root alone), T=256 with N=25 (two-pass tree), T=64
+     with N=4096 (blocked tree); moments of x_0 and x_{T-1} within phase
+     11's ESS-scaled tolerance of the closed form.
 To make room, phase 3 runs 100 steps (200 before) and phase 10 runs 300 +
-1000 iterations (300 + 2000 before). The whole takes about 300 s with the
-build on an H100 (150 s before the spatial phases).
+1000 iterations (300 + 2000 before). The whole takes about 400 s with the
+build on an H100 (300 s before the PIT phases, 150 s before the spatial
+ones).
 Each kernel's entry of the JSON summary carries its bound: the least time the
 card could take for the call, the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the 67
 TFLOP/s of float32 outside the tensor cores. No single PyTorch call computes
 any of these kernels' functions (`torch.cumsum` and `torch.cumprod` scan one
 array under + or *; the scalar scans combine tuples of two and five arrays,
-the filter's through a reciprocal), so `library_ms` is null throughout.
+the filter's through a reciprocal; row_lse takes two, `torch.baddbmm` and
+`torch.logsumexp`, timed beside it as `two_call_ms`), so `library_ms` is
+null throughout.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -756,8 +787,10 @@ def sv_chain(dev, label, style, ys, x0, cfg, delta_init, gradient, seed, per_ite
     init, kernel = sv_kernel(style, ys, SV_N, gradient)
     gen = torch.Generator(device=dev).manual_seed(seed)
     K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     res = runner.run_chain(kernel, init(x0), cfg, generator=gen, delta_init=delta_init)
     launches = K.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     n_iter = max(cfg.burnin, 1) + cfg.n_samples
     if tuple(res.state.x.shape) != tuple(x0.shape) or not bool(torch.isfinite(res.state.x).all()):
         raise AssertionError(f"{label}: the chain's state is not finite")
@@ -886,6 +919,8 @@ def rare_kernel(style, cell, dev, N=RE_N):
     y, rho, r2, T_ = cell
     kw = dict(dtype=torch.float64, device=dev)
     gradient = style.endswith("-grad")
+    if style.startswith("csmc-pit"):
+        return rev.get_csmc_kernel(y, rho, r2, T_, N, parallel=True, gradient=gradient, **kw)
     if style.startswith("kalman"):
         return rev.get_kalman_kernel(y, rho, r2, T_, True, gradient=gradient, **kw)
     if style.startswith("csmc-guided"):
@@ -949,6 +984,18 @@ def phase_lane_kernel(dev):
     return result
 
 
+def as_noise(z, where):
+    """A step's noise (NumPy, nested in tuples and lists) as tensors on
+    `where`: floats in float64, integers (the PIT level seeds) in int32."""
+    import numpy as np
+    import torch
+    if isinstance(z, (tuple, list)):
+        return type(z)(as_noise(v, where) for v in z)
+    if np.issubdtype(np.asarray(z).dtype, np.integer):
+        return torch.as_tensor(np.asarray(z), dtype=torch.int32, device=where)
+    return torch.as_tensor(z, dtype=torch.float64, device=where)
+
+
 def steps_on_both(label, build, state0, delta, noises, dev, used):
     """The f64 steps of `build(where) -> (init, kernel)` on the card and on
     the CPU from the same state and noise: `updated` identical, states to
@@ -964,7 +1011,7 @@ def steps_on_both(label, build, state0, delta, noises, dev, used):
         K.reset_launches()
         out = []
         for noise in noises:
-            noise = tuple(torch.as_tensor(z, dtype=torch.float64, device=where) for z in noise)
+            noise = as_noise(noise, where)
             args = () if delta is None else (torch.as_tensor(delta, dtype=torch.float64,
                                                              device=where),)
             state = kernel(state, *args, noise=noise)
@@ -1122,12 +1169,13 @@ def phase_theta_chain(dev):
     return launches
 
 
-def rare_chain(dev, style, cell, burnin, n_samples, seed, bounded):
-    """run_chain of the f64 rare-event sampler `style` at `cell`, delta
-    adapted from 0.5 toward an update rate of 0.5. With `bounded`, the
-    posterior mean and standard deviation of x_0 and x_{T-1} must lie within 6
-    Monte-Carlo standard errors (from the ESS at the known variance) of the
-    closed form. Returns the chain's launches."""
+def rare_chain(dev, style, cell, burnin, n_samples, seed, bounded, N=RE_N, per_iter=None):
+    """run_chain of the f64 rare-event sampler `style` at `cell` with N
+    particles, delta adapted from 0.5 toward an update rate of 0.5. With
+    `bounded`, the posterior mean and standard deviation of x_0 and x_{T-1}
+    must lie within 6 Monte-Carlo standard errors (from the ESS at the known
+    variance) of the closed form. `per_iter`: the kernel launches of a step
+    (default: the style's). Returns the chain's launches."""
     import numpy as np
     import torch
     from aux_ssm_tpu_torch.experiments import RunConfig, runner
@@ -1137,7 +1185,7 @@ def rare_chain(dev, style, cell, burnin, n_samples, seed, bounded):
 
     y, rho, r2, T_ = cell
     gen = torch.Generator(device=dev).manual_seed(seed)
-    init, kernel = rare_kernel(style, cell, dev)
+    init, kernel = rare_kernel(style, cell, dev, N)
     x0 = rev.init_x(y, rho, r2, T_, generator=gen, dtype=torch.float64, device=dev)
     delta0 = torch.full((T_,) if "csmc" in style else (), 0.5, dtype=torch.float64, device=dev)
     K.reset_launches()
@@ -1146,10 +1194,10 @@ def rare_chain(dev, style, cell, burnin, n_samples, seed, bounded):
                            generator=gen, collect_samples=True, delta_init=delta0)
     launches = K.launches()
     n_iter = burnin + n_samples
-    per_iter = {"kalman": {k: v for k, (_, _, v) in KERNELS.items()},
-                "csmc": {"forward_factor_scan": 1, "backward_factor_scan": 1},
-                "csmc-guided": {"lane_scan": 1, "backward_factor_scan": 1}}[
-                    style.removesuffix("-grad")]
+    per_iter = per_iter if per_iter is not None else {"kalman": {k: v for k, (_, _, v) in KERNELS.items()},
+                            "csmc": {"forward_factor_scan": 1, "backward_factor_scan": 1},
+                            "csmc-guided": {"lane_scan": 1, "backward_factor_scan": 1}}[
+                                style.removesuffix("-grad")]
     for name, count in launches.items():
         if count != per_iter.get(name, 0) * n_iter:
             raise AssertionError(f"rare-event {style}: {name} launched {count} times in "
@@ -1166,7 +1214,7 @@ def rare_chain(dev, style, cell, burnin, n_samples, seed, bounded):
         ok = ok and abs(err_mean) <= tol_mean and abs(err_std) <= tol_std
         parts.append(f"{which}: ESS {ess:.0f}, mean err {err_mean:+.4f} sd (tol {tol_mean:.4f}), "
                      f"std err {err_std:+.4f} (tol {tol_std:.4f})")
-    log(f"  {style} at rho={rho}, r2={r2}: update rate {rate:.4f}, "
+    log(f"  {style} at rho={rho}, r2={r2}, T={T_}, N={N}: update rate {rate:.4f}, "
         f"{n_samples / res.sampling_time:.2f} samples/s, delta "
         f"[{float(res.delta.min()):.3e}, {float(res.delta.max()):.3e}]; " + "; ".join(parts))
     if not bool(torch.isfinite(res.state.x).all()) or not np.isfinite(res.samples).all():
@@ -1232,6 +1280,8 @@ def spatial_kernel(style, ys, D, N):
     common = (ys, sigma_x, nu, tau, r_y, D)
     if style.startswith("kalman"):
         return sp.get_kalman_kernel(*common, parallel=True, order=int(style[-1]))
+    if style == "csmc-pit":
+        return sp.get_csmc_kernel(*common, N, parallel=True)
     get = sp.get_guided_csmc_kernel if style.startswith("csmc-guided") else sp.get_csmc_kernel
     return get(*common, N, backward=True, gradient=style.endswith("-grad"))
 
@@ -1636,6 +1686,352 @@ def phase_spatial_chains(dev):
     pair_report(*spatial_pair(dev, ys, xs_true, add), ys, xs_true)
     return total
 
+# ---------------------------------------------------------------------------
+# The parallel-in-time (PIT) cSMC path: the stitching kernels
+# ---------------------------------------------------------------------------
+
+STITCH_KERNELS = {  # wrapper name -> (source, the TPU kernel it replaces)
+    "row_lse": ("aux_ssm_tpu_torch/ops/cuda/csrc/stitching.cu",
+                "aux_ssm_tpu/ops/pallas/stitching.py:105"),
+    "col_sample": ("aux_ssm_tpu_torch/ops/cuda/csrc/stitching.cu",
+                   "aux_ssm_tpu/ops/pallas/stitching.py:200"),
+    "block_masses": ("aux_ssm_tpu_torch/ops/cuda/csrc/stitching.cu",
+                     "aux_ssm_tpu/ops/pallas/stitching.py:302"),
+}
+PIT_T, PIT_N, PIT_DELTA = 1024, 4096, 0.05  # benchmarks/csmc_speed.py:_pit, SV D=1 (config 5)
+COL_AGREE_F32 = 0.999   # f32 col_sample indices equal to the f32 plain version's
+# The PIT chains at full width: (burn-in, samples, target); delta (T,) from 1e-2.
+PIT_SV_SCHEDULE = (50, 50, 0.5)
+PIT_SP_SCHEDULE = (50, 50, 0.25)
+PIT_BIG_SCHEDULE = (3, 10)   # frozen delta 0.05
+# The JAX package's frozen-delta chain at this size updated 0.997 of the steps
+# (benchmarks/RESULTS_r5.md, config 5): N=4096 leaves index 0 about once in
+# 4096, so that chain is held to [0.95, 1] instead of (0.05, 0.95).
+PIT_BIG_RATE = (0.95, 1.0)
+# Rare-event PIT chains against the closed form: cell, N, burn-in, samples.
+RE_PIT = (((5.0, 0.8, 0.5, 2), RE_N, 300, 1200), ((5.0, 0.8, 0.5, 256), RE_N, 300, 700),
+          ((5.0, 0.8, 0.5, 64), PIT_N, 100, 300))
+
+
+def pit_launches(T, N, stitch="auto"):
+    """The stitching launches of one PIT step at T steps and N particles."""
+    from aux_ssm_tpu_torch.kernels.pit import _use_blocked_stitch, level_sizes
+    n = len(level_sizes(T))
+    if not n:
+        return {}
+    if _use_blocked_stitch(N, stitch):
+        return {"row_lse": 1, "block_masses": n - 1} if n > 1 else {"row_lse": 1}
+    return {"row_lse": n, "col_sample": n - 1} if n > 1 else {"row_lse": 1}
+
+
+@contextlib.contextmanager
+def recording_stitching():
+    """Record the arguments of every call of the stitching wrappers, in
+    order; the calls go through. A wrapper counts its launches on its
+    module's name, which is the recorder meanwhile, so these launches count
+    on the recorder."""
+    from aux_ssm_tpu_torch.ops.cuda import stitching as KS
+    seen, originals = {name: [] for name in STITCH_KERNELS}, {
+        name: getattr(KS, name) for name in STITCH_KERNELS}
+
+    def recorder(name, fn):
+        def record(*args, **kwargs):
+            seen[name].append((args, kwargs))
+            return fn(*args, **kwargs)
+        record.launches = 0
+        return record
+
+    for name, fn in originals.items():
+        setattr(KS, name, recorder(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in originals.items():
+            setattr(KS, name, fn)
+
+
+def stitch_terms(rf, cf, cb):
+    """Per row, the largest sum of a score's terms' magnitudes, float64:
+    max_j |cb_j| + sum_kk |rf_i[kk] cf_j[kk]|."""
+    import torch
+    rf, cf, cb = (z.double() for z in (rf, cf, cb))
+    return (torch.einsum("pik,pjk->pij", rf.abs(), cf.abs()) + cb.abs()[:, None, :]).amax(-1)
+
+
+def check_stitch(name, label, args, reps, cancelling=False, two_call=False):
+    """A stitching kernel against its plain version on `args` (f32, from a
+    real step): f32 kernel vs f32 plain, the f64 kernel vs the f64 plain
+    version on the same inputs cast, and the f32 kernel vs that f64 plain
+    version (with `cancelling`, elementwise with COND_F32's slack of the
+    terms' magnitudes; else norm-relative). col_sample: f64 indices
+    identical, f32 at >= COL_AGREE_F32. Returns the result entry, with the
+    f32 kernel's and plain version's times and the bound."""
+    import torch
+    from aux_ssm_tpu_torch.ops import stitching as plain
+    from aux_ssm_tpu_torch.ops.cuda import stitching as KS
+    wrapper, plain_fn = getattr(KS, name), getattr(plain, name)
+    args64 = tuple(z.double() if isinstance(z, torch.Tensor) and z.is_floating_point() else z
+                   for z in args)
+    got, want32 = wrapper(*args), plain_fn(*args)
+    got64, want64 = wrapper(*args64), plain_fn(*args64)
+    torch.cuda.synchronize()
+    rf, cf, cb = args[:3]
+    if name == "col_sample":
+        rf, cf, cb = args[1:4]
+        if not torch.equal(got64, want64):
+            raise AssertionError(f"{name}[{label}] f64: {int((got64 != want64).sum())} columns "
+                                 "differ from the plain version's")
+        share = float((got == want32).double().mean())
+        share64 = float((got == want64).double().mean())
+        log(f"  {name}[{label}] shape={tuple(got.shape)}: f64 columns identical; f32 columns "
+            f"equal to the f32 plain version's {share:.6f} (bound {COL_AGREE_F32}), to the f64 "
+            f"plain version's on the same inputs {share64:.6f}")
+        if not share >= COL_AGREE_F32:
+            raise AssertionError(f"{name}[{label}] f32: only {share:.6f} of the columns agree")
+        result = {"index_agree_f32": share, "index_agree_f32_vs_f64": share64,
+                  "max_abs_err": float((got - want32).abs().max())}
+        per_pair = 2 * rf.shape[-1] + 25   # scores, the counter hash, two logs, the argmax
+    else:
+        fin = torch.isfinite(want64)
+        for z, what in ((got, "f32 kernel"), (got64, "f64 kernel"), (want32, "f32 plain")):
+            if not torch.equal(torch.isfinite(z), fin):
+                raise AssertionError(f"{name}[{label}]: the {what} is finite elsewhere than the "
+                                     "f64 plain version")
+        e32, e64k = nrel(got[fin], want32[fin]), nrel(got64[fin], want64[fin])
+        e64 = nrel(got[fin], want64[fin])
+        result = {"max_abs_err": float((got[fin].double() - want32[fin].double()).abs().max()),
+                  "nrel_f32": e32, "nrel_f64": e64, "nrel_f64_kernel": e64k}
+        msg = (f"  {name}[{label}] shape={tuple(got.shape)} nrel_f32={e32:.3e} "
+               f"nrel_f64={e64:.3e} nrel_f64_kernel={e64k:.3e}, {int((~fin).sum())} -inf")
+        bad = not (e32 <= NREL_F32 and e64k <= NREL_F64)
+        if cancelling:
+            terms = stitch_terms(rf, cf, cb)
+            terms = terms if got.dim() == 2 else terms[..., None]
+            off = (got.double() - want64).abs()
+            slack = COND_F32 * terms + TOL_F32 * (1 + want64.abs())
+            msg += (f"; terms up to {float(terms.max()):.3e}: f32 against f64 on the same inputs "
+                    f"max {float(off[fin].max()):.3e} ({float((off / terms)[fin].max()):.3e} of "
+                    f"the terms; bound {COND_F32:g} of them + {TOL_F32:g})")
+            bad = bad or bool((off[fin] > slack[fin]).any())
+        else:
+            bad = bad or not e64 <= NREL_F32
+        log(msg)
+        if bad:
+            raise AssertionError(f"{name}[{label}]: error above bound")
+        per_pair = 2 * rf.shape[-1] + 4   # the score, the max, exp and sum
+    P, n = got.shape[:2]
+    result["ms"] = cuda_ms(lambda: wrapper(*args), reps)
+    result["plain_ms"] = cuda_ms(lambda: plain_fn(*args), 1)
+    tensors = [z for z in args if isinstance(z, torch.Tensor)]
+    result.update(bound(tensors + [got], 0, P * n * cf.shape[1] * per_pair))
+    if two_call:
+        # Two PyTorch calls of the same function (a reference point only):
+        # the (P, n, N) scores by baddbmm, then logsumexp.
+        result["two_call_ms"] = cuda_ms(lambda: torch.logsumexp(
+            torch.baddbmm(cb[:, None, :], rf, cf.transpose(1, 2)), -1), reps)
+    log(f"  {name}[{label}]: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms"
+        + (f", baddbmm + logsumexp {result['two_call_ms']:.4f} ms" if two_call else "")
+        + f", bound {result['bound_ms']:.5f} ms by {result['bound_by']} ({result['bytes']} B, "
+        f"{result['operations']} operations)")
+    return result
+
+
+def pit_step_inputs(init, kernel, x0, delta, seed):
+    """The stitching wrappers' arguments of one PIT step from x0."""
+    import torch
+    with recording_stitching() as seen:
+        kernel(init(x0), delta, generator=torch.Generator(device=x0.device).manual_seed(seed))
+    return {name: [args for args, _ in calls] for name, calls in seen.items()}
+
+
+def sv_pit_kernel(ys, N, gradient=False):
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    return sv.get_csmc_kernel(ys, *SV_PARAMS, N, parallel=True, gradient=gradient)
+
+
+def pit_big_data(dev, dtype):
+    """(xs, ys) of the SV model at D=1, T=PIT_T (csmc_speed.py:_sv_setup)."""
+    import torch
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    return sv.get_data(*SV_PARAMS, 1, PIT_T, generator=torch.Generator().manual_seed(0),
+                       dtype=dtype, device=dev)
+
+
+def phase_stitch_kernels(dev):
+    """Phase 16; returns {wrapper: result entry}: SV level 0 for row_lse and
+    col_sample, N=4096 level 0 for block_masses, the other shapes beside."""
+    import torch
+    f32 = torch.float32
+    log(f"phase 16: the stitching kernels on the inputs real PIT steps hand them (f32 kernel vs "
+        f"f32 plain and vs f64 plain: nrel {NREL_F32:g}, or at the spatial shapes {COND_F32:g} "
+        f"of the terms; f64 kernel vs f64 plain {NREL_F64:g}; col_sample f64 identical, f32 "
+        f">= {COL_AGREE_F32})")
+    ys, xs, delta = load_sv("csmc_no-gradient", dev, f32)
+    sv_in = pit_step_inputs(*sv_pit_kernel(ys, SV_N), xs, delta, seed=16)
+    sxs, sys_ = spatial_data(dev, f32)
+    sp_in = pit_step_inputs(*spatial_kernel("csmc-pit", sys_, SP_D, SP_N), sxs,
+                            torch.full((SP_T,), SP_DELTA0, dtype=f32, device=dev), seed=16)
+    bxs, bys = pit_big_data(dev, f32)
+    big_in = pit_step_inputs(*sv_pit_kernel(bys, PIT_N), bxs,
+                             torch.full((PIT_T,), PIT_DELTA, dtype=f32, device=dev), seed=16)
+    for label, seen, want in (("SV", sv_in, pit_launches(SV_T, SV_N)),
+                              ("spatial", sp_in, pit_launches(SP_T, SP_N)),
+                              ("N=4096", big_in, pit_launches(PIT_T, PIT_N))):
+        calls = {k: len(v) for k, v in seen.items() if v}
+        if calls != want:
+            raise AssertionError(f"{label}: a PIT step called {calls}, expected {want}")
+    sv0 = f"SV T={SV_T} D={SV_D} N={SV_N} level 0"
+    sp0 = f"spatial T={SP_T} d={SP_D * SP_D} N={SP_N} level 0"
+    results = {
+        "row_lse": check_stitch("row_lse", sv0, sv_in["row_lse"][0], 50, two_call=True),
+        "col_sample": check_stitch("col_sample", sv0, sv_in["col_sample"][0], 50),
+        "block_masses": check_stitch("block_masses", f"SV D=1 T={PIT_T} N={PIT_N} level 0",
+                                     big_in["block_masses"][0], 5),
+    }
+    results["row_lse"]["root"] = check_stitch("row_lse", "SV root", sv_in["row_lse"][-1], 50)
+    results["row_lse"]["spatial"] = check_stitch("row_lse", sp0, sp_in["row_lse"][0], 50,
+                                                 cancelling=True, two_call=True)
+    results["row_lse"]["spatial_root"] = check_stitch("row_lse", "spatial root",
+                                                      sp_in["row_lse"][-1], 50, cancelling=True)
+    results["row_lse"]["N4096_root"] = check_stitch("row_lse", f"N={PIT_N} root",
+                                                    big_in["row_lse"][-1], 20, two_call=True)
+    results["col_sample"]["spatial"] = check_stitch("col_sample", sp0, sp_in["col_sample"][0], 50)
+    rf, cf, cb = big_in["block_masses"][0]
+    results["block_masses"]["per_block_max"] = check_stitch(
+        "block_masses", f"N={PIT_N} level 0, per-block max", (rf, cf, cb, True), 5)
+    return results
+
+
+def phase_pit_step_reference(dev):
+    """Phase 17: f64 PIT steps on the card against the CPU, given the same
+    noise; both routes (two-pass at N=16, blocked forced at N=128), the
+    gradient shift off and on."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.kernels import csmc_independent as ind
+    from aux_ssm_tpu_torch.kernels.pit import level_sizes
+    from aux_ssm_tpu_torch.models import rare_event as rev, spatial as sp
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+
+    rng = np.random.default_rng(17)
+
+    def noise(T_, N_, d):
+        sizes = level_sizes(T_)
+        return (rng.standard_normal((T_, d)), rng.standard_normal((T_, N_, d)),
+                [(rng.uniform(size=(n, N_)), np.int32(rng.integers(0, 2 ** 31 - 1)))
+                 for n in sizes[:-1]], (rng.uniform(size=1), rng.uniform(size=1)))
+
+    T_ = 32
+    sv_xs, sv_ys = sv.get_data(*SV_PARAMS, 4, T_, generator=torch.Generator().manual_seed(17),
+                               device="cpu")
+    sp_xs, sp_ys = spatial_data("cpu", torch.float64, T_, 3, seed=17)
+    re_x0 = torch.as_tensor(3.0 + rng.standard_normal((6, 1)))
+    cases = {
+        "SV D=4": (lambda where, **kw: ind.get_kernel(*sv.get_feynman_kac(
+            sv_ys.to(where), *SV_PARAMS), parallel=True, **kw), sv_xs, 0.3),
+        "spatial 3x3": (lambda where, **kw: ind.get_kernel(*sp.get_feynman_kac(
+            sp_ys.to(where), *SP_PARAMS[:3], SP_PARAMS[3], 3), parallel=True, **kw),
+            sp_xs + 0.1, 0.02),
+        "rare-event": (lambda where, **kw: ind.get_kernel(*rev.get_feynman_kac(
+            *RE_CELL[:3], 6, device=where), parallel=True, **kw), re_x0, 0.5),
+    }
+    for label, (get, x0, delta) in cases.items():
+        T_x, d = x0.shape
+        for stitch, N_ in (("2pass", 16), ("blocked", 128)):
+            for gradient in (False, True):
+                steps_on_both(
+                    f"PIT {label} T={T_x} N={N_} {stitch} gradient={gradient}",
+                    lambda where: get(where, N=N_, gradient=gradient, stitch=stitch), x0,
+                    np.full(T_x, delta), [noise(T_x, N_, d) for _ in range(2)], dev,
+                    pit_launches(T_x, N_, stitch))
+
+
+def pit_chain(dev, label, init, kernel, x0, cfg, delta_init, seed, per_iter, rate_bounds,
+              profile_n):
+    """run_chain of a PIT kernel on the card from x0: finite state, the exact
+    stitching launches per iteration, update rate within `rate_bounds`;
+    samples/s and a profile. Returns the chain's launches."""
+    import torch
+    from aux_ssm_tpu_torch.experiments import runner
+    from aux_ssm_tpu_torch.ops import cuda as K
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = runner.run_chain(kernel, init(x0), cfg, generator=gen, delta_init=delta_init)
+    launches = K.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_iter = max(cfg.burnin, 1) + cfg.n_samples
+    if tuple(res.state.x.shape) != tuple(x0.shape) or not bool(torch.isfinite(res.state.x).all()):
+        raise AssertionError(f"{label}: the chain's state is not finite")
+    for name, count in launches.items():
+        if count != per_iter.get(name, 0) * n_iter:
+            raise AssertionError(f"{label}: {name} launched {count} times in {n_iter} "
+                                 f"iterations, expected {per_iter.get(name, 0)} each")
+    rate = float(res.stats.accept_cum.mean())
+    log(f"  {label}: {cfg.burnin} + {cfg.n_samples} iterations, update rate {rate:.4f}, "
+        f"{cfg.n_samples / res.sampling_time:.2f} samples/s, delta "
+        f"[{float(res.delta.min()):.3e}, {float(res.delta.max()):.3e}], launches a step "
+        f"{({k: v // n_iter for k, v in launches.items() if v})}, peak device memory "
+        f"{peak_gb:.2f} GiB")
+    lo, hi = rate_bounds
+    if not lo <= rate <= hi:
+        raise AssertionError(f"{label}: update rate {rate:.4f} outside {rate_bounds}")
+    box = [res.state]
+    profile_steps(label, lambda: box.__setitem__(0, kernel(box[0], res.delta, generator=gen)),
+                  n=profile_n, also=tuple(STITCH_KERNELS))
+    return launches
+
+
+def phase_pit_chains(dev):
+    """Phase 18; returns the stitching launches summed over the chains."""
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig
+    f32 = torch.float32
+    total = dict.fromkeys(STITCH_KERNELS, 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    log("phase 18: PIT chains at full width, f32")
+    ys, xs, _ = load_sv("csmc_no-gradient", dev, f32)
+    burnin, n_samples, target = PIT_SV_SCHEDULE
+    for gradient in (False, True):
+        add(pit_chain(dev, f"SV csmc parallel=True T={SV_T} D={SV_D} N={SV_N} gradient={gradient}",
+                      *sv_pit_kernel(ys, SV_N, gradient), xs,
+                      RunConfig(n_samples=n_samples, burnin=burnin, target_alpha=target),
+                      torch.full((SV_T,), 1e-2, dtype=f32, device=dev), 18 + gradient,
+                      pit_launches(SV_T, SV_N), (0.05, 0.95), 10))
+    sxs, sys_ = spatial_data(dev, f32)
+    burnin, n_samples, target = PIT_SP_SCHEDULE
+    add(pit_chain(dev, f"spatial csmc parallel=True T={SP_T} D={SP_D} N={SP_N}",
+                  *spatial_kernel("csmc-pit", sys_, SP_D, SP_N), sxs,
+                  RunConfig(n_samples=n_samples, burnin=burnin, target_alpha=target),
+                  torch.full((SP_T,), SP_DELTA0, dtype=f32, device=dev), 20,
+                  pit_launches(SP_T, SP_N), (0.05, 0.95), 10))
+    bxs, bys = pit_big_data(dev, f32)
+    burnin, n_samples = PIT_BIG_SCHEDULE
+    add(pit_chain(dev, f"SV csmc parallel=True D=1 T={PIT_T} N={PIT_N} (blocked), frozen delta "
+                  f"{PIT_DELTA}", *sv_pit_kernel(bys, PIT_N), bxs,
+                  RunConfig(n_samples=n_samples, burnin=burnin, learning_rate=0.0),
+                  torch.full((PIT_T,), PIT_DELTA, dtype=f32, device=dev), 21,
+                  pit_launches(PIT_T, PIT_N), PIT_BIG_RATE, 3))
+    return total
+
+
+def phase_pit_rare(dev):
+    """Phase 19: rare-event csmc with parallel=True in f64 against the closed
+    form; returns the stitching launches summed over the chains."""
+    total = dict.fromkeys(STITCH_KERNELS, 0)
+    log("phase 19: rare-event csmc parallel=True (PIT), f64, delta adapted from 0.5 toward 0.5; "
+        "moments against the closed form (tolerance 6 standard errors, as phase 11)")
+    for i, (cell, N_, burnin, n_samples) in enumerate(RE_PIT):
+        launches = rare_chain(dev, "csmc-pit", cell, burnin, n_samples, 40 + i, bounded=True,
+                              N=N_, per_iter=pit_launches(cell[3], N_))
+        for k in total:
+            total[k] += launches[k]
+    return total
+
 
 def main():
     import torch
@@ -1645,6 +2041,7 @@ def main():
     from aux_ssm_tpu_torch.ops.cuda._build import LIBRARY
 
     dev = torch.device("cuda")
+    tic = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(smi.stdout.strip().splitlines()[0])
@@ -1692,8 +2089,20 @@ def main():
     for name, count in phase_spatial_chains(dev).items():
         launches[name] = launches.get(name, 0) + count
 
+    log(f"  phases 0-15 took {time.perf_counter() - tic:.1f} s")
+    results.update(phase_stitch_kernels(dev))
+    log("phase 17: f64 PIT steps, card vs CPU")
+    phase_pit_step_reference(dev)
+    log(f"  phases 0-17 took {time.perf_counter() - tic:.1f} s")
+    for name, count in phase_pit_chains(dev).items():
+        launches[name] = count
+    log(f"  phases 0-18 took {time.perf_counter() - tic:.1f} s")
+    for name, count in phase_pit_rare(dev).items():
+        launches[name] += count
+    log(f"  phases 0-19 took {time.perf_counter() - tic:.1f} s")
+
     sources = ({name: entry[:2] for name, entry in KERNELS.items()} | CSMC_KERNELS
-               | SCALAR_KERNELS)
+               | SCALAR_KERNELS | STITCH_KERNELS)
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}
                for name, (src, rep) in sources.items()]

@@ -94,7 +94,20 @@ def test_step_matches_jax_given_noise(data, monkeypatch, mode, style, backward, 
             tstate = type(tstate)(x=_t(jstate.x), updated=tstate.updated)
 
 
-def test_parallel_is_not_the_sequential_sweep(data):
-    _, ys = data
-    with pytest.raises(NotImplementedError, match="PIT"):
-        tsv.get_csmc_kernel(_t(ys), NU, PHI, TAU, RHO, N, parallel=True)
+def test_parallel_is_not_the_sequential_sweep(data, monkeypatch):
+    """`parallel=True` is the PIT cSMC: a step at T=16 (four tree levels)
+    calls row_lse at each and runs neither sequential sweep (whole PIT steps
+    against JAX: tests/test_torch_pit.py)."""
+    xs_true, ys = data
+    from aux_ssm_tpu_torch.kernels import pit
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd
+    calls = []
+    row_lse = pit.kernels.row_lse
+    monkeypatch.setattr(pit.kernels, "row_lse", lambda *a: calls.append(1) or row_lse(*a))
+    for name in ("forward_factor_scan", "backward_factor_scan"):
+        monkeypatch.setattr(csmc_fwd, name, lambda *a, **k: pytest.fail("a sequential sweep ran"))
+    init, kernel = tsv.get_csmc_kernel(_t(ys), NU, PHI, TAU, RHO, N, parallel=True)
+    state = kernel(init(_t(xs_true)), torch.full((T,), 0.3, dtype=torch.float64),
+                   generator=torch.Generator().manual_seed(0))
+    assert calls == [1] * 4 and state.x.shape == (T, D)
+    assert bool(torch.isfinite(state.x).all())

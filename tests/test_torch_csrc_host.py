@@ -3,10 +3,12 @@ built as host C++ with g++ and run one "thread" at a time, against the plain
 PyTorch versions in float64.
 
 Everything above each source's launch section is plain C++ on pointers, so
-the per-step maps, the scans' passes (dense and scalar) and the four cSMC
-sweeps (the lane and block-lane sweeps with each of their model functors) run
-here unchanged; only the launch itself needs nvcc and a card. The sweeps'
-indices must be identical. Tolerance: both sides compute the same
+the per-step maps, the scans' passes (dense and scalar), the four cSMC
+sweeps (the lane and block-lane sweeps with each of their model functors) and
+the three stitching kernels' rows (row_lse, col_sample, block_masses, with
+the counter hash) run here unchanged; only the launch itself needs nvcc and a
+card. The sweeps' and the column draws' indices must be identical, the
+counter uniforms bit for bit. Tolerance: both sides compute the same
 algebra in float64 with different summation orders and solvers (substitution
 here, LAPACK there), so they agree to ~1e-12; rtol 1e-9 leaves margin and
 still catches any wrong term.
@@ -25,6 +27,7 @@ from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda import scalar_scan as SS  # noqa: E402
+from aux_ssm_tpu_torch.ops import stitching as ST  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda._build import CSRC, MAX_DIM  # noqa: E402
 from aux_ssm_tpu_torch.ops.filtering import (  # noqa: E402
     _make_associative_elements, filtering, kalman_update)
@@ -239,6 +242,47 @@ HOST_LANE(ar1_gauss, Ar1Gauss)
 """
 
 
+_STITCHING = """
+#include "stitching.cu"
+using namespace stitch;
+// Each kernel's rows, one "thread" (a whole block in turn) at a time, at the
+// widest feature bound.
+extern "C" {
+void h_counter_uniform(int n, const int* seed, const int* pair, const int* block, const int* row,
+                       const int* col, float* out) {
+  for (int i = 0; i < n; ++i)
+    out[i] = counter_uniform((uint32_t)seed[i], (uint32_t)pair[i], (uint32_t)block[i],
+                             (uint32_t)row[i], (uint32_t)col[i]);
+}
+void h_row_lse(int P, int nr, int nc, int k, const double* rf, const double* cf, const double* cb,
+               double* out) {
+  static Tile<double, kMaxK> tile;
+  for (int p = 0; p < P; ++p)
+    for (int i = 0; i < nr; ++i) row_lse_row<double, kMaxK>(0, 1, p, i, nr, nc, k, rf, cf, cb, out, tile);
+}
+void h_col_sample(int P, int n, int nc, int k, int seed, int pair_offset, const double* rf,
+                  const double* cf, const double* cb, long long* out) {
+  static Tile<double, kMaxK> tile;
+  for (int p = 0; p < P; ++p)
+    for (int i = 0; i < n; ++i)
+      col_sample_row<double, kMaxK>(0, 1, p, i, n, nc, k, (uint32_t)seed, pair_offset, rf, cf, cb,
+                                    (int64_t*)out, tile);
+}
+void h_block_masses(int P, int nr, int nc, int k, int per_block_max, const double* rf,
+                    const double* cf, const double* cb, double* out) {
+  static Tile<double, kMaxK> tile;
+  for (int p = 0; p < P; ++p)
+    for (int i = 0; i < nr; ++i) {
+      if (per_block_max)
+        block_masses_row<double, kMaxK, true>(0, 1, p, i, nr, nc, k, rf, cf, cb, out, tile);
+      else
+        block_masses_row<double, kMaxK, false>(0, 1, p, i, nr, nc, k, rf, cf, cb, out, tile);
+    }
+}
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
@@ -251,7 +295,8 @@ def host_lib(tmp_path_factory):
                        ("csmc_fwd", _CSMC_PRELUDE + _CSMC_FWD),
                        ("scalar_scan", _PRELUDE + _SCALAR_SCAN),
                        ("csmc_block", _CSMC_PRELUDE + _CSMC_BLOCK),
-                       ("csmc_lane", _CSMC_PRELUDE + _CSMC_LANE)):
+                       ("csmc_lane", _CSMC_PRELUDE + _CSMC_LANE),
+                       ("stitching", _PRELUDE + _STITCHING)):
         src = out / f"{name}.cpp"
         src.write_text(body)
         so = out / f"lib{name}.so"
@@ -515,3 +560,48 @@ def test_host_lane_matches_plain(host_lib, model, T, N, pgas):
     np.testing.assert_array_equal(anc.numpy(), want[2].numpy())
     _close(xs, want[0])
     _close(lw, want[1])
+
+
+def test_host_counter_uniform_bitwise(host_lib):
+    rng = np.random.default_rng(0)
+    n = 4096
+    ints = [rng.integers(np.iinfo(np.int32).min, np.iinfo(np.int32).max, n, dtype=np.int64)
+            .astype(np.int32) for _ in range(5)]
+    ints[0][:4] = [-1, 0, np.iinfo(np.int32).max, np.iinfo(np.int32).min]
+    args = [torch.as_tensor(z) for z in ints]
+    got = torch.empty(n, dtype=torch.float32)
+    _call(host_lib["stitching"].h_counter_uniform, n, *args, got)
+    want = ST.counter_uniform(*args)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("P,n,N,k", [(3, 25, 25, 30), (2, 130, 200, 1), (2, 40, 70, 64),
+                                     (1, 5, 3, 8)])
+def test_host_stitching_rows_match_plain(host_lib, P, n, N, k):
+    rng = np.random.default_rng(n + k)
+    rf, cf, cb = (torch.as_tensor(z) for z in (0.4 * rng.standard_normal((P, n, k)),
+                                                0.4 * rng.standard_normal((P, N, k)),
+                                                rng.standard_normal((P, N))))
+    lib = host_lib["stitching"]
+    got = torch.full((P, n), float("nan"), dtype=torch.float64)
+    _call(lib.h_row_lse, P, n, N, k, rf, cf, cb, got)
+    _close(got, ST.row_lse(rf, cf, cb), rtol=1e-12, atol=1e-12)
+    for seed, offset in ((-1, 0), (123456, 9)):
+        cols = torch.full((P, n), -1, dtype=torch.int64)
+        _call(lib.h_col_sample, P, n, N, k, seed, offset, rf, cf, cb, cols)
+        np.testing.assert_array_equal(cols.numpy(), ST.col_sample(seed, rf, cf, cb, offset).numpy())
+
+
+@pytest.mark.parametrize("per_block_max", [False, True])
+@pytest.mark.parametrize("P,n,N,k", [(2, 130, 256, 1), (1, 20, 384, 9)])
+def test_host_block_masses_match_plain(host_lib, P, n, N, k, per_block_max):
+    rng = np.random.default_rng(N + k)
+    rf, cf, cb = (torch.as_tensor(z) for z in (rng.standard_normal((P, n, k)),
+                                                rng.standard_normal((P, N, k)),
+                                                rng.standard_normal((P, N))))
+    cb[0, 128:256] = -900.0   # block 1 of node 0 underflows: -inf under the row max
+    got = torch.full((P, n, N // 128), float("nan"), dtype=torch.float64)
+    _call(host_lib["stitching"].h_block_masses, P, n, N, k, per_block_max, rf, cf, cb, got)
+    want = ST.block_masses(rf, cf, cb, per_block_max)
+    assert bool(torch.isinf(want[0, :, 1]).all()) != per_block_max
+    _close(got, want, rtol=1e-12, atol=1e-12)

@@ -472,3 +472,114 @@ def test_stencil_convolution_is_ieee_float32(dev):
     want = tdist.apply_precision_stencil(v, stencil, 8)
     got = tdist.apply_precision_stencil(v.float().to(dev), stencil.float().to(dev), 8).cpu()
     np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=0, atol=2e-6)
+
+
+# --------------------------------------------------------------------------
+# The parallel-in-time stitching kernels and PIT steps
+# --------------------------------------------------------------------------
+
+def _stitch_factors(P, n, N, k, seed, dtype=torch.float64):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(z.to(dtype) for z in (0.4 * torch.randn(P, n, k, generator=g, dtype=torch.float64),
+                                       0.4 * torch.randn(P, N, k, generator=g, dtype=torch.float64),
+                                       torch.randn(P, N, generator=g, dtype=torch.float64)))
+
+
+@pytest.mark.parametrize("P,n,N,k", [(125, 25, 25, 30), (3, 130, 200, 1), (2, 40, 70, 64),
+                                     (1, 4096, 4096, 1), (4, 9, 3, 8), (2, 300, 65, 17)])
+def test_row_lse_and_col_sample_match_plain(dev, P, n, N, k):
+    """Every feature bound (1, 8, 32, 64), ragged row blocks and column tiles;
+    float64 values to 1e-12 and identical columns, float32 columns at >= 0.999
+    (the scores are equal; only the float32 logs of exp sums differ)."""
+    ST = K.stitching
+    rf, cf, cb = _stitch_factors(P, n, N, k, seed=n + k)
+    (want,), (got,) = _both(ST.row_lse, (rf, cf, cb), dev)
+    _close((got,), (want,), rtol=1e-12, atol=1e-12)
+    for seed, offset in ((-1, 0), (2 ** 31 - 1, 5)):
+        (want,), (got,) = _both(ST.col_sample, (seed, rf, cf, cb, offset), dev)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    f32 = tuple(z.float() for z in (rf, cf, cb))
+    (want,), (got,) = _both(ST.col_sample, (7,) + f32, dev)
+    assert float((got == want).double().mean()) >= 0.999
+    (want,), (got,) = _both(ST.row_lse, f32, dev)
+    _close((got,), (want,), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("per_block_max", [False, True])
+@pytest.mark.parametrize("P,n,N,k", [(4, 130, 256, 1), (2, 64, 384, 9), (1, 200, 4096, 1)])
+def test_block_masses_match_plain(dev, P, n, N, k, per_block_max):
+    ST = K.stitching
+    rf, cf, cb = _stitch_factors(P, n, N, k, seed=N + k)
+    cb[0, 128:256] = -900.0  # an underflowing block: -inf under the row max
+    (want,), (got,) = _both(ST.block_masses, (rf, cf, cb, per_block_max), dev)
+    assert bool(torch.isinf(got[0, :, 1]).all()) != per_block_max
+    _close((got,), (want,), rtol=1e-12, atol=1e-12)
+    f32 = tuple(z.float() for z in (rf, cf, cb))
+    (want,), (got,) = _both(ST.block_masses, f32 + (per_block_max,), dev)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    _close((got[fin],), (want[fin],), rtol=2e-5, atol=2e-5)
+
+
+def test_stitching_kernels_reject_what_they_do_not_take(dev):
+    ST = K.stitching
+    rf, cf, cb = (z.to(dev) for z in _stitch_factors(2, 8, 128, 65, seed=0))
+    with pytest.raises(ValueError, match="dimensions"):
+        ST.row_lse(rf, cf, cb)
+    with pytest.raises(TypeError, match="float32 or float64|must be"):
+        ST.row_lse(rf[..., :4].contiguous(), cf[..., :4].float().contiguous(), cb)
+
+
+@pytest.mark.parametrize("stitch,N", [("2pass", 25), ("blocked", 128)])
+@pytest.mark.parametrize("gradient", [False, True])
+@pytest.mark.parametrize("model", ["sv", "spatial", "rare_event"])
+def test_pit_step_matches_cpu(dev, model, gradient, stitch, N):
+    """Two float64 PIT steps at T=37 on the card and on the CPU, given the
+    same noise: identical `updated`, states to rtol 1e-9, and the card's
+    steps launched the route's kernels (6 levels: the root's row_lse, and
+    row_lse + col_sample or block_masses at each of the other five)."""
+    from aux_ssm_tpu_torch.kernels import csmc_independent as ind, pit
+    from aux_ssm_tpu_torch.models import rare_event as rev, spatial as sp
+    T = 37
+    g = torch.Generator().manual_seed(3)
+    if model == "sv":
+        xs, ys = sv.get_data(0.0, 0.9, 2.0, 0.25, 3, T, generator=g, device="cpu")
+        build = lambda where: ind.get_kernel(*sv.get_feynman_kac(ys.to(where), 0.0, 0.9, 2.0, 0.25),
+                                             N, parallel=True, gradient=gradient, stitch=stitch)
+    elif model == "spatial":
+        xs, ys = sp.get_data(np.random.default_rng(3), 0.3, 1, -0.25, 4.0, 3, T, device="cpu")
+        build = lambda where: ind.get_kernel(*sp.get_feynman_kac(ys.to(where), 0.3, 4.0, -0.25, 1, 3),
+                                             N, parallel=True, gradient=gradient, stitch=stitch)
+    else:
+        xs = 3.0 + torch.randn(T, 1, generator=g, dtype=torch.float64)
+        build = lambda where: ind.get_kernel(*rev.get_feynman_kac(5.0, 0.8, 0.5, T, device=where),
+                                             N, parallel=True, gradient=gradient, stitch=stitch)
+    d = xs.shape[1]
+    delta = torch.full((T,), 0.02 if model == "spatial" else 0.2, dtype=torch.float64)
+    noises = []
+    for _ in range(2):
+        eps_u, eps = torch.randn(T, d, generator=g), torch.randn(T, N, d, generator=g)
+        levels, root = pit.draw_noise(T, N, eps, g)
+        noises.append((eps_u.double(), eps.double(), [(u.double(), s) for u, s in levels],
+                       tuple(u.double() for u in root)))
+    runs = {}
+    for where in ("cpu", dev):
+        init, kernel = build(where)
+        state = init(xs.to(where))
+        K.reset_launches()
+        for noise in noises:
+            state = kernel(state, delta.to(where), noise=_to_tree(noise, where))
+        runs[str(where)] = (state.x.cpu(), state.updated.cpu(), K.launches())
+    (xc, uc, _), (xg, ug, launched) = runs["cpu"], runs[str(dev)]
+    assert torch.equal(uc, ug)
+    _close((xg,), (xc,))
+    blocked = stitch == "blocked"
+    want = {"row_lse": 2 * (1 if blocked else 6), "col_sample": 0 if blocked else 10,
+            "block_masses": 10 if blocked else 0}
+    assert {k: launched[k] for k in want} == want
+
+
+def _to_tree(z, where):
+    if isinstance(z, (tuple, list)):
+        return type(z)(_to_tree(v, where) for v in z)
+    return z.to(where)

@@ -106,9 +106,21 @@ def test_step_matches_jax_given_noise(monkeypatch, style, T):
     assert (calls["lane"], calls["factor"]) == want[style.removesuffix("-grad")]
 
 
-def test_parallel_csmc_is_not_ported():
-    with pytest.raises(NotImplementedError, match="PIT"):
-        tre.get_csmc_kernel(Y, RHO, R2, 2, N, parallel=True, **CPU)
+def test_parallel_csmc_is_not_ported(monkeypatch):
+    """`parallel=True` was not ported; it is the PIT cSMC now: a step at T=2
+    draws its root through row_lse and runs neither sequential sweep."""
+    from aux_ssm_tpu_torch.kernels import pit
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd
+    calls = []
+    row_lse = pit.kernels.row_lse
+    monkeypatch.setattr(pit.kernels, "row_lse", lambda *a: calls.append(1) or row_lse(*a))
+    for name in ("forward_factor_scan", "backward_factor_scan"):
+        monkeypatch.setattr(csmc_fwd, name, lambda *a, **k: pytest.fail("a sequential sweep ran"))
+    init, kernel = tre.get_csmc_kernel(Y, RHO, R2, 2, N, parallel=True, **CPU)
+    state = kernel(init(torch.full((2, 1), 3.0, dtype=torch.float64)),
+                   torch.full((2,), 0.5, dtype=torch.float64),
+                   generator=torch.Generator().manual_seed(0))
+    assert calls == [1] and state.x.shape == (2, 1) and bool(torch.isfinite(state.x).all())
 
 
 @pytest.mark.parametrize("style", ["kalman", "kalman-grad", "csmc", "csmc-guided",

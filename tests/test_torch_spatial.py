@@ -218,10 +218,23 @@ def test_step_matches_jax_given_noise(monkeypatch, style, T):
     assert calls == dict.fromkeys(calls, 0) | want
 
 
-def test_parallel_csmc_is_not_ported():
-    _, ys = _data(6)
-    with pytest.raises(NotImplementedError, match="PIT"):
-        tsp.get_csmc_kernel(_t(ys), SIG_X, NU, TAU, R_Y, D, N, parallel=True)
+def test_parallel_csmc_is_not_ported(monkeypatch):
+    """`parallel=True` was not ported; it is the PIT cSMC now: a step at T=6
+    (three tree levels) calls row_lse at each and runs neither sequential
+    sweep."""
+    xs, ys = _data(6)
+    from aux_ssm_tpu_torch.kernels import pit
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd
+    calls = []
+    row_lse = pit.kernels.row_lse
+    monkeypatch.setattr(pit.kernels, "row_lse", lambda *a: calls.append(1) or row_lse(*a))
+    for name in ("forward_factor_scan", "backward_factor_scan"):
+        monkeypatch.setattr(csmc_fwd, name, lambda *a, **k: pytest.fail("a sequential sweep ran"))
+    init, kernel = tsp.get_csmc_kernel(_t(ys), SIG_X, NU, TAU, R_Y, D, N, parallel=True)
+    state = kernel(init(_t(xs)), torch.full((6,), 0.05, dtype=torch.float64),
+                   generator=torch.Generator().manual_seed(0))
+    assert calls == [1, 1, 1] and state.x.shape == xs.shape
+    assert bool(torch.isfinite(state.x).all())
 
 
 def test_kalman_kernel_checks_the_grid():
