@@ -29,15 +29,17 @@ _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 def get_kernel(M0, G0, Mt, Gt, N, backward=False, Pt=None, gradient=False, parallel=False,
-               resampling="multinomial", stitch="auto"):
+               resampling="multinomial", stitch="auto", draws="joint"):
     """Auxiliary PG kernel with independent per-step proposals; returns
     (init, kernel) with `kernel(state, delta, generator=None, noise=None)`;
     delta a scalar or a (T,) vector. `parallel=False`: the sequential sweep
     (see `csmc_aux.get_kernel` for its noise). `parallel=True`: the PIT
-    cSMC (`_pit_path`; `stitch` forces its stitching route, see
-    `pit.get_kernel`; `backward`, `Pt` and `resampling` do not apply)."""
+    cSMC (`_pit_path`; `stitch` forces its stitching route and `draws` picks
+    the blocked route's draws, see `kernels/pit.py`; `backward`, `Pt` and
+    `resampling` do not apply)."""
+    pit.check_routes(stitch, draws)
     if parallel:
-        return _pit_path(M0, G0, Mt, Gt, N, gradient, stitch)
+        return _pit_path(M0, G0, Mt, Gt, N, gradient, stitch, draws)
     return _sequential_path(M0, G0, Mt, Gt, N, backward, Pt, gradient, resampling)
 
 
@@ -75,7 +77,7 @@ def _sequential_path(M0, G0, Mt, Gt, N, backward, Pt, gradient, resampling):
     return get_aux_kernel(factory, N, backward, Pt, resampling)
 
 
-def _pit_path(M0, G0, Mt, Gt, N, gradient, stitch):
+def _pit_path(M0, G0, Mt, Gt, N, gradient, stitch, draws):
     """Parallel-in-time execution: the proposals N(u_t + shift_t, s_t^2 I) are
     one time-batched distribution; the gradient correction enters through
     the importance distribution Qt = N(u, s^2 I), not the potentials.
@@ -105,7 +107,7 @@ def _pit_path(M0, G0, Mt, Gt, N, gradient, stitch):
                         params=(Mt.params, Gt.params, (torch.zeros_like(u[1:]),
                                                        torch.zeros_like(u[1:]),
                                                        torch.ones_like(scale[1:]))))
-        _, pit_kernel = pit.get_kernel(proposals, g0, gt, N, qt, stitch=stitch)
+        _, pit_kernel = pit.get_kernel(proposals, g0, gt, N, qt, stitch=stitch, draws=draws)
         return pit_kernel(state, noise=(eps, levels, root))
 
     def init(x):

@@ -16,12 +16,16 @@ Structure:
 
 When the boundary potential factorises (`Gt.supports_pairwise_factors`),
 each level's draw goes through the stitching kernels
-(`ops/cuda/stitching.py`, one launch a level): the two-pass route (row_lse,
-the row draw, col_sample), or at 4096 <= N <= 8192 with N % 128 == 0 the
-blocked route (block_masses, then the joint (row, block) draw and the
-within-block columns in plain PyTorch). The root always takes the row_lse
-route. `stitch="auto"|"blocked"|"2pass"` forces a route (the JAX package's
-`AUX_SSM_STITCH`). Other potentials take the generic nested (N, N) weights.
+(`ops/cuda/stitching.py`, one launch each a level): the two-pass route
+(row_lse, the row draw, col_sample), or at 4096 <= N <= 8192 with N % 128 ==
+0 the blocked route: block_masses, then the draws. The root always takes the
+row_lse route. `stitch="auto"|"blocked"|"2pass"` forces a route (the JAX
+package's `AUX_SSM_STITCH`). On the blocked route `draws` picks the draws
+(the JAX package's `AUX_SSM_STITCH_DRAWS`): "joint" (default), the flat
+(row, block) inverse-CDF draw in plain PyTorch and the within-block columns
+by the within_block_cols kernel; or "fused", every row and column by the
+stitch_draws kernel. The two map the uniforms to other indices under the
+same law. Other potentials take the generic nested (N, N) weights.
 
 Random numbers come as `noise`, one entry a tree level: `(u_rows (n_act,
 N), seed)` for each level below the root (the row draws' uniforms and the
@@ -47,6 +51,7 @@ _BLOCKED_MIN_N = 4096
 _MAX_BLOCKED_N = 8192
 _INT32_MAX = 2 ** 31 - 1
 STITCH_ROUTES = ("auto", "blocked", "2pass")
+DRAWS_MODES = ("joint", "fused")
 
 
 # --------------------------------------------------------------------------
@@ -172,7 +177,8 @@ def stitching_operator(inputs_a, inputs_b, Gt, n_samples, last_step):
     return _gather_concat(inputs_a, inputs_b, rows, cols, n_samples, last_step)
 
 
-def fused_stitching_operator(inputs_a, inputs_b, Gt, n_samples, last_step, stitch="auto"):
+def fused_stitching_operator(inputs_a, inputs_b, Gt, n_samples, last_step, stitch="auto",
+                             draws="joint"):
     """`stitching_operator` for a pair-factorising potential: the same law,
     drawn through the stitching kernels (`_fused_node_draw`)."""
     (traj_a, log_w_a, _), _, _ = inputs_a
@@ -180,7 +186,7 @@ def fused_stitching_operator(inputs_a, inputs_b, Gt, n_samples, last_step, stitc
     rows, cols = _fused_node_draw(traj_a[:, -1], traj_b[:, 0], log_w_a[:, -1], log_w_b[:, 0],
                                   tree_map(lambda z: z[:, 0], params_b), Gt, n_samples,
                                   last_step, _node_noise(u_b[:, 0], n_samples, last_step),
-                                  stitch)
+                                  stitch, draws)
     return _gather_concat(inputs_a, inputs_b, rows, cols, n_samples, last_step)
 
 
@@ -206,7 +212,16 @@ def draw_noise(T, N, like, generator=None):
     return levels, (torch.rand(1, **kw), torch.rand(1, **kw))
 
 
-def get_kernel(Mt, G0, Gt, N, Qt=None, stitch="auto"):
+def check_routes(stitch, draws):
+    """Raise ValueError on a stitching route or draws mode the tree does not
+    know."""
+    if stitch not in STITCH_ROUTES:
+        raise ValueError(f"stitch must be one of {STITCH_ROUTES}, got {stitch!r}")
+    if draws not in DRAWS_MODES:
+        raise ValueError(f"draws must be one of {DRAWS_MODES}, got {draws!r}")
+
+
+def get_kernel(Mt, G0, Gt, N, Qt=None, stitch="auto", draws="joint"):
     """PIT-cSMC kernel over independent per-time proposals.
 
     Targets prod_t Mt[t](x_t) G0(x_0) prod Gt, or with `Qt` the Qt-weighted
@@ -216,16 +231,16 @@ def get_kernel(Mt, G0, Gt, N, Qt=None, stitch="auto"):
 
     Returns (init, kernel) with `kernel(state, generator=None, noise=None)
     -> CSMCState`; `noise = (eps (T, N, d), levels, root)` (module
-    docstring), drawn from `generator` when not given."""
-    if stitch not in STITCH_ROUTES:
-        raise ValueError(f"stitch must be one of {STITCH_ROUTES}, got {stitch!r}")
+    docstring), drawn from `generator` when not given. `stitch` and `draws`:
+    the module docstring."""
+    check_routes(stitch, draws)
 
     def kernel(state, generator=None, noise=None):
         x = state.x
         if noise is None:
             noise = (torch.randn(x.shape[0], N, x.shape[1], generator=generator, dtype=x.dtype,
                                  device=x.device),) + draw_noise(x.shape[0], N, x, generator)
-        x_new, picked = _pit_csmc(x, Mt, G0, Gt, N, Qt, noise, stitch)
+        x_new, picked = _pit_csmc(x, Mt, G0, Gt, N, Qt, noise, stitch, draws)
         return CSMCState(x=x_new, updated=picked != 0)
 
     def init(x_star):
@@ -244,7 +259,7 @@ def _shifted_params(params):
     return tree_map(shift, params)
 
 
-def _pit_csmc(x_star, Mt, G0, Gt, N, Qt, noise, stitch="auto"):
+def _pit_csmc(x_star, Mt, G0, Gt, N, Qt, noise, stitch="auto", draws="joint"):
     """Index-composition PIT engine: propose all T x N particles, run the
     stitching tree on boundary values, resolve the genealogy, gather once.
     Returns (x (T, d), picked (T,))."""
@@ -266,7 +281,7 @@ def _pit_csmc(x_star, Mt, G0, Gt, N, Qt, noise, stitch="auto"):
 
     sels, root_pair = run_stitch_tree(xs, xs, log_wts, list(levels) + [root],
                                       _shifted_params(Gt.params), Gt, N, include_root=True,
-                                      stitch=stitch)
+                                      stitch=stitch, draws=draws)
     idx = resolve_genealogy(sels, _root_init(root_pair, T, N), T, N)
     return xs[steps, idx], idx
 
@@ -284,7 +299,7 @@ def _fresh_weights(log_wts, steps, consumed, n_act, N):
 
 
 def run_stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, include_root,
-                    stitch="auto", pair_offset=0):
+                    stitch="auto", draws="joint", pair_offset=0):
     """Run the stitching levels over S steps, recording each level's draws.
 
     left_vals / right_vals (S, N, d): the particle sets serving as a node's
@@ -327,7 +342,7 @@ def run_stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, includ
         new_first = new_last = None
         if fused:
             out = _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise[k], stitch,
-                                   pair_offset=pair_offset,
+                                   draws, pair_offset=pair_offset,
                                    row_payload=None if last else xf_even[:n_act],
                                    col_payload=None if last else xl_odd[:n_act])
             rows, cols = out[:2]
@@ -402,13 +417,14 @@ def _use_blocked_stitch(N, stitch):
 
 
 def _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise, stitch="auto",
-                     pair_offset=0, row_payload=None, col_payload=None):
+                     draws="joint", pair_offset=0, row_payload=None, col_payload=None):
     """The factorised draw for one level's nodes. xl / xr (n_act, N, d): the
     left child's last-step and the right child's first-step particles; lw_l /
     lw_r (n_act, N) their fresh weights. Returns (rows, cols), each (n_act, N)
     (or (1, 1) at the root), and with `row_payload` / `col_payload` (n_act,
     N, e) also those values at the drawn rows / columns. Pair 0 is pinned to
-    (0, 0), payloads to index 0's values."""
+    (0, 0), payloads to index 0's values. `draws` applies on the blocked
+    route only."""
     rf, cf, rb, cb = Gt.pairwise_factors(xl, xr, params_r)
     rb = rb + lw_l
     cb = (cb + lw_r).contiguous()
@@ -426,22 +442,28 @@ def _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise, stitch="a
     u_rows, seed = noise
     if blocked:
         Lb = kernels.block_masses(rf, cf, cb)
+    if blocked and draws == "joint":
         if row_payload is None:
             rows, blocks, rf_sel = st.joint_rowblock_draws(u_rows, rb, Lb, row_feat=rf)
-            cols = st.within_block_cols(seed, blocks, rf_sel, cf, cb, pair_offset)
+            cols = kernels.within_block_cols(seed, blocks, rf_sel, cf, cb, pair_offset)
         else:
             rows, blocks, rf_sel, rpay = st.joint_rowblock_draws(u_rows, rb, Lb, row_feat=rf,
                                                                  row_extra=row_payload)
-            cols, cpay = st.within_block_cols(seed, blocks, rf_sel, cf, cb, pair_offset,
-                                              col_extra=col_payload)
+            cols, cpay = kernels.within_block_cols(seed, blocks, rf_sel, cf, cb, pair_offset,
+                                                   col_extra=col_payload)
             rpay[:, 0], cpay[:, 0] = row_payload[:, 0], col_payload[:, 0]
         rows[:, 0] = 0
         cols[:, 0] = 0
         return (rows, cols) if row_payload is None else (rows, cols, rpay, cpay)
 
-    rows = categorical_from_uniforms(rb + kernels.row_lse(rf, cf, cb), u_rows)
+    if blocked:  # draws == "fused"
+        rows, cols = kernels.stitch_draws(seed, rb + torch.logsumexp(Lb, -1), u_rows, Lb, rf, cf,
+                                          cb, pair_offset)
+    else:
+        rows = categorical_from_uniforms(rb + kernels.row_lse(rf, cf, cb), u_rows)
+        rows[:, 0] = 0
+        cols = kernels.col_sample(seed, take_rows(rf, rows).contiguous(), cf, cb, pair_offset)
     rows[:, 0] = 0
-    cols = kernels.col_sample(seed, take_rows(rf, rows).contiguous(), cf, cb, pair_offset)
     cols[:, 0] = 0
     if row_payload is None:
         return rows, cols

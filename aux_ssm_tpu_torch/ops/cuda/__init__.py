@@ -10,7 +10,8 @@ WRAPPERS = (kalman_fused.make_elements, filter_scan.filter_scan, kalman_fused.el
             csmc_fwd.forward_factor_scan, csmc_fwd.backward_factor_scan,
             csmc_fwd.lane_scan, csmc_fwd.block_lane_scan,
             scalar_scan.scalar_filter_scan, scalar_scan.scalar_affine_scan,
-            stitching.row_lse, stitching.col_sample, stitching.block_masses)
+            stitching.row_lse, stitching.col_sample, stitching.block_masses,
+            stitching.stitch_draws, stitching.within_block_cols)
 
 
 def reset_launches():

@@ -1,21 +1,26 @@
 """The stitching kernels of the parallel-in-time cSMC: wrappers of
 `csrc/stitching.cu` (counterpart of `aux_ssm_tpu/ops/pallas/stitching.py`'s
-`row_lse`, `col_sample` and `block_masses`). Their plain versions are in
-`ops/stitching.py`.
+`row_lse`, `col_sample`, `block_masses` and `stitch_draws`; and
+`within_block_cols`, the column stage of `stitch_draws`, which the JAX
+package computes in XLA and the port's default blocked draws call). Their
+plain versions are in `ops/stitching.py`.
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel or raises. One call is one launch, serving every node of
 a tree level; each wrapper counts its launches in its `launches` attribute.
 The kernels take float32 or float64, feature widths k <= 64 and any row and
-column counts (block_masses: columns a multiple of 128).
+column counts (block_masses and the draws: columns a multiple of 128; the
+draws: at most 8192).
 """
 import torch
 
 from .. import stitching as plain
+from ..take import take_rows
 from ._build import check_cuda_inputs, launch
 from .kalman_fused import _on_cuda
 
 MAX_K = 64
+MAX_DRAWS_N = 8192  # kMaxNb column blocks of 128
 
 
 def _check(name, rf, cf, cb):
@@ -28,6 +33,18 @@ def _check(name, rf, cf, cb):
         raise ValueError(f"{name}: factor shapes {tuple(rf.shape)}, {tuple(cf.shape)}, "
                          f"{tuple(cb.shape)} do not match")
     return P, n, cf.shape[1], k
+
+
+def _seed_on(seed, ref):
+    """The counter seed as a 1-element int32 tensor on ref's device: the
+    kernels read it there, so a seed drawn on the card costs no host sync."""
+    return torch.as_tensor(seed, device=ref.device).to(torch.int32).reshape(1)
+
+
+def _check_draw_columns(name, N):
+    if N % plain._COL_BLOCK or N > MAX_DRAWS_N:
+        raise ValueError(f"{name}: the column count {N} is not a multiple of 128 up to "
+                         f"{MAX_DRAWS_N}")
 
 
 def row_lse(row_feat, col_feat, col_bias):
@@ -60,10 +77,10 @@ def col_sample(seed, row_feat_sel, col_feat, col_bias, pair_offset=0):
         return plain.col_sample(seed, row_feat_sel, col_feat, col_bias, pair_offset)
     rf, cf, cb = check_cuda_inputs("col_sample", (row_feat_sel, col_feat, col_bias),
                                    row_feat_sel.dtype, MAX_K, (k,))
-    seed_t = torch.as_tensor(seed, device=rf.device).to(torch.int32).reshape(1)
     out = torch.empty(P, n, dtype=torch.int64, device=rf.device)
     if out.numel() and N:
-        launch("col_sample", rf.dtype, P, n, N, k, seed_t, int(pair_offset), rf, cf, cb, out)
+        launch("col_sample", rf.dtype, P, n, N, k, _seed_on(seed, rf), int(pair_offset), rf, cf,
+               cb, out)
         col_sample.launches += 1
     return out
 
@@ -90,3 +107,64 @@ def block_masses(row_feat, col_feat, col_bias, per_block_max=False):
 
 
 block_masses.launches = 0
+
+
+def within_block_cols(seed, blocks, row_feat_sel, col_feat, col_bias, pair_offset=0,
+                      col_extra=None):
+    """The column inside each draw's 128-column block by Gumbel-argmax with
+    counter uniforms: seed as for `col_sample`, blocks (P, n) int64 in [0,
+    N / 128), row_feat_sel (P, n, k), col_feat (P, N, k), col_bias (P, N) ->
+    (P, n) int64, and with `col_extra` (P, N, e) also its values at the
+    columns; see `ops.stitching.within_block_cols`. The card does not
+    check the blocks' values: one outside [0, N / 128) reads another node's
+    or unallocated memory, where the plain version raises IndexError."""
+    P, n, N, k = _check("within_block_cols", row_feat_sel, col_feat, col_bias)
+    _check_draw_columns("within_block_cols", N)
+    if tuple(blocks.shape) != (P, n):
+        raise ValueError(f"within_block_cols: blocks {tuple(blocks.shape)}, expected {(P, n)}")
+    if not _on_cuda("within_block_cols", row_feat_sel):
+        return plain.within_block_cols(seed, blocks, row_feat_sel, col_feat, col_bias,
+                                       pair_offset, col_extra)
+    rf, cf, cb = check_cuda_inputs("within_block_cols", (row_feat_sel, col_feat, col_bias),
+                                   row_feat_sel.dtype, MAX_K, (k,))
+    blocks = blocks.to(device=rf.device, dtype=torch.int64).contiguous()
+    cols = torch.empty(P, n, dtype=torch.int64, device=rf.device)
+    if cols.numel():
+        launch("within_block_cols", rf.dtype, P, n, N, k, _seed_on(seed, rf), int(pair_offset),
+               blocks, rf, cf, cb, cols)
+        within_block_cols.launches += 1
+    if col_extra is None:
+        return cols
+    return cols, take_rows(col_extra, cols)
+
+
+within_block_cols.launches = 0
+
+
+def stitch_draws(seed, row_logits, u_rows, Lb, row_feat, col_feat, col_bias, pair_offset=0):
+    """Every (row, column) draw of one tree level: seed as for `col_sample`,
+    row_logits (P, N) = row_bias + logsumexp(Lb, -1), u_rows (P, N), Lb (P, N,
+    N / 128), row_feat, col_feat (P, N, k), col_bias (P, N) -> (rows, cols),
+    each (P, N) int64; pair 0 is not pinned. See `ops.stitching.stitch_draws`."""
+    P, n, N, k = _check("stitch_draws", row_feat, col_feat, col_bias)
+    _check_draw_columns("stitch_draws", N)
+    nb = N // plain._COL_BLOCK
+    if (n != N or tuple(row_logits.shape) != (P, N) or tuple(u_rows.shape) != (P, N)
+            or tuple(Lb.shape) != (P, N, nb)):
+        raise ValueError(f"stitch_draws: row_logits {tuple(row_logits.shape)}, u_rows "
+                         f"{tuple(u_rows.shape)}, Lb {tuple(Lb.shape)} and rf "
+                         f"{tuple(row_feat.shape)} do not match {(P, N, nb)}")
+    if not _on_cuda("stitch_draws", row_feat):
+        return plain.stitch_draws(seed, row_logits, u_rows, Lb, row_feat, col_feat, col_bias,
+                                  pair_offset)
+    rl, u, Lb, rf, cf, cb = check_cuda_inputs(
+        "stitch_draws", (row_logits, u_rows, Lb, row_feat, col_feat, col_bias), row_feat.dtype,
+        MAX_K, (k,))
+    rows, cols = (torch.empty(P, N, dtype=torch.int64, device=rf.device) for _ in range(2))
+    launch("stitch_draws", rf.dtype, P, N, k, _seed_on(seed, rf), int(pair_offset), rl, u, Lb,
+           rf, cf, cb, rows, cols)
+    stitch_draws.launches += 1
+    return rows, cols
+
+
+stitch_draws.launches = 0

@@ -16,16 +16,23 @@ without materialising it:
   col_sample    one column per sampled row by Gumbel-argmax over the
                 recomputed scores, the Gumbel noise from `counter_uniform`;
   block_masses  the per-row log-masses of each 128-column block (the blocked
-                route at large N), then
+                route at large N), then either
   joint_rowblock_draws  one flat inverse-CDF draw over (row, block) and
-  within_block_cols     the column inside the drawn block by Gumbel-argmax.
+  within_block_cols     the column inside the drawn block by Gumbel-argmax
+                (the default `joint` draws), or
+  stitch_draws  rows by a hierarchical inverse CDF (128-row tiles, then the
+                offset in the tile), the block by inverse CDF over the drawn
+                row's block masses, the column as within_block_cols does (the
+                `fused` draws).
 
-`row_lse`, `col_sample` and `block_masses` are the plain versions of the
-CUDA kernels (`ops/cuda/stitching.py`, `csrc/stitching.cu`) and compute the
-scores in the kernels' order: cb_j first, then the k products rf_i[kk]
-cf_j[kk], each product rounded and then added. The rest is glue that runs
-in PyTorch on every device. Large score tensors are built in chunks of rows
-(or pairs), so no step holds more than `_CHUNK` elements at once.
+`row_lse`, `col_sample`, `block_masses`, `within_block_cols` and
+`stitch_draws` are the plain versions of the CUDA kernels
+(`ops/cuda/stitching.py`, `csrc/stitching.cu`). They compute the scores in
+the kernels' order: cb_j first, then the k products rf_i[kk] cf_j[kk], each
+product rounded and then added; and every prefix sum of the draws in the
+shift-add association of `_lane_cumsum`. The rest is glue that runs in
+PyTorch on every device. Large score tensors are built in chunks of rows (or
+pairs), so no step holds more than `_CHUNK` elements at once.
 
 `counter_uniform` is a hash of integer counters, computed here in int64
 with the uint32 wrap-around made explicit, bit for bit the JAX package's.
@@ -200,10 +207,10 @@ def within_block_cols(seed, blocks, row_feat_sel, col_feat, col_bias, pair_offse
                       col_extra=None):
     """The column inside each draw's 128-column block, by Gumbel-argmax over
     the recomputed block scores with counter_uniform(seed, pair, draw, block,
-    j_loc). blocks (P, n); row_feat_sel (P, n, k); col_feat (P, N, k);
-    col_bias (P, N) (floored at _NEG_FLOOR) -> (P, n) int64 columns, and with
-    `col_extra` (P, N, e) also col_extra at those columns (P, n, e).
-    Computed in chunks of pairs."""
+    j_loc); the first index wins a tie. blocks (P, n); row_feat_sel (P, n, k);
+    col_feat (P, N, k); col_bias (P, N) (floored at _NEG_FLOOR) -> (P, n) int64
+    columns, and with `col_extra` (P, N, e) also col_extra at those columns
+    (P, n, e). Computed in chunks of pairs."""
     P, n, k = row_feat_sel.shape
     N = col_feat.shape[1]
     G = _COL_BLOCK
@@ -218,8 +225,10 @@ def within_block_cols(seed, blocks, row_feat_sel, col_feat, col_bias, pair_offse
         b = blocks[ps]
         p_ar = torch.arange(b.shape[0], device=dev)[:, None]
         cf_sel = col_feat[ps].reshape(b.shape[0], N // G, G, k)[p_ar, b]   # (p, n, G, k)
-        cb_sel = col_bias[ps].reshape(b.shape[0], N // G, G)[p_ar, b]      # (p, n, G)
-        s2 = torch.einsum("pnk,pnjk->pnj", row_feat_sel[ps], cf_sel) + cb_sel
+        s2 = col_bias[ps].reshape(b.shape[0], N // G, G)[p_ar, b]          # (p, n, G)
+        rf = row_feat_sel[ps]
+        for kk in range(k):  # the kernels' association
+            s2 = s2 + rf[:, :, kk, None] * cf_sel[..., kk]
         pair = _pair_ids(P, pair_offset, dev)[ps, None, None]
         u = counter_uniform(seed, pair, draws, b[..., None], j_loc)
         out.append(b * G + (s2 - _gumbel(u, s2.dtype)).argmax(-1))
@@ -245,3 +254,82 @@ def joint_rowblock_draws(u, row_bias, Lb, row_feat=None, row_extra=None):
     if row_extra is None:
         return rows, blocks, take_rows(row_feat, rows)
     return rows, blocks, take_rows(row_feat, rows), take_rows(row_extra, rows)
+
+
+# --------------------------------------------------------------------------
+# The fused draws (plain version of the stitch_draws kernel)
+# --------------------------------------------------------------------------
+
+def _lane_cumsum(x):
+    """Inclusive prefix sum over the last axis in the Hillis-Steele shift-add
+    association: at shift 1, 2, 4, ... every x[i] with i >= shift adds the
+    x[i - shift] of the previous shift (the JAX package's `_lane_cumsum`, and
+    the kernel's `shift_add_cumsum`)."""
+    n, sh = x.shape[-1], 1
+    while sh < n:
+        x = torch.cat([x[..., :sh], x[..., sh:] + x[..., :-sh]], -1)
+        sh *= 2
+    return x
+
+
+def _tile_rows(row_logits, u):
+    """Stage 1: rows by a hierarchical inverse CDF over softmax(row_logits).
+    w = exp(row_logits - max) in 128-row tiles; `ic` each tile's prefix sums,
+    `ts` their last entries (the tile sums) and `cdf` the prefix sums of
+    those. A draw's tile is the count of cdf entries below t1 = u * total,
+    `prev` the sum, in tile order, of those tiles' ts (capped at t1), and the
+    offset the count of the tile's ic entries below t1 - prev. row_logits
+    (P, N), u (P, n) -> (P, n) int64."""
+    P, N = row_logits.shape
+    nb = N // _ROW_BLOCK
+    w = torch.exp(row_logits - row_logits.amax(-1, keepdim=True))
+    ic = _lane_cumsum(w.reshape(P, nb, _ROW_BLOCK))
+    ts = ic[..., -1]
+    cdf = _lane_cumsum(ts)
+    t1 = u * cdf[:, -1:]
+    below = cdf[:, None, :] < t1[:, :, None]                    # (P, n, nb)
+    prev = torch.zeros_like(t1)
+    for b in range(nb):  # the kernel's order
+        prev = prev + torch.where(below[..., b], ts[:, b, None], torch.zeros_like(t1))
+    prev = torch.minimum(prev, t1)
+    tile = below.sum(-1).clamp_(max=nb - 1)
+    ic_sel = ic[torch.arange(P, device=u.device)[:, None], tile]  # (P, n, 128)
+    off = (ic_sel < (t1 - prev)[..., None]).sum(-1).clamp_(max=_ROW_BLOCK - 1)
+    return tile * _ROW_BLOCK + off
+
+
+def _row_blocks(seed, rows, Lb, pair_offset):
+    """Stage 2a: each draw's column block by inverse CDF over its row's block
+    masses Lb[rows] (floored at _NEG_FLOOR), the shift-add prefix sum of
+    exp(Lb - max), at u * total with u = counter_uniform(seed_blk(seed), pair,
+    nb, draw, 0). rows (P, n); Lb (P, N, nb) -> (P, n) int64."""
+    P, n = rows.shape
+    nb = Lb.shape[-1]
+    dev = rows.device
+    Lb_sel = take_rows(torch.clamp(Lb, min=_NEG_FLOOR), rows)
+    cdf = _lane_cumsum(torch.exp(Lb_sel - Lb_sel.amax(-1, keepdim=True)))
+    u = counter_uniform(seed_blk(seed), _pair_ids(P, pair_offset, dev)[:, None], nb,
+                        torch.arange(n, device=dev)[None, :], 0)
+    target = (u.to(cdf.dtype) * cdf[..., -1])[..., None]
+    return (cdf < target).sum(-1).clamp_(max=nb - 1)
+
+
+def stitch_draws(seed, row_logits, u_rows, Lb, row_feat, col_feat, col_bias, pair_offset=0):
+    """Every draw of one tree level in one pass: rows by `_tile_rows`, the
+    column block by `_row_blocks`, the column inside it by
+    `within_block_cols`. seed an int32 scalar (or 0-d tensor); row_logits
+    (P, N) = row_bias + logsumexp(Lb, -1); u_rows (P, N); Lb (P, N, N / 128);
+    row_feat, col_feat (P, N, k); col_bias (P, N) -> (rows, cols), each (P, N)
+    int64. Pair 0 is not pinned (the caller's job). Computed in chunks of
+    pairs."""
+    P, N, k = row_feat.shape
+    step = max(1, _CHUNK // (N * _COL_BLOCK))
+    rows, cols = [], []
+    for p0 in range(0, P, step):
+        ps = slice(p0, min(p0 + step, P))
+        r = _tile_rows(row_logits[ps], u_rows[ps])
+        b = _row_blocks(seed, r, Lb[ps], pair_offset + p0)
+        rows.append(r)
+        cols.append(within_block_cols(seed, b, take_rows(row_feat[ps], r), col_feat[ps],
+                                      col_bias[ps], pair_offset + p0))
+    return torch.cat(rows), torch.cat(cols)

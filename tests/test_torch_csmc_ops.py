@@ -96,8 +96,16 @@ def test_schemes_from_a_generator_pin_index_zero():
         tres.get("stratified")
 
 
+def _dense(rf, cf, rb, cb):
+    """The pair scores rb_i + cb_j + rf_i . cf_j of a set of factors."""
+    return (np.asarray(rb)[..., :, None] + np.asarray(cb)[..., None, :]
+            + np.einsum("...ik,...jk->...ij", np.asarray(rf), np.asarray(cf)))
+
+
 @pytest.mark.parametrize("batch", [(), (3,)])
 def test_pair_factors_match_jax(batch):
+    """The port centres its factors (a shared shift of both sides), so they
+    are another gauge of JAX's: the dense scores must agree."""
     rng = np.random.default_rng(4)
     N, d = 6, 3
     mean_prev, x_next = rng.standard_normal((2,) + batch + (N, d))
@@ -110,8 +118,32 @@ def test_pair_factors_match_jax(batch):
         got = tfn(_t(mean_prev), _t(x_next), _t(p))
         jf = jax.vmap(jfn, in_axes=(0, 0, None)) if batch else jfn
         want = jf(mean_prev, x_next, p)
-        for g, w in zip(got, want):
-            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12, atol=1e-13)
-        rf, cf, rb, cb = (z.numpy() for z in got)
-        dense = rb[..., :, None] + cb[..., None, :] + np.einsum("...ik,...jk->...ij", rf, cf)
+        assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+        dense = _dense(*(g.numpy() for g in got))
         assert dense.shape == batch + (N, N)
+        np.testing.assert_allclose(dense, _dense(*want), rtol=1e-12, atol=1e-13)
+
+
+def test_centred_pair_factors_keep_float32_scores_at_cancelling_magnitudes():
+    """|x / sig| ~ 50 at d = 64 (the spatial model's shapes): the uncentred
+    factors (JAX's) carry terms of ~1e5 into scores of ~1e2 and lose ~1e-2 in
+    float32; the centred ones give the float64 scores within 1e-4."""
+    rng = np.random.default_rng(5)
+    N, d, sig = 25, 64, np.float32(0.3)
+    mean_prev = sig * (50.0 + rng.standard_normal((N, d)))
+    x_next = mean_prev + sig * rng.standard_normal((N, d))
+    want = _dense(*jbase.diag_gaussian_pair_factors(mean_prev, x_next, np.float64(sig)))
+    np.testing.assert_allclose(
+        _dense(*(z.numpy() for z in tbase.diag_gaussian_pair_factors(
+            _t(mean_prev), _t(x_next), np.float64(sig)))), want, rtol=1e-12, atol=1e-9)
+    m32, x32 = mean_prev.astype(np.float32), x_next.astype(np.float32)
+    s64 = _dense(*jbase.diag_gaussian_pair_factors(m32.astype(np.float64),
+                                                   x32.astype(np.float64), np.float64(sig)))
+    centred = _dense(*(z.numpy() for z in tbase.diag_gaussian_pair_factors(_t(m32), _t(x32),
+                                                                           sig)))
+    plain = _dense(*jbase.diag_gaussian_pair_factors(m32, x32, sig))
+    assert centred.dtype == plain.dtype == np.float32
+    assert np.abs(s64).max() > 50 and np.abs(s64).max() < 1e3
+    err = np.abs(centred - s64).max()
+    assert err <= 1e-4, err
+    assert np.abs(plain - s64).max() > 1e-3

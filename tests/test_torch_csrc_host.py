@@ -5,8 +5,9 @@ PyTorch versions in float64.
 Everything above each source's launch section is plain C++ on pointers, so
 the per-step maps, the scans' passes (dense and scalar), the four cSMC
 sweeps (the lane and block-lane sweeps with each of their model functors) and
-the three stitching kernels' rows (row_lse, col_sample, block_masses, with
-the counter hash) run here unchanged; only the launch itself needs nvcc and a
+the stitching kernels' rows and draws (row_lse, col_sample, block_masses,
+stitch_draws and within_block_cols, with the counter hash) run here
+unchanged; only the launch itself needs nvcc and a
 card. The sweeps' and the column draws' indices must be identical, the
 counter uniforms bit for bit. Tolerance: both sides compute the same
 algebra in float64 with different summation orders and solvers (substitution
@@ -280,6 +281,41 @@ void h_block_masses(int P, int nr, int nc, int k, int per_block_max, const doubl
     }
 }
 }
+// The draws, float and double: each node's row CDF, then its draws in turn.
+template <typename S>
+static void host_stitch_draws(int P, int N, int k, int seed, int pair_offset, const S* rl,
+                              const S* u, const S* Lb, const S* rf, const S* cf, const S* cb,
+                              long long* rows, long long* cols) {
+  static S ic[kMaxNb * kTileStride], cdf[kMaxNb], red[1];
+  for (int p = 0; p < P; ++p) {
+    node_row_cdf<S>(0, 1, N, rl + (long)p * N, ic, cdf, red);
+    for (int i = 0; i < N; ++i)
+      stitch_draw<S, kMaxK>(p, i, N, k, (uint32_t)seed, pair_offset, u, Lb, rf, cf, cb, ic, cdf,
+                            (int64_t*)rows, (int64_t*)cols);
+  }
+}
+template <typename S>
+static void host_within_block_cols(int P, int n, int nc, int k, int seed, int pair_offset,
+                                   const long long* blocks, const S* rf_sel, const S* cf,
+                                   const S* cb, long long* out) {
+  for (int p = 0; p < P; ++p)
+    for (int i = 0; i < n; ++i)
+      within_block_col<S, kMaxK>(p, i, n, nc, k, (uint32_t)seed, pair_offset,
+                                 (const int64_t*)blocks, rf_sel, cf, cb, (int64_t*)out);
+}
+#define HOST_DRAWS(SUFFIX, S)                                                                 \
+  extern "C" void h_stitch_draws_##SUFFIX(int P, int N, int k, int seed, int pair_offset,     \
+      const S* rl, const S* u, const S* Lb, const S* rf, const S* cf, const S* cb,            \
+      long long* rows, long long* cols) {                                                     \
+    host_stitch_draws<S>(P, N, k, seed, pair_offset, rl, u, Lb, rf, cf, cb, rows, cols);      \
+  }                                                                                           \
+  extern "C" void h_within_block_cols_##SUFFIX(int P, int n, int nc, int k, int seed,         \
+      int pair_offset, const long long* blocks, const S* rf_sel, const S* cf, const S* cb,    \
+      long long* out) {                                                                       \
+    host_within_block_cols<S>(P, n, nc, k, seed, pair_offset, blocks, rf_sel, cf, cb, out);   \
+  }
+HOST_DRAWS(f32, float)
+HOST_DRAWS(f64, double)
 """
 
 
@@ -605,3 +641,34 @@ def test_host_block_masses_match_plain(host_lib, P, n, N, k, per_block_max):
     want = ST.block_masses(rf, cf, cb, per_block_max)
     assert bool(torch.isinf(want[0, :, 1]).all()) != per_block_max
     _close(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_host_stitch_draws_and_within_block_cols_match_plain(host_lib, dtype):
+    """The draws' stages (the row CDF, each draw's row, block and column) in
+    both widths, -inf biases and block masses included: indices bit-equal to
+    the plain version's."""
+    P, N, k, offset = 2, 256, 3, 5
+    rng = np.random.default_rng(6)
+    rf, cf = (torch.as_tensor(0.4 * rng.standard_normal((P, N, k)), dtype=dtype)
+              for _ in range(2))
+    cb = torch.as_tensor(rng.standard_normal((P, N)), dtype=dtype)
+    cb[0, [3, 200]] = -float("inf")
+    Lb = ST.block_masses(rf, cf, cb)
+    Lb[1, 7, 0] = -float("inf")
+    rl = torch.as_tensor(rng.standard_normal((P, N)), dtype=dtype) + torch.logsumexp(Lb, -1)
+    u = torch.as_tensor(rng.uniform(size=(P, N)), dtype=dtype)
+    suffix = "f64" if dtype == torch.float64 else "f32"
+    rows, cols = (torch.full((P, N), -1, dtype=torch.int64) for _ in range(2))
+    _call(getattr(host_lib["stitching"], f"h_stitch_draws_{suffix}"), P, N, k, -7, offset, rl, u,
+          Lb, rf, cf, cb, rows, cols)
+    want_rows, want_cols = ST.stitch_draws(-7, rl, u, Lb, rf, cf, cb, offset)
+    np.testing.assert_array_equal(rows.numpy(), want_rows.numpy())
+    np.testing.assert_array_equal(cols.numpy(), want_cols.numpy())
+    blocks = torch.as_tensor(rng.integers(0, N // 128, (P, 100)))
+    rf_sel = rf[:, :100].contiguous()
+    got = torch.full((P, 100), -1, dtype=torch.int64)
+    _call(getattr(host_lib["stitching"], f"h_within_block_cols_{suffix}"), P, 100, N, k, 11,
+          offset, blocks, rf_sel, cf, cb, got)
+    np.testing.assert_array_equal(
+        got.numpy(), ST.within_block_cols(11, blocks, rf_sel, cf, cb, offset).numpy())

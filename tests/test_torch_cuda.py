@@ -521,6 +521,45 @@ def test_block_masses_match_plain(dev, P, n, N, k, per_block_max):
     _close((got[fin],), (want[fin],), rtol=2e-5, atol=2e-5)
 
 
+def _draws_inputs(P, N, k, seed, dtype=torch.float64):
+    """(row_logits, u_rows, Lb, rf, cf, cb) of one level's fused draws on the
+    CPU, with -inf column biases (past N = 128 one whole block of node 0) and
+    block masses."""
+    rf, cf, cb = _stitch_factors(P, N, N, k, seed=seed)
+    cb[:, [5, 77]] = -float("inf")
+    if N > 128:
+        cb[0, :128] = -float("inf")
+    Lb = K.stitching.block_masses(rf, cf, cb)
+    Lb[:, 3, -1] = -float("inf")
+    g = torch.Generator().manual_seed(seed + 1)
+    rl = torch.randn(P, N, generator=g, dtype=torch.float64) + torch.logsumexp(Lb, -1)
+    u = torch.rand(P, N, generator=g, dtype=torch.float64)
+    return tuple(z.to(dtype) for z in (rl, u, Lb, rf, cf, cb))
+
+
+@pytest.mark.parametrize("P,N,k", [(3, 256, 2), (2, 128, 1), (4, 1024, 9), (1, 8192, 40)])
+def test_stitch_draws_and_within_block_cols_match_plain(dev, P, N, k):
+    """The fused draws and the joint draws' column stage, on every feature
+    bound, nb = 1 and the widest N (f64: above 48 KB of shared memory):
+    float64 indices identical, float32 indices equal at >= 0.999 (the same
+    arithmetic; only exp and log may round otherwise)."""
+    ST = K.stitching
+    for dtype in (torch.float64, torch.float32):
+        draws = _draws_inputs(P, N, k, seed=N + k, dtype=dtype)
+        want, got = _both(ST.stitch_draws, (-3,) + draws + (7,), dev)
+        g = torch.Generator().manual_seed(k)
+        blocks = torch.randint(0, N // 128, (P, 300), generator=g)
+        rf_sel = torch.randn(P, 300, k, generator=g, dtype=torch.float64).to(dtype)
+        (want_c,), (got_c,) = _both(ST.within_block_cols, (11, blocks, rf_sel) + draws[4:] + (2,),
+                                    dev)
+        for w, g_ in zip(want + (want_c,), got + (got_c,)):
+            if dtype == torch.float64:
+                np.testing.assert_array_equal(g_.numpy(), w.numpy())
+            else:
+                assert float((g_ == w).double().mean()) >= 0.999
+        assert np.isfinite(draws[5].numpy()[np.arange(P)[:, None], got[1].numpy()]).all()
+
+
 def test_stitching_kernels_reject_what_they_do_not_take(dev):
     ST = K.stitching
     rf, cf, cb = (z.to(dev) for z in _stitch_factors(2, 8, 128, 65, seed=0))
@@ -528,32 +567,45 @@ def test_stitching_kernels_reject_what_they_do_not_take(dev):
         ST.row_lse(rf, cf, cb)
     with pytest.raises(TypeError, match="float32 or float64|must be"):
         ST.row_lse(rf[..., :4].contiguous(), cf[..., :4].float().contiguous(), cb)
+    draws = tuple(z.to(dev) for z in _draws_inputs(1, 128, 2, seed=0))
+    with pytest.raises(TypeError, match="must be"):
+        ST.stitch_draws(0, draws[0].float(), *draws[1:])
+    big = torch.zeros(1, 8320, 1, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="multiple of 128 up to"):
+        ST.within_block_cols(0, torch.zeros(1, 8320, dtype=torch.int64, device=dev), big, big,
+                             big[..., 0])
 
 
-@pytest.mark.parametrize("stitch,N", [("2pass", 25), ("blocked", 128)])
+@pytest.mark.parametrize("stitch,N", [("2pass", 25), ("blocked", 128), ("fused", 128)])
 @pytest.mark.parametrize("gradient", [False, True])
 @pytest.mark.parametrize("model", ["sv", "spatial", "rare_event"])
 def test_pit_step_matches_cpu(dev, model, gradient, stitch, N):
     """Two float64 PIT steps at T=37 on the card and on the CPU, given the
     same noise: identical `updated`, states to rtol 1e-9, and the card's
     steps launched the route's kernels (6 levels: the root's row_lse, and
-    row_lse + col_sample or block_masses at each of the other five)."""
+    row_lse + col_sample, block_masses + within_block_cols or, with the fused
+    draws, block_masses + stitch_draws at each of the other five)."""
     from aux_ssm_tpu_torch.kernels import csmc_independent as ind, pit
     from aux_ssm_tpu_torch.models import rare_event as rev, spatial as sp
     T = 37
+    route = stitch
+    stitch, draws = ("blocked", "fused") if route == "fused" else (route, "joint")
     g = torch.Generator().manual_seed(3)
     if model == "sv":
         xs, ys = sv.get_data(0.0, 0.9, 2.0, 0.25, 3, T, generator=g, device="cpu")
         build = lambda where: ind.get_kernel(*sv.get_feynman_kac(ys.to(where), 0.0, 0.9, 2.0, 0.25),
-                                             N, parallel=True, gradient=gradient, stitch=stitch)
+                                             N, parallel=True, gradient=gradient, stitch=stitch,
+                                             draws=draws)
     elif model == "spatial":
         xs, ys = sp.get_data(np.random.default_rng(3), 0.3, 1, -0.25, 4.0, 3, T, device="cpu")
         build = lambda where: ind.get_kernel(*sp.get_feynman_kac(ys.to(where), 0.3, 4.0, -0.25, 1, 3),
-                                             N, parallel=True, gradient=gradient, stitch=stitch)
+                                             N, parallel=True, gradient=gradient, stitch=stitch,
+                                             draws=draws)
     else:
         xs = 3.0 + torch.randn(T, 1, generator=g, dtype=torch.float64)
         build = lambda where: ind.get_kernel(*rev.get_feynman_kac(5.0, 0.8, 0.5, T, device=where),
-                                             N, parallel=True, gradient=gradient, stitch=stitch)
+                                             N, parallel=True, gradient=gradient, stitch=stitch,
+                                             draws=draws)
     d = xs.shape[1]
     delta = torch.full((T,), 0.02 if model == "spatial" else 0.2, dtype=torch.float64)
     noises = []
@@ -575,7 +627,9 @@ def test_pit_step_matches_cpu(dev, model, gradient, stitch, N):
     _close((xg,), (xc,))
     blocked = stitch == "blocked"
     want = {"row_lse": 2 * (1 if blocked else 6), "col_sample": 0 if blocked else 10,
-            "block_masses": 10 if blocked else 0}
+            "block_masses": 10 if blocked else 0,
+            "within_block_cols": 10 if route == "blocked" else 0,
+            "stitch_draws": 10 if route == "fused" else 0}
     assert {k: launched[k] for k in want} == want
 
 

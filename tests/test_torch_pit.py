@@ -4,16 +4,18 @@ the JAX package's, on the CPU.
 - `dc_map`: prefix sums and trees with integer leaves.
 - `run_stitch_tree`: the recorded selections and the root pair identical to
   JAX's given the noise JAX draws, on the two-pass route (N=25) and the
-  blocked route forced at N=128 (JAX: AUX_SSM_STITCH=blocked), odd and even
-  S, with fresh weights joining at later levels.
+  blocked route forced at N=128 (JAX: AUX_SSM_STITCH=blocked) with the joint
+  draws and with the fused draws (JAX: AUX_SSM_STITCH_DRAWS=fused; route
+  "fused" below), odd and even S, with fresh weights joining at later levels.
 - Whole `parallel=True` steps of the stochastic-volatility (D=3), spatial
   (3x3) and rare-event models, float64, given JAX's noise: picked indices and
   `updated` identical, trajectories to rtol 1e-9, both routes, gradient off
-  and on, T in {1, 2, 37, 64}; each step runs the stitching kernels' plain
-  versions as the dispatch says.
+  and on, T in {1, 2, 37, 64}; the fused draws for SV and rare-event at T in
+  {2, 37}; each step runs the stitching kernels' plain versions as the
+  dispatch says.
 - The invariance of the auxiliary target in law (the JAX package's
   `tests/test_pit.py` check, shorter): fused and generic stitching, with and
-  without Qt, blocked; and the odd-T tail weights.
+  without Qt, blocked with either draws; and the odd-T tail weights.
 """
 import jax
 import jax.numpy as jnp
@@ -37,7 +39,18 @@ from aux_ssm_tpu_torch.models import stochastic_volatility as tsv  # noqa: E402
 from aux_ssm_tpu_torch.ops import cuda as K  # noqa: E402
 
 f64 = jnp.float64
-ROUTES = {"2pass": 25, "blocked": 128}   # route -> N
+ROUTES = {"2pass": 25, "blocked": 128, "fused": 128}   # route -> N
+# route -> the port's (stitch, draws) and JAX's environment
+SETTINGS = {"2pass": ("2pass", "joint"), "blocked": ("blocked", "joint"),
+            "fused": ("blocked", "fused")}
+
+
+def _set_route(monkeypatch, route):
+    """JAX's environment for a route; returns the port's (stitch, draws)."""
+    stitch, draws = SETTINGS[route]
+    monkeypatch.setenv("AUX_SSM_STITCH", stitch)
+    monkeypatch.setenv("AUX_SSM_STITCH_DRAWS", draws)
+    return stitch, draws
 
 
 def _t(z):
@@ -125,11 +138,11 @@ def _sv_absorbed(ys):
     return jgt, jparams, tgt, tpit._shifted_params(tgt.params)
 
 
-@pytest.mark.parametrize("route", ["2pass", "blocked"])
+@pytest.mark.parametrize("route", ["2pass", "blocked", "fused"])
 @pytest.mark.parametrize("S", [5, 13])
 def test_run_stitch_tree_matches_jax_given_its_noise(monkeypatch, route, S):
     N, d = ROUTES[route], 3
-    monkeypatch.setenv("AUX_SSM_STITCH", route)
+    stitch, draws = _set_route(monkeypatch, route)
     rng = np.random.default_rng(S)
     _, ys = jsv.get_data(jax.random.key(S), 0.0, 0.9, 2.0, 0.25, d, S)
     xs = rng.standard_normal((S, N, d))
@@ -148,7 +161,7 @@ def test_run_stitch_tree_matches_jax_given_its_noise(monkeypatch, route, S):
     levels, root = jax_tree_noise(keys, S, N)
     K.reset_launches()
     tsels, troot = tpit.run_stitch_tree(_t(xs), _t(xs), _t(log_wts), levels + [root], tparams,
-                                        tgt, N, include_root=True, stitch=route)
+                                        tgt, N, include_root=True, stitch=stitch, draws=draws)
     assert K.launches()["row_lse"] == 0  # a CPU tensor runs the plain version
     assert len(tsels) == len(jsels)
     for (tl, tr, tn), (jl, jr), n_act in zip(tsels, jsels, tpit.level_sizes(S)):
@@ -166,7 +179,8 @@ def test_run_stitch_tree_matches_jax_given_its_noise(monkeypatch, route, S):
                                           jpit._root_init(jroot, S, N), S, N)))
 
 
-@pytest.mark.parametrize("fused,route", [(False, "2pass"), (True, "2pass"), (True, "blocked")])
+@pytest.mark.parametrize("fused,route", [(False, "2pass"), (True, "2pass"), (True, "blocked"),
+                                         (True, "fused")])
 @pytest.mark.parametrize("T", [5, 8])
 def test_dc_map_stitching_operators_pin_the_reference(fused, route, T):
     """dc_map with the stitching operators (generic, or factorised on either
@@ -185,7 +199,8 @@ def test_dc_map_stitching_operators_pin_the_reference(fused, route, T):
 
     def op(last):
         if fused:
-            return lambda a, b: tpit.fused_stitching_operator(a, b, tgt, N, last, route)
+            return lambda a, b: tpit.fused_stitching_operator(a, b, tgt, N, last,
+                                                              *SETTINGS[route])
         return lambda a, b: tpit.stitching_operator(a, b, tgt, N, last)
 
     (traj, log_w, orig), _, _ = tpit.dc_map(elems, op(False))
@@ -201,7 +216,7 @@ def test_dc_map_stitching_operators_pin_the_reference(fused, route, T):
 # Whole PIT steps of the three models
 # --------------------------------------------------------------------------
 
-def _models(model, T, N, gradient, stitch):
+def _models(model, T, N, gradient, stitch, draws="joint"):
     """(d, x0 (T, d) NumPy, JAX (init, kernel), port (init, kernel)) of one
     model's parallel csmc at T steps."""
     rng = np.random.default_rng(T)
@@ -211,34 +226,38 @@ def _models(model, T, N, gradient, stitch):
         jk = jsv.get_csmc_kernel(ys, *args, N, parallel=True, gradient=gradient)
         fk = tsv.get_feynman_kac(_t(ys), *args)
         return 3, np.asarray(xs), jk, tind.get_kernel(*fk, N, parallel=True, gradient=gradient,
-                                                      stitch=stitch)
+                                                      stitch=stitch, draws=draws)
     if model == "spatial":
         args = (0.3, 4.0, -0.25, 1, 3)
         xs, ys = jsp.get_data(np.random.default_rng(T), 0.3, 1, -0.25, 4.0, 3, T)
         jk = jsp.get_csmc_kernel(ys, *args, N, parallel=True, gradient=gradient)
         fk = tsp.get_feynman_kac(_t(ys), *args)
         x0 = np.asarray(xs) + 0.2 * rng.standard_normal(xs.shape)
-        return 9, x0, jk, tind.get_kernel(*fk, N, parallel=True, gradient=gradient, stitch=stitch)
+        return 9, x0, jk, tind.get_kernel(*fk, N, parallel=True, gradient=gradient, stitch=stitch,
+                                          draws=draws)
     y, rho, r2 = 5.0, 0.8, 0.5
     jk = jre.get_csmc_kernel(y, rho, r2, T, N, parallel=True, gradient=gradient)
     fk = tre.get_feynman_kac(y, rho, r2, T, device="cpu")
     x0 = 3.0 + rng.standard_normal((T, 1))
-    return 1, x0, jk, tind.get_kernel(*fk, N, parallel=True, gradient=gradient, stitch=stitch)
+    return 1, x0, jk, tind.get_kernel(*fk, N, parallel=True, gradient=gradient, stitch=stitch,
+                                      draws=draws)
 
 
 @pytest.mark.parametrize("gradient", [False, True])
-@pytest.mark.parametrize("route", ["2pass", "blocked"])
-@pytest.mark.parametrize("T", [1, 2, 37, 64])
-@pytest.mark.parametrize("model", ["sv", "spatial", "rare_event"])
+@pytest.mark.parametrize("model,T,route", [
+    (model, T, route) for model in ("sv", "spatial", "rare_event") for T in (1, 2, 37, 64)
+    for route in ("2pass", "blocked")] + [
+    (model, T, "fused") for model in ("sv", "rare_event") for T in (2, 37)])
 def test_pit_step_matches_jax_given_noise(monkeypatch, model, T, route, gradient):
     N = ROUTES[route]
-    monkeypatch.setenv("AUX_SSM_STITCH", route)
-    d, x0, (jinit, jkernel), (tinit, tkernel) = _models(model, T, N, gradient, route)
+    stitch, draws = _set_route(monkeypatch, route)
+    d, x0, (jinit, jkernel), (tinit, tkernel) = _models(model, T, N, gradient, stitch, draws)
     lo, hi = (0.005, 0.05) if model == "spatial" else (0.05, 0.4)
     delta = np.random.default_rng(T + 1).uniform(lo, hi, T)
     jstep = jax.jit(lambda k, s: jkernel(k, s, jnp.asarray(delta)))
     jstate, tstate = jinit(jnp.asarray(x0)), tinit(_t(x0))
-    calls = {"row_lse": 0, "col_sample": 0, "block_masses": 0}
+    calls = dict.fromkeys(("row_lse", "col_sample", "block_masses", "within_block_cols",
+                           "stitch_draws"), 0)
     for name in calls:  # count the wrappers' calls; they run their plain versions here
         fn = getattr(tpit.kernels, name)
 
@@ -255,10 +274,13 @@ def test_pit_step_matches_jax_given_noise(monkeypatch, model, T, route, gradient
         moved += int(np.asarray(jstate.updated).sum())
     assert moved > 0
     n_lev = len(tpit.level_sizes(T))
-    blocked = route == "blocked"
+    below = max(n_lev - 1, 0)  # the levels under the root
+    blocked = stitch == "blocked"
     want = {"row_lse": 2 * (n_lev if not blocked else min(n_lev, 1)),
-            "col_sample": 2 * (max(n_lev - 1, 0) if not blocked else 0),
-            "block_masses": 2 * (max(n_lev - 1, 0) if blocked else 0)}
+            "col_sample": 2 * (below if not blocked else 0),
+            "block_masses": 2 * (below if blocked else 0),
+            "within_block_cols": 2 * (below if route == "blocked" else 0),
+            "stitch_draws": 2 * (below if route == "fused" else 0)}
     assert calls == want
 
 
@@ -271,6 +293,11 @@ def test_pit_noise_drawn_from_a_generator_has_the_tree_layout():
     assert root[0].shape == root[1].shape == (1,)
     with pytest.raises(ValueError, match="stitch"):
         tpit.get_kernel(None, None, None, N, stitch="fused")
+    for draws in ("unfused", "blocked", ""):  # JAX's `unfused` mode is not ported
+        with pytest.raises(ValueError, match="draws"):
+            tpit.get_kernel(None, None, None, N, draws=draws)
+        with pytest.raises(ValueError, match="draws"):
+            tind.get_kernel(None, None, None, None, N, parallel=True, draws=draws)
 
 
 # --------------------------------------------------------------------------
@@ -325,19 +352,20 @@ def _smoother(ys):
 
 @pytest.mark.parametrize("with_qt,fused,route", [(False, False, "2pass"), (True, False, "2pass"),
                                                  (False, True, "2pass"), (True, True, "2pass"),
-                                                 (False, True, "blocked")])
+                                                 (False, True, "blocked"), (False, True, "fused")])
 def test_pit_csmc_invariance_in_law(with_qt, fused, route):
     """The auxiliary Gibbs chain (u refresh + PIT kernel) keeps the LGSSM
     smoothing posterior: chain means within 6 Monte-Carlo standard errors
     (30 iterations per independent sample, as the JAX package's test takes)
     and standard deviations within 20%."""
-    N = ROUTES[route] if route == "blocked" else 32
+    N = 32 if route == "2pass" else ROUTES[route]
     ys = np.random.default_rng(0).standard_normal((T_INV, 1)) * 0.5
     G0, Gt = _obs(_t(ys), prev_dependent=not fused)
     M0, Mt = _Prior(), _ARDynamics(params=torch.zeros(T_INV - 1, 0, dtype=torch.float64))
     assert getattr(tind.AbsorbedGt(trans=Mt, pot=Gt), "supports_pairwise_factors") == fused
+    stitch, draws = SETTINGS[route]
     init, kernel = tind.get_kernel(M0, G0, Mt, Gt, N, gradient=with_qt, parallel=True,
-                                   stitch=route)
+                                   stitch=stitch, draws=draws)
     gen = torch.Generator().manual_seed(1)
     state = init(torch.zeros(T_INV, 1, dtype=torch.float64))
     n_iter, out, upd = 3000, [], []

@@ -17,6 +17,9 @@
 - `blocked_col_sample`, `within_block_cols` (with its payload) and
   `joint_rowblock_draws` (with row features and payload) identical given the
   same uniforms.
+- `stitch_draws` (the fused draws) identical to `stitch_draws_xla` in float64
+  (pair offsets, -inf biases and block masses included) and to the Pallas
+  kernel in interpret mode in float32.
 - A block whose exponentials underflow gives -inf (or a mass at least 88
   log-units down, as the JAX package pins it), and -inf column biases
   neither poison the blocked draws nor get drawn.
@@ -47,6 +50,23 @@ def _factors(P, n, N, k, seed, dtype=np.float64, scale=1.0):
     return tuple(z.astype(dtype) for z in (scale * rng.standard_normal((P, n, k)),
                                             scale * rng.standard_normal((P, N, k)),
                                             rng.standard_normal((P, N))))
+
+
+def _draws_inputs(P, N, k, seed, dtype=np.float64, neg_inf=False):
+    """(row_logits, u_rows, Lb, rf, cf, cb) of one level's fused draws, as
+    tensors: row_logits = rb + logsumexp(Lb, -1). With `neg_inf`, -inf column
+    biases (one 128-block of node 0 entirely) and -inf block masses."""
+    rng = np.random.default_rng(seed)
+    rf, cf, cb = _factors(P, N, N, k, seed=seed, dtype=dtype, scale=0.3)
+    if neg_inf:
+        cb[:, [5, 77]] = -np.inf
+        cb[0, :128] = -np.inf
+    Lb = tst.block_masses(_t(rf), _t(cf), _t(cb))
+    if neg_inf:
+        Lb[:, 3, -1] = -float("inf")
+    rb = _t(rng.standard_normal((P, N)).astype(dtype))
+    u = _t(rng.uniform(size=(P, N)).astype(dtype))
+    return rb + torch.logsumexp(Lb, -1), u, Lb, _t(rf), _t(cf), _t(cb)
 
 
 def test_counter_uniform_bitwise_over_the_edge_grid():
@@ -220,14 +240,19 @@ def test_blocked_draws_match_jax_given_the_same_uniforms(dtype):
 
 
 def test_within_block_cols_in_pair_chunks(monkeypatch):
-    """Chunking the pairs (to bound memory) changes no draw."""
+    """Chunking the pairs (to bound memory) changes no draw, of
+    within_block_cols or of stitch_draws."""
     P, N, k = 5, 256, 1
     rf, cf, cb = _factors(P, N, N, k, seed=13)
     blocks = _t(np.random.default_rng(0).integers(0, 2, (P, N)))
     whole = tst.within_block_cols(3, blocks, _t(rf), _t(cf), _t(cb))
+    draws = _draws_inputs(P, N, k, seed=13)
+    fused = tst.stitch_draws(3, *draws, pair_offset=2)
     monkeypatch.setattr(tst, "_CHUNK", 2 * N * 128)
     np.testing.assert_array_equal(tst.within_block_cols(3, blocks, _t(rf), _t(cf), _t(cb)).numpy(),
                                   whole.numpy())
+    for a, b in zip(tst.stitch_draws(3, *draws, pair_offset=2), fused):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
     monkeypatch.setattr(tst, "_CHUNK", 3 * N)  # row chunks of the score passes
     np.testing.assert_allclose(tst.row_lse(_t(rf), _t(cf), _t(cb)).numpy(),
                                np.asarray(jst.row_lse_xla(rf, cf, cb)), rtol=1e-12)
@@ -269,9 +294,51 @@ def test_wrappers_run_plain_on_the_cpu_and_count_no_launch():
     KS.row_lse(rf, cf, cb)
     KS.col_sample(1, rf, cf, cb)
     KS.block_masses(rf, cf, cb)
-    assert {n: K.launches()[n] for n in ("row_lse", "col_sample", "block_masses")} == \
-        dict.fromkeys(("row_lse", "col_sample", "block_masses"), 0)
+    blocks = torch.zeros(2, 128, dtype=torch.int64)
+    np.testing.assert_array_equal(KS.within_block_cols(1, blocks, rf, cf, cb).numpy(),
+                                  tst.within_block_cols(1, blocks, rf, cf, cb).numpy())
+    draws = _draws_inputs(2, 128, 2, seed=2)
+    for a, b in zip(KS.stitch_draws(4, *draws, pair_offset=1),
+                    tst.stitch_draws(4, *draws, pair_offset=1)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    names = ("row_lse", "col_sample", "block_masses", "within_block_cols", "stitch_draws")
+    assert {n: K.launches()[n] for n in names} == dict.fromkeys(names, 0)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        KS.stitch_draws(4, *(z[:, :100] for z in draws[:2]), draws[2][:, :100],
+                        *(z[:, :100] for z in draws[3:]))
+    with pytest.raises(ValueError, match="do not match"):
+        KS.stitch_draws(4, draws[0], draws[1], draws[2][..., :0], *draws[3:])
     with pytest.raises(ValueError, match="multiple of 128"):
         KS.block_masses(rf[:, :, :], cf[:, :100], cb[:, :100])
     with pytest.raises(ValueError, match="do not match"):
         KS.row_lse(rf, cf[:, :, :1], cb)
+
+
+@pytest.mark.parametrize("P,N,k,offset,neg_inf", [
+    (2, 256, 2, 0, False), (2, 256, 2, 3, False), (1, 128, 1, 0, False), (1, 128, 1, 3, False),
+    (3, 512, 3, 0, False), (3, 512, 3, 3, False), (2, 256, 2, 3, True)])
+def test_stitch_draws_matches_xla_twin_f64(P, N, k, offset, neg_inf):
+    """The fused draws given the same seed and uniforms: rows and columns
+    identical to `stitch_draws_xla` (which takes its tile sums from a
+    float32-output matmul: a draw could flip only where a uniform falls
+    within 1e-7 of a CDF step, and none does here)."""
+    draws = _draws_inputs(P, N, k, seed=N + k + offset, neg_inf=neg_inf)
+    want = jst.stitch_draws_xla(jnp.int32(-77), *(jnp.asarray(z.numpy()) for z in draws),
+                                pair_offset=offset)
+    got = tst.stitch_draws(-77, *draws, pair_offset=offset)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    rows, cols = (g.numpy() for g in got)
+    assert len(np.unique(rows)) > 1 and len(np.unique(cols)) > 1
+    assert N == 128 or len(np.unique(cols // 128)) > 1  # more than one block drawn
+    if neg_inf:  # no dead column is drawn
+        assert np.isfinite(draws[-1].numpy()[np.arange(P)[:, None], cols]).all()
+
+
+def test_stitch_draws_matches_pallas_interpret_f32():
+    draws = _draws_inputs(2, 256, 2, seed=21, dtype=np.float32)
+    want = jst.stitch_draws(jnp.int32(1234), *(jnp.asarray(z.numpy()) for z in draws),
+                            pair_offset=3, interpret=True)
+    got = tst.stitch_draws(1234, *draws, pair_offset=3)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
