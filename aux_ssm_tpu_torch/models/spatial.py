@@ -21,6 +21,7 @@ is applied as a convolution stencil (`t_distribution`), or as the dense
 matrix in the (B, N)-block forms of the guided sweep. The gradient of the
 potential is its closed form (nu + B) P (y - x) / (nu + (y-x)^T P (y-x)).
 """
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,7 +33,7 @@ from ..kernels import csmc_aux, csmc_independent
 from ..kernels.csmc_base import (Distribution, Dynamics, Potential, UnivariatePotential,
                                  diag_gaussian_pair_factors, rows as _rows)
 from ..kernels.kalman import get_kernel as get_kalman_generic
-from ..native.precision import make_precision_dense, precision_stencil
+from ..native.precision import make_precision_dense, precision_rows, precision_stencil
 from ..ops.mvn import norm_logpdf
 from ..ops.resampling import choice_from_uniform
 
@@ -255,7 +256,8 @@ class _GuidedConsts:
     gradient: bool
     stencil: torch.Tensor
     prec: torch.Tensor      # dense (B, B) precision, for the (B, N)-block forms
-    packed: torch.Tensor    # [P^T, sigma_x, nu, gradient] for the CUDA functor
+    packed: torch.Tensor    # [sigma_x, nu, gradient, W, P's row lists] for the CUDA functor
+    ell_width: int          # W, the most nonzeros in a row of the precision
 
     def moments(self, x_pred, u, scale, y):
         """Mean and scale of the proposal: N(x_pred, sigma_x^2) combined with
@@ -361,11 +363,29 @@ class GuidedGt(Potential):
         out = out + norm_logpdf(x_next, u[..., None], scale[..., None, None]).sum(-2)
         return out - norm_logpdf(x_next, mu, lam).sum(-2)
 
+    @property
+    def ell_width(self):
+        """W of the functor's row lists of the precision (`cuda_operands`)."""
+        return self.c.ell_width
+
     def cuda_operands(self):
         """(constants, per-step rows) of the `spatial_guided` CUDA functor:
-        the packed constants and the (T-1, 2 B + 1) rows [u, y, scale]."""
+        the packed constants [sigma_x, nu, gradient, W, values (B, W),
+        columns (B, W)] (the precision's row lists) and the (T-1, 2 B + 7)
+        rows [u, y, scale, K, lam, scale^2 (nu + B), B (log 2 pi sigma_x^2
+        + log 2 pi scale^2 - log 2 pi lam^2), 1 / scale^2, 1 / lam^2]: the
+        step's constants, taken here once a step."""
         u, scale, y = self.params
-        return self.c.packed, torch.cat([u, y, scale[:, None]], 1)
+        c = self.c
+        B = c.d * c.d
+        s2, sc2 = c.sigma_x ** 2, scale * scale
+        K = s2 / (s2 + sc2)
+        lam = torch.sqrt(s2 * (1.0 - K))
+        lam2 = lam * lam
+        log_c = B * (math.log(2 * math.pi * s2) + torch.log(2 * math.pi * sc2)
+                     - torch.log(2 * math.pi * lam2))
+        step = torch.stack([scale, K, lam, sc2 * (c.nu + B), log_c, 1.0 / sc2, 1.0 / lam2], 1)
+        return c.packed, torch.cat([u, y, step], 1)
 
 
 def make_guided_factory(ys, sigma_x, nu, tau, r_y, d, gradient=False):
@@ -374,10 +394,12 @@ def make_guided_factory(ys, sigma_x, nu, tau, r_y, d, gradient=False):
     `Pt` for backward sampling."""
     _, _, Pt, _ = get_feynman_kac(ys, sigma_x, nu, tau, r_y, d)
     prec = make_precision_dense(tau, r_y, d)
-    packed = np.concatenate([prec.T.reshape(-1), [sigma_x, nu, float(gradient)]])
+    vals, cols = precision_rows(prec)
+    packed = np.concatenate([[sigma_x, nu, float(gradient), vals.shape[1]], vals.reshape(-1),
+                             cols.reshape(-1)])
     c = _GuidedConsts(sigma_x, nu, d, gradient, _stencil(tau, r_y, ys),
                       torch.as_tensor(prec, dtype=ys.dtype, device=ys.device),
-                      torch.as_tensor(packed, dtype=ys.dtype, device=ys.device))
+                      torch.as_tensor(packed, dtype=ys.dtype, device=ys.device), vals.shape[1])
 
     def factory(u, scale):
         params = (u[1:], scale[1:], ys[1:])

@@ -36,3 +36,22 @@ def precision_stencil(tau, r_y, dtype=np.float64):
     stencil = np.power(float(tau), D.astype(np.float64))
     stencil[D > r_y] = 0.0
     return stencil.astype(dtype)
+
+
+def precision_rows(dense):
+    """The row lists (ELL rows) of a square matrix: values (d, W) and column
+    indices (d, W), each row's nonzeros in ascending column order, padded
+    with zeros (at the row's own column) to the widest row W. Summed in
+    column order, a row's products give the dense row's sum bit for bit for
+    finite vectors: a zero product adds nothing."""
+    dense = np.asarray(dense)
+    d = dense.shape[0]
+    nz = dense != 0
+    width = max(1, int(nz.sum(1).max()))
+    vals = np.zeros((d, width), dtype=dense.dtype)
+    cols = np.repeat(np.arange(d)[:, None], width, 1)
+    for i in range(d):
+        (c,) = np.nonzero(nz[i])
+        vals[i, :len(c)] = dense[i, c]
+        cols[i, :len(c)] = c
+    return vals, cols

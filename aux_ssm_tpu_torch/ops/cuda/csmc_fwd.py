@@ -21,7 +21,7 @@ from .kalman_fused import _on_cuda
 
 MAX_N = 8192        # factor and lane kernels (the TPU kernels' _LANE_MAX_N)
 MAX_BLOCK_N = 1024  # block-lane kernel (the TPU kernel's dense cap)
-MAX_BLOCK_D = 64    # kMaxBlockD of csrc/csmc_block_lane.cu
+MAX_BLOCK_D = 64    # kMaxBlockD of csrc/csmc_models.cuh
 
 
 def _at(tree, t):
@@ -233,12 +233,13 @@ lane_scan.launches = 0
 # Block-lane forward sweep (block_lane_forward_scan)
 # --------------------------------------------------------------------------
 
-# cuda_model -> the sizes the wrapper checks before a launch: (d x d matrices,
-# d-vectors, scalars) of the constants, as kConstMats, kConstVecs and
-# kConstScalars of the functor in csrc/csmc_models.cuh size the kernel's shared
-# memory, then (d-vectors, scalars) of a per-step row, which the C++ states
-# nowhere but in the functor's own indexing.
-BLOCK_LANE_MODELS = {"sv_guided": (3, 2, 1, 6, 2), "spatial_guided": (1, 0, 3, 2, 1)}
+# cuda_model -> the sizes the wrapper checks before a launch: the constants'
+# (d x d matrices, d-vectors, d x W row lists, scalars), W being Gt's
+# `ell_width` (the widest row of a sparse matrix the functor reads as row
+# lists), then a per-step row's (d-vectors, scalars), which the C++ states
+# nowhere but in the functor's own indexing. The kernel sizes its shared
+# memory by the constants' count.
+BLOCK_LANE_MODELS = {"sv_guided": (3, 2, 0, 1, 6, 2), "spatial_guided": (0, 0, 2, 4, 2, 7)}
 
 
 def block_lane_scan_plain(propagate, logw, mt_params, gt_params, eps, res_u, x_star, x0, w0):
@@ -283,9 +284,10 @@ def block_lane_scan(Mt, Gt, eps, res_u, x_star, x0, w0):
     if not 1 <= d <= MAX_BLOCK_D:
         raise ValueError(f"block_lane_scan: the CUDA kernel takes d in 1..{MAX_BLOCK_D}, got {d}")
     consts, params = Gt.cuda_operands()
-    mats, vecs, scalars, row_vecs, row_scalars = BLOCK_LANE_MODELS[model]
+    mats, vecs, lists, scalars, row_vecs, row_scalars = BLOCK_LANE_MODELS[model]
+    width = getattr(Gt, "ell_width", 0)
     for t, shape in ((res_u, (n, N)), (x_star, (n, d)), (x0, (d, N)), (w0, (N,)),
-                     (consts, (mats * d * d + vecs * d + scalars,)),
+                     (consts, (mats * d * d + vecs * d + lists * d * width + scalars,)),
                      (params, (n, row_vecs * d + row_scalars))):
         _check_shape("block_lane_scan", t, shape)
     args = check_cuda_inputs("block_lane_scan", (eps, res_u, x_star, x0, w0, consts, params),
@@ -294,7 +296,8 @@ def block_lane_scan(Mt, Gt, eps, res_u, x_star, x0, w0):
     log_ws = eps.new_empty(n, N)
     ancestors = torch.empty(n, N, dtype=torch.int64, device=eps.device)
     if n:
-        launch(f"csmc_block_lane_{model}", eps.dtype, n, N, d, *args, xs, log_ws, ancestors)
+        launch(f"csmc_block_lane_{model}", eps.dtype, n, N, d, consts.numel(), *args, xs, log_ws,
+               ancestors)
         block_lane_scan.launches += 1
     return xs, log_ws, ancestors
 

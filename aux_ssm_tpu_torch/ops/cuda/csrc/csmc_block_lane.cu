@@ -11,24 +11,29 @@
 // propagated by the model with the step's noise, particle 0 pinned to x*_t,
 // the model's log weight, and the carry exp(lw - max) / sum.
 //
-// What bounds it: T-1 dependent steps; at the published SV width (d=30,
-// N=25) a step is three d x d mat-vecs per particle (~2.7k FMA) plus the
-// resampling collectives. One thread block runs the time loop and one warp
-// owns a particle's step (warps stride over the particles past 32): its
-// lanes own the state components, so a step costs ~3d dependent FMAs a lane
-// and a few warp and block barriers. (A first version with one thread per
-// particle spent ~53 us a step in that thread's 3 d^2 dependent FMAs.) The
-// model's constants (SV: 3 d x d matrices, 2 d-vectors; spatial: the d x d
-// precision), the weights and each warp's kScratch d-vectors of scratch live
-// in dynamic shared memory (SV 62 KB at d=30, N=1024 in f64; spatial 42 KB
-// at d=64, N=25 in f32, where a lane owns components l and l + 32 and a step
-// is one or two 64-long dots for each); the particle blocks stay in global
-// memory: x_prev is the previous step's output block (written by this block, visible after its
-// barrier, L2-resident at 120 KB for d=30, N=1024 f32). The TPU's one-hot
-// gather matmul and lane-broadcast (T-1, L, N) parameter blocks are not
-// carried over: a warp reads its ancestor's column directly and the per-step
-// parameters come as compact (T-1, row) arrays (row = 6 d + 2 for SV, 2 d + 1
-// for the spatial model).
+// What bounds it: T-1 dependent steps, each a few microseconds of latency
+// on one SM (spatial: T = 1024, d = 64, N = 25; SV: T = 250, d = 30, N = 25).
+// One thread block runs the time loop and one warp owns a particle's step
+// (warps stride over the particles past 32): its lanes own the state
+// components. The model's constants, the carry and each warp's scratch live
+// in shared memory. The design cuts what sits on a step's critical path:
+//  - staged (where it fits in shared memory with the rest: block_lane_staged):
+//    the particle blocks of alternate steps are double-buffered in shared
+//    memory, so a warp reads its ancestor's column there (xs is written to
+//    global memory as output only, after the step); and step t+1's
+//    operands (its eps block, parameter row, res_u row and x*_t) are copied
+//    into shared memory with cp.async while step t runs. Otherwise (large N)
+//    the particles stay in global memory: x_prev is the previous step's
+//    output block, written by this block and visible after its barriers;
+//  - N <= 32: one warp takes the carry's max, normalisation and prefix sums
+//    with shuffles (warp_weights), and each warp finds its ancestor with one
+//    ballot, so a step has two block barriers (operands and carry
+//    published; weights and particles published). N > 32 keeps the block
+//    collectives and the binary search of csmc_common.cuh.
+// The TPU's one-hot gather matmul and lane-broadcast (T-1, L, N) parameter
+// blocks are not carried over: a warp reads its ancestor's column directly
+// and the per-step parameters come as compact (T-1, row) arrays (row = 6 d
+// + 2 for SV, 2 d + 7 for the spatial model).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3, no fast math (the
 // weight needs nan_to_num's NaN/inf semantics and IEEE exp/log).
@@ -39,33 +44,106 @@ namespace {
 
 using namespace csmc;
 
-// scratch: Model::kScratch * d entries for each warp of the block.
+// The sweep's shared buffers, carved from one array (sweep_words long).
+// Staged: the particle blocks (d, N) of even and odd steps at x and x + d N;
+// a step's operands [eps (d N) | row | res_u (N) | x_star (d)] at ops and
+// ops + op_words (addressed by arithmetic, not by an array of two pointers,
+// so that they stay registers that point into shared memory).
+template <typename S>
+struct SweepBuffers {
+  S *w, *cw, *lw, *red, *scratch, *x, *ops;
+};
+
+// Words of a staged step's operands.
+AUX_HHD long op_words(int N, int d, int row) { return (long)d * N + row + N + d; }
+
+// Words of the sweep's buffers beside the constants.
+template <class Model>
+AUX_HHD long sweep_words(int N, int d, int nwarps, bool staged) {
+  const long base = 3L * N + 33 + (long)nwarps * Model::kScratch * d;
+  return staged ? base + 2L * d * N + 2 * op_words(N, d, Model::row_width(d)) : base;
+}
+
 template <typename S, class Model>
+AUX_HD SweepBuffers<S> carve(S* at, int N, int d, int nwarps, bool staged) {
+  SweepBuffers<S> sb;
+  sb.w = at;
+  sb.cw = at + N;
+  sb.lw = at + 2 * N;
+  sb.red = at + 3 * N;
+  sb.scratch = sb.red + 33;
+  S* p = sb.scratch + (long)nwarps * Model::kScratch * d;
+  sb.x = staged ? p : nullptr;
+  sb.ops = staged ? p + 2L * d * N : nullptr;
+  return sb;
+}
+
+// Whether the staged sweep's shared memory (constants and buffers, `elem`
+// bytes a word) fits in `limit` bytes.
+template <class Model>
+AUX_HHD bool block_lane_staged(int N, int d, int nconst, int nwarps, int elem, long limit) {
+  return (nconst + sweep_words<Model>(N, d, nwarps, true)) * elem <= limit;
+}
+
+template <typename S, class Model, bool kStaged, bool kWarpWeights>
 AUX_HD void block_lane_sweep(const Block<S>& b, int n, int N, int d, const S* eps,
-                             const S* res_u, const S* x_star, const S* x0, const S* w0,
-                             const Model& model, S* xs, S* log_ws, long long* anc, S* w,
-                             S* cw, S* scratch) {
+                             const S* params, const S* res_u, const S* x_star, const S* x0,
+                             const S* w0, const Model& model, S* xs, S* log_ws, long long* anc,
+                             const SweepBuffers<S>& sb) {
   const int lane = b.tid % AUX_LANES, warp = b.tid / AUX_LANES, nwarps = b.nt / AUX_LANES;
-  S* buf = scratch + (long)warp * Model::kScratch * d;
-  for (int j = b.tid; j < N; j += b.nt) w[j] = w0[j];
-  AUX_BSYNC();
+  const int rw = Model::row_width(d);
+  const long dN = (long)d * N, ow = op_words(N, d, rw);
+  S* buf = sb.scratch + (long)warp * Model::kScratch * d;
+  auto stage = [&](int t) {  // step t's operands into buffer t & 1
+    S* o = sb.ops + (t & 1) * ow;
+    copy_async(o, eps + t * dN, (int)dN, b.tid, b.nt);
+    copy_async(o + dN, params + (long)t * rw, rw, b.tid, b.nt);
+    copy_async(o + dN + rw, res_u + (long)t * N, N, b.tid, b.nt);
+    copy_async(o + dN + rw + N, x_star + (long)t * d, d, b.tid, b.nt);
+  };
+  if (kStaged) {
+    copy_async(sb.x + dN, x0, (int)dN, b.tid, b.nt);
+    stage(0);
+  }
+  if (kWarpWeights) {
+    if (warp == 0) warp_weights(lane, AUX_LANES, false, w0, sb.w, sb.cw, N);
+  } else {
+    for (int j = b.tid; j < N; j += b.nt) sb.w[j] = w0[j];
+  }
   for (int t = 0; t < n; ++t) {
-    const long base = (long)t * N, blk = (long)t * d * N;
-    const S* x_prev = t == 0 ? x0 : xs + blk - (long)d * N;
-    block_cumsum(b, w, cw, N);
+    if (kStaged) async_wait();
+    AUX_BSYNC();  // the step's operands, the carry and the previous particles are published
+    if (kStaged && t + 1 < n) stage(t + 1);  // into the buffer step t - 1 read
+    if (!kWarpWeights) block_cumsum(b, sb.w, sb.cw, N);
+    const S* o = kStaged ? sb.ops + (t & 1) * ow : nullptr;
+    const S* eps_t = kStaged ? o : eps + t * dN;
+    const S* row = kStaged ? o + dN : params + (long)t * rw;
+    const S* u_t = kStaged ? o + dN + rw : res_u + (long)t * N;
+    const S* star_t = kStaged ? o + dN + rw + N : x_star + (long)t * d;
+    const S* x_prev = kStaged ? sb.x + ((t + 1) & 1) * dN : t == 0 ? x0 : xs + (t - 1) * dN;
+    S* x_out = kStaged ? sb.x + (t & 1) * dN : xs + t * dN;
+    const typename Model::Step st = model.at(row);
     S m = neg_inf<S>();
     for (int j = warp; j < N; j += nwarps) {
-      const int a = j == 0 ? 0 : imin(count_less(cw, N, res_u[base + j]), N - 1);
-      const S lw = model.step(t, j, a, lane, AUX_LANES, x_prev, eps + blk,
-                              x_star + (long)t * d, xs + blk, buf);
+      const int below = kWarpWeights ? warp_count_less(sb.cw, N, u_t[j], lane)
+                                     : count_less(sb.cw, N, u_t[j]);
+      const int a = j == 0 ? 0 : imin(below, N - 1);
+      const S lw = model.step(st, j, a, lane, AUX_LANES, x_prev, eps_t, star_t, x_out, buf);
       if (lane == 0) {
-        log_ws[base + j] = lw;
-        anc[base + j] = a;
-        w[j] = lw;
+        log_ws[(long)t * N + j] = lw;
+        anc[(long)t * N + j] = a;
+        (kWarpWeights ? sb.lw : sb.w)[j] = lw;
       }
       m = fmax(m, lw);
     }
-    block_softmax(b, w, N, m);  // its barriers also publish xs[t] and w to every thread
+    if (kWarpWeights) {
+      AUX_BSYNC();  // every particle's weight, and the new particles, are published
+      if (warp == 0) warp_weights(lane, AUX_LANES, true, sb.lw, sb.w, sb.cw, N);
+    } else {
+      block_softmax(b, sb.w, N, m);  // its barriers also publish the new particles
+    }
+    if (kStaged)
+      for (long e = b.tid; e < dN; e += b.nt) xs[t * dN + e] = x_out[e];
   }
 }
 
@@ -80,54 +158,62 @@ AUX_HD void block_lane_sweep(const Block<S>& b, int n, int N, int d, const S* ep
 namespace {
 
 constexpr int kMaxBlockN = 1024;  // the TPU kernel's dense cap (_DENSE_MAX_N)
-constexpr int kMaxBlockD = 64;    // a lane owns components lane, lane + 32
 
 // Threads for N particles: a warp each, at most 32 warps.
 inline int block_lane_threads(int N) { return N < 32 ? 32 * N : 1024; }
 
-// Dynamic shared memory: the model's constants, w and cw (N each), 33
-// reduction partials, the warps' scratch.
-template <typename S, class Model>
-size_t block_lane_shmem(int N, int d) {
-  const size_t warps = block_lane_threads(N) / 32;
-  const size_t consts = Model::kConstMats * (size_t)d * d + Model::kConstVecs * d +
-                        Model::kConstScalars;
-  return (consts + 2 * (size_t)N + 33 + warps * Model::kScratch * d) * sizeof(S);
+// Dynamic shared memory: the model's nconst constants, then the buffers.
+template <typename S, class Model, bool kStaged, bool kWarpWeights>
+__global__ void __launch_bounds__(1024)
+block_lane_kernel(int n, int N, int d, int nconst, const S* eps, const S* res_u,
+                  const S* x_star, const S* x0, const S* w0, const S* consts, const S* params,
+                  S* xs, S* log_ws, long long* anc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  S* c = reinterpret_cast<S*>(smem);
+  for (int i = threadIdx.x; i < nconst; i += blockDim.x) c[i] = consts[i];
+  const SweepBuffers<S> sb = carve<S, Model>(c + nconst, N, d, blockDim.x / 32, kStaged);
+  __syncthreads();
+  const Model model(d, N, c);
+  block_lane_sweep<S, Model, kStaged, kWarpWeights>(
+      Block<S>{(int)threadIdx.x, (int)blockDim.x, sb.red}, n, N, d, eps, params, res_u, x_star,
+      x0, w0, model, xs, log_ws, anc, sb);
 }
 
 template <typename S, class Model>
-__global__ void __launch_bounds__(1024)
-block_lane_kernel(int n, int N, int d, const S* eps, const S* res_u, const S* x_star,
-                  const S* x0, const S* w0, const S* consts, const S* params, S* xs,
-                  S* log_ws, long long* anc) {
-  extern __shared__ unsigned char smem[];
-  const int nc = Model::kConstMats * d * d + Model::kConstVecs * d + Model::kConstScalars;
-  S* c = reinterpret_cast<S*>(smem);
-  S* w = c + nc;
-  S* cw = w + N;
-  S* red = cw + N;
-  S* scratch = red + 33;
-  for (int i = threadIdx.x; i < nc; i += blockDim.x) c[i] = consts[i];
-  __syncthreads();
-  const Model model(d, N, c, params);
-  block_lane_sweep<S>(Block<S>{(int)threadIdx.x, (int)blockDim.x, red}, n, N, d, eps, res_u,
-                      x_star, x0, w0, model, xs, log_ws, anc, w, cw, scratch);
+int run_block_lane(int n, int N, int d, int nconst, const S* eps, const S* res_u,
+                   const S* x_star, const S* x0, const S* w0, const S* consts, const S* params,
+                   S* xs, S* log_ws, long long* anc, cudaStream_t stream) {
+  if (n <= 0 || N < 1 || N > kMaxBlockN || d < 1 || d > kMaxBlockD || nconst < 1)
+    return (int)cudaErrorInvalidValue;
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = block_lane_threads(N), nwarps = threads / 32;
+  const bool staged = block_lane_staged<Model>(N, d, nconst, nwarps, sizeof(S), limit);
+  const size_t shmem = (nconst + sweep_words<Model>(N, d, nwarps, staged)) * sizeof(S);
+  void* args[] = {&n, &N, &d, &nconst, &eps, &res_u, &x_star, &x0, &w0, &consts, &params,
+                  &xs, &log_ws, &anc};
+  if (!staged)
+    return launch_one_block(block_lane_kernel<S, Model, false, false>, shmem, threads, stream,
+                            args);
+  if (N <= 32)
+    return launch_one_block(block_lane_kernel<S, Model, true, true>, shmem, threads, stream,
+                            args);
+  return launch_one_block(block_lane_kernel<S, Model, true, false>, shmem, threads, stream,
+                          args);
 }
 
 }  // namespace
 
-#define AUX_DEFINE_BLOCK_LANE(NAME, MODEL, SUFFIX, S)                                       \
-  extern "C" int aux_csmc_block_lane_##NAME##_##SUFFIX(                                     \
-      int n, int N, int d, const S* eps, const S* res_u, const S* x_star, const S* x0,      \
-      const S* w0, const S* consts, const S* params, S* xs, S* log_ws, long long* anc,      \
-      void* stream) {                                                                       \
-    if (n <= 0 || N < 1 || N > kMaxBlockN || d < 1 || d > kMaxBlockD)                       \
-      return (int)cudaErrorInvalidValue;                                                    \
-    void* args[] = {&n, &N, &d, &eps, &res_u, &x_star, &x0, &w0, &consts, &params, &xs,    \
-                    &log_ws, &anc};                                                         \
-    return launch_one_block(block_lane_kernel<S, MODEL<S>>,                                 \
-                            block_lane_shmem<S, MODEL<S>>(N, d), block_lane_threads(N),     \
-                            (cudaStream_t)stream, args);                                    \
+#define AUX_DEFINE_BLOCK_LANE(NAME, MODEL, SUFFIX, S)                                          \
+  extern "C" int aux_csmc_block_lane_##NAME##_##SUFFIX(                                        \
+      int n, int N, int d, int nconst, const S* eps, const S* res_u, const S* x_star,          \
+      const S* x0, const S* w0, const S* consts, const S* params, S* xs, S* log_ws,            \
+      long long* anc, void* stream) {                                                          \
+    return run_block_lane<S, MODEL<S>>(n, N, d, nconst, eps, res_u, x_star, x0, w0, consts,    \
+                                       params, xs, log_ws, anc, (cudaStream_t)stream);         \
   }
 
 AUX_DEFINE_BLOCK_LANE(sv_guided, SvGuided, f32, float)

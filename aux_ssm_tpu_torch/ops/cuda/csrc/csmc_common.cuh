@@ -16,6 +16,14 @@
 #ifndef AUX_HD
 #define AUX_HD __device__ __forceinline__
 #endif
+// Sizing helpers that the launchers call on the host as well.
+#ifndef AUX_HHD
+#ifdef __CUDACC__
+#define AUX_HHD __host__ __device__ inline
+#else
+#define AUX_HHD inline
+#endif
+#endif
 #ifndef AUX_BSYNC
 #define AUX_BSYNC() __syncthreads()
 #endif
@@ -115,12 +123,75 @@ __device__ S warp_sum(S v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
+
+// Max of v over the lanes of a warp; every lane gets the result.
+template <typename S>
+__device__ S warp_max(S v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// Inclusive prefix sum of v over the lanes of a warp (lane `lane`).
+template <typename S>
+__device__ S warp_scan(S v, int lane) {
+  for (int o = 1; o < 32; o <<= 1) {
+    const S y = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += y;
+  }
+  return v;
+}
+
+// v of the warp's last lane, on every lane.
+template <typename S>
+__device__ S warp_last(S v) { return __shfl_sync(kFull, v, 31); }
 #else
 template <bool kMax, typename S>
 AUX_HD S block_all(const Block<S>&, S v) { return v; }  // nt == 1
 template <typename S>
 AUX_HD S warp_sum(S v) { return v; }  // one lane
+template <typename S>
+AUX_HD S warp_max(S v) { return v; }
+template <typename S>
+AUX_HD S warp_scan(S v, int) { return v; }
+template <typename S>
+AUX_HD S warp_last(S v) { return v; }
 #endif
+
+// count_less for N <= 32 by the lanes of one warp together: one ballot on
+// the card (all 32 lanes call it), the binary search in the host build.
+template <typename S>
+AUX_HD int warp_count_less(const S* a, int N, S v, int lane) {
+#ifdef __CUDA_ARCH__
+  return __popc(__ballot_sync(kFull, lane < N && a[lane] < v));
+#else
+  (void)lane;
+  return count_less(a, N, v);
+#endif
+}
+
+// Copy n values from global `src` to shared `dst` without waiting (cp.async,
+// a value an instruction), thread t of nt; async_wait() waits for all of this
+// thread's copies, and a barrier after it publishes them. The host build
+// copies at once.
+template <typename S>
+AUX_HD void copy_async(S* dst, const S* src, int n, int t, int nt) {
+#ifdef __CUDA_ARCH__
+  for (int e = t; e < n; e += nt) {
+    const unsigned to = (unsigned)__cvta_generic_to_shared(dst + e);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(to), "l"(src + e),
+                 "n"(sizeof(S))
+                 : "memory");
+  }
+#else
+  for (int e = t; e < n; e += nt) dst[e] = src[e];
+#endif
+}
+
+AUX_HD void async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
 
 template <typename S>
 AUX_HD S block_max(const Block<S>& b, S v) { return block_all<true>(b, v); }
@@ -161,6 +232,42 @@ AUX_HD void block_cumsum(const Block<S>& b, const S* src, S* dst, int N) {
     for (int i = lo; i < hi; ++i) dst[i] += off;
   __syncthreads();
 #endif
+}
+
+// The carry on one warp (lane `lane` of `lanes`): w = exp(lw - max lw) / sum
+// and cw its inclusive prefix sums, both from one scan of the exponentials
+// e (cw = cumsum(e) / sum, the sum the scan's last entry); or, without
+// softmax, w = lw and cw = cumsum(lw). A lane owns a contiguous chunk of
+// ceil(N / lanes) entries: one entry for N <= 32 on the card, the sequential
+// loops in the host build (one lane).
+template <typename S>
+AUX_HD void warp_weights(int lane, int lanes, bool softmax, const S* lw, S* w, S* cw, int N) {
+  const int per = (N + lanes - 1) / lanes;
+  const int lo = imin(lane * per, N), hi = imin(lo + per, N);
+  S m = 0;
+  if (softmax) {
+    m = neg_inf<S>();
+    for (int i = lo; i < hi; ++i) m = fmax(m, lw[i]);
+    m = warp_max(m);
+  }
+  S run = 0;
+  for (int i = lo; i < hi; ++i) {
+    const S e = softmax ? exp(lw[i] - m) : lw[i];
+    w[i] = e;
+    run += e;
+    cw[i] = run;
+  }
+  const S inc = warp_scan(run, lane);
+  const S off = inc - run;
+  if (softmax) {
+    const S tot = warp_last(inc);
+    for (int i = lo; i < hi; ++i) {
+      w[i] = w[i] / tot;
+      cw[i] = (cw[i] + off) / tot;
+    }
+  } else if (off != (S)0) {
+    for (int i = lo; i < hi; ++i) cw[i] += off;
+  }
 }
 
 // w[0..N) = exp(lw - max lw) / sum, in place (lw given in w, per-particle

@@ -5,18 +5,19 @@
 // scalar-state lane sweep, csmc_lane.cu).
 //
 // A block-lane functor gives
-//   S step(int t, int j, int a, int lane, int lanes, const S* x_prev, const S* eps,
-//          const S* x_star, S* x_out, S* buf)
-// run by the `lanes` lanes of one warp together: it propagates particle j of
-// step t from column a of x_prev (d, N) with column j of eps (d, N), pins
-// particle 0 to x_star (d,), stores the particle in column j of x_out (d, N)
-// and returns its log weight on every lane. Lane l owns the state components
-// l, l + lanes, ...; buf is the warp's shared scratch of kScratch * d
-// entries. The lanes must not diverge around a call. It is built as
-// Model(d, N, consts, params) from its packed constants (kConstMats d x d
-// matrices, then kConstVecs d-vectors, then kConstScalars scalars; the sweep
-// keeps them in shared memory and sizes it by these three) and the compact
-// per-step rows, whose width only the functor knows (each names its row).
+//   Step at(const S* row) const      the step's constants, from its row of the
+//                                    compact per-step parameters (row_width(d)
+//                                    values, each functor names its row)
+//   S step(const Step& st, int j, int a, int lane, int lanes, const S* x_prev,
+//          const S* eps, const S* x_star, S* x_out, S* buf) const
+// run by the `lanes` lanes of one warp together: it propagates particle j
+// from column a of x_prev (d, N) with column j of eps (d, N), pins particle 0
+// to x_star (d,), stores the particle in column j of x_out (d, N) and returns
+// its log weight on every lane. Lane l owns the state components l, l +
+// lanes, ...; buf is the warp's shared scratch of kScratch * d entries. The
+// lanes must not diverge around a call. The pointers may be to shared or to
+// global memory. It is built as Model(d, N, consts) from its packed
+// constants, which the sweep keeps in shared memory.
 //
 // A lane functor is built from (consts, params): its kConsts constants and
 // the compact (n, kParams) per-step rows, and gives, on scalars, for step t
@@ -31,6 +32,8 @@
 #include "csmc_common.cuh"
 
 namespace csmc {
+
+constexpr int kMaxBlockD = 64;  // the widest state of the block-lane functors
 
 // log N(x; loc, scale^2) as jax.scipy.stats.norm.logpdf computes it.
 template <typename S>
@@ -59,22 +62,32 @@ struct SvGuided {
   int d, N;
   const S *FRT, *VQ, *VQT, *bR, *isl;
   S half_logdet_Q;
-  const S* params;
 
   static constexpr int kScratch = 3;  // d-vectors of a warp's scratch
-  static constexpr int kConstMats = 3, kConstVecs = 2, kConstScalars = 1;
+  AUX_HHD static int row_width(int d) { return 6 * d + 2; }
 
   // consts = [FRT, VQ, VQT (d*d each), bR, isl (d each), half_logdet_Q]
-  AUX_HD SvGuided(int d_, int N_, const S* c, const S* p)
+  AUX_HD SvGuided(int d_, int N_, const S* c)
       : d(d_), N(N_), FRT(c), VQ(c + d_ * d_), VQT(c + 2 * d_ * d_), bR(c + 3 * d_ * d_),
-        isl(c + 3 * d_ * d_ + d_), half_logdet_Q(c[3 * d_ * d_ + 2 * d_]), params(p) {}
+        isl(c + 3 * d_ * d_ + d_), half_logdet_Q(c[3 * d_ * d_ + 2 * d_]) {}
 
-  AUX_HD S step(int t, int j, int a, int lane, int lanes, const S* x_prev, const S* eps,
-                const S* x_star, S* x_out, S* buf) const {
-    const S* p = params + (long)t * (6 * d + 2);
+  // The row, and log(2 pi scale^2) and 1 / scale^2 of its scale.
+  struct Step {
+    const S* p;
+    S log_c, inv_s2;
+  };
+  AUX_HD Step at(const S* row) const {
+    const S scale = row[6 * d];
+    const S s2 = scale * scale;
+    return {row, log((S)6.283185307179586 * s2), (S)1 / s2};
+  }
+
+  AUX_HD S step(const Step& st, int j, int a, int lane, int lanes, const S* x_prev,
+                const S* eps, const S* x_star, S* x_out, S* buf) const {
+    const S* p = st.p;
     const S *u = p, *y = p + d, *rotS = p + 2 * d, *g = p + 3 * d, *sqrtL = p + 4 * d,
             *inv_sqrtL = p + 5 * d;
-    const S scale = p[6 * d], hld = p[6 * d + 1];
+    const S hld = p[6 * d + 1];
     S* v = buf;           // the ancestor x_prev[:, a], then the new particle x
     S* zp = buf + d;      // its prediction in the eigenbasis
     S* zn = buf + 2 * d;  // the proposal in the eigenbasis
@@ -101,7 +114,8 @@ struct SvGuided {
       const S zn_i = dot(VQT + i * d, v, d);
       const S wq = (zn_i - zp[i]) * isl[i];
       qq += wq * wq;
-      prop += norm_logpdf(x_i, u[i], scale);
+      const S z = x_i - u[i];
+      prop += (st.log_c + z * z * st.inv_s2) / (S)-2;
       const S zmu = zp[i] + g[i] * (rotS[i] - zp[i]);
       const S wl = (zn_i - zmu) * inv_sqrtL[i];
       ll += wl * wl;
@@ -132,90 +146,107 @@ struct SvGuided {
 //   logw       nan_to_num(-(nu + d) / 2 log1p(q(x) / nu))
 //              + sum_i log N(x_i; x_prev_i, sig_x) + sum_i log N(x_i; u_i, scale)
 //              - sum_i log N(x_i; mu_i, lam)
-// consts = [P^T (d*d, row-major: the dense precision, read by columns so that
-// the lanes of a warp read consecutive shared-memory words), sig_x, nu,
-// gradient (0 or 1)]; row t = [u (d), y (d), scale]. Each lane computes the
-// rows of the one or two d x d mat-vecs for the components it owns, from the
-// warp's vectors in `buf`.
+// consts = [sig_x, nu, gradient (0 or 1), W, then the precision P as row
+// lists: values (d, W), then column indices (d, W), each row's nonzeros in
+// ascending column order, padded with zeros to the widest row W
+// (native/precision.py precision_rows)]; row t = [u (d), y (d), scale, then
+// the step's constants K, lam, scale^2 (nu + d) (the gradient shift's
+// factor), d (log 2 pi sig_x^2 + log 2 pi scale^2 - log 2 pi lam^2) (the
+// three densities' log-normalisers), 1 / scale^2, 1 / lam^2], taken once a
+// step by the model (spatial.py GuidedGt.cuda_operands) rather than by
+// every thread at every step.
+// A row of P v is its W products summed in column order, which for finite v
+// is bit for bit the dense row (a zero product adds nothing): 5 products at
+// the published r_y = 1 instead of d = 64. A lane keeps its components of
+// x_prev, x and the mean in registers; only the vectors P is applied to go
+// through the warp's scratch.
 template <typename S>
 struct SpatialGuided {
-  int d, N;
-  const S* PT;
-  S sig_x, nu;
+  static constexpr int kPer = (kMaxBlockD + AUX_LANES - 1) / AUX_LANES;  // components a lane owns
+  static constexpr int kScratch = 1;
+  AUX_HHD static int row_width(int d) { return 2 * d + 7; }
+
+  int d, N, W;
+  S nu, inv_trans;  // 1 / sig_x^2
   bool gradient;
-  const S* params;
+  const S *vals, *cols;
 
-  static constexpr int kScratch = 4;
-  static constexpr int kConstMats = 1, kConstVecs = 0, kConstScalars = 3;
+  AUX_HD SpatialGuided(int d_, int N_, const S* c)
+      : d(d_), N(N_), W((int)c[3]), nu(c[1]), inv_trans((S)1 / (c[0] * c[0])),
+        gradient(c[2] != (S)0), vals(c + 4), cols(c + 4 + d_ * (int)c[3]) {}
 
-  AUX_HD SpatialGuided(int d_, int N_, const S* c, const S* p)
-      : d(d_), N(N_), PT(c), sig_x(c[d_ * d_]), nu(c[d_ * d_ + 1]),
-        gradient(c[d_ * d_ + 2] != (S)0), params(p) {}
-
-  // (P v)_i from P^T.
+  // (P v)_i from row i's list.
   AUX_HD S apply_row(int i, const S* v) const {
+    const S* pv = vals + i * W;
+    const S* pc = cols + i * W;
     S s = 0;
-    for (int k = 0; k < d; ++k) s += PT[k * d + i] * v[k];
+    for (int w = 0; w < W; ++w) s += pv[w] * v[(int)pc[w]];
     return s;
   }
 
-  AUX_HD S step(int t, int j, int a, int lane, int lanes, const S* x_prev, const S* eps,
-                const S* x_star, S* x_out, S* buf) const {
-    const S* p = params + (long)t * (2 * d + 1);
-    const S *u = p, *y = p + d;
-    const S scale = p[2 * d];
-    S* xa = buf;          // the ancestor x_prev[:, a]
-    S* df = buf + d;      // y - x_prev, then y - x
-    S* mu = buf + 2 * d;  // P (y - x_prev), then the proposal mean
-    S* xn = buf + 3 * d;  // the new particle
-    const S s2 = sig_x * sig_x, sc2 = scale * scale;
-    const S K = s2 / (s2 + sc2);
-    const S lam = sqrt(s2 * ((S)1 - K));
+  struct Step {
+    const S *u, *y;
+    S K, lam, g_scale, log_c, inv_prop, inv_ll;
+  };
+  AUX_HD Step at(const S* row) const {
+    const S* c = row + 2 * d + 1;
+    return {row, row + d, c[0], c[1], c[2], c[3], c[4], c[5]};
+  }
 
-    for (int i = lane; i < d; i += lanes) {
-      xa[i] = x_prev[(long)i * N + a];
-      df[i] = y[i] - xa[i];
+  AUX_HD S step(const Step& st, int j, int a, int lane, int lanes, const S* x_prev,
+                const S* eps, const S* x_star, S* x_out, S* buf) const {
+    S* df = buf;  // y - x_prev, then y - x: the vectors P is applied to
+    S xa[kPer], pv[kPer];
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = lane + r * lanes;
+      pv[r] = 0;
+      if (i < d) {
+        xa[r] = x_prev[(long)i * N + a];
+        df[i] = st.y[i] - xa[r];
+      }
     }
     AUX_WSYNC();
-    S q = 0;
+    S g = 0;
     if (gradient) {
-      for (int i = lane; i < d; i += lanes) {
-        mu[i] = apply_row(i, df);
-        q += df[i] * mu[i];
+      S q = 0;
+#pragma unroll
+      for (int r = 0; r < kPer; ++r) {
+        const int i = lane + r * lanes;
+        if (i < d) {
+          pv[r] = apply_row(i, df);
+          q += df[i] * pv[r];
+        }
       }
-      q = warp_sum(q);
+      g = st.g_scale / (nu + warp_sum(q));
       AUX_WSYNC();  // every lane is done with y - x_prev in df
     }
-    for (int i = lane; i < d; i += lanes) {
-      S u_i = u[i];
-      if (gradient) u_i = u_i + sc2 * (nu + (S)d) * mu[i] / (nu + q);
-      const S mu_i = xa[i] + K * (u_i - xa[i]);
-      const S x_i = j == 0 ? x_star[i] : mu_i + lam * eps[(long)i * N + j];
-      mu[i] = mu_i;
-      xn[i] = x_i;
-      df[i] = y[i] - x_i;
-      x_out[(long)i * N + j] = x_i;
+    S quad = 0;  // sum_i of the three densities' squared standardised residuals
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = lane + r * lanes;
+      if (i < d) {
+        const S u_i = st.u[i];
+        const S mu_i = xa[r] + st.K * ((gradient ? u_i + g * pv[r] : u_i) - xa[r]);
+        const S x_i = j == 0 ? x_star[i] : mu_i + st.lam * eps[(long)i * N + j];
+        x_out[(long)i * N + j] = x_i;
+        df[i] = st.y[i] - x_i;
+        const S z1 = x_i - xa[r], z2 = x_i - u_i, z3 = x_i - mu_i;
+        quad += z1 * z1 * inv_trans + z2 * z2 * st.inv_prop - z3 * z3 * st.inv_ll;
+      }
     }
     AUX_WSYNC();
-
-    S qq = 0, trans = 0, prop = 0, ll = 0;
-    for (int i = lane; i < d; i += lanes) {
-      qq += df[i] * apply_row(i, df);
-      trans += norm_logpdf(xn[i], xa[i], sig_x);
-      prop += norm_logpdf(xn[i], u[i], scale);
-      ll += norm_logpdf(xn[i], mu[i], lam);
+    S qq = 0;
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = lane + r * lanes;
+      if (i < d) qq += df[i] * apply_row(i, df);
     }
     qq = warp_sum(qq);
-    trans = warp_sum(trans);
-    prop = warp_sum(prop);
-    ll = warp_sum(ll);
+    quad = warp_sum(quad);
     AUX_WSYNC();  // buf is free for the warp's next particle
 
-    S out = nan_to_num(-(S)0.5 * (nu + (S)d) * log1p(qq / nu));
-    out += trans;
-    out += prop;
-    out -= ll;
-    return out;
+    return nan_to_num(-(S)0.5 * (nu + (S)d) * log1p(qq / nu)) - (S)0.5 * (st.log_c + quad);
   }
 };
 

@@ -106,7 +106,10 @@ launch each a tree level:
      draws, within_block_cols from one with the joint draws) and root
      (row_lse, P=1); the two draw kernels again at N=128 (one column
      block). row_lse and block_masses norm-relative, f32 also against the
-     f64 plain version; the index kernels f64 identical, f32 equal to the
+     f64 plain version, their -inf entries where the f64 plain version's
+     are; block_masses (the float32 exponentials on the SFU) also timed
+     against baddbmm + logsumexp and bounded by the SFU's rate; the index
+     kernels f64 identical, f32 equal to the
      f32 plain version's (col_sample >= COL_AGREE_F32, the draws >=
      AGREE_F32) and to the f64 plain version's at >= AGREE_F32;
  17. f64 PIT steps on the card against the CPU, given the same noise: SV
@@ -132,18 +135,22 @@ To make room, phase 3 runs 100 steps (200 before), phase 10 300 + 1000
 iterations (300 + 2000 before), phase 11 300 + 700 iterations a chain of
 the hardest cell, which is reported and not bounded (500 + 1500 before),
 and phase 19 at T=2 300 + 600 (300 + 1200 before). The whole
-takes 400-480 s with the build on an H100, as fast as the host is (300 s
-before the PIT phases, 150 s before the spatial ones).
+takes 250-480 s with the build on an H100, as fast as the host is (190-340
+s before the PIT phases, 80-150 s before the spatial ones).
 Each kernel's entry of the JSON summary carries its bound: the least time the
 card could take for the call, the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the 67
-TFLOP/s of float32 outside the tensor cores. No single PyTorch call computes
-any of these kernels' functions (`torch.cumsum` and `torch.cumprod` scan one
-array under + or *; the scalar scans combine tuples of two and five arrays,
-the filter's through a reciprocal; row_lse takes two, `torch.baddbmm` and
-`torch.logsumexp`, timed beside it as `two_call_ms`; the draws hash counters
-and take Gumbel argmaxes and inverse CDFs over gathered blocks, for which
-torch has no call), so `library_ms` is null throughout.
+TFLOP/s of float32 outside the tensor cores; block_masses' entry also
+carries `sfu_bound_ms`, its exponentials (one a score) over the SFU's 16 a
+clock on each SM at the card's top SM clock (nvidia-smi clocks.max.sm). No
+single PyTorch call computes any of these kernels' functions (`torch.cumsum`
+and `torch.cumprod` scan one array under + or *; the scalar scans combine
+tuples of two and five arrays, the filter's through a reciprocal; row_lse
+and block_masses take two, `torch.baddbmm` and `torch.logsumexp` (over each
+128-column block, in chunks of nodes), timed beside them as `two_call_ms`;
+the draws hash counters and take Gumbel argmaxes and inverse CDFs over
+gathered blocks, for which torch has no call), so `library_ms` is null
+throughout.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1399,12 +1406,14 @@ def phase_spatial_sweeps(dev):
                 label, seen[f32]["forward_factor_scan"], seen[f64]["forward_factor_scan"],
                 False, reps=10, vs_f64=True)
         else:
-            # A particle's step: the quadratic form's d x d mat-vec (and the
-            # gradient shift's) and ~40 elementwise operations a component.
+            # A particle's step: the quadratic form's product with P (and the
+            # gradient shift's), 2 operations a nonzero of P, and ~40
+            # elementwise operations a component.
             matvecs = 2 if style.endswith("-grad") else 1
+            nnz = int((seen[f32]["block_lane_scan"][1].c.prec != 0).sum())
             results["block_lane_scan"][style] = check_block_lane(
                 label, seen[f32]["block_lane_scan"], seen[f64]["block_lane_scan"], reps=10,
-                ops_per_particle=2 * matvecs * d * d + 40 * d)
+                ops_per_particle=2 * matvecs * nnz + 40 * d)
         if style != "csmc-guided-grad":  # its backward sweep has the guided style's shapes
             results["backward_factor_scan"][style] = check_backward_factor(
                 label, seen[f32]["backward_factor_scan"], seen[f64]["backward_factor_scan"],
@@ -1708,6 +1717,7 @@ STITCH_KERNELS = {  # wrapper name -> (source, the TPU kernel it replaces)
 INDEX_KERNELS = {"col_sample": 1, "within_block_cols": 2, "stitch_draws": 4}
 PIT_T, PIT_N, PIT_DELTA = 1024, 4096, 0.05  # benchmarks/csmc_speed.py:_pit, SV D=1 (config 5)
 COL_AGREE_F32 = 0.999   # f32 col_sample indices equal to the f32 plain version's
+TWO_CALL_BYTES = 2 ** 31  # the scores of one chunk of block_masses' two-call yardstick
 # The PIT chains at full width: (burn-in, samples, target); delta (T,) from 1e-2.
 PIT_SV_SCHEDULE = (50, 50, 0.5)
 PIT_SP_SCHEDULE = (50, 50, 0.25)
@@ -1835,16 +1845,51 @@ def check_stitch(name, label, args, reps, two_call=False):
     tensors = [z for z in args if isinstance(z, torch.Tensor)]
     result.update(bound(tensors + list(got), 0, ops))
     if two_call:
-        # Two PyTorch calls of the same function (a reference point only):
-        # the (P, n, N) scores by baddbmm, then logsumexp.
+        # Two PyTorch calls of the same function (a reference point only;
+        # the port never calls them): the (P, n, N) scores by baddbmm, then
+        # logsumexp (block_masses: over each 128-column block, in chunks of
+        # nodes whose scores take at most TWO_CALL_BYTES).
         rf, cf, cb = args[:3]
-        result["two_call_ms"] = cuda_ms(lambda: torch.logsumexp(
-            torch.baddbmm(cb[:, None, :], rf, cf.transpose(1, 2)), -1), reps)
+        if name == "block_masses":
+            result["two_call_ms"] = cuda_ms(lambda: two_call_masses(rf, cf, cb), reps)
+        else:
+            result["two_call_ms"] = cuda_ms(lambda: torch.logsumexp(
+                torch.baddbmm(cb[:, None, :], rf, cf.transpose(1, 2)), -1), reps)
+    if name == "block_masses":
+        # Every score takes one exponential, which issues on the SFU: 16 a
+        # clock on each SM of sm_90, at the card's top SM clock.
+        P, n = got[0].shape[:2]
+        rate = torch.cuda.get_device_properties(0).multi_processor_count * 16 * sm_clock_hz()
+        result["sfu_bound_ms"] = 1e3 * P * n * args[1].shape[1] / rate
     log(f"  {name}[{label}]: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms"
         + (f", baddbmm + logsumexp {result['two_call_ms']:.4f} ms" if two_call else "")
         + f", bound {result['bound_ms']:.5f} ms by {result['bound_by']} ({result['bytes']} B, "
-        f"{result['operations']} operations)")
+        f"{result['operations']} operations)"
+        + (f", SFU bound {result['sfu_bound_ms']:.5f} ms" if "sfu_bound_ms" in result else ""))
     return result
+
+
+def two_call_masses(rf, cf, cb):
+    """block_masses (row-max stabiliser aside) by two PyTorch calls a chunk of
+    nodes: baddbmm for the scores, logsumexp over each 128-column block."""
+    import torch
+    P, n, _ = rf.shape
+    N = cf.shape[1]
+    out = rf.new_empty(P, n, N // 128)
+    step = max(1, TWO_CALL_BYTES // (n * N * rf.element_size()))
+    for p in range(0, P, step):
+        sl = slice(p, p + step)
+        s = torch.baddbmm(cb[sl, None, :], rf[sl], cf[sl].transpose(1, 2))
+        out[sl] = torch.logsumexp(s.view(s.shape[0], n, N // 128, 128), -1)
+    return out
+
+
+def sm_clock_hz():
+    """The card's top SM clock, from nvidia-smi (clocks.max.sm, MHz)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True)
+    return 1e6 * float(smi.stdout.strip().splitlines()[0])
 
 
 def pit_step_inputs(init, kernel, x0, delta, seed):
@@ -1904,7 +1949,8 @@ def phase_stitch_kernels(dev):
     results = {
         "row_lse": check_stitch("row_lse", sv0, sv_in["row_lse"][0], 50, two_call=True),
         "col_sample": check_stitch("col_sample", sv0, sv_in["col_sample"][0], 50),
-        "block_masses": check_stitch("block_masses", big0, big_in["block_masses"][0], 5),
+        "block_masses": check_stitch("block_masses", big0, big_in["block_masses"][0], 5,
+                                     two_call=True),
         "stitch_draws": check_stitch("stitch_draws", big0, big[PIT_N, "fused"]["stitch_draws"][0],
                                      5),
         "within_block_cols": check_stitch("within_block_cols", big0,

@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""Times the block_masses and block-lane sweep kernels of one checkout of the
+port on a CUDA card, at the main paths' shapes, and profiles the steps that
+run them.
+
+    python3 kernel_times.py                 # the checkout this file is in
+    python3 kernel_times.py --root DIR      # the checkout unpacked at DIR
+    python3 kernel_times.py --parts masses  # some of: masses, lane, steps
+
+To compare two checkouts, unpack the other into a directory that .gitignore
+lists and run both in one machine in turns (A, B, B, A): times on one card
+only compare within one call. The inputs are those `chip_smoke.py` of the
+timed checkout hands the kernels (its helpers are imported from DIR), from
+the same seeds:
+  - block_masses at the level 0 of an N=4096 PIT step (SV D=1, T=1024, P=512,
+    k=1, f32), both stabilisers, and the sum over the step's 9 levels;
+  - block_lane_scan on a real step's inputs: SV csmc-guided at T=250, D=30,
+    N=25 and N=1024, spatial csmc-guided at T=1024, d=64, N=25 with the
+    gradient shift off and on;
+  - torch.profiler over steps of the N=4096 PIT sampler (joint and fused
+    draws) and of spatial csmc-guided (gradient off and on): ms a step, the
+    device's busy ms and the named kernel's device ms a step.
+Kernel times are CUDA events around the wrapper's call. The build log's
+registers and spills of both kernels' template instances are printed. The
+last line is one JSON object of every number.
+"""
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def profile(step, n, name):
+    """(wall ms, busy ms, ms of kernels whose name holds `name`) a call of
+    step(), over n calls after one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    step()
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - tic) / n
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    named = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / n
+    return {"step_ms": wall, "busy_ms": busy, f"{name}_ms": named}
+
+
+def ptxas_lines(build_dir, names):
+    """Registers and spills of each kernel entry whose name holds one of
+    `names`, from the build's ptxas log."""
+    out, entry = [], None
+    for line in (Path(build_dir) / "ptxas.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and any(n in entry for n in names) and ("Used" in line or "spill" in line):
+            out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
+    parser.add_argument("--parts", default="masses,lane,steps")
+    opts = parser.parse_args()
+    root, parts = str(Path(opts.root).resolve()), opts.parts.split(",")
+    sys.path.insert(0, root)
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA card", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF
+    from aux_ssm_tpu_torch.ops.cuda import stitching as KS
+    from aux_ssm_tpu_torch.ops.cuda._build import LIBRARY
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    LIBRARY.get()
+    print(f"root {root}: built in {LIBRARY.build_seconds:.1f} s", flush=True)
+    for line in ptxas_lines(LIBRARY.build_dir, ("block_masses_kernel", "block_lane_kernel")):
+        print("  ptxas", line)
+    dev, f32 = torch.device("cuda"), torch.float32
+    res = {"root": root, "card": card}
+
+    bxs, bys = cs.pit_big_data(dev, f32)
+    delta = torch.full((cs.PIT_T,), cs.PIT_DELTA, dtype=f32, device=dev)
+    if "masses" in parts:
+        masses(cs, KS, res, bxs, bys, delta)
+    xs, ys = cs.spatial_data(dev, f32)
+    sp_delta = torch.full((cs.SP_T,), cs.SP_DELTA0, dtype=f32, device=dev)
+    if "lane" in parts:
+        lanes(cs, CF, res, dev, xs, ys, sp_delta)
+    if "steps" in parts:
+        steps(cs, res, dev, bxs, bys, delta, xs, ys, sp_delta)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def masses(cs, KS, res, bxs, bys, delta):
+    """block_masses on an N=4096 step's levels."""
+    seen = cs.pit_step_inputs(*cs.sv_pit_kernel(bys, cs.PIT_N, stitch="blocked"), bxs, delta,
+                              seed=16)["block_masses"]
+    level0 = seen[0]
+    res["block_masses_level0_ms"] = cs.cuda_ms(lambda: KS.block_masses(*level0), 10)
+    res["block_masses_level0_per_block_ms"] = cs.cuda_ms(
+        lambda: KS.block_masses(*level0, True), 10)
+    res["block_masses_levels_ms"] = [cs.cuda_ms(lambda a=a: KS.block_masses(*a), 5) for a in seen]
+    res["block_masses_step_ms"] = sum(res["block_masses_levels_ms"])
+    res["block_masses_shapes"] = [list(a[0].shape) for a in seen]
+    print(f"  block_masses level 0 {res['block_masses_level0_ms']:.4f} ms (per-block max "
+          f"{res['block_masses_level0_per_block_ms']:.4f}), the step's {len(seen)} levels "
+          f"{res['block_masses_step_ms']:.4f} ms", flush=True)
+
+
+def lanes(cs, CF, res, dev, xs, ys, sp_delta):
+    """The block-lane sweep on real steps' inputs."""
+    import torch
+    f32 = torch.float32
+    for label, N_, reps in (("sv_N25", cs.SV_N, 20), ("sv_N1024", 1024, 3)):
+        args = cs.sv_sweep_inputs(dev, f32, "csmc-guided", N_, seed=4)["block_lane_scan"]
+        res[f"block_lane_{label}_ms"] = cs.cuda_ms(lambda: CF.block_lane_scan(*args), reps)
+    for style in ("csmc-guided", "csmc-guided-grad"):
+        init, kernel = cs.spatial_kernel(style, ys, cs.SP_D, cs.SP_N)
+        with cs.recording_sweeps() as rec:
+            kernel(init(xs), sp_delta, generator=torch.Generator(device=dev).manual_seed(13))
+        args = rec["block_lane_scan"]
+        res[f"block_lane_spatial_{style}_ms"] = cs.cuda_ms(lambda: CF.block_lane_scan(*args), 10)
+    print("  block_lane " + ", ".join(f"{k[11:-3]} {v:.4f} ms" for k, v in res.items()
+                                      if k.startswith("block_lane_")), flush=True)
+
+
+def steps(cs, res, dev, bxs, bys, delta, xs, ys, sp_delta):
+    """Steps of the N=4096 PIT sampler and of spatial csmc-guided under the
+    profiler."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for draws in ("joint", "fused"):
+        init, kernel = cs.sv_pit_kernel(bys, cs.PIT_N, draws=draws)
+        box = [init(bxs)]
+        res[f"pit_N4096_{draws}"] = profile(
+            lambda: box.__setitem__(0, kernel(box[0], delta, generator=gen)), 5, "block_masses")
+    for style in ("csmc-guided", "csmc-guided-grad"):
+        init, kernel = cs.spatial_kernel(style, ys, cs.SP_D, cs.SP_N)
+        box = [init(xs)]
+        res[f"spatial_{style}"] = profile(
+            lambda: box.__setitem__(0, kernel(box[0], sp_delta, generator=gen)), 10,
+            "block_lane")
+    for key in ("pit_N4096_joint", "pit_N4096_fused", "spatial_csmc-guided",
+                "spatial_csmc-guided-grad"):
+        print(f"  profile {key}: " + ", ".join(f"{k} {v:.3f}" for k, v in res[key].items()),
+              flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -147,25 +147,49 @@ void h_backward_factor(int n, int N, int k, const double* rf, const double* cf,
 
 _CSMC_BLOCK = """
 #include "csmc_block_lane.cu"
+// The sweep on each of its paths (path 0: particles in global memory and the
+// block collectives; 1: staged, block collectives; 2: staged, the one-warp
+// carry), one thread; `smem` holds sweep_words for the path.
 template <class Model>
-static void host_block_lane(int n, int N, int d, const double* eps, const double* res_u,
-    const double* x_star, const double* x0, const double* w0, const double* consts,
-    const double* params, double* xs, double* log_ws, long long* anc, double* w, double* cw) {
-  double red[33], scratch[Model::kScratch * 64];
-  const Model model(d, N, consts, params);
-  block_lane_sweep<double>(csmc::Block<double>{0, 1, red}, n, N, d, eps, res_u, x_star, x0,
-                           w0, model, xs, log_ws, anc, w, cw, scratch);
+static void host_block_lane(int path, int n, int N, int d, const double* eps,
+    const double* res_u, const double* x_star, const double* x0, const double* w0,
+    const double* consts, const double* params, double* xs, double* log_ws, long long* anc,
+    double* smem) {
+  const Model model(d, N, consts);
+  const SweepBuffers<double> sb = carve<double, Model>(smem, N, d, 1, path > 0);
+  const csmc::Block<double> b{0, 1, sb.red};
+  if (path == 0)
+    block_lane_sweep<double, Model, false, false>(b, n, N, d, eps, params, res_u, x_star, x0, w0,
+                                                  model, xs, log_ws, anc, sb);
+  else if (path == 1)
+    block_lane_sweep<double, Model, true, false>(b, n, N, d, eps, params, res_u, x_star, x0, w0,
+                                                 model, xs, log_ws, anc, sb);
+  else
+    block_lane_sweep<double, Model, true, true>(b, n, N, d, eps, params, res_u, x_star, x0, w0,
+                                                model, xs, log_ws, anc, sb);
 }
 #define HOST_BLOCK_LANE(NAME, MODEL)                                                         \
-  extern "C" void h_block_lane_##NAME(int n, int N, int d, const double* eps,                \
+  extern "C" void h_block_lane_##NAME(int path, int n, int N, int d, const double* eps,      \
       const double* res_u, const double* x_star, const double* x0, const double* w0,         \
       const double* consts, const double* params, double* xs, double* log_ws,                \
-      long long* anc, double* w, double* cw) {                                               \
-    host_block_lane<csmc::MODEL<double>>(n, N, d, eps, res_u, x_star, x0, w0, consts,        \
-                                         params, xs, log_ws, anc, w, cw);                    \
+      long long* anc, double* smem) {                                                        \
+    host_block_lane<csmc::MODEL<double>>(path, n, N, d, eps, res_u, x_star, x0, w0, consts,  \
+                                         params, xs, log_ws, anc, smem);                     \
+  }                                                                                          \
+  extern "C" long h_block_lane_words_##NAME(int N, int d, int nwarps, int staged) {          \
+    return sweep_words<csmc::MODEL<double>>(N, d, nwarps, staged != 0);                       \
+  }                                                                                          \
+  extern "C" int h_block_lane_staged_##NAME(int N, int d, int nconst, int nwarps, int elem,  \
+                                            long limit) {                                    \
+    return block_lane_staged<csmc::MODEL<double>>(N, d, nconst, nwarps, elem, limit);         \
   }
 HOST_BLOCK_LANE(sv_guided, SvGuided)
 HOST_BLOCK_LANE(spatial_guided, SpatialGuided)
+// P v through SpatialGuided's row lists, row by row.
+extern "C" void h_spatial_apply(int d, const double* consts, const double* v, double* out) {
+  const csmc::SpatialGuided<double> model(d, 1, consts);
+  for (int i = 0; i < d; ++i) out[i] = model.apply_row(i, v);
+}
 """
 
 _SCALAR_SCAN = """
@@ -269,18 +293,42 @@ void h_col_sample(int P, int n, int nc, int k, int seed, int pair_offset, const 
       col_sample_row<double, kMaxK>(0, 1, p, i, n, nc, k, (uint32_t)seed, pair_offset, rf, cf, cb,
                                     (int64_t*)out, tile);
 }
-void h_block_masses(int P, int nr, int nc, int k, int per_block_max, const double* rf,
-                    const double* cf, const double* cb, double* out) {
-  static Tile<double, kMaxK> tile;
-  for (int p = 0; p < P; ++p)
-    for (int i = 0; i < nr; ++i) {
-      if (per_block_max)
-        block_masses_row<double, kMaxK, true>(0, 1, p, i, nr, nc, k, rf, cf, cb, out, tile);
-      else
-        block_masses_row<double, kMaxK, false>(0, 1, p, i, nr, nc, k, rf, cf, cb, out, tile);
-    }
+void h_mass_plan(int P, int nr, int nc, int k, int elem_bytes, int sms, int* out) {
+  const MassPlan plan = mass_plan(P, nr, nc, k, elem_bytes, sms);
+  out[0] = plan.R;
+  out[1] = plan.whole;
 }
 }
+// block_masses through the kernel's own width and row dispatch: rows in
+// groups of R (the last one ragged), one "thread" of one; `cols` holds the
+// whole node's column records or one block's. used[0] = the R that ran.
+template <typename S>
+static void host_block_masses(int P, int nr, int nc, int k, int per_block_max, int R, int whole,
+                              const S* rf, const S* cf, const S* cb, S* out, S* cols, int* used) {
+  with_width(k, [&](auto Kc) {
+    constexpr int K = decltype(Kc)::value;
+    with_rows<K>(R, [&](auto Rc) {
+      constexpr int RR = decltype(Rc)::value;
+      used[0] = RR;
+      for (int p = 0; p < P; ++p)
+        for (int row0 = 0; row0 < nr; row0 += RR) {
+          if (per_block_max)
+            block_masses_rows<S, K, RR, true>(0, 1, p, row0, nr, nc, k, whole != 0, rf, cf, cb,
+                                              out, cols);
+          else
+            block_masses_rows<S, K, RR, false>(0, 1, p, row0, nr, nc, k, whole != 0, rf, cf, cb,
+                                               out, cols);
+        }
+    });
+  });
+}
+#define HOST_MASSES(SUFFIX, S)                                                                \
+  extern "C" void h_block_masses_##SUFFIX(int P, int nr, int nc, int k, int per_block_max,   \
+      int R, int whole, const S* rf, const S* cf, const S* cb, S* out, S* cols, int* used) {  \
+    host_block_masses<S>(P, nr, nc, k, per_block_max, R, whole, rf, cf, cb, out, cols, used); \
+  }
+HOST_MASSES(f32, float)
+HOST_MASSES(f64, double)
 // The draws, float and double: each node's row CDF, then its draws in turn.
 template <typename S>
 static void host_stitch_draws(int P, int N, int k, int seed, int pair_offset, const S* rl,
@@ -463,6 +511,26 @@ def test_host_backward_factor_matches_plain(host_lib, n, N, k):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
+def _host_block_lane_paths(host_lib, model, n, N, d, eps, res_u, x_star, x0, w0, consts, params,
+                           want):
+    """The host build of the block-lane sweep on each of its three paths
+    (particles in global memory; staged with the block collectives; staged
+    with the one-warp carry) against the plain version `want`: identical
+    ancestors, values to rtol 1e-9."""
+    lib = host_lib["csmc_block"]
+    words = getattr(lib, f"h_block_lane_words_{model}")
+    words.restype = ctypes.c_long
+    for path in (0, 1, 2):
+        xs, lw = torch.empty(n, d, N, dtype=torch.float64), torch.empty(n, N, dtype=torch.float64)
+        anc = torch.empty(n, N, dtype=torch.int64)
+        smem = torch.full((words(N, d, 1, int(path > 0)),), float("nan"), dtype=torch.float64)
+        _call(getattr(lib, f"h_block_lane_{model}"), path, n, N, d, eps, res_u, x_star, x0, w0,
+              consts, params.contiguous(), xs, lw, anc, smem)
+        np.testing.assert_array_equal(anc.numpy(), want[2].numpy())
+        _close(xs, want[0])
+        _close(lw, want[1])
+
+
 @pytest.mark.parametrize("T,D,N", [(12, 3, 16), (9, 30, 25)])
 def test_host_block_lane_sv_guided_matches_plain(host_lib, T, D, N):
     from aux_ssm_tpu_torch.models import stochastic_volatility as sv
@@ -480,14 +548,8 @@ def test_host_block_lane_sv_guided_matches_plain(host_lib, T, D, N):
     w0 = torch.full((N,), 1.0 / N, dtype=torch.float64)
     want = CF.block_lane_scan(Mt, Gt, eps, res_u, x_star, x0, w0)
     consts, params = Gt.cuda_operands()
-    xs, lw = torch.empty(n, D, N, dtype=torch.float64), torch.empty(n, N, dtype=torch.float64)
-    anc = torch.empty(n, N, dtype=torch.int64)
-    w, cw = torch.empty(N, dtype=torch.float64), torch.empty(N, dtype=torch.float64)
-    _call(host_lib["csmc_block"].h_block_lane_sv_guided, n, N, D, eps, res_u, x_star, x0, w0,
-          consts, params.contiguous(), xs, lw, anc, w, cw)
-    np.testing.assert_array_equal(anc.numpy(), want[2].numpy())
-    _close(xs, want[0])
-    _close(lw, want[1])
+    _host_block_lane_paths(host_lib, "sv_guided", n, N, D, eps, res_u, x_star, x0, w0, consts,
+                           params, want)
 
 
 @pytest.mark.parametrize("gradient", [False, True])
@@ -511,18 +573,55 @@ def test_host_block_lane_spatial_guided_matches_plain(host_lib, T, D, N, gradien
     w0 = torch.full((N,), 1.0 / N, dtype=torch.float64)
     want = CF.block_lane_scan(Mt, Gt, eps, res_u, x_star, x0, w0)
     consts, params = Gt.cuda_operands()
-    mats, vecs, scalars, row_vecs, row_scalars = CF.BLOCK_LANE_MODELS[Gt.cuda_model]
-    assert consts.shape == (mats * d * d + vecs * d + scalars,)
+    mats, vecs, lists, scalars, row_vecs, row_scalars = CF.BLOCK_LANE_MODELS[Gt.cuda_model]
+    assert consts.shape == (mats * d * d + vecs * d + lists * d * Gt.ell_width + scalars,)
     assert params.shape == (n, row_vecs * d + row_scalars)
-    xs, lw = torch.empty(n, d, N, dtype=torch.float64), torch.empty(n, N, dtype=torch.float64)
-    anc = torch.empty(n, N, dtype=torch.int64)
-    w, cw = torch.empty(N, dtype=torch.float64), torch.empty(N, dtype=torch.float64)
-    _call(host_lib["csmc_block"].h_block_lane_spatial_guided, n, N, d, eps, res_u, x_star, x0,
-          w0, consts, params.contiguous(), xs, lw, anc, w, cw)
     assert len(np.unique(want[2].numpy())) > 2  # the sweep did resample
-    np.testing.assert_array_equal(anc.numpy(), want[2].numpy())
-    _close(xs, want[0])
-    _close(lw, want[1])
+    _host_block_lane_paths(host_lib, "spatial_guided", n, N, d, eps, res_u, x_star, x0, w0,
+                           consts, params, want)
+
+
+@pytest.mark.parametrize("case", ["r_y=1", "r_y=2", "random", "random sparse"])
+def test_host_spatial_row_lists_give_the_dense_product(host_lib, case):
+    """P's row lists (`precision_rows`), applied by SpatialGuided row by row,
+    give the dense product summed in column order bit for bit: the grid
+    precision at r_y = 1 (W = 5) and 2 (W = 13) on the 8 x 8 grid, and
+    random dense and sparse matrices."""
+    from aux_ssm_tpu_torch.native.precision import make_precision_dense, precision_rows
+    rng = np.random.default_rng(len(case))
+    d = 64
+    if case.startswith("r_y"):
+        P = make_precision_dense(-0.25, int(case[-1]), 8)
+    else:
+        P = rng.standard_normal((d, d))
+        if case == "random sparse":
+            P[rng.uniform(size=(d, d)) < 0.8] = 0.0
+    vals, cols = precision_rows(P)
+    assert vals.shape[1] == {"r_y=1": 5, "r_y=2": 13, "random": d}.get(case, vals.shape[1])
+    consts = torch.as_tensor(np.concatenate([[0.3, 4.0, 0.0, vals.shape[1]], vals.reshape(-1),
+                                             cols.reshape(-1)]))
+    for v in (rng.standard_normal(d), 1e3 * rng.standard_normal(d)):
+        got = torch.empty(d, dtype=torch.float64)
+        _call(host_lib["csmc_block"].h_spatial_apply, d, consts, torch.as_tensor(v), got)
+        want = np.zeros(d)
+        for k in range(d):  # the dense loop: s_i += P_ik v_k, k ascending
+            want = want + P[:, k] * v[k]
+        np.testing.assert_array_equal(got.numpy().view(np.int64), want.view(np.int64))
+
+
+@pytest.mark.parametrize("model,N,d,elem,staged", [
+    ("sv_guided", 25, 30, 8, True), ("sv_guided", 100, 30, 8, True),
+    ("sv_guided", 1024, 30, 4, False), ("spatial_guided", 25, 64, 8, True),
+    ("spatial_guided", 64, 64, 8, True), ("spatial_guided", 1024, 64, 4, False)])
+def test_host_block_lane_staged_plan(host_lib, model, N, d, elem, staged):
+    """Which shapes the block-lane sweep stages in shared memory (the H100's
+    227 KB a block): the published N = 25 in both widths and the moderate N
+    the on-card tests use stage; N = 1024 keeps its particles in global
+    memory."""
+    nconst = 3 * d * d + 2 * d + 1 if model == "sv_guided" else 4 + 2 * d * 5
+    fn = getattr(host_lib["csmc_block"], f"h_block_lane_staged_{model}")
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_long]
+    assert bool(fn(N, d, nconst, min(N, 32), elem, 232448)) == staged
 
 
 @pytest.mark.parametrize("n,B", [(1, 5), (37, 1), (100, 36), (513, 13), (1023, 64)])
@@ -628,19 +727,81 @@ def test_host_stitching_rows_match_plain(host_lib, P, n, N, k):
         np.testing.assert_array_equal(cols.numpy(), ST.col_sample(seed, rf, cf, cb, offset).numpy())
 
 
+def _host_masses(lib, rf, cf, cb, per_block_max, R, whole):
+    """block_masses of the host build with R rows a thread (capped by the
+    feature bound) and the node whole in shared memory or tiled; returns
+    (masses, the R that ran)."""
+    P, n, k = rf.shape
+    N = cf.shape[1]
+    out = torch.full((P, n, N // 128), float("nan"), dtype=rf.dtype)
+    cols = torch.empty((N if whole else 128) * (k + 1), dtype=rf.dtype)
+    used = torch.zeros(1, dtype=torch.int32)
+    suffix = "f64" if rf.dtype == torch.float64 else "f32"
+    _call(getattr(lib, f"h_block_masses_{suffix}"), P, n, N, k, per_block_max, R, whole, rf, cf,
+          cb, out, cols, used)
+    return out, int(used)
+
+
 @pytest.mark.parametrize("per_block_max", [False, True])
-@pytest.mark.parametrize("P,n,N,k", [(2, 130, 256, 1), (1, 20, 384, 9)])
+@pytest.mark.parametrize("P,n,N,k", [(2, 130, 256, 1), (1, 20, 384, 9), (1, 300, 512, 30),
+                                     (2, 37, 256, 64), (1, 1030, 384, 1)])
 def test_host_block_masses_match_plain(host_lib, P, n, N, k, per_block_max):
+    """Both stabilisers, the node whole in shared memory and tiled, one row a
+    thread and R > 1 with a ragged last group (n not a multiple of R); every
+    feature bound."""
     rng = np.random.default_rng(N + k)
     rf, cf, cb = (torch.as_tensor(z) for z in (rng.standard_normal((P, n, k)),
                                                 rng.standard_normal((P, N, k)),
                                                 rng.standard_normal((P, N))))
     cb[0, 128:256] = -900.0   # block 1 of node 0 underflows: -inf under the row max
-    got = torch.full((P, n, N // 128), float("nan"), dtype=torch.float64)
-    _call(host_lib["stitching"].h_block_masses, P, n, N, k, per_block_max, rf, cf, cb, got)
     want = ST.block_masses(rf, cf, cb, per_block_max)
     assert bool(torch.isinf(want[0, :, 1]).all()) != per_block_max
-    _close(got, want, rtol=1e-12, atol=1e-12)
+    ran = set()
+    for R in (1, 4):
+        for whole in (True, False):
+            got, used = _host_masses(host_lib["stitching"], rf, cf, cb, per_block_max, R, whole)
+            ran.add(used)
+            _close(got, want, rtol=1e-12, atol=1e-12)
+    assert ran == ({1, 4} if k <= 8 else {1, 2} if k <= 32 else {1})
+
+
+@pytest.mark.parametrize("per_block_max", [False, True])
+def test_host_block_masses_f32_underflow_pattern(host_lib, per_block_max):
+    """The float32 arithmetic (base 2, fused multiply-adds; exp2f here where
+    the card takes ex2.approx.ftz): a block wholly in expf's denormal range
+    under the row max (scores ~95 below it) is summed again about its own max
+    and stays finite, as in the plain version; a block ~120 below is -inf in
+    both. Values against float64 on the same inputs."""
+    rng = np.random.default_rng(3)
+    P, n, N, k = 1, 40, 512, 1
+    rf, cf = (torch.as_tensor(0.4 * rng.standard_normal((P, m, k)), dtype=torch.float32)
+              for m in (n, N))
+    cb = torch.as_tensor(rng.standard_normal((P, N)), dtype=torch.float32)
+    cb[0, 128:256] -= 95.0
+    cb[0, 256:384] -= 120.0
+    want32 = ST.block_masses(rf, cf, cb, per_block_max)
+    want64 = ST.block_masses(rf.double(), cf.double(), cb.double(), per_block_max)
+    assert bool(torch.isfinite(want32[0, :, 1]).all())
+    assert bool(torch.isinf(want32[0, :, 2]).all()) != per_block_max
+    for whole in (True, False):
+        got, _ = _host_masses(host_lib["stitching"], rf, cf, cb, per_block_max, 4, whole)
+        assert torch.equal(torch.isfinite(got), torch.isfinite(want32))
+        fin = torch.isfinite(want32)
+        _close(got[fin].double(), want64[fin], rtol=2e-6, atol=2e-5)
+
+
+@pytest.mark.parametrize("P,nr,N,k,elem,R,whole", [
+    (512, 4096, 4096, 1, 4, 4, True), (32, 4096, 4096, 1, 4, 2, True),
+    (1, 4096, 4096, 1, 4, 1, True), (512, 4096, 4096, 1, 8, 4, True),
+    (512, 4096, 4096, 30, 4, 2, False), (512, 25, 25, 64, 4, 1, True),
+    (125, 25, 25, 30, 8, 1, True)])
+def test_host_mass_plan(host_lib, P, nr, N, k, elem, R, whole):
+    """block_masses' launch plan on 132 SMs: R rows a thread, as many as keep
+    two blocks on every SM (at most 4, 2 past k = 8, 1 past k = 32); the node
+    whole in shared memory up to 96 KB of column records."""
+    out = torch.zeros(2, dtype=torch.int32)
+    _call(host_lib["stitching"].h_mass_plan, P, nr, N, k, elem, 132, out)
+    assert out.tolist() == [R, int(whole)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

@@ -172,8 +172,11 @@ def test_backward_factor_matches_plain(dev, n, N, k):
     _close(*_both(CF.backward_factor_scan, (rf, cf, rb, lw, us, torch.tensor(3)), dev))
 
 
-@pytest.mark.parametrize("T,D,N", [(12, 3, 16), (40, 30, 25), (9, 30, 1024)])
+@pytest.mark.parametrize("T,D,N", [(12, 3, 16), (40, 30, 25), (9, 30, 1024), (9, 30, 100)])
 def test_block_lane_matches_plain(dev, T, D, N):
+    """Each path of the sweep (test_torch_csrc_host.py test_host_block_lane_
+    staged_plan): staged with the one-warp carry (N <= 32), staged with the
+    block collectives (N = 100), particles in global memory (N = 1024)."""
     _, ys = sv.get_data(*SV_PARAMS, D, T, generator=torch.Generator().manual_seed(T),
                         device="cpu")
     rng = np.random.default_rng(D)
@@ -384,8 +387,11 @@ def test_scalar_scans_reject_what_the_kernel_does_not_take(dev):
 
 
 @pytest.mark.parametrize("gradient", [False, True])
-@pytest.mark.parametrize("T,D,N", [(12, 2, 16), (9, 3, 25), (20, 8, 25), (5, 8, 1024)])
+@pytest.mark.parametrize("T,D,N", [(12, 2, 16), (9, 3, 25), (20, 8, 25), (5, 8, 1024),
+                                   (9, 8, 64)])
 def test_block_lane_spatial_matches_plain(dev, T, D, N, gradient):
+    """Staged with the one-warp carry (N <= 32), staged with the block
+    collectives (N = 64), particles in global memory (N = 1024)."""
     from aux_ssm_tpu_torch.models import spatial
     sigma_x, nu, tau, r_y = SP_PARAMS
     rng = np.random.default_rng(T + D)
@@ -506,8 +512,12 @@ def test_row_lse_and_col_sample_match_plain(dev, P, n, N, k):
 
 
 @pytest.mark.parametrize("per_block_max", [False, True])
-@pytest.mark.parametrize("P,n,N,k", [(4, 130, 256, 1), (2, 64, 384, 9), (1, 200, 4096, 1)])
+@pytest.mark.parametrize("P,n,N,k", [(4, 130, 256, 1), (2, 64, 384, 9), (1, 200, 4096, 1),
+                                     (512, 40, 256, 1), (2, 64, 2048, 8), (1, 300, 4096, 30)])
 def test_block_masses_match_plain(dev, P, n, N, k, per_block_max):
+    """Every feature bound; the node whole in shared memory (k = 1) and tiled
+    (k = 30 at N = 4096; k = 8 at N = 2048 in float64 only); P = 1 (one row a
+    thread) and P = 512 (4 rows a thread, the last group ragged)."""
     ST = K.stitching
     rf, cf, cb = _stitch_factors(P, n, N, k, seed=N + k)
     cb[0, 128:256] = -900.0  # an underflowing block: -inf under the row max

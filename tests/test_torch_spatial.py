@@ -343,16 +343,30 @@ def test_cuda_operands_pack_the_functor_inputs():
     _, (tMt, tGt) = _guided(T, True, np.float64)
     consts, params = tGt.cuda_operands()
     assert tMt.cuda_model == tGt.cuda_model == "spatial_guided"
-    mats, vecs, scalars, row_vecs, row_scalars = CF.BLOCK_LANE_MODELS["spatial_guided"]
-    assert consts.shape == (mats * B * B + vecs * B + scalars,)
+    mats, vecs, lists, scalars, row_vecs, row_scalars = CF.BLOCK_LANE_MODELS["spatial_guided"]
+    W = tGt.ell_width
+    assert consts.shape == (mats * B * B + vecs * B + lists * B * W + scalars,)
     assert params.shape == (T - 1, row_vecs * B + row_scalars)
-    np.testing.assert_array_equal(consts[:B * B].reshape(B, B).numpy(),
-                                  tprec.make_precision_dense(TAU, R_Y, D).T)
-    assert consts[B * B:].tolist() == [SIG_X, NU, 1.0]
+    assert consts[:4].tolist() == [SIG_X, NU, 1.0, W]
+    vals = consts[4:4 + B * W].reshape(B, W).numpy()
+    cols = consts[4 + B * W:].reshape(B, W).numpy().astype(np.int64)
+    assert (np.diff(cols, axis=1)[vals[:, 1:] != 0] > 0).all()  # ascending columns
+    dense = np.zeros((B, B))
+    np.add.at(dense, (np.repeat(np.arange(B), W), cols.reshape(-1)), vals.reshape(-1))
+    np.testing.assert_array_equal(dense, tprec.make_precision_dense(TAU, R_Y, D))
     u, scale, y = tGt.params
     np.testing.assert_array_equal(params[:, :B].numpy(), u.numpy())
     np.testing.assert_array_equal(params[:, B:2 * B].numpy(), y.numpy())
     np.testing.assert_array_equal(params[:, 2 * B].numpy(), scale.numpy())
+    # The step's constants: K, lam, scale^2 (nu + B), the log-normalisers,
+    # 1 / scale^2, 1 / lam^2.
+    sc2 = scale.numpy() ** 2
+    K = SIG_X ** 2 / (SIG_X ** 2 + sc2)
+    lam2 = SIG_X ** 2 * (1 - K)
+    log_c = B * (np.log(2 * np.pi * SIG_X ** 2) + np.log(2 * np.pi * sc2)
+                 - np.log(2 * np.pi * lam2))
+    np.testing.assert_allclose(params[:, 2 * B + 1:].numpy(), np.stack(
+        [K, np.sqrt(lam2), sc2 * (NU + B), log_c, 1 / sc2, 1 / lam2], 1), rtol=1e-12)
 
 
 def test_unknown_cuda_model_raises_on_the_card(monkeypatch):
