@@ -4,9 +4,12 @@
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel or raises. Each wrapper counts its kernel launches in
-its `launches` attribute. The plain versions follow the XLA oracles of the
-JAX package (`factor_scan_xla`, `backward_factor_scan_xla`, `lane_scan_xla`,
-`block_lane_scan_xla`) step for step; indices are int64.
+its `launches` attribute. A factor sweep of at most WARP_N particles
+launches two kernels (the pair-score pass, then the sweep on one warp) and
+counts both; past WARP_N it launches one. The plain versions follow the
+XLA oracles of the JAX package (`factor_scan_xla`,
+`backward_factor_scan_xla`, `lane_scan_xla`, `block_lane_scan_xla`) step
+for step; indices are int64.
 
 Shapes (n = T - 1 steps, N particles, k factor width, d state width):
 rf, cf (n, N, k); rb, cb, log_ws, res_u (n, N); anc_u, us (n,); w0 (N,);
@@ -20,6 +23,7 @@ from ._build import check_cuda_inputs, launch
 from .kalman_fused import _on_cuda
 
 MAX_N = 8192        # factor and lane kernels (the TPU kernels' _LANE_MAX_N)
+WARP_N = 32         # kWarpN of csrc/csmc_fwd.cu: the factor sweeps' one-warp path
 MAX_BLOCK_N = 1024  # block-lane kernel (the TPU kernel's dense cap)
 MAX_BLOCK_D = 64    # kMaxBlockD of csrc/csmc_models.cuh
 
@@ -48,6 +52,54 @@ def _check_n(name, N, cap):
 def _check_shape(name, t, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+# --------------------------------------------------------------------------
+# Pair scores: the first kernel of the factor sweeps at N <= WARP_N
+# --------------------------------------------------------------------------
+
+def _record_words(N, vectors, dtype):
+    """Words of a step's record (record_words of csrc/csmc_fwd.cu)."""
+    q = 16 // (torch.finfo(dtype).bits // 8)
+    return (N * WARP_N + vectors * N + 1 + q - 1) // q * q
+
+
+def pair_scores_plain(a, b, vectors, scalar):
+    """Each step's record: its pair scores a[t, r] . b[t, c] in N rows of
+    WARP_N (0 past column N), then its rows of the (n, N) `vectors` (two or
+    three) and its entry of the (n,) `scalar`, then 0 to 16 bytes. Shapes: a,
+    b (n, N, k); returns (n, words)."""
+    n, N, _ = a.shape
+    sw = N * WARP_N
+    out = a.new_zeros(n, _record_words(N, len(vectors), a.dtype))
+    out[:, :sw].unflatten(1, (N, WARP_N))[..., :N] = a @ b.transpose(1, 2)
+    for i, v in enumerate(vectors):
+        out[:, sw + i * N:sw + (i + 1) * N] = v
+    out[:, sw + len(vectors) * N] = scalar
+    return out
+
+
+def pair_scores(a, b, vectors, scalar):
+    """The records of every step at once; see `pair_scores_plain`. The
+    forward sweep takes (rf, cf, (rb, cb, res_u), anc_u), a score row an
+    ancestor; the backward sweep (cf, rf, (log_ws, rb), us), a row a next
+    index. On the card each score sums its k products in order, as the
+    sweeps' block path does. The sweeps count its launches."""
+    if not _on_cuda("pair_scores", a):
+        return pair_scores_plain(a, b, vectors, scalar)
+    n, N, k = a.shape
+    _check_n("pair_scores", N, WARP_N)
+    if len(vectors) not in (2, 3):
+        raise ValueError(f"pair_scores: takes two or three vectors, got {len(vectors)}")
+    for t, shape in ((b, (n, N, k)), *((v, (n, N)) for v in vectors), (scalar, (n,))):
+        _check_shape("pair_scores", t, shape)
+    a, b, *vectors, scalar = check_cuda_inputs("pair_scores", (a, b, *vectors, scalar),
+                                               a.dtype, 1, ())
+    out = a.new_empty(n, _record_words(N, len(vectors), a.dtype))
+    if n:  # a third vector's pointer is passed, and not read, when there are two
+        launch("csmc_pair_scores", a.dtype, n, N, k, len(vectors), a, b, vectors[0], vectors[1],
+               vectors[-1], scalar, out)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -91,9 +143,17 @@ def forward_factor_scan(rf, cf, rb, cb, res_u, anc_u, w0, pgas=False):
                              rf.dtype, 1, ())
     log_ws = rf.new_empty(n, N)
     ancestors = torch.empty(n, N, dtype=torch.int64, device=rf.device)
-    if n:
-        launch("csmc_forward_factor", rf.dtype, n, N, k, int(pgas), *args, log_ws, ancestors)
+    if not n:
+        return log_ws, ancestors
+    if N <= WARP_N:
+        rf, cf, rb, cb, res_u, anc_u, w0 = args
+        records = pair_scores(rf, cf, (rb, cb, res_u), anc_u)
         forward_factor_scan.launches += 1
+        launch("csmc_forward_factor_warp", rf.dtype, n, N, int(pgas), records, w0, log_ws,
+               ancestors)
+    else:
+        launch("csmc_forward_factor", rf.dtype, n, N, k, int(pgas), *args, log_ws, ancestors)
+    forward_factor_scan.launches += 1
     return log_ws, ancestors
 
 
@@ -133,9 +193,16 @@ def backward_factor_scan(rf, cf, rb, log_ws, us, b_T):
     if b_T.device != rf.device:
         raise ValueError(f"backward_factor_scan: b_T must be on {rf.device}, got {b_T.device}")
     picked = torch.empty(n, dtype=torch.int64, device=rf.device)
-    if n:
-        launch("csmc_backward_factor", rf.dtype, n, N, k, *args, b_T.contiguous(), picked)
+    if not n:
+        return picked
+    if N <= WARP_N:
+        rf, cf, rb, log_ws, us = args
+        records = pair_scores(cf, rf, (log_ws, rb), us)
         backward_factor_scan.launches += 1
+        launch("csmc_backward_factor_warp", rf.dtype, n, N, records, b_T.contiguous(), picked)
+    else:
+        launch("csmc_backward_factor", rf.dtype, n, N, k, *args, b_T.contiguous(), picked)
+    backward_factor_scan.launches += 1
     return picked
 
 

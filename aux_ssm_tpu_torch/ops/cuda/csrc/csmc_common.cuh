@@ -193,6 +193,68 @@ AUX_HD void async_wait() {
 #endif
 }
 
+// Bulk copies from global to shared memory by the copy engine
+// (cp.async.bulk, one instruction for a whole contiguous block), each
+// completing on a barrier in shared memory (mbarrier) that counts one
+// arrival and the copy's bytes. The host build copies at once and never
+// waits.
+#ifdef __CUDA_ARCH__
+AUX_HD unsigned shared_address(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+#endif
+
+// Initialise `count` barriers, each expecting one arrival; then make them
+// visible to the copy engine. Call from one thread, and fence the others.
+AUX_HD void bars_init(unsigned long long* bars, int count) {
+#ifdef __CUDA_ARCH__
+  for (int i = 0; i < count; ++i)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(shared_address(bars + i))
+                 : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#else
+  (void)bars;
+  (void)count;
+#endif
+}
+
+// Copy `words` values (their bytes a multiple of 16; dst and src 16-byte
+// aligned) from global src to shared dst; the copy completes the current
+// phase of `bar` (one thread arrives and announces the bytes).
+template <typename S>
+AUX_HD void copy_bulk(S* dst, const S* src, int words, unsigned long long* bar) {
+#ifdef __CUDA_ARCH__
+  const unsigned bytes = (unsigned)(words * sizeof(S)), at = shared_address(bar);
+  asm volatile("{\n .reg .b64 state;\n"
+               " mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(at),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(shared_address(dst)), "l"(src), "r"(bytes), "r"(at)
+      : "memory");
+#else
+  (void)bar;
+  for (int e = 0; e < words; ++e) dst[e] = src[e];
+#endif
+}
+
+// Wait until the phase of `bar` with this parity (0 for its first, 1 for its
+// second, ...) has completed.
+AUX_HD void bar_wait(unsigned long long* bar, int parity) {
+#ifdef __CUDA_ARCH__
+  asm volatile("{\n .reg .pred done;\n"
+               "WAIT:\n"
+               " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+               " @!done bra WAIT;\n}\n" ::"r"(shared_address(bar)),
+               "r"(parity)
+               : "memory");
+#else
+  (void)bar;
+  (void)parity;
+#endif
+}
+
 template <typename S>
 AUX_HD S block_max(const Block<S>& b, S v) { return block_all<true>(b, v); }
 template <typename S>

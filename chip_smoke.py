@@ -19,17 +19,21 @@ Phases (any failure raises, and the script exits non-zero):
 The stochastic-volatility (SV) particle-Gibbs path, T=250, D=30, N=25:
   4. the three cSMC sweep kernels against their plain versions on the inputs
      a real SV step hands them (csmc and csmc-guided, f32 and f64), and at
-     T=1024, N=4096, k=1 (factor sweeps) and N=1024 (block-lane sweep);
+     T=1024, N=4096, k=1 (factor sweeps) and N=1024 (block-lane sweep); the
+     factor sweeps' one-warp path (N <= 32: the pair scores of every step,
+     then the sweep on one warp, two launches a sweep) also at its edges N=1
+     and N=32 (T=256, k=64);
   5. f64 aux-cSMC steps of both styles on the card against the CPU (T=32,
      D=4, N=16), given the same noise;
   6. csmc-guided from the committed run's data, start and adapted delta
      (`benchmarks/results_r5/sv/csmc_guided_*.npz`), without and with the
      gradient shift: 100 + 200 iterations at frozen delta, mean update rate
-     in [0.4, 0.6], exactly one block-lane and one backward sweep launch per
-     iteration, samples/s;
+     in [0.4, 0.6], exactly one block-lane sweep launch and one backward
+     sweep (FACTOR_LAUNCHES launches) per iteration, samples/s;
   7. csmc (sequential sweep): 200 burn-in iterations adapting a (T,) delta
      from 1e-2, then 100 sampling iterations: update rate in (0, 1), exactly
-     one forward and one backward factor sweep launch per iteration.
+     one forward and one backward factor sweep per iteration, FACTOR_LAUNCHES
+     launches each.
 The scalar-state particle-Gibbs path (theta-logistic PGAS, T=256, N=256, and
 the rare-event model at T=2, N=25):
   8. the lane sweep kernel against its plain version for each model functor
@@ -151,7 +155,10 @@ and block_masses take two, `torch.baddbmm` and `torch.logsumexp` (over each
 the draws hash counters and take Gumbel argmaxes and inverse CDFs over
 gathered blocks, for which torch has no call), so `library_ms` is null
 throughout.
-The line before the last is the kernels' JSON summary; the last line is
+A factor sweep's entry counts the launches of both its kernels, and its
+`ms` is the wrapper's whole call; `pair_scores_ms` times the first kernel
+alone where N <= 32. The line before the last is the kernels' JSON summary;
+the last line is
 {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -181,6 +188,10 @@ AGREE_F32, TOL_F32 = 0.995, 2e-4
 # f32 inputs, at the same bounds: the pair factors are centred
 # (`csmc_base._centred`), so their terms are of the scores' size.
 RTOL_F64 = 1e-9   # f64 sweeps: identical indices, values to rtol (and atol) 1e-9
+# A factor sweep at N <= 32 (every model's N here but theta-logistic's 64 and
+# the random N=4096 inputs) launches two kernels: the pair scores of every
+# step, then the sweep on one warp. Past 32 it launches one.
+FACTOR_LAUNCHES = 2
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -594,6 +605,9 @@ def check_forward_factor(label, args32, args64, pgas, reps, vs_f64=False):
     # A step: N ancestor searches, N k-dots, a prefix sum and a softmax (and
     # N more k-dots with their softmax and prefix sum under PGAS).
     ops = n * N * (2 * k + math.log2(N) + 8 + pgas * (2 * k + 6))
+    if N <= CF.WARP_N:  # the first of the sweep's two kernels, alone
+        result["pair_scores_ms"] = cuda_ms(
+            lambda: CF.pair_scores(rf, cf, args32[2:5], args32[5]), reps)
     return timed(name, result,
                  lambda: CF.forward_factor_scan(*args32, pgas=pgas),
                  lambda: CF.forward_factor_scan_plain(*args32, pgas=pgas), reps,
@@ -631,6 +645,8 @@ def check_backward_factor(label, args32, args64, reps, vs_f64=False):
     # Of cf the draws read one row a step: n k values, not n N k.
     least = bound([rf, rb, lw, us, b_T, picked], n * k, n * N * (2 * k + 6))
     result.update({"max_abs_err": err, "index_agree_f32": share, "max_rel_err_f64": err64})
+    if N <= CF.WARP_N:  # the first of the sweep's two kernels, alone
+        result["pair_scores_ms"] = cuda_ms(lambda: CF.pair_scores(cf, rf, (lw, rb), us), reps)
     return timed(name, result, lambda: CF.backward_factor_scan(*args32),
                  lambda: CF.backward_factor_scan_plain(*args32), reps, least)
 
@@ -677,9 +693,10 @@ def timed(name, result, kernel, plain, reps, least):
     result["ms"] = cuda_ms(kernel, reps)
     result["plain_ms"] = cuda_ms(plain, 1)
     result.update(least)
+    pair = f" (pair scores {result['pair_scores_ms']:.4f})" if "pair_scores_ms" in result else ""
     log(f"  {name}: index agreement f32 {result['index_agree_f32']:.4f}, max abs err f32 "
         f"{result['max_abs_err']:.3e}, f64 rel err {result['max_rel_err_f64']:.3e}; "
-        f"kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, bound "
+        f"kernel {result['ms']:.4f} ms{pair}, plain {result['plain_ms']:.4f} ms, bound "
         f"{result['bound_ms']:.5f} ms by {result['bound_by']} ({result['bytes']} B, "
         f"{result['operations']} operations)")
     return result
@@ -722,6 +739,18 @@ def phase_csmc_kernels(dev):
     bwd64 = args64[:3] + (args64[3], args64[5], b_T)
     check_backward_factor(f"T={n + 1} N={N}", tuple(z.float() for z in bwd64[:5]) + (b_T,),
                           bwd64, reps=3)
+    # The one-warp path's edges: one particle, and a full warp.
+    n, k = 255, 64
+    for N in (1, 32):
+        log(f"  factor sweeps at T={n + 1}, N={N}, k={k} (random inputs):")
+        args64 = random_factor_inputs(dev, n, N, k, seed=7 + N)
+        args32 = tuple(z.float() for z in args64)
+        for pgas in (False, True):
+            check_forward_factor(f"T={n + 1} N={N}", args32, args64, pgas, reps=3)
+        b_T = torch.tensor(N - 1, device=dev)
+        bwd64 = args64[:3] + (args64[3], args64[5], b_T)
+        check_backward_factor(f"T={n + 1} N={N}", tuple(z.float() for z in bwd64[:5]) + (b_T,),
+                              bwd64, reps=3)
 
     big = {dt: sv_sweep_inputs(dev, dt, "csmc-guided", 1024, seed=6) for dt in (f32, f64)}
     check_block_lane(f"SV T={SV_T} N=1024", big[f32]["block_lane_scan"],
@@ -763,7 +792,8 @@ def phase_csmc_step_reference(dev):
                 runs[str(where)] = out
             launches = K.launches()
             for name in CSMC_KERNELS:
-                want = len(noises) if name in used else 0
+                per_step = FACTOR_LAUNCHES if name.endswith("factor_scan") else 1
+                want = len(noises) * per_step if name in used else 0
                 if launches[name] != want:
                     raise AssertionError(f"{style}: {name} launched {launches[name]} times on "
                                          f"the card, expected {want}")
@@ -814,7 +844,7 @@ def phase_sv_chains(dev):
 
     f32 = torch.float32
     total = dict.fromkeys(CSMC_KERNELS, 0)
-    guided_iter = {"block_lane_scan": 1, "backward_factor_scan": 1}
+    guided_iter = {"block_lane_scan": 1, "backward_factor_scan": FACTOR_LAUNCHES}
     log(f"phase 6: csmc-guided, T={SV_T}, D={SV_D}, N={SV_N}, f32, frozen committed delta, "
         f"from xs_true")
     for gradient in (False, True):
@@ -836,7 +866,7 @@ def phase_sv_chains(dev):
     rate, _, launches, res = sv_chain(
         dev, "csmc", "csmc", ys, xs, RunConfig(n_samples=100, burnin=200, target_alpha=0.5),
         torch.full((SV_T,), 1e-2, dtype=f32, device=dev), False, seed=12,
-        per_iter={"forward_factor_scan": 1, "backward_factor_scan": 1})
+        per_iter=dict.fromkeys(("forward_factor_scan", "backward_factor_scan"), FACTOR_LAUNCHES))
     if not 0.0 < rate < 1.0:
         raise AssertionError(f"csmc: update rate {rate:.4f} outside (0, 1)")
     log(f"  csmc: adapted delta in [{float(res.delta.min()):.4e}, {float(res.delta.max()):.4e}]")
@@ -1064,9 +1094,9 @@ def phase_scalar_step_reference(dev):
                 xs, None, [csmc_noise(T_, N_, aux=False) for _ in range(2)], dev,
                 ("lane_scan",) + (("backward_factor_scan",) if backward else ()))
 
-    sweeps = {"kalman": ("filter_scan", "affine_scan"),
-              "csmc": ("forward_factor_scan", "backward_factor_scan"),
-              "csmc-guided": ("lane_scan", "backward_factor_scan")}
+    sweeps = {"csmc": {"forward_factor_scan": FACTOR_LAUNCHES,
+                       "backward_factor_scan": FACTOR_LAUNCHES},
+              "csmc-guided": {"lane_scan": 1, "backward_factor_scan": FACTOR_LAUNCHES}}
     for T_ in (2, 6):
         cell = RE_CELL[:3] + (T_,)
         x0 = torch.as_tensor(3.0 + rng.standard_normal((T_, 1)))
@@ -1200,8 +1230,10 @@ def rare_chain(dev, style, cell, burnin, n_samples, seed, bounded, N=RE_N, per_i
     launches = K.launches()
     n_iter = burnin + n_samples
     per_iter = per_iter if per_iter is not None else {"kalman": {k: v for k, (_, _, v) in KERNELS.items()},
-                            "csmc": {"forward_factor_scan": 1, "backward_factor_scan": 1},
-                            "csmc-guided": {"lane_scan": 1, "backward_factor_scan": 1}}[
+                            "csmc": {"forward_factor_scan": FACTOR_LAUNCHES,
+                                     "backward_factor_scan": FACTOR_LAUNCHES},
+                            "csmc-guided": {"lane_scan": 1,
+                                            "backward_factor_scan": FACTOR_LAUNCHES}}[
                                 style.removesuffix("-grad")]
     for name, count in launches.items():
         if count != per_iter.get(name, 0) * n_iter:
@@ -1268,8 +1300,9 @@ SP_BLOCKS = 16                     # time blocks of the pooled functionals
 Z_MAX, Z_RMS = 6.0, 1.5            # bounds on z-scores against one posterior draw
 Z_RMS_CROSS = 2.0                  # on the RMS z between the two samplers
 SP_PER_ITER = {"kalman": {"scalar_filter_scan": 2, "scalar_affine_scan": 1},
-               "csmc": {"forward_factor_scan": 1, "backward_factor_scan": 1},
-               "csmc-guided": {"block_lane_scan": 1, "backward_factor_scan": 1}}
+               "csmc": {"forward_factor_scan": FACTOR_LAUNCHES,
+                        "backward_factor_scan": FACTOR_LAUNCHES},
+               "csmc-guided": {"block_lane_scan": 1, "backward_factor_scan": FACTOR_LAUNCHES}}
 
 
 def spatial_per_iter(style):

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Times the block_masses and block-lane sweep kernels of one checkout of the
-port on a CUDA card, at the main paths' shapes, and profiles the steps that
-run them.
+"""Times the block_masses, block-lane sweep and factor sweep kernels of one
+checkout of the port on a CUDA card, at the main paths' shapes, and profiles
+the steps that run them.
 
     python3 kernel_times.py                 # the checkout this file is in
     python3 kernel_times.py --root DIR      # the checkout unpacked at DIR
-    python3 kernel_times.py --parts masses  # some of: masses, lane, steps
+    python3 kernel_times.py --parts factor  # some of: masses, lane, steps, factor
 
 To compare two checkouts, unpack the other into a directory that .gitignore
 lists and run both in one machine in turns (A, B, B, A): times on one card
@@ -19,10 +19,18 @@ the same seeds:
     gradient shift off and on;
   - torch.profiler over steps of the N=4096 PIT sampler (joint and fused
     draws) and of spatial csmc-guided (gradient off and on): ms a step, the
-    device's busy ms and the named kernel's device ms a step.
+    device's busy ms and the named kernel's device ms a step;
+  - factor: the forward and backward factor sweeps on a real step's inputs
+    (SV csmc at T=250, D=30, N=25, k=30, the backward sweep of csmc-guided;
+    spatial csmc at T=1024, N=25, k=64, the backward sweep of
+    csmc-guided), on random inputs at N=300, k=30 (T=250) and N=4096, k=1
+    (T=1024) (the block path), and at N=1, k=64 (T=1024: the one-warp
+    chain's floor); the pair-score pass alone where the checkout has one;
+    torch.profiler over steps of spatial csmc (backward sampling) and
+    csmc-guided, with the device ms of each factor kernel.
 Kernel times are CUDA events around the wrapper's call. The build log's
-registers and spills of both kernels' template instances are printed. The
-last line is one JSON object of every number.
+registers and spills of the timed kernels' template instances are printed.
+The last line is one JSON object of every number.
 """
 import argparse
 import json
@@ -32,9 +40,9 @@ import time
 from pathlib import Path
 
 
-def profile(step, n, name):
-    """(wall ms, busy ms, ms of kernels whose name holds `name`) a call of
-    step(), over n calls after one."""
+def profile(step, n, names):
+    """(wall ms, busy ms, ms of the kernels whose name holds each of `names`)
+    a call of step(), over n calls after one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof_ctx
@@ -48,8 +56,11 @@ def profile(step, n, name):
         wall = 1e3 * (time.perf_counter() - tic) / n
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    named = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / n
-    return {"step_ms": wall, "busy_ms": busy, f"{name}_ms": named}
+    out = {"step_ms": wall, "busy_ms": busy}
+    for name in (names,) if isinstance(names, str) else names:
+        out[f"{name}_ms"] = sum(e.self_device_time_total for e in kernels
+                                if name in e.key) / 1e3 / n
+    return out
 
 
 def ptxas_lines(build_dir, names):
@@ -67,7 +78,7 @@ def ptxas_lines(build_dir, names):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
-    parser.add_argument("--parts", default="masses,lane,steps")
+    parser.add_argument("--parts", default="masses,lane,steps,factor")
     opts = parser.parse_args()
     root, parts = str(Path(opts.root).resolve()), opts.parts.split(",")
     sys.path.insert(0, root)
@@ -86,13 +97,16 @@ def main():
     print(card, flush=True)
     LIBRARY.get()
     print(f"root {root}: built in {LIBRARY.build_seconds:.1f} s", flush=True)
-    for line in ptxas_lines(LIBRARY.build_dir, ("block_masses_kernel", "block_lane_kernel")):
+    for line in ptxas_lines(LIBRARY.build_dir, ("block_masses_kernel", "block_lane_kernel",
+                                                "factor_kernel", "factor_warp_kernel",
+                                                "pair_scores_kernel")):
         print("  ptxas", line)
     dev, f32 = torch.device("cuda"), torch.float32
     res = {"root": root, "card": card}
 
-    bxs, bys = cs.pit_big_data(dev, f32)
-    delta = torch.full((cs.PIT_T,), cs.PIT_DELTA, dtype=f32, device=dev)
+    if "masses" in parts or "steps" in parts:
+        bxs, bys = cs.pit_big_data(dev, f32)
+        delta = torch.full((cs.PIT_T,), cs.PIT_DELTA, dtype=f32, device=dev)
     if "masses" in parts:
         masses(cs, KS, res, bxs, bys, delta)
     xs, ys = cs.spatial_data(dev, f32)
@@ -101,6 +115,8 @@ def main():
         lanes(cs, CF, res, dev, xs, ys, sp_delta)
     if "steps" in parts:
         steps(cs, res, dev, bxs, bys, delta, xs, ys, sp_delta)
+    if "factor" in parts:
+        factors(cs, CF, res, dev, xs, ys, sp_delta)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -158,6 +174,48 @@ def steps(cs, res, dev, bxs, bys, delta, xs, ys, sp_delta):
                 "spatial_csmc-guided-grad"):
         print(f"  profile {key}: " + ", ".join(f"{k} {v:.3f}" for k, v in res[key].items()),
               flush=True)
+
+
+def factors(cs, CF, res, dev, xs, ys, sp_delta):
+    """The factor sweeps on real steps' inputs and at the block path's N,
+    the pair-score pass alone, the chain's floor at N=1, and the spatial
+    csmc and csmc-guided steps under the profiler."""
+    import torch
+    f32 = torch.float32
+    csmc = cs.sv_sweep_inputs(dev, f32, "csmc", cs.SV_N, seed=4)
+    guided = cs.sv_sweep_inputs(dev, f32, "csmc-guided", cs.SV_N, seed=4)
+    cases = {"sv_N25": (csmc["forward_factor_scan"], guided["backward_factor_scan"], 20)}
+    spatial = {}
+    for style in ("csmc", "csmc-guided"):
+        init, kernel = cs.spatial_kernel(style, ys, cs.SP_D, cs.SP_N)
+        with cs.recording_sweeps() as rec:
+            kernel(init(xs), sp_delta, generator=torch.Generator(device=dev).manual_seed(13))
+        spatial[style] = (init, kernel, rec)
+    cases["spatial_N25"] = (spatial["csmc"][2]["forward_factor_scan"],
+                            spatial["csmc-guided"][2]["backward_factor_scan"], 10)
+    for n, N, k, reps in ((249, 300, 30, 10), (1023, 4096, 1, 3), (1023, 1, 64, 10)):
+        rf, cf, rb, cb, res_u, anc_u, w0 = (z.float() for z in cs.random_factor_inputs(
+            dev, n, N, k, seed=5))
+        cases[f"N{N}_k{k}"] = ((rf, cf, rb, cb, res_u, anc_u, w0),
+                               (rf, cf, rb, cb, anc_u, torch.tensor(0, device=dev)), reps)
+    for label, (fwd, bwd, reps) in cases.items():
+        res[f"forward_factor_{label}_ms"] = cs.cuda_ms(lambda: CF.forward_factor_scan(*fwd), reps)
+        res[f"backward_factor_{label}_ms"] = cs.cuda_ms(lambda: CF.backward_factor_scan(*bwd),
+                                                        reps)
+        if hasattr(CF, "pair_scores") and fwd[0].shape[1] <= CF.WARP_N:
+            res[f"pair_scores_{label}_ms"] = cs.cuda_ms(
+                lambda: CF.pair_scores(fwd[0], fwd[1], fwd[2:5], fwd[5]), reps)
+        print(f"  factor {label} (n, N, k = {tuple(fwd[0].shape)}): " + ", ".join(
+            f"{key.removesuffix(f'_{label}_ms')} {res[key]:.4f} ms" for key in res
+            if key.endswith(f"_{label}_ms")), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    for style, (init, kernel, _) in spatial.items():
+        box = [init(xs)]
+        res[f"spatial_{style}"] = profile(
+            lambda: box.__setitem__(0, kernel(box[0], sp_delta, generator=gen)), 10,
+            ("forward_factor", "backward_factor", "pair_scores", "block_lane"))
+        print(f"  profile spatial_{style}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in res[f"spatial_{style}"].items()), flush=True)
 
 
 if __name__ == "__main__":

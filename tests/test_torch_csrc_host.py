@@ -119,11 +119,46 @@ _CSMC_PRELUDE = """
 """
 
 _CSMC_FWD = """
+#include <vector>
 #include "csmc_fwd.cu"
+// The pair-score pass over every step, one thread.
+static void host_records(int n, int N, int k, int nv, const double* a, const double* b,
+                         const double* v0, const double* v1, const double* v2, const double* s,
+                         double* records) {
+  std::vector<double> tile(2 * kWarpN * (kPairChunk + 1));
+  for (int t = 0; t < n; ++t)
+    pair_record<double>(0, 1, t, N, k, nv, a, b, v0, v1, v2, s, records, tile.data());
+}
+// A one-warp sweep's ring in host memory.
+struct HostRing {
+  std::vector<double> buf;
+  unsigned long long bars[kStages];
+  Ring<double> ring;
+  HostRing(int ow, int n, bool reverse)
+      : buf((long)kStages * kChunk * ow), ring{buf.data(), bars, ow, n, reverse} {}
+};
+// Each sweep on the path its launcher takes: N <= kWarpN the pair scores,
+// then the one-warp sweep (one lane); past it the block sweep (one thread).
 extern "C" {
+void h_pair_scores(int n, int N, int k, int nv, const double* a, const double* b,
+                   const double* v0, const double* v1, const double* v2, const double* s,
+                   double* records) {
+  host_records(n, N, k, nv, a, b, v0, v1, v2, s, records);
+}
 void h_forward_factor(int n, int N, int k, int pgas, const double* rf, const double* cf,
     const double* rb, const double* cb, const double* res_u, const double* anc_u,
     const double* w0, double* log_ws, long long* anc, double* w, double* cw) {
+  if (N <= kWarpN) {
+    const int ow = (int)record_words(N, 3, 8);
+    std::vector<double> records((long)n * ow);
+    host_records(n, N, k, 3, rf, cf, rb, cb, res_u, anc_u, records.data());
+    HostRing r(ow, n, false);
+    if (pgas)
+      forward_warp_sweep<double, true>(0, n, N, records.data(), w0, log_ws, anc, r.ring);
+    else
+      forward_warp_sweep<double, false>(0, n, N, records.data(), w0, log_ws, anc, r.ring);
+    return;
+  }
   double red[33];
   int a0 = 0;
   const csmc::Block<double> b{0, 1, red};
@@ -137,6 +172,14 @@ void h_forward_factor(int n, int N, int k, int pgas, const double* rf, const dou
 void h_backward_factor(int n, int N, int k, const double* rf, const double* cf,
     const double* rb, const double* lw, const double* us, const long long* b_T,
     long long* picked, double* w) {
+  if (N <= kWarpN) {
+    const int ow = (int)record_words(N, 2, 8);
+    std::vector<double> records((long)n * ow);
+    host_records(n, N, k, 2, cf, rf, lw, rb, nullptr, us, records.data());
+    HostRing r(ow, n, true);
+    backward_warp_sweep<double>(0, n, N, records.data(), b_T, picked, r.ring);
+    return;
+  }
   double red[33];
   int bsel = 0;
   backward_factor_sweep<double>(csmc::Block<double>{0, 1, red}, n, N, k, rf, cf, rb, lw, us,
@@ -487,8 +530,11 @@ def _factor_inputs(n, N, k, seed):
         rng.uniform(size=n), w0 / w0.sum()))
 
 
+# N <= 32 runs the pair scores and the one-warp sweep, past it the block sweep.
 @pytest.mark.parametrize("n,N,k,pgas", [(23, 32, 2, False), (23, 32, 2, True),
-                                        (9, 300, 30, False), (5, 2048, 1, True)])
+                                        (9, 300, 30, False), (5, 2048, 1, True),
+                                        (31, 25, 64, False), (31, 25, 64, True),
+                                        (17, 1, 4, True), (17, 32, 8, False)])
 def test_host_forward_factor_matches_plain(host_lib, n, N, k, pgas):
     args = _factor_inputs(n, N, k, seed=N + k)
     want_lw, want_anc = CF.forward_factor_scan_plain(*args, pgas=pgas)
@@ -499,16 +545,33 @@ def test_host_forward_factor_matches_plain(host_lib, n, N, k, pgas):
     _close(lw, want_lw)
 
 
-@pytest.mark.parametrize("n,N,k", [(19, 16, 3), (6, 2048, 1), (24, 25, 30)])
+@pytest.mark.parametrize("n,N,k", [(19, 16, 3), (6, 2048, 1), (24, 25, 30), (31, 25, 64),
+                                   (17, 1, 4), (17, 32, 8)])
 def test_host_backward_factor_matches_plain(host_lib, n, N, k):
     rf, cf, rb, lw, _, us, _ = _factor_inputs(n, N, k, seed=k)
-    b_T = torch.tensor(3, dtype=torch.int64)
+    b_T = torch.tensor(min(3, N - 1), dtype=torch.int64)
     want = CF.backward_factor_scan_plain(rf, cf, rb, lw, us, b_T)
     got = torch.empty(n, dtype=torch.int64)
     w = torch.empty(N, dtype=torch.float64)
     _call(host_lib["csmc_fwd"].h_backward_factor, n, N, k, rf, cf, rb, lw, us, b_T.reshape(1),
           got, w)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("n,N,k,nv", [(7, 25, 64, 3), (5, 1, 4, 2), (4, 32, 130, 3),
+                                       (6, 25, 30, 2)])
+def test_host_pair_scores_match_plain(host_lib, n, N, k, nv):
+    """The pair-score pass alone: each step's record (the (N, WARP_N) scores,
+    the columns past N zero, then the step's rows of the vectors, its
+    scalar and the padding to 16 bytes); k = 130 stages three chunks of
+    factor columns."""
+    a, b, v0, v1, v2, s, _ = _factor_inputs(n, N, k, seed=k)
+    vectors = (v0, v1, v2)[:nv]
+    want = CF.pair_scores_plain(a, b, vectors, s)
+    got = torch.full_like(want, float("nan"))
+    _call(host_lib["csmc_fwd"].h_pair_scores, n, N, k, nv, a, b, *(vectors + (v1,))[:3], s, got)
+    _close(got, want)
+    assert bool((got[:, :N * CF.WARP_N].reshape(n, N, CF.WARP_N)[..., N:] == 0).all())
 
 
 def _host_block_lane_paths(host_lib, model, n, N, d, eps, res_u, x_star, x0, w0, consts, params,

@@ -52,13 +52,14 @@ def _to(a, dev):
     return a.to(dev) if isinstance(a, torch.Tensor) else a
 
 
-def _both(fn, args, dev):
-    """fn on the CPU (plain) and on the card (kernel); outputs as tuples."""
+def _both(fn, args, dev, launches=1):
+    """fn on the CPU (plain) and on the card (kernel, `launches` launches);
+    outputs as tuples."""
     want = fn(*args)
     before = fn.launches
     got = fn(*(_to(a, dev) for a in args))
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    assert fn.launches == before + launches
     as_tuple = (lambda z: z if isinstance(z, tuple) else (z,))
     return as_tuple(want), tuple(g.cpu() for g in as_tuple(got))
 
@@ -160,16 +161,28 @@ def _factor_inputs(n, N, k, seed):
         rng.uniform(size=n), w0 / w0.sum()))
 
 
+def _factor_launches(N):
+    """A factor sweep's launches: at N <= 32 the pair scores, then the sweep
+    on one warp; past it the block sweep alone."""
+    return 2 if N <= 32 else 1
+
+
 @pytest.mark.parametrize("n,N,k,pgas", [(23, 32, 2, False), (23, 32, 2, True),
-                                        (9, 300, 30, False), (5, 4096, 1, True)])
+                                        (9, 300, 30, False), (5, 4096, 1, True),
+                                        (1023, 25, 64, False), (1023, 25, 64, True),
+                                        (249, 25, 30, False), (249, 25, 30, True),
+                                        (100, 1, 8, True), (100, 32, 64, True)])
 def test_forward_factor_matches_plain(dev, n, N, k, pgas):
-    _close(*_both(CF.forward_factor_scan, _factor_inputs(n, N, k, seed=N) + (pgas,), dev))
+    _close(*_both(CF.forward_factor_scan, _factor_inputs(n, N, k, seed=N) + (pgas,), dev,
+                  _factor_launches(N)))
 
 
-@pytest.mark.parametrize("n,N,k", [(19, 16, 3), (24, 25, 30), (6, 4096, 1)])
+@pytest.mark.parametrize("n,N,k", [(19, 16, 3), (24, 25, 30), (6, 4096, 1), (1023, 25, 64),
+                                   (249, 25, 30), (100, 1, 8), (100, 32, 64)])
 def test_backward_factor_matches_plain(dev, n, N, k):
     rf, cf, rb, lw, _, us, _ = _factor_inputs(n, N, k, seed=k)
-    _close(*_both(CF.backward_factor_scan, (rf, cf, rb, lw, us, torch.tensor(3)), dev))
+    _close(*_both(CF.backward_factor_scan, (rf, cf, rb, lw, us, torch.tensor(min(3, N - 1))),
+                  dev, _factor_launches(N)))
 
 
 @pytest.mark.parametrize("T,D,N", [(12, 3, 16), (40, 30, 25), (9, 30, 1024), (9, 30, 100)])
@@ -221,7 +234,7 @@ def test_csmc_step_matches_cpu(dev, style, gradient):
             state = kernel(state, delta.to(where), noise=_to(noise, where))
             steps.append((state.x.cpu(), state.updated.cpu()))
         out.append(steps)
-    assert CF.backward_factor_scan.launches == before + len(noises)
+    assert CF.backward_factor_scan.launches == before + _factor_launches(N) * len(noises)
     for (xc, uc), (xg, ug) in zip(*out):
         assert torch.equal(uc, ug)
         np.testing.assert_allclose(xg.numpy(), xc.numpy(), rtol=1e-9, atol=1e-11)
@@ -438,8 +451,10 @@ def test_spatial_step_matches_cpu(dev, style):
         noises = [(rng.standard_normal((T, B)), rng.standard_normal((N, B)),
                    rng.uniform(size=(T - 1, N)), rng.standard_normal((T - 1, N, B)),
                    rng.uniform(size=T - 1), rng.uniform(size=T)) for _ in range(2)]
-        want = {"backward_factor_scan": 2,
-                "block_lane_scan" if "guided" in style else "forward_factor_scan": 2}
+        guided = "guided" in style
+        want = {"backward_factor_scan": 2 * _factor_launches(N),
+                "block_lane_scan" if guided else "forward_factor_scan":
+                    2 if guided else 2 * _factor_launches(N)}
     out = []
     for where in ("cpu", dev):
         common = (ys.to(where), sigma_x, nu, tau, r_y, D)
