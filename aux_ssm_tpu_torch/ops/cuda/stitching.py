@@ -168,3 +168,14 @@ def stitch_draws(seed, row_logits, u_rows, Lb, row_feat, col_feat, col_bias, pai
 
 
 stitch_draws.launches = 0
+
+
+def draw_log_mismatches(device=None):
+    """The count of positive normal floats x for which the draw kernels'
+    float32 log (`draw_log` in csrc/stitching.cu) and the CUDA math
+    library's logf differ in any bit, on the card: their float32 indices
+    equal the plain version's only where it is 0. A check, not a kernel of
+    any path (no launch count)."""
+    out = torch.zeros(1, dtype=torch.int64, device=device or "cuda")
+    launch("draw_log_mismatches", torch.float32, out)
+    return int(out)

@@ -109,7 +109,11 @@ launch each a tree level:
      P=512, k=1, both stabilisers; stitch_draws from a step with the fused
      draws, within_block_cols from one with the joint draws) and root
      (row_lse, P=1); the two draw kernels again at N=128 (one column
-     block). row_lse and block_masses norm-relative, f32 also against the
+     block) and on random inputs (DRAW_CASES: N=8192, nb=64, P=2, k=1;
+     N=2048, P=4, k=30, the features through shared memory), each with
+     its issue-rate bound beside the operations bound (the draws' score
+     instructions, DRAW_SCORE_INSTRUCTIONS, over 128 lanes an SM a clock).
+     row_lse and block_masses norm-relative, f32 also against the
      f64 plain version, their -inf entries where the f64 plain version's
      are; block_masses (the float32 exponentials on the SFU) also timed
      against baddbmm + logsumexp and bounded by the SFU's rate; the index
@@ -1748,6 +1752,17 @@ STITCH_KERNELS = {  # wrapper name -> (source, the TPU kernel it replaces)
 # operations of one draw beside its scores (2k + 25 a score: the products,
 # the counter hash, two logs and the argmax).
 INDEX_KERNELS = {"col_sample": 1, "within_block_cols": 2, "stitch_draws": 4}
+# Thread-instructions of one score of the draws' column stage (the counter
+# hash, two logs, the product and the lane's argmax step): 260 for a lane's
+# four columns in the SASS of within_block_cols_kernel<float, 1>
+# (`kernel_times.py --parts draws --sass DIR` writes it). The draws'
+# issue-rate floor is this many a score over 128 lanes an SM a clock.
+DRAW_SCORE_INSTRUCTIONS = 65
+# Random-input draws cases of phase 16 (label, P, N, k): nb = 64, where the
+# prefix sums' shift-32 steps carry from the low lanes' blocks into the high
+# ones, and k = 30, where the lanes read the features through shared memory.
+DRAW_CASES = (("N=8192 (nb=64) random, P=2, k=1", 2, 8192, 1),
+              ("N=2048 random, P=4, k=30", 4, 2048, 30))
 PIT_T, PIT_N, PIT_DELTA = 1024, 4096, 0.05  # benchmarks/csmc_speed.py:_pit, SV D=1 (config 5)
 COL_AGREE_F32 = 0.999   # f32 col_sample indices equal to the f32 plain version's
 TWO_CALL_BYTES = 2 ** 31  # the scores of one chunk of block_masses' two-call yardstick
@@ -1852,6 +1867,10 @@ def check_stitch(name, label, args, reps, two_call=False):
             ops = P * n * 128 * score
         else:  # and each draw's row (tile and offset counts) and block (exp, prefix sum, count)
             ops = P * n * (128 * score + 2 * 128 + 8 * (cf.shape[1] // 128))
+        if name != "col_sample":
+            lanes = torch.cuda.get_device_properties(0).multi_processor_count * 128
+            result["issue_bound_ms"] = (1e3 * P * n * 128 * DRAW_SCORE_INSTRUCTIONS
+                                        / (lanes * sm_clock_hz()))
     else:
         got, want32, got64, want64 = got[0], want32[0], got64[0], want64[0]
         fin = torch.isfinite(want64)
@@ -1898,7 +1917,9 @@ def check_stitch(name, label, args, reps, two_call=False):
         + (f", baddbmm + logsumexp {result['two_call_ms']:.4f} ms" if two_call else "")
         + f", bound {result['bound_ms']:.5f} ms by {result['bound_by']} ({result['bytes']} B, "
         f"{result['operations']} operations)"
-        + (f", SFU bound {result['sfu_bound_ms']:.5f} ms" if "sfu_bound_ms" in result else ""))
+        + (f", SFU bound {result['sfu_bound_ms']:.5f} ms" if "sfu_bound_ms" in result else "")
+        + (f", issue bound {result['issue_bound_ms']:.5f} ms" if "issue_bound_ms" in result
+           else ""))
     return result
 
 
@@ -1948,11 +1969,29 @@ def pit_big_data(dev, dtype):
                        dtype=dtype, device=dev)
 
 
+def random_draw_inputs(dev, P, N, k, seed):
+    """Arguments of stitch_draws and within_block_cols on random factors, f32:
+    rf, cf ~ N(0, 0.4^2), cb and the row biases ~ N(0, 1), the block masses
+    of those factors (by the block_masses wrapper), uniform u and blocks."""
+    import torch
+    from aux_ssm_tpu_torch.ops.cuda import stitching as KS
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rf, cf = (0.4 * torch.randn(P, N, k, generator=gen, device=dev) for _ in range(2))
+    cb, rb = (torch.randn(P, N, generator=gen, device=dev) for _ in range(2))
+    Lb = KS.block_masses(rf, cf, cb)
+    u = torch.rand(P, N, generator=gen, device=dev)
+    seed_t = torch.tensor(seed, dtype=torch.int32, device=dev)
+    blocks = torch.randint(0, N // 128, (P, N), generator=gen, device=dev)
+    return ((seed_t, rb + torch.logsumexp(Lb, -1), u, Lb, rf, cf, cb, 3),
+            (seed_t, blocks, rf, cf, cb, 3))
+
+
 def phase_stitch_kernels(dev):
     """Phase 16; returns {wrapper: result entry}: SV level 0 for row_lse and
     col_sample, N=4096 level 0 for block_masses and the draws, the other
     shapes beside."""
     import torch
+    from aux_ssm_tpu_torch.ops.cuda import stitching as KS
     f32 = torch.float32
     log(f"phase 16: the stitching kernels on the inputs real PIT steps hand them (f32 kernel vs "
         f"f32 plain and vs f64 plain: nrel {NREL_F32:g}, indices >= {AGREE_F32} (col_sample vs "
@@ -2003,6 +2042,14 @@ def phase_stitch_kernels(dev):
     small0 = f"SV D=1 T={PIT_T} N=128 (nb=1) level 0"
     for name, draws in (("stitch_draws", "fused"), ("within_block_cols", "joint")):
         results[name]["nb1"] = check_stitch(name, small0, big[128, draws][name][0], 20)
+    bad = KS.draw_log_mismatches(dev)
+    log(f"  draw_log against logf on every positive normal float: {bad} differ")
+    if bad:
+        raise AssertionError(f"draw_log differs from logf on {bad} floats")
+    for label, P, N_, k in DRAW_CASES:
+        fused, joint = random_draw_inputs(dev, P, N_, k, seed=17)
+        results["stitch_draws"][label] = check_stitch("stitch_draws", label, fused, 10)
+        results["within_block_cols"][label] = check_stitch("within_block_cols", label, joint, 10)
     return results
 
 

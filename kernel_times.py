@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Times the block_masses, block-lane sweep and factor sweep kernels of one
-checkout of the port on a CUDA card, at the main paths' shapes, and profiles
-the steps that run them.
+"""Times the block_masses, block-lane sweep, factor sweep and draw kernels of
+one checkout of the port on a CUDA card, at the main paths' shapes, and
+profiles the steps that run them.
 
     python3 kernel_times.py                 # the checkout this file is in
     python3 kernel_times.py --root DIR      # the checkout unpacked at DIR
-    python3 kernel_times.py --parts factor  # some of: masses, lane, steps, factor
+    python3 kernel_times.py --parts draws   # some of: masses, lane, steps, factor, draws
 
 To compare two checkouts, unpack the other into a directory that .gitignore
 lists and run both in one machine in turns (A, B, B, A): times on one card
@@ -27,13 +27,20 @@ the same seeds:
     (T=1024) (the block path), and at N=1, k=64 (T=1024: the one-warp
     chain's floor); the pair-score pass alone where the checkout has one;
     torch.profiler over steps of spatial csmc (backward sampling) and
-    csmc-guided, with the device ms of each factor kernel.
+    csmc-guided, with the device ms of each factor kernel;
+  - draws: stitch_draws (fused draws) and within_block_cols (joint draws)
+    at level 0 and over the 9 levels of an N=4096 step, at level 0 of an
+    N=128 step (nb=1), and on random inputs at N=8192 (nb=64, P=2, k=1) and
+    N=2048, k=30 (chip_smoke.DRAW_CASES, made by this file's chip_smoke);
+    with --sass DIR the SASS of the draw kernels goes to
+    DIR/sass_draws_<build>.txt (where DRAW_SCORE_INSTRUCTIONS is counted).
 Kernel times are CUDA events around the wrapper's call. The build log's
 registers and spills of the timed kernels' template instances are printed.
 The last line is one JSON object of every number.
 """
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -78,7 +85,8 @@ def ptxas_lines(build_dir, names):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
-    parser.add_argument("--parts", default="masses,lane,steps,factor")
+    parser.add_argument("--parts", default="masses,lane,steps,factor,draws")
+    parser.add_argument("--sass", default=None, help="directory for the draw kernels' SASS")
     opts = parser.parse_args()
     root, parts = str(Path(opts.root).resolve()), opts.parts.split(",")
     sys.path.insert(0, root)
@@ -99,24 +107,28 @@ def main():
     print(f"root {root}: built in {LIBRARY.build_seconds:.1f} s", flush=True)
     for line in ptxas_lines(LIBRARY.build_dir, ("block_masses_kernel", "block_lane_kernel",
                                                 "factor_kernel", "factor_warp_kernel",
-                                                "pair_scores_kernel")):
+                                                "pair_scores_kernel", "stitch_draws_kernel",
+                                                "within_block_cols_kernel")):
         print("  ptxas", line)
     dev, f32 = torch.device("cuda"), torch.float32
     res = {"root": root, "card": card}
 
-    if "masses" in parts or "steps" in parts:
+    if "masses" in parts or "steps" in parts or "draws" in parts:
         bxs, bys = cs.pit_big_data(dev, f32)
         delta = torch.full((cs.PIT_T,), cs.PIT_DELTA, dtype=f32, device=dev)
     if "masses" in parts:
         masses(cs, KS, res, bxs, bys, delta)
-    xs, ys = cs.spatial_data(dev, f32)
-    sp_delta = torch.full((cs.SP_T,), cs.SP_DELTA0, dtype=f32, device=dev)
+    if {"lane", "steps", "factor"} & set(parts):
+        xs, ys = cs.spatial_data(dev, f32)
+        sp_delta = torch.full((cs.SP_T,), cs.SP_DELTA0, dtype=f32, device=dev)
     if "lane" in parts:
         lanes(cs, CF, res, dev, xs, ys, sp_delta)
     if "steps" in parts:
         steps(cs, res, dev, bxs, bys, delta, xs, ys, sp_delta)
     if "factor" in parts:
         factors(cs, CF, res, dev, xs, ys, sp_delta)
+    if "draws" in parts:
+        draws(cs, KS, res, dev, bxs, bys, delta, LIBRARY.build_dir, opts.sass)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -163,7 +175,8 @@ def steps(cs, res, dev, bxs, bys, delta, xs, ys, sp_delta):
         init, kernel = cs.sv_pit_kernel(bys, cs.PIT_N, draws=draws)
         box = [init(bxs)]
         res[f"pit_N4096_{draws}"] = profile(
-            lambda: box.__setitem__(0, kernel(box[0], delta, generator=gen)), 5, "block_masses")
+            lambda: box.__setitem__(0, kernel(box[0], delta, generator=gen)), 5,
+            ("block_masses", "stitch_draws", "within_block_cols"))
     for style in ("csmc-guided", "csmc-guided-grad"):
         init, kernel = cs.spatial_kernel(style, ys, cs.SP_D, cs.SP_N)
         box = [init(xs)]
@@ -216,6 +229,48 @@ def factors(cs, CF, res, dev, xs, ys, sp_delta):
             ("forward_factor", "backward_factor", "pair_scores", "block_lane"))
         print(f"  profile spatial_{style}: " + ", ".join(
             f"{k} {v:.3f}" for k, v in res[f"spatial_{style}"].items()), flush=True)
+
+
+def draws(cs, KS, res, dev, bxs, bys, delta, build_dir, sass_dir):
+    """The draw kernels on an N=4096 step's levels, at N=128 and on random
+    inputs; their SASS into sass_dir, if given."""
+    import importlib.util
+    import shutil
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", Path(__file__).resolve().parent / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    for mode, name in (("fused", "stitch_draws"), ("joint", "within_block_cols")):
+        fn = getattr(KS, name)
+        seen = cs.pit_step_inputs(*cs.sv_pit_kernel(bys, cs.PIT_N, stitch="blocked", draws=mode),
+                                  bxs, delta, seed=16)[name]
+        small = cs.pit_step_inputs(*cs.sv_pit_kernel(bys, 128, stitch="blocked", draws=mode),
+                                   bxs, delta, seed=16)[name][0]
+        res[f"{name}_level0_ms"] = cs.cuda_ms(lambda: fn(*seen[0]), 10)
+        res[f"{name}_levels_ms"] = [cs.cuda_ms(lambda a=a: fn(*a), 5) for a in seen]
+        res[f"{name}_step_ms"] = sum(res[f"{name}_levels_ms"])
+        res[f"{name}_N128_ms"] = cs.cuda_ms(lambda: fn(*small), 20)
+        for label, P, N, k in here.DRAW_CASES:
+            args = here.random_draw_inputs(dev, P, N, k, seed=17)[mode == "joint"]
+            res[f"{name}_N{N}_k{k}_ms"] = cs.cuda_ms(lambda: fn(*args), 10)
+        print(f"  {name} level 0 {res[f'{name}_level0_ms']:.4f} ms, the step's {len(seen)} "
+              f"levels {res[f'{name}_step_ms']:.4f} ms (" + ", ".join(
+                  f"{v:.4f}" for v in res[f"{name}_levels_ms"]) + "), " + ", ".join(
+                  f"{key[len(name) + 1:-3]} {res[key]:.4f} ms" for key in res
+                  if key.startswith(f"{name}_N")), flush=True)
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    lib = Path(build_dir) / "libaux_ssm_kernels.so"
+    if sass_dir and Path(cuobjdump).exists() and lib.exists():
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True)
+        keep = [part for part in sass.stdout.split("Function : ")[1:]
+                if "stitch_draws_kernel" in part.splitlines()[0]
+                or "within_block_cols_kernel" in part.splitlines()[0]]
+        out = Path(sass_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"sass_draws_{Path(build_dir).name}.txt"
+        path.write_text("".join("Function : " + part for part in keep))
+        print(f"  SASS of {len(keep)} draw kernels in {out}", flush=True)
 
 
 if __name__ == "__main__":

@@ -372,27 +372,36 @@ static void host_block_masses(int P, int nr, int nc, int k, int per_block_max, i
   }
 HOST_MASSES(f32, float)
 HOST_MASSES(f64, double)
-// The draws, float and double: each node's row CDF, then its draws in turn.
+// The draws, float and double, through the kernel's width dispatch: each
+// node's row CDF by one "warp", then its draws in turn, each by one warp
+// whose 32 lanes run in turn.
 template <typename S>
 static void host_stitch_draws(int P, int N, int k, int seed, int pair_offset, const S* rl,
                               const S* u, const S* Lb, const S* rf, const S* cf, const S* cb,
                               long long* rows, long long* cols) {
-  static S ic[kMaxNb * kTileStride], cdf[kMaxNb], red[1];
-  for (int p = 0; p < P; ++p) {
-    node_row_cdf<S>(0, 1, N, rl + (long)p * N, ic, cdf, red);
-    for (int i = 0; i < N; ++i)
-      stitch_draw<S, kMaxK>(p, i, N, k, (uint32_t)seed, pair_offset, u, Lb, rf, cf, cb, ic, cdf,
-                            (int64_t*)rows, (int64_t*)cols);
-  }
+  static S ic[kMaxNb * kRows], cdf[kMaxNb], pre[kMaxNb + 1], red[1], buf[kWarp * (kMaxK | 1)];
+  with_width(k, [&](auto Kc) {
+    constexpr int K = decltype(Kc)::value;
+    for (int p = 0; p < P; ++p) {
+      node_row_cdf<S>(0, 1, N, rl + (long)p * N, ic, cdf, pre, red);
+      for (int i = 0; i < N; ++i)
+        stitch_draw<S, K>(p, i, N, k, (uint32_t)seed, pair_offset, u, Lb, rf, cf, cb, ic, cdf,
+                          pre, buf, (int64_t*)rows, (int64_t*)cols);
+    }
+  });
 }
 template <typename S>
 static void host_within_block_cols(int P, int n, int nc, int k, int seed, int pair_offset,
                                    const long long* blocks, const S* rf_sel, const S* cf,
                                    const S* cb, long long* out) {
-  for (int p = 0; p < P; ++p)
-    for (int i = 0; i < n; ++i)
-      within_block_col<S, kMaxK>(p, i, n, nc, k, (uint32_t)seed, pair_offset,
-                                 (const int64_t*)blocks, rf_sel, cf, cb, (int64_t*)out);
+  static S buf[kWarp * (kMaxK | 1)];
+  with_width(k, [&](auto Kc) {
+    constexpr int K = decltype(Kc)::value;
+    for (int p = 0; p < P; ++p)
+      for (int i = 0; i < n; ++i)
+        within_block_col<S, K>(p, i, n, nc, k, (uint32_t)seed, pair_offset,
+                               (const int64_t*)blocks, rf_sel, cf, cb, buf, (int64_t*)out);
+  });
 }
 #define HOST_DRAWS(SUFFIX, S)                                                                 \
   extern "C" void h_stitch_draws_##SUFFIX(int P, int N, int k, int seed, int pair_offset,     \
@@ -867,19 +876,35 @@ def test_host_mass_plan(host_lib, P, nr, N, k, elem, R, whole):
     assert out.tolist() == [R, int(whole)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_host_stitch_draws_and_within_block_cols_match_plain(host_lib, dtype):
-    """The draws' stages (the row CDF, each draw's row, block and column) in
-    both widths, -inf biases and block masses included: indices bit-equal to
-    the plain version's."""
-    P, N, k, offset = 2, 256, 3, 5
+_DRAW_SHAPES = {"nb64-k1": (1, 8192, 1), "nb1-k3": (2, 128, 3), "nb2-k64": (2, 256, 64)}
+
+
+@pytest.mark.parametrize(
+    "dtype,P,N,k",
+    [(torch.float64, 2, 256, 3), (torch.float32, 2, 256, 3)]
+    + [(dt, *shape) for shape in _DRAW_SHAPES.values() for dt in (torch.float64, torch.float32)],
+    ids=["dtype0", "dtype1"] + [f"{name}-{dt}" for name in _DRAW_SHAPES for dt in ("f64", "f32")])
+def test_host_stitch_draws_and_within_block_cols_match_plain(host_lib, dtype, P, N, k):
+    """The draws' stages (the row CDF, each draw's row, block and column, one
+    warp a draw with its 32 lanes in turn) in both widths, through the
+    kernel's width dispatch (k = 1 reads cf directly, k > 1 through the
+    warp's staging buffer), -inf biases and block masses included: indices
+    bit-equal to the plain version's. nb = N / 128 = 64 runs the prefix sums'
+    shift-32 steps from the low lanes' blocks into the high ones; nb = 1 a
+    single tile. The block masses are those of the factors up to N = 256 and
+    random past it (the plain version would build an N x N score matrix)."""
+    offset = 5
+    nb = N // 128
     rng = np.random.default_rng(6)
     rf, cf = (torch.as_tensor(0.4 * rng.standard_normal((P, N, k)), dtype=dtype)
               for _ in range(2))
     cb = torch.as_tensor(rng.standard_normal((P, N)), dtype=dtype)
-    cb[0, [3, 200]] = -float("inf")
-    Lb = ST.block_masses(rf, cf, cb)
-    Lb[1, 7, 0] = -float("inf")
+    cb[0, [3, N - 56]] = -float("inf")
+    if N <= 256:
+        Lb = ST.block_masses(rf, cf, cb)
+    else:
+        Lb = torch.as_tensor(3.0 * rng.standard_normal((P, N, nb)), dtype=dtype)
+    Lb[P - 1, 7, 0] = -float("inf")
     rl = torch.as_tensor(rng.standard_normal((P, N)), dtype=dtype) + torch.logsumexp(Lb, -1)
     u = torch.as_tensor(rng.uniform(size=(P, N)), dtype=dtype)
     suffix = "f64" if dtype == torch.float64 else "f32"
@@ -889,10 +914,58 @@ def test_host_stitch_draws_and_within_block_cols_match_plain(host_lib, dtype):
     want_rows, want_cols = ST.stitch_draws(-7, rl, u, Lb, rf, cf, cb, offset)
     np.testing.assert_array_equal(rows.numpy(), want_rows.numpy())
     np.testing.assert_array_equal(cols.numpy(), want_cols.numpy())
-    blocks = torch.as_tensor(rng.integers(0, N // 128, (P, 100)))
+    assert len(set(want_rows.flatten().tolist())) > N // 4   # the rows spread over the tiles
+    if nb > 1:
+        assert len(set((want_cols // 128).flatten().tolist())) == nb
+    blocks = torch.as_tensor(rng.integers(0, nb, (P, 100)))
     rf_sel = rf[:, :100].contiguous()
     got = torch.full((P, 100), -1, dtype=torch.int64)
     _call(getattr(host_lib["stitching"], f"h_within_block_cols_{suffix}"), P, 100, N, k, 11,
           offset, blocks, rf_sel, cf, cb, got)
     np.testing.assert_array_equal(
         got.numpy(), ST.within_block_cols(11, blocks, rf_sel, cf, cb, offset).numpy())
+    # The block of each node's first draw all -inf: every score floors to
+    # -1e30 and the Gumbel term vanishes beside it, so its 128 columns tie;
+    # the first wins.
+    cb_tie = cb.clone()
+    for p in range(P):
+        cb_tie[p, 128 * blocks[p, 0]:128 * (blocks[p, 0] + 1)] = -float("inf")
+    _call(getattr(host_lib["stitching"], f"h_within_block_cols_{suffix}"), P, 100, N, k, 11,
+          offset, blocks, rf_sel, cf, cb_tie, got)
+    want = ST.within_block_cols(11, blocks, rf_sel, cf, cb_tie, offset)
+    assert bool((want[:, 0] == 128 * blocks[:, 0]).all())
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_host_stitch_draws_counted_tiles_not_a_prefix(host_lib):
+    """The shift-add prefix sums of the tile sums need not rise (float32, tile
+    sums of very different sizes): a draw whose t1 = u * total falls between
+    cdf[b + 1] < t1 <= cdf[b] counts tile b + 1 but not tile b. Such draws
+    take the tile sums in tile order (the plain version's loop), not the
+    node's running sums, which here would move some offsets: rows and
+    columns bit-equal to the plain version's."""
+    P, N, k, nb = 1, 8192, 1, 64
+    rng = np.random.default_rng(0)
+    level = np.repeat(rng.uniform(-rng.uniform(1.0, 30.0), 0.0, nb), 128)
+    rl = torch.as_tensor(level + 0.01 * rng.standard_normal(N), dtype=torch.float32)[None]
+    w = torch.exp(rl - rl.amax(-1, keepdim=True))
+    cdf = ST._lane_cumsum(ST._lane_cumsum(w.reshape(P, nb, 128))[..., -1])[0]
+    falls = torch.nonzero(cdf[1:] < cdf[:-1])[:, 0]
+    assert len(falls) > 0
+    u = torch.as_tensor(rng.uniform(size=(P, N)), dtype=torch.float32)
+    gaps = torch.stack([(cdf[falls + 1] + f * (cdf[falls] - cdf[falls + 1])) / cdf[-1]
+                        for f in np.linspace(0.0, 1.0, 9)], 1).flatten()
+    u[0, :len(gaps)] = gaps
+    below = cdf[None, :] < (u[0] * cdf[-1])[:, None]                  # (N, nb)
+    prefix = below.sum(-1, keepdim=True) > torch.arange(nb)[None, :]
+    assert int((below != prefix).any(-1).sum()) > 0
+    rf, cf = (torch.as_tensor(0.4 * rng.standard_normal((P, N, k)), dtype=torch.float32)
+              for _ in range(2))
+    cb = torch.as_tensor(rng.standard_normal((P, N)), dtype=torch.float32)
+    Lb = torch.as_tensor(3.0 * rng.standard_normal((P, N, nb)), dtype=torch.float32)
+    rows, cols = (torch.full((P, N), -1, dtype=torch.int64) for _ in range(2))
+    _call(host_lib["stitching"].h_stitch_draws_f32, P, N, k, 3, 0, rl, u, Lb, rf, cf, cb, rows,
+          cols)
+    want_rows, want_cols = ST.stitch_draws(3, rl, u, Lb, rf, cf, cb)
+    np.testing.assert_array_equal(rows.numpy(), want_rows.numpy())
+    np.testing.assert_array_equal(cols.numpy(), want_cols.numpy())

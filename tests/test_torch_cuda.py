@@ -585,6 +585,12 @@ def test_stitch_draws_and_within_block_cols_match_plain(dev, P, N, k):
         assert np.isfinite(draws[5].numpy()[np.arange(P)[:, None], got[1].numpy()]).all()
 
 
+def test_draw_log_matches_logf(dev):
+    """The draw kernels' float32 log equals logf bit for bit on every
+    positive normal float (the only arguments the draws give it)."""
+    assert K.stitching.draw_log_mismatches(dev) == 0
+
+
 def test_stitching_kernels_reject_what_they_do_not_take(dev):
     ST = K.stitching
     rf, cf, cb = (z.to(dev) for z in _stitch_factors(2, 8, 128, 65, seed=0))
