@@ -105,16 +105,17 @@ LIBRARY = _Library()
 
 def launch(name, dtype, *args):
     """Call the C entry `aux_<name>_<f32|f64>` on the current CUDA stream.
-    Tensors are passed as device pointers, Python ints as C ints, bools as
-    0/1; raises RuntimeError on a non-zero CUDA error code."""
+    Tensors are passed as device pointers, None as a null pointer, Python
+    ints as C ints, bools as 0/1; raises RuntimeError on a non-zero CUDA
+    error code."""
     if dtype not in _SUFFIX:
         raise TypeError(f"{name}: the CUDA kernels take float32 or float64, not {dtype}")
     lib = LIBRARY.get()
     fn = getattr(lib, f"aux_{name}_{_SUFFIX[dtype]}")
     c_args, types = [], []
     for a in args:
-        if isinstance(a, torch.Tensor):
-            c_args.append(ctypes.c_void_p(a.data_ptr()))
+        if isinstance(a, torch.Tensor) or a is None:
+            c_args.append(ctypes.c_void_p(None if a is None else a.data_ptr()))
             types.append(ctypes.c_void_p)
         else:
             c_args.append(ctypes.c_int(int(a)))

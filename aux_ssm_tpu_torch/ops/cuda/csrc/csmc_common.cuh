@@ -169,6 +169,76 @@ AUX_HD int warp_count_less(const S* a, int N, S v, int lane) {
 #endif
 }
 
+// One-warp sweeps (N <= kWarpN): lane l holds particles l kPer ...; on the
+// card one each, in the host build's one lane all of them.
+constexpr int kWarpN = 32;
+constexpr int kPer = kWarpN / AUX_LANES;
+
+// Entry idx of the values the lanes hold (lane l the entries l kPer ...), on
+// every lane.
+template <typename S>
+AUX_HD S lane_value(const S (&v)[kPer], int idx) {
+#ifdef __CUDA_ARCH__
+  static_assert(kPer == 1, "one particle a lane on the card");
+  return __shfl_sync(kFull, v[0], idx);
+#else
+  return v[idx];
+#endif
+}
+
+// min(#{i : cw[i] < v}, kWarpN - 1) for the nondecreasing cw the lanes hold
+// (+inf past N): on the card five shuffles that halve the range (a count
+// over all 32 lanes costs 32 shuffles, and one warp issues them one at a
+// time), the binary search in the host build.
+template <typename S>
+AUX_HD int lanes_below(const S (&cw)[kPer], S v) {
+#ifdef __CUDA_ARCH__
+  int pos = 0;
+#pragma unroll
+  for (int step = kWarpN / 2; step > 0; step >>= 1)
+    if (__shfl_sync(kFull, cw[0], pos + step - 1) < v) pos += step;
+  return pos;
+#else
+  return imin(count_less(cw, kWarpN, v), kWarpN - 1);
+#endif
+}
+
+// The sum over the lanes of c, which is 0 or 1 on the card (one ballot).
+AUX_HD int lanes_count(int c) {
+#ifdef __CUDA_ARCH__
+  return __popc(__ballot_sync(kFull, c != 0));
+#else
+  return c;
+#endif
+}
+
+// Inclusive prefix sums of v over the particles, in place; returns the
+// lane's inclusive total (its last entry before the offset is added).
+template <typename S>
+AUX_HD S lane_cumsum(S (&v)[kPer], int lane) {
+  S run = 0;
+  for (int q = 0; q < kPer; ++q) {
+    run += v[q];
+    v[q] = run;
+  }
+  const S inc = warp_scan(run, lane), off = inc - run;
+  for (int q = 0; q < kPer; ++q) v[q] += off;
+  return inc;
+}
+
+// The max over the lanes: for float one redux.sync on the integer image
+// that orders floats as their values (NaNs aside), shuffles for double.
+AUX_HD float lanes_max(float v) {
+#ifdef __CUDA_ARCH__
+  int k = __float_as_int(v);
+  k = __reduce_max_sync(kFull, k < 0 ? k ^ 0x7fffffff : k);
+  return __int_as_float(k < 0 ? k ^ 0x7fffffff : k);
+#else
+  return v;
+#endif
+}
+AUX_HD double lanes_max(double v) { return warp_max(v); }
+
 // Copy n values from global `src` to shared `dst` without waiting (cp.async,
 // a value an instruction), thread t of nt; async_wait() waits for all of this
 // thread's copies, and a barrier after it publishes them. The host build

@@ -134,8 +134,6 @@ AUX_HD void backward_factor_sweep(const Block<S>& b, int n, int N, int k, const 
 // N <= kWarpN: the pair scores, then the sweep on one warp.
 // ---------------------------------------------------------------------------
 
-constexpr int kWarpN = 32;                // particles of the one-warp path
-constexpr int kPer = kWarpN / AUX_LANES;  // a lane's particles: 1 on the card, all on the host
 constexpr int kPairChunk = 64;            // factor columns the pair-score pass stages at a time
 constexpr int kChunk = 4;                 // steps one bulk copy stages
 constexpr int kStages = 4;                // chunks in a one-warp sweep's ring
@@ -202,71 +200,6 @@ AUX_HD void pair_record(int tid, int nt, int t, int N, int k, int nv, const S* A
     rec[e] = i < nv ? v[(long)t * N + j] : i == nv && j == 0 ? s[t] : (S)0;
   }
 }
-
-// Entry idx of the values the lanes hold (lane l the entries l kPer ...), on
-// every lane.
-template <typename S>
-AUX_HD S lane_value(const S (&v)[kPer], int idx) {
-#ifdef __CUDA_ARCH__
-  static_assert(kPer == 1, "one particle a lane on the card");
-  return __shfl_sync(kFull, v[0], idx);
-#else
-  return v[idx];
-#endif
-}
-
-// min(#{i : cw[i] < v}, kWarpN - 1) for the nondecreasing cw the lanes hold
-// (+inf past N): on the card five shuffles that halve the range (a count
-// over all 32 lanes costs 32 shuffles, and one warp issues them one at a
-// time), the binary search in the host build.
-template <typename S>
-AUX_HD int lanes_below(const S (&cw)[kPer], S v) {
-#ifdef __CUDA_ARCH__
-  int pos = 0;
-#pragma unroll
-  for (int step = kWarpN / 2; step > 0; step >>= 1)
-    if (__shfl_sync(kFull, cw[0], pos + step - 1) < v) pos += step;
-  return pos;
-#else
-  return imin(count_less(cw, kWarpN, v), kWarpN - 1);
-#endif
-}
-
-// The sum over the lanes of c, which is 0 or 1 on the card (one ballot).
-AUX_HD int lanes_count(int c) {
-#ifdef __CUDA_ARCH__
-  return __popc(__ballot_sync(kFull, c != 0));
-#else
-  return c;
-#endif
-}
-
-// Inclusive prefix sums of v over the particles, in place; returns the
-// lane's inclusive total (its last entry before the offset is added).
-template <typename S>
-AUX_HD S lane_cumsum(S (&v)[kPer], int lane) {
-  S run = 0;
-  for (int q = 0; q < kPer; ++q) {
-    run += v[q];
-    v[q] = run;
-  }
-  const S inc = warp_scan(run, lane), off = inc - run;
-  for (int q = 0; q < kPer; ++q) v[q] += off;
-  return inc;
-}
-
-// The max over the lanes: for float one redux.sync on the integer image
-// that orders floats as their values (NaNs aside), shuffles for double.
-AUX_HD float lanes_max(float v) {
-#ifdef __CUDA_ARCH__
-  int k = __float_as_int(v);
-  k = __reduce_max_sync(kFull, k < 0 ? k ^ 0x7fffffff : k);
-  return __int_as_float(k < 0 ? k ^ 0x7fffffff : k);
-#else
-  return v;
-#endif
-}
-AUX_HD double lanes_max(double v) { return warp_max(v); }
 
 // The ring of staged records of a one-warp sweep: kStages slots of kChunk
 // records (ow words each) in shared memory, each with its barrier. The

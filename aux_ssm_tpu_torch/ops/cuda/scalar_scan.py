@@ -5,7 +5,7 @@ with their plain PyTorch versions (counterpart of
 B independent scalar filters run side by side: every array is (n, B), time
 on axis 0, and a scan combines along time in each column. Kernel and plain
 version share one chunk order, that of `filter_scan.chunked_scan_plain`
-(CHUNKS contiguous chunks, each scanned sequentially, the chunk totals by
+(CHUNKS = 128 contiguous chunks, each scanned sequentially, the chunk totals by
 Hillis-Steele, then each chunk combined with the total of the chunks before
 it), so they agree to rounding.
 
@@ -18,6 +18,8 @@ import torch
 from ._build import check_cuda_inputs, launch
 from .filter_scan import chunked_scan_plain
 from .kalman_fused import _on_cuda
+
+CHUNKS = 128  # kChunks of csrc/scalar_scan.cu: time chunks of a block
 
 
 def filter_combine(left, right):
@@ -59,7 +61,7 @@ def scalar_filter_scan_plain(elems):
     """Inclusive scan over axis 0 of scalar filtering elements (A, b, C, eta,
     J), each (n, B), under `filter_combine`."""
     return chunked_scan_plain(filter_combine, tuple(elems),
-                              _identity(elems[0], (1.0, 0.0, 0.0, 0.0, 0.0)))
+                              _identity(elems[0], (1.0, 0.0, 0.0, 0.0, 0.0)), CHUNKS)
 
 
 def scalar_filter_scan(elems):
@@ -88,9 +90,10 @@ def scalar_affine_scan_plain(gains, incs, reverse=False):
     `jax.lax.associative_scan(..., reverse=True)`."""
     identity = _identity(incs, (1.0, 0.0))
     if reverse:
-        g, e = chunked_scan_plain(affine_combine, (gains.flip(0), incs.flip(0)), identity)
+        g, e = chunked_scan_plain(affine_combine, (gains.flip(0), incs.flip(0)), identity,
+                                  CHUNKS)
         return g.flip(0), e.flip(0)
-    return chunked_scan_plain(affine_combine, (gains, incs), identity)
+    return chunked_scan_plain(affine_combine, (gains, incs), identity, CHUNKS)
 
 
 def scalar_affine_scan(gains, incs, reverse=False):

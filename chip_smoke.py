@@ -8,8 +8,9 @@ Phases (any failure raises, and the script exits non-zero):
      kernels from `aux_ssm_tpu_torch/ops/cuda/csrc/` and print the build time;
   1. each of the six kernels at the main path's shapes (T=1024, dx=16 flagship
      LGSSM, f32, inputs from a real filter pass) against its plain PyTorch
-     version on the same inputs in f32 and in f64, plus the scan at T=300 and
-     the f64 kernels against the f64 plain versions; then the whole MH step in
+     version on the same inputs in f32 and in f64, plus the filter scan at
+     T=300 and at n=2 (one combine: its chain's floor) and the f64 kernels
+     against the f64 plain versions; then the whole MH step in
      f64 on the card against the CPU at T=64, dx=8, given the same noise;
   2. 50 second-order MH steps at T=1024, dx=16, f32: acceptance >= 0.99 (the
      proposal is exact for this Gaussian target) and exactly 10 kernel
@@ -39,8 +40,10 @@ the rare-event model at T=2, N=25):
   8. the lane sweep kernel against its plain version for each model functor
      (f32 step by step from the kernel's own carry, f64 whole sweeps with
      identical ancestors; PGAS on and off): theta-logistic on the inputs of a
-     real PGAS step, the AR(1) toy at T=1024, N=4096, the rare-event guided
-     (on a real step's inputs, gradient off and on) and bootstrap models;
+     real PGAS step, and with PGAS on random inputs at N=1 (the one-warp
+     chain's floor), N=33 and N=1024 (the block path's edges), the AR(1) toy
+     at T=1024, N=4096 (the wide path), the rare-event guided (on a real
+     step's inputs, gradient off and on) and bootstrap models (one warp);
   9. f64 theta-logistic PGAS steps and rare-event steps of every style on the
      card against the CPU, given the same noise;
  10. the theta-logistic PGAS chain, f32, 300 + 1000 iterations: exactly one
@@ -361,6 +364,9 @@ def phase_kernels(dev):
     log("  scan at T=300 (the TPU's Hillis-Steele range):")
     compare("filter_scan_T300", FS.filter_scan, FS.filter_scan_plain,
             (tuple(z[:299].contiguous() for z in elems),), 298 * 18 * d3)
+    log("  the chain's floor, one combine (n=2):")
+    compare("filter_scan_n2", FS.filter_scan, FS.filter_scan_plain,
+            (tuple(z[:2].contiguous() for z in elems),), 18 * d3)
 
     _, ms, Ps, _, _ = FS.filter_scan(elems)
     ms, Ps = torch.cat([m0u[None], ms]), torch.cat([P0u[None], Ps])
@@ -989,6 +995,12 @@ def phase_lane_kernel(dev):
     result = check_lane(label, seen[f32], seen[f64], reps=20)
     no_pgas = {dt: a[:2] + (None,) + a[3:] for dt, a in seen.items()}
     check_lane(label, no_pgas[f32], no_pgas[f64], reps=20)
+    # The edges of the one-warp and block paths on the same model: N=1 (the
+    # chain's floor), N=33 and N=1024.
+    for N in (1, 33, 1024):
+        edge = {dt: a[:3] + random_lane_inputs(dev, dt, TL_T - 1, N, seed=12)
+                for dt, a in seen.items()}
+        check_lane(f"theta-logistic T={TL_T} N={N}", edge[f32], edge[f64], reps=20)
 
     n, N = 1023, 4096
     for pgas in (False, True):

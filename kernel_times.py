@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Times the block_masses, block-lane sweep, factor sweep and draw kernels of
-one checkout of the port on a CUDA card, at the main paths' shapes, and
-profiles the steps that run them.
+"""Times the block_masses, block-lane sweep, factor sweep, draw, filter-scan
+and lane-sweep kernels of one checkout of the port on a CUDA card, at the
+main paths' shapes, and profiles the steps that run them.
 
     python3 kernel_times.py                 # the checkout this file is in
     python3 kernel_times.py --root DIR      # the checkout unpacked at DIR
-    python3 kernel_times.py --parts draws   # some of: masses, lane, steps, factor, draws
+    python3 kernel_times.py --parts draws   # some of: masses, lane, steps, factor, draws,
+                                            #   scan, pgas
 
 To compare two checkouts, unpack the other into a directory that .gitignore
 lists and run both in one machine in turns (A, B, B, A): times on one card
@@ -33,7 +34,23 @@ the same seeds:
     N=128 step (nb=1), and on random inputs at N=8192 (nb=64, P=2, k=1) and
     N=2048, k=30 (chip_smoke.DRAW_CASES, made by this file's chip_smoke);
     with --sass DIR the SASS of the draw kernels goes to
-    DIR/sass_draws_<build>.txt (where DRAW_SCORE_INSTRUCTIONS is counted).
+    DIR/sass_draws_<build>.txt (where DRAW_SCORE_INSTRUCTIONS is counted);
+  - scan: the filter scan on the flagship's elements (T=1024, dx=dy=16, f32,
+    chip_smoke phase 1's inputs) at n=1023, at n=299 (T=300) and at n=2
+    (one combine: the chain's floor), the affine scan (n=1024, reversed) as
+    a guard; where the checkout has them, the clock64 cycles of one combine
+    on teams of 32, 64, 128 and 256 threads (f32 and f64) and the scan's
+    per-block timeline at n=1023 (cycles from a block's start to the end of
+    its chunk, each level, the hop for the chunks before it, its end: the
+    median over blocks and the last block's); torch.profiler over
+    first-order MH steps (T=1024, dx=16) with the scans' device ms;
+  - pgas: the lane sweep on a real theta-logistic PGAS step's inputs (T=256,
+    N=256, PGAS on and off), on random inputs at N=1 (the one-warp chain's
+    floor), N=33 and N=1024 (PGAS), on a real
+    rare-event csmc-guided step's inputs (T=2, N=25, PGAS), on random
+    rare-event bootstrap inputs (T=9, N=25) and at the AR(1) toy's T=1024,
+    N=4096 (the wide path), PGAS on and off; torch.profiler over
+    theta-logistic PGAS steps with the sweep's device ms.
 Kernel times are CUDA events around the wrapper's call. The build log's
 registers and spills of the timed kernels' template instances are printed.
 The last line is one JSON object of every number.
@@ -85,7 +102,7 @@ def ptxas_lines(build_dir, names):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
-    parser.add_argument("--parts", default="masses,lane,steps,factor,draws")
+    parser.add_argument("--parts", default="masses,lane,steps,factor,draws,scan,pgas")
     parser.add_argument("--sass", default=None, help="directory for the draw kernels' SASS")
     opts = parser.parse_args()
     root, parts = str(Path(opts.root).resolve()), opts.parts.split(",")
@@ -108,7 +125,10 @@ def main():
     for line in ptxas_lines(LIBRARY.build_dir, ("block_masses_kernel", "block_lane_kernel",
                                                 "factor_kernel", "factor_warp_kernel",
                                                 "pair_scores_kernel", "stitch_draws_kernel",
-                                                "within_block_cols_kernel")):
+                                                "within_block_cols_kernel", "FilterOp",
+                                                "filter_scan_kernel", "combine_cycles",
+                                                "lane_kernel", "lane_warp_kernel",
+                                                "lane_block_kernel")):
         print("  ptxas", line)
     dev, f32 = torch.device("cuda"), torch.float32
     res = {"root": root, "card": card}
@@ -129,6 +149,10 @@ def main():
         factors(cs, CF, res, dev, xs, ys, sp_delta)
     if "draws" in parts:
         draws(cs, KS, res, dev, bxs, bys, delta, LIBRARY.build_dir, opts.sass)
+    if "scan" in parts:
+        scans(cs, res, dev)
+    if "pgas" in parts:
+        pgas(cs, CF, res, dev)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -271,6 +295,108 @@ def draws(cs, KS, res, dev, bxs, bys, delta, build_dir, sass_dir):
         path = out / f"sass_draws_{Path(build_dir).name}.txt"
         path.write_text("".join("Function : " + part for part in keep))
         print(f"  SASS of {len(keep)} draw kernels in {out}", flush=True)
+
+
+def scans(cs, res, dev):
+    """The filter and affine scans at the MH step's shapes, the filter
+    scan's floor, combine cycles and timeline, and MH order-1 steps under
+    the profiler."""
+    import statistics
+    import torch
+    from aux_ssm_tpu_torch import get_kernel
+    from aux_ssm_tpu_torch.models import lgssm_flagship
+    from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
+    from aux_ssm_tpu_torch.ops.filtering import _make_associative_elements, kalman_update
+    from aux_ssm_tpu_torch.ops.sampling import _backward_maps
+    f32, T, DX = torch.float32, cs.T, cs.DX
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dyn, obs1, _ = lgssm_flagship.build_model(T, DX, device=dev, dtype=f32)
+    x = torch.zeros(T, DX, dtype=f32, device=dev)
+    u = x + (0.5 * cs.DELTA) ** 0.5 * torch.randn(T, DX, generator=gen, device=dev)
+    m0, P0, Fs, Qs, bs = dyn(x)
+    ys, Hs, Rs, cs_ = (z.contiguous() for z in obs1(x, u, cs.DELTA))
+    m0u, P0u, _ = kalman_update(ys[0], m0, P0, Hs[0], cs_[0], Rs[0])
+    elems = _make_associative_elements(Fs, Qs, bs, Hs[1:], Rs[1:], cs_[1:], ys[1:], m0u, P0u)
+    for label, k in (("n1023", T - 1), ("n299", 299), ("n2", 2)):
+        sub = tuple(z[:k].contiguous() for z in elems)
+        res[f"filter_scan_{label}_ms"] = cs.cuda_ms(lambda: FS.filter_scan(sub), 20)
+    _, ms, Ps, _, _ = FS.filter_scan(elems)
+    ms, Ps = torch.cat([m0u[None], ms]), torch.cat([P0u[None], Ps])
+    gains, incs = _backward_maps(torch.randn(T, DX, generator=gen, device=dev), ms, Ps, Fs, Qs, bs)
+    res["affine_scan_n1024_ms"] = cs.cuda_ms(lambda: FS.affine_scan(gains, incs, True), 20)
+    print("  scans " + ", ".join(f"{k[:-3]} {v:.4f} ms" for k, v in res.items()
+                                 if k.endswith("_ms") and "scan_n" in k), flush=True)
+    if hasattr(FS, "combine_cycles"):
+        for dt in (torch.float32, torch.float64):
+            e2 = tuple(z[:2].to(dt) for z in elems)
+            for nt in (32, 64, 128, 256):
+                key = f"combine_cycles_{str(dt)[6:]}_nt{nt}"
+                res[key] = FS.combine_cycles(e2, nt, 50)[0]
+        print("  combine cycles " + ", ".join(f"{k[15:]} {v:.0f}" for k, v in res.items()
+                                              if k.startswith("combine_cycles")), flush=True)
+    if hasattr(FS, "filter_scan_timeline"):
+        FS.filter_scan_timeline(elems)
+        st = FS.filter_scan_timeline(elems)[1].cpu().double()
+        rel = st - st[:, :1]
+        res["timeline_median_cycles"] = [statistics.median(rel[:, i].tolist())
+                                         for i in range(rel.shape[1])]
+        res["timeline_last_block_cycles"] = rel[-1].tolist()
+        res["timeline_spread_start_cycles"] = float(st[:, 0].max() - st[:, 0].min())
+        print("  timeline (cycles from a block's start: chunk, levels, hop, end): median "
+              + " ".join(f"{v:.0f}" for v in res["timeline_median_cycles"][1:]) + "; last block "
+              + " ".join(f"{v:.0f}" for v in res["timeline_last_block_cycles"][1:]), flush=True)
+    dyn2, o1, _, tf = lgssm_flagship.build_order2_factory(T, DX, device=dev, dtype=f32)
+    init, kernel = get_kernel(dyn2, o1, tf, parallel=True)
+    box, g = [init(torch.zeros(T, DX, dtype=f32, device=dev))], torch.Generator(device=dev)
+    g.manual_seed(3)
+    res["mh_order1"] = profile(lambda: box.__setitem__(0, kernel(box[0], cs.DELTA, generator=g)),
+                               20, ("FilterOp", "filter_scan_kernel", "AffineOp"))
+    print("  profile mh_order1: " + ", ".join(f"{k} {v:.3f}" for k, v in res["mh_order1"].items()),
+          flush=True)
+
+
+def pgas(cs, CF, res, dev):
+    """The lane sweep at the scalar-state models' shapes and its floor, and
+    theta-logistic PGAS steps under the profiler."""
+    import torch
+    from aux_ssm_tpu_torch.models import ar1_gauss, rare_event as rev, theta_logistic as tl
+    f32 = torch.float32
+    xs, ys = cs.theta_data(dev, f32)
+    init, kernel = tl.get_pgas_kernel(ys, cs.TL_N)
+    with cs.recording_sweeps() as rec:
+        kernel(init(xs), generator=torch.Generator(device=dev).manual_seed(8))
+    theta = rec["lane_scan"]
+    Mt, Gt = theta[0], theta[1]
+    cases = {"theta_N256_pgas": theta, "theta_N256": theta[:2] + (None,) + theta[3:]}
+    for N in (1, 33, 1024):  # the one-warp chain's floor; the block path's edges
+        cases[f"theta_N{N}_pgas"] = (Mt, Gt, Mt) + cs.random_lane_inputs(dev, f32, cs.TL_T - 1,
+                                                                         N, 9)
+    y, rho, r2, T_ = cs.RE_CELL
+    init, kernel = rev.get_guided_csmc_kernel(y, rho, r2, T_, cs.RE_N, backward=True, dtype=f32,
+                                              device=dev)
+    with cs.recording_sweeps() as rec:
+        kernel(init(torch.tensor([[3.0], [3.4]], dtype=f32, device=dev)), 1.0,
+               generator=torch.Generator(device=dev).manual_seed(10))
+    guided = rec["lane_scan"]
+    cases["rare_guided_N25_pgas"] = guided[:2] + (guided[0],) + guided[3:]
+    _, _, Mb, Gb = rev.get_feynman_kac(y, rho, r2, 9, dtype=f32, device=dev)
+    cases["rare_bootstrap_T9_N25"] = (Mb, Gb, None) + cs.random_lane_inputs(dev, f32, 8,
+                                                                            cs.RE_N, 11)
+    _, _, Ma, Ga = ar1_gauss.get_feynman_kac(torch.zeros(1023, 1, dtype=f32, device=dev))
+    ar = cs.random_lane_inputs(dev, f32, 1023, 4096, 9)
+    cases["ar1_N4096"] = (Ma, Ga, None) + ar
+    cases["ar1_N4096_pgas"] = (Ma, Ga, Ma) + ar
+    for label, args in cases.items():
+        reps = 3 if "N4096" in label else 20
+        res[f"lane_{label}_ms"] = cs.cuda_ms(lambda: CF.lane_scan(*args), reps)
+    print("  lane " + ", ".join(f"{k[5:-3]} {v:.4f} ms" for k, v in res.items()
+                                if k.startswith("lane_")), flush=True)
+    init, kern = tl.get_pgas_kernel(ys, cs.TL_N, ancestor_sampling=True)
+    box, g = [init(xs)], torch.Generator(device=dev).manual_seed(14)
+    res["theta_pgas_step"] = profile(lambda: box.__setitem__(0, kern(box[0], generator=g)), 50,
+                                     "lane_")
+    print("  profile theta_pgas_step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in res["theta_pgas_step"].items()), flush=True)
 
 
 if __name__ == "__main__":

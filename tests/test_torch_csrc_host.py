@@ -75,34 +75,65 @@ void h_logdensity_steps(int n, int dx, int dy, const double* F, const double* Q,
 """
 
 _SCAN = """
+#include <vector>
 #include "scan.cu"
 #define D %(D)d
 template <class Op>
 static void host_scan(int n, int d, bool rev, typename Op::View x, typename Op::View out,
                       typename Op::View t0, typename Op::View t1) {
   typename Op::Scalar sm[Op::kScratch];
-  for (int c = 0; c < kChunks; ++c) scan_chunk<Op>(0, 1, c, n, d, rev, x, out, t0, sm);
+  for (int c = 0; c < kAffineChunks; ++c) scan_chunk<Op>(0, 1, c, n, d, rev, x, out, t0, sm);
   typename Op::View src = t0, dst = t1;
-  for (int off = 1; off < kChunks; off *= 2) {
-    for (int c = 0; c < kChunks; ++c) scan_level<Op>(0, 1, c, off, d, src, dst, sm);
+  for (int off = 1; off < kAffineChunks; off *= 2) {
+    for (int c = 0; c < kAffineChunks; ++c) scan_level<Op>(0, 1, c, off, d, src, dst, sm);
     typename Op::View t = src; src = dst; dst = t;
   }
-  for (int c = 0; c < kChunks; ++c) scan_apply<Op>(0, 1, c, n, d, rev, src, out, sm);
+  for (int c = 0; c < kAffineChunks; ++c) scan_apply<Op>(0, 1, c, n, d, rev, src, out, sm);
 }
 extern "C" {
+// The filter kernel's phases, one block ("thread" 0 of 1) at a time: each
+// chunk's scan; the levels (block c takes a copy of block c - 2^L's value,
+// as from global memory); each chunk's apply, on the prefixes its scan left
+// in shared memory (later windows staged from the output), each element on
+// its own "team".
 void h_filter_scan(int n, int d, double* A, double* b, double* C, double* e, double* J,
-                   double* oA, double* ob, double* oC, double* oe, double* oJ, double* s) {
-  using V = FilterView<double>;
-  const long mat = (long)kChunks * d * d, vec = (long)kChunks * d;
-  double* s1 = s + 3 * mat + 2 * vec;
-  host_scan<FilterOp<double, D>>(n, d, false, V{A, b, C, e, J}, V{oA, ob, oC, oe, oJ},
-      V{s, s + mat, s + mat + vec, s + 2 * mat + vec, s + 2 * mat + 2 * vec},
-      V{s1, s1 + mat, s1 + mat + vec, s1 + 2 * mat + vec, s1 + 2 * mat + 2 * vec});
+                   double* oA, double* ob, double* oC, double* oe, double* oJ) {
+  constexpr int K = kFilterD, slot = Lay<K>::slot, per = kRing + 4;
+  const FilterView<double> x{A, b, C, e, J}, out{oA, ob, oC, oe, oJ};
+  const FilterPlan pl = filter_plan(n);
+  std::vector<double> mem((size_t)pl.chunks * per * slot), partner(slot), work(Lay<K>::work);
+  std::vector<double*> cur(pl.chunks);
+  // Chunk c's slots: kRing prefixes, two inputs, two running totals.
+  auto at = [&](int c, int g) { return mem.data() + ((size_t)c * per + g) * slot; };
+  for (int c = 0; c < pl.chunks; ++c) {
+    for (int g = 0; g < kRing + 2; ++g) pad_slot<double, K>(0, 1, d, at(c, g));
+    cur[c] = chunk_scan<double, K, 1>(0, 0, pl, c, n, d, x, out, at(c, 0), at(c, kRing),
+                                      at(c, kRing + 2), at(c, kRing + 3), work.data());
+  }
+  for (int L = 0; L < pl.levels; ++L)
+    for (int c = pl.chunks - 1; c >= (1 << L); --c) {
+      std::copy(cur[c - (1 << L)], cur[c - (1 << L)] + slot, partner.data());
+      double* dst = cur[c] == at(c, kRing + 2) ? at(c, kRing + 3) : at(c, kRing + 2);
+      level_combine<double, K, 1>(0, 0, partner.data(), cur[c], dst, work.data());
+      cur[c] = dst;
+    }
+  for (int c = pl.chunks - 1; c > 0; --c) {
+    const long k0 = (long)c * pl.per;
+    const long cnt = n - k0 < pl.per ? (n - k0 > 0 ? n - k0 : 0) : pl.per;
+    for (long i0 = 0; i0 < cnt; i0 += kRing) {
+      if (i0 > 0)  // a later window: its prefixes from the output
+        for (long i = i0; i < i0 + kRing && i < cnt; ++i)
+          stage_element<double, K>(0, 1, out, k0 + i, d, at(c, (int)(i - i0)));
+      for (long i = i0; i < i0 + kRing && i < cnt; ++i)
+        apply_element<double, K, 1>(0, 0, cur[c - 1], at(c, (int)(i - i0)), work.data(), out,
+                                    k0 + i, d);
+    }
+  }
 }
 void h_affine_scan(int n, int d, int rev, double* G, double* e, double* oG, double* oe,
                    double* s) {
   using V = AffineView<double>;
-  const long mat = (long)kChunks * d * d, vec = (long)kChunks * d;
+  const long mat = (long)kAffineChunks * d * d, vec = (long)kAffineChunks * d;
   double* s1 = s + mat + vec;
   host_scan<AffineOp<double, D>>(n, d, rev != 0, V{G, e}, V{oG, oe}, V{s, s + mat},
                                  V{s1, s1 + mat});
@@ -277,31 +308,57 @@ void h_scalar_affine_scan(int n, int B, int rev, double* g, double* e, double* o
 """
 
 _CSMC_LANE = """
+#include <type_traits>
+#include <vector>
 #include "csmc_lane.cu"
+// The sweep on the path its launcher takes: N <= kWarpN one warp (one lane
+// here), N <= kLaneBlockN one block (one thread), past it the wide path.
 template <class Model>
 static void host_lane(int n, int N, int pgas, const double* eps, const double* res_u,
     const double* anc_u, const double* x_star, const double* x0, const double* w0,
-    const double* consts, const double* params, double* xs, double* log_ws, long long* anc,
-    double* scratch) {
-  double red[33];
-  int a0 = 0;
-  const csmc::Block<double> b{0, 1, red};
-  const Model model(consts, params);
-  double *w = scratch, *cw = scratch + N, *xp = scratch + 2 * N;
-  if (pgas)
-    lane_sweep<double, true>(b, n, N, eps, res_u, anc_u, x_star, x0, w0, model, xs, log_ws,
-                             anc, w, cw, xp, &a0);
-  else
-    lane_sweep<double, false>(b, n, N, eps, res_u, anc_u, x_star, x0, w0, model, xs, log_ws,
-                              anc, w, cw, xp, &a0);
+    const double* consts, const double* params, double* xs, double* log_ws, long long* anc) {
+  if (N <= kWarpN) {
+    if (pgas)
+      lane_sweep_warp<double, true, Model>(0, n, N, eps, res_u, anc_u, x_star, x0, w0, consts,
+                                           params, xs, log_ws, anc);
+    else
+      lane_sweep_warp<double, false, Model>(0, n, N, eps, res_u, anc_u, x_star, x0, w0, consts,
+                                            params, xs, log_ws, anc);
+  } else if (N <= kLaneBlockN) {
+    std::vector<double> sh(LaneBlockLayout(N).words);
+    auto run = [&](auto nw) {
+      constexpr int NW = decltype(nw)::value;
+      if (pgas)
+        lane_sweep_block<double, true, NW, Model>(0, 1, n, N, eps, res_u, anc_u, x_star, x0,
+                                                  w0, consts, params, xs, log_ws, anc,
+                                                  sh.data());
+      else
+        lane_sweep_block<double, false, NW, Model>(0, 1, n, N, eps, res_u, anc_u, x_star, x0,
+                                                   w0, consts, params, xs, log_ws, anc,
+                                                   sh.data());
+    };
+    if (N <= 256) run(std::integral_constant<int, 8>());
+    else run(std::integral_constant<int, 32>());
+  } else {
+    std::vector<double> sh(3 * (size_t)N + 33);
+    int a0 = 0;
+    const csmc::Block<double> b{0, 1, sh.data() + 3 * N};
+    const Model model(consts, params);
+    if (pgas)
+      lane_sweep<double, true>(b, n, N, eps, res_u, anc_u, x_star, x0, w0, model, xs, log_ws,
+                               anc, sh.data(), sh.data() + N, sh.data() + 2 * N, &a0);
+    else
+      lane_sweep<double, false>(b, n, N, eps, res_u, anc_u, x_star, x0, w0, model, xs, log_ws,
+                                anc, sh.data(), sh.data() + N, sh.data() + 2 * N, &a0);
+  }
 }
 #define HOST_LANE(NAME, MODEL)                                                               \
   extern "C" void h_lane_##NAME(int n, int N, int pgas, const double* eps,                   \
       const double* res_u, const double* anc_u, const double* x_star, const double* x0,      \
       const double* w0, const double* consts, const double* params, double* xs,              \
-      double* log_ws, long long* anc, double* scratch) {                                     \
+      double* log_ws, long long* anc) {                                                      \
     host_lane<csmc::MODEL<double>>(n, N, pgas, eps, res_u, anc_u, x_star, x0, w0, consts,    \
-                                   params, xs, log_ws, anc, scratch);                        \
+                                   params, xs, log_ws, anc);                                 \
   }
 HOST_LANE(theta_logistic, ThetaLogistic)
 HOST_LANE(rare_event_guided, RareEventGuided)
@@ -502,7 +559,12 @@ def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac):
     _close(got, want)
 
 
-@pytest.mark.parametrize("T,dx,dy", [(17, 2, 2), (300, 3, 2), (129, 1, 1)])
+# T - 1 = n elements in FS.filter_chunks(n) chunks of ceil(n / chunks): one
+# chunk (n = 1), an empty last chunk and n not a multiple of the chunk (n =
+# 9, 299), d = 1 and d = 16, the main path's n = 1023 (128 chunks of 8) at a
+# small d, and chunks longer than the prefixes the kernel keeps (n = 1100: 9).
+@pytest.mark.parametrize("T,dx,dy", [(17, 2, 2), (300, 3, 2), (129, 1, 1), (2, 2, 2),
+                                     (10, 3, 2), (40, 16, 16), (1024, 2, 1), (1101, 1, 1)])
 def test_host_filter_scan_matches_plain(host_lib, T, dx, dy):
     lg, ys = _model(T, dx, dy, seed=3)
     m0, P0, Fs, Qs, bs, Hs, Rs, cs = lg
@@ -511,8 +573,7 @@ def test_host_filter_scan_matches_plain(host_lib, T, dx, dy):
         Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], m0u, P0u))
     want = FS.filter_scan_plain(elems)
     got = tuple(torch.empty_like(z) for z in elems)
-    scratch = torch.empty(2 * FS.CHUNKS * (3 * dx * dx + 2 * dx), dtype=torch.float64)
-    _call(host_lib["scan"].h_filter_scan, T - 1, dx, *elems, *got, scratch)
+    _call(host_lib["scan"].h_filter_scan, T - 1, dx, *elems, *got)
     for g, w in zip(got, want):
         _close(g, w)
 
@@ -524,7 +585,7 @@ def test_host_affine_scan_matches_plain(host_lib, T, d, reverse):
     incs = torch.as_tensor(rng.standard_normal((T, d)))
     want = FS.affine_scan_plain(gains, incs, reverse=reverse)
     got = tuple(torch.empty_like(z) for z in want)
-    scratch = torch.empty(2 * FS.CHUNKS * (d * d + d), dtype=torch.float64)
+    scratch = torch.empty(2 * FS.AFFINE_CHUNKS * (d * d + d), dtype=torch.float64)
     _call(host_lib["scan"].h_affine_scan, T, d, reverse, gains, incs, *got, scratch)
     for g, w in zip(got, want):
         _close(g, w)
@@ -743,11 +804,18 @@ def _lane_model(model, T):
                                torch.as_tensor(rng.uniform(0.3, 0.9, T)))[2:]
 
 
+# Each path the launcher takes: N <= 32 one warp (N = 1, 16, 25, 32), N <=
+# 1024 one block (33, 256, 300), past it the wide path (2048).
 @pytest.mark.parametrize("pgas", [False, True])
 @pytest.mark.parametrize("model,T,N", [
     ("theta_logistic", 24, 32), ("theta_logistic", 5, 2048), ("rare_event_guided", 2, 25),
     ("rare_event_guided", 9, 16), ("rare_event_guided_grad", 9, 16),
-    ("rare_event_bootstrap", 9, 16), ("ar1_gauss", 12, 300)])
+    ("rare_event_bootstrap", 9, 16), ("ar1_gauss", 12, 300),
+    ("theta_logistic", 12, 1), ("theta_logistic", 12, 25), ("theta_logistic", 12, 33),
+    ("theta_logistic", 12, 256), ("rare_event_guided", 9, 1), ("rare_event_guided", 9, 33),
+    ("rare_event_guided_grad", 9, 256), ("rare_event_bootstrap", 9, 32),
+    ("rare_event_bootstrap", 9, 33), ("rare_event_bootstrap", 9, 256), ("ar1_gauss", 12, 1),
+    ("ar1_gauss", 12, 25), ("ar1_gauss", 12, 33), ("ar1_gauss", 12, 256)])
 def test_host_lane_matches_plain(host_lib, model, T, N, pgas):
     Mt, Gt = _lane_model(model, T)
     n = T - 1
@@ -761,9 +829,8 @@ def test_host_lane_matches_plain(host_lib, model, T, N, pgas):
     assert (consts.numel(), params.shape[1]) == CF.LANE_MODELS[Gt.cuda_model]
     xs, lw = (torch.empty(n, N, dtype=torch.float64) for _ in range(2))
     anc = torch.empty(n, N, dtype=torch.int64)
-    scratch = torch.empty(3 * N, dtype=torch.float64)
     _call(getattr(host_lib["csmc_lane"], f"h_lane_{Gt.cuda_model}"), n, N, pgas, *inputs,
-          consts, params.contiguous(), xs, lw, anc, scratch)
+          consts, params.contiguous(), xs, lw, anc)
     np.testing.assert_array_equal(anc.numpy(), want[2].numpy())
     _close(xs, want[0])
     _close(lw, want[1])

@@ -93,7 +93,8 @@ def test_maps_match_plain(dev, T, dx, dy, nan_frac):
     _close(*_both(KF.logdensity_steps, (Fs, Qs, bs, *obs, xs[:-1], xs[1:]), dev))
 
 
-@pytest.mark.parametrize("T,dx,dy", [(17, 2, 2), (300, 3, 2), (1025, 4, 3)])
+@pytest.mark.parametrize("T,dx,dy", [(17, 2, 2), (300, 3, 2), (1025, 4, 3), (2, 2, 2),
+                                     (40, 16, 16), (1101, 3, 2)])
 def test_filter_scan_matches_plain(dev, T, dx, dy):
     lg, ys = _model(T, dx, dy, seed=3)
     m0, P0, Fs, Qs, bs, Hs, Rs, cs = lg
@@ -270,7 +271,8 @@ def _lane_model(model, T, where):
 @pytest.mark.parametrize("model,T,N", [
     ("theta_logistic", 24, 32), ("theta_logistic", 40, 256), ("theta_logistic", 5, 8192),
     ("rare_event_guided", 2, 25), ("rare_event_guided_grad", 9, 16),
-    ("rare_event_bootstrap", 9, 16), ("ar1_gauss", 12, 4096)])
+    ("rare_event_bootstrap", 9, 16), ("ar1_gauss", 12, 4096), ("theta_logistic", 24, 1),
+    ("theta_logistic", 24, 33), ("ar1_gauss", 12, 1024)])
 def test_lane_matches_plain(dev, model, T, N, pgas):
     n = T - 1
     rng = np.random.default_rng(N)
