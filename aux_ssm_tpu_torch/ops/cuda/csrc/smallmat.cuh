@@ -44,12 +44,6 @@ AUX_HD S finite_or_zero(S x) {
 }
 
 template <typename S>
-AUX_HD void eye(int lane, int nl, int d, S* Z) {
-  for (int e = lane; e < d * d; e += nl) Z[e] = e / d == e % d ? (S)1 : (S)0;
-  AUX_SYNC();
-}
-
-template <typename S>
 AUX_HD void copy(int lane, int nl, int n, const S* X, S* out) {
   for (int e = lane; e < n; e += nl) out[e] = X[e];
   AUX_SYNC();
@@ -79,35 +73,12 @@ AUX_HD void mm_nt(int lane, int nl, int p, int q, int r, const S* X, const S* Y,
   AUX_SYNC();
 }
 
-// out (p, r) = X^T @ Y, with X stored (q, p) and Y (q, r)
-template <typename S>
-AUX_HD void mm_tn(int lane, int nl, int p, int q, int r, const S* X, const S* Y, S* out) {
-  for (int e = lane; e < p * r; e += nl) {
-    const int i = e / r, j = e % r;
-    S acc = (S)0;
-    for (int k = 0; k < q; ++k) acc += X[k * p + i] * Y[k * r + j];
-    out[e] = acc;
-  }
-  AUX_SYNC();
-}
-
 // out (p,) = X (p, q) @ v (q,)
 template <typename S>
 AUX_HD void mv(int lane, int nl, int p, int q, const S* X, const S* v, S* out) {
   for (int i = lane; i < p; i += nl) {
     S acc = (S)0;
     for (int k = 0; k < q; ++k) acc += X[i * q + k] * v[k];
-    out[i] = acc;
-  }
-  AUX_SYNC();
-}
-
-// out (p,) = X^T v, with X stored (q, p)
-template <typename S>
-AUX_HD void mtv(int lane, int nl, int p, int q, const S* X, const S* v, S* out) {
-  for (int i = lane; i < p; i += nl) {
-    S acc = (S)0;
-    for (int k = 0; k < q; ++k) acc += X[k * p + i] * v[k];
     out[i] = acc;
   }
   AUX_SYNC();
@@ -182,31 +153,6 @@ AUX_HD S spd_solve(int lane, int nl, int d, int r, const S* Sm, const S* B, S* L
   tri_solve_lower(lane, nl, d, r, L, B, X);
   tri_solve_lower_T(lane, nl, d, r, L, X, X);
   return log_det;
-}
-
-// Z = M^{-1} by Gauss-Jordan without pivoting; M is overwritten and `col`
-// (d,) is scratch. Safe for the scan's I + C1 J2, which is similar to
-// I + SPD (eigenvalues >= 1).
-template <typename S>
-AUX_HD void gj_inv(int lane, int nl, int d, S* M, S* Z, S* col) {
-  eye(lane, nl, d, Z);
-  for (int k = 0; k < d; ++k) {
-    const S inv_p = (S)1 / M[k * d + k];
-    AUX_SYNC();  // every lane has read the pivot before row k changes
-    for (int j = lane; j < d; j += nl) {
-      M[k * d + j] *= inv_p;
-      Z[k * d + j] *= inv_p;
-    }
-    for (int i = lane; i < d; i += nl) col[i] = M[i * d + k];
-    AUX_SYNC();
-    for (int e = lane; e < d * d; e += nl) {
-      const int i = e / d, j = e % d;
-      if (i == k) continue;
-      M[e] -= col[i] * M[k * d + j];
-      Z[e] -= col[i] * Z[k * d + j];
-    }
-    AUX_SYNC();
-  }
 }
 
 }  // namespace smallmat

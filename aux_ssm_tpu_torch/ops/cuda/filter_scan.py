@@ -5,37 +5,38 @@ and of `fused_affine_scan` in `aux_ssm_tpu/ops/pallas/kalman_fused.py`).
 Both scans use one chunk order: the n elements are cut into C contiguous
 chunks of ceil(n / C); each chunk is scanned sequentially, the chunk totals
 by Hillis-Steele, and each chunk's elements are then combined with the total
-of the chunks before it. The filter scan takes C from n (`filter_chunks`:
-about n / 4, a power of two, at most 128), the affine scan C =
-AFFINE_CHUNKS. The plain versions run the same chunks in the same order, so
-kernel and plain agree to rounding.
+of the chunks before it. C is a power of two taken from n (`scan_chunks`);
+the plain versions run the same chunks in the same order, so kernel and
+plain agree to rounding.
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
-launches the kernel or raises. On the card the filter scan is one launch (the
-chunks' blocks hand the totals on through a buffer in global memory that the
-module keeps, one a device and dtype); the affine scan
-runs its three passes as 2 + log2(AFFINE_CHUNKS) launches on the current
-stream. Each wrapper counts its calls into the kernel library in its
-`launches` attribute.
+launches the kernel or raises. On the card each scan is one launch on the
+current stream: the chunks' blocks hand their totals on through words in
+global memory, with a {ticket, blocks done, epoch} state that the kernel
+leaves ready for the next launch. The module keeps one buffer and state for
+each scan, device, dtype and stream (`_hand_state`), so launches on one
+stream follow each other and launches on two streams never share a state.
+One rule remains: a CUDA graph captured around a scan holds that stream's
+state, so it must not be replayed on two streams at once. Each wrapper counts
+its calls into the kernel library in its `launches` attribute.
 """
 import torch
 
 from ._build import MAX_DIM, check_cuda_inputs, launch
 from .kalman_fused import _check_shapes, _on_cuda
 
-AFFINE_CHUNKS = 128  # kAffineChunks of csrc/scan.cu: one warp (block) per chunk
-FILTER_PER = 4       # kFilterPer: the elements a filter-scan chunk aims at
-FILTER_MAX_CHUNKS = 128  # kFilterMaxChunks
-FILTER_D = 16        # kFilterD: the filter combine's padded dimension
-FILTER_SLOT = 992    # Lay<16>::slot: values of one padded element (rows of 20)
+# Values of one padded element (scan.cu's OpLay<Op>::slot, rows of 20): the
+# filter's A, C, J and b, eta; the affine scan's G and e.
+SLOTS = {"filter": 992, "affine": 336}
+CHUNK_PER, MAX_CHUNKS = 4, 128  # the elements a chunk aims at; chunks at most (a block an SM)
 
 
-def filter_chunks(n):
-    """The filter scan's chunk count for n elements (filter_plan of
-    csrc/scan.cu): the least power of two >= ceil(n / FILTER_PER), at most
-    FILTER_MAX_CHUNKS."""
-    want, chunks = -(-n // FILTER_PER), 1
-    while chunks < want and chunks < FILTER_MAX_CHUNKS:
+def scan_chunks(n):
+    """Both scans' chunk count for n elements, as scan.cu's `scan_plan`
+    takes it: the least power of two >= ceil(n / CHUNK_PER), at most
+    MAX_CHUNKS."""
+    want, chunks = -(-n // CHUNK_PER), 1
+    while chunks < want and chunks < MAX_CHUNKS:
         chunks *= 2
     return chunks
 
@@ -92,7 +93,7 @@ def filter_scan_plain(elems):
     from ..filtering import filtering_operator  # filtering imports this module
 
     return chunked_scan_plain(filtering_operator, elems, _filter_identity(elems[1]),
-                              filter_chunks(elems[1].shape[0]))
+                              scan_chunks(elems[1].shape[0]))
 
 
 def filter_scan(elems):
@@ -106,7 +107,7 @@ def filter_scan(elems):
     args = check_cuda_inputs("filter_scan", (A, b, C, e, J), b.dtype, MAX_DIM, (d,))
     out = tuple(torch.empty_like(z) for z in args)
     if n:
-        launch("filter_scan", b.dtype, n, d, *args, *out, *_filter_state(n, b), None)
+        launch("filter_scan", b.dtype, n, d, *args, *out, *_hand_state("filter", n, b), None)
         filter_scan.launches += 1
     return out
 
@@ -114,24 +115,28 @@ def filter_scan(elems):
 filter_scan.launches = 0
 
 
-_HAND = {}  # (device, dtype) -> (hand-over words, state): the filter kernel's, kept
+_HAND = {}  # (scan, device, dtype, stream) -> (hand-over words, state), kept
 
 
-def _filter_state(n, b):
-    """The filter kernel's hand-over buffer (a padded element as 64-bit words
-    for each chunk at the start of each Hillis-Steele level and after the
-    last) and its state (ticket, blocks done, epoch), for this device and
-    dtype: zeros when made, kept from call to call (the kernel leaves the
-    state ready for the next launch and tells this launch's words from older
-    ones by the epoch), made larger when n needs more chunks. The kernel
-    must not run twice at once on one device (it runs on the current
-    stream, as every kernel of the port)."""
-    chunks = filter_chunks(n)
-    words = chunks.bit_length() * chunks * FILTER_SLOT * b.element_size() // 4
-    key = (b.device, b.dtype)
+def _hand_state(scan, n, ref):
+    """The hand-over buffer of `scan` ("filter" or "affine": a padded
+    element as 64-bit words for each of n elements' chunks at the start of
+    each Hillis-Steele level and after the last) and its state (ticket,
+    blocks done, epoch) for the device and dtype of `ref` and the current
+    stream, allocated on that stream: zeros when made, kept from call to call
+    (the kernel leaves the state ready for the next launch and tells this
+    launch's words from older ones by the epoch), made larger when more
+    chunks need it. Launches on one
+    stream run one after the other, so they never share a state in flight;
+    a CUDA graph captured around the scan keeps the capturing stream's state
+    and must not be replayed on two streams at once."""
+    stream = torch.cuda.current_stream(ref.device)
+    chunks = scan_chunks(n)
+    words = chunks.bit_length() * chunks * SLOTS[scan] * ref.element_size() // 4
+    key = (scan, ref.device, ref.dtype, stream.cuda_stream)
     if key not in _HAND or _HAND[key][0].numel() < words:
-        _HAND[key] = (torch.zeros(words, dtype=torch.int64, device=b.device),
-                      torch.zeros(4, dtype=torch.int32, device=b.device))
+        _HAND[key] = (torch.zeros(words, dtype=torch.int64, device=ref.device),
+                      torch.zeros(4, dtype=torch.int32, device=ref.device))
     return _HAND[key]
 
 
@@ -145,23 +150,24 @@ def filter_scan_timeline(elems):
     n, d = b.shape
     args = check_cuda_inputs("filter_scan", (A, b, C, e, J), b.dtype, MAX_DIM, (d,))
     out = tuple(torch.empty_like(z) for z in args)
-    chunks = filter_chunks(n)
+    chunks = scan_chunks(n)
     stamps = torch.zeros(chunks, chunks.bit_length() + 3, dtype=torch.int64, device=b.device)
-    launch("filter_scan", b.dtype, n, d, *args, *out, *_filter_state(n, b), stamps)
+    launch("filter_scan", b.dtype, n, d, *args, *out, *_hand_state("filter", n, b), stamps)
     return out, stamps
 
 
-def combine_cycles(elems, threads, reps):
-    """Diagnostics on the card: clock64 cycles of one filter combine on a
+def combine_cycles(elems, threads, reps, scan="filter"):
+    """Diagnostics on the card: clock64 cycles of one combine of `scan`
+    ("filter": elems = (A, b, C, eta, J); "affine": elems = (G, e)) on a
     team of `threads` (32, 64, 128 or 256), the mean over a chain of `reps`
     (l <- l (+) elems[1] from l = elems[0], each result the next one's
     input); returns (cycles, the last result)."""
-    A, b, C, e, J = (z[:2].contiguous() for z in elems)
-    d = b.shape[1]
-    args = check_cuda_inputs("filter_combine_cycles", (A, b, C, e, J), b.dtype, MAX_DIM, (d,))
+    args = tuple(z[:2].contiguous() for z in elems)
+    d = args[1].shape[1]
+    args = check_cuda_inputs(f"{scan}_combine_cycles", args, args[1].dtype, MAX_DIM, (d,))
     out = tuple(torch.empty_like(z[:1]) for z in args)
-    cycles = torch.zeros(1, dtype=torch.int64, device=b.device)
-    launch("filter_combine_cycles", b.dtype, d, threads, reps, *args, *out, cycles)
+    cycles = torch.zeros(1, dtype=torch.int64, device=args[1].device)
+    launch(f"{scan}_combine_cycles", args[1].dtype, d, threads, reps, *args, *out, cycles)
     return float(cycles) / reps, out
 
 
@@ -171,17 +177,27 @@ def combine_cycles(elems, threads, reps):
 
 def affine_scan_plain(gains, incs, reverse=False):
     """Inclusive scan of affine maps (G, e) under
-    `ops.sampling.sampling_operator`; `reverse=True` scans from the end, as
+    `ops.sampling.sampling_operator` over the kernel's chunks
+    (`scan_chunks(n)`); `reverse=True` scans from the end, as
     `jax.lax.associative_scan(..., reverse=True)`."""
     from ..sampling import sampling_operator  # sampling imports this module
 
     d = incs.shape[-1]
+    chunks = scan_chunks(incs.shape[0])
     identity = (torch.eye(d, dtype=incs.dtype, device=incs.device), incs.new_zeros(d))
     if reverse:
         G, e = chunked_scan_plain(sampling_operator, (gains.flip(0), incs.flip(0)), identity,
-                                  AFFINE_CHUNKS)
+                                  chunks)
         return G.flip(0), e.flip(0)
-    return chunked_scan_plain(sampling_operator, (gains, incs), identity, AFFINE_CHUNKS)
+    return chunked_scan_plain(sampling_operator, (gains, incs), identity, chunks)
+
+
+def _affine_io(gains, incs):
+    """The affine scan's inputs checked for the card and its outputs, empty."""
+    n, d = incs.shape
+    _check_shapes("affine_scan", "F", (gains,), n, d, d)
+    G, e = check_cuda_inputs("affine_scan", (gains, incs), incs.dtype, MAX_DIM, (d,))
+    return (G, e), (torch.empty_like(G), torch.empty_like(e))
 
 
 def affine_scan(gains, incs, reverse=False):
@@ -189,15 +205,27 @@ def affine_scan(gains, incs, reverse=False):
     incs (n, d)."""
     if not _on_cuda("affine_scan", incs):
         return affine_scan_plain(gains, incs, reverse)
-    n, d = incs.shape
-    _check_shapes("affine_scan", "F", (gains,), n, d, d)
-    G, e = check_cuda_inputs("affine_scan", (gains, incs), incs.dtype, MAX_DIM, (d,))
-    oG, oe = torch.empty_like(G), torch.empty_like(e)
-    scratch = torch.empty(2 * AFFINE_CHUNKS * (d * d + d), dtype=e.dtype, device=e.device)
+    (G, e), out = _affine_io(gains, incs)
+    n, d = e.shape
     if n:
-        launch("affine_scan", e.dtype, n, d, int(reverse), G, e, oG, oe, scratch)
+        launch("affine_scan", e.dtype, n, d, int(reverse), G, e, *out,
+               *_hand_state("affine", n, e), None)
         affine_scan.launches += 1
-    return oG, oe
+    return out
 
 
 affine_scan.launches = 0
+
+
+def affine_scan_timeline(gains, incs, reverse):
+    """Diagnostics on the card: the affine scan once with each block's
+    clock64 at its phases, as `filter_scan_timeline`; returns (outputs,
+    stamps (chunks, levels + 4) int64). Not counted in
+    `affine_scan.launches`."""
+    (G, e), out = _affine_io(gains, incs)
+    n, d = e.shape
+    chunks = scan_chunks(n)
+    stamps = torch.zeros(chunks, chunks.bit_length() + 3, dtype=torch.int64, device=e.device)
+    launch("affine_scan", e.dtype, n, d, int(reverse), G, e, *out, *_hand_state("affine", n, e),
+           stamps)
+    return out, stamps

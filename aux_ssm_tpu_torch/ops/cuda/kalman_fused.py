@@ -70,24 +70,47 @@ def make_elements_plain(Fs, Qs, bs, Hs, Rs, cs, ys, m, P):
     return A, b_el, sym(C), eta, sym(J)
 
 
-def make_elements(Fs, Qs, bs, Hs, Rs, cs, ys, m, P):
-    """Filtering elements of each step; see `make_elements_plain`."""
-    if not _on_cuda("make_elements", bs):
-        return make_elements_plain(Fs, Qs, bs, Hs, Rs, cs, ys, m, P)
+ELEMENTS_STAMPS = 6  # kElemStamps: clock64 readings of a step
+
+
+def _elements_io(args):
+    """make_elements' dimensions (n, dx, dy), its inputs checked for the
+    card and its outputs (A, b, C, eta, J), empty."""
+    Fs, Qs, bs, Hs, Rs, cs, ys, m, P = args
     n, dx = bs.shape
     dy = cs.shape[-1]
-    args = (Fs, Qs, bs, Hs, Rs, cs, ys, m, P)
     _check_shapes("make_elements", "FFxHRyyxF", args, n, dx, dy)
     args = check_cuda_inputs("make_elements", args, bs.dtype, MAX_DIM, (dx, dy))
     A, C, J = (torch.empty_like(args[0]) for _ in range(3))
     b_el, eta = torch.empty_like(args[2]), torch.empty_like(args[2])
+    return (n, dx, dy), args, (A, b_el, C, eta, J)
+
+
+def make_elements(Fs, Qs, bs, Hs, Rs, cs, ys, m, P):
+    """Filtering elements of each step; see `make_elements_plain`."""
+    args = (Fs, Qs, bs, Hs, Rs, cs, ys, m, P)
+    if not _on_cuda("make_elements", bs):
+        return make_elements_plain(*args)
+    (n, dx, dy), args, out = _elements_io(args)
     if n:
-        launch("make_elements", bs.dtype, n, dx, dy, *args, A, b_el, C, eta, J)
+        launch("make_elements", bs.dtype, n, dx, dy, *args, *out, None)
         make_elements.launches += 1
-    return A, b_el, C, eta, J
+    return out
 
 
 make_elements.launches = 0
+
+
+def elements_cycles(args):
+    """Diagnostics on the card: `make_elements(*args)` once, with thread 0's
+    clock64 in each step's block at its phases; returns stamps (n,
+    ELEMENTS_STAMPS) int64: at the start, after the staging, after S, after
+    the solve, after K and at the end. Not counted in
+    `make_elements.launches`."""
+    (n, dx, dy), args, out = _elements_io(args)
+    stamps = torch.zeros(n, ELEMENTS_STAMPS, dtype=torch.int64, device=args[2].device)
+    launch("make_elements", args[2].dtype, n, dx, dy, *args, *out, stamps)
+    return stamps
 
 
 # --------------------------------------------------------------------------

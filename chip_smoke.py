@@ -8,10 +8,13 @@ Phases (any failure raises, and the script exits non-zero):
      kernels from `aux_ssm_tpu_torch/ops/cuda/csrc/` and print the build time;
   1. each of the six kernels at the main path's shapes (T=1024, dx=16 flagship
      LGSSM, f32, inputs from a real filter pass) against its plain PyTorch
-     version on the same inputs in f32 and in f64, plus the filter scan at
-     T=300 and at n=2 (one combine: its chain's floor) and the f64 kernels
-     against the f64 plain versions; then the whole MH step in
-     f64 on the card against the CPU at T=64, dx=8, given the same noise;
+     version on the same inputs in f32 and in f64, plus the filter and
+     affine scans at T=300 and at n=2 (one combine: the chain's floor),
+     make_elements with a share NAN_SHARE of the observations missing, and
+     the f64 kernels against the f64 plain versions; filter and affine scans
+     interleaved on two streams for 50 rounds, bit-equal to one stream's;
+     then the whole MH step in f64 on the card against the CPU at T=64,
+     dx=8, given the same noise;
   2. 50 second-order MH steps at T=1024, dx=16, f32: acceptance >= 0.99 (the
      proposal is exact for this Gaussian target) and exactly 10 kernel
      launches per step;
@@ -181,6 +184,7 @@ DELTA = 0.05
 NREL_F32 = 1e-4   # norm-relative bound, f32 kernel vs f32 plain and vs f64 plain
 NREL_F64 = 1e-8   # norm-relative bound, f64 kernel vs f64 plain (logic check)
 STEP_RTOL = 1e-9  # f64 step on the card vs the CPU
+NAN_SHARE = 0.2   # observations made missing for phase 1's masked make_elements
 
 SV_PARAMS = (0.0, 0.9, 2.0, 0.25)  # nu, phi, tau, rho of experiments/sv.py
 SV_T, SV_D, SV_N = 250, 30, 25     # the published grid (benchmarks/sv_sweep.sh)
@@ -357,6 +361,12 @@ def phase_kernels(dev):
     results["make_elements"] = compare("make_elements", KF.make_elements,
                                        KF.make_elements_plain, steps + (m_el, P_el),
                                        ops["make_elements"])
+    log(f"  make_elements with a share {NAN_SHARE} of the observations missing (NaN):")
+    ys_nan = ys[1:].clone()
+    holes = torch.Generator(device=dev).manual_seed(11)
+    ys_nan[torch.rand(ys_nan.shape, generator=holes, device=dev) < NAN_SHARE] = float("nan")
+    compare("make_elements_nan", KF.make_elements, KF.make_elements_plain,
+            steps[:6] + (ys_nan, m_el, P_el), ops["make_elements"])
 
     elems = _make_associative_elements(*steps, m0u, P0u)
     results["filter_scan"] = compare("filter_scan", FS.filter_scan, FS.filter_scan_plain,
@@ -382,12 +392,45 @@ def phase_kernels(dev):
     gains, incs = _backward_maps(eps, ms, Ps, Fs, Qs, bs)
     results["affine_scan"] = compare("affine_scan", FS.affine_scan, FS.affine_scan_plain,
                                      (gains, incs, True), ops["affine_scan"])
+    for k in (300, 2):
+        log(f"  affine scan at n={k}:")
+        compare(f"affine_scan_n{k}", FS.affine_scan, FS.affine_scan_plain,
+                (gains[:k].contiguous(), incs[:k].contiguous(), True),
+                (k - 1) * (2 * d3 + 2 * d2))
+    two_streams(elems, gains, incs)
 
     xs = FS.affine_scan(gains, incs, reverse=True)[1]
     results["logdensity_steps"] = compare(
         "logdensity_steps", KF.logdensity_steps, KF.logdensity_steps_plain,
         steps + (xs[:-1].contiguous(), xs[1:].contiguous()), ops["logdensity_steps"])
     return results
+
+
+def two_streams(elems, gains, incs, rounds=50):
+    """Filter and affine scans interleaved on two streams for `rounds` rounds:
+    every output must equal, bit for bit, the same call alone on one stream
+    (each stream has its own hand-over state)."""
+    import torch
+    from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
+
+    scans = {"filter": lambda: FS.filter_scan(elems),
+             "affine": lambda: FS.affine_scan(gains, incs, True)}
+    alone = {kind: fn() for kind, fn in scans.items()}
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for r in range(rounds):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                for kind in (("filter", "affine") if (r + i) % 2 else ("affine", "filter")):
+                    outs.append((kind, scans[kind]()))
+    torch.cuda.synchronize()
+    bad = sum(not torch.equal(g, w) for kind, out in outs for g, w in zip(out, alone[kind]))
+    log(f"  two streams, {rounds} rounds of a filter and an affine scan on each: {len(outs)} "
+        f"calls, {bad} outputs differ from one stream's")
+    if bad:
+        raise AssertionError(f"two streams: {bad} outputs differ from the one-stream run")
 
 
 def phase_step_reference(dev):

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Times the block_masses, block-lane sweep, factor sweep, draw, filter-scan
-and lane-sweep kernels of one checkout of the port on a CUDA card, at the
-main paths' shapes, and profiles the steps that run them.
+"""Times the block_masses, block-lane sweep, factor sweep, draw, filter-scan,
+lane-sweep and MH-step kernels of one checkout of the port on a CUDA card, at
+the main paths' shapes, and profiles the steps that run them.
 
     python3 kernel_times.py                 # the checkout this file is in
     python3 kernel_times.py --root DIR      # the checkout unpacked at DIR
     python3 kernel_times.py --parts draws   # some of: masses, lane, steps, factor, draws,
-                                            #   scan, pgas
+                                            #   scan, pgas, maps
 
 To compare two checkouts, unpack the other into a directory that .gitignore
 lists and run both in one machine in turns (A, B, B, A): times on one card
@@ -50,7 +50,18 @@ the same seeds:
     rare-event csmc-guided step's inputs (T=2, N=25, PGAS), on random
     rare-event bootstrap inputs (T=9, N=25) and at the AR(1) toy's T=1024,
     N=4096 (the wide path), PGAS on and off; torch.profiler over
-    theta-logistic PGAS steps with the sweep's device ms.
+    theta-logistic PGAS steps with the sweep's device ms;
+  - maps: the six kernels of the auxiliary-Kalman MH step (make_elements,
+    filter_scan, ell, backward_maps, affine_scan, logdensity_steps) on
+    chip_smoke phase 1's inputs (T=1024, dx=dy=16, f32), the filter scan
+    also at n=299 (T=300) and in f64 at both n (as chip_smoke phase 1 runs
+    it), the affine scan also at n=300 and n=2; where the checkout has them,
+    make_elements' clock64 phases (the median step's cycles from its start
+    to the end of the staging, S, the solve, K and its end), the affine
+    combine's cycles on teams of 32, 64 and 128 threads and the affine
+    scan's per-block timeline; torch.profiler over first-order MH steps with
+    each of the six kernels' device ms a step (the old and the new kernels'
+    names).
 Kernel times are CUDA events around the wrapper's call. The build log's
 registers and spills of the timed kernels' template instances are printed.
 The last line is one JSON object of every number.
@@ -66,7 +77,8 @@ from pathlib import Path
 
 def profile(step, n, names):
     """(wall ms, busy ms, ms of the kernels whose name holds each of `names`)
-    a call of step(), over n calls after one."""
+    a call of step(), over n calls after one. `names` may also map a label
+    to the names it sums."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof_ctx
@@ -81,10 +93,28 @@ def profile(step, n, names):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     out = {"step_ms": wall, "busy_ms": busy}
-    for name in (names,) if isinstance(names, str) else names:
-        out[f"{name}_ms"] = sum(e.self_device_time_total for e in kernels
-                                if name in e.key) / 1e3 / n
+    if not isinstance(names, dict):
+        names = {name: (name,) for name in ((names,) if isinstance(names, str) else names)}
+    for label, subs in names.items():
+        out[f"{label}_ms"] = sum(e.self_device_time_total for e in kernels
+                                 if any(sub in e.key for sub in subs)) / 1e3 / n
     return out
+
+
+def device_ms(fn, reps):
+    """Milliseconds of the card's kernels a call of fn(), by torch.profiler
+    over `reps` calls after one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    fn()
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def ptxas_lines(build_dir, names):
@@ -102,7 +132,7 @@ def ptxas_lines(build_dir, names):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
-    parser.add_argument("--parts", default="masses,lane,steps,factor,draws,scan,pgas")
+    parser.add_argument("--parts", default="masses,lane,steps,factor,draws,scan,pgas,maps")
     parser.add_argument("--sass", default=None, help="directory for the draw kernels' SASS")
     opts = parser.parse_args()
     root, parts = str(Path(opts.root).resolve()), opts.parts.split(",")
@@ -128,7 +158,10 @@ def main():
                                                 "within_block_cols_kernel", "FilterOp",
                                                 "filter_scan_kernel", "combine_cycles",
                                                 "lane_kernel", "lane_warp_kernel",
-                                                "lane_block_kernel")):
+                                                "lane_block_kernel", "elements_kernel",
+                                                "scan_kernel", "ell_kernel",
+                                                "backward_maps_kernel", "logdensity_kernel",
+                                                "AffineOp")):
         print("  ptxas", line)
     dev, f32 = torch.device("cuda"), torch.float32
     res = {"root": root, "card": card}
@@ -153,6 +186,8 @@ def main():
         scans(cs, res, dev)
     if "pgas" in parts:
         pgas(cs, CF, res, dev)
+    if "maps" in parts:
+        maps(cs, res, dev)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -397,6 +432,101 @@ def pgas(cs, CF, res, dev):
                                      "lane_")
     print("  profile theta_pgas_step: " + ", ".join(
         f"{k} {v:.3f}" for k, v in res["theta_pgas_step"].items()), flush=True)
+
+
+# The MH step's kernels by the names of their entries, old and new.
+MH_KERNELS = {"make_elements": ("elements_kernel",), "ell": ("ell_kernel",),
+              "filter_scan": ("filter_scan_kernel", "FilterOp"),
+              "backward_maps": ("backward_maps_kernel",), "affine_scan": ("AffineOp",),
+              "logdensity_steps": ("logdensity_kernel",)}
+
+
+def phases(stamps):
+    """The median over rows of each column of clock64 `stamps` less the
+    row's first."""
+    import statistics
+    rel = (stamps - stamps[:, :1]).cpu().double()
+    return [statistics.median(rel[:, i].tolist()) for i in range(1, rel.shape[1])]
+
+
+def maps(cs, res, dev):
+    """The six MH kernels on chip_smoke phase 1's inputs, their variants and
+    clock64 phases where the checkout has them, and MH order-1 steps under
+    the profiler."""
+    import torch
+    from aux_ssm_tpu_torch import get_kernel
+    from aux_ssm_tpu_torch.models import lgssm_flagship
+    from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
+    from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF
+    from aux_ssm_tpu_torch.ops.filtering import _make_associative_elements, kalman_update
+    from aux_ssm_tpu_torch.ops.sampling import _backward_maps
+    f32, T, DX = torch.float32, cs.T, cs.DX
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dyn, obs1, _ = lgssm_flagship.build_model(T, DX, device=dev, dtype=f32)
+    x = torch.zeros(T, DX, dtype=f32, device=dev)
+    u = x + (0.5 * cs.DELTA) ** 0.5 * torch.randn(T, DX, generator=gen, device=dev)
+    m0, P0, Fs, Qs, bs = dyn(x)
+    ys, Hs, Rs, cs_ = (z.contiguous() for z in obs1(x, u, cs.DELTA))
+    steps = (Fs, Qs, bs, Hs[1:], Rs[1:], cs_[1:], ys[1:])
+    n = T - 1
+    m0u, P0u, _ = kalman_update(ys[0], m0, P0, Hs[0], cs_[0], Rs[0])
+    el = steps + (torch.cat([m0u[None], m0u.new_zeros(n - 1, DX)]),
+                  torch.cat([P0u[None], P0u.new_zeros(n - 1, DX, DX)]))
+    elems = _make_associative_elements(*steps, m0u, P0u)
+    _, ms, Ps, _, _ = FS.filter_scan(elems)
+    ms, Ps = torch.cat([m0u[None], ms]), torch.cat([P0u[None], Ps])
+    eps = torch.randn(T, DX, generator=gen, device=dev)
+    gains, incs = _backward_maps(eps, ms, Ps, Fs, Qs, bs)
+    xs = FS.affine_scan(gains, incs, reverse=True)[1]
+    filt = (ms[:-1].contiguous(), Ps[:-1].contiguous())
+    elems64 = tuple(z.double() for z in elems)
+    elems299, elems64_299 = (tuple(z[:299] for z in e) for e in (elems, elems64))
+    calls = {
+        "make_elements": lambda: KF.make_elements(*el),
+        "filter_scan": lambda: FS.filter_scan(elems),
+        "filter_scan_n299": lambda: FS.filter_scan(elems299),
+        "filter_scan_f64": lambda: FS.filter_scan(elems64),
+        "filter_scan_f64_n299": lambda: FS.filter_scan(elems64_299),
+        "ell": lambda: KF.ell(*steps, *filt),
+        "backward_maps": lambda: KF.backward_maps(Fs, Qs, bs, *filt, eps[:-1].contiguous()),
+        "affine_scan": lambda: FS.affine_scan(gains, incs, True),
+        "affine_scan_n300": lambda: FS.affine_scan(gains[:300], incs[:300], True),
+        "affine_scan_n2": lambda: FS.affine_scan(gains[:2], incs[:2], True),
+        "logdensity_steps": lambda: KF.logdensity_steps(*steps, xs[:-1].contiguous(),
+                                                        xs[1:].contiguous())}
+    for name, fn in calls.items():
+        res[f"mh_{name}_ms"] = cs.cuda_ms(fn, 50)
+        res[f"mh_{name}_device_ms"] = device_ms(fn, 20)
+    print("  mh kernels (events / device ms) " + ", ".join(
+        f"{name} {res[f'mh_{name}_ms']:.4f} / {res[f'mh_{name}_device_ms']:.4f}"
+        for name in calls), flush=True)
+    if hasattr(KF, "elements_cycles"):
+        KF.elements_cycles(el)
+        res["elements_phases"] = phases(KF.elements_cycles(el))
+        print("  make_elements median step cycles (staged, S, solve, K, end) "
+              + " ".join(f"{v:.0f}" for v in res["elements_phases"]), flush=True)
+    if hasattr(FS, "affine_scan_timeline"):
+        for team in (32, 64, 128):
+            res[f"affine_combine_cycles_t{team}"] = FS.combine_cycles(
+                (gains, incs), team, 50, scan="affine")[0]
+        print("  affine combine cycles (team): " + ", ".join(
+            f"{k[22:]} {v:.0f}" for k, v in res.items() if k.startswith("affine_combine")),
+            flush=True)
+        FS.affine_scan_timeline(gains, incs, True)
+        st = FS.affine_scan_timeline(gains, incs, True)[1]
+        res["affine_timeline_median_cycles"] = phases(st)
+        res["affine_timeline_last_block_cycles"] = (st[-1] - st[-1, 0]).tolist()[1:]
+        print("  affine timeline (cycles from a block's start: chunk, levels, hop, end): median "
+              + " ".join(f"{v:.0f}" for v in res["affine_timeline_median_cycles"]) + "; last block "
+              + " ".join(f"{v:.0f}" for v in res["affine_timeline_last_block_cycles"]), flush=True)
+    dyn2, o1, _, tf = lgssm_flagship.build_order2_factory(T, DX, device=dev, dtype=f32)
+    init, kernel = get_kernel(dyn2, o1, tf, parallel=True)
+    box, g = [init(torch.zeros(T, DX, dtype=f32, device=dev))], torch.Generator(device=dev)
+    g.manual_seed(3)
+    res["mh_order1_maps"] = profile(
+        lambda: box.__setitem__(0, kernel(box[0], cs.DELTA, generator=g)), 20, MH_KERNELS)
+    print("  profile mh_order1: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                              res["mh_order1_maps"].items()), flush=True)
 
 
 if __name__ == "__main__":

@@ -45,13 +45,16 @@ _MAPS = """
 #include "kalman_fused.cu"
 #define D %(D)d
 extern "C" {
+// The elements kernel's step on one "thread" (its team of 1), a step at a
+// time, on a host copy of the block's shared memory.
 void h_make_elements(int n, int dx, int dy, const double* F, const double* Q,
     const double* b, const double* H, const double* R, const double* c, const double* y,
     const double* m, const double* P, double* A, double* bel, double* C, double* eta,
     double* J) {
-  double sm[map_scratch<D>()];
-  for (int t = 0; t < n; ++t)
-    elements_step<double, D>(0, 1, t, dx, dy, F, Q, b, H, R, c, y, m, P, A, bel, C, eta, J, sm);
+  static double sh[ElementsLay<kElemD>::size];
+  const ElementsIn<double> in{F, Q, b, H, R, c, y, m, P};
+  const ElementsOut<double> out{A, bel, C, eta, J};
+  for (int t = 0; t < n; ++t) elements_step<double, kElemD, 1>(0, t, dx, dy, in, out, sh, nullptr);
 }
 void h_ell(int n, int dx, int dy, const double* F, const double* Q, const double* b,
     const double* H, const double* R, const double* c, const double* y, const double* m,
@@ -75,68 +78,69 @@ void h_logdensity_steps(int n, int dx, int dy, const double* F, const double* Q,
 """
 
 _SCAN = """
+#include <algorithm>
 #include <vector>
 #include "scan.cu"
-#define D %(D)d
-template <class Op>
-static void host_scan(int n, int d, bool rev, typename Op::View x, typename Op::View out,
-                      typename Op::View t0, typename Op::View t1) {
-  typename Op::Scalar sm[Op::kScratch];
-  for (int c = 0; c < kAffineChunks; ++c) scan_chunk<Op>(0, 1, c, n, d, rev, x, out, t0, sm);
-  typename Op::View src = t0, dst = t1;
-  for (int off = 1; off < kAffineChunks; off *= 2) {
-    for (int c = 0; c < kAffineChunks; ++c) scan_level<Op>(0, 1, c, off, d, src, dst, sm);
-    typename Op::View t = src; src = dst; dst = t;
-  }
-  for (int c = 0; c < kAffineChunks; ++c) scan_apply<Op>(0, 1, c, n, d, rev, src, out, sm);
-}
-extern "C" {
-// The filter kernel's phases, one block ("thread" 0 of 1) at a time: each
+// The scan kernel's phases, one block ("thread" 0 of 1) at a time: each
 // chunk's scan; the levels (block c takes a copy of block c - 2^L's value,
 // as from global memory); each chunk's apply, on the prefixes its scan left
 // in shared memory (later windows staged from the output), each element on
 // its own "team".
-void h_filter_scan(int n, int d, double* A, double* b, double* C, double* e, double* J,
-                   double* oA, double* ob, double* oC, double* oe, double* oJ) {
-  constexpr int K = kFilterD, slot = Lay<K>::slot, per = kRing + 4;
-  const FilterView<double> x{A, b, C, e, J}, out{oA, ob, oC, oe, oJ};
-  const FilterPlan pl = filter_plan(n);
-  std::vector<double> mem((size_t)pl.chunks * per * slot), partner(slot), work(Lay<K>::work);
-  std::vector<double*> cur(pl.chunks);
+template <class Op>
+static void host_scan(int n, int d, bool rev, typename Op::View x, typename Op::View out) {
+  using S = typename Op::Scalar;
+  constexpr int D = Op::D, M = Op::M, V = Op::V, slot = OpLay<Op>::slot, per = kRing + 4;
+  const Order at{n, rev};
+  const ScanPlan pl = scan_plan(n);
+  std::vector<S> mem((size_t)pl.chunks * per * slot), partner(slot), work(Op::work + 1);
+  std::vector<S*> cur(pl.chunks);
   // Chunk c's slots: kRing prefixes, two inputs, two running totals.
-  auto at = [&](int c, int g) { return mem.data() + ((size_t)c * per + g) * slot; };
+  auto slot_of = [&](int c, int g) { return mem.data() + ((size_t)c * per + g) * slot; };
   for (int c = 0; c < pl.chunks; ++c) {
-    for (int g = 0; g < kRing + 2; ++g) pad_slot<double, K>(0, 1, d, at(c, g));
-    cur[c] = chunk_scan<double, K, 1>(0, 0, pl, c, n, d, x, out, at(c, 0), at(c, kRing),
-                                      at(c, kRing + 2), at(c, kRing + 3), work.data());
+    for (int g = 0; g < kRing + 2; ++g) pad_slot<S, D, M, V>(0, 1, d, slot_of(c, g));
+    cur[c] = chunk_scan<Op, 1>(0, 0, pl, c, n, d, at, x, out, slot_of(c, 0), slot_of(c, kRing),
+                               slot_of(c, kRing + 2), slot_of(c, kRing + 3), work.data());
   }
   for (int L = 0; L < pl.levels; ++L)
     for (int c = pl.chunks - 1; c >= (1 << L); --c) {
       std::copy(cur[c - (1 << L)], cur[c - (1 << L)] + slot, partner.data());
-      double* dst = cur[c] == at(c, kRing + 2) ? at(c, kRing + 3) : at(c, kRing + 2);
-      level_combine<double, K, 1>(0, 0, partner.data(), cur[c], dst, work.data());
+      S* dst = cur[c] == slot_of(c, kRing + 2) ? slot_of(c, kRing + 3) : slot_of(c, kRing + 2);
+      level_combine<Op, 1>(0, 0, partner.data(), cur[c], dst, work.data());
       cur[c] = dst;
     }
+  window_out<Op>(0, 1, pl, n, d, at, slot_of(0, 0), out);
   for (int c = pl.chunks - 1; c > 0; --c) {
     const long k0 = (long)c * pl.per;
     const long cnt = n - k0 < pl.per ? (n - k0 > 0 ? n - k0 : 0) : pl.per;
     for (long i0 = 0; i0 < cnt; i0 += kRing) {
       if (i0 > 0)  // a later window: its prefixes from the output
         for (long i = i0; i < i0 + kRing && i < cnt; ++i)
-          stage_element<double, K>(0, 1, out, k0 + i, d, at(c, (int)(i - i0)));
+          stage_element<S, D, M, V>(0, 1, out, at(k0 + i), d, slot_of(c, (int)(i - i0)));
       for (long i = i0; i < i0 + kRing && i < cnt; ++i)
-        apply_element<double, K, 1>(0, 0, cur[c - 1], at(c, (int)(i - i0)), work.data(), out,
-                                    k0 + i, d);
+        apply_element<Op, 1>(0, 0, cur[c - 1], slot_of(c, (int)(i - i0)), work.data(), out,
+                             at(k0 + i), d);
     }
   }
 }
-void h_affine_scan(int n, int d, int rev, double* G, double* e, double* oG, double* oe,
-                   double* s) {
-  using V = AffineView<double>;
-  const long mat = (long)kAffineChunks * d * d, vec = (long)kAffineChunks * d;
-  double* s1 = s + mat + vec;
-  host_scan<AffineOp<double, D>>(n, d, rev != 0, V{G, e}, V{oG, oe}, V{s, s + mat},
-                                 V{s1, s1 + mat});
+extern "C" {
+void h_filter_scan(int n, int d, double* A, double* b, double* C, double* e, double* J,
+                   double* oA, double* ob, double* oC, double* oe, double* oJ) {
+  using Op = FilterOp<double>;
+  host_scan<Op>(n, d, false, Op::View{{A, C, J}, {b, e}}, Op::View{{oA, oC, oJ}, {ob, oe}});
+}
+void h_affine_scan(int n, int d, int rev, double* G, double* e, double* oG, double* oe) {
+  using Op = AffineOp<double>;
+  host_scan<Op>(n, d, rev != 0, Op::View{{G}, {e}}, Op::View{{oG}, {oe}});
+}
+// The kernel's plan for n elements (chunks, per, levels) and the values of a
+// padded filter and affine element.
+void h_scan_layout(int n, int* out) {
+  const ScanPlan pl = scan_plan(n);
+  out[0] = pl.chunks;
+  out[1] = pl.per;
+  out[2] = pl.levels;
+  out[3] = OpLay<FilterOp<double>>::slot;
+  out[4] = OpLay<AffineOp<double>>::slot;
 }
 }
 """
@@ -484,7 +488,7 @@ def host_lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("csrc_host")
     libs = {}
     for name, body in (("maps", _PRELUDE + _MAPS % {"D": MAX_DIM}),
-                       ("scan", _PRELUDE + _SCAN % {"D": MAX_DIM}),
+                       ("scan", _PRELUDE + _SCAN),
                        ("csmc_fwd", _CSMC_PRELUDE + _CSMC_FWD),
                        ("scalar_scan", _PRELUDE + _SCALAR_SCAN),
                        ("csmc_block", _CSMC_PRELUDE + _CSMC_BLOCK),
@@ -505,13 +509,28 @@ def _call(fn, *args):
     fn(*c_args)
 
 
-def _model(T, dx, dy, seed, nan_frac=0.0):
+def _model(T, dx, dy, seed, nan_frac=0.0, nan_model=False, stable=False):
+    """A random LGSSM and its observations, a share `nan_frac` of them
+    missing (NaN); with `nan_model`, also H, R and c NaN on the missing rows
+    and step 1 missing whole; with `stable`, F scaled as in
+    tests/test_torch_cuda.py, so that it stays stable at large dx."""
     from oracles import random_lgssm, simulate
     rng = np.random.default_rng(seed)
-    params = random_lgssm(rng, T, dx, dy)
+    params = list(random_lgssm(rng, T, dx, dy))
+    if stable:
+        params[2] = params[2] * min(1.0, 2.0 / np.sqrt(dx))
     ys = simulate(rng, *params)
     if nan_frac:
         ys = np.where(rng.uniform(size=ys.shape) < nan_frac, np.nan, ys)
+    if nan_model:
+        ys[1] = np.nan
+        miss = np.isnan(ys)
+        H, R, c = (np.array(z) for z in params[5:8])
+        H[miss] = np.nan
+        R[miss] = np.nan
+        R.transpose(0, 2, 1)[miss] = np.nan
+        c[miss] = np.nan
+        params[5:8] = H, R, c
     return LGSSM(*(torch.as_tensor(z) for z in params)), torch.as_tensor(ys)
 
 
@@ -519,11 +538,16 @@ def _close(got, want, rtol=1e-9, atol=1e-11):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("T,dx,dy,nan_frac", [(23, 2, 2, 0.0), (64, 4, 3, 0.3),
-                                              (40, 3, 1, 0.0)])
-def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac):
+# The elements kernel pads dx, dy to 16: d = 16 exactly (the main path's),
+# d = 1, dy < dx and dy > dx, n = 1 and n = 2, and missing observations on
+# every masking branch (NaN y; H, R, c NaN where y is; a step missing whole).
+@pytest.mark.parametrize("T,dx,dy,nan_frac,nan_model", [
+    (23, 2, 2, 0.0, False), (64, 4, 3, 0.3, False), (40, 3, 1, 0.0, False),
+    (40, 16, 16, 0.2, True), (30, 1, 1, 0.3, False), (2, 3, 2, 0.0, False),
+    (3, 5, 2, 0.5, True), (20, 2, 5, 0.4, True)])
+def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac, nan_model):
     lib = host_lib["maps"]
-    lg, ys = _model(T, dx, dy, seed=T, nan_frac=nan_frac)
+    lg, ys = _model(T, dx, dy, seed=T, nan_frac=nan_frac, nan_model=nan_model, stable=True)
     m0, P0, Fs, Qs, bs, Hs, Rs, cs = lg
     n = T - 1
     obs = (Hs[1:].contiguous(), Rs[1:].contiguous(), cs[1:].contiguous(), ys[1:].contiguous())
@@ -559,7 +583,7 @@ def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac):
     _close(got, want)
 
 
-# T - 1 = n elements in FS.filter_chunks(n) chunks of ceil(n / chunks): one
+# T - 1 = n elements in the kernel's scan_plan(n) chunks of ceil(n / chunks): one
 # chunk (n = 1), an empty last chunk and n not a multiple of the chunk (n =
 # 9, 299), d = 1 and d = 16, the main path's n = 1023 (128 chunks of 8) at a
 # small d, and chunks longer than the prefixes the kernel keeps (n = 1100: 9).
@@ -578,17 +602,37 @@ def test_host_filter_scan_matches_plain(host_lib, T, dx, dy):
         _close(g, w)
 
 
-@pytest.mark.parametrize("T,d,reverse", [(50, 3, True), (300, 2, True), (100, 4, False)])
+# n elements in the kernel's scan_plan(n) chunks of ceil(n / chunks),
+# forward and reversed: the main path's n = 1024 at d = 16, d = 1, one chunk
+# (n = 1, 2), an empty chunk and n not a multiple of the chunk (n = 9, 37,
+# 50), chunks longer than the prefixes the kernel keeps (n = 1100: 9). The
+# gains are 0.4 standard normals, scaled by 2 / sqrt(d) past d = 4 so that
+# their products stay of one size at d = 16.
+@pytest.mark.parametrize("T,d,reverse", [(50, 3, True), (300, 2, True), (100, 4, False),
+                                         (1024, 16, True), (1024, 16, False), (37, 1, True),
+                                         (1, 2, False), (2, 1, True), (9, 3, False),
+                                         (1100, 2, True)])
 def test_host_affine_scan_matches_plain(host_lib, T, d, reverse):
     rng = np.random.default_rng(1)
-    gains = torch.as_tensor(0.4 * rng.standard_normal((T, d, d)))
+    gains = torch.as_tensor(0.4 * min(1.0, 2.0 / np.sqrt(d)) * rng.standard_normal((T, d, d)))
     incs = torch.as_tensor(rng.standard_normal((T, d)))
     want = FS.affine_scan_plain(gains, incs, reverse=reverse)
     got = tuple(torch.empty_like(z) for z in want)
-    scratch = torch.empty(2 * FS.AFFINE_CHUNKS * (d * d + d), dtype=torch.float64)
-    _call(host_lib["scan"].h_affine_scan, T, d, reverse, gains, incs, *got, scratch)
+    _call(host_lib["scan"].h_affine_scan, T, d, reverse, gains, incs, *got)
     for g, w in zip(got, want):
         _close(g, w)
+
+
+# The plan the kernel takes from n is the one the plain versions and the
+# hand-over buffer take (FS.scan_chunks), and the padded element's size the
+# one the buffer is sized by (FS.SLOTS).
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 9, 37, 299, 511, 512, 513, 1023, 1024, 1100, 5000])
+def test_host_scan_plan_matches_the_wrappers(host_lib, n):
+    out = torch.zeros(5, dtype=torch.int32)
+    _call(host_lib["scan"].h_scan_layout, n, out)
+    chunks = FS.scan_chunks(n)
+    assert out.tolist() == [chunks, -(-n // chunks), chunks.bit_length() - 1,
+                            FS.SLOTS["filter"], FS.SLOTS["affine"]]
 
 
 def _factor_inputs(n, N, k, seed):

@@ -35,7 +35,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _model(T, dx, dy, seed, nan_frac=0.0):
+def _model(T, dx, dy, seed, nan_frac=0.0, nan_model=False):
+    """A random LGSSM and its observations, a share `nan_frac` of them
+    missing (NaN); with `nan_model`, also H, R and c NaN on the missing rows
+    and step 1 missing whole."""
     from oracles import random_lgssm, simulate
     rng = np.random.default_rng(seed)
     params = list(random_lgssm(rng, T, dx, dy))
@@ -43,6 +46,15 @@ def _model(T, dx, dy, seed, nan_frac=0.0):
     ys = simulate(rng, *params)
     if nan_frac:
         ys = np.where(rng.uniform(size=ys.shape) < nan_frac, np.nan, ys)
+    if nan_model:
+        ys[1] = np.nan
+        miss = np.isnan(ys)
+        H, R, c = (np.array(z) for z in params[5:8])
+        H[miss] = np.nan
+        R[miss] = np.nan
+        R.transpose(0, 2, 1)[miss] = np.nan
+        c[miss] = np.nan
+        params[5:8] = H, R, c
     return LGSSM(*(torch.as_tensor(z) for z in params)), torch.as_tensor(ys)
 
 
@@ -69,17 +81,27 @@ def _close(got, want, rtol=1e-9, atol=1e-11):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("T,dx,dy,nan_frac", [(64, 4, 3, 0.3), (300, 3, 1, 0.0),
-                                              (40, 16, 16, 0.1)])
-def test_maps_match_plain(dev, T, dx, dy, nan_frac):
-    lg, ys = _model(T, dx, dy, seed=T, nan_frac=nan_frac)
+def _element_inputs(T, dx, dy, nan_frac, nan_model=False):
+    lg, ys = _model(T, dx, dy, seed=T, nan_frac=nan_frac, nan_model=nan_model)
     m0, P0, Fs, Qs, bs, Hs, Rs, cs = lg
-    obs = (Hs[1:], Rs[1:], cs[1:], ys[1:])
     m0u, P0u, _ = kalman_update(ys[0], m0, P0, Hs[0], cs[0], Rs[0])
     n = T - 1
     m = torch.cat([m0u[None], torch.zeros(n - 1, dx, dtype=torch.float64)])
     P = torch.cat([P0u[None], torch.zeros(n - 1, dx, dx, dtype=torch.float64)])
-    _close(*_both(KF.make_elements, (Fs, Qs, bs, *obs, m, P), dev))
+    return lg, ys, (Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], m, P)
+
+
+# The elements kernel pads dx, dy to 16: d = 16 (the main path's T too), d =
+# 1, dy < dx and dy > dx, n = 1 and 2, and every masking branch.
+@pytest.mark.parametrize("T,dx,dy,nan_frac,nan_model", [
+    (64, 4, 3, 0.3, False), (300, 3, 1, 0.0, False), (40, 16, 16, 0.1, False),
+    (1024, 16, 16, 0.1, True), (30, 1, 1, 0.3, False), (2, 3, 2, 0.0, False),
+    (3, 5, 2, 0.5, True), (20, 2, 5, 0.4, True)])
+def test_maps_match_plain(dev, T, dx, dy, nan_frac, nan_model):
+    lg, ys, args = _element_inputs(T, dx, dy, nan_frac, nan_model)
+    Fs, Qs, bs, *obs = args[:7]
+    n = T - 1
+    _close(*_both(KF.make_elements, args, dev))
 
     ms, Ps, _ = filtering(ys, lg, parallel=True)
     _close(*_both(KF.ell, (Fs, Qs, bs, *obs, ms[:-1], Ps[:-1]), dev))
@@ -103,12 +125,47 @@ def test_filter_scan_matches_plain(dev, T, dx, dy):
     _close(*_both(FS.filter_scan, (elems,), dev))
 
 
-@pytest.mark.parametrize("T,d,reverse", [(50, 3, True), (1024, 16, True), (100, 4, False)])
-def test_affine_scan_matches_plain(dev, T, d, reverse):
+def _affine_inputs(T, d):
     rng = np.random.default_rng(1)
-    gains = torch.as_tensor(0.4 / np.sqrt(d) * rng.standard_normal((T, d, d)))
-    incs = torch.as_tensor(rng.standard_normal((T, d)))
-    _close(*_both(FS.affine_scan, (gains, incs, reverse), dev))
+    return (torch.as_tensor(0.4 / np.sqrt(d) * rng.standard_normal((T, d, d))),
+            torch.as_tensor(rng.standard_normal((T, d))))
+
+
+# The one-launch scan: the main path's n = 1024 at d = 16, one chunk (n = 1,
+# 2), an empty chunk and n not a multiple of the chunk (n = 9, 50, 300),
+# chunks longer than the kept prefixes (n = 1100), forward and reversed.
+@pytest.mark.parametrize("T,d,reverse", [(50, 3, True), (1024, 16, True), (100, 4, False),
+                                         (1024, 16, False), (300, 16, True), (1, 2, False),
+                                         (2, 1, True), (9, 3, False), (1100, 2, True)])
+def test_affine_scan_matches_plain(dev, T, d, reverse):
+    _close(*_both(FS.affine_scan, _affine_inputs(T, d) + (reverse,), dev))
+
+
+def test_scans_on_two_streams_equal_one_stream(dev):
+    """Filter and affine scans interleaved on two streams for 50 rounds:
+    each output bit for bit that of the same call alone on one stream (each
+    stream has its own hand-over state)."""
+    lg, ys = _model(1024, 16, 16, seed=5)
+    m0, P0, Fs, Qs, bs, Hs, Rs, cs = (z.float().to(dev) for z in lg)
+    ys = ys.float().to(dev)
+    m0u, P0u, _ = kalman_update(ys[0], m0, P0, Hs[0], cs[0], Rs[0])
+    elems = _make_associative_elements(Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], m0u, P0u)
+    gains, incs = (z.float().to(dev) for z in _affine_inputs(1024, 16))
+    alone = {"filter": FS.filter_scan(elems), "affine": FS.affine_scan(gains, incs, True)}
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    outs = []
+    for r in range(50):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                for kind in (("filter", "affine") if (r + i) % 2 else ("affine", "filter")):
+                    outs.append((kind, FS.filter_scan(elems) if kind == "filter"
+                                 else FS.affine_scan(gains, incs, True)))
+    torch.cuda.synchronize()
+    for kind, out in outs:
+        for g, w in zip(out, alone[kind]):
+            assert torch.equal(g, w), kind
 
 
 def test_rejects_what_the_kernels_do_not_take(dev):
