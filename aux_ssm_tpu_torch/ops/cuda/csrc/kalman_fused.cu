@@ -11,36 +11,49 @@
 // launch, far below what the card moves or computes in a millisecond. What
 // bounds a step is the latency of its dependent chain of small products.
 //
-// elements_kernel: one block (a team of kElemTeam threads) a step, at a compile-time
-// D = kElemD (tile.cuh; dx, dy <= D padded exactly: F, Q, P, H, R, b, m, c, y
-// zero outside d, the padded observation rows treated as missing, so He's
-// rows are zero there and Re's diagonal one, S = diag(S, I), and every
-// product keeps the padding). The step's inputs are staged into shared
-// memory by cp.async before the chain, so no global load sits on it; each
-// thread computes its tile of each D x D product in registers from padded
-// rows read by vector loads; S X = He is solved by Gauss-Jordan by 2 x 2
-// pivot blocks (S is SPD: no exchanges), one barrier a pair; every output
-// goes to global memory once, from registers, after the last barrier. With
-// ~8 steps an SM (1023 steps, one wave), the SM's shared-memory reads set
-// the pace: a product reads D (RPT + CPT) values a thread, so the tiles are
-// as square as the team allows, and the symmetric S, C and J are each
-// computed once and symmetrised through shared memory (a barrier each)
-// rather than computed in both orders: 10 tile products and 16 barriers a
-// step. C is P_pred - (P_pred He^T) K^T, which equals the plain version's
-// P_pred - K S K^T (K S = P_pred He^T). The team is a warp: in the MH step
-// on an H100, 32 threads a step took 0.0269 ms for the step's two launches,
-// 64 took 0.0284 and 128 took 0.0366 (PERF.md).
+// elements_kernel, ell_kernel and logdensity_kernel: one block (a team of
+// kElemTeam = 32 threads) a step, at a compile-time D = kElemD (tile.cuh; dx,
+// dy <= D padded exactly: F, Q, P, H, R, b, m, c, y, x zero outside d, the
+// padded observation rows treated as missing, so He's rows are zero there and
+// Re's diagonal one, S = diag(S, I), a transition density's Q diag(Q, I), and
+// every product keeps the padding: each result equals the unpadded one in
+// exact arithmetic). The step's inputs are staged into shared memory by
+// cp.async before the chain, so no global load sits on it; each thread
+// computes its tile of each D x D product in registers from padded rows read
+// by vector loads; each output goes to global memory once, after the last
+// barrier. With ~8 steps an SM (1023 steps, one wave), the SM's shared-memory
+// reads set the pace: a product reads D (RPT + CPT) values a thread, so the
+// tiles are as square as the team allows.
 //
-// ell, backward_maps and logdensity: one warp per step, runtime d, the warp's
-// lanes sharing each product of smallmat.cuh on operands in shared memory. A
-// step with t >= n is skipped; nothing is padded.
+// make_elements and ell share their prefix (innovation_cov: the masked model,
+// P_pred and S' = He P_pred He^T + Re, 4 tile products and 5 barriers).
+// make_elements then solves S X = He by Gauss-Jordan by 2 x 2 pivot blocks (S
+// is SPD: no exchanges), one barrier a pair; the symmetric S, C and J are each
+// computed once and symmetrised through shared memory (a barrier each) rather
+// than computed in both orders: 10 tile products and 16 barriers a step. C is
+// P_pred - (P_pred He^T) K^T, which equals the plain version's P_pred - K S
+// K^T (K S = P_pred He^T). The team is a warp: in the MH step on an H100, 32
+// threads a step took 0.0269 ms for the step's two launches, 64 took 0.0284
+// and 128 took 0.0366 (PERF.md).
+//
+// ell and logdensity end in Gaussian log densities log N(v; 0, M), each on
+// half of the warp through the LDL^T factor of M bordered by v (gauss_half:
+// 16 column steps, one barrier each, no triangular solve): ell's of S and
+// the innovation of m_pred (the upper half repeats it); logdensity's two at
+// once, the transition's (Q, x_t - F x_{t-1} - b) on lanes 0-15 and the
+// observation's (Re, the masked innovation of x_t) on lanes 16-31, the same
+// code on other operands.
+//
+// backward_maps: one warp per step, runtime d, the warp's lanes sharing each
+// product of smallmat.cuh on operands in shared memory. A step with t >= n is
+// skipped; nothing is padded.
 //
 // Missing observations follow ops/lgssm.mask_observation exactly: every
 // masked quantity is selected with `isfinite(y)`, never multiplied by a 0/1
 // mask, because the model's H, R, c may be NaN where y is missing.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3, no --use_fast_math
-// (the masking needs isfinite/NaN semantics, the densities IEEE log/sqrt).
+// (the masking needs isfinite/NaN semantics, the densities IEEE log).
 #include "smallmat.cuh"
 #include "tile.cuh"
 
@@ -50,83 +63,20 @@ using namespace smallmat;
 
 constexpr double kLog2Pi = 1.8378770664093453;
 
-// Shared scratch of one warp of the smallmat kernels, in elements of S: 6
-// matrices and 5 vectors (ell_step's working set, the largest).
+// Shared scratch of one warp of backward_maps_step, in elements of S: 5
+// matrices and 2 vectors.
 template <int MD>
-constexpr int map_scratch() { return 6 * MD * MD + 5 * MD; }
-
-// Masked projection of one step's observation model (ops/lgssm.mask_observation);
-// mk[i] is 1 where y[i] is observed. Returns the number of observed entries.
-template <typename S>
-AUX_HD int masked_obs(int lane, int nl, int dx, int dy, const S* H, const S* R, const S* c,
-                      const S* y, S* mk, S* He, S* Re, S* ce, S* ye) {
-  for (int i = lane; i < dy; i += nl) {
-    const bool o = isfinite(y[i]);
-    mk[i] = o ? (S)1 : (S)0;
-    ye[i] = o ? nan_to_num(y[i]) : (S)0;
-    ce[i] = o ? nan_to_num(c[i]) : (S)0;
-  }
-  for (int e = lane; e < dy * dx; e += nl)
-    He[e] = isfinite(y[e / dx]) ? nan_to_num(H[e]) : (S)0;
-  for (int e = lane; e < dy * dy; e += nl) {
-    const int i = e / dy, j = e % dy;
-    const bool oi = isfinite(y[i]), oj = isfinite(y[j]);
-    S r = (oi && oj) ? nan_to_num(R[e]) : (S)0;
-    if (i == j) r += (S)1 - (oi ? (S)1 : (S)0);
-    Re[e] = r;
-  }
-  AUX_SYNC();
-  int n_obs = 0;
-  for (int i = 0; i < dy; ++i) n_obs += mk[i] != (S)0 ? 1 : 0;
-  return n_obs;
-}
-
-// m_pred = F m + b, P_pred = F (P F^T) + Q.
-template <typename S>
-AUX_HD void predict(int lane, int nl, int dx, const S* F, const S* Q, const S* b, const S* m,
-                    const S* P, S* m_pred, S* P_pred, S* tmp) {
-  mv(lane, nl, dx, dx, F, m, m_pred);
-  for (int i = lane; i < dx; i += nl) m_pred[i] += b[i];
-  mm_nt(lane, nl, dx, dx, dx, P, F, tmp);
-  mm(lane, nl, dx, dx, dx, F, tmp, P_pred);
-  for (int e = lane; e < dx * dx; e += nl) P_pred[e] += Q[e];
-  AUX_SYNC();
-}
-
-// S = sym(He (P_pred He^T) + Re), (dy, dy).
-template <typename S>
-AUX_HD void innovation_cov(int lane, int nl, int dx, int dy, const S* He, const S* P_pred,
-                           const S* Re, S* Sm, S* tmp) {
-  mm_nt(lane, nl, dx, dx, dy, P_pred, He, tmp);  // (dx, dy)
-  mm(lane, nl, dy, dx, dy, He, tmp, Sm);
-  for (int e = lane; e < dy * dy; e += nl) Sm[e] += Re[e];
-  AUX_SYNC();
-  sym(lane, nl, dy, Sm);
-}
-
-// w <- (mask ? y_eff - w - c_eff : 0), the masked innovation.
-template <typename S>
-AUX_HD void masked_innov(int lane, int nl, int dy, const S* mk, const S* ye, const S* ce, S* w) {
-  for (int i = lane; i < dy; i += nl) w[i] = mk[i] != (S)0 ? ye[i] - w[i] - ce[i] : (S)0;
-  AUX_SYNC();
-}
-
-template <typename S>
-AUX_HD S sum_squares(int n, const S* w) {
-  S quad = (S)0;
-  for (int i = 0; i < n; ++i) quad += w[i] * w[i];
-  return quad;
-}
+constexpr int map_scratch() { return 5 * MD * MD + 2 * MD; }
 
 // ---------------------------------------------------------------------------
-// The filtering elements (elements_kernel)
+// The padded steps (elements_kernel, ell_kernel, logdensity_kernel)
 // ---------------------------------------------------------------------------
 
-constexpr int kElemD = 16;  // the elements' compile-time dimension (dx, dy <= 16)
-constexpr int kElemStamps = 6;  // clock64 readings of a step (diagnostics)
+constexpr int kElemD = 16;  // the compile-time dimension of the padded steps (dx, dy <= 16)
+constexpr int kElemStamps = 6;  // clock64 readings of an elements step (diagnostics)
 
 // A step's inputs and the elements' outputs in global memory (step k at k
-// dx^2, k dy dx, k dy^2, k dx, k dy).
+// dx^2, k dy dx, k dy^2, k dx, k dy). ell takes the same inputs.
 template <typename S>
 struct ElementsIn {
   const S *F, *Q, *b, *H, *R, *c, *y, *m, *P;
@@ -151,60 +101,184 @@ struct ElementsLay {
   static constexpr int size = rowz + 4 * D;
 };
 
-// Step k's inputs into the padded arrays by cp.async (zeros outside dx, dy;
-// the caller waits), thread t of NT.
+// A rows x cols matrix (row-major at src) for the padded D x D array at dst,
+// zeros outside but `pad` on the padded diagonal; n values at src for the
+// D-vector at dst, zeros past n.
+template <typename S>
+struct MatIn {
+  S* dst;
+  const S* src;
+  int rows, cols;
+  S pad;
+};
+
+template <typename S>
+struct VecIn {
+  S* dst;
+  const S* src;
+  int n;
+};
+
+// A step's matrices and vectors into shared memory by cp.async, on thread t
+// of NT, each entry's position computed once for all of them (the caller
+// waits).
+template <typename S, int D, int NT, int NM, int NV>
+AUX_HD void stage(int t, const MatIn<S> (&mats)[NM], const VecIn<S> (&vecs)[NV]) {
+  for (int q = t; q < D * D; q += NT) {
+    const int i = q / D, j = q % D, at = i * tiles::kLd<D> + j;
+#pragma unroll
+    for (int r = 0; r < NM; ++r) {
+      const MatIn<S>& m = mats[r];
+      if (i < m.rows && j < m.cols)
+        tiles::copy_one(m.dst + at, m.src + i * m.cols + j);
+      else
+        m.dst[at] = i == j ? m.pad : (S)0;
+    }
+  }
+  for (int i = t; i < D; i += NT)
+#pragma unroll
+    for (int r = 0; r < NV; ++r) {
+      if (i < vecs[r].n)
+        tiles::copy_one(vecs[r].dst + i, vecs[r].src + i);
+      else
+        vecs[r].dst[i] = (S)0;
+    }
+}
+
+// Step k's inputs into the padded arrays of ElementsLay<D> (the caller waits).
 template <typename S, int D, int NT>
 AUX_HD void stage_step(int t, long k, int dx, int dy, ElementsIn<S> in, S* sh) {
   using L = ElementsLay<D>;
-  constexpr int ld = tiles::kLd<D>;
-  const long xx = k * dx * dx, yx = k * dy * dx, yy = k * dy * dy;
-  for (int q = t; q < D * D; q += NT) {
-    const int i = q / D, j = q % D, at = i * ld + j;
-    const bool ix = i < dx, iy = i < dy, jx = j < dx;
-    if (ix && jx) {
-      tiles::copy_one(sh + L::F + at, in.F + xx + i * dx + j);
-      tiles::copy_one(sh + L::Q + at, in.Q + xx + i * dx + j);
-      tiles::copy_one(sh + L::P + at, in.P + xx + i * dx + j);
-    } else {
-      sh[L::F + at] = sh[L::Q + at] = sh[L::P + at] = (S)0;
+  const long xx = k * dx * dx;
+  const MatIn<S> mats[] = {{sh + L::F, in.F + xx, dx, dx, (S)0},
+                           {sh + L::Q, in.Q + xx, dx, dx, (S)0},
+                           {sh + L::P, in.P + xx, dx, dx, (S)0},
+                           {sh + L::H, in.H + k * dy * dx, dy, dx, (S)0},
+                           {sh + L::R, in.R + k * dy * dy, dy, dy, (S)0}};
+  const VecIn<S> vecs[] = {{sh + L::b, in.b + k * dx, dx},
+                           {sh + L::m, in.m + k * dx, dx},
+                           {sh + L::c, in.c + k * dy, dy},
+                           {sh + L::y, in.y + k * dy, dy}};
+  stage<S, D, NT>(t, mats, vecs);
+}
+
+// The masked observation model (ops/lgssm.mask_observation) in place over the
+// thread's tile: He's rows, and Re's rows and columns, zero where y is
+// missing (padded rows count as missing), Re's diagonal one there; ye and ce,
+// y and c masked, on the threads of the first column. The tile is loaded
+// whole before it is masked: a load after a store to the same array would
+// wait for it.
+template <typename S, int D, int NT>
+AUX_HD void mask_obs(const tiles::Tile<D, NT>& tl, int dy, S* He, S* Re, const S* y, const S* c,
+                     S* ye, S* ce) {
+  using T = tiles::Tile<D, NT>;
+  auto obs = [&](int i) { return i < dy && isfinite(y[i]); };
+  tiles::Regs<S, D, NT> h, r;
+  tiles::tile_load<S, D, NT>(tl, He, h);
+  tiles::tile_load<S, D, NT>(tl, Re, r);
+  bool oj[T::CPT];
+#pragma unroll
+  for (int cc = 0; cc < T::CPT; ++cc) oj[cc] = obs(tl.c0 + cc);
+#pragma unroll
+  for (int rr = 0; rr < T::RPT; ++rr) {
+    const int i = tl.r0 + rr;
+    const bool oi = obs(i);
+#pragma unroll
+    for (int cc = 0; cc < T::CPT; ++cc) {
+      h[rr][cc] = oi ? nan_to_num(h[rr][cc]) : (S)0;
+      S e = (oi && oj[cc]) ? nan_to_num(r[rr][cc]) : (S)0;
+      if (i == tl.c0 + cc) e += (S)1 - (oi ? (S)1 : (S)0);
+      r[rr][cc] = e;
     }
-    if (iy && jx)
-      tiles::copy_one(sh + L::H + at, in.H + yx + i * dx + j);
-    else
-      sh[L::H + at] = (S)0;
-    if (iy && j < dy)
-      tiles::copy_one(sh + L::R + at, in.R + yy + i * dy + j);
-    else
-      sh[L::R + at] = (S)0;
+    if (tl.first()) {
+      ye[i] = oi ? nan_to_num(y[i]) : (S)0;
+      ce[i] = oi ? nan_to_num(c[i]) : (S)0;
+    }
   }
-  for (int i = t; i < D; i += NT) {
-    if (i < dx) {
-      tiles::copy_one(sh + L::b + i, in.b + k * dx + i);
-      tiles::copy_one(sh + L::m + i, in.m + k * dx + i);
-    } else {
-      sh[L::b + i] = sh[L::m + i] = (S)0;
+  tiles::tile_store<S, D, NT>(tl, h, He);
+  tiles::tile_store<S, D, NT>(tl, r, Re);
+}
+
+// The part of a step that elements_step and ell_step share, on a team of NT
+// threads (thread t; barrier 0 of the team; one thread in the host build),
+// with `sh` the step's ElementsLay<D> in shared memory: stage step k's inputs,
+// mask the observation model (He, Re, ye, ce), m_pred = F m + b, P_pred = F
+// (P F^T) + Q, ydm = ye - He m_pred - ce (0 where y is missing), T = P_pred
+// He^T, and S' = He T + Re into X, where S = sym(S'). Each entry is summed
+// over k ascending, as smallmat's products sum it, so the result does not
+// depend on NT. Ends with a barrier. `st`, if not null, takes thread 0's
+// clock64 at the start and after the staging (diagnostics).
+template <typename S, int D, int NT>
+AUX_HD void innovation_cov(int t, long k, int dx, int dy, ElementsIn<S> in, S* sh,
+                           long long* st) {
+  using namespace tiles;
+  using L = ElementsLay<D>;
+  using T = Tile<D, NT>;
+  constexpr int R = T::RPT, Cn = T::CPT, ld = kLd<D>;
+  const T tl(t);
+  S *F = sh + L::F, *Q = sh + L::Q, *He = sh + L::H, *Re = sh + L::R, *P = sh + L::P;
+  S *Tp = sh + L::T, *Pp = sh + L::Pp, *X = sh + L::X, *b = sh + L::b, *m = sh + L::m;
+  S *ye = sh + L::ye, *ce = sh + L::ce, *mp = sh + L::mp, *ydm = sh + L::ydm;
+
+  stamp(st, t, 0);
+  stage_step<S, D, NT>(t, k, dx, dy, in, sh);
+  cp_async_wait_all();
+  team_sync<NT>(0);
+  stamp(st, t, 1);
+
+  // Stage 1: the masked model (in place: each entry is its owner's), m_pred,
+  // T = P F^T.
+  mask_obs<S, D, NT>(tl, dy, He, Re, sh + L::y, sh + L::c, ye, ce);
+  if (tl.first())
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int i = tl.r0 + rr;
+      mp[i] = row_dot<S, D, false>(F, m, i) + b[i];
     }
-    if (i < dy) {
-      tiles::copy_one(sh + L::c + i, in.c + k * dy + i);
-      tiles::copy_one(sh + L::y + i, in.y + k * dy + i);
-    } else {
-      sh[L::c + i] = sh[L::y + i] = (S)0;
+  Regs<S, D, NT> acc;
+  tile_mm<S, D, NT, false, true>(tl, P, F, acc);
+  tile_store<S, D, NT>(tl, acc, Tp);
+  team_sync<NT>(0);
+
+  // Stage 2: P_pred = F T + Q, the masked innovation of m_pred.
+  tile_mm<S, D, NT, false, false>(tl, F, Tp, acc);
+#pragma unroll
+  for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+    for (int cc = 0; cc < Cn; ++cc) acc[rr][cc] += Q[(tl.r0 + rr) * ld + tl.c0 + cc];
+  tile_store<S, D, NT>(tl, acc, Pp);
+  if (tl.first())
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int i = tl.r0 + rr;
+      ydm[i] = i < dy && isfinite(sh[L::y + i]) ? ye[i] - row_dot<S, D, false>(He, mp, i) - ce[i]
+                                                : (S)0;
     }
-  }
+  team_sync<NT>(0);
+
+  // Stage 3: T = P_pred He^T (T's old value is read no more).
+  tile_mm<S, D, NT, false, true>(tl, Pp, He, acc);
+  tile_store<S, D, NT>(tl, acc, Tp);
+  team_sync<NT>(0);
+
+  // Stage 4: S' = He T + Re into X.
+  tile_mm<S, D, NT, false, false>(tl, He, Tp, acc);
+#pragma unroll
+  for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+    for (int cc = 0; cc < Cn; ++cc) acc[rr][cc] += Re[(tl.r0 + rr) * ld + tl.c0 + cc];
+  tile_store<S, D, NT>(tl, acc, X);
+  team_sync<NT>(0);
 }
 
 // SGF-2021 filtering element (A, b, C, eta, J) of step k on a team of NT
-// threads (thread t; barrier 0 of the team; one thread in the host build),
-// with `sh` the step's ElementsLay<D> in shared memory:
-//   mask (He, Re, ye, ce), m_pred = F m + b, P_pred = F (P F^T) + Q,
-//   S = sym(He (P_pred He^T) + Re), X = S^{-1} He, K = P_pred X^T,
-//   A = F - K (He F), b = m_pred + K ydm, C = sym(P_pred - (P_pred He^T) K^T),
-//   eta = (F^T X^T) ydb, J = sym((F^T X^T) (He F)),
-// ydb, ydm the masked innovations of b and m_pred. Each entry is summed over
-// k ascending, as smallmat's products sum it, so the result does not depend
-// on NT. `st`, if not null, takes thread 0's clock64 at the start, after
-// the staging, after S, after the solve, after K and at the end
-// (diagnostics, kernel_times.py).
+// threads, after innovation_cov:
+//   X = S^{-1} He, K = P_pred X^T, A = F - K (He F), b = m_pred + K ydm,
+//   C = sym(P_pred - (P_pred He^T) K^T), eta = (F^T X^T) ydb,
+//   J = sym((F^T X^T) (He F)),
+// ydb the masked innovation of b. `st`, if not null, takes thread 0's
+// clock64 at the start, after the staging, after S, after the solve, after
+// K and at the end (diagnostics, kernel_times.py).
 template <typename S, int D, int NT>
 AUX_HD void elements_step(int t, long k, int dx, int dy, ElementsIn<S> in, ElementsOut<S> out,
                           S* sh, long long* st) {
@@ -213,79 +287,16 @@ AUX_HD void elements_step(int t, long k, int dx, int dy, ElementsIn<S> in, Eleme
   using T = Tile<D, NT>;
   constexpr int R = T::RPT, Cn = T::CPT, ld = kLd<D>;
   const T tl(t);
-  S *F = sh + L::F, *Q = sh + L::Q, *He = sh + L::H, *Re = sh + L::R, *P = sh + L::P;
+  S *F = sh + L::F, *Q = sh + L::Q, *He = sh + L::H, *P = sh + L::P;
   S *Tp = sh + L::T, *Pp = sh + L::Pp, *HF = sh + L::HF, *X = sh + L::X, *K = sh + L::K;
-  S *Tm = sh + L::Tm, *b = sh + L::b, *c = sh + L::c, *y = sh + L::y, *m = sh + L::m;
+  S *Tm = sh + L::Tm, *b = sh + L::b, *y = sh + L::y;
   S *ye = sh + L::ye, *ce = sh + L::ce, *mp = sh + L::mp, *ydb = sh + L::ydb, *ydm = sh + L::ydm;
-  auto obs = [&](int i) { return i < dy && isfinite(y[i]); };
 
-  stamp(st, t, 0);
-  stage_step<S, D, NT>(t, k, dx, dy, in, sh);
-  cp_async_wait_all();
-  team_sync<NT>(0);
-  stamp(st, t, 1);
+  innovation_cov<S, D, NT>(t, k, dx, dy, in, sh, st);
 
-  // Stage 1: the masked model (in place: each entry is its owner's), T = P
-  // F^T, m_pred, ye, ce.
-  Regs<S, D, NT> acc;
-#pragma unroll
-  for (int rr = 0; rr < R; ++rr) {
-    const int i = tl.r0 + rr;
-    const bool oi = obs(i);
-#pragma unroll
-    for (int cc = 0; cc < Cn; ++cc) {
-      const int j = tl.c0 + cc, at = i * ld + j;
-      He[at] = oi ? smallmat::nan_to_num(He[at]) : (S)0;
-      S r = (oi && obs(j)) ? smallmat::nan_to_num(Re[at]) : (S)0;
-      if (i == j) r += (S)1 - (oi ? (S)1 : (S)0);
-      Re[at] = r;
-    }
-    if (tl.first()) {
-      mp[i] = row_dot<S, D, false>(F, m, i) + b[i];
-      ye[i] = oi ? smallmat::nan_to_num(y[i]) : (S)0;
-      ce[i] = oi ? smallmat::nan_to_num(c[i]) : (S)0;
-    }
-  }
-  tile_mm<S, D, NT, false, true>(tl, P, F, acc);
-  tile_store<S, D, NT>(tl, acc, Tp);
-  team_sync<NT>(0);
-
-  // Stage 2: P_pred = F T + Q, HF = He F, the masked innovations.
-  tile_mm<S, D, NT, false, false>(tl, F, Tp, acc);
-#pragma unroll
-  for (int rr = 0; rr < R; ++rr)
-#pragma unroll
-    for (int cc = 0; cc < Cn; ++cc) acc[rr][cc] += Q[(tl.r0 + rr) * ld + tl.c0 + cc];
-  tile_store<S, D, NT>(tl, acc, Pp);
-  tile_mm<S, D, NT, false, false>(tl, He, F, acc);
-  tile_store<S, D, NT>(tl, acc, HF);
-  if (tl.first()) {
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-      const int i = tl.r0 + rr;
-      const bool oi = obs(i);
-      ydb[i] = oi ? ye[i] - row_dot<S, D, false>(He, b, i) - ce[i] : (S)0;
-      ydm[i] = oi ? ye[i] - row_dot<S, D, false>(He, mp, i) - ce[i] : (S)0;
-    }
-  }
-  team_sync<NT>(0);
-
-  // Stage 3: T = P_pred He^T (T's old value is read no more).
-  tile_mm<S, D, NT, false, true>(tl, Pp, He, acc);
-  tile_store<S, D, NT>(tl, acc, Tp);
-  team_sync<NT>(0);
-
-  // Stage 4: S' = He T + Re into X (free until the solve ends), then the
-  // thread's tile of S = sym(S') in registers, the right-hand side He, and
-  // the first pivot pair published.
-  Regs<S, D, NT> ms, z;
-  tile_mm<S, D, NT, false, false>(tl, He, Tp, acc);
-#pragma unroll
-  for (int rr = 0; rr < R; ++rr)
-#pragma unroll
-    for (int cc = 0; cc < Cn; ++cc) acc[rr][cc] += Re[(tl.r0 + rr) * ld + tl.c0 + cc];
-  tile_store<S, D, NT>(tl, acc, X);
-  team_sync<NT>(0);
+  // The thread's tile of S = sym(S') in registers, the right-hand side He,
+  // and the first pivot pair published.
+  Regs<S, D, NT> acc, ms, z;
   sym_tile<S, D, NT>(tl, X, ms);
   tile_load<S, D, NT>(tl, He, z);
   gj_publish_first<S, D, NT>(tl, ms, z, sh + L::col, sh + L::rowm, sh + L::rowz);
@@ -296,11 +307,20 @@ AUX_HD void elements_step(int t, long k, int dx, int dy, ElementsIn<S> in, Eleme
   gj_solve<S, D, NT>(tl, 0, ms, z, sh + L::col, sh + L::rowm, sh + L::rowz, X);
   stamp(st, t, 3);
 
-  // Stage 6: K = P_pred X^T, Tm = F^T X^T.
+  // Stage 6: K = P_pred X^T, Tm = F^T X^T, HF = He F, the masked innovation
+  // of b.
   tile_mm<S, D, NT, false, true>(tl, Pp, X, acc);
   tile_store<S, D, NT>(tl, acc, K);
   tile_mm<S, D, NT, true, true>(tl, F, X, acc);
   tile_store<S, D, NT>(tl, acc, Tm);
+  tile_mm<S, D, NT, false, false>(tl, He, F, acc);
+  tile_store<S, D, NT>(tl, acc, HF);
+  if (tl.first())
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int i = tl.r0 + rr;
+      ydb[i] = i < dy && isfinite(y[i]) ? ye[i] - row_dot<S, D, false>(He, b, i) - ce[i] : (S)0;
+    }
   team_sync<NT>(0);
   stamp(st, t, 4);
 
@@ -350,28 +370,222 @@ AUX_HD void elements_step(int t, long k, int dx, int dy, ElementsIn<S> in, Eleme
   stamp(st, t, 5);
 }
 
-// Predict + masked update log-likelihood increment of step t.
-template <typename S, int MD>
-AUX_HD void ell_step(int lane, int nl, int t, int dx, int dy, const S* F_, const S* Q_,
-                     const S* b_, const S* H_, const S* R_, const S* c_, const S* y_,
-                     const S* m_, const S* P_, S* ell_, S* sm) {
-  S *He = sm, *Re = He + MD * MD, *P_pred = Re + MD * MD, *tmp = P_pred + MD * MD;
-  S *Sm = tmp + MD * MD, *L = Sm + MD * MD;
-  S *mk = L + MD * MD, *ce = mk + MD, *ye = ce + MD, *m_pred = ye + MD, *w = m_pred + MD;
+// ---------------------------------------------------------------------------
+// Gaussian log densities by bordered LDL^T factors (ell, logdensity)
+// ---------------------------------------------------------------------------
 
-  const int n_obs = masked_obs(lane, nl, dx, dy, H_ + (long)t * dy * dx,
-                               R_ + (long)t * dy * dy, c_ + (long)t * dy, y_ + (long)t * dy,
-                               mk, He, Re, ce, ye);
-  predict(lane, nl, dx, F_ + (long)t * dx * dx, Q_ + (long)t * dx * dx, b_ + (long)t * dx,
-          m_ + (long)t * dx, P_ + (long)t * dx * dx, m_pred, P_pred, tmp);
-  innovation_cov(lane, nl, dx, dy, He, P_pred, Re, Sm, tmp);
-  const S log_det = chol(lane, nl, dy, Sm, L);
+// log N(v; 0, M) for an SPD D x D M and a D-vector v, through the LDL^T
+// factor of M bordered by v,
+//   [M   v]   [L   0] [Dg 0] [L^T  u]
+//   [v^T .] = [u^T 1] [0  .] [0    1],    Dg = diag(d_0, ..., d_{D-1}),
+// with L unit lower triangular and u = (L Dg)^{-1} v, so that
+// v^T M^{-1} v = sum_c u_c^2 d_c and log det M = sum_c log d_c, with no
+// triangular solve and no square root (the Cholesky factor is L Dg^{1/2}).
+// A team of NT threads takes two such densities: half h = t / NL of the team
+// (NL = NT / 2 lanes) takes density h, its lane l = t % NL the columns
+// c = l, l + NL, ... of the bordered lower triangle in registers; a team of
+// one thread (the host build) takes both in turn. The factor is
+// right-looking, one column step and one barrier a column: the owner of
+// column j publishes its entries and the reciprocal of its pivot d_j; every
+// lane then subtracts from each of its columns c > j column j times
+// (entry c of column j) / d_j. On the chain of a step sit one reciprocal (the
+// SFU's and a Newton step in float), a barrier and a few dependent FMAs.
+// Each entry's updates come in column order, the order of smallmat's chol,
+// and the pivots' logs are taken after the last column, one a lane, in
+// parallel. A non-SPD M gives a pivot d_c <= 0 and a NaN log, as the plain
+// version's Cholesky gives NaN (no jitter).
+template <int NT>
+struct Halves {
+  static constexpr int NL = NT > 1 ? NT / 2 : 1;  // lanes a density
+  static constexpr int step = NT / NL;           // densities apart a thread's turns
+};
 
-  mv(lane, nl, dy, dx, He, m_pred, w);
-  masked_innov(lane, nl, dy, mk, ye, ce, w);
-  tri_solve_lower(lane, nl, dy, 1, L, w, w);
-  const S quad = sum_squares(dy, w);
-  if (lane == 0) ell_[t] = (S)-0.5 * quad - log_det - (S)0.5 * (S)n_obs * (S)kLog2Pi;
+// A half's scratch in shared memory: the published columns (column j in
+// buffer j % 2, so that one barrier a column suffices; entry D + 1 holds
+// 1 / d_j) at row stride kLd<D>, then D log d_c / 2, D u_c^2 d_c and D counts
+// (1 where entry c of v counts in the density's dimension).
+template <int D>
+struct HalfLay {
+  static_assert(tiles::kLd<D> >= D + 2, "a published column holds its pivot's reciprocal");
+  static constexpr int ld = tiles::kLd<D>, logd = 2 * ld, wsq = logd + D, cnt = wsq + D,
+                       size = cnt + D;
+};
+
+// v[i] += v[i + W] for i < W, then the same with W / 2, ..., 1: x[0 .. 2 W)
+// summed by pairs into v[0], in the same order on the card and in the host
+// build.
+template <int W, typename S, int N>
+AUX_HD void pair_sums(S (&v)[N]) {
+  if constexpr (W > 0) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) v[i] += v[i + W];
+    pair_sums<W / 2>(v);
+  }
+}
+
+template <typename S, int N>
+AUX_HD S tree_sum(const S* x) {
+  S v[N];
+  tiles::load_run<S, N>(x, v);
+  pair_sums<N / 2>(v);
+  return v[0];
+}
+
+// Half h's density on lane l: its columns from m(i, c) (M's entry (i, c); only
+// i >= c is read), v(c) and count(c), factored; the logs and squares go to the
+// half's scratch `hs` (the caller syncs before reading them). A pivot is kept
+// apart from its column (its row index is the lane's), updated as its entry
+// is.
+template <typename S, int D, int NT, class Mf, class Vf, class Nf>
+AUX_HD void gauss_half(int l, S* hs, Mf m, Vf v, Nf count) {
+  using H = HalfLay<D>;
+  constexpr int NL = Halves<NT>::NL, U = D / NL, ld = tiles::kLd<D>;
+  static_assert(U * NL == D, "the lanes of a half divide the columns");
+  S a[U][D + 1], piv[U], inv[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int c = l + NL * u;
+#pragma unroll
+    for (int i = 0; i < D; ++i) a[u][i] = m(i, c);
+    a[u][D] = v(c);
+    piv[u] = m(c, c);
+    hs[H::cnt + c] = count(c) ? (S)1 : (S)0;
+  }
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    if (j > 0) {  // the update by column j - 1 of the columns c >= j
+      const S* col = hs + ((j - 1) & 1) * ld;
+      S cj[D];
+      tiles::load_run<S, D>(col, cj);
+      const S cb = col[D], rd = col[D + 1];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = l + NL * u;
+        if (c < j) continue;
+        const S f = col[c] * rd;
+#pragma unroll
+        for (int i = j; i < D; ++i) a[u][i] -= cj[i] * f;  // rows j .. c - 1 are not read
+        a[u][D] -= cb * f;
+        piv[u] -= col[c] * f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (l + NL * u != j) continue;  // column j's owner: publish it and 1 / d_j
+      inv[u] = tiles::pivot_rcp(piv[u]);
+      if (j + 1 < D) {
+        S* out = hs + (j & 1) * ld;
+        tiles::store_run<S, D + 1>(out, a[u]);
+        out[D + 1] = inv[u];
+      }
+    }
+    if (j + 1 < D) tiles::team_sync<NT>(0);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int c = l + NL * u;
+    hs[H::logd + c] = (S)0.5 * log(piv[u]);
+    hs[H::wsq + c] = a[u][D] * a[u][D] * inv[u];
+  }
+}
+
+// -v^T M^{-1} v / 2 - log det M / 2 - n log(2 pi) / 2 from a half's scratch,
+// each sum in tree_sum's order (the plain versions sum in another, which
+// moves a sum of 16 terms by a few ulp: far inside the tests' rtol 1e-9 in
+// f64 and chip_smoke's nrel 1e-4 in f32).
+template <typename S, int D>
+AUX_HD S half_logpdf(const S* hs) {
+  using H = HalfLay<D>;
+  return (S)-0.5 * tree_sum<S, D>(hs + H::wsq) - tree_sum<S, D>(hs + H::logd) -
+         (S)0.5 * tree_sum<S, D>(hs + H::cnt) * (S)kLog2Pi;
+}
+
+// ell's shared memory: the elements' working set, then the halves' scratch.
+template <int D>
+struct EllLay {
+  static constexpr int half = ElementsLay<D>::size, size = half + 2 * HalfLay<D>::size;
+};
+
+// Predict + masked update log-likelihood increment of step k (ops/filtering
+// .kalman_predict_update): log N(ydm; 0, S) over the observed entries, after
+// innovation_cov. Both halves of the team factor S bordered by ydm (a warp
+// runs both halves' instructions anyway); thread 0 writes half 0's.
+template <typename S, int D, int NT>
+AUX_HD void ell_step(int t, long k, int dx, int dy, ElementsIn<S> in, S* ell, S* sh) {
+  using L = ElementsLay<D>;
+  using Hv = Halves<NT>;
+  constexpr int ld = tiles::kLd<D>;
+  innovation_cov<S, D, NT>(t, k, dx, dy, in, sh, nullptr);
+  const S *X = sh + L::X, *ydm = sh + L::ydm, *y = sh + L::y;
+  for (int h = t / Hv::NL; h < 2; h += Hv::step)
+    gauss_half<S, D, NT>(
+        t % Hv::NL, sh + EllLay<D>::half + h * HalfLay<D>::size,
+        [&](int i, int c) { return (S)0.5 * (X[i * ld + c] + X[c * ld + i]); },
+        [&](int c) { return ydm[c]; }, [&](int c) { return c < dy && isfinite(y[c]); });
+  tiles::team_sync<NT>(0);
+  if (t == 0) ell[k] = half_logpdf<S, D>(sh + EllLay<D>::half);
+}
+
+// logdensity's inputs (step k at k dx^2, k dy dx, k dy^2, k dx, k dy) and
+// working set: padded D x D arrays at row stride kLd<D> (He and Re are H and
+// R masked in place), vectors of D, then the halves' scratch.
+template <typename S>
+struct DensityIn {
+  const S *F, *Q, *b, *H, *R, *c, *y, *xp, *xc;
+};
+
+template <int D>
+struct DensityLay {
+  static constexpr int mat = D * tiles::kLd<D>;
+  static constexpr int F = 0, Q = mat, H = 2 * mat, R = 3 * mat;
+  static constexpr int b = 4 * mat, c = b + D, y = c + D, xp = y + D, xc = xp + D, ye = xc + D,
+                       ce = ye + D;
+  static constexpr int half = ce + D, size = half + 2 * HalfLay<D>::size;
+};
+
+// log N(x_{k+1}; F x_k + b, Q) + masked log N(y; H x_{k+1} + c, R) of step k, on
+// a team of NT threads with `sh` its DensityLay<D>: half 0 takes the
+// transition, log N(x_cur - F x_prev - b; 0, diag(Q, I)) over dx entries;
+// half 1 the observation, log N(ye - He x_cur - ce; 0, Re) over the observed
+// ones (the innovation 0 where y is missing). Thread 0 writes their sum.
+template <typename S, int D, int NT>
+AUX_HD void logdensity_step(int t, long k, int dx, int dy, DensityIn<S> in, S* out, S* sh) {
+  using namespace tiles;
+  using L = DensityLay<D>;
+  using Hv = Halves<NT>;
+  constexpr int ld = kLd<D>;
+  S *F = sh + L::F, *Q = sh + L::Q, *He = sh + L::H, *Re = sh + L::R, *b = sh + L::b;
+  S *y = sh + L::y, *xp = sh + L::xp, *xc = sh + L::xc, *ye = sh + L::ye, *ce = sh + L::ce;
+
+  const long xx = k * dx * dx;
+  const MatIn<S> mats[] = {{F, in.F + xx, dx, dx, (S)0},
+                           {Q, in.Q + xx, dx, dx, (S)1},
+                           {He, in.H + k * dy * dx, dy, dx, (S)0},
+                           {Re, in.R + k * dy * dy, dy, dy, (S)0}};
+  const VecIn<S> vecs[] = {{b, in.b + k * dx, dx},
+                           {xp, in.xp + k * dx, dx},
+                           {xc, in.xc + k * dx, dx},
+                           {sh + L::c, in.c + k * dy, dy},
+                           {y, in.y + k * dy, dy}};
+  stage<S, D, NT>(t, mats, vecs);
+  cp_async_wait_all();
+  team_sync<NT>(0);
+  mask_obs<S, D, NT>(Tile<D, NT>(t), dy, He, Re, y, sh + L::c, ye, ce);
+  team_sync<NT>(0);
+
+  for (int h = t / Hv::NL; h < 2; h += Hv::step) {
+    // The half's operands: M, and v = (yv - A z - cv) where it counts.
+    const S *M = h ? Re : Q, *A = h ? He : F, *z = h ? xc : xp, *yv = h ? ye : xc, *cv = h ? ce : b;
+    auto count = [&](int c) { return h ? (c < dy && isfinite(y[c])) : c < dx; };
+    gauss_half<S, D, NT>(
+        t % Hv::NL, sh + L::half + h * HalfLay<D>::size,
+        [&](int i, int c) { return M[i * ld + c]; },
+        [&](int c) { return count(c) ? yv[c] - row_dot<S, D, false>(A, z, c) - cv[c] : (S)0; },
+        count);
+  }
+  team_sync<NT>(0);
+  if (t == 0)
+    out[k] = half_logpdf<S, D>(sh + L::half) + half_logpdf<S, D>(sh + L::half + HalfLay<D>::size);
 }
 
 // Backward-sampling gain and noisy increment of step t (ops/sampling.backward_map_moments
@@ -431,34 +645,6 @@ AUX_HD void backward_maps_step(int lane, int nl, int t, int dx, const S* F_, con
   AUX_SYNC();
 }
 
-// log N(x_t; F x_{t-1} + b, Q) + masked log N(y_t; H x_t + c, R) of step t.
-template <typename S, int MD>
-AUX_HD void logdensity_step(int lane, int nl, int t, int dx, int dy, const S* F_, const S* Q_,
-                            const S* b_, const S* H_, const S* R_, const S* c_, const S* y_,
-                            const S* xp_, const S* xc_, S* out_, S* sm) {
-  const S* xc = xc_ + (long)t * dx;
-  const S* b = b_ + (long)t * dx;
-  S *He = sm, *Re = He + MD * MD, *L = Re + MD * MD;
-  S *mk = L + MD * MD, *ce = mk + MD, *ye = ce + MD, *w = ye + MD;
-
-  const S log_det_q = chol(lane, nl, dx, Q_ + (long)t * dx * dx, L);
-  mv(lane, nl, dx, dx, F_ + (long)t * dx * dx, xp_ + (long)t * dx, w);
-  for (int i = lane; i < dx; i += nl) w[i] = xc[i] - (w[i] + b[i]);
-  AUX_SYNC();
-  tri_solve_lower(lane, nl, dx, 1, L, w, w);
-  const S trans = (S)-0.5 * sum_squares(dx, w) - log_det_q - (S)0.5 * (S)dx * (S)kLog2Pi;
-
-  const int n_obs = masked_obs(lane, nl, dx, dy, H_ + (long)t * dy * dx,
-                               R_ + (long)t * dy * dy, c_ + (long)t * dy, y_ + (long)t * dy,
-                               mk, He, Re, ce, ye);
-  const S log_det_r = chol(lane, nl, dy, Re, L);
-  mv(lane, nl, dy, dx, He, xc, w);
-  masked_innov(lane, nl, dy, mk, ye, ce, w);
-  tri_solve_lower(lane, nl, dy, 1, L, w, w);
-  const S obs = (S)-0.5 * sum_squares(dy, w) - log_det_r - (S)0.5 * (S)n_obs * (S)kLog2Pi;
-  if (lane == 0) out_[t] = trans + obs;
-}
-
 }  // namespace
 
 #ifdef __CUDACC__
@@ -471,22 +657,16 @@ AUX_HD void logdensity_step(int lane, int nl, int t, int dx, int dy, const S* F_
 namespace {
 
 constexpr int kMaxD = 16;   // largest dx, dy the kernels are built for
-static_assert(kMaxD <= kElemD, "elements_kernel pads every dimension the entries accept");
-constexpr int kWarps = 2;   // warps (time steps) per block
+static_assert(kMaxD <= kElemD, "the padded steps pad every dimension the entries accept");
+constexpr int kWarps = 2;   // backward_maps_kernel's warps (time steps) per block
 constexpr int kScratch = map_scratch<kMaxD>();
 
-// Warp w of the block takes step t = blockIdx.x * kWarps + w, with its slice
-// of the block's shared scratch.
-#define AUX_STEP_PROLOGUE(S)                                        \
-  __shared__ S scratch[kWarps][kScratch];                             \
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;       \
-  const int t = blockIdx.x * kWarps + warp;                         \
-  if (t >= n) return;
-
-constexpr int kElemTeam = 32;  // elements_kernel's threads a step (a block)
+constexpr int kElemTeam = 32;  // the padded steps' threads a step (a block)
 // A larger D's working set needs cudaFuncSetAttribute (as scan.cu's set_shmem) past 48 KB.
-static_assert(ElementsLay<kElemD>::size * sizeof(double) <= 48 * 1024,
-              "elements_kernel's shared memory fits the default limit");
+static_assert(EllLay<kElemD>::size * sizeof(double) <= 48 * 1024 &&
+                  ElementsLay<kElemD>::size <= EllLay<kElemD>::size &&
+                  DensityLay<kElemD>::size * sizeof(double) <= 48 * 1024,
+              "the padded steps' shared memory fits the default limit");
 
 // Step blockIdx.x's filtering element on the block; `stamps`, if not null,
 // takes kElemStamps clock64 readings a step.
@@ -500,31 +680,33 @@ elements_kernel(int dx, int dy, ElementsIn<S> in, ElementsOut<S> out, long long*
 }
 
 template <typename S>
-__global__ void __launch_bounds__(kWarps * 32)
-ell_kernel(int n, int dx, int dy, const S* F, const S* Q, const S* b, const S* H,
-           const S* R, const S* c, const S* y, const S* m, const S* P, S* ell) {
-  AUX_STEP_PROLOGUE(S)
-  ell_step<S, kMaxD>(lane, 32, t, dx, dy, F, Q, b, H, R, c, y, m, P, ell, scratch[warp]);
+__global__ void __launch_bounds__(kElemTeam)
+ell_kernel(int dx, int dy, ElementsIn<S> in, S* ell) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  ell_step<S, kElemD, kElemTeam>(threadIdx.x, blockIdx.x, dx, dy, in, ell,
+                                 reinterpret_cast<S*>(smem));
 }
 
+template <typename S>
+__global__ void __launch_bounds__(kElemTeam)
+logdensity_kernel(int dx, int dy, DensityIn<S> in, S* out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  logdensity_step<S, kElemD, kElemTeam>(threadIdx.x, blockIdx.x, dx, dy, in, out,
+                                        reinterpret_cast<S*>(smem));
+}
+
+// Warp w of the block takes step t = blockIdx.x * kWarps + w, with its slice
+// of the block's shared scratch.
 template <typename S>
 __global__ void __launch_bounds__(kWarps * 32)
 backward_maps_kernel(int n, int dx, const S* F, const S* Q, const S* b, const S* m,
                      const S* P, const S* eps, S* G, S* inc) {
-  AUX_STEP_PROLOGUE(S)
+  __shared__ S scratch[kWarps][kScratch];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int t = blockIdx.x * kWarps + warp;
+  if (t >= n) return;
   backward_maps_step<S, kMaxD>(lane, 32, t, dx, F, Q, b, m, P, eps, G, inc, scratch[warp]);
 }
-
-template <typename S>
-__global__ void __launch_bounds__(kWarps * 32)
-logdensity_kernel(int n, int dx, int dy, const S* F, const S* Q, const S* b, const S* H,
-                  const S* R, const S* c, const S* y, const S* xp, const S* xc, S* out) {
-  AUX_STEP_PROLOGUE(S)
-  logdensity_step<S, kMaxD>(lane, 32, t, dx, dy, F, Q, b, H, R, c, y, xp, xc, out,
-                            scratch[warp]);
-}
-
-inline int blocks(int n) { return (n + kWarps - 1) / kWarps; }
 
 inline int check_dims(int n, int dx, int dy) {
   if (n <= 0 || dx < 1 || dy < 1 || dx > kMaxD || dy > kMaxD) return (int)cudaErrorInvalidValue;
@@ -549,16 +731,16 @@ inline int check_dims(int n, int dx, int dy) {
                                   const S* H, const S* R, const S* c, const S* y,             \
                                   const S* m, const S* P, S* ell, void* stream) {             \
     if (int e = check_dims(n, dx, dy)) return e;                                              \
-    ell_kernel<S><<<blocks(n), kWarps * 32, 0, (cudaStream_t)stream>>>(                       \
-        n, dx, dy, F, Q, b, H, R, c, y, m, P, ell);                                           \
+    ell_kernel<S><<<n, kElemTeam, EllLay<kElemD>::size * sizeof(S), (cudaStream_t)stream>>>(  \
+        dx, dy, ElementsIn<S>{F, Q, b, H, R, c, y, m, P}, ell);                               \
     return (int)cudaGetLastError();                                                           \
   }                                                                                           \
   extern "C" int aux_backward_maps_##SUFFIX(int n, int dx, const S* F, const S* Q,            \
                                             const S* b, const S* m, const S* P,               \
                                             const S* eps, S* G, S* inc, void* stream) {       \
     if (int e = check_dims(n, dx, 1)) return e;                                               \
-    backward_maps_kernel<S><<<blocks(n), kWarps * 32, 0, (cudaStream_t)stream>>>(            \
-        n, dx, F, Q, b, m, P, eps, G, inc);                                                   \
+    backward_maps_kernel<S><<<(n + kWarps - 1) / kWarps, kWarps * 32, 0,                      \
+                              (cudaStream_t)stream>>>(n, dx, F, Q, b, m, P, eps, G, inc);     \
     return (int)cudaGetLastError();                                                           \
   }                                                                                           \
   extern "C" int aux_logdensity_steps_##SUFFIX(int n, int dx, int dy, const S* F,             \
@@ -567,8 +749,9 @@ inline int check_dims(int n, int dx, int dy) {
                                                const S* xp, const S* xc, S* out,              \
                                                void* stream) {                                \
     if (int e = check_dims(n, dx, dy)) return e;                                              \
-    logdensity_kernel<S><<<blocks(n), kWarps * 32, 0, (cudaStream_t)stream>>>(               \
-        n, dx, dy, F, Q, b, H, R, c, y, xp, xc, out);                                         \
+    logdensity_kernel<S><<<n, kElemTeam, DensityLay<kElemD>::size * sizeof(S),                \
+                           (cudaStream_t)stream>>>(                                           \
+        dx, dy, DensityIn<S>{F, Q, b, H, R, c, y, xp, xc}, out);                              \
     return (int)cudaGetLastError();                                                           \
   }
 

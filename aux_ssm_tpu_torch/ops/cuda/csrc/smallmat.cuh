@@ -31,11 +31,11 @@ namespace smallmat {
 
 template <typename S>
 AUX_HD S nan_to_num(S x) {
-  // jnp.nan_to_num: NaN -> 0, +-inf -> +-max of the type.
+  // jnp.nan_to_num: NaN -> 0, +-inf -> +-max of the type (by selects, no
+  // branch).
   const S big = sizeof(S) == 4 ? (S)3.4028234663852886e38 : (S)1.7976931348623157e308;
-  if (isnan(x)) return (S)0;
-  if (isinf(x)) return x > 0 ? big : -big;
-  return x;
+  const S clamped = x > big ? big : (x < -big ? -big : x);
+  return isnan(x) ? (S)0 : clamped;
 }
 
 template <typename S>

@@ -102,6 +102,26 @@ AUX_HD void load_run(const S* p, S (&v)[N]) {
   for (int i = 0; i < N; ++i) v[i] = p[i];
 }
 
+// p[0 .. N) = v: on the card by 16- or 8-byte vector stores as far as N
+// allows (p aligned to them, as for load_run), the rest one by one.
+template <typename S, int N>
+AUX_HD void store_run(S* p, const S (&v)[N]) {
+#ifdef __CUDA_ARCH__
+  constexpr int W = 16 / sizeof(S), V = N / W * W;  // values a vector, values stored by vectors
+#pragma unroll
+  for (int i = 0; i < V; i += W) {
+    if constexpr (W == 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+    else
+      *reinterpret_cast<double2*>(p + i) = make_double2(v[i], v[i + 1]);
+  }
+#else
+  constexpr int V = 0;
+#endif
+#pragma unroll
+  for (int i = V; i < N; ++i) p[i] = v[i];
+}
+
 // acc(i, j) = sum_k X(i, k) Y(k, j) over the thread's tile, k ascending, with
 // X(i, k) = X[i ld + k] or, if TX, X[k ld + i], and Y(k, j) = Y[k ld + j] or,
 // if TY, Y[j ld + k]. Rows of X (and, if TY, of Y) are read four k at a time,

@@ -10,8 +10,9 @@ Phases (any failure raises, and the script exits non-zero):
      LGSSM, f32, inputs from a real filter pass) against its plain PyTorch
      version on the same inputs in f32 and in f64, plus the filter and
      affine scans at T=300 and at n=2 (one combine: the chain's floor),
-     make_elements with a share NAN_SHARE of the observations missing, and
-     the f64 kernels against the f64 plain versions; filter and affine scans
+     make_elements, ell and logdensity_steps with a share NAN_SHARE of the
+     observations missing, and the f64 kernels against the f64 plain
+     versions; filter and affine scans
      interleaved on two streams for 50 rounds, bit-equal to one stream's;
      then the whole MH step in f64 on the card against the CPU at T=64,
      dx=8, given the same noise;
@@ -184,7 +185,7 @@ DELTA = 0.05
 NREL_F32 = 1e-4   # norm-relative bound, f32 kernel vs f32 plain and vs f64 plain
 NREL_F64 = 1e-8   # norm-relative bound, f64 kernel vs f64 plain (logic check)
 STEP_RTOL = 1e-9  # f64 step on the card vs the CPU
-NAN_SHARE = 0.2   # observations made missing for phase 1's masked make_elements
+NAN_SHARE = 0.2   # observations made missing for phase 1's masked MH kernels
 
 SV_PARAMS = (0.0, 0.9, 2.0, 0.25)  # nu, phi, tau, rho of experiments/sv.py
 SV_T, SV_D, SV_N = 250, 30, 25     # the published grid (benchmarks/sv_sweep.sh)
@@ -361,7 +362,8 @@ def phase_kernels(dev):
     results["make_elements"] = compare("make_elements", KF.make_elements,
                                        KF.make_elements_plain, steps + (m_el, P_el),
                                        ops["make_elements"])
-    log(f"  make_elements with a share {NAN_SHARE} of the observations missing (NaN):")
+    log(f"  make_elements, and below ell and logdensity_steps, with a share {NAN_SHARE} of the "
+        "observations missing (NaN):")
     ys_nan = ys[1:].clone()
     holes = torch.Generator(device=dev).manual_seed(11)
     ys_nan[torch.rand(ys_nan.shape, generator=holes, device=dev) < NAN_SHARE] = float("nan")
@@ -382,6 +384,7 @@ def phase_kernels(dev):
     ms, Ps = torch.cat([m0u[None], ms]), torch.cat([P0u[None], Ps])
     results["ell"] = compare("ell", KF.ell, KF.ell_plain, steps + (ms[:-1], Ps[:-1]),
                              ops["ell"])
+    compare("ell_nan", KF.ell, KF.ell_plain, steps[:6] + (ys_nan, ms[:-1], Ps[:-1]), ops["ell"])
 
     eps = torch.randn(T, DX, generator=gen, device=dev)
     results["backward_maps"] = compare(
@@ -403,6 +406,9 @@ def phase_kernels(dev):
     results["logdensity_steps"] = compare(
         "logdensity_steps", KF.logdensity_steps, KF.logdensity_steps_plain,
         steps + (xs[:-1].contiguous(), xs[1:].contiguous()), ops["logdensity_steps"])
+    compare("logdensity_nan", KF.logdensity_steps, KF.logdensity_steps_plain,
+            steps[:6] + (ys_nan, xs[:-1].contiguous(), xs[1:].contiguous()),
+            ops["logdensity_steps"])
     return results
 
 

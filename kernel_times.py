@@ -54,8 +54,9 @@ the same seeds:
   - maps: the six kernels of the auxiliary-Kalman MH step (make_elements,
     filter_scan, ell, backward_maps, affine_scan, logdensity_steps) on
     chip_smoke phase 1's inputs (T=1024, dx=dy=16, f32), the filter scan
-    also at n=299 (T=300) and in f64 at both n (as chip_smoke phase 1 runs
-    it), the affine scan also at n=300 and n=2; where the checkout has them,
+    also at n=299 (T=300) and in f64 at both n, ell and logdensity_steps
+    also in f64 (as chip_smoke phase 1 runs them), the affine scan also at
+    n=300 and n=2; where the checkout has them,
     make_elements' clock64 phases (the median step's cycles from its start
     to the end of the staging, S, the solve, K and its end), the affine
     combine's cycles on teams of 32, 64 and 128 threads and the affine
@@ -479,7 +480,9 @@ def maps(cs, res, dev):
     gains, incs = _backward_maps(eps, ms, Ps, Fs, Qs, bs)
     xs = FS.affine_scan(gains, incs, reverse=True)[1]
     filt = (ms[:-1].contiguous(), Ps[:-1].contiguous())
-    elems64 = tuple(z.double() for z in elems)
+    traj = (xs[:-1].contiguous(), xs[1:].contiguous())
+    steps64, filt64, traj64, elems64 = (tuple(z.double() for z in zs)
+                                        for zs in (steps, filt, traj, elems))
     elems299, elems64_299 = (tuple(z[:299] for z in e) for e in (elems, elems64))
     calls = {
         "make_elements": lambda: KF.make_elements(*el),
@@ -488,12 +491,13 @@ def maps(cs, res, dev):
         "filter_scan_f64": lambda: FS.filter_scan(elems64),
         "filter_scan_f64_n299": lambda: FS.filter_scan(elems64_299),
         "ell": lambda: KF.ell(*steps, *filt),
+        "ell_f64": lambda: KF.ell(*steps64, *filt64),
         "backward_maps": lambda: KF.backward_maps(Fs, Qs, bs, *filt, eps[:-1].contiguous()),
         "affine_scan": lambda: FS.affine_scan(gains, incs, True),
         "affine_scan_n300": lambda: FS.affine_scan(gains[:300], incs[:300], True),
         "affine_scan_n2": lambda: FS.affine_scan(gains[:2], incs[:2], True),
-        "logdensity_steps": lambda: KF.logdensity_steps(*steps, xs[:-1].contiguous(),
-                                                        xs[1:].contiguous())}
+        "logdensity_steps": lambda: KF.logdensity_steps(*steps, *traj),
+        "logdensity_steps_f64": lambda: KF.logdensity_steps(*steps64, *traj64)}
     for name, fn in calls.items():
         res[f"mh_{name}_ms"] = cs.cuda_ms(fn, 50)
         res[f"mh_{name}_device_ms"] = device_ms(fn, 20)

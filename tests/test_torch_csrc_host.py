@@ -45,8 +45,8 @@ _MAPS = """
 #include "kalman_fused.cu"
 #define D %(D)d
 extern "C" {
-// The elements kernel's step on one "thread" (its team of 1), a step at a
-// time, on a host copy of the block's shared memory.
+// The padded steps (elements, ell, logdensity) on one "thread" (a team of
+// 1), a step at a time, on a host copy of the block's shared memory.
 void h_make_elements(int n, int dx, int dy, const double* F, const double* Q,
     const double* b, const double* H, const double* R, const double* c, const double* y,
     const double* m, const double* P, double* A, double* bel, double* C, double* eta,
@@ -59,8 +59,9 @@ void h_make_elements(int n, int dx, int dy, const double* F, const double* Q,
 void h_ell(int n, int dx, int dy, const double* F, const double* Q, const double* b,
     const double* H, const double* R, const double* c, const double* y, const double* m,
     const double* P, double* out) {
-  double sm[map_scratch<D>()];
-  for (int t = 0; t < n; ++t) ell_step<double, D>(0, 1, t, dx, dy, F, Q, b, H, R, c, y, m, P, out, sm);
+  static double sh[EllLay<kElemD>::size];
+  const ElementsIn<double> in{F, Q, b, H, R, c, y, m, P};
+  for (int t = 0; t < n; ++t) ell_step<double, kElemD, 1>(0, t, dx, dy, in, out, sh);
 }
 void h_backward_maps(int n, int dx, const double* F, const double* Q, const double* b,
     const double* m, const double* P, const double* eps, double* G, double* inc) {
@@ -70,9 +71,9 @@ void h_backward_maps(int n, int dx, const double* F, const double* Q, const doub
 void h_logdensity_steps(int n, int dx, int dy, const double* F, const double* Q,
     const double* b, const double* H, const double* R, const double* c, const double* y,
     const double* xp, const double* xc, double* out) {
-  double sm[map_scratch<D>()];
-  for (int t = 0; t < n; ++t)
-    logdensity_step<double, D>(0, 1, t, dx, dy, F, Q, b, H, R, c, y, xp, xc, out, sm);
+  static double sh[DensityLay<kElemD>::size];
+  const DensityIn<double> in{F, Q, b, H, R, c, y, xp, xc};
+  for (int t = 0; t < n; ++t) logdensity_step<double, kElemD, 1>(0, t, dx, dy, in, out, sh);
 }
 }
 """
@@ -538,13 +539,16 @@ def _close(got, want, rtol=1e-9, atol=1e-11):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol, atol=atol)
 
 
-# The elements kernel pads dx, dy to 16: d = 16 exactly (the main path's),
-# d = 1, dy < dx and dy > dx, n = 1 and n = 2, and missing observations on
-# every masking branch (NaN y; H, R, c NaN where y is; a step missing whole).
+# The elements, ell and logdensity steps pad dx, dy to 16: d = 16 exactly
+# (the main path's), dx = 16 over padded observation rows (dy = 5), d = 1,
+# dy < dx and dy > dx, n = 1 and n = 2, and missing observations on every
+# masking branch (NaN y; H, R, c NaN where y is; a step missing whole, whose
+# ell increment is 0).
 @pytest.mark.parametrize("T,dx,dy,nan_frac,nan_model", [
     (23, 2, 2, 0.0, False), (64, 4, 3, 0.3, False), (40, 3, 1, 0.0, False),
     (40, 16, 16, 0.2, True), (30, 1, 1, 0.3, False), (2, 3, 2, 0.0, False),
-    (3, 5, 2, 0.5, True), (20, 2, 5, 0.4, True)])
+    (3, 5, 2, 0.5, True), (20, 2, 5, 0.4, True), (24, 16, 5, 0.0, False),
+    (24, 16, 5, 0.3, True)])
 def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac, nan_model):
     lib = host_lib["maps"]
     lg, ys = _model(T, dx, dy, seed=T, nan_frac=nan_frac, nan_model=nan_model, stable=True)
@@ -567,6 +571,8 @@ def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac, nan_model):
     got = torch.empty_like(want)
     _call(lib.h_ell, n, dx, dy, Fs, Qs, bs, *obs, ms0, Ps0, got)
     _close(got, want)
+    if nan_model:  # step 0 of the maps (y_1) is missing whole
+        assert float(got[0]) == 0.0 == float(want[0])
 
     eps = torch.as_tensor(np.random.default_rng(1).standard_normal((n, dx)))
     want = KF.backward_maps_plain(Fs, Qs, bs, ms0, Ps0, eps)

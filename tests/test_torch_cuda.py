@@ -91,12 +91,13 @@ def _element_inputs(T, dx, dy, nan_frac, nan_model=False):
     return lg, ys, (Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], m, P)
 
 
-# The elements kernel pads dx, dy to 16: d = 16 (the main path's T too), d =
-# 1, dy < dx and dy > dx, n = 1 and 2, and every masking branch.
+# The elements, ell and logdensity kernels pad dx, dy to 16: d = 16 (the main
+# path's T too), dx = 16 over padded observation rows, d = 1, dy < dx and dy
+# > dx, n = 1 and 2, and every masking branch.
 @pytest.mark.parametrize("T,dx,dy,nan_frac,nan_model", [
     (64, 4, 3, 0.3, False), (300, 3, 1, 0.0, False), (40, 16, 16, 0.1, False),
     (1024, 16, 16, 0.1, True), (30, 1, 1, 0.3, False), (2, 3, 2, 0.0, False),
-    (3, 5, 2, 0.5, True), (20, 2, 5, 0.4, True)])
+    (3, 5, 2, 0.5, True), (20, 2, 5, 0.4, True), (24, 16, 5, 0.3, True)])
 def test_maps_match_plain(dev, T, dx, dy, nan_frac, nan_model):
     lg, ys, args = _element_inputs(T, dx, dy, nan_frac, nan_model)
     Fs, Qs, bs, *obs = args[:7]

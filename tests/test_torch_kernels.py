@@ -55,8 +55,10 @@ def _filter_inputs(T, dx, dy, seed, nan_frac):
     return steps, np.asarray(m0u), np.asarray(P0u)
 
 
+# (9, 8, 8): the widest case the CPU affords (the Pallas kernels' interpret
+# mode took ~58 s at d = 16, ~19 s at d = 8).
 @pytest.mark.parametrize("T,dx,dy,nan_frac", [(23, 2, 2, 0.0), (64, 4, 3, 0.3),
-                                              (140, 3, 1, 0.0)])
+                                              (140, 3, 1, 0.0), (9, 8, 8, 0.0)])
 def test_make_elements_and_ell_match_pallas(T, dx, dy, nan_frac):
     steps, m0u, P0u = _filter_inputs(T, dx, dy, seed=0, nan_frac=nan_frac)
     m = np.concatenate([m0u[None], np.zeros((T - 2, dx))])
@@ -84,7 +86,9 @@ def test_backward_maps_match_pallas(T, dx):
     _close(KF.backward_maps_plain(*_t(*args)), want, rtol=1e-7, atol=1e-9)
 
 
-@pytest.mark.parametrize("T,dx,dy,nan_frac", [(30, 2, 2, 0.0), (70, 3, 2, 0.4)])
+# (9, 16, 16): the width the kernel is built for.
+@pytest.mark.parametrize("T,dx,dy,nan_frac", [(30, 2, 2, 0.0), (70, 3, 2, 0.4),
+                                              (9, 16, 16, 0.0)])
 def test_logdensity_steps_match_pallas(T, dx, dy, nan_frac):
     (m0, P0, Fs, Qs, bs, Hs, Rs, cs), ys = _model(T, dx, dy, seed=2, nan_frac=nan_frac)
     xs = np.random.default_rng(3).standard_normal((T, dx))
