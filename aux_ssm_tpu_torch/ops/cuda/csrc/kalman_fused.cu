@@ -11,18 +11,18 @@
 // launch, far below what the card moves or computes in a millisecond. What
 // bounds a step is the latency of its dependent chain of small products.
 //
-// elements_kernel, ell_kernel and logdensity_kernel: one block (a team of
-// kElemTeam = 32 threads) a step, at a compile-time D = kElemD (tile.cuh; dx,
-// dy <= D padded exactly: F, Q, P, H, R, b, m, c, y, x zero outside d, the
-// padded observation rows treated as missing, so He's rows are zero there and
-// Re's diagonal one, S = diag(S, I), a transition density's Q diag(Q, I), and
-// every product keeps the padding: each result equals the unpadded one in
-// exact arithmetic). The step's inputs are staged into shared memory by
-// cp.async before the chain, so no global load sits on it; each thread
-// computes its tile of each D x D product in registers from padded rows read
-// by vector loads; each output goes to global memory once, after the last
-// barrier. With ~8 steps an SM (1023 steps, one wave), the SM's shared-memory
-// reads set the pace: a product reads D (RPT + CPT) values a thread, so the
+// All four: one block (a team of kElemTeam = 32 threads) a step, at a
+// compile-time D = kElemD (tile.cuh; dx, dy <= D padded exactly: F, Q, P, H,
+// R, b, m, c, y, x zero outside d, the padded observation rows treated as
+// missing, so He's rows are zero there and Re's diagonal one, S = diag(S, I),
+// the Q of a transition density and of backward_maps diag(Q, I), and every
+// product keeps the padding: each result equals the unpadded one in exact
+// arithmetic). The step's inputs are staged into shared memory by cp.async
+// before the chain, so no global load sits on it; each thread computes its
+// tile of each D x D product in registers from padded rows read by vector
+// loads; each output goes to global memory once, after the last barrier.
+// With ~8 steps an SM (1023 steps, one wave), the SM's shared-memory reads
+// set the pace: a product reads D (RPT + CPT) values a thread, so the
 // tiles are as square as the team allows.
 //
 // make_elements and ell share their prefix (innovation_cov: the masked model,
@@ -44,9 +44,13 @@
 // observation's (Re, the masked innovation of x_t) on lanes 16-31, the same
 // code on other operands.
 //
-// backward_maps: one warp per step, runtime d, the warp's lanes sharing each
-// product of smallmat.cuh on operands in shared memory. A step with t >= n is
-// skipped; nothing is padded.
+// backward_maps: S = sym(F P F^T + Q) and the right-hand side F P, S X = F P
+// by make_elements' Gauss-Jordan, S G^T = S X and cov = sym(P - G S G^T),
+// then the Cholesky factor L of cov (jittered) on half of the warp
+// (chol_cols: lane c owns column c, one barrier, one square root and one
+// reciprocal a column; the upper half-warp repeats it), and the three
+// mat-vecs of inc on the threads of the first column: 5 tile products and
+// 30 barriers a step.
 //
 // Missing observations follow ops/lgssm.mask_observation exactly: every
 // masked quantity is selected with `isfinite(y)`, never multiplied by a 0/1
@@ -54,26 +58,22 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3, no --use_fast_math
 // (the masking needs isfinite/NaN semantics, the densities IEEE log).
-#include "smallmat.cuh"
 #include "tile.cuh"
 
 namespace {
 
-using namespace smallmat;
+using tiles::finite_or_zero;
+using tiles::nan_to_num;
 
 constexpr double kLog2Pi = 1.8378770664093453;
 
-// Shared scratch of one warp of backward_maps_step, in elements of S: 5
-// matrices and 2 vectors.
-template <int MD>
-constexpr int map_scratch() { return 5 * MD * MD + 2 * MD; }
-
 // ---------------------------------------------------------------------------
-// The padded steps (elements_kernel, ell_kernel, logdensity_kernel)
+// The padded steps
 // ---------------------------------------------------------------------------
 
 constexpr int kElemD = 16;  // the compile-time dimension of the padded steps (dx, dy <= 16)
 constexpr int kElemStamps = 6;  // clock64 readings of an elements step (diagnostics)
+constexpr int kMapStamps = 7;   // clock64 readings of a backward_maps step (diagnostics)
 
 // A step's inputs and the elements' outputs in global memory (step k at k
 // dx^2, k dy dx, k dy^2, k dx, k dy). ell takes the same inputs.
@@ -205,9 +205,9 @@ AUX_HD void mask_obs(const tiles::Tile<D, NT>& tl, int dy, S* He, S* Re, const S
 // mask the observation model (He, Re, ye, ce), m_pred = F m + b, P_pred = F
 // (P F^T) + Q, ydm = ye - He m_pred - ce (0 where y is missing), T = P_pred
 // He^T, and S' = He T + Re into X, where S = sym(S'). Each entry is summed
-// over k ascending, as smallmat's products sum it, so the result does not
-// depend on NT. Ends with a barrier. `st`, if not null, takes thread 0's
-// clock64 at the start and after the staging (diagnostics).
+// over k ascending, so the result does not depend on NT. Ends with a
+// barrier. `st`, if not null, takes thread 0's clock64 at the start and
+// after the staging (diagnostics).
 template <typename S, int D, int NT>
 AUX_HD void innovation_cov(int t, long k, int dx, int dy, ElementsIn<S> in, S* sh,
                            long long* st) {
@@ -390,8 +390,8 @@ AUX_HD void elements_step(int t, long k, int dx, int dy, ElementsIn<S> in, Eleme
 // lane then subtracts from each of its columns c > j column j times
 // (entry c of column j) / d_j. On the chain of a step sit one reciprocal (the
 // SFU's and a Newton step in float), a barrier and a few dependent FMAs.
-// Each entry's updates come in column order, the order of smallmat's chol,
-// and the pivots' logs are taken after the last column, one a lane, in
+// Each entry's updates come in column order (k ascending, as a left-looking
+// Cholesky sums them), and the pivots' logs are taken after the last column, one a lane, in
 // parallel. A non-SPD M gives a pivot d_c <= 0 and a NaN log, as the plain
 // version's Cholesky gives NaN (no jitter).
 template <int NT>
@@ -588,61 +588,215 @@ AUX_HD void logdensity_step(int t, long k, int dx, int dy, DensityIn<S> in, S* o
     out[k] = half_logpdf<S, D>(sh + L::half) + half_logpdf<S, D>(sh + L::half + HalfLay<D>::size);
 }
 
-// Backward-sampling gain and noisy increment of step t (ops/sampling.backward_map_moments
-// with the jittered Cholesky of ops/chol.safe_cholesky).
-template <typename S, int MD>
-AUX_HD void backward_maps_step(int lane, int nl, int t, int dx, const S* F_, const S* Q_,
-                               const S* b_, const S* m_, const S* P_, const S* eps_, S* G_,
-                               S* inc_, S* sm) {
-  const S* F = F_ + (long)t * dx * dx;
-  const S* P = P_ + (long)t * dx * dx;
-  const S* m = m_ + (long)t * dx;
-  S *Sm = sm, *FP = Sm + MD * MD, *L = FP + MD * MD, *tmp = L + MD * MD;
-  S *gain = tmp + MD * MD, *v = gain + MD * MD, *w = v + MD;
+// ---------------------------------------------------------------------------
+// Backward-sampling maps (backward_maps)
+// ---------------------------------------------------------------------------
 
-  // S = sym(F (P F^T) + Q)
-  mm_nt(lane, nl, dx, dx, dx, P, F, tmp);
-  mm(lane, nl, dx, dx, dx, F, tmp, Sm);
-  const S* Q = Q_ + (long)t * dx * dx;
-  for (int e = lane; e < dx * dx; e += nl) Sm[e] += Q[e];
-  AUX_SYNC();
-  sym(lane, nl, dx, Sm);
+// backward_maps' inputs and outputs in global memory (step k at k dx^2, k dx).
+template <typename S>
+struct MapsIn {
+  const S *F, *Q, *b, *m, *P, *eps;
+};
 
-  mm(lane, nl, dx, dx, dx, F, P, FP);
-  spd_solve(lane, nl, dx, dx, Sm, FP, L, FP);  // FP <- S^{-1} F P
+template <typename S>
+struct MapsOut {
+  S *G, *inc;
+};
 
-  // gain = (S^{-1} F P)^T = P F^T S^{-1}
-  for (int e = lane; e < dx * dx; e += nl) gain[e] = FP[(e % dx) * dx + e / dx];
-  AUX_SYNC();
-  copy(lane, nl, dx * dx, gain, G_ + (long)t * dx * dx);
+// A step's working set: D x D arrays at row stride kLd<D> (T is P F^T, then S
+// X; C is S' = F T + Q, then P - X^T T), vectors of D (v = F m + b), the
+// Gauss-Jordan pivots' columns and rows (4 D each) and the factor's two
+// published columns.
+template <int D>
+struct MapsLay {
+  static constexpr int mat = D * tiles::kLd<D>;
+  static constexpr int F = 0, Q = mat, P = 2 * mat, T = 3 * mat, Sm = 4 * mat, X = 5 * mat,
+                       C = 6 * mat, L = 7 * mat;
+  static constexpr int b = 8 * mat, m = b + D, eps = m + D, v = eps + D;
+  static constexpr int col = v + D, rowm = col + 4 * D, rowz = rowm + 4 * D, pub = rowz + 4 * D;
+  static constexpr int size = pub + 2 * tiles::kLd<D>;
+};
 
-  // cov = sym(P - gain (S gain^T)) + (32 eps / dx) trace(cov) I
-  mm_nt(lane, nl, dx, dx, dx, Sm, gain, tmp);
-  mm(lane, nl, dx, dx, dx, gain, tmp, FP);
-  for (int e = lane; e < dx * dx; e += nl) FP[e] = P[e] - FP[e];
-  AUX_SYNC();
-  sym(lane, nl, dx, FP);
+// The lower Cholesky factor of an SPD D x D matrix M (m(i, c) its entry (i,
+// c); only i >= c is read) into the padded array Lout, its entries past row
+// dx zero, non-finite entries zero (ops/chol.safe_cholesky's nan_to_num). Half
+// of the team takes it, lane l = t % NL the columns c = l, l + NL, ... in
+// registers; the other half repeats it and stores nothing (a team of one
+// thread, the host build, takes every column). Right-looking, one barrier a
+// column: the owner of column j takes its pivot's square root d_j, scales
+// the column by 1 / d_j and publishes it; every lane then subtracts from its
+// columns c > j column j times entry c of column j. An entry's updates come
+// in column order with the same products as the left-looking column
+// Cholesky of the JAX kernel (lanelin.chol, entries times 1 / d_j), so a
+// matrix that is not positive definite fails as there: the columns before
+// the first pivot that is not positive stay finite, and every entry from
+// that column on is NaN (or inf), then zero. (The root-free LDL^T of
+// gauss_half, scaled after its last column, ran ~400 cycles a step slower
+// here on an H100: the scaling and the search for the first failed pivot
+// cost more than the square roots it takes off the chain.)
+template <typename S, int D, int NT, class Mf>
+AUX_HD void chol_cols(int t, int dx, S* pub, S* Lout, Mf m) {
+  constexpr int NL = Halves<NT>::NL, U = D / NL, ld = tiles::kLd<D>;
+  static_assert(U * NL == D, "the lanes of a half divide the columns");
+  const int l = t % NL;
+  S a[U][D];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int c = l + NL * u;
+#pragma unroll
+    for (int i = 0; i < D; ++i) a[u][i] = m(i, c);
+  }
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    if (j > 0) {  // the update by column j - 1 of the columns c >= j
+      const S* col = pub + ((j - 1) & 1) * ld;
+      S cj[D];
+      tiles::load_run<S, D>(col, cj);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = l + NL * u;
+        if (c < j) continue;
+        const S f = col[c];
+#pragma unroll
+        for (int i = j; i < D; ++i) a[u][i] -= cj[i] * f;  // rows j .. c - 1 are not read
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (l + NL * u != j) continue;  // column j's owner: scale it and publish it
+      const S d = sqrt(a[u][j]), r = tiles::pivot_rcp(d);
+      a[u][j] = d;
+#pragma unroll
+      for (int i = j + 1; i < D; ++i) a[u][i] *= r;
+      if (j + 1 < D && t < NL) tiles::store_run<S, D>(pub + (j & 1) * ld, a[u]);
+    }
+    if (j + 1 < D) tiles::team_sync<NT>(0);
+  }
+  if (t < NL)
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = l + NL * u;
+#pragma unroll
+      for (int i = 0; i < D; ++i)
+        Lout[i * ld + c] = i >= c && i < dx ? finite_or_zero(a[u][i]) : (S)0;
+    }
+}
+
+// Backward-sampling gain G = P F^T S^{-1} and noisy increment m - G (F m + b)
+// + L eps of step k (ops/sampling.backward_map_moments with the jittered
+// Cholesky of ops/chol.safe_cholesky, in the JAX kernel's order), on a team of
+// NT threads with `sh` its MapsLay<D>:
+//   S = sym(F (P F^T) + Q), X = S^{-1} (F P), G = X^T,
+//   cov = sym(P - X^T (S X)) + (32 eps / dx) trace(cov) I, L = chol(cov).
+// S is SPD (Q is), so the Gauss-Jordan needs no exchanges. The trace sums
+// cov's dx diagonal entries; the padded pivots are 1, so the factor does not
+// fail on them, and its padded entries come out zero. `st`, if not null,
+// takes thread 0's clock64 at the start and after the staging, S, the solve,
+// cov, the factor and the outputs (diagnostics).
+template <typename S, int D, int NT>
+AUX_HD void backward_maps_step(int t, long k, int dx, MapsIn<S> in, MapsOut<S> out, S* sh,
+                               long long* st) {
+  using namespace tiles;
+  using L = MapsLay<D>;
+  using T = Tile<D, NT>;
+  constexpr int R = T::RPT, Cn = T::CPT, ld = kLd<D>;
+  const T tl(t);
+  S *F = sh + L::F, *Q = sh + L::Q, *P = sh + L::P, *Tp = sh + L::T, *Sm = sh + L::Sm;
+  S *X = sh + L::X, *C = sh + L::C, *Lm = sh + L::L, *b = sh + L::b, *m = sh + L::m;
+  S *eps = sh + L::eps, *v = sh + L::v;
+
+  stamp(st, t, 0);
+  const long xx = k * dx * dx, vx = k * dx;
+  const MatIn<S> mats[] = {{F, in.F + xx, dx, dx, (S)0},
+                           {Q, in.Q + xx, dx, dx, (S)1},
+                           {P, in.P + xx, dx, dx, (S)0}};
+  const VecIn<S> vecs[] = {{b, in.b + vx, dx}, {m, in.m + vx, dx}, {eps, in.eps + vx, dx}};
+  stage<S, D, NT>(t, mats, vecs);
+  cp_async_wait_all();
+  team_sync<NT>(0);
+  stamp(st, t, 1);
+
+  // Stage 1: T = P F^T, the right-hand side F P (in registers), v = F m + b.
+  Regs<S, D, NT> acc, ms, z;
+  tile_mm<S, D, NT, false, true>(tl, P, F, acc);
+  tile_store<S, D, NT>(tl, acc, Tp);
+  tile_mm<S, D, NT, false, false>(tl, F, P, z);
+  if (tl.first())
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int i = tl.r0 + rr;
+      v[i] = row_dot<S, D, false>(F, m, i) + b[i];
+    }
+  team_sync<NT>(0);
+
+  // Stage 2: S' = F T + Q into C.
+  tile_mm<S, D, NT, false, false>(tl, F, Tp, acc);
+#pragma unroll
+  for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+    for (int cc = 0; cc < Cn; ++cc) acc[rr][cc] += Q[(tl.r0 + rr) * ld + tl.c0 + cc];
+  tile_store<S, D, NT>(tl, acc, C);
+  team_sync<NT>(0);
+
+  // Stage 3: the thread's tile of S = sym(S') in registers and in Sm, the
+  // first pivot pair published.
+  sym_tile<S, D, NT>(tl, C, ms);
+  tile_store<S, D, NT>(tl, ms, Sm);
+  gj_publish_first<S, D, NT>(tl, ms, z, sh + L::col, sh + L::rowm, sh + L::rowz);
+  team_sync<NT>(0);
+  stamp(st, t, 2);
+
+  // Stage 4: X = S^{-1} F P.
+  gj_solve<S, D, NT>(tl, 0, ms, z, sh + L::col, sh + L::rowm, sh + L::rowz, X);
+  stamp(st, t, 3);
+
+  // Stage 5: T = S X (S G^T), then C = P - X^T T (P - G S G^T).
+  tile_mm<S, D, NT, false, false>(tl, Sm, X, acc);
+  tile_store<S, D, NT>(tl, acc, Tp);
+  team_sync<NT>(0);
+  tile_mm<S, D, NT, true, false>(tl, X, Tp, acc);
+#pragma unroll
+  for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+    for (int cc = 0; cc < Cn; ++cc)
+      acc[rr][cc] = P[(tl.r0 + rr) * ld + tl.c0 + cc] - acc[rr][cc];
+  tile_store<S, D, NT>(tl, acc, C);
+  team_sync<NT>(0);
+  stamp(st, t, 4);
+
+  // Stage 6: L = chol(cov), cov = sym(C) + jitter on the dx diagonal, 1 on
+  // the padded one.
   S trace = (S)0;
-  for (int i = 0; i < dx; ++i) trace += FP[i * dx + i];
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+    if (i < dx) trace += C[i * ld + i];
   const S eps_type = sizeof(S) == 4 ? (S)1.1920928955078125e-07 : (S)2.220446049250313e-16;
   const S jitter = ((S)32 * eps_type / (S)dx) * trace;
-  AUX_SYNC();  // every lane has read the diagonal before it changes
-  for (int i = lane; i < dx; i += nl) FP[i * dx + i] += jitter;
-  AUX_SYNC();
-  chol(lane, nl, dx, FP, L);
-  for (int e = lane; e < dx * dx; e += nl) L[e] = finite_or_zero(L[e]);
-  AUX_SYNC();
+  chol_cols<S, D, NT>(t, dx, sh + L::pub, Lm, [&](int i, int c) {
+    const S e = (S)0.5 * (C[i * ld + c] + C[c * ld + i]);
+    return i != c ? e : c < dx ? e + jitter : (S)1;
+  });
+  team_sync<NT>(0);
+  stamp(st, t, 5);
 
-  // inc = m - gain (F m + b) + L eps
-  mv(lane, nl, dx, dx, F, m, v);
-  const S* b = b_ + (long)t * dx;
-  for (int i = lane; i < dx; i += nl) v[i] += b[i];
-  AUX_SYNC();
-  mv(lane, nl, dx, dx, gain, v, w);
-  mv(lane, nl, dx, dx, L, eps_ + (long)t * dx, v);
-  S* inc = inc_ + (long)t * dx;
-  for (int i = lane; i < dx; i += nl) inc[i] = (m[i] - w[i]) + v[i];
-  AUX_SYNC();
+  // Stage 7: the outputs, G = X^T and inc = (m - G v) + L eps.
+#pragma unroll
+  for (int rr = 0; rr < R; ++rr) {
+    const int i = tl.r0 + rr;
+#pragma unroll
+    for (int cc = 0; cc < Cn; ++cc) {
+      const int j = tl.c0 + cc;
+      if (i < dx && j < dx) out.G[xx + i * dx + j] = X[j * ld + i];
+    }
+  }
+  if (tl.first())
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const int i = tl.r0 + rr;
+      if (i < dx)
+        out.inc[vx + i] = (m[i] - row_dot<S, D, true>(X, v, i)) + row_dot<S, D, false>(Lm, eps, i);
+    }
+  stamp(st, t, 6);
 }
 
 }  // namespace
@@ -658,14 +812,13 @@ namespace {
 
 constexpr int kMaxD = 16;   // largest dx, dy the kernels are built for
 static_assert(kMaxD <= kElemD, "the padded steps pad every dimension the entries accept");
-constexpr int kWarps = 2;   // backward_maps_kernel's warps (time steps) per block
-constexpr int kScratch = map_scratch<kMaxD>();
 
 constexpr int kElemTeam = 32;  // the padded steps' threads a step (a block)
 // A larger D's working set needs cudaFuncSetAttribute (as scan.cu's set_shmem) past 48 KB.
 static_assert(EllLay<kElemD>::size * sizeof(double) <= 48 * 1024 &&
                   ElementsLay<kElemD>::size <= EllLay<kElemD>::size &&
-                  DensityLay<kElemD>::size * sizeof(double) <= 48 * 1024,
+                  DensityLay<kElemD>::size * sizeof(double) <= 48 * 1024 &&
+                  MapsLay<kElemD>::size * sizeof(double) <= 48 * 1024,
               "the padded steps' shared memory fits the default limit");
 
 // Step blockIdx.x's filtering element on the block; `stamps`, if not null,
@@ -695,17 +848,16 @@ logdensity_kernel(int dx, int dy, DensityIn<S> in, S* out) {
                                         reinterpret_cast<S*>(smem));
 }
 
-// Warp w of the block takes step t = blockIdx.x * kWarps + w, with its slice
-// of the block's shared scratch.
+// Step blockIdx.x's gain and increment on the block; `stamps`, if not null,
+// takes kMapStamps clock64 readings a step.
 template <typename S>
-__global__ void __launch_bounds__(kWarps * 32)
-backward_maps_kernel(int n, int dx, const S* F, const S* Q, const S* b, const S* m,
-                     const S* P, const S* eps, S* G, S* inc) {
-  __shared__ S scratch[kWarps][kScratch];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int t = blockIdx.x * kWarps + warp;
-  if (t >= n) return;
-  backward_maps_step<S, kMaxD>(lane, 32, t, dx, F, Q, b, m, P, eps, G, inc, scratch[warp]);
+__global__ void __launch_bounds__(kElemTeam)
+backward_maps_kernel(int dx, MapsIn<S> in, MapsOut<S> out, long long* stamps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  backward_maps_step<S, kElemD, kElemTeam>(threadIdx.x, blockIdx.x, dx, in, out,
+                                           reinterpret_cast<S*>(smem),
+                                           stamps ? stamps + (long)blockIdx.x * kMapStamps
+                                                  : nullptr);
 }
 
 inline int check_dims(int n, int dx, int dy) {
@@ -737,10 +889,12 @@ inline int check_dims(int n, int dx, int dy) {
   }                                                                                           \
   extern "C" int aux_backward_maps_##SUFFIX(int n, int dx, const S* F, const S* Q,            \
                                             const S* b, const S* m, const S* P,               \
-                                            const S* eps, S* G, S* inc, void* stream) {       \
+                                            const S* eps, S* G, S* inc, long long* stamps,    \
+                                            void* stream) {                                   \
     if (int e = check_dims(n, dx, 1)) return e;                                               \
-    backward_maps_kernel<S><<<(n + kWarps - 1) / kWarps, kWarps * 32, 0,                      \
-                              (cudaStream_t)stream>>>(n, dx, F, Q, b, m, P, eps, G, inc);     \
+    backward_maps_kernel<S><<<n, kElemTeam, MapsLay<kElemD>::size * sizeof(S),                \
+                              (cudaStream_t)stream>>>(dx, MapsIn<S>{F, Q, b, m, P, eps},      \
+                                                      MapsOut<S>{G, inc}, stamps);            \
     return (int)cudaGetLastError();                                                           \
   }                                                                                           \
   extern "C" int aux_logdensity_steps_##SUFFIX(int n, int dx, int dy, const S* F,             \

@@ -294,9 +294,9 @@ using FilterTile = ElemTile<S, D, NT, 3, 2>;
 // (I + C1 J2 is similar to I + SPD: eigenvalues >= 1), then
 //   A = A2Z A1,  b = A2Z (b1 + C1 e2) + b2,  C = sym(A2Z (C1 A2^T) + C2),
 //   e = ZA1^T (e2 - J2 b1) + e1,  J = sym(ZA1^T (J2 A1) + J1),
-// each entry summed in the order smallmat's products sum it, so the result
-// does not depend on NT. 11 team barriers; the caller's after it included:
-// w, l and r are read until the function returns.
+// each entry summed over k ascending, so the result does not depend on NT.
+// 11 team barriers; the caller's after it included: w, l and r are read
+// until the function returns.
 template <typename S, int D, int NT>
 AUX_HD void filter_combine(int t, int bar, const S* l, const S* r, S* w,
                            FilterTile<S, D, NT>& o) {
@@ -401,7 +401,7 @@ struct AffineOp {
   using View = ElemView<S, M, V>;
   static AUX_HD bool wide_apply(int) { return false; }
   // o = (G2 G1, G2 e1 + e2) for l = (G1, e1), r = (G2, e2) (sampling_operator),
-  // each entry summed as smallmat's mm and mv sum it. No barrier.
+  // each entry summed over k ascending. No barrier.
   template <int NT>
   static AUX_HD void combine(int t, int, const S* l, const S* r, S*,
                              ElemTile<S, D, NT, M, V>& o) {

@@ -9,10 +9,12 @@
 // (zeros, or the identity's ones on a diagonal), so no index is divided at
 // run time and every loop unrolls. Thread t of the team owns a tile of each
 // D x D result (Tile), computes it in registers and stores it where the next
-// product reads it; each entry is summed over k ascending, the order of
-// smallmat.cuh's products, so a result does not depend on NT. Built as host
-// C++ (NT = 1, no barriers), the same code runs in the CPU tests.
+// product reads it; each entry is summed over k ascending, so a result does
+// not depend on NT. Built as host C++ (NT = 1, no barriers), the same code
+// runs in the CPU tests.
 #pragma once
+
+#include <math.h>
 
 #ifndef AUX_HD
 #define AUX_HD __device__ __forceinline__
@@ -22,6 +24,20 @@ namespace tiles {
 
 template <int D>
 constexpr int kLd = D + 4;
+
+// jnp.nan_to_num: NaN -> 0, +-inf -> +-max of the type (by selects, no
+// branch).
+template <typename S>
+AUX_HD S nan_to_num(S x) {
+  const S big = sizeof(S) == 4 ? (S)3.4028234663852886e38 : (S)1.7976931348623157e308;
+  const S clamped = x > big ? big : (x < -big ? -big : x);
+  return isnan(x) ? (S)0 : clamped;
+}
+
+template <typename S>
+AUX_HD S finite_or_zero(S x) {
+  return isfinite(x) ? x : (S)0;
+}
 
 // The columns of a tile of E entries: the least power of two whose square is
 // at least E, at most D (2 x 4 tiles of 8, 2 x 2 of 4, 1 x 2 of 2).

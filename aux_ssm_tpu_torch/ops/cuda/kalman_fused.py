@@ -157,22 +157,42 @@ def backward_maps_plain(Fs, Qs, bs, ms, Ps, eps):
     return gains, inc_m + mv(L, eps)
 
 
+MAPS_STAMPS = 7  # kMapStamps: clock64 readings of a step
+
+
+def _maps_io(args):
+    """backward_maps' dimensions (n, dx), its inputs checked for the card and
+    its outputs (G, inc), empty."""
+    n, dx = args[2].shape
+    _check_shapes("backward_maps", "FFxxFx", args, n, dx, 1)
+    args = check_cuda_inputs("backward_maps", args, args[2].dtype, MAX_DIM, (dx,))
+    return (n, dx), args, (torch.empty_like(args[0]), torch.empty_like(args[2]))
+
+
 def backward_maps(Fs, Qs, bs, ms, Ps, eps):
     """Backward-sampling gains and increments; see `backward_maps_plain`."""
-    if not _on_cuda("backward_maps", bs):
-        return backward_maps_plain(Fs, Qs, bs, ms, Ps, eps)
-    n, dx = bs.shape
     args = (Fs, Qs, bs, ms, Ps, eps)
-    _check_shapes("backward_maps", "FFxxFx", args, n, dx, 1)
-    args = check_cuda_inputs("backward_maps", args, bs.dtype, MAX_DIM, (dx,))
-    G, inc = torch.empty_like(args[0]), torch.empty_like(args[2])
+    if not _on_cuda("backward_maps", bs):
+        return backward_maps_plain(*args)
+    (n, dx), args, out = _maps_io(args)
     if n:
-        launch("backward_maps", bs.dtype, n, dx, *args, G, inc)
+        launch("backward_maps", bs.dtype, n, dx, *args, *out, None)
         backward_maps.launches += 1
-    return G, inc
+    return out
 
 
 backward_maps.launches = 0
+
+
+def maps_cycles(args):
+    """Diagnostics on the card: `backward_maps(*args)` once, with thread 0's
+    clock64 in each step's block at its phases; returns stamps (n,
+    MAPS_STAMPS) int64: at the start, after the staging, S, the solve, cov,
+    the factor and the outputs. Not counted in `backward_maps.launches`."""
+    (n, dx), args, out = _maps_io(args)
+    stamps = torch.zeros(n, MAPS_STAMPS, dtype=torch.int64, device=args[2].device)
+    launch("backward_maps", args[2].dtype, n, dx, *args, *out, stamps)
+    return stamps
 
 
 # --------------------------------------------------------------------------

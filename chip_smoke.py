@@ -155,9 +155,10 @@ s before the PIT phases, 80-150 s before the spatial ones).
 Each kernel's entry of the JSON summary carries its bound: the least time the
 card could take for the call, the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the 67
-TFLOP/s of float32 outside the tensor cores; block_masses' entry also
-carries `sfu_bound_ms`, its exponentials (one a score) over the SFU's 16 a
-clock on each SM at the card's top SM clock (nvidia-smi clocks.max.sm). No
+TFLOP/s of float32 outside the tensor cores; the entries of row_lse (each
+of its shapes) and block_masses also carry `sfu_bound_ms`, their
+exponentials (one a score) over the SFU's 16 a clock on each SM at the
+card's top SM clock (nvidia-smi clocks.max.sm). No
 single PyTorch call computes any of these kernels' functions (`torch.cumsum`
 and `torch.cumprod` scan one array under + or *; the scalar scans combine
 tuples of two and five arrays, the filter's through a reciprocal; row_lse
@@ -1968,7 +1969,7 @@ def check_stitch(name, label, args, reps, two_call=False):
         else:
             result["two_call_ms"] = cuda_ms(lambda: torch.logsumexp(
                 torch.baddbmm(cb[:, None, :], rf, cf.transpose(1, 2)), -1), reps)
-    if name == "block_masses":
+    if name in ("row_lse", "block_masses"):
         # Every score takes one exponential, which issues on the SFU: 16 a
         # clock on each SM of sm_90, at the card's top SM clock.
         P, n = got[0].shape[:2]

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Times the block_masses, block-lane sweep, factor sweep, draw, filter-scan,
-lane-sweep and MH-step kernels of one checkout of the port on a CUDA card, at
-the main paths' shapes, and profiles the steps that run them.
+lane-sweep, MH-step, row_lse, col_sample and scalar-scan kernels of one
+checkout of the port on a CUDA card, at the main paths' shapes, and profiles
+the steps that run them.
 
     python3 kernel_times.py                 # the checkout this file is in
     python3 kernel_times.py --root DIR      # the checkout unpacked at DIR
     python3 kernel_times.py --parts draws   # some of: masses, lane, steps, factor, draws,
-                                            #   scan, pgas, maps
+                                            #   scan, pgas, maps, rows, scalar
 
 To compare two checkouts, unpack the other into a directory that .gitignore
 lists and run both in one machine in turns (A, B, B, A): times on one card
@@ -55,14 +56,26 @@ the same seeds:
     filter_scan, ell, backward_maps, affine_scan, logdensity_steps) on
     chip_smoke phase 1's inputs (T=1024, dx=dy=16, f32), the filter scan
     also at n=299 (T=300) and in f64 at both n, ell and logdensity_steps
-    also in f64 (as chip_smoke phase 1 runs them), the affine scan also at
-    n=300 and n=2; where the checkout has them,
+    also in f64 (as chip_smoke phase 1 runs them), backward_maps also in
+    f64, the affine scan also at n=300 and n=2; where the checkout has them,
     make_elements' clock64 phases (the median step's cycles from its start
-    to the end of the staging, S, the solve, K and its end), the affine
+    to the end of the staging, S, the solve, K and its end), backward_maps'
+    (the staging, S, the solve, cov, the factor and its end), the affine
     combine's cycles on teams of 32, 64 and 128 threads and the affine
     scan's per-block timeline; torch.profiler over first-order MH steps with
     each of the six kernels' device ms a step (the old and the new kernels'
-    names).
+    names);
+  - rows: row_lse and col_sample, device ms by torch.profiler and CUDA
+    events, at every level of a real SV (T=250, D=30, N=25, k=30) and a
+    real spatial (T=1024, N=25, k=64) PIT step (chip_smoke phase 16's seed),
+    summed over the step, row_lse at the N=4096 root (k=1) and on random
+    inputs at a two-pass level of mid-size N (P=512, N=1000, k=30), f32 and
+    f64; torch.profiler over the SV and spatial PIT steps with both
+    kernels' device ms a step;
+  - scalar: the scalar filter and affine scans on a real spatial kalman-1
+    step's inputs (chip_smoke phase 12: T=1024, B=64, f32) and cut to T=300
+    and n=1, device ms by torch.profiler and CUDA events; torch.profiler
+    over kalman-1 steps with the scans' device ms a step.
 Kernel times are CUDA events around the wrapper's call. The build log's
 registers and spills of the timed kernels' template instances are printed.
 The last line is one JSON object of every number.
@@ -133,7 +146,8 @@ def ptxas_lines(build_dir, names):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
-    parser.add_argument("--parts", default="masses,lane,steps,factor,draws,scan,pgas,maps")
+    parser.add_argument("--parts",
+                        default="masses,lane,steps,factor,draws,scan,pgas,maps,rows,scalar")
     parser.add_argument("--sass", default=None, help="directory for the draw kernels' SASS")
     opts = parser.parse_args()
     root, parts = str(Path(opts.root).resolve()), opts.parts.split(",")
@@ -162,7 +176,8 @@ def main():
                                                 "lane_block_kernel", "elements_kernel",
                                                 "scan_kernel", "ell_kernel",
                                                 "backward_maps_kernel", "logdensity_kernel",
-                                                "AffineOp")):
+                                                "AffineOp", "row_lse_kernel",
+                                                "col_sample_kernel", "scalar_scan_kernel")):
         print("  ptxas", line)
     dev, f32 = torch.device("cuda"), torch.float32
     res = {"root": root, "card": card}
@@ -189,6 +204,10 @@ def main():
         pgas(cs, CF, res, dev)
     if "maps" in parts:
         maps(cs, res, dev)
+    if "rows" in parts:
+        rows(cs, KS, res, dev)
+    if "scalar" in parts:
+        scalar(cs, res, dev)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -493,6 +512,8 @@ def maps(cs, res, dev):
         "ell": lambda: KF.ell(*steps, *filt),
         "ell_f64": lambda: KF.ell(*steps64, *filt64),
         "backward_maps": lambda: KF.backward_maps(Fs, Qs, bs, *filt, eps[:-1].contiguous()),
+        "backward_maps_f64": lambda: KF.backward_maps(*steps64[:3], *filt64,
+                                                      eps[:-1].double().contiguous()),
         "affine_scan": lambda: FS.affine_scan(gains, incs, True),
         "affine_scan_n300": lambda: FS.affine_scan(gains[:300], incs[:300], True),
         "affine_scan_n2": lambda: FS.affine_scan(gains[:2], incs[:2], True),
@@ -509,6 +530,12 @@ def maps(cs, res, dev):
         res["elements_phases"] = phases(KF.elements_cycles(el))
         print("  make_elements median step cycles (staged, S, solve, K, end) "
               + " ".join(f"{v:.0f}" for v in res["elements_phases"]), flush=True)
+    if hasattr(KF, "maps_cycles"):
+        margs = (Fs, Qs, bs, *filt, eps[:-1].contiguous())
+        KF.maps_cycles(margs)
+        res["maps_phases"] = phases(KF.maps_cycles(margs))
+        print("  backward_maps median step cycles (staged, S, solve, cov, factor, end) "
+              + " ".join(f"{v:.0f}" for v in res["maps_phases"]), flush=True)
     if hasattr(FS, "affine_scan_timeline"):
         for team in (32, 64, 128):
             res[f"affine_combine_cycles_t{team}"] = FS.combine_cycles(
@@ -531,6 +558,90 @@ def maps(cs, res, dev):
         lambda: box.__setitem__(0, kernel(box[0], cs.DELTA, generator=g)), 20, MH_KERNELS)
     print("  profile mh_order1: " + ", ".join(f"{k} {v:.4f}" for k, v in
                                               res["mh_order1_maps"].items()), flush=True)
+
+
+def rows(cs, KS, res, dev):
+    """row_lse and col_sample at each level of real SV and spatial PIT steps,
+    row_lse at the N=4096 root and at a mid-size level; the two PIT steps
+    under the profiler."""
+    import torch
+    f32 = torch.float32
+    ys, xs, delta = cs.load_sv("csmc_no-gradient", dev, f32)
+    sv = cs.sv_pit_kernel(ys, cs.SV_N)
+    sxs, sys_ = cs.spatial_data(dev, f32)
+    sp_delta = torch.full((cs.SP_T,), cs.SP_DELTA0, dtype=f32, device=dev)
+    sp = cs.spatial_kernel("csmc-pit", sys_, cs.SP_D, cs.SP_N)
+    bxs, bys = cs.pit_big_data(dev, f32)
+    big_delta = torch.full((cs.PIT_T,), cs.PIT_DELTA, dtype=f32, device=dev)
+    cases = {"sv": cs.pit_step_inputs(*sv, xs, delta, seed=16),
+             "spatial": cs.pit_step_inputs(*sp, sxs, sp_delta, seed=16)}
+    for label, seen in cases.items():
+        for name, at in (("row_lse", 0), ("col_sample", 1)):
+            fn = getattr(KS, name)
+            dev_ms = [device_ms(lambda a=a: fn(*a), 20) for a in seen[name]]
+            ev_ms = [cs.cuda_ms(lambda a=a: fn(*a), 20) for a in seen[name]]
+            key = f"rows_{label}_{name}"
+            res[f"{key}_P"] = [int(a[at].shape[0]) for a in seen[name]]
+            res[f"{key}_level_device_ms"], res[f"{key}_level_ms"] = dev_ms, ev_ms
+            res[f"{key}_step_device_ms"] = sum(dev_ms)
+            print(f"  {label} {name} by level (P {res[f'{key}_P']}): device ms "
+                  + " ".join(f"{v:.4f}" for v in dev_ms) + f" (sum {sum(dev_ms):.4f}); events "
+                  + " ".join(f"{v:.4f}" for v in ev_ms), flush=True)
+    root = cs.pit_step_inputs(*cs.sv_pit_kernel(bys, cs.PIT_N, stitch="blocked"), bxs,
+                              big_delta, seed=16)["row_lse"][-1]
+    root64 = tuple(z.double() for z in root)
+    g = torch.Generator(device=dev).manual_seed(13)
+    mid = tuple(scale * torch.randn(shape, generator=g, device=dev, dtype=f32)
+                for scale, shape in ((0.4, (512, 1000, 30)), (0.4, (512, 1000, 30)),
+                                     (1.0, (512, 1000))))
+    mid64 = tuple(z.double() for z in mid)
+    for key, args in (("rows_n4096_root", root), ("rows_n4096_root_f64", root64),
+                      ("rows_mid", mid), ("rows_mid_f64", mid64)):
+        res[f"{key}_device_ms"] = device_ms(lambda: KS.row_lse(*args), 20)
+        res[f"{key}_ms"] = cs.cuda_ms(lambda: KS.row_lse(*args), 20)
+        print(f"  {key} row_lse: device {res[f'{key}_device_ms']:.4f} ms, events "
+              f"{res[f'{key}_ms']:.4f}", flush=True)
+    names = {"row_lse": ("row_lse_kernel",), "col_sample": ("col_sample_kernel",)}
+    for label, (init, kernel), x0, dl in (("sv", sv, xs, delta), ("spatial", sp, sxs, sp_delta)):
+        box, g = [init(x0)], torch.Generator(device=dev).manual_seed(16)
+        res[f"rows_{label}_pit_step"] = profile(
+            lambda: box.__setitem__(0, kernel(box[0], dl, generator=g)), 20, names)
+        print(f"  profile {label} PIT step: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res[f"rows_{label}_pit_step"].items()), flush=True)
+
+
+def scalar(cs, res, dev):
+    """The scalar scans on a real spatial kalman-1 step's inputs (T=1024,
+    B=64), cut to T=300 and n=1; kalman-1 steps under the profiler."""
+    import torch
+    from aux_ssm_tpu_torch.ops.cuda import scalar_scan as SS
+    f32 = torch.float32
+    xs, ys = cs.spatial_data(dev, f32)
+    init, kernel = cs.spatial_kernel("kalman-1", ys, cs.SP_D, cs.SP_N)
+    with cs.recording_scalar_scans() as seen:
+        kernel(init(xs), cs.SP_DELTA0, generator=torch.Generator(device=dev).manual_seed(12))
+    (elems,), _ = seen["scalar_filter_scan"]
+    (gains, incs), _ = seen["scalar_affine_scan"]
+    elems = tuple(z.contiguous() for z in elems)
+    for label, cut in (("T1024", lambda z: z), ("T300", lambda z: z[:299].contiguous()),
+                       ("n1", lambda z: z[:1].contiguous())):
+        e = tuple(cut(z) for z in elems)
+        g, i = (gains, incs) if label == "T1024" else (cut(gains[1:]), cut(incs[1:]))
+        for name, fn in (("filter", lambda: SS.scalar_filter_scan(e)),
+                         ("affine", lambda: SS.scalar_affine_scan(g, i, True))):
+            res[f"scalar_{name}_{label}_device_ms"] = device_ms(fn, 20)
+            res[f"scalar_{name}_{label}_ms"] = cs.cuda_ms(fn, 20)
+        print(f"  scalar scans {label} (n={i.shape[0]}, B={i.shape[1]}): filter device "
+              f"{res[f'scalar_filter_{label}_device_ms']:.4f} ms (events "
+              f"{res[f'scalar_filter_{label}_ms']:.4f}), affine device "
+              f"{res[f'scalar_affine_{label}_device_ms']:.4f} (events "
+              f"{res[f'scalar_affine_{label}_ms']:.4f})", flush=True)
+    box, gen = [init(xs)], torch.Generator(device=dev).manual_seed(12)
+    res["scalar_kalman1_step"] = profile(
+        lambda: box.__setitem__(0, kernel(box[0], cs.SP_DELTA0, generator=gen)), 20,
+        "scalar_scan_kernel")
+    print("  profile spatial kalman-1 step: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in res["scalar_kalman1_step"].items()), flush=True)
 
 
 if __name__ == "__main__":

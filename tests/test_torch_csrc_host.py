@@ -29,7 +29,7 @@ from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda import scalar_scan as SS  # noqa: E402
 from aux_ssm_tpu_torch.ops import stitching as ST  # noqa: E402
-from aux_ssm_tpu_torch.ops.cuda._build import CSRC, MAX_DIM  # noqa: E402
+from aux_ssm_tpu_torch.ops.cuda._build import CSRC  # noqa: E402
 from aux_ssm_tpu_torch.ops.filtering import (  # noqa: E402
     _make_associative_elements, filtering, kalman_update)
 from aux_ssm_tpu_torch.ops.lgssm import LGSSM  # noqa: E402
@@ -43,10 +43,10 @@ using std::isfinite; using std::isinf; using std::isnan; using std::log; using s
 
 _MAPS = """
 #include "kalman_fused.cu"
-#define D %(D)d
 extern "C" {
-// The padded steps (elements, ell, logdensity) on one "thread" (a team of
-// 1), a step at a time, on a host copy of the block's shared memory.
+// The padded steps (elements, ell, backward_maps, logdensity) on one
+// "thread" (a team of 1), a step at a time, on a host copy of the block's
+// shared memory.
 void h_make_elements(int n, int dx, int dy, const double* F, const double* Q,
     const double* b, const double* H, const double* R, const double* c, const double* y,
     const double* m, const double* P, double* A, double* bel, double* C, double* eta,
@@ -65,8 +65,10 @@ void h_ell(int n, int dx, int dy, const double* F, const double* Q, const double
 }
 void h_backward_maps(int n, int dx, const double* F, const double* Q, const double* b,
     const double* m, const double* P, const double* eps, double* G, double* inc) {
-  double sm[map_scratch<D>()];
-  for (int t = 0; t < n; ++t) backward_maps_step<double, D>(0, 1, t, dx, F, Q, b, m, P, eps, G, inc, sm);
+  static double sh[MapsLay<kElemD>::size];
+  const MapsIn<double> in{F, Q, b, m, P, eps};
+  const MapsOut<double> out{G, inc};
+  for (int t = 0; t < n; ++t) backward_maps_step<double, kElemD, 1>(0, t, dx, in, out, sh, nullptr);
 }
 void h_logdensity_steps(int n, int dx, int dy, const double* F, const double* Q,
     const double* b, const double* H, const double* R, const double* c, const double* y,
@@ -373,6 +375,7 @@ HOST_LANE(ar1_gauss, Ar1Gauss)
 
 
 _STITCHING = """
+#include <vector>
 #include "stitching.cu"
 using namespace stitch;
 // Each kernel's rows, one "thread" (a whole block in turn) at a time, at the
@@ -384,11 +387,47 @@ void h_counter_uniform(int n, const int* seed, const int* pair, const int* block
     out[i] = counter_uniform((uint32_t)seed[i], (uint32_t)pair[i], (uint32_t)block[i],
                              (uint32_t)row[i], (uint32_t)col[i]);
 }
-void h_row_lse(int P, int nr, int nc, int k, const double* rf, const double* cf, const double* cb,
-               double* out) {
-  static Tile<double, kMaxK> tile;
-  for (int p = 0; p < P; ++p)
-    for (int i = 0; i < nr; ++i) row_lse_row<double, kMaxK>(0, 1, p, i, nr, nc, k, rf, cf, cb, out, tile);
+// row_lse by its launch plan for `sms` SMs (plan[] = G, R, RS, NPB, TC),
+// through the kernel's width and row dispatch: each block's threads in turn,
+// phase by phase, the shuffle butterfly on the threads' pairs. A plan whose
+// tile holds fewer than kLseChunk columns is refused, as the launch refuses
+// it.
+void h_row_lse(int P, int nr, int nc, int k, int sms, const double* rf, const double* cf,
+               const double* cb, double* out, int* plan) {
+  const LsePlan pl = lse_plan(P, nr, nc, k, sizeof(double), sms);
+  plan[0] = pl.G, plan[1] = pl.R, plan[2] = pl.RS, plan[3] = pl.NPB, plan[4] = pl.TC;
+  if (pl.TC < kLseChunk) return;
+  std::vector<double> sh(lse_smem_values(pl));
+  with_width(k, [&](auto Kc) {
+    with_lse_rows(pl.R, [&](auto Rc) {
+      constexpr int K = decltype(Kc)::value, R = decltype(Rc)::value;
+      static LseRows<double, R> th[kLseThreads];
+      double m2[kLseThreads], a2[kLseThreads];
+      for (int by = 0; by < (P + pl.NPB - 1) / pl.NPB; ++by)
+        for (int bx = 0; bx < (nr + pl.RB - 1) / pl.RB; ++bx) {
+          for (int t = 0; t < kLseThreads; ++t) lse_rows<double, R>(t, pl, bx, by, P, nr, th[t]);
+          lse_stage_rows<double>(0, 1, pl, bx, by, P, nr, k, rf, sh.data());
+          for (int j0 = 0; j0 < nc; j0 += pl.TC) {
+            const int nt = nc - j0 < pl.TC ? nc - j0 : pl.TC;
+            lse_stage_cols<double>(0, 1, pl, by, P, j0, nt, nc, k, cf, cb, sh.data());
+            for (int t = 0; t < kLseThreads; ++t)
+              if (th[t].live[0]) lse_tile<double, K, R>(pl, nt, k, sh.data(), th[t]);
+          }
+          for (int rr = 0; rr < R; ++rr) {
+            for (int o = 1; o < pl.G; o *= 2) {
+              for (int t = 0; t < kLseThreads; ++t)
+                m2[t] = th[t ^ o].m[rr], a2[t] = th[t ^ o].a[rr];
+              for (int t = 0; t < kLseThreads; ++t)
+                lse_merge(th[t].m[rr], th[t].a[rr], m2[t], a2[t]);
+            }
+            for (int t = 0; t < kLseThreads; ++t)
+              if (th[t].live[rr] && th[t].g == 0)
+                out[(long)th[t].p * nr + th[t].i0 + th[t].rs + rr * pl.RS] =
+                    lse_value(th[t].m[rr], th[t].a[rr]);
+          }
+        }
+    });
+  });
 }
 void h_col_sample(int P, int n, int nc, int k, int seed, int pair_offset, const double* rf,
                   const double* cf, const double* cb, long long* out) {
@@ -397,6 +436,10 @@ void h_col_sample(int P, int n, int nc, int k, int seed, int pair_offset, const 
     for (int i = 0; i < n; ++i)
       col_sample_row<double, kMaxK>(0, 1, p, i, n, nc, k, (uint32_t)seed, pair_offset, rf, cf, cb,
                                     (int64_t*)out, tile);
+}
+void h_lse_plan(int P, int nr, int nc, int k, int elem_bytes, int sms, int* out) {
+  const LsePlan pl = lse_plan(P, nr, nc, k, elem_bytes, sms);
+  out[0] = pl.G, out[1] = pl.R, out[2] = pl.RS, out[3] = pl.NPB, out[4] = pl.TC;
 }
 void h_mass_plan(int P, int nr, int nc, int k, int elem_bytes, int sms, int* out) {
   const MassPlan plan = mass_plan(P, nr, nc, k, elem_bytes, sms);
@@ -488,7 +531,7 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs g++ to build the kernel sources as host code")
     out = tmp_path_factory.mktemp("csrc_host")
     libs = {}
-    for name, body in (("maps", _PRELUDE + _MAPS % {"D": MAX_DIM}),
+    for name, body in (("maps", _PRELUDE + _MAPS),
                        ("scan", _PRELUDE + _SCAN),
                        ("csmc_fwd", _CSMC_PRELUDE + _CSMC_FWD),
                        ("scalar_scan", _PRELUDE + _SCALAR_SCAN),
@@ -587,6 +630,46 @@ def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac, nan_model):
     got = torch.empty_like(want)
     _call(lib.h_logdensity_steps, n, dx, dy, Fs, Qs, bs, *obs, xp, xc, got)
     _close(got, want)
+
+
+@pytest.mark.parametrize("case", ["zero_cov", "not_pd"])
+def test_host_backward_maps_degenerate_covariance(host_lib, case):
+    """backward_maps where the conditional covariance is degenerate (n = 8,
+    dx = 3). zero_cov: step 3 has P = 0, so cov is exactly 0 (trace 0, no
+    jitter): its gain is 0, its factor all zero and its increment m exactly,
+    as the plain version gives. not_pd: F = 0.9 I, Q = I, P = diag(1, 0.5,
+    -0.3), whose cov is not positive definite past column 1: the kernel
+    follows the column-order Cholesky of JAX's Pallas kernel (run in
+    interpret mode), whose columns before the failing pivot keep their
+    noise."""
+    rng = np.random.default_rng(11)
+    n, dx = 8, 3
+    b, m, eps = (torch.as_tensor(rng.standard_normal((n, dx))) for _ in range(3))
+    if case == "zero_cov":
+        A = rng.standard_normal((n, dx, dx))
+        P = torch.as_tensor(A @ A.transpose(0, 2, 1) / dx + 0.1 * np.eye(dx))
+        P[3] = 0.0
+        F = torch.as_tensor(0.5 * rng.standard_normal((n, dx, dx)))
+        B = rng.standard_normal((n, dx, dx))
+        Q = torch.as_tensor(B @ B.transpose(0, 2, 1) / dx + 0.5 * np.eye(dx))
+    else:
+        eye = torch.eye(dx, dtype=torch.float64).expand(n, dx, dx)
+        F, Q = 0.9 * eye, eye.clone()
+        P = torch.diag_embed(torch.tensor([1.0, 0.5, -0.3], dtype=torch.float64)).expand(n, dx, dx)
+    args = tuple(z.contiguous() for z in (F, Q, b, m, P, eps))
+    G, inc = torch.empty_like(args[0]), torch.empty_like(args[2])
+    _call(host_lib["maps"].h_backward_maps, n, dx, *args, G, inc)
+    if case == "zero_cov":
+        want = KF.backward_maps_plain(*args)
+        for g, w in zip((G, inc), want):
+            _close(g, w, rtol=1e-7, atol=1e-9)
+        assert not bool(G[3].any()) and torch.equal(inc[3], m[3]) and torch.equal(want[1][3], m[3])
+    else:
+        import jax.numpy as jnp
+        from aux_ssm_tpu.ops.pallas.kalman_fused import fused_backward_maps
+        want = fused_backward_maps(*(jnp.asarray(z.numpy()) for z in args), interpret=True)
+        for g, w in zip((G, inc), want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12, atol=1e-12)
 
 
 # T - 1 = n elements in the kernel's scan_plan(n) chunks of ceil(n / chunks): one
@@ -899,21 +982,68 @@ def test_host_counter_uniform_bitwise(host_lib):
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want.numpy().view(np.uint32))
 
 
-@pytest.mark.parametrize("P,n,N,k", [(3, 25, 25, 30), (2, 130, 200, 1), (2, 40, 70, 64),
-                                     (1, 5, 3, 8)])
-def test_host_stitching_rows_match_plain(host_lib, P, n, N, k):
+def _rows_case(P, n, N, k, dead=False):
+    return pytest.param(P, n, N, k, dead, id=f"{P}-{n}-{N}-{k}" + ("-dead" if dead else ""))
+
+
+# row_lse's plans (H100, 132 SMs): a node's rows over several blocks and 32
+# threads a row (P = 1, N = 1000), N = 25 with many nodes (P = 64, k = 64),
+# 4 rows a thread (P = 600, 200 columns, k = 8: ragged row slots), column
+# tiles (N = 1500, k = 64), several nodes a block (n = 4), nodes a block
+# capped by shared memory (N = 4 and 8 at k = 64: 4-column tiles), row slots
+# capped by it (1000 rows of 4 columns at k = 64), and dead columns (-inf
+# biases in node 0) and a dead node (every score -inf: NaN).
+@pytest.mark.parametrize("P,n,N,k,dead", [
+    _rows_case(3, 25, 25, 30), _rows_case(2, 130, 200, 1), _rows_case(2, 40, 70, 64),
+    _rows_case(1, 5, 3, 8), _rows_case(1, 1000, 1000, 1), _rows_case(64, 25, 25, 64),
+    _rows_case(2, 40, 1500, 64), _rows_case(37, 4, 9, 1), _rows_case(600, 25, 200, 8),
+    _rows_case(64, 4, 4, 64), _rows_case(64, 8, 8, 64), _rows_case(2, 1000, 4, 64),
+    _rows_case(3, 25, 25, 30, True),
+    _rows_case(2, 300, 700, 1, True)])
+def test_host_stitching_rows_match_plain(host_lib, P, n, N, k, dead):
     rng = np.random.default_rng(n + k)
     rf, cf, cb = (torch.as_tensor(z) for z in (0.4 * rng.standard_normal((P, n, k)),
                                                 0.4 * rng.standard_normal((P, N, k)),
                                                 rng.standard_normal((P, N))))
+    if dead:
+        cb[0, ::3] = -float("inf")
+        cb[-1] = -float("inf")
     lib = host_lib["stitching"]
-    got = torch.full((P, n), float("nan"), dtype=torch.float64)
-    _call(lib.h_row_lse, P, n, N, k, rf, cf, cb, got)
-    _close(got, ST.row_lse(rf, cf, cb), rtol=1e-12, atol=1e-12)
+    got = torch.full((P, n), 0.0, dtype=torch.float64)
+    plan = torch.zeros(5, dtype=torch.int32)
+    _call(lib.h_row_lse, P, n, N, k, 132, rf, cf, cb, got, plan)
+    want = ST.row_lse(rf, cf, cb)
+    assert bool(torch.isnan(want[-1]).all()) == dead and bool(torch.isfinite(want[0]).all())
+    _close(got, want, rtol=1e-12, atol=1e-12)
     for seed, offset in ((-1, 0), (123456, 9)):
         cols = torch.full((P, n), -1, dtype=torch.int64)
         _call(lib.h_col_sample, P, n, N, k, seed, offset, rf, cf, cb, cols)
         np.testing.assert_array_equal(cols.numpy(), ST.col_sample(seed, rf, cf, cb, offset).numpy())
+
+
+# (P, nr, nc, k, element bytes) -> lse_plan's (G, R, RS, NPB, TC) at 132
+# SMs: the N = 4096 root (32 threads a row, 2 rows a thread: 4, or 16
+# threads, would leave SMs idle), 8 nodes of it (4 rows a thread, 8 threads a
+# row), N = 25 levels (7 chunks: 8 threads a row, one chunk and one row a
+# thread; 25 row slots, one node a block), a float64 node tiled (TC columns
+# of 65 features in 96 KB beside the rows), short rows several nodes a block
+# (capped by P), 200 columns at P = 600 (4 rows a thread, 4 nodes a block),
+# nodes a block capped so that each keeps a 4-column tile (N = 4 and 8 at
+# k = 64, N = 4 at k = 30), and row slots capped by shared memory (1000 rows
+# of 4 columns at k = 64).
+@pytest.mark.parametrize("shape,want", [
+    ((1, 4096, 4096, 1, 4), (32, 2, 8, 1, 4096)), ((1, 4096, 4096, 1, 8), (32, 2, 8, 1, 4096)),
+    ((8, 4096, 4096, 1, 4), (8, 4, 32, 1, 4096)), ((512, 25, 25, 64, 4), (8, 1, 25, 1, 28)),
+    ((1, 25, 25, 30, 4), (8, 1, 25, 1, 28)), ((2, 40, 1500, 64, 8), (32, 2, 8, 1, 172)),
+    ((100, 4, 9, 1, 4), (4, 1, 4, 16, 12)), ((3, 4, 9, 1, 4), (4, 1, 4, 3, 12)),
+    ((1, 1000, 1000, 1, 8), (32, 2, 8, 1, 1000)), ((600, 25, 200, 8, 8), (8, 4, 7, 4, 200)),
+    ((512, 4, 4, 64, 4), (1, 1, 4, 46, 4)), ((64, 8, 8, 64, 8), (2, 1, 8, 15, 4)),
+    ((64, 4, 4, 30, 8), (1, 1, 4, 45, 4)), ((2, 1000, 4, 64, 8), (1, 1, 176, 1, 4))])
+def test_host_lse_plan(host_lib, shape, want):
+    P, nr, nc, k, elem = shape
+    out = torch.zeros(5, dtype=torch.int32)
+    _call(host_lib["stitching"].h_lse_plan, P, nr, nc, k, elem, 132, out)
+    assert tuple(out.tolist()) == want
 
 
 def _host_masses(lib, rf, cf, cb, per_block_max, R, whole):

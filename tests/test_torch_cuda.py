@@ -116,6 +116,56 @@ def test_maps_match_plain(dev, T, dx, dy, nan_frac, nan_model):
     _close(*_both(KF.logdensity_steps, (Fs, Qs, bs, *obs, xs[:-1], xs[1:]), dev))
 
 
+def _column_cholesky(M):
+    """The lower Cholesky factor of M column by column, entries times 1 /
+    diag, as the JAX kernel's lanelin.chol; NaN and inf from a pivot that is
+    not positive on, then 0 (safe_cholesky's nan_to_num)."""
+    d = M.shape[0]
+    L = np.zeros_like(M)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for j in range(d):
+            L[j, j] = np.sqrt(M[j, j] - L[j, :j] @ L[j, :j])
+            L[j + 1:, j] = (M[j + 1:, j] - L[j + 1:, :j] @ L[j, :j]) * (1.0 / L[j, j])
+    return np.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+@pytest.mark.parametrize("case", ["zero_cov", "not_pd"])
+def test_backward_maps_degenerate_covariance(dev, case):
+    """backward_maps where the conditional covariance is exactly 0 (step 3: P
+    = 0; the plain version's factor is 0 as well) or not positive definite (F
+    = 0.9 I, Q = I, P = diag(1, 0.5, -0.3)): there the kernel keeps the
+    columns before the failing pivot, as JAX's Pallas kernel does
+    (`_column_cholesky`), where the plain version zeroes the whole factor."""
+    rng = np.random.default_rng(11)
+    n, dx = 8, 3
+    b, m, eps = (rng.standard_normal((n, dx)) for _ in range(3))
+    if case == "zero_cov":
+        A, B = rng.standard_normal((2, n, dx, dx))
+        P = A @ A.transpose(0, 2, 1) / dx + 0.1 * np.eye(dx)
+        P[3] = 0.0
+        F = 0.5 * rng.standard_normal((n, dx, dx))
+        Q = B @ B.transpose(0, 2, 1) / dx + 0.5 * np.eye(dx)
+    else:
+        F = np.broadcast_to(0.9 * np.eye(dx), (n, dx, dx))
+        Q = np.broadcast_to(np.eye(dx), (n, dx, dx))
+        P = np.broadcast_to(np.diag([1.0, 0.5, -0.3]), (n, dx, dx))
+    args = tuple(torch.as_tensor(np.ascontiguousarray(z)) for z in (F, Q, b, m, P, eps))
+    want, got = _both(KF.backward_maps, args, dev)
+    if case == "zero_cov":
+        _close(got, want, rtol=1e-7, atol=1e-9)
+        assert not bool(got[0][3].any()) and torch.equal(got[1][3], args[3][3])
+        return
+    S = F @ P @ F.transpose(0, 2, 1) + Q
+    G = np.linalg.solve(S, F @ P).transpose(0, 2, 1)
+    cov = P - G @ S @ G.transpose(0, 2, 1)
+    jitter = (32 * np.finfo(float).eps / dx) * np.trace(cov, axis1=1, axis2=2)
+    cov = cov + jitter[:, None, None] * np.eye(dx)
+    L = np.stack([_column_cholesky(c) for c in cov])
+    mv = lambda A, x: np.einsum("tij,tj->ti", A, x)  # noqa: E731
+    inc = m - mv(G, mv(F, m) + b) + mv(L, eps)
+    _close(got, (torch.as_tensor(G), torch.as_tensor(inc)), rtol=1e-9, atol=1e-11)
+
+
 @pytest.mark.parametrize("T,dx,dy", [(17, 2, 2), (300, 3, 2), (1025, 4, 3), (2, 2, 2),
                                      (40, 16, 16), (1101, 3, 2)])
 def test_filter_scan_matches_plain(dev, T, dx, dy):
@@ -567,9 +617,17 @@ def _stitch_factors(P, n, N, k, seed, dtype=torch.float64):
 
 
 @pytest.mark.parametrize("P,n,N,k", [(125, 25, 25, 30), (3, 130, 200, 1), (2, 40, 70, 64),
-                                     (1, 4096, 4096, 1), (4, 9, 3, 8), (2, 300, 65, 17)])
+                                     (1, 4096, 4096, 1), (4, 9, 3, 8), (2, 300, 65, 17),
+                                     (512, 25, 25, 64), (1, 25, 25, 64), (1, 25, 25, 30),
+                                     (2, 40, 1500, 64), (600, 25, 200, 8), (64, 1000, 1000, 30),
+                                     (64, 4, 4, 64), (64, 8, 8, 64), (64, 4, 4, 30),
+                                     (2, 1000, 4, 64)])
 def test_row_lse_and_col_sample_match_plain(dev, P, n, N, k):
-    """Every feature bound (1, 8, 32, 64), ragged row blocks and column tiles;
+    """Every feature bound (1, 8, 32, 64), ragged row blocks and column tiles,
+    phase 16's shapes (N = 25 at levels 0 and the root, N = 4096's root), 4
+    rows a thread with 8 threads a row (P = 600, 200 columns; a two-pass
+    level at N = 1000 with 64 nodes), and the plans whose nodes a block or
+    row slots shared memory caps (4-column tiles);
     float64 values to 1e-12 and identical columns, float32 columns at >= 0.999
     (the scores are equal; only the float32 logs of exp sums differ)."""
     ST = K.stitching
