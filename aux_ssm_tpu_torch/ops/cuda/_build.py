@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("kalman_fused.cu", "scan.cu", "scalar_scan.cu", "csmc_fwd.cu", "csmc_lane.cu",
            "csmc_block_lane.cu", "stitching.cu")
-HEADERS = ("tile.cuh", "csmc_common.cuh", "csmc_models.cuh")
+HEADERS = ("tile.cuh", "lanes.cuh", "csmc_common.cuh", "csmc_models.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "aux_ssm_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")

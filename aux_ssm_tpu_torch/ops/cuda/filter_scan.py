@@ -123,17 +123,25 @@ def _hand_state(scan, n, ref):
     element as 64-bit words for each of n elements' chunks at the start of
     each Hillis-Steele level and after the last) and its state (ticket,
     blocks done, epoch) for the device and dtype of `ref` and the current
-    stream, allocated on that stream: zeros when made, kept from call to call
-    (the kernel leaves the state ready for the next launch and tells this
-    launch's words from older ones by the epoch), made larger when more
-    chunks need it. Launches on one
-    stream run one after the other, so they never share a state in flight;
-    a CUDA graph captured around the scan keeps the capturing stream's state
-    and must not be replayed on two streams at once."""
-    stream = torch.cuda.current_stream(ref.device)
+    stream; see `hand_state`."""
     chunks = scan_chunks(n)
-    words = chunks.bit_length() * chunks * SLOTS[scan] * ref.element_size() // 4
-    key = (scan, ref.device, ref.dtype, stream.cuda_stream)
+    return hand_state(scan, chunks.bit_length() * chunks * SLOTS[scan] * ref.element_size() // 4,
+                      ref)
+
+
+def hand_state(scan, words, ref):
+    """A scan's hand-over buffer of at least `words` 64-bit words and its state
+    (ticket, blocks done, epoch) for the device and dtype of `ref` and the
+    current stream, allocated on that stream: zeros when made, kept from call
+    to call (the kernel leaves the state ready for the next launch and tells
+    this launch's words from older ones by the epoch), made larger when a
+    launch needs more. Launches on one stream run one after the other, so
+    they never share a state in flight; a CUDA graph captured around the scan
+    keeps the capturing stream's state and must not be replayed on two
+    streams at once. (A CPU `ref`, which only a launch mocked in a test
+    gives, keys no stream.)"""
+    stream = torch.cuda.current_stream(ref.device).cuda_stream if ref.is_cuda else None
+    key = (scan, ref.device, ref.dtype, stream)
     if key not in _HAND or _HAND[key][0].numel() < words:
         _HAND[key] = (torch.zeros(words, dtype=torch.int64, device=ref.device),
                       torch.zeros(4, dtype=torch.int32, device=ref.device))

@@ -11,15 +11,20 @@ it), so they agree to rounding.
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel or raises. One scan is one kernel launch; each wrapper
-counts its launches in its `launches` attribute.
+counts its launches in its `launches` attribute. On the card a launch's
+blocks hand chunk totals on through words in global memory with a {ticket,
+blocks done, epoch} state that the kernel leaves ready for the next launch,
+kept one set a scan, device, dtype and stream (`filter_scan.hand_state`).
 """
 import torch
 
 from ._build import check_cuda_inputs, launch
-from .filter_scan import chunked_scan_plain
+from .filter_scan import chunked_scan_plain, hand_state
 from .kalman_fused import _on_cuda
 
-CHUNKS = 128  # kChunks of csrc/scalar_scan.cu: time chunks of a block
+CHUNKS = 128       # kChunks of csrc/scalar_scan.cu: time chunks of a column
+COLS = 8           # kCols of csrc/scalar_scan.cu: columns of a split-path block
+SPLIT_MIN_N = 512  # kSplitMinN of csrc/scalar_scan.cu
 
 
 def filter_combine(left, right):
@@ -45,6 +50,29 @@ def affine_combine(left, right):
 def _identity(ref, values):
     """The identity element of a scan, one (B,) row for each array."""
     return tuple(ref.new_full(ref.shape[1:], v) for v in values)
+
+
+def hand_words(B, values, elem):
+    """64-bit words of a launch's hand-over buffer at B columns (scalar_scan.cu's
+    scalar_hand_words): for every chunk of every column of each block's
+    column group, a total of `values` values of `elem` bytes, each 32-bit
+    half a word (beside the launch's epoch)."""
+    return -(-B // COLS) * COLS * CHUNKS * values * (elem // 4)
+
+
+def split_path(n, B, sms):
+    """Whether a launch takes scalar_scan.cu's split path (scalar_segments >
+    0): n >= SPLIT_MIN_N and fewer 8-column groups than SMs."""
+    return n >= SPLIT_MIN_N and -(-B // COLS) < sms
+
+
+def _hand(scan, n, B, values, ref):
+    """The hand-over buffer and state of a launch on the split path; the
+    whole-column path takes none (null pointers)."""
+    if n < SPLIT_MIN_N or not split_path(
+            n, B, torch.cuda.get_device_properties(ref.device).multi_processor_count):
+        return None, None
+    return hand_state(f"scalar_{scan}", hand_words(B, values, ref.element_size()), ref)
 
 
 def _check(name, tensors):
@@ -76,7 +104,8 @@ def scalar_filter_scan(elems):
         return scalar_filter_scan_plain(elems)
     args = check_cuda_inputs("scalar_filter_scan", elems, elems[0].dtype, 1, ())
     out = tuple(torch.empty_like(z) for z in args)
-    launch("scalar_filter_scan", elems[0].dtype, n, B, *args, *out)
+    launch("scalar_filter_scan", elems[0].dtype, n, B, *args, *out,
+           *_hand("filter", n, B, 5, args[0]))
     scalar_filter_scan.launches += 1
     return out
 
@@ -107,7 +136,8 @@ def scalar_affine_scan(gains, incs, reverse=False):
         return scalar_affine_scan_plain(gains, incs, reverse)
     g, e = check_cuda_inputs("scalar_affine_scan", (gains, incs), incs.dtype, 1, ())
     og, oe = torch.empty_like(g), torch.empty_like(e)
-    launch("scalar_affine_scan", e.dtype, n, B, int(reverse), g, e, og, oe)
+    launch("scalar_affine_scan", e.dtype, n, B, int(reverse), g, e, og, oe,
+           *_hand("affine", n, B, 2, e))
     scalar_affine_scan.launches += 1
     return og, oe
 

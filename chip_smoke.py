@@ -119,7 +119,8 @@ launch each a tree level:
      block) and on random inputs (DRAW_CASES: N=8192, nb=64, P=2, k=1;
      N=2048, P=4, k=30, the features through shared memory), each with
      its issue-rate bound beside the operations bound (the draws' score
-     instructions, DRAW_SCORE_INSTRUCTIONS, over 128 lanes an SM a clock).
+     instructions, DRAW_SCORE_INSTRUCTIONS, over 128 lanes an SM a clock;
+     col_sample's likewise, COL_GUMBEL_INSTRUCTIONS + 2k a score).
      row_lse and block_masses norm-relative, f32 also against the
      f64 plain version, their -inf entries where the f64 plain version's
      are; block_masses (the float32 exponentials on the SFU) also timed
@@ -1820,6 +1821,12 @@ INDEX_KERNELS = {"col_sample": 1, "within_block_cols": 2, "stitch_draws": 4}
 # (`kernel_times.py --parts draws --sass DIR` writes it). The draws'
 # issue-rate floor is this many a score over 128 lanes an SM a clock.
 DRAW_SCORE_INSTRUCTIONS = 65
+# Thread-instructions of one col_sample score beside its 2k rounded products
+# (a multiply and an add each): the counter hash, the two logs and the
+# argmax step, counted in the SASS of col_sample_kernel<float, 1, 1>
+# (`kernel_times.py --parts rows --sass DIR` writes it). Its issue-rate
+# floor is COL_GUMBEL_INSTRUCTIONS + 2k a score over 128 lanes an SM a clock.
+COL_GUMBEL_INSTRUCTIONS = 65
 # Random-input draws cases of phase 16 (label, P, N, k): nb = 64, where the
 # prefix sums' shift-32 steps carry from the low lanes' blocks into the high
 # ones, and k = 30, where the lanes read the features through shared memory.
@@ -1929,10 +1936,12 @@ def check_stitch(name, label, args, reps, two_call=False):
             ops = P * n * 128 * score
         else:  # and each draw's row (tile and offset counts) and block (exp, prefix sum, count)
             ops = P * n * (128 * score + 2 * 128 + 8 * (cf.shape[1] // 128))
-        if name != "col_sample":
-            lanes = torch.cuda.get_device_properties(0).multi_processor_count * 128
-            result["issue_bound_ms"] = (1e3 * P * n * 128 * DRAW_SCORE_INSTRUCTIONS
-                                        / (lanes * sm_clock_hz()))
+        lanes = torch.cuda.get_device_properties(0).multi_processor_count * 128
+        if name == "col_sample":
+            issue = P * n * cf.shape[1] * (COL_GUMBEL_INSTRUCTIONS + 2 * rf.shape[-1])
+        else:
+            issue = P * n * 128 * DRAW_SCORE_INSTRUCTIONS
+        result["issue_bound_ms"] = 1e3 * issue / (lanes * sm_clock_hz())
     else:
         got, want32, got64, want64 = got[0], want32[0], got64[0], want64[0]
         fin = torch.isfinite(want64)

@@ -35,7 +35,9 @@ the same seeds:
     N=128 step (nb=1), and on random inputs at N=8192 (nb=64, P=2, k=1) and
     N=2048, k=30 (chip_smoke.DRAW_CASES, made by this file's chip_smoke);
     with --sass DIR the SASS of the draw kernels goes to
-    DIR/sass_draws_<build>.txt (where DRAW_SCORE_INSTRUCTIONS is counted);
+    DIR/sass_draws_<build>.txt (where DRAW_SCORE_INSTRUCTIONS is counted),
+    and with --parts rows that of col_sample to DIR/sass_rows_<build>.txt
+    (where COL_GUMBEL_INSTRUCTIONS is counted);
   - scan: the filter scan on the flagship's elements (T=1024, dx=dy=16, f32,
     chip_smoke phase 1's inputs) at n=1023, at n=299 (T=300) and at n=2
     (one combine: the chain's floor), the affine scan (n=1024, reversed) as
@@ -65,17 +67,20 @@ the same seeds:
     scan's per-block timeline; torch.profiler over first-order MH steps with
     each of the six kernels' device ms a step (the old and the new kernels'
     names);
-  - rows: row_lse and col_sample, device ms by torch.profiler and CUDA
-    events, at every level of a real SV (T=250, D=30, N=25, k=30) and a
-    real spatial (T=1024, N=25, k=64) PIT step (chip_smoke phase 16's seed),
-    summed over the step, row_lse at the N=4096 root (k=1) and on random
+  - rows: row_lse and col_sample (also in f64), device ms by
+    torch.profiler and CUDA events, at every level of a real SV (T=250,
+    D=30, N=25, k=30) and a real spatial (T=1024, N=25, k=64) PIT step
+    (chip_smoke phase 16's seed), summed over the step's launches (SV 7
+    col_sample, spatial 9), row_lse at the N=4096 root (k=1) and on random
     inputs at a two-pass level of mid-size N (P=512, N=1000, k=30), f32 and
     f64; torch.profiler over the SV and spatial PIT steps with both
     kernels' device ms a step;
-  - scalar: the scalar filter and affine scans on a real spatial kalman-1
-    step's inputs (chip_smoke phase 12: T=1024, B=64, f32) and cut to T=300
-    and n=1, device ms by torch.profiler and CUDA events; torch.profiler
-    over kalman-1 steps with the scans' device ms a step.
+  - scalar: the scalar filter scan and the affine scan (reversed and
+    forward) on a real spatial kalman-1 step's inputs (chip_smoke phase 12:
+    n=1023 and 1024, B=64), cut to n=299 and repeated to a 64 x 64 field
+    (B=4096), f32 and f64: device ms a launch by torch.profiler (the mean,
+    and min / median / max over 30 launches) and by CUDA events;
+    torch.profiler over kalman-1 steps with the scans' device ms a step.
 Kernel times are CUDA events around the wrapper's call. The build log's
 registers and spills of the timed kernels' template instances are printed.
 The last line is one JSON object of every number.
@@ -131,6 +136,27 @@ def device_ms(fn, reps):
                if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
+def device_launches_ms(fn, reps):
+    """Milliseconds of each kernel the card ran over `reps` calls of fn()
+    (after one), by torch.profiler, in launch order; where the profiler
+    lists no kernel event, the mean by `device_ms` alone (printed)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    fn()
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        print("  (no kernel events listed: the mean alone)", flush=True)
+        return [device_ms(fn, reps)]
+    return [e.time_range.elapsed_us() / 1e3 for e in events]
+
+
 def ptxas_lines(build_dir, names):
     """Registers and spills of each kernel entry whose name holds one of
     `names`, from the build's ptxas log."""
@@ -148,7 +174,8 @@ def main():
     parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
     parser.add_argument("--parts",
                         default="masses,lane,steps,factor,draws,scan,pgas,maps,rows,scalar")
-    parser.add_argument("--sass", default=None, help="directory for the draw kernels' SASS")
+    parser.add_argument("--sass", default=None,
+                        help="directory for the SASS of the draw kernels and col_sample")
     opts = parser.parse_args()
     root, parts = str(Path(opts.root).resolve()), opts.parts.split(",")
     sys.path.insert(0, root)
@@ -177,7 +204,8 @@ def main():
                                                 "scan_kernel", "ell_kernel",
                                                 "backward_maps_kernel", "logdensity_kernel",
                                                 "AffineOp", "row_lse_kernel",
-                                                "col_sample_kernel", "scalar_scan_kernel")):
+                                                "col_sample_kernel", "scalar_scan_kernel",
+                                                "scalar_cols_kernel")):
         print("  ptxas", line)
     dev, f32 = torch.device("cuda"), torch.float32
     res = {"root": root, "card": card}
@@ -206,6 +234,7 @@ def main():
         maps(cs, res, dev)
     if "rows" in parts:
         rows(cs, KS, res, dev)
+        write_sass(LIBRARY.build_dir, opts.sass, ("col_sample_kernel",), "rows")
     if "scalar" in parts:
         scalar(cs, res, dev)
     print(json.dumps(res), flush=True)
@@ -314,7 +343,6 @@ def draws(cs, KS, res, dev, bxs, bys, delta, build_dir, sass_dir):
     """The draw kernels on an N=4096 step's levels, at N=128 and on random
     inputs; their SASS into sass_dir, if given."""
     import importlib.util
-    import shutil
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_here", Path(__file__).resolve().parent / "chip_smoke.py")
     here = importlib.util.module_from_spec(spec)
@@ -337,19 +365,25 @@ def draws(cs, KS, res, dev, bxs, bys, delta, build_dir, sass_dir):
                   f"{v:.4f}" for v in res[f"{name}_levels_ms"]) + "), " + ", ".join(
                   f"{key[len(name) + 1:-3]} {res[key]:.4f} ms" for key in res
                   if key.startswith(f"{name}_N")), flush=True)
+    write_sass(build_dir, sass_dir, ("stitch_draws_kernel", "within_block_cols_kernel"), "draws")
+
+
+def write_sass(build_dir, sass_dir, names, tag):
+    """The SASS of the kernels whose name holds one of `names` into
+    sass_dir/sass_<tag>_<build>.txt, if sass_dir is given."""
+    import shutil
     cuobjdump = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     lib = Path(build_dir) / "libaux_ssm_kernels.so"
     if sass_dir and Path(cuobjdump).exists() and lib.exists():
         sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True)
         keep = [part for part in sass.stdout.split("Function : ")[1:]
-                if "stitch_draws_kernel" in part.splitlines()[0]
-                or "within_block_cols_kernel" in part.splitlines()[0]]
+                if any(name in part.splitlines()[0] for name in names)]
         out = Path(sass_dir)
         out.mkdir(parents=True, exist_ok=True)
-        path = out / f"sass_draws_{Path(build_dir).name}.txt"
+        path = out / f"sass_{tag}_{Path(build_dir).name}.txt"
         path.write_text("".join("Function : " + part for part in keep))
-        print(f"  SASS of {len(keep)} draw kernels in {out}", flush=True)
+        print(f"  SASS of {len(keep)} {tag} kernels in {path}", flush=True)
 
 
 def scans(cs, res, dev):
@@ -576,16 +610,20 @@ def rows(cs, KS, res, dev):
     cases = {"sv": cs.pit_step_inputs(*sv, xs, delta, seed=16),
              "spatial": cs.pit_step_inputs(*sp, sxs, sp_delta, seed=16)}
     for label, seen in cases.items():
-        for name, at in (("row_lse", 0), ("col_sample", 1)):
+        for name, at, f64 in (("row_lse", 0, False), ("col_sample", 1, False),
+                              ("col_sample", 1, True)):
             fn = getattr(KS, name)
-            dev_ms = [device_ms(lambda a=a: fn(*a), 20) for a in seen[name]]
-            ev_ms = [cs.cuda_ms(lambda a=a: fn(*a), 20) for a in seen[name]]
-            key = f"rows_{label}_{name}"
-            res[f"{key}_P"] = [int(a[at].shape[0]) for a in seen[name]]
+            levels = [tuple(z.double() if f64 and torch.is_tensor(z) and z.is_floating_point()
+                            else z for z in a) for a in seen[name]]
+            dev_ms = [device_ms(lambda a=a: fn(*a), 20) for a in levels]
+            ev_ms = [cs.cuda_ms(lambda a=a: fn(*a), 20) for a in levels]
+            key = f"rows_{label}_{name}" + ("_f64" if f64 else "")
+            res[f"{key}_P"] = [int(a[at].shape[0]) for a in levels]
             res[f"{key}_level_device_ms"], res[f"{key}_level_ms"] = dev_ms, ev_ms
             res[f"{key}_step_device_ms"] = sum(dev_ms)
-            print(f"  {label} {name} by level (P {res[f'{key}_P']}): device ms "
-                  + " ".join(f"{v:.4f}" for v in dev_ms) + f" (sum {sum(dev_ms):.4f}); events "
+            print(f"  {label} {name}{' f64' if f64 else ''} by level (P {res[f'{key}_P']}): "
+                  "device ms " + " ".join(f"{v:.4f}" for v in dev_ms)
+                  + f" (the step's {len(dev_ms)} launches {sum(dev_ms):.4f}); events "
                   + " ".join(f"{v:.4f}" for v in ev_ms), flush=True)
     root = cs.pit_step_inputs(*cs.sv_pit_kernel(bys, cs.PIT_N, stitch="blocked"), bxs,
                               big_delta, seed=16)["row_lse"][-1]
@@ -612,7 +650,11 @@ def rows(cs, KS, res, dev):
 
 def scalar(cs, res, dev):
     """The scalar scans on a real spatial kalman-1 step's inputs (T=1024,
-    B=64), cut to T=300 and n=1; kalman-1 steps under the profiler."""
+    B=64), cut to n=299 and repeated to a 64 x 64 field (B=4096), f32 and
+    f64, the affine scan reversed and forward: device ms a launch by
+    torch.profiler (the mean and the spread of 30 launches) and CUDA events;
+    kalman-1 steps under the profiler."""
+    import statistics
     import torch
     from aux_ssm_tpu_torch.ops.cuda import scalar_scan as SS
     f32 = torch.float32
@@ -624,22 +666,32 @@ def scalar(cs, res, dev):
     (gains, incs), _ = seen["scalar_affine_scan"]
     elems = tuple(z.contiguous() for z in elems)
     for label, cut in (("T1024", lambda z: z), ("T300", lambda z: z[:299].contiguous()),
-                       ("n1", lambda z: z[:1].contiguous())):
-        e = tuple(cut(z) for z in elems)
-        g, i = (gains, incs) if label == "T1024" else (cut(gains[1:]), cut(incs[1:]))
-        for name, fn in (("filter", lambda: SS.scalar_filter_scan(e)),
-                         ("affine", lambda: SS.scalar_affine_scan(g, i, True))):
-            res[f"scalar_{name}_{label}_device_ms"] = device_ms(fn, 20)
-            res[f"scalar_{name}_{label}_ms"] = cs.cuda_ms(fn, 20)
-        print(f"  scalar scans {label} (n={i.shape[0]}, B={i.shape[1]}): filter device "
-              f"{res[f'scalar_filter_{label}_device_ms']:.4f} ms (events "
-              f"{res[f'scalar_filter_{label}_ms']:.4f}), affine device "
-              f"{res[f'scalar_affine_{label}_device_ms']:.4f} (events "
-              f"{res[f'scalar_affine_{label}_ms']:.4f})", flush=True)
+                       ("T1024_B4096", lambda z: z.repeat(1, 64)),
+                       ("T300_B4096", lambda z: z[:299].repeat(1, 64))):
+        for dtype in (torch.float32, torch.float64):
+            e = tuple(cut(z).to(dtype) for z in elems)
+            g, i = ((cut(gains), cut(incs)) if label.startswith("T1024")
+                    else (cut(gains[1:]), cut(incs[1:])))
+            g, i = g.to(dtype), i.to(dtype)
+            tag = label + ("_f64" if dtype == torch.float64 else "")
+            line = []
+            for name, fn in (("filter", lambda: SS.scalar_filter_scan(e)),
+                             ("affine", lambda: SS.scalar_affine_scan(g, i, True)),
+                             ("affine_forward", lambda: SS.scalar_affine_scan(g, i, False))):
+                each = device_launches_ms(fn, 30)
+                key = f"scalar_{name}_{tag}"
+                res[f"{key}_device_ms"] = statistics.fmean(each)
+                res[f"{key}_device_spread_ms"] = [min(each), statistics.median(each), max(each)]
+                res[f"{key}_ms"] = cs.cuda_ms(fn, 20)
+                line.append(f"{name} device {res[f'{key}_device_ms']:.4f} ms (min / median / max "
+                            + " / ".join(f"{v:.4f}" for v in res[f"{key}_device_spread_ms"])
+                            + f"; events {res[f'{key}_ms']:.4f})")
+            print(f"  scalar scans {tag} (n={e[0].shape[0]}, B={e[0].shape[1]}): "
+                  + ", ".join(line), flush=True)
     box, gen = [init(xs)], torch.Generator(device=dev).manual_seed(12)
     res["scalar_kalman1_step"] = profile(
         lambda: box.__setitem__(0, kernel(box[0], cs.SP_DELTA0, generator=gen)), 20,
-        "scalar_scan_kernel")
+        {"scalar_scans": ("scalar_scan_kernel", "scalar_cols_kernel")})
     print("  profile spatial kalman-1 step: " + ", ".join(
         f"{k} {v:.4f}" for k, v in res["scalar_kalman1_step"].items()), flush=True)
 

@@ -274,42 +274,84 @@ extern "C" void h_spatial_apply(int d, const double* consts, const double* v, do
 """
 
 _SCALAR_SCAN = """
+#include <vector>
 #include "scalar_scan.cu"
-// The kernel's three passes, one (chunk, lane) "thread" at a time.
+// The whole-column path, one block at a time: each (chunk, lane) thread's
+// pass 1, the totals' levels, each thread's pass 3.
 template <class Op>
-static void host_scalar_scan(int n, int B, bool rev, const Arrays<Op>& x, const Arrays<Op>& out) {
+static void host_cols(int n, int B, bool rev, const Arrays<Op>& x, const Arrays<Op>& out) {
   using S = typename Op::Scalar;
-  static S tot[Op::kN][kChunks], acc[kChunks][Op::kN];
-  for (int b = 0; b < B; ++b) {
-    for (int c = 0; c < kChunks; ++c) {
-      scan_chunk<Op>(c, b, n, B, rev, x, out, acc[c]);
-      for (int a = 0; a < Op::kN; ++a) tot[a][c] = acc[c][a];
-    }
-    for (int off = 1; off < kChunks; off *= 2) {
-      for (int c = off; c < kChunks; ++c) {
-        S left[Op::kN];
-        for (int a = 0; a < Op::kN; ++a) left[a] = tot[a][c - off];
-        Op::combine(left, acc[c], acc[c]);
+  static ColsTot<Op> sh;
+  static S acc[kChunks][kColLanes][Op::kN], v[kChunks][kColLanes][kColWin<Op>][Op::kN];
+  for (int b0 = 0; b0 < B; b0 += kColLanes) {
+    for (int c = 0; c < kChunks; ++c)
+      for (int l = 0; l < kColLanes; ++l) {
+        if (b0 + l < B)
+          cols_scan<Op>(c, b0 + l, n, B, rev, x, out, v[c][l], acc[c][l]);
+        else
+          Op::identity(acc[c][l]);
+        for (int a = 0; a < Op::kN; ++a) sh.t[0][a][c][l] = acc[c][l][a];
       }
+    for (int L = 0; L < kColLevels; ++L)
       for (int c = 0; c < kChunks; ++c)
-        for (int a = 0; a < Op::kN; ++a) tot[a][c] = acc[c][a];
+        for (int l = 0; l < kColLanes; ++l) cols_level<Op>(L, c, l, sh, acc[c][l]);
+    for (int c = 0; c < kChunks; ++c)
+      for (int l = 0; l < kColLanes; ++l)
+        if (b0 + l < B) {
+          S pre[Op::kN];
+          for (int a = 0; a < Op::kN; ++a) pre[a] = sh.t[1][a][c > 0 ? c - 1 : 0][l];
+          cols_apply<Op>(c, b0 + l, n, B, rev, pre, v[c][l], out);
+        }
+  }
+}
+// The kernel's phases for the plan of `sms` SMs: the whole-column path, or
+// one split block at a time in ticket order: its chunk threads' pass 1 and
+// hand-overs, each warp's totals scan (its lanes in turn), its chunk
+// threads' pass 3. seg[0] = the segments of a column that ran (0: whole).
+template <class Op>
+static void host_scalar_scan(int n, int B, int sms, bool rev, const Arrays<Op>& x,
+                             const Arrays<Op>& out, int* seg) {
+  using S = typename Op::Scalar;
+  const int G = scalar_segments(n, B, sms);
+  seg[0] = G;
+  if (G == 0) return host_cols<Op>(n, B, rev, x, out);
+  std::vector<unsigned long long> hand(scalar_hand_words<Op>(B));
+  const HandOver<Op> ho{hand.data()};
+  static ScanShared<Op> sh;
+  static S v[kThreads][kWin][Op::kN], run[kThreads][Op::kN];
+  for (int ticket = 0; ticket < (B + kCols - 1) / kCols * G; ++ticket) {
+    const Seg sg(ticket, G, 1u);
+    for (int t = 0; t < kCols * sg.CPS; ++t) {
+      const ChunkAt ch(t, sg, n, B);
+      chunk_scan<Op>(ch, n, B, rev, x, v[t], run[t]);
+      publish_total<Op>(ch, sg, run[t], sh, ho);
     }
-    for (int c = 1; c < kChunks; ++c) {
-      S pre[Op::kN];
-      for (int a = 0; a < Op::kN; ++a) pre[a] = tot[a][c - 1];
-      scan_apply<Op>(c, b, n, B, rev, pre, out);
-    }
+    for (int w = 0; w < kCols; ++w) warp_pre<Op>(w, sg, sh, ho);
+    for (int t = 0; t < kCols * sg.CPS; ++t)
+      chunk_apply<Op>(ChunkAt(t, sg, n, B), n, B, rev, x, sh, v[t], out);
   }
 }
 extern "C" {
-void h_scalar_filter_scan(int n, int B, double* A, double* b, double* C, double* e, double* J,
-                          double* oA, double* ob, double* oC, double* oe, double* oJ) {
+void h_scalar_filter_scan(int n, int B, int sms, double* A, double* b, double* C, double* e,
+                          double* J, double* oA, double* ob, double* oC, double* oe, double* oJ,
+                          int* seg) {
   using Op = ScalarFilterOp<double>;
-  host_scalar_scan<Op>(n, B, false, Arrays<Op>{{A, b, C, e, J}}, Arrays<Op>{{oA, ob, oC, oe, oJ}});
+  host_scalar_scan<Op>(n, B, sms, false, Arrays<Op>{{A, b, C, e, J}},
+                       Arrays<Op>{{oA, ob, oC, oe, oJ}}, seg);
 }
-void h_scalar_affine_scan(int n, int B, int rev, double* g, double* e, double* og, double* oe) {
+void h_scalar_affine_scan(int n, int B, int sms, int rev, double* g, double* e, double* og,
+                          double* oe, int* seg) {
   using Op = ScalarAffineOp<double>;
-  host_scalar_scan<Op>(n, B, rev != 0, Arrays<Op>{{g, e}}, Arrays<Op>{{og, oe}});
+  host_scalar_scan<Op>(n, B, sms, rev != 0, Arrays<Op>{{g, e}}, Arrays<Op>{{og, oe}}, seg);
+}
+int h_scalar_segments(int n, int B, int sms) { return scalar_segments(n, B, sms); }
+// The hand-over words of each scan and dtype at B columns: filter f32, f64,
+// affine f32, f64.
+void h_scalar_hand_words(int B, long long* out) {
+  out[0] = scalar_hand_words<ScalarFilterOp<float>>(B);
+  out[1] = scalar_hand_words<ScalarFilterOp<double>>(B);
+  out[2] = scalar_hand_words<ScalarAffineOp<float>>(B);
+  out[3] = scalar_hand_words<ScalarAffineOp<double>>(B);
 }
 }
 """
@@ -429,13 +471,64 @@ void h_row_lse(int P, int nr, int nc, int k, int sms, const double* rf, const do
     });
   });
 }
-void h_col_sample(int P, int n, int nc, int k, int seed, int pair_offset, const double* rf,
-                  const double* cf, const double* cb, long long* out) {
-  static Tile<double, kMaxK> tile;
-  for (int p = 0; p < P; ++p)
-    for (int i = 0; i < n; ++i)
-      col_sample_row<double, kMaxK>(0, 1, p, i, n, nc, k, (uint32_t)seed, pair_offset, rf, cf, cb,
-                                    (int64_t*)out, tile);
+// col_sample on row_lse's plan (plan[] as h_row_lse's), through the
+// kernel's width and row dispatch: each block's threads in turn, phase by
+// phase, the shuffle butterfly on the threads' partials (col_merge).
+void h_col_sample(int P, int n, int nc, int k, int sms, int seed, int pair_offset,
+                  const double* rf, const double* cf, const double* cb, long long* out,
+                  int* plan) {
+  const LsePlan pl = lse_plan(P, n, nc, k, sizeof(double), sms);
+  plan[0] = pl.G, plan[1] = pl.R, plan[2] = pl.RS, plan[3] = pl.NPB, plan[4] = pl.TC;
+  if (pl.TC < kLseChunk) return;
+  std::vector<double> sh(lse_smem_values(pl));
+  with_width(k, [&](auto Kc) {
+    with_lse_rows(pl.R, [&](auto Rc) {
+      constexpr int K = decltype(Kc)::value, R = decltype(Rc)::value;
+      static LseRows<double, R> th[kLseThreads];
+      static ColRows<double, R> cr[kLseThreads];
+      double g2[kLseThreads];
+      int j2[kLseThreads];
+      for (int by = 0; by < (P + pl.NPB - 1) / pl.NPB; ++by)
+        for (int bx = 0; bx < (n + pl.RB - 1) / pl.RB; ++bx) {
+          for (int t = 0; t < kLseThreads; ++t) {
+            lse_rows<double, R>(t, pl, bx, by, P, n, th[t]);
+            col_rows<double, R>(pl, th[t], (uint32_t)seed, pair_offset, cr[t]);
+          }
+          lse_stage_rows<double>(0, 1, pl, bx, by, P, n, k, rf, sh.data());
+          for (int j0 = 0; j0 < nc; j0 += pl.TC) {
+            const int nt = nc - j0 < pl.TC ? nc - j0 : pl.TC;
+            lse_stage_cols<double>(0, 1, pl, by, P, j0, nt, nc, k, cf, cb, sh.data());
+            for (int t = 0; t < kLseThreads; ++t)
+              if (th[t].live[0]) col_tile<double, K, R>(pl, j0, nt, k, sh.data(), th[t], cr[t]);
+          }
+          for (int rr = 0; rr < R; ++rr) {
+            for (int o = 1; o < pl.G; o *= 2) {
+              for (int t = 0; t < kLseThreads; ++t)
+                g2[t] = cr[t ^ o].best[rr], j2[t] = cr[t ^ o].arg[rr];
+              for (int t = 0; t < kLseThreads; ++t)
+                col_merge(cr[t].best[rr], cr[t].arg[rr], g2[t], j2[t]);
+            }
+            for (int t = 0; t < kLseThreads; ++t)
+              if (th[t].live[rr] && th[t].g == 0)
+                out[(long)th[t].p * n + th[t].i0 + th[t].rs + rr * pl.RS] =
+                    col_pick(cr[t].arg[rr]);
+          }
+        }
+    });
+  });
+}
+// col_sample's butterfly on G hand-made partials (g[l], j[l]; j < 0: no
+// column yet), as a row's G threads run it: out[l] the column thread l
+// picks.
+void h_col_sample_merge(int G, const double* g, const int* j, long long* out) {
+  double best[32], g2[32];
+  int arg[32], j2[32];
+  for (int l = 0; l < G; ++l) best[l] = g[l], arg[l] = j[l] < 0 ? kNoCol : j[l];
+  for (int o = 1; o < G; o *= 2) {
+    for (int l = 0; l < G; ++l) g2[l] = best[l ^ o], j2[l] = arg[l ^ o];
+    for (int l = 0; l < G; ++l) col_merge(best[l], arg[l], g2[l], j2[l]);
+  }
+  for (int l = 0; l < G; ++l) out[l] = col_pick(arg[l]);
 }
 void h_lse_plan(int P, int nr, int nc, int k, int elem_bytes, int sms, int* out) {
   const LsePlan pl = lse_plan(P, nr, nc, k, elem_bytes, sms);
@@ -898,7 +991,8 @@ def test_host_scalar_filter_scan_matches_plain(host_lib, n, B):
         rng.standard_normal((n, B)), rng.uniform(0.0, 0.5, (n, B))))
     want = SS.scalar_filter_scan_plain(elems)
     got = tuple(torch.full_like(z, float("nan")) for z in elems)
-    _call(host_lib["scalar_scan"].h_scalar_filter_scan, n, B, *elems, *got)
+    seg = torch.zeros(1, dtype=torch.int32)
+    _call(host_lib["scalar_scan"].h_scalar_filter_scan, n, B, 132, *elems, *got, seg)
     for g, w in zip(got, want):
         _close(g, w)
 
@@ -911,9 +1005,58 @@ def test_host_scalar_affine_scan_matches_plain(host_lib, n, B, reverse):
     incs = torch.as_tensor(rng.standard_normal((n, B)))
     want = SS.scalar_affine_scan_plain(gains, incs, reverse=reverse)
     got = tuple(torch.full_like(z, float("nan")) for z in want)
-    _call(host_lib["scalar_scan"].h_scalar_affine_scan, n, B, reverse, gains, incs, *got)
+    seg = torch.zeros(1, dtype=torch.int32)
+    _call(host_lib["scalar_scan"].h_scalar_affine_scan, n, B, 132, reverse, gains, incs, *got, seg)
     for g, w in zip(got, want):
         _close(g, w)
+
+
+# The plan's paths and edges (scalar_segments for the SM count given): the
+# whole-column path (0: n below 512, or 8-column groups >= SMs) with B not a
+# multiple of its 8 columns (13, 7, 6, 9, 1057), n below the chunk count
+# (50, 1), a chunk in one window (its prefixes kept in registers) and
+# chunks past one window (2 steps of the float64 filter, 3 of the float64
+# affine map: 300 and 1023, 3 and 8 a chunk; 2100: 17);
+# the split path at each segment count, 4, 8 and 16 (the most), with B not a
+# multiple of its 8 columns (5, 3, 13), n not a multiple of the chunk length
+# (517: 104 chunks of 5, the last of 2) and chunks past one window of 8
+# steps (2100: 17 a chunk, windows of 8, 8, 1; 1500: 12, windows of 8, 4).
+@pytest.mark.parametrize("n,B,sms,seg", [
+    (100, 13, 132, 0), (300, 7, 16, 0), (50, 6, 4, 0), (1, 9, 132, 0), (299, 64, 30, 0),
+    (1023, 1057, 132, 0), (2100, 20, 2, 0), (517, 5, 8, 8), (2100, 3, 132, 16),
+    (1500, 16, 132, 16), (1023, 64, 132, 16), (600, 13, 4, 4)])
+def test_host_scalar_scan_layout_edges(host_lib, n, B, sms, seg):
+    rng = np.random.default_rng(n + B)
+    elems = tuple(torch.as_tensor(z) for z in (
+        rng.uniform(0.5, 1.0, (n, B)), rng.standard_normal((n, B)), rng.uniform(0.1, 1.0, (n, B)),
+        rng.standard_normal((n, B)), rng.uniform(0.0, 0.5, (n, B))))
+    used = torch.zeros(1, dtype=torch.int32)
+    got = tuple(torch.full_like(z, float("nan")) for z in elems)
+    _call(host_lib["scalar_scan"].h_scalar_filter_scan, n, B, sms, *elems, *got, used)
+    assert int(used) == seg
+    for g, w in zip(got, SS.scalar_filter_scan_plain(elems)):
+        _close(g, w)
+    gains = torch.as_tensor(rng.uniform(-0.9, 0.9, (n, B)))
+    for reverse in (False, True):
+        got = tuple(torch.full_like(z, float("nan")) for z in elems[:2])
+        _call(host_lib["scalar_scan"].h_scalar_affine_scan, n, B, sms, reverse, gains, elems[1],
+              *got, used)
+        for g, w in zip(got, SS.scalar_affine_scan_plain(gains, elems[1], reverse=reverse)):
+            _close(g, w)
+
+
+@pytest.mark.parametrize("B", [1, 8, 9, 64, 4096])
+def test_host_scalar_hand_words_match_the_wrappers(host_lib, B):
+    """The wrappers size the hand-over buffer as the kernel lays it out, and
+    pass one exactly where the kernel takes the split path."""
+    out = torch.zeros(4, dtype=torch.int64)
+    _call(host_lib["scalar_scan"].h_scalar_hand_words, B, out)
+    assert out.tolist() == [SS.hand_words(B, values, elem)
+                            for values in (5, 2) for elem in (4, 8)]
+    segments = host_lib["scalar_scan"].h_scalar_segments
+    for n in (1, 511, 512, 1023, 5000):
+        for sms in (1, -(-B // 8), -(-B // 8) + 1, 132):
+            assert (segments(n, B, sms) > 0) == SS.split_path(n, B, sms)
 
 
 def _lane_model(model, T):
@@ -992,14 +1135,19 @@ def _rows_case(P, n, N, k, dead=False):
 # tiles (N = 1500, k = 64), several nodes a block (n = 4), nodes a block
 # capped by shared memory (N = 4 and 8 at k = 64: 4-column tiles), row slots
 # capped by it (1000 rows of 4 columns at k = 64), and dead columns (-inf
-# biases in node 0) and a dead node (every score -inf: NaN).
+# biases in node 0) and a dead node (every score -inf: NaN; col_sample's
+# column 0). col_sample runs on the same plans: G = 1, 2, 4, 8, 16 (3, 20,
+# 50, 8) and 32, R = 1, 2 (features in registers at k = 1, from shared
+# memory at k = 64) and 4, several nodes a block (also at k = 64: 5, 10,
+# 20, 64; and with a dead node: 37, 4, 9, 1).
 @pytest.mark.parametrize("P,n,N,k,dead", [
     _rows_case(3, 25, 25, 30), _rows_case(2, 130, 200, 1), _rows_case(2, 40, 70, 64),
     _rows_case(1, 5, 3, 8), _rows_case(1, 1000, 1000, 1), _rows_case(64, 25, 25, 64),
     _rows_case(2, 40, 1500, 64), _rows_case(37, 4, 9, 1), _rows_case(600, 25, 200, 8),
     _rows_case(64, 4, 4, 64), _rows_case(64, 8, 8, 64), _rows_case(2, 1000, 4, 64),
     _rows_case(3, 25, 25, 30, True),
-    _rows_case(2, 300, 700, 1, True)])
+    _rows_case(2, 300, 700, 1, True), _rows_case(3, 20, 50, 8), _rows_case(5, 10, 20, 64),
+    _rows_case(37, 4, 9, 1, True)])
 def test_host_stitching_rows_match_plain(host_lib, P, n, N, k, dead):
     rng = np.random.default_rng(n + k)
     rf, cf, cb = (torch.as_tensor(z) for z in (0.4 * rng.standard_normal((P, n, k)),
@@ -1017,8 +1165,32 @@ def test_host_stitching_rows_match_plain(host_lib, P, n, N, k, dead):
     _close(got, want, rtol=1e-12, atol=1e-12)
     for seed, offset in ((-1, 0), (123456, 9)):
         cols = torch.full((P, n), -1, dtype=torch.int64)
-        _call(lib.h_col_sample, P, n, N, k, seed, offset, rf, cf, cb, cols)
-        np.testing.assert_array_equal(cols.numpy(), ST.col_sample(seed, rf, cf, cb, offset).numpy())
+        col_plan = torch.zeros(5, dtype=torch.int32)
+        _call(lib.h_col_sample, P, n, N, k, 132, seed, offset, rf, cf, cb, cols, col_plan)
+        assert torch.equal(col_plan, plan)
+        want_cols = ST.col_sample(seed, rf, cf, cb, offset)
+        np.testing.assert_array_equal(cols.numpy(), want_cols.numpy())
+        if dead:
+            assert not bool(want_cols[-1].any())  # the dead node: column 0
+
+
+# col_sample's butterfly on hand-made partials (g, column; -1: no column):
+# the larger g wins; on equal g the lower column, also against a later
+# thread's; -inf never wins over a finite g; a row whose every partial is
+# -inf (or holds no column) takes column 0; +inf wins, the lowest first.
+@pytest.mark.parametrize("g,j,want", [
+    ([0.5, 0.5], [7, 3], 3), ([0.5, 0.5, 0.5, 0.5], [9, 2, 14, 6], 2),
+    ([-np.inf, -np.inf, 0.1, -np.inf], [-1, -1, 6, -1], 6), ([-np.inf] * 8, [-1] * 8, 0),
+    ([-np.inf, -np.inf], [-1, 5], 5), ([-2.0, 1.0, 1.0, 3.0e-3], [0, 13, 1, 2], 1),
+    ([np.inf, 1.0, np.inf, -np.inf], [12, 0, 3, -1], 3), ([1.5], [4], 4),
+    ([0.25] * 16 + [0.5] + [0.25] * 15, list(range(32, 0, -1)), 16),
+    ([-1.0] * 32, [31 - l for l in range(32)], 0)])
+def test_host_col_sample_merge(host_lib, g, j, want):
+    G = len(g)
+    out = torch.full((G,), -2, dtype=torch.int64)
+    _call(host_lib["stitching"].h_col_sample_merge, G, torch.tensor(g, dtype=torch.float64),
+          torch.tensor(j, dtype=torch.int32), out)
+    assert out.tolist() == [want] * G
 
 
 # (P, nr, nc, k, element bytes) -> lse_plan's (G, R, RS, NPB, TC) at 132

@@ -481,11 +481,15 @@ SP_PARAMS = (0.3, 4.0, -0.25, 1)  # sigma_x, nu, tau, r_y
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-9), (torch.float32, 2e-5)])
 @pytest.mark.parametrize("n,B", [(1, 5), (37, 1), (100, 36), (299, 64), (513, 130), (1023, 64),
-                                 (1024, 4096)])
+                                 (1024, 4096), (50, 601), (517, 2051), (2100, 65), (1023, 1057)])
 def test_scalar_scans_match_plain(dev, n, B, dtype, rtol):
     """Both scalar scans (the affine one forward and reversed) on the card
     against their plain versions on the CPU; float32 at the JAX package's own
-    kernel-vs-XLA bound."""
+    kernel-vs-XLA bound. The block layout's edges on 132 SMs: B not a
+    multiple of the columns a block (601 and 1057 at 2 or 4, 2051 at 4 in
+    float32), n below the chunk count (50), n not a multiple of the chunk
+    length (517: chunks of 5), and chunks past one window of 8 steps (2100:
+    17 a chunk)."""
     SS = K.scalar_scan
     rng = np.random.default_rng(n + B)
     elems = tuple(torch.as_tensor(z, dtype=dtype) for z in (
@@ -621,13 +625,17 @@ def _stitch_factors(P, n, N, k, seed, dtype=torch.float64):
                                      (512, 25, 25, 64), (1, 25, 25, 64), (1, 25, 25, 30),
                                      (2, 40, 1500, 64), (600, 25, 200, 8), (64, 1000, 1000, 30),
                                      (64, 4, 4, 64), (64, 8, 8, 64), (64, 4, 4, 30),
-                                     (2, 1000, 4, 64)])
+                                     (2, 1000, 4, 64), (3, 20, 50, 8), (37, 4, 9, 1),
+                                     (5, 10, 20, 64)])
 def test_row_lse_and_col_sample_match_plain(dev, P, n, N, k):
     """Every feature bound (1, 8, 32, 64), ragged row blocks and column tiles,
     phase 16's shapes (N = 25 at levels 0 and the root, N = 4096's root), 4
     rows a thread with 8 threads a row (P = 600, 200 columns; a two-pass
     level at N = 1000 with 64 nodes), and the plans whose nodes a block or
-    row slots shared memory caps (4-column tiles);
+    row slots shared memory caps (4-column tiles); both kernels run one
+    plan, so these also give col_sample G = 1, 2, 4, 8, 16 (3, 20, 50, 8)
+    and 32, R = 1, 2 and 4, and several nodes a block (37, 4, 9, 1 and 5,
+    10, 20, 64);
     float64 values to 1e-12 and identical columns, float32 columns at >= 0.999
     (the scores are equal; only the float32 logs of exp sums differ)."""
     ST = K.stitching
