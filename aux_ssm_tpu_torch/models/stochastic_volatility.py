@@ -1,19 +1,22 @@
 """Multivariate stochastic-volatility model (counterpart of
-`aux_ssm_tpu/models/stochastic_volatility.py`, the cSMC styles).
+`aux_ssm_tpu/models/stochastic_volatility.py`).
 
 Model: D-dimensional log-volatility AR(1)
     x_0 ~ N(mu, Q_inf),   x_{t+1} = mu + phi (x_t - mu) + eps,  eps ~ N(0, Q)
     y_t | x_t ~ N(0, diag(exp(x_t)))
 with Q the stationary covariance tau ((1-rho) I + rho 11^T) / (1 - phi^2).
 
-Sampler styles ported:
+Sampler styles:
+    kalman-1      first-order auxiliary Kalman (`get_kalman_kernel`, order 1)
+    kalman-2      second-order auxiliary Kalman on the potential's diagonal
+                  Hessian (order 2); both run the dense d x d MH step, whose
+                  kernels take d <= 32 (the published D = 30 on the D = 32
+                  instance)
     csmc          auxiliary PG with independent proposals (optionally
                   gradient-shifted): the factor sweeps, or with
                   `parallel=True` (the default of `experiments/cli.py`) the
                   PIT cSMC through the stitching kernels
     csmc-guided   Kalman-gain guided auxiliary PG
-The auxiliary Kalman styles (kalman-1/2) are not in the port yet: the
-main-path kernels are built for d <= 16.
 
 Constant factorisations (Cholesky, eigendecomposition) are computed once,
 in float64 on the CPU, then cast to the data's dtype and device, so the card
@@ -27,6 +30,7 @@ import torch
 
 from ..device import resolve
 from ..kernels import csmc_aux, csmc_independent
+from ..kernels.kalman import get_kernel as get_kalman_generic
 from ..kernels.csmc_base import (Distribution, Dynamics, Potential, UnivariatePotential,
                                  chol_gaussian_pair_factors, rows as _rows)
 from ..ops import mvn
@@ -96,6 +100,14 @@ def log_potential(xs, ys):
     return _log_potential_one(xs, ys).sum()
 
 
+def grad_log_potential(xs, ys):
+    """Gradient of `log_potential` in xs, elementwise in closed form:
+    d/dx log N(y; 0, exp(x)) = y^2 exp(-x) / 2 - 1 / 2, NaN (a missing y) to
+    0 and +-inf to the type's largest values, as the JAX package's
+    `jnp.nan_to_num(jax.grad(log_potential))`."""
+    return torch.nan_to_num(0.5 * ys ** 2 * torch.exp(-xs) - 0.5)
+
+
 def hess_log_potential_diag(xs, ys):
     """Diagonal of the potential's Hessian, elementwise (the model is
     separable): d^2/dx^2 log N(y; 0, exp(x)) = -y^2 exp(-x) / 2."""
@@ -136,6 +148,54 @@ def init_x_fn(ys, nu, phi, tau, rho, N, generator=None, noise=None):
         x_next = xs[t][choice_from_uniform(u_back[t], w)][0]
         traj.append(x_next)
     return torch.stack(traj[::-1])
+
+
+# --------------------------------------------------------------------------
+# Auxiliary Kalman samplers (styles kalman-1 / kalman-2)
+# --------------------------------------------------------------------------
+
+def get_kalman_factories(ys, nu, phi, tau, rho):
+    """The auxiliary-Kalman pieces on the data's dtype and device:
+    (dynamics_factory, first_order_factory, second_order_factory,
+    log_likelihood_fn) for `kernels.kalman.get_kernel`. Order 1 shifts the
+    auxiliary observation by the potential's gradient; order 2 takes the
+    diagonal second-order expansion Omega = (-H + 2 I / delta)^{-1}. The
+    target's density is plain torch (the prior by triangular solves, the
+    potential elementwise)."""
+    T, d = ys.shape
+    m0, chol_P0, F, Q, chol_Q, b = _factored_dynamics(nu, phi, tau, rho, ys)
+    # The kernels take contiguous per-step arrays: made once, not per call.
+    Fs, Qs = F.expand(T - 1, d, d).contiguous(), Q.expand(T - 1, d, d).contiguous()
+    bs = b.expand(T - 1, d).contiguous()
+    eyes = torch.eye(d, dtype=ys.dtype, device=ys.device).expand(T, d, d).contiguous()
+    zeros = ys.new_zeros(T, d)
+
+    def dynamics_factory(_x):
+        return m0, Q, Fs, Qs, bs  # P0 = Q, the stationary covariance
+
+    def first_order_factory(x, u, delta):
+        aux_ys = u + 0.5 * delta * grad_log_potential(x, ys)
+        return aux_ys, eyes, 0.5 * delta * eyes, zeros
+
+    def second_order_factory(x, u, delta):
+        hess = torch.nan_to_num(hess_log_potential_diag(x, ys))
+        omega = 1.0 / (-hess + 2.0 / delta)
+        aux_ys = omega * (2.0 * u / delta + grad_log_potential(x, ys) - hess * x)
+        return aux_ys, eyes, omega[..., None] * eyes, zeros
+
+    def log_likelihood_fn(x):
+        out = mvn.logpdf(x[0], m0, chol_P0)
+        out = out + mvn.logpdf(x[1:], x[:-1] @ F.T + b, chol_Q).sum()
+        return out + log_potential(x, ys)
+
+    return dynamics_factory, first_order_factory, second_order_factory, log_likelihood_fn
+
+
+def get_kalman_kernel(ys, nu, phi, tau, rho, parallel, order=1):
+    """Auxiliary Kalman kernel (style kalman-1 for `order` 1, kalman-2 for
+    2); returns (init, kernel) of `kernels.kalman.get_kernel`."""
+    dyn, first, second, target = get_kalman_factories(ys, nu, phi, tau, rho)
+    return get_kalman_generic(dyn, first if order == 1 else second, target, parallel)
 
 
 # --------------------------------------------------------------------------

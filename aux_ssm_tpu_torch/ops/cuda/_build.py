@@ -25,10 +25,26 @@ SOURCES = ("kalman_fused.cu", "scan.cu", "scalar_scan.cu", "csmc_fwd.cu", "csmc_
            "csmc_block_lane.cu", "stitching.cu")
 HEADERS = ("tile.cuh", "lanes.cuh", "csmc_common.cuh", "csmc_models.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "aux_ssm_tpu_torch"
+# --split-compile=0 runs the device optimizer on a source's kernels in parallel
+# threads: on the card's 8-core host the seven sources built in 56 s with it,
+# 85 s without (scan.cu alone 36 s against 94 s), with the same code.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
 
-MAX_DIM = 16  # kMaxD of the main-path kernels: the largest dx, dy they are built for
+# The compile-time dimensions of the main-path kernels' instances (kalman_fused.cu
+# kElemD / kWideD, scan.cu kNarrowD / kWideD): each call takes the least that
+# holds its max(dx, dy); MAX_DIM is the largest dx, dy they are built for.
+INSTANCE_DIMS = (16, 32)
+MAX_DIM = INSTANCE_DIMS[-1]
+
+
+def instance_dim(d):
+    """The compile-time D of the instance that takes dimension d (as the C
+    entries choose it); raises past MAX_DIM."""
+    for D in INSTANCE_DIMS:
+        if d <= D:
+            return D
+    raise ValueError(f"no kernel instance for dimension {d} (at most {MAX_DIM})")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -39,6 +55,7 @@ class _Library:
     def __init__(self):
         self._lib = None
         self.build_seconds = None
+        self.source_seconds = {}  # seconds of each source's nvcc, where this process built it
         self.build_dir = None
 
     def _nvcc(self):
@@ -70,17 +87,23 @@ class _Library:
         nvcc = self._nvcc()
         tic = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-            objs, procs = [], []
+            objs, procs = [], {}
             for name in SOURCES:
                 obj = Path(tmp) / (name + ".o")
                 objs.append(str(obj))
-                procs.append(subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            logs = [p.communicate()[0] for p in procs]
+                with open(Path(tmp) / (name + ".log"), "w") as out:
+                    procs[name] = subprocess.Popen(
+                        [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+                        stdout=out, stderr=subprocess.STDOUT)
+            while len(self.source_seconds) < len(procs):  # each source's time, as it ends
+                for name, p in procs.items():
+                    if name not in self.source_seconds and p.poll() is not None:
+                        self.source_seconds[name] = time.perf_counter() - tic
+                time.sleep(0.05)
+            logs = [(Path(tmp) / (name + ".log")).read_text() for name in SOURCES]
             (out_dir / "ptxas.log").write_text("\n".join(logs))
-            for name, p, log in zip(SOURCES, procs, logs):
-                if p.returncode != 0:
+            for name, log in zip(SOURCES, logs):
+                if procs[name].returncode != 0:
                     raise RuntimeError(f"nvcc failed on {name}:\n{log}")
             tmp_lib = Path(tmp) / lib_path.name
             link = subprocess.run([nvcc, "-shared", "-o", str(tmp_lib), *objs],

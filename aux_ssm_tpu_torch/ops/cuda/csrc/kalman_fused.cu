@@ -11,8 +11,11 @@
 // launch, far below what the card moves or computes in a millisecond. What
 // bounds a step is the latency of its dependent chain of small products.
 //
-// All four: one block (a team of kElemTeam = 32 threads) a step, at a
-// compile-time D = kElemD (tile.cuh; dx, dy <= D padded exactly: F, Q, P, H,
+// All four: one block (a team of NT threads) a step, at a compile-time D
+// (tile.cuh), in two instances chosen by max(dx, dy): D = kElemD = 16 on
+// kElemTeam = 32 threads, and D = kWideD = 32 (the SV model's d = 30) on 128
+// threads for make_elements and backward_maps, 64 for ell and logdensity
+// (kWide*Team); dx, dy <= D are padded exactly (F, Q, P, H,
 // R, b, m, c, y, x zero outside d, the padded observation rows treated as
 // missing, so He's rows are zero there and Re's diagonal one, S = diag(S, I),
 // the Q of a transition density and of backward_maps diag(Q, I), and every
@@ -37,20 +40,20 @@
 // and 128 took 0.0366 (PERF.md).
 //
 // ell and logdensity end in Gaussian log densities log N(v; 0, M), each on
-// half of the warp through the LDL^T factor of M bordered by v (gauss_half:
-// 16 column steps, one barrier each, no triangular solve): ell's of S and
+// half of the team through the LDL^T factor of M bordered by v (gauss_half:
+// D column steps, one barrier each, no triangular solve): ell's of S and
 // the innovation of m_pred (the upper half repeats it); logdensity's two at
 // once, the transition's (Q, x_t - F x_{t-1} - b) on lanes 0-15 and the
-// observation's (Re, the masked innovation of x_t) on lanes 16-31, the same
-// code on other operands.
+// observation's (Re, the masked innovation of x_t) on lanes 16-31 (at D = 32
+// on threads 0-31 and 32-63 of the 64), the same code on other operands.
 //
 // backward_maps: S = sym(F P F^T + Q) and the right-hand side F P, S X = F P
 // by make_elements' Gauss-Jordan, S G^T = S X and cov = sym(P - G S G^T),
-// then the Cholesky factor L of cov (jittered) on half of the warp
+// then the Cholesky factor L of cov (jittered) on D of the team's threads
 // (chol_cols: lane c owns column c, one barrier, one square root and one
-// reciprocal a column; the upper half-warp repeats it), and the three
-// mat-vecs of inc on the threads of the first column: 5 tile products and
-// 30 barriers a step.
+// reciprocal a column; the other threads repeat it), and the three mat-vecs
+// of inc on the threads of the first column: 5 tile products and 30
+// barriers a step at D = 16.
 //
 // Missing observations follow ops/lgssm.mask_observation exactly: every
 // masked quantity is selected with `isfinite(y)`, never multiplied by a 0/1
@@ -71,7 +74,8 @@ constexpr double kLog2Pi = 1.8378770664093453;
 // The padded steps
 // ---------------------------------------------------------------------------
 
-constexpr int kElemD = 16;  // the compile-time dimension of the padded steps (dx, dy <= 16)
+constexpr int kElemD = 16;  // the compile-time dimension of the narrow instance (dx, dy <= 16)
+constexpr int kWideD = 32;  // and of the wide one (16 < max(dx, dy) <= 32)
 constexpr int kElemStamps = 6;  // clock64 readings of an elements step (diagnostics)
 constexpr int kMapStamps = 7;   // clock64 readings of a backward_maps step (diagnostics)
 
@@ -381,10 +385,12 @@ AUX_HD void elements_step(int t, long k, int dx, int dy, ElementsIn<S> in, Eleme
 // with L unit lower triangular and u = (L Dg)^{-1} v, so that
 // v^T M^{-1} v = sum_c u_c^2 d_c and log det M = sum_c log d_c, with no
 // triangular solve and no square root (the Cholesky factor is L Dg^{1/2}).
-// A team of NT threads takes two such densities: half h = t / NL of the team
-// (NL = NT / 2 lanes) takes density h, its lane l = t % NL the columns
-// c = l, l + NL, ... of the bordered lower triangle in registers; a team of
-// one thread (the host build) takes both in turn. The factor is
+// A team of NT threads takes two such densities: half h = (t / NL) % 2 of
+// the team (NL = min(NT / 2, D) lanes) takes density h, its lane l = t % NL
+// the columns c = l, l + NL, ... of the bordered lower triangle in
+// registers (threads past 2 NL repeat the halves' work, so that every thread
+// meets the barriers); a team of one thread (the host build) takes both in
+// turn. The factor is
 // right-looking, one column step and one barrier a column: the owner of
 // column j publishes its entries and the reciprocal of its pivot d_j; every
 // lane then subtracts from each of its columns c > j column j times
@@ -394,10 +400,11 @@ AUX_HD void elements_step(int t, long k, int dx, int dy, ElementsIn<S> in, Eleme
 // Cholesky sums them), and the pivots' logs are taken after the last column, one a lane, in
 // parallel. A non-SPD M gives a pivot d_c <= 0 and a NaN log, as the plain
 // version's Cholesky gives NaN (no jitter).
-template <int NT>
+template <int NT, int D>
 struct Halves {
-  static constexpr int NL = NT > 1 ? NT / 2 : 1;  // lanes a density
-  static constexpr int step = NT / NL;           // densities apart a thread's turns
+  static constexpr int NL = NT == 1 ? 1 : NT / 2 < D ? NT / 2 : D;  // lanes a density
+  static constexpr int step = NT == 1 ? 1 : 2;  // densities apart a thread's turns
+  static AUX_HD int first(int t) { return t / NL % 2; }  // a thread's first density
 };
 
 // A half's scratch in shared memory: the published columns (column j in
@@ -439,7 +446,7 @@ AUX_HD S tree_sum(const S* x) {
 template <typename S, int D, int NT, class Mf, class Vf, class Nf>
 AUX_HD void gauss_half(int l, S* hs, Mf m, Vf v, Nf count) {
   using H = HalfLay<D>;
-  constexpr int NL = Halves<NT>::NL, U = D / NL, ld = tiles::kLd<D>;
+  constexpr int NL = Halves<NT, D>::NL, U = D / NL, ld = tiles::kLd<D>;
   static_assert(U * NL == D, "the lanes of a half divide the columns");
   S a[U][D + 1], piv[U], inv[U];
 #pragma unroll
@@ -491,7 +498,7 @@ AUX_HD void gauss_half(int l, S* hs, Mf m, Vf v, Nf count) {
 
 // -v^T M^{-1} v / 2 - log det M / 2 - n log(2 pi) / 2 from a half's scratch,
 // each sum in tree_sum's order (the plain versions sum in another, which
-// moves a sum of 16 terms by a few ulp: far inside the tests' rtol 1e-9 in
+// moves a sum of D terms by a few ulp: far inside the tests' rtol 1e-9 in
 // f64 and chip_smoke's nrel 1e-4 in f32).
 template <typename S, int D>
 AUX_HD S half_logpdf(const S* hs) {
@@ -513,11 +520,11 @@ struct EllLay {
 template <typename S, int D, int NT>
 AUX_HD void ell_step(int t, long k, int dx, int dy, ElementsIn<S> in, S* ell, S* sh) {
   using L = ElementsLay<D>;
-  using Hv = Halves<NT>;
+  using Hv = Halves<NT, D>;
   constexpr int ld = tiles::kLd<D>;
   innovation_cov<S, D, NT>(t, k, dx, dy, in, sh, nullptr);
   const S *X = sh + L::X, *ydm = sh + L::ydm, *y = sh + L::y;
-  for (int h = t / Hv::NL; h < 2; h += Hv::step)
+  for (int h = Hv::first(t); h < 2; h += Hv::step)
     gauss_half<S, D, NT>(
         t % Hv::NL, sh + EllLay<D>::half + h * HalfLay<D>::size,
         [&](int i, int c) { return (S)0.5 * (X[i * ld + c] + X[c * ld + i]); },
@@ -552,7 +559,7 @@ template <typename S, int D, int NT>
 AUX_HD void logdensity_step(int t, long k, int dx, int dy, DensityIn<S> in, S* out, S* sh) {
   using namespace tiles;
   using L = DensityLay<D>;
-  using Hv = Halves<NT>;
+  using Hv = Halves<NT, D>;
   constexpr int ld = kLd<D>;
   S *F = sh + L::F, *Q = sh + L::Q, *He = sh + L::H, *Re = sh + L::R, *b = sh + L::b;
   S *y = sh + L::y, *xp = sh + L::xp, *xc = sh + L::xc, *ye = sh + L::ye, *ce = sh + L::ce;
@@ -573,7 +580,7 @@ AUX_HD void logdensity_step(int t, long k, int dx, int dy, DensityIn<S> in, S* o
   mask_obs<S, D, NT>(Tile<D, NT>(t), dy, He, Re, y, sh + L::c, ye, ce);
   team_sync<NT>(0);
 
-  for (int h = t / Hv::NL; h < 2; h += Hv::step) {
+  for (int h = Hv::first(t); h < 2; h += Hv::step) {
     // The half's operands: M, and v = (yv - A z - cv) where it counts.
     const S *M = h ? Re : Q, *A = h ? He : F, *z = h ? xc : xp, *yv = h ? ye : xc, *cv = h ? ce : b;
     auto count = [&](int c) { return h ? (c < dy && isfinite(y[c])) : c < dx; };
@@ -620,9 +627,9 @@ struct MapsLay {
 // The lower Cholesky factor of an SPD D x D matrix M (m(i, c) its entry (i,
 // c); only i >= c is read) into the padded array Lout, its entries past row
 // dx zero, non-finite entries zero (ops/chol.safe_cholesky's nan_to_num). Half
-// of the team takes it, lane l = t % NL the columns c = l, l + NL, ... in
-// registers; the other half repeats it and stores nothing (a team of one
-// thread, the host build, takes every column). Right-looking, one barrier a
+// of the team takes it (NL lanes, Halves), lane l = t % NL the columns c = l,
+// l + NL, ... in registers; the other threads repeat it and store nothing (a
+// team of one thread, the host build, takes every column). Right-looking, one barrier a
 // column: the owner of column j takes its pivot's square root d_j, scales
 // the column by 1 / d_j and publishes it; every lane then subtracts from its
 // columns c > j column j times entry c of column j. An entry's updates come
@@ -636,7 +643,7 @@ struct MapsLay {
 // cost more than the square roots it takes off the chain.)
 template <typename S, int D, int NT, class Mf>
 AUX_HD void chol_cols(int t, int dx, S* pub, S* Lout, Mf m) {
-  constexpr int NL = Halves<NT>::NL, U = D / NL, ld = tiles::kLd<D>;
+  constexpr int NL = Halves<NT, D>::NL, U = D / NL, ld = tiles::kLd<D>;
   static_assert(U * NL == D, "the lanes of a half divide the columns");
   const int l = t % NL;
   S a[U][D];
@@ -808,105 +815,136 @@ AUX_HD void backward_maps_step(int t, long k, int dx, MapsIn<S> in, MapsOut<S> o
 // ---------------------------------------------------------------------------
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kMaxD = 16;   // largest dx, dy the kernels are built for
-static_assert(kMaxD <= kElemD, "the padded steps pad every dimension the entries accept");
-
-constexpr int kElemTeam = 32;  // the padded steps' threads a step (a block)
-// A larger D's working set needs cudaFuncSetAttribute (as scan.cu's set_shmem) past 48 KB.
-static_assert(EllLay<kElemD>::size * sizeof(double) <= 48 * 1024 &&
-                  ElementsLay<kElemD>::size <= EllLay<kElemD>::size &&
-                  DensityLay<kElemD>::size * sizeof(double) <= 48 * 1024 &&
-                  MapsLay<kElemD>::size * sizeof(double) <= 48 * 1024,
-              "the padded steps' shared memory fits the default limit");
+// The instances: D and the team (threads a step, a block). At kWideD the
+// teams were chosen on an H100 by device time at the SV model's T = 250,
+// d = 30 (f32, PERF.md): 32 threads (a tile of 32 entries a product) took
+// 1.7-2.6x as long as 64 for all four; 128 (8 entries) beat 64 (16) for the
+// products of make_elements (0.0258 ms against 0.0306) and backward_maps
+// (0.0205 against 0.0243, and no spills in f64), and lost for ell and
+// logdensity, whose density columns take 32 of the threads either way.
+constexpr int kElemTeam = 32;          // every kernel at kElemD
+constexpr int kWideElemTeam = 128;     // make_elements at kWideD
+constexpr int kWideMapsTeam = 128;     // backward_maps at kWideD
+constexpr int kWideDensityTeam = 64;   // ell and logdensity at kWideD
+constexpr int kMaxShmem = 232448;  // bytes of shared memory a block may have (227 KB)
+static_assert(EllLay<kWideD>::size * sizeof(double) <= kMaxShmem &&
+                  ElementsLay<kWideD>::size <= EllLay<kWideD>::size &&
+                  DensityLay<kWideD>::size * sizeof(double) <= kMaxShmem &&
+                  MapsLay<kWideD>::size * sizeof(double) <= kMaxShmem,
+              "the wide steps' shared memory fits a block");
 
 // Step blockIdx.x's filtering element on the block; `stamps`, if not null,
 // takes kElemStamps clock64 readings a step.
-template <typename S>
-__global__ void __launch_bounds__(kElemTeam)
+template <typename S, int D, int NT>
+__global__ void __launch_bounds__(NT)
 elements_kernel(int dx, int dy, ElementsIn<S> in, ElementsOut<S> out, long long* stamps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  elements_step<S, kElemD, kElemTeam>(threadIdx.x, blockIdx.x, dx, dy, in, out,
-                                      reinterpret_cast<S*>(smem),
-                                      stamps ? stamps + (long)blockIdx.x * kElemStamps : nullptr);
+  elements_step<S, D, NT>(threadIdx.x, blockIdx.x, dx, dy, in, out, reinterpret_cast<S*>(smem),
+                          stamps ? stamps + (long)blockIdx.x * kElemStamps : nullptr);
 }
 
-template <typename S>
-__global__ void __launch_bounds__(kElemTeam)
+template <typename S, int D, int NT>
+__global__ void __launch_bounds__(NT)
 ell_kernel(int dx, int dy, ElementsIn<S> in, S* ell) {
   extern __shared__ __align__(16) unsigned char smem[];
-  ell_step<S, kElemD, kElemTeam>(threadIdx.x, blockIdx.x, dx, dy, in, ell,
-                                 reinterpret_cast<S*>(smem));
+  ell_step<S, D, NT>(threadIdx.x, blockIdx.x, dx, dy, in, ell, reinterpret_cast<S*>(smem));
 }
 
-template <typename S>
-__global__ void __launch_bounds__(kElemTeam)
+template <typename S, int D, int NT>
+__global__ void __launch_bounds__(NT)
 logdensity_kernel(int dx, int dy, DensityIn<S> in, S* out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  logdensity_step<S, kElemD, kElemTeam>(threadIdx.x, blockIdx.x, dx, dy, in, out,
-                                        reinterpret_cast<S*>(smem));
+  logdensity_step<S, D, NT>(threadIdx.x, blockIdx.x, dx, dy, in, out,
+                            reinterpret_cast<S*>(smem));
 }
 
 // Step blockIdx.x's gain and increment on the block; `stamps`, if not null,
 // takes kMapStamps clock64 readings a step.
-template <typename S>
-__global__ void __launch_bounds__(kElemTeam)
+template <typename S, int D, int NT>
+__global__ void __launch_bounds__(NT)
 backward_maps_kernel(int dx, MapsIn<S> in, MapsOut<S> out, long long* stamps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  backward_maps_step<S, kElemD, kElemTeam>(threadIdx.x, blockIdx.x, dx, in, out,
-                                           reinterpret_cast<S*>(smem),
-                                           stamps ? stamps + (long)blockIdx.x * kMapStamps
-                                                  : nullptr);
+  backward_maps_step<S, D, NT>(threadIdx.x, blockIdx.x, dx, in, out, reinterpret_cast<S*>(smem),
+                               stamps ? stamps + (long)blockIdx.x * kMapStamps : nullptr);
 }
 
-inline int check_dims(int n, int dx, int dy) {
-  if (n <= 0 || dx < 1 || dy < 1 || dx > kMaxD || dy > kMaxD) return (int)cudaErrorInvalidValue;
-  return 0;
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// f(D, NT) for the instance that takes dx, dy: kElemD on kElemTeam threads up
+// to 16, kWideD on WideNT up to 32; cudaErrorInvalidValue for anything else.
+template <int WideNT, class F>
+int on_instance(int n, int dx, int dy, F f) {
+  const int d = dx > dy ? dx : dy;
+  if (n <= 0 || dx < 1 || dy < 1 || d > kWideD) return (int)cudaErrorInvalidValue;
+  return d <= kElemD ? f(Int<kElemD>(), Int<kElemTeam>()) : f(Int<kWideD>(), Int<WideNT>());
+}
+
+// Launch `kernel` on n blocks of NT threads with `bytes` of dynamic shared
+// memory (past 48 KB after raising the kernel's limit, as scan.cu does).
+template <int NT, class... P, class... A>
+int launch_steps(void (*kernel)(P...), int n, size_t bytes, cudaStream_t stream, A... args) {
+  if (bytes > 48 * 1024)
+    if (cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)bytes))
+      return (int)e;
+  kernel<<<n, NT, bytes, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define AUX_DEFINE_MAPS(SUFFIX, S)                                                            \
-  extern "C" int aux_make_elements_##SUFFIX(int n, int dx, int dy, const S* F, const S* Q,    \
-                                            const S* b, const S* H, const S* R, const S* c,   \
-                                            const S* y, const S* m, const S* P, S* A, S* bel, \
-                                            S* C, S* eta, S* J, long long* stamps,            \
-                                            void* stream) {                                   \
-    if (int e = check_dims(n, dx, dy)) return e;                                              \
-    elements_kernel<S><<<n, kElemTeam, ElementsLay<kElemD>::size * sizeof(S),                 \
-                         (cudaStream_t)stream>>>(dx, dy, ElementsIn<S>{F, Q, b, H, R, c, y, m, P}, \
-                                                 ElementsOut<S>{A, bel, C, eta, J}, stamps);  \
-    return (int)cudaGetLastError();                                                           \
-  }                                                                                           \
-  extern "C" int aux_ell_##SUFFIX(int n, int dx, int dy, const S* F, const S* Q, const S* b,  \
-                                  const S* H, const S* R, const S* c, const S* y,             \
-                                  const S* m, const S* P, S* ell, void* stream) {             \
-    if (int e = check_dims(n, dx, dy)) return e;                                              \
-    ell_kernel<S><<<n, kElemTeam, EllLay<kElemD>::size * sizeof(S), (cudaStream_t)stream>>>(  \
-        dx, dy, ElementsIn<S>{F, Q, b, H, R, c, y, m, P}, ell);                               \
-    return (int)cudaGetLastError();                                                           \
-  }                                                                                           \
-  extern "C" int aux_backward_maps_##SUFFIX(int n, int dx, const S* F, const S* Q,            \
-                                            const S* b, const S* m, const S* P,               \
-                                            const S* eps, S* G, S* inc, long long* stamps,    \
-                                            void* stream) {                                   \
-    if (int e = check_dims(n, dx, 1)) return e;                                               \
-    backward_maps_kernel<S><<<n, kElemTeam, MapsLay<kElemD>::size * sizeof(S),                \
-                              (cudaStream_t)stream>>>(dx, MapsIn<S>{F, Q, b, m, P, eps},      \
-                                                      MapsOut<S>{G, inc}, stamps);            \
-    return (int)cudaGetLastError();                                                           \
-  }                                                                                           \
-  extern "C" int aux_logdensity_steps_##SUFFIX(int n, int dx, int dy, const S* F,             \
-                                               const S* Q, const S* b, const S* H,            \
-                                               const S* R, const S* c, const S* y,            \
-                                               const S* xp, const S* xc, S* out,              \
-                                               void* stream) {                                \
-    if (int e = check_dims(n, dx, dy)) return e;                                              \
-    logdensity_kernel<S><<<n, kElemTeam, DensityLay<kElemD>::size * sizeof(S),                \
-                           (cudaStream_t)stream>>>(                                           \
-        dx, dy, DensityIn<S>{F, Q, b, H, R, c, y, xp, xc}, out);                              \
-    return (int)cudaGetLastError();                                                           \
+#define AUX_DEFINE_MAPS(SUFFIX, S)                                                             \
+  extern "C" int aux_make_elements_##SUFFIX(int n, int dx, int dy, const S* F, const S* Q,     \
+                                            const S* b, const S* H, const S* R, const S* c,    \
+                                            const S* y, const S* m, const S* P, S* A, S* bel,  \
+                                            S* C, S* eta, S* J, long long* stamps,             \
+                                            void* stream) {                                    \
+    return on_instance<kWideElemTeam>(n, dx, dy, [&](auto D_, auto NT_) {                      \
+      constexpr int D = decltype(D_)::value, NT = decltype(NT_)::value;                        \
+      return launch_steps<NT>(elements_kernel<S, D, NT>, n, ElementsLay<D>::size * sizeof(S),  \
+                              (cudaStream_t)stream, dx, dy,                                    \
+                              ElementsIn<S>{F, Q, b, H, R, c, y, m, P},                        \
+                              ElementsOut<S>{A, bel, C, eta, J}, stamps);                      \
+    });                                                                                        \
+  }                                                                                            \
+  extern "C" int aux_ell_##SUFFIX(int n, int dx, int dy, const S* F, const S* Q, const S* b,   \
+                                  const S* H, const S* R, const S* c, const S* y,              \
+                                  const S* m, const S* P, S* ell, void* stream) {              \
+    return on_instance<kWideDensityTeam>(n, dx, dy, [&](auto D_, auto NT_) {                   \
+      constexpr int D = decltype(D_)::value, NT = decltype(NT_)::value;                        \
+      return launch_steps<NT>(ell_kernel<S, D, NT>, n, EllLay<D>::size * sizeof(S),            \
+                              (cudaStream_t)stream, dx, dy,                                    \
+                              ElementsIn<S>{F, Q, b, H, R, c, y, m, P}, ell);                  \
+    });                                                                                        \
+  }                                                                                            \
+  extern "C" int aux_backward_maps_##SUFFIX(int n, int dx, const S* F, const S* Q,             \
+                                            const S* b, const S* m, const S* P,                \
+                                            const S* eps, S* G, S* inc, long long* stamps,     \
+                                            void* stream) {                                    \
+    return on_instance<kWideMapsTeam>(n, dx, 1, [&](auto D_, auto NT_) {                       \
+      constexpr int D = decltype(D_)::value, NT = decltype(NT_)::value;                        \
+      return launch_steps<NT>(backward_maps_kernel<S, D, NT>, n, MapsLay<D>::size * sizeof(S), \
+                              (cudaStream_t)stream, dx, MapsIn<S>{F, Q, b, m, P, eps},         \
+                              MapsOut<S>{G, inc}, stamps);                                     \
+    });                                                                                        \
+  }                                                                                            \
+  extern "C" int aux_logdensity_steps_##SUFFIX(int n, int dx, int dy, const S* F,              \
+                                               const S* Q, const S* b, const S* H,             \
+                                               const S* R, const S* c, const S* y,             \
+                                               const S* xp, const S* xc, S* out,               \
+                                               void* stream) {                                 \
+    return on_instance<kWideDensityTeam>(n, dx, dy, [&](auto D_, auto NT_) {                   \
+      constexpr int D = decltype(D_)::value, NT = decltype(NT_)::value;                        \
+      return launch_steps<NT>(logdensity_kernel<S, D, NT>, n, DensityLay<D>::size * sizeof(S), \
+                              (cudaStream_t)stream, dx, dy,                                    \
+                              DensityIn<S>{F, Q, b, H, R, c, y, xp, xc}, out);                 \
+    });                                                                                        \
   }
 
 AUX_DEFINE_MAPS(f32, float)

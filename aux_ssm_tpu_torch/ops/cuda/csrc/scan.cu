@@ -42,8 +42,12 @@
 //    on two streams use two states. What remains: one state must not serve
 //    two launches at once, so a captured CUDA graph must not be replayed on
 //    two streams at the same time.
-//  - Each combine runs at a compile-time D = 16 (tile.cuh: d <= D padded
-//    exactly, the thread's tile of each result in registers).
+//  - Each combine runs at a compile-time D (tile.cuh: d <= D padded exactly,
+//    the thread's tile of each result in registers), in two instances chosen
+//    by d: D = 16 (the flagship's d) and D = 32 (the SV model's d = 30). Each
+//    instance has its own plan (BlockPlan: the prefixes kept, the chain's
+//    team, the apply's teams), since a D = 32 filter element is 3.5x the
+//    D = 16 one and the block's shared memory holds 227 KB.
 //
 // The filter combine (FilterOp) is about 11 D x D products and a
 // Gauss-Jordan inverse. The padding: A -> diag(A, I), C and J -> diag(., 0),
@@ -62,6 +66,8 @@
 // chunks on a 128-thread team beat 32-256 chunks on 32-128 threads (0.0157
 // ms of device time against 0.0189-0.0467, PERF.md). reverse = 1 scans from
 // the end: logical element k is stored at n - 1 - k.
+#include <type_traits>
+
 #include "tile.cuh"
 
 #ifndef AUX_HHD
@@ -76,10 +82,19 @@ namespace {
 
 using namespace tiles;
 
-constexpr int kScanD = 16;      // the combines' compile-time dimension (d <= 16)
-constexpr int kRing = 8;        // the chunk's prefixes kept in shared memory
+constexpr int kNarrowD = 16;    // the instances' compile-time dimensions: d <= 16,
+constexpr int kWideD = 32;      // and 16 < d <= 32
 constexpr int kBlock = 256;     // threads of a block
-constexpr int kMaxTeams = kBlock / 32;  // the apply's teams at most (of a warp each)
+
+// A block's plan for an op at one D and dtype: `ring` prefixes of the chunk
+// kept in shared memory, the chain's team of `chain` threads, the apply's
+// teams of `narrow` threads (of `wide` for chunks of at most kBlock / 64
+// elements, where the op asks for it), and a working set a narrow team.
+template <int ring_, int chain_, int narrow_, int wide_>
+struct BlockPlan {
+  static constexpr int ring = ring_, chain = chain_, narrow = narrow_, wide = wide_;
+  static constexpr int teams = kBlock / narrow;  // working sets beside the slots
+};
 
 constexpr int kChunkPer = 4;     // the elements a chunk aims at
 constexpr int kMaxChunks = 128;  // chunks at most: a block an SM
@@ -374,13 +389,26 @@ AUX_HD void filter_combine(int t, int bar, const S* l, const S* r, S* w,
   }
 }
 
-template <typename S>
-struct FilterOp {
+// The filter scan's plans. D = 16: 8 prefixes, a 128-thread chain (which beat
+// 32, 64 and 256), warps for the apply (64-thread teams for chunks of <= 4).
+// D = 32, where (ring + 5) slots of 3520 values and a working set of 6208 a
+// team must fit 227 KB: the chain on the whole block (a combine 16.6k cycles
+// on an H100 against 17.2k on 128 threads in f32, 35k against 54k in f64);
+// f32 7 prefixes and two 128-thread apply teams (218,624 B), f64 1 prefix and
+// one 256-thread team (218,624 B; a chunk's later prefixes are staged back
+// from the output, as past 8 at D = 16).
+template <typename S, int D>
+using FilterPlan = std::conditional_t<
+    D == kNarrowD, BlockPlan<8, 128, 32, 64>,
+    std::conditional_t<sizeof(S) == 4, BlockPlan<7, 256, 128, 128>, BlockPlan<1, 256, 256, 256>>>;
+
+template <typename S, int D_>
+struct FilterOp : FilterPlan<S, D_> {
   using Scalar = S;
-  static constexpr int D = kScanD, M = 3, V = 2;
+  static constexpr int D = D_, M = 3, V = 2;
   static constexpr int work = FilterWork<D>::size;
   using View = ElemView<S, M, V>;
-  // Few elements a chunk (S <= 4): the apply on 64-thread teams, else a warp each.
+  // Few elements a chunk (S <= 4): the apply on the plan's wide teams.
   static AUX_HD bool wide_apply(int per) { return per <= kBlock / 64; }
   template <int NT>
   static AUX_HD void combine(int t, int bar, const S* l, const S* r, S* w,
@@ -393,10 +421,13 @@ struct FilterOp {
 // The affine combine
 // ---------------------------------------------------------------------------
 
-template <typename S>
-struct AffineOp {
+// The affine scan's plans: 8 prefixes (13 slots of 1184 values at D = 32: 123
+// KB in f64) and a 128-thread chain; the apply on warps at D = 16, on 64-thread
+// teams at D = 32 (a warp's tile of 32 entries spilled).
+template <typename S, int D_>
+struct AffineOp : BlockPlan<8, 128, D_ == kNarrowD ? 32 : 64, D_ == kNarrowD ? 32 : 64> {
   using Scalar = S;
-  static constexpr int D = kScanD, M = 1, V = 1;
+  static constexpr int D = D_, M = 1, V = 1;
   static constexpr int work = 0;
   using View = ElemView<S, M, V>;
   static AUX_HD bool wide_apply(int) { return false; }
@@ -429,12 +460,12 @@ template <class Op, int NT>
 using OpTile = ElemTile<typename Op::Scalar, Op::D, NT, Op::M, Op::V>;
 
 // Phase 1 of chunk c: the prefixes x[k0] (+) ... (+) x[k] of the chunk's
-// elements, in order. The first kRing elements are staged by cp.async into
-// the padded slots pre[i] at the start, so no load waits on the chain, and
-// prefix i replaces element i there (the apply's first window reads it, and
-// chunk 0 writes it out after the chain, window_out); past kRing, element
-// i + 1 is loaded into registers while the combine of element i runs,
-// stored to in[(i + 1) & 1] after it, prefix i kept in run[i & 1] and
+// elements, in order. The first kRing (the plan's ring) elements are staged
+// by cp.async into the padded slots pre[i] at the start, so no load waits on
+// the chain, and prefix i replaces element i there (the apply's first window
+// reads it, and chunk 0 writes it out after the chain, window_out); past
+// kRing, element i + 1 is loaded into registers while the combine of
+// element i runs, stored to in[(i + 1) & 1] after it, prefix i kept in run[i & 1] and
 // written to out[k] (a later window of the apply stages it from there). No
 // global store precedes a barrier of the chain for i < kRing: a barrier
 // waits for the team's stores to be performed. Returns the slot of the
@@ -446,7 +477,7 @@ AUX_HD typename Op::Scalar* chunk_scan(int t, int bar, const ScanPlan& pl, int c
                                        typename Op::Scalar* run0, typename Op::Scalar* run1,
                                        typename Op::Scalar* w) {
   using S = typename Op::Scalar;
-  constexpr int D = Op::D, M = Op::M, V = Op::V, slot = OpLay<Op>::slot;
+  constexpr int D = Op::D, M = Op::M, V = Op::V, slot = OpLay<Op>::slot, kRing = Op::ring;
   const long k0 = (long)c * pl.per;
   const int cnt = (int)(n - k0 < pl.per ? (n - k0 > 0 ? n - k0 : 0) : pl.per);
   if (cnt == 0) {
@@ -485,13 +516,13 @@ AUX_HD typename Op::Scalar* chunk_scan(int t, int bar, const ScanPlan& pl, int c
   return prev;
 }
 
-// Chunk 0's outputs kept in its first window (the slots pre[i], i < kRing),
+// Chunk 0's outputs kept in its first window (the slots pre[i], i < ring),
 // thread t of nt, after the chain.
 template <class Op>
 AUX_HD void window_out(int t, int nt, const ScanPlan& pl, int n, int d, Order at,
                        const typename Op::Scalar* pre, typename Op::View out) {
   const int cnt = pl.per < n ? pl.per : n;
-  for (int i = 0; i < cnt && i < kRing; ++i)
+  for (int i = 0; i < cnt && i < Op::ring; ++i)
     slot_to_element<typename Op::Scalar, Op::D, Op::M, Op::V>(t, nt, pre + i * OpLay<Op>::slot,
                                                              out, at(i), d);
 }
@@ -530,18 +561,18 @@ AUX_HD void apply_element(int t, int bar, const typename Op::Scalar* pre,
 
 namespace {
 
-// The scans' chain team: 128 threads, which beat 32, 64 and 256 for the
-// filter combine and 32 and 64 for the affine one (combine_cycles_kernel).
-constexpr int kChain = 128;
-
-// Shared memory of a block: kRing prefix slots, two input slots, two running
+// Shared memory of a block: ring prefix slots, two input slots, two running
 // slots, the partner slot, then a working set for each of the apply's teams
 // (the chain's is the first).
 template <class Op>
 constexpr size_t scan_shmem() {
-  return ((kRing + 5) * (size_t)OpLay<Op>::slot + kMaxTeams * (size_t)Op::work) *
+  return ((Op::ring + 5) * (size_t)OpLay<Op>::slot + Op::teams * (size_t)Op::work) *
          sizeof(typename Op::Scalar);
 }
+static_assert(scan_shmem<FilterOp<float, kWideD>>() <= 232448 &&
+                  scan_shmem<FilterOp<double, kWideD>>() <= 232448 &&
+                  scan_shmem<AffineOp<double, kWideD>>() <= 232448,
+              "the wide plans fit the 227 KB of a block");
 
 // A hand-over: a padded slot as 64-bit words, each one 32-bit half of the
 // slot's bytes and the launch's epoch. One store writes a word whole, so a
@@ -592,7 +623,8 @@ __device__ void take(const unsigned long long* src, typename Op::Scalar* slot, u
 }
 
 // The apply of the chunk's elements [i0, i1) (prefixes in ring slots from
-// i0's): element i on team (i - i0) % (kBlock / NT), a team of NT threads.
+// i0's): element i on team (i - i0) % (kBlock / NT), a team of NT threads
+// (barrier 0 for a warp, else 2 + its index).
 template <class Op, int NT>
 __device__ void apply_window(int i0, int i1, long k0, int d, Order at,
                              const typename Op::Scalar* pre, typename Op::Scalar* ring,
@@ -620,7 +652,7 @@ __global__ void __launch_bounds__(kBlock, 1)
 scan_kernel(int n, int d, int reverse, ScanPlan pl, typename Op::View x, typename Op::View out,
             unsigned long long* hand, int* state, long long* stamps) {
   using S = typename Op::Scalar;
-  constexpr int NT = kChain;
+  constexpr int NT = Op::chain, kRing = Op::ring;
   constexpr int D = Op::D, M = Op::M, V = Op::V, slot = OpLay<Op>::slot, hw = kHandWords<Op>;
   extern __shared__ __align__(16) unsigned char smem[];
   S* ring = reinterpret_cast<S*>(smem);  // the prefixes: the apply's window
@@ -680,9 +712,9 @@ scan_kernel(int n, int d, int reverse, ScanPlan pl, typename Op::View x, typenam
         __syncthreads();
       }
       if (Op::wide_apply(pl.per))
-        apply_window<Op, 64>(i0, i1, k0, d, at, partner, ring, work, out);
+        apply_window<Op, Op::wide>(i0, i1, k0, d, at, partner, ring, work, out);
       else
-        apply_window<Op, 32>(i0, i1, k0, d, at, partner, ring, work, out);
+        apply_window<Op, Op::narrow>(i0, i1, k0, d, at, partner, ring, work, out);
     }
   if (st && t == 0) st[3 + pl.levels] = clock64();
   __syncthreads();
@@ -743,7 +775,7 @@ int set_shmem(const void* kernel, size_t bytes) {
 template <class Op>
 int run_scan(int n, int d, int reverse, typename Op::View x, typename Op::View out,
              unsigned long long* hand, int* state, long long* stamps, cudaStream_t stream) {
-  if (n <= 0 || d < 1 || d > Op::D) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
   const size_t shmem = scan_shmem<Op>();
   if (int err = set_shmem((const void*)scan_kernel<Op>, shmem)) return err;
   const ScanPlan pl = scan_plan(n);
@@ -755,23 +787,36 @@ int run_scan(int n, int d, int reverse, typename Op::View x, typename Op::View o
 template <class Op, int NT>
 int run_combine_cycles(int d, int reps, typename Op::View x, typename Op::View out,
                        long long* cycles, cudaStream_t stream) {
-  if (d < 1 || d > Op::D || reps < 1) return (int)cudaErrorInvalidValue;
+  if (reps < 1) return (int)cudaErrorInvalidValue;
   const size_t shmem = (3 * (size_t)OpLay<Op>::slot + Op::work) * sizeof(typename Op::Scalar);
   if (int err = set_shmem((const void*)combine_cycles_kernel<Op, NT>, shmem)) return err;
   combine_cycles_kernel<Op, NT><<<1, NT, shmem, stream>>>(d, reps, x, out, cycles);
   return (int)cudaGetLastError();
 }
 
+// Teams of 32-256 threads at D = 16, of 128 and 256 at D = 32 (a narrower
+// team's tile of 16-32 entries a matrix would not fit its registers).
 template <class Op>
 int combine_cycles_on(int nt, int d, int reps, typename Op::View x, typename Op::View out,
                       long long* cycles, cudaStream_t stream) {
-  switch (nt) {
-    case 32: return run_combine_cycles<Op, 32>(d, reps, x, out, cycles, stream);
-    case 64: return run_combine_cycles<Op, 64>(d, reps, x, out, cycles, stream);
-    case 128: return run_combine_cycles<Op, 128>(d, reps, x, out, cycles, stream);
-    case 256: return run_combine_cycles<Op, 256>(d, reps, x, out, cycles, stream);
-    default: return (int)cudaErrorInvalidValue;
+  if constexpr (Op::D == kNarrowD) {
+    if (nt == 32) return run_combine_cycles<Op, 32>(d, reps, x, out, cycles, stream);
+    if (nt == 64) return run_combine_cycles<Op, 64>(d, reps, x, out, cycles, stream);
   }
+  if (nt == 128) return run_combine_cycles<Op, 128>(d, reps, x, out, cycles, stream);
+  if (nt == 256) return run_combine_cycles<Op, 256>(d, reps, x, out, cycles, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// f(D) for the instance that takes d: kNarrowD up to 16, kWideD up to 32;
+// cudaErrorInvalidValue for anything else.
+template <class F>
+int on_dim(int d, F f) {
+  if (d < 1 || d > kWideD) return (int)cudaErrorInvalidValue;
+  return d <= kNarrowD ? f(Int<kNarrowD>()) : f(Int<kWideD>());
 }
 
 }  // namespace
@@ -779,37 +824,48 @@ int combine_cycles_on(int nt, int d, int reps, typename Op::View x, typename Op:
 // The scans' hand-over words, (levels + 1) x chunks x hand words 64-bit
 // (scan_plan), and state, 3 int32, zeros when first given and kept from
 // launch to launch (one pair a stream, filter_scan.py).
-#define AUX_DEFINE_SCANS(SUFFIX, S)                                                          \
-  extern "C" int aux_filter_scan_##SUFFIX(int n, int d, S* A, S* b, S* C, S* e, S* J,        \
-                                          S* oA, S* ob, S* oC, S* oe, S* oJ,                 \
-                                          unsigned long long* hand, int* state,              \
-                                          long long* stamps, void* stream) {                 \
-    using V = FilterOp<S>::View;                                                             \
-    return run_scan<FilterOp<S>>(n, d, 0, V{{A, C, J}, {b, e}}, V{{oA, oC, oJ}, {ob, oe}},  \
-                                 hand, state, stamps, (cudaStream_t)stream);                 \
-  }                                                                                          \
-  extern "C" int aux_filter_combine_cycles_##SUFFIX(int d, int nt, int reps, S* A, S* b,     \
-                                                    S* C, S* e, S* J, S* oA, S* ob, S* oC,   \
-                                                    S* oe, S* oJ, long long* cycles,         \
-                                                    void* stream) {                          \
-    using V = FilterOp<S>::View;                                                             \
-    return combine_cycles_on<FilterOp<S>>(nt, d, reps, V{{A, C, J}, {b, e}},                 \
-                                          V{{oA, oC, oJ}, {ob, oe}}, cycles,                 \
-                                          (cudaStream_t)stream);                             \
-  }                                                                                          \
-  extern "C" int aux_affine_combine_cycles_##SUFFIX(int d, int nt, int reps, S* G, S* e,     \
-                                                    S* oG, S* oe, long long* cycles,         \
-                                                    void* stream) {                          \
-    using V = AffineOp<S>::View;                                                             \
-    return combine_cycles_on<AffineOp<S>>(nt, d, reps, V{{G}, {e}}, V{{oG}, {oe}}, cycles,   \
-                                          (cudaStream_t)stream);                             \
-  }                                                                                          \
-  extern "C" int aux_affine_scan_##SUFFIX(int n, int d, int reverse, S* G, S* e, S* oG,      \
-                                          S* oe, unsigned long long* hand, int* state,       \
-                                          long long* stamps, void* stream) {                 \
-    using V = AffineOp<S>::View;                                                             \
-    return run_scan<AffineOp<S>>(n, d, reverse, V{{G}, {e}}, V{{oG}, {oe}}, hand, state,     \
-                                 stamps, (cudaStream_t)stream);                              \
+#define AUX_DEFINE_SCANS(SUFFIX, S)                                                           \
+  extern "C" int aux_filter_scan_##SUFFIX(int n, int d, S* A, S* b, S* C, S* e, S* J,         \
+                                          S* oA, S* ob, S* oC, S* oe, S* oJ,                  \
+                                          unsigned long long* hand, int* state,               \
+                                          long long* stamps, void* stream) {                  \
+    return on_dim(d, [&](auto D) {                                                            \
+      using Op = FilterOp<S, decltype(D)::value>;                                             \
+      using V = typename Op::View;                                                            \
+      return run_scan<Op>(n, d, 0, V{{A, C, J}, {b, e}}, V{{oA, oC, oJ}, {ob, oe}}, hand,     \
+                          state, stamps, (cudaStream_t)stream);                               \
+    });                                                                                       \
+  }                                                                                           \
+  extern "C" int aux_filter_combine_cycles_##SUFFIX(int d, int nt, int reps, S* A, S* b,      \
+                                                    S* C, S* e, S* J, S* oA, S* ob, S* oC,    \
+                                                    S* oe, S* oJ, long long* cycles,          \
+                                                    void* stream) {                           \
+    return on_dim(d, [&](auto D) {                                                            \
+      using Op = FilterOp<S, decltype(D)::value>;                                             \
+      using V = typename Op::View;                                                            \
+      return combine_cycles_on<Op>(nt, d, reps, V{{A, C, J}, {b, e}},                         \
+                                   V{{oA, oC, oJ}, {ob, oe}}, cycles, (cudaStream_t)stream);  \
+    });                                                                                       \
+  }                                                                                           \
+  extern "C" int aux_affine_combine_cycles_##SUFFIX(int d, int nt, int reps, S* G, S* e,      \
+                                                    S* oG, S* oe, long long* cycles,          \
+                                                    void* stream) {                           \
+    return on_dim(d, [&](auto D) {                                                            \
+      using Op = AffineOp<S, decltype(D)::value>;                                             \
+      using V = typename Op::View;                                                            \
+      return combine_cycles_on<Op>(nt, d, reps, V{{G}, {e}}, V{{oG}, {oe}}, cycles,           \
+                                   (cudaStream_t)stream);                                     \
+    });                                                                                       \
+  }                                                                                           \
+  extern "C" int aux_affine_scan_##SUFFIX(int n, int d, int reverse, S* G, S* e, S* oG,       \
+                                          S* oe, unsigned long long* hand, int* state,        \
+                                          long long* stamps, void* stream) {                  \
+    return on_dim(d, [&](auto D) {                                                            \
+      using Op = AffineOp<S, decltype(D)::value>;                                             \
+      using V = typename Op::View;                                                            \
+      return run_scan<Op>(n, d, reverse, V{{G}, {e}}, V{{oG}, {oe}}, hand, state, stamps,     \
+                          (cudaStream_t)stream);                                              \
+    });                                                                                       \
   }
 
 AUX_DEFINE_SCANS(f32, float)

@@ -11,9 +11,10 @@ plain agree to rounding.
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel or raises. On the card each scan is one launch on the
-current stream: the chunks' blocks hand their totals on through words in
-global memory, with a {ticket, blocks done, epoch} state that the kernel
-leaves ready for the next launch. The module keeps one buffer and state for
+current stream, of the instance (D = 16 or 32) that d selects: the chunks'
+blocks hand their totals on through words in global memory, with a
+{ticket, blocks done, epoch} state that the kernel leaves ready for the
+next launch. The module keeps one buffer and state for
 each scan, device, dtype and stream (`_hand_state`), so launches on one
 stream follow each other and launches on two streams never share a state.
 One rule remains: a CUDA graph captured around a scan holds that stream's
@@ -22,12 +23,12 @@ its calls into the kernel library in its `launches` attribute.
 """
 import torch
 
-from ._build import MAX_DIM, check_cuda_inputs, launch
+from ._build import MAX_DIM, check_cuda_inputs, instance_dim, launch
 from .kalman_fused import _check_shapes, _on_cuda
 
-# Values of one padded element (scan.cu's OpLay<Op>::slot, rows of 20): the
-# filter's A, C, J and b, eta; the affine scan's G and e.
-SLOTS = {"filter": 992, "affine": 336}
+# Values of one padded element (scan.cu's OpLay<Op>::slot, rows of D + 4) at
+# each instance's D: the filter's A, C, J and b, eta; the affine scan's G and e.
+SLOTS = {"filter": {16: 992, 32: 3520}, "affine": {16: 336, 32: 1184}}
 CHUNK_PER, MAX_CHUNKS = 4, 128  # the elements a chunk aims at; chunks at most (a block an SM)
 
 
@@ -120,13 +121,14 @@ _HAND = {}  # (scan, device, dtype, stream) -> (hand-over words, state), kept
 
 def _hand_state(scan, n, ref):
     """The hand-over buffer of `scan` ("filter" or "affine": a padded
-    element as 64-bit words for each of n elements' chunks at the start of
-    each Hillis-Steele level and after the last) and its state (ticket,
-    blocks done, epoch) for the device and dtype of `ref` and the current
-    stream; see `hand_state`."""
+    element of the instance that takes `ref`'s last dimension d, as 64-bit
+    words, for each of n elements' chunks at the start of each Hillis-Steele
+    level and after the last) and its state (ticket, blocks done, epoch) for
+    the device and dtype of `ref` and the current stream; see
+    `hand_state`."""
     chunks = scan_chunks(n)
-    return hand_state(scan, chunks.bit_length() * chunks * SLOTS[scan] * ref.element_size() // 4,
-                      ref)
+    slot = SLOTS[scan][instance_dim(ref.shape[-1])]
+    return hand_state(scan, chunks.bit_length() * chunks * slot * ref.element_size() // 4, ref)
 
 
 def hand_state(scan, words, ref):

@@ -2,8 +2,11 @@
 plain PyTorch versions (counterpart of `aux_ssm_tpu/ops/pallas/kalman_fused.py`).
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
-launches the kernel or raises. Each wrapper counts its kernel launches in
-its `launches` attribute.
+launches the kernel or raises. On the card each kernel has two compile-time
+instances, chosen in the kernel library by max(dx, dy): D = 16 up to 16, D =
+32 up to 32 (`_build.instance_dim`); past 32 the wrapper raises. Each
+wrapper counts its kernel launches (either instance) in its `launches`
+attribute.
 
 Shapes (n = T - 1 steps): Fs/Qs (n, dx, dx), bs (n, dx), Hs (n, dy, dx),
 Rs (n, dy, dy), cs/ys (n, dy), ms/x (n, dx), Ps (n, dx, dx).

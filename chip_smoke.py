@@ -147,12 +147,37 @@ launch each a tree level:
      0.8, 0.5): T=2 (the root alone), T=256 with N=25 (two-pass tree), T=64
      with N=4096 (blocked tree, either draws); moments of x_0 and x_{T-1}
      within phase 11's ESS-scaled tolerance of the closed form.
+The stochastic-volatility auxiliary-Kalman path (kalman-1/2, T=250, D=30:
+the MH kernels' D = 32 instance; benchmarks/sv_sweep.sh):
+ 20. the six MH kernels' D = 32 instance against their plain versions on a
+     real SV kalman-1 step's inputs (the committed run's data, xs_true and
+     delta), f32 and f64, make_elements, ell and logdensity_steps also with
+     a share NAN_SHARE of the observations missing, then on random
+     well-conditioned models at d = 17 and d = 32 (the instance's edges). At
+     D = 30 the f32 plain version itself misses NREL_F32 against f64 on some
+     outputs (make_elements' A and C: the cancellation in P_pred - K S K^T,
+     1.7e-4 and 7.2e-4), where no f32 kernel can agree with it to NREL_F32:
+     such an output (own error e) holds the f32 kernel to f64 at 2 e and to
+     the f32 plain version at 3 e (|kernel - f32| <= |kernel - f64| + e),
+     every other output at NREL_F32 against both (all printed); each entry
+     also carries its device ms by the profiler;
+ 21. f64 SV kalman steps of both orders (T=32, D=30) on the card against the
+     CPU, given the same noise, identical accept decisions;
+ 22. kalman-1 and kalman-2 chains at T=250, D=30, f32, parallel, 100 + 200
+     iterations at the committed runs' adapted delta (frozen), from
+     xs_true: exactly 10 kernel launches a step, every one a D = 32
+     instance by its profiler name, finite states, an update rate in
+     SV_KALMAN_RATE, and the chain's mean within SV_KALMAN_Z_RMS RMS
+     posterior deviations of the committed run's (`samples_mean`,
+     `samples_std`: a chain that stays near xs_true reads ~1, a wrong target
+     drifts away); samples/s and a profile of each step.
 To make room, phase 3 runs 100 steps (200 before), phase 10 300 + 1000
 iterations (300 + 2000 before), phase 11 300 + 700 iterations a chain of
 the hardest cell, which is reported and not bounded (500 + 1500 before),
 and phase 19 at T=2 300 + 600 (300 + 1200 before). The whole
 takes 250-480 s with the build on an H100, as fast as the host is (190-340
-s before the PIT phases, 80-150 s before the spatial ones).
+s before the PIT phases, 80-150 s before the spatial ones); phases 20-22
+take ~40 s, and the D = 32 instances' build ~10 s more.
 Each kernel's entry of the JSON summary carries its bound: the least time the
 card could take for the call, the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the 67
@@ -171,7 +196,8 @@ throughout.
 A factor sweep's entry counts the launches of both its kernels, and its
 `ms` is the wrapper's whole call; `pair_scores_ms` times the first kernel
 alone where N <= 32. The line before the last is the kernels' JSON summary;
-the last line is
+the D = 32 instances have entries of their own (`make_elements_d32`, ...:
+phase 20's numbers at the SV shape, phase 22's launches); the last line is
 {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -290,10 +316,16 @@ def nrel(got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-300))
 
 
-def compare(name, wrapper, plain, args, ops, reps=20):
+def compare(name, wrapper, plain, args, ops, reps=20, own_bound=False, device_time=False):
     """Kernel vs plain on the same f32 inputs and vs plain on their f64 cast;
     the f64 kernel vs the f64 plain version; times of kernel and plain (f32);
-    the bound from the call's tensors and `ops` operations."""
+    the bound from the call's tensors and `ops` operations. With
+    `own_bound`, an output whose f32 plain version itself misses NREL_F32
+    against the f64 plain version (its own error e) holds the f32 kernel to
+    f64 at 2 e and to the f32 plain version at 3 e, what |kernel - f32| <=
+    |kernel - f64| + |f64 - f32| allows (printed: at these inputs f32 is the
+    limit, not the kernel). With `device_time`, also the kernel's device ms a
+    call by torch.profiler."""
     import torch
     args64 = tuple(tuple(z.double() for z in a) if isinstance(a, tuple)
                    else a.double() if isinstance(a, torch.Tensor) else a for a in args)
@@ -302,115 +334,180 @@ def compare(name, wrapper, plain, args, ops, reps=20):
     want64 = as_tuple(plain(*args64))
     got64 = as_tuple(wrapper(*args64))
     torch.cuda.synchronize()
-    result = {"max_abs_err": 0.0, "nrel_f32": 0.0, "nrel_f64": 0.0, "nrel_f64_kernel": 0.0}
+    result = {"max_abs_err": 0.0, "nrel_f32": 0.0, "nrel_f64": 0.0, "nrel_f64_kernel": 0.0,
+              "nrel_plain_f32": 0.0}
+    bad = {}
     for i, (g, w32, w64, g64) in enumerate(zip(got, want32, want64, got64)):
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{name}: output {i} of the kernel is not finite")
         errs = {"max_abs_err": float((g.double() - w32.double()).abs().max()),
                 "nrel_f32": nrel(g, w32), "nrel_f64": nrel(g, w64),
-                "nrel_f64_kernel": nrel(g64, w64)}
+                "nrel_f64_kernel": nrel(g64, w64), "nrel_plain_f32": nrel(w32, w64)}
         log(f"  {name}[{i}] shape={tuple(g.shape)} " + " ".join(
             f"{k}={v:.3e}" for k, v in errs.items()))
         for k, v in errs.items():
             result[k] = max(result[k], v)
-    bad = {k: result[k] for k, bound in (("nrel_f32", NREL_F32), ("nrel_f64", NREL_F32),
-                                         ("nrel_f64_kernel", NREL_F64))
-           if not result[k] <= bound}
+        own = errs["nrel_plain_f32"]
+        lifted = own_bound and own > NREL_F32
+        if lifted:
+            log(f"  {name}[{i}]: the f32 plain version misses nrel {NREL_F32:g} against f64 "
+                f"({own:.3e}): the f32 kernel is held to f64 at {2 * own:.3e} and to the f32 "
+                f"plain version at {3 * own:.3e}")
+        for k, lim in (("nrel_f32", 3 * own if lifted else NREL_F32),
+                       ("nrel_f64", 2 * own if lifted else NREL_F32),
+                       ("nrel_f64_kernel", NREL_F64)):
+            if not errs[k] <= lim:
+                bad[f"{k}[{i}]"] = (errs[k], lim)
     if bad:
-        raise AssertionError(f"{name}: error above bound: {bad}")
+        raise AssertionError(f"{name}: error above bound (error, bound): {bad}")
     result["ms"] = cuda_ms(lambda: wrapper(*args), reps)
     result["plain_ms"] = cuda_ms(lambda: plain(*args), max(1, reps // 4))
+    if device_time:
+        result["device_ms"] = device_ms(lambda: wrapper(*args), reps)
     result.update(bound(flatten(args) + list(got), 0, ops))
-    log(f"  {name}: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, bound "
-        f"{result['bound_ms']:.5f} ms by {result['bound_by']} ({result['bytes']} B, "
-        f"{result['operations']} operations)")
+    dev_ms = result.get("device_ms")
+    log(f"  {name}: kernel {result['ms']:.4f} ms" + (
+        "" if not device_time else " (device not measured)" if dev_ms is None
+        else f" (device {dev_ms:.4f})")
+        + f", plain {result['plain_ms']:.4f} ms, bound {result['bound_ms']:.5f} ms by "
+        f"{result['bound_by']} ({result['bytes']} B, {result['operations']} operations)")
     return result
+
+
+def device_ms(fn, reps, tries=5):
+    """Milliseconds of the card's kernels a call of fn(), by torch.profiler
+    over `reps` calls after one. In a process that has profiled before, a
+    session's trace sometimes lists none of its kernels (most calls of
+    phase 20 on an H100), so a session that lists fewer kernel events than
+    calls is run again, up to `tries` times; None if none listed them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if sum(e.count for e in kernels) >= reps:
+            return sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    return None
+
+
+def mh_ops(n, d):
+    """Operations of each MH kernel's call on n steps at dx = dy = d,
+    counted as the flops of the d x d products, factorisations and solves
+    each step's formulas need: elements 12 products + a Cholesky solve; one
+    scan combine 8 products + an inverse; ell 4 products + a Cholesky;
+    backward maps 5 products + 2 Choleskys; an affine combine 1 product + 1
+    mat-vec; log-density 2 Choleskys + 4 triangular solves or mat-vecs. A
+    scan needs (its elements - 1) combines at least."""
+    d3, d2 = d ** 3, d ** 2
+    return {"make_elements": n * 26 * d3, "filter_scan": (n - 1) * 18 * d3, "ell": n * 9 * d3,
+            "backward_maps": n * 11 * d3, "affine_scan": n * (2 * d3 + 2 * d2),
+            "logdensity_steps": n * (d3 + 8 * d2)}
+
+
+def mh_inputs(dyn, obs, x, u, delta):
+    """A real MH step's kernel inputs at x: the per-step model (Fs, Qs, bs,
+    Hs, Rs, cs, ys of steps 1..T-1) and the t = 0 update (m0u, P0u)."""
+    from aux_ssm_tpu_torch.ops.filtering import kalman_update
+    m0, P0, Fs, Qs, bs = dyn(x)
+    ys, Hs, Rs, cs = (z.contiguous() for z in obs(x, u, delta))
+    m0u, P0u, _ = kalman_update(ys[0], m0, P0, Hs[0], cs[0], Rs[0])
+    return (Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:]), m0u, P0u
+
+
+def check_mh_kernels(label, steps, m0u, P0u, eps, holes_seed, **kw):
+    """The six MH kernels against their plain versions (`compare`, with
+    `kw`) on one step's inputs: make_elements, ell and logdensity_steps also
+    with a share NAN_SHARE of the observations missing. Returns (results by
+    kernel name, elements, gains, incs)."""
+    import torch
+    from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
+    from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF
+    from aux_ssm_tpu_torch.ops.filtering import _make_associative_elements
+    from aux_ssm_tpu_torch.ops.sampling import _backward_maps
+
+    Fs, Qs, bs = steps[:3]
+    n, d = bs.shape
+    ops = mh_ops(n, d)
+    dev = bs.device
+    results = {}
+    m_el = torch.cat([m0u[None], m0u.new_zeros(n - 1, d)])
+    P_el = torch.cat([P0u[None], P0u.new_zeros(n - 1, d, d)])
+    results["make_elements"] = compare(f"make_elements{label}", KF.make_elements,
+                                       KF.make_elements_plain, steps + (m_el, P_el),
+                                       ops["make_elements"], **kw)
+    log(f"  make_elements, and below ell and logdensity_steps, with a share {NAN_SHARE} of the "
+        "observations missing (NaN):")
+    ys_nan = steps[6].clone()
+    holes = torch.Generator(device=dev).manual_seed(holes_seed)
+    ys_nan[torch.rand(ys_nan.shape, generator=holes, device=dev) < NAN_SHARE] = float("nan")
+    compare(f"make_elements_nan{label}", KF.make_elements, KF.make_elements_plain,
+            steps[:6] + (ys_nan, m_el, P_el), ops["make_elements"], **kw)
+
+    elems = _make_associative_elements(*steps, m0u, P0u)
+    results["filter_scan"] = compare(f"filter_scan{label}", FS.filter_scan,
+                                     FS.filter_scan_plain, (elems,), ops["filter_scan"], **kw)
+
+    _, ms, Ps, _, _ = FS.filter_scan(elems)
+    ms, Ps = torch.cat([m0u[None], ms]), torch.cat([P0u[None], Ps])
+    results["ell"] = compare(f"ell{label}", KF.ell, KF.ell_plain, steps + (ms[:-1], Ps[:-1]),
+                             ops["ell"], **kw)
+    compare(f"ell_nan{label}", KF.ell, KF.ell_plain, steps[:6] + (ys_nan, ms[:-1], Ps[:-1]),
+            ops["ell"], **kw)
+
+    results["backward_maps"] = compare(
+        f"backward_maps{label}", KF.backward_maps, KF.backward_maps_plain,
+        (Fs, Qs, bs, ms[:-1].contiguous(), Ps[:-1].contiguous(), eps[:-1].contiguous()),
+        ops["backward_maps"], **kw)
+
+    gains, incs = _backward_maps(eps, ms, Ps, Fs, Qs, bs)
+    results["affine_scan"] = compare(f"affine_scan{label}", FS.affine_scan,
+                                     FS.affine_scan_plain, (gains, incs, True),
+                                     ops["affine_scan"], **kw)
+
+    xs = FS.affine_scan(gains, incs, reverse=True)[1]
+    results["logdensity_steps"] = compare(
+        f"logdensity_steps{label}", KF.logdensity_steps, KF.logdensity_steps_plain,
+        steps + (xs[:-1].contiguous(), xs[1:].contiguous()), ops["logdensity_steps"], **kw)
+    compare(f"logdensity_nan{label}", KF.logdensity_steps, KF.logdensity_steps_plain,
+            steps[:6] + (ys_nan, xs[:-1].contiguous(), xs[1:].contiguous()),
+            ops["logdensity_steps"], **kw)
+    return results, elems, gains, incs
 
 
 def phase_kernels(dev):
     import torch
     from aux_ssm_tpu_torch.models import lgssm_flagship
     from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
-    from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF
-    from aux_ssm_tpu_torch.ops.filtering import _make_associative_elements, kalman_update
-    from aux_ssm_tpu_torch.ops.sampling import _backward_maps
 
     f32 = torch.float32
     gen = torch.Generator(device=dev).manual_seed(1)
     dyn, obs1, _ = lgssm_flagship.build_model(T, DX, device=dev, dtype=f32)
     x = torch.zeros(T, DX, dtype=f32, device=dev)
     u = x + (0.5 * DELTA) ** 0.5 * torch.randn(T, DX, generator=gen, device=dev)
-    m0, P0, Fs, Qs, bs = dyn(x)
-    ys, Hs, Rs, cs = (z.contiguous() for z in obs1(x, u, DELTA))
-    steps = (Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:])
-    n = T - 1
-    # Operations, counted as the flops of the d x d products, factorisations
-    # and solves each step's formulas need (d = dx = dy here): elements 12
-    # products + a Cholesky solve; one scan combine 8 products + an inverse;
-    # ell 4 products + a Cholesky; backward maps 5 products + 2 Choleskys;
-    # an affine combine 1 product + 1 mat-vec; log-density 2 Choleskys + 4
-    # triangular solves or mat-vecs. A scan needs n - 1 combines at least.
+    steps, m0u, P0u = mh_inputs(dyn, obs1, x, u, DELTA)
+    eps = torch.randn(T, DX, generator=gen, device=dev)
     d3, d2 = DX ** 3, DX ** 2
-    ops = {"make_elements": n * 26 * d3, "filter_scan": (n - 1) * 18 * d3, "ell": n * 9 * d3,
-           "backward_maps": n * 11 * d3, "affine_scan": (T - 1) * (2 * d3 + 2 * d2),
-           "logdensity_steps": n * (d3 + 8 * d2)}
-
-    results = {}
-    log(f"phase 1: kernels at T={T}, dx={DX}, dy={ys.shape[-1]} (f32; bounds: nrel "
+    log(f"phase 1: kernels at T={T}, dx={DX}, dy={steps[6].shape[-1]} (f32; bounds: nrel "
         f"{NREL_F32:g} vs plain f32 and f64, {NREL_F64:g} f64 kernel vs f64 plain)")
-    m0u, P0u, _ = kalman_update(ys[0], m0, P0, Hs[0], cs[0], Rs[0])
-    m_el = torch.cat([m0u[None], m0u.new_zeros(n - 1, DX)])
-    P_el = torch.cat([P0u[None], P0u.new_zeros(n - 1, DX, DX)])
-    results["make_elements"] = compare("make_elements", KF.make_elements,
-                                       KF.make_elements_plain, steps + (m_el, P_el),
-                                       ops["make_elements"])
-    log(f"  make_elements, and below ell and logdensity_steps, with a share {NAN_SHARE} of the "
-        "observations missing (NaN):")
-    ys_nan = ys[1:].clone()
-    holes = torch.Generator(device=dev).manual_seed(11)
-    ys_nan[torch.rand(ys_nan.shape, generator=holes, device=dev) < NAN_SHARE] = float("nan")
-    compare("make_elements_nan", KF.make_elements, KF.make_elements_plain,
-            steps[:6] + (ys_nan, m_el, P_el), ops["make_elements"])
-
-    elems = _make_associative_elements(*steps, m0u, P0u)
-    results["filter_scan"] = compare("filter_scan", FS.filter_scan, FS.filter_scan_plain,
-                                     (elems,), ops["filter_scan"])
+    results, elems, gains, incs = check_mh_kernels("", steps, m0u, P0u, eps, holes_seed=11)
     log("  scan at T=300 (the TPU's Hillis-Steele range):")
     compare("filter_scan_T300", FS.filter_scan, FS.filter_scan_plain,
             (tuple(z[:299].contiguous() for z in elems),), 298 * 18 * d3)
     log("  the chain's floor, one combine (n=2):")
     compare("filter_scan_n2", FS.filter_scan, FS.filter_scan_plain,
             (tuple(z[:2].contiguous() for z in elems),), 18 * d3)
-
-    _, ms, Ps, _, _ = FS.filter_scan(elems)
-    ms, Ps = torch.cat([m0u[None], ms]), torch.cat([P0u[None], Ps])
-    results["ell"] = compare("ell", KF.ell, KF.ell_plain, steps + (ms[:-1], Ps[:-1]),
-                             ops["ell"])
-    compare("ell_nan", KF.ell, KF.ell_plain, steps[:6] + (ys_nan, ms[:-1], Ps[:-1]), ops["ell"])
-
-    eps = torch.randn(T, DX, generator=gen, device=dev)
-    results["backward_maps"] = compare(
-        "backward_maps", KF.backward_maps, KF.backward_maps_plain,
-        (Fs, Qs, bs, ms[:-1].contiguous(), Ps[:-1].contiguous(), eps[:-1].contiguous()),
-        ops["backward_maps"])
-
-    gains, incs = _backward_maps(eps, ms, Ps, Fs, Qs, bs)
-    results["affine_scan"] = compare("affine_scan", FS.affine_scan, FS.affine_scan_plain,
-                                     (gains, incs, True), ops["affine_scan"])
     for k in (300, 2):
         log(f"  affine scan at n={k}:")
         compare(f"affine_scan_n{k}", FS.affine_scan, FS.affine_scan_plain,
                 (gains[:k].contiguous(), incs[:k].contiguous(), True),
                 (k - 1) * (2 * d3 + 2 * d2))
     two_streams(elems, gains, incs)
-
-    xs = FS.affine_scan(gains, incs, reverse=True)[1]
-    results["logdensity_steps"] = compare(
-        "logdensity_steps", KF.logdensity_steps, KF.logdensity_steps_plain,
-        steps + (xs[:-1].contiguous(), xs[1:].contiguous()), ops["logdensity_steps"])
-    compare("logdensity_nan", KF.logdensity_steps, KF.logdensity_steps_plain,
-            steps[:6] + (ys_nan, xs[:-1].contiguous(), xs[1:].contiguous()),
-            ops["logdensity_steps"])
     return results
 
 
@@ -1187,7 +1284,8 @@ def profile_steps(label, step, n=30, also=()):
     wall ms a call, the device's busy ms a call (the sum of its kernels' times,
     one stream) with its share of the wall, kernel launches a call, the
     kernels that take most of the device time and those whose name holds one
-    of `also`. Printed; nothing is bounded."""
+    of `also`. Printed; nothing is bounded. Returns the kernels' profiler
+    events (none where the profiler sees no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1206,7 +1304,7 @@ def profile_steps(label, step, n=30, also=()):
     if not busy_ms:
         log(f"  profile, {label}: {wall_ms:.3f} ms a step; device time not visible to the "
             "profiler: not measured")
-        return
+        return []
     launched = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel")) / n
     top = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f} ms x{e.count / n:.0f}"
                     for e in kernels[:4] + [e for e in kernels[4:]
@@ -1214,6 +1312,7 @@ def profile_steps(label, step, n=30, also=()):
     log(f"  profile, {label}: {wall_ms:.3f} ms a step under the profiler, device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.0f}%), {launched:.0f} kernel launches a "
         f"step; most device time: {top}")
+    return kernels
 
 
 def interior_ess(samples, max_coords=64):
@@ -2260,6 +2359,191 @@ def phase_pit_rare(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# The SV auxiliary-Kalman path: kalman-1/2 at the published D = 30, on the MH
+# kernels' D = 32 instance
+# ---------------------------------------------------------------------------
+
+SV_KALMAN = {"kalman-1": ("kalman1", 1), "kalman-2": ("kalman2", 2)}  # style: committed run, order
+SV_KALMAN_SCHEDULE = (100, 200)  # burn-in + sampling iterations at the committed delta, frozen
+SV_KALMAN_RATE = (0.35, 0.65)    # update rate: the committed runs adapted delta toward 0.5
+SV_KALMAN_Z_RMS = 1.5            # RMS z of the chain's mean against the committed run's
+# What each kernel's name holds in the profiler at the D = 32 instance, in
+# float32 (kalman_fused.cu: <S, D, NT>; scan.cu: the op <S, D>).
+WIDE_NAMES = {"make_elements": r"elements_kernel<float, 32\b",
+              "filter_scan": r"FilterOp<float, 32>",
+              "ell": r"ell_kernel<float, 32\b",
+              "backward_maps": r"backward_maps_kernel<float, 32\b",
+              "affine_scan": r"AffineOp<float, 32>",
+              "logdensity_steps": r"logdensity_kernel<float, 32\b"}
+
+
+def random_mh_inputs(dev, T_, d, seed):
+    """A random well-conditioned LGSSM at dx = dy = d (F of spectral radius
+    ~0.5, Q and R = A A^T / d + I), made in float64 on the CPU and cast to
+    float32 on the card: its kernel inputs (as `mh_inputs`) and the normals
+    of a draw."""
+    import torch
+    from aux_ssm_tpu_torch.ops.filtering import kalman_update
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64)
+
+    def spd(*lead):
+        A = randn(*lead, d, d)
+        return A @ A.mT / d + torch.eye(d, dtype=torch.float64)
+
+    F, Q, b = 0.5 * randn(T_ - 1, d, d) / d ** 0.5, spd(T_ - 1), randn(T_ - 1, d)
+    H, R, c, ys = randn(T_, d, d) / d ** 0.5, spd(T_), randn(T_, d), randn(T_, d)
+    m0u, P0u, _ = kalman_update(ys[0], randn(d), spd(), H[0], c[0], R[0])
+    steps = (F, Q, b, H[1:], R[1:], c[1:], ys[1:])
+    cast = [z.to(device=dev, dtype=torch.float32).contiguous()
+            for z in steps + (m0u, P0u, randn(T_, d))]
+    return tuple(cast[:7]), cast[7], cast[8], cast[9]
+
+
+def phase_wide_kernels(dev):
+    """Phase 20: the six MH kernels' D = 32 instance on a real SV kalman-1
+    step's inputs, and on random models at the instance's edges; returns the
+    entries at the SV shape."""
+    import torch
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+
+    ys, xs, delta = load_sv("kalman1", dev, torch.float32)
+    delta = float(delta)
+    dyn, obs1, _, _ = sv.get_kalman_factories(ys, *SV_PARAMS)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    u = xs + (0.5 * delta) ** 0.5 * torch.randn(xs.shape, generator=gen, device=dev)
+    eps = torch.randn(xs.shape, generator=gen, device=dev)
+    steps, m0u, P0u = mh_inputs(dyn, obs1, xs, u, delta)
+    log(f"phase 20: the MH kernels' D = 32 instance on a real SV kalman-1 step's inputs "
+        f"(T={SV_T}, dx=dy={SV_D}, the committed run's xs_true and delta {delta:.4f}; f32 kernel "
+        f"vs f32 plain and vs f64 plain at nrel {NREL_F32:g}, or, for an output whose f32 plain "
+        f"version misses {NREL_F32:g} against f64 by e, at 3 e and 2 e; f64 kernel vs f64 "
+        f"plain at {NREL_F64:g})")
+    results = check_mh_kernels("_d32", steps, m0u, P0u, eps, holes_seed=20, own_bound=True,
+                               device_time=True)[0]
+    for d in (17, 32):
+        log(f"  a random well-conditioned model at dx=dy={d}, T={SV_T} (the instance's edge):")
+        steps_r, m0r, P0r, eps_r = random_mh_inputs(dev, SV_T, d, seed=d)
+        check_mh_kernels(f"_d{d}_random", steps_r, m0r, P0r, eps_r, holes_seed=d,
+                         own_bound=True, reps=5)
+    return results
+
+
+def phase_sv_kalman_steps(dev):
+    """Phase 21: three f64 SV kalman steps of each order (T=32, D=30: the
+    D = 32 instance) on the card against the CPU, given the same noise, with
+    identical accept decisions; the card's steps launch each kernel as the
+    MH step does."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    from aux_ssm_tpu_torch.ops import cuda as K
+
+    T_, n_steps = 32, 3
+    xs, ys = sv.get_data(*SV_PARAMS, SV_D, T_, generator=torch.Generator().manual_seed(21),
+                         device="cpu")
+    for order in (1, 2):
+        runs = {}
+        for where in ("cpu", dev):
+            init, kernel = sv.get_kalman_kernel(ys.to(where), *SV_PARAMS, True, order)
+            rng = np.random.default_rng(order)
+            state = init(xs.to(where))
+            K.reset_launches()
+            out = []
+            for _ in range(n_steps):
+                noise = (torch.as_tensor(rng.standard_normal((T_, SV_D)), device=where),
+                         torch.as_tensor(rng.standard_normal((T_, SV_D)), device=where),
+                         torch.as_tensor(rng.uniform(), dtype=torch.float64, device=where))
+                state = kernel(state, 0.05, noise=noise)
+                out.append((state.x.cpu(), bool(state.updated), state.log_target.cpu()))
+            runs[str(where)] = out
+        launches = K.launches()
+        for name, (_, _, per_step) in KERNELS.items():
+            if launches[name] != per_step * n_steps:
+                raise AssertionError(f"SV kalman order {order}: {name} launched "
+                                     f"{launches[name]} times on the card, expected "
+                                     f"{per_step * n_steps}")
+        worst = 0.0
+        for (xc, uc, lc), (xg, ug, lg) in zip(runs["cpu"], runs[str(dev)]):
+            if uc != ug:
+                raise AssertionError(f"SV kalman order {order}: accept differs between card "
+                                     "and CPU")
+            worst = max(worst, nrel(xg, xc), float(abs(lg - lc) / abs(lc)))
+        accepted = sum(u for _, u, _ in runs["cpu"])
+        log(f"  SV kalman order {order}, T={T_}, D={SV_D}, f64, {accepted} of {n_steps} accepted: "
+            f"card vs CPU rel err {worst:.3e} (bound {STEP_RTOL:g})")
+        if not worst <= STEP_RTOL:
+            raise AssertionError(f"SV kalman order {order}: card and CPU steps differ by "
+                                 f"{worst:.3e}")
+
+
+def phase_sv_kalman_chains(dev, card):
+    """Phase 22: kalman-1 and kalman-2 at T=250, D=30, f32, parallel, from
+    the committed runs' data, xs_true and adapted delta (frozen); returns
+    the six kernels' launches summed over both chains. `card` is the card's
+    name and power limit, printed beside samples/s."""
+    import re
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig, runner
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    from aux_ssm_tpu_torch.ops import cuda as K
+
+    burnin, n_samples = SV_KALMAN_SCHEDULE
+    total = dict.fromkeys(KERNELS, 0)
+    log(f"phase 22: SV kalman chains, T={SV_T}, D={SV_D}, f32, parallel, {burnin} + {n_samples} "
+        "iterations at the committed run's delta (frozen), from xs_true")
+    for style, (name, order) in SV_KALMAN.items():
+        ys, xs, delta = load_sv(name, dev, torch.float32)
+        committed = np.load(SV_NPZ.format(name))
+        init, kernel = sv.get_kalman_kernel(ys, *SV_PARAMS, True, order)
+        gen = torch.Generator(device=dev).manual_seed(22 + order)
+        K.reset_launches()
+        res = runner.run_chain(kernel, init(xs), RunConfig(n_samples=n_samples, burnin=burnin,
+                                                           learning_rate=0.0),
+                               generator=gen, delta_init=delta)
+        launches = K.launches()
+        n_iter = burnin + n_samples
+        if tuple(res.state.x.shape) != (SV_T, SV_D) or not bool(torch.isfinite(res.state.x).all()):
+            raise AssertionError(f"{style}: the chain's state is not finite")
+        for kname, count in launches.items():
+            want = KERNELS[kname][2] * n_iter if kname in KERNELS else 0
+            if count != want:
+                raise AssertionError(f"{style}: {kname} launched {count} times in {n_iter} "
+                                     f"iterations, expected {want}")
+        rate = float(res.stats.accept_cum)
+        z = (res.stats.mean_x.cpu().double().numpy() - committed["samples_mean"]) \
+            / committed["samples_std"]
+        z_rms = float(np.sqrt(np.mean(z ** 2)))
+        sps = n_samples / res.sampling_time
+        log(f"  {style}: update rate {rate:.4f}, {sps:.2f} samples/s on {card}, RMS z of the "
+            f"mean against the committed run's {z_rms:.3f} (bound {SV_KALMAN_Z_RMS}), delta "
+            f"{float(delta):.4f}, launches a step "
+            f"{({k: v // n_iter for k, v in launches.items() if v})}")
+        if not SV_KALMAN_RATE[0] <= rate <= SV_KALMAN_RATE[1]:
+            raise AssertionError(f"{style}: update rate {rate:.4f} outside {SV_KALMAN_RATE}")
+        if not z_rms <= SV_KALMAN_Z_RMS:
+            raise AssertionError(f"{style}: the chain's mean is {z_rms:.3f} RMS posterior "
+                                 "deviations from the committed run's")
+        box = [res.state]
+        events = profile_steps(f"SV {style}",
+                               lambda: box.__setitem__(0, kernel(box[0], delta, generator=gen)),
+                               also=tuple(WIDE_NAMES))
+        names = [e.key for e in events]
+        missing = [k for k, pat in WIDE_NAMES.items()
+                   if not any(re.search(pat, key) for key in names)]
+        narrow = [key for key in names if re.search(r"_kernel<float, 16\b|Op<float, 16>", key)]
+        if missing or narrow:
+            raise AssertionError(f"{style}: the profiler shows no D = 32 instance of {missing} "
+                                 f"or a D = 16 one: {narrow}")
+        for k in total:
+            total[k] += launches[k]
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2271,10 +2555,13 @@ def main():
     tic = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     LIBRARY.get()
-    log(f"phase 0: kernels built in {LIBRARY.build_seconds:.1f} s into {LIBRARY.build_dir}")
+    ends = {k: round(v, 1) for k, v in LIBRARY.source_seconds.items()}
+    log(f"phase 0: kernels built in {LIBRARY.build_seconds:.1f} s into {LIBRARY.build_dir} "
+        f"(each source's nvcc ended at {ends} s)")
 
     results = phase_kernels(dev)
     phase_step_reference(dev)
@@ -2329,12 +2616,20 @@ def main():
     for name, count in phase_pit_rare(dev).items():
         launches[name] += count
     log(f"  phases 0-19 took {time.perf_counter() - tic:.1f} s")
+    wide = phase_wide_kernels(dev)
+    log("phase 21: f64 SV kalman steps, card vs CPU")
+    phase_sv_kalman_steps(dev)
+    wide_launches = phase_sv_kalman_chains(dev, card)
+    log(f"  phases 0-22 took {time.perf_counter() - tic:.1f} s")
 
     sources = ({name: entry[:2] for name, entry in KERNELS.items()} | CSMC_KERNELS
                | SCALAR_KERNELS | STITCH_KERNELS)
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}
                for name, (src, rep) in sources.items()]
+    kernels += [{"name": f"{name}_d32", "route": "cuda", "source": src, "replaces": rep,
+                 "launches": wide_launches[name], **wide[name]}
+                for name, (src, rep, _) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

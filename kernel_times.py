@@ -7,7 +7,7 @@ the steps that run them.
     python3 kernel_times.py                 # the checkout this file is in
     python3 kernel_times.py --root DIR      # the checkout unpacked at DIR
     python3 kernel_times.py --parts draws   # some of: masses, lane, steps, factor, draws,
-                                            #   scan, pgas, maps, rows, scalar
+                                            #   scan, pgas, maps, rows, scalar, sv32
 
 To compare two checkouts, unpack the other into a directory that .gitignore
 lists and run both in one machine in turns (A, B, B, A): times on one card
@@ -80,7 +80,15 @@ the same seeds:
     n=1023 and 1024, B=64), cut to n=299 and repeated to a 64 x 64 field
     (B=4096), f32 and f64: device ms a launch by torch.profiler (the mean,
     and min / median / max over 30 launches) and by CUDA events;
-    torch.profiler over kalman-1 steps with the scans' device ms a step.
+    torch.profiler over kalman-1 steps with the scans' device ms a step;
+  - sv32: the six MH kernels' D = 32 instance on a real SV kalman-1 step's
+    inputs (T=250, D=30: chip_smoke phase 20's), f32 and f64, by CUDA events
+    and by the profiler's device time; make_elements' and backward_maps'
+    clock64 phases there; the filter and affine combines' cycles at D = 32
+    on 128 and 256 threads (f32 and f64); both scans' per-block timelines;
+    torch.profiler over SV kalman-1 and kalman-2 steps (the committed runs'
+    data, xs_true and delta) with each of the six kernels' device ms a step.
+    A checkout whose kernels take d <= 16 only cannot run it.
 Kernel times are CUDA events around the wrapper's call. The build log's
 registers and spills of the timed kernels' template instances are printed.
 The last line is one JSON object of every number.
@@ -173,7 +181,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
     parser.add_argument("--parts",
-                        default="masses,lane,steps,factor,draws,scan,pgas,maps,rows,scalar")
+                        default="masses,lane,steps,factor,draws,scan,pgas,maps,rows,scalar,sv32")
     parser.add_argument("--sass", default=None,
                         help="directory for the SASS of the draw kernels and col_sample")
     opts = parser.parse_args()
@@ -237,6 +245,8 @@ def main():
         write_sass(LIBRARY.build_dir, opts.sass, ("col_sample_kernel",), "rows")
     if "scalar" in parts:
         scalar(cs, res, dev)
+    if "sv32" in parts:
+        sv32(cs, res, dev)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -694,6 +704,91 @@ def scalar(cs, res, dev):
         {"scalar_scans": ("scalar_scan_kernel", "scalar_cols_kernel")})
     print("  profile spatial kalman-1 step: " + ", ".join(
         f"{k} {v:.4f}" for k, v in res["scalar_kalman1_step"].items()), flush=True)
+
+
+
+def sv32(cs, res, dev):
+    """The six MH kernels' D = 32 instance on a real SV kalman-1 step's
+    inputs, their clock64 phases, combine cycles and scan timelines, and SV
+    kalman steps under the profiler."""
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig, runner
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
+    from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF
+    from aux_ssm_tpu_torch.ops.filtering import _make_associative_elements
+    from aux_ssm_tpu_torch.ops.sampling import _backward_maps
+    f32 = torch.float32
+    ys, xs, delta = cs.load_sv("kalman1", dev, f32)
+    dyn, obs1, _, _ = sv.get_kalman_factories(ys, *cs.SV_PARAMS)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    u = xs + (0.5 * float(delta)) ** 0.5 * torch.randn(xs.shape, generator=gen, device=dev)
+    eps = torch.randn(xs.shape, generator=gen, device=dev)
+    steps, m0u, P0u = cs.mh_inputs(dyn, obs1, xs, u, float(delta))
+    Fs, Qs, bs = steps[:3]
+    n, d = bs.shape
+    el = steps + (torch.cat([m0u[None], m0u.new_zeros(n - 1, d)]),
+                  torch.cat([P0u[None], P0u.new_zeros(n - 1, d, d)]))
+    elems = _make_associative_elements(*steps, m0u, P0u)
+    _, ms, Ps, _, _ = FS.filter_scan(elems)
+    ms, Ps = torch.cat([m0u[None], ms]), torch.cat([P0u[None], Ps])
+    gains, incs = _backward_maps(eps, ms, Ps, Fs, Qs, bs)
+    xs_ = FS.affine_scan(gains, incs, reverse=True)[1]
+    filt = (ms[:-1].contiguous(), Ps[:-1].contiguous())
+    traj = (xs_[:-1].contiguous(), xs_[1:].contiguous())
+    margs = (Fs, Qs, bs, *filt, eps[:-1].contiguous())
+    calls = {"make_elements": (KF.make_elements, el), "filter_scan": (FS.filter_scan, (elems,)),
+             "ell": (KF.ell, steps + filt), "backward_maps": (KF.backward_maps, margs),
+             "affine_scan": (FS.affine_scan, (gains, incs, True)),
+             "logdensity_steps": (KF.logdensity_steps, steps + traj)}
+    for name, (fn, args) in calls.items():
+        args64 = tuple(tuple(z.double() for z in a) if isinstance(a, tuple)
+                       else a.double() if isinstance(a, torch.Tensor) else a for a in args)
+        for tag, a in (("", args), ("_f64", args64)):
+            res[f"sv32_{name}{tag}_ms"] = cs.cuda_ms(lambda: fn(*a), 50)
+            res[f"sv32_{name}{tag}_device_ms"] = device_ms(lambda: fn(*a), 20)
+    print("  sv32 kernels (events / device ms) " + ", ".join(
+        f"{name}{tag} {res[f'sv32_{name}{tag}_ms']:.4f} / {res[f'sv32_{name}{tag}_device_ms']:.4f}"
+        for name in calls for tag in ("", "_f64")), flush=True)
+    KF.elements_cycles(el)
+    res["sv32_elements_phases"] = phases(KF.elements_cycles(el))
+    KF.maps_cycles(margs)
+    res["sv32_maps_phases"] = phases(KF.maps_cycles(margs))
+    print("  sv32 make_elements median step cycles (staged, S, solve, K, end) "
+          + " ".join(f"{v:.0f}" for v in res["sv32_elements_phases"])
+          + "; backward_maps (staged, S, solve, cov, factor, end) "
+          + " ".join(f"{v:.0f}" for v in res["sv32_maps_phases"]), flush=True)
+    for dt in (torch.float32, torch.float64):
+        for scan, pair in (("filter", elems), ("affine", (gains, incs))):
+            for nt in (128, 256):
+                res[f"sv32_{scan}_combine_cycles_{str(dt)[6:]}_nt{nt}"] = FS.combine_cycles(
+                    tuple(z[:2].to(dt) for z in pair), nt, 50, scan=scan)[0]
+    print("  sv32 combine cycles " + ", ".join(f"{k[5:]} {v:.0f}" for k, v in res.items()
+                                               if "combine_cycles" in k and k.startswith("sv32")),
+          flush=True)
+    for scan, timeline in (("filter", lambda: FS.filter_scan_timeline(elems)),
+                           ("affine", lambda: FS.affine_scan_timeline(gains, incs, True))):
+        timeline()
+        st = timeline()[1]
+        res[f"sv32_{scan}_timeline_median_cycles"] = phases(st)
+        res[f"sv32_{scan}_timeline_last_block_cycles"] = (st[-1] - st[-1, 0]).tolist()[1:]
+        print(f"  sv32 {scan} timeline (cycles from a block's start: chunk, levels, hop, end): "
+              "median " + " ".join(f"{v:.0f}" for v in res[f"sv32_{scan}_timeline_median_cycles"])
+              + "; last block " + " ".join(
+                  f"{v:.0f}" for v in res[f"sv32_{scan}_timeline_last_block_cycles"]), flush=True)
+    for style, (name, order) in cs.SV_KALMAN.items():
+        ys_, xs0, delta_ = cs.load_sv(name, dev, f32)
+        init, kernel = sv.get_kalman_kernel(ys_, *cs.SV_PARAMS, True, order)
+        g = torch.Generator(device=dev).manual_seed(3)
+        state = runner.run_chain(kernel, init(xs0), RunConfig(n_samples=1, burnin=10,
+                                                              learning_rate=0.0),
+                                 generator=g, delta_init=delta_).state
+        box = [state]
+        key = f"sv32_{style}"
+        res[key] = profile(lambda: box.__setitem__(0, kernel(box[0], delta_, generator=g)), 20,
+                           MH_KERNELS)
+        print(f"  profile {key}: " + ", ".join(f"{k} {v:.4f}" for k, v in res[key].items()),
+              flush=True)
 
 
 if __name__ == "__main__":

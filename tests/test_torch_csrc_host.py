@@ -29,7 +29,7 @@ from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda import scalar_scan as SS  # noqa: E402
 from aux_ssm_tpu_torch.ops import stitching as ST  # noqa: E402
-from aux_ssm_tpu_torch.ops.cuda._build import CSRC  # noqa: E402
+from aux_ssm_tpu_torch.ops.cuda._build import CSRC, instance_dim  # noqa: E402
 from aux_ssm_tpu_torch.ops.filtering import (  # noqa: E402
     _make_associative_elements, filtering, kalman_update)
 from aux_ssm_tpu_torch.ops.lgssm import LGSSM  # noqa: E402
@@ -43,39 +43,58 @@ using std::isfinite; using std::isinf; using std::isnan; using std::log; using s
 
 _MAPS = """
 #include "kalman_fused.cu"
-extern "C" {
 // The padded steps (elements, ell, backward_maps, logdensity) on one
 // "thread" (a team of 1), a step at a time, on a host copy of the block's
-// shared memory.
+// shared memory, at the instance's D that the C entries pick by max(dx, dy).
+template <int D>
+static void host_elements(int n, int dx, int dy, ElementsIn<double> in, ElementsOut<double> out) {
+  static double sh[ElementsLay<D>::size];
+  for (int t = 0; t < n; ++t) elements_step<double, D, 1>(0, t, dx, dy, in, out, sh, nullptr);
+}
+template <int D>
+static void host_ell(int n, int dx, int dy, ElementsIn<double> in, double* out) {
+  static double sh[EllLay<D>::size];
+  for (int t = 0; t < n; ++t) ell_step<double, D, 1>(0, t, dx, dy, in, out, sh);
+}
+template <int D>
+static void host_maps(int n, int dx, MapsIn<double> in, MapsOut<double> out) {
+  static double sh[MapsLay<D>::size];
+  for (int t = 0; t < n; ++t) backward_maps_step<double, D, 1>(0, t, dx, in, out, sh, nullptr);
+}
+template <int D>
+static void host_density(int n, int dx, int dy, DensityIn<double> in, double* out) {
+  static double sh[DensityLay<D>::size];
+  for (int t = 0; t < n; ++t) logdensity_step<double, D, 1>(0, t, dx, dy, in, out, sh);
+}
+static bool narrow(int dx, int dy) { return (dx > dy ? dx : dy) <= kElemD; }
+extern "C" {
 void h_make_elements(int n, int dx, int dy, const double* F, const double* Q,
     const double* b, const double* H, const double* R, const double* c, const double* y,
     const double* m, const double* P, double* A, double* bel, double* C, double* eta,
     double* J) {
-  static double sh[ElementsLay<kElemD>::size];
   const ElementsIn<double> in{F, Q, b, H, R, c, y, m, P};
   const ElementsOut<double> out{A, bel, C, eta, J};
-  for (int t = 0; t < n; ++t) elements_step<double, kElemD, 1>(0, t, dx, dy, in, out, sh, nullptr);
+  narrow(dx, dy) ? host_elements<kElemD>(n, dx, dy, in, out)
+                 : host_elements<kWideD>(n, dx, dy, in, out);
 }
 void h_ell(int n, int dx, int dy, const double* F, const double* Q, const double* b,
     const double* H, const double* R, const double* c, const double* y, const double* m,
     const double* P, double* out) {
-  static double sh[EllLay<kElemD>::size];
   const ElementsIn<double> in{F, Q, b, H, R, c, y, m, P};
-  for (int t = 0; t < n; ++t) ell_step<double, kElemD, 1>(0, t, dx, dy, in, out, sh);
+  narrow(dx, dy) ? host_ell<kElemD>(n, dx, dy, in, out) : host_ell<kWideD>(n, dx, dy, in, out);
 }
 void h_backward_maps(int n, int dx, const double* F, const double* Q, const double* b,
     const double* m, const double* P, const double* eps, double* G, double* inc) {
-  static double sh[MapsLay<kElemD>::size];
   const MapsIn<double> in{F, Q, b, m, P, eps};
   const MapsOut<double> out{G, inc};
-  for (int t = 0; t < n; ++t) backward_maps_step<double, kElemD, 1>(0, t, dx, in, out, sh, nullptr);
+  narrow(dx, 1) ? host_maps<kElemD>(n, dx, in, out) : host_maps<kWideD>(n, dx, in, out);
 }
 void h_logdensity_steps(int n, int dx, int dy, const double* F, const double* Q,
     const double* b, const double* H, const double* R, const double* c, const double* y,
     const double* xp, const double* xc, double* out) {
-  static double sh[DensityLay<kElemD>::size];
   const DensityIn<double> in{F, Q, b, H, R, c, y, xp, xc};
-  for (int t = 0; t < n; ++t) logdensity_step<double, kElemD, 1>(0, t, dx, dy, in, out, sh);
+  narrow(dx, dy) ? host_density<kElemD>(n, dx, dy, in, out)
+                 : host_density<kWideD>(n, dx, dy, in, out);
 }
 }
 """
@@ -88,11 +107,13 @@ _SCAN = """
 // chunk's scan; the levels (block c takes a copy of block c - 2^L's value,
 // as from global memory); each chunk's apply, on the prefixes its scan left
 // in shared memory (later windows staged from the output), each element on
-// its own "team".
+// its own "team". The instance is the one the C entries pick by d, with its
+// plan's ring of prefixes (1 at D = 32 in f64: every later prefix staged back).
 template <class Op>
 static void host_scan(int n, int d, bool rev, typename Op::View x, typename Op::View out) {
   using S = typename Op::Scalar;
-  constexpr int D = Op::D, M = Op::M, V = Op::V, slot = OpLay<Op>::slot, per = kRing + 4;
+  constexpr int D = Op::D, M = Op::M, V = Op::V, slot = OpLay<Op>::slot, kRing = Op::ring,
+                per = kRing + 4;
   const Order at{n, rev};
   const ScanPlan pl = scan_plan(n);
   std::vector<S> mem((size_t)pl.chunks * per * slot), partner(slot), work(Op::work + 1);
@@ -125,25 +146,38 @@ static void host_scan(int n, int d, bool rev, typename Op::View x, typename Op::
     }
   }
 }
+template <int D>
+static void host_filter(int n, int d, double* A, double* b, double* C, double* e, double* J,
+                        double* oA, double* ob, double* oC, double* oe, double* oJ) {
+  using Op = FilterOp<double, D>;
+  host_scan<Op>(n, d, false, typename Op::View{{A, C, J}, {b, e}},
+                typename Op::View{{oA, oC, oJ}, {ob, oe}});
+}
+template <int D>
+static void host_affine(int n, int d, int rev, double* G, double* e, double* oG, double* oe) {
+  using Op = AffineOp<double, D>;
+  host_scan<Op>(n, d, rev != 0, typename Op::View{{G}, {e}}, typename Op::View{{oG}, {oe}});
+}
 extern "C" {
 void h_filter_scan(int n, int d, double* A, double* b, double* C, double* e, double* J,
                    double* oA, double* ob, double* oC, double* oe, double* oJ) {
-  using Op = FilterOp<double>;
-  host_scan<Op>(n, d, false, Op::View{{A, C, J}, {b, e}}, Op::View{{oA, oC, oJ}, {ob, oe}});
+  (d <= kNarrowD ? host_filter<kNarrowD> : host_filter<kWideD>)(n, d, A, b, C, e, J, oA, ob,
+                                                                 oC, oe, oJ);
 }
 void h_affine_scan(int n, int d, int rev, double* G, double* e, double* oG, double* oe) {
-  using Op = AffineOp<double>;
-  host_scan<Op>(n, d, rev != 0, Op::View{{G}, {e}}, Op::View{{oG}, {oe}});
+  (d <= kNarrowD ? host_affine<kNarrowD> : host_affine<kWideD>)(n, d, rev, G, e, oG, oe);
 }
 // The kernel's plan for n elements (chunks, per, levels) and the values of a
-// padded filter and affine element.
+// padded filter and affine element at D = 16 and D = 32.
 void h_scan_layout(int n, int* out) {
   const ScanPlan pl = scan_plan(n);
   out[0] = pl.chunks;
   out[1] = pl.per;
   out[2] = pl.levels;
-  out[3] = OpLay<FilterOp<double>>::slot;
-  out[4] = OpLay<AffineOp<double>>::slot;
+  out[3] = OpLay<FilterOp<double, kNarrowD>>::slot;
+  out[4] = OpLay<AffineOp<double, kNarrowD>>::slot;
+  out[5] = OpLay<FilterOp<double, kWideD>>::slot;
+  out[6] = OpLay<AffineOp<double, kWideD>>::slot;
 }
 }
 """
@@ -675,16 +709,20 @@ def _close(got, want, rtol=1e-9, atol=1e-11):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol, atol=atol)
 
 
-# The elements, ell and logdensity steps pad dx, dy to 16: d = 16 exactly
-# (the main path's), dx = 16 over padded observation rows (dy = 5), d = 1,
-# dy < dx and dy > dx, n = 1 and n = 2, and missing observations on every
-# masking branch (NaN y; H, R, c NaN where y is; a step missing whole, whose
-# ell increment is 0).
+# The elements, ell and logdensity steps pad dx, dy to the instance's D: at
+# D = 16 d = 16 exactly (the main path's), dx = 16 over padded observation
+# rows (dy = 5), d = 1, dy < dx and dy > dx, n = 1 and n = 2; at D = 32
+# (16 < max(dx, dy)) the SV model's d = 30, the edges 17 and 32 and dx != dy
+# padded on either side; missing observations on every masking branch (NaN
+# y; H, R, c NaN where y is; a step missing whole, whose ell increment is 0).
 @pytest.mark.parametrize("T,dx,dy,nan_frac,nan_model", [
     (23, 2, 2, 0.0, False), (64, 4, 3, 0.3, False), (40, 3, 1, 0.0, False),
     (40, 16, 16, 0.2, True), (30, 1, 1, 0.3, False), (2, 3, 2, 0.0, False),
     (3, 5, 2, 0.5, True), (20, 2, 5, 0.4, True), (24, 16, 5, 0.0, False),
-    (24, 16, 5, 0.3, True)])
+    (24, 16, 5, 0.3, True),
+    (10, 30, 30, 0.0, False), (10, 30, 30, 0.3, True), (8, 17, 30, 0.0, False),
+    (8, 17, 30, 0.3, True), (8, 32, 32, 0.0, False), (8, 32, 32, 0.2, True),
+    (8, 30, 17, 0.0, False), (8, 30, 17, 0.4, True)])
 def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac, nan_model):
     lib = host_lib["maps"]
     lg, ys = _model(T, dx, dy, seed=T, nan_frac=nan_frac, nan_model=nan_model, stable=True)
@@ -768,11 +806,15 @@ def test_host_backward_maps_degenerate_covariance(host_lib, case):
 # T - 1 = n elements in the kernel's scan_plan(n) chunks of ceil(n / chunks): one
 # chunk (n = 1), an empty last chunk and n not a multiple of the chunk (n =
 # 9, 299), d = 1 and d = 16, the main path's n = 1023 (128 chunks of 8) at a
-# small d, and chunks longer than the prefixes the kernel keeps (n = 1100: 9).
+# small d, and chunks longer than the prefixes the kernel keeps (n = 1100: 9);
+# the D = 32 instance at n = 2, the SV model's n = 249 (64 chunks of 4) and
+# n = 1023 (past f64's one kept prefix: later ones staged back from the
+# output), d = 30, 17 and 32 (F scaled to stay stable there).
 @pytest.mark.parametrize("T,dx,dy", [(17, 2, 2), (300, 3, 2), (129, 1, 1), (2, 2, 2),
-                                     (10, 3, 2), (40, 16, 16), (1024, 2, 1), (1101, 1, 1)])
+                                     (10, 3, 2), (40, 16, 16), (1024, 2, 1), (1101, 1, 1),
+                                     (3, 30, 30), (250, 30, 30), (250, 17, 5), (1024, 32, 32)])
 def test_host_filter_scan_matches_plain(host_lib, T, dx, dy):
-    lg, ys = _model(T, dx, dy, seed=3)
+    lg, ys = _model(T, dx, dy, seed=3, stable=dx > 16)
     m0, P0, Fs, Qs, bs, Hs, Rs, cs = lg
     m0u, P0u, _ = kalman_update(ys[0], m0, P0, Hs[0], cs[0], Rs[0])
     elems = tuple(z.contiguous() for z in _make_associative_elements(
@@ -787,13 +829,15 @@ def test_host_filter_scan_matches_plain(host_lib, T, dx, dy):
 # n elements in the kernel's scan_plan(n) chunks of ceil(n / chunks),
 # forward and reversed: the main path's n = 1024 at d = 16, d = 1, one chunk
 # (n = 1, 2), an empty chunk and n not a multiple of the chunk (n = 9, 37,
-# 50), chunks longer than the prefixes the kernel keeps (n = 1100: 9). The
-# gains are 0.4 standard normals, scaled by 2 / sqrt(d) past d = 4 so that
-# their products stay of one size at d = 16.
+# 50), chunks longer than the prefixes the kernel keeps (n = 1100: 9); the
+# D = 32 instance at n = 2, 249 and 1023, d = 30, 17 and 32. The gains are
+# 0.4 standard normals, scaled by 2 / sqrt(d) past d = 4 so that their
+# products stay of one size at large d.
 @pytest.mark.parametrize("T,d,reverse", [(50, 3, True), (300, 2, True), (100, 4, False),
                                          (1024, 16, True), (1024, 16, False), (37, 1, True),
                                          (1, 2, False), (2, 1, True), (9, 3, False),
-                                         (1100, 2, True)])
+                                         (1100, 2, True), (2, 30, True), (249, 30, True),
+                                         (249, 17, False), (1023, 32, True)])
 def test_host_affine_scan_matches_plain(host_lib, T, d, reverse):
     rng = np.random.default_rng(1)
     gains = torch.as_tensor(0.4 * min(1.0, 2.0 / np.sqrt(d)) * rng.standard_normal((T, d, d)))
@@ -806,15 +850,20 @@ def test_host_affine_scan_matches_plain(host_lib, T, d, reverse):
 
 
 # The plan the kernel takes from n is the one the plain versions and the
-# hand-over buffer take (FS.scan_chunks), and the padded element's size the
-# one the buffer is sized by (FS.SLOTS).
+# hand-over buffer take (FS.scan_chunks), and the padded element's size at
+# each instance's D the one the buffer is sized by (FS.SLOTS, by the D that
+# instance_dim picks).
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 9, 37, 299, 511, 512, 513, 1023, 1024, 1100, 5000])
 def test_host_scan_plan_matches_the_wrappers(host_lib, n):
-    out = torch.zeros(5, dtype=torch.int32)
+    out = torch.zeros(7, dtype=torch.int32)
     _call(host_lib["scan"].h_scan_layout, n, out)
     chunks = FS.scan_chunks(n)
     assert out.tolist() == [chunks, -(-n // chunks), chunks.bit_length() - 1,
-                            FS.SLOTS["filter"], FS.SLOTS["affine"]]
+                            FS.SLOTS["filter"][16], FS.SLOTS["affine"][16],
+                            FS.SLOTS["filter"][32], FS.SLOTS["affine"][32]]
+    assert [instance_dim(d) for d in (1, 16, 17, 30, 32)] == [16, 16, 32, 32, 32]
+    with pytest.raises(ValueError):
+        instance_dim(33)
 
 
 def _factor_inputs(n, N, k, seed):

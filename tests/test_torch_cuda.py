@@ -91,13 +91,17 @@ def _element_inputs(T, dx, dy, nan_frac, nan_model=False):
     return lg, ys, (Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], m, P)
 
 
-# The elements, ell and logdensity kernels pad dx, dy to 16: d = 16 (the main
-# path's T too), dx = 16 over padded observation rows, d = 1, dy < dx and dy
-# > dx, n = 1 and 2, and every masking branch.
+# The elements, ell and logdensity kernels pad dx, dy to the instance's D:
+# d = 16 (the main path's T too), dx = 16 over padded observation rows, d =
+# 1, dy < dx and dy > dx, n = 1 and 2, and every masking branch; the D = 32
+# instance at the SV model's d = 30 and T = 250, the edges d = 17 and 32,
+# and dx != dy either way.
 @pytest.mark.parametrize("T,dx,dy,nan_frac,nan_model", [
     (64, 4, 3, 0.3, False), (300, 3, 1, 0.0, False), (40, 16, 16, 0.1, False),
     (1024, 16, 16, 0.1, True), (30, 1, 1, 0.3, False), (2, 3, 2, 0.0, False),
-    (3, 5, 2, 0.5, True), (20, 2, 5, 0.4, True), (24, 16, 5, 0.3, True)])
+    (3, 5, 2, 0.5, True), (20, 2, 5, 0.4, True), (24, 16, 5, 0.3, True),
+    (250, 30, 30, 0.2, True), (20, 17, 17, 0.0, False), (20, 32, 32, 0.3, True),
+    (20, 30, 17, 0.2, False), (12, 5, 30, 0.3, True)])
 def test_maps_match_plain(dev, T, dx, dy, nan_frac, nan_model):
     lg, ys, args = _element_inputs(T, dx, dy, nan_frac, nan_model)
     Fs, Qs, bs, *obs = args[:7]
@@ -166,8 +170,11 @@ def test_backward_maps_degenerate_covariance(dev, case):
     _close(got, (torch.as_tensor(G), torch.as_tensor(inc)), rtol=1e-9, atol=1e-11)
 
 
+# The D = 32 cases: the SV model's n = 249, n = 2 and n = 1023 at d = 30, 17
+# and 32 (f64 keeps one prefix of a chunk and stages the rest back).
 @pytest.mark.parametrize("T,dx,dy", [(17, 2, 2), (300, 3, 2), (1025, 4, 3), (2, 2, 2),
-                                     (40, 16, 16), (1101, 3, 2)])
+                                     (40, 16, 16), (1101, 3, 2), (250, 30, 30), (3, 17, 17),
+                                     (1024, 32, 32)])
 def test_filter_scan_matches_plain(dev, T, dx, dy):
     lg, ys = _model(T, dx, dy, seed=3)
     m0, P0, Fs, Qs, bs, Hs, Rs, cs = lg
@@ -184,10 +191,12 @@ def _affine_inputs(T, d):
 
 # The one-launch scan: the main path's n = 1024 at d = 16, one chunk (n = 1,
 # 2), an empty chunk and n not a multiple of the chunk (n = 9, 50, 300),
-# chunks longer than the kept prefixes (n = 1100), forward and reversed.
+# chunks longer than the kept prefixes (n = 1100), forward and reversed; the
+# D = 32 instance at n = 250, 2 and 1023, d = 30, 17 and 32.
 @pytest.mark.parametrize("T,d,reverse", [(50, 3, True), (1024, 16, True), (100, 4, False),
                                          (1024, 16, False), (300, 16, True), (1, 2, False),
-                                         (2, 1, True), (9, 3, False), (1100, 2, True)])
+                                         (2, 1, True), (9, 3, False), (1100, 2, True),
+                                         (250, 30, True), (2, 17, False), (1023, 32, True)])
 def test_affine_scan_matches_plain(dev, T, d, reverse):
     _close(*_both(FS.affine_scan, _affine_inputs(T, d) + (reverse,), dev))
 
@@ -220,9 +229,9 @@ def test_scans_on_two_streams_equal_one_stream(dev):
 
 
 def test_rejects_what_the_kernels_do_not_take(dev):
-    b = torch.zeros(8, 17, device=dev)
+    b = torch.zeros(8, 33, device=dev)
     with pytest.raises(ValueError, match="dimensions"):
-        FS.affine_scan(torch.zeros(8, 17, 17, device=dev), b)
+        FS.affine_scan(torch.zeros(8, 33, 33, device=dev), b)
     with pytest.raises(TypeError):
         FS.affine_scan(torch.zeros(8, 2, 2, device=dev), torch.zeros(8, 2, device=dev,
                                                                      dtype=torch.float16))
@@ -248,6 +257,54 @@ def test_step_matches_cpu(dev, order):
             state = kernel(state, 0.1, noise=noise)
             xs.append((state.x.cpu(), bool(state.updated), float(state.log_target)))
         out[str(where)] = xs
+    for (xc, uc, lc), (xg, ug, lg) in zip(out["cpu"], out[str(dev)]):
+        assert uc == ug
+        np.testing.assert_allclose(xg.numpy(), xc.numpy(), rtol=1e-9, atol=1e-11)
+        np.testing.assert_allclose(lg, lc, rtol=1e-9)
+
+
+def test_wide_instance_rejects_d33(dev):
+    """Past the D = 32 instance every MH wrapper raises on the card: no
+    plain fallback."""
+    n, d = 4, 33
+    F, v = torch.zeros(n, d, d, device=dev), torch.zeros(n, d, device=dev)
+    calls = {"make_elements": lambda: KF.make_elements(F, F, v, F, F, v, v, v, F),
+             "ell": lambda: KF.ell(F, F, v, F, F, v, v, v, F),
+             "backward_maps": lambda: KF.backward_maps(F, F, v, v, F, v),
+             "logdensity_steps": lambda: KF.logdensity_steps(F, F, v, F, F, v, v, v, v),
+             "filter_scan": lambda: FS.filter_scan((F, v, F, v, F)),
+             "affine_scan": lambda: FS.affine_scan(F, v)}
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="dimensions"):
+            call()
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_sv_kalman_step_matches_cpu(dev, order):
+    """Three SV kalman steps (T=32, D=30: the D = 32 instance) on the card,
+    float64, against the CPU given the same noise: identical accepts, and
+    each of the six kernels launched as the MH step launches it."""
+    T, D = 32, 30
+    xs, ys = sv.get_data(*SV_PARAMS, D, T, generator=torch.Generator().manual_seed(21),
+                         device="cpu")
+    out = {}
+    for where in ("cpu", dev):
+        init, kernel = sv.get_kalman_kernel(ys.to(where), *SV_PARAMS, True, order)
+        rng = np.random.default_rng(order)
+        state = init(xs.to(where))
+        K.reset_launches()
+        steps = []
+        for _ in range(3):
+            noise = (torch.as_tensor(rng.standard_normal((T, D)), device=where),
+                     torch.as_tensor(rng.standard_normal((T, D)), device=where),
+                     torch.as_tensor(rng.uniform(), dtype=torch.float64, device=where))
+            state = kernel(state, 0.05, noise=noise)
+            steps.append((state.x.cpu(), bool(state.updated), float(state.log_target)))
+        out[str(where)] = steps
+    launches = K.launches()
+    for name, per_step in (("make_elements", 2), ("filter_scan", 2), ("ell", 2),
+                           ("backward_maps", 1), ("affine_scan", 1), ("logdensity_steps", 2)):
+        assert launches[name] == 3 * per_step, name
     for (xc, uc, lc), (xg, ug, lg) in zip(out["cpu"], out[str(dev)]):
         assert uc == ug
         np.testing.assert_allclose(xg.numpy(), xc.numpy(), rtol=1e-9, atol=1e-11)
