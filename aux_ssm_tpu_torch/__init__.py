@@ -2,9 +2,10 @@
 parallel-in-time, the auxiliary particle Gibbs (cSMC) of the
 stochastic-volatility model, sequential or parallel-in-time (PIT), the
 scalar-state particle Gibbs of the
-theta-logistic (PGAS) and rare-event models, and the spatio-temporal
+theta-logistic (PGAS) and rare-event models, the spatio-temporal
 Student-t model (auxiliary Kalman in the batched scalar layout, csmc and
-csmc-guided), through hand-written CUDA
+csmc-guided), and the Lorenz-63 parameter-learning Gibbs sampler (with
+its driver, `experiments/lorenz.py`), through hand-written CUDA
 kernels on an NVIDIA Hopper card (plain PyTorch on the CPU).
 
 Entry points that take a `device` allocate on the card when it is None
@@ -25,11 +26,13 @@ from .convert import (lgssm_from_numpy, rare_event_from_numpy, spatial_from_nump
 from .device import default_device  # noqa: E402
 from .experiments.runner import RunConfig, RunResult, run_chain  # noqa: E402
 from .kernels.adaptation import delta_adaptation  # noqa: E402
+from .kernels.base import SamplerState  # noqa: E402
 from .kernels.csmc_base import CSMCState  # noqa: E402
 from .kernels.kalman import KalmanSampler, get_kernel  # noqa: E402
-from .models import rare_event, spatial, stochastic_volatility, theta_logistic  # noqa: E402
-from .ops import (LGSSM, filtering, log_likelihood, make_target_logpdf,  # noqa: E402
+from .models import lorenz, rare_event, spatial, stochastic_volatility, theta_logistic  # noqa: E402
+from .ops import (LGSSM, filtering, log_likelihood, make_target_logpdf, mvn,  # noqa: E402
                   posterior_logpdf, prior_logpdf, sampling)
+from .ops.linearise import cubature, extended, gauss_hermite  # noqa: E402
 
 __all__ = [
     "CSMCState",
@@ -37,13 +40,19 @@ __all__ = [
     "KalmanSampler",
     "RunConfig",
     "RunResult",
+    "SamplerState",
+    "cubature",
     "default_device",
     "delta_adaptation",
+    "extended",
     "filtering",
+    "gauss_hermite",
     "get_kernel",
     "lgssm_from_numpy",
     "log_likelihood",
+    "lorenz",
     "make_target_logpdf",
+    "mvn",
     "posterior_logpdf",
     "prior_logpdf",
     "rare_event",

@@ -7,7 +7,7 @@ The loop runs on the host, one kernel call per iteration, and never reads a
 device value back except to print progress (`verbose`) or to collect
 samples. The sampling phase is timed on the host clock, fenced with
 `torch.cuda.synchronize()` when the state lies on the card.
-Checkpointing is not ported (ROADMAP.md queue 1 item 7).
+Checkpointing is not ported (it needs `utils/checkpoint.py`).
 """
 import time
 from dataclasses import dataclass
@@ -74,7 +74,7 @@ def run_chain(kernel: Callable, init_state, cfg: RunConfig, generator=None,
     iteration (default `get_stats_x`). `sampling_time` excludes burn-in.
     """
     if checkpoint_dir is not None:
-        raise NotImplementedError("checkpointing is not ported (ROADMAP.md queue 1 item 7)")
+        raise NotImplementedError("checkpointing is not ported (it needs utils/checkpoint.py)")
     x = get_stats_x(init_state)
     delta = torch.as_tensor(cfg.delta_init if delta_init is None else delta_init,
                             dtype=x.dtype, device=x.device)

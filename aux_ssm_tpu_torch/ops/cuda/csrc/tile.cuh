@@ -15,6 +15,7 @@
 #pragma once
 
 #include <math.h>
+#include <string.h>
 
 #ifndef AUX_HD
 #define AUX_HD __device__ __forceinline__
@@ -240,11 +241,40 @@ AUX_HD S pivot_rcp(S x) {
   return (S)1 / x;
 }
 
+// The power of two 2^-e for the binade [2^e, 2^(e+1)) of |x|: multiplying by
+// it is exact (no rounding), and it takes x to [1, 2). Zero and subnormal x
+// give 2^126 (float) or 2^1022 (double), inf and NaN 2^-126 or 2^-1022: all
+// normal numbers.
+AUX_HD float binade_scale(float x) {
+  unsigned u;
+  memcpy(&u, &x, sizeof u);
+  unsigned e = (u >> 23) & 0xffu;
+  e = e < 1u ? 1u : e > 253u ? 253u : e;
+  u = (254u - e) << 23;
+  memcpy(&x, &u, sizeof x);
+  return x;
+}
+AUX_HD double binade_scale(double x) {
+  unsigned long long u;
+  memcpy(&u, &x, sizeof u);
+  unsigned long long e = (u >> 52) & 0x7ffull;
+  e = e < 1ull ? 1ull : e > 2045ull ? 2045ull : e;
+  u = (2046ull - e) << 52;
+  memcpy(&x, &u, sizeof x);
+  return x;
+}
+
 // Gauss-Jordan on the team: z <- M^{-1} z, for the thread's tiles m of M and
 // z of the right-hand side in registers, without row exchanges (M SPD, or
 // similar to I + SPD), by 2 x 2 pivot blocks. Each pair's columns of M and
 // rows of M and z go to double-buffered arrays (col, rowm, rowz: 4 D each),
 // from which every thread inverts the pair's block; one team barrier a pair.
+// The block is scaled by the power of two that takes its larger diagonal
+// entry to [1, 2) before its determinant is taken, and its inverse scaled
+// back: exact, so the inverse is the unscaled formula's bit for bit where
+// that one does not overflow, and the determinant's product of two diagonal
+// entries cannot overflow where they exceed the square root of the type's
+// largest value (an observation variance of delta / 2 = 5e19 in float32).
 // The caller publishes the first pair (gj_publish_first) and syncs the team;
 // the result goes to the padded array Z (the last pair's barrier included).
 template <typename S, int D, int NT>
@@ -273,8 +303,12 @@ AUX_HD void gj_solve(const Tile<D, NT>& tl, int bar, Regs<S, D, NT>& m, Regs<S, 
   for (int k = 0; k < D; k += 2) {
     const int p = (k >> 1) & 1, q = p ^ 1;
     const S *cb = col + 2 * p * D, *rmb = rowm + 2 * p * D, *rzb = rowz + 2 * p * D;
-    const S b00 = rmb[k], b01 = rmb[k + 1], b10 = rmb[D + k], b11 = rmb[D + k + 1];
-    const S r = pivot_rcp(b00 * b11 - b01 * b10);
+    const S d0 = rmb[k] < (S)0 ? -rmb[k] : rmb[k];
+    const S d1 = rmb[D + k + 1] < (S)0 ? -rmb[D + k + 1] : rmb[D + k + 1];
+    const S sc = binade_scale(d0 > d1 ? d0 : d1);
+    const S b00 = rmb[k] * sc, b01 = rmb[k + 1] * sc, b10 = rmb[D + k] * sc,
+            b11 = rmb[D + k + 1] * sc;
+    const S r = pivot_rcp(b00 * b11 - b01 * b10) * sc;
     const S i00 = b11 * r, i01 = -b01 * r, i10 = -b10 * r, i11 = b00 * r;
     S m0[Cn], m1[Cn], z0[Cn], z1[Cn];  // the pair's rows, scaled by the block's inverse
 #pragma unroll

@@ -1,6 +1,6 @@
-"""Multivariate-normal log-density, Cholesky-parameterised (counterpart of
-`aux_ssm_tpu/ops/mvn.py`: `logpdf` and `tril_log_det`), and the scalar
-`norm_logpdf` the models share.
+"""Multivariate-normal math, Cholesky-parameterised (counterpart of
+`aux_ssm_tpu/ops/mvn.py`: `logpdf`, `tril_log_det`, `rvs` and
+`get_optimal_covariance`), and the scalar `norm_logpdf` the models share.
 
 Non-finite rows of `chol` are "infinite-variance" dimensions that contribute
 nothing; the 2-pi normalisation counts only finite diagonal entries."""
@@ -45,3 +45,28 @@ def logpdf(x, m, chol):
     log_norm = tril_log_det(chol) + 0.5 * dim * _LOG_2PI
     quad = torch.where(finite, y * y, 0.0).sum(-1)
     return torch.clamp(-0.5 * quad - log_norm, -finfo.max, finfo.max)
+
+
+def rvs(m, chol, generator=None, eps=None):
+    """One draw from N(m, chol chol^T), broadcast over leading dims. `eps`
+    (the shape of `m`), if given, replaces the standard normals drawn from
+    `generator`."""
+    if eps is None:
+        eps = torch.randn(m.shape, generator=generator, dtype=m.dtype, device=m.device)
+    return m + (chol @ eps.unsqueeze(-1))[..., 0]
+
+
+def get_optimal_covariance(chol_P, chol_Sig):
+    """The Cholesky factor of the smallest covariance (Corenflos et al.,
+    Sec. 3) that dominates both chol_P chol_P^T and chol_Sig chol_Sig^T.
+    Scalars, 1-D factors and 1 x 1 factors take the elementwise maximum."""
+    chol_P, chol_Sig = torch.as_tensor(chol_P), torch.as_tensor(chol_Sig)
+    if (chol_P.ndim < 2 and chol_Sig.ndim < 2) or chol_P.shape[-1] == 1:
+        return torch.maximum(chol_P, chol_Sig)
+    # Whiten Sig by P, clamp its eigenvalues at 1 from above, unwhiten. The
+    # result does not depend on the eigenvectors' signs or order.
+    right = torch.linalg.solve_triangular(chol_P, chol_Sig, upper=False)
+    w, v = torch.linalg.eigh(right.mT @ right)
+    w = torch.clamp(w, max=1.0)
+    left = chol_Sig @ (v / torch.sqrt(w)[..., None, :])
+    return torch.linalg.cholesky(left @ left.mT)

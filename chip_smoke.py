@@ -171,13 +171,44 @@ the MH kernels' D = 32 instance; benchmarks/sv_sweep.sh):
      posterior deviations of the committed run's (`samples_mean`,
      `samples_std`: a chain that stays near xs_true reads ~1, a wrong target
      drifts away); samples/s and a profile of each step.
+The Lorenz-63 parameter-learning Gibbs sampler (`experiments/lorenz.py
+--data mider --freq 4`: T=5001, dx=3, the u rows stacked on the two data
+rows, dy=5: the MH kernels' D = 16 instance; benchmarks/lorenz_mider.sh):
+ 23. the six MH kernels against their plain versions on a real Lorenz
+     step's inputs (the committed run's mean_x and theta,
+     `benchmarks/results_r5/lorenz/mider_freq4.npz`) at delta 1e20 (the
+     committed runs' delta, the adaptation's cap: R = 5e19 on the u rows)
+     and at 1e-2, f32 and f64, held as phase 20 holds them; at 1e20 each
+     entry also carries its device ms by the profiler, printed beside its
+     bound on the unpadded bytes; the filter and affine scans also at freq
+     2 (T=10001, chunks of 79); and log alpha of the same step at the
+     committed state in f32 and f64, by the plain versions (CPU) and the
+     kernels (printed, not bounded: f32 sums ~1e5-sized terms);
+ 24. four f64 Lorenz Gibbs steps (synthetic, T=64, observed every 4,
+     parallel, delta 10) on the card against the CPU, given the same noise:
+     identical accept decisions, trajectories and theta within STEP_RTOL;
+ 25. the Mider freq-4 chain, f32, parallel, LORENZ_SCHEDULE iterations from
+     the committed run's mean_x and theta at its delta, frozen: exactly 10
+     kernel launches a step, every one a D = 16 instance by its profiler
+     name, finite states, an update rate in LORENZ_RATE, each theta_i's
+     chain mean within LORENZ_THETA_Z committed posterior deviations of the
+     committed `theta_samples` mean, the chain's mean trajectory within RMS
+     LORENZ_MEAN_RMS (sig_y) of the committed `mean_x` on the observed x2
+     and x3; samples/s, a profile of one step and each kernel's device ms
+     in it; then the driver's `main` (`--data mider --freq 4 --n-samples 50
+     --burnin 20 --delta-init 1e20`) must write the JAX driver's .npz keys.
 To make room, phase 3 runs 100 steps (200 before), phase 10 300 + 1000
 iterations (300 + 2000 before), phase 11 300 + 700 iterations a chain of
 the hardest cell, which is reported and not bounded (500 + 1500 before),
-and phase 19 at T=2 300 + 600 (300 + 1200 before). The whole
-takes 250-480 s with the build on an H100, as fast as the host is (190-340
-s before the PIT phases, 80-150 s before the spatial ones); phases 20-22
-take ~40 s, and the D = 32 instances' build ~10 s more.
+and 500 + 1500 a bounded chain (500 + 2500 before), phase 15's replicate
+chains 300 + 2000 (kalman-1) and 300 + 1500 (csmc-guided) (300 + 3000 and
+300 + 2000 before), and phase 19 at T=2 300 + 600 (300 + 1200 before) and
+at T=256 300 + 400 (300 + 700 before): every bound is in units of the
+chain's own Monte-Carlo error, so a shorter chain widens it and keeps its
+meaning. The whole takes 250-480 s with the build on an H100, as fast as
+the host is (190-340 s before the PIT phases, 80-150 s before the spatial
+ones); phases 20-22 take ~40 s, phases 23-25 ~40 s, and the D = 32
+instances' build ~10 s more.
 Each kernel's entry of the JSON summary carries its bound: the least time the
 card could take for the call, the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the 67
@@ -197,7 +228,9 @@ A factor sweep's entry counts the launches of both its kernels, and its
 `ms` is the wrapper's whole call; `pair_scores_ms` times the first kernel
 alone where N <= 32. The line before the last is the kernels' JSON summary;
 the D = 32 instances have entries of their own (`make_elements_d32`, ...:
-phase 20's numbers at the SV shape, phase 22's launches); the last line is
+phase 20's numbers at the SV shape, phase 22's launches), and so have the
+six kernels at the Lorenz shape (`make_elements_lorenz`, ...: phase 23's
+numbers at delta 1e20, phase 25's launches); the last line is
 {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -205,6 +238,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -423,7 +457,8 @@ def mh_inputs(dyn, obs, x, u, delta):
 def check_mh_kernels(label, steps, m0u, P0u, eps, holes_seed, **kw):
     """The six MH kernels against their plain versions (`compare`, with
     `kw`) on one step's inputs: make_elements, ell and logdensity_steps also
-    with a share NAN_SHARE of the observations missing. Returns (results by
+    with a share NAN_SHARE of the observations missing, unless `holes_seed`
+    is None. Operations are counted at d = max(dx, dy). Returns (results by
     kernel name, elements, gains, incs)."""
     import torch
     from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
@@ -432,22 +467,24 @@ def check_mh_kernels(label, steps, m0u, P0u, eps, holes_seed, **kw):
     from aux_ssm_tpu_torch.ops.sampling import _backward_maps
 
     Fs, Qs, bs = steps[:3]
-    n, d = bs.shape
-    ops = mh_ops(n, d)
+    n, dx = bs.shape
+    ops = mh_ops(n, max(dx, steps[6].shape[-1]))
     dev = bs.device
     results = {}
-    m_el = torch.cat([m0u[None], m0u.new_zeros(n - 1, d)])
-    P_el = torch.cat([P0u[None], P0u.new_zeros(n - 1, d, d)])
+    m_el = torch.cat([m0u[None], m0u.new_zeros(n - 1, dx)])
+    P_el = torch.cat([P0u[None], P0u.new_zeros(n - 1, dx, dx)])
     results["make_elements"] = compare(f"make_elements{label}", KF.make_elements,
                                        KF.make_elements_plain, steps + (m_el, P_el),
                                        ops["make_elements"], **kw)
-    log(f"  make_elements, and below ell and logdensity_steps, with a share {NAN_SHARE} of the "
-        "observations missing (NaN):")
-    ys_nan = steps[6].clone()
-    holes = torch.Generator(device=dev).manual_seed(holes_seed)
-    ys_nan[torch.rand(ys_nan.shape, generator=holes, device=dev) < NAN_SHARE] = float("nan")
-    compare(f"make_elements_nan{label}", KF.make_elements, KF.make_elements_plain,
-            steps[:6] + (ys_nan, m_el, P_el), ops["make_elements"], **kw)
+    holes = holes_seed is not None
+    if holes:
+        log(f"  make_elements, and below ell and logdensity_steps, with a share {NAN_SHARE} of "
+            "the observations missing (NaN):")
+        ys_nan = steps[6].clone()
+        gen = torch.Generator(device=dev).manual_seed(holes_seed)
+        ys_nan[torch.rand(ys_nan.shape, generator=gen, device=dev) < NAN_SHARE] = float("nan")
+        compare(f"make_elements_nan{label}", KF.make_elements, KF.make_elements_plain,
+                steps[:6] + (ys_nan, m_el, P_el), ops["make_elements"], **kw)
 
     elems = _make_associative_elements(*steps, m0u, P0u)
     results["filter_scan"] = compare(f"filter_scan{label}", FS.filter_scan,
@@ -457,8 +494,9 @@ def check_mh_kernels(label, steps, m0u, P0u, eps, holes_seed, **kw):
     ms, Ps = torch.cat([m0u[None], ms]), torch.cat([P0u[None], Ps])
     results["ell"] = compare(f"ell{label}", KF.ell, KF.ell_plain, steps + (ms[:-1], Ps[:-1]),
                              ops["ell"], **kw)
-    compare(f"ell_nan{label}", KF.ell, KF.ell_plain, steps[:6] + (ys_nan, ms[:-1], Ps[:-1]),
-            ops["ell"], **kw)
+    if holes:
+        compare(f"ell_nan{label}", KF.ell, KF.ell_plain, steps[:6] + (ys_nan, ms[:-1], Ps[:-1]),
+                ops["ell"], **kw)
 
     results["backward_maps"] = compare(
         f"backward_maps{label}", KF.backward_maps, KF.backward_maps_plain,
@@ -474,9 +512,10 @@ def check_mh_kernels(label, steps, m0u, P0u, eps, holes_seed, **kw):
     results["logdensity_steps"] = compare(
         f"logdensity_steps{label}", KF.logdensity_steps, KF.logdensity_steps_plain,
         steps + (xs[:-1].contiguous(), xs[1:].contiguous()), ops["logdensity_steps"], **kw)
-    compare(f"logdensity_nan{label}", KF.logdensity_steps, KF.logdensity_steps_plain,
-            steps[:6] + (ys_nan, xs[:-1].contiguous(), xs[1:].contiguous()),
-            ops["logdensity_steps"], **kw)
+    if holes:
+        compare(f"logdensity_nan{label}", KF.logdensity_steps, KF.logdensity_steps_plain,
+                steps[:6] + (ys_nan, xs[:-1].contiguous(), xs[1:].contiguous()),
+                ops["logdensity_steps"], **kw)
     return results, elems, gains, incs
 
 
@@ -1440,7 +1479,7 @@ def phase_rare_chains(dev):
         "(mean and std errors in units of the posterior std; tolerance 6 standard errors)")
     lane = 0
     for i, style in enumerate(("kalman", "csmc", "csmc-guided", "csmc-guided-grad")):
-        lane += rare_chain(dev, style, RE_CELL, 500, 2500, 20 + i, bounded=True)["lane_scan"]
+        lane += rare_chain(dev, style, RE_CELL, 500, 1500, 20 + i, bounded=True)["lane_scan"]
     log(f"  the hardest cell of the published grid, rho={RE_HARD[1]}, r2={RE_HARD[2]} "
         "(reported, not bounded):")
     for i, style in enumerate(("kalman", "csmc", "csmc-guided")):
@@ -1461,7 +1500,7 @@ SPATIAL_SCHEDULE = {"kalman-1": (100, 200, 0.5), "kalman-2": (100, 200, 0.5),
                     "csmc": (100, 200, 0.25), "csmc-guided": (100, 200, 0.25),
                     "csmc-guided-grad": (100, 200, 0.25)}
 # The pair held against each other, from an exact posterior draw.
-SPATIAL_PAIR = {"kalman-1": (300, 3000, 0.5), "csmc-guided": (300, 2000, 0.25)}  # two chains each
+SPATIAL_PAIR = {"kalman-1": (300, 2000, 0.5), "csmc-guided": (300, 1500, 0.25)}  # two chains each
 SP_BLOCKS = 16                     # time blocks of the pooled functionals
 Z_MAX, Z_RMS = 6.0, 1.5            # bounds on z-scores against one posterior draw
 Z_RMS_CROSS = 2.0                  # on the RMS z between the two samplers
@@ -1945,7 +1984,7 @@ PIT_BIG_RATE = (0.95, 1.0)
 # Rare-event PIT chains against the closed form: cell, N, burn-in, samples,
 # the blocked route's draws.
 RE_PIT = (((5.0, 0.8, 0.5, 2), RE_N, 300, 600, "joint"),
-          ((5.0, 0.8, 0.5, 256), RE_N, 300, 700, "joint"),
+          ((5.0, 0.8, 0.5, 256), RE_N, 300, 400, "joint"),
           ((5.0, 0.8, 0.5, 64), PIT_N, 100, 300, "joint"),
           ((5.0, 0.8, 0.5, 64), PIT_N, 100, 300, "fused"))
 
@@ -2544,6 +2583,284 @@ def phase_sv_kalman_chains(dev, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# The Lorenz-63 parameter-learning Gibbs sampler on the Mider data (freq 4:
+# T=5001, dx=3, dy=3+2), on the MH kernels' D = 16 instance
+# ---------------------------------------------------------------------------
+
+LORENZ_NPZ = str(Path(__file__).resolve().parent
+                 / "benchmarks/results_r5/lorenz/mider_freq{}.npz")
+LORENZ_SIGMA_X = 3.0               # experiments/lorenz.py SIGMA_X
+LORENZ_DELTAS = (1e20, 1e-2)       # the committed runs' delta (the adaptation's cap), and one
+                                   # at which the u rows carry weight
+LORENZ_SCHEDULE = (100, 300)       # burn-in + sampling iterations at delta 1e20, frozen
+LORENZ_RATE = (0.50, 0.76)         # update rate: the committed freq-4 run updated 0.632
+LORENZ_THETA_Z = 3.0               # |chain mean - committed mean| in committed posterior sds
+LORENZ_MEAN_RMS = 5.0 ** 0.5       # RMS of the mean trajectory against the committed one, on
+                                   # the observed x2 and x3: sig_y
+# What each kernel's name holds in the profiler at the D = 16 instance, in float32.
+NARROW_NAMES = {"make_elements": r"elements_kernel<float, 16\b",
+                "filter_scan": r"FilterOp<float, 16>",
+                "ell": r"ell_kernel<float, 16\b",
+                "backward_maps": r"backward_maps_kernel<float, 16\b",
+                "affine_scan": r"AffineOp<float, 16>",
+                "logdensity_steps": r"logdensity_kernel<float, 16\b"}
+
+
+def lorenz_factories(dev, freq, dtype):
+    """The committed Mider run of `freq`'s mean_x and theta, and the Lorenz
+    MH step's factories (dynamics, observations, target) at that theta."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments.lorenz import mider_problem
+    from aux_ssm_tpu_torch.models import lorenz
+
+    prob = mider_problem(freq, dtype=dtype, device=dev)
+    committed = np.load(LORENZ_NPZ.format(freq))
+    x = torch.as_tensor(committed["mean_x"], dtype=dtype, device=dev)
+    return x, lorenz.get_kalman_factories(prob.ys, prob.Hs, prob.Rs, prob.cs, prob.m0, prob.P0,
+                                          committed["theta"], LORENZ_SIGMA_X, prob.dt)
+
+
+def lorenz_step_inputs(dev, freq, dtype, delta, seed):
+    """A Lorenz MH step at the committed run's mean_x and theta on the Mider
+    grid of `freq`: (kernel inputs as `mh_inputs`, m0u, P0u, eps, the
+    factories, x, u)."""
+    import torch
+    x, factories = lorenz_factories(dev, freq, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = x + (0.5 * delta) ** 0.5 * torch.randn(x.shape, generator=gen, device=dev, dtype=dtype)
+    eps = torch.randn(x.shape, generator=gen, device=dev, dtype=dtype)
+    steps, m0u, P0u = mh_inputs(factories[0], factories[1], x, u, delta)
+    return steps, m0u, P0u, eps, factories, x, u
+
+
+def mh_log_alpha(factories, x, u, eps, delta):
+    """log alpha of one parallel MH step at x, given u and the draw's normals:
+    the kernel's formula (kernels/kalman.py) from the public ops, so that
+    each term can be computed in f32 and f64, by the plain versions (CPU
+    tensors) or the kernels (CUDA tensors)."""
+    from aux_ssm_tpu_torch.ops import LGSSM, filtering, posterior_logpdf, sampling
+    dyn, obs, target = factories
+
+    def propose(x_at, x_eval=None):
+        m0, P0, Fs, Qs, bs = dyn(x_at)
+        ys, Hs, Rs, cs = obs(x_at, u, delta)
+        model = LGSSM(m0, P0, Fs, Qs, bs, Hs, Rs, cs)
+        ms, Ps, ell = filtering(ys, model, True)
+        if x_eval is None:
+            x_eval = sampling(eps, ms, Ps, model, True)
+        return posterior_logpdf(ys, x_eval, ell, model), x_eval
+
+    log_fwd, x_prop = propose(x)
+    log_rev, _ = propose(x_prop, x)
+    aux = (((x_prop - u) ** 2 - (x - u) ** 2) / delta).sum()
+    return float(target(x_prop) - target(x) + log_rev - log_fwd - aux)
+
+
+def phase_lorenz_kernels(dev):
+    """Phase 23: the six MH kernels' D = 16 instance on real Lorenz steps'
+    inputs (Mider freq 4, T=5001, dx=3, dy=5) at delta 1e20 and 1e-2, the two
+    scans also at freq 2 (T=10001); log alpha in f32 against f64. Returns
+    the entries at freq 4, delta 1e20."""
+    import torch
+    from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
+    from aux_ssm_tpu_torch.ops.filtering import _make_associative_elements
+    from aux_ssm_tpu_torch.ops.sampling import _backward_maps
+
+    f32, f64 = torch.float32, torch.float64
+    log(f"phase 23: the MH kernels' D = 16 instance on a real Lorenz step's inputs (Mider freq 4, "
+        f"T=5001, dx=3, dy=5: the committed run's mean_x and theta; f32 kernel vs f32 plain and "
+        f"vs f64 plain at nrel {NREL_F32:g}, or, for an output whose f32 plain version misses "
+        f"{NREL_F32:g} against f64 by e, at 3 e and 2 e; f64 kernel vs f64 plain at "
+        f"{NREL_F64:g}; bounds on the unpadded bytes, operations at d = 5)")
+    results = None
+    for i, delta in enumerate(LORENZ_DELTAS):
+        steps, m0u, P0u, eps, _, x, u = lorenz_step_inputs(dev, 4, f32, delta, 23 + i)
+        log(f"  delta {delta:g} (R = {0.5 * delta:g} on the u rows):")
+        got = check_mh_kernels(f"_lorenz_delta{delta:g}", steps, m0u, P0u, eps, None,
+                               own_bound=True, device_time=not i, reps=20 if not i else 5)[0]
+        results = results or got
+        # log alpha of the same step in f32 and f64, plain (CPU) and kernels (card).
+        alphas = {}
+        for where in ("cpu", dev):
+            for dtype in (f32, f64):
+                z = tuple(t.to(device=where, dtype=dtype) for t in (x, u, eps))
+                alphas[(str(where), str(dtype)[6:])] = mh_log_alpha(
+                    lorenz_factories(where, 4, dtype)[1], *z, delta)
+        log("  log alpha at the committed state, plain (cpu) and kernels (cuda), f32 / f64: "
+            + ", ".join(f"{w} {d} {a:.6f}" for (w, d), a in alphas.items()))
+    for k, v in results.items():
+        log(f"  {k} at T=5001: {1e6 * v['device_ms'] / 5000:.2f} ns a step on the device, "
+            f"{v['device_ms'] / v['bound_ms']:.1f}x its bound on the unpadded bytes"
+            if v.get("device_ms") else f"  {k}: device ms not measured")
+    log("  the two scans at freq 2 (T=10001, chunks of 79):")
+    steps, m0u, P0u, eps, _, _, _ = lorenz_step_inputs(dev, 2, f32, LORENZ_DELTAS[0], 25)
+    n = steps[2].shape[0]
+    ops = mh_ops(n, 5)
+    elems = _make_associative_elements(*steps, m0u, P0u)
+    compare("filter_scan_lorenz_T10001", FS.filter_scan, FS.filter_scan_plain, (elems,),
+            ops["filter_scan"], reps=5, own_bound=True, device_time=True)
+    _, ms, Ps, _, _ = FS.filter_scan(elems)
+    ms, Ps = torch.cat([m0u[None], ms]), torch.cat([P0u[None], Ps])
+    gains, incs = _backward_maps(eps, ms, Ps, *steps[:3])
+    compare("affine_scan_lorenz_T10001", FS.affine_scan, FS.affine_scan_plain,
+            (gains, incs, True), ops["affine_scan"], reps=5, own_bound=True, device_time=True)
+    return results
+
+
+def lorenz_synthetic(where, T_=64, every=4):
+    """A synthetic Lorenz problem in f64 on `where` (the JAX tests' shape:
+    dt 0.02, sig_y 0.5, observed every `every` steps): (xs, problem)."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments import lorenz as driver
+    from aux_ssm_tpu_torch.models import lorenz
+
+    xs = lorenz.sample_trajectory(driver.M0, np.eye(3), driver.THETA_TRUE, LORENZ_SIGMA_X, 0.02,
+                                  T_, generator=torch.Generator().manual_seed(24), device="cpu")
+    idx = np.arange(0, T_, every)
+    obs = xs.numpy()[idx, 1:] + driver.SIG_Y * np.random.default_rng(24).standard_normal(
+        (len(idx), 2))
+    prob = driver.make_problem(np.column_stack([idx * 0.02, obs]), idx, T_, 0.02, np.eye(3),
+                               driver.SIG_Y, [0.0, 0.0, 0.0], 100.0,
+                               dict(dtype=torch.float64, device=where))
+    return xs.to(where), prob
+
+
+def phase_lorenz_steps(dev):
+    """Phase 24: four f64 Lorenz Gibbs steps (T=64, observed every 4,
+    parallel) on the card against the CPU, given the same noise: identical
+    accept decisions, trajectories and theta to STEP_RTOL, 10 MH-kernel
+    launches a step on the card."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.models import lorenz
+    from aux_ssm_tpu_torch.ops import cuda as K
+
+    T_, n_steps, delta = 64, 4, 10.0  # at delta 10 this grid's steps accept and reject
+    runs = {}
+    for where in ("cpu", dev):
+        xs, prob = lorenz_synthetic(where, T_)
+        init, kernel = lorenz.get_gibbs_kernel(prob.ys, prob.Hs, prob.Rs, prob.cs, prob.m0,
+                                               prob.P0, LORENZ_SIGMA_X, prob.dt,
+                                               prob.sigma_theta, True)
+        rng = np.random.default_rng(24)
+        state = init(xs, prob.theta0)
+        K.reset_launches()
+        out = []
+        for _ in range(n_steps):
+            z = [torch.as_tensor(rng.standard_normal((T_, 3)), device=where) for _ in range(2)]
+            noise = ((z[0], z[1], torch.as_tensor(rng.uniform(), dtype=torch.float64,
+                                                   device=where)),
+                     torch.as_tensor(rng.standard_normal(3), device=where))
+            state = kernel(state, delta, noise=noise)
+            out.append((state.x.cpu(), bool(state.updated), state.theta.cpu()))
+        runs[str(where)] = out
+    launches = K.launches()
+    for name, (_, _, per_step) in KERNELS.items():
+        if launches[name] != per_step * n_steps:
+            raise AssertionError(f"Lorenz Gibbs: {name} launched {launches[name]} times on the "
+                                 f"card, expected {per_step * n_steps}")
+    worst = 0.0
+    for (xc, uc, tc), (xg, ug, tg) in zip(runs["cpu"], runs[str(dev)]):
+        if uc != ug:
+            raise AssertionError("Lorenz Gibbs: accept differs between card and CPU")
+        worst = max(worst, nrel(xg, xc), nrel(tg, tc))
+    accepted = [u for _, u, _ in runs["cpu"]]
+    log(f"  Lorenz Gibbs, T={T_}, f64, delta {delta:g}, accepted {accepted}: card vs CPU rel err "
+        f"{worst:.3e} (bound {STEP_RTOL:g})")
+    if not worst <= STEP_RTOL:
+        raise AssertionError(f"Lorenz Gibbs: card and CPU steps differ by {worst:.3e}")
+
+
+def phase_lorenz_chain(dev, card, out_dir):
+    """Phase 25: the Mider freq-4 Gibbs chain, f32, parallel, from the
+    committed run's mean_x and theta at its delta (1e20, frozen); then the
+    driver's `main` for a few iterations. Returns the six kernels' launches
+    in the chain."""
+    import re
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig, runner
+    from aux_ssm_tpu_torch.experiments import lorenz as driver
+    from aux_ssm_tpu_torch.experiments.lorenz import mider_problem
+    from aux_ssm_tpu_torch.models import lorenz
+    from aux_ssm_tpu_torch.ops import cuda as K
+
+    burnin, n_samples = LORENZ_SCHEDULE
+    n_iter = burnin + n_samples
+    committed = np.load(LORENZ_NPZ.format(4))
+    delta = float(committed["delta"])
+    log(f"phase 25: the Lorenz Gibbs chain on the Mider data, freq 4 (T=5001), f32, parallel, "
+        f"{burnin} + {n_samples} iterations at the committed run's delta {delta:g} (frozen), "
+        "from its mean_x and theta")
+    prob = mider_problem(4, device=dev)
+    init, kernel = lorenz.get_gibbs_kernel(prob.ys, prob.Hs, prob.Rs, prob.cs, prob.m0, prob.P0,
+                                           LORENZ_SIGMA_X, prob.dt, prob.sigma_theta, True)
+    x0 = torch.as_tensor(committed["mean_x"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    K.reset_launches()
+    res = runner.run_chain(kernel, init(x0, committed["theta"]),
+                           RunConfig(n_samples=n_samples, burnin=burnin, learning_rate=0.0),
+                           generator=gen, delta_init=delta, collect_samples=True,
+                           collect_fn=lambda s: s.theta)
+    launches = K.launches()
+    for name, count in launches.items():
+        want = KERNELS[name][2] * n_iter if name in KERNELS else 0
+        if count != want:
+            raise AssertionError(f"Lorenz: {name} launched {count} times in {n_iter} "
+                                 f"iterations, expected {want}")
+    x, theta = res.state.x, res.state.theta
+    if tuple(x.shape) != (5001, 3) or not bool(torch.isfinite(x).all()) \
+            or not bool(torch.isfinite(theta).all()):
+        raise AssertionError("Lorenz: the chain's state is not finite")
+    rate = float(res.stats.accept_cum)
+    ts, want_ts = res.samples, committed["theta_samples"]
+    z = (ts.mean(0) - want_ts.mean(0)) / want_ts.std(0)
+    rms = float(np.sqrt(np.mean((res.stats.mean_x.cpu().double().numpy()[:, 1:]
+                                 - committed["mean_x"][:, 1:]) ** 2)))
+    sps = n_samples / res.sampling_time
+    log(f"  Lorenz freq 4: update rate {rate:.4f} (committed 0.632), {sps:.2f} samples/s on "
+        f"{card}; theta mean {np.round(ts.mean(0), 3)} against the committed "
+        f"{np.round(want_ts.mean(0), 3)} (sd {np.round(want_ts.std(0), 3)}): z {np.round(z, 2)} "
+        f"(bound {LORENZ_THETA_Z}); RMS of the mean trajectory against the committed on x2, x3 "
+        f"{rms:.4f} (bound {LORENZ_MEAN_RMS:.4f}); launches a step "
+        f"{({k: v // n_iter for k, v in launches.items() if v})}")
+    if not LORENZ_RATE[0] <= rate <= LORENZ_RATE[1]:
+        raise AssertionError(f"Lorenz: update rate {rate:.4f} outside {LORENZ_RATE}")
+    if not np.all(np.abs(z) <= LORENZ_THETA_Z):
+        raise AssertionError(f"Lorenz: theta's chain mean is {z} committed sds off")
+    if not rms <= LORENZ_MEAN_RMS:
+        raise AssertionError(f"Lorenz: the mean trajectory is {rms:.4f} RMS off the committed")
+    box = [res.state]
+    events = profile_steps("Lorenz Gibbs freq 4",
+                           lambda: box.__setitem__(0, kernel(box[0], delta, generator=gen)),
+                           n=20)
+    names = [e.key for e in events]
+    missing = [k for k, pat in NARROW_NAMES.items()
+               if not any(re.search(pat, key) for key in names)]
+    wide = [key for key in names if re.search(r"_kernel<float, 32\b|Op<float, 32>", key)]
+    if missing or wide:
+        raise AssertionError(f"Lorenz: the profiler shows no D = 16 instance of {missing} or a "
+                             f"D = 32 one: {wide}")
+    log("  the six kernels in the step (device ms, by the profiler): " + ", ".join(
+        f"{k} {sum(e.self_device_time_total for e in events if re.search(pat, e.key)) / 2e4:.4f}"
+        for k, pat in NARROW_NAMES.items()))
+
+    out = Path(out_dir) / "lorenz_mider_freq4.npz"
+    log(f"  the driver: python -m aux_ssm_tpu_torch.experiments.lorenz --data mider --freq 4 "
+        f"--n-samples 50 --burnin 20 --delta-init 1e20 --out {out}")
+    driver.main(["--data", "mider", "--freq", "4", "--n-samples", "50", "--burnin", "20",
+                 "--delta-init", "1e20", "--no-verbose", "--out", str(out)])
+    saved = np.load(out)
+    keys = {"mean_x", "ejsd", "theta", "theta_samples", "delta", "sampling_time", "freq"}
+    if set(saved.files) != keys or saved["mean_x"].shape != (5001, 3) \
+            or saved["theta_samples"].shape != (50, 3) or not np.isfinite(saved["mean_x"]).all():
+        raise AssertionError(f"the Lorenz driver wrote {dict((k, saved[k].shape) for k in saved)}")
+    return {k: launches[k] for k in KERNELS}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2621,6 +2938,12 @@ def main():
     phase_sv_kalman_steps(dev)
     wide_launches = phase_sv_kalman_chains(dev, card)
     log(f"  phases 0-22 took {time.perf_counter() - tic:.1f} s")
+    lorenz = phase_lorenz_kernels(dev)
+    log("phase 24: f64 Lorenz Gibbs steps, card vs CPU")
+    phase_lorenz_steps(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        lorenz_launches = phase_lorenz_chain(dev, card, tmp)
+    log(f"  phases 0-25 took {time.perf_counter() - tic:.1f} s")
 
     sources = ({name: entry[:2] for name, entry in KERNELS.items()} | CSMC_KERNELS
                | SCALAR_KERNELS | STITCH_KERNELS)
@@ -2629,6 +2952,9 @@ def main():
                for name, (src, rep) in sources.items()]
     kernels += [{"name": f"{name}_d32", "route": "cuda", "source": src, "replaces": rep,
                  "launches": wide_launches[name], **wide[name]}
+                for name, (src, rep, _) in KERNELS.items()]
+    kernels += [{"name": f"{name}_lorenz", "route": "cuda", "source": src, "replaces": rep,
+                 "launches": lorenz_launches[name], **lorenz[name]}
                 for name, (src, rep, _) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

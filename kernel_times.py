@@ -7,7 +7,7 @@ the steps that run them.
     python3 kernel_times.py                 # the checkout this file is in
     python3 kernel_times.py --root DIR      # the checkout unpacked at DIR
     python3 kernel_times.py --parts draws   # some of: masses, lane, steps, factor, draws,
-                                            #   scan, pgas, maps, rows, scalar, sv32
+                                            #   scan, pgas, maps, rows, scalar, sv32, lorenz
 
 To compare two checkouts, unpack the other into a directory that .gitignore
 lists and run both in one machine in turns (A, B, B, A): times on one card
@@ -89,6 +89,13 @@ the same seeds:
     torch.profiler over SV kalman-1 and kalman-2 steps (the committed runs'
     data, xs_true and delta) with each of the six kernels' device ms a step.
     A checkout whose kernels take d <= 16 only cannot run it.
+  - lorenz: the six MH kernels' D = 16 instance on a real Lorenz step's
+    inputs (chip_smoke phase 23's: the Mider data at freq 4, T=5001, dx=3,
+    dy=5, the committed run's mean_x and theta, delta 1e20), the two scans
+    also at freq 2 (T=10001), f32 and f64, by CUDA events and the profiler's
+    device time; make_elements' and backward_maps' clock64 phases there;
+    torch.profiler over Lorenz Gibbs steps (freq 4) with each of the six
+    kernels' device ms a step. A checkout without the Lorenz model skips it.
 Kernel times are CUDA events around the wrapper's call. The build log's
 registers and spills of the timed kernels' template instances are printed.
 The last line is one JSON object of every number.
@@ -181,7 +188,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
     parser.add_argument("--parts",
-                        default="masses,lane,steps,factor,draws,scan,pgas,maps,rows,scalar,sv32")
+                        default="masses,lane,steps,factor,draws,scan,pgas,maps,rows,scalar,sv32,"
+                                "lorenz")
     parser.add_argument("--sass", default=None,
                         help="directory for the SASS of the draw kernels and col_sample")
     opts = parser.parse_args()
@@ -247,6 +255,8 @@ def main():
         scalar(cs, res, dev)
     if "sv32" in parts:
         sv32(cs, res, dev)
+    if "lorenz" in parts:
+        lorenz(cs, res, dev)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -707,24 +717,15 @@ def scalar(cs, res, dev):
 
 
 
-def sv32(cs, res, dev):
-    """The six MH kernels' D = 32 instance on a real SV kalman-1 step's
-    inputs, their clock64 phases, combine cycles and scan timelines, and SV
-    kalman steps under the profiler."""
+def mh_calls(steps, m0u, P0u, eps):
+    """The six MH kernels' calls on one step's inputs (as chip_smoke's
+    `mh_inputs` gives them): (calls by name, make_elements' arguments,
+    backward_maps', the elements, the gains and increments)."""
     import torch
-    from aux_ssm_tpu_torch.experiments import RunConfig, runner
-    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
     from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
     from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF
     from aux_ssm_tpu_torch.ops.filtering import _make_associative_elements
     from aux_ssm_tpu_torch.ops.sampling import _backward_maps
-    f32 = torch.float32
-    ys, xs, delta = cs.load_sv("kalman1", dev, f32)
-    dyn, obs1, _, _ = sv.get_kalman_factories(ys, *cs.SV_PARAMS)
-    gen = torch.Generator(device=dev).manual_seed(20)
-    u = xs + (0.5 * float(delta)) ** 0.5 * torch.randn(xs.shape, generator=gen, device=dev)
-    eps = torch.randn(xs.shape, generator=gen, device=dev)
-    steps, m0u, P0u = cs.mh_inputs(dyn, obs1, xs, u, float(delta))
     Fs, Qs, bs = steps[:3]
     n, d = bs.shape
     el = steps + (torch.cat([m0u[None], m0u.new_zeros(n - 1, d)]),
@@ -741,15 +742,42 @@ def sv32(cs, res, dev):
              "ell": (KF.ell, steps + filt), "backward_maps": (KF.backward_maps, margs),
              "affine_scan": (FS.affine_scan, (gains, incs, True)),
              "logdensity_steps": (KF.logdensity_steps, steps + traj)}
+    return calls, el, margs, elems, gains, incs
+
+
+def time_calls(cs, res, tag, calls):
+    """Each call's ms by CUDA events and device ms by the profiler, in f32
+    and on its inputs cast to f64, into res[f"{tag}_{name}[_f64]_ms"]."""
+    import torch
     for name, (fn, args) in calls.items():
         args64 = tuple(tuple(z.double() for z in a) if isinstance(a, tuple)
                        else a.double() if isinstance(a, torch.Tensor) else a for a in args)
-        for tag, a in (("", args), ("_f64", args64)):
-            res[f"sv32_{name}{tag}_ms"] = cs.cuda_ms(lambda: fn(*a), 50)
-            res[f"sv32_{name}{tag}_device_ms"] = device_ms(lambda: fn(*a), 20)
-    print("  sv32 kernels (events / device ms) " + ", ".join(
-        f"{name}{tag} {res[f'sv32_{name}{tag}_ms']:.4f} / {res[f'sv32_{name}{tag}_device_ms']:.4f}"
-        for name in calls for tag in ("", "_f64")), flush=True)
+        for dt, a in (("", args), ("_f64", args64)):
+            res[f"{tag}_{name}{dt}_ms"] = cs.cuda_ms(lambda: fn(*a), 50)
+            res[f"{tag}_{name}{dt}_device_ms"] = device_ms(lambda: fn(*a), 20)
+    print(f"  {tag} kernels (events / device ms) " + ", ".join(
+        f"{name}{dt} {res[f'{tag}_{name}{dt}_ms']:.4f} / {res[f'{tag}_{name}{dt}_device_ms']:.4f}"
+        for name in calls for dt in ("", "_f64")), flush=True)
+
+
+def sv32(cs, res, dev):
+    """The six MH kernels' D = 32 instance on a real SV kalman-1 step's
+    inputs, their clock64 phases, combine cycles and scan timelines, and SV
+    kalman steps under the profiler."""
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig, runner
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
+    from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF
+    f32 = torch.float32
+    ys, xs, delta = cs.load_sv("kalman1", dev, f32)
+    dyn, obs1, _, _ = sv.get_kalman_factories(ys, *cs.SV_PARAMS)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    u = xs + (0.5 * float(delta)) ** 0.5 * torch.randn(xs.shape, generator=gen, device=dev)
+    eps = torch.randn(xs.shape, generator=gen, device=dev)
+    steps, m0u, P0u = cs.mh_inputs(dyn, obs1, xs, u, float(delta))
+    calls, el, margs, elems, gains, incs = mh_calls(steps, m0u, P0u, eps)
+    time_calls(cs, res, "sv32", calls)
     KF.elements_cycles(el)
     res["sv32_elements_phases"] = phases(KF.elements_cycles(el))
     KF.maps_cycles(margs)
@@ -789,6 +817,48 @@ def sv32(cs, res, dev):
                            MH_KERNELS)
         print(f"  profile {key}: " + ", ".join(f"{k} {v:.4f}" for k, v in res[key].items()),
               flush=True)
+
+
+def lorenz(cs, res, dev):
+    """The six MH kernels' D = 16 instance on a real Lorenz step's inputs
+    (chip_smoke phase 23's: Mider freq 4, T=5001, dx=3, dy=5, delta 1e20), the
+    two scans also at freq 2 (T=10001), f32 and f64; make_elements' and
+    backward_maps' clock64 phases there; Lorenz Gibbs steps (freq 4, from the
+    committed run's mean_x and theta) under the profiler."""
+    if not hasattr(cs, "lorenz_step_inputs"):
+        print("  lorenz: not in this checkout", flush=True)
+        return
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments.lorenz import mider_problem
+    from aux_ssm_tpu_torch.models import lorenz as model
+    from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF
+    f32, delta = torch.float32, cs.LORENZ_DELTAS[0]
+    for freq, tag, names in ((2, "lorenz_T10001", ("filter_scan", "affine_scan")),
+                             (4, "lorenz", tuple(MH_KERNELS))):
+        steps, m0u, P0u, eps = cs.lorenz_step_inputs(dev, freq, f32, delta, 23)[:4]
+        calls, el, margs = mh_calls(steps, m0u, P0u, eps)[:3]
+        time_calls(cs, res, tag, {k: calls[k] for k in names})
+    KF.elements_cycles(el)  # freq 4's
+    res["lorenz_elements_phases"] = phases(KF.elements_cycles(el))
+    KF.maps_cycles(margs)
+    res["lorenz_maps_phases"] = phases(KF.maps_cycles(margs))
+    print("  lorenz make_elements median step cycles (staged, S, solve, K, end) "
+          + " ".join(f"{v:.0f}" for v in res["lorenz_elements_phases"])
+          + "; backward_maps (staged, S, solve, cov, factor, end) "
+          + " ".join(f"{v:.0f}" for v in res["lorenz_maps_phases"]), flush=True)
+    prob = mider_problem(4, device=dev)
+    committed = np.load(cs.LORENZ_NPZ.format(4))
+    init, kernel = model.get_gibbs_kernel(prob.ys, prob.Hs, prob.Rs, prob.cs, prob.m0, prob.P0,
+                                          cs.LORENZ_SIGMA_X, prob.dt, prob.sigma_theta, True)
+    box = [init(torch.as_tensor(committed["mean_x"], device=dev), committed["theta"])]
+    g = torch.Generator(device=dev).manual_seed(3)
+    for _ in range(5):
+        box[0] = kernel(box[0], delta, generator=g)
+    res["lorenz_gibbs"] = profile(lambda: box.__setitem__(0, kernel(box[0], delta, generator=g)),
+                                  20, MH_KERNELS)
+    print("  profile lorenz_gibbs: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                               res["lorenz_gibbs"].items()), flush=True)
 
 
 if __name__ == "__main__":

@@ -763,6 +763,38 @@ def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac, nan_model):
     _close(got, want)
 
 
+def test_host_elements_huge_observation_variance(host_lib):
+    """The Lorenz proposal's shape (dx = 3, the u rows stacked on two data
+    rows, dy = 5) with R = 1e160 on the u rows and the data rows missing:
+    a 2 x 2 pivot block of S then holds two diagonal entries whose product
+    overflows float64 (as R = 5e19 does float32 at delta = 1e20). Every
+    output, J's u-row part and eta included (each ~1e-160 here), must equal
+    the plain version's to rtol 1e-9 with no absolute slack."""
+    lib = host_lib["maps"]
+    T, dx, dy, big = 12, 3, 5, 1e160
+    lg, ys = _model(T, dx, dy, seed=7, stable=True)
+    m0, P0, Fs, Qs, bs, Hs, Rs, cs = lg
+    Hs, Rs, cs, ys = (z.clone() for z in (Hs, Rs, cs, ys))
+    Hs[:, :3] = torch.eye(3, dtype=torch.float64)
+    Rs[:, :3] = 0.0
+    Rs[:, :, :3] = 0.0
+    Rs[:, :3, :3] = big * torch.eye(3, dtype=torch.float64)
+    cs[:, :3] = 0.0
+    ys[:, :3] = big ** 0.5 * ys[:, :3]
+    ys[1:, 3:] = float("nan")
+    n = T - 1
+    obs = (Hs[1:].contiguous(), Rs[1:].contiguous(), cs[1:].contiguous(), ys[1:].contiguous())
+    m0u, P0u, _ = kalman_update(ys[0], m0, P0, Hs[0], cs[0], Rs[0])
+    m = torch.cat([m0u[None], torch.zeros(n - 1, dx, dtype=torch.float64)])
+    P = torch.cat([P0u[None], torch.zeros(n - 1, dx, dx, dtype=torch.float64)])
+    want = KF.make_elements_plain(Fs, Qs, bs, *obs, m, P)
+    got = tuple(torch.empty_like(w) for w in want)
+    _call(lib.h_make_elements, n, dx, dy, Fs, Qs, bs, *obs, m, P, *got)
+    assert float(want[4][1:].abs().max()) < 1e-150  # J: the u rows alone
+    for g, w in zip(got, want):
+        _close(g, w, atol=0.0)
+
+
 @pytest.mark.parametrize("case", ["zero_cov", "not_pd"])
 def test_host_backward_maps_degenerate_covariance(host_lib, case):
     """backward_maps where the conditional covariance is degenerate (n = 8,

@@ -120,6 +120,41 @@ def test_maps_match_plain(dev, T, dx, dy, nan_frac, nan_model):
     _close(*_both(KF.logdensity_steps, (Fs, Qs, bs, *obs, xs[:-1], xs[1:]), dev))
 
 
+# The Lorenz proposal's shape (dx = 3, u rows stacked on two data rows, dy =
+# 5) with a huge variance on the u rows: at delta = 1e20 (R = 5e19, float32)
+# and 1e160 (float64) the product of two diagonal entries of S overflows,
+# which a 2 x 2 pivot block's determinant took before it was scaled
+# (make_elements gave NaN on the card). The data rows are missing on every
+# step but the first, as on most Mider steps. float32 against the plain
+# version on the CPU at the norm-relative 1e-4 of chip_smoke.NREL_F32.
+@pytest.mark.parametrize("dtype,big", [(torch.float32, 5e19), (torch.float64, 1e160)])
+def test_maps_huge_observation_variance(dev, dtype, big):
+    lg, ys, _ = _element_inputs(40, 3, 5, 0.0)
+    m0, P0, Fs, Qs, bs, Hs, Rs, cs = (z.clone() for z in lg)
+    eye = torch.eye(3, dtype=torch.float64)
+    Hs[:, :3], Rs[:, :3], Rs[:, :, :3], cs[:, :3] = eye, 0.0, 0.0, 0.0
+    Rs[:, :3, :3] = big * eye
+    ys = ys.clone()
+    ys[:, :3] = big ** 0.5 * ys[:, :3]
+    ys[1:, 3:] = float("nan")
+    lg = LGSSM(m0, P0, Fs, Qs, bs, Hs, Rs, cs)
+    m0u, P0u, _ = kalman_update(ys[0], m0, P0, Hs[0], cs[0], Rs[0])
+    n = ys.shape[0] - 1
+    m = torch.cat([m0u[None], torch.zeros(n - 1, 3, dtype=torch.float64)])
+    P = torch.cat([P0u[None], torch.zeros(n - 1, 3, 3, dtype=torch.float64)])
+    ms, Ps, _ = filtering(ys, lg, parallel=True)
+    xs = torch.as_tensor(np.random.default_rng(2).standard_normal((n + 1, 3)))
+    obs = (Hs[1:], Rs[1:], cs[1:], ys[1:])
+    for fn, args in ((KF.make_elements, (Fs, Qs, bs, *obs, m, P)),
+                     (KF.ell, (Fs, Qs, bs, *obs, ms[:-1], Ps[:-1])),
+                     (KF.logdensity_steps, (Fs, Qs, bs, *obs, xs[:-1], xs[1:]))):
+        want, got = _both(fn, tuple(a.to(dtype).contiguous() for a in args), dev)
+        for g, w in zip(got, want):
+            assert bool(torch.isfinite(g).all()), fn.__name__
+            err = float((g.double() - w.double()).norm() / w.double().norm())
+            assert err <= (1e-4 if dtype == torch.float32 else 1e-9), (fn.__name__, err)
+
+
 def _column_cholesky(M):
     """The lower Cholesky factor of M column by column, entries times 1 /
     diag, as the JAX kernel's lanelin.chol; NaN and inf from a pivot that is
