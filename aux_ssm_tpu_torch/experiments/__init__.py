@@ -1,4 +1,19 @@
-"""Experiment loops (counterpart of `aux_ssm_tpu/experiments/`)."""
+"""Experiment loops and drivers (counterpart of `aux_ssm_tpu/experiments/`).
+
+The drivers (`sv`, `spatial`, `lorenz`), their shared flags (`cli`) and the
+analysis artifacts (`figures`) load on first access, so that `python -m
+aux_ssm_tpu_torch.experiments.<driver>` runs a module the package has not
+imported already."""
+import importlib
+
 from .runner import RunConfig, RunResult, run_chain
 
-__all__ = ["RunConfig", "RunResult", "run_chain"]
+_MODULES = ("cli", "figures", "lorenz", "spatial", "sv")
+
+__all__ = ["RunConfig", "RunResult", "run_chain", *_MODULES]
+
+
+def __getattr__(name):
+    if name in _MODULES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

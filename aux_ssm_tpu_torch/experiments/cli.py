@@ -2,15 +2,17 @@
 `aux_ssm_tpu/experiments/cli.py`): the same flags and defaults.
 
 One chain a run: `--n-chains` above 1 needs chain batching
-(`parallel/chains.py`) and `--checkpoint-dir` needs `utils/checkpoint.py`,
-neither ported; both raise NotImplementedError.
+(`parallel/chains.py`), not ported, and raises NotImplementedError.
+`--checkpoint-dir` (with `--checkpoint-every`) makes a run resumable: a
+killed run started again with the same arguments goes on from its newest
+checkpoint, bit for bit (`runner.run_chain`).
 """
 import argparse
 
 import numpy as np
 import torch
 
-from ..config import BackendConfig
+from ..config import BackendConfig, ExperimentConfig, MeshConfig, SamplerConfig
 from .runner import RunConfig, run_chain
 
 
@@ -50,6 +52,27 @@ def base_parser(description):
     return p
 
 
+def experiment_config(args, **overrides):
+    """The typed `ExperimentConfig` of parsed arguments, as the JAX
+    package's `experiment_config` builds it."""
+    mesh_n = getattr(args, "mesh_chains", 0)
+    kw = dict(
+        backend=BackendConfig(precision=args.precision, platform=args.platform,
+                              debug=args.debug, debug_nans=args.debug_nans),
+        mesh=MeshConfig(axis_names=("chains",), axis_sizes=(mesh_n,) if mesh_n else None),
+        sampler=SamplerConfig(style=args.style, parallel=args.parallel,
+                              gradient=args.gradient, backward=args.backward,
+                              n_particles=args.n_particles, resampling=args.resampling),
+        run=run_config(args),
+        seed=args.seed,
+        n_chains=getattr(args, "n_chains", 1),
+        checkpoint_dir=getattr(args, "checkpoint_dir", None),
+        checkpoint_every=getattr(args, "checkpoint_every", 0),
+    )
+    kw.update(overrides)
+    return ExperimentConfig(**kw)
+
+
 def apply_backend(args):
     """Apply the backend flags; returns the `BackendConfig` (its `dtype` and
     `device` are the run's)."""
@@ -69,15 +92,16 @@ def run_config(args, **overrides):
 
 def run_maybe_sharded(generator, kernel, state, cfg, args, *, collect_samples=False,
                       delta_init=None, collect_fn=None):
-    """One chain through `run_chain`; returns (res, None), the None standing
-    for the cross-chain diagnostics of several chains."""
+    """One chain through `run_chain`, checkpointed under `--checkpoint-dir`
+    every `--checkpoint-every` iterations when given; returns (res, None),
+    the None standing for the cross-chain diagnostics of several chains."""
     n_chains = getattr(args, "n_chains", 1)
     if n_chains > 1:
         raise NotImplementedError(f"--n-chains {n_chains}: chain batching is not ported "
                                   "(it needs parallel/chains.py)")
     res = run_chain(kernel, state, cfg, generator=generator, collect_samples=collect_samples,
                     delta_init=delta_init, checkpoint_dir=getattr(args, "checkpoint_dir", None),
-                    collect_fn=collect_fn)
+                    checkpoint_every=getattr(args, "checkpoint_every", 0), collect_fn=collect_fn)
     return res, None
 
 

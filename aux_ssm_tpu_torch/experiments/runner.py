@@ -5,9 +5,24 @@ sampling phase with online EJSD/moment statistics.
 
 The loop runs on the host, one kernel call per iteration, and never reads a
 device value back except to print progress (`verbose`) or to collect
-samples. The sampling phase is timed on the host clock, fenced with
-`torch.cuda.synchronize()` when the state lies on the card.
-Checkpointing is not ported (it needs `utils/checkpoint.py`).
+samples. It runs in segments: of `checkpoint_every` iterations when
+checkpointing, of at most COLLECT_SEGMENT while collecting samples, else one
+a phase. Segment boundaries do not change the chain. Each sampling segment
+is timed on the host clock between two device fences
+(`utils.profiling.fence`); `sampling_time` is their sum, and the copies of
+collected samples to the host and the checkpoint writes fall outside it.
+
+Checkpoint/resume: with `checkpoint_dir`, the loop saves its whole state
+(phase, iteration, sampler state, delta, statistics, the samples collected
+so far, the sampling time so far and the random generator's state) after
+every segment (`utils/checkpoint.py`), and a later call with the same
+arguments resumes from the newest checkpoint. The kernels draw from one
+stateful `torch.Generator` (the JAX loop derives each iteration's key by
+`fold_in(phase_key, i)` instead), so the generator's state is saved and
+restored with the chain and nothing else draws from it between segments: a
+run killed anywhere resumes bit for bit. A checkpointed run therefore needs
+a generator of its own; the default generator is shared with every other
+caller.
 """
 import time
 from dataclasses import dataclass
@@ -17,7 +32,15 @@ import numpy as np
 import torch
 
 from ..kernels.adaptation import delta_adaptation
+from ..utils.profiling import fence as _fence
 from ..utils.stats import OnlineStats, init_stats, update_stats
+
+_BURNIN_PHASE, _SAMPLE_PHASE = 0, 1
+# Collected samples wait on the device for at most this many iterations
+# before they are copied into the host buffer (outside the timer).
+COLLECT_SEGMENT = 256
+# Checkpoints kept on disk: the newest and the one before it.
+KEEP_CHECKPOINTS = 2
 
 
 @dataclass(frozen=True)
@@ -46,11 +69,6 @@ class RunResult:
     sampling_time: float         # wall-clock seconds of the sampling phase
 
 
-def _fence(x):
-    if x.device.type == "cuda":
-        torch.cuda.synchronize(x.device)
-
-
 def _learning_rate(cfg, n_total, i):
     """cfg.learning_rate * (n_total - i) / n_total, the linearly decaying
     adaptation rate, in float32 arithmetic as the JAX loop computes it: its
@@ -60,10 +78,15 @@ def _learning_rate(cfg, n_total, i):
     return float((f32(n_total) - f32(i)) * (f32(cfg.learning_rate) / f32(n_total)))
 
 
+def _save(directory, payload, step):
+    from ..utils.checkpoint import save_checkpoint
+    save_checkpoint(directory, step, payload, keep=KEEP_CHECKPOINTS)
+
+
 def run_chain(kernel: Callable, init_state, cfg: RunConfig, generator=None,
               collect_samples: bool = False, get_stats_x: Callable = lambda s: s.x,
               delta_init=None, checkpoint_dir: Optional[str] = None,
-              collect_fn: Callable = None) -> RunResult:
+              checkpoint_every: int = 0, collect_fn: Callable = None) -> RunResult:
     """Burn-in with adaptation, then frozen-delta sampling.
 
     `kernel(state, delta, generator=None) -> state`, with `state.updated` a
@@ -71,49 +94,106 @@ def run_chain(kernel: Callable, init_state, cfg: RunConfig, generator=None,
     cfg.delta_init and may be a (T,) vector: a per-step acceptance vector
     then adapts it elementwise, while a scalar delta adapts on the mean
     rate. `collect_fn` overrides what `collect_samples` records per
-    iteration (default `get_stats_x`). `sampling_time` excludes burn-in.
+    iteration (default `get_stats_x`); the samples come back as one host
+    NumPy array. `sampling_time` excludes burn-in.
+
+    With `checkpoint_dir`, the loop saves its state every `checkpoint_every`
+    iterations (0: at the end of each phase) and resumes from the newest
+    checkpoint there, bit for bit as an uninterrupted run; `generator` must
+    then be given.
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpointing is not ported (it needs utils/checkpoint.py)")
+    if checkpoint_dir is not None and generator is None:
+        raise ValueError("checkpoint_dir needs a generator of the run's own: the default "
+                         "generator's state is shared with every other caller")
+    collect_fn = collect_fn or get_stats_x
     x = get_stats_x(init_state)
     delta = torch.as_tensor(cfg.delta_init if delta_init is None else delta_init,
                             dtype=x.dtype, device=x.device)
-    collect_fn = collect_fn or get_stats_x
-    state = init_state
+    n_burn = max(cfg.burnin, 1)
 
-    def run_phase(n_total, adapt, collect, state, delta):
-        stats = init_stats(get_stats_x(state), accept_shape=tuple(state.updated.shape))
-        out = []
-        for i in range(n_total):
-            x_prev = get_stats_x(state)
-            state = kernel(state, delta, generator=generator)
-            stats = update_stats(stats, x_prev, get_stats_x(state), state.updated, beta=cfg.beta)
-            if adapt:
-                rate = stats.accept_win if cfg.adapt_on_window else stats.accept_cum
-                if rate.dim() > delta.dim():
-                    rate = rate.mean()
-                delta = delta_adaptation(delta, cfg.target_alpha, rate,
-                                         _learning_rate(cfg, n_total, i),
-                                         cfg.min_delta, cfg.max_delta)
-            if cfg.verbose and i % cfg.print_every == 0:
-                print(f"    iter {i:>7d}  delta[{float(delta.min()):.3e},"
-                      f"{float(delta.max()):.3e}]  acc_win "
-                      f"{float(stats.accept_win.mean()):.3f}  acc_cum "
-                      f"{float(stats.accept_cum.mean()):.3f}", flush=True)
+    def fresh_stats(state):
+        return init_stats(get_stats_x(state), accept_shape=tuple(state.updated.shape))
+
+    phase, it, state = _BURNIN_PHASE, 0, init_state
+    stats = fresh_stats(state)
+    sample_buf, n_collected, sampling_time = None, 0, 0.0
+
+    def payload():
+        return {"phase": phase, "iter": it, "state": state, "delta": delta, "stats": stats,
+                "samples": None if sample_buf is None else sample_buf[:n_collected].clone(),
+                "n_collected": n_collected, "sampling_time": sampling_time,
+                "generator": generator.get_state()}
+
+    if checkpoint_dir is not None:
+        from ..utils.checkpoint import latest_step, restore_checkpoint
+        if latest_step(checkpoint_dir) is not None:
+            # The samples and the generator's state stay on the host.
+            target = dict(payload(), samples=torch.empty(0))
+            _, saved = restore_checkpoint(checkpoint_dir, target=target)
+            phase, it, sampling_time = saved["phase"], saved["iter"], saved["sampling_time"]
+            state, delta, stats = saved["state"], saved["delta"], saved["stats"]
+            generator.set_state(saved["generator"])
+            n_collected = saved["n_collected"] if collect_samples else 0
+            if n_collected:
+                prev = saved["samples"]
+                sample_buf = torch.empty((cfg.n_samples,) + prev.shape[1:], dtype=prev.dtype)
+                sample_buf[:n_collected] = prev
+
+    def run_phase(phase_id, n_total, adapt, collect):
+        nonlocal state, delta, stats, it, sample_buf, n_collected, sampling_time
+        every = n_total
+        if checkpoint_dir is not None and checkpoint_every > 0:
+            every = checkpoint_every
+        if collect:
+            every = min(every, COLLECT_SEGMENT)
+        while it < n_total:
+            length = min(every, n_total - it)
+            seg = None
+            _fence(delta)
+            tic = time.perf_counter()
+            for i in range(it, it + length):
+                x_prev = get_stats_x(state)
+                state = kernel(state, delta, generator=generator)
+                stats = update_stats(stats, x_prev, get_stats_x(state), state.updated,
+                                     beta=cfg.beta)
+                if adapt:
+                    rate = stats.accept_win if cfg.adapt_on_window else stats.accept_cum
+                    if rate.dim() > delta.dim():
+                        rate = rate.mean()
+                    delta = delta_adaptation(delta, cfg.target_alpha, rate,
+                                             _learning_rate(cfg, n_total, i),
+                                             cfg.min_delta, cfg.max_delta)
+                if cfg.verbose and i % cfg.print_every == 0:
+                    print(f"    iter {i:>7d}  delta[{float(delta.min()):.3e},"
+                          f"{float(delta.max()):.3e}]  acc_win "
+                          f"{float(stats.accept_win.mean()):.3f}  acc_cum "
+                          f"{float(stats.accept_cum.mean()):.3f}", flush=True)
+                if collect:
+                    value = collect_fn(state).detach()
+                    if seg is None:
+                        seg = torch.empty((length,) + value.shape, dtype=value.dtype,
+                                          device=value.device)
+                    seg[i - it].copy_(value)
+            _fence(delta)
+            if phase_id == _SAMPLE_PHASE:
+                sampling_time += time.perf_counter() - tic
+            it += length
             if collect:
-                out.append(collect_fn(state).detach().clone())
-        return state, delta, stats, out
+                if sample_buf is None:
+                    sample_buf = torch.empty((cfg.n_samples,) + seg.shape[1:], dtype=seg.dtype)
+                sample_buf[n_collected:n_collected + length] = seg.cpu()
+                n_collected += length
+            if checkpoint_dir is not None:
+                _save(checkpoint_dir, payload(), step=phase_id * 10 ** 9 + it)
 
-    state, delta, _, _ = run_phase(max(cfg.burnin, 1), True, False, state, delta)
-    _fence(delta)
-    tic = time.perf_counter()
-    state, delta, stats, out = run_phase(cfg.n_samples, False, collect_samples, state, delta)
-    _fence(delta)
-    sampling_time = time.perf_counter() - tic
+    if phase == _BURNIN_PHASE:
+        run_phase(_BURNIN_PHASE, n_burn, True, False)
+        phase, it, stats = _SAMPLE_PHASE, 0, fresh_stats(state)
+    run_phase(_SAMPLE_PHASE, cfg.n_samples, False, collect_samples)
 
     samples = None
     if collect_samples:
-        samples = (torch.stack(out).cpu().numpy() if out
+        samples = (sample_buf[:n_collected].numpy() if n_collected
                    else np.zeros((0,), dtype=np.float32))
     return RunResult(state=state, stats=stats, delta=delta, samples=samples,
                      sampling_time=sampling_time)

@@ -1,0 +1,92 @@
+"""Spatio-temporal Student-t experiment driver (counterpart of
+`aux_ssm_tpu/experiments/spatial.py`; default T=1024 on an 8x8 grid, so
+B = 64 components).
+
+    python -m aux_ssm_tpu_torch.experiments.spatial --style kalman-2 --T 1024 --D 8
+    python -m aux_ssm_tpu_torch.experiments.spatial --style csmc-guided --platform cpu --T 12 --D 3
+
+Runs on the card unless `--platform cpu`. The kalman styles run the batched
+scalar layout (two scalar filter scans and one scalar affine scan a step);
+csmc and csmc-guided carry a (T,) delta. Saves the JAX driver's .npz keys:
+mean_x, var_x, ejsd, delta, xs_true, ys, sampling_time.
+
+The data come from `np.random.default_rng(--seed)`, the JAX driver's own
+simulation draw for draw, so `xs_true` and `ys` equal the JAX driver's for
+the same seed. The start (`init_x_fn`, seed + 1) and the chain (seed + 2)
+draw from `torch.Generator`s on the run's device. `--batch-sharded` needs
+the multi-device `parallel/batch.py`, which is not ported.
+"""
+import numpy as np
+import torch
+
+from ..models import spatial as sp
+from ..native.precision import precision_stencil
+from . import cli
+
+SIGMA_X, TAU, R_Y, NU = 0.3, -0.25, 1.0, 4.0
+
+
+def build_kernel(style, ys, args):
+    """(init, kernel), and whether the style is a cSMC one ((T,) delta)."""
+    common = (ys, SIGMA_X, NU, TAU, R_Y, args.D)
+    if style in ("kalman-1", "kalman-2"):
+        order = 1 if style == "kalman-1" else 2
+        return sp.get_kalman_kernel(*common, parallel=args.parallel, order=order), False
+    if style == "csmc":
+        return sp.get_csmc_kernel(*common, args.n_particles, backward=args.backward,
+                                  parallel=args.parallel, gradient=args.gradient,
+                                  resampling=args.resampling), True
+    if style == "csmc-guided":
+        return sp.get_guided_csmc_kernel(*common, args.n_particles, backward=args.backward,
+                                         gradient=args.gradient,
+                                         resampling=args.resampling), True
+    raise ValueError(f"unknown style {style!r}")
+
+
+def main(argv=None):
+    p = cli.base_parser("Spatio-temporal Student-t experiment")
+    p.add_argument("--T", type=int, default=1024)
+    p.add_argument("--D", type=int, default=8, help="grid side; state dim = D^2")
+    p.add_argument("--batch-sharded", action="store_true",
+                   help="shard the B = D^2 component axis over all devices "
+                        "(kalman styles only)")
+    args = p.parse_args(argv)
+    if args.batch_sharded:
+        raise NotImplementedError("--batch-sharded: sharding the component axis over devices "
+                                  "is not ported (it needs parallel/batch.py)")
+    backend = cli.apply_backend(args)
+    device = backend.device
+
+    xs_true, ys64 = sp.get_data(np.random.default_rng(args.seed), SIGMA_X, R_Y, TAU, NU,
+                                args.D, args.T, device="cpu")
+    ys = ys64.to(dtype=backend.dtype, device=device)
+    stencil = torch.as_tensor(precision_stencil(TAU, R_Y), dtype=ys.dtype, device=device)
+    x0 = sp.init_x_fn(ys, SIGMA_X, NU, stencil, args.D, max(args.n_particles, 32),
+                      generator=torch.Generator(device=device).manual_seed(args.seed + 1))
+
+    (init, kernel), is_csmc = build_kernel(args.style, ys, args)
+    state = init(x0)
+
+    delta0 = args.delta_init * (torch.ones(args.T, dtype=ys.dtype, device=device)
+                                if is_csmc else 1.0)
+    cfg = cli.run_config(args)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    res, diag = cli.run_maybe_sharded(gen, kernel, state, cfg, args, collect_samples=False,
+                                      delta_init=delta0)
+    stats = res.stats
+
+    print(f"style={args.style} T={args.T} D={args.D} (d={args.D ** 2}): "
+          f"time={res.sampling_time:.2f}s "
+          f"({cfg.n_samples / res.sampling_time:.1f} samples/s), "
+          f"acc={float(stats.accept_cum.mean()):.3f}, "
+          f"mean EJSD={float(stats.ejsd.mean()):.4g}"
+          f"{cli.chain_summary(res, diag, cfg)}")
+
+    cli.save_results(args.out, mean_x=stats.mean_x, var_x=stats.mean_x2 - stats.mean_x ** 2,
+                     ejsd=stats.ejsd, delta=res.delta, xs_true=xs_true, ys=ys64,
+                     sampling_time=res.sampling_time)
+    return res
+
+
+if __name__ == "__main__":
+    main()

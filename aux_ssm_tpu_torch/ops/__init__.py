@@ -1,6 +1,6 @@
 """Inference ops of the auxiliary-Kalman MH step (counterpart of
 `aux_ssm_tpu/ops/`)."""
-from . import mvn
+from . import dnc_sampling, mvn
 from .chol import safe_cholesky
 from .lgssm import (LGSSM, log_likelihood, make_target_logpdf, posterior_logpdf,
                     prior_logpdf, trajectory_logdensity)
@@ -8,6 +8,7 @@ from .filtering import filtering
 from .sampling import sampling
 
 __all__ = [
+    "dnc_sampling",
     "mvn",
     "safe_cholesky",
     "LGSSM",

@@ -197,18 +197,46 @@ rows, dy=5: the MH kernels' D = 16 instance; benchmarks/lorenz_mider.sh):
      and x3; samples/s, a profile of one step and each kernel's device ms
      in it; then the driver's `main` (`--data mider --freq 4 --n-samples 50
      --burnin 20 --delta-init 1e20`) must write the JAX driver's .npz keys.
+The experiment drivers (`experiments/sv.py`, `experiments/spatial.py`) with
+resumable checkpoints (`utils/checkpoint.py`), and the divide-and-conquer
+sampler (`ops/dnc_sampling.py`), each driver run with the launch counters
+reset before it and read after it:
+ 26. the SV driver at T=250, D=30, f32: kalman-1 at SV_DRIVER_SCHEDULE from
+     the simulated states (`--init truth`: from `init_x_fn`'s degenerate
+     bootstrap-filter draw at D = 30 the chain accepts nothing for 60-200
+     iterations and is still travelling after 400, so no cut schedule could
+     hold phase 22's rate) at --delta-init SV_DRIVER_DELTA,
+     uninterrupted, and again checkpointed
+     every SV_DRIVER_EVERY iterations, killed (a dying `runner._save`) after
+     its second sampling segment and resumed: the resumed .npz equals the
+     uninterrupted one bit for bit in every key but sampling_time, the
+     killed and resumed runs' launches add up to the uninterrupted run's,
+     the update rate lies in SV_KALMAN_RATE (phase 22's), each save's
+     seconds printed; then csmc (parallel-in-time) and csmc-guided at
+     SV_DRIVER_SHORT: the JAX driver's keys and shapes, finite, and the
+     launches a step of phases 18 and 6; samples/s of each;
+ 27. the spatial driver at T=1024, 8x8, N=25, f32, kalman-2 and csmc-guided
+     at SP_DRIVER_SCHEDULE: `xs_true` and `ys` equal `get_data`'s from the
+     seed, the JAX driver's keys and shapes, finite moments, exact launches
+     (kalman: two scalar filter scans and one scalar affine scan a step);
+ 28. `dnc_sampling` in f64: one draw on the flagship LGSSM's filter output
+     (T=1024, dx=16) given fixed noise, card against CPU within STEP_RTOL;
+     DNC_DRAWS draws at T=64, dx=4 against as many of the scan sampler's
+     (`ops.sampling`, parallel): means and standard deviations at every
+     (t, i) within DNC_Z_MAX standard errors.
 To make room, phase 3 runs 100 steps (200 before), phase 10 300 + 1000
 iterations (300 + 2000 before), phase 11 300 + 700 iterations a chain of
 the hardest cell, which is reported and not bounded (500 + 1500 before),
 and 500 + 1500 a bounded chain (500 + 2500 before), phase 15's replicate
-chains 300 + 2000 (kalman-1) and 300 + 1500 (csmc-guided) (300 + 3000 and
-300 + 2000 before), and phase 19 at T=2 300 + 600 (300 + 1200 before) and
+chains 300 + 1500 (kalman-1) and 300 + 1500 (csmc-guided) (300 + 3000, then
+300 + 2000, and 300 + 2000 before), and phase 19 at T=2 300 + 600 (300 + 1200 before) and
 at T=256 300 + 400 (300 + 700 before): every bound is in units of the
 chain's own Monte-Carlo error, so a shorter chain widens it and keeps its
 meaning. The whole takes 250-480 s with the build on an H100, as fast as
 the host is (190-340 s before the PIT phases, 80-150 s before the spatial
-ones); phases 20-22 take ~40 s, phases 23-25 ~40 s, and the D = 32
-instances' build ~10 s more.
+ones); phases 20-22 take ~40 s, phases 23-25 ~40 s, phases 26-28 ~22-25
+s, and the D = 32 instances' build ~10 s more; with phase 15's kalman-1
+replicates still at 300 + 2000 the whole took 438.9 s with the build.
 Each kernel's entry of the JSON summary carries its bound: the least time the
 card could take for the call, the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the 67
@@ -230,7 +258,9 @@ alone where N <= 32. The line before the last is the kernels' JSON summary;
 the D = 32 instances have entries of their own (`make_elements_d32`, ...:
 phase 20's numbers at the SV shape, phase 22's launches), and so have the
 six kernels at the Lorenz shape (`make_elements_lorenz`, ...: phase 23's
-numbers at delta 1e20, phase 25's launches); the last line is
+numbers at delta 1e20, phase 25's launches); the launches of phases 26-27's
+uninterrupted driver runs are added to each kernel's count (the SV kalman
+ones to the D = 32 entries); the last line is
 {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -1500,7 +1530,7 @@ SPATIAL_SCHEDULE = {"kalman-1": (100, 200, 0.5), "kalman-2": (100, 200, 0.5),
                     "csmc": (100, 200, 0.25), "csmc-guided": (100, 200, 0.25),
                     "csmc-guided-grad": (100, 200, 0.25)}
 # The pair held against each other, from an exact posterior draw.
-SPATIAL_PAIR = {"kalman-1": (300, 2000, 0.5), "csmc-guided": (300, 1500, 0.25)}  # two chains each
+SPATIAL_PAIR = {"kalman-1": (300, 1500, 0.5), "csmc-guided": (300, 1500, 0.25)}  # two chains each
 SP_BLOCKS = 16                     # time blocks of the pooled functionals
 Z_MAX, Z_RMS = 6.0, 1.5            # bounds on z-scores against one posterior draw
 Z_RMS_CROSS = 2.0                  # on the RMS z between the two samplers
@@ -2861,6 +2891,249 @@ def phase_lorenz_chain(dev, card, out_dir):
     return {k: launches[k] for k in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# The experiment drivers on the card (experiments/sv.py, experiments/spatial.py
+# with utils/checkpoint.py) and the divide-and-conquer sampler
+# ---------------------------------------------------------------------------
+
+SV_DRIVER_SCHEDULE = (100, 200)    # burn-in + sampling of the checkpointed kalman-1 run
+SV_DRIVER_EVERY = 50               # checkpoint period: burn-in 50, 100, sampling 50, ..., 200
+SV_DRIVER_DELTA = 0.0441           # --delta-init: the committed kalman-1 run's adapted delta
+SV_DRIVER_SHORT = (30, 60)         # burn-in + sampling of the csmc and csmc-guided runs
+SV_KEYS = {"samples_mean", "samples_std", "ejsd", "delta", "xs_true", "ys", "sampling_time"}
+SP_DRIVER_SCHEDULE = (50, 100)     # burn-in + sampling of the spatial driver's runs
+SP_KEYS = {"mean_x", "var_x", "ejsd", "delta", "xs_true", "ys", "sampling_time"}
+DNC_Z_MAX = 6.0                    # |z| of the D&C draws' moments against the scan sampler's
+DNC_DRAWS = 512
+
+
+class Killed(RuntimeError):
+    """Raised by a dying checkpoint save to cut a driver's run short."""
+
+
+def driver_run(main, argv, per_iter, n_iter, label, card):
+    """`main(argv)` of a driver with the launch counters reset before and
+    read after: each kernel of `per_iter` launched exactly that many times an
+    iteration, no other. Returns (result, the saved .npz as a dict)."""
+    import numpy as np
+    from aux_ssm_tpu_torch.ops import cuda as K
+    K.reset_launches()
+    res = main(argv)
+    launches = K.launches()
+    for name, count in launches.items():
+        if count != per_iter.get(name, 0) * n_iter:
+            raise AssertionError(f"{label}: {name} launched {count} times in {n_iter} "
+                                 f"iterations, expected {per_iter.get(name, 0)} each")
+    out = argv[argv.index("--out") + 1]
+    with np.load(out) as z:
+        saved = {k: z[k] for k in z.files}
+    n_samples = int(argv[argv.index("--n-samples") + 1])
+    log(f"  {label}: update rate {float(res.stats.accept_cum.mean()):.4f}, "
+        f"{n_samples / res.sampling_time:.2f} samples/s on {card}, launches a step "
+        f"{({k: v // n_iter for k, v in launches.items() if v})}")
+    return res, saved, launches
+
+
+def check_saved(label, saved, keys, shapes):
+    """The driver's .npz holds the JAX driver's keys with its shapes, finite."""
+    got = {k: tuple(v.shape) for k, v in saved.items()}
+    if set(saved) != keys or any(got[k] != shape for k, shape in shapes.items()):
+        raise AssertionError(f"{label}: the driver wrote {got}")
+    import numpy as np
+    bad = [k for k, v in saved.items() if not np.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"{label}: non-finite {bad}")
+
+
+def phase_sv_driver(dev, card, out_dir):
+    """Phase 26: `experiments.sv.main` on the card at T=250, D=30, f32:
+    kalman-1 checkpointed every SV_DRIVER_EVERY iterations, killed after its
+    second sampling segment and resumed, against an uninterrupted run (bit
+    for bit but the sampling time); then csmc (PIT) and csmc-guided at a
+    short schedule. Returns the kernels' launches of the uninterrupted runs."""
+    import numpy as np
+    from aux_ssm_tpu_torch.experiments import runner
+    from aux_ssm_tpu_torch.experiments import sv as driver
+    from aux_ssm_tpu_torch.ops import cuda as K
+
+    burnin, n_samples = SV_DRIVER_SCHEDULE
+    n_iter = burnin + n_samples
+    out = Path(out_dir)
+    log(f"phase 26: the SV driver, T={SV_T}, D={SV_D}, f32: kalman-1 {burnin} + {n_samples} "
+        f"iterations from the simulated states (--init truth) at --delta-init "
+        f"{SV_DRIVER_DELTA}, checkpointed every {SV_DRIVER_EVERY}, killed after its second "
+        "sampling segment and resumed, against an uninterrupted run")
+
+    def argv(style, name, schedule, *extra):
+        return ["--style", style, "--T", str(SV_T), "--D", str(SV_D), "--N", str(SV_N),
+                "--burnin", str(schedule[0]), "--n-samples", str(schedule[1]), "--no-verbose",
+                "--out", str(out / f"{name}.npz"), *extra]
+
+    mh_step = {name: per_step for name, (_, _, per_step) in KERNELS.items()}
+    start = ["--init", "truth", "--delta-init", str(SV_DRIVER_DELTA)]
+    kalman = argv("kalman-1", "sv_kalman1", SV_DRIVER_SCHEDULE, *start)
+    full, want, total = driver_run(driver.main, kalman, mh_step, n_iter,
+                                   "kalman-1 uninterrupted", card)
+    rate = float(full.stats.accept_cum)
+    if not SV_KALMAN_RATE[0] <= rate <= SV_KALMAN_RATE[1]:
+        raise AssertionError(f"SV driver kalman-1: update rate {rate:.4f} outside "
+                             f"{SV_KALMAN_RATE}")
+
+    # Killed at the save that ends the second sampling segment.
+    save, saves, kill_at = runner._save, [], burnin // SV_DRIVER_EVERY + 2
+
+    def timed_save(directory, payload, step):
+        tic = time.perf_counter()
+        save(directory, payload, step)
+        saves.append((step, time.perf_counter() - tic))
+        if len(saves) == kill_at:
+            raise Killed()
+
+    ckpt = ["--checkpoint-dir", str(out / "ckpt"), "--checkpoint-every", str(SV_DRIVER_EVERY)]
+    resumed_argv = argv("kalman-1", "sv_kalman1_resumed", SV_DRIVER_SCHEDULE, *start, *ckpt)
+    runner._save = timed_save
+    try:
+        K.reset_launches()
+        try:
+            driver.main(resumed_argv)
+            raise AssertionError("SV driver: the dying save did not cut the run")
+        except Killed:
+            pass
+        killed = K.launches()
+        kill_at = 0
+        resumed, got, rest = driver_run(driver.main, resumed_argv, mh_step,
+                                        n_samples - 2 * SV_DRIVER_EVERY, "kalman-1 resumed",
+                                        card)
+    finally:
+        runner._save = save
+    want_steps = ([phase * 10 ** 9 + i for phase, n in ((0, burnin), (1, n_samples))
+                   for i in range(SV_DRIVER_EVERY, n + 1, SV_DRIVER_EVERY)])
+    if [k for k, _ in saves] != want_steps:
+        raise AssertionError(f"SV driver: checkpoints at {[k for k, _ in saves]}")
+    if any(killed[k] + rest[k] != total[k] for k in total):
+        raise AssertionError(f"SV driver: killed {killed} + resumed {rest} launches differ from "
+                             f"the uninterrupted run's {total}")
+    check_saved("SV kalman-1", want, SV_KEYS, {"samples_mean": (SV_T, SV_D), "delta": ()})
+    differ = [k for k in want if k != "sampling_time" and not np.array_equal(got[k], want[k])]
+    if differ or not np.array_equal(resumed.state.x.cpu().numpy(), full.state.x.cpu().numpy()):
+        raise AssertionError(f"SV driver: the resumed run differs from the uninterrupted one "
+                             f"in {differ or 'the final state'}")
+    log(f"  kalman-1 resumed from sampling iteration {2 * SV_DRIVER_EVERY}: every key but "
+        f"sampling_time bit for bit the uninterrupted run's; update rate {rate:.4f} (bounds "
+        f"{SV_KALMAN_RATE}); checkpoint saves on {card} (step: s) "
+        + ", ".join(f"{k}: {t:.4f}" for k, t in saves))
+
+    burnin, n_samples = SV_DRIVER_SHORT
+    pit = dict(pit_launches(SV_T, SV_N))
+    guided = {"block_lane_scan": 1, "backward_factor_scan": FACTOR_LAUNCHES}
+    for style, per_iter in (("csmc", pit), ("csmc-guided", guided)):
+        res, saved, launches = driver_run(
+            driver.main, argv(style, f"sv_{style}", SV_DRIVER_SHORT), per_iter,
+            burnin + n_samples, f"{style} ({'parallel-in-time' if style == 'csmc' else 'guided'})"
+            f", {burnin} + {n_samples} iterations", card)
+        check_saved(f"SV {style}", saved, SV_KEYS,
+                    {"samples_mean": (SV_T, SV_D), "samples_std": (SV_T, SV_D),
+                     "ejsd": (SV_T, SV_D), "xs_true": (SV_T, SV_D), "ys": (SV_T, SV_D),
+                     "delta": (SV_T,), "sampling_time": ()})
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_spatial_driver(dev, card, out_dir):
+    """Phase 27: `experiments.spatial.main` on the card at T=1024, 8x8, N=25,
+    f32, kalman-2 and csmc-guided at SP_DRIVER_SCHEDULE: the data equal
+    `get_data`'s from the seed, the JAX driver's keys and shapes, finite
+    moments, exact launches. Returns the launches."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments import spatial as driver
+
+    burnin, n_samples = SP_DRIVER_SCHEDULE
+    B = SP_D * SP_D
+    log(f"phase 27: the spatial driver, T={SP_T}, {SP_D}x{SP_D}, N={SP_N}, f32, {burnin} + "
+        f"{n_samples} iterations, seed {SP_SEED}")
+    xs, ys = (z.numpy() for z in spatial_data("cpu", torch.float64))
+    total = {}
+    for style in ("kalman-2", "csmc-guided"):
+        argv = ["--style", style, "--T", str(SP_T), "--D", str(SP_D), "--N", str(SP_N),
+                "--seed", str(SP_SEED), "--burnin", str(burnin), "--n-samples", str(n_samples),
+                "--no-verbose", "--out", str(Path(out_dir) / f"spatial_{style}.npz")]
+        res, saved, launches = driver_run(driver.main, argv, spatial_per_iter(style),
+                                          burnin + n_samples, style, card)
+        x_shape = (SP_T, B, 1) if style.startswith("kalman") else (SP_T, B)
+        check_saved(f"spatial {style}", saved, SP_KEYS,
+                    {"mean_x": x_shape, "var_x": x_shape, "ejsd": x_shape,
+                     "xs_true": (SP_T, B), "ys": (SP_T, B), "sampling_time": (),
+                     "delta": (SP_T,) if style.startswith("csmc") else ()})
+        if not (np.array_equal(saved["ys"], ys) and np.array_equal(saved["xs_true"], xs)):
+            raise AssertionError(f"spatial {style}: the driver's data are not get_data's")
+        if not (saved["var_x"] >= 0).all():
+            raise AssertionError(f"spatial {style}: negative posterior variances")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_dnc_sampling(dev, card):
+    """Phase 28: the divide-and-conquer sampler in f64 on the card: one draw
+    on the flagship LGSSM's filter output (T=1024, dx=16) given fixed noise
+    against the CPU's, then DNC_DRAWS draws at T=64, dx=4 against as many of
+    the scan sampler's (`ops.sampling`, parallel) in mean and standard
+    deviation at every (t, i)."""
+    import warnings
+    import torch
+    from aux_ssm_tpu_torch import lgssm_from_numpy
+    from aux_ssm_tpu_torch.models import lgssm_flagship
+    from aux_ssm_tpu_torch.ops import dnc_sampling, filtering, sampling
+
+    f64 = torch.float64
+    log(f"phase 28: D&C sampling, f64: T={T}, dx={DX} card vs CPU given the same noise "
+        f"(bound {STEP_RTOL:g}); {DNC_DRAWS} draws at T=64, dx=4 against the scan sampler's "
+        f"(|z| <= {DNC_Z_MAX:g})")
+    warnings.filterwarnings("ignore", message="dnc_sampling is a pedagogical")
+
+    def filtered(n, dx, where):
+        *params, ys = lgssm_flagship.build_arrays(n, dx)
+        model, ys = lgssm_from_numpy(*params, ys, device=where, dtype=f64)
+        ms, Ps, _ = filtering(ys, model, True)
+        return ms, Ps, model
+
+    ms, Ps, model = filtered(T, DX, dev)
+    noise = torch.randn(T, DX, generator=torch.Generator().manual_seed(28), dtype=f64)
+    cpu = lambda z: z.cpu()  # noqa: E731
+    want = dnc_sampling.sampling(ms.cpu(), Ps.cpu(), type(model)(*map(cpu, model)), noise=noise)
+    tic = time.perf_counter()
+    got = dnc_sampling.sampling(ms, Ps, model, noise=noise.to(dev))
+    torch.cuda.synchronize()
+    ms_draw = 1e3 * (time.perf_counter() - tic)
+    err = nrel(got.cpu(), want)
+    log(f"  T={T}, dx={DX}: card vs CPU rel err {err:.3e}, one draw {ms_draw:.1f} ms on {card}")
+    if not (bool(torch.isfinite(got).all()) and err <= STEP_RTOL):
+        raise AssertionError(f"D&C sampling: card and CPU draws differ by {err:.3e}")
+
+    n_t, dx = 64, 4
+    ms, Ps, model = filtered(n_t, dx, dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    tic = time.perf_counter()
+    dnc = torch.stack([dnc_sampling.sampling(ms, Ps, model, generator=gen)
+                       for _ in range(DNC_DRAWS)])
+    scan = torch.stack([sampling(torch.randn(ms.shape, generator=gen, dtype=f64, device=dev),
+                                 ms, Ps, model, True) for _ in range(DNC_DRAWS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - tic
+    n = DNC_DRAWS
+    m1, m2, s1, s2 = dnc.mean(0), scan.mean(0), dnc.std(0), scan.std(0)
+    z_mean = (m1 - m2) / torch.sqrt((s1 ** 2 + s2 ** 2) / n)
+    z_std = (s1 - s2) / torch.sqrt((s1 ** 2 + s2 ** 2) / (2 * n))
+    worst = float(torch.maximum(z_mean.abs().max(), z_std.abs().max()))
+    log(f"  T={n_t}, dx={dx}, {n} draws each ({seconds:.1f} s on {card}): max |z| of the means "
+        f"{float(z_mean.abs().max()):.2f}, of the standard deviations "
+        f"{float(z_std.abs().max()):.2f} over {m1.numel()} coordinates")
+    if not worst <= DNC_Z_MAX:
+        raise AssertionError(f"D&C sampling: moments {worst:.2f} z from the scan sampler's")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2943,7 +3216,18 @@ def main():
     phase_lorenz_steps(dev)
     with tempfile.TemporaryDirectory() as tmp:
         lorenz_launches = phase_lorenz_chain(dev, card, tmp)
-    log(f"  phases 0-25 took {time.perf_counter() - tic:.1f} s")
+        t25 = time.perf_counter()
+        log(f"  phases 0-25 took {t25 - tic:.1f} s")
+        sv_driver = phase_sv_driver(dev, card, tmp)
+        spatial_driver = phase_spatial_driver(dev, card, tmp)
+    for name, count in (sv_driver | spatial_driver).items():
+        if name in KERNELS:
+            wide_launches[name] += count
+        else:
+            launches[name] = launches.get(name, 0) + count
+    phase_dnc_sampling(dev, card)
+    log(f"  phases 26-28 took {time.perf_counter() - t25:.1f} s, phases 0-28 "
+        f"{time.perf_counter() - tic:.1f} s with the build, on {card}")
 
     sources = ({name: entry[:2] for name, entry in KERNELS.items()} | CSMC_KERNELS
                | SCALAR_KERNELS | STITCH_KERNELS)

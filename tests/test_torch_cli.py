@@ -2,7 +2,7 @@
 (`aux_ssm_tpu_torch.experiments.{cli,lorenz}`, `aux_ssm_tpu_torch.config`)
 against the JAX package's: the same flags with the same defaults, types and
 actions; the driver's synthetic mode on the CPU writes the JAX driver's .npz
-keys; what is not ported (several chains, checkpoints, meshes) raises.
+keys; what is not ported (several chains, meshes) raises.
 
 Tolerance: none needed. Flags and keys are compared exactly; the driver's
 numbers come from the port's own random streams, so only their shapes and
@@ -68,9 +68,7 @@ def test_lorenz_driver_synthetic_on_cpu(tmp_path, default_dtype, capsys):
     assert "samples/s" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("extra, missing", [(["--n-chains", "2"], "parallel/chains.py"),
-                                            (["--checkpoint-dir", "ckpt"],
-                                             "utils/checkpoint.py")])
+@pytest.mark.parametrize("extra, missing", [(["--n-chains", "2"], "parallel/chains.py")])
 def test_lorenz_driver_unported_options_raise(tmp_path, default_dtype, extra, missing):
     with pytest.raises(NotImplementedError, match=missing):
         tlorenz.main(SMALL + ["--out", str(tmp_path / "x.npz")] + extra)

@@ -91,8 +91,3 @@ def test_run_chain_matches_jax(vector_delta, on_window):
     _close(tres.state.x, jres.state.x)
     assert tres.sampling_time > 0
 
-
-def test_run_chain_refuses_checkpointing():
-    state = TState(x=torch.zeros(T, D, dtype=torch.float64), updated=torch.zeros(T, dtype=bool))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        run_chain(_toy_torch, state, RunConfig(), checkpoint_dir="ckpt")
