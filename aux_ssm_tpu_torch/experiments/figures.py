@@ -10,9 +10,8 @@ the tables and figures of the drivers' saved outputs.
 
 The tables are built with NumPy, returned as dicts of NumPy columns and
 written as CSV with the standard library, under the JAX package's file names
-and columns. matplotlib is needed only to draw: with `plot=None` (default) a
-figure is drawn when matplotlib can be imported, `plot=False` never draws,
-`plot=True` always does.
+and columns. matplotlib is needed only to draw: a figure is drawn when
+matplotlib can be imported, and left out otherwise.
 
 A style's EJSD is summed over every non-time axis, so the spatial kalman
 styles' (T, B, 1) EJSD counts all B components (the JAX package sums over
@@ -29,15 +28,12 @@ def _ensure_dir(d):
     return d
 
 
-def _pyplot(plot):
-    """matplotlib.pyplot on the Agg backend, or None when not drawing."""
-    if plot is False:
-        return None
+def _pyplot():
+    """matplotlib.pyplot on the Agg backend, or None when matplotlib is not
+    installed."""
     try:
         import matplotlib
     except ImportError:
-        if plot:
-            raise
         return None
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
@@ -77,7 +73,7 @@ def _per_time(ejsd):
     return ejsd.reshape(ejsd.shape[0], -1).sum(-1) if ejsd.ndim > 1 else ejsd
 
 
-def _style_comparison(results, n_samples, out_dir, names, plot):
+def _style_comparison(results, n_samples, out_dir, names):
     ejsd_path, eff_path, fig_path = (os.path.join(_ensure_dir(out_dir), n) for n in names)
     ejsd_cols, eff_cols = {}, {}
     for style, res in results.items():
@@ -89,7 +85,7 @@ def _style_comparison(results, n_samples, out_dir, names, plot):
     _write_csv(ejsd_path, ejsd_tab)
     _write_csv(eff_path, eff_tab)
 
-    plt = _pyplot(plot)
+    plt = _pyplot()
     if plt is not None:
         fig, axes = plt.subplots(1, 2, figsize=(12, 4), sharex=True)
         for style in ejsd_cols:
@@ -105,26 +101,26 @@ def _style_comparison(results, n_samples, out_dir, names, plot):
     return ejsd_tab, eff_tab
 
 
-def sv_style_comparison(results, n_samples, out_dir, plot=None):
+def sv_style_comparison(results, n_samples, out_dir):
     """results: {style: dict(ejsd=(T, ...) array, sampling_time=float)}.
 
     Writes ESJD.csv, ESJD_time.csv and sv_ejsd.png; returns the two tables
     (EJSD per time step summed over components, and that divided by the
     per-iteration wall time)."""
     return _style_comparison(results, n_samples, out_dir,
-                             ("ESJD.csv", "ESJD_time.csv", "sv_ejsd.png"), plot)
+                             ("ESJD.csv", "ESJD_time.csv", "sv_ejsd.png"))
 
 
-def spatial_style_comparison(results, n_samples, out_dir, plot=None):
+def spatial_style_comparison(results, n_samples, out_dir):
     """The same analysis for the spatial model (EJSD summed over the B = D^2
     components), as spatial_ESJD.csv, spatial_ESJD_time.csv and
     spatial_ejsd.png."""
     return _style_comparison(results, n_samples, out_dir,
                              ("spatial_ESJD.csv", "spatial_ESJD_time.csv",
-                              "spatial_ejsd.png"), plot)
+                              "spatial_ejsd.png"))
 
 
-def lorenz_freq_comparison(results, out_dir, plot=None):
+def lorenz_freq_comparison(results, out_dir):
     """results: {freq: dict(theta_samples=(n, 3) or (n_chains, n, 3),
     ejsd=(T, d) or (T,), sampling_time=float)}. Writes lorenz_theta.csv (per
     frequency theta's posterior mean and std and the throughput and EJSD
@@ -147,7 +143,7 @@ def lorenz_freq_comparison(results, out_dir, plot=None):
     table = {k: np.asarray([r[k] for r in rows]) for k in rows[0]}
     _write_csv(os.path.join(out_dir, "lorenz_theta.csv"), table)
 
-    plt = _pyplot(plot)
+    plt = _pyplot()
     if plt is not None:
         fig, axes = plt.subplots(2, 3, figsize=(13, 7))
         for i, name in enumerate(names):
@@ -165,7 +161,7 @@ def lorenz_freq_comparison(results, out_dir, plot=None):
     return table
 
 
-def rare_event_heatmaps(rows, out_dir, stem="rare_event", plot=None):
+def rare_event_heatmaps(rows, out_dir, stem="rare_event"):
     """rows: one dict a grid cell (keys rho, r2, err_mean_0/T, err_std_0/T,
     ess_0/T, acc, ...). Writes `<stem>_summary.csv` and a 2x2 log-scale
     heatmap figure (normalised squared mean error and ESS at t=0 and t=T);
@@ -175,7 +171,7 @@ def rare_event_heatmaps(rows, out_dir, stem="rare_event", plot=None):
     table = {k: np.asarray([r.get(k, np.nan) for r in rows]) for k in keys}
     _write_csv(os.path.join(out_dir, f"{stem}_summary.csv"), table)
 
-    plt = _pyplot(plot)
+    plt = _pyplot()
     if plt is not None:
         from matplotlib.colors import LogNorm
         rhos, r2s = np.unique(table["rho"]), np.unique(table["r2"])
@@ -208,7 +204,7 @@ def main(argv=None):
         python -m aux_ssm_tpu_torch.experiments.figures rare-event \\
             --summary rare_event.csv --out-dir results/
 
-    `--no-plot` writes the tables only (no matplotlib needed)."""
+    Without matplotlib it writes the tables only."""
     import argparse
     p = argparse.ArgumentParser(description=main.__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -223,8 +219,6 @@ def main(argv=None):
     q.add_argument("--summary", required=True, help="the grid driver's CSV output")
     for q in sub.choices.values():
         q.add_argument("--out-dir", default="results")
-        q.add_argument("--plot", action=argparse.BooleanOptionalAction, default=None,
-                       help="draw the figure (default: when matplotlib is importable)")
 
     args = p.parse_args(argv)
     if args.cmd in ("sv", "spatial"):
@@ -234,7 +228,7 @@ def main(argv=None):
             data = np.load(path)
             results[style] = dict(ejsd=data["ejsd"], sampling_time=float(data["sampling_time"]))
         fn = sv_style_comparison if args.cmd == "sv" else spatial_style_comparison
-        fn(results, args.n_samples, args.out_dir, plot=args.plot)
+        fn(results, args.n_samples, args.out_dir)
         print(f"wrote ESJD / ESJD_time / ejsd figure to {args.out_dir}")
     elif args.cmd == "lorenz":
         results = {}
@@ -243,10 +237,10 @@ def main(argv=None):
             data = np.load(path)
             results[int(freq)] = dict(theta_samples=data["theta_samples"], ejsd=data["ejsd"],
                                       sampling_time=float(data["sampling_time"]))
-        lorenz_freq_comparison(results, args.out_dir, plot=args.plot)
+        lorenz_freq_comparison(results, args.out_dir)
         print(f"wrote lorenz_theta.csv / lorenz_theta.png to {args.out_dir}")
     else:
-        rare_event_heatmaps(_read_csv(args.summary), args.out_dir, plot=args.plot)
+        rare_event_heatmaps(_read_csv(args.summary), args.out_dir)
         print(f"wrote rare_event_summary.csv / rare_event_heatmaps.png to {args.out_dir}")
 
 

@@ -18,14 +18,6 @@ the run's device seeded with seed + 1 (`init_x_fn`), the chain from another
 seeded with seed + 2. So for the same seed the data differ from the JAX
 driver's, which draws with `jax.random`. With `--checkpoint-dir` a killed
 run started again with the same arguments resumes bit for bit.
-
-`--init truth` (the port's own flag) starts the chain from the simulated
-states, which given the data are an exact posterior draw: the chain is
-stationary from its first iteration. The default, `--init filter`, starts
-from `init_x_fn`'s bootstrap-filter draw as the JAX driver does; at D = 30
-its 32 particles are degenerate, and a kalman chain from there accepts
-nothing until delta has shrunk (60-200 iterations) and is still travelling
-hundreds of iterations later.
 """
 import torch
 
@@ -55,9 +47,6 @@ def main(argv=None):
     p = cli.base_parser("Stochastic-volatility experiment")
     p.add_argument("--T", type=int, default=250)
     p.add_argument("--D", type=int, default=30)
-    p.add_argument("--init", choices=("filter", "truth"), default="filter",
-                   help="start from init_x_fn's bootstrap-filter draw (as the JAX driver "
-                        "does) or from the simulated states")
     args = p.parse_args(argv)
     cfg_x = cli.experiment_config(args)
     backend = cfg_x.backend.apply()
@@ -66,11 +55,8 @@ def main(argv=None):
     xs_true, ys = sv.get_data(NU, PHI, TAU, RHO, args.D, args.T,
                               generator=torch.Generator().manual_seed(args.seed),
                               dtype=backend.dtype, device=device)
-    if args.init == "truth":
-        x0 = xs_true
-    else:
-        x0 = sv.init_x_fn(ys, NU, PHI, TAU, RHO, max(args.n_particles, 32),
-                          generator=torch.Generator(device=device).manual_seed(args.seed + 1))
+    x0 = sv.init_x_fn(ys, NU, PHI, TAU, RHO, max(args.n_particles, 32),
+                      generator=torch.Generator(device=device).manual_seed(args.seed + 1))
     init, kernel = build_kernel(args.style, ys, args)
     state = init(x0)
 

@@ -202,10 +202,10 @@ resumable checkpoints (`utils/checkpoint.py`), and the divide-and-conquer
 sampler (`ops/dnc_sampling.py`), each driver run with the launch counters
 reset before it and read after it:
  26. the SV driver at T=250, D=30, f32: kalman-1 at SV_DRIVER_SCHEDULE from
-     the simulated states (`--init truth`: from `init_x_fn`'s degenerate
-     bootstrap-filter draw at D = 30 the chain accepts nothing for 60-200
-     iterations and is still travelling after 400, so no cut schedule could
-     hold phase 22's rate) at --delta-init SV_DRIVER_DELTA,
+     the driver's own start (`init_x_fn`'s bootstrap-filter draw, degenerate
+     at D = 30: the chain accepts nothing until delta has shrunk from its
+     default 1e-2, so the burn-in is long enough for delta to settle near
+     the update rate 0.5 once the chain has reached the posterior),
      uninterrupted, and again checkpointed
      every SV_DRIVER_EVERY iterations, killed (a dying `runner._save`) after
      its second sampling segment and resumed: the resumed .npz equals the
@@ -225,18 +225,18 @@ reset before it and read after it:
      (`ops.sampling`, parallel): means and standard deviations at every
      (t, i) within DNC_Z_MAX standard errors.
 To make room, phase 3 runs 100 steps (200 before), phase 10 300 + 1000
-iterations (300 + 2000 before), phase 11 300 + 700 iterations a chain of
-the hardest cell, which is reported and not bounded (500 + 1500 before),
-and 500 + 1500 a bounded chain (500 + 2500 before), phase 15's replicate
-chains 300 + 1500 (kalman-1) and 300 + 1500 (csmc-guided) (300 + 3000, then
-300 + 2000, and 300 + 2000 before), and phase 19 at T=2 300 + 600 (300 + 1200 before) and
-at T=256 300 + 400 (300 + 700 before): every bound is in units of the
-chain's own Monte-Carlo error, so a shorter chain widens it and keeps its
-meaning. The whole takes 250-480 s with the build on an H100, as fast as
-the host is (190-340 s before the PIT phases, 80-150 s before the spatial
-ones); phases 20-22 take ~40 s, phases 23-25 ~40 s, phases 26-28 ~22-25
-s, and the D = 32 instances' build ~10 s more; with phase 15's kalman-1
-replicates still at 300 + 2000 the whole took 438.9 s with the build.
+iterations (300 + 2000 before), phase 11 300 + 400 iterations a chain of
+the hardest cell, which is reported and not bounded (300 + 700, then
+500 + 1500 before), and 500 + 1200 a bounded chain (500 + 1500, then
+500 + 2500 before), phase 15's replicate chains 300 + 1500 (kalman-1) and
+300 + 1500 (csmc-guided) (300 + 3000, then 300 + 2000, and 300 + 2000
+before), and phase 19 at T=2 300 + 600 (300 + 1200 before) and at T=256
+300 + 400 (300 + 700 before): every bound is in units of the chain's own
+Monte-Carlo error, so a shorter chain widens it and keeps its meaning. The
+whole takes 250-480 s with the build on an H100, as fast as the host is
+(190-340 s before the PIT phases, 80-150 s before the spatial ones);
+phases 20-22 take ~40 s, phases 23-25 ~40 s, phases 26-28 ~35 s, and
+the D = 32 instances' build ~10 s more.
 Each kernel's entry of the JSON summary carries its bound: the least time the
 card could take for the call, the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the 67
@@ -1509,11 +1509,11 @@ def phase_rare_chains(dev):
         "(mean and std errors in units of the posterior std; tolerance 6 standard errors)")
     lane = 0
     for i, style in enumerate(("kalman", "csmc", "csmc-guided", "csmc-guided-grad")):
-        lane += rare_chain(dev, style, RE_CELL, 500, 1500, 20 + i, bounded=True)["lane_scan"]
+        lane += rare_chain(dev, style, RE_CELL, 500, 1200, 20 + i, bounded=True)["lane_scan"]
     log(f"  the hardest cell of the published grid, rho={RE_HARD[1]}, r2={RE_HARD[2]} "
         "(reported, not bounded):")
     for i, style in enumerate(("kalman", "csmc", "csmc-guided")):
-        lane += rare_chain(dev, style, RE_HARD, 300, 700, 30 + i, bounded=False)["lane_scan"]
+        lane += rare_chain(dev, style, RE_HARD, 300, 400, 30 + i, bounded=False)["lane_scan"]
     return lane
 
 
@@ -2896,9 +2896,8 @@ def phase_lorenz_chain(dev, card, out_dir):
 # with utils/checkpoint.py) and the divide-and-conquer sampler
 # ---------------------------------------------------------------------------
 
-SV_DRIVER_SCHEDULE = (100, 200)    # burn-in + sampling of the checkpointed kalman-1 run
-SV_DRIVER_EVERY = 50               # checkpoint period: burn-in 50, 100, sampling 50, ..., 200
-SV_DRIVER_DELTA = 0.0441           # --delta-init: the committed kalman-1 run's adapted delta
+SV_DRIVER_SCHEDULE = (1000, 200)   # burn-in + sampling of the checkpointed kalman-1 run
+SV_DRIVER_EVERY = 50               # checkpoint period: burn-in 50, ..., 1000, sampling 50, ..., 200
 SV_DRIVER_SHORT = (30, 60)         # burn-in + sampling of the csmc and csmc-guided runs
 SV_KEYS = {"samples_mean", "samples_std", "ejsd", "delta", "xs_true", "ys", "sampling_time"}
 SP_DRIVER_SCHEDULE = (50, 100)     # burn-in + sampling of the spatial driver's runs
@@ -2960,9 +2959,9 @@ def phase_sv_driver(dev, card, out_dir):
     n_iter = burnin + n_samples
     out = Path(out_dir)
     log(f"phase 26: the SV driver, T={SV_T}, D={SV_D}, f32: kalman-1 {burnin} + {n_samples} "
-        f"iterations from the simulated states (--init truth) at --delta-init "
-        f"{SV_DRIVER_DELTA}, checkpointed every {SV_DRIVER_EVERY}, killed after its second "
-        "sampling segment and resumed, against an uninterrupted run")
+        f"iterations from the driver's start (init_x_fn, --delta-init default), checkpointed "
+        f"every {SV_DRIVER_EVERY}, killed after its second sampling segment and resumed, "
+        "against an uninterrupted run")
 
     def argv(style, name, schedule, *extra):
         return ["--style", style, "--T", str(SV_T), "--D", str(SV_D), "--N", str(SV_N),
@@ -2970,8 +2969,7 @@ def phase_sv_driver(dev, card, out_dir):
                 "--out", str(out / f"{name}.npz"), *extra]
 
     mh_step = {name: per_step for name, (_, _, per_step) in KERNELS.items()}
-    start = ["--init", "truth", "--delta-init", str(SV_DRIVER_DELTA)]
-    kalman = argv("kalman-1", "sv_kalman1", SV_DRIVER_SCHEDULE, *start)
+    kalman = argv("kalman-1", "sv_kalman1", SV_DRIVER_SCHEDULE)
     full, want, total = driver_run(driver.main, kalman, mh_step, n_iter,
                                    "kalman-1 uninterrupted", card)
     rate = float(full.stats.accept_cum)
@@ -2990,7 +2988,7 @@ def phase_sv_driver(dev, card, out_dir):
             raise Killed()
 
     ckpt = ["--checkpoint-dir", str(out / "ckpt"), "--checkpoint-every", str(SV_DRIVER_EVERY)]
-    resumed_argv = argv("kalman-1", "sv_kalman1_resumed", SV_DRIVER_SCHEDULE, *start, *ckpt)
+    resumed_argv = argv("kalman-1", "sv_kalman1_resumed", SV_DRIVER_SCHEDULE, *ckpt)
     runner._save = timed_save
     try:
         K.reset_launches()

@@ -57,12 +57,11 @@ def _run(driver, tmp_path, argv):
     return res, np.load(out)
 
 
-@pytest.mark.parametrize("style, init", [("kalman-1", "filter"), ("kalman-2", "truth"),
-                                         ("csmc", "filter"), ("csmc-guided", "filter")])
-def test_sv_driver_writes_jax_keys_and_shapes(tmp_path, style, init):
+@pytest.mark.parametrize("style", ["kalman-1", "kalman-2", "csmc", "csmc-guided"])
+def test_sv_driver_writes_jax_keys_and_shapes(tmp_path, style):
     T, D = 16, 2
     res, saved = _run(sv, tmp_path, ["--style", style, "--T", str(T), "--D", str(D),
-                                     "--N", "8", "--init", init])
+                                     "--N", "8"])
     assert set(saved.files) == _saved_keys(jsv) == _saved_keys(sv)
     want = dict(samples_mean=(T, D), samples_std=(T, D), ejsd=(T, D), xs_true=(T, D),
                 ys=(T, D), sampling_time=(), delta=(T,) if style.startswith("csmc") else ())

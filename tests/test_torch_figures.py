@@ -6,6 +6,10 @@ builds its tables with NumPy and the `csv` module; the JAX side uses pandas.
 Tolerance: rtol 1e-12 on every column (float64 on both sides). The spatial
 kalman styles' (T, B, 1) EJSD is held against its sum over every non-time
 axis and not against JAX, which sums over the last axis only.
+
+The figures are drawn on both sides but not rendered: `Figure.savefig`
+writes an empty file under the figure's name, which is all these tests read
+of it.
 """
 import os
 
@@ -18,6 +22,18 @@ from aux_ssm_tpu.experiments import figures as jfigures  # noqa: E402
 from aux_ssm_tpu_torch.experiments import figures  # noqa: E402
 
 RTOL = 1e-12
+
+
+@pytest.fixture(autouse=True)
+def _no_rendering(monkeypatch):
+    from matplotlib.figure import Figure
+    monkeypatch.setattr(Figure, "savefig", lambda self, path, **kw: open(path, "wb").close())
+
+
+@pytest.fixture
+def no_matplotlib(monkeypatch):
+    """The port's figures as on a machine without matplotlib."""
+    monkeypatch.setattr(figures, "_pyplot", lambda: None)
 
 
 def _same_csv(port_path, jax_path):
@@ -62,9 +78,9 @@ def test_style_comparison_matches_jax(tmp_path, name, files):
         _same_csv(os.path.join(port, f), os.path.join(jax_dir, f))
 
 
-def test_spatial_ejsd_summed_over_every_component(tmp_path):
+def test_spatial_ejsd_summed_over_every_component(tmp_path, no_matplotlib):
     res = _style_results(1, 12, (9, 1))
-    ejsd, eff = figures.spatial_style_comparison(res, 500, str(tmp_path), plot=False)
+    ejsd, eff = figures.spatial_style_comparison(res, 500, str(tmp_path))
     assert sorted(os.listdir(tmp_path)) == ["spatial_ESJD.csv", "spatial_ESJD_time.csv"]
     for style, r in res.items():
         want = r["ejsd"].sum(axis=(1, 2))
@@ -90,7 +106,7 @@ def test_lorenz_freq_comparison_matches_jax(tmp_path):
     _same_csv(os.path.join(port, "lorenz_theta.csv"), os.path.join(jax_dir, "lorenz_theta.csv"))
 
 
-def test_rare_event_heatmaps_match_jax(tmp_path):
+def test_rare_event_heatmaps_match_jax(tmp_path, monkeypatch):
     rng = np.random.default_rng(4)
     rows = [dict(rho=r, r2=s, err_mean_0=abs(rng.standard_normal()),
                  err_mean_T=abs(rng.standard_normal()), err_std_0=rng.standard_normal(),
@@ -105,8 +121,11 @@ def test_rare_event_heatmaps_match_jax(tmp_path):
     _same_table(table, frame)
     _same_csv(os.path.join(port, "rare_event_summary.csv"),
               os.path.join(jax_dir, "rare_event_summary.csv"))
-    # The CLI reads the summary back and writes the same table.
+    # The CLI reads the summary back and writes the same table, and only the
+    # table without matplotlib.
+    monkeypatch.setattr(figures, "_pyplot", lambda: None)
     figures.main(["rare-event", "--summary", os.path.join(jax_dir, "rare_event_summary.csv"),
-                  "--out-dir", str(tmp_path / "cli"), "--no-plot"])
+                  "--out-dir", str(tmp_path / "cli")])
+    assert os.listdir(tmp_path / "cli") == ["rare_event_summary.csv"]
     _same_csv(tmp_path / "cli" / "rare_event_summary.csv",
               os.path.join(jax_dir, "rare_event_summary.csv"))
