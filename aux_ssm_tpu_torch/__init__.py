@@ -21,8 +21,9 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .convert import (lgssm_from_numpy, rare_event_from_numpy, spatial_from_numpy,  # noqa: E402
-                      sv_from_numpy, theta_logistic_from_numpy)
+from .convert import (lgssm_from_numpy, rare_event_from_numpy,  # noqa: E402
+                      rare_event_grid_from_numpy, spatial_from_numpy, sv_from_numpy,
+                      theta_logistic_from_numpy)
 from .device import default_device  # noqa: E402
 from .experiments.runner import RunConfig, RunResult, run_chain  # noqa: E402
 from .kernels.adaptation import delta_adaptation  # noqa: E402
@@ -57,6 +58,7 @@ __all__ = [
     "prior_logpdf",
     "rare_event",
     "rare_event_from_numpy",
+    "rare_event_grid_from_numpy",
     "run_chain",
     "sampling",
     "spatial",

@@ -46,3 +46,19 @@ def rare_event_from_numpy(x, delta=None, *, device, dtype):
     is (y, rho, r2, T), Python numbers on both sides."""
     x = torch.as_tensor(x, dtype=dtype, device=device).reshape(-1, 1)
     return x, None if delta is None else torch.as_tensor(delta, dtype=dtype, device=device)
+
+
+def rare_event_grid_from_numpy(x, rho, r2, updated=None, delta=None, *, device, dtype):
+    """The rare-event grid's state carried across (the fields of the JAX
+    driver's `GridState` as arrays: x (M, T) or (M, T, 1), each chain's cell
+    rho and r2 (M,), `updated` (M,) or (M, T), all False when not given)
+    and, when given, the chains' delta ((M,) or (M, T)). Returns
+    `(experiments.rare_event.GridState, delta)`."""
+    from .experiments.rare_event import GridState  # the driver imports this package
+    x = torch.as_tensor(x, dtype=dtype, device=device)
+    x = x.reshape(x.shape[0], -1, 1)
+    rho, r2 = (torch.as_tensor(z, dtype=dtype, device=device) for z in (rho, r2))
+    updated = (torch.zeros(x.shape[:1], dtype=torch.bool, device=device) if updated is None
+               else torch.as_tensor(updated, device=device).to(torch.bool))
+    state = GridState(x=x, updated=updated, rho=rho, r2=r2)
+    return state, None if delta is None else torch.as_tensor(delta, dtype=dtype, device=device)

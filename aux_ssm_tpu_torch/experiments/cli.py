@@ -1,9 +1,11 @@
 """Shared CLI plumbing of the experiment drivers (counterpart of
 `aux_ssm_tpu/experiments/cli.py`): the same flags and defaults.
 
-One chain a run: `--n-chains` above 1 needs chain batching
-(`parallel/chains.py`), not ported, and raises NotImplementedError.
-`--checkpoint-dir` (with `--checkpoint-every`) makes a run resumable: a
+`--n-chains` C above 1 runs C chains on one card (`parallel/chains.py`):
+the drivers' models have no chain axis of their own, so their one-chain
+kernel runs chain after chain (`chains.chain_loop`), and the run reports
+split-R-hat. `--mesh-chains` above 0 (a device mesh) raises
+NotImplementedError. `--checkpoint-dir` (with `--checkpoint-every`) makes a run resumable: a
 killed run started again with the same arguments goes on from its newest
 checkpoint, bit for bit (`runner.run_chain`).
 """
@@ -90,19 +92,62 @@ def run_config(args, **overrides):
     return RunConfig(**kw)
 
 
+def check_mesh(args):
+    """Raise NotImplementedError for `--mesh-chains` above 0: device meshes
+    are multi-device work (ROADMAP.md queue 2)."""
+    from ..parallel.chains import _MESH_TODO
+    if getattr(args, "mesh_chains", 0):
+        raise NotImplementedError(f"--mesh-chains {args.mesh_chains}: {_MESH_TODO}")
+
+
 def run_maybe_sharded(generator, kernel, state, cfg, args, *, collect_samples=False,
                       delta_init=None, collect_fn=None):
-    """One chain through `run_chain`, checkpointed under `--checkpoint-dir`
-    every `--checkpoint-every` iterations when given; returns (res, None),
-    the None standing for the cross-chain diagnostics of several chains."""
+    """Single- or multi-chain dispatch shared by the experiment drivers, with
+    a one-chain `kernel` and `state`; checkpointed under `--checkpoint-dir`
+    every `--checkpoint-every` iterations when given.
+
+    `--n-chains 1`: `run_chain`; returns (res, None). `--n-chains C > 1`: the
+    state and delta broadcast to a leading chain axis, the kernel run on
+    chain after chain (`chains.chain_loop`) through `run_sharded_chains`;
+    returns (res, diag), `diag` the chains' mean statistics (`stats`) and
+    split-R-hat (`rhat_max`, `rhat_median`): rank-normalised split-R-hat of
+    at most 128 evenly spread coordinates of the collected samples, else the
+    moment-based R-hat of every coordinate from the online statistics."""
+    from ..parallel.chains import (aggregate_chain_stats, broadcast_chains, chain_loop,
+                                   run_sharded_chains)
+    from ..utils.ess import potential_scale_reduction, rhat_from_moments
+    from ..utils.stats import variance
+
+    check_mesh(args)
     n_chains = getattr(args, "n_chains", 1)
-    if n_chains > 1:
-        raise NotImplementedError(f"--n-chains {n_chains}: chain batching is not ported "
-                                  "(it needs parallel/chains.py)")
-    res = run_chain(kernel, state, cfg, generator=generator, collect_samples=collect_samples,
-                    delta_init=delta_init, checkpoint_dir=getattr(args, "checkpoint_dir", None),
-                    checkpoint_every=getattr(args, "checkpoint_every", 0), collect_fn=collect_fn)
-    return res, None
+    ckpt = dict(checkpoint_dir=getattr(args, "checkpoint_dir", None),
+                checkpoint_every=getattr(args, "checkpoint_every", 0))
+    if n_chains <= 1:
+        res = run_chain(kernel, state, cfg, generator=generator,
+                        collect_samples=collect_samples, delta_init=delta_init,
+                        collect_fn=collect_fn, **ckpt)
+        return res, None
+
+    x = state.x
+    delta0 = torch.as_tensor(cfg.delta_init if delta_init is None else delta_init,
+                             dtype=x.dtype, device=x.device)
+    res = run_sharded_chains(chain_loop(kernel), broadcast_chains(state, n_chains), cfg,
+                             generator=generator, collect_samples=collect_samples,
+                             delta_init=broadcast_chains(delta0, n_chains),
+                             collect_fn=collect_fn, **ckpt)
+    if collect_samples and res.samples is not None and res.samples.size:
+        flat = res.samples.reshape(res.samples.shape[0], res.samples.shape[1], -1)
+        n_coords = flat.shape[-1]
+        take = np.unique(np.linspace(0, n_coords - 1, min(128, n_coords)).astype(int))
+        rhats = torch.stack([potential_scale_reduction(torch.from_numpy(
+            np.ascontiguousarray(flat[:, :, i]))) for i in take])
+    else:
+        rhats = rhat_from_moments(res.stats.mean_x, variance(res.stats),
+                                  cfg.n_samples).reshape(-1)
+    rhats = rhats.detach().cpu().numpy()
+    diag = dict(stats=aggregate_chain_stats(res.stats), rhat_max=float(np.max(rhats)),
+                rhat_median=float(np.median(rhats)), n_chains=n_chains)
+    return res, diag
 
 
 def chain_summary(res, diag, cfg):

@@ -115,14 +115,15 @@ def main(argv=None):
     gen = torch.Generator(device=kw["device"]).manual_seed(args.seed + 1)
     res, diag = cli.run_maybe_sharded(gen, kernel, state, cfg, args, collect_samples=True,
                                       collect_fn=lambda s: s.theta)
-    stats = res.stats
+    stats = diag["stats"] if diag else res.stats
 
     theta = res.state.theta.cpu().numpy()
+    theta_show = theta.mean(0) if diag else theta
     print(f"freq={args.freq} n_steps={prob.ys.shape[0]} dt={prob.dt:g}: "
           f"time={res.sampling_time:.2f}s "
           f"({cfg.n_samples / res.sampling_time:.1f} samples/s), "
           f"acc={float(stats.accept_cum.mean()):.3f}, "
-          f"theta_final={np.round(theta, 3)} (true {np.asarray(THETA_TRUE)})"
+          f"theta_final={np.round(theta_show, 3)} (true {np.asarray(THETA_TRUE)})"
           f"{cli.chain_summary(res, diag, cfg)}")
 
     cli.save_results(args.out, mean_x=stats.mean_x, ejsd=stats.ejsd,

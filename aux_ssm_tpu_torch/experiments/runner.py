@@ -86,7 +86,8 @@ def _save(directory, payload, step):
 def run_chain(kernel: Callable, init_state, cfg: RunConfig, generator=None,
               collect_samples: bool = False, get_stats_x: Callable = lambda s: s.x,
               delta_init=None, checkpoint_dir: Optional[str] = None,
-              checkpoint_every: int = 0, collect_fn: Callable = None) -> RunResult:
+              checkpoint_every: int = 0, collect_fn: Callable = None,
+              n_chains: Optional[int] = None) -> RunResult:
     """Burn-in with adaptation, then frozen-delta sampling.
 
     `kernel(state, delta, generator=None) -> state`, with `state.updated` a
@@ -101,6 +102,12 @@ def run_chain(kernel: Callable, init_state, cfg: RunConfig, generator=None,
     iterations (0: at the end of each phase) and resumes from the newest
     checkpoint there, bit for bit as an uninterrupted run; `generator` must
     then be given.
+
+    `n_chains` C: the state, delta and the kernel's `updated` carry C
+    independent chains on a leading axis (`parallel.chains`); the statistics
+    then count steps per chain ((C,) `step`), and a chain's delta adapts on
+    its own rate (averaged over the rest of its `updated` where its delta has
+    fewer axes).
     """
     if checkpoint_dir is not None and generator is None:
         raise ValueError("checkpoint_dir needs a generator of the run's own: the default "
@@ -112,7 +119,8 @@ def run_chain(kernel: Callable, init_state, cfg: RunConfig, generator=None,
     n_burn = max(cfg.burnin, 1)
 
     def fresh_stats(state):
-        return init_stats(get_stats_x(state), accept_shape=tuple(state.updated.shape))
+        return init_stats(get_stats_x(state), accept_shape=tuple(state.updated.shape),
+                          step_shape=() if n_chains is None else (n_chains,))
 
     phase, it, state = _BURNIN_PHASE, 0, init_state
     stats = fresh_stats(state)
@@ -159,7 +167,7 @@ def run_chain(kernel: Callable, init_state, cfg: RunConfig, generator=None,
                 if adapt:
                     rate = stats.accept_win if cfg.adapt_on_window else stats.accept_cum
                     if rate.dim() > delta.dim():
-                        rate = rate.mean()
+                        rate = rate.flatten(delta.dim()).mean(-1)
                     delta = delta_adaptation(delta, cfg.target_alpha, rate,
                                              _learning_rate(cfg, n_total, i),
                                              cfg.min_delta, cfg.max_delta)

@@ -73,7 +73,7 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)
     res, diag = cli.run_maybe_sharded(gen, kernel, state, cfg, args, collect_samples=False,
                                       delta_init=delta0)
-    stats = res.stats
+    stats = diag["stats"] if diag else res.stats
 
     print(f"style={args.style} T={args.T} D={args.D} (d={args.D ** 2}): "
           f"time={res.sampling_time:.2f}s "

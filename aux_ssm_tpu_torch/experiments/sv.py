@@ -67,7 +67,9 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)
     res, diag = cli.run_maybe_sharded(gen, kernel, state, cfg, args, collect_samples=True,
                                       delta_init=delta0)
-    samples, stats = res.samples, res.stats
+    stats = diag["stats"] if diag else res.stats
+    # Several chains: the coordinates pool each chain's samples.
+    samples = res.samples.reshape(-1, *res.samples.shape[-2:]) if diag else res.samples
 
     ess = ess_summary(samples)
     mean_ejsd = float(stats.ejsd.mean())

@@ -12,6 +12,13 @@ us (T,))`. `us` are the backward-sampling uniforms; ancestor scanning draws
 its final index as `jax.random.choice` does, by inverse CDF at
 (1 - us[-1]) * total.
 
+Chain axis: a reference trajectory x (C, T, d) runs C independent chains in
+one step; every noise array and the state (`updated` (C, T)) then carry the
+leading C, and the components' per-step params lead with (C, T-1). The
+factor and lane sweeps take the chain axis on the card (one launch set for
+all C chains, `ops/cuda/csmc_fwd.py`); the generic step loops and ancestor
+scanning take one chain and raise NotImplementedError under a chain axis.
+
 Dispatch by model capability, as in the JAX package (there by platform and
 environment flags; here the same path runs everywhere, a CPU tensor through
 the kernels' plain versions and a CUDA tensor through the kernels):
@@ -72,7 +79,7 @@ def get_kernel(M0, G0, Mt, Gt, N, backward=False, Pt=None, resampling="multinomi
         return CSMCState(x=x_new, updated=picked != 0)
 
     def init(x_star):
-        return CSMCState(x=x_star, updated=torch.zeros(x_star.shape[0], dtype=torch.bool,
+        return CSMCState(x=x_star, updated=torch.zeros(x_star.shape[:-1], dtype=torch.bool,
                                                        device=x_star.device))
 
     return init, kernel
@@ -80,12 +87,13 @@ def get_kernel(M0, G0, Mt, Gt, N, backward=False, Pt=None, resampling="multinomi
 
 def draw_noise(x, N, resample, generator=None):
     """Every random number of one cSMC step, from `generator`, in the order
-    and shapes of `noise`."""
-    T, d = x.shape
+    and shapes of `noise`, each with x's chain axis (if any) in front."""
+    *lead, T, d = x.shape
     kw = dict(generator=generator, dtype=x.dtype, device=x.device)
     n_res = N if resample is resampling_mod.multinomial else 3
-    return (torch.randn(N, d, **kw), torch.rand(T - 1, n_res, **kw),
-            torch.randn(T - 1, N, d, **kw), torch.rand(T - 1, **kw), torch.rand(T, **kw))
+    return (torch.randn(*lead, N, d, **kw), torch.rand(*lead, T - 1, n_res, **kw),
+            torch.randn(*lead, T - 1, N, d, **kw), torch.rand(*lead, T - 1, **kw),
+            torch.rand(*lead, T, **kw))
 
 
 def _at(tree, t):
@@ -93,9 +101,16 @@ def _at(tree, t):
 
 
 def _pin(x, value):
-    """x with x[0] = value (x a fresh tensor, changed in place)."""
-    x[0] = value
+    """Particles x (..., N, d) with particle 0 set to value (..., d) (x a
+    fresh tensor, changed in place)."""
+    x[..., 0, :] = value
     return x
+
+
+def _one_chain(name, x_star):
+    if x_star.dim() > 2:
+        raise NotImplementedError(
+            f"{name} takes one chain: a chain axis needs the factor or lane sweeps")
 
 
 def _use_fused_forward(Mt, Gt, resample, ancestor_Pt, N):
@@ -142,9 +157,9 @@ def _factor_sweep_takes(N):
 
 
 def _initial(x_star, M0, G0, eps_m0):
-    x0 = _pin(M0.sample_from_noise(eps_m0), x_star[0])
+    x0 = _pin(M0.sample_from_noise(eps_m0), x_star[..., 0, :])
     log_w0 = G0(x0)
-    return x0, log_w0, normalize(log_w0)
+    return x0, log_w0, normalize(log_w0, -1)
 
 
 def _fused_forward_pass(x_star, M0, G0, Mt, Gt, N, ancestor_Pt, noise):
@@ -154,13 +169,14 @@ def _fused_forward_pass(x_star, M0, G0, Mt, Gt, N, ancestor_Pt, noise):
     eps_m0, res_u, eps_prop, anc_u = noise
     x0, log_w0, w0 = _initial(x_star, M0, G0, eps_m0)
     xs_rest = Mt.sample_from_noise(eps_prop, eps_prop, Mt.params)
-    xs_rest[:, 0] = x_star[1:]
-    xs = torch.cat([x0[None], xs_rest])
-    rf, cf, rb, cb = (z.contiguous() for z in Gt.pairwise_factors(xs[:-1], xs[1:], Gt.params))
+    xs_rest[..., 0, :] = x_star[..., 1:, :]
+    xs = torch.cat([x0.unsqueeze(-3), xs_rest], -3)
+    rf, cf, rb, cb = (z.contiguous() for z in Gt.pairwise_factors(
+        xs[..., :-1, :, :], xs[..., 1:, :, :], Gt.params))
     log_ws_rest, ancestors = csmc_fwd.forward_factor_scan(
         rf, cf, rb, cb, res_u, anc_u, w0, pgas=ancestor_Pt is not None)
-    log_ws = torch.cat([log_w0[None], log_ws_rest])
-    return normalize(log_ws_rest[-1]), xs, log_ws, ancestors
+    log_ws = torch.cat([log_w0.unsqueeze(-2), log_ws_rest], -2)
+    return normalize(log_ws_rest[..., -1, :], -1), xs, log_ws, ancestors
 
 
 def _lane_forward_pass(x_star, M0, G0, Mt, Gt, N, ancestor_Pt, noise):
@@ -169,11 +185,11 @@ def _lane_forward_pass(x_star, M0, G0, Mt, Gt, N, ancestor_Pt, noise):
     eps_m0, res_u, eps_prop, anc_u = noise
     x0, log_w0, w0 = _initial(x_star, M0, G0, eps_m0)
     xs_r, log_ws_r, ancestors = csmc_fwd.lane_scan(
-        Mt, Gt, ancestor_Pt, eps_prop[:, :, 0].contiguous(), res_u.contiguous(),
-        anc_u.contiguous(), x_star[1:, 0].contiguous(), x0[:, 0].contiguous(), w0)
-    xs = torch.cat([x0[None], xs_r[..., None]])
-    log_ws = torch.cat([log_w0[None], log_ws_r])
-    return normalize(log_ws_r[-1]), xs, log_ws, ancestors
+        Mt, Gt, ancestor_Pt, eps_prop[..., 0].contiguous(), res_u.contiguous(),
+        anc_u.contiguous(), x_star[..., 1:, 0].contiguous(), x0[..., 0].contiguous(), w0)
+    xs = torch.cat([x0.unsqueeze(-3), xs_r[..., None]], -3)
+    log_ws = torch.cat([log_w0.unsqueeze(-2), log_ws_r], -2)
+    return normalize(log_ws_r[..., -1, :], -1), xs, log_ws, ancestors
 
 
 def _block_lane_forward_pass(x_star, M0, G0, Mt, Gt, N, noise):
@@ -181,6 +197,7 @@ def _block_lane_forward_pass(x_star, M0, G0, Mt, Gt, N, noise):
     the generic (T-1, N, d) draw transposed, so the values used are the
     same."""
     eps_m0, res_u, eps_prop, _ = noise
+    _one_chain("the block-lane sweep", x_star)
     x0, log_w0, w0 = _initial(x_star, M0, G0, eps_m0)
     xs_r, log_ws_r, ancestors = csmc_fwd.block_lane_scan(
         Mt, Gt, eps_prop.transpose(1, 2).contiguous(), res_u.contiguous(),
@@ -193,8 +210,9 @@ def _block_lane_forward_pass(x_star, M0, G0, Mt, Gt, N, noise):
 def forward_pass(x_star, M0, G0, Mt, Gt, N, resample, noise, ancestor_Pt=None):
     """Conditional SMC forward sweep; particle 0 is pinned to `x_star`.
     `noise = (eps_m0, res_u, eps_prop, anc_u)`; `ancestor_Pt` turns on PGAS.
-    Returns (w_T (N,), xs (T, N, d), log_ws (T, N), ancestors (T-1, N))."""
-    if x_star.shape[0] >= 2:  # T == 1: nothing to sweep; the loop degrades correctly
+    Returns (w_T (N,), xs (T, N, d), log_ws (T, N), ancestors (T-1, N)), each
+    with x_star's chain axis (if any) in front."""
+    if x_star.shape[-2] >= 2:  # T == 1: nothing to sweep; the loop degrades correctly
         if _use_fused_forward(Mt, Gt, resample, ancestor_Pt, N):
             return _fused_forward_pass(x_star, M0, G0, Mt, Gt, N, ancestor_Pt, noise)
         if _use_lane_forward(x_star, Mt, Gt, resample, ancestor_Pt, N):
@@ -203,6 +221,7 @@ def forward_pass(x_star, M0, G0, Mt, Gt, N, resample, noise, ancestor_Pt=None):
             return _block_lane_forward_pass(x_star, M0, G0, Mt, Gt, N, noise)
 
     eps_m0, res_u, eps_prop, anc_u = noise
+    _one_chain("the generic forward loop", x_star)
     T = x_star.shape[0]
     x_prev, log_w0, w = _initial(x_star, M0, G0, eps_m0)
     step_resample = (resampling_mod.multinomial_from_uniforms
@@ -218,7 +237,7 @@ def forward_pass(x_star, M0, G0, Mt, Gt, N, resample, noise, ancestor_Pt=None):
         x_prev = x_prev[anc]
         x_t = _pin(Mt.sample_from_noise(eps_prop[t], x_prev, _at(Mt.params, t)), x_star[t + 1])
         log_w = Gt(x_t, x_prev, _at(Gt.params, t))
-        w = normalize(log_w)
+        w = normalize(log_w, -1)
         xs.append(x_t)
         log_ws.append(log_w)
         ancestors.append(anc)
@@ -229,7 +248,9 @@ def forward_pass(x_star, M0, G0, Mt, Gt, N, resample, noise, ancestor_Pt=None):
 
 
 def _take_trajectory(xs, picked):
-    return xs[torch.arange(xs.shape[0], device=xs.device), picked]
+    """xs (..., T, N, d) at each step's picked index (..., T) -> (..., T, d)."""
+    index = picked[..., None, None].expand(*picked.shape, 1, xs.shape[-1])
+    return torch.gather(xs, -2, index)[..., 0, :]
 
 
 def backward_scanning_pass(w_T, xs, ancestors, u):
@@ -238,6 +259,7 @@ def backward_scanning_pass(w_T, xs, ancestors, u):
     inverse CDF at (1 - u) * total. The pointer chase B_t = A_t[B_{t+1}] is a
     suffix composition of index maps, resolved in log2(T) rounds of gathers
     (Hillis–Steele)."""
+    _one_chain("ancestor scanning", xs[..., 0, :])
     b_T = resampling_mod.choice_from_uniform(u, w_T)
     n = ancestors.shape[0]
     suffix = ancestors.clone()
@@ -252,13 +274,14 @@ def backward_scanning_pass(w_T, xs, ancestors, u):
 def backward_sampling_pass(Pt, w_T, xs, log_ws, us):
     """Whiteley backward sampling, one categorical draw per step from the
     smoothing weights log_w_t + log p(x_{t+1} | x_t) at uniform us[t]."""
+    _one_chain("the generic backward loop", xs[..., 0, :])
     T = xs.shape[0]
     b = resampling_mod.categorical_from_uniform(us[-1], w_T)
     picked = [b]
     x_next = xs[-1, b]
     for t in range(T - 2, -1, -1):
         log_w = Pt.logpdf(x_next, xs[t], _at(Pt.params, t)) + log_ws[t]
-        b = resampling_mod.categorical_from_uniform(us[t], normalize(log_w))
+        b = resampling_mod.categorical_from_uniform(us[t], normalize(log_w, -1))
         picked.append(b)
         x_next = xs[t, b]
     picked = torch.stack(picked[::-1])
@@ -268,9 +291,10 @@ def backward_sampling_pass(Pt, w_T, xs, log_ws, us):
 def _fused_backward_pass(Pt, w_T, xs, log_ws, us):
     """Whiteley backward sampling through the pair factors of the true
     dynamics, all steps in one backward factor sweep."""
-    b_T = resampling_mod.categorical_from_uniform(us[-1], w_T)
-    rf, cf, rb, _ = (z.contiguous() for z in Pt.logpdf_factors(xs[:-1], xs[1:], Pt.params))
-    picked_rest = csmc_fwd.backward_factor_scan(rf, cf, rb, log_ws[:-1].contiguous(),
-                                                us[:-1].contiguous(), b_T)
-    picked = torch.cat([picked_rest, b_T.reshape(1)])
+    b_T = resampling_mod.categorical_from_uniform(us[..., -1], w_T)
+    rf, cf, rb, _ = (z.contiguous() for z in Pt.logpdf_factors(
+        xs[..., :-1, :, :], xs[..., 1:, :, :], Pt.params))
+    picked_rest = csmc_fwd.backward_factor_scan(rf, cf, rb, log_ws[..., :-1, :].contiguous(),
+                                                us[..., :-1].contiguous(), b_T)
+    picked = torch.cat([picked_rest, b_T[..., None]], -1)
     return _take_trajectory(xs, picked), picked

@@ -109,10 +109,16 @@ def _centred(row_feat, col_feat, col_const):
 
 def diag_gaussian_pair_factors(mean_prev, x_next, sig):
     """Pair-factorise N(x_next[j]; mean_prev[i], diag(sig^2)) over (..., N, d)
-    rows; `sig` a scalar or (d,). Centred (`_centred`)."""
+    rows; `sig` a scalar or (d,), or per step (..., 1, 1) or (..., 1, d).
+    Centred (`_centred`)."""
     d = x_next.shape[-1]
-    sig = torch.as_tensor(sig, dtype=x_next.dtype, device=x_next.device).expand(d)
-    return _centred(mean_prev / sig, x_next / sig, -torch.log(sig).sum() - 0.5 * d * _LOG_2PI)
+    sig = torch.as_tensor(sig, dtype=x_next.dtype, device=x_next.device)
+    if sig.dim() <= 1:
+        sig = sig.expand(d)
+        const = -torch.log(sig).sum()
+    else:  # per step: the constant (..., 1) against (..., N) biases
+        const = -torch.log(sig.expand(*sig.shape[:-1], d)).sum(-1)
+    return _centred(mean_prev / sig, x_next / sig, const - 0.5 * d * _LOG_2PI)
 
 
 def chol_gaussian_pair_factors(mean_prev, x_next, chol):

@@ -14,6 +14,8 @@ potentials absorb the model density and the closed-form proposal ratio
 Independent proposals with a pair-factorising weight make the forward
 sweep the factor kernel (`ops/cuda/csmc_fwd.forward_factor_scan`), and the
 PIT tree's stitching the stitching kernels (`ops/cuda/stitching.py`).
+Both paths take a chain axis (x (C, T, d), delta (C,) or (C, T); see
+`kernels/csmc.py` and `kernels/pit.py`).
 """
 import math
 from dataclasses import dataclass
@@ -22,7 +24,7 @@ from typing import Any
 import torch
 
 from . import pit
-from .csmc_aux import get_kernel as get_aux_kernel
+from .csmc_aux import get_kernel as get_aux_kernel, per_step_scale
 from .csmc_base import CSMCState, Distribution, Dynamics, Potential, UnivariatePotential
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -45,11 +47,11 @@ def get_kernel(M0, G0, Mt, Gt, N, backward=False, Pt=None, gradient=False, paral
 
 def trajectory_logpdf(u, M0, G0, Mt, Gt):
     """log of the unnormalised Feynman–Kac density along one trajectory u
-    (T, d); differentiable in u."""
-    head = M0.logpdf(u[0]) + G0(u[0])
-    nxt, cur = u[1:, None], u[:-1, None]  # one particle per step
+    (T, d), or one a chain of u (C, T, d) -> (C,); differentiable in u."""
+    head = M0.logpdf(u[..., 0, :]) + G0(u[..., 0, :])
+    nxt, cur = u[..., 1:, None, :], u[..., :-1, None, :]  # one particle per step
     pair = Mt.logpdf(nxt, cur, Mt.params) + Gt(nxt, cur, Gt.params)
-    return head + pair.sum()
+    return head + pair.sum((-2, -1))
 
 
 def _proposal_geometry(u, scale, M0, G0, Mt, Gt, gradient):
@@ -59,19 +61,20 @@ def _proposal_geometry(u, scale, M0, G0, Mt, Gt, gradient):
         return u, torch.zeros_like(u)
     with torch.enable_grad():
         v = u.detach().requires_grad_(True)
-        (g,) = torch.autograd.grad(trajectory_logpdf(v, M0, G0, Mt, Gt), v)
-    shift = (scale ** 2)[:, None] * g
+        (g,) = torch.autograd.grad(trajectory_logpdf(v, M0, G0, Mt, Gt).sum(), v)
+    shift = (scale ** 2)[..., None] * g
     return u + shift, shift
 
 
 def _sequential_path(M0, G0, Mt, Gt, N, backward, Pt, gradient, resampling):
     def factory(u, scale):
         loc, shift = _proposal_geometry(u, scale, M0, G0, Mt, Gt, gradient)
-        prop0 = DiagonalGaussian(loc=loc[0], scale=scale[0])
-        propt = IndependentDynamics(params=(loc[1:], scale[1:]))
-        g0 = AbsorbedG0(prior=M0, pot=G0, u=u[0], shift=shift[0], scale=scale[0])
-        gt = AbsorbedGt(trans=Mt, pot=Gt,
-                        params=(Mt.params, Gt.params, (u[1:], shift[1:], scale[1:])))
+        prop0 = DiagonalGaussian(loc=loc[..., 0, :], scale=scale[..., 0])
+        propt = IndependentDynamics(params=(loc[..., 1:, :], scale[..., 1:]))
+        g0 = AbsorbedG0(prior=M0, pot=G0, u=u[..., 0, :], shift=shift[..., 0, :],
+                        scale=scale[..., 0])
+        gt = AbsorbedGt(trans=Mt, pot=Gt, params=(Mt.params, Gt.params, (
+            u[..., 1:, :], shift[..., 1:, :], scale[..., 1:])))
         return prop0, g0, propt, gt
 
     return get_aux_kernel(factory, N, backward, Pt, resampling)
@@ -88,30 +91,30 @@ def _pit_path(M0, G0, Mt, Gt, N, gradient, stitch, draws):
     `generator` when not given."""
     def kernel(state, delta, generator=None, noise=None):
         x = state.x
-        T = x.shape[0]
+        *lead, T, d = x.shape
         if noise is None:
             kw = dict(generator=generator, dtype=x.dtype, device=x.device)
-            noise = (torch.randn(x.shape, **kw), torch.randn(T, N, x.shape[1], **kw)) \
-                + pit.draw_noise(T, N, x, generator)
+            noise = (torch.randn(x.shape, **kw), torch.randn(*lead, T, N, d, **kw)) \
+                + pit.draw_noise(T, N, x, generator, chains=lead[0] if lead else None)
         eps_u, eps, levels, root = noise
-        delta = torch.as_tensor(delta, dtype=x.dtype, device=x.device)
-        scale = torch.sqrt(0.5 * delta).expand(T)
-        u = x + scale[:, None] * eps_u
+        scale = per_step_scale(delta, x)
+        u = x + scale[..., None] * eps_u
         loc, _ = _proposal_geometry(u, scale, M0, G0, Mt, Gt, gradient)
         proposals = DiagonalGaussian(loc=loc, scale=scale)
         qt = DiagonalGaussian(loc=u, scale=scale) if gradient else None
-        zeros_d = torch.zeros_like(u[0])
+        zeros_d = torch.zeros_like(u[..., 0, :])
         g0 = AbsorbedG0(prior=M0, pot=G0, u=zeros_d, shift=zeros_d,
-                        scale=torch.ones_like(scale[0]))
+                        scale=torch.ones_like(scale[..., 0]))
         gt = AbsorbedGt(trans=Mt, pot=Gt,
-                        params=(Mt.params, Gt.params, (torch.zeros_like(u[1:]),
-                                                       torch.zeros_like(u[1:]),
-                                                       torch.ones_like(scale[1:]))))
+                        params=(Mt.params, Gt.params, (torch.zeros_like(u[..., 1:, :]),
+                                                       torch.zeros_like(u[..., 1:, :]),
+                                                       torch.ones_like(scale[..., 1:]))))
         _, pit_kernel = pit.get_kernel(proposals, g0, gt, N, qt, stitch=stitch, draws=draws)
         return pit_kernel(state, noise=(eps, levels, root))
 
     def init(x):
-        return CSMCState(x=x, updated=torch.zeros(x.shape[0], dtype=torch.bool, device=x.device))
+        return CSMCState(x=x, updated=torch.zeros(x.shape[:-1], dtype=torch.bool,
+                                                  device=x.device))
 
     return init, kernel
 

@@ -31,7 +31,8 @@ class KalmanSampler(SamplerState):
     log_target: torch.Tensor = None
 
 
-def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parallel):
+def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parallel,
+               chains=False):
     """Build the auxiliary Kalman sampler.
 
     Parameters
@@ -47,15 +48,26 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
         (prior dynamics PLUS potential).
     parallel : bool
         Parallel-in-time filtering/sampling, or sequential loops.
+    chains : bool
+        C independent chains of a scalar-state model at once, in the batched
+        scalar layout (`ops/lgssm.py`): x (T, C, 1), delta (C,), the
+        factories' proposal model in that layout and `log_likelihood_fn(x)`
+        one target value a chain (C,). Each chain has its own proposal and
+        target densities (nothing is summed over C) and its own accept; a
+        step launches the scalar scans (`ops/cuda/scalar_scan.py`) as one
+        chain's step does, whatever C is.
 
     Returns
     -------
     (init, kernel): `init(x) -> KalmanSampler` and
     `kernel(state, delta, generator=None, noise=None) -> KalmanSampler`.
     `noise`, if given, is `(eps_aux (T, dx), eps_smooth (T, dx), u_accept)`
-    and replaces the draws from `generator`; the step accepts when
-    `u_accept < alpha`, exactly as `jax.random.bernoulli`.
+    (with `chains`: (T, C, 1), (T, C, 1), (C,)) and replaces the draws from
+    `generator`; the step accepts when `u_accept < alpha`, exactly as
+    `jax.random.bernoulli`.
     """
+    # With `chains`, delta (C,) lines up with the chain axis of (T, C, 1).
+    per_step = (lambda d: d[:, None]) if chains else (lambda d: d)
 
     def propose(delta, eps, u, x, x_eval=None, log_target=None):
         """Build the proposal LGSSM at x; sample from it unless `x_eval` is
@@ -65,10 +77,10 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
         m0, P0, Fs, Qs, bs = dynamics_factory(x)[:5]
         ys, Hs, Rs, cs = observations_factory(x, u, delta)[:4]
         lgssm = LGSSM(m0, P0, Fs, Qs, bs, Hs, Rs, cs)
-        ms, Ps, ell = filtering(ys, lgssm, parallel)
+        ms, Ps, ell = filtering(ys, lgssm, parallel, keep_batch=chains)
         if x_eval is None:
             x_eval = sampling(eps, ms, Ps, lgssm, parallel)
-        log_prop = posterior_logpdf(ys, x_eval, ell, lgssm)
+        log_prop = posterior_logpdf(ys, x_eval, ell, lgssm, keep_batch=chains)
         if log_target is None:
             log_target = log_likelihood_fn(x_eval)
         return log_prop, log_target, x_eval
@@ -79,37 +91,40 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
         if noise is None:
             kw = dict(generator=generator, dtype=x.dtype, device=x.device)
             noise = (torch.randn(x.shape, **kw), torch.randn(x.shape, **kw),
-                     torch.rand((), **kw))
+                     torch.rand(x.shape[1:2] if chains else (), **kw))
         eps_aux, eps_smooth, u_accept = noise
-        sqrt_delta = torch.sqrt(delta)
+        sqrt_delta = torch.sqrt(per_step(delta))
 
-        u = x + torch.sqrt(0.5 * delta) * eps_aux
+        u = x + torch.sqrt(0.5 * per_step(delta)) * eps_aux
         log_prop_fwd, log_target_prop, x_prop = propose(delta, eps_smooth, u, x)
         log_prop_rev, log_target_rev, _ = propose(
             delta, None, u, x_prop, x, log_target=state.log_target)
 
         alpha = _acceptance_probability(log_prop_fwd, log_prop_rev, log_target_prop,
-                                        log_target_rev, sqrt_delta, u, x, x_prop)
+                                        log_target_rev, sqrt_delta, u, x, x_prop,
+                                        dims=(0, 2) if chains else None)
         accept = u_accept < alpha
-        x_new = torch.where(accept, x_prop, x)
+        x_new = torch.where(per_step(accept), x_prop, x)
         lt_new = (None if state.log_target is None
                   else torch.where(accept, log_target_prop, log_target_rev))
         return KalmanSampler(x=x_new, updated=accept, log_target=lt_new)
 
     def init(x):
-        return KalmanSampler(x=x, updated=torch.ones((), dtype=torch.bool, device=x.device),
+        return KalmanSampler(x=x, updated=torch.ones(x.shape[1:2] if chains else (),
+                                                     dtype=torch.bool, device=x.device),
                              log_target=log_likelihood_fn(x))
 
     return init, kernel
 
 
 def _acceptance_probability(log_prop_fwd, log_prop_rev, log_target_prop,
-                            log_target_rev, sqrt_delta, u, x, x_prop):
+                            log_target_rev, sqrt_delta, u, x, x_prop, dims=None):
     """Exact MH ratio for the auxiliary move, including the Gaussian pi(x | u)
-    correction."""
+    correction, summed over `dims` (default: every axis)."""
     log_alpha = log_target_prop - log_target_rev
     log_alpha = log_alpha + (log_prop_rev - log_prop_fwd)
     diff_prop = (x_prop - u) / sqrt_delta
     diff = (x - u) / sqrt_delta
-    log_alpha = log_alpha - (diff_prop ** 2 - diff ** 2).sum()
+    sq = diff_prop ** 2 - diff ** 2
+    log_alpha = log_alpha - (sq.sum() if dims is None else sq.sum(dims))
     return torch.exp(torch.clamp(log_alpha, max=0.0))

@@ -32,6 +32,15 @@ N), seed)` for each level below the root (the row draws' uniforms and the
 column draws' counter seed, an int32 0-d tensor) and `(u_row (1,), u_col
 (1,))` for the root; `level_sizes(T)` gives n_act of each level. The level
 maps are static NumPy, so the tree loop reads nothing back from the device.
+
+Chain axis: x (C, T, d) runs C independent chains; the noise then carries a
+leading C (each level's u_rows (C, n_act, N) and seeds (C,) int32, the
+root's uniforms (C, 1)), and each tree level folds the chains into its
+pairs: its P = C * n_act nodes are one launch of each stitching kernel,
+col_sample drawing chain c's pairs with chain c's seed and each pair's index
+within its own chain's level, so chain c draws what a one-chain step with
+its noise draws. One chain runs as C = 1. The blocked route under C > 1 is
+not ported (NotImplementedError; ROADMAP.md).
 """
 import functools
 import math
@@ -201,15 +210,17 @@ def level_sizes(S):
     return [len(range(1 << k, S, 2 << k)) for k in range(K)]
 
 
-def draw_noise(T, N, like, generator=None):
+def draw_noise(T, N, like, generator=None, chains=None):
     """The tree's noise (levels, root) from `generator`, on `like`'s device
-    and in its dtype; the level seeds are drawn there (no host sync)."""
+    and in its dtype; the level seeds are drawn there (no host sync). With
+    `chains` C, each entry has a leading axis of C."""
     kw = dict(generator=generator, dtype=like.dtype, device=like.device)
-    levels = [(torch.rand(n_act, N, **kw),
-               torch.randint(0, _INT32_MAX, (), generator=generator, dtype=torch.int32,
+    lead = () if chains is None else (chains,)
+    levels = [(torch.rand(*lead, n_act, N, **kw),
+               torch.randint(0, _INT32_MAX, lead, generator=generator, dtype=torch.int32,
                              device=like.device))
               for n_act in level_sizes(T)[:-1]]
-    return levels, (torch.rand(1, **kw), torch.rand(1, **kw))
+    return levels, (torch.rand(*lead, 1, **kw), torch.rand(*lead, 1, **kw))
 
 
 def check_routes(stitch, draws):
@@ -250,51 +261,67 @@ def get_kernel(Mt, G0, Gt, N, Qt=None, stitch="auto", draws="joint"):
     return init, kernel
 
 
-def _shifted_params(params):
+def _shifted_params(params, chains=False):
     """Gt's params shifted one step right (params[t] weighs the (t-1, t)
-    boundary); the t = 0 placeholder is NaN for floats and 0 for integers."""
+    boundary), along axis 1 under a chain axis; the t = 0 placeholder is NaN
+    for floats and 0 for integers."""
+    ax = 1 if chains else 0
+
     def shift(z):
         fill = math.nan if z.is_floating_point() else 0
-        return torch.cat([z.new_full((1,) + tuple(z.shape[1:]), fill), z])
+        pad = list(z.shape)
+        pad[ax] = 1
+        return torch.cat([z.new_full(pad, fill), z], ax)
     return tree_map(shift, params)
 
 
 def _pit_csmc(x_star, Mt, G0, Gt, N, Qt, noise, stitch="auto", draws="joint"):
     """Index-composition PIT engine: propose all T x N particles, run the
     stitching tree on boundary values, resolve the genealogy, gather once.
-    Returns (x (T, d), picked (T,))."""
+    Returns (x (T, d), picked (T,)), each with x_star's chain axis (if any)
+    in front."""
     eps, levels, root = noise
-    T = x_star.shape[0]
+    T = x_star.shape[-2]
     xs = Mt.sample_from_noise(eps)
-    xs[:, 0] = x_star
+    xs[..., 0, :] = x_star
     if Qt is not None:
         log_wts = Qt.logpdf(xs) - Mt.logpdf(xs)
     else:
-        log_wts = xs.new_zeros(T, N)
-    log_wts[0] = log_wts[0] + G0(xs[0])
-    log_wts = log_wts - torch.logsumexp(log_wts, 1, keepdim=True)
-    steps = torch.arange(T, device=xs.device)
+        log_wts = xs.new_zeros(xs.shape[:-1])
+    log_wts[..., 0, :] = log_wts[..., 0, :] + G0(xs[..., 0, :, :])
+    log_wts = log_wts - torch.logsumexp(log_wts, -1, keepdim=True)
 
     if T == 1:
-        j = categorical_from_uniforms(log_wts[0], root[0].reshape(1))
-        return xs[steps, j], j
+        j = categorical_from_uniforms(log_wts[..., 0, :], root[0].reshape(*x_star.shape[:-2], 1))
+        return _take_steps(xs, j), j
 
-    sels, root_pair = run_stitch_tree(xs, xs, log_wts, list(levels) + [root],
-                                      _shifted_params(Gt.params), Gt, N, include_root=True,
-                                      stitch=stitch, draws=draws)
-    idx = resolve_genealogy(sels, _root_init(root_pair, T, N), T, N)
-    return xs[steps, idx], idx
+    noise = list(levels) + [root]
+    if x_star.dim() == 2:
+        sels, root_pair = run_stitch_tree(xs, xs, log_wts, noise, _shifted_params(Gt.params),
+                                          Gt, N, include_root=True, stitch=stitch, draws=draws)
+        idx = resolve_genealogy(sels, _root_init(root_pair, T, N), T, N)
+    else:
+        sels, root_pair = _stitch_tree(xs, xs, log_wts, noise, _shifted_params(Gt.params, True),
+                                       Gt, N, include_root=True, stitch=stitch, draws=draws)
+        idx = _resolve(sels, _root_rows(root_pair, T), T, N)
+    return _take_steps(xs, idx), idx
+
+
+def _take_steps(xs, idx):
+    """xs (..., T, N, d) at each step's index idx (..., T) -> (..., T, d)."""
+    index = idx[..., None, None].expand(*idx.shape, 1, xs.shape[-1])
+    return torch.gather(xs, -2, index)[..., 0, :]
 
 
 def _fresh_weights(log_wts, steps, consumed, n_act, N):
-    """The initial weights of the level's boundary `steps` (a slice) that have
-    not served as a boundary yet, 0 for the others."""
+    """The initial weights (C, n_act, N) of the level's boundary `steps` (a
+    slice) that have not served as a boundary yet, 0 for the others."""
     fresh = ~consumed[steps]
     if fresh.all():
-        return log_wts[steps]
-    out = log_wts.new_zeros(n_act, N)
+        return log_wts[:, steps]
+    out = log_wts.new_zeros(log_wts.shape[0], n_act, N)
     for p, t in zip(np.flatnonzero(fresh), np.arange(len(consumed))[steps][fresh]):
-        out[p] = log_wts[int(t)]
+        out[:, p] = log_wts[:, int(t)]
     return out
 
 
@@ -317,8 +344,28 @@ def run_stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, includ
 
     Returns (sels, root): `sels` a list over the recorded levels of (L, R,
     n_act) with L / R (n_act, N) int64, `root` the (l*, r*) pair (or None).
+    One chain of the tree that `_stitch_tree` runs over a chain axis.
     """
-    S = left_vals.shape[0]
+    def one(z):
+        return z[None]
+
+    noise = [(u[None], seed.reshape(1)) if i < len(noise) - 1 or not include_root
+             else tuple(z.reshape(1, -1) for z in (u, seed))
+             for i, (u, seed) in enumerate(noise)]
+    sels, root = _stitch_tree(one(left_vals), one(right_vals), one(log_wts), noise,
+                              tree_map(one, params), Gt, N, include_root, stitch, draws,
+                              pair_offset)
+    return [(L[0], R[0], n) for L, R, n in sels], root
+
+
+def _stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, include_root,
+                 stitch="auto", draws="joint", pair_offset=0):
+    """`run_stitch_tree` over a leading chain axis of C: left_vals /
+    right_vals (C, S, N, d), log_wts (C, S, N), params (C, S, ...), the
+    noise as the module docstring's chain layout. A level's C * n_act nodes
+    are drawn as one batch of pairs. Returns `sels` of (L, R, n_act), L / R
+    (C, n_act, N), and `root` (l*, r*), each (C,)."""
+    C, S = left_vals.shape[:2]
     fused = getattr(Gt, "supports_pairwise_factors", False)
     K = int(math.log2(_next_pow2(S)))
     sels, root = [], None
@@ -330,47 +377,64 @@ def run_stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, includ
         rights = slice(block, S, 2 * block)       # the level's active nodes: a prefix
         lefts = slice(block - 1, S - 1, 2 * block)
         n_act = len(range(S)[rights])  # >= 1: step 2^k < S at every level
-        xf_even, xf_odd = x_first[0::2], x_first[1::2]
-        xl_even, xl_odd = x_last[0::2], x_last[1::2]
-        xl, xr = xl_even[:n_act], xf_odd[:n_act]
+        xf_even, xf_odd = x_first[:, 0::2], x_first[:, 1::2]
+        xl_even, xl_odd = x_last[:, 0::2], x_last[:, 1::2]
+        xl, xr = xl_even[:, :n_act], xf_odd[:, :n_act]
         lw_l = _fresh_weights(log_wts, lefts, consumed, n_act, N)
         lw_r = _fresh_weights(log_wts, rights, consumed, n_act, N)
         consumed[lefts] = consumed[rights] = True
-        params_r = tree_map(lambda z: z[rights], params)
         last = include_root and k == K - 1
 
+        def fold(z):  # (C, n_act, ...) -> (C * n_act, ...)
+            return z.reshape((C * n_act,) + tuple(z.shape[2:]))
+
+        def unfold(z):
+            return z.reshape((C, n_act) + tuple(z.shape[1:]))
+
+        params_r = tree_map(lambda z: fold(z[:, rights]), params)
+        level = noise[k] if last else (fold(noise[k][0]), noise[k][1])
         new_first = new_last = None
         if fused:
-            out = _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise[k], stitch,
-                                   draws, pair_offset=pair_offset,
-                                   row_payload=None if last else xf_even[:n_act],
-                                   col_payload=None if last else xl_odd[:n_act])
+            out = _fused_node_draw(fold(xl), fold(xr), fold(lw_l), fold(lw_r), params_r, Gt, N,
+                                   last, level, stitch, draws, pair_offset=pair_offset,
+                                   row_payload=None if last else fold(xf_even[:, :n_act]),
+                                   col_payload=None if last else fold(xl_odd[:, :n_act]),
+                                   chains=C)
             rows, cols = out[:2]
             if not last:
-                new_first, new_last = out[2:]
+                new_first, new_last = (unfold(z) for z in out[2:])
         else:
-            rows, cols = _generic_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise[k])
+            rows, cols = _generic_node_draw(fold(xl), fold(xr), fold(lw_l), fold(lw_r),
+                                            params_r, Gt, N, last, level)
         if last:
             root = (rows[:, 0], cols[:, 0])
         else:
+            rows, cols = unfold(rows), unfold(cols)
             sels.append((rows, cols, n_act))
             # Merged node p: first values = the left child's firsts by the drawn
             # rows, last values = the right child's lasts by the drawn columns. A
             # trailing even node without a sibling passes through.
             if new_first is None:
-                new_first = take_rows(xf_even[:n_act], rows)
-                new_last = take_rows(xl_odd[:n_act], cols)
-            x_first = torch.cat([new_first, xf_even[n_act:]])
-            x_last = torch.cat([new_last, xl_even[n_act:] if n_nodes % 2 else xl_odd[n_act:]])
+                new_first = take_rows(xf_even[:, :n_act], rows)
+                new_last = take_rows(xl_odd[:, :n_act], cols)
+            x_first = torch.cat([new_first, xf_even[:, n_act:]], 1)
+            x_last = torch.cat([new_last, xl_even[:, n_act:] if n_nodes % 2
+                                else xl_odd[:, n_act:]], 1)
     return sels, root
 
 
 def _root_init(root, S, N):
     """Initial per-step index from the root's single (l*, r*) pair."""
+    return _root_rows(root, S)[0]
+
+
+def _root_rows(root, S):
+    """The initial per-step index of each chain: root (l*, r*) each (C,) ->
+    (C, S)."""
     half = _next_pow2(S) // 2
     l_star, r_star = root
     first = torch.arange(S, device=l_star.device) < half
-    return torch.where(first, l_star[0], r_star[0])
+    return torch.where(first, l_star[:, None], r_star[:, None])
 
 
 @functools.lru_cache(maxsize=512)
@@ -388,23 +452,30 @@ def _level_index(S, j, n_act, N, device):
                  for z in (li, ri, (side == 1) & act, np.arange(N)[None]))
 
 
-def _level_selection_rows(ts_np, j, sel, N):
-    """Identity-padded per-time selection rows of level `j`: row t holds the
-    level's L (left side) or R (right side) map when t's node at that level
-    is active, else the identity (p = t >> (j + 1), side = (t >> j) & 1)."""
+def _level_selection_rows(S, j, sel, N):
+    """Identity-padded per-time selection rows of level `j`, (C, S, N): row t
+    holds the level's L (left side) or R (right side) map when t's node at
+    that level is active, else the identity (p = t >> (j + 1), side = (t >>
+    j) & 1)."""
     L, R, n_act = sel
-    li, ri, right, ident = _level_index(len(ts_np), j, n_act, N, L.device)
-    Lp, Rp = torch.cat([L, ident]), torch.cat([R, ident])
-    return torch.where(right[:, None], Rp[ri], Lp[li])
+    li, ri, right, ident = _level_index(S, j, n_act, N, L.device)
+    ident = ident.expand(L.shape[0], 1, N)
+    Lp, Rp = torch.cat([L, ident], 1), torch.cat([R, ident], 1)
+    return torch.where(right[:, None], Rp[:, ri], Lp[:, li])
 
 
 def resolve_genealogy(sels, idx_init, S, N):
     """idx[t] = s_0(t)[s_1(t)[... [idx_init[t]] ...]] through the recorded
-    selections, top level first; O(S) work a level."""
-    ts = np.arange(S)
+    selections, top level first; O(S) work a level. One chain of `_resolve`."""
+    return _resolve([(L[None], R[None], n) for L, R, n in sels], idx_init[None], S, N)[0]
+
+
+def _resolve(sels, idx_init, S, N):
+    """`resolve_genealogy` of C chains: sels' maps (C, n_act, N), idx_init
+    (C, S) -> (C, S)."""
     idx = idx_init
     for k in range(len(sels) - 1, -1, -1):
-        idx = torch.gather(_level_selection_rows(ts, k, sels[k], N), 1, idx[:, None])[:, 0]
+        idx = torch.gather(_level_selection_rows(S, k, sels[k], N), 2, idx[..., None])[..., 0]
     return idx
 
 
@@ -417,19 +488,26 @@ def _use_blocked_stitch(N, stitch):
 
 
 def _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise, stitch="auto",
-                     draws="joint", pair_offset=0, row_payload=None, col_payload=None):
+                     draws="joint", pair_offset=0, row_payload=None, col_payload=None,
+                     chains=None):
     """The factorised draw for one level's nodes. xl / xr (n_act, N, d): the
     left child's last-step and the right child's first-step particles; lw_l /
     lw_r (n_act, N) their fresh weights. Returns (rows, cols), each (n_act, N)
     (or (1, 1) at the root), and with `row_payload` / `col_payload` (n_act,
     N, e) also those values at the drawn rows / columns. Pair 0 is pinned to
     (0, 0), payloads to index 0's values. `draws` applies on the blocked
-    route only."""
+    route only. With `chains` C, the nodes are C chains' n_act nodes each,
+    chain after chain, and the level's seed is (C,): one a chain."""
     rf, cf, rb, cb = Gt.pairwise_factors(xl, xr, params_r)
     rb = rb + lw_l
     cb = (cb + lw_r).contiguous()
     rf, cf = rf.contiguous(), cf.contiguous()
     blocked = _use_blocked_stitch(N, stitch) and not last
+    if blocked and chains is not None:
+        if chains > 1:
+            raise NotImplementedError("the blocked stitching route (N >= 4096) takes one chain; "
+                                      "a chain axis there is ROADMAP.md queue 1")
+        noise = (noise[0], noise[1].reshape(()))
 
     if last:
         u_row, u_col = noise
@@ -462,7 +540,8 @@ def _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise, stitch="a
     else:
         rows = categorical_from_uniforms(rb + kernels.row_lse(rf, cf, cb), u_rows)
         rows[:, 0] = 0
-        cols = kernels.col_sample(seed, take_rows(rf, rows).contiguous(), cf, cb, pair_offset)
+        cols = kernels.col_sample(seed, take_rows(rf, rows).contiguous(), cf, cb, pair_offset,
+                                  chains=chains)
     rows[:, 0] = 0
     cols[:, 0] = 0
     if row_payload is None:

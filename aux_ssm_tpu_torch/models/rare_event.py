@@ -8,7 +8,8 @@ Model:  x_0 ~ N(0, 1),   x_{t+1} = rho x_t + sqrt(1 - rho^2) eps,
 The conditional moments of x_0 and x_{T-1} given y are known in closed form
 (`conditional_moments`), so the model is an exact oracle for its three
 sampler styles:
-    kalman        auxiliary Kalman MH (`get_kalman_kernel`), the MH kernels at d = 1
+    kalman        auxiliary Kalman MH (`get_kalman_kernel`) in the batched scalar
+                  layout, the scalar scans (one cell is M = 1)
     csmc          auxiliary PG with independent proposals (`get_csmc_kernel`),
                   the factor sweeps, or with `parallel=True` (the default of
                   `experiments/cli.py`) the PIT cSMC through the stitching kernels
@@ -17,6 +18,15 @@ sampler styles:
 y, rho, r2 are Python floats. The functions take `dtype` and `device`; the
 chain's tensors must match them, and `device=None` is the card
 (`device.default_device`).
+
+Cells on a chain axis (the rare-event grid, `experiments/rare_event.py`):
+given rho and r2 as (M,) tensors, every builder makes M chains at once, one
+(rho, r2) cell each. `init_x` then draws (M, T, 1); the kalman kernel runs
+in the batched scalar layout, x (T, M, 1) and delta (M,)
+(`kernels.kalman.get_kernel(..., chains=True)`); the cSMC kernels take x
+(M, T, 1) and delta (M,) or (M, T) (`kernels/csmc.py`'s chain axis), their
+components' per-step params (M, T-1), the lane functors' rows (M, T-1, P)
+and their constants [T] or [T, gradient] shared.
 """
 import math
 from dataclasses import dataclass
@@ -27,7 +37,7 @@ from ..device import resolve
 from ..kernels import csmc_aux, csmc_independent
 from ..kernels.csmc_base import (Distribution, Dynamics, Potential, UnivariatePotential,
                                  diag_gaussian_pair_factors)
-from ..kernels.kalman import get_kernel as get_kalman_generic
+from ..kernels.kalman import KalmanSampler, get_kernel as get_kalman_generic
 from ..ops.filtering import filtering
 from ..ops.lgssm import LGSSM
 from ..ops.mvn import norm_logpdf
@@ -45,69 +55,118 @@ def conditional_moments(y, rho, r2, T):
     return (mean_0, var_0), (mean_T, var_T)
 
 
-def _ar_params(rho, T, kw):
-    m0 = torch.zeros(1, **kw)
-    P0 = torch.eye(1, **kw)
-    Fs = rho * torch.ones(T - 1, 1, 1, **kw)
-    Qs = (1.0 - rho ** 2) * torch.ones(T - 1, 1, 1, **kw)
-    bs = torch.zeros(T - 1, 1, **kw)
-    return m0, P0, Fs, Qs, bs
+def _cells(rho, r2, kw):
+    """(rho, r2, sig_x, r, M): Python floats and M None for one cell, or (M,)
+    tensors of kw's dtype and device for M cells."""
+    if not (isinstance(rho, torch.Tensor) or isinstance(r2, torch.Tensor)):
+        return rho, r2, math.sqrt(1.0 - rho ** 2), math.sqrt(r2), None
+    rho, r2 = (torch.as_tensor(z, **kw).reshape(-1) for z in (rho, r2))
+    rho, r2 = torch.broadcast_tensors(rho, r2)
+    return rho, r2, torch.sqrt(1.0 - rho ** 2), torch.sqrt(r2), rho.shape[0]
+
+
+def _chainwise(v, like):
+    """A per-chain value (M,) aligned with the leading (chain) axis of `like`;
+    a number or a 0-d tensor as it is."""
+    if not isinstance(v, torch.Tensor) or v.dim() == 0:
+        return v
+    return v.reshape(tuple(v.shape) + (1,) * (like.dim() - 1))
+
+
+def _ar_params(rho, T, kw, M):
+    """The AR(1) prior of M cells in the batched scalar layout."""
+    col = (1, M, 1, 1)
+    return (torch.zeros(M, 1, **kw), torch.ones(M, 1, 1, **kw),
+            rho.reshape(col).expand(T - 1, M, 1, 1), (1.0 - rho ** 2).reshape(col).expand(
+                T - 1, M, 1, 1), torch.zeros(T - 1, M, 1, **kw))
+
+
+def _as_cells(rho, r2, kw):
+    """`_cells` with one cell (float rho and r2) as M = 1: (rho, r2, sig_x,
+    r, M, one), the four (M,) tensors and `one` whether it was one cell."""
+    rho, r2, sig_x, r, M = _cells(rho, r2, kw)
+    if M is not None:
+        return rho, r2, sig_x, r, M, False
+    return tuple(torch.tensor([z], **kw) for z in (rho, r2, sig_x, r)) + (1, True)
 
 
 def init_x(y, rho, r2, T, parallel=True, *, generator=None, eps=None, dtype=torch.float64,
            device=None):
     """An exact posterior draw (the model is an LGSSM with its one observation
-    NaN-masked everywhere but the last step), to start a chain from. `eps`
-    (T, 1) are the draw's standard normals (default: from `generator`)."""
+    NaN-masked everywhere but the last step), to start a chain from, through
+    the batched scalar layout's filters. One cell (rho, r2 floats): (T, 1)
+    from the (T, 1) normals `eps`; M cells (rho, r2 (M,)): one draw a cell,
+    (M, T, 1), from the (M, T, 1) normals `eps` (default: from `generator`)."""
     kw = dict(dtype=dtype, device=resolve(device))
-    m0, P0, Fs, Qs, bs = _ar_params(rho, T, kw)
-    Hs = torch.zeros(T, 1, 1, **kw)
-    Hs[-1] = 1.0
-    Rs = r2 * torch.ones(T, 1, 1, **kw)
-    cs = torch.zeros(T, 1, **kw)
-    ys = torch.full((T, 1), math.nan, **kw)
-    ys[-1, 0] = y
-    lgssm = LGSSM(m0, P0, Fs, Qs, bs, Hs, Rs, cs)
+    rho, r2, _, _, M, one = _as_cells(rho, r2, kw)
+    lgssm = LGSSM(*_ar_params(rho, T, kw, M), torch.zeros(T, M, 1, 1, **kw),
+                  r2.reshape(1, M, 1, 1).expand(T, M, 1, 1), torch.zeros(T, M, 1, **kw))
+    lgssm.Hs[-1] = 1.0
+    ys = torch.full((T, M, 1), math.nan, **kw)
+    ys[-1] = y
     fms, fPs, _ = filtering(ys, lgssm, parallel)
     if eps is None:
-        eps = torch.randn(T, 1, generator=generator, **kw)
-    return sampling(eps, fms, fPs, lgssm, parallel)
+        eps = torch.randn(M, T, 1, generator=generator, **kw)
+    x = sampling(eps.reshape(M, T, 1).transpose(0, 1), fms, fPs, lgssm, parallel)
+    x = x.transpose(0, 1).contiguous()
+    return x[0] if one else x
 
 
 def get_kalman_kernel(y, rho, r2, T, parallel, gradient=False, *, dtype=torch.float64,
                       device=None):
-    """Auxiliary Kalman kernel; the potential acts only at the final step, so
-    the gradient shift is non-zero only there. Returns (init, kernel) of
-    `kernels.kalman.get_kernel`; `init` takes a (T,) or (T, 1) trajectory."""
+    """Auxiliary Kalman kernel in the batched scalar layout, M chains of one
+    cell each (one cell is M = 1); the potential acts only at the final step,
+    so the gradient shift is non-zero only there. Returns (init, kernel) of
+    `kernels.kalman.get_kernel(..., chains=True)`: for M cells (rho, r2 (M,)),
+    `init` takes x (T, M, 1) and the kernel delta (M,); for one cell, `init`
+    takes a (T,) or (T, 1) trajectory, the kernel a scalar delta and noise of
+    (T, 1), (T, 1) and (), and the state holds x (T, 1) and a scalar
+    `updated`."""
     kw = dict(dtype=dtype, device=resolve(device))
-    m0, P0, Fs, Qs, bs = _ar_params(rho, T, kw)
-    sig_x = math.sqrt(1.0 - rho ** 2)
-    r = math.sqrt(r2)
-    Hs = torch.ones(T, 1, 1, **kw)
-    cs = torch.zeros(T, 1, **kw)
-    ones = torch.ones(T, 1, 1, **kw)
-    zeros = torch.zeros(T, 1, **kw)
-    last = torch.zeros(T, 1, **kw)
+    rho, r2, sig_x, r, M, one = _as_cells(rho, r2, kw)
+    m0, P0, Fs, Qs, bs = _ar_params(rho, T, kw, M)
+    Hs = torch.ones(T, M, 1, 1, **kw)
+    cs = torch.zeros(T, M, 1, **kw)
+    last = torch.zeros(T, 1, 1, **kw)
     last[-1] = 1.0
 
     def dynamics_factory(_x):
         return m0, P0, Fs, Qs, bs
 
     def observations_factory(x, u, delta):
-        shift = last * ((y - x[-1]) / r2) if gradient else zeros
-        aux_ys = u + 0.5 * delta * shift
-        return aux_ys, Hs, 0.5 * delta * ones, cs
+        half = 0.5 * delta
+        shift = last * ((y - x[-1]) / r2[:, None]) if gradient else torch.zeros_like(u)
+        aux_ys = u + half[:, None] * shift
+        return aux_ys, Hs, half.reshape(1, M, 1, 1).expand(T, M, 1, 1), cs
 
     def log_likelihood_fn(x):
-        out = norm_logpdf(x[0, 0], 0.0, 1.0)
-        out = out + norm_logpdf(x[1:, 0], rho * x[:-1, 0], sig_x).sum()
-        return out + norm_logpdf(y, x[-1, 0], r)
+        out = norm_logpdf(x[0, :, 0], 0.0, 1.0)
+        out = out + norm_logpdf(x[1:, :, 0], rho * x[:-1, :, 0], sig_x).sum(0)
+        return out + norm_logpdf(y, x[-1, :, 0], r)
 
-    init_, kernel = get_kalman_generic(dynamics_factory, observations_factory,
-                                       log_likelihood_fn, parallel)
+    init_, kernel_ = get_kalman_generic(dynamics_factory, observations_factory,
+                                        log_likelihood_fn, parallel, chains=True)
+    if not one:
+        return init_, kernel_
+
+    def reshaped(state, x_shape, scalar_shape):
+        lt = state.log_target
+        return KalmanSampler(x=state.x.reshape(x_shape),
+                             updated=state.updated.reshape(scalar_shape),
+                             log_target=None if lt is None else lt.reshape(scalar_shape))
 
     def init(xs):
-        return init_(xs[:, None] if xs.dim() == 1 else xs)
+        return reshaped(init_(xs.reshape(T, 1, 1)), (T, 1), ())
+
+    def kernel(state, delta, generator=None, noise=None):
+        x = state.x
+        delta = torch.as_tensor(delta, dtype=x.dtype, device=x.device).reshape(1)
+        if noise is not None:
+            eps_aux, eps_smooth, u_accept = noise
+            noise = (eps_aux.reshape(T, 1, 1), eps_smooth.reshape(T, 1, 1),
+                     torch.as_tensor(u_accept, dtype=x.dtype, device=x.device).reshape(1))
+        out = kernel_(reshaped(state, (T, 1, 1), (1,)), delta, generator, noise)
+        return reshaped(out, (T, 1), ())
 
     return init, kernel
 
@@ -122,16 +181,18 @@ def _lane(p):
 
 
 def _rows_of(p, names):
-    """The compact per-step rows of a CUDA lane functor: (T-1, len(names))."""
+    """The compact per-step rows of a CUDA lane functor: (T-1, len(names)),
+    or (M, T-1, len(names)) for M cells."""
     dtype = p[names[0]].dtype
-    return torch.stack([p[k].to(dtype) for k in names], 1)
+    return torch.stack([p[k].to(dtype) for k in names], -1)
 
 
 @dataclass(frozen=True)
 class RareM0(Distribution, UnivariatePotential):
-    """x_0 ~ N(0, 1); as a potential, the observation when T = 1."""
+    """x_0 ~ N(0, 1); as a potential, the observation when T = 1. `r` a float,
+    or (M,) for M cells."""
     y: float
-    r: float
+    r: object
     T: int
 
     def sample_from_noise(self, eps):
@@ -141,35 +202,36 @@ class RareM0(Distribution, UnivariatePotential):
         return norm_logpdf(x[..., 0], 0.0, 1.0)
 
     def __call__(self, x):
-        return (self.T == 1) * norm_logpdf(x[..., 0], self.y, self.r)
+        return (self.T == 1) * norm_logpdf(x[..., 0], self.y, _chainwise(self.r, x[..., 0]))
 
 
 @dataclass(frozen=True)
 class RareG0(UnivariatePotential):
     y: float
-    r: float
+    r: object
     T: int
 
     def __call__(self, x):
-        return (self.T == 1) * norm_logpdf(x[..., 0], self.y, self.r)
+        return (self.T == 1) * norm_logpdf(x[..., 0], self.y, _chainwise(self.r, x[..., 0]))
 
 
 @dataclass(frozen=True, kw_only=True)
 class RareMt(Dynamics):
-    """x_{t+1} = rho x_t + sig_x eps; params = dict(rho, sig), which only the
-    lane callables read (as in the JAX package, where they must)."""
-    rho: float
-    sig_x: float
+    """x_{t+1} = rho x_t + sig_x eps; params = dict(rho, sig), (T-1,) or for M
+    cells (M, T-1): rho and sig ride the per-step params, as in the JAX
+    package, where the grid's vmap over cells needs them there."""
     cuda_model = "rare_event_bootstrap"
 
     def sample_from_noise(self, eps, x_t, params):
-        return self.rho * x_t + self.sig_x * eps
+        return params["rho"][..., None, None] * x_t + params["sig"][..., None, None] * eps
 
     def logpdf(self, x_next, x_t, params):
-        return norm_logpdf(x_next[..., 0], self.rho * x_t[..., 0], self.sig_x)
+        p = _lane(params)
+        return norm_logpdf(x_next[..., 0], p["rho"] * x_t[..., 0], p["sig"])
 
     def logpdf_factors(self, x_prev, x_next, params):
-        return diag_gaussian_pair_factors(self.rho * x_prev, x_next, self.sig_x)
+        return diag_gaussian_pair_factors(params["rho"][..., None, None] * x_prev, x_next,
+                                          params["sig"][..., None, None])
 
     def lane_propagate(self, eps, x_prev, params):
         p = _lane(params)
@@ -206,18 +268,29 @@ class RareGt(Potential):
                                      ("rho", "sig", "t", "y", "r"))
 
 
+def _per_step(T, M, kw):
+    """A number or an (M,) tensor on every step of 1..T-1: (T-1,), or (M, T-1)
+    for M cells."""
+    def full(z):
+        if M is None:
+            return torch.full((T - 1,), z, **kw)
+        return torch.as_tensor(z, **kw).reshape(-1, 1).expand(M, T - 1)
+    return full
+
+
+def _steps(T, M, **kw):
+    t = torch.arange(1, T, **kw)
+    return t if M is None else t.expand(M, T - 1)
+
+
 def get_feynman_kac(y, rho, r2, T, *, dtype=torch.float64, device=None):
     """The model through the cSMC interface (M0, G0, Mt, Gt): bootstrap
     proposals, indicator potentials acting only at the final step."""
     kw = dict(dtype=dtype, device=resolve(device))
-    sig_x = math.sqrt(1.0 - rho ** 2)
-    r = math.sqrt(r2)
-
-    def full(z):
-        return torch.full((T - 1,), z, **kw)
-
-    Mt = RareMt(params=dict(rho=full(rho), sig=full(sig_x)), rho=rho, sig_x=sig_x)
-    gt_params = dict(t=torch.arange(1, T, device=kw["device"]), y=full(y), r=full(r))
+    rho, r2, sig_x, r, M = _cells(rho, r2, kw)
+    full = _per_step(T, M, kw)
+    Mt = RareMt(params=dict(rho=full(rho), sig=full(sig_x)))
+    gt_params = dict(t=_steps(T, M, device=kw["device"]), y=full(y), r=full(r))
     Gt = RareGt(params=gt_params, y=y, T=T, dyn=Mt, consts=torch.full((1,), float(T), **kw))
     return RareM0(y, r, T), RareG0(y, r, T), Mt, Gt
 
@@ -238,15 +311,17 @@ def get_csmc_kernel(y, rho, r2, T, n_particles, backward=True, parallel=False, g
 
 @dataclass(frozen=True)
 class GuidedM0(Distribution, UnivariatePotential):
-    """x_0 ~ N(mu, sig_p^2), the prior N(0, 1) combined with u_0."""
+    """x_0 ~ N(mu, sig_p^2), the prior N(0, 1) combined with u_0; mu and
+    sig_p 0-d, or (M,) for M cells."""
     mu: torch.Tensor
     sig_p: torch.Tensor
 
     def sample_from_noise(self, eps):
-        return self.mu + self.sig_p * eps
+        return _chainwise(self.mu, eps) + _chainwise(self.sig_p, eps) * eps
 
     def logpdf(self, x):
-        return norm_logpdf(x[..., 0], self.mu, self.sig_p)
+        x = x[..., 0]
+        return norm_logpdf(x, _chainwise(self.mu, x), _chainwise(self.sig_p, x))
 
     def __call__(self, x):
         return self.logpdf(x)
@@ -258,14 +333,15 @@ class GuidedG0(UnivariatePotential):
     u0: torch.Tensor
     scale0: torch.Tensor
     y: float
-    r: float
+    r: object
     T: int
 
     def __call__(self, x):
-        out = norm_logpdf(x[..., 0], 0.0, 1.0)
-        out = out + norm_logpdf(x[..., 0], self.u0, self.scale0)
+        xv = x[..., 0]
+        out = norm_logpdf(xv, 0.0, 1.0)
+        out = out + norm_logpdf(xv, _chainwise(self.u0, xv), _chainwise(self.scale0, xv))
         out = out - self.prop.logpdf(x)
-        return out + (self.T == 1) * norm_logpdf(x[..., 0], self.y, self.r)
+        return out + (self.T == 1) * norm_logpdf(xv, self.y, _chainwise(self.r, xv))
 
 
 def _guided_mu(x_pred, p, T, gradient):
@@ -335,22 +411,24 @@ def get_guided_csmc_kernel(y, rho, r2, T, n_particles, backward=True, gradient=F
     kernel), `kernel(state, delta, generator=None, noise=None)`."""
     kw = dict(dtype=dtype, device=resolve(device))
     _, _, Pt, _ = get_feynman_kac(y, rho, r2, T, **kw)
-    sig_x = math.sqrt(1.0 - rho ** 2)
-    r = math.sqrt(r2)
-    sig0s = torch.ones(T, **kw)        # prior scale per step
-    sig0s[1:] = sig_x
+    rho, r2, sig_x, r, M = _cells(rho, r2, kw)
+    sig0s = torch.ones(T if M is None else (M, T), **kw)   # prior scale per step
+    sig0s[..., 1:] = sig_x if M is None else sig_x[:, None]
     consts = torch.tensor([float(T), float(gradient)], dtype=torch.float64).to(**kw)
-    fixed = {k: torch.full((T - 1,), z, **kw)
-             for k, z in (("rho", rho), ("sig", sig_x), ("y", y), ("r", r), ("r2", r2))}
-    fixed["t"] = torch.arange(1, T, **kw)
+    full = _per_step(T, M, kw)
+    fixed = {k: full(z) for k, z in (("rho", rho), ("sig", sig_x), ("y", y), ("r", r),
+                                     ("r2", r2))}
+    fixed["t"] = _steps(T, M, **kw)
 
     def factory(u, scale):
         Ks = sig0s ** 2 / (sig0s ** 2 + scale ** 2)    # scalar gains
         sig_props = sig0s * torch.sqrt(1.0 - Ks)       # proposal scales
         g0 = (0 == T - 1) * (y - 0.0) / r2
-        prop0 = GuidedM0(Ks[0] * (u[0, 0] + gradient * scale[0] ** 2 * g0), sig_props[0])
-        params = dict(K=Ks[1:], sig_p=sig_props[1:], u=u[1:, 0], scale=scale[1:], **fixed)
-        return (prop0, GuidedG0(prop0, u[0, 0], scale[0], y, r, T),
+        prop0 = GuidedM0(Ks[..., 0] * (u[..., 0, 0] + gradient * scale[..., 0] ** 2 * g0),
+                         sig_props[..., 0])
+        params = dict(K=Ks[..., 1:], sig_p=sig_props[..., 1:], u=u[..., 1:, 0],
+                      scale=scale[..., 1:], **fixed)
+        return (prop0, GuidedG0(prop0, u[..., 0, 0], scale[..., 0], y, r, T),
                 GuidedMt(params=params, T=T, gradient=gradient),
                 GuidedGt(params=params, T=T, gradient=gradient, consts=consts))
 

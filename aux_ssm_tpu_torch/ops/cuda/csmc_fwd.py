@@ -15,6 +15,13 @@ Shapes (n = T - 1 steps, N particles, k factor width, d state width):
 rf, cf (n, N, k); rb, cb, log_ws, res_u (n, N); anc_u, us (n,); w0 (N,);
 block-lane sweep: eps, xs (n, d, N); x_star (n, d); x0 (d, N);
 lane sweep (scalar state): eps, xs (n, N); x_star (n,); x0 (N,).
+
+Chain axis: the factor and lane sweeps also take C independent chains at
+once, every operand (and output) with a leading C (rf (C, n, N, k), b_T
+(C,), the lane functor's rows (C, n, P); its constants shared). On the card
+that is one launch of each kernel, a block a chain (the pair-score pass: C n
+blocks); C = 1 gives the one-chain call's values bit for bit. The plain
+versions run the one-chain plain version on each chain.
 """
 import torch
 
@@ -52,6 +59,17 @@ def _check_n(name, N, cap):
 def _check_shape(name, t, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _per_chain(plain, *args, chains=None, **kw):
+    """A plain version on each chain of its leading axis (`chains` C, default
+    the first argument's; every tensor in `args` and in their trees sliced),
+    the outputs stacked."""
+    C = args[0].shape[0] if chains is None else chains
+    outs = [plain(*(tree_map(lambda z: z[c], a) for a in args), **kw) for c in range(C)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(z) for z in zip(*outs))
+    return torch.stack(outs)
 
 
 # --------------------------------------------------------------------------
@@ -131,28 +149,38 @@ def forward_factor_scan_plain(rf, cf, rb, cb, res_u, anc_u, w0, pgas=False):
 
 
 def forward_factor_scan(rf, cf, rb, cb, res_u, anc_u, w0, pgas=False):
-    """The forward factor sweep; see `forward_factor_scan_plain`."""
+    """The forward factor sweep; see `forward_factor_scan_plain`. With a
+    leading chain axis on every operand, C chains' sweeps at once."""
+    chained = rf.dim() == 4
     if not _on_cuda("forward_factor_scan", rf):
+        if chained:
+            return _per_chain(forward_factor_scan_plain, rf, cf, rb, cb, res_u, anc_u, w0,
+                              pgas=pgas)
         return forward_factor_scan_plain(rf, cf, rb, cb, res_u, anc_u, w0, pgas)
-    n, N, k = rf.shape
+    *lead, n, N, k = rf.shape
+    C = lead[0] if chained else 1
     _check_n("forward_factor_scan", N, MAX_N)
     for t, shape in ((cf, (n, N, k)), (rb, (n, N)), (cb, (n, N)), (res_u, (n, N)),
                      (anc_u, (n,)), (w0, (N,))):
-        _check_shape("forward_factor_scan", t, shape)
+        _check_shape("forward_factor_scan", t, (*lead, *shape))
     args = check_cuda_inputs("forward_factor_scan", (rf, cf, rb, cb, res_u, anc_u, w0),
                              rf.dtype, 1, ())
-    log_ws = rf.new_empty(n, N)
-    ancestors = torch.empty(n, N, dtype=torch.int64, device=rf.device)
+    log_ws = rf.new_empty(*lead, n, N)
+    ancestors = torch.empty(*lead, n, N, dtype=torch.int64, device=rf.device)
     if not n:
         return log_ws, ancestors
     if N <= WARP_N:
         rf, cf, rb, cb, res_u, anc_u, w0 = args
-        records = pair_scores(rf, cf, (rb, cb, res_u), anc_u)
+        # The chains fold into the pair-score pass's step axis.
+        records = pair_scores(rf.reshape(C * n, N, k), cf.reshape(C * n, N, k),
+                              tuple(z.reshape(C * n, N) for z in (rb, cb, res_u)),
+                              anc_u.reshape(C * n))
         forward_factor_scan.launches += 1
-        launch("csmc_forward_factor_warp", rf.dtype, n, N, int(pgas), records, w0, log_ws,
+        launch("csmc_forward_factor_warp", rf.dtype, C, n, N, int(pgas), records, w0, log_ws,
                ancestors)
     else:
-        launch("csmc_forward_factor", rf.dtype, n, N, k, int(pgas), *args, log_ws, ancestors)
+        launch("csmc_forward_factor", rf.dtype, C, n, N, k, int(pgas), *args, log_ws,
+               ancestors)
     forward_factor_scan.launches += 1
     return log_ws, ancestors
 
@@ -181,27 +209,36 @@ def backward_factor_scan_plain(rf, cf, rb, log_ws, us, b_T):
 
 
 def backward_factor_scan(rf, cf, rb, log_ws, us, b_T):
-    """The backward factor sweep; see `backward_factor_scan_plain`."""
+    """The backward factor sweep; see `backward_factor_scan_plain`. With a
+    leading chain axis on every operand (b_T (C,)), C chains' sweeps at
+    once."""
+    chained = rf.dim() == 4
     if not _on_cuda("backward_factor_scan", rf):
+        if chained:
+            return _per_chain(backward_factor_scan_plain, rf, cf, rb, log_ws, us, b_T)
         return backward_factor_scan_plain(rf, cf, rb, log_ws, us, b_T)
-    n, N, k = rf.shape
+    *lead, n, N, k = rf.shape
+    C = lead[0] if chained else 1
     _check_n("backward_factor_scan", N, MAX_N)
     for t, shape in ((cf, (n, N, k)), (rb, (n, N)), (log_ws, (n, N)), (us, (n,))):
-        _check_shape("backward_factor_scan", t, shape)
+        _check_shape("backward_factor_scan", t, (*lead, *shape))
     args = check_cuda_inputs("backward_factor_scan", (rf, cf, rb, log_ws, us), rf.dtype, 1, ())
-    b_T = b_T.reshape(1).to(torch.int64)
+    b_T = b_T.reshape(C).to(torch.int64)
     if b_T.device != rf.device:
         raise ValueError(f"backward_factor_scan: b_T must be on {rf.device}, got {b_T.device}")
-    picked = torch.empty(n, dtype=torch.int64, device=rf.device)
+    picked = torch.empty(*lead, n, dtype=torch.int64, device=rf.device)
     if not n:
         return picked
     if N <= WARP_N:
         rf, cf, rb, log_ws, us = args
-        records = pair_scores(cf, rf, (log_ws, rb), us)
+        records = pair_scores(cf.reshape(C * n, N, k), rf.reshape(C * n, N, k),
+                              (log_ws.reshape(C * n, N), rb.reshape(C * n, N)),
+                              us.reshape(C * n))
         backward_factor_scan.launches += 1
-        launch("csmc_backward_factor_warp", rf.dtype, n, N, records, b_T.contiguous(), picked)
+        launch("csmc_backward_factor_warp", rf.dtype, C, n, N, records, b_T.contiguous(),
+               picked)
     else:
-        launch("csmc_backward_factor", rf.dtype, n, N, k, *args, b_T.contiguous(), picked)
+        launch("csmc_backward_factor", rf.dtype, C, n, N, k, *args, b_T.contiguous(), picked)
     backward_factor_scan.launches += 1
     return picked
 
@@ -259,12 +296,18 @@ def lane_scan(Mt, Gt, Pt, eps, res_u, anc_u, x_star, x0, w0):
     On the card the model's step is a functor compiled into the kernel, named
     by the class attribute `cuda_model` of Mt and Gt; Gt's `cuda_operands()`
     hands over its constants and compact per-step rows. The functor scores
-    ancestors with Mt's own transition, so there `Pt` must be Mt."""
+    ancestors with Mt's own transition, so there `Pt` must be Mt. With a
+    leading chain axis on eps and the other operands (and on the
+    components' params, which lead with (C, n)), C chains' sweeps at once."""
+    chained = eps.dim() == 3
     if not _on_cuda("lane_scan", eps):
-        return lane_scan_plain(Mt.lane_propagate, Gt.lane_logw,
-                               None if Pt is None else Pt.lane_logpdf, Mt.params, Gt.params,
-                               None if Pt is None else Pt.params, eps, res_u, anc_u, x_star,
-                               x0, w0)
+        plain_args = (Mt.params, Gt.params, None if Pt is None else Pt.params, eps, res_u,
+                      anc_u, x_star, x0, w0)
+        fns = (Mt.lane_propagate, Gt.lane_logw, None if Pt is None else Pt.lane_logpdf)
+        if chained:
+            return _per_chain(lambda *a: lane_scan_plain(*fns, *a), *plain_args,
+                              chains=eps.shape[0])
+        return lane_scan_plain(*fns, *plain_args)
     model = getattr(Gt, "cuda_model", None)
     if model not in LANE_MODELS or getattr(Mt, "cuda_model", None) != model:
         raise NotImplementedError(
@@ -274,21 +317,23 @@ def lane_scan(Mt, Gt, Pt, eps, res_u, anc_u, x_star, x0, w0):
         raise NotImplementedError(
             "lane_scan: the CUDA functor scores ancestors with Mt's own transition; "
             f"got another Pt ({type(Pt).__name__})")
-    n, N = res_u.shape
+    *lead, n, N = res_u.shape
+    C = lead[0] if chained else 1
     _check_n("lane_scan", N, MAX_N)
     consts, params = Gt.cuda_operands()
     n_consts, n_params = LANE_MODELS[model]
-    for t, shape in ((eps, (n, N)), (anc_u, (n,)), (x_star, (n,)), (x0, (N,)), (w0, (N,)),
-                     (consts, (n_consts,)), (params, (n, n_params))):
+    for t, shape in ((eps, (*lead, n, N)), (anc_u, (*lead, n)), (x_star, (*lead, n)),
+                     (x0, (*lead, N)), (w0, (*lead, N)), (consts, (n_consts,)),
+                     (params, (*lead, n, n_params))):
         _check_shape("lane_scan", t, shape)
     args = check_cuda_inputs("lane_scan", (eps, res_u, anc_u, x_star, x0, w0, consts, params),
                              eps.dtype, 1, ())
-    xs = eps.new_empty(n, N)
-    log_ws = eps.new_empty(n, N)
-    ancestors = torch.empty(n, N, dtype=torch.int64, device=eps.device)
+    xs = eps.new_empty(*lead, n, N)
+    log_ws = eps.new_empty(*lead, n, N)
+    ancestors = torch.empty(*lead, n, N, dtype=torch.int64, device=eps.device)
     if n:
-        launch(f"csmc_lane_{model}", eps.dtype, n, N, int(Pt is not None), *args, xs, log_ws,
-               ancestors)
+        launch(f"csmc_lane_{model}", eps.dtype, C, n, N, int(Pt is not None), *args, xs,
+               log_ws, ancestors)
         lane_scan.launches += 1
     return xs, log_ws, ancestors
 

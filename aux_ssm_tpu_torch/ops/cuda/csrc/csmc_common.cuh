@@ -425,19 +425,26 @@ AUX_HD void block_softmax(const Block<S>& b, S* w, int N, S m_local) {
 
 namespace csmc {
 
-// Launch `kernel` as one block of `threads` with `shmem` bytes of dynamic
-// shared memory (above the 48 KB default after the kernel's opt-in).
+// Launch `kernel` as `blocks` blocks (one a chain of a chain-batched call)
+// of `threads` with `shmem` bytes of dynamic shared memory (above the 48 KB
+// default after the kernel's opt-in).
 template <typename K>
-int launch_one_block(K kernel, size_t shmem, int threads, cudaStream_t stream, void** args) {
+int launch_blocks(K kernel, size_t shmem, int blocks, int threads, cudaStream_t stream,
+                  void** args) {
   if (shmem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (err != cudaSuccess) return (int)err;
   }
-  cudaError_t err = cudaLaunchKernel((const void*)kernel, dim3(1), dim3(threads), args, shmem,
-                                     stream);
+  cudaError_t err = cudaLaunchKernel((const void*)kernel, dim3(blocks), dim3(threads), args,
+                                     shmem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename K>
+int launch_one_block(K kernel, size_t shmem, int threads, cudaStream_t stream, void** args) {
+  return launch_blocks(kernel, shmem, 1, threads, stream, args);
 }
 
 }  // namespace csmc

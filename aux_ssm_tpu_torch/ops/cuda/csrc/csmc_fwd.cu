@@ -39,6 +39,13 @@
 // The TPU's (N, N) triangular-matmul cumsum, one-hot matmul gathers and
 // 128-row chunk layout are not carried over.
 //
+// Chain axis: C independent chains' sweeps in one launch, a block a chain
+// (blockIdx.x), their operands chain after chain (rf (C, n, N, k), b_T (C),
+// ...), every pointer offset by its chain's extent (`*_chain` below). The
+// pair-score pass carries nothing between steps, so the chains fold into
+// its step axis: C n blocks, the records chain after chain. C = 1 is the
+// one-chain call, bit for bit.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3, no fast math.
 #include "csmc_common.cuh"
 
@@ -339,6 +346,45 @@ AUX_HD void backward_warp_sweep(int lane, int n, int N, const S* records, const 
   }
 }
 
+// Chain c of a chain-batched call: each sweep on its chain's slice of every
+// operand (n steps of N particles, k factor columns, its records).
+template <typename S, bool kPgas>
+AUX_HD void forward_factor_chain(const Block<S>& b, int c, int n, int N, int k, const S* rf,
+                                 const S* cf, const S* rb, const S* cb, const S* res_u,
+                                 const S* anc_u, const S* w0, S* log_ws, long long* anc,
+                                 S* w, S* cw, int* a0) {
+  const long nN = (long)n * N, nNk = nN * k;
+  forward_factor_sweep<S, kPgas>(b, n, N, k, rf + c * nNk, cf + c * nNk, rb + c * nN,
+                                 cb + c * nN, res_u + c * nN, anc_u + (long)c * n,
+                                 w0 + (long)c * N, log_ws + c * nN, anc + c * nN, w, cw, a0);
+}
+
+template <typename S>
+AUX_HD void backward_factor_chain(const Block<S>& b, int c, int n, int N, int k, const S* rf,
+                                  const S* cf, const S* rb, const S* lw, const S* us,
+                                  const long long* b_T, long long* picked, S* w, int* bsel) {
+  const long nN = (long)n * N, nNk = nN * k;
+  backward_factor_sweep<S>(b, n, N, k, rf + c * nNk, cf + c * nNk, rb + c * nN, lw + c * nN,
+                           us + (long)c * n, b_T + c, picked + (long)c * n, w, bsel);
+}
+
+template <typename S, bool kPgas>
+AUX_HD void forward_warp_chain(int c, int lane, int n, int N, const S* records, const S* w0,
+                               S* log_ws, long long* anc, const Ring<S>& ring) {
+  const long nN = (long)n * N;
+  const long ow = record_words(N, 3, sizeof(S));
+  forward_warp_sweep<S, kPgas>(lane, n, N, records + (long)c * n * ow, w0 + (long)c * N,
+                               log_ws + c * nN, anc + c * nN, ring);
+}
+
+template <typename S>
+AUX_HD void backward_warp_chain(int c, int lane, int n, int N, const S* records,
+                                const long long* b_T, long long* picked, const Ring<S>& ring) {
+  const long ow = record_words(N, 2, sizeof(S));
+  backward_warp_sweep<S>(lane, n, N, records + (long)c * n * ow, b_T + c, picked + (long)c * n,
+                         ring);
+}
+
 }  // namespace
 
 #ifdef __CUDACC__
@@ -368,8 +414,9 @@ forward_factor_kernel(int n, int N, int k, const S* rf, const S* cf, const S* rb
   S* cw = w + N;
   S* red = cw + N;
   int* a0 = reinterpret_cast<int*>(red + 33);
-  forward_factor_sweep<S, kPgas>(Block<S>{(int)threadIdx.x, (int)blockDim.x, red}, n, N, k,
-                                 rf, cf, rb, cb, res_u, anc_u, w0, log_ws, anc, w, cw, a0);
+  forward_factor_chain<S, kPgas>(Block<S>{(int)threadIdx.x, (int)blockDim.x, red},
+                                 (int)blockIdx.x, n, N, k, rf, cf, rb, cb, res_u, anc_u, w0,
+                                 log_ws, anc, w, cw, a0);
 }
 
 template <typename S>
@@ -380,8 +427,8 @@ backward_factor_kernel(int n, int N, int k, const S* rf, const S* cf, const S* r
   S* w = reinterpret_cast<S*>(smem);
   S* red = w + N;
   int* bsel = reinterpret_cast<int*>(red + 33);
-  backward_factor_sweep<S>(Block<S>{(int)threadIdx.x, (int)blockDim.x, red}, n, N, k, rf,
-                           cf, rb, lw, us, b_T, picked, w, bsel);
+  backward_factor_chain<S>(Block<S>{(int)threadIdx.x, (int)blockDim.x, red}, (int)blockIdx.x,
+                           n, N, k, rf, cf, rb, lw, us, b_T, picked, w, bsel);
 }
 
 // A block a step, a thread a cell of the step's N x kWarpN scores.
@@ -411,7 +458,8 @@ __global__ void __launch_bounds__(32)
 forward_factor_warp_kernel(int n, int N, const S* records, const S* w0, S* log_ws,
                            long long* anc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  forward_warp_sweep<S, kPgas>((int)threadIdx.x, n, N, records, w0, log_ws, anc,
+  forward_warp_chain<S, kPgas>((int)blockIdx.x, (int)threadIdx.x, n, N, records, w0, log_ws,
+                               anc,
                                carve_ring<S>(smem, (int)record_words(N, 3, sizeof(S)), n, false));
 }
 
@@ -420,7 +468,7 @@ __global__ void __launch_bounds__(32)
 backward_factor_warp_kernel(int n, int N, const S* records, const long long* b_T,
                             long long* picked) {
   extern __shared__ __align__(16) unsigned char smem[];
-  backward_warp_sweep<S>((int)threadIdx.x, n, N, records, b_T, picked,
+  backward_warp_chain<S>((int)blockIdx.x, (int)threadIdx.x, n, N, records, b_T, picked,
                          carve_ring<S>(smem, (int)record_words(N, 2, sizeof(S)), n, true));
 }
 
@@ -428,22 +476,23 @@ backward_factor_warp_kernel(int n, int N, const S* records, const long long* b_T
 
 #define AUX_DEFINE_CSMC_FACTOR(SUFFIX, S)                                                     \
   extern "C" int aux_csmc_forward_factor_##SUFFIX(                                            \
-      int n, int N, int k, int pgas, const S* rf, const S* cf, const S* rb, const S* cb,      \
-      const S* res_u, const S* anc_u, const S* w0, S* log_ws, long long* anc, void* stream) { \
-    if (n <= 0 || N < 1 || N > kMaxN || k < 1) return (int)cudaErrorInvalidValue;             \
+      int C, int n, int N, int k, int pgas, const S* rf, const S* cf, const S* rb,            \
+      const S* cb, const S* res_u, const S* anc_u, const S* w0, S* log_ws, long long* anc,    \
+      void* stream) {                                                                         \
+    if (C < 1 || n <= 0 || N < 1 || N > kMaxN || k < 1) return (int)cudaErrorInvalidValue;    \
     const size_t shmem = (2 * (size_t)N + 33) * sizeof(S) + sizeof(int);                      \
     void* args[] = {&n, &N, &k, &rf, &cf, &rb, &cb, &res_u, &anc_u, &w0, &log_ws, &anc};      \
     auto kernel = pgas ? forward_factor_kernel<S, true> : forward_factor_kernel<S, false>;    \
-    return launch_one_block(kernel, shmem, threads_for(N), (cudaStream_t)stream, args);       \
+    return launch_blocks(kernel, shmem, C, threads_for(N), (cudaStream_t)stream, args);       \
   }                                                                                           \
   extern "C" int aux_csmc_backward_factor_##SUFFIX(                                           \
-      int n, int N, int k, const S* rf, const S* cf, const S* rb, const S* lw, const S* us,   \
-      const long long* b_T, long long* picked, void* stream) {                                \
-    if (n <= 0 || N < 1 || N > kMaxN || k < 1) return (int)cudaErrorInvalidValue;             \
+      int C, int n, int N, int k, const S* rf, const S* cf, const S* rb, const S* lw,         \
+      const S* us, const long long* b_T, long long* picked, void* stream) {                   \
+    if (C < 1 || n <= 0 || N < 1 || N > kMaxN || k < 1) return (int)cudaErrorInvalidValue;    \
     const size_t shmem = ((size_t)N + 33) * sizeof(S) + sizeof(int);                          \
     void* args[] = {&n, &N, &k, &rf, &cf, &rb, &lw, &us, &b_T, &picked};                      \
-    return launch_one_block(backward_factor_kernel<S>, shmem, threads_for(N),                 \
-                            (cudaStream_t)stream, args);                                      \
+    return launch_blocks(backward_factor_kernel<S>, shmem, C, threads_for(N),                 \
+                         (cudaStream_t)stream, args);                                         \
   }                                                                                           \
   extern "C" int aux_csmc_pair_scores_##SUFFIX(int n, int N, int k, int nv, const S* A,      \
                                                const S* B, const S* v0, const S* v1,          \
@@ -455,25 +504,26 @@ backward_factor_warp_kernel(int n, int N, const S* records, const long long* b_T
         N, k, nv, A, B, v0, v1, v2, s, records);                                              \
     return (int)cudaGetLastError();                                                           \
   }                                                                                           \
-  extern "C" int aux_csmc_forward_factor_warp_##SUFFIX(int n, int N, int pgas,                \
+  extern "C" int aux_csmc_forward_factor_warp_##SUFFIX(int C, int n, int N, int pgas,         \
                                                        const S* records, const S* w0,         \
                                                        S* log_ws, long long* anc,             \
                                                        void* stream) {                        \
-    if (n <= 0 || N < 1 || N > kWarpN) return (int)cudaErrorInvalidValue;                     \
+    if (C < 1 || n <= 0 || N < 1 || N > kWarpN) return (int)cudaErrorInvalidValue;            \
     const size_t shmem = ring_bytes((int)record_words(N, 3, sizeof(S)), sizeof(S));           \
     void* args[] = {&n, &N, &records, &w0, &log_ws, &anc};                                    \
     auto kernel = pgas ? forward_factor_warp_kernel<S, true>                                  \
                        : forward_factor_warp_kernel<S, false>;                                \
-    return launch_one_block(kernel, shmem, 32, (cudaStream_t)stream, args);                   \
+    return launch_blocks(kernel, shmem, C, 32, (cudaStream_t)stream, args);                   \
   }                                                                                           \
-  extern "C" int aux_csmc_backward_factor_warp_##SUFFIX(int n, int N, const S* records,       \
+  extern "C" int aux_csmc_backward_factor_warp_##SUFFIX(int C, int n, int N,                  \
+                                                        const S* records,                     \
                                                         const long long* b_T,                 \
                                                         long long* picked, void* stream) {    \
-    if (n <= 0 || N < 1 || N > kWarpN) return (int)cudaErrorInvalidValue;                     \
+    if (C < 1 || n <= 0 || N < 1 || N > kWarpN) return (int)cudaErrorInvalidValue;            \
     const size_t shmem = ring_bytes((int)record_words(N, 2, sizeof(S)), sizeof(S));           \
     void* args[] = {&n, &N, &records, &b_T, &picked};                                         \
-    return launch_one_block(backward_factor_warp_kernel<S>, shmem, 32, (cudaStream_t)stream,  \
-                            args);                                                            \
+    return launch_blocks(backward_factor_warp_kernel<S>, shmem, C, 32, (cudaStream_t)stream,  \
+                         args);                                                               \
   }
 
 AUX_DEFINE_CSMC_FACTOR(f32, float)

@@ -42,7 +42,11 @@
 // TPU's dense/chunked split at N=1024, its (N, N) triangular-matmul cumsum
 // and one-hot gather, its lane-broadcast (T-1, 1, N) parameter rows and its
 // segmentation over T are not carried over. Nothing is shared between
-// blocks: a chain axis would be blockIdx.x offsetting every pointer.
+// blocks, so a chain axis is blockIdx.x offsetting every pointer: C
+// independent chains' sweeps in one launch, a block a chain, their
+// operands chain after chain (eps (C, n, N), anc_u (C, n), x0 (C, N), params
+// (C, n, kParams), ...; the constants shared; `LaneIO::chain`). C = 1 is the
+// one-chain call, bit for bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3, no fast math (the
 // model steps need IEEE exp and log).
@@ -473,6 +477,23 @@ AUX_HD void lane_sweep(const Block<S>& b, int n, int N, const S* eps, const S* r
   }
 }
 
+// A lane sweep's operands; `chain(c, n, N)` is chain c's slice of a
+// chain-batched call's (n steps of N particles, its parameter rows; the
+// constants shared).
+template <typename S, class Model>
+struct LaneIO {
+  const S *eps, *res_u, *anc_u, *x_star, *x0, *w0, *consts, *params;
+  S *xs, *log_ws;
+  long long* anc;
+
+  AUX_HD LaneIO chain(int c, int n, int N) const {
+    const long nN = (long)n * N, cn = (long)c * n, cN = (long)c * N;
+    return LaneIO{eps + c * nN,   res_u + c * nN, anc_u + cn,   x_star + cn,
+                  x0 + cN,        w0 + cN,        consts,       params + cn * Model::kParams,
+                  xs + c * nN,    log_ws + c * nN, anc + c * nN};
+  }
+};
+
 }  // namespace
 
 #ifdef __CUDACC__
@@ -496,8 +517,11 @@ __global__ void __launch_bounds__(32)
 lane_warp_kernel(int n, int N, const S* eps, const S* res_u, const S* anc_u, const S* x_star,
                  const S* x0, const S* w0, const S* consts, const S* params, S* xs,
                  S* log_ws, long long* anc) {
-  lane_sweep_warp<S, kPgas, Model>((int)threadIdx.x, n, N, eps, res_u, anc_u, x_star, x0, w0,
-                                   consts, params, xs, log_ws, anc);
+  const auto io = LaneIO<S, Model>{eps, res_u, anc_u, x_star, x0, w0, consts, params, xs,
+                                   log_ws, anc}.chain((int)blockIdx.x, n, N);
+  lane_sweep_warp<S, kPgas, Model>((int)threadIdx.x, n, N, io.eps, io.res_u, io.anc_u,
+                                   io.x_star, io.x0, io.w0, io.consts, io.params, io.xs,
+                                   io.log_ws, io.anc);
 }
 
 template <typename S, bool kPgas, int NW, class Model>
@@ -506,9 +530,12 @@ lane_block_kernel(int n, int N, const S* eps, const S* res_u, const S* anc_u,
                   const S* x_star, const S* x0, const S* w0, const S* consts, const S* params,
                   S* xs, S* log_ws, long long* anc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  lane_sweep_block<S, kPgas, NW, Model>((int)threadIdx.x, (int)blockDim.x, n, N, eps, res_u,
-                                        anc_u, x_star, x0, w0, consts, params, xs, log_ws,
-                                        anc, reinterpret_cast<S*>(smem));
+  const auto io = LaneIO<S, Model>{eps, res_u, anc_u, x_star, x0, w0, consts, params, xs,
+                                   log_ws, anc}.chain((int)blockIdx.x, n, N);
+  lane_sweep_block<S, kPgas, NW, Model>((int)threadIdx.x, (int)blockDim.x, n, N, io.eps,
+                                        io.res_u, io.anc_u, io.x_star, io.x0, io.w0, io.consts,
+                                        io.params, io.xs, io.log_ws, io.anc,
+                                        reinterpret_cast<S*>(smem));
 }
 
 template <typename S, bool kPgas, class Model>
@@ -522,22 +549,25 @@ lane_kernel(int n, int N, const S* eps, const S* res_u, const S* anc_u, const S*
   S* xp = cw + N;
   S* red = xp + N;
   int* a0 = reinterpret_cast<int*>(red + 33);
-  const Model model(consts, params);
-  lane_sweep<S, kPgas>(Block<S>{(int)threadIdx.x, (int)blockDim.x, red}, n, N, eps, res_u,
-                       anc_u, x_star, x0, w0, model, xs, log_ws, anc, w, cw, xp, a0);
+  const auto io = LaneIO<S, Model>{eps, res_u, anc_u, x_star, x0, w0, consts, params, xs,
+                                   log_ws, anc}.chain((int)blockIdx.x, n, N);
+  const Model model(io.consts, io.params);
+  lane_sweep<S, kPgas>(Block<S>{(int)threadIdx.x, (int)blockDim.x, red}, n, N, io.eps,
+                       io.res_u, io.anc_u, io.x_star, io.x0, io.w0, model, io.xs, io.log_ws,
+                       io.anc, w, cw, xp, a0);
 }
 
 template <typename S, class Model>
-int launch_lane(int n, int N, int pgas, const S* eps, const S* res_u, const S* anc_u,
+int launch_lane(int C, int n, int N, int pgas, const S* eps, const S* res_u, const S* anc_u,
                 const S* x_star, const S* x0, const S* w0, const S* consts, const S* params,
                 S* xs, S* log_ws, long long* anc, void* stream) {
-  if (n <= 0 || N < 1 || N > kMaxLaneN) return (int)cudaErrorInvalidValue;
+  if (C < 1 || n <= 0 || N < 1 || N > kMaxLaneN) return (int)cudaErrorInvalidValue;
   void* args[] = {&n, &N, &eps, &res_u, &anc_u, &x_star, &x0, &w0, &consts, &params, &xs,
                   &log_ws, &anc};
   const cudaStream_t s = (cudaStream_t)stream;
   if (N <= kWarpN) {
     auto kernel = pgas ? lane_warp_kernel<S, true, Model> : lane_warp_kernel<S, false, Model>;
-    return launch_one_block(kernel, 0, 32, s, args);
+    return launch_blocks(kernel, 0, C, 32, s, args);
   }
   if (N <= kLaneBlockN) {
     const size_t shmem = (size_t)LaneBlockLayout(N).words * sizeof(S);
@@ -545,22 +575,22 @@ int launch_lane(int n, int N, int pgas, const S* eps, const S* res_u, const S* a
                                    : lane_block_kernel<S, false, 8, Model>)
                            : (pgas ? lane_block_kernel<S, true, 32, Model>
                                    : lane_block_kernel<S, false, 32, Model>);
-    return launch_one_block(kernel, shmem, lane_threads(N), s, args);
+    return launch_blocks(kernel, shmem, C, lane_threads(N), s, args);
   }
   const size_t shmem = (3 * (size_t)N + 33) * sizeof(S) + sizeof(int);
   auto kernel = pgas ? lane_kernel<S, true, Model> : lane_kernel<S, false, Model>;
-  return launch_one_block(kernel, shmem, lane_threads(N), s, args);
+  return launch_blocks(kernel, shmem, C, lane_threads(N), s, args);
 }
 
 }  // namespace
 
 #define AUX_DEFINE_LANE(NAME, MODEL, SUFFIX, S)                                              \
   extern "C" int aux_csmc_lane_##NAME##_##SUFFIX(                                            \
-      int n, int N, int pgas, const S* eps, const S* res_u, const S* anc_u, const S* x_star, \
-      const S* x0, const S* w0, const S* consts, const S* params, S* xs, S* log_ws,          \
-      long long* anc, void* stream) {                                                        \
-    return launch_lane<S, MODEL<S>>(n, N, pgas, eps, res_u, anc_u, x_star, x0, w0, consts,   \
-                                    params, xs, log_ws, anc, stream);                        \
+      int C, int n, int N, int pgas, const S* eps, const S* res_u, const S* anc_u,           \
+      const S* x_star, const S* x0, const S* w0, const S* consts, const S* params, S* xs,    \
+      S* log_ws, long long* anc, void* stream) {                                             \
+    return launch_lane<S, MODEL<S>>(C, n, N, pgas, eps, res_u, anc_u, x_star, x0, w0,        \
+                                    consts, params, xs, log_ws, anc, stream);                \
   }
 
 AUX_DEFINE_LANE(theta_logistic, ThetaLogistic, f32, float)

@@ -36,9 +36,10 @@ def _check(name, rf, cf, cb):
 
 
 def _seed_on(seed, ref):
-    """The counter seed as a 1-element int32 tensor on ref's device: the
-    kernels read it there, so a seed drawn on the card costs no host sync."""
-    return torch.as_tensor(seed, device=ref.device).to(torch.int32).reshape(1)
+    """The counter seed (or a chain's seeds) as an int32 vector on ref's
+    device: the kernels read it there, so a seed drawn on the card costs no
+    host sync."""
+    return torch.as_tensor(seed, device=ref.device).to(torch.int32).reshape(-1).contiguous()
 
 
 def _check_draw_columns(name, N):
@@ -66,21 +67,27 @@ def row_lse(row_feat, col_feat, col_bias):
 row_lse.launches = 0
 
 
-def col_sample(seed, row_feat_sel, col_feat, col_bias, pair_offset=0):
+def col_sample(seed, row_feat_sel, col_feat, col_bias, pair_offset=0, chains=None):
     """One column per sampled row by Gumbel-argmax with counter uniforms:
     seed an int32 0-d tensor on the factors' device (or a Python int),
     row_feat_sel (P, n, k), col_feat (P, N, k), col_bias (P, N) -> (P, n)
     int64; see `ops.stitching.col_sample`. The kernel reads the seed on the
-    card, so a seed drawn there costs no host sync."""
+    card, so a seed drawn there costs no host sync. With `chains` C, the P
+    pairs are C chains' P / C each, chain after chain, and seed is (C,):
+    chain c's pairs draw with seed[c] and their index within the chain."""
     P, n, N, k = _check("col_sample", row_feat_sel, col_feat, col_bias)
+    C = 1 if chains is None else chains
+    if P % C or (chains is not None and torch.as_tensor(seed).numel() != C):
+        raise ValueError(f"col_sample: {P} pairs and {torch.as_tensor(seed).numel()} seeds "
+                         f"do not make {C} chains")
     if not _on_cuda("col_sample", row_feat_sel):
-        return plain.col_sample(seed, row_feat_sel, col_feat, col_bias, pair_offset)
+        return plain.col_sample(seed, row_feat_sel, col_feat, col_bias, pair_offset, chains)
     rf, cf, cb = check_cuda_inputs("col_sample", (row_feat_sel, col_feat, col_bias),
                                    row_feat_sel.dtype, MAX_K, (k,))
     out = torch.empty(P, n, dtype=torch.int64, device=rf.device)
     if out.numel() and N:
-        launch("col_sample", rf.dtype, P, n, N, k, _seed_on(seed, rf), int(pair_offset), rf, cf,
-               cb, out)
+        launch("col_sample", rf.dtype, P, n, N, k, _seed_on(seed, rf), P // C, int(pair_offset),
+               rf, cf, cb, out)
         col_sample.launches += 1
     return out
 

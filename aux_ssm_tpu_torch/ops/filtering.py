@@ -30,7 +30,7 @@ from .cuda.filter_scan import filter_scan
 from .cuda.scalar_scan import scalar_filter_scan
 
 
-def filtering(ys, lgssm: LGSSM, parallel: bool):
+def filtering(ys, lgssm: LGSSM, parallel: bool, keep_batch: bool = False):
     """Kalman filter.
 
     Parameters
@@ -46,7 +46,8 @@ def filtering(ys, lgssm: LGSSM, parallel: bool):
     -------
     ms : Tensor (T, [B,] dx) — filtered means
     Ps : Tensor (T, [B,] dx, dx) — filtered covariances
-    ell : scalar — marginal log-likelihood log p(y_{0:T}) (summed over B)
+    ell : scalar — marginal log-likelihood log p(y_{0:T}) (summed over B, or
+        with `keep_batch` one a filter, (B,))
     """
     if not parallel:
         batched_scalar_layout(lgssm.bs, lgssm.cs)  # raises for d > 1; the loop broadcasts over B
@@ -56,7 +57,7 @@ def filtering(ys, lgssm: LGSSM, parallel: bool):
     else:
         impl = _parallel_filtering
     ms, Ps, ell = impl(ys, *lgssm)
-    if ell.ndim >= 1:
+    if ell.ndim >= 1 and not keep_batch:
         ell = ell.sum()
     return ms, Ps, ell
 

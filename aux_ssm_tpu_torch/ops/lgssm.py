@@ -6,7 +6,9 @@ bs (T-1, dx), Hs (T, dy, dx), Rs (T, dy, dy), cs/ys (T, dy), xs (T, dx).
 Batched scalar layout (B independent filters with dx = dy = 1, the spatial
 model): m0 (B, 1), P0 (B, 1, 1), Fs/Qs (T-1, B, 1, 1), bs (T-1, B, 1),
 Hs/Rs (T, B, 1, 1), cs/ys (T, B, 1), xs (T, B, 1); every density is summed
-over B. A batched layout with dx or dy above 1 is not ported.
+over B, or with `keep_batch` kept one a filter (B,): B independent chains
+of a scalar model (`kernels.kalman.get_kernel(..., chains=True)`). A
+batched layout with dx or dy above 1 is not ported.
 
 Missing data: NaN entries of `ys` are unobserved components. Every function
 uses the exact masked projection of the observation model (rows of H and
@@ -87,9 +89,10 @@ def _masked_step_logpdf(y, pred, R):
     return -0.5 * (w * w).sum(-1) - log_det - 0.5 * n_obs * _LOG_2PI
 
 
-def log_likelihood(ys, xs, lgssm):
+def log_likelihood(ys, xs, lgssm, keep_batch=False):
     """log p(y_{0:T} | x_{0:T}) for a given trajectory; missing observation
-    components are marginalised out exactly."""
+    components are marginalised out exactly. With `keep_batch` (batched
+    scalar layout), one value a filter, (B,)."""
     *_, Hs, Rs, cs = lgssm
     pred_ys = mv(Hs, xs) + cs
     if cs.shape[-1] == 1:
@@ -97,7 +100,8 @@ def log_likelihood(ys, xs, lgssm):
         var = Rs[..., 0, 0]
         diff = torch.where(mask, torch.nan_to_num(ys[..., 0]) - pred_ys[..., 0], 0.0)
         out = -0.5 * (diff * diff / var + torch.log(var) + _LOG_2PI)
-        return torch.where(mask, out, 0.0).sum()
+        out = torch.where(mask, out, 0.0)
+        return out.sum(0) if keep_batch else out.sum()
     return _masked_step_logpdf(ys, pred_ys, Rs).sum()
 
 
@@ -110,10 +114,17 @@ def _first_logpdf(x0, m0, P0):
     return mvn_logpdf(x0, m0, cholesky(P0))
 
 
-def prior_logpdf(xs, lgssm):
-    """log p(x_{0:T}) of a trajectory under the LGSSM dynamics."""
+def prior_logpdf(xs, lgssm, keep_batch=False):
+    """log p(x_{0:T}) of a trajectory under the LGSSM dynamics; with
+    `keep_batch` (batched scalar layout), one value a filter, (B,)."""
     m0, P0, Fs, Qs, bs, *_ = lgssm
     pred_xs = mv(Fs, xs[:-1]) + bs
+    if keep_batch:
+        first = _first_logpdf(xs[0], m0, P0)
+        first = torch.where(torch.isnan(first), 0.0, first)
+        dq = xs[1:, ..., 0] - pred_xs[..., 0]
+        varq = Qs[..., 0, 0]
+        return first + torch.nansum(-0.5 * (dq * dq / varq + torch.log(varq) + _LOG_2PI), 0)
     out = torch.nansum(_first_logpdf(xs[0], m0, P0))
     if m0.shape[-1] == 1:
         varq = Qs[..., 0, 0]
@@ -124,25 +135,28 @@ def prior_logpdf(xs, lgssm):
     return out + torch.nansum(trans)
 
 
-def trajectory_logdensity(ys, xs, lgssm):
+def trajectory_logdensity(ys, xs, lgssm, keep_batch=False):
     """log p(x_{0:T}) + log p(y_{0:T} | x_{0:T}). Unbatched layout: the t = 0
     terms in plain torch, the t >= 1 steps through
     `kalman_fused.logdensity_steps`. Batched scalar layout: the elementwise
-    closed forms of `log_likelihood` and `prior_logpdf`."""
+    closed forms of `log_likelihood` and `prior_logpdf`, summed over B, or
+    with `keep_batch` one value a filter (B,)."""
     from .cuda.kalman_fused import logdensity_steps  # that module imports this one
 
     m0, P0, Fs, Qs, bs, Hs, Rs, cs = lgssm
     if batched_scalar_layout(bs, cs):
-        return log_likelihood(ys, xs, lgssm) + prior_logpdf(xs, lgssm)
+        return (log_likelihood(ys, xs, lgssm, keep_batch)
+                + prior_logpdf(xs, lgssm, keep_batch))
     steps = logdensity_steps(Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], xs[:-1], xs[1:])
     pred0 = mv(Hs[0], xs[0]) + cs[0]
     first = _first_logpdf(xs[0], m0, P0) + _masked_step_logpdf(ys[0], pred0, Rs[0])
     return first.sum() + steps.sum()
 
 
-def posterior_logpdf(ys, xs, ell, lgssm):
-    """log p(x_{0:T} | y_{0:T}) = log p(y|x) - log p(y) + log p(x)."""
-    return trajectory_logdensity(ys, xs, lgssm) - ell
+def posterior_logpdf(ys, xs, ell, lgssm, keep_batch=False):
+    """log p(x_{0:T} | y_{0:T}) = log p(y|x) - log p(y) + log p(x); with
+    `keep_batch`, per filter of the batched scalar layout (`ell` (B,))."""
+    return trajectory_logdensity(ys, xs, lgssm, keep_batch) - ell
 
 
 def make_target_logpdf(ys, lgssm):

@@ -27,10 +27,11 @@ def multinomial_from_uniforms(u, weights):
 def categorical_from_uniform(u, weights):
     """One categorical draw by inverse CDF from the uniform `u` (a 0-d
     tensor); inverts u * total mass, so the weights need not be normalised.
-    Returns a 0-d int64 tensor on the weights' device (no host sync)."""
-    cdf = torch.cumsum(weights, 0)
-    idx = torch.searchsorted(cdf, (u * cdf[-1]).reshape(1))
-    return idx.clamp(0, weights.shape[0] - 1)[0]
+    Returns a 0-d int64 tensor on the weights' device (no host sync). With
+    leading axes, weights (..., N) and u (...) give one draw each (...)."""
+    cdf = torch.cumsum(weights, -1)
+    idx = torch.searchsorted(cdf, (u[..., None] * cdf[..., -1:]).contiguous())
+    return idx.clamp(0, weights.shape[-1] - 1)[..., 0]
 
 
 def choice_from_uniform(u, weights):

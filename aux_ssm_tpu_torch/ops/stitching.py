@@ -135,16 +135,23 @@ def row_lse(row_feat, col_feat, col_bias):
     return torch.cat(out, 1)
 
 
-def col_sample(seed, row_feat_sel, col_feat, col_bias, pair_offset=0):
+def col_sample(seed, row_feat_sel, col_feat, col_bias, pair_offset=0, chains=None):
     """One column per sampled row from softmax_j(rf_i . cf_j + cb_j), by
     Gumbel-argmax with the uniforms counter_uniform(seed, pair + pair_offset,
     i // 128, i % 128, j); the first index wins a tie. seed an int32 scalar
     (or 0-d tensor); row_feat_sel (P, n, k); col_feat (P, N, k); col_bias (P, N)
-    -> (P, n) int64."""
+    -> (P, n) int64. With `chains` C, the pairs are C chains' P / C each,
+    chain after chain, seed (C,) one a chain, and `pair` counts within the
+    chain."""
     P, n, _ = row_feat_sel.shape
     N = col_feat.shape[1]
     dev = row_feat_sel.device
     pair = (torch.arange(P, device=dev) + pair_offset)[:, None, None]
+    if chains is not None:
+        per = P // chains
+        seed = torch.as_tensor(seed, device=dev).reshape(chains).repeat_interleave(per)
+        seed = seed[:, None, None]
+        pair = (torch.arange(P, device=dev) % per + pair_offset)[:, None, None]
     cols = torch.arange(N, device=dev)
     out = []
     for sl in _row_chunks(P, n, N):

@@ -49,16 +49,14 @@ the rare-event model at T=2, N=25):
      at T=1024, N=4096 (the wide path), the rare-event guided (on a real
      step's inputs, gradient off and on) and bootstrap models (one warp);
   9. f64 theta-logistic PGAS steps and rare-event steps of every style on the
-     card against the CPU, given the same noise;
+     card against the CPU, given the same noise, with each step's launches
+     (kalman: one cell is M = 1 of the batched scalar layout, two scalar
+     filter scans and one scalar affine scan and nothing else);
  10. the theta-logistic PGAS chain, f32, 300 + 1000 iterations: exactly one
      lane sweep launch per iteration, update rate in (0, 1), samples/s, mean
      interior ESS and ESS/s;
- 11. rare-event chains in f64 at (y, rho, r2, T) = (5, 0.8, 0.5, 2), styles
-     kalman, csmc, csmc-guided (without and with the gradient shift), delta
-     adapted toward an update rate of 0.5: posterior mean and standard
-     deviation of x_0 and x_{T-1} within an ESS-scaled tolerance of the
-     closed form (a miss fails the run); then the hardest cell of the
-     published grid (rho = 0.999, r2 = 1e-3), reported without a bound.
+ 11. (cut: its single-cell rare-event chains are cells of phase 29's grid,
+     which runs every style on all 100 cells at once).
 The spatio-temporal Student-t path (T=1024, 8x8 grid: B=64 components, N=25,
 nu=4, tau=-0.25, r_y=1, sigma_x=0.3; benchmarks/spatial_sweep.sh):
  12. the two scalar scan kernels against their plain versions (f32 and f64)
@@ -144,9 +142,10 @@ launch each a tree level:
      in [0.05, 0.95] (N=4096: [0.95, 1], the JAX package's chain updated
      0.997); samples/s and a profile of each;
  19. the rare-event csmc with parallel=True in f64 at (y, rho, r2) = (5,
-     0.8, 0.5): T=2 (the root alone), T=256 with N=25 (two-pass tree), T=64
-     with N=4096 (blocked tree, either draws); moments of x_0 and x_{T-1}
-     within phase 11's ESS-scaled tolerance of the closed form.
+     0.8, 0.5): T=256 with N=25 (two-pass tree), T=64 with N=4096 (blocked
+     tree, either draws); moments of x_0 and x_{T-1} within an ESS-scaled
+     tolerance of 6 standard errors of the closed form (T=2, the root alone,
+     is cut: phase 29's grid runs it on every cell).
 The stochastic-volatility auxiliary-Kalman path (kalman-1/2, T=250, D=30:
 the MH kernels' D = 32 instance; benchmarks/sv_sweep.sh):
  20. the six MH kernels' D = 32 instance against their plain versions on a
@@ -224,19 +223,43 @@ reset before it and read after it:
      DNC_DRAWS draws at T=64, dx=4 against as many of the scan sampler's
      (`ops.sampling`, parallel): means and standard deviations at every
      (t, i) within DNC_Z_MAX standard errors.
+Chain batching (`parallel/chains.py`): the rare-event grid
+(`experiments/rare_event.py`) as one batched sampler over a chain axis:
+ 29. (its kernel checks run right after the build, before any profile)
+     the chain-axis instances of the lane sweep, the backward and forward
+     factor sweeps and col_sample (one launch a sweep for C chains, a block
+     a chain) on the inputs one grid step at M = 800 hands them (f64): each
+     against its plain version (indices identical, values to RTOL_F64), its
+     call at C = 1 bit-equal to the call without a chain axis, col_sample's
+     chains each equal to a one-chain call with its seed; then the published
+     grid (benchmarks/rare_event_sweep.sh: T=2, y=5, 10 x 10 cells x 8
+     chains, M = 800, N=25, f64, target 0.5, seed 42) in all six
+     configurations (kalman, csmc (PIT), csmc-guided, each without and with
+     the gradient shift) at GRID_SCHEDULE: the launches an iteration equal
+     at M = 8 and at M = 800 (kalman 3, csmc-guided 1 + 2, csmc 1), every
+     cell's moments of x_0 and x_{T-1} whose pooled ESS is at least
+     GRID_MIN_ESS within GRID_Z standard errors of the closed form (mean) and
+     of a standard deviation estimate (std), the hardest corner (rho 0.999,
+     r2 1e-3) reported, the chains' deltas moved apart, samples/s and a
+     profile (device busy share) of each; the --no-parallel grid (forward
+     factor sweep) and the PIT grid at T=6 (col_sample) briefly; at least
+     GRID_MIN_BOUNDED cell coordinates of each configuration must have been
+     bounded; then the SV driver, kalman-1 with `--n-chains 2` (the chain
+     loop), for the few iterations of SV_CHAINS_SCHEDULE: its launches (twice
+     a chain's) and its output shapes; its split-R-hat is printed and held
+     to nothing (the chains have not mixed).
 To make room, phase 3 runs 100 steps (200 before), phase 10 300 + 1000
-iterations (300 + 2000 before), phase 11 300 + 400 iterations a chain of
-the hardest cell, which is reported and not bounded (300 + 700, then
-500 + 1500 before), and 500 + 1200 a bounded chain (500 + 1500, then
-500 + 2500 before), phase 15's replicate chains 300 + 1500 (kalman-1) and
-300 + 1500 (csmc-guided) (300 + 3000, then 300 + 2000, and 300 + 2000
-before), and phase 19 at T=2 300 + 600 (300 + 1200 before) and at T=256
-300 + 400 (300 + 700 before): every bound is in units of the chain's own
-Monte-Carlo error, so a shorter chain widens it and keeps its meaning. The
-whole takes 250-480 s with the build on an H100, as fast as the host is
-(190-340 s before the PIT phases, 80-150 s before the spatial ones);
-phases 20-22 take ~40 s, phases 23-25 ~40 s, phases 26-28 ~35 s, and
-the D = 32 instances' build ~10 s more.
+iterations (300 + 2000 before), phase 11 is cut for phase 29 (its chains
+ran 500 + 1200 a bounded cell, 300 + 400 the hardest), phase 15's
+replicate chains 300 + 1500 (kalman-1) and 300 + 1500 (csmc-guided) (300
++ 3000, then 300 + 2000, and 300 + 2000 before), and phase 19 at T=256 300
++ 400 (300 + 700 before; its T=2 chain is cut for phase 29): every bound
+is in units of the chain's own Monte-Carlo error, so a shorter chain
+widens it and keeps its meaning. The whole takes 250-490 s with the build
+on an H100 (with phase 29: 403-491 s; phases 0-28 354-471 s), as fast as
+the host is (190-340 s before the PIT phases, 80-150 s before the spatial ones);
+phases 20-22 take ~40 s, phases 23-25 ~40 s, phases 26-28 ~35 s, phase 29
+50-110 s, and the D = 32 instances' build ~10 s more.
 Each kernel's entry of the JSON summary carries its bound: the least time the
 card could take for the call, the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the 67
@@ -260,8 +283,10 @@ phase 20's numbers at the SV shape, phase 22's launches), and so have the
 six kernels at the Lorenz shape (`make_elements_lorenz`, ...: phase 23's
 numbers at delta 1e20, phase 25's launches); the launches of phases 26-27's
 uninterrupted driver runs are added to each kernel's count (the SV kalman
-ones to the D = 32 entries); the last line is
-{"ok": true, "device": {...}}.
+ones to the D = 32 entries), and so are phase 29's SV run's; the four
+chain-axis instances have entries of their own (`lane_scan_chains`, ...:
+phase 29's numbers, their launches those of the grid runs); the last line
+is {"ok": true, "device": {...}}.
 """
 import contextlib
 import json
@@ -1108,8 +1133,10 @@ def phase_sv_chains(dev):
 
 TL_T, TL_N = 256, 256                   # theta-logistic PGAS (benchmarks/particle_ess.py)
 RE_CELL = (5.0, 0.8, 0.5, 2)            # y, rho, r2, T: tests/test_models_rare_event.py
-RE_HARD = (5.0, 0.999, 1e-3, 2)         # the published grid's hardest corner
 RE_N = 25                               # benchmarks/rare_event_sweep.sh
+# A rare-event kalman step, one cell (M = 1) or M cells: the batched scalar
+# layout's scans, whatever M is.
+RE_KALMAN_LAUNCHES = {"scalar_filter_scan": 2, "scalar_affine_scan": 1}
 
 
 def lane_plain(Mt, Gt, Pt, *rest):
@@ -1338,7 +1365,7 @@ def phase_scalar_step_reference(dev):
                 delta = 0.7
                 noises = [(rng.standard_normal((T_, 1)), rng.standard_normal((T_, 1)),
                            rng.uniform()) for _ in range(2)]
-                used = ()  # the MH wrappers launch twice a step; counted in phases 2, 3 and 11
+                used = RE_KALMAN_LAUNCHES
             else:
                 delta = rng.uniform(0.3, 1.5, T_)
                 noises = [csmc_noise(T_, RE_N, aux=True) for _ in range(2)]
@@ -1439,13 +1466,13 @@ def phase_theta_chain(dev):
     return launches
 
 
-def rare_chain(dev, style, cell, burnin, n_samples, seed, bounded, N=RE_N, per_iter=None):
+def rare_chain(dev, style, cell, burnin, n_samples, seed, N, per_iter):
     """run_chain of the f64 rare-event sampler `style` at `cell` with N
-    particles, delta adapted from 0.5 toward an update rate of 0.5. With
-    `bounded`, the posterior mean and standard deviation of x_0 and x_{T-1}
-    must lie within 6 Monte-Carlo standard errors (from the ESS at the known
-    variance) of the closed form. `per_iter`: the kernel launches of a step
-    (default: the style's). Returns the chain's launches."""
+    particles, delta adapted from 0.5 toward an update rate of 0.5: the
+    posterior mean and standard deviation of x_0 and x_{T-1} must lie within
+    6 Monte-Carlo standard errors (from the ESS at the known variance) of the
+    closed form, and each wrapper launch `per_iter[name]` times a step.
+    Returns the chain's launches."""
     import numpy as np
     import torch
     from aux_ssm_tpu_torch.experiments import RunConfig, runner
@@ -1464,12 +1491,6 @@ def rare_chain(dev, style, cell, burnin, n_samples, seed, bounded, N=RE_N, per_i
                            generator=gen, collect_samples=True, delta_init=delta0)
     launches = K.launches()
     n_iter = burnin + n_samples
-    per_iter = per_iter if per_iter is not None else {"kalman": {k: v for k, (_, _, v) in KERNELS.items()},
-                            "csmc": {"forward_factor_scan": FACTOR_LAUNCHES,
-                                     "backward_factor_scan": FACTOR_LAUNCHES},
-                            "csmc-guided": {"lane_scan": 1,
-                                            "backward_factor_scan": FACTOR_LAUNCHES}}[
-                                style.removesuffix("-grad")]
     for name, count in launches.items():
         if count != per_iter.get(name, 0) * n_iter:
             raise AssertionError(f"rare-event {style}: {name} launched {count} times in "
@@ -1491,30 +1512,14 @@ def rare_chain(dev, style, cell, burnin, n_samples, seed, bounded, N=RE_N, per_i
         f"[{float(res.delta.min()):.3e}, {float(res.delta.max()):.3e}]; " + "; ".join(parts))
     if not bool(torch.isfinite(res.state.x).all()) or not np.isfinite(res.samples).all():
         raise AssertionError(f"rare-event {style}: the chain's state is not finite")
-    if bounded and not (ok and 0.0 < rate < 1.0):
+    if not (ok and 0.0 < rate < 1.0):
         raise AssertionError(f"rare-event {style}: moments outside the ESS-scaled tolerance of "
                              "the closed form, or update rate outside (0, 1)")
-    if bounded and not style.endswith("-grad"):
+    if not style.endswith("-grad"):
         box = [res.state]
         profile_steps(f"rare-event {style}",
                       lambda: box.__setitem__(0, kernel(box[0], res.delta, generator=gen)))
     return launches
-
-
-def phase_rare_chains(dev):
-    """Phase 11; returns the lane sweep's launches summed over the chains."""
-    y, rho, r2, T_ = RE_CELL
-    log(f"phase 11: rare-event chains, f64, y={y}, rho={rho}, r2={r2}, T={T_}, N={RE_N}, "
-        "backward sampling, delta adapted from 0.5 toward 0.5; moments against the closed form "
-        "(mean and std errors in units of the posterior std; tolerance 6 standard errors)")
-    lane = 0
-    for i, style in enumerate(("kalman", "csmc", "csmc-guided", "csmc-guided-grad")):
-        lane += rare_chain(dev, style, RE_CELL, 500, 1200, 20 + i, bounded=True)["lane_scan"]
-    log(f"  the hardest cell of the published grid, rho={RE_HARD[1]}, r2={RE_HARD[2]} "
-        "(reported, not bounded):")
-    for i, style in enumerate(("kalman", "csmc", "csmc-guided")):
-        lane += rare_chain(dev, style, RE_HARD, 300, 400, 30 + i, bounded=False)["lane_scan"]
-    return lane
 
 
 # ---------------------------------------------------------------------------
@@ -2013,8 +2018,7 @@ PIT_BIG_SCHEDULE = (3, 10)   # frozen delta 0.05; run under either draws
 PIT_BIG_RATE = (0.95, 1.0)
 # Rare-event PIT chains against the closed form: cell, N, burn-in, samples,
 # the blocked route's draws.
-RE_PIT = (((5.0, 0.8, 0.5, 2), RE_N, 300, 600, "joint"),
-          ((5.0, 0.8, 0.5, 256), RE_N, 300, 400, "joint"),
+RE_PIT = (((5.0, 0.8, 0.5, 256), RE_N, 300, 400, "joint"),
           ((5.0, 0.8, 0.5, 64), PIT_N, 100, 300, "joint"),
           ((5.0, 0.8, 0.5, 64), PIT_N, 100, 300, "fused"))
 
@@ -2421,8 +2425,8 @@ def phase_pit_rare(dev):
         "moments against the closed form (tolerance 6 standard errors, as phase 11)")
     for i, (cell, N_, burnin, n_samples, draws) in enumerate(RE_PIT):
         launches = rare_chain(dev, "csmc-pit" + ("-fused" if draws == "fused" else ""), cell,
-                              burnin, n_samples, 40 + i, bounded=True, N=N_,
-                              per_iter=pit_launches(cell[3], N_, draws=draws))
+                              burnin, n_samples, 40 + i, N_,
+                              pit_launches(cell[3], N_, draws=draws))
         for k in total:
             total[k] += launches[k]
     return total
@@ -3132,6 +3136,384 @@ def phase_dnc_sampling(dev, card):
         raise AssertionError(f"D&C sampling: moments {worst:.2f} z from the scan sampler's")
 
 
+# ---------------------------------------------------------------------------
+# Chain batching: the rare-event grid as one batched sampler over a chain axis
+# ---------------------------------------------------------------------------
+
+# benchmarks/rare_event_sweep.sh: T=2, y=5, a 10 x 10 (rho, r2) grid x 8
+# chains (M = 800), N=25, f64, target 0.5, seed 42; its 2500 + 10000
+# iterations are cut to GRID_SCHEDULE.
+GRID_SCHEDULE = (300, 600)
+GRID_SHORT = (10, 20)       # the T=6 PIT and --no-parallel grids, and each M=8 grid
+GRID_Z = 5.0                # the moment bounds, in standard errors
+GRID_MIN_ESS = 100          # pooled ESS of a coordinate for its moments to be bounded
+GRID_MIN_BOUNDED = 99       # half of the 198 coordinates (99 cells x 2) a grid can bound
+GRID_CONFIGS = [(style, gradient) for style in ("kalman-1", "csmc", "csmc-guided")
+                for gradient in (False, True)]
+# Launches an iteration whatever M is: kalman the scalar scans (batched scalar
+# layout), csmc-guided the lane sweep and the backward factor sweep, csmc the
+# PIT root's row_lse (T=2: the tree is the root alone).
+GRID_PER_ITER = {"kalman-1": RE_KALMAN_LAUNCHES,
+                 "csmc": {"row_lse": 1},
+                 "csmc-guided": {"lane_scan": 1, "backward_factor_scan": FACTOR_LAUNCHES}}
+# The chain-axis instances: entry -> (the wrapper whose launches it counts,
+# source, the TPU kernel it replaces).
+CHAIN_KERNELS = {
+    "forward_factor_scan_chains": ("forward_factor_scan",) + CSMC_KERNELS["forward_factor_scan"],
+    "backward_factor_scan_chains": ("backward_factor_scan",)
+    + CSMC_KERNELS["backward_factor_scan"],
+    "lane_scan_chains": ("lane_scan",) + CSMC_KERNELS["lane_scan"],
+    "col_sample_chains": ("col_sample",) + STITCH_KERNELS["col_sample"],
+}
+
+
+def grid_args(style, gradient, T=2, grid_size=10, n_chains=8, parallel=True,
+              schedule=GRID_SCHEDULE):
+    """The rare-event driver's arguments for one grid run (its parser's
+    flags; benchmarks/rare_event_sweep.sh's values)."""
+    from aux_ssm_tpu_torch.experiments import cli
+    p = cli.base_parser("grid")
+    p.add_argument("--T", type=int, default=2)
+    p.add_argument("--y", type=float, default=5.0)
+    p.add_argument("--grid-size", type=int, default=10)
+    return p.parse_args([
+        "--style", style, "--gradient" if gradient else "--no-gradient",
+        "--parallel" if parallel else "--no-parallel", "--N", "25", "--precision", "double",
+        "--target-alpha", "0.5", "--burnin", str(schedule[0]), "--n-samples", str(schedule[1]),
+        "--seed", "42", "--n-chains", str(n_chains), "--grid-size", str(grid_size), "--T", str(T),
+        "--y", "5.0", "--no-verbose"])
+
+
+def grid_run(dev, args):
+    """`run_grid` with the launch counters reset before and read after.
+    Returns (rows, res, launches an iteration, launches); the run's exact
+    initial draws (`init_x`: a scalar filter scan and a scalar affine scan
+    for all M chains) are counted apart, and a count that is not a whole
+    number of launches an iteration fails."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments import rare_event as grid
+    from aux_ssm_tpu_torch.models import rare_event as rev
+    from aux_ssm_tpu_torch.ops import cuda as K
+    rho, r2 = (torch.as_tensor(np.repeat(z, args.n_chains), dtype=torch.float64, device=dev)
+               for z in grid.grid_cells(args.grid_size))
+    K.reset_launches()
+    rev.init_x(args.y, rho, r2, args.T, args.parallel, device=dev)
+    init = K.launches()
+    K.reset_launches()
+    rows, res = grid.run_grid(args, device=dev, dtype=torch.float64)
+    launches = {k: v - init[k] for k, v in K.launches().items()}
+    n_iter = max(args.burnin, 1) + args.n_samples
+    per = {k: v // n_iter for k, v in launches.items() if v}
+    if any(v % n_iter for v in launches.values()):
+        raise AssertionError(f"grid {args.style}: launches {launches} in {n_iter} iterations "
+                             f"beside the initial draws' {init}")
+    return rows, res, per, launches
+
+
+@contextlib.contextmanager
+def recording(module, names):
+    """Record each call of the wrappers `names` of `module` as (args,
+    kwargs), in order; the calls go through (and count their launches on the
+    recorder, the wrapper's module name meanwhile)."""
+    seen, originals = {name: [] for name in names}, {name: getattr(module, name)
+                                                       for name in names}
+
+    def recorder(name, fn):
+        def record(*args, **kwargs):
+            seen[name].append((args, kwargs))
+            return fn(*args, **kwargs)
+        record.launches = 0
+        return record
+
+    for name, fn in originals.items():
+        setattr(module, name, recorder(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+
+
+def grid_step_calls(dev, style, gradient, T, parallel, module, names):
+    """The wrappers' calls of one step of the M=800 grid sampler (f64, from
+    the exact initial draws, delta 0.5)."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments import rare_event as grid
+    from aux_ssm_tpu_torch.models import rare_event as rev
+    args = grid_args(style, gradient, T=T, parallel=parallel)
+    rho, r2 = (torch.as_tensor(np.repeat(z, args.n_chains), dtype=torch.float64, device=dev)
+               for z in grid.grid_cells(args.grid_size))
+    M = rho.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    kernel = grid.make_batched_kernel(style, args, rho, r2, device=dev)
+    state = grid.GridState(x=rev.init_x(args.y, rho, r2, T, generator=gen, device=dev),
+                           updated=torch.zeros(M, T, dtype=torch.bool, device=dev),
+                           rho=rho, r2=r2)
+    with recording(module, names) as seen:
+        kernel(state, torch.full((M, T), 0.5, dtype=torch.float64, device=dev), generator=gen)
+    torch.cuda.synchronize()
+    return seen
+
+
+def check_chain_instance(name, kernel, plain, one_chain_pairs, outs_of, ops, tensors,
+                         extra=()):
+    """A chain-axis instance on the grid's inputs: the kernel against its
+    plain version (indices identical, values to RTOL_F64); each pair of
+    `one_chain_pairs`, a call at C = 1 and the same call without a chain
+    axis, bit-equal; `extra` further checks (label, fn -> bool). Then the
+    kernel's time (CUDA events), the plain version's (its one call, host
+    clock between synchronisations: a loop over the chains), the kernel's
+    device ms (profiler) and the bound. Returns the entry."""
+    import torch
+    got = outs_of(kernel())
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    want = outs_of(plain())
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - tic)
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.dtype == torch.int64:
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: {int((g != w).sum())} indices differ from the "
+                                     "plain version's")
+        else:
+            if not torch.allclose(g, w, rtol=RTOL_F64, atol=RTOL_F64):
+                raise AssertionError(f"{name}: values off by {float((g - w).abs().max()):.3e}")
+            err = max(err, float((g - w).abs().max()))
+    for chained, single in one_chain_pairs:
+        for a, b in zip(outs_of(chained()), outs_of(single())):
+            if not torch.equal(a[0], b):
+                raise AssertionError(f"{name}: the C = 1 call differs from the one-chain call")
+    for label, check in extra:
+        if not check():
+            raise AssertionError(f"{name}: {label}")
+    result = {"max_abs_err": err, "ms": cuda_ms(kernel, 20), "plain_ms": plain_ms,
+              "device_ms": device_ms(kernel, 20)}
+    result.update(bound(list(tensors) + list(got), 0, ops))
+    dev_ms = result["device_ms"]
+    log(f"  {name} shapes {[tuple(g.shape) for g in got]}: f64 indices identical to the plain "
+        f"version's, values max abs err {err:.3e}; C = 1 bit-equal to the one-chain call"
+        + "".join(f"; {label}" for label, _ in extra)
+        + f"; kernel {result['ms']:.4f} ms (device "
+        + ("not measured" if dev_ms is None else f"{dev_ms:.4f}")
+        + f"), plain {result['plain_ms']:.4f} ms, bound {result['bound_ms']:.5f} ms by "
+        f"{result['bound_by']} ({result['bytes']} B, {result['operations']} operations)")
+    return result
+
+
+def phase_chain_kernels(dev):
+    """Phase 29's kernel checks: the four chain-axis instances on the inputs
+    one M=800 grid step hands them (f64). Run right after the build, before
+    any other phase has profiled: in a process that has profiled before, the
+    profiler's trace can list no kernels (`device_ms`)."""
+    import dataclasses
+    import torch
+    from aux_ssm_tpu_torch.kernels.csmc_base import tree_map
+    from aux_ssm_tpu_torch.ops import stitching as plain_st
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF
+    from aux_ssm_tpu_torch.ops.cuda import stitching as KS
+    results = {}
+
+    # csmc-guided (gradient on): the lane sweep and the backward factor sweep.
+    seen = grid_step_calls(dev, "csmc-guided", True, 2, True, CF,
+                           ("lane_scan", "backward_factor_scan"))
+    (Mt, Gt, Pt, *lane), _ = seen["lane_scan"][0]
+    C, n, N = lane[0].shape
+
+    def comps(sl):
+        return tuple(None if m is None else dataclasses.replace(
+            m, params=tree_map(lambda z: z[sl], m.params)) for m in (Mt, Gt, Pt))
+
+    def lane_plain(*a):
+        return CF.lane_scan_plain(Mt.lane_propagate, Gt.lane_logw,
+                                  None if Pt is None else Pt.lane_logpdf, *a)
+
+    results["lane_scan_chains"] = check_chain_instance(
+        "lane_scan_chains[rare-event guided, gradient]",
+        lambda: CF.lane_scan(Mt, Gt, Pt, *lane),
+        lambda: CF._per_chain(lane_plain, Mt.params, Gt.params,
+                              None if Pt is None else Pt.params, *lane, chains=C),
+        [(lambda: CF.lane_scan(*comps(slice(0, 1)), *(z[0:1] for z in lane)),
+          lambda: CF.lane_scan(*comps(0), *(z[0] for z in lane)))],
+        lambda out: out, C * n * N * (40 + math.log2(N)),
+        lane + list(Gt.cuda_operands()))
+    bwd, _ = seen["backward_factor_scan"][0]
+    rf, cf, rb, lw, us, b_T = bwd
+    k = rf.shape[-1]
+    results["backward_factor_scan_chains"] = check_chain_instance(
+        "backward_factor_scan_chains[rare-event guided]",
+        lambda: CF.backward_factor_scan(*bwd),
+        lambda: CF._per_chain(CF.backward_factor_scan_plain, *bwd),
+        [(lambda: CF.backward_factor_scan(*(z[0:1] for z in bwd)),
+          lambda: CF.backward_factor_scan(*(z[0] for z in bwd)))],
+        lambda out: (out,), C * n * N * (2 * k + 6), [rf, rb, lw, us, b_T])
+
+    # csmc --no-parallel: the forward factor sweep.
+    seen = grid_step_calls(dev, "csmc", False, 2, False, CF, ("forward_factor_scan",))
+    fwd, kw = seen["forward_factor_scan"][0]
+    rf = fwd[0]
+    C, n, N, k = rf.shape
+    results["forward_factor_scan_chains"] = check_chain_instance(
+        "forward_factor_scan_chains[rare-event csmc, sequential]",
+        lambda: CF.forward_factor_scan(*fwd, **kw),
+        lambda: CF._per_chain(CF.forward_factor_scan_plain, *fwd, **kw),
+        [(lambda: CF.forward_factor_scan(*(z[0:1] for z in fwd), **kw),
+          lambda: CF.forward_factor_scan(*(z[0] for z in fwd), **kw))],
+        lambda out: out, C * n * N * (2 * k + math.log2(N) + 8), list(fwd))
+
+    # csmc (PIT) at T=6: col_sample on level 0 (3 nodes a chain, 2400 pairs).
+    seen = grid_step_calls(dev, "csmc", False, 6, True, KS, ("col_sample",))
+    (seed, rf, cf, cb, offset), kw = seen["col_sample"][0]
+    C = kw["chains"]
+    P, n, k = rf.shape
+    per = P // C
+
+    def each_chain_as_one():
+        got = KS.col_sample(seed, rf, cf, cb, offset, chains=C)
+        return all(torch.equal(got[c * per:(c + 1) * per], KS.col_sample(
+            seed[c], rf[c * per:(c + 1) * per], cf[c * per:(c + 1) * per],
+            cb[c * per:(c + 1) * per], offset)) for c in range(C))
+
+    results["col_sample_chains"] = check_chain_instance(
+        "col_sample_chains[rare-event PIT, T=6, level 0]",
+        lambda: KS.col_sample(seed, rf, cf, cb, offset, chains=C),
+        lambda: plain_st.col_sample(seed, rf, cf, cb, offset, chains=C),
+        [(lambda: KS.col_sample(seed[0:1], rf[:per], cf[:per], cb[:per], offset,
+                                chains=1)[None],
+          lambda: KS.col_sample(seed[0], rf[:per], cf[:per], cb[:per], offset))],
+        lambda out: (out,), P * n * cf.shape[1] * (2 * k + 25), [seed, rf, cf, cb],
+        extra=[(f"each of the {C} chains' columns equal a one-chain call's with its seed",
+                each_chain_as_one)])
+    return results
+
+
+def grid_moments(label, rows, n_chains):
+    """Every cell whose pooled ESS of a coordinate is at least GRID_MIN_ESS:
+    the mean of x_0 and of x_{T-1} within GRID_Z standard errors of the
+    closed form, the standard deviation within GRID_Z standard errors of a
+    standard deviation estimate; the hardest corner (rho 0.999, r2 1e-3)
+    reported, not bounded. Fewer than GRID_MIN_BOUNDED coordinates bounded
+    fails. Returns (cell coordinates bounded, the largest |z|)."""
+    bounded, worst, misses = 0, 0.0, []
+    for r in rows:
+        hard = r["rho"] == 0.999 and r["r2"] == 1e-3
+        for t in ("0", "T"):
+            ess = r[f"ess_{t}"]
+            z_mean = math.sqrt(r[f"err_mean_{t}"] * ess)
+            z_std = abs(r[f"err_std_{t}"]) * math.sqrt(2.0 * ess)
+            if hard:
+                log(f"  {label}: hardest cell rho=0.999, r2=1e-3 (reported, not bounded): "
+                    f"x_{t} ESS {ess:.0f}, mean z {z_mean:.2f}, std z {z_std:.2f}, "
+                    f"update rate {r['acc']:.4f}, R-hat {r[f'rhat_{t}']:.3f}")
+                continue
+            if ess < GRID_MIN_ESS:
+                continue
+            bounded += 1
+            worst = max(worst, z_mean, z_std)
+            if z_mean >= GRID_Z or z_std >= GRID_Z:
+                misses.append((r["rho"], r["r2"], t, round(ess), round(z_mean, 2),
+                               round(z_std, 2)))
+    if misses:
+        raise AssertionError(f"{label}: moments beyond {GRID_Z} standard errors of the closed "
+                             f"form (rho, r2, coordinate, ESS, mean z, std z): {misses}")
+    if bounded < GRID_MIN_BOUNDED:
+        raise AssertionError(f"{label}: only {bounded} cell coordinates reached a pooled ESS of "
+                             f"{GRID_MIN_ESS}, fewer than {GRID_MIN_BOUNDED}")
+    return bounded, worst
+
+
+def phase_grid(dev, card):
+    """Phase 29 after its kernel checks (`phase_chain_kernels`, run right
+    after the build): the grid's six configurations at M = 800, the launches
+    an iteration at M = 8, the T=6 PIT and --no-parallel grids. Returns the
+    chain-axis instances' launches on those runs."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments import rare_event as grid
+    log(f"phase 29: the rare-event grid as one batched sampler, T=2, y=5, 10 x 10 cells x 8 "
+        f"chains (M=800), N=25, f64, target 0.5, seed 42, {GRID_SCHEDULE[0]} + "
+        f"{GRID_SCHEDULE[1]} iterations (published 2500 + 10000)")
+    launches = {name: 0 for name in CHAIN_KERNELS}
+    counts = {wrapper: name for name, (wrapper, _, _) in CHAIN_KERNELS.items()}
+    for style, gradient in GRID_CONFIGS:
+        label = f"grid {style}{' gradient' if gradient else ''}"
+        args = grid_args(style, gradient)
+        rows, res, per, total = grid_run(dev, args)
+        _, _, per8, _ = grid_run(dev, grid_args(style, gradient, grid_size=2, n_chains=2,
+                                                 schedule=GRID_SHORT))
+        if per != GRID_PER_ITER[style] or per8 != per:
+            raise AssertionError(f"{label}: launches an iteration {per} at M=800, {per8} at "
+                                 f"M=8, expected {GRID_PER_ITER[style]}")
+        for wrapper, count in total.items():
+            if wrapper in counts:
+                launches[counts[wrapper]] += count
+        M = len(rows) * args.n_chains
+        bounded, worst = grid_moments(label, rows, args.n_chains)
+        delta = res.delta.reshape(len(rows), args.n_chains, -1).mean((1, 2)).cpu().numpy()
+        if not np.unique(np.round(res.delta.cpu().numpy(), 6)).size > 1:
+            raise AssertionError(f"{label}: the chains' deltas did not move apart")
+        rate = float(res.stats.accept_cum.mean())
+        log(f"  {label}: {M * args.n_samples / res.sampling_time:.1f} samples/s "
+            f"({M} chains x {args.n_samples} in {res.sampling_time:.2f} s) on {card}; launches "
+            f"an iteration {per} at M=800 and M=8; mean update rate {rate:.4f}; cells' mean "
+            f"delta {delta.min():.3e} .. {delta.max():.3e}; {bounded} cell coordinates with "
+            f"pooled ESS >= {GRID_MIN_ESS} bounded, largest |z| {worst:.2f}")
+        if not 0.0 < rate < 1.0 or not np.isfinite(res.samples).all():
+            raise AssertionError(f"{label}: update rate {rate} or non-finite samples")
+        kernel = grid.make_batched_kernel(style, args, res.state.rho, res.state.r2, device=dev)
+        box, gen = [res.state], torch.Generator(device=dev).manual_seed(9)
+        profile_steps(f"{label}, M={M}",
+                      lambda: box.__setitem__(0, kernel(box[0], res.delta, generator=gen)),
+                      n=20)
+    for label, args, expect in (
+            ("grid csmc --no-parallel, T=2", grid_args("csmc", False, parallel=False,
+                                                       schedule=GRID_SHORT),
+             {"forward_factor_scan": FACTOR_LAUNCHES, "backward_factor_scan": FACTOR_LAUNCHES}),
+            ("grid csmc (PIT), T=6", grid_args("csmc", False, T=6, schedule=GRID_SHORT),
+             {"row_lse": 3, "col_sample": 2})):
+        rows, res, per, total = grid_run(dev, args)
+        if per != expect:
+            raise AssertionError(f"{label}: launches an iteration {per}, expected {expect}")
+        for wrapper, count in total.items():
+            if wrapper in counts:
+                launches[counts[wrapper]] += count
+        M = len(rows) * args.n_chains
+        log(f"  {label}: M={M}, {args.burnin} + {args.n_samples} iterations, launches an "
+            f"iteration {per}, update rate {float(res.stats.accept_cum.mean()):.4f}, "
+            f"{M * args.n_samples / res.sampling_time:.1f} samples/s")
+        if not np.isfinite(res.samples).all():
+            raise AssertionError(f"{label}: non-finite samples")
+    missing = [name for name, count in launches.items() if not count]
+    if missing:
+        raise AssertionError(f"phase 29: {missing} launched no time on the grid's paths")
+    return launches
+
+
+def phase_sv_chains_driver(dev, card, out_dir):
+    """Phase 29's last run: the SV driver, kalman-1, `--n-chains 2` (the
+    chain loop: each chain's one-chain step in turn, 10 launches a chain a
+    step), for the few iterations of SV_CHAINS_SCHEDULE from the driver's
+    own start. It checks the chain loop's launches and the output shapes;
+    the chains are far from mixed (phase 26 needs 1000 iterations to
+    settle), so their split-R-hat, printed, is held to nothing."""
+    from aux_ssm_tpu_torch.experiments import sv as sv_driver
+    burnin, n_samples = SV_CHAINS_SCHEDULE
+    argv = ["--style", "kalman-1", "--n-chains", "2", "--burnin", str(burnin), "--n-samples",
+            str(n_samples), "--no-verbose", "--out", f"{out_dir}/sv_chains.npz"]
+    per_iter = {name: 2 * count for name, (_, _, count) in KERNELS.items()}
+    res, saved, launches = driver_run(sv_driver.main, argv, per_iter, burnin + n_samples,
+                                      "SV driver kalman-1 --n-chains 2", card)
+    if res.samples.shape[:2] != (2, n_samples) or res.stats.step.shape != (2,):
+        raise AssertionError(f"SV --n-chains 2: samples {res.samples.shape}")
+    return launches
+
+
+SV_CHAINS_SCHEDULE = (10, 20)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3150,6 +3532,8 @@ def main():
     ends = {k: round(v, 1) for k, v in LIBRARY.source_seconds.items()}
     log(f"phase 0: kernels built in {LIBRARY.build_seconds:.1f} s into {LIBRARY.build_dir} "
         f"(each source's nvcc ended at {ends} s)")
+    log("phase 29, its kernel checks first: the chain-axis instances at M=800 (f64)")
+    chain_results = phase_chain_kernels(dev)
 
     results = phase_kernels(dev)
     phase_step_reference(dev)
@@ -3173,7 +3557,7 @@ def main():
     results["lane_scan"] = phase_lane_kernel(dev)
     log("phase 9: f64 scalar-state particle-Gibbs steps, card vs CPU")
     phase_scalar_step_reference(dev)
-    launches["lane_scan"] = phase_theta_chain(dev)["lane_scan"] + phase_rare_chains(dev)
+    launches["lane_scan"] = phase_theta_chain(dev)["lane_scan"]
     log(f"  phases 0-11 took {time.perf_counter() - tic:.1f} s")
 
     results.update(phase_scalar_scans(dev))
@@ -3218,13 +3602,20 @@ def main():
         log(f"  phases 0-25 took {t25 - tic:.1f} s")
         sv_driver = phase_sv_driver(dev, card, tmp)
         spatial_driver = phase_spatial_driver(dev, card, tmp)
+        phase_dnc_sampling(dev, card)
+        t28 = time.perf_counter()
+        log(f"  phases 26-28 took {t28 - t25:.1f} s, phases 0-28 {t28 - tic:.1f} s")
+        chain_launches = phase_grid(dev, card)
+        sv_chains = phase_sv_chains_driver(dev, card, tmp)
     for name, count in (sv_driver | spatial_driver).items():
         if name in KERNELS:
             wide_launches[name] += count
         else:
             launches[name] = launches.get(name, 0) + count
-    phase_dnc_sampling(dev, card)
-    log(f"  phases 26-28 took {time.perf_counter() - t25:.1f} s, phases 0-28 "
+    for name, count in sv_chains.items():
+        if name in KERNELS:
+            wide_launches[name] += count
+    log(f"  phase 29 took {time.perf_counter() - t28:.1f} s, phases 0-29 "
         f"{time.perf_counter() - tic:.1f} s with the build, on {card}")
 
     sources = ({name: entry[:2] for name, entry in KERNELS.items()} | CSMC_KERNELS
@@ -3238,6 +3629,9 @@ def main():
     kernels += [{"name": f"{name}_lorenz", "route": "cuda", "source": src, "replaces": rep,
                  "launches": lorenz_launches[name], **lorenz[name]}
                 for name, (src, rep, _) in KERNELS.items()]
+    kernels += [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                 "launches": chain_launches[name], **chain_results[name]}
+                for name, (_, src, rep) in CHAIN_KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

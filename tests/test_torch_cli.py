@@ -68,11 +68,24 @@ def test_lorenz_driver_synthetic_on_cpu(tmp_path, default_dtype, capsys):
     assert "samples/s" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("extra, missing", [(["--n-chains", "2"], "parallel/chains.py")])
+@pytest.mark.parametrize("extra, missing", [(["--n-chains", "2", "--mesh-chains", "2"],
+                                             "queue 2")])
 def test_lorenz_driver_unported_options_raise(tmp_path, default_dtype, extra, missing):
     with pytest.raises(NotImplementedError, match=missing):
         tlorenz.main(SMALL + ["--out", str(tmp_path / "x.npz")] + extra)
     assert not (tmp_path / "x.npz").exists()
+
+
+def test_lorenz_driver_runs_several_chains(tmp_path, default_dtype, capsys):
+    """`--n-chains 2` runs two chains through the chain loop: theta samples
+    (2, n, 3), the chains' mean statistics saved, split-R-hat printed."""
+    out = tmp_path / "lorenz.npz"
+    res = tlorenz.main(SMALL + ["--n-chains", "2", "--out", str(out)])
+    assert res.state.theta.shape == (2, 3) and res.samples.shape == (2, 5, 3)
+    saved = np.load(out)
+    assert saved["theta_samples"].shape == (2, 5, 3) and saved["mean_x"].shape == (32, 3)
+    printed = capsys.readouterr().out
+    assert "2 chains" in printed and "Rhat max=" in printed
 
 
 def test_backend_config(default_dtype):

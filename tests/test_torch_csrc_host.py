@@ -257,6 +257,56 @@ void h_backward_factor(int n, int N, int k, const double* rf, const double* cf,
   backward_factor_sweep<double>(csmc::Block<double>{0, 1, red}, n, N, k, rf, cf, rb, lw, us,
                                 b_T, picked, w, &bsel);
 }
+// The chain-batched launches: C chains' operands chain after chain, a block
+// a chain (each in turn here) through the kernels' *_chain entries; at N <=
+// kWarpN the pair-score pass over the C n steps first.
+void h_forward_factor_chains(int C, int n, int N, int k, int pgas, const double* rf,
+    const double* cf, const double* rb, const double* cb, const double* res_u,
+    const double* anc_u, const double* w0, double* log_ws, long long* anc, double* w,
+    double* cw) {
+  if (N <= kWarpN) {
+    const int ow = (int)record_words(N, 3, 8);
+    std::vector<double> records((long)C * n * ow);
+    host_records(C * n, N, k, 3, rf, cf, rb, cb, res_u, anc_u, records.data());
+    for (int c = 0; c < C; ++c) {
+      HostRing r(ow, n, false);
+      if (pgas)
+        forward_warp_chain<double, true>(c, 0, n, N, records.data(), w0, log_ws, anc, r.ring);
+      else
+        forward_warp_chain<double, false>(c, 0, n, N, records.data(), w0, log_ws, anc, r.ring);
+    }
+    return;
+  }
+  double red[33];
+  int a0 = 0;
+  const csmc::Block<double> b{0, 1, red};
+  for (int c = 0; c < C; ++c)
+    if (pgas)
+      forward_factor_chain<double, true>(b, c, n, N, k, rf, cf, rb, cb, res_u, anc_u, w0, log_ws,
+                                         anc, w, cw, &a0);
+    else
+      forward_factor_chain<double, false>(b, c, n, N, k, rf, cf, rb, cb, res_u, anc_u, w0,
+                                          log_ws, anc, w, cw, &a0);
+}
+void h_backward_factor_chains(int C, int n, int N, int k, const double* rf, const double* cf,
+    const double* rb, const double* lw, const double* us, const long long* b_T,
+    long long* picked, double* w) {
+  if (N <= kWarpN) {
+    const int ow = (int)record_words(N, 2, 8);
+    std::vector<double> records((long)C * n * ow);
+    host_records(C * n, N, k, 2, cf, rf, lw, rb, nullptr, us, records.data());
+    for (int c = 0; c < C; ++c) {
+      HostRing r(ow, n, true);
+      backward_warp_chain<double>(c, 0, n, N, records.data(), b_T, picked, r.ring);
+    }
+    return;
+  }
+  double red[33];
+  int bsel = 0;
+  for (int c = 0; c < C; ++c)
+    backward_factor_chain<double>(csmc::Block<double>{0, 1, red}, c, n, N, k, rf, cf, rb, lw, us,
+                                  b_T, picked, w, &bsel);
+}
 }
 """
 
@@ -442,6 +492,20 @@ static void host_lane(int n, int N, int pgas, const double* eps, const double* r
       double* log_ws, long long* anc) {                                                      \
     host_lane<csmc::MODEL<double>>(n, N, pgas, eps, res_u, anc_u, x_star, x0, w0, consts,    \
                                    params, xs, log_ws, anc);                                 \
+  }                                                                                          \
+  /* The chain-batched launch: chain c (a block in turn) on LaneIO::chain(c). */             \
+  extern "C" void h_lane_chains_##NAME(int C, int n, int N, int pgas, const double* eps,     \
+      const double* res_u, const double* anc_u, const double* x_star, const double* x0,      \
+      const double* w0, const double* consts, const double* params, double* xs,              \
+      double* log_ws, long long* anc) {                                                      \
+    const LaneIO<double, csmc::MODEL<double>> all{eps, res_u, anc_u, x_star, x0, w0, consts, \
+                                                  params, xs, log_ws, anc};                  \
+    for (int c = 0; c < C; ++c) {                                                            \
+      const auto io = all.chain(c, n, N);                                                    \
+      host_lane<csmc::MODEL<double>>(n, N, pgas, io.eps, io.res_u, io.anc_u, io.x_star,      \
+                                     io.x0, io.w0, io.consts, io.params, io.xs, io.log_ws,   \
+                                     io.anc);                                                \
+    }                                                                                        \
   }
 HOST_LANE(theta_logistic, ThetaLogistic)
 HOST_LANE(rare_event_guided, RareEventGuided)
@@ -508,9 +572,19 @@ void h_row_lse(int P, int nr, int nc, int k, int sms, const double* rf, const do
 // col_sample on row_lse's plan (plan[] as h_row_lse's), through the
 // kernel's width and row dispatch: each block's threads in turn, phase by
 // phase, the shuffle butterfly on the threads' partials (col_merge).
+void h_col_sample_chains(int P, int n, int nc, int k, int sms, const int* seeds,
+                         int chain_pairs, int pair_offset, const double* rf, const double* cf,
+                         const double* cb, long long* out, int* plan);
 void h_col_sample(int P, int n, int nc, int k, int sms, int seed, int pair_offset,
                   const double* rf, const double* cf, const double* cb, long long* out,
                   int* plan) {
+  h_col_sample_chains(P, n, nc, k, sms, &seed, P, pair_offset, rf, cf, cb, out, plan);
+}
+// The chain axis: the P pairs are C chains' chain_pairs each, chain c's with
+// seeds[c] and its pairs counted within the chain (chain_of, as the kernel).
+void h_col_sample_chains(int P, int n, int nc, int k, int sms, const int* seeds,
+                         int chain_pairs, int pair_offset, const double* rf, const double* cf,
+                         const double* cb, long long* out, int* plan) {
   const LsePlan pl = lse_plan(P, n, nc, k, sizeof(double), sms);
   plan[0] = pl.G, plan[1] = pl.R, plan[2] = pl.RS, plan[3] = pl.NPB, plan[4] = pl.TC;
   if (pl.TC < kLseChunk) return;
@@ -526,7 +600,9 @@ void h_col_sample(int P, int n, int nc, int k, int sms, int seed, int pair_offse
         for (int bx = 0; bx < (n + pl.RB - 1) / pl.RB; ++bx) {
           for (int t = 0; t < kLseThreads; ++t) {
             lse_rows<double, R>(t, pl, bx, by, P, n, th[t]);
-            col_rows<double, R>(pl, th[t], (uint32_t)seed, pair_offset, cr[t]);
+            const int c = chain_of(th[t].p, P, chain_pairs);
+            col_rows<double, R>(pl, th[t], (uint32_t)seeds[c], pair_offset - c * chain_pairs,
+                                cr[t]);
           }
           lse_stage_rows<double>(0, 1, pl, bx, by, P, n, k, rf, sh.data());
           for (int j0 = 0; j0 < nc; j0 += pl.TC) {
@@ -935,6 +1011,34 @@ def test_host_backward_factor_matches_plain(host_lib, n, N, k):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
+# The chain axis (rows 8 and 9 of the kernel table): 3 chains at once through
+# the launches' chain offsets, each chain equal to a one-chain call on its
+# slice; both paths (N <= 32: the pair scores over the chains' steps, then a
+# one-warp sweep a chain; past 32 a block a chain).
+@pytest.mark.parametrize("n,N,k,pgas", [(1, 25, 1, False), (5, 25, 3, True), (4, 40, 2, False)])
+def test_host_factor_sweeps_chain_axis(host_lib, n, N, k, pgas):
+    Cc = 3
+    chains = [_factor_inputs(n, N, k, seed=N + k + c) for c in range(Cc)]
+    args = tuple(torch.stack(z).contiguous() for z in zip(*chains))
+    lw, anc = torch.empty(Cc, n, N, dtype=torch.float64), torch.empty(Cc, n, N, dtype=torch.int64)
+    w, cw = torch.empty(N, dtype=torch.float64), torch.empty(N, dtype=torch.float64)
+    _call(host_lib["csmc_fwd"].h_forward_factor_chains, Cc, n, N, k, pgas, *args, lw, anc, w, cw)
+    rf, cf, rb, cb, _, us, _ = args
+    b_T = torch.tensor([0, N - 1, N // 2], dtype=torch.int64)
+    picked = torch.empty(Cc, n, dtype=torch.int64)
+    _call(host_lib["csmc_fwd"].h_backward_factor_chains, Cc, n, N, k, rf, cf, rb, cb, us, b_T,
+          picked, w)
+    for c, one in enumerate(chains):
+        want_lw, want_anc = CF.forward_factor_scan_plain(*one, pgas=pgas)
+        np.testing.assert_array_equal(anc[c].numpy(), want_anc.numpy())
+        _close(lw[c], want_lw)
+        want = CF.backward_factor_scan_plain(one[0], one[1], one[2], one[3], one[5], b_T[c])
+        np.testing.assert_array_equal(picked[c].numpy(), want.numpy())
+    got_lw, got_anc = CF.forward_factor_scan(*args, pgas=pgas)  # the wrappers' plain path
+    assert torch.equal(got_lw, lw) and torch.equal(got_anc, anc)
+    assert torch.equal(CF.backward_factor_scan(rf, cf, rb, cb, us, b_T), picked)
+
+
 @pytest.mark.parametrize("n,N,k,nv", [(7, 25, 64, 3), (5, 1, 4, 2), (4, 32, 130, 3),
                                        (6, 25, 30, 2)])
 def test_host_pair_scores_match_plain(host_lib, n, N, k, nv):
@@ -1191,6 +1295,81 @@ def test_host_lane_matches_plain(host_lib, model, T, N, pgas):
     np.testing.assert_array_equal(anc.numpy(), want[2].numpy())
     _close(xs, want[0])
     _close(lw, want[1])
+
+
+# The lane sweep's chain axis (row 10): the rare-event models over 3 cells
+# (rho, r2) at once, per-chain rows and shared constants, each chain equal to
+# a one-chain call; one warp (N = 25), one block (N = 40), the wide path
+# (N = 1100).
+@pytest.mark.parametrize("model,T,N,pgas", [("rare_event_guided", 2, 25, False),
+                                            ("rare_event_guided_grad", 6, 25, False),
+                                            ("rare_event_bootstrap", 6, 40, True),
+                                            ("rare_event_guided", 3, 1100, False)])
+def test_host_lane_chain_axis(host_lib, model, T, N, pgas):
+    from aux_ssm_tpu_torch.models import rare_event
+    Cc, n = 3, T - 1
+    rho = torch.tensor([0.0, 0.8, 0.999], dtype=torch.float64)
+    r2 = torch.tensor([1e-3, 0.5, 1.0], dtype=torch.float64)
+    rng = np.random.default_rng(T + N)
+    if model == "rare_event_bootstrap":
+        Mt, Gt = rare_event.get_feynman_kac(5.0, rho, r2, T, device="cpu")[2:]
+    else:
+        captured = {}
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(rare_event.csmc_aux, "get_kernel",
+                       lambda factory, *a, **k: captured.setdefault("factory", factory))
+            rare_event.get_guided_csmc_kernel(5.0, rho, r2, T, 8, device="cpu",
+                                              gradient=model.endswith("grad"))
+        Mt, Gt = captured["factory"](torch.as_tensor(rng.standard_normal((Cc, T, 1))),
+                                     torch.as_tensor(rng.uniform(0.3, 0.9, (Cc, T))))[2:]
+    w0 = rng.uniform(0.1, 1.0, (Cc, N))
+    inputs = tuple(torch.as_tensor(z) for z in (
+        rng.standard_normal((Cc, n, N)), rng.uniform(size=(Cc, n, N)), rng.uniform(size=(Cc, n)),
+        1.0 + 0.5 * rng.standard_normal((Cc, n)), 1.0 + 0.5 * rng.standard_normal((Cc, N)),
+        w0 / w0.sum(1, keepdims=True)))
+    consts, params = Gt.cuda_operands()
+    assert params.shape == (Cc, n, CF.LANE_MODELS[Gt.cuda_model][1])
+    xs, lw = (torch.empty(Cc, n, N, dtype=torch.float64) for _ in range(2))
+    anc = torch.empty(Cc, n, N, dtype=torch.int64)
+    _call(getattr(host_lib["csmc_lane"], f"h_lane_chains_{Gt.cuda_model}"), Cc, n, N, pgas,
+          *inputs, consts, params.contiguous(), xs, lw, anc)
+    want = CF.lane_scan(Mt, Gt, Mt if pgas else None, *inputs)  # the plain path, chain by chain
+    for c in range(Cc):
+        one = CF.lane_scan_plain(Mt.lane_propagate, Gt.lane_logw,
+                                 Mt.lane_logpdf if pgas else None,
+                                 *(({k: v[c] for k, v in z.items()} if z is not None else None)
+                                   for z in (Mt.params, Gt.params, Mt.params if pgas else None)),
+                                 *(z[c] for z in inputs))
+        np.testing.assert_array_equal(anc[c].numpy(), one[2].numpy())
+        _close(xs[c], one[0])
+        _close(lw[c], one[1])
+        for got, w in zip(want, one):
+            assert torch.equal(got[c], w)
+
+
+# col_sample's chain axis (row 15): 3 chains' level nodes (P = 3 x 4 pairs)
+# with a seed each, each chain's columns those of a one-chain call with its
+# seed; one seed for all the pairs is the one-chain call.
+@pytest.mark.parametrize("n,N,k", [(25, 25, 1), (6, 25, 1), (40, 70, 64)])
+def test_host_col_sample_chain_axis(host_lib, n, N, k):
+    Cc, P = 3, 4
+    rng = np.random.default_rng(n + N + k)
+    rf, cf, cb = (torch.as_tensor(z) for z in (0.4 * rng.standard_normal((Cc * P, n, k)),
+                                                0.4 * rng.standard_normal((Cc * P, N, k)),
+                                                rng.standard_normal((Cc * P, N))))
+    seeds = torch.tensor([-1, 123456, 7], dtype=torch.int32)
+    lib = host_lib["stitching"]
+    got = torch.full((Cc * P, n), -1, dtype=torch.int64)
+    plan = torch.zeros(5, dtype=torch.int32)
+    _call(lib.h_col_sample_chains, Cc * P, n, N, k, 132, seeds, P, 3, rf, cf, cb, got, plan)
+    for c in range(Cc):
+        sl = slice(c * P, (c + 1) * P)
+        one = torch.full((P, n), -1, dtype=torch.int64)
+        _call(lib.h_col_sample, P, n, N, k, 132, int(seeds[c]), 3, rf[sl], cf[sl], cb[sl], one,
+              plan)
+        np.testing.assert_array_equal(got[sl].numpy(), one.numpy())
+    np.testing.assert_array_equal(got.numpy(), ST.col_sample(seeds, rf, cf, cb, 3, chains=Cc)
+                                  .numpy())
 
 
 def test_host_counter_uniform_bitwise(host_lib):

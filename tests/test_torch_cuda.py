@@ -526,8 +526,8 @@ def test_theta_logistic_step_matches_cpu(dev, ancestor_sampling, backward):
                                    "csmc-guided-grad"])
 def test_rare_event_step_matches_cpu(dev, style, T):
     """Two f64 steps of each rare-event style on the card against the CPU,
-    given the same noise; T = 2 is the published grid's one-step sweep and
-    runs the MH scans with a single element."""
+    given the same noise; T = 2 is the published grid's one-step sweep, and
+    kalman runs the scalar scans at M = 1."""
     from aux_ssm_tpu_torch.models import rare_event as rev
     N = 25
     gradient = style.endswith("-grad")

@@ -140,13 +140,26 @@ def test_lorenz_driver_killed_and_resumed_equals_uninterrupted(tmp_path, monkeyp
 
 
 @pytest.mark.parametrize("driver, extra, missing", [
-    (sv, ["--n-chains", "2"], "parallel/chains.py"),
-    (spatial, ["--n-chains", "2"], "parallel/chains.py"),
+    (sv, ["--n-chains", "2", "--mesh-chains", "2"], "queue 2"),
+    (spatial, ["--n-chains", "2", "--mesh-chains", "2"], "queue 2"),
     (spatial, ["--batch-sharded"], "parallel/batch.py")])
 def test_unported_options_raise(tmp_path, driver, extra, missing):
     with pytest.raises(NotImplementedError, match=missing):
         _run(driver, tmp_path, ["--T", "8", "--D", "2"] + extra)
     assert not (tmp_path / "out.npz").exists()
+
+
+@pytest.mark.parametrize("driver, style", [(sv, "kalman-1"), (sv, "csmc-guided"),
+                                           (spatial, "kalman-2")])
+def test_drivers_run_several_chains(tmp_path, capsys, driver, style):
+    """`--n-chains 2` through the chain loop: the state and delta carry the
+    chain axis, the saved moments are the chains' means, R-hat is printed."""
+    res, saved = _run(driver, tmp_path, ["--style", style, "--T", "8", "--D", "2", "--N", "8",
+                                         "--n-chains", "2"])
+    assert res.state.x.shape[0] == 2 and res.stats.step.shape == (2,)
+    assert res.delta.shape[0] == 2 and all(np.isfinite(saved[k]).all() for k in saved.files)
+    printed = capsys.readouterr().out
+    assert "2 chains" in printed and "Rhat max=" in printed
 
 
 @pytest.mark.parametrize("port, ref", [(kalman, jkalman), (csmc, jcsmc)])

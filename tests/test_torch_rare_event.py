@@ -3,10 +3,13 @@ the exact initial draw, one step of every sampler style given the noise JAX
 draws (float64, rtol 1e-9, picked indices and acceptances identical), and in
 law, a short chain of each style against the closed-form conditionals.
 
-JAX runs its generic loops here (no TPU); the port takes the MH kernels' plain
-versions at d = 1 (kalman), the factor sweeps (csmc) and the lane sweep
-(csmc-guided). T = 2, the published grid's length, is one sweep step.
+JAX runs its generic loops here (no TPU); the port takes the scalar scans'
+plain versions in the batched scalar layout at M = 1 (kalman), the factor
+sweeps (csmc) and the lane sweep (csmc-guided). T = 2, the published grid's
+length, is one sweep step.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,9 @@ from aux_ssm_tpu_torch import rare_event_from_numpy  # noqa: E402
 from aux_ssm_tpu_torch.models import rare_event as tre  # noqa: E402
 from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF  # noqa: E402
 from aux_ssm_tpu_torch.utils.ess import effective_sample_size  # noqa: E402
+
+filtering = importlib.import_module("aux_ssm_tpu_torch.ops.filtering")
+sampling = importlib.import_module("aux_ssm_tpu_torch.ops.sampling")
 
 Y, RHO, R2 = 5.0, 0.8, 0.5
 N = 8
@@ -85,10 +91,12 @@ def _kernels(style, T):
                                    "csmc-guided-grad"])
 def test_step_matches_jax_given_noise(monkeypatch, style, T):
     (jinit, jkernel), (tinit, tkernel), draw = _kernels(style, T)
-    calls = {"lane": 0, "factor": 0}
-    for name, key in (("lane_scan", "lane"), ("forward_factor_scan", "factor")):
-        fn = getattr(CF, name)
-        monkeypatch.setattr(CF, name, lambda *a, _f=fn, _k=key, **kw: (
+    calls = {"lane": 0, "factor": 0, "filter": 0, "affine": 0}
+    for mod, name, key in ((CF, "lane_scan", "lane"), (CF, "forward_factor_scan", "factor"),
+                           (filtering, "scalar_filter_scan", "filter"),
+                           (sampling, "scalar_affine_scan", "affine")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _k=key, **kw: (
             calls.__setitem__(_k, calls[_k] + 1), _f(*a, **kw))[1])
     x0 = np.array(jre.init_x(jax.random.key(1), Y, RHO, R2, T))
     delta = np.random.default_rng(T).uniform(0.3, 1.5, T) if "csmc" in style else 0.7
@@ -102,8 +110,10 @@ def test_step_matches_jax_given_noise(monkeypatch, style, T):
         np.testing.assert_array_equal(tstate.updated.numpy(), np.asarray(jstate.updated))
         np.testing.assert_allclose(tstate.x.numpy(), np.asarray(jstate.x), rtol=1e-9,
                                    atol=1e-11)
-    want = {"kalman": (0, 0), "csmc": (0, len(keys)), "csmc-guided": (len(keys), 0)}
-    assert (calls["lane"], calls["factor"]) == want[style.removesuffix("-grad")]
+    n = len(keys)  # kalman: one cell is M = 1 of the scalar scans' batched layout
+    want = {"kalman": (0, 0, 2 * n, n), "csmc": (0, n, 0, 0), "csmc-guided": (n, 0, 0, 0)}
+    assert (calls["lane"], calls["factor"], calls["filter"],
+            calls["affine"]) == want[style.removesuffix("-grad")]
 
 
 def test_parallel_csmc_is_not_ported(monkeypatch):
