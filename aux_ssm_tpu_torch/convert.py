@@ -1,6 +1,9 @@
 """From the JAX package's parameters and data, given as NumPy arrays (for
 example `np.asarray` of each field of an `aux_ssm_tpu.ops.LGSSM`), to the
-port's tensors."""
+port's tensors; and chain-batched Kalman states both ways (JAX's vmapped
+state leads with the chain axis, x (C, T, d); the port's batched kernels run
+time first, x (T, C, d))."""
+import numpy as np
 import torch
 
 from .ops.lgssm import LGSSM
@@ -11,6 +14,31 @@ def lgssm_from_numpy(m0, P0, Fs, Qs, bs, Hs, Rs, cs, ys, *, device, dtype):
     params = tuple(torch.as_tensor(z, dtype=dtype, device=device)
                    for z in (m0, P0, Fs, Qs, bs, Hs, Rs, cs))
     return LGSSM(*params), torch.as_tensor(ys, dtype=dtype, device=device)
+
+
+def kalman_chains_from_numpy(x, updated=None, log_target=None, *, device, dtype):
+    """C chains' Kalman state of the JAX package (the fields of its vmapped
+    `KalmanSampler`: x (C, T, d), updated (C,), log_target (C,) or None) as
+    the port's time-first state for `kernels.kalman.get_kernel(...,
+    chains=True)`: a `KalmanSampler` with x (T, C, d) (contiguous), updated
+    (C,) (all True when not given) and log_target (C,) or None."""
+    from .kernels.kalman import KalmanSampler  # the kernels import this package
+    x = torch.as_tensor(np.asarray(x), dtype=dtype, device=device).transpose(0, 1).contiguous()
+    updated = (torch.ones(x.shape[1], dtype=torch.bool, device=device) if updated is None
+               else torch.as_tensor(np.asarray(updated), device=device).to(torch.bool))
+    lt = (None if log_target is None
+          else torch.as_tensor(np.asarray(log_target), dtype=dtype, device=device))
+    return KalmanSampler(x=x, updated=updated, log_target=lt)
+
+
+def kalman_chains_to_numpy(state):
+    """The port's time-first chain state (x (T, C, d)) as the JAX package's
+    vmapped `KalmanSampler` fields: a dict of NumPy arrays x (C, T, d),
+    updated (C,) and log_target (C,) or None."""
+    lt = state.log_target
+    return {"x": state.x.transpose(0, 1).detach().cpu().numpy(),
+            "updated": state.updated.detach().cpu().numpy(),
+            "log_target": None if lt is None else lt.detach().cpu().numpy()}
 
 
 def sv_from_numpy(ys, xs=None, *, device, dtype):

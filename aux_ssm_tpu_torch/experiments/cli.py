@@ -2,9 +2,9 @@
 `aux_ssm_tpu/experiments/cli.py`): the same flags and defaults.
 
 `--n-chains` C above 1 runs C chains on one card (`parallel/chains.py`):
-the drivers' models have no chain axis of their own, so their one-chain
-kernel runs chain after chain (`chains.chain_loop`), and the run reports
-split-R-hat. `--mesh-chains` above 0 (a device mesh) raises
+as one batched step where the driver's model offers a kernel over the chain
+axis (marked `chain_axis`: SV kalman-1/2, Lorenz), else the one-chain kernel
+chain after chain (`chains.chain_loop`); the run reports split-R-hat. `--mesh-chains` above 0 (a device mesh) raises
 NotImplementedError. `--checkpoint-dir` (with `--checkpoint-every`) makes a run resumable: a
 killed run started again with the same arguments goes on from its newest
 checkpoint, bit for bit (`runner.run_chain`).
@@ -103,12 +103,14 @@ def check_mesh(args):
 def run_maybe_sharded(generator, kernel, state, cfg, args, *, collect_samples=False,
                       delta_init=None, collect_fn=None):
     """Single- or multi-chain dispatch shared by the experiment drivers, with
-    a one-chain `kernel` and `state`; checkpointed under `--checkpoint-dir`
-    every `--checkpoint-every` iterations when given.
+    a one-chain `state` and a one-chain `kernel` or one over the chain axis
+    (marked `chain_axis`); checkpointed under `--checkpoint-dir` every
+    `--checkpoint-every` iterations when given.
 
     `--n-chains 1`: `run_chain`; returns (res, None). `--n-chains C > 1`: the
-    state and delta broadcast to a leading chain axis, the kernel run on
-    chain after chain (`chains.chain_loop`) through `run_sharded_chains`;
+    state and delta broadcast to a leading chain axis, a `chain_axis` kernel
+    run as one batched step, any other on chain after chain
+    (`chains.chain_loop`), through `run_sharded_chains`;
     returns (res, diag), `diag` the chains' mean statistics (`stats`) and
     split-R-hat (`rhat_max`, `rhat_median`): rank-normalised split-R-hat of
     at most 128 evenly spread coordinates of the collected samples, else the
@@ -131,7 +133,8 @@ def run_maybe_sharded(generator, kernel, state, cfg, args, *, collect_samples=Fa
     x = state.x
     delta0 = torch.as_tensor(cfg.delta_init if delta_init is None else delta_init,
                              dtype=x.dtype, device=x.device)
-    res = run_sharded_chains(chain_loop(kernel), broadcast_chains(state, n_chains), cfg,
+    batched = kernel if getattr(kernel, "chain_axis", False) else chain_loop(kernel)
+    res = run_sharded_chains(batched, broadcast_chains(state, n_chains), cfg,
                              generator=generator, collect_samples=collect_samples,
                              delta_init=broadcast_chains(delta0, n_chains),
                              collect_fn=collect_fn, **ckpt)

@@ -12,7 +12,9 @@ sigma_theta = sqrt(1000), theta_0 = (5, 15, 6). `--data PATH` loads any
     python -m aux_ssm_tpu_torch.experiments.lorenz --data mider --freq 4
     python -m aux_ssm_tpu_torch.experiments.lorenz --freq 4 --platform cpu
 
-Runs on the card unless `--platform cpu`. Saves the JAX driver's .npz keys:
+Runs on the card unless `--platform cpu`; `--n-chains C` runs all C chains
+as one batched Gibbs step (`lorenz.get_gibbs_kernel(..., chains=True)`).
+Saves the JAX driver's .npz keys:
 mean_x, ejsd, theta, theta_samples, delta, sampling_time, freq.
 """
 from pathlib import Path
@@ -105,8 +107,11 @@ def main(argv=None):
         prob = make_problem(data, obs_idx, n_steps, dt, np.eye(3), SIG_Y, [0.0, 0.0, 0.0],
                         sigma_theta, kw)
 
-    init, kernel = lorenz.get_gibbs_kernel(prob.ys, prob.Hs, prob.Rs, prob.cs, prob.m0, prob.P0,
-                                           SIGMA_X, prob.dt, prob.sigma_theta, args.parallel)
+    model = (prob.ys, prob.Hs, prob.Rs, prob.cs, prob.m0, prob.P0, SIGMA_X, prob.dt,
+             prob.sigma_theta, args.parallel)
+    init, kernel = lorenz.get_gibbs_kernel(*model)
+    if args.n_chains > 1:  # the kernel over the chain axis; the start is one chain's
+        kernel = lorenz.get_gibbs_kernel(*model, chains=True)[1]
     state = init(prob.x0, prob.theta0)
 
     cfg = cli.run_config(args)

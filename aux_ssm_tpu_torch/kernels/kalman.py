@@ -11,6 +11,7 @@ One step at state x:
 Float32 matmuls must stay IEEE: reduced-precision matmuls (TF32 on the card)
 collapse the acceptance rate; the package turns TF32 off at import.
 """
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -49,13 +50,17 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
     parallel : bool
         Parallel-in-time filtering/sampling, or sequential loops.
     chains : bool
-        C independent chains of a scalar-state model at once, in the batched
-        scalar layout (`ops/lgssm.py`): x (T, C, 1), delta (C,), the
-        factories' proposal model in that layout and `log_likelihood_fn(x)`
-        one target value a chain (C,). Each chain has its own proposal and
-        target densities (nothing is summed over C) and its own accept; a
-        step launches the scalar scans (`ops/cuda/scalar_scan.py`) as one
-        chain's step does, whatever C is.
+        C independent chains at once, time first: x (T, C, dx), delta (C,)
+        or (C, T) (handed to the factories as given; `chain_delta` lines it
+        up with x), the factories' proposal model in a batched layout of
+        `ops/lgssm.py` (dx = dy = 1: the batched scalar layout; wider: the
+        dense one, whose shared parameters may broadcast) and
+        `log_likelihood_fn(x)` one target value a chain (C,). Each chain has
+        its own proposal and target densities (nothing is summed over C) and
+        its own accept; a step launches each kernel (the scalar scans, or
+        the six d x d MH kernels) as often as one chain's step does, whatever
+        C is. `chain_major` turns such a kernel into one over a leading
+        chain axis, as `parallel/chains.py` runs it.
 
     Returns
     -------
@@ -66,8 +71,7 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
     `generator`; the step accepts when `u_accept < alpha`, exactly as
     `jax.random.bernoulli`.
     """
-    # With `chains`, delta (C,) lines up with the chain axis of (T, C, 1).
-    per_step = (lambda d: d[:, None]) if chains else (lambda d: d)
+    per_step = chain_delta if chains else (lambda d: d)
 
     def propose(delta, eps, u, x, x_eval=None, log_target=None):
         """Build the proposal LGSSM at x; sample from it unless `x_eval` is
@@ -115,6 +119,61 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
                              log_target=log_likelihood_fn(x))
 
     return init, kernel
+
+
+def chain_delta(delta):
+    """A chain kernel's delta, (C,) or (C, T), lined up with its time-first
+    trajectories (T, C, d): (C, 1) or (T, C, 1)."""
+    return delta[:, None] if delta.dim() == 1 else delta.transpose(0, 1)[..., None]
+
+
+def chain_major(init, kernel):
+    """(init, kernel) over a leading chain axis from those of
+    `get_kernel(..., chains=True)`, which run time first: the state's x and
+    the noise's trajectories are (C, T, d) outside, (T, C, d) inside; the
+    rest (updated, log_target, u_accept (C,)) has the chain axis first
+    already. The kernel is marked `chain_axis` (`experiments/cli.py` runs
+    it as one batched step, not chain after chain)."""
+
+    def swap(state):
+        return dataclasses.replace(state, x=state.x.transpose(0, 1).contiguous())
+
+    def chained_init(x):
+        return swap(init(x.transpose(0, 1)))
+
+    def chained_kernel(state, delta, generator=None, noise=None):
+        if noise is not None:
+            noise = (noise[0].transpose(0, 1), noise[1].transpose(0, 1), noise[2])
+        return swap(kernel(dataclasses.replace(state, x=state.x.transpose(0, 1)), delta,
+                           generator=generator, noise=noise))
+
+    chained_kernel.chain_axis = True
+    return chained_init, chained_kernel
+
+
+def one_chain_factories(dynamics_factory, *rest):
+    """One chain's factories from a model's factories over time-first chains
+    (`get_kernel`'s `chains`), which run at C = 1: x and u (T, d) go in as
+    (T, 1, d), delta (a scalar or (T,)) as (1,) or (1, T), and the chain
+    axis comes off what comes out (axis 1 of the per-step tensors; m0 and
+    P0, every chain's, pass as they are). `rest` is the observation
+    factories of (x, u, delta), then the target's log_likelihood_fn, whose
+    (1,) becomes a scalar."""
+
+    def dynamics(x):
+        m0, P0, *steps = dynamics_factory(x[:, None])
+        return (m0, P0, *(z[:, 0] for z in steps))
+
+    def observations(factory):
+        def one(x, u, delta):
+            delta = torch.as_tensor(delta, dtype=x.dtype, device=x.device)[None]
+            return tuple(z[:, 0] for z in factory(x[:, None], u[:, None], delta))
+        return one
+
+    def log_likelihood(x):
+        return rest[-1](x[:, None])[0]
+
+    return (dynamics, *map(observations, rest[:-1]), log_likelihood)
 
 
 def _acceptance_probability(log_prop_fwd, log_prop_rev, log_target_prop,

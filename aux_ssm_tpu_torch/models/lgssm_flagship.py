@@ -5,14 +5,20 @@ state and dx // 4 observations per step, and its auxiliary-Kalman factories
 
 `build_arrays` draws the model and its data with NumPy in the same
 `default_rng(seed)` call sequence as the JAX builder, so both give the same
-arrays; the factories are plain torch.
+arrays; the factories are plain torch. They serve C chains on the same data
+at once, time first (x (T, C, dx), delta (C,); the dense batched layout of
+`ops/lgssm.py`): the model's parameters and data are every chain's ((T[-1],
+1, ...), read once for all chains), u, the gradients, R and Omega each
+chain's, and the target gives one value a chain. One chain's factories are
+the same at C = 1 (`kernels.kalman.one_chain_factories`).
 """
 import numpy as np
 import torch
 
 from ..convert import lgssm_from_numpy
+from ..kernels.kalman import chain_delta, one_chain_factories
 from ..ops.chol import cholesky
-from ..ops.lgssm import log_likelihood, make_target_logpdf
+from ..ops.lgssm import LGSSM, log_likelihood, make_target_logpdf
 
 
 def build_arrays(T, dx, seed=0):
@@ -41,45 +47,57 @@ def build_arrays(T, dx, seed=0):
     return m0, P0, Fs, Qs, bs, Hs, Rs, cs, ys
 
 
-def build_model(T, dx, *, device, dtype, seed=0):
+def build_model(T, dx, *, device, dtype, seed=0, chains=False):
     """The target and its first-order factories:
-    (dynamics_factory, observations_factory, target_logpdf)."""
+    (dynamics_factory, observations_factory, target_logpdf) over C chains
+    (module docstring); without `chains`, one chain's: the same factories at
+    C = 1 (`one_chain_factories`)."""
     target, ys = lgssm_from_numpy(*build_arrays(T, dx, seed), device=device, dtype=dtype)
-    eyes = torch.eye(dx, dtype=dtype, device=device).expand(T, dx, dx)
-    zeros = torch.zeros((T, dx), dtype=dtype, device=device)
-    target_fn = make_target_logpdf(ys, target)
+    # A unit chain axis on what every chain shares.
+    model = LGSSM(target.m0, target.P0, *(z[:, None] for z in target[2:]))
+    data = ys[:, None]
+    eyes = torch.eye(dx, dtype=dtype, device=device).expand(T, 1, dx, dx)
+    zeros = torch.zeros((T, 1, dx), dtype=dtype, device=device)
+    target_fn = make_target_logpdf(data, model, keep_batch=True)  # (T, C, dx) -> (C,)
 
     def dynamics_factory(_x):
-        return target[:5]
+        return model[:5]
 
     def observations_factory(x, u, delta):
         # u + delta/2 * grad log g(x): the gradient of the potential is plain
-        # torch autograd, outside any kernel.
+        # torch autograd, outside any kernel (of the chains' sum: each
+        # chain's gradient its own).
         with torch.enable_grad():
             xg = x.detach().requires_grad_(True)
-            (grad,) = torch.autograd.grad(log_likelihood(ys, xg, target), xg)
-        return u + 0.5 * delta * grad, eyes, 0.5 * delta * eyes, zeros
+            (grad,) = torch.autograd.grad(log_likelihood(data, xg, model), xg)
+        half = 0.5 * chain_delta(delta)
+        return u + half * grad, eyes, half[..., None] * eyes, zeros
 
-    return dynamics_factory, observations_factory, target_fn
+    factories = (dynamics_factory, observations_factory, target_fn)
+    return factories if chains else one_chain_factories(*factories)
 
 
-def build_order2_factory(T, dx, *, device, dtype, seed=0):
+def build_order2_factory(T, dx, *, device, dtype, seed=0, chains=False):
     """(dynamics_factory, first-order factory, second-order factory,
-    target_logpdf). The Gaussian potential's Hessian is the constant
+    target_logpdf) over C chains, or with `chains` false one chain's, as
+    `build_model`'s. The Gaussian potential's Hessian is the constant
     -H^T R^-1 H per step, so Omega = (H^T R^-1 H + 2 I / delta)^-1."""
     arrays = build_arrays(T, dx, seed)
-    dyn, obs1, target_fn = build_model(T, dx, device=device, dtype=dtype, seed=seed)
+    dyn, obs1, target_fn = build_model(T, dx, device=device, dtype=dtype, seed=seed,
+                                       chains=True)
     H, R = arrays[5][0], arrays[6][0]
     hess = torch.as_tensor(-(H.T @ np.linalg.solve(R, H)), dtype=dtype, device=device)
     eye = torch.eye(dx, dtype=dtype, device=device)
-    zeros = torch.zeros((T, dx), dtype=dtype, device=device)
+    zeros = torch.zeros((T, 1, dx), dtype=dtype, device=device)
 
     def obs2(x, u, delta):
         aux1 = obs1(x, u, delta)[0]  # u + delta/2 * grad
-        grad = (aux1 - u) / (0.5 * delta)
-        omega = torch.cholesky_inverse(cholesky(-hess + 2.0 * eye / delta))
-        rhs = 2.0 * u / delta + grad - x @ hess.T
-        aux_ys = rhs @ omega.T
-        return aux_ys, eye.expand(T, dx, dx), omega.expand(T, dx, dx), zeros
+        dl = chain_delta(delta)
+        grad = (aux1 - u) / (0.5 * dl)
+        omega = torch.cholesky_inverse(cholesky(-hess + 2.0 * eye / dl[..., None]))
+        rhs = 2.0 * u / dl + grad - x @ hess.T
+        aux_ys = (omega @ rhs[..., None])[..., 0]
+        return aux_ys, eye.expand(T, 1, dx, dx), omega.expand(x.shape + (dx,)), zeros
 
-    return dyn, obs1, obs2, target_fn
+    factories = (dyn, obs1, obs2, target_fn)
+    return factories if chains else one_chain_factories(*factories)

@@ -15,6 +15,12 @@ instance on the card). The Gibbs step rebuilds the Kalman kernel at each new
 theta; what does not depend on theta (the target's whiteners, the stacked
 observation model's constant parts) is computed once per `get_gibbs_kernel`.
 
+C chains (`get_gibbs_kernel(..., chains=True)`) take one batched step: each
+chain has its own theta (C, 3), so its own linearised F and b (the dense
+batched layout of `ops/lgssm.py`, time first inside); Q, H, c, m0, P0 and the
+whiteners are every chain's, made once; u and R (delta / 2 on the u rows)
+are each chain's.
+
 Tensor arguments fix the dtype and device; functions that build tensors from
 numbers take `dtype` and `device` (None: the card, `device.default_device`).
 """
@@ -25,9 +31,10 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..kernels.kalman import KalmanSampler, get_kernel as get_kalman_generic
+from ..kernels.kalman import (KalmanSampler, chain_delta, chain_major,
+                              get_kernel as get_kalman_generic, one_chain_factories)
 from ..ops import mvn
-from ..ops.linearise import extended
+from ..ops.linearise import extended_steps
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -46,9 +53,11 @@ def phi(x):
 
 def get_dynamics(theta, sigma_x, dt):
     """The conditional mean callable mean(x, params) and the constant
-    innovation covariance Q, on `theta`'s dtype and device."""
-    def mean(x, _params):
-        return x + dt * (phi_0(x) + theta * phi(x))
+    innovation covariance Q, on `theta`'s dtype and device. `params`, if
+    not None, is the theta to use in place of `theta`."""
+    def mean(x, params):
+        th = theta if params is None else params
+        return x + dt * (phi_0(x) + th * phi(x))
 
     Q = dt * sigma_x ** 2 * torch.eye(3, dtype=theta.dtype, device=theta.device)
     return mean, Q
@@ -102,8 +111,9 @@ def observations_model(data, sig_y, n_steps, sample_every=None, obs_idx=None):
 
 
 def theta_posterior_mean_and_chol(x, sigma_theta, dt, sigma_x):
-    """Mean and (diagonal) scale of theta given a trajectory x (T, 3): the
-    drift is linear in theta, so this is a Bayesian linear regression."""
+    """Mean and (diagonal) scale of theta given a trajectory x (T, 3), or
+    given C chains' (T, C, 3) (then (C, 3) each): the drift is linear in
+    theta, so this is a Bayesian linear regression."""
     Y = (x[1:] - x[:-1]) - dt * phi_0(x[:-1])
     X = dt * phi(x[:-1])
     sigma_Y = sigma_x * math.sqrt(dt)
@@ -183,45 +193,56 @@ def _constants(ys, Hs, Rs, cs, m0, P0, sigma_x, dt, whiteners=None):
 
 
 def _factories(c, theta):
-    """(dynamics_factory, observations_factory, log_likelihood_fn) at `theta`
-    from the theta-free constants."""
+    """(dynamics_factory, observations_factory, log_likelihood_fn) at C
+    chains' theta (C, 3) from the theta-free constants, on time-first
+    trajectories (T, C, 3), delta (C,) or (C, T)."""
     mean, Q = get_dynamics(theta, c.sigma_x, c.dt)
     w = c.whiteners
     dy = c.ys.shape[-1]
+    # A unit chain axis on what every chain shares.
+    Qs, aux_Hs, aux_cs, observed = (z[:, None] for z in (c.Qs, c.aux_Hs, c.aux_cs, c.observed))
 
     def cov(_x, _params):
         return Q
 
     def dynamics_factory(x):
-        Fs, _, bs = torch.func.vmap(lambda z: extended(mean, cov, None, z))(x[:-1])
-        return c.m0, c.P0, Fs, c.Qs, bs
+        Fs, _, bs = extended_steps(mean, cov, x[:-1], theta)
+        return c.m0, c.P0, Fs, Qs, bs
 
     def observations_factory(_x, u, delta):
         # The block-diagonal diag(delta / 2 I, R_t) of every step at once:
         # exactly torch.block_diag's entries, which is not batched.
-        aux_Rs = c.Rs_block + (0.5 * delta) * c.u_diag
-        return torch.cat([u, c.ys], dim=1), c.aux_Hs, aux_Rs, c.aux_cs
+        aux_Rs = c.Rs_block[:, None] + (0.5 * chain_delta(delta))[..., None] * c.u_diag
+        ys = c.ys[:, None].expand(u.shape[:2] + c.ys.shape[1:])
+        return torch.cat([u, ys], dim=-1), aux_Hs, aux_Rs, aux_cs
 
     def log_likelihood_fn(x):
         out = mvn.logpdf(x[0], c.m0, w["chol_P0"])
-        out = out + mvn.logpdf(x[1:], mean(x[:-1], None), w["chol_Q"]).sum()
-        pred_y = (c.Hs_filled @ x[..., None])[..., 0]
-        diff = torch.where(c.observed[:, None], c.ys_filled - pred_y, 0.0)
-        wd = (w["inv_chol_Rs"] @ diff[..., None])[..., 0]
-        step = -0.5 * (wd * wd).sum(-1) - w["logdet_Rs"] - 0.5 * dy * _LOG_2PI
-        return out + torch.where(c.observed, step, 0.0).sum()
+        out = out + mvn.logpdf(x[1:], mean(x[:-1], None), w["chol_Q"]).sum(0)
+        pred_y = (c.Hs_filled[:, None] @ x[..., None])[..., 0]
+        diff = torch.where(observed[..., None], c.ys_filled[:, None] - pred_y, 0.0)
+        wd = (w["inv_chol_Rs"][:, None] @ diff[..., None])[..., 0]
+        step = -0.5 * (wd * wd).sum(-1) - w["logdet_Rs"][:, None] - 0.5 * dy * _LOG_2PI
+        return out + torch.where(observed, step, 0.0).sum(0)
 
     return dynamics_factory, observations_factory, log_likelihood_fn
 
 
-def get_kalman_factories(ys, Hs, Rs, cs, m0, P0, theta, sigma_x, dt, whiteners=None):
+def get_kalman_factories(ys, Hs, Rs, cs, m0, P0, theta, sigma_x, dt, whiteners=None,
+                         chains=False):
     """The auxiliary-Kalman pieces at a fixed theta: (dynamics_factory,
     observations_factory, log_likelihood_fn) for `kernels.kalman.get_kernel`.
     The drift is linearised at every step by `extended` and u is stacked on
     the data rows. `whiteners` (from `target_whiteners`) spares their
-    factorisation."""
+    factorisation. With `chains`, C chains' pieces at theta (C, 3), on
+    time-first trajectories (T, C, 3) (the dense batched layout); without,
+    one chain's at theta (3,): the same pieces at C = 1
+    (`one_chain_factories`)."""
     theta = torch.as_tensor(theta, dtype=ys.dtype, device=ys.device)
-    return _factories(_constants(ys, Hs, Rs, cs, m0, P0, sigma_x, dt, whiteners), theta)
+    consts = _constants(ys, Hs, Rs, cs, m0, P0, sigma_x, dt, whiteners)
+    if chains:
+        return _factories(consts, theta)
+    return one_chain_factories(*_factories(consts, theta[None]))
 
 
 def get_kalman_kernel(ys, Hs, Rs, cs, m0, P0, theta, sigma_x, dt, parallel, whiteners=None):
@@ -246,23 +267,37 @@ class GibbsState:
         return self.kalman_state.updated
 
 
-def get_gibbs_kernel(ys, Hs, Rs, cs, m0, P0, sigma_x, dt, sigma_theta, parallel):
+def get_gibbs_kernel(ys, Hs, Rs, cs, m0, P0, sigma_x, dt, sigma_theta, parallel,
+                     chains=False):
     """Gibbs sampler alternating the trajectory kernel at the current theta
     with the conjugate theta draw. Returns (init, kernel): `init(x, theta)`
     and `kernel(state, delta, generator=None, noise=None)`, `noise =
     (kalman_noise, eps_theta (3,))` with `kalman_noise` that of
     `kernels.kalman.get_kernel` (None: drawn from `generator`); theta' =
-    mean + chol * eps_theta."""
+    mean + chol * eps_theta.
+
+    With `chains`, C chains as one batched step over a leading chain axis:
+    `init(x (C, T, 3), theta (C, 3))`, the state's x (C, T, 3), updated
+    (C,) and theta (C, 3), delta (C,) or (C, T), `noise = ((eps_aux (C, T,
+    3), eps_smooth (C, T, 3), u_accept (C,)), eps_theta (C, 3))`. The
+    kernel is marked `chain_axis` (`experiments/cli.py`); each of the six
+    MH kernels launches as often a step as for one chain."""
     consts = _constants(ys, Hs, Rs, cs, m0, P0, sigma_x, dt)
 
     def kernel(state, delta, generator=None, noise=None):
         kalman_noise, eps_theta = (None, None) if noise is None else noise
-        _, kalman_kernel = get_kalman_generic(*_factories(consts, state.theta), parallel)
+        if chains:
+            kalman_kernel = chain_major(*get_kalman_generic(
+                *_factories(consts, state.theta), parallel, chains=True))[1]
+        else:
+            kalman_kernel = get_kalman_generic(
+                *one_chain_factories(*_factories(consts, state.theta[None])), parallel)[1]
         kalman_state = kalman_kernel(state.kalman_state, delta, generator=generator,
                                      noise=kalman_noise)
-        mean, chol = theta_posterior_mean_and_chol(kalman_state.x, sigma_theta, dt, sigma_x)
+        x = kalman_state.x.transpose(0, 1) if chains else kalman_state.x  # time first
+        mean, chol = theta_posterior_mean_and_chol(x, sigma_theta, dt, sigma_x)
         if eps_theta is None:
-            eps_theta = torch.randn(3, generator=generator, dtype=mean.dtype,
+            eps_theta = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
                                     device=mean.device)
         return GibbsState(kalman_state=kalman_state, theta=mean + chol * eps_theta)
 
@@ -271,8 +306,11 @@ def get_gibbs_kernel(ys, Hs, Rs, cs, m0, P0, sigma_x, dt, sigma_theta, parallel)
         # changes every step, so the Kalman kernel's cached target value
         # would be that of the previous theta. None makes it recompute.
         return GibbsState(
-            kalman_state=KalmanSampler(x=x, updated=torch.ones((), dtype=torch.bool,
+            kalman_state=KalmanSampler(x=x, updated=torch.ones(x.shape[:1] if chains else (),
+                                                               dtype=torch.bool,
                                                                device=x.device)),
             theta=torch.as_tensor(theta, dtype=x.dtype, device=x.device))
 
+    if chains:
+        kernel.chain_axis = True
     return init, kernel

@@ -30,7 +30,8 @@ import torch
 
 from ..device import resolve
 from ..kernels import csmc_aux, csmc_independent
-from ..kernels.kalman import get_kernel as get_kalman_generic
+from ..kernels.kalman import (chain_delta, chain_major, get_kernel as get_kalman_generic,
+                              one_chain_factories)
 from ..kernels.csmc_base import (Distribution, Dynamics, Potential, UnivariatePotential,
                                  chol_gaussian_pair_factors, rows as _rows)
 from ..ops import mvn
@@ -154,48 +155,67 @@ def init_x_fn(ys, nu, phi, tau, rho, N, generator=None, noise=None):
 # Auxiliary Kalman samplers (styles kalman-1 / kalman-2)
 # --------------------------------------------------------------------------
 
-def get_kalman_factories(ys, nu, phi, tau, rho):
+def get_kalman_factories(ys, nu, phi, tau, rho, chains=False):
     """The auxiliary-Kalman pieces on the data's dtype and device:
     (dynamics_factory, first_order_factory, second_order_factory,
     log_likelihood_fn) for `kernels.kalman.get_kernel`. Order 1 shifts the
     auxiliary observation by the potential's gradient; order 2 takes the
     diagonal second-order expansion Omega = (-H + 2 I / delta)^{-1}. The
     target's density is plain torch (the prior by triangular solves, the
-    potential elementwise)."""
+    potential elementwise).
+
+    The factories serve C chains on the same data at once, time first (x
+    (T, C, D), delta (C,) or (C, T); the dense batched layout of
+    `ops/lgssm.py`): m0, P0, F, Q, b, H and c are every chain's ((T[-1], 1,
+    ...): the kernels read them once for all chains), u, the gradients, the
+    Hessians, R and the auxiliary observations each chain's own, and
+    `log_likelihood_fn` gives one value a chain (C,). Without `chains`, they
+    are one chain's: the same factories at C = 1 (`one_chain_factories`)."""
     T, d = ys.shape
     m0, chol_P0, F, Q, chol_Q, b = _factored_dynamics(nu, phi, tau, rho, ys)
-    # The kernels take contiguous per-step arrays: made once, not per call.
-    Fs, Qs = F.expand(T - 1, d, d).contiguous(), Q.expand(T - 1, d, d).contiguous()
-    bs = b.expand(T - 1, d).contiguous()
-    eyes = torch.eye(d, dtype=ys.dtype, device=ys.device).expand(T, d, d).contiguous()
-    zeros = ys.new_zeros(T, d)
+    # The kernels take contiguous per-step arrays: made once, not per call;
+    # a unit chain axis on what every chain shares.
+    Fs, Qs = F.expand(T - 1, 1, d, d).contiguous(), Q.expand(T - 1, 1, d, d).contiguous()
+    bs = b.expand(T - 1, 1, d).contiguous()
+    eyes = torch.eye(d, dtype=ys.dtype, device=ys.device).expand(T, 1, d, d).contiguous()
+    zeros = ys.new_zeros(T, 1, d)
+    data = ys[:, None]
 
     def dynamics_factory(_x):
         return m0, Q, Fs, Qs, bs  # P0 = Q, the stationary covariance
 
     def first_order_factory(x, u, delta):
-        aux_ys = u + 0.5 * delta * grad_log_potential(x, ys)
-        return aux_ys, eyes, 0.5 * delta * eyes, zeros
+        half = 0.5 * chain_delta(delta)
+        aux_ys = u + half * grad_log_potential(x, data)
+        return aux_ys, eyes, half[..., None] * eyes, zeros
 
     def second_order_factory(x, u, delta):
-        hess = torch.nan_to_num(hess_log_potential_diag(x, ys))
-        omega = 1.0 / (-hess + 2.0 / delta)
-        aux_ys = omega * (2.0 * u / delta + grad_log_potential(x, ys) - hess * x)
+        dl = chain_delta(delta)
+        hess = torch.nan_to_num(hess_log_potential_diag(x, data))
+        omega = 1.0 / (-hess + 2.0 / dl)
+        aux_ys = omega * (2.0 * u / dl + grad_log_potential(x, data) - hess * x)
         return aux_ys, eyes, omega[..., None] * eyes, zeros
 
     def log_likelihood_fn(x):
         out = mvn.logpdf(x[0], m0, chol_P0)
-        out = out + mvn.logpdf(x[1:], x[:-1] @ F.T + b, chol_Q).sum()
-        return out + log_potential(x, ys)
+        trans = mvn.logpdf(x[1:], x[:-1] @ F.T + b, chol_Q)
+        return out + trans.sum(0) + _log_potential_one(x, data).sum((0, 2))
 
-    return dynamics_factory, first_order_factory, second_order_factory, log_likelihood_fn
+    factories = (dynamics_factory, first_order_factory, second_order_factory, log_likelihood_fn)
+    return factories if chains else one_chain_factories(*factories)
 
 
-def get_kalman_kernel(ys, nu, phi, tau, rho, parallel, order=1):
+def get_kalman_kernel(ys, nu, phi, tau, rho, parallel, order=1, chains=False):
     """Auxiliary Kalman kernel (style kalman-1 for `order` 1, kalman-2 for
-    2); returns (init, kernel) of `kernels.kalman.get_kernel`."""
-    dyn, first, second, target = get_kalman_factories(ys, nu, phi, tau, rho)
-    return get_kalman_generic(dyn, first if order == 1 else second, target, parallel)
+    2); returns (init, kernel) of `kernels.kalman.get_kernel`. With `chains`,
+    C chains as one batched step over a leading chain axis (`chain_major`):
+    `init(x (C, T, D))`, the kernel's state x (C, T, D), delta (C,) or (C,
+    T), noise ((C, T, D), (C, T, D), (C,)); each of the six MH kernels
+    launches as often a step as for one chain."""
+    dyn, first, second, target = get_kalman_factories(ys, nu, phi, tau, rho, chains)
+    init, kernel = get_kalman_generic(dyn, first if order == 1 else second, target, parallel,
+                                      chains=chains)
+    return chain_major(init, kernel) if chains else (init, kernel)
 
 
 # --------------------------------------------------------------------------

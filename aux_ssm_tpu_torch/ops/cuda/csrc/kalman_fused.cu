@@ -55,6 +55,14 @@
 // of inc on the threads of the first column: 5 tile products and 30
 // barriers a step at D = 16.
 //
+// Chain axis: C independent chains' steps in one launch, a block a (step,
+// chain) pair. Block g of n C takes step g / C of chain g % C; an operand laid
+// out (n, C, ...) is read at g, one that every chain shares (laid out (n,
+// ...), its bit set in `shared`: SV's and the flagship's F, Q and b) at g / C,
+// so nothing shared is copied C times; the outputs are (n, C, ...). A block's
+// arithmetic does not depend on g, so chain c of a C-chain launch is bit-equal
+// to a one-chain launch on its inputs, and C = 1 is the one-chain launch.
+//
 // Missing observations follow ops/lgssm.mask_observation exactly: every
 // masked quantity is selected with `isfinite(y)`, never multiplied by a 0/1
 // mask, because the model's H, R, c may be NaN where y is missing.
@@ -79,8 +87,19 @@ constexpr int kWideD = 32;  // and of the wide one (16 < max(dx, dy) <= 32)
 constexpr int kElemStamps = 6;  // clock64 readings of an elements step (diagnostics)
 constexpr int kMapStamps = 7;   // clock64 readings of a backward_maps step (diagnostics)
 
-// A step's inputs and the elements' outputs in global memory (step k at k
-// dx^2, k dy dx, k dy^2, k dx, k dy). ell takes the same inputs.
+// A block's (step, chain) pair: g = step C + chain. Input `op` (its place in
+// the kernel's inputs struct) is read at element at(op): g, or g / C where bit
+// op of `shared` says every chain shares it.
+struct StepAt {
+  long g;
+  int chains;
+  unsigned shared;
+  AUX_HD long at(int op) const { return (shared >> op & 1u) ? g / chains : g; }
+};
+
+// A step's inputs and the elements' outputs in global memory (element e at e
+// dx^2, e dy dx, e dy^2, e dx, e dy: e = StepAt::at of the operand for the
+// inputs, g for the outputs). ell takes the same inputs.
 template <typename S>
 struct ElementsIn {
   const S *F, *Q, *b, *H, *R, *c, *y, *m, *P;
@@ -149,20 +168,20 @@ AUX_HD void stage(int t, const MatIn<S> (&mats)[NM], const VecIn<S> (&vecs)[NV])
     }
 }
 
-// Step k's inputs into the padded arrays of ElementsLay<D> (the caller waits).
+// Block s's inputs into the padded arrays of ElementsLay<D> (the caller waits).
 template <typename S, int D, int NT>
-AUX_HD void stage_step(int t, long k, int dx, int dy, ElementsIn<S> in, S* sh) {
+AUX_HD void stage_step(int t, StepAt s, int dx, int dy, ElementsIn<S> in, S* sh) {
   using L = ElementsLay<D>;
-  const long xx = k * dx * dx;
-  const MatIn<S> mats[] = {{sh + L::F, in.F + xx, dx, dx, (S)0},
-                           {sh + L::Q, in.Q + xx, dx, dx, (S)0},
-                           {sh + L::P, in.P + xx, dx, dx, (S)0},
-                           {sh + L::H, in.H + k * dy * dx, dy, dx, (S)0},
-                           {sh + L::R, in.R + k * dy * dy, dy, dy, (S)0}};
-  const VecIn<S> vecs[] = {{sh + L::b, in.b + k * dx, dx},
-                           {sh + L::m, in.m + k * dx, dx},
-                           {sh + L::c, in.c + k * dy, dy},
-                           {sh + L::y, in.y + k * dy, dy}};
+  const long xx = (long)dx * dx;
+  const MatIn<S> mats[] = {{sh + L::F, in.F + s.at(0) * xx, dx, dx, (S)0},
+                           {sh + L::Q, in.Q + s.at(1) * xx, dx, dx, (S)0},
+                           {sh + L::P, in.P + s.at(8) * xx, dx, dx, (S)0},
+                           {sh + L::H, in.H + s.at(3) * dy * dx, dy, dx, (S)0},
+                           {sh + L::R, in.R + s.at(4) * dy * dy, dy, dy, (S)0}};
+  const VecIn<S> vecs[] = {{sh + L::b, in.b + s.at(2) * dx, dx},
+                           {sh + L::m, in.m + s.at(7) * dx, dx},
+                           {sh + L::c, in.c + s.at(5) * dy, dy},
+                           {sh + L::y, in.y + s.at(6) * dy, dy}};
   stage<S, D, NT>(t, mats, vecs);
 }
 
@@ -205,7 +224,7 @@ AUX_HD void mask_obs(const tiles::Tile<D, NT>& tl, int dy, S* He, S* Re, const S
 
 // The part of a step that elements_step and ell_step share, on a team of NT
 // threads (thread t; barrier 0 of the team; one thread in the host build),
-// with `sh` the step's ElementsLay<D> in shared memory: stage step k's inputs,
+// with `sh` the step's ElementsLay<D> in shared memory: stage block s's inputs,
 // mask the observation model (He, Re, ye, ce), m_pred = F m + b, P_pred = F
 // (P F^T) + Q, ydm = ye - He m_pred - ce (0 where y is missing), T = P_pred
 // He^T, and S' = He T + Re into X, where S = sym(S'). Each entry is summed
@@ -213,7 +232,7 @@ AUX_HD void mask_obs(const tiles::Tile<D, NT>& tl, int dy, S* He, S* Re, const S
 // barrier. `st`, if not null, takes thread 0's clock64 at the start and
 // after the staging (diagnostics).
 template <typename S, int D, int NT>
-AUX_HD void innovation_cov(int t, long k, int dx, int dy, ElementsIn<S> in, S* sh,
+AUX_HD void innovation_cov(int t, StepAt s, int dx, int dy, ElementsIn<S> in, S* sh,
                            long long* st) {
   using namespace tiles;
   using L = ElementsLay<D>;
@@ -225,7 +244,7 @@ AUX_HD void innovation_cov(int t, long k, int dx, int dy, ElementsIn<S> in, S* s
   S *ye = sh + L::ye, *ce = sh + L::ce, *mp = sh + L::mp, *ydm = sh + L::ydm;
 
   stamp(st, t, 0);
-  stage_step<S, D, NT>(t, k, dx, dy, in, sh);
+  stage_step<S, D, NT>(t, s, dx, dy, in, sh);
   cp_async_wait_all();
   team_sync<NT>(0);
   stamp(st, t, 1);
@@ -275,7 +294,7 @@ AUX_HD void innovation_cov(int t, long k, int dx, int dy, ElementsIn<S> in, S* s
   team_sync<NT>(0);
 }
 
-// SGF-2021 filtering element (A, b, C, eta, J) of step k on a team of NT
+// SGF-2021 filtering element (A, b, C, eta, J) of block s on a team of NT
 // threads, after innovation_cov:
 //   X = S^{-1} He, K = P_pred X^T, A = F - K (He F), b = m_pred + K ydm,
 //   C = sym(P_pred - (P_pred He^T) K^T), eta = (F^T X^T) ydb,
@@ -284,7 +303,7 @@ AUX_HD void innovation_cov(int t, long k, int dx, int dy, ElementsIn<S> in, S* s
 // clock64 at the start, after the staging, after S, after the solve, after
 // K and at the end (diagnostics, kernel_times.py).
 template <typename S, int D, int NT>
-AUX_HD void elements_step(int t, long k, int dx, int dy, ElementsIn<S> in, ElementsOut<S> out,
+AUX_HD void elements_step(int t, StepAt s, int dx, int dy, ElementsIn<S> in, ElementsOut<S> out,
                           S* sh, long long* st) {
   using namespace tiles;
   using L = ElementsLay<D>;
@@ -296,7 +315,7 @@ AUX_HD void elements_step(int t, long k, int dx, int dy, ElementsIn<S> in, Eleme
   S *Tm = sh + L::Tm, *b = sh + L::b, *y = sh + L::y;
   S *ye = sh + L::ye, *ce = sh + L::ce, *mp = sh + L::mp, *ydb = sh + L::ydb, *ydm = sh + L::ydm;
 
-  innovation_cov<S, D, NT>(t, k, dx, dy, in, sh, st);
+  innovation_cov<S, D, NT>(t, s, dx, dy, in, sh, st);
 
   // The thread's tile of S = sym(S') in registers, the right-hand side He,
   // and the first pivot pair published.
@@ -329,7 +348,7 @@ AUX_HD void elements_step(int t, long k, int dx, int dy, ElementsIn<S> in, Eleme
   stamp(st, t, 4);
 
   // Stage 7: the outputs, from registers.
-  const long xx = k * dx * dx, vx = k * dx;
+  const long xx = s.g * dx * dx, vx = s.g * dx;
   auto put = [&](S* o, const Regs<S, D, NT>& v) {
 #pragma unroll
     for (int rr = 0; rr < R; ++rr) {
@@ -513,16 +532,16 @@ struct EllLay {
   static constexpr int half = ElementsLay<D>::size, size = half + 2 * HalfLay<D>::size;
 };
 
-// Predict + masked update log-likelihood increment of step k (ops/filtering
+// Predict + masked update log-likelihood increment of block s (ops/filtering
 // .kalman_predict_update): log N(ydm; 0, S) over the observed entries, after
 // innovation_cov. Both halves of the team factor S bordered by ydm (a warp
 // runs both halves' instructions anyway); thread 0 writes half 0's.
 template <typename S, int D, int NT>
-AUX_HD void ell_step(int t, long k, int dx, int dy, ElementsIn<S> in, S* ell, S* sh) {
+AUX_HD void ell_step(int t, StepAt s, int dx, int dy, ElementsIn<S> in, S* ell, S* sh) {
   using L = ElementsLay<D>;
   using Hv = Halves<NT, D>;
   constexpr int ld = tiles::kLd<D>;
-  innovation_cov<S, D, NT>(t, k, dx, dy, in, sh, nullptr);
+  innovation_cov<S, D, NT>(t, s, dx, dy, in, sh, nullptr);
   const S *X = sh + L::X, *ydm = sh + L::ydm, *y = sh + L::y;
   for (int h = Hv::first(t); h < 2; h += Hv::step)
     gauss_half<S, D, NT>(
@@ -530,10 +549,10 @@ AUX_HD void ell_step(int t, long k, int dx, int dy, ElementsIn<S> in, S* ell, S*
         [&](int i, int c) { return (S)0.5 * (X[i * ld + c] + X[c * ld + i]); },
         [&](int c) { return ydm[c]; }, [&](int c) { return c < dy && isfinite(y[c]); });
   tiles::team_sync<NT>(0);
-  if (t == 0) ell[k] = half_logpdf<S, D>(sh + EllLay<D>::half);
+  if (t == 0) ell[s.g] = half_logpdf<S, D>(sh + EllLay<D>::half);
 }
 
-// logdensity's inputs (step k at k dx^2, k dy dx, k dy^2, k dx, k dy) and
+// logdensity's inputs (element e at e dx^2, e dy dx, e dy^2, e dx, e dy) and
 // working set: padded D x D arrays at row stride kLd<D> (He and Re are H and
 // R masked in place), vectors of D, then the halves' scratch.
 template <typename S>
@@ -550,13 +569,13 @@ struct DensityLay {
   static constexpr int half = ce + D, size = half + 2 * HalfLay<D>::size;
 };
 
-// log N(x_{k+1}; F x_k + b, Q) + masked log N(y; H x_{k+1} + c, R) of step k, on
+// log N(x_{k+1}; F x_k + b, Q) + masked log N(y; H x_{k+1} + c, R) of block s, on
 // a team of NT threads with `sh` its DensityLay<D>: half 0 takes the
 // transition, log N(x_cur - F x_prev - b; 0, diag(Q, I)) over dx entries;
 // half 1 the observation, log N(ye - He x_cur - ce; 0, Re) over the observed
 // ones (the innovation 0 where y is missing). Thread 0 writes their sum.
 template <typename S, int D, int NT>
-AUX_HD void logdensity_step(int t, long k, int dx, int dy, DensityIn<S> in, S* out, S* sh) {
+AUX_HD void logdensity_step(int t, StepAt s, int dx, int dy, DensityIn<S> in, S* out, S* sh) {
   using namespace tiles;
   using L = DensityLay<D>;
   using Hv = Halves<NT, D>;
@@ -564,16 +583,16 @@ AUX_HD void logdensity_step(int t, long k, int dx, int dy, DensityIn<S> in, S* o
   S *F = sh + L::F, *Q = sh + L::Q, *He = sh + L::H, *Re = sh + L::R, *b = sh + L::b;
   S *y = sh + L::y, *xp = sh + L::xp, *xc = sh + L::xc, *ye = sh + L::ye, *ce = sh + L::ce;
 
-  const long xx = k * dx * dx;
-  const MatIn<S> mats[] = {{F, in.F + xx, dx, dx, (S)0},
-                           {Q, in.Q + xx, dx, dx, (S)1},
-                           {He, in.H + k * dy * dx, dy, dx, (S)0},
-                           {Re, in.R + k * dy * dy, dy, dy, (S)0}};
-  const VecIn<S> vecs[] = {{b, in.b + k * dx, dx},
-                           {xp, in.xp + k * dx, dx},
-                           {xc, in.xc + k * dx, dx},
-                           {sh + L::c, in.c + k * dy, dy},
-                           {y, in.y + k * dy, dy}};
+  const long xx = (long)dx * dx;
+  const MatIn<S> mats[] = {{F, in.F + s.at(0) * xx, dx, dx, (S)0},
+                           {Q, in.Q + s.at(1) * xx, dx, dx, (S)1},
+                           {He, in.H + s.at(3) * dy * dx, dy, dx, (S)0},
+                           {Re, in.R + s.at(4) * dy * dy, dy, dy, (S)0}};
+  const VecIn<S> vecs[] = {{b, in.b + s.at(2) * dx, dx},
+                           {xp, in.xp + s.at(7) * dx, dx},
+                           {xc, in.xc + s.at(8) * dx, dx},
+                           {sh + L::c, in.c + s.at(5) * dy, dy},
+                           {y, in.y + s.at(6) * dy, dy}};
   stage<S, D, NT>(t, mats, vecs);
   cp_async_wait_all();
   team_sync<NT>(0);
@@ -592,14 +611,14 @@ AUX_HD void logdensity_step(int t, long k, int dx, int dy, DensityIn<S> in, S* o
   }
   team_sync<NT>(0);
   if (t == 0)
-    out[k] = half_logpdf<S, D>(sh + L::half) + half_logpdf<S, D>(sh + L::half + HalfLay<D>::size);
+    out[s.g] = half_logpdf<S, D>(sh + L::half) + half_logpdf<S, D>(sh + L::half + HalfLay<D>::size);
 }
 
 // ---------------------------------------------------------------------------
 // Backward-sampling maps (backward_maps)
 // ---------------------------------------------------------------------------
 
-// backward_maps' inputs and outputs in global memory (step k at k dx^2, k dx).
+// backward_maps' inputs and outputs in global memory (element e at e dx^2, e dx).
 template <typename S>
 struct MapsIn {
   const S *F, *Q, *b, *m, *P, *eps;
@@ -690,7 +709,7 @@ AUX_HD void chol_cols(int t, int dx, S* pub, S* Lout, Mf m) {
 }
 
 // Backward-sampling gain G = P F^T S^{-1} and noisy increment m - G (F m + b)
-// + L eps of step k (ops/sampling.backward_map_moments with the jittered
+// + L eps of block s (ops/sampling.backward_map_moments with the jittered
 // Cholesky of ops/chol.safe_cholesky, in the JAX kernel's order), on a team of
 // NT threads with `sh` its MapsLay<D>:
 //   S = sym(F (P F^T) + Q), X = S^{-1} (F P), G = X^T,
@@ -701,7 +720,7 @@ AUX_HD void chol_cols(int t, int dx, S* pub, S* Lout, Mf m) {
 // takes thread 0's clock64 at the start and after the staging, S, the solve,
 // cov, the factor and the outputs (diagnostics).
 template <typename S, int D, int NT>
-AUX_HD void backward_maps_step(int t, long k, int dx, MapsIn<S> in, MapsOut<S> out, S* sh,
+AUX_HD void backward_maps_step(int t, StepAt s, int dx, MapsIn<S> in, MapsOut<S> out, S* sh,
                                long long* st) {
   using namespace tiles;
   using L = MapsLay<D>;
@@ -713,11 +732,13 @@ AUX_HD void backward_maps_step(int t, long k, int dx, MapsIn<S> in, MapsOut<S> o
   S *eps = sh + L::eps, *v = sh + L::v;
 
   stamp(st, t, 0);
-  const long xx = k * dx * dx, vx = k * dx;
-  const MatIn<S> mats[] = {{F, in.F + xx, dx, dx, (S)0},
-                           {Q, in.Q + xx, dx, dx, (S)1},
-                           {P, in.P + xx, dx, dx, (S)0}};
-  const VecIn<S> vecs[] = {{b, in.b + vx, dx}, {m, in.m + vx, dx}, {eps, in.eps + vx, dx}};
+  const long dd = (long)dx * dx, xx = s.g * dd, vx = s.g * dx;
+  const MatIn<S> mats[] = {{F, in.F + s.at(0) * dd, dx, dx, (S)0},
+                           {Q, in.Q + s.at(1) * dd, dx, dx, (S)1},
+                           {P, in.P + s.at(4) * dd, dx, dx, (S)0}};
+  const VecIn<S> vecs[] = {{b, in.b + s.at(2) * dx, dx},
+                           {m, in.m + s.at(3) * dx, dx},
+                           {eps, in.eps + s.at(5) * dx, dx}};
   stage<S, D, NT>(t, mats, vecs);
   cp_async_wait_all();
   team_sync<NT>(0);
@@ -837,38 +858,49 @@ static_assert(EllLay<kWideD>::size * sizeof(double) <= kMaxShmem &&
                   MapsLay<kWideD>::size * sizeof(double) <= kMaxShmem,
               "the wide steps' shared memory fits a block");
 
-// Step blockIdx.x's filtering element on the block; `stamps`, if not null,
-// takes kElemStamps clock64 readings a step.
+// Block blockIdx.x's (step, chain) pair of `chains` chains, the operands
+// with bits in `shared` read once for every chain (StepAt).
+__device__ inline StepAt block_step(int chains, int shared) {
+  return StepAt{(long)blockIdx.x, chains, (unsigned)shared};
+}
+
+// A block's filtering element; `stamps`, if not null, takes kElemStamps
+// clock64 readings a block.
 template <typename S, int D, int NT>
 __global__ void __launch_bounds__(NT)
-elements_kernel(int dx, int dy, ElementsIn<S> in, ElementsOut<S> out, long long* stamps) {
+elements_kernel(int chains, int shared, int dx, int dy, ElementsIn<S> in, ElementsOut<S> out,
+                long long* stamps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  elements_step<S, D, NT>(threadIdx.x, blockIdx.x, dx, dy, in, out, reinterpret_cast<S*>(smem),
+  elements_step<S, D, NT>(threadIdx.x, block_step(chains, shared), dx, dy, in, out,
+                          reinterpret_cast<S*>(smem),
                           stamps ? stamps + (long)blockIdx.x * kElemStamps : nullptr);
 }
 
 template <typename S, int D, int NT>
 __global__ void __launch_bounds__(NT)
-ell_kernel(int dx, int dy, ElementsIn<S> in, S* ell) {
+ell_kernel(int chains, int shared, int dx, int dy, ElementsIn<S> in, S* ell) {
   extern __shared__ __align__(16) unsigned char smem[];
-  ell_step<S, D, NT>(threadIdx.x, blockIdx.x, dx, dy, in, ell, reinterpret_cast<S*>(smem));
+  ell_step<S, D, NT>(threadIdx.x, block_step(chains, shared), dx, dy, in, ell,
+                     reinterpret_cast<S*>(smem));
 }
 
 template <typename S, int D, int NT>
 __global__ void __launch_bounds__(NT)
-logdensity_kernel(int dx, int dy, DensityIn<S> in, S* out) {
+logdensity_kernel(int chains, int shared, int dx, int dy, DensityIn<S> in, S* out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  logdensity_step<S, D, NT>(threadIdx.x, blockIdx.x, dx, dy, in, out,
+  logdensity_step<S, D, NT>(threadIdx.x, block_step(chains, shared), dx, dy, in, out,
                             reinterpret_cast<S*>(smem));
 }
 
-// Step blockIdx.x's gain and increment on the block; `stamps`, if not null,
-// takes kMapStamps clock64 readings a step.
+// A block's gain and increment; `stamps`, if not null, takes kMapStamps
+// clock64 readings a block.
 template <typename S, int D, int NT>
 __global__ void __launch_bounds__(NT)
-backward_maps_kernel(int dx, MapsIn<S> in, MapsOut<S> out, long long* stamps) {
+backward_maps_kernel(int chains, int shared, int dx, MapsIn<S> in, MapsOut<S> out,
+                     long long* stamps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  backward_maps_step<S, D, NT>(threadIdx.x, blockIdx.x, dx, in, out, reinterpret_cast<S*>(smem),
+  backward_maps_step<S, D, NT>(threadIdx.x, block_step(chains, shared), dx, in, out,
+                               reinterpret_cast<S*>(smem),
                                stamps ? stamps + (long)blockIdx.x * kMapStamps : nullptr);
 }
 
@@ -876,11 +908,13 @@ template <int V>
 using Int = std::integral_constant<int, V>;
 
 // f(D, NT) for the instance that takes dx, dy: kElemD on kElemTeam threads up
-// to 16, kWideD on WideNT up to 32; cudaErrorInvalidValue for anything else.
+// to 16, kWideD on WideNT up to 32; cudaErrorInvalidValue for anything else
+// (no step, no chain, or more blocks than a grid holds).
 template <int WideNT, class F>
-int on_instance(int n, int dx, int dy, F f) {
+int on_instance(int n, int chains, int dx, int dy, F f) {
   const int d = dx > dy ? dx : dy;
-  if (n <= 0 || dx < 1 || dy < 1 || d > kWideD) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || chains <= 0 || (long)n * chains > 0x7fffffffL || dx < 1 || dy < 1 || d > kWideD)
+    return (int)cudaErrorInvalidValue;
   return d <= kElemD ? f(Int<kElemD>(), Int<kElemTeam>()) : f(Int<kWideD>(), Int<WideNT>());
 }
 
@@ -899,51 +933,55 @@ int launch_steps(void (*kernel)(P...), int n, size_t bytes, cudaStream_t stream,
 
 }  // namespace
 
+// Each entry launches n x chains blocks: `chains` chains' n steps, the inputs
+// with bits in `shared` (their place in the argument list, F = bit 0) laid out
+// (n, ...) for every chain, the others and the outputs (n, chains, ...).
 #define AUX_DEFINE_MAPS(SUFFIX, S)                                                             \
-  extern "C" int aux_make_elements_##SUFFIX(int n, int dx, int dy, const S* F, const S* Q,     \
-                                            const S* b, const S* H, const S* R, const S* c,    \
-                                            const S* y, const S* m, const S* P, S* A, S* bel,  \
-                                            S* C, S* eta, S* J, long long* stamps,             \
-                                            void* stream) {                                    \
-    return on_instance<kWideElemTeam>(n, dx, dy, [&](auto D_, auto NT_) {                      \
+  extern "C" int aux_make_elements_##SUFFIX(int n, int chains, int shared, int dx, int dy,     \
+                                            const S* F, const S* Q, const S* b, const S* H,    \
+                                            const S* R, const S* c, const S* y, const S* m,    \
+                                            const S* P, S* A, S* bel, S* C, S* eta, S* J,      \
+                                            long long* stamps, void* stream) {                 \
+    return on_instance<kWideElemTeam>(n, chains, dx, dy, [&](auto D_, auto NT_) {              \
       constexpr int D = decltype(D_)::value, NT = decltype(NT_)::value;                        \
-      return launch_steps<NT>(elements_kernel<S, D, NT>, n, ElementsLay<D>::size * sizeof(S),  \
-                              (cudaStream_t)stream, dx, dy,                                    \
-                              ElementsIn<S>{F, Q, b, H, R, c, y, m, P},                        \
+      return launch_steps<NT>(elements_kernel<S, D, NT>, n * chains,                           \
+                              ElementsLay<D>::size * sizeof(S), (cudaStream_t)stream, chains,  \
+                              shared, dx, dy, ElementsIn<S>{F, Q, b, H, R, c, y, m, P},        \
                               ElementsOut<S>{A, bel, C, eta, J}, stamps);                      \
     });                                                                                        \
   }                                                                                            \
-  extern "C" int aux_ell_##SUFFIX(int n, int dx, int dy, const S* F, const S* Q, const S* b,   \
-                                  const S* H, const S* R, const S* c, const S* y,              \
-                                  const S* m, const S* P, S* ell, void* stream) {              \
-    return on_instance<kWideDensityTeam>(n, dx, dy, [&](auto D_, auto NT_) {                   \
+  extern "C" int aux_ell_##SUFFIX(int n, int chains, int shared, int dx, int dy, const S* F,   \
+                                  const S* Q, const S* b, const S* H, const S* R, const S* c,  \
+                                  const S* y, const S* m, const S* P, S* ell, void* stream) {  \
+    return on_instance<kWideDensityTeam>(n, chains, dx, dy, [&](auto D_, auto NT_) {           \
       constexpr int D = decltype(D_)::value, NT = decltype(NT_)::value;                        \
-      return launch_steps<NT>(ell_kernel<S, D, NT>, n, EllLay<D>::size * sizeof(S),            \
-                              (cudaStream_t)stream, dx, dy,                                    \
+      return launch_steps<NT>(ell_kernel<S, D, NT>, n * chains, EllLay<D>::size * sizeof(S),   \
+                              (cudaStream_t)stream, chains, shared, dx, dy,                    \
                               ElementsIn<S>{F, Q, b, H, R, c, y, m, P}, ell);                  \
     });                                                                                        \
   }                                                                                            \
-  extern "C" int aux_backward_maps_##SUFFIX(int n, int dx, const S* F, const S* Q,             \
-                                            const S* b, const S* m, const S* P,                \
+  extern "C" int aux_backward_maps_##SUFFIX(int n, int chains, int shared, int dx, const S* F, \
+                                            const S* Q, const S* b, const S* m, const S* P,    \
                                             const S* eps, S* G, S* inc, long long* stamps,     \
                                             void* stream) {                                    \
-    return on_instance<kWideMapsTeam>(n, dx, 1, [&](auto D_, auto NT_) {                       \
+    return on_instance<kWideMapsTeam>(n, chains, dx, 1, [&](auto D_, auto NT_) {               \
       constexpr int D = decltype(D_)::value, NT = decltype(NT_)::value;                        \
-      return launch_steps<NT>(backward_maps_kernel<S, D, NT>, n, MapsLay<D>::size * sizeof(S), \
-                              (cudaStream_t)stream, dx, MapsIn<S>{F, Q, b, m, P, eps},         \
-                              MapsOut<S>{G, inc}, stamps);                                     \
+      return launch_steps<NT>(backward_maps_kernel<S, D, NT>, n * chains,                      \
+                              MapsLay<D>::size * sizeof(S), (cudaStream_t)stream, chains,      \
+                              shared, dx, MapsIn<S>{F, Q, b, m, P, eps}, MapsOut<S>{G, inc},   \
+                              stamps);                                                         \
     });                                                                                        \
   }                                                                                            \
-  extern "C" int aux_logdensity_steps_##SUFFIX(int n, int dx, int dy, const S* F,              \
-                                               const S* Q, const S* b, const S* H,             \
-                                               const S* R, const S* c, const S* y,             \
-                                               const S* xp, const S* xc, S* out,               \
+  extern "C" int aux_logdensity_steps_##SUFFIX(int n, int chains, int shared, int dx, int dy,  \
+                                               const S* F, const S* Q, const S* b,             \
+                                               const S* H, const S* R, const S* c,             \
+                                               const S* y, const S* xp, const S* xc, S* out,   \
                                                void* stream) {                                 \
-    return on_instance<kWideDensityTeam>(n, dx, dy, [&](auto D_, auto NT_) {                   \
+    return on_instance<kWideDensityTeam>(n, chains, dx, dy, [&](auto D_, auto NT_) {           \
       constexpr int D = decltype(D_)::value, NT = decltype(NT_)::value;                        \
-      return launch_steps<NT>(logdensity_kernel<S, D, NT>, n, DensityLay<D>::size * sizeof(S), \
-                              (cudaStream_t)stream, dx, dy,                                    \
-                              DensityIn<S>{F, Q, b, H, R, c, y, xp, xc}, out);                 \
+      return launch_steps<NT>(logdensity_kernel<S, D, NT>, n * chains,                         \
+                              DensityLay<D>::size * sizeof(S), (cudaStream_t)stream, chains,   \
+                              shared, dx, dy, DensityIn<S>{F, Q, b, H, R, c, y, xp, xc}, out); \
     });                                                                                        \
   }
 

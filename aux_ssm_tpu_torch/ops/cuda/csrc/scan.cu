@@ -66,6 +66,17 @@
 // chunks on a 128-thread team beat 32-256 chunks on 32-128 threads (0.0157
 // ms of device time against 0.0189-0.0467, PERF.md). reverse = 1 scans from
 // the end: logical element k is stored at n - 1 - k.
+//
+// Chain axis: C independent chains' scans in one launch, the elements laid
+// out (n, C, ...) (element k of chain c at k C + c). Chain c runs the one-chain
+// plan (scan_plan(n)) on its own hand-over rows, C x chunks blocks in all. The
+// tickets go out chain-major (ticket q: chain q / chunks, chunk q % chunks),
+// so every block that a block waits on (its own chain's chunk c - 2^L or c -
+// 1) holds a lower ticket and has started: past the blocks the card holds at
+// once (C = 32 at n = 249 is 16 waves of 128 blocks) a block never waits on
+// one that cannot run. The state counts C x chunks blocks before the last
+// resets it. A block's arithmetic does not depend on its chain, so chain c of
+// a C-chain launch is bit-equal to a one-chain launch on its elements.
 #include <type_traits>
 
 #include "tile.cuh"
@@ -117,11 +128,13 @@ AUX_HHD ScanPlan scan_plan(int n) {
   return p;
 }
 
-// Logical position k of the scan -> storage index (reverse scans run backwards).
+// Logical position k of chain `chain`'s scan -> storage index of its element
+// in the (n, chains, ...) layout (reverse scans run backwards).
 struct Order {
   long n;
   bool reverse;
-  AUX_HD long operator()(long k) const { return reverse ? n - 1 - k : k; }
+  int chains, chain;
+  AUX_HD long operator()(long k) const { return (reverse ? n - 1 - k : k) * chains + chain; }
 };
 
 // A padded element in shared memory (or a global buffer of the same layout):
@@ -637,20 +650,21 @@ __device__ void apply_window(int i0, int i1, long k0, int d, Order at,
                           at(k0 + i), d);
 }
 
-// The whole scan: chunk c = the block's ticket. Threads 0 .. NT - 1 run the
-// chain (the chunk, the levels, the hops); then every thread takes part in
-// the apply. `hand` holds (levels + 1) x chunks hand-over slots (row L: the
-// values at the start of level L; row levels: the inclusive totals); `state`
-// = {ticket counter, blocks done, last epoch}, zeros at first, left so by
-// each launch's last block, which also advances the epoch. One state serves
-// one launch at a time (filter_scan.py keeps one a stream). `stamps`, if not
-// null, takes each block's clock64 at its phases (diagnostics,
-// kernel_times.py): start, after its chunk, after each level, after the hop
-// for the chunks before it, at the end.
+// The whole scan: the block's ticket q gives its chain q / chunks and its
+// chunk c = q % chunks. Threads 0 .. NT - 1 run the chain (the chunk, the
+// levels, the hops); then every thread takes part in the apply. `hand` holds
+// (levels + 1) x chunks hand-over slots a chain (row L: the values at the
+// start of level L; row levels: the inclusive totals); `state` = {ticket
+// counter, blocks done, last epoch}, zeros at first, left so by each launch's
+// last block, which also advances the epoch. One state serves one launch at a
+// time (filter_scan.py keeps one a stream). `stamps`, if not null, takes each
+// block's clock64 at its phases (diagnostics, kernel_times.py; a row a
+// ticket): start, after its chunk, after each level, after the hop for the
+// chunks before it, at the end.
 template <class Op>
 __global__ void __launch_bounds__(kBlock, 1)
-scan_kernel(int n, int d, int reverse, ScanPlan pl, typename Op::View x, typename Op::View out,
-            unsigned long long* hand, int* state, long long* stamps) {
+scan_kernel(int n, int chains, int d, int reverse, ScanPlan pl, typename Op::View x,
+            typename Op::View out, unsigned long long* hand, int* state, long long* stamps) {
   using S = typename Op::Scalar;
   constexpr int NT = Op::chain, kRing = Op::ring;
   constexpr int D = Op::D, M = Op::M, V = Op::V, slot = OpLay<Op>::slot, hw = kHandWords<Op>;
@@ -671,10 +685,11 @@ scan_kernel(int n, int d, int reverse, ScanPlan pl, typename Op::View x, typenam
   }
   for (int g = 0; g < kRing + 2; ++g) pad_slot<S, D, M, V>(t, kBlock, d, ring + g * slot);
   __syncthreads();
-  const int c = ticket;
+  const int chain = ticket / pl.chunks, c = ticket - chain * pl.chunks;
   const unsigned epoch = epoch_sh;
-  const Order at{n, reverse != 0};
-  long long* st = stamps ? stamps + (long)c * (pl.levels + 4) : nullptr;
+  const Order at{n, reverse != 0, chains, chain};
+  hand += (long)chain * (pl.levels + 1) * pl.chunks * hw;  // the chain's rows
+  long long* st = stamps ? stamps + (long)ticket * (pl.levels + 4) : nullptr;
   if (st && t == 0) st[0] = t0;
   const long k0 = (long)c * pl.per;
   const int cnt = (int)(n - k0 < pl.per ? (n - k0 > 0 ? n - k0 : 0) : pl.per);
@@ -720,7 +735,7 @@ scan_kernel(int n, int d, int reverse, ScanPlan pl, typename Op::View x, typenam
   __syncthreads();
   if (t == 0) {
     __threadfence();
-    if (atomicAdd(state + 1, 1) == pl.chunks - 1) {  // the last block: reset for the next launch
+    if (atomicAdd(state + 1, 1) == chains * pl.chunks - 1) {  // the last block: reset
       state[0] = 0;
       state[1] = 0;
       state[2] = (int)epoch;
@@ -773,14 +788,15 @@ int set_shmem(const void* kernel, size_t bytes) {
 }
 
 template <class Op>
-int run_scan(int n, int d, int reverse, typename Op::View x, typename Op::View out,
+int run_scan(int n, int chains, int d, int reverse, typename Op::View x, typename Op::View out,
              unsigned long long* hand, int* state, long long* stamps, cudaStream_t stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || chains <= 0) return (int)cudaErrorInvalidValue;
   const size_t shmem = scan_shmem<Op>();
   if (int err = set_shmem((const void*)scan_kernel<Op>, shmem)) return err;
   const ScanPlan pl = scan_plan(n);
-  scan_kernel<Op><<<pl.chunks, kBlock, shmem, stream>>>(n, d, reverse, pl, x, out, hand, state,
-                                                        stamps);
+  if ((long)chains * pl.chunks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  scan_kernel<Op><<<chains * pl.chunks, kBlock, shmem, stream>>>(n, chains, d, reverse, pl, x,
+                                                                 out, hand, state, stamps);
   return (int)cudaGetLastError();
 }
 
@@ -821,19 +837,20 @@ int on_dim(int d, F f) {
 
 }  // namespace
 
-// The scans' hand-over words, (levels + 1) x chunks x hand words 64-bit
-// (scan_plan), and state, 3 int32, zeros when first given and kept from
-// launch to launch (one pair a stream, filter_scan.py).
+// The scans of `chains` chains, elements (n, chains, ...); their hand-over
+// words, chains x (levels + 1) x chunks x hand words 64-bit (scan_plan), and
+// state, 3 int32, zeros when first given and kept from launch to launch (one
+// pair a stream, filter_scan.py).
 #define AUX_DEFINE_SCANS(SUFFIX, S)                                                           \
-  extern "C" int aux_filter_scan_##SUFFIX(int n, int d, S* A, S* b, S* C, S* e, S* J,         \
-                                          S* oA, S* ob, S* oC, S* oe, S* oJ,                  \
+  extern "C" int aux_filter_scan_##SUFFIX(int n, int chains, int d, S* A, S* b, S* C, S* e,   \
+                                          S* J, S* oA, S* ob, S* oC, S* oe, S* oJ,            \
                                           unsigned long long* hand, int* state,               \
                                           long long* stamps, void* stream) {                  \
     return on_dim(d, [&](auto D) {                                                            \
       using Op = FilterOp<S, decltype(D)::value>;                                             \
       using V = typename Op::View;                                                            \
-      return run_scan<Op>(n, d, 0, V{{A, C, J}, {b, e}}, V{{oA, oC, oJ}, {ob, oe}}, hand,     \
-                          state, stamps, (cudaStream_t)stream);                               \
+      return run_scan<Op>(n, chains, d, 0, V{{A, C, J}, {b, e}}, V{{oA, oC, oJ}, {ob, oe}},   \
+                          hand, state, stamps, (cudaStream_t)stream);                         \
     });                                                                                       \
   }                                                                                           \
   extern "C" int aux_filter_combine_cycles_##SUFFIX(int d, int nt, int reps, S* A, S* b,      \
@@ -857,14 +874,14 @@ int on_dim(int d, F f) {
                                    (cudaStream_t)stream);                                     \
     });                                                                                       \
   }                                                                                           \
-  extern "C" int aux_affine_scan_##SUFFIX(int n, int d, int reverse, S* G, S* e, S* oG,       \
-                                          S* oe, unsigned long long* hand, int* state,        \
+  extern "C" int aux_affine_scan_##SUFFIX(int n, int chains, int d, int reverse, S* G, S* e,  \
+                                          S* oG, S* oe, unsigned long long* hand, int* state, \
                                           long long* stamps, void* stream) {                  \
     return on_dim(d, [&](auto D) {                                                            \
       using Op = AffineOp<S, decltype(D)::value>;                                             \
       using V = typename Op::View;                                                            \
-      return run_scan<Op>(n, d, reverse, V{{G}, {e}}, V{{oG}, {oe}}, hand, state, stamps,     \
-                          (cudaStream_t)stream);                                              \
+      return run_scan<Op>(n, chains, d, reverse, V{{G}, {e}}, V{{oG}, {oe}}, hand, state,     \
+                          stamps, (cudaStream_t)stream);                                      \
     });                                                                                       \
   }
 

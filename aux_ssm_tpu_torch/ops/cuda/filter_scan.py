@@ -20,6 +20,12 @@ stream follow each other and launches on two streams never share a state.
 One rule remains: a CUDA graph captured around a scan holds that stream's
 state, so it must not be replayed on two streams at once. Each wrapper counts
 its calls into the kernel library in its `launches` attribute.
+
+Chain axis: elements laid out (n, C, ...) (b (n, C, d)) are C independent
+chains' scans, each over axis 0 in the one-chain chunk order, in one launch
+(C x chunks blocks, their own hand-over rows: the buffer is C times a
+chain's). Chain c of a C-chain launch is bit-equal to a one-chain launch on
+its elements; the plain versions run the same chunks, batched over C.
 """
 import torch
 
@@ -46,12 +52,13 @@ def chunked_scan_plain(op, elems, identity, chunks):
     """Inclusive scan of `elems` (a tuple of tensors with leading axis n)
     under the associative `op(left, right)`, in the kernel's order over
     `chunks` chunks. `identity` is the op's identity element (a tuple of
-    unbatched tensors)."""
+    unbatched tensors, broadcast to the elements' trailing shape: a chain
+    axis after n scans each chain on its own)."""
     n = elems[0].shape[0]
     S = -(-n // chunks)
     pad = chunks * S - n
     parts = tuple(
-        torch.cat([z, e.expand((pad,) + e.shape)]).reshape((chunks, S) + z.shape[1:])
+        torch.cat([z, e.expand((pad,) + z.shape[1:])]).reshape((chunks, S) + z.shape[1:])
         for z, e in zip(elems, identity))
 
     # Pass 1: sequential prefixes within each chunk.
@@ -97,18 +104,29 @@ def filter_scan_plain(elems):
                               scan_chunks(elems[1].shape[0]))
 
 
+def _scan_io(name, kinds, elems):
+    """A scan's (n, chains, d), its elements checked for the card (no chain
+    axis: (n, d, d) / (n, d); a chain axis: (n, C, d, d) / (n, C, d)) and its
+    outputs, empty."""
+    ref = elems[kinds.index("x")]
+    n, d = ref.shape[0], ref.shape[-1]
+    chains = None if ref.dim() == 2 else ref.shape[1]
+    _check_shapes(name, kinds, elems, n, d, d, chains)
+    args = check_cuda_inputs(name, elems, ref.dtype, MAX_DIM, (d,))
+    return (n, chains or 1, d), args, tuple(torch.empty_like(z) for z in args)
+
+
 def filter_scan(elems):
     """Inclusive scan of filtering elements; see `filter_scan_plain`.
-    `elems = (A, b, C, eta, J)` with shapes (n, d, d) / (n, d)."""
-    A, b, C, e, J = elems
+    `elems = (A, b, C, eta, J)` with shapes (n, d, d) / (n, d), or (n, C, d,
+    d) / (n, C, d) for C chains."""
+    b = elems[1]
     if not _on_cuda("filter_scan", b):
         return filter_scan_plain(elems)
-    n, d = b.shape
-    _check_shapes("filter_scan", "FxFxF", elems, n, d, d)
-    args = check_cuda_inputs("filter_scan", (A, b, C, e, J), b.dtype, MAX_DIM, (d,))
-    out = tuple(torch.empty_like(z) for z in args)
+    (n, chains, d), args, out = _scan_io("filter_scan", "FxFxF", elems)
     if n:
-        launch("filter_scan", b.dtype, n, d, *args, *out, *_hand_state("filter", n, b), None)
+        launch("filter_scan", b.dtype, n, chains, d, *args, *out,
+               *_hand_state("filter", n, b, chains), None)
         filter_scan.launches += 1
     return out
 
@@ -119,16 +137,17 @@ filter_scan.launches = 0
 _HAND = {}  # (scan, device, dtype, stream) -> (hand-over words, state), kept
 
 
-def _hand_state(scan, n, ref):
+def _hand_state(scan, n, ref, chains=1):
     """The hand-over buffer of `scan` ("filter" or "affine": a padded
     element of the instance that takes `ref`'s last dimension d, as 64-bit
     words, for each of n elements' chunks at the start of each Hillis-Steele
-    level and after the last) and its state (ticket, blocks done, epoch) for
-    the device and dtype of `ref` and the current stream; see
-    `hand_state`."""
+    level and after the last, for each of `chains` chains) and its state
+    (ticket, blocks done, epoch) for the device and dtype of `ref` and the
+    current stream; see `hand_state`."""
     chunks = scan_chunks(n)
     slot = SLOTS[scan][instance_dim(ref.shape[-1])]
-    return hand_state(scan, chunks.bit_length() * chunks * slot * ref.element_size() // 4, ref)
+    words = chunks.bit_length() * chunks * slot * ref.element_size() // 4
+    return hand_state(scan, chains * words, ref)
 
 
 def hand_state(scan, words, ref):
@@ -154,15 +173,15 @@ def filter_scan_timeline(elems):
     """Diagnostics on the card: the filter scan once, with each block's
     clock64 at its phases; returns (outputs, stamps (chunks, levels + 4)
     int64, a block a chunk: start, after its chunk, after each level, after
-    the hop for the chunks before it, at its end). Not counted in
-    `filter_scan.launches`."""
-    A, b, C, e, J = elems
-    n, d = b.shape
-    args = check_cuda_inputs("filter_scan", (A, b, C, e, J), b.dtype, MAX_DIM, (d,))
-    out = tuple(torch.empty_like(z) for z in args)
+    the hop for the chunks before it, at its end; C chains: (C chunks, ...),
+    chain after chain). Not counted in `filter_scan.launches`."""
+    b = elems[1]
+    (n, chains, d), args, out = _scan_io("filter_scan", "FxFxF", elems)
     chunks = scan_chunks(n)
-    stamps = torch.zeros(chunks, chunks.bit_length() + 3, dtype=torch.int64, device=b.device)
-    launch("filter_scan", b.dtype, n, d, *args, *out, *_hand_state("filter", n, b), stamps)
+    stamps = torch.zeros(chains * chunks, chunks.bit_length() + 3, dtype=torch.int64,
+                         device=b.device)
+    launch("filter_scan", b.dtype, n, chains, d, *args, *out,
+           *_hand_state("filter", n, b, chains), stamps)
     return out, stamps
 
 
@@ -188,7 +207,8 @@ def combine_cycles(elems, threads, reps, scan="filter"):
 def affine_scan_plain(gains, incs, reverse=False):
     """Inclusive scan of affine maps (G, e) under
     `ops.sampling.sampling_operator` over the kernel's chunks
-    (`scan_chunks(n)`); `reverse=True` scans from the end, as
+    (`scan_chunks(n)`) along axis 0 (each chain on its own where a chain
+    axis follows); `reverse=True` scans from the end, as
     `jax.lax.associative_scan(..., reverse=True)`."""
     from ..sampling import sampling_operator  # sampling imports this module
 
@@ -202,24 +222,15 @@ def affine_scan_plain(gains, incs, reverse=False):
     return chunked_scan_plain(sampling_operator, (gains, incs), identity, chunks)
 
 
-def _affine_io(gains, incs):
-    """The affine scan's inputs checked for the card and its outputs, empty."""
-    n, d = incs.shape
-    _check_shapes("affine_scan", "F", (gains,), n, d, d)
-    G, e = check_cuda_inputs("affine_scan", (gains, incs), incs.dtype, MAX_DIM, (d,))
-    return (G, e), (torch.empty_like(G), torch.empty_like(e))
-
-
 def affine_scan(gains, incs, reverse=False):
     """Inclusive scan of affine maps; see `affine_scan_plain`. gains (n, d, d),
-    incs (n, d)."""
+    incs (n, d), or (n, C, d, d), (n, C, d) for C chains."""
     if not _on_cuda("affine_scan", incs):
         return affine_scan_plain(gains, incs, reverse)
-    (G, e), out = _affine_io(gains, incs)
-    n, d = e.shape
+    (n, chains, d), args, out = _scan_io("affine_scan", "Fx", (gains, incs))
     if n:
-        launch("affine_scan", e.dtype, n, d, int(reverse), G, e, *out,
-               *_hand_state("affine", n, e), None)
+        launch("affine_scan", incs.dtype, n, chains, d, int(reverse), *args, *out,
+               *_hand_state("affine", n, incs, chains), None)
         affine_scan.launches += 1
     return out
 
@@ -230,12 +241,12 @@ affine_scan.launches = 0
 def affine_scan_timeline(gains, incs, reverse):
     """Diagnostics on the card: the affine scan once with each block's
     clock64 at its phases, as `filter_scan_timeline`; returns (outputs,
-    stamps (chunks, levels + 4) int64). Not counted in
+    stamps (C chunks, levels + 4) int64). Not counted in
     `affine_scan.launches`."""
-    (G, e), out = _affine_io(gains, incs)
-    n, d = e.shape
+    (n, chains, d), args, out = _scan_io("affine_scan", "Fx", (gains, incs))
     chunks = scan_chunks(n)
-    stamps = torch.zeros(chunks, chunks.bit_length() + 3, dtype=torch.int64, device=e.device)
-    launch("affine_scan", e.dtype, n, d, int(reverse), G, e, *out, *_hand_state("affine", n, e),
-           stamps)
+    stamps = torch.zeros(chains * chunks, chunks.bit_length() + 3, dtype=torch.int64,
+                         device=incs.device)
+    launch("affine_scan", incs.dtype, n, chains, d, int(reverse), *args, *out,
+           *_hand_state("affine", n, incs, chains), stamps)
     return out, stamps

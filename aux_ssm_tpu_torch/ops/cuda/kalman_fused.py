@@ -10,6 +10,16 @@ attribute.
 
 Shapes (n = T - 1 steps): Fs/Qs (n, dx, dx), bs (n, dx), Hs (n, dy, dx),
 Rs (n, dy, dy), cs/ys (n, dy), ms/x (n, dx), Ps (n, dx, dx).
+
+Chain axis (the dense batched layout of `ops/lgssm.py`): with bs (n, C, dx),
+every operand is (n, C, ...) or (n, 1, ...), and the outputs are (n, C,
+...): C chains' steps in one launch of the same kernel, a block a (step,
+chain) pair. An operand whose chain axis has stride 0 (an `expand`ed view,
+e.g. F, Q and b that every chain shares) reaches the kernel as its (n, ...)
+slice, once for all chains, with its bit set in the launch's `shared` mask:
+nothing is copied C times. The plain versions broadcast. C = 1 gives the
+one-chain call's values bit for bit, and chain c of a C-chain launch those of
+a one-chain launch on its inputs.
 """
 import torch
 
@@ -29,14 +39,56 @@ def _on_cuda(name, ref):
     raise ValueError(f"{name}: no kernel for device {ref.device}")
 
 
-def _check_shapes(name, kinds, tensors, n, dx, dy):
-    """Each tensor against the shape its kind letter names: F (n, dx, dx),
-    x (n, dx), H (n, dy, dx), R (n, dy, dy), y (n, dy)."""
-    want = {"F": (n, dx, dx), "x": (n, dx), "H": (n, dy, dx), "R": (n, dy, dy), "y": (n, dy)}
+def _kind_shapes(dx, dy):
+    """A step's shape of each operand kind: F (dx, dx), x (dx,), H (dy, dx),
+    R (dy, dy), y (dy,)."""
+    return {"F": (dx, dx), "x": (dx,), "H": (dy, dx), "R": (dy, dy), "y": (dy,)}
+
+
+def _check_shapes(name, kinds, tensors, n, dx, dy, chains=None):
+    """Each tensor against the shape its kind letter names (`_kind_shapes`)
+    after (n,), or with `chains` C after (n, C)."""
+    lead = (n,) if chains is None else (n, chains)
+    want = _kind_shapes(dx, dy)
     for i, (kind, t) in enumerate(zip(kinds, tensors)):
-        if tuple(t.shape) != want[kind]:
+        if tuple(t.shape) != lead + want[kind]:
             raise ValueError(f"{name}: argument {i} has shape {tuple(t.shape)}, "
-                             f"expected {want[kind]}")
+                             f"expected {lead + want[kind]}")
+
+
+def chain_operands(name, kinds, tensors, dims):
+    """The operands of a per-step kernel for the card: (lead, C, shared,
+    tensors), `lead` the outputs' leading shape. Without a chain axis (every
+    operand of its kind's shape after (n,), `_check_shapes`) lead is (n,), C
+    = 1 and `shared` 0. With one, every operand is (n, C, ...) or, every
+    chain's, (n, 1, ...): a bare (n, ...) operand beside them raises (read
+    from the right, its n would pass for a chain axis where n = C). Then
+    lead is (n, C) and each tensor is expanded to (n, C, ...); where C > 1
+    and its chain axis has stride 0 (an `expand`ed view, or (n, 1, ...)) it
+    goes as its (n, ...) slice and sets its bit (its place in `tensors`) in
+    `shared`. Every tensor checked by `check_cuda_inputs` (contiguous, one
+    dtype and device, dims in range)."""
+    ref = tensors[kinds.index("x")]
+    shapes = _kind_shapes(dims[0], dims[-1])
+    leads = [tuple(t.shape[:t.dim() - len(shapes[k])]) for k, t in zip(kinds, tensors)]
+    n = tensors[0].shape[0]
+    if all(len(lead) == 1 for lead in leads):
+        _check_shapes(name, kinds, tensors, n, dims[0], dims[-1])
+        return (n,), 1, 0, check_cuda_inputs(name, tensors, ref.dtype, MAX_DIM, dims)
+    C = max((lead[1] for lead in leads if len(lead) == 2), default=1)
+    shared, out = 0, []
+    for i, (kind, t, lead) in enumerate(zip(kinds, tensors, leads)):
+        if len(lead) != 2 or lead[0] != n or lead[1] not in (1, C) or (
+                t.shape[2:] != shapes[kind]):
+            raise ValueError(f"{name}: argument {i} has shape {tuple(t.shape)}; with a chain "
+                             f"axis every operand is (n, C) + {shapes[kind]} or (n, 1) + "
+                             f"{shapes[kind]}, n = {n}, C = {C}")
+        t = t.expand((n, C) + shapes[kind])
+        if C > 1 and t.stride(1) == 0:
+            shared |= 1 << i
+            t = t[:, 0]
+        out.append(t)
+    return (n, C), C, shared, check_cuda_inputs(name, out, ref.dtype, MAX_DIM, dims)
 
 
 # --------------------------------------------------------------------------
@@ -77,16 +129,15 @@ ELEMENTS_STAMPS = 6  # kElemStamps: clock64 readings of a step
 
 
 def _elements_io(args):
-    """make_elements' dimensions (n, dx, dy), its inputs checked for the
-    card and its outputs (A, b, C, eta, J), empty."""
-    Fs, Qs, bs, Hs, Rs, cs, ys, m, P = args
-    n, dx = bs.shape
-    dy = cs.shape[-1]
-    _check_shapes("make_elements", "FFxHRyyxF", args, n, dx, dy)
-    args = check_cuda_inputs("make_elements", args, bs.dtype, MAX_DIM, (dx, dy))
-    A, C, J = (torch.empty_like(args[0]) for _ in range(3))
-    b_el, eta = torch.empty_like(args[2]), torch.empty_like(args[2])
-    return (n, dx, dy), args, (A, b_el, C, eta, J)
+    """make_elements' dimensions (n, C, shared, dx, dy), its inputs checked
+    for the card and its outputs (A, b, C, eta, J), empty."""
+    bs, cs = args[2], args[5]
+    dx, dy = bs.shape[-1], cs.shape[-1]
+    lead, C, shared, args = chain_operands("make_elements", "FFxHRyyxF", args, (dx, dy))
+    new = dict(dtype=bs.dtype, device=bs.device)
+    A, Cm, J = (torch.empty(lead + (dx, dx), **new) for _ in range(3))
+    b_el, eta = (torch.empty(lead + (dx,), **new) for _ in range(2))
+    return (lead[0], C, shared, dx, dy), args, (A, b_el, Cm, eta, J)
 
 
 def make_elements(Fs, Qs, bs, Hs, Rs, cs, ys, m, P):
@@ -94,9 +145,9 @@ def make_elements(Fs, Qs, bs, Hs, Rs, cs, ys, m, P):
     args = (Fs, Qs, bs, Hs, Rs, cs, ys, m, P)
     if not _on_cuda("make_elements", bs):
         return make_elements_plain(*args)
-    (n, dx, dy), args, out = _elements_io(args)
-    if n:
-        launch("make_elements", bs.dtype, n, dx, dy, *args, *out, None)
+    dims, args, out = _elements_io(args)
+    if dims[0]:
+        launch("make_elements", bs.dtype, *dims, *args, *out, None)
         make_elements.launches += 1
     return out
 
@@ -110,9 +161,10 @@ def elements_cycles(args):
     ELEMENTS_STAMPS) int64: at the start, after the staging, after S, after
     the solve, after K and at the end. Not counted in
     `make_elements.launches`."""
-    (n, dx, dy), args, out = _elements_io(args)
-    stamps = torch.zeros(n, ELEMENTS_STAMPS, dtype=torch.int64, device=args[2].device)
-    launch("make_elements", args[2].dtype, n, dx, dy, *args, *out, stamps)
+    dims, args, out = _elements_io(args)
+    stamps = torch.zeros(dims[0] * dims[1], ELEMENTS_STAMPS, dtype=torch.int64,
+                         device=args[2].device)
+    launch("make_elements", args[2].dtype, *dims, *args, *out, stamps)
     return stamps
 
 
@@ -132,14 +184,12 @@ def ell(Fs, Qs, bs, Hs, Rs, cs, ys, ms, Ps):
     """Log-likelihood increments; see `ell_plain`."""
     if not _on_cuda("ell", bs):
         return ell_plain(Fs, Qs, bs, Hs, Rs, cs, ys, ms, Ps)
-    n, dx = bs.shape
-    dy = cs.shape[-1]
-    args = (Fs, Qs, bs, Hs, Rs, cs, ys, ms, Ps)
-    _check_shapes("ell", "FFxHRyyxF", args, n, dx, dy)
-    args = check_cuda_inputs("ell", args, bs.dtype, MAX_DIM, (dx, dy))
-    out = torch.empty(n, dtype=bs.dtype, device=bs.device)
-    if n:
-        launch("ell", bs.dtype, n, dx, dy, *args, out)
+    dx, dy = bs.shape[-1], cs.shape[-1]
+    lead, C, shared, args = chain_operands("ell", "FFxHRyyxF",
+                                           (Fs, Qs, bs, Hs, Rs, cs, ys, ms, Ps), (dx, dy))
+    out = torch.empty(lead, dtype=bs.dtype, device=bs.device)
+    if lead[0]:
+        launch("ell", bs.dtype, lead[0], C, shared, dx, dy, *args, out)
         ell.launches += 1
     return out
 
@@ -164,12 +214,14 @@ MAPS_STAMPS = 7  # kMapStamps: clock64 readings of a step
 
 
 def _maps_io(args):
-    """backward_maps' dimensions (n, dx), its inputs checked for the card and
-    its outputs (G, inc), empty."""
-    n, dx = args[2].shape
-    _check_shapes("backward_maps", "FFxxFx", args, n, dx, 1)
-    args = check_cuda_inputs("backward_maps", args, args[2].dtype, MAX_DIM, (dx,))
-    return (n, dx), args, (torch.empty_like(args[0]), torch.empty_like(args[2]))
+    """backward_maps' dimensions (n, C, shared, dx), its inputs checked for
+    the card and its outputs (G, inc), empty."""
+    bs = args[2]
+    dx = bs.shape[-1]
+    lead, C, shared, args = chain_operands("backward_maps", "FFxxFx", args, (dx,))
+    new = dict(dtype=bs.dtype, device=bs.device)
+    return ((lead[0], C, shared, dx), args,
+            (torch.empty(lead + (dx, dx), **new), torch.empty(lead + (dx,), **new)))
 
 
 def backward_maps(Fs, Qs, bs, ms, Ps, eps):
@@ -177,9 +229,9 @@ def backward_maps(Fs, Qs, bs, ms, Ps, eps):
     args = (Fs, Qs, bs, ms, Ps, eps)
     if not _on_cuda("backward_maps", bs):
         return backward_maps_plain(*args)
-    (n, dx), args, out = _maps_io(args)
-    if n:
-        launch("backward_maps", bs.dtype, n, dx, *args, *out, None)
+    dims, args, out = _maps_io(args)
+    if dims[0]:
+        launch("backward_maps", bs.dtype, *dims, *args, *out, None)
         backward_maps.launches += 1
     return out
 
@@ -192,9 +244,10 @@ def maps_cycles(args):
     clock64 in each step's block at its phases; returns stamps (n,
     MAPS_STAMPS) int64: at the start, after the staging, S, the solve, cov,
     the factor and the outputs. Not counted in `backward_maps.launches`."""
-    (n, dx), args, out = _maps_io(args)
-    stamps = torch.zeros(n, MAPS_STAMPS, dtype=torch.int64, device=args[2].device)
-    launch("backward_maps", args[2].dtype, n, dx, *args, *out, stamps)
+    dims, args, out = _maps_io(args)
+    stamps = torch.zeros(dims[0] * dims[1], MAPS_STAMPS, dtype=torch.int64,
+                         device=args[2].device)
+    launch("backward_maps", args[2].dtype, *dims, *args, *out, stamps)
     return stamps
 
 
@@ -213,14 +266,12 @@ def logdensity_steps(Fs, Qs, bs, Hs, Rs, cs, ys, x_prev, x_cur):
     """Per-step trajectory log-density; see `logdensity_steps_plain`."""
     if not _on_cuda("logdensity_steps", bs):
         return logdensity_steps_plain(Fs, Qs, bs, Hs, Rs, cs, ys, x_prev, x_cur)
-    n, dx = bs.shape
-    dy = cs.shape[-1]
-    args = (Fs, Qs, bs, Hs, Rs, cs, ys, x_prev, x_cur)
-    _check_shapes("logdensity_steps", "FFxHRyyxx", args, n, dx, dy)
-    args = check_cuda_inputs("logdensity_steps", args, bs.dtype, MAX_DIM, (dx, dy))
-    out = torch.empty(n, dtype=bs.dtype, device=bs.device)
-    if n:
-        launch("logdensity_steps", bs.dtype, n, dx, dy, *args, out)
+    dx, dy = bs.shape[-1], cs.shape[-1]
+    lead, C, shared, args = chain_operands(
+        "logdensity_steps", "FFxHRyyxx", (Fs, Qs, bs, Hs, Rs, cs, ys, x_prev, x_cur), (dx, dy))
+    out = torch.empty(lead, dtype=bs.dtype, device=bs.device)
+    if lead[0]:
+        launch("logdensity_steps", bs.dtype, lead[0], C, shared, dx, dy, *args, out)
         logdensity_steps.launches += 1
     return out
 

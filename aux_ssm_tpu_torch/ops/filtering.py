@@ -17,6 +17,10 @@ Two layouts, told apart by `bs.ndim` (see `lgssm`):
     in plain torch (the JAX package computes them outside any kernel too);
     only the scan goes through a kernel, `ops/cuda/scalar_scan`. The
     log-likelihood is summed over B.
+  - dense batched, C independent filters of any width (C chains): ys (T, C,
+    dy), the parameters (T[-1], C, ...) or broadcasting to it (`lgssm`).
+    The d x d wrappers take the chain axis: each of the three kernels is one
+    launch for all C chains, whatever C is.
 Every wrapper of `ops/cuda/` launches its CUDA kernel for CUDA tensors and
 runs its plain version for CPU tensors.
 """
@@ -35,7 +39,7 @@ def filtering(ys, lgssm: LGSSM, parallel: bool, keep_batch: bool = False):
 
     Parameters
     ----------
-    ys : Tensor (T, dy), or (T, B, 1) in the batched scalar layout
+    ys : Tensor (T, dy), or (T, B, dy) in a batched layout
         Observations; NaN components are treated as missing.
     lgssm : LGSSM
         Model parameters (see `lgssm.LGSSM` for shapes).
@@ -46,12 +50,11 @@ def filtering(ys, lgssm: LGSSM, parallel: bool, keep_batch: bool = False):
     -------
     ms : Tensor (T, [B,] dx) — filtered means
     Ps : Tensor (T, [B,] dx, dx) — filtered covariances
-    ell : scalar — marginal log-likelihood log p(y_{0:T}) (summed over B, or
-        with `keep_batch` one a filter, (B,))
+    ell : scalar — marginal log-likelihood log p(y_{0:T}) (a batched layout:
+        summed over B, or with `keep_batch` one a filter, (B,))
     """
     if not parallel:
-        batched_scalar_layout(lgssm.bs, lgssm.cs)  # raises for d > 1; the loop broadcasts over B
-        impl = _sequential_filtering
+        impl = _sequential_filtering  # broadcasts over a batched layout's B
     elif batched_scalar_layout(lgssm.bs, lgssm.cs):
         impl = _parallel_filtering_scalar
     else:

@@ -7,8 +7,16 @@ Batched scalar layout (B independent filters with dx = dy = 1, the spatial
 model): m0 (B, 1), P0 (B, 1, 1), Fs/Qs (T-1, B, 1, 1), bs (T-1, B, 1),
 Hs/Rs (T, B, 1, 1), cs/ys (T, B, 1), xs (T, B, 1); every density is summed
 over B, or with `keep_batch` kept one a filter (B,): B independent chains
-of a scalar model (`kernels.kalman.get_kernel(..., chains=True)`). A
-batched layout with dx or dy above 1 is not ported.
+of a scalar model (`kernels.kalman.get_kernel(..., chains=True)`).
+Dense batched layout (C independent filters of any dx, dy: C chains of a
+model, the same (T, B, d) convention): m0 (C, dx), P0 (C, dx, dx), Fs/Qs
+(T-1, C, dx, dx), bs (T-1, C, dx), Hs (T, C, dy, dx), Rs (T, C, dy, dy),
+cs/ys (T, C, dy), xs (T, C, dx). Any of them may instead broadcast to that
+shape (m0 (dx,), Fs (T-1, 1, dx, dx) or an `expand`ed view): a parameter
+that every chain shares then reaches the kernels once for all chains
+(`ops/cuda/kalman_fused.py`). Every density is summed over C, or with
+`keep_batch` one a chain (C,). Both batched layouts are told from the
+unbatched one by `bs.ndim == 3`, and from each other by dx = dy = 1.
 
 Missing data: NaN entries of `ys` are unobserved components. Every function
 uses the exact masked projection of the observation model (rows of H and
@@ -42,14 +50,8 @@ class LGSSM(NamedTuple):
 
 def batched_scalar_layout(bs, cs):
     """True for the batched scalar layout (bs (T-1, B, 1), cs (T, B, 1)),
-    False for the unbatched one; a batched layout of wider filters raises."""
-    if bs.ndim != 3:
-        return False
-    if bs.shape[-1] != 1 or cs.shape[-1] != 1:
-        raise NotImplementedError(
-            "the batched (T, B, d) layout is ported for dx = dy = 1 only; wider batched "
-            "filters belong to the chain-batching slice (ROADMAP.md)")
-    return True
+    False for the unbatched one and the dense batched one."""
+    return bs.ndim == 3 and bs.shape[-1] == 1 and cs.shape[-1] == 1
 
 
 def _eye_like(R):
@@ -91,8 +93,8 @@ def _masked_step_logpdf(y, pred, R):
 
 def log_likelihood(ys, xs, lgssm, keep_batch=False):
     """log p(y_{0:T} | x_{0:T}) for a given trajectory; missing observation
-    components are marginalised out exactly. With `keep_batch` (batched
-    scalar layout), one value a filter, (B,)."""
+    components are marginalised out exactly. With `keep_batch` (a batched
+    layout), one value a filter, (B,)."""
     *_, Hs, Rs, cs = lgssm
     pred_ys = mv(Hs, xs) + cs
     if cs.shape[-1] == 1:
@@ -102,7 +104,8 @@ def log_likelihood(ys, xs, lgssm, keep_batch=False):
         out = -0.5 * (diff * diff / var + torch.log(var) + _LOG_2PI)
         out = torch.where(mask, out, 0.0)
         return out.sum(0) if keep_batch else out.sum()
-    return _masked_step_logpdf(ys, pred_ys, Rs).sum()
+    out = _masked_step_logpdf(ys, pred_ys, Rs)
+    return out.sum(0) if keep_batch else out.sum()
 
 
 def _first_logpdf(x0, m0, P0):
@@ -116,15 +119,19 @@ def _first_logpdf(x0, m0, P0):
 
 def prior_logpdf(xs, lgssm, keep_batch=False):
     """log p(x_{0:T}) of a trajectory under the LGSSM dynamics; with
-    `keep_batch` (batched scalar layout), one value a filter, (B,)."""
+    `keep_batch` (a batched layout), one value a filter, (B,)."""
     m0, P0, Fs, Qs, bs, *_ = lgssm
     pred_xs = mv(Fs, xs[:-1]) + bs
     if keep_batch:
         first = _first_logpdf(xs[0], m0, P0)
         first = torch.where(torch.isnan(first), 0.0, first)
-        dq = xs[1:, ..., 0] - pred_xs[..., 0]
-        varq = Qs[..., 0, 0]
-        return first + torch.nansum(-0.5 * (dq * dq / varq + torch.log(varq) + _LOG_2PI), 0)
+        if m0.shape[-1] == 1:
+            dq = xs[1:, ..., 0] - pred_xs[..., 0]
+            varq = Qs[..., 0, 0]
+            trans = -0.5 * (dq * dq / varq + torch.log(varq) + _LOG_2PI)
+        else:
+            trans = mvn_logpdf(xs[1:], pred_xs, cholesky(Qs))
+        return first + torch.nansum(trans, 0)
     out = torch.nansum(_first_logpdf(xs[0], m0, P0))
     if m0.shape[-1] == 1:
         varq = Qs[..., 0, 0]
@@ -136,11 +143,12 @@ def prior_logpdf(xs, lgssm, keep_batch=False):
 
 
 def trajectory_logdensity(ys, xs, lgssm, keep_batch=False):
-    """log p(x_{0:T}) + log p(y_{0:T} | x_{0:T}). Unbatched layout: the t = 0
-    terms in plain torch, the t >= 1 steps through
-    `kalman_fused.logdensity_steps`. Batched scalar layout: the elementwise
-    closed forms of `log_likelihood` and `prior_logpdf`, summed over B, or
-    with `keep_batch` one value a filter (B,)."""
+    """log p(x_{0:T}) + log p(y_{0:T} | x_{0:T}). Unbatched and dense batched
+    layouts: the t = 0 terms in plain torch, the t >= 1 steps through
+    `kalman_fused.logdensity_steps` (all chains in one launch). Batched
+    scalar layout: the elementwise closed forms of `log_likelihood` and
+    `prior_logpdf`. A batched layout sums over its filters, or with
+    `keep_batch` gives one value a filter (B,)."""
     from .cuda.kalman_fused import logdensity_steps  # that module imports this one
 
     m0, P0, Fs, Qs, bs, Hs, Rs, cs = lgssm
@@ -150,16 +158,18 @@ def trajectory_logdensity(ys, xs, lgssm, keep_batch=False):
     steps = logdensity_steps(Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], xs[:-1], xs[1:])
     pred0 = mv(Hs[0], xs[0]) + cs[0]
     first = _first_logpdf(xs[0], m0, P0) + _masked_step_logpdf(ys[0], pred0, Rs[0])
+    if keep_batch:
+        return first + steps.sum(0)
     return first.sum() + steps.sum()
 
 
 def posterior_logpdf(ys, xs, ell, lgssm, keep_batch=False):
     """log p(x_{0:T} | y_{0:T}) = log p(y|x) - log p(y) + log p(x); with
-    `keep_batch`, per filter of the batched scalar layout (`ell` (B,))."""
+    `keep_batch`, per filter of a batched layout (`ell` (B,))."""
     return trajectory_logdensity(ys, xs, lgssm, keep_batch) - ell
 
 
-def make_target_logpdf(ys, lgssm):
+def make_target_logpdf(ys, lgssm, keep_batch=False):
     """Precomputed-closure form of `prior_logpdf(x) + log_likelihood(ys, x)`
     for a FIXED target LGSSM.
 
@@ -167,7 +177,10 @@ def make_target_logpdf(ys, lgssm):
     dynamics Cholesky, their triangular inverses, log-determinants) is
     computed once here; the returned `logpdf(xs)` is matmuls and sums only.
     Requires finite covariances (missing data is still handled exactly
-    through the NaN mask of `ys`).
+    through the NaN mask of `ys`). With `keep_batch`, C chains of the one
+    target in the dense batched layout: `ys` (T, 1, dy) and the per-step
+    parameters (T[-1], 1, ...), every chain's; xs (T, C, dx) gives one value
+    a chain (C,).
     """
     m0, P0, Fs, Qs, bs, Hs, Rs, cs = lgssm
     dx = m0.shape[-1]
@@ -212,22 +225,30 @@ def make_target_logpdf(ys, lgssm):
             - torch.log(torch.diagonal(chol_Qs, dim1=-2, dim2=-1)).sum()
             - 0.5 * n_trans * dx * _LOG_2PI)
 
+    def total(z, chain_axis=1, sum_=torch.sum):
+        """The sum of z, or with `keep_batch` one sum a chain."""
+        if not keep_batch:
+            return sum_(z)
+        dims = tuple(i for i in range(z.dim()) if i != chain_axis)
+        return sum_(z, dims) if dims else z
+
     def logpdf(xs):
         # log p(y | x): masked innovations whitened by the precomputed factor.
         innov = torch.where(mask, y_eff - (mv(H_eff, xs) + c_eff), 0.0)
         if scalar_obs:
-            out = obs_const - 0.5 * torch.where(mask[..., 0], innov[..., 0] ** 2 / var, 0.0).sum()
+            out = obs_const - 0.5 * total(torch.where(mask[..., 0], innov[..., 0] ** 2 / var, 0.0))
         else:
             w = mv(inv_chol_R, innov)
-            out = obs_const - 0.5 * (w * w).sum()
+            out = obs_const - 0.5 * total(w * w)
         # log p(x): whitened transition residuals.
         d0 = xs[0] - m0
         dq = xs[1:] - (mv(Fs, xs[:-1]) + bs)
         if scalar_dyn:
-            return out + dyn_const - 0.5 * torch.nansum(d0[..., 0] ** 2 / var0) \
-                - 0.5 * torch.nansum(dq[..., 0] ** 2 / varq)
+            return out + dyn_const - 0.5 * total(d0[..., 0] ** 2 / var0, 0, torch.nansum) \
+                - 0.5 * total(dq[..., 0] ** 2 / varq, 1, torch.nansum)
         w0 = mv(inv_chol_P0, d0)
         wq = mv(inv_chol_Qs, dq)
-        return out + dyn_const - 0.5 * torch.nansum(w0 * w0) - 0.5 * torch.nansum(wq * wq)
+        return out + dyn_const - 0.5 * total(w0 * w0, 0, torch.nansum) \
+            - 0.5 * total(wq * wq, 1, torch.nansum)
 
     return logpdf

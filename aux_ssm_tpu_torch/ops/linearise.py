@@ -6,7 +6,9 @@ cov(x, params)) and an expansion point x* (plus, for the sigma-point rules, a
 covariance P*) to an affine-Gaussian approximation (F, Q, b) with
   p(x' | x) ~= N(x'; F x + b, Q).
 
-`extended` works under `torch.func.vmap` over a batch of expansion points.
+`extended` works under `torch.func.vmap` over a batch of expansion points;
+`extended_steps` linearises at every step of C chains' trajectories, each
+chain with its own params, in one call.
 The sigma points and weights are built in NumPy (this module's own copy of
 the construction) and moved to the expansion point's dtype and device.
 """
@@ -25,6 +27,17 @@ def extended(mean, cov, params, x_star, _P_star=None):
     F = jac(mean, argnums=0)(x_star, params)
     Q = cov(x_star, params)
     return F, Q, b - F @ x_star
+
+
+def extended_steps(mean, cov, xs, params):
+    """`extended` at every expansion point of C chains' trajectories xs (n,
+    C, d), chain c with params `params[c]` (a tensor with a leading axis of
+    C), all at once (one nested `torch.func.vmap`). Returns (Fs, Qs, bs)
+    with the leading axes of xs."""
+    steps = torch.func.vmap(lambda z, p: extended(mean, cov, p, z), in_dims=(0, None))
+    # contiguous: forward-mode AD refuses an expanded (stride 0) chain axis
+    out = torch.func.vmap(steps, in_dims=(1, 0))(xs.contiguous(), params)
+    return tuple(z.transpose(0, 1) for z in out)
 
 
 def cubature(mean, cov, params, x_star, P_star):

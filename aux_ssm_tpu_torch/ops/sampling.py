@@ -10,7 +10,10 @@ Two layouts (see `lgssm`). Unbatched, ms (T, dx), Ps (T, dx, dx), eps (T, dx):
 the maps and the scan go through the d x d wrappers of `ops/cuda/`; the last
 step is plain torch. Batched scalar, ms (T, B, 1), Ps (T, B, 1, 1), eps
 (T, B, 1): the maps are elementwise closed forms in plain torch and the scan
-goes through `ops/cuda/scalar_scan.scalar_affine_scan`.
+goes through `ops/cuda/scalar_scan.scalar_affine_scan`. Dense batched (C
+chains of any width), ms (T, C, dx), Ps (T, C, dx, dx), eps (T, C, dx): the
+unbatched route with the chain axis through the d x d wrappers, one launch
+each for all C chains.
 """
 import torch
 
@@ -27,7 +30,7 @@ def sampling(eps, ms, Ps, lgssm: LGSSM, parallel: bool):
 
     Parameters
     ----------
-    eps : Tensor (T, dx), or (T, B, 1) in the batched scalar layout
+    eps : Tensor (T, dx), or (T, B, dx) in a batched layout
         Standard normal noise of the draw (the JAX package draws it from its
         key inside; the port takes it explicitly).
     ms, Ps : filtered means/covariances from `filtering`

@@ -162,7 +162,7 @@ the MH kernels' D = 32 instance; benchmarks/sv_sweep.sh):
      also carries its device ms by the profiler;
  21. f64 SV kalman steps of both orders (T=32, D=30) on the card against the
      CPU, given the same noise, identical accept decisions;
- 22. kalman-1 and kalman-2 chains at T=250, D=30, f32, parallel, 100 + 200
+ 22. kalman-1 and kalman-2 chains at T=250, D=30, f32, parallel, 50 + 100
      iterations at the committed runs' adapted delta (frozen), from
      xs_true: exactly 10 kernel launches a step, every one a D = 32
      instance by its profiler name, finite states, an update rate in
@@ -194,8 +194,7 @@ rows, dy=5: the MH kernels' D = 16 instance; benchmarks/lorenz_mider.sh):
      committed `theta_samples` mean, the chain's mean trajectory within RMS
      LORENZ_MEAN_RMS (sig_y) of the committed `mean_x` on the observed x2
      and x3; samples/s, a profile of one step and each kernel's device ms
-     in it; then the driver's `main` (`--data mider --freq 4 --n-samples 50
-     --burnin 20 --delta-init 1e20`) must write the JAX driver's .npz keys.
+     in it (the driver's `main` runs in phase 31, at C = 1 and C = 8).
 The experiment drivers (`experiments/sv.py`, `experiments/spatial.py`) with
 resumable checkpoints (`utils/checkpoint.py`), and the divide-and-conquer
 sampler (`ops/dnc_sampling.py`), each driver run with the launch counters
@@ -203,8 +202,9 @@ reset before it and read after it:
  26. the SV driver at T=250, D=30, f32: kalman-1 at SV_DRIVER_SCHEDULE from
      the driver's own start (`init_x_fn`'s bootstrap-filter draw, degenerate
      at D = 30: the chain accepts nothing until delta has shrunk from its
-     default 1e-2, so the burn-in is long enough for delta to settle near
-     the update rate 0.5 once the chain has reached the posterior),
+     default 1e-2, so the burn-in, adapting at `--lr` SV_DRIVER_LR, is long
+     enough for delta to settle near the update rate 0.5 once the chain has
+     reached the posterior),
      uninterrupted, and again checkpointed
      every SV_DRIVER_EVERY iterations, killed (a dying `runner._save`) after
      its second sampling segment and resumed: the resumed .npz equals the
@@ -244,22 +244,60 @@ Chain batching (`parallel/chains.py`): the rare-event grid
      profile (device busy share) of each; the --no-parallel grid (forward
      factor sweep) and the PIT grid at T=6 (col_sample) briefly; at least
      GRID_MIN_BOUNDED cell coordinates of each configuration must have been
-     bounded; then the SV driver, kalman-1 with `--n-chains 2` (the chain
-     loop), for the few iterations of SV_CHAINS_SCHEDULE: its launches (twice
-     a chain's) and its output shapes; its split-R-hat is printed and held
-     to nothing (the chains have not mixed).
+     bounded.
+The chain axis through the auxiliary-Kalman MH path (the dense batched
+layout: SV kalman-1/2 and the Lorenz Gibbs sampler, C chains as one batched
+step; `parallel/chains.py`, `kernels.kalman.chain_major`):
+ 30. (run right after the build, with phase 29's kernel checks) the six MH
+     kernels' chain instances (rows 1-7, a block a (step, chain) pair, F,
+     Q, b read once for every chain) on real batched steps' inputs: SV
+     kalman-1 at T=250, D=30 (the D = 32 instance), C = 32 chains from the
+     committed run's xs_true, each with its own u and delta; the Lorenz
+     step at the Mider freq-4 shape (T=5001, the D = 16 instance), C = 8
+     chains at the committed mean_x, each with its own theta and u, delta
+     1e20. Each against its plain version at phases 20 and 23's bounds
+     (`compare`, own_bound), with its device ms by the profiler; its C = 1
+     call bit-equal to the one-chain call; chains 0, C / 2 and C - 1 of the
+     C-chain launch bit-equal to one-chain launches on their inputs; a
+     two-stream round of the chain-axis scans (10 rounds), bit-equal to one
+     stream's;
+ 31. the drivers with `--n-chains`, each C chains as one batched step: the
+     SV driver (kalman-1, T=250, D=30, f32) at C = 32 from its own start
+     (delta from its default 1e-2, adapted at `--lr` DENSE_SV_LR) for
+     DENSE_SV_SCHEDULE: the update rate of all chains in SV_KALMAN_RATE;
+     the Lorenz driver on the Mider data (freq 4, T=5001) at C = 8 for
+     DENSE_LORENZ_SCHEDULE from its own start (rate in (0, 1): the start
+     is far from the posterior); each also at C = 1 for DENSE_ONE_CHAIN,
+     to its own .npz: the six MH kernels launch as often an iteration at C
+     as at C = 1 (10 an MH step) and nothing else; the output shapes (the
+     Lorenz driver's: the JAX driver's .npz keys and shapes at C = 1, as
+     phase 25 held them before, and at C); samples/s of all chains; a
+     profile of the batched step (its device busy share). Then the batched
+     Lorenz Gibbs sampler at C = 8 from the committed run's mean_x and
+     theta at its delta 1e20 (frozen) for DENSE_LORENZ_CHAIN, through
+     `run_sharded_chains`, held as phase 25's chain (`check_lorenz_chain`:
+     update rate in LORENZ_RATE, theta's pooled mean, the mean trajectory).
 To make room, phase 3 runs 100 steps (200 before), phase 10 300 + 1000
 iterations (300 + 2000 before), phase 11 is cut for phase 29 (its chains
 ran 500 + 1200 a bounded cell, 300 + 400 the hardest), phase 15's
-replicate chains 300 + 1500 (kalman-1) and 300 + 1500 (csmc-guided) (300
-+ 3000, then 300 + 2000, and 300 + 2000 before), and phase 19 at T=256 300
-+ 400 (300 + 700 before; its T=2 chain is cut for phase 29): every bound
+replicate chains 300 + 1000 (kalman-1) and 300 + 1000 (csmc-guided) (300
++ 3000, then 300 + 2000, then 300 + 1500 before), and phase 19 at T=256 300
++ 300 (300 + 700, then 300 + 400 before; its T=2 chain is cut for phase
+29): every bound
 is in units of the chain's own Monte-Carlo error, so a shorter chain
-widens it and keeps its meaning. The whole takes 250-490 s with the build
-on an H100 (with phase 29: 403-491 s; phases 0-28 354-471 s), as fast as
-the host is (190-340 s before the PIT phases, 80-150 s before the spatial ones);
-phases 20-22 take ~40 s, phases 23-25 ~40 s, phases 26-28 ~35 s, phase 29
-50-110 s, and the D = 32 instances' build ~10 s more.
+widens it and keeps its meaning. For phases 30-31, phase 29's SV driver run
+with `--n-chains 2` (the chain loop, 10 + 20 iterations: launches and
+shapes) is cut: phase 31's batched runs replace it; phase 22's chains run
+50 + 100 (100 + 200 before) and phase 25's 50 + 100 (100 + 300 before):
+phase 31's batched Lorenz chain holds the same bounds over 8 chains; phase
+26's kalman-1 runs 300 + 200 adapting at --lr 0.5 (1000 + 200 at the
+default 0.1 before: the same settling, in fewer iterations) and phase 19's
+N=4096 chains 100 + 200 (100 + 300 before). The
+whole takes 400-605 s with the build on an H100, as fast as the host is
+(with phase 29: 403-491 s; with phases 30-31: 442-603 s, then 445.5 s after
+the last cuts of phases 15 and 19); phases 20-22 take ~30 s, phases 23-25
+~26 s, phases 26-28 27-55 s, phase 29 50-110 s, phase 30 ~12 s, phase 31
+~21-31 s, the build ~43-56 s.
 Each kernel's entry of the JSON summary carries its bound: the least time the
 card could take for the call, the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the 67
@@ -283,10 +321,13 @@ phase 20's numbers at the SV shape, phase 22's launches), and so have the
 six kernels at the Lorenz shape (`make_elements_lorenz`, ...: phase 23's
 numbers at delta 1e20, phase 25's launches); the launches of phases 26-27's
 uninterrupted driver runs are added to each kernel's count (the SV kalman
-ones to the D = 32 entries), and so are phase 29's SV run's; the four
-chain-axis instances have entries of their own (`lane_scan_chains`, ...:
-phase 29's numbers, their launches those of the grid runs); the last line
-is {"ok": true, "device": {...}}.
+ones to the D = 32 entries); the four chain-axis instances of phase 29 have
+entries of their own (`lane_scan_chains`, ...: phase 29's numbers, their
+launches those of the grid runs), and so have the six MH kernels' chain
+instances (`make_elements_chains`, ...: phase 30's numbers at the SV shape,
+C = 32, with its Lorenz-shape entry inside; their launches those of phase
+31's C > 1 runs, not its C = 1 ones); the last line is {"ok": true,
+"device": {...}}.
 """
 import contextlib
 import json
@@ -1535,7 +1576,7 @@ SPATIAL_SCHEDULE = {"kalman-1": (100, 200, 0.5), "kalman-2": (100, 200, 0.5),
                     "csmc": (100, 200, 0.25), "csmc-guided": (100, 200, 0.25),
                     "csmc-guided-grad": (100, 200, 0.25)}
 # The pair held against each other, from an exact posterior draw.
-SPATIAL_PAIR = {"kalman-1": (300, 1500, 0.5), "csmc-guided": (300, 1500, 0.25)}  # two chains each
+SPATIAL_PAIR = {"kalman-1": (300, 1000, 0.5), "csmc-guided": (300, 1000, 0.25)}  # two chains each
 SP_BLOCKS = 16                     # time blocks of the pooled functionals
 Z_MAX, Z_RMS = 6.0, 1.5            # bounds on z-scores against one posterior draw
 Z_RMS_CROSS = 2.0                  # on the RMS z between the two samplers
@@ -2018,9 +2059,9 @@ PIT_BIG_SCHEDULE = (3, 10)   # frozen delta 0.05; run under either draws
 PIT_BIG_RATE = (0.95, 1.0)
 # Rare-event PIT chains against the closed form: cell, N, burn-in, samples,
 # the blocked route's draws.
-RE_PIT = (((5.0, 0.8, 0.5, 256), RE_N, 300, 400, "joint"),
-          ((5.0, 0.8, 0.5, 64), PIT_N, 100, 300, "joint"),
-          ((5.0, 0.8, 0.5, 64), PIT_N, 100, 300, "fused"))
+RE_PIT = (((5.0, 0.8, 0.5, 256), RE_N, 300, 300, "joint"),
+          ((5.0, 0.8, 0.5, 64), PIT_N, 100, 200, "joint"),
+          ((5.0, 0.8, 0.5, 64), PIT_N, 100, 200, "fused"))
 
 
 def pit_launches(T, N, stitch="auto", draws="joint"):
@@ -2438,7 +2479,7 @@ def phase_pit_rare(dev):
 # ---------------------------------------------------------------------------
 
 SV_KALMAN = {"kalman-1": ("kalman1", 1), "kalman-2": ("kalman2", 2)}  # style: committed run, order
-SV_KALMAN_SCHEDULE = (100, 200)  # burn-in + sampling iterations at the committed delta, frozen
+SV_KALMAN_SCHEDULE = (50, 100)   # burn-in + sampling iterations at the committed delta, frozen
 SV_KALMAN_RATE = (0.35, 0.65)    # update rate: the committed runs adapted delta toward 0.5
 SV_KALMAN_Z_RMS = 1.5            # RMS z of the chain's mean against the committed run's
 # What each kernel's name holds in the profiler at the D = 32 instance, in
@@ -2627,7 +2668,7 @@ LORENZ_NPZ = str(Path(__file__).resolve().parent
 LORENZ_SIGMA_X = 3.0               # experiments/lorenz.py SIGMA_X
 LORENZ_DELTAS = (1e20, 1e-2)       # the committed runs' delta (the adaptation's cap), and one
                                    # at which the u rows carry weight
-LORENZ_SCHEDULE = (100, 300)       # burn-in + sampling iterations at delta 1e20, frozen
+LORENZ_SCHEDULE = (50, 100)        # burn-in + sampling iterations at delta 1e20, frozen
 LORENZ_RATE = (0.50, 0.76)         # update rate: the committed freq-4 run updated 0.632
 LORENZ_THETA_Z = 3.0               # |chain mean - committed mean| in committed posterior sds
 LORENZ_MEAN_RMS = 5.0 ** 0.5       # RMS of the mean trajectory against the committed one, on
@@ -2808,16 +2849,49 @@ def phase_lorenz_steps(dev):
         raise AssertionError(f"Lorenz Gibbs: card and CPU steps differ by {worst:.3e}")
 
 
-def phase_lorenz_chain(dev, card, out_dir):
+def check_lorenz_chain(label, res, committed, n_samples, launches, n_iter, card):
+    """A Lorenz Gibbs run from the committed run's state at its delta (one
+    chain, or C chains with a leading chain axis, pooled): finite states,
+    the update rate (all chains') in LORENZ_RATE, each theta_i's mean within
+    LORENZ_THETA_Z committed posterior deviations of the committed
+    `theta_samples` mean, the mean trajectory within RMS LORENZ_MEAN_RMS of
+    the committed `mean_x` on the observed x2 and x3; samples/s of all
+    chains printed."""
+    import numpy as np
+    import torch
+    x, theta = res.state.x, res.state.theta
+    if tuple(x.shape[-2:]) != (5001, 3) or not bool(torch.isfinite(x).all()) \
+            or not bool(torch.isfinite(theta).all()):
+        raise AssertionError(f"{label}: the chain's state is not finite")
+    chains = x.shape[0] if x.dim() == 3 else 1
+    rate = float(res.stats.accept_cum.mean())
+    ts, want_ts = res.samples.reshape(-1, 3), committed["theta_samples"]
+    z = (ts.mean(0) - want_ts.mean(0)) / want_ts.std(0)
+    mean_x = res.stats.mean_x.cpu().double().numpy().reshape(-1, 5001, 3).mean(0)
+    rms = float(np.sqrt(np.mean((mean_x[:, 1:] - committed["mean_x"][:, 1:]) ** 2)))
+    sps = chains * n_samples / res.sampling_time
+    log(f"  {label}: update rate {rate:.4f} (committed 0.632), {sps:.2f} samples/s of "
+        f"{chains} chain(s) on {card}; theta mean {np.round(ts.mean(0), 3)} against the "
+        f"committed {np.round(want_ts.mean(0), 3)} (sd {np.round(want_ts.std(0), 3)}): z "
+        f"{np.round(z, 2)} (bound {LORENZ_THETA_Z}); RMS of the mean trajectory against the "
+        f"committed on x2, x3 {rms:.4f} (bound {LORENZ_MEAN_RMS:.4f}); launches a step "
+        f"{({k: v // n_iter for k, v in launches.items() if v})}")
+    if not LORENZ_RATE[0] <= rate <= LORENZ_RATE[1]:
+        raise AssertionError(f"{label}: update rate {rate:.4f} outside {LORENZ_RATE}")
+    if not np.all(np.abs(z) <= LORENZ_THETA_Z):
+        raise AssertionError(f"{label}: theta's chain mean is {z} committed sds off")
+    if not rms <= LORENZ_MEAN_RMS:
+        raise AssertionError(f"{label}: the mean trajectory is {rms:.4f} RMS off the committed")
+
+
+def phase_lorenz_chain(dev, card):
     """Phase 25: the Mider freq-4 Gibbs chain, f32, parallel, from the
-    committed run's mean_x and theta at its delta (1e20, frozen); then the
-    driver's `main` for a few iterations. Returns the six kernels' launches
-    in the chain."""
+    committed run's mean_x and theta at its delta (1e20, frozen). Returns the
+    six kernels' launches in the chain."""
     import re
     import numpy as np
     import torch
     from aux_ssm_tpu_torch.experiments import RunConfig, runner
-    from aux_ssm_tpu_torch.experiments import lorenz as driver
     from aux_ssm_tpu_torch.experiments.lorenz import mider_problem
     from aux_ssm_tpu_torch.models import lorenz
     from aux_ssm_tpu_torch.ops import cuda as K
@@ -2845,28 +2919,7 @@ def phase_lorenz_chain(dev, card, out_dir):
         if count != want:
             raise AssertionError(f"Lorenz: {name} launched {count} times in {n_iter} "
                                  f"iterations, expected {want}")
-    x, theta = res.state.x, res.state.theta
-    if tuple(x.shape) != (5001, 3) or not bool(torch.isfinite(x).all()) \
-            or not bool(torch.isfinite(theta).all()):
-        raise AssertionError("Lorenz: the chain's state is not finite")
-    rate = float(res.stats.accept_cum)
-    ts, want_ts = res.samples, committed["theta_samples"]
-    z = (ts.mean(0) - want_ts.mean(0)) / want_ts.std(0)
-    rms = float(np.sqrt(np.mean((res.stats.mean_x.cpu().double().numpy()[:, 1:]
-                                 - committed["mean_x"][:, 1:]) ** 2)))
-    sps = n_samples / res.sampling_time
-    log(f"  Lorenz freq 4: update rate {rate:.4f} (committed 0.632), {sps:.2f} samples/s on "
-        f"{card}; theta mean {np.round(ts.mean(0), 3)} against the committed "
-        f"{np.round(want_ts.mean(0), 3)} (sd {np.round(want_ts.std(0), 3)}): z {np.round(z, 2)} "
-        f"(bound {LORENZ_THETA_Z}); RMS of the mean trajectory against the committed on x2, x3 "
-        f"{rms:.4f} (bound {LORENZ_MEAN_RMS:.4f}); launches a step "
-        f"{({k: v // n_iter for k, v in launches.items() if v})}")
-    if not LORENZ_RATE[0] <= rate <= LORENZ_RATE[1]:
-        raise AssertionError(f"Lorenz: update rate {rate:.4f} outside {LORENZ_RATE}")
-    if not np.all(np.abs(z) <= LORENZ_THETA_Z):
-        raise AssertionError(f"Lorenz: theta's chain mean is {z} committed sds off")
-    if not rms <= LORENZ_MEAN_RMS:
-        raise AssertionError(f"Lorenz: the mean trajectory is {rms:.4f} RMS off the committed")
+    check_lorenz_chain("Lorenz freq 4", res, committed, n_samples, launches, n_iter, card)
     box = [res.state]
     events = profile_steps("Lorenz Gibbs freq 4",
                            lambda: box.__setitem__(0, kernel(box[0], delta, generator=gen)),
@@ -2881,17 +2934,6 @@ def phase_lorenz_chain(dev, card, out_dir):
     log("  the six kernels in the step (device ms, by the profiler): " + ", ".join(
         f"{k} {sum(e.self_device_time_total for e in events if re.search(pat, e.key)) / 2e4:.4f}"
         for k, pat in NARROW_NAMES.items()))
-
-    out = Path(out_dir) / "lorenz_mider_freq4.npz"
-    log(f"  the driver: python -m aux_ssm_tpu_torch.experiments.lorenz --data mider --freq 4 "
-        f"--n-samples 50 --burnin 20 --delta-init 1e20 --out {out}")
-    driver.main(["--data", "mider", "--freq", "4", "--n-samples", "50", "--burnin", "20",
-                 "--delta-init", "1e20", "--no-verbose", "--out", str(out)])
-    saved = np.load(out)
-    keys = {"mean_x", "ejsd", "theta", "theta_samples", "delta", "sampling_time", "freq"}
-    if set(saved.files) != keys or saved["mean_x"].shape != (5001, 3) \
-            or saved["theta_samples"].shape != (50, 3) or not np.isfinite(saved["mean_x"]).all():
-        raise AssertionError(f"the Lorenz driver wrote {dict((k, saved[k].shape) for k in saved)}")
     return {k: launches[k] for k in KERNELS}
 
 
@@ -2900,8 +2942,9 @@ def phase_lorenz_chain(dev, card, out_dir):
 # with utils/checkpoint.py) and the divide-and-conquer sampler
 # ---------------------------------------------------------------------------
 
-SV_DRIVER_SCHEDULE = (1000, 200)   # burn-in + sampling of the checkpointed kalman-1 run
-SV_DRIVER_EVERY = 50               # checkpoint period: burn-in 50, ..., 1000, sampling 50, ..., 200
+SV_DRIVER_SCHEDULE = (300, 200)    # burn-in + sampling of the checkpointed kalman-1 run
+SV_DRIVER_LR = 0.5                 # its delta adaptation's rate (the driver's --lr)
+SV_DRIVER_EVERY = 50               # checkpoint period: burn-in 50, ..., 300, sampling 50, ..., 200
 SV_DRIVER_SHORT = (30, 60)         # burn-in + sampling of the csmc and csmc-guided runs
 SV_KEYS = {"samples_mean", "samples_std", "ejsd", "delta", "xs_true", "ys", "sampling_time"}
 SP_DRIVER_SCHEDULE = (50, 100)     # burn-in + sampling of the spatial driver's runs
@@ -2963,7 +3006,8 @@ def phase_sv_driver(dev, card, out_dir):
     n_iter = burnin + n_samples
     out = Path(out_dir)
     log(f"phase 26: the SV driver, T={SV_T}, D={SV_D}, f32: kalman-1 {burnin} + {n_samples} "
-        f"iterations from the driver's start (init_x_fn, --delta-init default), checkpointed "
+        f"iterations from the driver's start (init_x_fn, --delta-init default, --lr "
+        f"{SV_DRIVER_LR}), checkpointed "
         f"every {SV_DRIVER_EVERY}, killed after its second sampling segment and resumed, "
         "against an uninterrupted run")
 
@@ -2973,7 +3017,7 @@ def phase_sv_driver(dev, card, out_dir):
                 "--out", str(out / f"{name}.npz"), *extra]
 
     mh_step = {name: per_step for name, (_, _, per_step) in KERNELS.items()}
-    kalman = argv("kalman-1", "sv_kalman1", SV_DRIVER_SCHEDULE)
+    kalman = argv("kalman-1", "sv_kalman1", SV_DRIVER_SCHEDULE, "--lr", str(SV_DRIVER_LR))
     full, want, total = driver_run(driver.main, kalman, mh_step, n_iter,
                                    "kalman-1 uninterrupted", card)
     rate = float(full.stats.accept_cum)
@@ -2992,7 +3036,8 @@ def phase_sv_driver(dev, card, out_dir):
             raise Killed()
 
     ckpt = ["--checkpoint-dir", str(out / "ckpt"), "--checkpoint-every", str(SV_DRIVER_EVERY)]
-    resumed_argv = argv("kalman-1", "sv_kalman1_resumed", SV_DRIVER_SCHEDULE, *ckpt)
+    resumed_argv = argv("kalman-1", "sv_kalman1_resumed", SV_DRIVER_SCHEDULE, "--lr",
+                        str(SV_DRIVER_LR), *ckpt)
     runner._save = timed_save
     try:
         K.reset_launches()
@@ -3492,26 +3537,308 @@ def phase_grid(dev, card):
     return launches
 
 
-def phase_sv_chains_driver(dev, card, out_dir):
-    """Phase 29's last run: the SV driver, kalman-1, `--n-chains 2` (the
-    chain loop: each chain's one-chain step in turn, 10 launches a chain a
-    step), for the few iterations of SV_CHAINS_SCHEDULE from the driver's
-    own start. It checks the chain loop's launches and the output shapes;
-    the chains are far from mixed (phase 26 needs 1000 iterations to
-    settle), so their split-R-hat, printed, is held to nothing."""
+# ---------------------------------------------------------------------------
+# The chain axis through the auxiliary-Kalman MH path: C chains of SV
+# kalman-1/2 and of the Lorenz Gibbs sampler as one batched step (the dense
+# batched layout, x (T, C, d)), the six MH kernels' chain instances
+# ---------------------------------------------------------------------------
+
+DENSE_CHAINS = {"sv": 32, "lorenz": 8}   # chains at the SV shape and at the Lorenz shape
+DENSE_SV_SCHEDULE = (200, 50)            # burn-in + sampling of the SV driver's C = 32 run
+DENSE_SV_LR = 1.0                        # its delta adaptation's rate (the driver's --lr)
+DENSE_LORENZ_SCHEDULE = (10, 20)         # burn-in + sampling of the Lorenz driver's C = 8 run
+DENSE_LORENZ_CHAIN = (40, 80)            # burn-in + sampling of the batched Lorenz chain
+DENSE_ONE_CHAIN = (2, 3)                 # burn-in + sampling of each driver's C = 1 count
+DENSE_KERNELS = {f"{name}_chains": (name,) + KERNELS[name][:2] for name in KERNELS}
+LORENZ_KEYS = {"mean_x", "ejsd", "theta", "theta_samples", "delta", "sampling_time", "freq"}
+
+
+def chain_slice(args, c, keep=False):
+    """A chain-layout call's arguments cut to chain c: each tensor's chain
+    axis (axis 1; a shared operand's is 1 long) dropped, a one-chain call,
+    or with `keep` kept 1 long, a C = 1 call. Tuples of tensors (the filter
+    scan's elements) are cut inside."""
+    import torch
+
+    def cut(t):
+        i = min(c, t.shape[1] - 1)
+        return (t[:, i:i + 1] if keep else t[:, i]).contiguous()
+    return tuple(tuple(cut(z) for z in a) if isinstance(a, tuple)
+                 else cut(a) if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def check_chain_bits(name, wrapper, args, C):
+    """The chain instance's C = 1 call bit-equal to the one-chain call, and
+    chains 0, C / 2 and C - 1 of the C-chain launch each bit-equal to a
+    one-chain launch on their inputs."""
+    import torch
+    got = as_tuple(wrapper(*args))
+    picked = sorted({0, C // 2, C - 1})
+    for c in picked:
+        one = as_tuple(wrapper(*chain_slice(args, c)))
+        if c == 0:
+            first = as_tuple(wrapper(*chain_slice(args, 0, keep=True)))
+            if not all(torch.equal(a[:, 0], b) for a, b in zip(first, one)):
+                raise AssertionError(f"{name}: the C = 1 call differs from the one-chain call")
+        if not all(torch.equal(g[:, c], b) for g, b in zip(got, one)):
+            raise AssertionError(f"{name}: chain {c} of the C = {C} launch differs from a "
+                                 "one-chain launch on its inputs")
+    log(f"  {name}: C = 1 bit-equal to the one-chain call; chains {picked} of the C = {C} "
+        "launch bit-equal to one-chain launches")
+
+
+def chain_mh_calls(steps, m0u, P0u, eps):
+    """The six MH kernels' calls on one batched step's inputs (steps as
+    `mh_inputs` gives them for time-first chains: per-chain tensors (n, C,
+    ...), shared ones (n, 1, ...)): (calls by name as (wrapper, plain
+    version, arguments), the elements, the gains and increments, the
+    operations of each call: C times one chain's)."""
+    import torch
+    from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
+    from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF
+    from aux_ssm_tpu_torch.ops.filtering import _make_associative_elements
+    from aux_ssm_tpu_torch.ops.sampling import _backward_maps
+
+    Fs, Qs, bs = steps[:3]
+    n, C, dy = steps[6].shape
+    dx = bs.shape[-1]
+    ops = {k: C * v for k, v in mh_ops(n, max(dx, dy)).items()}
+    m_el = torch.cat([m0u[None], m0u.new_zeros((n - 1,) + m0u.shape)])
+    P_el = torch.cat([P0u[None], P0u.new_zeros((n - 1,) + P0u.shape)])
+    elems = _make_associative_elements(*steps, m0u, P0u)
+    _, ms, Ps, _, _ = FS.filter_scan(elems)
+    ms, Ps = torch.cat([m0u[None], ms]), torch.cat([P0u[None], Ps])
+    gains, incs = _backward_maps(eps, ms, Ps, Fs, Qs, bs)
+    xs = FS.affine_scan(gains, incs, reverse=True)[1]
+    calls = {
+        "make_elements": (KF.make_elements, KF.make_elements_plain, steps + (m_el, P_el)),
+        "filter_scan": (FS.filter_scan, FS.filter_scan_plain, (elems,)),
+        "ell": (KF.ell, KF.ell_plain, steps + (ms[:-1], Ps[:-1])),
+        "backward_maps": (KF.backward_maps, KF.backward_maps_plain,
+                          (Fs, Qs, bs, ms[:-1], Ps[:-1], eps[:-1])),
+        "affine_scan": (FS.affine_scan, FS.affine_scan_plain, (gains, incs, True)),
+        "logdensity_steps": (KF.logdensity_steps, KF.logdensity_steps_plain,
+                             steps + (xs[:-1], xs[1:]))}
+    return calls, elems, gains, incs, ops
+
+
+def check_chain_mh_kernels(label, steps, m0u, P0u, eps, **kw):
+    """The six MH kernels' chain instances on one batched step's inputs
+    (`chain_mh_calls`): each against its plain version (`compare`, with
+    `kw`) and `check_chain_bits`. Returns (results by kernel name,
+    elements, gains, incs)."""
+    calls, elems, gains, incs, ops = chain_mh_calls(steps, m0u, P0u, eps)
+    C = steps[6].shape[1]
+    results = {}
+    for name, (wrapper, plain, args) in calls.items():
+        results[name] = compare(f"{name}_chains{label}", wrapper, plain, args, ops[name], **kw)
+        check_chain_bits(f"{name}_chains{label}", wrapper, args, C)
+    return results, elems, gains, incs
+
+
+def dense_sv_inputs(dev, C, gen):
+    """A real batched SV kalman-1 step's kernel inputs (T=250, D=30, f32,
+    time first; `mh_inputs`) for C chains from the committed run's xs_true,
+    each with its own u and delta (0.75-1.25 times the committed delta;
+    the committed one at C = 1), F, Q and b shared; and the draw's normals
+    (T, C, D): (steps, m0u, P0u, eps)."""
+    import torch
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    f32 = torch.float32
+    ys, xs, delta = load_sv("kalman1", dev, f32)
+    deltas = float(delta) * torch.linspace(0.75 if C > 1 else 1.0, 1.25 if C > 1 else 1.0, C,
+                                           dtype=f32, device=dev)
+    x = xs[:, None].expand(SV_T, C, SV_D)
+    u = x + (0.5 * deltas[:, None]).sqrt() * torch.randn(x.shape, generator=gen, device=dev)
+    eps = torch.randn(x.shape, generator=gen, device=dev)
+    dyn, obs1, _, _ = sv.get_kalman_factories(ys, *SV_PARAMS, chains=True)
+    return (*mh_inputs(dyn, obs1, x, u, deltas), eps)
+
+
+def dense_lorenz_inputs(dev, C, gen):
+    """A real batched Lorenz MH step's kernel inputs (Mider freq 4, T=5001,
+    dx=3, dy=5, f32, time first; `mh_inputs`) for C chains at the committed
+    run's mean_x, each with its own theta (the committed one scaled by
+    0.99-1.01; itself at C = 1) and u, at delta 1e20; and the draw's
+    normals: (steps, m0u, P0u, eps)."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments.lorenz import mider_problem
+    from aux_ssm_tpu_torch.models import lorenz
+    f32 = torch.float32
+    prob = mider_problem(4, dtype=f32, device=dev)
+    committed = np.load(LORENZ_NPZ.format(4))
+    scale = torch.linspace(0.99 if C > 1 else 1.0, 1.01 if C > 1 else 1.0, C, dtype=f32,
+                           device=dev)
+    theta = torch.as_tensor(committed["theta"], dtype=f32, device=dev) * scale[:, None]
+    dyn, obs, _ = lorenz.get_kalman_factories(prob.ys, prob.Hs, prob.Rs, prob.cs, prob.m0,
+                                              prob.P0, theta, LORENZ_SIGMA_X, prob.dt,
+                                              chains=True)
+    x = torch.as_tensor(committed["mean_x"], dtype=f32, device=dev)[:, None].expand(-1, C, 3)
+    delta = torch.full((C,), LORENZ_DELTAS[0], dtype=f32, device=dev)
+    u = x + (0.5 * LORENZ_DELTAS[0]) ** 0.5 * torch.randn(x.shape, generator=gen, device=dev)
+    eps = torch.randn(x.shape, generator=gen, device=dev)
+    return (*mh_inputs(dyn, obs, x, u, delta), eps)
+
+
+def phase_dense_chain_kernels(dev):
+    """Phase 30: the six MH kernels' chain instances (the dense batched
+    layout) on real batched steps' inputs: SV kalman-1 at T=250, D=30 (the D
+    = 32 instance), C = 32 chains from the committed run's xs_true, each
+    with its own u and delta (0.75-1.25 times the committed delta), F, Q
+    and b shared; the Lorenz Gibbs step at the Mider freq-4 shape (T=5001,
+    the D = 16 instance), C = 8 chains at the committed mean_x, each with
+    its own theta (the committed one scaled by 0.99-1.01) and u, at delta
+    1e20. Each against its plain version at phases 20 and 23's bounds, with
+    its device ms by the profiler; C = 1 and three chains bit-equal to
+    one-chain launches; a two-stream round of the chain-axis scans. Run
+    right after the build, with phase 29's checks (`device_ms`). Returns
+    the entries at the SV shape, each with its Lorenz-shape entry inside."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(30)
+    C = DENSE_CHAINS["sv"]
+    steps, m0u, P0u, eps = dense_sv_inputs(dev, C, gen)
+    log(f"phase 30: the MH kernels' chain instances on a real batched SV kalman-1 step's inputs "
+        f"(T={SV_T}, D={SV_D}: the D = 32 instance, C = {C} chains, F, Q, b shared; bounds as "
+        "phase 20's)")
+    results, elems, gains, incs = check_chain_mh_kernels("", steps, m0u, P0u, eps, reps=5,
+                                                         own_bound=True, device_time=True)
+    two_streams(elems, gains, incs, rounds=10)
+
+    C = DENSE_CHAINS["lorenz"]
+    steps, m0u, P0u, eps = dense_lorenz_inputs(dev, C, gen)
+    log(f"  the Lorenz shape: Mider freq 4, T=5001, dx=3, dy=5 (the D = 16 instance), C = {C} "
+        f"chains, theta each chain's, delta {LORENZ_DELTAS[0]:g} (bounds as phase 23's)")
+    lorenz_results = check_chain_mh_kernels("_lorenz", steps, m0u, P0u, eps, reps=3,
+                                            own_bound=True, device_time=True)[0]
+    for k, v in results.items():
+        v["shape"] = f"T={SV_T}, D={SV_D}, C={DENSE_CHAINS['sv']}"
+        v["lorenz"] = {f"T=5001, dx=3, dy=5, C={C}, delta 1e20": lorenz_results[k]}
+    return results
+
+
+def chain_driver(main, argv, out, label, card, chains, schedule, rate_bounds):
+    """A driver's `main(argv)` with `--n-chains 1` for DENSE_ONE_CHAIN
+    iterations (writing `{out}_one.npz`) and with `--n-chains chains` for
+    `schedule` (writing `{out}.npz`), the launch counters reset before and
+    read after each: the six MH kernels launch as often an iteration at C =
+    `chains` as at C = 1 (10 an MH step), no other kernel. The C run's
+    update rate (all chains') must lie in `rate_bounds`; samples/s of all
+    chains printed. Returns (the C run's result, its launches, the .npz
+    paths by C)."""
+    import numpy as np
+    from aux_ssm_tpu_torch.ops import cuda as K
+    per_iter, paths = {}, {1: f"{out}_one.npz", chains: f"{out}.npz"}
+    for C, (burnin, n_samples) in ((1, DENSE_ONE_CHAIN), (chains, schedule)):
+        run = argv + ["--n-chains", str(C), "--burnin", str(burnin), "--n-samples",
+                      str(n_samples), "--out", paths[C]]
+        K.reset_launches()
+        res = main(run)
+        launches = K.launches()
+        n_iter = burnin + n_samples
+        per = {k: v / n_iter for k, v in launches.items() if v}
+        per_iter[C] = per
+        if set(per) != set(KERNELS) or any(v != KERNELS[k][2] for k, v in per.items()):
+            raise AssertionError(f"{label} C = {C}: launches an iteration {per}, expected "
+                                 f"{({k: c for k, (_, _, c) in KERNELS.items()})}")
+    rate = float(res.stats.accept_cum.mean())
+    sps = chains * schedule[1] / res.sampling_time
+    log(f"  {label}: launches an iteration at C = 1 {per_iter[1]} and at C = {chains} "
+        f"{per_iter[chains]} (equal); update rate {rate:.4f} (bounds {rate_bounds}), "
+        f"{sps:.2f} samples/s of all {chains} chains ({sps / chains:.2f} a chain) on {card}")
+    if res.samples.shape[:2] != (chains, schedule[1]) or res.stats.step.shape != (chains,):
+        raise AssertionError(f"{label}: samples {res.samples.shape}, step {res.stats.step.shape}")
+    if not np.isfinite(res.samples).all():
+        raise AssertionError(f"{label}: non-finite samples")
+    if not rate_bounds[0] <= rate <= rate_bounds[1]:
+        raise AssertionError(f"{label}: update rate {rate:.4f} outside {rate_bounds}")
+    return res, launches, paths
+
+
+def phase_dense_chain_drivers(dev, card, out_dir):
+    """Phase 31: the drivers with `--n-chains` at full width, each C chains
+    as one batched step: the SV driver (T=250, D=30, kalman-1, f32) with C =
+    32 from its own start (delta from its default 1e-2, adapted at `--lr`
+    DENSE_SV_LR), DENSE_SV_SCHEDULE, its update rate held to SV_KALMAN_RATE;
+    the Lorenz driver on the Mider data (freq 4, T=5001) with C = 8 at its
+    defaults (delta from 1e-2), DENSE_LORENZ_SCHEDULE, its rate held to (0,
+    1) (the start is far from the posterior). Each also with `--n-chains 1`
+    for DENSE_ONE_CHAIN to its own .npz: the six MH kernels' launches an
+    iteration at C = 1 and at C equal (10 a step); the output shapes (the
+    Lorenz driver's .npz keys and shapes at C = 1 and at C), samples/s of
+    all chains, and a profile of the batched step (its device busy share).
+    Then the batched Lorenz Gibbs sampler at C = 8 from the committed run's
+    mean_x and theta at its delta 1e20 (frozen), DENSE_LORENZ_CHAIN, held as
+    phase 25's chain. Returns the six kernels' launches over the C > 1 runs
+    (the two drivers' and the chain's)."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig
+    from aux_ssm_tpu_torch.experiments import lorenz as lorenz_driver
     from aux_ssm_tpu_torch.experiments import sv as sv_driver
-    burnin, n_samples = SV_CHAINS_SCHEDULE
-    argv = ["--style", "kalman-1", "--n-chains", "2", "--burnin", str(burnin), "--n-samples",
-            str(n_samples), "--no-verbose", "--out", f"{out_dir}/sv_chains.npz"]
-    per_iter = {name: 2 * count for name, (_, _, count) in KERNELS.items()}
-    res, saved, launches = driver_run(sv_driver.main, argv, per_iter, burnin + n_samples,
-                                      "SV driver kalman-1 --n-chains 2", card)
-    if res.samples.shape[:2] != (2, n_samples) or res.stats.step.shape != (2,):
-        raise AssertionError(f"SV --n-chains 2: samples {res.samples.shape}")
-    return launches
+    from aux_ssm_tpu_torch.models import lorenz
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    from aux_ssm_tpu_torch.ops import cuda as K
+    from aux_ssm_tpu_torch.parallel.chains import run_sharded_chains
 
+    C = DENSE_CHAINS["sv"]
+    log(f"phase 31: the drivers with --n-chains, each as one batched step: SV kalman-1, C = {C}, "
+        f"T={SV_T}, D={SV_D}, {DENSE_SV_SCHEDULE[0]} + {DENSE_SV_SCHEDULE[1]} from the driver's "
+        f"start (delta from 1e-2, --lr {DENSE_SV_LR}); Lorenz Mider freq 4, C = "
+        f"{DENSE_CHAINS['lorenz']}, {DENSE_LORENZ_SCHEDULE[0]} + {DENSE_LORENZ_SCHEDULE[1]} from "
+        "the driver's start (launches, shapes, samples/s)")
+    res, sv_launches, paths = chain_driver(
+        sv_driver.main, ["--style", "kalman-1", "--lr", str(DENSE_SV_LR), "--no-verbose"],
+        f"{out_dir}/sv_chains", f"SV driver kalman-1 --n-chains {C}", card, C,
+        DENSE_SV_SCHEDULE, SV_KALMAN_RATE)
+    ys = torch.as_tensor(np.load(paths[C])["ys"], device=dev)
+    _, kernel = sv.get_kalman_kernel(ys, *SV_PARAMS, True, order=1, chains=True)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    box = [res.state]
+    profile_steps(f"SV kalman-1, C = {C} batched",
+                  lambda: box.__setitem__(0, kernel(box[0], res.delta, generator=gen)), n=10,
+                  also=tuple(WIDE_NAMES))
 
-SV_CHAINS_SCHEDULE = (10, 20)
+    C = DENSE_CHAINS["lorenz"]
+    res, lz_launches, paths = chain_driver(
+        lorenz_driver.main, ["--data", "mider", "--freq", "4", "--no-verbose"],
+        f"{out_dir}/lorenz_chains", f"Lorenz driver Mider freq 4 --n-chains {C}", card, C,
+        DENSE_LORENZ_SCHEDULE, (0, 1))
+    for c, lead, n_samples in ((1, (), DENSE_ONE_CHAIN[1]), (C, (C,), DENSE_LORENZ_SCHEDULE[1])):
+        with np.load(paths[c]) as z:
+            saved = {k: z[k] for k in z.files}
+        check_saved(f"Lorenz --n-chains {c}", saved, LORENZ_KEYS,
+                    {"mean_x": (5001, 3), "theta": lead + (3,),
+                     "theta_samples": lead + (n_samples, 3)})
+
+    burnin, n_samples = DENSE_LORENZ_CHAIN
+    n_iter = burnin + n_samples
+    log(f"  the batched Lorenz Gibbs sampler, C = {C}, from the committed run's mean_x and "
+        f"theta at its delta 1e20 (frozen), {burnin} + {n_samples}, held as phase 25's chain:")
+    prob = lorenz_driver.mider_problem(4, device=dev)
+    init, kernel = lorenz.get_gibbs_kernel(prob.ys, prob.Hs, prob.Rs, prob.cs, prob.m0, prob.P0,
+                                           LORENZ_SIGMA_X, prob.dt, prob.sigma_theta, True,
+                                           chains=True)
+    committed = np.load(LORENZ_NPZ.format(4))
+    x0 = torch.as_tensor(committed["mean_x"], dtype=torch.float32, device=dev)
+    theta0 = torch.as_tensor(committed["theta"], dtype=torch.float32, device=dev)
+    K.reset_launches()
+    res = run_sharded_chains(kernel, init(x0.expand(C, -1, -1).clone(),
+                                          theta0.expand(C, -1).clone()),
+                             RunConfig(n_samples=n_samples, burnin=burnin, learning_rate=0.0),
+                             generator=gen, delta_init=torch.full((C,), LORENZ_DELTAS[0],
+                                                                  device=dev),
+                             collect_samples=True, collect_fn=lambda s: s.theta)
+    chain_launches = K.launches()
+    if any(chain_launches[k] != KERNELS[k][2] * n_iter for k in KERNELS):
+        raise AssertionError(f"Lorenz C = {C}: launches {chain_launches} in {n_iter} iterations")
+    check_lorenz_chain(f"Lorenz Gibbs, C = {C} batched", res, committed, n_samples,
+                       chain_launches, n_iter, card)
+    box = [res.state]
+    profile_steps(f"Lorenz Gibbs, C = {C} batched",
+                  lambda: box.__setitem__(0, kernel(box[0], res.delta, generator=gen)), n=10,
+                  also=tuple(NARROW_NAMES))
+    return {k: sv_launches[k] + lz_launches[k] + chain_launches[k] for k in KERNELS}
 
 
 def main():
@@ -3534,6 +3861,8 @@ def main():
         f"(each source's nvcc ended at {ends} s)")
     log("phase 29, its kernel checks first: the chain-axis instances at M=800 (f64)")
     chain_results = phase_chain_kernels(dev)
+    dense_results = phase_dense_chain_kernels(dev)
+    log(f"  phases 0, 29's and 30's kernel checks took {time.perf_counter() - tic:.1f} s")
 
     results = phase_kernels(dev)
     phase_step_reference(dev)
@@ -3597,7 +3926,7 @@ def main():
     log("phase 24: f64 Lorenz Gibbs steps, card vs CPU")
     phase_lorenz_steps(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        lorenz_launches = phase_lorenz_chain(dev, card, tmp)
+        lorenz_launches = phase_lorenz_chain(dev, card)
         t25 = time.perf_counter()
         log(f"  phases 0-25 took {t25 - tic:.1f} s")
         sv_driver = phase_sv_driver(dev, card, tmp)
@@ -3606,16 +3935,15 @@ def main():
         t28 = time.perf_counter()
         log(f"  phases 26-28 took {t28 - t25:.1f} s, phases 0-28 {t28 - tic:.1f} s")
         chain_launches = phase_grid(dev, card)
-        sv_chains = phase_sv_chains_driver(dev, card, tmp)
+        t29 = time.perf_counter()
+        log(f"  phase 29 took {t29 - t28:.1f} s")
+        dense_launches = phase_dense_chain_drivers(dev, card, tmp)
     for name, count in (sv_driver | spatial_driver).items():
         if name in KERNELS:
             wide_launches[name] += count
         else:
             launches[name] = launches.get(name, 0) + count
-    for name, count in sv_chains.items():
-        if name in KERNELS:
-            wide_launches[name] += count
-    log(f"  phase 29 took {time.perf_counter() - t28:.1f} s, phases 0-29 "
+    log(f"  phase 31 took {time.perf_counter() - t29:.1f} s, phases 0-31 "
         f"{time.perf_counter() - tic:.1f} s with the build, on {card}")
 
     sources = ({name: entry[:2] for name, entry in KERNELS.items()} | CSMC_KERNELS
@@ -3632,6 +3960,9 @@ def main():
     kernels += [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                  "launches": chain_launches[name], **chain_results[name]}
                 for name, (_, src, rep) in CHAIN_KERNELS.items()]
+    kernels += [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                 "launches": dense_launches[one], **dense_results[one]}
+                for name, (one, src, rep) in DENSE_KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ the steps that run them.
     python3 kernel_times.py                 # the checkout this file is in
     python3 kernel_times.py --root DIR      # the checkout unpacked at DIR
     python3 kernel_times.py --parts draws   # some of: masses, lane, steps, factor, draws,
-                                            #   scan, pgas, maps, rows, scalar, sv32, lorenz
+                                            #   scan, pgas, maps, rows, scalar, sv32, lorenz,
+                                            #   chains, onechain
 
 To compare two checkouts, unpack the other into a directory that .gitignore
 lists and run both in one machine in turns (A, B, B, A): times on one card
@@ -96,6 +97,27 @@ the same seeds:
     device time; make_elements' and backward_maps' clock64 phases there;
     torch.profiler over Lorenz Gibbs steps (freq 4) with each of the six
     kernels' device ms a step. A checkout without the Lorenz model skips it.
+  - chains: the six MH kernels' chain instances (the dense batched layout)
+    on real batched steps' inputs (chip_smoke phase 30's: SV kalman-1 at
+    T=250, D=30, the D = 32 instance; the Lorenz step at Mider freq 4,
+    T=5001, the D = 16 instance) at C = 1, 8 and 32 chains, each call's
+    device ms by the profiler against that of C one-chain launches on the
+    same inputs (chain after chain, as `chains.chain_loop` runs them), with
+    the bound of the chain launch (`chip_smoke.bound`: the bytes it moves,
+    each input read once, an operand every chain shares (F, Q, b) once for
+    all chains, each output written once, against C chains' operations);
+    torch.profiler over the batched SV kalman-1 step at C = 32 and the
+    batched Lorenz Gibbs step at C = 8 (from the committed runs' states)
+    with each kernel's device ms a step; and the samples/s of all chains of
+    those two steps, batched against the same chains through
+    `chains.chain_loop` (one-chain steps chain after chain), from one
+    state, in turns. A checkout without the chain instances skips it.
+  - onechain: samples/s of one chain's MH steps, f32, parallel, 20 steps
+    after 3, in two turns: the flagship (T=1024, dx=16, order 1 and 2, from
+    x = 0), SV kalman-1 (T=250, D=30, from the committed run's xs_true at
+    its delta) and the Lorenz Gibbs sampler (Mider freq 4, from the
+    committed mean_x and theta at delta 1e20): the host cost of one chain's
+    step, to compare two checkouts' one-chain paths.
 Kernel times are CUDA events around the wrapper's call. The build log's
 registers and spills of the timed kernels' template instances are printed.
 The last line is one JSON object of every number.
@@ -189,7 +211,7 @@ def main():
     parser.add_argument("--root", default=str(Path(__file__).resolve().parent))
     parser.add_argument("--parts",
                         default="masses,lane,steps,factor,draws,scan,pgas,maps,rows,scalar,sv32,"
-                                "lorenz")
+                                "lorenz,chains,onechain")
     parser.add_argument("--sass", default=None,
                         help="directory for the SASS of the draw kernels and col_sample")
     opts = parser.parse_args()
@@ -257,6 +279,10 @@ def main():
         sv32(cs, res, dev)
     if "lorenz" in parts:
         lorenz(cs, res, dev)
+    if "chains" in parts:
+        chains(cs, res, dev)
+    if "onechain" in parts:
+        onechain(cs, res, dev)
     print(json.dumps(res), flush=True)
     return 0
 
@@ -859,6 +885,143 @@ def lorenz(cs, res, dev):
                                   20, MH_KERNELS)
     print("  profile lorenz_gibbs: " + ", ".join(f"{k} {v:.4f}" for k, v in
                                                res["lorenz_gibbs"].items()), flush=True)
+
+def chains(cs, res, dev):
+    """The six MH kernels' chain instances at C = 1, 8 and 32 against C
+    one-chain launches, at the SV and the Lorenz shapes, and the batched
+    steps under the profiler."""
+    if not hasattr(cs, "chain_mh_calls"):
+        print("  chains: not in this checkout", flush=True)
+        return
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments.lorenz import mider_problem
+    from aux_ssm_tpu_torch.models import lorenz as model
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    for tag, inputs in (("sv32", cs.dense_sv_inputs), ("lorenz", cs.dense_lorenz_inputs)):
+        for C in (1, 8, 32):
+            gen = torch.Generator(device=dev).manual_seed(30)
+            steps, m0u, P0u, eps = inputs(dev, C, gen)
+            calls, _, _, _, ops = cs.chain_mh_calls(steps, m0u, P0u, eps)
+            for name, (fn, _, args) in calls.items():
+                key = f"chains_{tag}_C{C}_{name}"
+                one = [cs.chain_slice(args, c) for c in range(C)]
+                got = cs.as_tuple(fn(*args))
+                res[key] = {
+                    "device_ms": device_ms(lambda: fn(*args), 10),
+                    "loop_device_ms": device_ms(lambda: [fn(*a) for a in one], 3),
+                    "ms": cs.cuda_ms(lambda: fn(*args), 10),
+                    "loop_ms": cs.cuda_ms(lambda: [fn(*a) for a in one], 3),
+                    **cs.bound(cs.flatten(args) + list(got), 0, ops[name]),
+                    "shape": [tuple(g.shape) for g in got]}
+                r = res[key]
+                print(f"  {key}: device {r['device_ms']:.4f} ms (C one-chain launches "
+                      f"{r['loop_device_ms']:.4f}), events {r['ms']:.4f} (loop "
+                      f"{r['loop_ms']:.4f}), bound {r['bound_ms']:.5f} by {r['bound_by']} "
+                      f"({r['bytes'] / 1e6:.2f} MB, {r['operations'] / 1e6:.1f} Mop)",
+                      flush=True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ys, xs, delta = cs.load_sv("kalman1", dev, torch.float32)
+    C = cs.DENSE_CHAINS["sv"]
+    init, kernel = sv.get_kalman_kernel(ys, *cs.SV_PARAMS, True, order=1, chains=True)
+    box = [init(xs.expand(C, -1, -1).clone())]
+    delta = delta.expand(C)
+    for _ in range(5):
+        box[0] = kernel(box[0], delta, generator=gen)
+    res["chains_sv32_step"] = profile(lambda: box.__setitem__(0, kernel(box[0], delta,
+                                                                         generator=gen)),
+                                      10, MH_KERNELS)
+    prob = mider_problem(4, device=dev)
+    committed = np.load(cs.LORENZ_NPZ.format(4))
+    C = cs.DENSE_CHAINS["lorenz"]
+    init, kernel = model.get_gibbs_kernel(prob.ys, prob.Hs, prob.Rs, prob.cs, prob.m0, prob.P0,
+                                          cs.LORENZ_SIGMA_X, prob.dt, prob.sigma_theta, True,
+                                          chains=True)
+    x0 = torch.as_tensor(committed["mean_x"], device=dev).expand(C, -1, -1).clone()
+    theta = torch.as_tensor(committed["theta"], device=dev).expand(C, -1).clone()
+    box = [init(x0, theta)]
+    delta = torch.full((C,), cs.LORENZ_DELTAS[0], device=dev)
+    for _ in range(5):
+        box[0] = kernel(box[0], delta, generator=gen)
+    res["chains_lorenz_step"] = profile(lambda: box.__setitem__(0, kernel(box[0], delta,
+                                                                           generator=gen)),
+                                        10, MH_KERNELS)
+    for key in ("chains_sv32_step", "chains_lorenz_step"):
+        print(f"  profile {key}: " + ", ".join(f"{k} {v:.4f}" for k, v in res[key].items()),
+              flush=True)
+    # Samples/s of all chains: the batched step against the chain loop, in turns.
+    from aux_ssm_tpu_torch.parallel.chains import chain_loop
+    sv_one = sv.get_kalman_kernel(ys, *cs.SV_PARAMS, True, order=1)[1]
+    lz_one = model.get_gibbs_kernel(prob.ys, prob.Hs, prob.Rs, prob.cs, prob.m0, prob.P0,
+                                    cs.LORENZ_SIGMA_X, prob.dt, prob.sigma_theta, True)[1]
+    sv_init, sv_batched = sv.get_kalman_kernel(ys, *cs.SV_PARAMS, True, order=1, chains=True)
+    C = cs.DENSE_CHAINS["sv"]
+    sv_state = sv_init(xs.expand(C, -1, -1).clone())
+    sv_delta = torch.full((C,), float(cs.load_sv("kalman1", dev, torch.float32)[2]), device=dev)
+    runs = {"sv32": (sv_batched, chain_loop(sv_one), sv_state, sv_delta),
+            "lorenz": (kernel, chain_loop(lz_one), box[0], delta)}
+    for tag, (batched, looped, state, dl) in runs.items():
+        C = dl.shape[0]
+        for turn, (route, kern) in enumerate((("batched", batched), ("loop", looped),
+                                              ("loop", looped), ("batched", batched))):
+            st = state
+            for _ in range(2):
+                st = kern(st, dl, generator=gen)
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for _ in range(10):
+                st = kern(st, dl, generator=gen)
+            torch.cuda.synchronize()
+            res[f"chains_{tag}_{route}_samples_per_s_turn{turn}"] = 10 * C / (
+                time.perf_counter() - tic)
+        print(f"  {tag}, C = {C}, samples/s of all chains (turns: batched, loop, loop, batched): "
+              + ", ".join(f"{res[f'chains_{tag}_{r}_samples_per_s_turn{t}']:.1f}"
+                          for t, r in enumerate(("batched", "loop", "loop", "batched"))),
+              flush=True)
+
+
+def onechain(cs, res, dev):
+    """Samples/s of one chain's MH steps: the flagship (order 1 and 2), SV
+    kalman-1 and the Lorenz Gibbs sampler, 20 steps after 3, two turns."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch import get_kernel
+    from aux_ssm_tpu_torch.experiments.lorenz import mider_problem
+    from aux_ssm_tpu_torch.models import lgssm_flagship, lorenz
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    f32 = torch.float32
+    runs = {}
+    dyn, obs1, obs2, tf = lgssm_flagship.build_order2_factory(cs.T, cs.DX, device=dev, dtype=f32)
+    for order, obs in ((1, obs1), (2, obs2)):
+        init, kernel = get_kernel(dyn, obs, tf, parallel=True)
+        runs[f"flagship{order}"] = [kernel, init(torch.zeros(cs.T, cs.DX, dtype=f32, device=dev)),
+                                    cs.DELTA]
+    ys, xs, delta = cs.load_sv("kalman1", dev, f32)
+    init, kernel = sv.get_kalman_kernel(ys, *cs.SV_PARAMS, True, order=1)
+    runs["sv_kalman1"] = [kernel, init(xs), delta]
+    prob = mider_problem(4, device=dev)
+    committed = np.load(cs.LORENZ_NPZ.format(4))
+    init, kernel = lorenz.get_gibbs_kernel(prob.ys, prob.Hs, prob.Rs, prob.cs, prob.m0, prob.P0,
+                                           cs.LORENZ_SIGMA_X, prob.dt, prob.sigma_theta, True)
+    runs["lorenz"] = [kernel, init(torch.as_tensor(committed["mean_x"], device=dev),
+                                   committed["theta"]), cs.LORENZ_DELTAS[0]]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for turn in range(2):
+        for tag, run in runs.items():
+            kernel, state, delta = run
+            for _ in range(3):
+                state = kernel(state, delta, generator=gen)
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for _ in range(20):
+                state = kernel(state, delta, generator=gen)
+            torch.cuda.synchronize()
+            res[f"onechain_{tag}_samples_per_s_turn{turn}"] = 20 / (time.perf_counter() - tic)
+            run[1] = state
+    for tag in runs:
+        print(f"  one chain, {tag}: samples/s (turns) "
+              + ", ".join(f"{res[f'onechain_{tag}_samples_per_s_turn{t}']:.2f}" for t in range(2)),
+              flush=True)
 
 
 if __name__ == "__main__":

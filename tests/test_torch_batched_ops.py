@@ -145,19 +145,34 @@ def test_batched_layout_goes_through_the_scalar_scans_only(monkeypatch):
 
 
 def test_wider_batched_layout_raises():
-    """A batched layout with d > 1 has no kernel in the JAX package either
-    and is not ported."""
+    """A batched layout with d > 1 no longer raises: it is the dense batched
+    layout (B chains of a wider model), and each of its filters equals the
+    unbatched call on its slice: filtering (parallel and sequential),
+    sampling and the trajectory density, summed or one a filter."""
     T, B, d = 5, 3, 2
+    rng = np.random.default_rng(0)
     eye = torch.eye(d, dtype=torch.float64)
-    lg = tl.LGSSM(torch.zeros(B, d, dtype=torch.float64), eye.expand(B, d, d),
-                  eye.expand(T - 1, B, d, d), eye.expand(T - 1, B, d, d),
+    lg = tl.LGSSM(torch.as_tensor(rng.standard_normal((B, d))), eye.expand(B, d, d),
+                  0.5 * eye.expand(T - 1, B, d, d), eye.expand(T - 1, B, d, d),
                   torch.zeros(T - 1, B, d, dtype=torch.float64), eye.expand(T, B, d, d),
                   eye.expand(T, B, d, d), torch.zeros(T, B, d, dtype=torch.float64))
-    ys = torch.zeros(T, B, d, dtype=torch.float64)
+    ys, eps = (torch.as_tensor(rng.standard_normal((T, B, d))) for _ in range(2))
+    one = [tl.LGSSM(*(z[b] if i < 2 else z[:, b] for i, z in enumerate(lg))) for b in range(B)]
     for parallel in (True, False):
-        with pytest.raises(NotImplementedError, match="dx = dy = 1"):
-            filtering(ys, lg, parallel)
-    with pytest.raises(NotImplementedError, match="dx = dy = 1"):
-        sampling(ys, ys, eye.expand(T, B, d, d), lg, True)
-    with pytest.raises(NotImplementedError, match="dx = dy = 1"):
-        tl.trajectory_logdensity(ys, ys, lg)
+        ms, Ps, ell = filtering(ys, lg, parallel, keep_batch=True)
+        xs = sampling(eps, ms, Ps, lg, parallel)
+        for b in range(B):
+            want = filtering(ys[:, b], one[b], parallel)
+            for g, w in zip((ms[:, b], Ps[:, b], ell[b]), want):
+                np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12, atol=1e-14)
+            np.testing.assert_allclose(
+                xs[:, b].numpy(), sampling(eps[:, b], want[0], want[1], one[b], parallel).numpy(),
+                rtol=1e-12, atol=1e-14)
+        np.testing.assert_allclose(float(filtering(ys, lg, parallel)[2]), float(ell.sum()),
+                                   rtol=1e-12)
+    per = tl.trajectory_logdensity(ys, xs, lg, keep_batch=True)
+    assert per.shape == (B,)
+    np.testing.assert_allclose(per.numpy(), [float(tl.trajectory_logdensity(
+        ys[:, b], xs[:, b], one[b])) for b in range(B)], rtol=1e-12)
+    np.testing.assert_allclose(float(tl.trajectory_logdensity(ys, xs, lg)), float(per.sum()),
+                               rtol=1e-12)

@@ -77,7 +77,7 @@ def test_lorenz_driver_unported_options_raise(tmp_path, default_dtype, extra, mi
 
 
 def test_lorenz_driver_runs_several_chains(tmp_path, default_dtype, capsys):
-    """`--n-chains 2` runs two chains through the chain loop: theta samples
+    """`--n-chains 2` runs two chains as one batched Gibbs step: theta samples
     (2, n, 3), the chains' mean statistics saved, split-R-hat printed."""
     out = tmp_path / "lorenz.npz"
     res = tlorenz.main(SMALL + ["--n-chains", "2", "--out", str(out)])

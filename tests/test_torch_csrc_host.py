@@ -44,57 +44,68 @@ using std::isfinite; using std::isinf; using std::isnan; using std::log; using s
 _MAPS = """
 #include "kalman_fused.cu"
 // The padded steps (elements, ell, backward_maps, logdensity) on one
-// "thread" (a team of 1), a step at a time, on a host copy of the block's
-// shared memory, at the instance's D that the C entries pick by max(dx, dy).
+// "thread" (a team of 1), a block at a time, on a host copy of the block's
+// shared memory, at the instance's D that the C entries pick by max(dx, dy):
+// the n x C blocks of C chains' n steps, the inputs with bits in `shared`
+// read once for every chain (StepAt), as the launch runs them.
 template <int D>
-static void host_elements(int n, int dx, int dy, ElementsIn<double> in, ElementsOut<double> out) {
+static void host_elements(int n, int C, int sh_, int dx, int dy, ElementsIn<double> in,
+                          ElementsOut<double> out) {
   static double sh[ElementsLay<D>::size];
-  for (int t = 0; t < n; ++t) elements_step<double, D, 1>(0, t, dx, dy, in, out, sh, nullptr);
+  for (long g = 0; g < (long)n * C; ++g)
+    elements_step<double, D, 1>(0, StepAt{g, C, (unsigned)sh_}, dx, dy, in, out, sh, nullptr);
 }
 template <int D>
-static void host_ell(int n, int dx, int dy, ElementsIn<double> in, double* out) {
+static void host_ell(int n, int C, int sh_, int dx, int dy, ElementsIn<double> in, double* out) {
   static double sh[EllLay<D>::size];
-  for (int t = 0; t < n; ++t) ell_step<double, D, 1>(0, t, dx, dy, in, out, sh);
+  for (long g = 0; g < (long)n * C; ++g)
+    ell_step<double, D, 1>(0, StepAt{g, C, (unsigned)sh_}, dx, dy, in, out, sh);
 }
 template <int D>
-static void host_maps(int n, int dx, MapsIn<double> in, MapsOut<double> out) {
+static void host_maps(int n, int C, int sh_, int dx, MapsIn<double> in, MapsOut<double> out) {
   static double sh[MapsLay<D>::size];
-  for (int t = 0; t < n; ++t) backward_maps_step<double, D, 1>(0, t, dx, in, out, sh, nullptr);
+  for (long g = 0; g < (long)n * C; ++g)
+    backward_maps_step<double, D, 1>(0, StepAt{g, C, (unsigned)sh_}, dx, in, out, sh, nullptr);
 }
 template <int D>
-static void host_density(int n, int dx, int dy, DensityIn<double> in, double* out) {
+static void host_density(int n, int C, int sh_, int dx, int dy, DensityIn<double> in,
+                         double* out) {
   static double sh[DensityLay<D>::size];
-  for (int t = 0; t < n; ++t) logdensity_step<double, D, 1>(0, t, dx, dy, in, out, sh);
+  for (long g = 0; g < (long)n * C; ++g)
+    logdensity_step<double, D, 1>(0, StepAt{g, C, (unsigned)sh_}, dx, dy, in, out, sh);
 }
 static bool narrow(int dx, int dy) { return (dx > dy ? dx : dy) <= kElemD; }
 extern "C" {
-void h_make_elements(int n, int dx, int dy, const double* F, const double* Q,
+void h_make_elements(int n, int C, int shared, int dx, int dy, const double* F,
+    const double* Q, const double* b, const double* H, const double* R, const double* c,
+    const double* y, const double* m, const double* P, double* A, double* bel, double* Cm,
+    double* eta, double* J) {
+  const ElementsIn<double> in{F, Q, b, H, R, c, y, m, P};
+  const ElementsOut<double> out{A, bel, Cm, eta, J};
+  narrow(dx, dy) ? host_elements<kElemD>(n, C, shared, dx, dy, in, out)
+                 : host_elements<kWideD>(n, C, shared, dx, dy, in, out);
+}
+void h_ell(int n, int C, int shared, int dx, int dy, const double* F, const double* Q,
     const double* b, const double* H, const double* R, const double* c, const double* y,
-    const double* m, const double* P, double* A, double* bel, double* C, double* eta,
-    double* J) {
+    const double* m, const double* P, double* out) {
   const ElementsIn<double> in{F, Q, b, H, R, c, y, m, P};
-  const ElementsOut<double> out{A, bel, C, eta, J};
-  narrow(dx, dy) ? host_elements<kElemD>(n, dx, dy, in, out)
-                 : host_elements<kWideD>(n, dx, dy, in, out);
+  narrow(dx, dy) ? host_ell<kElemD>(n, C, shared, dx, dy, in, out)
+                 : host_ell<kWideD>(n, C, shared, dx, dy, in, out);
 }
-void h_ell(int n, int dx, int dy, const double* F, const double* Q, const double* b,
-    const double* H, const double* R, const double* c, const double* y, const double* m,
-    const double* P, double* out) {
-  const ElementsIn<double> in{F, Q, b, H, R, c, y, m, P};
-  narrow(dx, dy) ? host_ell<kElemD>(n, dx, dy, in, out) : host_ell<kWideD>(n, dx, dy, in, out);
-}
-void h_backward_maps(int n, int dx, const double* F, const double* Q, const double* b,
-    const double* m, const double* P, const double* eps, double* G, double* inc) {
+void h_backward_maps(int n, int C, int shared, int dx, const double* F, const double* Q,
+    const double* b, const double* m, const double* P, const double* eps, double* G,
+    double* inc) {
   const MapsIn<double> in{F, Q, b, m, P, eps};
   const MapsOut<double> out{G, inc};
-  narrow(dx, 1) ? host_maps<kElemD>(n, dx, in, out) : host_maps<kWideD>(n, dx, in, out);
+  narrow(dx, 1) ? host_maps<kElemD>(n, C, shared, dx, in, out)
+                : host_maps<kWideD>(n, C, shared, dx, in, out);
 }
-void h_logdensity_steps(int n, int dx, int dy, const double* F, const double* Q,
-    const double* b, const double* H, const double* R, const double* c, const double* y,
-    const double* xp, const double* xc, double* out) {
+void h_logdensity_steps(int n, int C, int shared, int dx, int dy, const double* F,
+    const double* Q, const double* b, const double* H, const double* R, const double* c,
+    const double* y, const double* xp, const double* xc, double* out) {
   const DensityIn<double> in{F, Q, b, H, R, c, y, xp, xc};
-  narrow(dx, dy) ? host_density<kElemD>(n, dx, dy, in, out)
-                 : host_density<kWideD>(n, dx, dy, in, out);
+  narrow(dx, dy) ? host_density<kElemD>(n, C, shared, dx, dy, in, out)
+                 : host_density<kWideD>(n, C, shared, dx, dy, in, out);
 }
 }
 """
@@ -109,12 +120,14 @@ _SCAN = """
 // in shared memory (later windows staged from the output), each element on
 // its own "team". The instance is the one the C entries pick by d, with its
 // plan's ring of prefixes (1 at D = 32 in f64: every later prefix staged back).
+// Elements (n, C, ...): chain c's scan on its own elements, as its blocks run.
 template <class Op>
-static void host_scan(int n, int d, bool rev, typename Op::View x, typename Op::View out) {
+static void host_scan_chain(int n, int C, int chain, int d, bool rev, typename Op::View x,
+                            typename Op::View out) {
   using S = typename Op::Scalar;
   constexpr int D = Op::D, M = Op::M, V = Op::V, slot = OpLay<Op>::slot, kRing = Op::ring,
                 per = kRing + 4;
-  const Order at{n, rev};
+  const Order at{n, rev, C, chain};
   const ScanPlan pl = scan_plan(n);
   std::vector<S> mem((size_t)pl.chunks * per * slot), partner(slot), work(Op::work + 1);
   std::vector<S*> cur(pl.chunks);
@@ -146,26 +159,31 @@ static void host_scan(int n, int d, bool rev, typename Op::View x, typename Op::
     }
   }
 }
+template <class Op>
+static void host_scan(int n, int C, int d, bool rev, typename Op::View x, typename Op::View out) {
+  for (int chain = 0; chain < C; ++chain) host_scan_chain<Op>(n, C, chain, d, rev, x, out);
+}
 template <int D>
-static void host_filter(int n, int d, double* A, double* b, double* C, double* e, double* J,
-                        double* oA, double* ob, double* oC, double* oe, double* oJ) {
+static void host_filter(int n, int Cc, int d, double* A, double* b, double* C, double* e,
+                        double* J, double* oA, double* ob, double* oC, double* oe, double* oJ) {
   using Op = FilterOp<double, D>;
-  host_scan<Op>(n, d, false, typename Op::View{{A, C, J}, {b, e}},
+  host_scan<Op>(n, Cc, d, false, typename Op::View{{A, C, J}, {b, e}},
                 typename Op::View{{oA, oC, oJ}, {ob, oe}});
 }
 template <int D>
-static void host_affine(int n, int d, int rev, double* G, double* e, double* oG, double* oe) {
+static void host_affine(int n, int C, int d, int rev, double* G, double* e, double* oG,
+                        double* oe) {
   using Op = AffineOp<double, D>;
-  host_scan<Op>(n, d, rev != 0, typename Op::View{{G}, {e}}, typename Op::View{{oG}, {oe}});
+  host_scan<Op>(n, C, d, rev != 0, typename Op::View{{G}, {e}}, typename Op::View{{oG}, {oe}});
 }
 extern "C" {
-void h_filter_scan(int n, int d, double* A, double* b, double* C, double* e, double* J,
+void h_filter_scan(int n, int Cc, int d, double* A, double* b, double* C, double* e, double* J,
                    double* oA, double* ob, double* oC, double* oe, double* oJ) {
-  (d <= kNarrowD ? host_filter<kNarrowD> : host_filter<kWideD>)(n, d, A, b, C, e, J, oA, ob,
-                                                                 oC, oe, oJ);
+  (d <= kNarrowD ? host_filter<kNarrowD> : host_filter<kWideD>)(n, Cc, d, A, b, C, e, J, oA,
+                                                                 ob, oC, oe, oJ);
 }
-void h_affine_scan(int n, int d, int rev, double* G, double* e, double* oG, double* oe) {
-  (d <= kNarrowD ? host_affine<kNarrowD> : host_affine<kWideD>)(n, d, rev, G, e, oG, oe);
+void h_affine_scan(int n, int C, int d, int rev, double* G, double* e, double* oG, double* oe) {
+  (d <= kNarrowD ? host_affine<kNarrowD> : host_affine<kWideD>)(n, C, d, rev, G, e, oG, oe);
 }
 // The kernel's plan for n elements (chunks, per, levels) and the values of a
 // padded filter and affine element at D = 16 and D = 32.
@@ -811,7 +829,7 @@ def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac, nan_model):
     P = torch.cat([P0u[None], torch.zeros(n - 1, dx, dx, dtype=torch.float64)])
     want = KF.make_elements_plain(Fs, Qs, bs, *obs, m, P)
     got = tuple(torch.empty_like(w) for w in want)
-    _call(lib.h_make_elements, n, dx, dy, Fs, Qs, bs, *obs, m, P, *got)
+    _call(lib.h_make_elements, n, 1, 0, dx, dy, Fs, Qs, bs, *obs, m, P, *got)
     for g, w in zip(got, want):
         _close(g, w)
 
@@ -819,7 +837,7 @@ def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac, nan_model):
     ms0, Ps0 = ms[:-1].contiguous(), Ps[:-1].contiguous()
     want = KF.ell_plain(Fs, Qs, bs, *obs, ms0, Ps0)
     got = torch.empty_like(want)
-    _call(lib.h_ell, n, dx, dy, Fs, Qs, bs, *obs, ms0, Ps0, got)
+    _call(lib.h_ell, n, 1, 0, dx, dy, Fs, Qs, bs, *obs, ms0, Ps0, got)
     _close(got, want)
     if nan_model:  # step 0 of the maps (y_1) is missing whole
         assert float(got[0]) == 0.0 == float(want[0])
@@ -827,7 +845,7 @@ def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac, nan_model):
     eps = torch.as_tensor(np.random.default_rng(1).standard_normal((n, dx)))
     want = KF.backward_maps_plain(Fs, Qs, bs, ms0, Ps0, eps)
     got = tuple(torch.empty_like(w) for w in want)
-    _call(lib.h_backward_maps, n, dx, Fs, Qs, bs, ms0, Ps0, eps, *got)
+    _call(lib.h_backward_maps, n, 1, 0, dx, Fs, Qs, bs, ms0, Ps0, eps, *got)
     for g, w in zip(got, want):
         _close(g, w, rtol=1e-7, atol=1e-9)  # jittered Cholesky of a near-singular cov
 
@@ -835,7 +853,7 @@ def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac, nan_model):
     xp, xc = xs[:-1].contiguous(), xs[1:].contiguous()
     want = KF.logdensity_steps_plain(Fs, Qs, bs, *obs, xp, xc)
     got = torch.empty_like(want)
-    _call(lib.h_logdensity_steps, n, dx, dy, Fs, Qs, bs, *obs, xp, xc, got)
+    _call(lib.h_logdensity_steps, n, 1, 0, dx, dy, Fs, Qs, bs, *obs, xp, xc, got)
     _close(got, want)
 
 
@@ -865,7 +883,7 @@ def test_host_elements_huge_observation_variance(host_lib):
     P = torch.cat([P0u[None], torch.zeros(n - 1, dx, dx, dtype=torch.float64)])
     want = KF.make_elements_plain(Fs, Qs, bs, *obs, m, P)
     got = tuple(torch.empty_like(w) for w in want)
-    _call(lib.h_make_elements, n, dx, dy, Fs, Qs, bs, *obs, m, P, *got)
+    _call(lib.h_make_elements, n, 1, 0, dx, dy, Fs, Qs, bs, *obs, m, P, *got)
     assert float(want[4][1:].abs().max()) < 1e-150  # J: the u rows alone
     for g, w in zip(got, want):
         _close(g, w, atol=0.0)
@@ -897,7 +915,7 @@ def test_host_backward_maps_degenerate_covariance(host_lib, case):
         P = torch.diag_embed(torch.tensor([1.0, 0.5, -0.3], dtype=torch.float64)).expand(n, dx, dx)
     args = tuple(z.contiguous() for z in (F, Q, b, m, P, eps))
     G, inc = torch.empty_like(args[0]), torch.empty_like(args[2])
-    _call(host_lib["maps"].h_backward_maps, n, dx, *args, G, inc)
+    _call(host_lib["maps"].h_backward_maps, n, 1, 0, dx, *args, G, inc)
     if case == "zero_cov":
         want = KF.backward_maps_plain(*args)
         for g, w in zip((G, inc), want):
@@ -929,7 +947,7 @@ def test_host_filter_scan_matches_plain(host_lib, T, dx, dy):
         Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], m0u, P0u))
     want = FS.filter_scan_plain(elems)
     got = tuple(torch.empty_like(z) for z in elems)
-    _call(host_lib["scan"].h_filter_scan, T - 1, dx, *elems, *got)
+    _call(host_lib["scan"].h_filter_scan, T - 1, 1, dx, *elems, *got)
     for g, w in zip(got, want):
         _close(g, w)
 
@@ -952,9 +970,114 @@ def test_host_affine_scan_matches_plain(host_lib, T, d, reverse):
     incs = torch.as_tensor(rng.standard_normal((T, d)))
     want = FS.affine_scan_plain(gains, incs, reverse=reverse)
     got = tuple(torch.empty_like(z) for z in want)
-    _call(host_lib["scan"].h_affine_scan, T, d, reverse, gains, incs, *got)
+    _call(host_lib["scan"].h_affine_scan, T, 1, d, reverse, gains, incs, *got)
     for g, w in zip(got, want):
         _close(g, w)
+
+
+# The chain axis of rows 1, 4, 5 and 7 (the dense batched layout): 3 chains'
+# steps in one call, a block a (step, chain) pair, F, Q and b shared (their
+# bits set in the call's `shared` mask: the (n, ...) arrays, read once for
+# every chain), the rest (n, C, ...). Each chain equals a one-chain call on
+# its inputs bit for bit, C = 1 equals the one-chain call, the shared
+# operands equal the same operands copied to every chain, and the outputs
+# equal the plain versions on the (n, C, ...) layout (they broadcast the
+# shared operands) to rtol 1e-9. At D = 16 (dx = 3, dy = 2, a share of the
+# observations missing) and D = 32 (d = 30).
+@pytest.mark.parametrize("T,dx,dy,nan_frac", [(9, 3, 2, 0.3), (5, 30, 30, 0.0)])
+def test_host_maps_chain_axis(host_lib, T, dx, dy, nan_frac):
+    lib = host_lib["maps"]
+    Cc, n, shared = 3, T - 1, 0b111
+    models = [_model(T, dx, dy, seed=T + c, nan_frac=nan_frac, stable=True) for c in range(Cc)]
+    Fs, Qs, bs = (z.contiguous() for z in models[0][0][2:5])
+    rng = np.random.default_rng(T)
+    per_chain = []  # each chain's (H, R, c, y, m, P, ms, Ps, eps, xp, xc), (n, ...)
+    for lg, ys in models:
+        lg = lg._replace(Fs=Fs, Qs=Qs, bs=bs)
+        m0u, P0u, _ = kalman_update(ys[0], lg.m0, lg.P0, lg.Hs[0], lg.cs[0], lg.Rs[0])
+        m = torch.cat([m0u[None], torch.zeros(n - 1, dx, dtype=torch.float64)])
+        P = torch.cat([P0u[None], torch.zeros(n - 1, dx, dx, dtype=torch.float64)])
+        ms, Ps, _ = filtering(ys, lg, parallel=True)
+        xs = torch.as_tensor(rng.standard_normal((T, dx)))
+        per_chain.append(tuple(z.contiguous() for z in (
+            lg.Hs[1:], lg.Rs[1:], lg.cs[1:], ys[1:], m, P, ms[:-1], Ps[:-1],
+            torch.as_tensor(rng.standard_normal((n, dx))), xs[:-1], xs[1:])))
+    stacked = tuple(torch.stack(z, 1).contiguous() for z in zip(*per_chain))
+    copied = tuple(z[:, None].expand((n, Cc) + z.shape[1:]).contiguous() for z in (Fs, Qs, bs))
+
+    def run(fn, C, mask, shared_args, args, outs):
+        got = tuple(torch.empty((n, C) + o if C else (n,) + o, dtype=torch.float64)
+                    for o in outs)
+        _call(fn, n, max(C, 1), mask, dx, *(() if fn is lib.h_backward_maps else (dy,)),
+              *shared_args, *args, *got)
+        return got
+
+    H, R, c, y, m, P, ms, Ps, eps, xp, xc = range(11)
+    cases = (  # entry, its per-chain inputs, its outputs' trailing shapes, plain version
+        (lib.h_make_elements, (H, R, c, y, m, P), ((dx, dx), (dx,), (dx, dx), (dx,), (dx, dx)),
+         KF.make_elements_plain),
+        (lib.h_ell, (H, R, c, y, ms, Ps), ((),), KF.ell_plain),
+        (lib.h_backward_maps, (ms, Ps, eps), ((dx, dx), (dx,)), KF.backward_maps_plain),
+        (lib.h_logdensity_steps, (H, R, c, y, xp, xc), ((),), KF.logdensity_steps_plain))
+    for fn, which, outs, plain in cases:
+        chained = run(fn, Cc, shared, (Fs, Qs, bs), [stacked[i] for i in which], outs)
+        for k in range(Cc):
+            one = run(fn, 0, 0, (Fs, Qs, bs), [per_chain[k][i] for i in which], outs)
+            for g, w in zip(chained, one):
+                assert torch.equal(g[:, k], w), (fn.__name__, k)
+            if k == 0:
+                first = run(fn, 1, 0, (Fs, Qs, bs),
+                            [stacked[i][:, :1].contiguous() for i in which], outs)
+                assert all(torch.equal(g[:, 0], w) for g, w in zip(first, one)), fn.__name__
+        full = run(fn, Cc, 0, copied, [stacked[i] for i in which], outs)
+        assert all(torch.equal(g, w) for g, w in zip(full, chained)), fn.__name__
+        views = tuple(z[:, None].expand((n, Cc) + z.shape[1:]) for z in (Fs, Qs, bs))
+        want = plain(*views, *[stacked[i] for i in which])
+        for g, w in zip(chained, want if isinstance(want, tuple) else (want,)):
+            _close(g, w, rtol=1e-7 if fn is lib.h_backward_maps else 1e-9,
+                   atol=1e-9 if fn is lib.h_backward_maps else 1e-11)
+
+
+# The chain axis of both scans (rows 2-3 and 6): 3 chains' elements laid out
+# (n, C, ...) in one call, each chain's scan on its own hand-over rows: each
+# chain equals a one-chain call on its elements bit for bit, and all equal
+# the plain versions on the (n, C, ...) layout (the same chunks, batched over
+# C) to rtol 1e-9. The filter scan at D = 16 (n = 8 and n = 1099, chunks
+# longer than the 8 kept prefixes) and D = 32 (d = 30, f64's one kept prefix);
+# the affine scan forward and reversed.
+@pytest.mark.parametrize("T,d", [(9, 3), (1100, 1), (6, 30)])
+def test_host_scans_chain_axis(host_lib, T, d):
+    lib = host_lib["scan"]
+    Cc, n = 3, T - 1
+    chains = []
+    for k in range(Cc):
+        lg, ys = _model(T, d, d, seed=5 + k, stable=d > 16)
+        m0u, P0u, _ = kalman_update(ys[0], lg.m0, lg.P0, lg.Hs[0], lg.cs[0], lg.Rs[0])
+        chains.append(tuple(z.contiguous() for z in _make_associative_elements(
+            lg.Fs, lg.Qs, lg.bs, lg.Hs[1:], lg.Rs[1:], lg.cs[1:], ys[1:], m0u, P0u)))
+    elems = tuple(torch.stack(z, 1).contiguous() for z in zip(*chains))
+    got = tuple(torch.empty_like(z) for z in elems)
+    _call(lib.h_filter_scan, n, Cc, d, *elems, *got)
+    for k, one in enumerate(chains):
+        want = tuple(torch.empty_like(z) for z in one)
+        _call(lib.h_filter_scan, n, 1, d, *one, *want)
+        assert all(torch.equal(g[:, k], w) for g, w in zip(got, want)), k
+    for g, w in zip(got, FS.filter_scan_plain(elems)):
+        _close(g, w)
+
+    rng = np.random.default_rng(d)
+    gains = torch.as_tensor(0.4 * min(1.0, 2.0 / np.sqrt(d)) * rng.standard_normal((n, Cc, d, d)))
+    incs = torch.as_tensor(rng.standard_normal((n, Cc, d)))
+    for reverse in (False, True):
+        got = (torch.empty_like(gains), torch.empty_like(incs))
+        _call(lib.h_affine_scan, n, Cc, d, reverse, gains, incs, *got)
+        for k in range(Cc):
+            one = (gains[:, k].contiguous(), incs[:, k].contiguous())
+            want = tuple(torch.empty_like(z) for z in one)
+            _call(lib.h_affine_scan, n, 1, d, reverse, *one, *want)
+            assert all(torch.equal(g[:, k], w) for g, w in zip(got, want)), (reverse, k)
+        for g, w in zip(got, FS.affine_scan_plain(gains, incs, reverse=reverse)):
+            _close(g, w)
 
 
 # The plan the kernel takes from n is the one the plain versions and the

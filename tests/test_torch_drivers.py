@@ -152,8 +152,9 @@ def test_unported_options_raise(tmp_path, driver, extra, missing):
 @pytest.mark.parametrize("driver, style", [(sv, "kalman-1"), (sv, "csmc-guided"),
                                            (spatial, "kalman-2")])
 def test_drivers_run_several_chains(tmp_path, capsys, driver, style):
-    """`--n-chains 2` through the chain loop: the state and delta carry the
-    chain axis, the saved moments are the chains' means, R-hat is printed."""
+    """`--n-chains 2` (kalman-1: one batched step; the other styles: the
+    chain loop): the state and delta carry the chain axis, the saved
+    moments are the chains' means, R-hat is printed."""
     res, saved = _run(driver, tmp_path, ["--style", style, "--T", "8", "--D", "2", "--N", "8",
                                          "--n-chains", "2"])
     assert res.state.x.shape[0] == 2 and res.stats.step.shape == (2,)
