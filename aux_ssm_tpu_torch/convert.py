@@ -1,8 +1,9 @@
 """From the JAX package's parameters and data, given as NumPy arrays (for
 example `np.asarray` of each field of an `aux_ssm_tpu.ops.LGSSM`), to the
-port's tensors; and chain-batched Kalman states both ways (JAX's vmapped
-state leads with the chain axis, x (C, T, d); the port's batched kernels run
-time first, x (T, C, d))."""
+port's tensors; and chain-batched Kalman and cSMC states both ways (JAX's
+vmapped state leads with the chain axis, x (C, T, d); the port's batched
+Kalman kernels run time first, x (T, C, d), its batched cSMC kernels chain
+first, as JAX's)."""
 import numpy as np
 import torch
 
@@ -39,6 +40,27 @@ def kalman_chains_to_numpy(state):
     return {"x": state.x.transpose(0, 1).detach().cpu().numpy(),
             "updated": state.updated.detach().cpu().numpy(),
             "log_target": None if lt is None else lt.detach().cpu().numpy()}
+
+
+def csmc_chains_from_numpy(x, updated=None, *, device, dtype):
+    """C chains' cSMC state of the JAX package (the fields of its vmapped
+    `CSMCState`: x (C, T, d), updated (C, T)) as the port's state for a
+    cSMC kernel over the chain axis (`get_csmc_kernel(..., chains=True)`,
+    `get_guided_csmc_kernel(..., chains=True)` of the SV and spatial
+    models): a `CSMCState` with x (C, T, d) and updated (C, T) (all False
+    when not given)."""
+    from .kernels.csmc_base import CSMCState  # the kernels import this package
+    x = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    updated = (torch.zeros(x.shape[:-1], dtype=torch.bool, device=device) if updated is None
+               else torch.as_tensor(np.asarray(updated), device=device).to(torch.bool))
+    return CSMCState(x=x, updated=updated)
+
+
+def csmc_chains_to_numpy(state):
+    """The port's chain-batched cSMC state as the JAX package's vmapped
+    `CSMCState` fields: a dict of NumPy arrays x (C, T, d) and updated (C,
+    T)."""
+    return {"x": state.x.detach().cpu().numpy(), "updated": state.updated.detach().cpu().numpy()}
 
 
 def sv_from_numpy(ys, xs=None, *, device, dtype):

@@ -6,10 +6,11 @@ and 10000 sampling iterations, target update rate 0.5).
     python -m aux_ssm_tpu_torch.experiments.sv --style csmc --platform cpu --T 16 --D 2
 
 Runs on the card unless `--platform cpu`. Styles: kalman-1 and kalman-2
-(the auxiliary Kalman sampler; at D = 30 the MH kernels' D = 32 instance;
-with `--n-chains C` all C chains as one batched step),
+(the auxiliary Kalman sampler; at D = 30 the MH kernels' D = 32 instance),
 csmc (independent proposals; parallel-in-time by default, `--no-parallel`
-for the sequential sweep) and csmc-guided (the block-lane sweep). Saves the
+for the sequential sweep) and csmc-guided (the block-lane sweep). With
+`--n-chains C`, every style at the defaults runs all C chains as one batched
+step (`build_kernel` names the options that loop instead). Saves the
 JAX driver's .npz keys: samples_mean, samples_std, ejsd, delta, xs_true, ys,
 sampling_time.
 
@@ -30,26 +31,34 @@ NU, PHI, TAU, RHO = 0.0, 0.9, 2.0, 0.25
 
 
 def build_kernel(style, ys, args):
-    """(init, kernel) of one chain; with `--n-chains C > 1`, the kalman
-    styles' kernel is the one over the chain axis (one batched step of all C
-    chains), the csmc styles' stays one chain's (`cli.run_maybe_sharded`
-    runs it chain after chain)."""
+    """(init, kernel): `init` one chain's; with `--n-chains C > 1` the
+    kernel is the one over the chain axis (one batched step of all C chains,
+    marked `chain_axis`) where the style's options take one, else one
+    chain's (`cli.run_maybe_sharded` then runs it chain after chain: the
+    csmc styles under `--no-backward` or a resampling other than
+    multinomial, and the PIT's blocked route at N >= 4096)."""
+    chains = getattr(args, "n_chains", 1) > 1
     if style in ("kalman-1", "kalman-2"):
         order = 1 if style == "kalman-1" else 2
-        init, kernel = sv.get_kalman_kernel(ys, NU, PHI, TAU, RHO, args.parallel, order=order)
-        if getattr(args, "n_chains", 1) > 1:
-            kernel = sv.get_kalman_kernel(ys, NU, PHI, TAU, RHO, args.parallel, order=order,
-                                          chains=True)[1]
-        return init, kernel
-    if style == "csmc":
-        return sv.get_csmc_kernel(ys, NU, PHI, TAU, RHO, args.n_particles,
-                                  backward=args.backward, parallel=args.parallel,
-                                  gradient=args.gradient, resampling=args.resampling)
-    if style == "csmc-guided":
-        return sv.get_guided_csmc_kernel(ys, NU, PHI, TAU, RHO, args.n_particles,
-                                         backward=args.backward, gradient=args.gradient,
-                                         resampling=args.resampling)
-    raise ValueError(f"unknown style {style!r}")
+
+        def build(c):
+            return sv.get_kalman_kernel(ys, NU, PHI, TAU, RHO, args.parallel, order=order,
+                                        chains=c)
+    elif style == "csmc":
+        def build(c):
+            return sv.get_csmc_kernel(ys, NU, PHI, TAU, RHO, args.n_particles,
+                                      backward=args.backward, parallel=args.parallel,
+                                      gradient=args.gradient, resampling=args.resampling,
+                                      chains=c)
+    elif style == "csmc-guided":
+        def build(c):
+            return sv.get_guided_csmc_kernel(ys, NU, PHI, TAU, RHO, args.n_particles,
+                                             backward=args.backward, gradient=args.gradient,
+                                             resampling=args.resampling, chains=c)
+    else:
+        raise ValueError(f"unknown style {style!r}")
+    init, kernel = build(False)
+    return init, build(True)[1] if chains else kernel
 
 
 def main(argv=None):

@@ -15,9 +15,10 @@ its final index as `jax.random.choice` does, by inverse CDF at
 Chain axis: a reference trajectory x (C, T, d) runs C independent chains in
 one step; every noise array and the state (`updated` (C, T)) then carry the
 leading C, and the components' per-step params lead with (C, T-1). The
-factor and lane sweeps take the chain axis on the card (one launch set for
-all C chains, `ops/cuda/csmc_fwd.py`); the generic step loops and ancestor
-scanning take one chain and raise NotImplementedError under a chain axis.
+factor, lane and block-lane sweeps take the chain axis on the card (one
+launch set for all C chains, `ops/cuda/csmc_fwd.py`); the generic step loops
+and ancestor scanning take one chain and raise NotImplementedError under a
+chain axis.
 
 Dispatch by model capability, as in the JAX package (there by platform and
 environment flags; here the same path runs everywhere, a CPU tensor through
@@ -110,7 +111,18 @@ def _pin(x, value):
 def _one_chain(name, x_star):
     if x_star.dim() > 2:
         raise NotImplementedError(
-            f"{name} takes one chain: a chain axis needs the factor or lane sweeps")
+            f"{name} takes one chain: a chain axis needs the factor, lane or block-lane sweeps")
+
+
+def takes_chain_axis(N, backward, resampling, block_lane=False):
+    """Whether a step of N particles runs C chains as one batched step: only
+    the sweeps take a chain axis, so it needs backward sampling (through the
+    backward factor sweep), multinomial resampling, an N the factor sweeps
+    serve and, for a model of (d, N)-block callables (`block_lane`), one the
+    block-lane sweep serves. Model builders mark a kernel `chain_axis` only
+    then; otherwise the chains loop (`parallel/chains.chain_loop`)."""
+    return (backward and resampling in ("multinomial", resampling_mod.multinomial)
+            and _factor_sweep_takes(N) and (not block_lane or N <= csmc_fwd.MAX_BLOCK_N))
 
 
 def _use_fused_forward(Mt, Gt, resample, ancestor_Pt, N):
@@ -197,14 +209,13 @@ def _block_lane_forward_pass(x_star, M0, G0, Mt, Gt, N, noise):
     the generic (T-1, N, d) draw transposed, so the values used are the
     same."""
     eps_m0, res_u, eps_prop, _ = noise
-    _one_chain("the block-lane sweep", x_star)
     x0, log_w0, w0 = _initial(x_star, M0, G0, eps_m0)
     xs_r, log_ws_r, ancestors = csmc_fwd.block_lane_scan(
-        Mt, Gt, eps_prop.transpose(1, 2).contiguous(), res_u.contiguous(),
-        x_star[1:].contiguous(), x0.T.contiguous(), w0)
-    xs = torch.cat([x0[None], xs_r.transpose(1, 2)])
-    log_ws = torch.cat([log_w0[None], log_ws_r])
-    return normalize(log_ws_r[-1]), xs, log_ws, ancestors
+        Mt, Gt, eps_prop.transpose(-2, -1).contiguous(), res_u.contiguous(),
+        x_star[..., 1:, :].contiguous(), x0.transpose(-2, -1).contiguous(), w0.contiguous())
+    xs = torch.cat([x0.unsqueeze(-3), xs_r.transpose(-2, -1)], -3)
+    log_ws = torch.cat([log_w0.unsqueeze(-2), log_ws_r], -2)
+    return normalize(log_ws_r[..., -1, :], -1), xs, log_ws, ancestors
 
 
 def forward_pass(x_star, M0, G0, Mt, Gt, N, resample, noise, ancestor_Pt=None):

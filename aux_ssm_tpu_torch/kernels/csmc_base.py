@@ -24,7 +24,7 @@ particles' shape to a sample (every location-scale family can); the cSMC
 step draws that noise up front, from a `torch.Generator` or given.
 """
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
@@ -132,6 +132,23 @@ def chol_gaussian_pair_factors(mean_prev, x_next, chol):
 
     return _centred(whiten(mean_prev), whiten(x_next),
                     -torch.log(torch.diagonal(chol)).sum() - 0.5 * d * _LOG_2PI)
+
+
+def shared_by_chains(component):
+    """`component` (a Dynamics or Potential) for C chains on a leading axis
+    that share its per-step params: each param gets a unit chain axis (1,
+    T-1, ...), which broadcasts against the chains' (C, T-1, ...) and which
+    the PIT tree expands to C (`kernels/pit.py`) without copying."""
+    return replace(component, params=tree_map(lambda z: z[None], component.params))
+
+
+def mark_chains(init_kernel, chains):
+    """(init, kernel) with the kernel marked `chain_axis` when `chains`: a
+    kernel over a leading chain axis, which `experiments/cli.py` runs as one
+    batched step."""
+    if chains:
+        init_kernel[1].chain_axis = True
+    return init_kernel
 
 
 def rows(p, x):

@@ -33,7 +33,7 @@ class KalmanSampler(SamplerState):
 
 
 def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parallel,
-               chains=False):
+               chains=False, group=1):
     """Build the auxiliary Kalman sampler.
 
     Parameters
@@ -61,6 +61,15 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
         the six d x d MH kernels) as often as one chain's step does, whatever
         C is. `chain_major` turns such a kernel into one over a leading
         chain axis, as `parallel/chains.py` runs it.
+    group : int
+        With `chains` in the batched scalar layout, the columns a chain
+        holds: C chains of a model of `group` scalar components are C *
+        group columns (chain c's are c * group .. (c + 1) * group - 1), x
+        (T, C * group, 1); the delta (C,) or (C, T) and the accept (C,) are
+        one a chain, lined up with its columns (`chain_delta(delta,
+        group)`), the proposal densities and the MH correction are summed
+        over each chain's columns, and `log_likelihood_fn` gives one value
+        a chain (C,).
 
     Returns
     -------
@@ -71,7 +80,12 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
     `generator`; the step accepts when `u_accept < alpha`, exactly as
     `jax.random.bernoulli`.
     """
-    per_step = chain_delta if chains else (lambda d: d)
+    def per_step(z):
+        return chain_delta(z, group) if chains else z
+
+    def per_chain(z):
+        """One value a chain from one a column."""
+        return z.reshape(-1, group).sum(-1) if group > 1 else z
 
     def propose(delta, eps, u, x, x_eval=None, log_target=None):
         """Build the proposal LGSSM at x; sample from it unless `x_eval` is
@@ -84,7 +98,7 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
         ms, Ps, ell = filtering(ys, lgssm, parallel, keep_batch=chains)
         if x_eval is None:
             x_eval = sampling(eps, ms, Ps, lgssm, parallel)
-        log_prop = posterior_logpdf(ys, x_eval, ell, lgssm, keep_batch=chains)
+        log_prop = per_chain(posterior_logpdf(ys, x_eval, ell, lgssm, keep_batch=chains))
         if log_target is None:
             log_target = log_likelihood_fn(x_eval)
         return log_prop, log_target, x_eval
@@ -95,7 +109,7 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
         if noise is None:
             kw = dict(generator=generator, dtype=x.dtype, device=x.device)
             noise = (torch.randn(x.shape, **kw), torch.randn(x.shape, **kw),
-                     torch.rand(x.shape[1:2] if chains else (), **kw))
+                     torch.rand((x.shape[1] // group,) if chains else (), **kw))
         eps_aux, eps_smooth, u_accept = noise
         sqrt_delta = torch.sqrt(per_step(delta))
 
@@ -106,7 +120,7 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
 
         alpha = _acceptance_probability(log_prop_fwd, log_prop_rev, log_target_prop,
                                         log_target_rev, sqrt_delta, u, x, x_prop,
-                                        dims=(0, 2) if chains else None)
+                                        per_chain if chains else None)
         accept = u_accept < alpha
         x_new = torch.where(per_step(accept), x_prop, x)
         lt_new = (None if state.log_target is None
@@ -114,41 +128,83 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
         return KalmanSampler(x=x_new, updated=accept, log_target=lt_new)
 
     def init(x):
-        return KalmanSampler(x=x, updated=torch.ones(x.shape[1:2] if chains else (),
+        return KalmanSampler(x=x, updated=torch.ones((x.shape[1] // group,) if chains else (),
                                                      dtype=torch.bool, device=x.device),
                              log_target=log_likelihood_fn(x))
 
     return init, kernel
 
 
-def chain_delta(delta):
+def chain_delta(delta, group=1):
     """A chain kernel's delta, (C,) or (C, T), lined up with its time-first
-    trajectories (T, C, d): (C, 1) or (T, C, 1)."""
+    trajectories (T, C, d): (C, 1) or (T, C, 1); with `group`, with those of
+    C chains of `group` columns each (T, C * group, 1): each chain's delta
+    on each of its columns."""
+    if group > 1:
+        delta = delta.repeat_interleave(group, 0)
     return delta[:, None] if delta.dim() == 1 else delta.transpose(0, 1)[..., None]
 
 
-def chain_major(init, kernel):
+def chain_major(init, kernel, group=None):
     """(init, kernel) over a leading chain axis from those of
     `get_kernel(..., chains=True)`, which run time first: the state's x and
-    the noise's trajectories are (C, T, d) outside, (T, C, d) inside; the
-    rest (updated, log_target, u_accept (C,)) has the chain axis first
-    already. The kernel is marked `chain_axis` (`experiments/cli.py` runs
-    it as one batched step, not chain after chain)."""
+    the noise's trajectories are (C, T, d) outside, (T, C, d) inside; with
+    `group` (the batched scalar layout's columns a chain, `get_kernel`'s),
+    (C, T, group, 1) outside and (T, C * group, 1) inside. The rest
+    (updated, log_target, u_accept (C,)) has the chain axis first already.
+    The kernel is marked `chain_axis` (`experiments/cli.py` runs it as one
+    batched step, not chain after chain)."""
 
-    def swap(state):
-        return dataclasses.replace(state, x=state.x.transpose(0, 1).contiguous())
+    def inward(x):
+        x = x.transpose(0, 1)
+        return x if group is None else x.reshape(x.shape[0], -1, 1)
+
+    def outward(x):
+        if group is not None:
+            x = x.reshape(x.shape[0], -1, group, 1)
+        return x.transpose(0, 1).contiguous()
 
     def chained_init(x):
-        return swap(init(x.transpose(0, 1)))
+        state = init(inward(x))
+        return dataclasses.replace(state, x=outward(state.x))
 
     def chained_kernel(state, delta, generator=None, noise=None):
         if noise is not None:
-            noise = (noise[0].transpose(0, 1), noise[1].transpose(0, 1), noise[2])
-        return swap(kernel(dataclasses.replace(state, x=state.x.transpose(0, 1)), delta,
-                           generator=generator, noise=noise))
+            noise = (inward(noise[0]), inward(noise[1]), noise[2])
+        state = kernel(dataclasses.replace(state, x=inward(state.x)), delta,
+                       generator=generator, noise=noise)
+        return dataclasses.replace(state, x=outward(state.x))
 
     chained_kernel.chain_axis = True
     return chained_init, chained_kernel
+
+
+def one_chain(init, kernel):
+    """One chain's (init, kernel) from those over a leading chain axis
+    (`chain_major`'s), run at C = 1: x, delta and the noise go in with a unit
+    chain axis, and it comes off the state (x, and the scalar `updated` and
+    `log_target`)."""
+
+    def first(state):
+        lt = state.log_target
+        return dataclasses.replace(state, x=state.x[0], updated=state.updated[0],
+                                   log_target=None if lt is None else lt[0])
+
+    def unit(state):
+        lt = state.log_target
+        return dataclasses.replace(state, x=state.x[None], updated=state.updated.reshape(1),
+                                   log_target=None if lt is None else lt.reshape(1))
+
+    def one_init(x):
+        return first(init(x[None]))
+
+    def one_kernel(state, delta, generator=None, noise=None):
+        delta = torch.as_tensor(delta, dtype=state.x.dtype, device=state.x.device)[None]
+        if noise is not None:
+            noise = tuple(torch.as_tensor(z)[None] for z in noise)
+        return first(kernel(unit(state), delta, generator=generator, noise=noise))
+
+    return one_init, one_kernel
 
 
 def one_chain_factories(dynamics_factory, *rest):
@@ -177,13 +233,15 @@ def one_chain_factories(dynamics_factory, *rest):
 
 
 def _acceptance_probability(log_prop_fwd, log_prop_rev, log_target_prop,
-                            log_target_rev, sqrt_delta, u, x, x_prop, dims=None):
+                            log_target_rev, sqrt_delta, u, x, x_prop, per_chain=None):
     """Exact MH ratio for the auxiliary move, including the Gaussian pi(x | u)
-    correction, summed over `dims` (default: every axis)."""
+    correction: summed over every axis, or with `per_chain` (time-first
+    chains (T, K, d)) over time and state, then `per_chain` of the K
+    columns' sums."""
     log_alpha = log_target_prop - log_target_rev
     log_alpha = log_alpha + (log_prop_rev - log_prop_fwd)
     diff_prop = (x_prop - u) / sqrt_delta
     diff = (x - u) / sqrt_delta
     sq = diff_prop ** 2 - diff ** 2
-    log_alpha = log_alpha - (sq.sum() if dims is None else sq.sum(dims))
+    log_alpha = log_alpha - (sq.sum() if per_chain is None else per_chain(sq.sum((0, 2))))
     return torch.exp(torch.clamp(log_alpha, max=0.0))

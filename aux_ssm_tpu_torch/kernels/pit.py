@@ -361,11 +361,14 @@ def run_stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, includ
 def _stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, include_root,
                  stitch="auto", draws="joint", pair_offset=0):
     """`run_stitch_tree` over a leading chain axis of C: left_vals /
-    right_vals (C, S, N, d), log_wts (C, S, N), params (C, S, ...), the
+    right_vals (C, S, N, d), log_wts (C, S, N), params (C, S, ...) (or (1,
+    S, ...), every chain's), the
     noise as the module docstring's chain layout. A level's C * n_act nodes
     are drawn as one batch of pairs. Returns `sels` of (L, R, n_act), L / R
     (C, n_act, N), and `root` (l*, r*), each (C,)."""
     C, S = left_vals.shape[:2]
+    # Params every chain shares come with a unit chain axis: a view of C.
+    params = tree_map(lambda z: z.expand(C, *z.shape[1:]), params)
     fused = getattr(Gt, "supports_pairwise_factors", False)
     K = int(math.log2(_next_pow2(S)))
     sels, root = [], None
@@ -477,6 +480,12 @@ def _resolve(sels, idx_init, S, N):
     for k in range(len(sels) - 1, -1, -1):
         idx = torch.gather(_level_selection_rows(S, k, sels[k], N), 2, idx[..., None])[..., 0]
     return idx
+
+
+def takes_chain_axis(N, stitch="auto"):
+    """Whether a PIT step of N particles runs C chains as one batched step:
+    every route but the blocked one takes a chain axis."""
+    return not _use_blocked_stitch(N, stitch)
 
 
 def _use_blocked_stitch(N, stitch):

@@ -30,9 +30,12 @@ import torch
 from . import t_distribution as tdist
 from ..device import resolve
 from ..kernels import csmc_aux, csmc_independent
+from ..kernels.csmc import takes_chain_axis
 from ..kernels.csmc_base import (Distribution, Dynamics, Potential, UnivariatePotential,
-                                 diag_gaussian_pair_factors, rows as _rows)
-from ..kernels.kalman import get_kernel as get_kalman_generic
+                                 diag_gaussian_pair_factors, mark_chains, rows as _rows,
+                                 shared_by_chains)
+from ..kernels.kalman import (chain_delta, chain_major, get_kernel as get_kalman_generic,
+                              one_chain)
 from ..native.precision import make_precision_dense, precision_rows, precision_stencil
 from ..ops.mvn import norm_logpdf
 from ..ops.resampling import choice_from_uniform
@@ -122,50 +125,79 @@ def init_x_fn(ys, sigma_x, nu, stencil, d, N, generator=None):
 # Auxiliary Kalman (batched scalar filters)
 # --------------------------------------------------------------------------
 
-def get_kalman_kernel(ys, sigma_x, nu, tau, r_y, d, parallel, order=1):
+def get_kalman_kernel(ys, sigma_x, nu, tau, r_y, d, parallel, order=1, chains=False):
     """Auxiliary Kalman kernel in the batched (T, B, 1, 1) layout; `order` 2
     uses the diagonal approximation hess ~ -nu diag(P) / (nu - 2), and the
     stencil's centre is 1. Returns (init, kernel) of `kernels.kalman
-    .get_kernel`; `init` takes a (T, B) or (T, B, 1) trajectory."""
+    .get_kernel`; `init` takes a (T, B) or (T, B, 1) trajectory.
+
+    With `chains`, C chains as one batched step over a leading chain axis:
+    `init(x (C, T, B) or (C, T, B, 1))`, the state's x (C, T, B, 1), delta
+    (C,), noise ((C, T, B, 1), (C, T, B, 1), (C,)); inside, the chains' B
+    components are C B columns of the batched scalar layout (`kernels.kalman
+    .get_kernel`'s `group`), so a step launches the scalar scans as often as
+    one chain's does, and each chain's densities are summed over its own B
+    columns: one accept a chain. The kernel is marked `chain_axis`. Without
+    `chains`, one chain's: the same kernel at C = 1 (`kernels.kalman
+    .one_chain`), x (T, B, 1), a scalar delta and `updated`."""
     T, B = ys.shape
     if B != d * d:
         raise ValueError(f"ys has {B} components, expected d * d = {d * d}")
     stencil = _stencil(tau, r_y, ys)
     kw = dict(dtype=ys.dtype, device=ys.device)
     m0, P0, F, Q, b = get_dynamics(sigma_x, d, **kw)
-    Fs, Qs, bs = F.expand(T - 1, B, 1, 1), Q.expand(T - 1, B, 1, 1), b.expand(T - 1, B, 1)
-    eyes = torch.ones(T, B, 1, 1, **kw)
-    zeros = torch.zeros(T, B, 1, **kw)
     hess_diag = -nu / (nu - 2.0)
+    columns = {}  # C -> the layout's constant parts at C B columns
 
-    def dynamics_factory(_x):
-        return m0, P0, Fs, Qs, bs
+    def layout(x):
+        C = x.shape[1] // B
+        if C not in columns:
+            columns[C] = (m0.repeat(C, 1), P0.repeat(C, 1, 1),
+                          F.repeat(C, 1, 1).expand(T - 1, C * B, 1, 1),
+                          Q.repeat(C, 1, 1).expand(T - 1, C * B, 1, 1),
+                          b.repeat(C, 1).expand(T - 1, C * B, 1),
+                          torch.ones(T, C * B, 1, 1, **kw), torch.zeros(T, C * B, 1, **kw))
+        return C, columns[C]
+
+    def chain_view(x):
+        """(T, C B, 1) columns as (T, C, B) chains."""
+        return x[..., 0].unflatten(1, (-1, B))
+
+    def dynamics_factory(x):
+        return layout(x)[1][:5]
 
     def grad(x):
-        return torch.nan_to_num(grad_log_potential_one(x[..., 0], ys, nu, stencil, d))[..., None]
+        g = grad_log_potential_one(chain_view(x), ys[:, None], nu, stencil, d)
+        return torch.nan_to_num(g).flatten(1)[..., None]
 
     def first_order_factory(x, u, delta):
-        aux_ys = u + 0.5 * delta * grad(x)
-        return aux_ys, eyes, 0.5 * delta * eyes, zeros
+        eyes, zeros = layout(x)[1][5:]
+        half = 0.5 * chain_delta(delta, B)
+        aux_ys = u + half * grad(x)
+        return aux_ys, eyes, half[..., None] * eyes, zeros
 
     def second_order_factory(x, u, delta):
-        omega = 1.0 / (2.0 / delta - hess_diag)
-        aux_ys = omega * (2.0 * u / delta + grad(x) - hess_diag * x)
-        return aux_ys, eyes, omega * eyes, zeros
+        eyes, zeros = layout(x)[1][5:]
+        dl = chain_delta(delta, B)
+        omega = 1.0 / (2.0 / dl - hess_diag)
+        aux_ys = omega * (2.0 * u / dl + grad(x) - hess_diag * x)
+        return aux_ys, eyes, omega[..., None] * eyes, zeros
 
     def log_likelihood_fn(x):
-        flat = x[..., 0]
-        out = norm_logpdf(flat[0], 0.0, sigma_x).sum()
-        out = out + norm_logpdf(flat[1:], flat[:-1], sigma_x).sum()
-        return out + log_potential(flat, ys, nu, stencil, d)
+        flat = chain_view(x)
+        out = norm_logpdf(flat[0], 0.0, sigma_x).sum(-1)
+        out = out + norm_logpdf(flat[1:], flat[:-1], sigma_x).sum(0).sum(-1)
+        return out + log_potential_one(flat, ys[:, None], nu, stencil, d).sum(0)
 
     factory = first_order_factory if order == 1 else second_order_factory
-    init_, kernel = get_kalman_generic(dynamics_factory, factory, log_likelihood_fn, parallel)
+    init_, kernel = chain_major(*get_kalman_generic(dynamics_factory, factory,
+                                                    log_likelihood_fn, parallel, chains=True,
+                                                    group=B), group=B)
 
     def init(xs):
-        return init_(xs[..., None] if xs.dim() == 2 else xs)
+        return init_(xs[..., None] if xs.dim() == 3 else xs)
 
-    return init, kernel
+    return (init, kernel) if chains else one_chain(init, kernel)
 
 
 # --------------------------------------------------------------------------
@@ -225,23 +257,33 @@ class SpatialObsGt(Potential):
         return log_potential_one(x_next, _rows(y, x_next), self.nu, self.stencil, self.d)
 
 
-def get_feynman_kac(ys, sigma_x, nu, tau, r_y, d):
-    """The model through the cSMC interface: (M0, G0, Mt, Gt)."""
+def get_feynman_kac(ys, sigma_x, nu, tau, r_y, d, chains=False):
+    """The model through the cSMC interface: (M0, G0, Mt, Gt). With
+    `chains`, for C chains on a leading axis: the per-step params, which
+    every chain shares, carry a unit chain axis ((1, T-1, ...);
+    `csmc_base.shared_by_chains`)."""
     T = ys.shape[0]
     stencil = _stencil(tau, r_y, ys)
-    return (SpatialPrior(sigma_x), SpatialObsG0(ys[0], nu, stencil, d),
-            SpatialTransition(params=ys.new_zeros(T - 1, 0), sigma_x=sigma_x),
-            SpatialObsGt(params=ys[1:], nu=nu, stencil=stencil, d=d))
+    Mt = SpatialTransition(params=ys.new_zeros(T - 1, 0), sigma_x=sigma_x)
+    Gt = SpatialObsGt(params=ys[1:], nu=nu, stencil=stencil, d=d)
+    if chains:
+        Mt, Gt = shared_by_chains(Mt), shared_by_chains(Gt)
+    return SpatialPrior(sigma_x), SpatialObsG0(ys[0], nu, stencil, d), Mt, Gt
 
 
 def get_csmc_kernel(ys, sigma_x, nu, tau, r_y, d, n_particles, backward=False, parallel=False,
-                    gradient=False, resampling="multinomial"):
+                    gradient=False, resampling="multinomial", chains=False):
     """Auxiliary PG with independent proposals (style `csmc`); returns
-    (init, kernel), `kernel(state, delta, generator=None, noise=None)`."""
-    M0, G0, Mt, Gt = get_feynman_kac(ys, sigma_x, nu, tau, r_y, d)
-    return csmc_independent.get_kernel(M0, G0, Mt, Gt, n_particles, backward=backward, Pt=Mt,
-                                       gradient=gradient, parallel=parallel,
-                                       resampling=resampling)
+    (init, kernel), `kernel(state, delta, generator=None, noise=None)`. With
+    `chains`, C chains as one batched step over a leading chain axis (x (C,
+    T, B), delta (C, T), the noise with a leading C); the kernel is marked
+    `chain_axis`."""
+    chains = chains and csmc_independent.takes_chain_axis(n_particles, backward, parallel,
+                                                          resampling)
+    M0, G0, Mt, Gt = get_feynman_kac(ys, sigma_x, nu, tau, r_y, d, chains)
+    return mark_chains(csmc_independent.get_kernel(
+        M0, G0, Mt, Gt, n_particles, backward=backward, Pt=Mt, gradient=gradient,
+        parallel=parallel, resampling=resampling), chains)
 
 
 # --------------------------------------------------------------------------
@@ -304,13 +346,16 @@ def _aligned(x, u, scale, y):
 
 @dataclass(frozen=True)
 class GuidedM0(Distribution):
+    """The guided proposal at t = 0 (x_pred = 0); u (..., B) and scale (...),
+    each chain's under a chain axis."""
     c: _GuidedConsts
     u: torch.Tensor
     scale: torch.Tensor
     y: torch.Tensor
 
     def sample_from_noise(self, eps):
-        mu, lam = self.c.moments(torch.zeros_like(self.u), self.u, self.scale, self.y)
+        u, scale, y = _aligned(eps, self.u, self.scale, self.y)
+        mu, lam = self.c.moments(torch.zeros_like(u), u, scale, y)
         return mu + lam * eps
 
 
@@ -322,7 +367,8 @@ class GuidedG0(UnivariatePotential):
     y: torch.Tensor
 
     def __call__(self, x):
-        return self.c.guided_logw(x, torch.zeros_like(self.u), (self.u, self.scale, self.y))
+        u = _aligned(x, self.u, self.scale, self.y)[0]
+        return self.c.guided_logw(x, torch.zeros_like(u), (self.u, self.scale, self.y))
 
 
 @dataclass(frozen=True, kw_only=True)
@@ -384,14 +430,16 @@ class GuidedGt(Potential):
         lam2 = lam * lam
         log_c = B * (math.log(2 * math.pi * s2) + torch.log(2 * math.pi * sc2)
                      - torch.log(2 * math.pi * lam2))
-        step = torch.stack([scale, K, lam, sc2 * (c.nu + B), log_c, 1.0 / sc2, 1.0 / lam2], 1)
-        return c.packed, torch.cat([u, y, step], 1)
+        step = torch.stack([scale, K, lam, sc2 * (c.nu + B), log_c, 1.0 / sc2, 1.0 / lam2], -1)
+        return c.packed, torch.cat([u, y, step], -1)
 
 
 def make_guided_factory(ys, sigma_x, nu, tau, r_y, d, gradient=False):
     """`factory(u, scale) -> (M0, G0, Mt, Gt)` of the guided proposals at
-    auxiliary observations u (T, B) with scales (T,), and the true dynamics
-    `Pt` for backward sampling."""
+    auxiliary observations u (T, B) with scales (T,), or C chains' u (C, T,
+    B) and scales (C, T) (their params (C, T-1, ...), the data broadcast to
+    every chain, not copied; the precision's row lists shared), and the true
+    dynamics `Pt` for backward sampling."""
     _, _, Pt, _ = get_feynman_kac(ys, sigma_x, nu, tau, r_y, d)
     prec = make_precision_dense(tau, r_y, d)
     vals, cols = precision_rows(prec)
@@ -402,18 +450,24 @@ def make_guided_factory(ys, sigma_x, nu, tau, r_y, d, gradient=False):
                       torch.as_tensor(packed, dtype=ys.dtype, device=ys.device), vals.shape[1])
 
     def factory(u, scale):
-        params = (u[1:], scale[1:], ys[1:])
-        return (GuidedM0(c, u[0], scale[0], ys[0]), GuidedG0(c, u[0], scale[0], ys[0]),
+        u_r = u[..., 1:, :]
+        params = (u_r, scale[..., 1:], ys[1:].expand(u_r.shape))
+        u0, s0 = u[..., 0, :], scale[..., 0]
+        return (GuidedM0(c, u0, s0, ys[0]), GuidedG0(c, u0, s0, ys[0]),
                 GuidedMt(params=params, c=c), GuidedGt(params=params, c=c))
 
     return factory, Pt
 
 
 def get_guided_csmc_kernel(ys, sigma_x, nu, tau, r_y, d, n_particles, backward=False,
-                           gradient=False, resampling="multinomial"):
+                           gradient=False, resampling="multinomial", chains=False):
     """Scalar-gain guided proposals: K = sigma_x^2 / (sigma_x^2 + delta / 2)
     recentres the random walk on the (optionally gradient-shifted) auxiliary
     observation. Returns (init, kernel), `kernel(state, delta, generator=None,
-    noise=None)`."""
+    noise=None)`. With `chains`, C chains as one batched step over a leading
+    chain axis (x (C, T, B), delta (C, T), the noise with a leading C): one
+    block-lane sweep and one backward factor sweep a step for all C chains;
+    the kernel is marked `chain_axis`."""
     factory, Pt = make_guided_factory(ys, sigma_x, nu, tau, r_y, d, gradient)
-    return csmc_aux.get_kernel(factory, n_particles, backward, Pt, resampling)
+    return mark_chains(csmc_aux.get_kernel(factory, n_particles, backward, Pt, resampling),
+                       chains and takes_chain_axis(n_particles, backward, resampling, True))

@@ -30,10 +30,12 @@ import torch
 
 from ..device import resolve
 from ..kernels import csmc_aux, csmc_independent
+from ..kernels.csmc import takes_chain_axis
 from ..kernels.kalman import (chain_delta, chain_major, get_kernel as get_kalman_generic,
                               one_chain_factories)
 from ..kernels.csmc_base import (Distribution, Dynamics, Potential, UnivariatePotential,
-                                 chol_gaussian_pair_factors, rows as _rows)
+                                 chol_gaussian_pair_factors, mark_chains, rows as _rows,
+                                 shared_by_chains)
 from ..ops import mvn
 from ..ops.mvn import norm_logpdf as _norm_logpdf
 from ..ops.resampling import choice_from_uniform
@@ -273,22 +275,33 @@ class SvObsGt(Potential):
         return _norm_logpdf(_rows(y, x_next), 0.0, torch.exp(0.5 * x_next)).sum(-1)
 
 
-def get_feynman_kac(ys, nu, phi, tau, rho):
-    """The model through the cSMC interface: (M0, G0, Mt, Gt)."""
+def get_feynman_kac(ys, nu, phi, tau, rho, chains=False):
+    """The model through the cSMC interface: (M0, G0, Mt, Gt). With
+    `chains`, for C chains on a leading axis: the per-step params, which
+    every chain shares, carry a unit chain axis ((1, T-1, ...);
+    `csmc_base.shared_by_chains`)."""
     T = ys.shape[0]
     m0, chol_P0, F, _, chol_Q, b = _factored_dynamics(nu, phi, tau, rho, ys)
     Mt = SvTransition(params=ys.new_zeros(T - 1, 0), F=F, b=b, chol_Q=chol_Q)
-    return SvPrior(m0, chol_P0), SvObsG0(ys[0]), Mt, SvObsGt(params=ys[1:])
+    Gt = SvObsGt(params=ys[1:])
+    if chains:
+        Mt, Gt = shared_by_chains(Mt), shared_by_chains(Gt)
+    return SvPrior(m0, chol_P0), SvObsG0(ys[0]), Mt, Gt
 
 
 def get_csmc_kernel(ys, nu, phi, tau, rho, n_particles, backward=False, parallel=False,
-                    gradient=False, resampling="multinomial"):
+                    gradient=False, resampling="multinomial", chains=False):
     """Auxiliary PG with independent proposals (style `csmc`); returns
-    (init, kernel), `kernel(state, delta, generator=None, noise=None)`."""
-    M0, G0, Mt, Gt = get_feynman_kac(ys, nu, phi, tau, rho)
-    return csmc_independent.get_kernel(M0, G0, Mt, Gt, n_particles, backward=backward, Pt=Mt,
-                                       gradient=gradient, parallel=parallel,
-                                       resampling=resampling)
+    (init, kernel), `kernel(state, delta, generator=None, noise=None)`. With
+    `chains`, C chains as one batched step over a leading chain axis (x (C,
+    T, D), delta (C, T), the noise with a leading C; `kernels/csmc.py`,
+    `kernels/pit.py`); the kernel is marked `chain_axis`."""
+    chains = chains and csmc_independent.takes_chain_axis(n_particles, backward, parallel,
+                                                          resampling)
+    M0, G0, Mt, Gt = get_feynman_kac(ys, nu, phi, tau, rho, chains)
+    return mark_chains(csmc_independent.get_kernel(
+        M0, G0, Mt, Gt, n_particles, backward=backward, Pt=Mt, gradient=gradient,
+        parallel=parallel, resampling=resampling), chains)
 
 
 # --------------------------------------------------------------------------
@@ -300,12 +313,17 @@ def _obs_logpdf(x, y):
 
 
 def get_guided_csmc_kernel(ys, nu, phi, tau, rho, n_particles, backward=False, gradient=False,
-                           resampling="multinomial", eig=None):
+                           resampling="multinomial", eig=None, chains=False):
     """Guided auxiliary PG: each proposal is the exact Gaussian combination
     of the prior step N(x_pred, Q) with the pseudo-observation u ~ N(x,
-    delta/2). Returns (init, kernel); see `make_guided_factory` for `eig`."""
+    delta/2). Returns (init, kernel); see `make_guided_factory` for `eig`.
+    With `chains`, C chains as one batched step over a leading chain axis (x
+    (C, T, D), delta (C, T), the noise with a leading C): one block-lane
+    sweep and one backward factor sweep a step for all C chains; the kernel
+    is marked `chain_axis`."""
     factory, Pt = make_guided_factory(ys, nu, phi, tau, rho, gradient, eig=eig)
-    return csmc_aux.get_kernel(factory, n_particles, backward, Pt, resampling)
+    return mark_chains(csmc_aux.get_kernel(factory, n_particles, backward, Pt, resampling),
+                       chains and takes_chain_axis(n_particles, backward, resampling, True))
 
 
 @dataclass(frozen=True)
@@ -326,7 +344,8 @@ class _GuidedConsts:
 
 def _eigen_factors(lam, scale):
     """(gain, sqrt(Lam), 1/sqrt(Lam), 0.5 log det Lam) eigenvalues of the
-    guided proposal at scale(s) `scale`; (T, 1) scales broadcast against (d,)."""
+    guided proposal at scale(s) `scale`; (..., 1) scales broadcast against
+    (d,)."""
     s2 = scale ** 2
     g = lam / (lam + s2)
     lamL = lam * s2 / (lam + s2)
@@ -345,27 +364,48 @@ def _shifted(c, u, scale, y):
     return u + scale[..., None] ** 2 * g
 
 
+def _mat(x, A):
+    """x (..., d) @ A (d, e), the d products summed elementwise in a fixed
+    order: the same bits whatever x's leading shape (a BLAS product's
+    rounding can change with its row count), so a batch of chains' step
+    gives each chain one chain's bits."""
+    return (x[..., :, None] * A).sum(-2)
+
+
+def _initial_params(x, u, scale):
+    """The t = 0 params u (..., d) and scale (...) aligned with particles x
+    (..., N, d)."""
+    if x.dim() > u.dim():
+        return u.unsqueeze(-2), scale[..., None, None]
+    return u, scale
+
+
 @dataclass(frozen=True)
 class GuidedM0(Distribution):
+    """The guided proposal at t = 0; u (..., d) and scale (...), each chain's
+    under a chain axis."""
     c: _GuidedConsts
     u: torch.Tensor
     scale: torch.Tensor
     y: torch.Tensor
 
-    def _moments(self):
+    def _moments(self, x):
         c = self.c
-        g, sqrtL, inv_sqrtL, hld = _eigen_factors(c.lam0, self.scale)
+        g, sqrtL, inv_sqrtL, hld = _eigen_factors(c.lam0, self.scale[..., None])
         resid = _shifted(c, self.u, self.scale, self.y) - c.m0
-        mu = c.m0 + ((resid @ c.V0) * g) @ c.V0.T
+        mu = c.m0 + _mat(_mat(resid, c.V0) * g, c.V0.T)
+        if x.dim() > mu.dim():  # particles (..., N, d)
+            mu, sqrtL, inv_sqrtL = mu.unsqueeze(-2), sqrtL.unsqueeze(-2), inv_sqrtL.unsqueeze(-2)
+            hld = hld[..., None]
         return mu, sqrtL, inv_sqrtL, hld
 
     def sample_from_noise(self, eps):
-        mu, sqrtL, _, _ = self._moments()
-        return mu + ((eps @ self.c.V0) * sqrtL) @ self.c.V0.T
+        mu, sqrtL, _, _ = self._moments(eps)
+        return mu + _mat(_mat(eps, self.c.V0) * sqrtL, self.c.V0.T)
 
     def logpdf(self, x):
-        mu, _, inv_sqrtL, hld = self._moments()
-        w = ((x - mu) @ self.c.V0) * inv_sqrtL
+        mu, _, inv_sqrtL, hld = self._moments(x)
+        w = _mat(x - mu, self.c.V0) * inv_sqrtL
         return -0.5 * (w * w).sum(-1) - hld - self.c.half_d_log2pi
 
 
@@ -378,10 +418,11 @@ class GuidedG0(UnivariatePotential):
 
     def __call__(self, x):
         c = self.c
-        w0 = ((x - c.m0) @ c.V0) / torch.sqrt(c.lam0)
+        u, scale = _initial_params(x, self.u, self.scale)
+        w0 = _mat(x - c.m0, c.V0) / torch.sqrt(c.lam0)
         out = _obs_logpdf(x, self.y)
         out = out + (-0.5 * (w0 * w0).sum(-1) - 0.5 * torch.log(c.lam0).sum() - c.half_d_log2pi)
-        out = out + _norm_logpdf(x, self.u, self.scale).sum(-1)
+        out = out + _norm_logpdf(x, u, scale).sum(-1)
         return out - GuidedM0(c, self.u, self.scale, self.y).logpdf(x)
 
 
@@ -461,7 +502,7 @@ class GuidedGt(Potential):
         the packed constants and the (T-1, 6 d + 2) rows [u, y, rotS, g,
         sqrtL, inv_sqrtL, scale, hld]."""
         u, scale, y, rotS, g, sqrtL, inv_sqrtL, hld = self.params
-        rows = torch.cat([u, y, rotS, g, sqrtL, inv_sqrtL, scale[:, None], hld[:, None]], 1)
+        rows = torch.cat([u, y, rotS, g, sqrtL, inv_sqrtL, scale[..., None], hld[..., None]], -1)
         return self.c.packed, rows
 
 
@@ -496,10 +537,16 @@ def make_guided_factory(ys, nu, phi, tau, rho, gradient=False, eig=None):
     lamQ = _cast(ys, lamQ)[0]
 
     def factory(u, scale):
-        g, sqrtL, inv_sqrtL, hld = _eigen_factors(lamQ, scale[1:, None])
-        rotS = _shifted(c, u[1:], scale[1:], ys[1:]) @ c.VQ
-        params = (u[1:], scale[1:], ys[1:], rotS, g, sqrtL, inv_sqrtL, hld)
-        return (GuidedM0(c, u[0], scale[0], ys[0]), GuidedG0(c, u[0], scale[0], ys[0]),
+        """The components at u (..., T, d), scale (..., T): one chain, or C
+        chains' on a leading axis (their params (C, T-1, ...), the data
+        broadcast to every chain, not copied; the constants shared)."""
+        u_r, scale_r = u[..., 1:, :], scale[..., 1:]
+        y = ys[1:].expand(u_r.shape)
+        g, sqrtL, inv_sqrtL, hld = _eigen_factors(lamQ, scale_r[..., None])
+        rotS = _mat(_shifted(c, u_r, scale_r, y), c.VQ)
+        params = (u_r, scale_r, y, rotS, g, sqrtL, inv_sqrtL, hld)
+        u0, s0 = u[..., 0, :], scale[..., 0]
+        return (GuidedM0(c, u0, s0, ys[0]), GuidedG0(c, u0, s0, ys[0]),
                 GuidedMt(params=params, c=c), GuidedGt(params=params, c=c))
 
     return factory, Pt

@@ -16,12 +16,12 @@ rf, cf (n, N, k); rb, cb, log_ws, res_u (n, N); anc_u, us (n,); w0 (N,);
 block-lane sweep: eps, xs (n, d, N); x_star (n, d); x0 (d, N);
 lane sweep (scalar state): eps, xs (n, N); x_star (n,); x0 (N,).
 
-Chain axis: the factor and lane sweeps also take C independent chains at
-once, every operand (and output) with a leading C (rf (C, n, N, k), b_T
-(C,), the lane functor's rows (C, n, P); its constants shared). On the card
-that is one launch of each kernel, a block a chain (the pair-score pass: C n
-blocks); C = 1 gives the one-chain call's values bit for bit. The plain
-versions run the one-chain plain version on each chain.
+Chain axis: every sweep also takes C independent chains at once, every
+operand (and output) with a leading C (rf (C, n, N, k), b_T (C,), the lane
+and block-lane functors' rows (C, n, P); their constants shared). On the
+card that is one launch of each kernel, a block a chain (the pair-score
+pass: C n blocks); C = 1 gives the one-chain call's values bit for bit. The
+plain versions run the one-chain plain version on each chain.
 """
 import torch
 
@@ -382,36 +382,65 @@ def block_lane_scan(Mt, Gt, eps, res_u, x_star, x0, w0):
     """The block-lane sweep of the model (Mt, Gt); see `block_lane_scan_plain`.
     On the card the model's step is a functor compiled into the kernel,
     named by the class attribute `cuda_model` of Mt and Gt; Gt's
-    `cuda_operands()` hands over its constants and per-step parameters."""
+    `cuda_operands()` hands over its constants and per-step parameters.
+    With a leading chain axis on eps (C, n, d, N) and the other operands
+    (and on the components' params, which lead with (C, n); the constants
+    shared), C chains' sweeps at once: one launch, a block a chain. Each
+    chain's operands must be its own: a per-chain operand broadcast over the
+    chains (stride 0) raises, rather than being copied C times."""
+    chained = eps.dim() == 4
     if not _on_cuda("block_lane_scan", eps):
-        return block_lane_scan_plain(Mt.block_propagate, Gt.block_logw, Mt.params, Gt.params,
-                                     eps, res_u, x_star, x0, w0)
+        plain_args = (Mt.params, Gt.params, eps, res_u, x_star, x0, w0)
+        fns = (Mt.block_propagate, Gt.block_logw)
+        if chained:
+            return _per_chain(lambda *a: block_lane_scan_plain(*fns, *a), *plain_args,
+                              chains=eps.shape[0])
+        return block_lane_scan_plain(*fns, *plain_args)
     model = getattr(Gt, "cuda_model", None)
     if model not in BLOCK_LANE_MODELS or getattr(Mt, "cuda_model", None) != model:
         raise NotImplementedError(
             f"block_lane_scan: no CUDA functor for {type(Mt).__name__}/{type(Gt).__name__} "
             f"(csrc/csmc_models.cuh has {', '.join(BLOCK_LANE_MODELS)})")
-    n, d, N = eps.shape
+    *lead, n, d, N = eps.shape
+    C = lead[0] if chained else 1
     _check_n("block_lane_scan", N, MAX_BLOCK_N)
     if not 1 <= d <= MAX_BLOCK_D:
         raise ValueError(f"block_lane_scan: the CUDA kernel takes d in 1..{MAX_BLOCK_D}, got {d}")
     consts, params = Gt.cuda_operands()
     mats, vecs, lists, scalars, row_vecs, row_scalars = BLOCK_LANE_MODELS[model]
     width = getattr(Gt, "ell_width", 0)
-    for t, shape in ((res_u, (n, N)), (x_star, (n, d)), (x0, (d, N)), (w0, (N,)),
-                     (consts, (mats * d * d + vecs * d + lists * d * width + scalars,)),
-                     (params, (n, row_vecs * d + row_scalars))):
-        _check_shape("block_lane_scan", t, shape)
+    per_chain = ((eps, (n, d, N)), (res_u, (n, N)), (x_star, (n, d)), (x0, (d, N)), (w0, (N,)),
+                 (params, (n, row_vecs * d + row_scalars)))
+    for t, shape in per_chain + ((consts, (mats * d * d + vecs * d + lists * d * width
+                                           + scalars,)),):
+        _check_shape("block_lane_scan", t, (*lead, *shape) if t is not consts else shape)
+    if C > 1:
+        for i, (t, _) in enumerate(per_chain):
+            if t.stride(0) == 0:
+                raise ValueError(f"block_lane_scan: operand {i} ({tuple(t.shape)}) is one "
+                                 "tensor broadcast over the chains; each chain's must be its "
+                                 "own")
     args = check_cuda_inputs("block_lane_scan", (eps, res_u, x_star, x0, w0, consts, params),
                              eps.dtype, 1, ())
-    xs = eps.new_empty(n, d, N)
-    log_ws = eps.new_empty(n, N)
-    ancestors = torch.empty(n, N, dtype=torch.int64, device=eps.device)
+    xs = eps.new_empty(*lead, n, d, N)
+    log_ws = eps.new_empty(*lead, n, N)
+    ancestors = torch.empty(*lead, n, N, dtype=torch.int64, device=eps.device)
     if n:
-        launch(f"csmc_block_lane_{model}", eps.dtype, n, N, d, consts.numel(), *args, xs, log_ws,
-               ancestors)
+        launch(f"csmc_block_lane_{model}", eps.dtype, n, C, N, d, consts.numel(), *args, xs,
+               log_ws, ancestors)
         block_lane_scan.launches += 1
     return xs, log_ws, ancestors
+
+
+def block_lane_occupancy(model, N, d, nconst, dtype, device):
+    """(blocks a chain's sweep of N particles of width d with `nconst`
+    constants puts on one SM at once, whether that sweep is staged in shared
+    memory), by the CUDA occupancy calculator on `device`: how many chains
+    an SM runs side by side."""
+    out = torch.zeros(2, dtype=torch.int32, device=device)
+    launch(f"csmc_block_lane_occupancy_{model}", dtype, N, d, nconst, out)
+    blocks, staged = out.tolist()
+    return blocks, bool(staged)
 
 
 block_lane_scan.launches = 0

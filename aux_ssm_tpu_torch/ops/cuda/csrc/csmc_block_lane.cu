@@ -30,6 +30,12 @@
 //    ballot, so a step has two block barriers (operands and carry
 //    published; weights and particles published). N > 32 keeps the block
 //    collectives and the binary search of csmc_common.cuh.
+// A chain axis is blockIdx.x offsetting every pointer but the constants':
+// C independent chains' sweeps in one launch, a block a chain, their
+// operands chain after chain (eps (C, n, d, N), res_u (C, n, N), x_star (C,
+// n, d), x0 (C, d, N), w0 (C, N), rows (C, n, row); `BlockLaneIO::chain`).
+// The model's constants are every chain's: each block reads them into its
+// shared memory from the one copy. C = 1 is the one-chain call, bit for bit.
 // The TPU's one-hot gather matmul and lane-broadcast (T-1, L, N) parameter
 // blocks are not carried over: a warp reads its ancestor's column directly
 // and the per-step parameters come as compact (T-1, row) arrays (row = 6 d
@@ -147,6 +153,24 @@ AUX_HD void block_lane_sweep(const Block<S>& b, int n, int N, int d, const S* ep
   }
 }
 
+// A block-lane sweep's operands; `chain(c, n, N, d, row)` is chain c's
+// slice of a chain-batched call's (n steps of N particles of width d, its
+// per-step rows `row` wide; the constants shared).
+template <typename S>
+struct BlockLaneIO {
+  const S *eps, *res_u, *x_star, *x0, *w0, *consts, *params;
+  S *xs, *log_ws;
+  long long* anc;
+
+  AUX_HD BlockLaneIO chain(int c, int n, int N, int d, int row) const {
+    const long nN = (long)n * N, ndN = nN * d, dN = (long)d * N;
+    return BlockLaneIO{eps + c * ndN,     res_u + c * nN,   x_star + (long)c * n * d,
+                       x0 + c * dN,       w0 + (long)c * N, consts,
+                       params + (long)c * n * row,          xs + c * ndN,
+                       log_ws + c * nN,   anc + c * nN};
+  }
+};
+
 }  // namespace
 
 #ifdef __CUDACC__
@@ -163,57 +187,102 @@ constexpr int kMaxBlockN = 1024;  // the TPU kernel's dense cap (_DENSE_MAX_N)
 inline int block_lane_threads(int N) { return N < 32 ? 32 * N : 1024; }
 
 // Dynamic shared memory: the model's nconst constants, then the buffers.
+// Block c runs chain c.
 template <typename S, class Model, bool kStaged, bool kWarpWeights>
 __global__ void __launch_bounds__(1024)
 block_lane_kernel(int n, int N, int d, int nconst, const S* eps, const S* res_u,
                   const S* x_star, const S* x0, const S* w0, const S* consts, const S* params,
                   S* xs, S* log_ws, long long* anc) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const auto io = BlockLaneIO<S>{eps, res_u, x_star, x0, w0, consts, params, xs, log_ws, anc}
+                      .chain((int)blockIdx.x, n, N, d, Model::row_width(d));
   S* c = reinterpret_cast<S*>(smem);
-  for (int i = threadIdx.x; i < nconst; i += blockDim.x) c[i] = consts[i];
+  for (int i = threadIdx.x; i < nconst; i += blockDim.x) c[i] = io.consts[i];
   const SweepBuffers<S> sb = carve<S, Model>(c + nconst, N, d, blockDim.x / 32, kStaged);
   __syncthreads();
   const Model model(d, N, c);
   block_lane_sweep<S, Model, kStaged, kWarpWeights>(
-      Block<S>{(int)threadIdx.x, (int)blockDim.x, sb.red}, n, N, d, eps, params, res_u, x_star,
-      x0, w0, model, xs, log_ws, anc, sb);
+      Block<S>{(int)threadIdx.x, (int)blockDim.x, sb.red}, n, N, d, io.eps, io.params,
+      io.res_u, io.x_star, io.x0, io.w0, model, io.xs, io.log_ws, io.anc, sb);
 }
 
+// The launch plan of N particles of width d with nconst constants: the
+// threads, whether the sweep is staged, its dynamic shared memory.
 template <typename S, class Model>
-int run_block_lane(int n, int N, int d, int nconst, const S* eps, const S* res_u,
-                   const S* x_star, const S* x0, const S* w0, const S* consts, const S* params,
-                   S* xs, S* log_ws, long long* anc, cudaStream_t stream) {
-  if (n <= 0 || N < 1 || N > kMaxBlockN || d < 1 || d > kMaxBlockD || nconst < 1)
-    return (int)cudaErrorInvalidValue;
+int block_lane_plan(int N, int d, int nconst, int* threads, bool* staged, size_t* shmem) {
   int device = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  const int threads = block_lane_threads(N), nwarps = threads / 32;
-  const bool staged = block_lane_staged<Model>(N, d, nconst, nwarps, sizeof(S), limit);
-  const size_t shmem = (nconst + sweep_words<Model>(N, d, nwarps, staged)) * sizeof(S);
+  *threads = block_lane_threads(N);
+  const int nwarps = *threads / 32;
+  *staged = block_lane_staged<Model>(N, d, nconst, nwarps, sizeof(S), limit);
+  *shmem = (nconst + sweep_words<Model>(N, d, nwarps, *staged)) * sizeof(S);
+  return 0;
+}
+
+template <typename S, class Model>
+auto block_lane_pick(bool staged, int N) {
+  return !staged   ? block_lane_kernel<S, Model, false, false>
+         : N <= 32 ? block_lane_kernel<S, Model, true, true>
+                   : block_lane_kernel<S, Model, true, false>;
+}
+
+template <typename S, class Model>
+int run_block_lane(int n, int C, int N, int d, int nconst, const S* eps, const S* res_u,
+                   const S* x_star, const S* x0, const S* w0, const S* consts, const S* params,
+                   S* xs, S* log_ws, long long* anc, cudaStream_t stream) {
+  if (n <= 0 || C < 1 || N < 1 || N > kMaxBlockN || d < 1 || d > kMaxBlockD || nconst < 1)
+    return (int)cudaErrorInvalidValue;
+  int threads = 0;
+  bool staged = false;
+  size_t shmem = 0;
+  const int err = block_lane_plan<S, Model>(N, d, nconst, &threads, &staged, &shmem);
+  if (err) return err;
   void* args[] = {&n, &N, &d, &nconst, &eps, &res_u, &x_star, &x0, &w0, &consts, &params,
                   &xs, &log_ws, &anc};
-  if (!staged)
-    return launch_one_block(block_lane_kernel<S, Model, false, false>, shmem, threads, stream,
-                            args);
-  if (N <= 32)
-    return launch_one_block(block_lane_kernel<S, Model, true, true>, shmem, threads, stream,
-                            args);
-  return launch_one_block(block_lane_kernel<S, Model, true, false>, shmem, threads, stream,
-                          args);
+  return launch_blocks(block_lane_pick<S, Model>(staged, N), shmem, C, threads, stream, args);
+}
+
+// How many of the sweep's blocks (chains) one SM holds at once, by the
+// occupancy calculator, for N particles of width d with nconst constants.
+template <typename S, class Model>
+int block_lane_blocks_per_sm(int N, int d, int nconst, int* out) {
+  if (N < 1 || N > kMaxBlockN || d < 1 || d > kMaxBlockD || nconst < 1)
+    return (int)cudaErrorInvalidValue;
+  int threads = 0;
+  bool staged = false;
+  size_t shmem = 0;
+  int err = block_lane_plan<S, Model>(N, d, nconst, &threads, &staged, &shmem);
+  if (err) return err;
+  const auto kernel = block_lane_pick<S, Model>(staged, N);
+  if (shmem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int blocks = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, shmem);
+  if (e != cudaSuccess) return (int)e;
+  int host[2] = {blocks, (int)staged};
+  return (int)cudaMemcpy(out, host, sizeof(host), cudaMemcpyHostToDevice);
 }
 
 }  // namespace
 
 #define AUX_DEFINE_BLOCK_LANE(NAME, MODEL, SUFFIX, S)                                          \
   extern "C" int aux_csmc_block_lane_##NAME##_##SUFFIX(                                        \
-      int n, int N, int d, int nconst, const S* eps, const S* res_u, const S* x_star,          \
-      const S* x0, const S* w0, const S* consts, const S* params, S* xs, S* log_ws,            \
-      long long* anc, void* stream) {                                                          \
-    return run_block_lane<S, MODEL<S>>(n, N, d, nconst, eps, res_u, x_star, x0, w0, consts,    \
-                                       params, xs, log_ws, anc, (cudaStream_t)stream);         \
+      int n, int chains, int N, int d, int nconst, const S* eps, const S* res_u,               \
+      const S* x_star, const S* x0, const S* w0, const S* consts, const S* params, S* xs,      \
+      S* log_ws, long long* anc, void* stream) {                                               \
+    return run_block_lane<S, MODEL<S>>(n, chains, N, d, nconst, eps, res_u, x_star, x0, w0,    \
+                                       consts, params, xs, log_ws, anc, (cudaStream_t)stream); \
+  }                                                                                            \
+  extern "C" int aux_csmc_block_lane_occupancy_##NAME##_##SUFFIX(int N, int d, int nconst,     \
+                                                                 int* out, void*) {            \
+    return block_lane_blocks_per_sm<S, MODEL<S>>(N, d, nconst, out);                           \
   }
 
 AUX_DEFINE_BLOCK_LANE(sv_guided, SvGuided, f32, float)

@@ -442,10 +442,5 @@ int launch_blocks(K kernel, size_t shmem, int blocks, int threads, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
-template <typename K>
-int launch_one_block(K kernel, size_t shmem, int threads, cudaStream_t stream, void** args) {
-  return launch_blocks(kernel, shmem, 1, threads, stream, args);
-}
-
 }  // namespace csmc
 #endif  // __CUDACC__

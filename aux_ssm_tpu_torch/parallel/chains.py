@@ -6,19 +6,26 @@ axis of C chains, a delta of shape (C,) or (C, T), and returns the C chains'
 next states. Two kinds:
 
   - a batched kernel: the model carries the chain axis through its own
-    tensors and kernels, so one step is one set of launches whatever C is
-    (the rare-event grid, `experiments/rare_event.py`; the auxiliary-Kalman
+    tensors and kernels, so one step is one set of launches whatever C is:
+    the rare-event grid (`experiments/rare_event.py`); the auxiliary-Kalman
     styles of the SV model, the Lorenz Gibbs sampler and the flagship LGSSM,
-    whose six MH kernels take the chain axis, `kernels.kalman.chain_major`).
-    Such a kernel is marked `chain_axis` where a driver picks it. It draws
-    the noise of all C chains in one call from one `torch.Generator`: the
-    JAX package's per-chain `chain_keys` (`fold_in(key, c)`) have no
-    counterpart, and a chain's draws depend on C and on its place in the
-    batch;
+    whose six MH kernels take the chain axis (`kernels.kalman.chain_major`);
+    every style of the SV and spatial drivers at their defaults: SV csmc
+    (PIT) and csmc-guided, spatial kalman-1/2 (C B columns of the batched
+    scalar layout), csmc (PIT) and csmc-guided (the block-lane and factor
+    sweeps and the stitching kernels take the chain axis). Such a kernel is
+    marked `chain_axis` where a driver picks it. It draws the noise of all C
+    chains in one call from one `torch.Generator`: the JAX package's
+    per-chain `chain_keys` (`fold_in(key, c)`) have no counterpart, and a
+    chain's draws depend on C and on its place in the batch;
   - `chain_loop(kernel)`: a one-chain kernel run on chain after chain, for
-    the styles that have no chain axis of their own yet (the SV cSMC styles,
-    spatial, theta-logistic). It launches the one-chain kernels C times a
-    step, so a step costs C one-chain steps of host time and launches.
+    what has no chain axis yet: theta-logistic, and the SV and spatial cSMC
+    styles under options the sweeps do not batch (ancestor scanning,
+    `--no-backward`; a resampling other than multinomial; the PIT's blocked
+    route at N >= 4096), for which the model builders leave the kernel
+    unmarked (`kernels.csmc_independent.takes_chain_axis`). It launches the
+    one-chain kernels C times a step, so a step costs C one-chain steps of
+    host time and launches.
 
 `run_sharded_chains` runs such a kernel through `runner.run_chain`'s loop,
 with per-chain statistics and delta adaptation. Device meshes (`mesh=`) are

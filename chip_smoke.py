@@ -89,7 +89,8 @@ nu=4, tau=-0.25, r_y=1, sigma_x=0.3; benchmarks/spatial_sweep.sh):
      that share only the target, run again and longer (SPATIAL_PAIR) from
      the simulated states, which given the data are an exact draw from the
      posterior: every chain is stationary from the first iteration. Each
-     sampler runs two replicate chains, and the gap between their means,
+     sampler runs two replicate chains (one batched step of two chains,
+     each its own delta), and the gap between their means,
      pooled over a set of columns, is the Monte-Carlo error: no estimate of
      the autocorrelation enters (at the few autocorrelation times these
      chains last, that estimate of the ESS, printed with each chain, reads
@@ -211,13 +212,19 @@ reset before it and read after it:
      uninterrupted one bit for bit in every key but sampling_time, the
      killed and resumed runs' launches add up to the uninterrupted run's,
      the update rate lies in SV_KALMAN_RATE (phase 22's), each save's
-     seconds printed; then csmc (parallel-in-time) and csmc-guided at
-     SV_DRIVER_SHORT: the JAX driver's keys and shapes, finite, and the
-     launches a step of phases 18 and 6; samples/s of each;
- 27. the spatial driver at T=1024, 8x8, N=25, f32, kalman-2 and csmc-guided
-     at SP_DRIVER_SCHEDULE: `xs_true` and `ys` equal `get_data`'s from the
-     seed, the JAX driver's keys and shapes, finite moments, exact launches
-     (kalman: two scalar filter scans and one scalar affine scan a step);
+     seconds printed; then csmc (parallel-in-time) and csmc-guided with
+     `--n-chains` 32 (one batched step) at CSMC_SV_SCHEDULE from the
+     driver's start, each counted at C = 1 for CSMC_ONE_CHAIN
+     (`csmc_chain_driver`): the launches an iteration of phases 18 and 6 at
+     C = 1 and at C, the JAX driver's keys and shapes, finite, the update
+     rate in (0, 1), split-R-hat printed; samples/s of all chains;
+ 27. the spatial driver at T=1024, 8x8, N=25, f32: kalman-2, csmc
+     (parallel-in-time) and csmc-guided with `--n-chains` 8 at
+     CSMC_SP_SCHEDULE, each counted at C = 1 likewise: `xs_true` and `ys`
+     equal `get_data`'s from the seed, the JAX driver's keys and shapes,
+     finite moments, exact launches, equal an iteration at C = 1 and at C
+     (kalman: two scalar filter scans and one scalar affine scan a step, the
+     chains' 8 x 64 components as 512 columns);
  28. `dnc_sampling` in f64: one draw on the flagship LGSSM's filter output
      (T=1024, dx=16) given fixed noise, card against CPU within STEP_RTOL;
      DNC_DRAWS draws at T=64, dx=4 against as many of the scan sampler's
@@ -277,6 +284,24 @@ step; `parallel/chains.py`, `kernels.kalman.chain_major`):
      theta at its delta 1e20 (frozen) for DENSE_LORENZ_CHAIN, through
      `run_sharded_chains`, held as phase 25's chain (`check_lorenz_chain`:
      update rate in LORENZ_RATE, theta's pooled mean, the mean trajectory).
+C chains of the cSMC styles and of the spatial sampler as one batched step
+(`chains=True` of the SV and spatial builders):
+ 32. (run right after the build, with phases 29-30's kernel checks) the
+     block-lane sweep's chain instance (row 11, a block a chain, the
+     constants shared) on real batched csmc-guided steps' inputs: SV
+     (T=250, D=30, N=25) at C = 32 from the committed run's xs_true, each
+     chain's delta scaled 0.75-1.25; spatial (T=1024, 8x8, N=25) at C = 8,
+     the gradient shift off and on, with the blocks a chain's sweep puts on
+     an SM (`block_lane_occupancy`). f32 against the plain version step by
+     step from the kernel's own carry (chains 0, C / 2, C - 1) at phase 4's
+     bounds; f64 whole sweeps of every chain (the gradient variant: the three
+     chains) against the plain version run on CPU copies of the inputs,
+     identical indices; C = 1 and chains 0, C / 2, C - 1 bit-equal to
+     one-chain launches in f32 and f64; the launch's device ms against C
+     one-chain launches'. Then the scalar scans on a batched spatial kalman-1
+     step's inputs at C = 8 (512 columns) against their plain versions, and
+     each chain's 64 columns against a 64-column launch (f64: bit for bit,
+     or within 1e-12).
 To make room, phase 3 runs 100 steps (200 before), phase 10 300 + 1000
 iterations (300 + 2000 before), phase 11 is cut for phase 29 (its chains
 ran 500 + 1200 a bounded cell, 300 + 400 the hardest), phase 15's
@@ -326,8 +351,18 @@ entries of their own (`lane_scan_chains`, ...: phase 29's numbers, their
 launches those of the grid runs), and so have the six MH kernels' chain
 instances (`make_elements_chains`, ...: phase 30's numbers at the SV shape,
 C = 32, with its Lorenz-shape entry inside; their launches those of phase
-31's C > 1 runs, not its C = 1 ones); the last line is {"ok": true,
-"device": {...}}.
+31's C > 1 runs, not its C = 1 ones), and so have the block-lane sweep's
+chain instance at each shape (`block_lane_scan_chains`: phase 32's numbers
+at SV C = 32, its launches those of phase 26's csmc-guided `--n-chains 32`
+run; `block_lane_scan_spatial_chains`: spatial C = 8, the gradient variant
+inside, its launches those of phase 27's csmc-guided `--n-chains 8` run and
+phase 15's pair) and the scalar scans at C B columns
+(`scalar_{filter,affine}_scan_chains`: phase 32's 512 columns, their
+launches those of phase 27's kalman-2 run and phase 15's pair); the C > 1
+runs' factor sweeps and col_sample launches count on phase 29's chain
+entries. The chain entries' `plain_ms` is named by `plain_on` and
+`plain_dtype` where it is not the f32 call on the card; the last line is
+{"ok": true, "device": {...}}.
 """
 import contextlib
 import json
@@ -1846,13 +1881,12 @@ def replicate_moments(chains):
     return both.mean(0), var, w
 
 
-def spatial_chain(dev, style, ys, x0, seed, schedule, functionals_about=None):
+def spatial_chain(dev, style, ys, x0, seed, schedule):
     """run_chain of the spatial sampler `style` on the card from x0, at
     `schedule` = (burn-in, samples, target update rate); checks finite states,
-    the exact launches per iteration and the update rate. A sample is the
-    interior slab, and behind it `pooled_functionals` about the field
-    `functionals_about` if given (then the step is not profiled). Returns
-    (launches, posterior-mean field (T, B), samples (n, ...))."""
+    the exact launches per iteration and the update rate; profiles the step.
+    A sample is the interior slab. Returns (launches, posterior-mean field
+    (T, B), samples (n, ...))."""
     import torch
     from aux_ssm_tpu_torch.experiments import RunConfig, runner
     from aux_ssm_tpu_torch.ops import cuda as K
@@ -1864,17 +1898,11 @@ def spatial_chain(dev, style, ys, x0, seed, schedule, functionals_about=None):
     gen = torch.Generator(device=dev).manual_seed(seed)
     delta0 = torch.full((T_,) if is_csmc else (), SP_DELTA0, dtype=ys.dtype, device=dev)
 
-    def collect(state):
-        slab = interior_slab(state.x).reshape(-1)
-        if functionals_about is None:
-            return slab
-        return torch.cat([slab.double(), pooled_functionals(state.x, functionals_about)])
-
     K.reset_launches()
     res = runner.run_chain(kernel, init(x0), RunConfig(n_samples=n_samples, burnin=burnin,
                                                        target_alpha=target),
                            generator=gen, collect_samples=True, delta_init=delta0,
-                           collect_fn=collect)
+                           collect_fn=lambda state: interior_slab(state.x).reshape(-1))
     launches = K.launches()
     n_iter = burnin + n_samples
     per_iter = spatial_per_iter(style)
@@ -1896,19 +1924,75 @@ def spatial_chain(dev, style, ys, x0, seed, schedule, functionals_about=None):
         f"{({k: v // n_iter for k, v in launches.items() if v})}")
     if not 0.05 < rate < 0.95:
         raise AssertionError(f"spatial {style}: update rate {rate:.4f} outside (0.05, 0.95)")
-    if functionals_about is None:
-        box = [res.state]
-        profile_steps(f"spatial {style}",
-                      lambda: box.__setitem__(0, kernel(box[0], res.delta, generator=gen)), n=20,
-                      also=("scalar_scan_kernel", "block_lane_kernel", "factor_kernel"))
+    box = [res.state]
+    profile_steps(f"spatial {style}",
+                  lambda: box.__setitem__(0, kernel(box[0], res.delta, generator=gen)), n=20,
+                  also=("scalar_scan_kernel", "block_lane_kernel", "factor_kernel"))
     return launches, res.stats.mean_x.reshape(T_, B), res.samples
 
 
+def spatial_replicates(dev, style, ys, x0, seed, schedule, ref):
+    """Two replicate chains of the spatial sampler `style` from x0 as one
+    batched step (`chains=True` through `run_sharded_chains`: each chain's
+    delta adapts on its own rate), at `schedule` = (burn-in, samples, target
+    update rate); checks finite states, the exact launches per iteration
+    (one chain's step's) and each chain's update rate. A chain's sample is
+    its interior slab, then its `pooled_functionals` about `ref`. Returns
+    (launches, the chains' posterior-mean fields (2, T, B), each chain's
+    samples (n, ...))."""
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig
+    from aux_ssm_tpu_torch.models import spatial as sp
+    from aux_ssm_tpu_torch.ops import cuda as K
+    from aux_ssm_tpu_torch.parallel.chains import run_sharded_chains
+
+    burnin, n_samples, target = schedule
+    T_, B = ys.shape
+    C = 2
+    common = (ys, *SP_PARAMS, SP_D)
+    if style.startswith("kalman"):
+        init, kernel = sp.get_kalman_kernel(*common, parallel=True, order=int(style[-1]),
+                                            chains=True)
+    else:
+        init, kernel = sp.get_guided_csmc_kernel(*common, SP_N, backward=True, chains=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    delta0 = torch.full((C, T_) if style.startswith("csmc") else (C,), SP_DELTA0,
+                        dtype=ys.dtype, device=dev)
+
+    def collect(state):
+        return torch.stack([torch.cat([interior_slab(x).reshape(-1).double(),
+                                       pooled_functionals(x, ref)]) for x in state.x])
+
+    K.reset_launches()
+    res = run_sharded_chains(kernel, init(x0.expand(C, -1, -1).clone()),
+                             RunConfig(n_samples=n_samples, burnin=burnin, target_alpha=target),
+                             generator=gen, collect_samples=True, delta_init=delta0,
+                             collect_fn=collect)
+    launches = K.launches()
+    n_iter = burnin + n_samples
+    per_iter = spatial_per_iter(style)
+    for name, count in launches.items():
+        if count != per_iter.get(name, 0) * n_iter:
+            raise AssertionError(f"spatial {style}, {C} chains: {name} launched {count} times in "
+                                 f"{n_iter} iterations, expected {per_iter.get(name, 0)} each")
+    if not bool(torch.isfinite(res.state.x).all()):
+        raise AssertionError(f"spatial {style}: the chains' states are not finite")
+    rates = res.stats.accept_cum.reshape(C, -1).double().mean(1).tolist()
+    log(f"  {style}, {C} chains as one batched step: {burnin} + {n_samples} iterations, update "
+        f"rates {[round(r, 4) for r in rates]} (target {target}), "
+        f"{C * n_samples / res.sampling_time:.2f} samples/s of both, launches a step "
+        f"{({k: v // n_iter for k, v in launches.items() if v})}")
+    if not all(0.05 < r < 0.95 for r in rates):
+        raise AssertionError(f"spatial {style}: update rates {rates} outside (0.05, 0.95)")
+    return launches, res.stats.mean_x.reshape(C, T_, B), list(res.samples)
+
+
 def spatial_pair(dev, ys, xs_true, add):
-    """kalman-1 against csmc-guided, two replicate chains each, from the
-    simulated states; see phase 15 of the module's docstring.
-    `add(launches)` takes each chain's launches. Returns the two samplers'
-    posterior-mean fields and their coordinates' `replicate_moments`."""
+    """kalman-1 against csmc-guided, two replicate chains each (one batched
+    step of two chains), from the simulated states; see phase 15 of the
+    module's docstring. `add(launches)` takes each sampler's launches.
+    Returns the two samplers' posterior-mean fields and their coordinates'
+    `replicate_moments`."""
     import numpy as np
 
     log("  kalman-1 and csmc-guided, two chains each, from the simulated states (an exact "
@@ -1918,13 +2002,12 @@ def spatial_pair(dev, ys, xs_true, add):
     at_truth = with_whole(pooled_functionals(xs_true, ref).cpu().numpy())
     fields, slabs, funcs = {}, {}, {}
     for i, style in enumerate(SPATIAL_PAIR):
-        runs = [spatial_chain(dev, style, ys, xs_true, 80 + i + 10 * rep, SPATIAL_PAIR[style], ref)
-                for rep in range(2)]
-        for launches, _, _ in runs:
-            add(launches)
-        fields[style] = (runs[0][1] + runs[1][1]) / 2
-        slabs[style] = replicate_moments([r[2][:, :n_slab] for r in runs])
-        funcs[style] = replicate_moments([with_whole(r[2][:, n_slab:]) for r in runs])
+        launches, chain_fields, samples = spatial_replicates(dev, style, ys, xs_true, 80 + i,
+                                                             SPATIAL_PAIR[style], ref)
+        add(launches)
+        fields[style] = chain_fields.mean(0)
+        slabs[style] = replicate_moments([z[:, :n_slab] for z in samples])
+        funcs[style] = replicate_moments([with_whole(z[:, n_slab:]) for z in samples])
         # (a) One posterior draw against the sampler's posterior: their gap is
         # sd * sqrt(1 + w / 4) when the sampler leaves the posterior alone.
         mean, var, w = funcs[style]
@@ -1970,7 +2053,8 @@ def pair_report(fields, slabs, ys, xs_true):
 
 
 def phase_spatial_chains(dev):
-    """Phase 15; returns the chains' launches summed by wrapper."""
+    """Phase 15; returns the launches summed by wrapper of the one-chain
+    runs and of the pair's batched runs (two chains a step)."""
     import torch
     from aux_ssm_tpu_torch.models import spatial as sp
     from aux_ssm_tpu_torch.native.precision import precision_stencil
@@ -2004,8 +2088,9 @@ def phase_spatial_chains(dev):
         if not rmse(field, xs_true) < rmse(x0, xs_true):
             raise AssertionError(f"spatial {style}: the posterior mean is no nearer the truth "
                                  "than the start was")
+    one_chain, total = total, {}
     pair_report(*spatial_pair(dev, ys, xs_true, add), ys, xs_true)
-    return total
+    return one_chain, total
 
 # ---------------------------------------------------------------------------
 # The parallel-in-time (PIT) cSMC path: the stitching kernels
@@ -2945,9 +3030,7 @@ def phase_lorenz_chain(dev, card):
 SV_DRIVER_SCHEDULE = (300, 200)    # burn-in + sampling of the checkpointed kalman-1 run
 SV_DRIVER_LR = 0.5                 # its delta adaptation's rate (the driver's --lr)
 SV_DRIVER_EVERY = 50               # checkpoint period: burn-in 50, ..., 300, sampling 50, ..., 200
-SV_DRIVER_SHORT = (30, 60)         # burn-in + sampling of the csmc and csmc-guided runs
 SV_KEYS = {"samples_mean", "samples_std", "ejsd", "delta", "xs_true", "ys", "sampling_time"}
-SP_DRIVER_SCHEDULE = (50, 100)     # burn-in + sampling of the spatial driver's runs
 SP_KEYS = {"mean_x", "var_x", "ejsd", "delta", "xs_true", "ys", "sampling_time"}
 DNC_Z_MAX = 6.0                    # |z| of the D&C draws' moments against the scan sampler's
 DNC_DRAWS = 512
@@ -2995,8 +3078,10 @@ def phase_sv_driver(dev, card, out_dir):
     """Phase 26: `experiments.sv.main` on the card at T=250, D=30, f32:
     kalman-1 checkpointed every SV_DRIVER_EVERY iterations, killed after its
     second sampling segment and resumed, against an uninterrupted run (bit
-    for bit but the sampling time); then csmc (PIT) and csmc-guided at a
-    short schedule. Returns the kernels' launches of the uninterrupted runs."""
+    for bit but the sampling time); then csmc (PIT) and csmc-guided with
+    `--n-chains` CSMC_CHAINS["sv"] at CSMC_SV_SCHEDULE, each counted at C =
+    1 (`csmc_chain_driver`). Returns the kernels' launches of the
+    uninterrupted and C = 1 runs, and each style's C run's."""
     import numpy as np
     from aux_ssm_tpu_torch.experiments import runner
     from aux_ssm_tpu_torch.experiments import sv as driver
@@ -3070,56 +3155,80 @@ def phase_sv_driver(dev, card, out_dir):
         f"{SV_KALMAN_RATE}); checkpoint saves on {card} (step: s) "
         + ", ".join(f"{k}: {t:.4f}" for k, t in saves))
 
-    burnin, n_samples = SV_DRIVER_SHORT
+    C = CSMC_CHAINS["sv"]
+    log(f"  csmc (parallel-in-time) and csmc-guided with --n-chains {C} (one batched step), "
+        f"{CSMC_SV_SCHEDULE[0]} + {CSMC_SV_SCHEDULE[1]} from the driver's start, each counted "
+        f"at C = 1 for {CSMC_ONE_CHAIN[0]} + {CSMC_ONE_CHAIN[1]}:")
+
+    def check(style):
+        def saved_ok(saved):
+            check_saved(f"SV {style} --n-chains {C}", saved, SV_KEYS,
+                        {"samples_mean": (SV_T, SV_D), "samples_std": (SV_T, SV_D),
+                         "ejsd": (SV_T, SV_D), "xs_true": (SV_T, SV_D), "ys": (SV_T, SV_D),
+                         "delta": (C, SV_T), "sampling_time": ()})
+        return saved_ok
+
     pit = dict(pit_launches(SV_T, SV_N))
     guided = {"block_lane_scan": 1, "backward_factor_scan": FACTOR_LAUNCHES}
+    chained = {}
     for style, per_iter in (("csmc", pit), ("csmc-guided", guided)):
-        res, saved, launches = driver_run(
-            driver.main, argv(style, f"sv_{style}", SV_DRIVER_SHORT), per_iter,
-            burnin + n_samples, f"{style} ({'parallel-in-time' if style == 'csmc' else 'guided'})"
-            f", {burnin} + {n_samples} iterations", card)
-        check_saved(f"SV {style}", saved, SV_KEYS,
-                    {"samples_mean": (SV_T, SV_D), "samples_std": (SV_T, SV_D),
-                     "ejsd": (SV_T, SV_D), "xs_true": (SV_T, SV_D), "ys": (SV_T, SV_D),
-                     "delta": (SV_T,), "sampling_time": ()})
-        for k, v in launches.items():
+        one, chained[style] = csmc_chain_driver(
+            driver.main, ["--style", style, "--T", str(SV_T), "--D", str(SV_D), "--N", str(SV_N),
+                          "--no-verbose"], str(out / f"sv_{style}"),
+            f"SV {style} --n-chains {C}", card, C, CSMC_SV_SCHEDULE, per_iter, check(style))
+        for k, v in one.items():
             total[k] = total.get(k, 0) + v
-    return total
+    return total, chained
 
 
 def phase_spatial_driver(dev, card, out_dir):
     """Phase 27: `experiments.spatial.main` on the card at T=1024, 8x8, N=25,
-    f32, kalman-2 and csmc-guided at SP_DRIVER_SCHEDULE: the data equal
-    `get_data`'s from the seed, the JAX driver's keys and shapes, finite
-    moments, exact launches. Returns the launches."""
+    f32, kalman-2, csmc (parallel-in-time) and csmc-guided with `--n-chains`
+    CSMC_CHAINS["spatial"] (one batched step each) at CSMC_SP_SCHEDULE from
+    the driver's start, each counted at C = 1 for CSMC_ONE_CHAIN
+    (`csmc_chain_driver`): the data equal `get_data`'s from the seed, the
+    JAX driver's keys and shapes, finite moments, exact launches, equal an
+    iteration at C = 1 and at C. Returns the C = 1 runs' launches and each
+    style's C run's."""
     import numpy as np
     import torch
     from aux_ssm_tpu_torch.experiments import spatial as driver
 
-    burnin, n_samples = SP_DRIVER_SCHEDULE
+    C = CSMC_CHAINS["spatial"]
     B = SP_D * SP_D
-    log(f"phase 27: the spatial driver, T={SP_T}, {SP_D}x{SP_D}, N={SP_N}, f32, {burnin} + "
-        f"{n_samples} iterations, seed {SP_SEED}")
+    log(f"phase 27: the spatial driver, T={SP_T}, {SP_D}x{SP_D}, N={SP_N}, f32, seed {SP_SEED}: "
+        f"kalman-2, csmc (parallel-in-time) and csmc-guided with --n-chains {C} (one batched "
+        f"step), {CSMC_SP_SCHEDULE[0]} + {CSMC_SP_SCHEDULE[1]} iterations, each counted at C = 1 "
+        f"for {CSMC_ONE_CHAIN[0]} + {CSMC_ONE_CHAIN[1]}")
     xs, ys = (z.numpy() for z in spatial_data("cpu", torch.float64))
-    total = {}
-    for style in ("kalman-2", "csmc-guided"):
-        argv = ["--style", style, "--T", str(SP_T), "--D", str(SP_D), "--N", str(SP_N),
-                "--seed", str(SP_SEED), "--burnin", str(burnin), "--n-samples", str(n_samples),
-                "--no-verbose", "--out", str(Path(out_dir) / f"spatial_{style}.npz")]
-        res, saved, launches = driver_run(driver.main, argv, spatial_per_iter(style),
-                                          burnin + n_samples, style, card)
-        x_shape = (SP_T, B, 1) if style.startswith("kalman") else (SP_T, B)
-        check_saved(f"spatial {style}", saved, SP_KEYS,
-                    {"mean_x": x_shape, "var_x": x_shape, "ejsd": x_shape,
-                     "xs_true": (SP_T, B), "ys": (SP_T, B), "sampling_time": (),
-                     "delta": (SP_T,) if style.startswith("csmc") else ()})
-        if not (np.array_equal(saved["ys"], ys) and np.array_equal(saved["xs_true"], xs)):
-            raise AssertionError(f"spatial {style}: the driver's data are not get_data's")
-        if not (saved["var_x"] >= 0).all():
-            raise AssertionError(f"spatial {style}: negative posterior variances")
-        for k, v in launches.items():
+
+    def check(style):
+        kalman = style.startswith("kalman")
+        x_shape = (SP_T, B, 1) if kalman else (SP_T, B)
+
+        def saved_ok(saved):
+            check_saved(f"spatial {style} --n-chains {C}", saved, SP_KEYS,
+                        {"mean_x": x_shape, "var_x": x_shape, "ejsd": x_shape,
+                         "xs_true": (SP_T, B), "ys": (SP_T, B), "sampling_time": (),
+                         "delta": (C,) if kalman else (C, SP_T)})
+            if not (np.array_equal(saved["ys"], ys) and np.array_equal(saved["xs_true"], xs)):
+                raise AssertionError(f"spatial {style}: the driver's data are not get_data's")
+            if not (saved["var_x"] >= 0).all():
+                raise AssertionError(f"spatial {style}: negative posterior variances")
+        return saved_ok
+
+    per_iter = {"kalman-2": SP_PER_ITER["kalman"], "csmc": dict(pit_launches(SP_T, SP_N)),
+                "csmc-guided": SP_PER_ITER["csmc-guided"]}
+    total, chained = {}, {}
+    for style, per in per_iter.items():
+        one, chained[style] = csmc_chain_driver(
+            driver.main, ["--style", style, "--T", str(SP_T), "--D", str(SP_D), "--N", str(SP_N),
+                          "--seed", str(SP_SEED), "--no-verbose"],
+            str(Path(out_dir) / f"spatial_{style}"), f"spatial {style} --n-chains {C}", card, C,
+            CSMC_SP_SCHEDULE, per, check(style))
+        for k, v in one.items():
             total[k] = total.get(k, 0) + v
-    return total
+    return total, chained
 
 
 def phase_dnc_sampling(dev, card):
@@ -3841,6 +3950,322 @@ def phase_dense_chain_drivers(dev, card, out_dir):
     return {k: sv_launches[k] + lz_launches[k] + chain_launches[k] for k in KERNELS}
 
 
+# Phases 32-33: C chains of the cSMC styles and of the spatial sampler as one
+# batched step (the block-lane sweep's chain instance, row 11; the scalar
+# scans at C B columns).
+CSMC_CHAINS = {"sv": 32, "spatial": 8}  # chains at the SV and at the spatial shape
+CSMC_SV_SCHEDULE = (20, 40)             # burn-in + sampling of the SV driver's C = 32 runs
+CSMC_SP_SCHEDULE = (10, 20)             # burn-in + sampling of the spatial driver's C = 8 runs
+CSMC_ONE_CHAIN = (2, 3)                 # burn-in + sampling of each C = 1 count run
+# The chain instances' entries: entry -> (the wrapper whose launches it
+# counts, source, the TPU kernel it replaces).
+CSMC_CHAIN_KERNELS = {
+    "block_lane_scan_chains": ("block_lane_scan",) + CSMC_KERNELS["block_lane_scan"],
+    "block_lane_scan_spatial_chains": ("block_lane_scan",) + CSMC_KERNELS["block_lane_scan"],
+    "scalar_filter_scan_chains": ("scalar_filter_scan",) + SCALAR_KERNELS["scalar_filter_scan"],
+    "scalar_affine_scan_chains": ("scalar_affine_scan",) + SCALAR_KERNELS["scalar_affine_scan"],
+}
+
+
+def chain_deltas(delta, C):
+    """Each of C chains' delta: `delta` ((T,) or a scalar tensor) scaled by
+    0.75-1.25 across the chains (by 1 at C = 1), so their u and operands
+    differ: (C, T) or (C,)."""
+    import torch
+    lo, hi = (0.75, 1.25) if C > 1 else (1.0, 1.0)
+    scale = torch.linspace(lo, hi, C, dtype=delta.dtype, device=delta.device)
+    return delta * (scale[:, None] if delta.dim() else scale)
+
+
+def block_lane_chain_inputs(dev, dtype, model, C, gradient, seed):
+    """The block-lane sweep's arguments in one real batched csmc-guided step
+    of C chains (`get_guided_csmc_kernel(..., chains=True)`): SV (T=250, D=30,
+    N=25) from the committed run's xs_true at its adapted delta, spatial
+    (T=1024, 8x8, N=25) from `get_data`'s states at delta SP_DELTA0, each
+    chain's delta scaled 0.75-1.25 (`chain_deltas`) and its own noise."""
+    import torch
+    from aux_ssm_tpu_torch.models import spatial as sp
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    if model == "sv":
+        ys, xs, delta = load_sv("csmc_guided_no-gradient", dev, dtype)
+        init, kernel = sv.get_guided_csmc_kernel(ys, *SV_PARAMS, SV_N, backward=True,
+                                                 gradient=gradient, chains=True)
+    else:
+        xs, ys = spatial_data(dev, dtype)
+        delta = torch.full((SP_T,), SP_DELTA0, dtype=dtype, device=dev)
+        init, kernel = sp.get_guided_csmc_kernel(ys, *SP_PARAMS, SP_D, SP_N, backward=True,
+                                                 gradient=gradient, chains=True)
+    with recording_sweeps() as seen:
+        kernel(init(xs.expand(C, -1, -1).clone()), chain_deltas(delta, C),
+               generator=torch.Generator(device=dev).manual_seed(seed))
+    return seen["block_lane_scan"]
+
+
+def chain_components(args, sl):
+    """(Mt, Gt, eps, ...) of a chain-axis sweep call cut to `sl` on the chain
+    axis (an int: one chain, no axis; a slice: the axis kept)."""
+    import dataclasses
+    from aux_ssm_tpu_torch.kernels.csmc_base import tree_map
+    Mt, Gt, *rest = args
+    comps = tuple(dataclasses.replace(m, params=tree_map(lambda z: z[sl], m.params))
+                  for m in (Mt, Gt))
+    return comps + tuple(z[sl] for z in rest)
+
+
+def on_cpu(obj):
+    """A copy of `obj` (tensors, and dataclasses and tuples of them: a sweep
+    call's arguments, the model components with their constants) on the
+    CPU."""
+    import dataclasses
+    import torch
+    if torch.is_tensor(obj):
+        return obj.cpu()
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: on_cpu(getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(on_cpu(z) for z in obj)
+    return obj
+
+
+def check_block_lane_chains(label, args32, args64, reps, ops_per_particle, whole_f64=True):
+    """The block-lane sweep's chain instance on a real batched step's inputs
+    (C chains, one launch): f32 against the plain version step by step from
+    the kernel's own carry (chains 0, C / 2 and C - 1) at row 11's bounds
+    (AGREE_F32, TOL_F32); f64 whole sweeps against the plain version
+    (identical indices, RTOL_F64), of every chain (`whole_f64`) or of those
+    three; the C = 1 call bit-equal to the one-chain call, and chains 0, C /
+    2, C - 1 of the C-chain launch each bit-equal to a one-chain launch on
+    their inputs (f32 and f64); the launch's time (CUDA events and the
+    profiler's device ms) against C one-chain launches' and the bound. The
+    plain version runs on CPU copies of the inputs (its small steps cost
+    less there than as card launches); `plain_ms` is its one call over every
+    chain's f64 inputs (`plain_on`, `plain_dtype` say so). Returns the
+    entry."""
+    import torch
+    from aux_ssm_tpu_torch.kernels.csmc_base import tree_map
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF
+    name = f"block_lane_scan_chains[{label}]"
+    C, n, d, N = args32[2].shape
+    picked = sorted({0, C // 2, C - 1})
+    xs, lw, anc = CF.block_lane_scan(*args32)
+    shares, err = [], 0.0
+    for c in picked:
+        Mt, Gt, e, r, xst, x0, w0 = on_cpu(chain_components(args32, c))
+        xs_c, lw_c = xs[c].cpu(), lw[c].cpu()
+
+        def plain_step(t):
+            sl = slice(t, t + 1)
+            return CF.block_lane_scan_plain(
+                Mt.block_propagate, Gt.block_logw, tree_map(lambda z: z[sl], Mt.params),
+                tree_map(lambda z: z[sl], Gt.params), e[sl], r[sl], xst[sl],
+                x0 if t == 0 else xs_c[t - 1], w0 if t == 0 else carry(lw_c[t - 1]))
+
+        xs_p, lw_p, anc_p = resynced(n, plain_step)
+        anc_c = anc[c].cpu()
+        same = anc_c == anc_p
+        share, e_c = agree_f32(f"{name} chain {c}", anc_c, anc_p, [
+            (lw_c, lw_p, same), (xs_c, xs_p, same[:, None, :].expand_as(xs_c))])
+        shares.append(share)
+        err = max(err, e_c)
+    got64 = CF.block_lane_scan(*args64)
+    checked = list(range(C)) if whole_f64 else picked
+    cpu64 = on_cpu(args64 if whole_f64 else chain_components(args64, torch.tensor(picked)))
+    tic = time.perf_counter()
+    want64 = CF.block_lane_scan(*cpu64)  # on the CPU: the plain version, chain by chain
+    plain_s = time.perf_counter() - tic
+    err64 = exact_f64(name, got64[2][checked].cpu(), want64[2], [
+        (got64[1][checked].cpu(), want64[1]), (got64[0][checked].cpu(), want64[0])])
+    for args, got in ((args32, (xs, lw, anc)), (args64, got64)):
+        for c in picked:
+            one = CF.block_lane_scan(*chain_components(args, c))
+            if not all(torch.equal(g[c], o) for g, o in zip(got, one)):
+                raise AssertionError(f"{name}: chain {c} of the C = {C} launch differs from a "
+                                     "one-chain launch on its inputs")
+            if c == 0:
+                first = CF.block_lane_scan(*chain_components(args, slice(0, 1)))
+                if not all(torch.equal(f[0], o) for f, o in zip(first, one)):
+                    raise AssertionError(f"{name}: the C = 1 call differs from the one-chain "
+                                         "call")
+    ones = [chain_components(args32, c) for c in range(C)]
+
+    def each_alone():
+        for one in ones:
+            CF.block_lane_scan(*one)
+
+    Mt, Gt, *rest = args32
+    result = {"max_abs_err": err, "index_agree_f32": min(shares), "max_rel_err_f64": err64,
+              "chains": C, "ms": cuda_ms(lambda: CF.block_lane_scan(*args32), reps),
+              "plain_ms": 1e3 * plain_s, "plain_on": "cpu", "plain_dtype": "float64",
+              "plain_chains": len(checked),
+              "one_chain_launches_ms": cuda_ms(each_alone, max(1, reps // 4)),
+              "device_ms": device_ms(lambda: CF.block_lane_scan(*args32), reps),
+              "one_chain_device_ms": device_ms(lambda: CF.block_lane_scan(*ones[0]), reps)}
+    result.update(bound([*rest, *Gt.cuda_operands(), xs, lw, anc], 0,
+                        C * n * N * ops_per_particle))
+    dev_ms, one_ms = result["device_ms"], result["one_chain_device_ms"]
+    log(f"  {name} C={C}, n={n}, d={d}, N={N}: f32 index agreement (chains {picked}) "
+        f"{min(shares):.4f}, max abs err {err:.3e}; f64 ({len(checked)} chains) identical "
+        f"indices, rel err {err64:.3e}; C = 1 and chains {picked} bit-equal to one-chain "
+        f"launches (f32, f64); the C-chain launch {result['ms']:.4f} ms (device "
+        + ("not measured" if dev_ms is None else f"{dev_ms:.4f}")
+        + f"), {C} one-chain launches {result['one_chain_launches_ms']:.4f} ms (one: device "
+        + ("not measured" if one_ms is None else f"{one_ms:.4f}")
+        + f"), plain (CPU, f64, {len(checked)} chains) {result['plain_ms']:.1f} ms, bound "
+        f"{result['bound_ms']:.5f} ms by {result['bound_by']} ({result['bytes']} B, "
+        f"{result['operations']} operations)")
+    return result
+
+
+def phase_block_lane_chains(dev):
+    """Phase 32: the block-lane sweep's chain instance (row 11, a block a
+    chain) on real batched csmc-guided steps' inputs: SV (T=250, D=30, N=25)
+    at C = 32, spatial (T=1024, 8x8, N=25) at C = 8 without and with the
+    gradient shift (`check_block_lane_chains`), with the blocks a chain's
+    sweep puts on an SM at both shapes; then the scalar scans (rows 12-13)
+    on a real batched spatial kalman-1 step's inputs at C = 8 (T=1024, 512
+    columns): against their plain versions (`compare`), and each chain's 64
+    columns against a 64-column launch on them (f64: bit for bit where the
+    two launches' plans are the same, else to 1e-12). Run right after the
+    build, with phases 29-30's checks (`device_ms`). Returns the entries."""
+    import torch
+    from aux_ssm_tpu_torch.models import spatial as sp
+    from aux_ssm_tpu_torch.ops.cuda import csmc_fwd as CF
+    from aux_ssm_tpu_torch.ops.cuda import scalar_scan as SS
+    f32, f64 = torch.float32, torch.float64
+    C_sv, C_sp = CSMC_CHAINS["sv"], CSMC_CHAINS["spatial"]
+    log(f"phase 32: the block-lane sweep's chain instance on real batched csmc-guided steps' "
+        f"inputs: SV T={SV_T}, D={SV_D}, N={SV_N}, C = {C_sv}; spatial T={SP_T}, "
+        f"{SP_D}x{SP_D}, N={SP_N}, C = {C_sp}, gradient off and on (bounds as phases 4 and 13)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for model, d, nconst in (("sv_guided", SV_D, 3 * SV_D * SV_D + 2 * SV_D + 1),
+                             ("spatial_guided", SP_D * SP_D, None)):
+        if nconst is None:
+            _, ys = spatial_data(dev, f32, T=2)
+            factory, _ = sp.make_guided_factory(ys, *SP_PARAMS, SP_D)
+            nconst = factory(ys, torch.ones(2, device=dev))[3].cuda_operands()[0].numel()
+        for dt in (f32, f64):
+            blocks, staged = CF.block_lane_occupancy(model, 25, d, nconst, dt, dev)
+            log(f"  {model}, d={d}, N=25, {dt}: {'staged' if staged else 'not staged'}, "
+                f"{blocks} chains an SM at once ({blocks * sms} on the card's {sms} SMs)")
+    results = {}
+    args = {dt: block_lane_chain_inputs(dev, dt, "sv", C_sv, False, 32) for dt in (f32, f64)}
+    results["block_lane_scan_chains"] = check_block_lane_chains(
+        f"SV T={SV_T} N={SV_N}", args[f32], args[f64], reps=10,
+        ops_per_particle=6 * SV_D * SV_D + 20 * SV_D)
+    results["block_lane_scan_chains"]["shape"] = f"T={SV_T}, D={SV_D}, N={SV_N}, C={C_sv}"
+    d = SP_D * SP_D
+    spatial = {}
+    for gradient in (False, True):
+        args = {dt: block_lane_chain_inputs(dev, dt, "spatial", C_sp, gradient, 33)
+                for dt in (f32, f64)}
+        nnz = int((args[f32][1].c.prec != 0).sum())
+        spatial[gradient] = check_block_lane_chains(
+            f"spatial T={SP_T} N={SP_N}{' gradient' if gradient else ''}", args[f32], args[f64],
+            reps=5, ops_per_particle=2 * (2 if gradient else 1) * nnz + 40 * d,
+            whole_f64=not gradient)
+    results["block_lane_scan_spatial_chains"] = spatial[False]
+    spatial[False]["shape"] = f"T={SP_T}, d={d}, N={SP_N}, C={C_sp}"
+    spatial[False]["gradient"] = spatial[True]
+
+    log(f"  the scalar scans on a batched spatial kalman-1 step's inputs, C = {C_sp}: "
+        f"T={SP_T}, {C_sp * d} columns (nrel bounds as phase 12's):")
+    seen = {}
+    for dt in (f32, f64):
+        xs, ys = spatial_data(dev, dt)
+        init, kernel = sp.get_kalman_kernel(ys, *SP_PARAMS, SP_D, parallel=True, order=1,
+                                            chains=True)
+        with recording_scalar_scans() as rec:
+            kernel(init(xs.expand(C_sp, -1, -1).clone()),
+                   chain_deltas(torch.tensor(SP_DELTA0, dtype=dt, device=dev), C_sp),
+                   generator=torch.Generator(device=dev).manual_seed(32))
+        seen[dt] = rec
+    (elems,), _ = seen[f32]["scalar_filter_scan"]
+    (gains, incs), _ = seen[f32]["scalar_affine_scan"]
+    elems = tuple(z.contiguous() for z in elems)
+    if incs.shape != (SP_T, C_sp * d):
+        raise AssertionError(f"the batched kalman step handed the affine scan {incs.shape}")
+    results["scalar_filter_scan_chains"] = compare(
+        "scalar_filter_scan_chains", SS.scalar_filter_scan, SS.scalar_filter_scan_plain,
+        (elems,), (SP_T - 2) * C_sp * d * 20, reps=20, device_time=True)
+    results["scalar_affine_scan_chains"] = compare(
+        "scalar_affine_scan_chains", SS.scalar_affine_scan, SS.scalar_affine_scan_plain,
+        (gains, incs, True), (SP_T - 1) * C_sp * d * 3, reps=20, device_time=True)
+    (elems64,), _ = seen[f64]["scalar_filter_scan"]
+    (gains64, incs64), _ = seen[f64]["scalar_affine_scan"]
+    calls = {"scalar_filter_scan": (SS.scalar_filter_scan, (tuple(z.contiguous()
+                                                                 for z in elems64),)),
+             "scalar_affine_scan": (SS.scalar_affine_scan, (gains64, incs64, True))}
+    for name, (fn, a) in calls.items():
+        got = as_tuple(fn(*a))
+        bitwise, worst = [], 0.0
+        for c in range(C_sp):
+            cols = slice(c * d, (c + 1) * d)
+            one = as_tuple(fn(*(tuple(z[:, cols].contiguous() for z in x) if isinstance(x, tuple)
+                                else x[:, cols].contiguous() if torch.is_tensor(x) else x
+                                for x in a)))
+            same = all(torch.equal(g[:, cols], o) for g, o in zip(got, one))
+            bitwise.append(same)
+            for g, o in zip(got, one):
+                worst = max(worst, float(((g[:, cols] - o).abs() / (1 + o.abs())).max()))
+        if not worst <= 1e-12:
+            raise AssertionError(f"{name}: a chain's columns of the {C_sp * d}-column launch "
+                                 f"differ from a {d}-column launch by {worst:.3e}")
+        plans = (SS.split_path(SP_T, C_sp * d, sms), SS.split_path(SP_T, d, sms))
+        log(f"  {name} (f64): each chain's {d} columns of the {C_sp * d}-column launch against a "
+            f"{d}-column launch: {sum(bitwise)} of {C_sp} bit for bit, the rest within "
+            f"{worst:.3e} (time-segmented split path: {plans[0]} at {C_sp * d} columns, "
+            f"{plans[1]} at {d}; the segments a column follow the column groups and the SMs)")
+        results[f"{name}_chains"]["columns"] = C_sp * d
+    return results
+
+
+def csmc_chain_driver(main, argv, out, label, card, chains, schedule, per_iter, check):
+    """A driver's `main(argv)` with `--n-chains 1` for CSMC_ONE_CHAIN
+    iterations and with `--n-chains chains` for `schedule`, each writing its
+    own .npz, the launch counters reset before and read after each: every
+    kernel launches `per_iter` an iteration at both, nothing else; the C
+    run's update rate (all chains') in (0, 1), its split-R-hat printed, and
+    `check(saved)` on its .npz. Prints samples/s of all chains. Returns the
+    C run's launches."""
+    import contextlib as ctx
+    import io
+    import numpy as np
+    from aux_ssm_tpu_torch.ops import cuda as K
+    got = {}
+    for C, (burnin, n_samples) in ((1, CSMC_ONE_CHAIN), (chains, schedule)):
+        path = f"{out}_{C}.npz"
+        run = argv + ["--n-chains", str(C), "--burnin", str(burnin), "--n-samples",
+                      str(n_samples), "--out", path]
+        K.reset_launches()
+        printed = io.StringIO()
+        with ctx.redirect_stdout(printed):
+            res = main(run)
+        launches = K.launches()
+        n_iter = burnin + n_samples
+        for name, count in launches.items():
+            if count != per_iter.get(name, 0) * n_iter:
+                raise AssertionError(f"{label} C = {C}: {name} launched {count} times in "
+                                     f"{n_iter} iterations, expected {per_iter.get(name, 0)} "
+                                     "each")
+        got[C] = (res, launches, printed.getvalue(), path)
+    res, launches, printed, path = got[chains]
+    rate = float(res.stats.accept_cum.mean())
+    if not 0.0 < rate < 1.0:
+        raise AssertionError(f"{label}: update rate {rate:.4f} outside (0, 1)")
+    if "Rhat max=" not in printed or "median=" not in printed:
+        raise AssertionError(f"{label}: no split-R-hat printed: {printed!r}")
+    with np.load(path) as z:
+        check({k: z[k] for k in z.files})
+    sps = chains * schedule[1] / res.sampling_time
+    rhat = printed[printed.index("Rhat max="):].split(",")[0].strip()
+    per = {k: v // sum(schedule) for k, v in launches.items() if v}
+    log(f"  {label}: launches an iteration {per} at C = 1 and at C = {chains}; update rate "
+        f"{rate:.4f}, {rhat.splitlines()[0]}; "
+        f"{sps:.2f} samples/s of all {chains} chains ({sps / chains:.2f} a chain) on {card}")
+    return got[1][1], launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3862,7 +4287,8 @@ def main():
     log("phase 29, its kernel checks first: the chain-axis instances at M=800 (f64)")
     chain_results = phase_chain_kernels(dev)
     dense_results = phase_dense_chain_kernels(dev)
-    log(f"  phases 0, 29's and 30's kernel checks took {time.perf_counter() - tic:.1f} s")
+    csmc_chain_results = phase_block_lane_chains(dev)
+    log(f"  phases 0, 29's, 30's and 32's kernel checks took {time.perf_counter() - tic:.1f} s")
 
     results = phase_kernels(dev)
     phase_step_reference(dev)
@@ -3903,7 +4329,8 @@ def main():
                                     for style, entry in spatial_sweeps[name].items()}
     log("phase 14: f64 spatial steps, card vs CPU")
     phase_spatial_step_reference(dev)
-    for name, count in phase_spatial_chains(dev).items():
+    one_chain, pair_launches = phase_spatial_chains(dev)
+    for name, count in one_chain.items():
         launches[name] = launches.get(name, 0) + count
 
     log(f"  phases 0-15 took {time.perf_counter() - tic:.1f} s")
@@ -3929,8 +4356,8 @@ def main():
         lorenz_launches = phase_lorenz_chain(dev, card)
         t25 = time.perf_counter()
         log(f"  phases 0-25 took {t25 - tic:.1f} s")
-        sv_driver = phase_sv_driver(dev, card, tmp)
-        spatial_driver = phase_spatial_driver(dev, card, tmp)
+        sv_driver, sv_chained = phase_sv_driver(dev, card, tmp)
+        spatial_driver, sp_chained = phase_spatial_driver(dev, card, tmp)
         phase_dnc_sampling(dev, card)
         t28 = time.perf_counter()
         log(f"  phases 26-28 took {t28 - t25:.1f} s, phases 0-28 {t28 - tic:.1f} s")
@@ -3963,6 +4390,24 @@ def main():
     kernels += [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                  "launches": dense_launches[one], **dense_results[one]}
                 for name, (one, src, rep) in DENSE_KERNELS.items()]
+    # The C > 1 driver runs of phases 26-27: the block-lane sweep's chain
+    # instance at each shape, the scalar scans at C B columns; their factor
+    # sweeps and col_sample launches count on the chain instances of phase 29.
+    # Phase 15's pair (two chains a batched step) counts on them too.
+    spatial_runs = (*sp_chained.values(), pair_launches)
+    csmc_launches = {"block_lane_scan_chains": sv_chained["csmc-guided"]["block_lane_scan"],
+                     "block_lane_scan_spatial_chains":
+                         sum(run.get("block_lane_scan", 0) for run in spatial_runs),
+                     **{f"{name}_chains": sum(run.get(name, 0) for run in spatial_runs)
+                        for name in ("scalar_filter_scan", "scalar_affine_scan")}}
+    kernels += [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                 "launches": csmc_launches[name], **csmc_chain_results[name]}
+                for name, (_, src, rep) in CSMC_CHAIN_KERNELS.items()]
+    for entry in kernels:
+        if entry["name"] in ("backward_factor_scan_chains", "col_sample_chains"):
+            one = entry["name"].removesuffix("_chains")
+            entry["launches"] += sum(run.get(one, 0) for run in (*sv_chained.values(),
+                                                                 *spatial_runs))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

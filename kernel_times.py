@@ -111,7 +111,13 @@ the same seeds:
     with each kernel's device ms a step; and the samples/s of all chains of
     those two steps, batched against the same chains through
     `chains.chain_loop` (one-chain steps chain after chain), from one
-    state, in turns. A checkout without the chain instances skips it.
+    state, in turns. A checkout without the chain instances skips it. Then
+    the block-lane sweep's chain instance (row 11) on real batched
+    csmc-guided steps' inputs (`chip_smoke.block_lane_chain_inputs`: SV
+    T=250, D=30, N=25; spatial T=1024, 8x8, N=25) at C = 1, 8 and 32 against
+    C one-chain launches, with its bound; torch.profiler over the batched SV
+    (C = 32) and spatial (C = 8) csmc-guided steps; and their samples/s of
+    all chains against the chain loop, in turns.
   - onechain: samples/s of one chain's MH steps, f32, parallel, 20 steps
     after 3, in two turns: the flagship (T=1024, dx=16, order 1 and 2, from
     x = 0), SV kalman-1 (T=250, D=30, from the committed run's xs_true at
@@ -281,6 +287,7 @@ def main():
         lorenz(cs, res, dev)
     if "chains" in parts:
         chains(cs, res, dev)
+        csmc_chains(cs, CF, res, dev)
     if "onechain" in parts:
         onechain(cs, res, dev)
     print(json.dumps(res), flush=True)
@@ -978,6 +985,84 @@ def chains(cs, res, dev):
               + ", ".join(f"{res[f'chains_{tag}_{r}_samples_per_s_turn{t}']:.1f}"
                           for t, r in enumerate(("batched", "loop", "loop", "batched"))),
               flush=True)
+
+
+def csmc_chains(cs, CF, res, dev):
+    """The block-lane sweep's chain instance at C = 1, 8 and 32 against C
+    one-chain launches, at the SV and the spatial shapes, and the batched
+    csmc-guided steps against the chain loop."""
+    if not hasattr(cs, "block_lane_chain_inputs"):
+        print("  block-lane chains: not in this checkout", flush=True)
+        return
+    import torch
+    from aux_ssm_tpu_torch.models import spatial as sp
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    from aux_ssm_tpu_torch.parallel.chains import chain_loop
+    f32 = torch.float32
+    d_sp = cs.SP_D * cs.SP_D
+    for tag in ("sv", "spatial"):
+        for C in (1, 8, 32):
+            args = cs.block_lane_chain_inputs(dev, f32, tag, C, False, 40 + C)
+            Mt, Gt, *rest = args
+            if tag == "sv":
+                n_ops = 6 * cs.SV_D * cs.SV_D + 20 * cs.SV_D
+            else:
+                n_ops = 2 * int((Gt.c.prec != 0).sum()) + 40 * d_sp
+            _, n, d, N = rest[0].shape
+            one = [cs.chain_components(args, c) for c in range(C)]
+            got = CF.block_lane_scan(*args)
+            key = f"chains_block_lane_{tag}_C{C}"
+            res[key] = {
+                "device_ms": device_ms(lambda: CF.block_lane_scan(*args), 10),
+                "loop_device_ms": device_ms(lambda: [CF.block_lane_scan(*a) for a in one], 3),
+                "ms": cs.cuda_ms(lambda: CF.block_lane_scan(*args), 10),
+                "loop_ms": cs.cuda_ms(lambda: [CF.block_lane_scan(*a) for a in one], 3),
+                **cs.bound([*rest, *Gt.cuda_operands(), *got], 0, C * n * N * n_ops),
+                "shape": [tuple(g.shape) for g in got]}
+            r = res[key]
+            print(f"  {key}: device {r['device_ms']:.4f} ms (C one-chain launches "
+                  f"{r['loop_device_ms']:.4f}), events {r['ms']:.4f} (loop "
+                  f"{r['loop_ms']:.4f}), bound {r['bound_ms']:.5f} by {r['bound_by']} "
+                  f"({r['bytes'] / 1e6:.2f} MB, {r['operations'] / 1e6:.1f} Mop)", flush=True)
+    # Samples/s of all chains of the csmc-guided steps: batched against the
+    # chain loop, in turns, from the same state; and the batched step's profile.
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ys, xs, delta = cs.load_sv("csmc_guided_no-gradient", dev, f32)
+    sp_xs, sp_ys = cs.spatial_data(dev, f32)
+    sp_delta = torch.full((cs.SP_T,), cs.SP_DELTA0, dtype=f32, device=dev)
+    builds = {"sv": (lambda c: sv.get_guided_csmc_kernel(ys, *cs.SV_PARAMS, cs.SV_N,
+                                                         backward=True, chains=c), xs, delta,
+                     cs.CSMC_CHAINS["sv"]),
+              "spatial": (lambda c: sp.get_guided_csmc_kernel(sp_ys, *cs.SP_PARAMS, cs.SP_D,
+                                                              cs.SP_N, backward=True, chains=c),
+                          sp_xs, sp_delta, cs.CSMC_CHAINS["spatial"])}
+    for tag, (build, x, dl, C) in builds.items():
+        init, batched = build(True)
+        looped = chain_loop(build(False)[1])
+        state = init(x.expand(C, -1, -1).clone())
+        dl = cs.chain_deltas(dl, C)
+        box = [state]
+        res[f"chains_guided_{tag}_step"] = profile(
+            lambda: box.__setitem__(0, batched(box[0], dl, generator=gen)), 10,
+            ("block_lane", "factor"))
+        print(f"  profile chains_guided_{tag}_step (C = {C}): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res[f"chains_guided_{tag}_step"].items()), flush=True)
+        for turn, (route, kern) in enumerate((("batched", batched), ("loop", looped),
+                                              ("loop", looped), ("batched", batched))):
+            st = state
+            for _ in range(2):
+                st = kern(st, dl, generator=gen)
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for _ in range(10):
+                st = kern(st, dl, generator=gen)
+            torch.cuda.synchronize()
+            res[f"chains_guided_{tag}_{route}_samples_per_s_turn{turn}"] = 10 * C / (
+                time.perf_counter() - tic)
+        print(f"  csmc-guided {tag}, C = {C}, samples/s of all chains (turns: batched, loop, "
+              "loop, batched): " + ", ".join(
+                  f"{res[f'chains_guided_{tag}_{r}_samples_per_s_turn{t}']:.1f}"
+                  for t, r in enumerate(("batched", "loop", "loop", "batched"))), flush=True)
 
 
 def onechain(cs, res, dev):

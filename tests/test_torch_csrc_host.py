@@ -359,6 +359,20 @@ static void host_block_lane(int path, int n, int N, int d, const double* eps,
     host_block_lane<csmc::MODEL<double>>(path, n, N, d, eps, res_u, x_star, x0, w0, consts,  \
                                          params, xs, log_ws, anc, smem);                     \
   }                                                                                          \
+  /* The chain-batched launch: chain c (a block in turn) on BlockLaneIO::chain(c). */        \
+  extern "C" void h_block_lane_chains_##NAME(int path, int C, int n, int N, int d,           \
+      const double* eps, const double* res_u, const double* x_star, const double* x0,        \
+      const double* w0, const double* consts, const double* params, double* xs,              \
+      double* log_ws, long long* anc, double* smem) {                                        \
+    const BlockLaneIO<double> all{eps, res_u, x_star, x0, w0, consts, params, xs, log_ws,    \
+                                  anc};                                                      \
+    for (int c = 0; c < C; ++c) {                                                            \
+      const auto io = all.chain(c, n, N, d, csmc::MODEL<double>::row_width(d));              \
+      host_block_lane<csmc::MODEL<double>>(path, n, N, d, io.eps, io.res_u, io.x_star,       \
+                                           io.x0, io.w0, io.consts, io.params, io.xs,        \
+                                           io.log_ws, io.anc, smem);                         \
+    }                                                                                        \
+  }                                                                                          \
   extern "C" long h_block_lane_words_##NAME(int N, int d, int nwarps, int staged) {          \
     return sweep_words<csmc::MODEL<double>>(N, d, nwarps, staged != 0);                       \
   }                                                                                          \
@@ -1246,6 +1260,67 @@ def test_host_block_lane_spatial_guided_matches_plain(host_lib, T, D, N, gradien
     assert len(np.unique(want[2].numpy())) > 2  # the sweep did resample
     _host_block_lane_paths(host_lib, "spatial_guided", n, N, d, eps, res_u, x_star, x0, w0,
                            consts, params, want)
+
+
+# The block-lane sweep's chain axis (row 11): both functors over 3 chains at
+# once, each chain with its own u, scales and operands (its rows (C, n,
+# row)), the constants shared; every sweep path (particles in global memory;
+# staged with the block collectives; staged with the one-warp carry): each
+# chain equals a one-chain host call on its slice bit for bit, and the plain
+# version (chain by chain) to rtol 1e-9 with identical ancestors.
+@pytest.mark.parametrize("model,T,D,N,gradient", [("sv_guided", 9, 4, 16, False),
+                                                  ("spatial_guided", 7, 3, 25, False),
+                                                  ("spatial_guided", 7, 3, 25, True)])
+def test_host_block_lane_chain_axis(host_lib, model, T, D, N, gradient):
+    from aux_ssm_tpu_torch.models import spatial, stochastic_volatility as sv
+    Cc, n = 3, T - 1
+    rng = np.random.default_rng(T + D + N + gradient)
+    if model == "sv_guided":
+        d = D
+        _, ys = sv.get_data(0.0, 0.9, 2.0, 0.25, D, T, generator=torch.Generator().manual_seed(T),
+                            device="cpu")
+        factory, _ = sv.make_guided_factory(ys, 0.0, 0.9, 2.0, 0.25, gradient)
+        u = torch.as_tensor(rng.standard_normal((Cc, T, d)))
+        x_star = torch.as_tensor(rng.standard_normal((Cc, n, d)))
+        x0 = torch.as_tensor(rng.standard_normal((Cc, d, N)))
+    else:
+        d = D * D
+        _, ys = spatial.get_data(rng, 0.3, 1, -0.25, 4.0, D, T, device="cpu")
+        factory, _ = spatial.make_guided_factory(ys, 0.3, 4.0, -0.25, 1, D, gradient)
+        u = ys + torch.as_tensor(0.3 * rng.standard_normal((Cc, T, d)))
+        x_star = ys[1:] + torch.as_tensor(0.3 * rng.standard_normal((Cc, n, d)))
+        x0 = ys[0][:, None] + torch.as_tensor(0.3 * rng.standard_normal((Cc, d, N)))
+    scale = torch.as_tensor(rng.uniform(0.2, 0.6, size=(Cc, T)))
+    _, _, Mt, Gt = factory(u, scale)
+    consts, params = Gt.cuda_operands()
+    assert params.shape == (Cc, n, CF.BLOCK_LANE_MODELS[model][4] * d
+                            + CF.BLOCK_LANE_MODELS[model][5])
+    w0 = rng.uniform(0.1, 1.0, (Cc, N))
+    inputs = (torch.as_tensor(rng.standard_normal((Cc, n, d, N))),
+              torch.as_tensor(rng.uniform(size=(Cc, n, N))), x_star, x0,
+              torch.as_tensor(w0 / w0.sum(1, keepdims=True)))
+    want = CF.block_lane_scan(Mt, Gt, *inputs)  # the plain path, chain by chain
+    lib = host_lib["csmc_block"]
+    words = getattr(lib, f"h_block_lane_words_{model}")
+    words.restype = ctypes.c_long
+    for path in (0, 1, 2):
+        smem = torch.full((words(N, d, 1, int(path > 0)),), float("nan"), dtype=torch.float64)
+        xs, lw = (torch.empty(Cc, n, d, N, dtype=torch.float64),
+                  torch.empty(Cc, n, N, dtype=torch.float64))
+        anc = torch.empty(Cc, n, N, dtype=torch.int64)
+        _call(getattr(lib, f"h_block_lane_chains_{model}"), path, Cc, n, N, d, *inputs, consts,
+              params.contiguous(), xs, lw, anc, smem)
+        for c in range(Cc):
+            one = (torch.empty(n, d, N, dtype=torch.float64),
+                   torch.empty(n, N, dtype=torch.float64), torch.empty(n, N, dtype=torch.int64))
+            _call(getattr(lib, f"h_block_lane_{model}"), path, n, N, d,
+                  *(z[c].contiguous() for z in inputs), consts, params[c].contiguous(), *one,
+                  smem)
+            assert all(torch.equal(g[c], o) for g, o in zip((xs, lw, anc), one))
+        np.testing.assert_array_equal(anc.numpy(), want[2].numpy())
+        _close(xs, want[0])
+        _close(lw, want[1])
+    assert len(np.unique(want[2].numpy())) > 2  # the sweeps did resample
 
 
 @pytest.mark.parametrize("case", ["r_y=1", "r_y=2", "random", "random sparse"])

@@ -9,6 +9,8 @@ summation orders and solvers, so they agree to ~1e-12 (rtol 1e-9 checks
 every term), and the cSMC sweeps' indices are identical. The float32 bounds
 at the main path's shapes are in `chip_smoke.py`.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -886,3 +888,138 @@ def _to_tree(z, where):
     if isinstance(z, (tuple, list)):
         return type(z)(_to_tree(v, where) for v in z)
     return z.to(where)
+
+
+# --------------------------------------------------------------------------
+# The block-lane sweep's chain axis and the batched SV and spatial steps
+# --------------------------------------------------------------------------
+
+def _block_lane_chain_inputs(model, C, T, D, N, gradient, where):
+    """(Mt, Gt, eps, res_u, x_star, x0, w0) of C chains of a guided model on
+    `where`: each chain with its own u, scales and operands."""
+    from aux_ssm_tpu_torch.models import spatial
+    rng = np.random.default_rng(C + T + D + N)
+    if model == "sv":
+        d = D
+        _, ys = sv.get_data(*SV_PARAMS, D, T, generator=torch.Generator().manual_seed(T),
+                            device="cpu")
+        factory, _ = sv.make_guided_factory(ys.to(where), *SV_PARAMS, gradient)
+        base = np.zeros((T, d))
+    else:
+        d = D * D
+        _, ys = spatial.get_data(rng, *SP_PARAMS[:1], SP_PARAMS[3], SP_PARAMS[2], SP_PARAMS[1],
+                                 D, T, device="cpu")
+        factory, _ = spatial.make_guided_factory(ys.to(where), *SP_PARAMS, D, gradient)
+        base = ys.numpy()
+    n = T - 1
+    w0 = rng.uniform(0.1, 1.0, (C, N))
+    z = [base + 0.3 * rng.standard_normal((C, T, d)), rng.uniform(0.2, 0.6, (C, T)),
+         rng.standard_normal((C, n, d, N)), rng.uniform(size=(C, n, N)),
+         base[1:] + 0.3 * rng.standard_normal((C, n, d)),
+         base[0][:, None] + 0.3 * rng.standard_normal((C, d, N)), w0 / w0.sum(1, keepdims=True)]
+    u, scale, *sweep = (torch.as_tensor(v).to(where) for v in z)
+    _, _, Mt, Gt = factory(u, scale)
+    return (Mt, Gt, *sweep)
+
+
+@pytest.mark.parametrize("model,C,T,D,N,gradient", [
+    ("sv", 3, 12, 3, 16, False), ("sv", 4, 9, 30, 100, False), ("sv", 2, 9, 30, 1024, False),
+    ("spatial", 3, 9, 3, 25, False), ("spatial", 5, 12, 8, 25, True),
+    ("spatial", 2, 5, 8, 1024, True)])
+def test_block_lane_chain_axis(dev, model, C, T, D, N, gradient):
+    """C chains in one launch (each path: staged with the one-warp carry,
+    staged with the block collectives, particles in global memory): the plain
+    version chain by chain to rtol 1e-9 with identical ancestors, each chain
+    bit-equal to a one-chain launch on its inputs, C = 1 to the call without
+    a chain axis."""
+    from aux_ssm_tpu_torch.kernels.csmc_base import tree_map
+    want = CF.block_lane_scan(*_block_lane_chain_inputs(model, C, T, D, N, gradient, "cpu"))
+    Mt, Gt, *sweep = _block_lane_chain_inputs(model, C, T, D, N, gradient, dev)
+    before = CF.block_lane_scan.launches
+    got = CF.block_lane_scan(Mt, Gt, *sweep)
+    assert CF.block_lane_scan.launches == before + 1
+    assert torch.equal(got[2].cpu(), want[2])
+    _close(tuple(z.cpu() for z in got[:2]), want[:2])
+    for c in range(C):
+        one = [dataclasses.replace(m, params=tree_map(lambda z: z[c], m.params))
+               for m in (Mt, Gt)]
+        single = CF.block_lane_scan(*one, *(z[c] for z in sweep))
+        assert all(torch.equal(g[c], s) for g, s in zip(got, single))
+        if c == 0:
+            unit = [dataclasses.replace(m, params=tree_map(lambda z: z[:1], m.params))
+                    for m in (Mt, Gt)]
+            first = CF.block_lane_scan(*unit, *(z[:1] for z in sweep))
+            assert all(torch.equal(f[0], s) for f, s in zip(first, single))
+
+
+def test_block_lane_chain_axis_rejects_broadcast_operands(dev):
+    """A per-chain operand broadcast over the chains (stride 0) raises."""
+    Mt, Gt, eps, res_u, x_star, x0, w0 = _block_lane_chain_inputs("sv", 3, 9, 3, 16, False, dev)
+    with pytest.raises(ValueError, match="broadcast over the chains"):
+        CF.block_lane_scan(Mt, Gt, eps, res_u, x_star[:1].expand(3, -1, -1), x0, w0)
+
+
+@pytest.mark.parametrize("model,style", [("sv", "csmc"), ("sv", "csmc-guided"),
+                                         ("spatial", "kalman-1"), ("spatial", "kalman-2"),
+                                         ("spatial", "csmc"), ("spatial", "csmc-guided")])
+def test_chain_steps_match_cpu(dev, model, style):
+    """Two f64 batched steps of C = 3 chains (`chains=True`, T=16; SV D=3,
+    spatial 3 x 3, N=16) on the card against the CPU, given the same noise;
+    the kernels launch as often as for one chain's step."""
+    from aux_ssm_tpu_torch.kernels import csmc as csmc_mod, pit
+    from aux_ssm_tpu_torch.models import spatial
+    C, T, N = 3, 16, 16
+    rng = np.random.default_rng(20)
+    if model == "sv":
+        xs, ys = sv.get_data(*SV_PARAMS, 3, T, generator=torch.Generator().manual_seed(1),
+                             device="cpu")
+    else:
+        xs, ys = spatial.get_data(rng, *SP_PARAMS[:1], SP_PARAMS[3], SP_PARAMS[2], SP_PARAMS[1],
+                                  3, T, device="cpu")
+    x0 = xs + torch.as_tensor(0.1 * rng.standard_normal((C,) + tuple(xs.shape)))
+    gen = torch.Generator().manual_seed(2)
+    if style.startswith("kalman"):
+        x0, delta = x0[..., None], torch.full((C,), 0.05, dtype=torch.float64)
+        noises = [(torch.randn(x0.shape, generator=gen, dtype=torch.float64),
+                   torch.randn(x0.shape, generator=gen, dtype=torch.float64),
+                   torch.rand(C, generator=gen, dtype=torch.float64)) for _ in range(2)]
+    else:
+        delta = torch.as_tensor(rng.uniform(0.05, 0.3, (C, T)))
+        if style == "csmc":
+            noises = [(torch.randn(x0.shape, generator=gen, dtype=torch.float64),
+                       torch.randn(C, T, N, x0.shape[-1], generator=gen, dtype=torch.float64))
+                      + pit.draw_noise(T, N, x0, gen, chains=C) for _ in range(2)]
+        else:
+            noises = [(torch.randn(x0.shape, generator=gen, dtype=torch.float64),)
+                      + csmc_mod.draw_noise(x0, N, csmc_mod.resampling_mod.multinomial, gen)
+                      for _ in range(2)]
+    out, counts = [], []
+    for where in ("cpu", dev):
+        if model == "sv":
+            get = sv.get_csmc_kernel if style == "csmc" else sv.get_guided_csmc_kernel
+            kw = dict(parallel=True) if style == "csmc" else dict(backward=True)
+            init, kernel = get(ys.to(where), *SV_PARAMS, N, chains=True, **kw)
+        elif style.startswith("kalman"):
+            init, kernel = spatial.get_kalman_kernel(ys.to(where), *SP_PARAMS, 3,
+                                                     style == "kalman-1",
+                                                     order=int(style[-1]), chains=True)
+        else:
+            get = spatial.get_csmc_kernel if style == "csmc" else spatial.get_guided_csmc_kernel
+            kw = dict(parallel=True) if style == "csmc" else dict(backward=True)
+            init, kernel = get(ys.to(where), *SP_PARAMS, 3, N, chains=True, **kw)
+        assert kernel.chain_axis
+        state = init(x0.to(where))
+        K.reset_launches()
+        steps = []
+        for noise in noises:
+            state = kernel(state, delta.to(where), noise=_to_tree(noise, where))
+            steps.append((state.x.cpu(), state.updated.cpu()))
+        out.append(steps)
+        counts.append({k: v for k, v in K.launches().items() if v})
+    for (xc, uc), (xg, ug) in zip(*out):
+        assert torch.equal(uc, ug)
+        np.testing.assert_allclose(xg.numpy(), xc.numpy(), rtol=1e-9, atol=1e-11)
+    want = {"kalman-1": {"scalar_filter_scan": 4, "scalar_affine_scan": 2}, "kalman-2": {},
+            "csmc": {"row_lse": 8, "col_sample": 6},
+            "csmc-guided": {"block_lane_scan": 2, "backward_factor_scan": 4}}[style]
+    assert counts[1] == want
