@@ -25,6 +25,8 @@ class BackendConfig:
     precision: str = "single"          # 'single' | 'double'
     platform: Optional[str] = None     # None or 'gpu': the card; 'cpu'
     debug: bool = False                # the port runs eagerly: nothing to turn off
+    # The runner's finite check after every step (`run_chain(...,
+    # debug_nans=True)`, which the drivers pass from the same flag).
     debug_nans: bool = False
 
     @property
@@ -45,9 +47,10 @@ class BackendConfig:
 
     def apply(self):
         """Set the default dtype from `precision` and keep float32 matmuls
-        and convolutions IEEE (no TF32: it collapses the MH acceptance)."""
-        if self.debug_nans:
-            raise NotImplementedError("debug_nans: the port has no NaN-trapping mode")
+        and convolutions IEEE (no TF32: it collapses the MH acceptance).
+        `debug_nans` sets nothing here: PyTorch has no counterpart of
+        `jax_debug_nans`, and the runner checks the chain after each step
+        instead (`experiments.runner.run_chain`'s `debug_nans`)."""
         torch.set_default_dtype(self.dtype)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

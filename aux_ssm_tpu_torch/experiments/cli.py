@@ -3,11 +3,14 @@
 
 `--n-chains` C above 1 runs C chains on one card (`parallel/chains.py`):
 as one batched step where the driver's model offers a kernel over the chain
-axis (marked `chain_axis`: SV kalman-1/2, Lorenz), else the one-chain kernel
-chain after chain (`chains.chain_loop`); the run reports split-R-hat. `--mesh-chains` above 0 (a device mesh) raises
+axis (marked `chain_axis`: every style of the SV, spatial and Lorenz
+drivers under any options; the rare-event grid batches its own), else a
+one-chain kernel chain after chain (`chains.chain_loop`); the run reports
+split-R-hat. `--mesh-chains` above 0 (a device mesh) raises
 NotImplementedError. `--checkpoint-dir` (with `--checkpoint-every`) makes a run resumable: a
 killed run started again with the same arguments goes on from its newest
-checkpoint, bit for bit (`runner.run_chain`).
+checkpoint, bit for bit (`runner.run_chain`). `--debug-nans` checks the
+chain after every step (`runner.check_finite`).
 """
 import argparse
 
@@ -123,7 +126,8 @@ def run_maybe_sharded(generator, kernel, state, cfg, args, *, collect_samples=Fa
     check_mesh(args)
     n_chains = getattr(args, "n_chains", 1)
     ckpt = dict(checkpoint_dir=getattr(args, "checkpoint_dir", None),
-                checkpoint_every=getattr(args, "checkpoint_every", 0))
+                checkpoint_every=getattr(args, "checkpoint_every", 0),
+                debug_nans=getattr(args, "debug_nans", False))
     if n_chains <= 1:
         res = run_chain(kernel, state, cfg, generator=generator,
                         collect_samples=collect_samples, delta_init=delta_init,

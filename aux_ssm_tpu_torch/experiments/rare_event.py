@@ -113,7 +113,8 @@ def run_grid(args, *, device=None, dtype=None):
     res = run_sharded_chains(kernel, state0, cfg, generator=gen, collect_samples=True,
                              delta_init=delta0,
                              checkpoint_dir=getattr(args, "checkpoint_dir", None),
-                             checkpoint_every=getattr(args, "checkpoint_every", 0))
+                             checkpoint_every=getattr(args, "checkpoint_every", 0),
+                             debug_nans=getattr(args, "debug_nans", False))
 
     s = res.samples.reshape(G * G, C, -1, args.T)                 # cell, chain, sample, t
     acc = res.stats.accept_cum.reshape(G * G, C, -1).mean((1, 2)).cpu().numpy()

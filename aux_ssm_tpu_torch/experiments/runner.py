@@ -4,8 +4,8 @@
 sampling phase with online EJSD/moment statistics.
 
 The loop runs on the host, one kernel call per iteration, and never reads a
-device value back except to print progress (`verbose`) or to collect
-samples. It runs in segments: of `checkpoint_every` iterations when
+device value back except to print progress (`verbose`), to collect samples
+or to check the state (`debug_nans`). It runs in segments: of `checkpoint_every` iterations when
 checkpointing, of at most COLLECT_SEGMENT while collecting samples, else one
 a phase. Segment boundaries do not change the chain. Each sampling segment
 is timed on the host clock between two device fences
@@ -78,6 +78,38 @@ def _learning_rate(cfg, n_total, i):
     return float((f32(n_total) - f32(i)) * (f32(cfg.learning_rate) / f32(n_total)))
 
 
+def check_finite(state, delta, phase, i, n_chains=None):
+    """Raise FloatingPointError if a floating tensor of `state` (its
+    trajectory, log-target or log-weights) or `delta` holds a NaN or an
+    infinity after iteration `i` of `phase`. With `n_chains` C, a tensor
+    whose leading axis is C is a chain's each (the chain states of
+    `run_sharded_chains` lead with it), and the first bad chain is named;
+    a fault in any other tensor names none. One device read when all is
+    finite."""
+    from ..parallel.chains import _map_state
+    leaves = [delta]
+
+    def keep(z):
+        if z.is_floating_point():
+            leaves.append(z)
+        return z
+    _map_state(keep, state)
+    per_chain = [n_chains is not None and z.dim() > 0 and z.shape[0] == n_chains
+                 for z in leaves]
+    finite = [torch.isfinite(z).reshape(n_chains, -1).all(1) if chained
+              else torch.isfinite(z).all().reshape(1) for z, chained in zip(leaves, per_chain)]
+    if bool(torch.cat(finite).all()):
+        return
+    bad = [~f for f, chained in zip(finite, per_chain) if chained]
+    bad = torch.stack(bad).any(0) if bad else None
+    where = ""
+    if bad is not None and bool(bad.any()):
+        where = f", chain {int(bad.nonzero()[0, 0])} of {n_chains}"
+    name = "burn-in" if phase == _BURNIN_PHASE else "sampling"
+    raise FloatingPointError(f"debug_nans: a NaN or infinity in the chain state after "
+                             f"{name} iteration {i}{where}")
+
+
 def _save(directory, payload, step):
     from ..utils.checkpoint import save_checkpoint
     save_checkpoint(directory, step, payload, keep=KEEP_CHECKPOINTS)
@@ -87,7 +119,7 @@ def run_chain(kernel: Callable, init_state, cfg: RunConfig, generator=None,
               collect_samples: bool = False, get_stats_x: Callable = lambda s: s.x,
               delta_init=None, checkpoint_dir: Optional[str] = None,
               checkpoint_every: int = 0, collect_fn: Callable = None,
-              n_chains: Optional[int] = None) -> RunResult:
+              n_chains: Optional[int] = None, debug_nans: bool = False) -> RunResult:
     """Burn-in with adaptation, then frozen-delta sampling.
 
     `kernel(state, delta, generator=None) -> state`, with `state.updated` a
@@ -108,6 +140,12 @@ def run_chain(kernel: Callable, init_state, cfg: RunConfig, generator=None,
     then count steps per chain ((C,) `step`), and a chain's delta adapts on
     its own rate (averaged over the rest of its `updated` where its delta has
     fewer axes).
+
+    `debug_nans` (the drivers' --debug-nans, the nearest the port comes to
+    `jax_debug_nans`): after every step, `check_finite` on the state and
+    delta, which raises FloatingPointError naming the iteration and the
+    chain where they are not finite. Off by default: it reads a flag back
+    from the device each step.
     """
     if checkpoint_dir is not None and generator is None:
         raise ValueError("checkpoint_dir needs a generator of the run's own: the default "
@@ -162,6 +200,8 @@ def run_chain(kernel: Callable, init_state, cfg: RunConfig, generator=None,
             for i in range(it, it + length):
                 x_prev = get_stats_x(state)
                 state = kernel(state, delta, generator=generator)
+                if debug_nans:
+                    check_finite(state, delta, phase_id, i, n_chains)
                 stats = update_stats(stats, x_prev, get_stats_x(state), state.updated,
                                      beta=cfg.beta)
                 if adapt:

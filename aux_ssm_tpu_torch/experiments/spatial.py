@@ -7,10 +7,9 @@ B = 64 components).
 
 Runs on the card unless `--platform cpu`. The kalman styles run the batched
 scalar layout (two scalar filter scans and one scalar affine scan a step);
-csmc and csmc-guided carry a (T,) delta. With `--n-chains C`, every style at
-the defaults runs all C chains as one batched step (the kalman styles' C B
-columns in one layout; `build_kernel` names the options that loop
-instead). Saves the JAX driver's .npz keys:
+csmc and csmc-guided carry a (T,) delta. With `--n-chains C`, every style
+under any options runs all C chains as one batched step (the kalman styles'
+C B columns in one layout). Saves the JAX driver's .npz keys:
 mean_x, var_x, ejsd, delta, xs_true, ys, sampling_time.
 
 The data come from `np.random.default_rng(--seed)`, the JAX driver's own
@@ -33,10 +32,7 @@ def build_kernel(style, ys, args):
     """(init, kernel), and whether the style is a cSMC one ((T,) delta).
     `init` is one chain's; with `--n-chains C > 1` the kernel is the one
     over the chain axis (one batched step of all C chains, marked
-    `chain_axis`) where the style's options take one, else one chain's
-    (`cli.run_maybe_sharded` then runs it chain after chain: the csmc styles
-    under `--no-backward` or a resampling other than multinomial, and the
-    PIT's blocked route at N >= 4096)."""
+    `chain_axis`), under any of the style's options."""
     common = (ys, SIGMA_X, NU, TAU, R_Y, args.D)
     chains = getattr(args, "n_chains", 1) > 1
     if style in ("kalman-1", "kalman-2"):

@@ -9,9 +9,8 @@ Runs on the card unless `--platform cpu`. Styles: kalman-1 and kalman-2
 (the auxiliary Kalman sampler; at D = 30 the MH kernels' D = 32 instance),
 csmc (independent proposals; parallel-in-time by default, `--no-parallel`
 for the sequential sweep) and csmc-guided (the block-lane sweep). With
-`--n-chains C`, every style at the defaults runs all C chains as one batched
-step (`build_kernel` names the options that loop instead). Saves the
-JAX driver's .npz keys: samples_mean, samples_std, ejsd, delta, xs_true, ys,
+`--n-chains C`, every style under any options runs all C chains as one
+batched step. Saves the JAX driver's .npz keys: samples_mean, samples_std, ejsd, delta, xs_true, ys,
 sampling_time.
 
 The random streams are the port's own: the data come from a CPU
@@ -33,10 +32,7 @@ NU, PHI, TAU, RHO = 0.0, 0.9, 2.0, 0.25
 def build_kernel(style, ys, args):
     """(init, kernel): `init` one chain's; with `--n-chains C > 1` the
     kernel is the one over the chain axis (one batched step of all C chains,
-    marked `chain_axis`) where the style's options take one, else one
-    chain's (`cli.run_maybe_sharded` then runs it chain after chain: the
-    csmc styles under `--no-backward` or a resampling other than
-    multinomial, and the PIT's blocked route at N >= 4096)."""
+    marked `chain_axis`), under any of the style's options."""
     chains = getattr(args, "n_chains", 1) > 1
     if style in ("kalman-1", "kalman-2"):
         order = 1 if style == "kalman-1" else 2

@@ -14,11 +14,14 @@ its final index as `jax.random.choice` does, by inverse CDF at
 
 Chain axis: a reference trajectory x (C, T, d) runs C independent chains in
 one step; every noise array and the state (`updated` (C, T)) then carry the
-leading C, and the components' per-step params lead with (C, T-1). The
-factor, lane and block-lane sweeps take the chain axis on the card (one
-launch set for all C chains, `ops/cuda/csmc_fwd.py`); the generic step loops
-and ancestor scanning take one chain and raise NotImplementedError under a
-chain axis.
+leading C, and the components' per-step params lead with (C, T-1), or (1,
+T-1) where every chain shares them. Every path takes it: the factor, lane
+and block-lane sweeps on the card (one launch set for all C chains,
+`ops/cuda/csmc_fwd.py`), and the generic step loops, ancestor scanning and
+both resampling schemes in plain torch over the leading axis (each loop
+step one batch of ops for all C chains). So any options run C chains as one
+batched step, and chain c's values are those of a one-chain step given its
+noise.
 
 Dispatch by model capability, as in the JAX package (there by platform and
 environment flags; here the same path runs everywhere, a CPU tensor through
@@ -37,6 +40,7 @@ from .csmc_base import CSMCState, tree_map
 from ..ops import resampling as resampling_mod
 from ..ops.cuda import csmc_fwd
 from ..ops.logspace import normalize
+from ..ops.take import take_rows
 
 _FUSED_MAX_N = 1024   # past it the TPU factor kernels need N % 128 == 0
 
@@ -76,7 +80,7 @@ def get_kernel(M0, G0, Mt, Gt, N, backward=False, Pt=None, resampling="multinomi
             else:
                 x_new, picked = backward_sampling_pass(Pt, w_T, xs, log_ws, us)
         else:
-            x_new, picked = backward_scanning_pass(w_T, xs, ancestors, us[-1])
+            x_new, picked = backward_scanning_pass(w_T, xs, ancestors, us[..., -1])
         return CSMCState(x=x_new, updated=picked != 0)
 
     def init(x_star):
@@ -97,8 +101,20 @@ def draw_noise(x, N, resample, generator=None):
             torch.rand(*lead, T, **kw))
 
 
-def _at(tree, t):
-    return tree_map(lambda z: z[t], tree)
+def _at(tree, t, chained=False):
+    """Step t of per-step params: axis 0, or axis 1 behind a chain axis."""
+    return tree_map((lambda z: z[:, t]) if chained else (lambda z: z[t]), tree)
+
+
+def _particle(xs, b):
+    """xs (..., N, d) at index b (...) -> (..., d)."""
+    return take_rows(xs, b[..., None])[..., 0, :]
+
+
+def _row(x, chained):
+    """One value a chain (C, d) as a particle row (C, 1, d) that broadcasts
+    against particles (C, N, d); one chain's (d,) as it is."""
+    return x[:, None] if chained else x
 
 
 def _pin(x, value):
@@ -106,23 +122,6 @@ def _pin(x, value):
     fresh tensor, changed in place)."""
     x[..., 0, :] = value
     return x
-
-
-def _one_chain(name, x_star):
-    if x_star.dim() > 2:
-        raise NotImplementedError(
-            f"{name} takes one chain: a chain axis needs the factor, lane or block-lane sweeps")
-
-
-def takes_chain_axis(N, backward, resampling, block_lane=False):
-    """Whether a step of N particles runs C chains as one batched step: only
-    the sweeps take a chain axis, so it needs backward sampling (through the
-    backward factor sweep), multinomial resampling, an N the factor sweeps
-    serve and, for a model of (d, N)-block callables (`block_lane`), one the
-    block-lane sweep serves. Model builders mark a kernel `chain_axis` only
-    then; otherwise the chains loop (`parallel/chains.chain_loop`)."""
-    return (backward and resampling in ("multinomial", resampling_mod.multinomial)
-            and _factor_sweep_takes(N) and (not block_lane or N <= csmc_fwd.MAX_BLOCK_N))
 
 
 def _use_fused_forward(Mt, Gt, resample, ancestor_Pt, N):
@@ -232,8 +231,8 @@ def forward_pass(x_star, M0, G0, Mt, Gt, N, resample, noise, ancestor_Pt=None):
             return _block_lane_forward_pass(x_star, M0, G0, Mt, Gt, N, noise)
 
     eps_m0, res_u, eps_prop, anc_u = noise
-    _one_chain("the generic forward loop", x_star)
-    T = x_star.shape[0]
+    *lead, T, _ = x_star.shape
+    chained = bool(lead)
     x_prev, log_w0, w = _initial(x_star, M0, G0, eps_m0)
     step_resample = (resampling_mod.multinomial_from_uniforms
                      if resample is resampling_mod.multinomial
@@ -241,21 +240,24 @@ def forward_pass(x_star, M0, G0, Mt, Gt, N, resample, noise, ancestor_Pt=None):
     as_params = ancestor_Pt.params if ancestor_Pt is not None else None
     xs, log_ws, ancestors = [x_prev], [log_w0], []
     for t in range(T - 1):
-        anc = step_resample(res_u[t], w)
+        anc = step_resample(res_u[..., t, :], w)
         if ancestor_Pt is not None:
-            log_as = torch.log(w) + ancestor_Pt.logpdf(x_star[t + 1], x_prev, _at(as_params, t))
-            anc[0] = resampling_mod.categorical_from_uniform(anc_u[t], normalize(log_as))
-        x_prev = x_prev[anc]
-        x_t = _pin(Mt.sample_from_noise(eps_prop[t], x_prev, _at(Mt.params, t)), x_star[t + 1])
-        log_w = Gt(x_t, x_prev, _at(Gt.params, t))
+            log_as = torch.log(w) + ancestor_Pt.logpdf(_row(x_star[..., t + 1, :], chained),
+                                                       x_prev, _at(as_params, t, chained))
+            anc[..., 0] = resampling_mod.categorical_from_uniform(anc_u[..., t],
+                                                                  normalize(log_as, -1))
+        x_prev = take_rows(x_prev, anc)
+        x_t = _pin(Mt.sample_from_noise(eps_prop[..., t, :, :], x_prev,
+                                        _at(Mt.params, t, chained)), x_star[..., t + 1, :])
+        log_w = Gt(x_t, x_prev, _at(Gt.params, t, chained))
         w = normalize(log_w, -1)
         xs.append(x_t)
         log_ws.append(log_w)
         ancestors.append(anc)
         x_prev = x_t
-    anc_out = (torch.stack(ancestors) if ancestors
-               else torch.empty(0, N, dtype=torch.int64, device=x_star.device))
-    return w, torch.stack(xs), torch.stack(log_ws), anc_out
+    anc_out = (torch.stack(ancestors, -2) if ancestors
+               else torch.empty(*lead, 0, N, dtype=torch.int64, device=x_star.device))
+    return w, torch.stack(xs, -3), torch.stack(log_ws, -2), anc_out
 
 
 def _take_trajectory(xs, picked):
@@ -269,33 +271,36 @@ def backward_scanning_pass(w_T, xs, ancestors, u):
     index is `jax.random.choice(key, N, p=w_T)` from its uniform u: the
     inverse CDF at (1 - u) * total. The pointer chase B_t = A_t[B_{t+1}] is a
     suffix composition of index maps, resolved in log2(T) rounds of gathers
-    (Hillis–Steele)."""
-    _one_chain("ancestor scanning", xs[..., 0, :])
+    (Hillis–Steele), each a batched gather over any leading chain axis."""
     b_T = resampling_mod.choice_from_uniform(u, w_T)
-    n = ancestors.shape[0]
+    n = ancestors.shape[-2]
     suffix = ancestors.clone()
     off = 1
     while off < n:  # suffix[t] = A_t o A_{t+1} o ... o A_{n-1}
-        suffix[:n - off] = torch.gather(suffix[:n - off], 1, suffix[off:])
+        suffix[..., :n - off, :] = torch.gather(suffix[..., :n - off, :], -1,
+                                                suffix[..., off:, :])
         off *= 2
-    picked = torch.cat([suffix[:, b_T][:, 0], b_T])
+    at_b = torch.gather(suffix, -1, b_T[..., None, :].expand(*suffix.shape[:-1], 1))[..., 0]
+    picked = torch.cat([at_b, b_T], -1)
     return _take_trajectory(xs, picked), picked
 
 
 def backward_sampling_pass(Pt, w_T, xs, log_ws, us):
     """Whiteley backward sampling, one categorical draw per step from the
-    smoothing weights log_w_t + log p(x_{t+1} | x_t) at uniform us[t]."""
-    _one_chain("the generic backward loop", xs[..., 0, :])
-    T = xs.shape[0]
-    b = resampling_mod.categorical_from_uniform(us[-1], w_T)
+    smoothing weights log_w_t + log p(x_{t+1} | x_t) at uniform us[t]; over
+    a leading chain axis, one draw a chain a step."""
+    T = xs.shape[-3]
+    chained = xs.dim() > 3
+    b = resampling_mod.categorical_from_uniform(us[..., -1], w_T)
     picked = [b]
-    x_next = xs[-1, b]
+    x_next = _particle(xs[..., -1, :, :], b)
     for t in range(T - 2, -1, -1):
-        log_w = Pt.logpdf(x_next, xs[t], _at(Pt.params, t)) + log_ws[t]
-        b = resampling_mod.categorical_from_uniform(us[t], normalize(log_w, -1))
+        log_w = (Pt.logpdf(_row(x_next, chained), xs[..., t, :, :], _at(Pt.params, t, chained))
+                 + log_ws[..., t, :])
+        b = resampling_mod.categorical_from_uniform(us[..., t], normalize(log_w, -1))
         picked.append(b)
-        x_next = xs[t, b]
-    picked = torch.stack(picked[::-1])
+        x_next = _particle(xs[..., t, :, :], b)
+    picked = torch.stack(picked[::-1], -1)
     return _take_trajectory(xs, picked), picked
 
 

@@ -23,7 +23,7 @@ from typing import Any
 
 import torch
 
-from . import csmc, pit
+from . import pit
 from .csmc_aux import get_kernel as get_aux_kernel, per_step_scale
 from .csmc_base import CSMCState, Distribution, Dynamics, Potential, UnivariatePotential
 
@@ -43,15 +43,6 @@ def get_kernel(M0, G0, Mt, Gt, N, backward=False, Pt=None, gradient=False, paral
     if parallel:
         return _pit_path(M0, G0, Mt, Gt, N, gradient, stitch, draws)
     return _sequential_path(M0, G0, Mt, Gt, N, backward, Pt, gradient, resampling)
-
-
-def takes_chain_axis(N, backward=False, parallel=False, resampling="multinomial",
-                     stitch="auto"):
-    """Whether `get_kernel` with these options runs C chains as one batched
-    step (`kernels/pit.py`, `kernels/csmc.py`'s `takes_chain_axis`)."""
-    if parallel:
-        return pit.takes_chain_axis(N, stitch)
-    return csmc.takes_chain_axis(N, backward, resampling)
 
 
 def trajectory_logpdf(u, M0, G0, Mt, Gt):

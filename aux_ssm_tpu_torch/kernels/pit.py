@@ -36,11 +36,12 @@ maps are static NumPy, so the tree loop reads nothing back from the device.
 Chain axis: x (C, T, d) runs C independent chains; the noise then carries a
 leading C (each level's u_rows (C, n_act, N) and seeds (C,) int32, the
 root's uniforms (C, 1)), and each tree level folds the chains into its
-pairs: its P = C * n_act nodes are one launch of each stitching kernel,
-col_sample drawing chain c's pairs with chain c's seed and each pair's index
-within its own chain's level, so chain c draws what a one-chain step with
-its noise draws. One chain runs as C = 1. The blocked route under C > 1 is
-not ported (NotImplementedError; ROADMAP.md).
+pairs: its P = C * n_act nodes are one launch of each stitching kernel, on
+either route. The kernels that draw (col_sample; within_block_cols and
+stitch_draws on the blocked route) draw chain c's pairs with chain c's seed
+and each pair's index within its own chain's level, so chain c draws what a
+one-chain step with its noise draws; the blocked route's flat (row, block)
+draw is per node. One chain runs as C = 1.
 """
 import functools
 import math
@@ -482,12 +483,6 @@ def _resolve(sels, idx_init, S, N):
     return idx
 
 
-def takes_chain_axis(N, stitch="auto"):
-    """Whether a PIT step of N particles runs C chains as one batched step:
-    every route but the blocked one takes a chain axis."""
-    return not _use_blocked_stitch(N, stitch)
-
-
 def _use_blocked_stitch(N, stitch):
     """The blocked route: forced by stitch='blocked', else from N = 4096 on;
     N must be a multiple of 128 and at most 8192."""
@@ -506,17 +501,13 @@ def _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise, stitch="a
     N, e) also those values at the drawn rows / columns. Pair 0 is pinned to
     (0, 0), payloads to index 0's values. `draws` applies on the blocked
     route only. With `chains` C, the nodes are C chains' n_act nodes each,
-    chain after chain, and the level's seed is (C,): one a chain."""
+    chain after chain, and the level's seed is (C,): one a chain, on either
+    route."""
     rf, cf, rb, cb = Gt.pairwise_factors(xl, xr, params_r)
     rb = rb + lw_l
     cb = (cb + lw_r).contiguous()
     rf, cf = rf.contiguous(), cf.contiguous()
     blocked = _use_blocked_stitch(N, stitch) and not last
-    if blocked and chains is not None:
-        if chains > 1:
-            raise NotImplementedError("the blocked stitching route (N >= 4096) takes one chain; "
-                                      "a chain axis there is ROADMAP.md queue 1")
-        noise = (noise[0], noise[1].reshape(()))
 
     if last:
         u_row, u_col = noise
@@ -532,12 +523,13 @@ def _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise, stitch="a
     if blocked and draws == "joint":
         if row_payload is None:
             rows, blocks, rf_sel = st.joint_rowblock_draws(u_rows, rb, Lb, row_feat=rf)
-            cols = kernels.within_block_cols(seed, blocks, rf_sel, cf, cb, pair_offset)
+            cols = kernels.within_block_cols(seed, blocks, rf_sel, cf, cb, pair_offset,
+                                             chains=chains)
         else:
             rows, blocks, rf_sel, rpay = st.joint_rowblock_draws(u_rows, rb, Lb, row_feat=rf,
                                                                  row_extra=row_payload)
             cols, cpay = kernels.within_block_cols(seed, blocks, rf_sel, cf, cb, pair_offset,
-                                                   col_extra=col_payload)
+                                                   col_extra=col_payload, chains=chains)
             rpay[:, 0], cpay[:, 0] = row_payload[:, 0], col_payload[:, 0]
         rows[:, 0] = 0
         cols[:, 0] = 0
@@ -545,7 +537,7 @@ def _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise, stitch="a
 
     if blocked:  # draws == "fused"
         rows, cols = kernels.stitch_draws(seed, rb + torch.logsumexp(Lb, -1), u_rows, Lb, rf, cf,
-                                          cb, pair_offset)
+                                          cb, pair_offset, chains=chains)
     else:
         rows = categorical_from_uniforms(rb + kernels.row_lse(rf, cf, cb), u_rows)
         rows[:, 0] = 0

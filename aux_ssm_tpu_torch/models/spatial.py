@@ -30,7 +30,6 @@ import torch
 from . import t_distribution as tdist
 from ..device import resolve
 from ..kernels import csmc_aux, csmc_independent
-from ..kernels.csmc import takes_chain_axis
 from ..kernels.csmc_base import (Distribution, Dynamics, Potential, UnivariatePotential,
                                  diag_gaussian_pair_factors, mark_chains, rows as _rows,
                                  shared_by_chains)
@@ -278,8 +277,6 @@ def get_csmc_kernel(ys, sigma_x, nu, tau, r_y, d, n_particles, backward=False, p
     `chains`, C chains as one batched step over a leading chain axis (x (C,
     T, B), delta (C, T), the noise with a leading C); the kernel is marked
     `chain_axis`."""
-    chains = chains and csmc_independent.takes_chain_axis(n_particles, backward, parallel,
-                                                          resampling)
     M0, G0, Mt, Gt = get_feynman_kac(ys, sigma_x, nu, tau, r_y, d, chains)
     return mark_chains(csmc_independent.get_kernel(
         M0, G0, Mt, Gt, n_particles, backward=backward, Pt=Mt, gradient=gradient,
@@ -434,13 +431,14 @@ class GuidedGt(Potential):
         return c.packed, torch.cat([u, y, step], -1)
 
 
-def make_guided_factory(ys, sigma_x, nu, tau, r_y, d, gradient=False):
+def make_guided_factory(ys, sigma_x, nu, tau, r_y, d, gradient=False, chains=False):
     """`factory(u, scale) -> (M0, G0, Mt, Gt)` of the guided proposals at
     auxiliary observations u (T, B) with scales (T,), or C chains' u (C, T,
     B) and scales (C, T) (their params (C, T-1, ...), the data broadcast to
     every chain, not copied; the precision's row lists shared), and the true
-    dynamics `Pt` for backward sampling."""
-    _, _, Pt, _ = get_feynman_kac(ys, sigma_x, nu, tau, r_y, d)
+    dynamics `Pt` for backward sampling (with `chains`, C chains': its params
+    with a unit chain axis)."""
+    _, _, Pt, _ = get_feynman_kac(ys, sigma_x, nu, tau, r_y, d, chains)
     prec = make_precision_dense(tau, r_y, d)
     vals, cols = precision_rows(prec)
     packed = np.concatenate([[sigma_x, nu, float(gradient), vals.shape[1]], vals.reshape(-1),
@@ -468,6 +466,6 @@ def get_guided_csmc_kernel(ys, sigma_x, nu, tau, r_y, d, n_particles, backward=F
     chain axis (x (C, T, B), delta (C, T), the noise with a leading C): one
     block-lane sweep and one backward factor sweep a step for all C chains;
     the kernel is marked `chain_axis`."""
-    factory, Pt = make_guided_factory(ys, sigma_x, nu, tau, r_y, d, gradient)
+    factory, Pt = make_guided_factory(ys, sigma_x, nu, tau, r_y, d, gradient, chains)
     return mark_chains(csmc_aux.get_kernel(factory, n_particles, backward, Pt, resampling),
-                       chains and takes_chain_axis(n_particles, backward, resampling, True))
+                       chains)

@@ -30,7 +30,6 @@ import torch
 
 from ..device import resolve
 from ..kernels import csmc_aux, csmc_independent
-from ..kernels.csmc import takes_chain_axis
 from ..kernels.kalman import (chain_delta, chain_major, get_kernel as get_kalman_generic,
                               one_chain_factories)
 from ..kernels.csmc_base import (Distribution, Dynamics, Potential, UnivariatePotential,
@@ -296,8 +295,6 @@ def get_csmc_kernel(ys, nu, phi, tau, rho, n_particles, backward=False, parallel
     `chains`, C chains as one batched step over a leading chain axis (x (C,
     T, D), delta (C, T), the noise with a leading C; `kernels/csmc.py`,
     `kernels/pit.py`); the kernel is marked `chain_axis`."""
-    chains = chains and csmc_independent.takes_chain_axis(n_particles, backward, parallel,
-                                                          resampling)
     M0, G0, Mt, Gt = get_feynman_kac(ys, nu, phi, tau, rho, chains)
     return mark_chains(csmc_independent.get_kernel(
         M0, G0, Mt, Gt, n_particles, backward=backward, Pt=Mt, gradient=gradient,
@@ -321,9 +318,9 @@ def get_guided_csmc_kernel(ys, nu, phi, tau, rho, n_particles, backward=False, g
     (C, T, D), delta (C, T), the noise with a leading C): one block-lane
     sweep and one backward factor sweep a step for all C chains; the kernel
     is marked `chain_axis`."""
-    factory, Pt = make_guided_factory(ys, nu, phi, tau, rho, gradient, eig=eig)
+    factory, Pt = make_guided_factory(ys, nu, phi, tau, rho, gradient, eig=eig, chains=chains)
     return mark_chains(csmc_aux.get_kernel(factory, n_particles, backward, Pt, resampling),
-                       chains and takes_chain_axis(n_particles, backward, resampling, True))
+                       chains)
 
 
 @dataclass(frozen=True)
@@ -506,7 +503,7 @@ class GuidedGt(Potential):
         return self.c.packed, rows
 
 
-def make_guided_factory(ys, nu, phi, tau, rho, gradient=False, eig=None):
+def make_guided_factory(ys, nu, phi, tau, rho, gradient=False, eig=None, chains=False):
     """(factory, Pt) of the guided style.
 
     Every per-step quantity is a function of Q that commutes with Q, so in
@@ -516,11 +513,12 @@ def make_guided_factory(ys, nu, phi, tau, rho, gradient=False, eig=None):
     `torch.linalg.eigh` in float64 on the CPU). Q has a (d-1)-fold
     eigenvalue, so the basis inside that eigenspace is not unique: the law
     is the same in any basis, but reproducing another implementation's
-    draws from the same noise needs its basis.
+    draws from the same noise needs its basis. With `chains`, `Pt` is the
+    one of C chains (its params with a unit chain axis).
     """
     T, d = ys.shape
     m0, P0, F, Q, b = get_dynamics(nu, phi, tau, rho, d, device="cpu")
-    _, _, Pt, _ = get_feynman_kac(ys, nu, phi, tau, rho)
+    _, _, Pt, _ = get_feynman_kac(ys, nu, phi, tau, rho, chains)
     if eig is None:
         lamQ, VQ = torch.linalg.eigh(Q)
         lam0, V0 = torch.linalg.eigh(P0)

@@ -20,7 +20,8 @@ import torch
 from ..device import resolve
 from ..kernels import csmc
 from ..kernels.csmc_base import (Distribution, Dynamics, Potential, UnivariatePotential,
-                                 diag_gaussian_pair_factors, rows)
+                                 diag_gaussian_pair_factors, mark_chains, rows,
+                                 shared_by_chains)
 from ..ops.mvn import norm_logpdf
 
 DEFAULTS = dict(tau0=0.15, tau1=0.12, tau2=0.10, sig_x=0.3, sig_y=0.1, m0=1.0, sig0=0.5)
@@ -119,10 +120,12 @@ class ThetaGt(Potential):
         return self.consts, self.params
 
 
-def get_feynman_kac(ys, **params):
+def get_feynman_kac(ys, chains=False, **params):
     """Bootstrap Feynman–Kac decomposition (M0, G0, Mt, Gt): proposals = model
     dynamics, potentials = observation densities. `ys` (T, 1) sets dtype and
-    device."""
+    device. With `chains`, for C chains on a leading axis: the per-step
+    params, which every chain shares, carry a unit chain axis
+    (`csmc_base.shared_by_chains`)."""
     p = {**DEFAULTS, **params}
     T = ys.shape[0]
     consts = torch.tensor([p[k] for k in ("tau0", "tau1", "tau2", "sig_x", "sig_y")],
@@ -130,14 +133,21 @@ def get_feynman_kac(ys, **params):
     Mt = ThetaMt(params=ys.new_zeros(T - 1, 0), tau0=p["tau0"], tau1=p["tau1"], tau2=p["tau2"],
                  sig_x=p["sig_x"])
     Gt = ThetaGt(params=ys[1:], sig_y=p["sig_y"], consts=consts)
+    if chains:
+        Mt, Gt = shared_by_chains(Mt), shared_by_chains(Gt)
     return ThetaM0(p["m0"], p["sig0"]), ThetaG0(ys[0], p["sig_y"]), Mt, Gt
 
 
 def get_pgas_kernel(ys, n_particles, backward=False, ancestor_sampling=True,
-                    resampling="multinomial", **params):
+                    resampling="multinomial", chains=False, **params):
     """Particle Gibbs with ancestor sampling (bootstrap proposals). Returns
     (init, kernel) with `kernel(state, generator=None, noise=None)`: no delta
-    (bootstrap cSMC has no auxiliary step size)."""
-    M0, G0, Mt, Gt = get_feynman_kac(ys, **params)
-    return csmc.get_kernel(M0, G0, Mt, Gt, n_particles, backward=backward, Pt=Mt,
-                           resampling=resampling, ancestor_sampling=ancestor_sampling)
+    (bootstrap cSMC has no auxiliary step size). With `chains`, C chains as
+    one batched step over a leading chain axis (x (C, T, 1), the noise with
+    a leading C; `kernels/csmc.py`): one lane sweep a step for all C chains,
+    then ancestor scanning (or the backward factor sweep) over the chains;
+    the kernel is marked `chain_axis`."""
+    M0, G0, Mt, Gt = get_feynman_kac(ys, chains, **params)
+    return mark_chains(csmc.get_kernel(M0, G0, Mt, Gt, n_particles, backward=backward, Pt=Mt,
+                                       resampling=resampling,
+                                       ancestor_sampling=ancestor_sampling), chains)

@@ -46,6 +46,17 @@ def instance_dim(d):
             return D
     raise ValueError(f"no kernel instance for dimension {d} (at most {MAX_DIM})")
 
+
+def has_instance(*dims):
+    """Whether the d x d kernels have an instance for these state and
+    observation widths: max(dims) <= MAX_DIM. The callers of the d x d
+    wrappers (`ops/filtering.py`, `ops/sampling.py`, `ops/lgssm.py`) run the
+    plain versions where it is false, on any device, as the JAX package
+    leaves a shape whose Pallas instance does not fit to XLA
+    (`aux_ssm_tpu/ops/filtering.py` `use_pallas`); the wrappers themselves
+    still launch or raise."""
+    return max(dims) <= MAX_DIM
+
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 

@@ -32,7 +32,6 @@ from .kalman_fused import _on_cuda
 MAX_N = 8192        # factor and lane kernels (the TPU kernels' _LANE_MAX_N)
 WARP_N = 32         # kWarpN of csrc/csmc_fwd.cu: the factor sweeps' one-warp path
 MAX_BLOCK_N = 1024  # block-lane kernel (the TPU kernel's dense cap)
-MAX_BLOCK_D = 64    # kMaxBlockD of csrc/csmc_models.cuh
 
 
 def _at(tree, t):
@@ -59,6 +58,12 @@ def _check_n(name, N, cap):
 def _check_shape(name, t, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _for_chains(tree, C):
+    """Per-step params of C chains: a leaf with a unit chain axis (shared by
+    every chain, `csmc_base.shared_by_chains`) expanded to C, a view."""
+    return tree_map(lambda z: z.expand(C, *z.shape[1:]) if z.shape[0] == 1 else z, tree)
 
 
 def _per_chain(plain, *args, chains=None, **kw):
@@ -298,15 +303,17 @@ def lane_scan(Mt, Gt, Pt, eps, res_u, anc_u, x_star, x0, w0):
     hands over its constants and compact per-step rows. The functor scores
     ancestors with Mt's own transition, so there `Pt` must be Mt. With a
     leading chain axis on eps and the other operands (and on the
-    components' params, which lead with (C, n)), C chains' sweeps at once."""
+    components' params, which lead with (C, n), or (1, n) where every chain
+    shares them), C chains' sweeps at once."""
     chained = eps.dim() == 3
     if not _on_cuda("lane_scan", eps):
-        plain_args = (Mt.params, Gt.params, None if Pt is None else Pt.params, eps, res_u,
-                      anc_u, x_star, x0, w0)
+        params = (Mt.params, Gt.params, None if Pt is None else Pt.params)
         fns = (Mt.lane_propagate, Gt.lane_logw, None if Pt is None else Pt.lane_logpdf)
         if chained:
-            return _per_chain(lambda *a: lane_scan_plain(*fns, *a), *plain_args,
-                              chains=eps.shape[0])
+            return _per_chain(lambda *a: lane_scan_plain(*fns, *a),
+                              *_for_chains(params, eps.shape[0]), eps, res_u, anc_u, x_star,
+                              x0, w0, chains=eps.shape[0])
+        plain_args = params + (eps, res_u, anc_u, x_star, x0, w0)
         return lane_scan_plain(*fns, *plain_args)
     model = getattr(Gt, "cuda_model", None)
     if model not in LANE_MODELS or getattr(Mt, "cuda_model", None) != model:
@@ -321,6 +328,8 @@ def lane_scan(Mt, Gt, Pt, eps, res_u, anc_u, x_star, x0, w0):
     C = lead[0] if chained else 1
     _check_n("lane_scan", N, MAX_N)
     consts, params = Gt.cuda_operands()
+    if chained:
+        params = _for_chains(params, C)
     n_consts, n_params = LANE_MODELS[model]
     for t, shape in ((eps, (*lead, n, N)), (anc_u, (*lead, n)), (x_star, (*lead, n)),
                      (x0, (*lead, N)), (w0, (*lead, N)), (consts, (n_consts,)),
@@ -387,7 +396,9 @@ def block_lane_scan(Mt, Gt, eps, res_u, x_star, x0, w0):
     (and on the components' params, which lead with (C, n); the constants
     shared), C chains' sweeps at once: one launch, a block a chain. Each
     chain's operands must be its own: a per-chain operand broadcast over the
-    chains (stride 0) raises, rather than being copied C times."""
+    chains (stride 0) raises, rather than being copied C times. Any d runs
+    whose buffers fit in a block's shared memory; past that the launch
+    raises."""
     chained = eps.dim() == 4
     if not _on_cuda("block_lane_scan", eps):
         plain_args = (Mt.params, Gt.params, eps, res_u, x_star, x0, w0)
@@ -404,8 +415,6 @@ def block_lane_scan(Mt, Gt, eps, res_u, x_star, x0, w0):
     *lead, n, d, N = eps.shape
     C = lead[0] if chained else 1
     _check_n("block_lane_scan", N, MAX_BLOCK_N)
-    if not 1 <= d <= MAX_BLOCK_D:
-        raise ValueError(f"block_lane_scan: the CUDA kernel takes d in 1..{MAX_BLOCK_D}, got {d}")
     consts, params = Gt.cuda_operands()
     mats, vecs, lists, scalars, row_vecs, row_scalars = BLOCK_LANE_MODELS[model]
     width = getattr(Gt, "ell_width", 0)

@@ -15,8 +15,10 @@
 // on one SM (spatial: T = 1024, d = 64, N = 25; SV: T = 250, d = 30, N = 25).
 // One thread block runs the time loop and one warp owns a particle's step
 // (warps stride over the particles past 32): its lanes own the state
-// components. The model's constants, the carry and each warp's scratch live
-// in shared memory. The design cuts what sits on a step's critical path:
+// components. The model's constants, the carry and each warp's scratch
+// (Model::scratch(d) words) live in shared memory, which is all that bounds
+// d: a shape whose unstaged buffers do not fit is refused (block_lane_plan).
+// The design cuts what sits on a step's critical path:
 //  - staged (where it fits in shared memory with the rest: block_lane_staged):
 //    the particle blocks of alternate steps are double-buffered in shared
 //    memory, so a warp reads its ancestor's column there (xs is written to
@@ -66,7 +68,7 @@ AUX_HHD long op_words(int N, int d, int row) { return (long)d * N + row + N + d;
 // Words of the sweep's buffers beside the constants.
 template <class Model>
 AUX_HHD long sweep_words(int N, int d, int nwarps, bool staged) {
-  const long base = 3L * N + 33 + (long)nwarps * Model::kScratch * d;
+  const long base = 3L * N + 33 + (long)nwarps * Model::scratch(d);
   return staged ? base + 2L * d * N + 2 * op_words(N, d, Model::row_width(d)) : base;
 }
 
@@ -78,7 +80,7 @@ AUX_HD SweepBuffers<S> carve(S* at, int N, int d, int nwarps, bool staged) {
   sb.lw = at + 2 * N;
   sb.red = at + 3 * N;
   sb.scratch = sb.red + 33;
-  S* p = sb.scratch + (long)nwarps * Model::kScratch * d;
+  S* p = sb.scratch + (long)nwarps * Model::scratch(d);
   sb.x = staged ? p : nullptr;
   sb.ops = staged ? p + 2L * d * N : nullptr;
   return sb;
@@ -99,7 +101,7 @@ AUX_HD void block_lane_sweep(const Block<S>& b, int n, int N, int d, const S* ep
   const int lane = b.tid % AUX_LANES, warp = b.tid / AUX_LANES, nwarps = b.nt / AUX_LANES;
   const int rw = Model::row_width(d);
   const long dN = (long)d * N, ow = op_words(N, d, rw);
-  S* buf = sb.scratch + (long)warp * Model::kScratch * d;
+  S* buf = sb.scratch + (long)warp * Model::scratch(d);
   auto stage = [&](int t) {  // step t's operands into buffer t & 1
     S* o = sb.ops + (t & 1) * ow;
     copy_async(o, eps + t * dN, (int)dN, b.tid, b.nt);
@@ -219,7 +221,8 @@ int block_lane_plan(int N, int d, int nconst, int* threads, bool* staged, size_t
   const int nwarps = *threads / 32;
   *staged = block_lane_staged<Model>(N, d, nconst, nwarps, sizeof(S), limit);
   *shmem = (nconst + sweep_words<Model>(N, d, nwarps, *staged)) * sizeof(S);
-  return 0;
+  // A state too wide for a block's shared memory even unstaged: no launch.
+  return *shmem > (size_t)limit ? (int)cudaErrorInvalidValue : 0;
 }
 
 template <typename S, class Model>
@@ -233,7 +236,7 @@ template <typename S, class Model>
 int run_block_lane(int n, int C, int N, int d, int nconst, const S* eps, const S* res_u,
                    const S* x_star, const S* x0, const S* w0, const S* consts, const S* params,
                    S* xs, S* log_ws, long long* anc, cudaStream_t stream) {
-  if (n <= 0 || C < 1 || N < 1 || N > kMaxBlockN || d < 1 || d > kMaxBlockD || nconst < 1)
+  if (n <= 0 || C < 1 || N < 1 || N > kMaxBlockN || d < 1 || nconst < 1)
     return (int)cudaErrorInvalidValue;
   int threads = 0;
   bool staged = false;
@@ -249,7 +252,7 @@ int run_block_lane(int n, int C, int N, int d, int nconst, const S* eps, const S
 // occupancy calculator, for N particles of width d with nconst constants.
 template <typename S, class Model>
 int block_lane_blocks_per_sm(int N, int d, int nconst, int* out) {
-  if (N < 1 || N > kMaxBlockN || d < 1 || d > kMaxBlockD || nconst < 1)
+  if (N < 1 || N > kMaxBlockN || d < 1 || nconst < 1)
     return (int)cudaErrorInvalidValue;
   int threads = 0;
   bool staged = false;

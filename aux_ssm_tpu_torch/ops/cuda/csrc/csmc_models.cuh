@@ -14,7 +14,7 @@
 // from column a of x_prev (d, N) with column j of eps (d, N), pins particle 0
 // to x_star (d,), stores the particle in column j of x_out (d, N) and returns
 // its log weight on every lane. Lane l owns the state components l, l +
-// lanes, ...; buf is the warp's shared scratch of kScratch * d entries. The
+// lanes, ...; buf is the warp's shared scratch of scratch(d) entries. The
 // lanes must not diverge around a call. The pointers may be to shared or to
 // global memory. It is built as Model(d, N, consts) from its packed
 // constants, which the sweep keeps in shared memory.
@@ -33,7 +33,9 @@
 
 namespace csmc {
 
-constexpr int kMaxBlockD = 64;  // the widest state of the block-lane functors
+// The widest state whose components a lane of the block-lane functors keeps
+// in registers; a wider state keeps them in the warp's shared scratch.
+constexpr int kRegBlockD = 64;
 
 // log N(x; loc, scale^2) as jax.scipy.stats.norm.logpdf computes it.
 template <typename S>
@@ -63,7 +65,7 @@ struct SvGuided {
   const S *FRT, *VQ, *VQT, *bR, *isl;
   S half_logdet_Q;
 
-  static constexpr int kScratch = 3;  // d-vectors of a warp's scratch
+  AUX_HHD static int scratch(int d) { return 3 * d; }  // three d-vectors a warp
   AUX_HHD static int row_width(int d) { return 6 * d + 2; }
 
   // consts = [FRT, VQ, VQT (d*d each), bR, isl (d each), half_logdet_Q]
@@ -157,13 +159,18 @@ struct SvGuided {
 // every thread at every step.
 // A row of P v is its W products summed in column order, which for finite v
 // is bit for bit the dense row (a zero product adds nothing): 5 products at
-// the published r_y = 1 instead of d = 64. A lane keeps its components of
-// x_prev, x and the mean in registers; only the vectors P is applied to go
-// through the warp's scratch.
+// the published r_y = 1 instead of d = 64. Up to kRegD = kRegBlockD a lane
+// keeps its components of x_prev and of P (y - x_prev) in registers (kPer
+// of them) and only the vectors P is applied to go through the warp's
+// scratch; a wider state (the 9 x 9 grid's d = 81 and up) keeps those two
+// in the scratch too, [y - x | x_prev | P (y - x_prev)], each entry read
+// only by the lane that owns it. Both run the same arithmetic in the same
+// order (`step_in`), so any d whose buffers fit in shared memory runs.
 template <typename S>
 struct SpatialGuided {
-  static constexpr int kPer = (kMaxBlockD + AUX_LANES - 1) / AUX_LANES;  // components a lane owns
-  static constexpr int kScratch = 1;
+  static constexpr int kPer = (kRegBlockD + AUX_LANES - 1) / AUX_LANES;  // components a lane owns
+  static constexpr int kRegD = kPer * AUX_LANES;
+  AUX_HHD static int scratch(int d) { return d <= kRegD ? d : 3 * d; }
   AUX_HHD static int row_width(int d) { return 2 * d + 7; }
 
   int d, N, W;
@@ -195,15 +202,35 @@ struct SpatialGuided {
 
   AUX_HD S step(const Step& st, int j, int a, int lane, int lanes, const S* x_prev,
                 const S* eps, const S* x_star, S* x_out, S* buf) const {
+    return d <= kRegD ? step_in<false>(st, j, a, lane, lanes, x_prev, eps, x_star, x_out, buf)
+                      : step_in<true>(st, j, a, lane, lanes, x_prev, eps, x_star, x_out, buf);
+  }
+
+  // A lane's values of its components: register r, or (kWide) entry i of a
+  // d-vector in the warp's scratch.
+  template <bool kWide>
+  struct Own {
+    S reg[kWide ? 1 : kPer];
+    S* at;
+    AUX_HD S& operator()(int r, int i) {
+      if constexpr (kWide) return at[i];
+      else return reg[r];
+    }
+  };
+
+  template <bool kWide>
+  AUX_HD S step_in(const Step& st, int j, int a, int lane, int lanes, const S* x_prev,
+                   const S* eps, const S* x_star, S* x_out, S* buf) const {
     S* df = buf;  // y - x_prev, then y - x: the vectors P is applied to
-    S xa[kPer], pv[kPer];
+    Own<kWide> xa{{}, buf + d}, pv{{}, buf + 2 * d};
+    const int R = kWide ? (d + lanes - 1) / lanes : kPer;  // components a lane owns
 #pragma unroll
-    for (int r = 0; r < kPer; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int i = lane + r * lanes;
-      pv[r] = 0;
       if (i < d) {
-        xa[r] = x_prev[(long)i * N + a];
-        df[i] = st.y[i] - xa[r];
+        pv(r, i) = 0;
+        xa(r, i) = x_prev[(long)i * N + a];
+        df[i] = st.y[i] - xa(r, i);
       }
     }
     AUX_WSYNC();
@@ -211,11 +238,11 @@ struct SpatialGuided {
     if (gradient) {
       S q = 0;
 #pragma unroll
-      for (int r = 0; r < kPer; ++r) {
+      for (int r = 0; r < R; ++r) {
         const int i = lane + r * lanes;
         if (i < d) {
-          pv[r] = apply_row(i, df);
-          q += df[i] * pv[r];
+          pv(r, i) = apply_row(i, df);
+          q += df[i] * pv(r, i);
         }
       }
       g = st.g_scale / (nu + warp_sum(q));
@@ -223,22 +250,22 @@ struct SpatialGuided {
     }
     S quad = 0;  // sum_i of the three densities' squared standardised residuals
 #pragma unroll
-    for (int r = 0; r < kPer; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int i = lane + r * lanes;
       if (i < d) {
-        const S u_i = st.u[i];
-        const S mu_i = xa[r] + st.K * ((gradient ? u_i + g * pv[r] : u_i) - xa[r]);
+        const S u_i = st.u[i], x_a = xa(r, i);
+        const S mu_i = x_a + st.K * ((gradient ? u_i + g * pv(r, i) : u_i) - x_a);
         const S x_i = j == 0 ? x_star[i] : mu_i + st.lam * eps[(long)i * N + j];
         x_out[(long)i * N + j] = x_i;
         df[i] = st.y[i] - x_i;
-        const S z1 = x_i - xa[r], z2 = x_i - u_i, z3 = x_i - mu_i;
+        const S z1 = x_i - x_a, z2 = x_i - u_i, z3 = x_i - mu_i;
         quad += z1 * z1 * inv_trans + z2 * z2 * st.inv_prop - z3 * z3 * st.inv_ll;
       }
     }
     AUX_WSYNC();
     S qq = 0;
 #pragma unroll
-    for (int r = 0; r < kPer; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int i = lane + r * lanes;
       if (i < d) qq += df[i] * apply_row(i, df);
     }

@@ -11,6 +11,14 @@ a tree level; each wrapper counts its launches in its `launches` attribute.
 The kernels take float32 or float64, feature widths k <= 64 and any row and
 column counts (block_masses and the draws: columns a multiple of 128; the
 draws: at most 8192).
+
+Chain axis: the three kernels that draw (col_sample, within_block_cols,
+stitch_draws) take `chains` C: a level's P nodes are then C chains' P / C
+each, chain after chain, with one seed a chain, and each node's pair counter
+runs within its own chain (`ops.stitching.pair_counters`), so chain c draws
+what a one-chain launch with its seed draws, and C = 1 is that launch.
+row_lse and block_masses draw nothing and take the folded nodes as they
+are.
 """
 import torch
 
@@ -40,6 +48,17 @@ def _seed_on(seed, ref):
     device: the kernels read it there, so a seed drawn on the card costs no
     host sync."""
     return torch.as_tensor(seed, device=ref.device).to(torch.int32).reshape(-1).contiguous()
+
+
+def _chain_pairs(name, seed, P, chains):
+    """The pairs of each chain, P / C, after checking that the P pairs and
+    the seeds make `chains` C chains (one seed a chain; None: one chain, one
+    seed)."""
+    C = 1 if chains is None else chains
+    n_seeds = torch.as_tensor(seed).numel()
+    if P % C or (chains is not None and n_seeds != C):
+        raise ValueError(f"{name}: {P} pairs and {n_seeds} seeds do not make {C} chains")
+    return P // C
 
 
 def _check_draw_columns(name, N):
@@ -76,18 +95,15 @@ def col_sample(seed, row_feat_sel, col_feat, col_bias, pair_offset=0, chains=Non
     pairs are C chains' P / C each, chain after chain, and seed is (C,):
     chain c's pairs draw with seed[c] and their index within the chain."""
     P, n, N, k = _check("col_sample", row_feat_sel, col_feat, col_bias)
-    C = 1 if chains is None else chains
-    if P % C or (chains is not None and torch.as_tensor(seed).numel() != C):
-        raise ValueError(f"col_sample: {P} pairs and {torch.as_tensor(seed).numel()} seeds "
-                         f"do not make {C} chains")
+    chain_pairs = _chain_pairs("col_sample", seed, P, chains)
     if not _on_cuda("col_sample", row_feat_sel):
         return plain.col_sample(seed, row_feat_sel, col_feat, col_bias, pair_offset, chains)
     rf, cf, cb = check_cuda_inputs("col_sample", (row_feat_sel, col_feat, col_bias),
                                    row_feat_sel.dtype, MAX_K, (k,))
     out = torch.empty(P, n, dtype=torch.int64, device=rf.device)
     if out.numel() and N:
-        launch("col_sample", rf.dtype, P, n, N, k, _seed_on(seed, rf), P // C, int(pair_offset),
-               rf, cf, cb, out)
+        launch("col_sample", rf.dtype, P, n, N, k, _seed_on(seed, rf), chain_pairs,
+               int(pair_offset), rf, cf, cb, out)
         col_sample.launches += 1
     return out
 
@@ -117,28 +133,30 @@ block_masses.launches = 0
 
 
 def within_block_cols(seed, blocks, row_feat_sel, col_feat, col_bias, pair_offset=0,
-                      col_extra=None):
+                      col_extra=None, chains=None):
     """The column inside each draw's 128-column block by Gumbel-argmax with
-    counter uniforms: seed as for `col_sample`, blocks (P, n) int64 in [0,
-    N / 128), row_feat_sel (P, n, k), col_feat (P, N, k), col_bias (P, N) ->
-    (P, n) int64, and with `col_extra` (P, N, e) also its values at the
-    columns; see `ops.stitching.within_block_cols`. The card does not
-    check the blocks' values: one outside [0, N / 128) reads another node's
-    or unallocated memory, where the plain version raises IndexError."""
+    counter uniforms: seed and `chains` as for `col_sample`, blocks (P, n)
+    int64 in [0, N / 128), row_feat_sel (P, n, k), col_feat (P, N, k),
+    col_bias (P, N) -> (P, n) int64, and with `col_extra` (P, N, e) also its
+    values at the columns; see `ops.stitching.within_block_cols`. The card
+    does not check the blocks' values: one outside [0, N / 128) reads another
+    node's or unallocated memory, where the plain version raises
+    IndexError."""
     P, n, N, k = _check("within_block_cols", row_feat_sel, col_feat, col_bias)
     _check_draw_columns("within_block_cols", N)
+    chain_pairs = _chain_pairs("within_block_cols", seed, P, chains)
     if tuple(blocks.shape) != (P, n):
         raise ValueError(f"within_block_cols: blocks {tuple(blocks.shape)}, expected {(P, n)}")
     if not _on_cuda("within_block_cols", row_feat_sel):
         return plain.within_block_cols(seed, blocks, row_feat_sel, col_feat, col_bias,
-                                       pair_offset, col_extra)
+                                       pair_offset, col_extra, chains)
     rf, cf, cb = check_cuda_inputs("within_block_cols", (row_feat_sel, col_feat, col_bias),
                                    row_feat_sel.dtype, MAX_K, (k,))
     blocks = blocks.to(device=rf.device, dtype=torch.int64).contiguous()
     cols = torch.empty(P, n, dtype=torch.int64, device=rf.device)
     if cols.numel():
-        launch("within_block_cols", rf.dtype, P, n, N, k, _seed_on(seed, rf), int(pair_offset),
-               blocks, rf, cf, cb, cols)
+        launch("within_block_cols", rf.dtype, P, n, N, k, _seed_on(seed, rf), chain_pairs,
+               int(pair_offset), blocks, rf, cf, cb, cols)
         within_block_cols.launches += 1
     if col_extra is None:
         return cols
@@ -148,13 +166,16 @@ def within_block_cols(seed, blocks, row_feat_sel, col_feat, col_bias, pair_offse
 within_block_cols.launches = 0
 
 
-def stitch_draws(seed, row_logits, u_rows, Lb, row_feat, col_feat, col_bias, pair_offset=0):
-    """Every (row, column) draw of one tree level: seed as for `col_sample`,
-    row_logits (P, N) = row_bias + logsumexp(Lb, -1), u_rows (P, N), Lb (P, N,
-    N / 128), row_feat, col_feat (P, N, k), col_bias (P, N) -> (rows, cols),
-    each (P, N) int64; pair 0 is not pinned. See `ops.stitching.stitch_draws`."""
+def stitch_draws(seed, row_logits, u_rows, Lb, row_feat, col_feat, col_bias, pair_offset=0,
+                 chains=None):
+    """Every (row, column) draw of one tree level: seed and `chains` as for
+    `col_sample`, row_logits (P, N) = row_bias + logsumexp(Lb, -1), u_rows (P,
+    N), Lb (P, N, N / 128), row_feat, col_feat (P, N, k), col_bias (P, N) ->
+    (rows, cols), each (P, N) int64; pair 0 is not pinned. See
+    `ops.stitching.stitch_draws`."""
     P, n, N, k = _check("stitch_draws", row_feat, col_feat, col_bias)
     _check_draw_columns("stitch_draws", N)
+    chain_pairs = _chain_pairs("stitch_draws", seed, P, chains)
     nb = N // plain._COL_BLOCK
     if (n != N or tuple(row_logits.shape) != (P, N) or tuple(u_rows.shape) != (P, N)
             or tuple(Lb.shape) != (P, N, nb)):
@@ -163,13 +184,13 @@ def stitch_draws(seed, row_logits, u_rows, Lb, row_feat, col_feat, col_bias, pai
                          f"{tuple(row_feat.shape)} do not match {(P, N, nb)}")
     if not _on_cuda("stitch_draws", row_feat):
         return plain.stitch_draws(seed, row_logits, u_rows, Lb, row_feat, col_feat, col_bias,
-                                  pair_offset)
+                                  pair_offset, chains)
     rl, u, Lb, rf, cf, cb = check_cuda_inputs(
         "stitch_draws", (row_logits, u_rows, Lb, row_feat, col_feat, col_bias), row_feat.dtype,
         MAX_K, (k,))
     rows, cols = (torch.empty(P, N, dtype=torch.int64, device=rf.device) for _ in range(2))
-    launch("stitch_draws", rf.dtype, P, N, k, _seed_on(seed, rf), int(pair_offset), rl, u, Lb,
-           rf, cf, cb, rows, cols)
+    launch("stitch_draws", rf.dtype, P, N, k, _seed_on(seed, rf), chain_pairs, int(pair_offset),
+           rl, u, Lb, rf, cf, cb, rows, cols)
     stitch_draws.launches += 1
     return rows, cols
 

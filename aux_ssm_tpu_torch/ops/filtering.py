@@ -9,7 +9,9 @@ Two layouts, told apart by `bs.ndim` (see `lgssm`):
   - unbatched, one filter of state width dx: ys (T, dy), m0 (dx,), P0 (dx, dx),
     Fs/Qs (T-1, dx, dx), bs (T-1, dx), Hs (T, dy, dx), Rs (T, dy, dy),
     cs (T, dy). Elements, scan and log-likelihood increments go through the
-    d x d wrappers of `ops/cuda/`; the t = 0 update stays in plain torch.
+    d x d wrappers of `ops/cuda/` where max(dx, dy) has a kernel instance
+    (`_build.has_instance`), else through their plain versions on any
+    device; the t = 0 update stays in plain torch.
   - batched scalar, B independent filters with dx = dy = 1 (the spatial
     model): ys (T, B, 1), m0 (B, 1), P0 (B, 1, 1), Fs/Qs (T-1, B, 1, 1),
     bs (T-1, B, 1), Hs/Rs (T, B, 1, 1), cs (T, B, 1). Elements and
@@ -30,7 +32,8 @@ from .batched import mT, mv, sym, bdiag
 from .chol import cholesky
 from .lgssm import LGSSM, batched_scalar_layout, mask_observation, _LOG_2PI
 from .cuda import kalman_fused as _fused
-from .cuda.filter_scan import filter_scan
+from .cuda._build import has_instance
+from .cuda.filter_scan import filter_scan, filter_scan_plain
 from .cuda.scalar_scan import scalar_filter_scan
 
 
@@ -119,12 +122,14 @@ def _parallel_filtering(ys, m0, P0, Fs, Qs, bs, Hs, Rs, cs):
     # The t = 0 update is outside the scan; the first element carries it.
     m0, P0, ell0 = kalman_update(ys[0], m0, P0, Hs[0], cs[0], Rs[0])
     elems = _make_associative_elements(Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], m0, P0)
-    _, ms, Ps, _, _ = filter_scan(elems)
+    kernels = has_instance(m0.shape[-1], ys.shape[-1])
+    _, ms, Ps, _, _ = (filter_scan if kernels else filter_scan_plain)(elems)
     ms = torch.cat([m0[None], ms])
     Ps = torch.cat([P0[None], Ps])
     # The scan gives the filtered moments; the log-likelihood increments are
     # one embarrassingly parallel predict + update per step.
-    ell_incs = _fused.ell(Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], ms[:-1], Ps[:-1])
+    ell = _fused.ell if kernels else _fused.ell_plain
+    ell_incs = ell(Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], ms[:-1], Ps[:-1])
     return ms, Ps, ell0 + ell_incs.sum(0)
 
 
@@ -234,4 +239,6 @@ def _make_associative_elements(Fs, Qs, bs, Hs, Rs, cs, ys, m0, P0):
     n = bs.shape[0]
     m = torch.cat([m0[None], m0.new_zeros((n - 1,) + m0.shape)])
     P = torch.cat([P0[None], P0.new_zeros((n - 1,) + P0.shape)])
-    return _fused.make_elements(Fs, Qs, bs, Hs, Rs, cs, ys, m, P)
+    make = (_fused.make_elements if has_instance(m0.shape[-1], ys.shape[-1])
+            else _fused.make_elements_plain)
+    return make(Fs, Qs, bs, Hs, Rs, cs, ys, m, P)

@@ -145,17 +145,21 @@ def prior_logpdf(xs, lgssm, keep_batch=False):
 def trajectory_logdensity(ys, xs, lgssm, keep_batch=False):
     """log p(x_{0:T}) + log p(y_{0:T} | x_{0:T}). Unbatched and dense batched
     layouts: the t = 0 terms in plain torch, the t >= 1 steps through
-    `kalman_fused.logdensity_steps` (all chains in one launch). Batched
+    `kalman_fused.logdensity_steps` (all chains in one launch; its plain
+    version where max(dx, dy) has no kernel instance). Batched
     scalar layout: the elementwise closed forms of `log_likelihood` and
     `prior_logpdf`. A batched layout sums over its filters, or with
     `keep_batch` gives one value a filter (B,)."""
-    from .cuda.kalman_fused import logdensity_steps  # that module imports this one
+    from .cuda import kalman_fused  # that module imports this one
+    from .cuda._build import has_instance
 
     m0, P0, Fs, Qs, bs, Hs, Rs, cs = lgssm
     if batched_scalar_layout(bs, cs):
         return (log_likelihood(ys, xs, lgssm, keep_batch)
                 + prior_logpdf(xs, lgssm, keep_batch))
-    steps = logdensity_steps(Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], xs[:-1], xs[1:])
+    steps = (kalman_fused.logdensity_steps if has_instance(xs.shape[-1], ys.shape[-1])
+             else kalman_fused.logdensity_steps_plain)(
+        Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], xs[:-1], xs[1:])
     pred0 = mv(Hs[0], xs[0]) + cs[0]
     first = _first_logpdf(xs[0], m0, P0) + _masked_step_logpdf(ys[0], pred0, Rs[0])
     if keep_batch:

@@ -3,7 +3,8 @@
 reference particle.
 
 Every scheme runs from uniforms: `multinomial_from_uniforms` takes (N,)
-uniforms, `systematic_from_uniforms` three. `multinomial` and `systematic`
+uniforms, `systematic_from_uniforms` three; both, and the single draws,
+take leading batch axes (a cSMC step's chains) on the uniforms and weights. `multinomial` and `systematic`
 draw those uniforms from a `torch.Generator`. Inverse CDFs use
 `torch.searchsorted(..., right=False)`, `jnp.searchsorted`'s `side='left'`:
 the index of u is #{i : cdf[i] < u}.
@@ -17,10 +18,11 @@ def _uniform(shape, like, generator):
 
 def multinomial_from_uniforms(u, weights):
     """Conditional multinomial resampling from iid uniforms `u` (N,):
-    inverse CDF of the (normalised) weights, index 0 pinned to 0."""
-    idx = torch.searchsorted(torch.cumsum(weights, 0), u.contiguous())
-    idx = idx.clamp(0, weights.shape[0] - 1)
-    idx[0] = 0
+    inverse CDF of the (normalised) weights, index 0 pinned to 0. With
+    leading axes, u (..., N) and weights (..., M) give one draw each."""
+    idx = torch.searchsorted(torch.cumsum(weights, -1), u.contiguous())
+    idx = idx.clamp(0, weights.shape[-1] - 1)
+    idx[..., 0] = 0
     return idx
 
 
@@ -37,25 +39,28 @@ def categorical_from_uniform(u, weights):
 def choice_from_uniform(u, weights):
     """The index `jax.random.choice(key, M, p=weights)` draws from its
     uniform u: the inverse CDF at (1 - u) * total. Returns a (1,) int64
-    tensor on the weights' device."""
-    cdf = torch.cumsum(weights, 0)
-    idx = torch.searchsorted(cdf, (cdf[-1] * (1 - u)).reshape(1))
-    return idx.clamp_(max=weights.shape[0] - 1)
+    tensor on the weights' device; with leading axes, u (...) and weights
+    (..., M) give (..., 1)."""
+    cdf = torch.cumsum(weights, -1)
+    idx = torch.searchsorted(cdf, (cdf[..., -1:] * (1 - u)[..., None]).contiguous())
+    return idx.clamp_(max=weights.shape[-1] - 1)
 
 
 def systematic_from_uniforms(u, weights, N=None):
-    """Conditional systematic resampling from three uniforms `u` (3,)."""
-    return _systematic_core(u[0], u[1], u[2], weights, N)
+    """Conditional systematic resampling from three uniforms `u` (3,); with
+    leading axes, u (..., 3) and weights (..., M) give one draw each."""
+    return _systematic_core(u[..., 0], u[..., 1], u[..., 2], weights, N)
 
 
 def _systematic_core(u_mix, u_off, u_rot, weights, N=None):
     """Chopin & Singh (2015), Alg. 4: conditioned on at least one copy of
     particle 0, the offset is a two-component uniform mixture; a uniformly
-    chosen copy of particle 0 is then rotated into slot 0."""
-    M = weights.shape[0]
+    chosen copy of particle 0 is then rotated into slot 0. The uniforms (...)
+    and weights (..., M) may carry leading axes."""
+    M = weights.shape[-1]
     N = M if N is None else N
 
-    copies = N * weights[0]
+    copies = N * weights[..., 0]
     whole = torch.floor(copies)
     part = copies - whole
 
@@ -65,15 +70,16 @@ def _systematic_core(u_mix, u_off, u_rot, weights, N=None):
     # numerical probability 0: force offset 0 so slot 0 still maps to index 0.
     offset = torch.where(copies > 0.0, offset, torch.zeros_like(offset))
 
-    positions = (offset + torch.arange(N, dtype=weights.dtype, device=weights.device)) / N
-    idx = torch.searchsorted(torch.cumsum(weights, 0), positions)
+    positions = (offset[..., None] + torch.arange(N, dtype=weights.dtype,
+                                                  device=weights.device)) / N
+    idx = torch.searchsorted(torch.cumsum(weights, -1), positions.contiguous())
 
-    n0 = (idx == 0).sum().to(weights.dtype)
+    n0 = (idx == 0).sum(-1).to(weights.dtype)
     chosen = torch.floor(n0 * u_rot).long()
     # jnp.roll(idx, -chosen) without a host read of `chosen`.
     ar = torch.arange(N, device=weights.device)
-    idx = idx[(ar + chosen) % N].clamp(0, M - 1)
-    idx[0] = 0
+    idx = torch.gather(idx, -1, (ar + chosen[..., None]) % N).clamp(0, M - 1)
+    idx[..., 0] = 0
     return idx
 
 

@@ -7,8 +7,9 @@ noise. Composition of affine maps is associative, so the trajectory is a
 reverse associative scan or a reverse sequential loop.
 
 Two layouts (see `lgssm`). Unbatched, ms (T, dx), Ps (T, dx, dx), eps (T, dx):
-the maps and the scan go through the d x d wrappers of `ops/cuda/`; the last
-step is plain torch. Batched scalar, ms (T, B, 1), Ps (T, B, 1, 1), eps
+the maps and the scan go through the d x d wrappers of `ops/cuda/` where dx
+has a kernel instance (`_build.has_instance`), else through their plain
+versions on any device; the last step is plain torch. Batched scalar, ms (T, B, 1), Ps (T, B, 1, 1), eps
 (T, B, 1): the maps are elementwise closed forms in plain torch and the scan
 goes through `ops/cuda/scalar_scan.scalar_affine_scan`. Dense batched (C
 chains of any width), ms (T, C, dx), Ps (T, C, dx, dx), eps (T, C, dx): the
@@ -20,8 +21,9 @@ import torch
 from .batched import mT, mv, sym
 from .chol import safe_cholesky
 from .lgssm import LGSSM, batched_scalar_layout
-from .cuda.filter_scan import affine_scan
-from .cuda.kalman_fused import backward_maps
+from .cuda._build import has_instance
+from .cuda.filter_scan import affine_scan, affine_scan_plain
+from .cuda.kalman_fused import backward_maps, backward_maps_plain
 from .cuda.scalar_scan import scalar_affine_scan
 
 
@@ -47,7 +49,8 @@ def sampling(eps, ms, Ps, lgssm: LGSSM, parallel: bool):
                                 lgssm.Qs[..., 0, 0], lgssm.bs[..., 0], parallel)[..., None]
     gains, incs = _backward_maps(eps, ms, Ps, lgssm.Fs, lgssm.Qs, lgssm.bs)
     if parallel:
-        return affine_scan(gains, incs, reverse=True)[1]
+        scan = affine_scan if has_instance(ms.shape[-1]) else affine_scan_plain
+        return scan(gains, incs, reverse=True)[1]
     x = incs[-1]
     xs = [x]
     for t in range(incs.shape[0] - 2, -1, -1):
@@ -107,7 +110,8 @@ def backward_map_moments(F, Q, b, m, P):
 
 
 def _backward_maps(eps, ms, Ps, Fs, Qs, bs):
-    gains, incs = backward_maps(Fs, Qs, bs, ms[:-1], Ps[:-1], eps[:-1])
+    maps = backward_maps if has_instance(ms.shape[-1]) else backward_maps_plain
+    gains, incs = maps(Fs, Qs, bs, ms[:-1], Ps[:-1], eps[:-1])
     # The last step is handled outside the kernel.
     P_last = Ps[-1]
     if ms.shape[-1] == 1:

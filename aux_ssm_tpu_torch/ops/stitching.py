@@ -135,6 +135,21 @@ def row_lse(row_feat, col_feat, col_bias):
     return torch.cat(out, 1)
 
 
+def pair_counters(seed, P, pair_offset=0, chains=None, device=None):
+    """The counter seed and pair index of each of a level's P pairs, (P,)
+    each: one seed for every pair and the pairs counted from `pair_offset`;
+    or with `chains` C, the pairs are C chains' P / C each, chain after
+    chain, seed (C,) one a chain, and each pair is counted within its own
+    chain (from `pair_offset`). So chain c draws what a one-chain call with
+    seed[c] draws, and C = 1 is the one-chain call."""
+    pair = torch.arange(P, device=device)
+    seeds = torch.as_tensor(seed, device=device).reshape(-1).to(torch.int64)
+    if chains is None:
+        return seeds.expand(P), pair + pair_offset
+    per = P // chains
+    return seeds.reshape(chains).repeat_interleave(per), pair % per + pair_offset
+
+
 def col_sample(seed, row_feat_sel, col_feat, col_bias, pair_offset=0, chains=None):
     """One column per sampled row from softmax_j(rf_i . cf_j + cb_j), by
     Gumbel-argmax with the uniforms counter_uniform(seed, pair + pair_offset,
@@ -142,16 +157,11 @@ def col_sample(seed, row_feat_sel, col_feat, col_bias, pair_offset=0, chains=Non
     (or 0-d tensor); row_feat_sel (P, n, k); col_feat (P, N, k); col_bias (P, N)
     -> (P, n) int64. With `chains` C, the pairs are C chains' P / C each,
     chain after chain, seed (C,) one a chain, and `pair` counts within the
-    chain."""
+    chain (`pair_counters`)."""
     P, n, _ = row_feat_sel.shape
     N = col_feat.shape[1]
     dev = row_feat_sel.device
-    pair = (torch.arange(P, device=dev) + pair_offset)[:, None, None]
-    if chains is not None:
-        per = P // chains
-        seed = torch.as_tensor(seed, device=dev).reshape(chains).repeat_interleave(per)
-        seed = seed[:, None, None]
-        pair = (torch.arange(P, device=dev) % per + pair_offset)[:, None, None]
+    seed, pair = (z[:, None, None] for z in pair_counters(seed, P, pair_offset, chains, dev))
     cols = torch.arange(N, device=dev)
     out = []
     for sl in _row_chunks(P, n, N):
@@ -187,10 +197,6 @@ def block_masses(row_feat, col_feat, col_bias, per_block_max=False):
 # The draws of the blocked route (plain PyTorch on every device)
 # --------------------------------------------------------------------------
 
-def _pair_ids(P, pair_offset, device):
-    return torch.arange(P, device=device) + pair_offset
-
-
 def blocked_col_sample(seed, rows, Lb, row_feat_sel, col_feat, col_bias, pair_offset=0):
     """Column draws from the exact conditional categorical through the block
     masses: the block by inverse CDF over Lb[rows] with the uniform
@@ -200,8 +206,8 @@ def blocked_col_sample(seed, rows, Lb, row_feat_sel, col_feat, col_bias, pair_of
     nb = col_feat.shape[1] // _COL_BLOCK
     dev = rows.device
     Lb = torch.clamp(Lb, min=_NEG_FLOOR)
-    u_blk = counter_uniform(seed_blk(seed), _pair_ids(P, pair_offset, dev)[:, None], nb,
-                            torch.arange(n, device=dev)[None, :], 0)
+    u_blk = counter_uniform(seed_blk(seed), (torch.arange(P, device=dev) + pair_offset)[:, None],
+                            nb, torch.arange(n, device=dev)[None, :], 0)
     Lb_sel = take_rows(Lb, rows)
     w = torch.exp(Lb_sel - Lb_sel.amax(-1, keepdim=True))
     cdf = torch.cumsum(w, -1)
@@ -211,13 +217,23 @@ def blocked_col_sample(seed, rows, Lb, row_feat_sel, col_feat, col_bias, pair_of
 
 
 def within_block_cols(seed, blocks, row_feat_sel, col_feat, col_bias, pair_offset=0,
-                      col_extra=None):
+                      col_extra=None, chains=None):
     """The column inside each draw's 128-column block, by Gumbel-argmax over
     the recomputed block scores with counter_uniform(seed, pair, draw, block,
     j_loc); the first index wins a tie. blocks (P, n); row_feat_sel (P, n, k);
     col_feat (P, N, k); col_bias (P, N) (floored at _NEG_FLOOR) -> (P, n) int64
     columns, and with `col_extra` (P, N, e) also col_extra at those columns
-    (P, n, e). Computed in chunks of pairs."""
+    (P, n, e). With `chains` C, the pairs are C chains' P / C each, seed (C,)
+    (`pair_counters`). Computed in chunks of pairs."""
+    seeds, pairs = pair_counters(seed, blocks.shape[0], pair_offset, chains, blocks.device)
+    cols = _within_block_cols(seeds, pairs, blocks, row_feat_sel, col_feat, col_bias)
+    if col_extra is None:
+        return cols
+    return cols, take_rows(col_extra, cols)
+
+
+def _within_block_cols(seeds, pairs, blocks, row_feat_sel, col_feat, col_bias):
+    """`within_block_cols` given each pair's counter seed and index (P,)."""
     P, n, k = row_feat_sel.shape
     N = col_feat.shape[1]
     G = _COL_BLOCK
@@ -236,13 +252,10 @@ def within_block_cols(seed, blocks, row_feat_sel, col_feat, col_bias, pair_offse
         rf = row_feat_sel[ps]
         for kk in range(k):  # the kernels' association
             s2 = s2 + rf[:, :, kk, None] * cf_sel[..., kk]
-        pair = _pair_ids(P, pair_offset, dev)[ps, None, None]
-        u = counter_uniform(seed, pair, draws, b[..., None], j_loc)
+        u = counter_uniform(seeds[ps, None, None], pairs[ps, None, None], draws, b[..., None],
+                            j_loc)
         out.append(b * G + (s2 - _gumbel(u, s2.dtype)).argmax(-1))
-    cols = torch.cat(out, 0)
-    if col_extra is None:
-        return cols
-    return cols, take_rows(col_extra, cols)
+    return torch.cat(out, 0)
 
 
 def joint_rowblock_draws(u, row_bias, Lb, row_feat=None, row_extra=None):
@@ -305,38 +318,41 @@ def _tile_rows(row_logits, u):
     return tile * _ROW_BLOCK + off
 
 
-def _row_blocks(seed, rows, Lb, pair_offset):
+def _row_blocks(seeds, pairs, rows, Lb):
     """Stage 2a: each draw's column block by inverse CDF over its row's block
     masses Lb[rows] (floored at _NEG_FLOOR), the shift-add prefix sum of
-    exp(Lb - max), at u * total with u = counter_uniform(seed_blk(seed), pair,
-    nb, draw, 0). rows (P, n); Lb (P, N, nb) -> (P, n) int64."""
-    P, n = rows.shape
+    exp(Lb - max), at u * total with u = counter_uniform(seed_blk(seed),
+    pair, nb, draw, 0). seeds, pairs (P,): each pair's counters (see
+    `pair_counters`); rows (P, n); Lb (P, N, nb) -> (P, n) int64."""
+    n = rows.shape[1]
     nb = Lb.shape[-1]
-    dev = rows.device
     Lb_sel = take_rows(torch.clamp(Lb, min=_NEG_FLOOR), rows)
     cdf = _lane_cumsum(torch.exp(Lb_sel - Lb_sel.amax(-1, keepdim=True)))
-    u = counter_uniform(seed_blk(seed), _pair_ids(P, pair_offset, dev)[:, None], nb,
-                        torch.arange(n, device=dev)[None, :], 0)
+    u = counter_uniform(seed_blk(seeds)[:, None], pairs[:, None], nb,
+                        torch.arange(n, device=rows.device)[None, :], 0)
     target = (u.to(cdf.dtype) * cdf[..., -1])[..., None]
     return (cdf < target).sum(-1).clamp_(max=nb - 1)
 
 
-def stitch_draws(seed, row_logits, u_rows, Lb, row_feat, col_feat, col_bias, pair_offset=0):
+def stitch_draws(seed, row_logits, u_rows, Lb, row_feat, col_feat, col_bias, pair_offset=0,
+                 chains=None):
     """Every draw of one tree level in one pass: rows by `_tile_rows`, the
     column block by `_row_blocks`, the column inside it by
     `within_block_cols`. seed an int32 scalar (or 0-d tensor); row_logits
     (P, N) = row_bias + logsumexp(Lb, -1); u_rows (P, N); Lb (P, N, N / 128);
     row_feat, col_feat (P, N, k); col_bias (P, N) -> (rows, cols), each (P, N)
-    int64. Pair 0 is not pinned (the caller's job). Computed in chunks of
-    pairs."""
+    int64. Pair 0 is not pinned (the caller's job). With `chains` C, the
+    pairs are C chains' P / C each, seed (C,) (`pair_counters`). Computed in
+    chunks of pairs."""
     P, N, k = row_feat.shape
+    seeds, pairs = pair_counters(seed, P, pair_offset, chains, row_feat.device)
     step = max(1, _CHUNK // (N * _COL_BLOCK))
     rows, cols = [], []
     for p0 in range(0, P, step):
         ps = slice(p0, min(p0 + step, P))
         r = _tile_rows(row_logits[ps], u_rows[ps])
-        b = _row_blocks(seed, r, Lb[ps], pair_offset + p0)
+        b = _row_blocks(seeds[ps], pairs[ps], r, Lb[ps])
         rows.append(r)
-        cols.append(within_block_cols(seed, b, take_rows(row_feat[ps], r), col_feat[ps],
-                                      col_bias[ps], pair_offset + p0))
+        cols.append(_within_block_cols(seeds[ps], pairs[ps], b, take_rows(row_feat[ps], r),
+                                       col_feat[ps], col_bias[ps]))
     return torch.cat(rows), torch.cat(cols)

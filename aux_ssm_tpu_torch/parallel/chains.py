@@ -10,22 +10,21 @@ next states. Two kinds:
     the rare-event grid (`experiments/rare_event.py`); the auxiliary-Kalman
     styles of the SV model, the Lorenz Gibbs sampler and the flagship LGSSM,
     whose six MH kernels take the chain axis (`kernels.kalman.chain_major`);
-    every style of the SV and spatial drivers at their defaults: SV csmc
-    (PIT) and csmc-guided, spatial kalman-1/2 (C B columns of the batched
-    scalar layout), csmc (PIT) and csmc-guided (the block-lane and factor
-    sweeps and the stitching kernels take the chain axis). Such a kernel is
-    marked `chain_axis` where a driver picks it. It draws the noise of all C
+    every style of the SV and spatial drivers under any options: SV csmc
+    (PIT or sequential) and csmc-guided, spatial kalman-1/2 (C B columns of
+    the batched scalar layout), csmc and csmc-guided (the block-lane, lane
+    and factor sweeps and the stitching kernels on either PIT route take the
+    chain axis; the generic step loops, ancestor scanning and systematic
+    resampling run it as a leading axis in plain torch); theta-logistic
+    PGAS. Such a kernel is marked `chain_axis` where a driver picks it. It draws the noise of all C
     chains in one call from one `torch.Generator`: the JAX package's
     per-chain `chain_keys` (`fold_in(key, c)`) have no counterpart, and a
     chain's draws depend on C and on its place in the batch;
-  - `chain_loop(kernel)`: a one-chain kernel run on chain after chain, for
-    what has no chain axis yet: theta-logistic, and the SV and spatial cSMC
-    styles under options the sweeps do not batch (ancestor scanning,
-    `--no-backward`; a resampling other than multinomial; the PIT's blocked
-    route at N >= 4096), for which the model builders leave the kernel
-    unmarked (`kernels.csmc_independent.takes_chain_axis`). It launches the
-    one-chain kernels C times a step, so a step costs C one-chain steps of
-    host time and launches.
+  - `chain_loop(kernel)`: a one-chain kernel run on chain after chain, for a
+    kernel without the chain axis (a user's own; every model builder of the
+    port offers `chains=True`), and as the reference the batched kernels are
+    held to. It launches the one-chain kernels C times a step, so a step
+    costs C one-chain steps of host time and launches.
 
 `run_sharded_chains` runs such a kernel through `runner.run_chain`'s loop,
 with per-chain statistics and delta adaptation. Device meshes (`mesh=`) are
@@ -113,7 +112,7 @@ def run_sharded_chains(kernel: Callable, init_states, cfg: RunConfig, generator=
                        mesh=None, collect_samples: bool = False,
                        get_stats_x: Callable = lambda s: s.x, delta_init=None,
                        checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
-                       collect_fn: Callable = None) -> RunResult:
+                       collect_fn: Callable = None, debug_nans: bool = False) -> RunResult:
     """Run C independent chains (the leading axis of `init_states`) through
     burn-in and sampling with `kernel`, a kernel over the chain axis.
 
@@ -123,7 +122,9 @@ def run_sharded_chains(kernel: Callable, init_states, cfg: RunConfig, generator=
     cfg.delta_init for every chain; `delta_init` (C,) or (C, T)) adapts on
     that chain's own rate, elementwise. With `checkpoint_dir`, the run saves
     and resumes as `run_chain` does, bit for bit; `generator` must then be
-    given. Aggregate the statistics with `aggregate_chain_stats`.
+    given. With `debug_nans`, a non-finite state or delta raises
+    FloatingPointError naming the iteration and the chain (`run_chain`).
+    Aggregate the statistics with `aggregate_chain_stats`.
     """
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
@@ -135,7 +136,7 @@ def run_sharded_chains(kernel: Callable, init_states, cfg: RunConfig, generator=
                     collect_samples=collect_samples, get_stats_x=get_stats_x,
                     delta_init=delta_init, checkpoint_dir=checkpoint_dir,
                     checkpoint_every=checkpoint_every, collect_fn=collect_fn,
-                    n_chains=n_chains)
+                    n_chains=n_chains, debug_nans=debug_nans)
     samples = res.samples
     if collect_samples:
         samples = (np.moveaxis(samples, 0, 1) if samples.ndim > 1

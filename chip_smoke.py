@@ -52,7 +52,7 @@ the rare-event model at T=2, N=25):
      card against the CPU, given the same noise, with each step's launches
      (kalman: one cell is M = 1 of the batched scalar layout, two scalar
      filter scans and one scalar affine scan and nothing else);
- 10. the theta-logistic PGAS chain, f32, 300 + 1000 iterations: exactly one
+ 10. the theta-logistic PGAS chain, f32, 300 + 600 iterations: exactly one
      lane sweep launch per iteration, update rate in (0, 1), samples/s, mean
      interior ESS and ESS/s;
  11. (cut: its single-cell rare-event chains are cells of phase 29's grid,
@@ -217,7 +217,12 @@ reset before it and read after it:
      driver's start, each counted at C = 1 for CSMC_ONE_CHAIN
      (`csmc_chain_driver`): the launches an iteration of phases 18 and 6 at
      C = 1 and at C, the JAX driver's keys and shapes, finite, the update
-     rate in (0, 1), split-R-hat printed; samples/s of all chains;
+     rate in (0, 1), split-R-hat printed; samples/s of all chains; and so
+     the sequential csmc (`--no-parallel`) with `--resampling systematic`
+     (the generic forward loop over the chain axis, then the backward
+     factor sweep; CSMC_SEQ_SCHEDULE) and with `--no-backward --debug-nans` (the forward factor
+     sweep, then ancestor scanning over the chain axis; the runner's finite
+     check after every step);
  27. the spatial driver at T=1024, 8x8, N=25, f32: kalman-2, csmc
      (parallel-in-time) and csmc-guided with `--n-chains` 8 at
      CSMC_SP_SCHEDULE, each counted at C = 1 likewise: `xs_true` and `ys`
@@ -302,11 +307,35 @@ C chains of the cSMC styles and of the spatial sampler as one batched step
      step's inputs at C = 8 (512 columns) against their plain versions, and
      each chain's 64 columns against a 64-column launch (f64: bit for bit,
      or within 1e-12).
+The last single-card gaps: the chain instances of the blocked route's two
+column draws, and the shapes past the kernels' instances:
+ 33. (run right after the build, with phases 29, 30 and 32's checks)
+     stitch_draws' and within_block_cols' chain instances (rows 17-18, a
+     seed a chain, each node's pair counted within its chain) on the level-0
+     inputs of real batched blocked steps of the SV D=1 model at N=4096:
+     T=1024 at C = DRAW_CHAINS = 4 (2048 nodes) and T=64 at C = 32 (1024
+     nodes): f64 indices identical to the plain chain twin's, f32 at >=
+     AGREE_F32 against the f32 and the f64 twin; the C = 1 call and chains
+     0, C / 2, C - 1 of the C launch bit-equal to one-chain launches with
+     their seeds (f32 and f64); at C = 4 the launch's time (events and the
+     profiler's device ms) beside the C = 1 launch's and 4 one-chain
+     launches', the twin's and the bound (operations and issue rate);
+ 34. (after phase 21) widths past the kernels' instances, f64 steps on the
+     card against the CPU, given the same noise: SV kalman-1 at D = 33
+     (T=16), none of the six d x d kernels launched (their callers route
+     max(dx, dy) > 32 to the plain versions, `_build.has_instance`);
+     spatial csmc-guided at d = 81 (9 x 9, T=8, N=16), the block-lane sweep
+     launched once a step past the 64 components its lanes keep in
+     registers (SpatialGuided's wide path: those components in the warp's
+     shared scratch). Then that sweep on a real csmc-guided-grad step's
+     inputs at T=1024, d=81, N=25 against its plain version as phase 13
+     holds it at d = 64 (f32 step by step, f64 identical ancestors), timed,
+     its entry inside the block-lane entry's `functors`.
 To make room, phase 3 runs 100 steps (200 before), phase 10 300 + 1000
 iterations (300 + 2000 before), phase 11 is cut for phase 29 (its chains
 ran 500 + 1200 a bounded cell, 300 + 400 the hardest), phase 15's
-replicate chains 300 + 1000 (kalman-1) and 300 + 1000 (csmc-guided) (300
-+ 3000, then 300 + 2000, then 300 + 1500 before), and phase 19 at T=256 300
+replicate chains 300 + 700 (kalman-1) and 300 + 700 (csmc-guided) (300
++ 3000, then 300 + 2000, then 300 + 1500, then 300 + 1000 before), and phase 19 at T=256 300
 + 300 (300 + 700, then 300 + 400 before; its T=2 chain is cut for phase
 29): every bound
 is in units of the chain's own Monte-Carlo error, so a shorter chain
@@ -317,10 +346,19 @@ shapes) is cut: phase 31's batched runs replace it; phase 22's chains run
 phase 31's batched Lorenz chain holds the same bounds over 8 chains; phase
 26's kalman-1 runs 300 + 200 adapting at --lr 0.5 (1000 + 200 at the
 default 0.1 before: the same settling, in fewer iterations) and phase 19's
-N=4096 chains 100 + 200 (100 + 300 before). The
-whole takes 400-605 s with the build on an H100, as fast as the host is
+N=4096 chains 100 + 200 (100 + 300 before). For phases 33-34, phase 10's
+one-chain run is cut to 300 + 600 (300 + 1000 before), phase 18's N=4096
+one-chain chains become the C = 4 batched runs (with a C = 1 count run and
+a short chain loop beside them), phase 28 draws 256 a sampler (512
+before), and phase 34 drops its d = 64 step (phases 13-14 hold that
+width); phase 29's grid stays at 300 + 600 (at 200 + 400 a csmc-guided
+gradient cell's x_T spread missed its bound at 7.1 standard errors, ESS
+131). The
+whole takes 383-605 s with the build on an H100, as fast as the host is
 (with phase 29: 403-491 s; with phases 30-31: 442-603 s, then 445.5 s after
-the last cuts of phases 15 and 19); phases 20-22 take ~30 s, phases 23-25
+the last cuts of phases 15 and 19; with phases 33-34 596.0 s on a host that
+ran one theta-logistic chain at half the usual samples/s, before the last
+cuts of phases 26 and 28); phase 33 ~16 s, phases 20-22 take ~30 s, phases 23-25
 ~26 s, phases 26-28 27-55 s, phase 29 50-110 s, phase 30 ~12 s, phase 31
 ~21-31 s, the build ~43-56 s.
 Each kernel's entry of the JSON summary carries its bound: the least time the
@@ -360,7 +398,12 @@ phase 15's pair) and the scalar scans at C B columns
 (`scalar_{filter,affine}_scan_chains`: phase 32's 512 columns, their
 launches those of phase 27's kalman-2 run and phase 15's pair); the C > 1
 runs' factor sweeps and col_sample launches count on phase 29's chain
-entries. The chain entries' `plain_ms` is named by `plain_on` and
+entries (and so do phase 26's sequential csmc runs' and, for the lane sweep,
+phase 10's batched theta-logistic run's); the chain instances of the draws
+have entries of their own (`stitch_draws_chains`, `within_block_cols_chains`:
+phase 33's numbers at C = 4, its C = 32 shape inside, their launches those
+of phase 18's C = 4 runs; the C = 1 count runs count on the draws' own
+entries). The chain entries' `plain_ms` is named by `plain_on` and
 `plain_dtype` where it is not the f32 call on the card; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1500,16 +1543,18 @@ def interior_ess(samples, max_coords=64):
     return float(np.mean([float(effective_sample_size(flat[:, i])) for i in idx]))
 
 
-def phase_theta_chain(dev):
-    """Phase 10; returns the chain's launches."""
+def phase_theta_chain(dev, card):
+    """Phase 10; returns the one-chain and C = 1 runs' launches, and the
+    batched C-chain run's (`theta_chains`)."""
     import torch
     from aux_ssm_tpu_torch.experiments import RunConfig, runner
     from aux_ssm_tpu_torch.models import theta_logistic as tl
     from aux_ssm_tpu_torch.ops import cuda as K
 
-    burnin, n_samples = 300, 1000
+    burnin, n_samples = 300, 600
     log(f"phase 10: theta-logistic PGAS, T={TL_T}, N={TL_N}, f32, {burnin} + {n_samples} "
-        "iterations from x = 0, ancestor sampling and ancestor tracing")
+        "iterations from x = 0, ancestor sampling and ancestor tracing; then C = "
+        f"{TL_CHAINS} chains as one batched step")
     _, ys = theta_data(dev, torch.float32)
     init, kern = tl.get_pgas_kernel(ys, TL_N, ancestor_sampling=True)
     # Bootstrap PGAS has no step size; the runner's delta is ignored.
@@ -1539,7 +1584,7 @@ def phase_theta_chain(dev):
         raise AssertionError(f"theta-logistic: posterior mean {gap:.4f} away from the data")
     gen, box = torch.Generator(device=dev).manual_seed(14), [res.state]
     profile_steps("theta-logistic PGAS", lambda: box.__setitem__(0, kern(box[0], generator=gen)))
-    return launches
+    return launches, theta_chains(dev, card, ys, launches)
 
 
 def rare_chain(dev, style, cell, burnin, n_samples, seed, N, per_iter):
@@ -1611,7 +1656,7 @@ SPATIAL_SCHEDULE = {"kalman-1": (100, 200, 0.5), "kalman-2": (100, 200, 0.5),
                     "csmc": (100, 200, 0.25), "csmc-guided": (100, 200, 0.25),
                     "csmc-guided-grad": (100, 200, 0.25)}
 # The pair held against each other, from an exact posterior draw.
-SPATIAL_PAIR = {"kalman-1": (300, 1000, 0.5), "csmc-guided": (300, 1000, 0.25)}  # two chains each
+SPATIAL_PAIR = {"kalman-1": (300, 700, 0.5), "csmc-guided": (300, 700, 0.25)}  # two chains each
 SP_BLOCKS = 16                     # time blocks of the pooled functionals
 Z_MAX, Z_RMS = 6.0, 1.5            # bounds on z-scores against one posterior draw
 Z_RMS_CROSS = 2.0                  # on the RMS z between the two samplers
@@ -2505,12 +2550,14 @@ def pit_chain(dev, label, init, kernel, x0, cfg, delta_init, seed, per_iter, rat
     return launches
 
 
-def phase_pit_chains(dev):
-    """Phase 18; returns the stitching launches summed over the chains."""
+def phase_pit_chains(dev, card):
+    """Phase 18; returns the stitching launches summed over the one-chain and
+    C = 1 runs, and those of the N=4096 C = DRAW_CHAINS runs."""
     import torch
     from aux_ssm_tpu_torch.experiments import RunConfig
     f32 = torch.float32
     total = dict.fromkeys(STITCH_KERNELS, 0)
+    chained = dict.fromkeys(STITCH_KERNELS, 0)
 
     def add(launches):
         for k in total:
@@ -2532,15 +2579,12 @@ def phase_pit_chains(dev):
                   RunConfig(n_samples=n_samples, burnin=burnin, target_alpha=target),
                   torch.full((SP_T,), SP_DELTA0, dtype=f32, device=dev), 20,
                   pit_launches(SP_T, SP_N), (0.05, 0.95), 10))
-    bxs, bys = pit_big_data(dev, f32)
-    burnin, n_samples = PIT_BIG_SCHEDULE
     for draws in ("joint", "fused"):
-        add(pit_chain(dev, f"SV csmc parallel=True D=1 T={PIT_T} N={PIT_N} (blocked, {draws} "
-                      f"draws), frozen delta {PIT_DELTA}", *sv_pit_kernel(bys, PIT_N, draws=draws),
-                      bxs, RunConfig(n_samples=n_samples, burnin=burnin, learning_rate=0.0),
-                      torch.full((PIT_T,), PIT_DELTA, dtype=f32, device=dev), 21,
-                      pit_launches(PIT_T, PIT_N, draws=draws), PIT_BIG_RATE, 3))
-    return total
+        one, many = pit_big_chains(dev, card, draws)
+        add(one)
+        for k in chained:
+            chained[k] += many[k]
+    return total, chained
 
 
 def phase_pit_rare(dev):
@@ -3033,7 +3077,7 @@ SV_DRIVER_EVERY = 50               # checkpoint period: burn-in 50, ..., 300, sa
 SV_KEYS = {"samples_mean", "samples_std", "ejsd", "delta", "xs_true", "ys", "sampling_time"}
 SP_KEYS = {"mean_x", "var_x", "ejsd", "delta", "xs_true", "ys", "sampling_time"}
 DNC_Z_MAX = 6.0                    # |z| of the D&C draws' moments against the scan sampler's
-DNC_DRAWS = 512
+DNC_DRAWS = 256
 
 
 class Killed(RuntimeError):
@@ -3156,9 +3200,10 @@ def phase_sv_driver(dev, card, out_dir):
         + ", ".join(f"{k}: {t:.4f}" for k, t in saves))
 
     C = CSMC_CHAINS["sv"]
-    log(f"  csmc (parallel-in-time) and csmc-guided with --n-chains {C} (one batched step), "
-        f"{CSMC_SV_SCHEDULE[0]} + {CSMC_SV_SCHEDULE[1]} from the driver's start, each counted "
-        f"at C = 1 for {CSMC_ONE_CHAIN[0]} + {CSMC_ONE_CHAIN[1]}:")
+    log(f"  csmc (parallel-in-time) and csmc-guided, then csmc --no-parallel with "
+        f"--resampling systematic and with --no-backward --debug-nans, with --n-chains {C} (one "
+        f"batched step), {CSMC_SV_SCHEDULE[0]} + {CSMC_SV_SCHEDULE[1]} from the driver's start, "
+        f"each counted at C = 1 for {CSMC_ONE_CHAIN[0]} + {CSMC_ONE_CHAIN[1]}:")
 
     def check(style):
         def saved_ok(saved):
@@ -3171,11 +3216,22 @@ def phase_sv_driver(dev, card, out_dir):
     pit = dict(pit_launches(SV_T, SV_N))
     guided = {"block_lane_scan": 1, "backward_factor_scan": FACTOR_LAUNCHES}
     chained = {}
-    for style, per_iter in (("csmc", pit), ("csmc-guided", guided)):
-        one, chained[style] = csmc_chain_driver(
+    # The sequential csmc under the options that looped chain after chain
+    # before: systematic resampling (the generic forward loop, then the
+    # backward factor sweep) and ancestor scanning (the forward factor sweep,
+    # then the scan; with --debug-nans, the finite check after every step).
+    runs = (("csmc", (), "csmc", pit, CSMC_SV_SCHEDULE),
+            ("csmc-guided", (), "csmc-guided", guided, CSMC_SV_SCHEDULE),
+            ("csmc", ("--no-parallel", "--resampling", "systematic"), "csmc-systematic",
+             {"backward_factor_scan": FACTOR_LAUNCHES}, CSMC_SEQ_SCHEDULE),
+            ("csmc", ("--no-parallel", "--no-backward", "--debug-nans"), "csmc-scan",
+             {"forward_factor_scan": FACTOR_LAUNCHES}, CSMC_SV_SCHEDULE))
+    for style, extra, key, per_iter, schedule in runs:
+        one, chained[key] = csmc_chain_driver(
             driver.main, ["--style", style, "--T", str(SV_T), "--D", str(SV_D), "--N", str(SV_N),
-                          "--no-verbose"], str(out / f"sv_{style}"),
-            f"SV {style} --n-chains {C}", card, C, CSMC_SV_SCHEDULE, per_iter, check(style))
+                          "--no-verbose", *extra], str(out / f"sv_{key}"),
+            f"SV {' '.join((style,) + extra)} --n-chains {C}", card, C, schedule, per_iter,
+            check(style))
         for k, v in one.items():
             total[k] = total.get(k, 0) + v
     return total, chained
@@ -3957,6 +4013,10 @@ CSMC_CHAINS = {"sv": 32, "spatial": 8}  # chains at the SV and at the spatial sh
 CSMC_SV_SCHEDULE = (20, 40)             # burn-in + sampling of the SV driver's C = 32 runs
 CSMC_SP_SCHEDULE = (10, 20)             # burn-in + sampling of the spatial driver's C = 8 runs
 CSMC_ONE_CHAIN = (2, 3)                 # burn-in + sampling of each C = 1 count run
+# The SV driver's sequential csmc with --resampling systematic: the generic
+# forward loop is 249 steps of plain torch a step (~0.5 s an iteration at C
+# = 32 on an H100, host-bound), so its C = 32 run is cut to this.
+CSMC_SEQ_SCHEDULE = (3, 6)
 # The chain instances' entries: entry -> (the wrapper whose launches it
 # counts, source, the TPU kernel it replaces).
 CSMC_CHAIN_KERNELS = {
@@ -4266,6 +4326,364 @@ def csmc_chain_driver(main, argv, out, label, card, chains, schedule, per_iter, 
     return got[1][1], launches
 
 
+# Phases 33-35: the last single-card gaps. C chains through the PIT's blocked
+# route (the chain instances of stitch_draws and within_block_cols, rows
+# 17-18), ancestor scanning, systematic resampling and the generic loops
+# over the chain axis, theta-logistic PGAS as one batched step; and the
+# widths past the kernels' instances, routed to the plain versions by shape.
+DRAW_CHAINS = 4         # chains of the batched N=4096 blocked step (phases 18 and 33)
+DRAW_MANY = (32, 64)    # chains and T of phase 33's second shape (level 0: 32 nodes a chain)
+PIT_BIG_ONE = (1, 2)    # burn-in + sampling of each N=4096 C = 1 count run
+PIT_BIG_LOOP = (1, 3)   # ... and of the chain loop at C = DRAW_CHAINS beside it
+DRAW_CHAIN_KERNELS = {  # entry -> (the wrapper whose launches it counts, source, replaces)
+    "stitch_draws_chains": ("stitch_draws",) + STITCH_KERNELS["stitch_draws"],
+    "within_block_cols_chains": ("within_block_cols",) + STITCH_KERNELS["within_block_cols"],
+}
+TL_CHAINS = 32                  # theta-logistic PGAS chains as one batched step (phase 10)
+TL_CHAIN_SCHEDULE = (100, 200)  # burn-in + sampling of that run
+TL_LOOP = (1, 3)                # ... of its chain loop and of its C = 1 count run
+WIDE_SV_D, WIDE_SP_SIDE = 33, 9  # past MAX_DIM = 32 and the 64 components in registers (d = 81)
+
+
+def blocked_chain_kernel(ys, N, draws, chains=True):
+    """The SV PIT kernel on the blocked route with `draws`, over the chain
+    axis (the model's params with a unit chain axis) or one chain's."""
+    from aux_ssm_tpu_torch.kernels import csmc_independent as ind
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    return ind.get_kernel(*sv.get_feynman_kac(ys, *SV_PARAMS, chains), N, parallel=True,
+                          stitch="blocked", draws=draws)
+
+
+def draw_chain_call(dev, T_, C, draws, seed):
+    """The level-0 call (args, kwargs) of the draws' wrapper in one batched
+    blocked step of C chains of the SV D=1 model at T_, N=PIT_N, f32, each
+    chain from the simulated states (its own noise), delta PIT_DELTA."""
+    import torch
+    from aux_ssm_tpu_torch.kernels.csmc_base import CSMCState
+    name = "stitch_draws" if draws == "fused" else "within_block_cols"
+    bxs, bys = pit_big_data(dev, torch.float32)
+    xs, ys = bxs[:T_], bys[:T_]
+    _, kernel = blocked_chain_kernel(ys, PIT_N, draws)
+    x = xs.expand(C, -1, -1).clone()
+    state = CSMCState(x=x, updated=torch.zeros(x.shape[:-1], dtype=torch.bool, device=dev))
+    with recording_stitching() as seen:
+        kernel(state, torch.full((C, T_), PIT_DELTA, device=dev),
+               generator=torch.Generator(device=dev).manual_seed(seed))
+    args, kw = seen[name][0]
+    kw = {k: v for k, v in kw.items() if k != "col_extra"}
+    if kw.get("chains") != C:
+        raise AssertionError(f"{name}: the batched step called it with {kw}, not chains={C}")
+    return name, args, kw
+
+
+def chain_nodes(args, P, lo, hi, seed):
+    """A draws call's arguments cut to the nodes lo:hi, with `seed`."""
+    import torch
+    return (seed,) + tuple(z[lo:hi] if torch.is_tensor(z) and z.dim() and z.shape[0] == P else z
+                           for z in args[1:])
+
+
+def check_draw_chains(label, name, args, kw, reps, timing):
+    """A draw kernel's chain instance (`chains` C, a seed a chain) on a real
+    batched blocked step's level-0 inputs (f32, and cast to f64): the f64
+    kernel's indices identical to the plain chain twin's, the f32 kernel's
+    equal to the f32 and to the f64 plain twin's at >= AGREE_F32 (phase 16's
+    bounds); the C = 1 call bit-equal to the one-chain call, and chains 0, C
+    / 2, C - 1 bit-equal to one-chain launches with their seeds, in f32 and
+    f64. With `timing`, the C-chain launch's time (CUDA events and the
+    profiler's device ms) beside the C = 1 launch's and C one-chain
+    launches', the plain twin's and the bound. Returns the entry."""
+    import torch
+    from aux_ssm_tpu_torch.ops import stitching as plain
+    from aux_ssm_tpu_torch.ops.cuda import stitching as KS
+    wrapper, plain_fn = getattr(KS, name), getattr(plain, name)
+    C = kw["chains"]
+    seeds = args[0]
+    at = INDEX_KERNELS[name]
+    rf, cf = args[at], args[at + 1]
+    P, k, N_ = rf.shape[0], rf.shape[-1], cf.shape[1]
+    per = P // C
+    args64 = tuple(z.double() if torch.is_tensor(z) and z.is_floating_point() else z
+                   for z in args)
+    got, want32 = as_tuple(wrapper(*args, **kw)), as_tuple(plain_fn(*args, **kw))
+    got64, want64 = as_tuple(wrapper(*args64, **kw)), as_tuple(plain_fn(*args64, **kw))
+    torch.cuda.synchronize()
+    for g, w in zip(got64, want64):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}[{label}] f64: {int((g != w).sum())} indices differ "
+                                 "from the plain chain twin's")
+    share = min(float((g == w).double().mean()) for g, w in zip(got, want32))
+    share64 = min(float((g == w).double().mean()) for g, w in zip(got, want64))
+    if not (share >= AGREE_F32 and share64 >= AGREE_F32):
+        raise AssertionError(f"{name}[{label}] f32: only {share:.6f} and {share64:.6f} of the "
+                             "indices agree with the plain chain twin")
+    picked = sorted({0, C // 2, C - 1})
+    for a, out in ((args, got), (args64, got64)):
+        for c in picked:
+            one = as_tuple(wrapper(*chain_nodes(a, P, c * per, (c + 1) * per, seeds[c])))
+            if not all(torch.equal(o[c * per:(c + 1) * per], w) for o, w in zip(out, one)):
+                raise AssertionError(f"{name}[{label}]: chain {c} of the C = {C} launch "
+                                     "differs from a one-chain launch with its seed")
+            if c == 0:
+                first = as_tuple(wrapper(*chain_nodes(a, P, 0, per, seeds[0:1]), chains=1))
+                if not all(torch.equal(f, w) for f, w in zip(first, one)):
+                    raise AssertionError(f"{name}[{label}]: the C = 1 call differs from the "
+                                         "one-chain call")
+    result = {"chains": C, "nodes": P, "index_agree_f32": share,
+              "index_agree_f32_vs_f64": share64,
+              "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want32))}
+    n = got[0].shape[1]
+    score = 2 * k + 25
+    if name == "within_block_cols":
+        ops = P * n * 128 * score
+    else:
+        ops = P * n * (128 * score + 2 * 128 + 8 * (N_ // 128))
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * 128
+    result["issue_bound_ms"] = 1e3 * P * n * 128 * DRAW_SCORE_INSTRUCTIONS / (lanes
+                                                                             * sm_clock_hz())
+    result["ms"] = cuda_ms(lambda: wrapper(*args, **kw), reps)
+    result["plain_ms"] = cuda_ms(lambda: plain_fn(*args, **kw), 1)
+    result.update(bound([z for z in args if torch.is_tensor(z)] + list(got), 0, ops))
+    line = (f"  {name}_chains[{label}] C={C}, {P} nodes, n={n}, N={N_}, k={k}: f64 indices "
+            f"identical to the plain chain twin's; f32 equal to the f32 twin's {share:.6f}, to "
+            f"the f64 twin's {share64:.6f} (bound {AGREE_F32}); C = 1 and chains {picked} "
+            f"bit-equal to one-chain launches with their seeds (f32, f64); the C-chain launch "
+            f"{result['ms']:.4f} ms, plain twin {result['plain_ms']:.2f} ms, bound "
+            f"{result['bound_ms']:.5f} ms by {result['bound_by']}, issue bound "
+            f"{result['issue_bound_ms']:.5f} ms")
+    if timing:
+        c1 = chain_nodes(args, P, 0, per, seeds[0:1])
+        ones = [chain_nodes(args, P, c * per, (c + 1) * per, seeds[c]) for c in range(C)]
+
+        def each_alone():
+            for one in ones:
+                wrapper(*one)
+
+        result["device_ms"] = device_ms(lambda: wrapper(*args, **kw), reps)
+        result.update({
+            "c1_ms": cuda_ms(lambda: wrapper(*c1, chains=1), reps),
+            "c1_device_ms": device_ms(lambda: wrapper(*c1, chains=1), reps),
+            "one_chain_launches_ms": cuda_ms(each_alone, reps),
+            "one_chain_launches_device_ms": device_ms(each_alone, reps)})
+
+        def ms(v):
+            return "not measured" if v is None else f"{v:.4f}"
+
+        line += (f"; device ms: the C-chain launch {ms(result['device_ms'])}, C = 1 "
+                 f"{ms(result['c1_device_ms'])} (events {result['c1_ms']:.4f}), {C} one-chain "
+                 f"launches {ms(result['one_chain_launches_device_ms'])} (events "
+                 f"{result['one_chain_launches_ms']:.4f})")
+    log(line)
+    return result
+
+
+def phase_draw_chains(dev):
+    """Phase 33: the chain instances of stitch_draws (row 17) and
+    within_block_cols (row 18) on the level-0 inputs of real batched blocked
+    steps of the SV D=1 model, N=PIT_N: T=PIT_T at C = DRAW_CHAINS (2048
+    nodes), timed, and T=64 at C = 32 (1024 nodes); each held by
+    `check_draw_chains`. Run right after the build, with phases 29, 30 and
+    32's checks (`device_ms`). Returns the entries."""
+    C_many, T_many = DRAW_MANY
+    log(f"phase 33: the draws' chain instances on real batched blocked steps' level-0 inputs "
+        f"(SV D=1, N={PIT_N}, f32 and f64): T={PIT_T} at C = {DRAW_CHAINS}, T={T_many} at C = "
+        f"{C_many}")
+    results = {}
+    for draws in ("fused", "joint"):
+        name, args, kw = draw_chain_call(dev, PIT_T, DRAW_CHAINS, draws, 33)
+        entry = check_draw_chains(f"T={PIT_T} level 0", name, args, kw, 5, timing=True)
+        del args
+        name, args, kw = draw_chain_call(dev, T_many, C_many, draws, 34)
+        entry[f"C{C_many}"] = check_draw_chains(f"T={T_many} level 0", name, args, kw, 5,
+                                                timing=False)
+        entry["shape"] = (f"SV D=1, T={PIT_T}, N={PIT_N}, level 0 of C = {DRAW_CHAINS} chains "
+                          f"({entry['nodes']} nodes)")
+        results[f"{name}_chains"] = entry
+    return results
+
+
+def pit_big_chains(dev, card, draws):
+    """Phase 18's N=4096 blocked chains over the chain axis: C = DRAW_CHAINS
+    chains of the SV D=1 model at T=PIT_T from the simulated states, delta
+    frozen at PIT_DELTA, as one batched step (`run_sharded_chains`,
+    PIT_BIG_SCHEDULE) beside a C = 1 count run (PIT_BIG_ONE) and the chain
+    loop of the one-chain kernel at C (PIT_BIG_LOOP): the stitching launches
+    an iteration those of one step at C = 1 and at C, every chain's update
+    rate in PIT_BIG_RATE, finite states; samples/s of all chains batched and
+    looped, and a profile of the batched step. Returns the launches of the C
+    = 1 run and of the C run."""
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig
+    from aux_ssm_tpu_torch.kernels.csmc_base import CSMCState
+    from aux_ssm_tpu_torch.ops import cuda as K
+    from aux_ssm_tpu_torch.parallel.chains import broadcast_chains, chain_loop
+    from aux_ssm_tpu_torch.parallel.chains import run_sharded_chains
+    f32 = torch.float32
+    C = DRAW_CHAINS
+    bxs, bys = pit_big_data(dev, f32)
+    _, batched = blocked_chain_kernel(bys, PIT_N, draws)
+    _, one = blocked_chain_kernel(bys, PIT_N, draws, chains=False)
+    per_iter = pit_launches(PIT_T, PIT_N, draws=draws)
+    start = CSMCState(x=bxs, updated=torch.zeros(PIT_T, dtype=torch.bool, device=dev))
+    delta = torch.full((PIT_T,), PIT_DELTA, dtype=f32, device=dev)
+    label = f"SV csmc parallel=True D=1 T={PIT_T} N={PIT_N} (blocked, {draws} draws)"
+    runs = {}
+    for key, kernel, n, (burnin, n_samples) in (("C=1", batched, 1, PIT_BIG_ONE),
+                                                 (f"C={C}", batched, C, PIT_BIG_SCHEDULE),
+                                                 ("loop", chain_loop(one), C, PIT_BIG_LOOP)):
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = RunConfig(n_samples=n_samples, burnin=burnin, learning_rate=0.0)
+        res = run_sharded_chains(kernel, broadcast_chains(start, n), cfg,
+                                 generator=torch.Generator(device=dev).manual_seed(21),
+                                 delta_init=broadcast_chains(delta, n))
+        launches, n_iter = K.launches(), burnin + n_samples
+        scale = n if key == "loop" else 1
+        for name_, count in launches.items():
+            if count != per_iter.get(name_, 0) * n_iter * scale:
+                raise AssertionError(f"{label} {key}: {name_} launched {count} times in "
+                                     f"{n_iter} iterations, expected "
+                                     f"{per_iter.get(name_, 0) * scale} each")
+        if not bool(torch.isfinite(res.state.x).all()) or res.state.x.shape != (n, PIT_T, 1):
+            raise AssertionError(f"{label} {key}: the chains' state is not finite")
+        rates = res.stats.accept_cum.mean(-1)
+        lo, hi = PIT_BIG_RATE
+        if not bool(((rates >= lo) & (rates <= hi)).all()):
+            raise AssertionError(f"{label} {key}: update rates {rates.tolist()} outside "
+                                 f"{PIT_BIG_RATE}")
+        runs[key] = (res, launches, n * n_samples / res.sampling_time,
+                     torch.cuda.max_memory_allocated() / 2 ** 30)
+    res, launches, sps, peak = runs[f"C={C}"]
+    per = {k: v // sum(PIT_BIG_SCHEDULE) for k, v in launches.items() if v}
+    log(f"  {label}, frozen delta {PIT_DELTA}: C = {C} as one batched step, "
+        f"{PIT_BIG_SCHEDULE[0]} + {PIT_BIG_SCHEDULE[1]} iterations, each chain's update rate "
+        f"{[round(float(r), 4) for r in res.stats.accept_cum.mean(-1)]}, launches an iteration "
+        f"{per} at C = 1 and at C = {C}; {sps:.2f} samples/s of all {C} chains (C = 1: "
+        f"{runs['C=1'][2]:.2f}; the chain loop at C = {C}: {runs['loop'][2]:.2f}) on {card}; "
+        f"peak device memory {peak:.2f} GiB (C = 1: {runs['C=1'][3]:.2f})")
+    gen, box = torch.Generator(device=dev).manual_seed(22), [res.state]
+    profile_steps(f"{label}, C = {C} batched",
+                  lambda: box.__setitem__(0, batched(box[0], res.delta, generator=gen)), n=3,
+                  also=tuple(STITCH_KERNELS))
+    return runs["C=1"][1], launches
+
+
+def theta_chains(dev, card, ys, launches):
+    """Phase 10's batched run: C = TL_CHAINS theta-logistic PGAS chains as one
+    batched step (`get_pgas_kernel(..., chains=True)`, ancestor scanning) from
+    x = 0 for TL_CHAIN_SCHEDULE, beside a C = 1 count run and the chain loop
+    of the one-chain kernel at C (TL_LOOP each): one lane sweep an iteration
+    at C = 1 and at C and nothing else, finite, the update rate of all chains
+    in (0, 1), their pooled posterior mean within 0.3 of the data; samples/s
+    of all chains batched and looped, and a profile of the batched step.
+    Adds the C = 1 run's launches to `launches`; returns the C run's."""
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig
+    from aux_ssm_tpu_torch.models import theta_logistic as tl
+    from aux_ssm_tpu_torch.ops import cuda as K
+    from aux_ssm_tpu_torch.parallel.chains import broadcast_chains, chain_loop
+    from aux_ssm_tpu_torch.parallel.chains import run_sharded_chains
+    C = TL_CHAINS
+    init, one = tl.get_pgas_kernel(ys, TL_N)
+    _, batched = tl.get_pgas_kernel(ys, TL_N, chains=True)
+    if not getattr(batched, "chain_axis", False):
+        raise AssertionError("theta-logistic: the chains=True kernel is not marked chain_axis")
+
+    def no_delta(kern):  # bootstrap PGAS has no step size
+        return lambda state, delta, generator=None: kern(state, generator=generator)
+
+    runs = {}
+    for key, kern, n, (burnin, n_samples) in (("C=1", no_delta(batched), 1, TL_LOOP),
+                                               (f"C={C}", no_delta(batched), C,
+                                                TL_CHAIN_SCHEDULE),
+                                               ("loop", chain_loop(no_delta(one)), C, TL_LOOP)):
+        K.reset_launches()
+        res = run_sharded_chains(kern, broadcast_chains(init(torch.zeros_like(ys)), n),
+                                 RunConfig(n_samples=n_samples, burnin=burnin),
+                                 generator=torch.Generator(device=dev).manual_seed(15),
+                                 delta_init=torch.ones(n, TL_T, device=dev))
+        got, n_iter = K.launches(), burnin + n_samples
+        want = n_iter * (n if key == "loop" else 1)
+        if got["lane_scan"] != want or any(v for k, v in got.items() if k != "lane_scan"):
+            raise AssertionError(f"theta-logistic {key}: launches {got}, expected {want} lane "
+                                 "sweeps and nothing else")
+        if not bool(torch.isfinite(res.state.x).all()):
+            raise AssertionError(f"theta-logistic {key}: the chains' state is not finite")
+        runs[key] = (res, got, n * n_samples / res.sampling_time)
+    launches["lane_scan"] += runs["C=1"][1]["lane_scan"]
+    res, got, sps = runs[f"C={C}"]
+    rate = float(res.stats.accept_cum.mean())
+    gap = float((res.stats.mean_x.mean(0) - ys).abs().mean())
+    log(f"  theta-logistic PGAS, C = {C} as one batched step, {TL_CHAIN_SCHEDULE[0]} + "
+        f"{TL_CHAIN_SCHEDULE[1]} iterations: update rate {rate:.4f}, pooled mean |E x - y| "
+        f"{gap:.4f}, one lane sweep an iteration at C = 1 and at C = {C}; {sps:.2f} samples/s "
+        f"of all {C} chains (C = 1: {runs['C=1'][2]:.2f}; the chain loop at C = {C}: "
+        f"{runs['loop'][2]:.2f}) on {card}")
+    if not 0.0 < rate < 1.0 or not gap < 0.3:
+        raise AssertionError(f"theta-logistic C = {C}: update rate {rate:.4f}, mean gap "
+                             f"{gap:.4f}")
+    gen, box = torch.Generator(device=dev).manual_seed(16), [res.state]
+    profile_steps(f"theta-logistic PGAS, C = {C} batched",
+                  lambda: box.__setitem__(0, batched(box[0], generator=gen)))
+    return got
+
+
+def phase_wide_routes(dev):
+    """Phase 34: widths past the d x d kernels' instances and past the
+    block-lane functors' register width. In f64 on the card against the CPU
+    given the same noise (`steps_on_both`, RTOL_F64): two SV kalman-1 steps
+    at D = WIDE_SV_D (T=16), the six d x d wrappers launched 0 times (phase
+    21 launches them at D = 30); two spatial csmc-guided steps at d = 81
+    (side WIDE_SP_SIDE, T=8, N=16), the block-lane sweep launched once a
+    step, its lanes' components in the warp's shared scratch (d = 64, in
+    registers, is phases 13-14's). Then the block-lane sweep alone on a real
+    csmc-guided-grad step's inputs at T=SP_T, d=81, N=SP_N against its plain
+    version (`check_block_lane`, as phase 13). Returns that entry."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    f32, f64 = torch.float32, torch.float64
+    d = WIDE_SP_SIDE ** 2
+    log(f"phase 34: widths past the kernels' instances, f64 card vs CPU: SV kalman-1 at D = "
+        f"{WIDE_SV_D} (the d x d kernels stop at 32: plain versions), spatial csmc-guided at "
+        f"d = {d} (the block-lane sweep past its register width: components in shared memory)")
+    rng = np.random.default_rng(34)
+    T_ = 16
+    xs, ys = sv.get_data(*SV_PARAMS, WIDE_SV_D, T_, generator=torch.Generator().manual_seed(34),
+                         device="cpu")
+    steps_on_both(f"SV kalman-1 step T={T_} D={WIDE_SV_D}",
+                  lambda where: sv.get_kalman_kernel(ys.to(where), *SV_PARAMS, True, 1),
+                  xs, 0.05, [(rng.standard_normal((T_, WIDE_SV_D)),
+                              rng.standard_normal((T_, WIDE_SV_D)), rng.uniform())
+                             for _ in range(2)], dev, {})
+    T_, N_ = 8, 16
+    sxs, sys_ = spatial_data("cpu", f64, T_, WIDE_SP_SIDE, seed=34)
+    steps_on_both(
+        f"spatial csmc-guided step T={T_} d={d} N={N_}",
+        lambda where: spatial_kernel("csmc-guided", sys_.to(where), WIDE_SP_SIDE, N_),
+        sxs, rng.uniform(0.005, 0.05, T_),
+        [(rng.standard_normal((T_, d)), rng.standard_normal((N_, d)),
+          rng.uniform(size=(T_ - 1, N_)), rng.standard_normal((T_ - 1, N_, d)),
+          rng.uniform(size=T_ - 1), rng.uniform(size=T_)) for _ in range(2)], dev,
+        {"block_lane_scan": 1, "backward_factor_scan": FACTOR_LAUNCHES})
+    seen = {}
+    for dt in (f32, f64):
+        xs_, ys_ = spatial_data(dev, dt, D=WIDE_SP_SIDE)
+        init, kernel = spatial_kernel("csmc-guided-grad", ys_, WIDE_SP_SIDE, SP_N)
+        with recording_sweeps() as rec:
+            kernel(init(xs_), torch.full((SP_T,), SP_DELTA0, dtype=dt, device=dev),
+                   generator=torch.Generator(device=dev).manual_seed(34))
+        seen[dt] = rec["block_lane_scan"]
+    if tuple(seen[f32][2].shape) != (SP_T - 1, d, SP_N):
+        raise AssertionError(f"block_lane_scan at d = {d}: handed noise of shape "
+                             f"{tuple(seen[f32][2].shape)}")
+    # As phase 13's: both products with P, 2 operations a nonzero, and ~40
+    # elementwise operations a component.
+    nnz = int((seen[f32][1].c.prec != 0).sum())
+    return check_block_lane(f"spatial csmc-guided-grad T={SP_T} d={d} N={SP_N}", seen[f32],
+                            seen[f64], reps=10, ops_per_particle=4 * nnz + 40 * d)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4288,7 +4706,9 @@ def main():
     chain_results = phase_chain_kernels(dev)
     dense_results = phase_dense_chain_kernels(dev)
     csmc_chain_results = phase_block_lane_chains(dev)
-    log(f"  phases 0, 29's, 30's and 32's kernel checks took {time.perf_counter() - tic:.1f} s")
+    draw_chain_results = phase_draw_chains(dev)
+    log(f"  phases 0, 29's, 30's, 32's and 33's kernel checks took "
+        f"{time.perf_counter() - tic:.1f} s")
 
     results = phase_kernels(dev)
     phase_step_reference(dev)
@@ -4312,7 +4732,8 @@ def main():
     results["lane_scan"] = phase_lane_kernel(dev)
     log("phase 9: f64 scalar-state particle-Gibbs steps, card vs CPU")
     phase_scalar_step_reference(dev)
-    launches["lane_scan"] = phase_theta_chain(dev)["lane_scan"]
+    theta_one, theta_chained = phase_theta_chain(dev, card)
+    launches["lane_scan"] = theta_one["lane_scan"]
     log(f"  phases 0-11 took {time.perf_counter() - tic:.1f} s")
 
     results.update(phase_scalar_scans(dev))
@@ -4338,7 +4759,8 @@ def main():
     log("phase 17: f64 PIT steps, card vs CPU")
     phase_pit_step_reference(dev)
     log(f"  phases 0-17 took {time.perf_counter() - tic:.1f} s")
-    for name, count in phase_pit_chains(dev).items():
+    pit_one, pit_chained = phase_pit_chains(dev, card)
+    for name, count in pit_one.items():
         launches[name] = count
     log(f"  phases 0-18 took {time.perf_counter() - tic:.1f} s")
     for name, count in phase_pit_rare(dev).items():
@@ -4347,6 +4769,9 @@ def main():
     wide = phase_wide_kernels(dev)
     log("phase 21: f64 SV kalman steps, card vs CPU")
     phase_sv_kalman_steps(dev)
+    results["block_lane_scan"]["functors"]["SpatialGuided"][
+        f"T={SP_T}, d={WIDE_SP_SIDE ** 2}, N={SP_N}, csmc-guided-grad: components in shared "
+        "memory"] = phase_wide_routes(dev)
     wide_launches = phase_sv_kalman_chains(dev, card)
     log(f"  phases 0-22 took {time.perf_counter() - tic:.1f} s")
     lorenz = phase_lorenz_kernels(dev)
@@ -4403,11 +4828,17 @@ def main():
     kernels += [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                  "launches": csmc_launches[name], **csmc_chain_results[name]}
                 for name, (_, src, rep) in CSMC_CHAIN_KERNELS.items()]
+    kernels += [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                 "launches": pit_chained[one], **draw_chain_results[name]}
+                for name, (one, src, rep) in DRAW_CHAIN_KERNELS.items()]
     for entry in kernels:
-        if entry["name"] in ("backward_factor_scan_chains", "col_sample_chains"):
+        if entry["name"] in ("forward_factor_scan_chains", "backward_factor_scan_chains",
+                             "col_sample_chains"):
             one = entry["name"].removesuffix("_chains")
             entry["launches"] += sum(run.get(one, 0) for run in (*sv_chained.values(),
                                                                  *spatial_runs))
+        if entry["name"] == "lane_scan_chains":
+            entry["launches"] += theta_chained["lane_scan"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

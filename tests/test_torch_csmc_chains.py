@@ -18,8 +18,11 @@
   the one-chain kernel bit for bit; a step calls each sweep, scan and
   stitching kernel as often at C = 3 as at C = 1;
 - the drivers with `--n-chains 2` run every style in scope as one batched
-  step (`chain_loop` never called), and the options outside it (ancestor
-  scanning, systematic resampling, the PIT's blocked route) loop;
+  step (`chain_loop` never called), and the options that once looped
+  (ancestor scanning, systematic resampling, the PIT's blocked route, the
+  guided style past the block-lane sweep's N) build the batched kernel too
+  (their parity with JAX: `tests/test_torch_scan_chains.py` and
+  `tests/test_torch_blocked_pit_chains.py`);
 - `convert`'s chain-batched cSMC state both ways.
 """
 import importlib
@@ -296,20 +299,25 @@ def test_drivers_run_the_chains_as_one_batched_step(monkeypatch, tmp_path, model
 @pytest.mark.parametrize("options", [dict(backward=False), dict(resampling="systematic"),
                                      dict(parallel=True, N=4096), dict(N=2048, guided=True)])
 def test_options_outside_the_chain_axis_keep_the_chain_loop(data, options):
-    """What the chain axis does not take builds the one-chain kernel,
-    unmarked: ancestor scanning, systematic resampling, the PIT's blocked
-    route (N = 4096), the guided style past the block-lane sweep's N."""
+    """The options that kept the chain loop before every path took the chain
+    axis (ancestor scanning, systematic resampling, the PIT's blocked route
+    at N = 4096, the guided style past the block-lane sweep's N) now build
+    the kernel over the chain axis, marked `chain_axis`, and without
+    `chains` the one-chain kernel, unmarked; the predicates that chose
+    between them are gone."""
     ys = _t(data["sv"][1])
     opts = dict(options)
     n = opts.pop("N", N)
-    if opts.pop("guided", False):
-        _, kernel = tsv.get_guided_csmc_kernel(ys, *SV_ARGS, n, backward=True, chains=True)
-    else:
-        opts.setdefault("backward", True)
-        _, kernel = tsv.get_csmc_kernel(ys, *SV_ARGS, n, chains=True, **opts)
-    assert not getattr(kernel, "chain_axis", False)
-    assert tcsmc.takes_chain_axis(N, True, "multinomial", block_lane=True)
-    assert tpit.takes_chain_axis(N) and not tpit.takes_chain_axis(4096)
+    for chains in (True, False):
+        if opts.get("guided", False):
+            _, kernel = tsv.get_guided_csmc_kernel(ys, *SV_ARGS, n, backward=True,
+                                                   chains=chains)
+        else:
+            kw = {k: v for k, v in opts.items() if k != "guided"}
+            kw.setdefault("backward", True)
+            _, kernel = tsv.get_csmc_kernel(ys, *SV_ARGS, n, chains=chains, **kw)
+        assert getattr(kernel, "chain_axis", False) == chains
+    assert not hasattr(tcsmc, "takes_chain_axis") and not hasattr(tpit, "takes_chain_axis")
 
 
 def test_csmc_chains_convert_round_trip():

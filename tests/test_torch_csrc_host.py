@@ -714,45 +714,64 @@ HOST_MASSES(f32, float)
 HOST_MASSES(f64, double)
 // The draws, float and double, through the kernel's width dispatch: each
 // node's row CDF by one "warp", then its draws in turn, each by one warp
-// whose 32 lanes run in turn.
+// whose 32 lanes run in turn. The chain axis as the kernels take it: node
+// p's seed and pair offset by chain_pair (chain_pairs = P: one seed).
 template <typename S>
-static void host_stitch_draws(int P, int N, int k, int seed, int pair_offset, const S* rl,
-                              const S* u, const S* Lb, const S* rf, const S* cf, const S* cb,
-                              long long* rows, long long* cols) {
+static void host_stitch_draws(int P, int N, int k, const int* seeds, int chain_pairs,
+                              int pair_offset, const S* rl, const S* u, const S* Lb, const S* rf,
+                              const S* cf, const S* cb, long long* rows, long long* cols) {
   static S ic[kMaxNb * kRows], cdf[kMaxNb], pre[kMaxNb + 1], red[1], buf[kWarp * (kMaxK | 1)];
   with_width(k, [&](auto Kc) {
     constexpr int K = decltype(Kc)::value;
     for (int p = 0; p < P; ++p) {
+      int offset;
+      const uint32_t s = chain_pair(p, P, chain_pairs, seeds, pair_offset, &offset);
       node_row_cdf<S>(0, 1, N, rl + (long)p * N, ic, cdf, pre, red);
       for (int i = 0; i < N; ++i)
-        stitch_draw<S, K>(p, i, N, k, (uint32_t)seed, pair_offset, u, Lb, rf, cf, cb, ic, cdf,
-                          pre, buf, (int64_t*)rows, (int64_t*)cols);
+        stitch_draw<S, K>(p, i, N, k, s, offset, u, Lb, rf, cf, cb, ic, cdf, pre, buf,
+                          (int64_t*)rows, (int64_t*)cols);
     }
   });
 }
 template <typename S>
-static void host_within_block_cols(int P, int n, int nc, int k, int seed, int pair_offset,
-                                   const long long* blocks, const S* rf_sel, const S* cf,
-                                   const S* cb, long long* out) {
+static void host_within_block_cols(int P, int n, int nc, int k, const int* seeds,
+                                   int chain_pairs, int pair_offset, const long long* blocks,
+                                   const S* rf_sel, const S* cf, const S* cb, long long* out) {
   static S buf[kWarp * (kMaxK | 1)];
   with_width(k, [&](auto Kc) {
     constexpr int K = decltype(Kc)::value;
-    for (int p = 0; p < P; ++p)
+    for (int p = 0; p < P; ++p) {
+      int offset;
+      const uint32_t s = chain_pair(p, P, chain_pairs, seeds, pair_offset, &offset);
       for (int i = 0; i < n; ++i)
-        within_block_col<S, K>(p, i, n, nc, k, (uint32_t)seed, pair_offset,
-                               (const int64_t*)blocks, rf_sel, cf, cb, buf, (int64_t*)out);
+        within_block_col<S, K>(p, i, n, nc, k, s, offset, (const int64_t*)blocks, rf_sel, cf,
+                               cb, buf, (int64_t*)out);
+    }
   });
 }
 #define HOST_DRAWS(SUFFIX, S)                                                                 \
   extern "C" void h_stitch_draws_##SUFFIX(int P, int N, int k, int seed, int pair_offset,     \
       const S* rl, const S* u, const S* Lb, const S* rf, const S* cf, const S* cb,            \
       long long* rows, long long* cols) {                                                     \
-    host_stitch_draws<S>(P, N, k, seed, pair_offset, rl, u, Lb, rf, cf, cb, rows, cols);      \
+    host_stitch_draws<S>(P, N, k, &seed, P, pair_offset, rl, u, Lb, rf, cf, cb, rows, cols);  \
+  }                                                                                           \
+  extern "C" void h_stitch_draws_chains_##SUFFIX(int P, int N, int k, const int* seeds,       \
+      int chain_pairs, int pair_offset, const S* rl, const S* u, const S* Lb, const S* rf,    \
+      const S* cf, const S* cb, long long* rows, long long* cols) {                           \
+    host_stitch_draws<S>(P, N, k, seeds, chain_pairs, pair_offset, rl, u, Lb, rf, cf, cb,     \
+                         rows, cols);                                                         \
   }                                                                                           \
   extern "C" void h_within_block_cols_##SUFFIX(int P, int n, int nc, int k, int seed,         \
       int pair_offset, const long long* blocks, const S* rf_sel, const S* cf, const S* cb,    \
       long long* out) {                                                                       \
-    host_within_block_cols<S>(P, n, nc, k, seed, pair_offset, blocks, rf_sel, cf, cb, out);   \
+    host_within_block_cols<S>(P, n, nc, k, &seed, P, pair_offset, blocks, rf_sel, cf, cb,     \
+                              out);                                                           \
+  }                                                                                           \
+  extern "C" void h_within_block_cols_chains_##SUFFIX(int P, int n, int nc, int k,            \
+      const int* seeds, int chain_pairs, int pair_offset, const long long* blocks,            \
+      const S* rf_sel, const S* cf, const S* cb, long long* out) {                            \
+    host_within_block_cols<S>(P, n, nc, k, seeds, chain_pairs, pair_offset, blocks, rf_sel,   \
+                              cf, cb, out);                                                   \
   }
 HOST_DRAWS(f32, float)
 HOST_DRAWS(f64, double)
@@ -1212,7 +1231,7 @@ def _host_block_lane_paths(host_lib, model, n, N, d, eps, res_u, x_star, x0, w0,
         _close(lw, want[1])
 
 
-@pytest.mark.parametrize("T,D,N", [(12, 3, 16), (9, 30, 25)])
+@pytest.mark.parametrize("T,D,N", [(12, 3, 16), (9, 30, 25), (5, 70, 8)])
 def test_host_block_lane_sv_guided_matches_plain(host_lib, T, D, N):
     from aux_ssm_tpu_torch.models import stochastic_volatility as sv
     _, ys = sv.get_data(0.0, 0.9, 2.0, 0.25, D, T, generator=torch.Generator().manual_seed(T),
@@ -1234,10 +1253,12 @@ def test_host_block_lane_sv_guided_matches_plain(host_lib, T, D, N):
 
 
 @pytest.mark.parametrize("gradient", [False, True])
-@pytest.mark.parametrize("T,D,N", [(12, 2, 16), (9, 3, 25), (6, 8, 25)])
+@pytest.mark.parametrize("T,D,N", [(12, 2, 16), (9, 3, 25), (6, 8, 25), (5, 9, 16)])
 def test_host_block_lane_spatial_guided_matches_plain(host_lib, T, D, N, gradient):
-    """The functor SpatialGuided at d = D * D in {4, 9, 64} against the
-    model's (d, N)-block callables."""
+    """The functor SpatialGuided at d = D * D in {4, 9, 64, 81} against the
+    model's (d, N)-block callables: d = 81 is past the register width
+    (`kRegBlockD` = 64 components a warp, the host build's one lane included),
+    so its lanes keep their components in the warp's scratch."""
     from aux_ssm_tpu_torch.models import spatial
     rng = np.random.default_rng(T + D)
     d = D * D
@@ -1270,7 +1291,8 @@ def test_host_block_lane_spatial_guided_matches_plain(host_lib, T, D, N, gradien
 # version (chain by chain) to rtol 1e-9 with identical ancestors.
 @pytest.mark.parametrize("model,T,D,N,gradient", [("sv_guided", 9, 4, 16, False),
                                                   ("spatial_guided", 7, 3, 25, False),
-                                                  ("spatial_guided", 7, 3, 25, True)])
+                                                  ("spatial_guided", 7, 3, 25, True),
+                                                  ("spatial_guided", 4, 9, 8, True)])
 def test_host_block_lane_chain_axis(host_lib, model, T, D, N, gradient):
     from aux_ssm_tpu_torch.models import spatial, stochastic_volatility as sv
     Cc, n = 3, T - 1
@@ -1354,12 +1376,13 @@ def test_host_spatial_row_lists_give_the_dense_product(host_lib, case):
 @pytest.mark.parametrize("model,N,d,elem,staged", [
     ("sv_guided", 25, 30, 8, True), ("sv_guided", 100, 30, 8, True),
     ("sv_guided", 1024, 30, 4, False), ("spatial_guided", 25, 64, 8, True),
-    ("spatial_guided", 64, 64, 8, True), ("spatial_guided", 1024, 64, 4, False)])
+    ("spatial_guided", 64, 64, 8, True), ("spatial_guided", 1024, 64, 4, False),
+    ("spatial_guided", 25, 81, 8, True), ("spatial_guided", 1024, 81, 8, False)])
 def test_host_block_lane_staged_plan(host_lib, model, N, d, elem, staged):
     """Which shapes the block-lane sweep stages in shared memory (the H100's
-    227 KB a block): the published N = 25 in both widths and the moderate N
-    the on-card tests use stage; N = 1024 keeps its particles in global
-    memory."""
+    227 KB a block): the published N = 25 in both widths, the 9 x 9 grid's d
+    = 81 (three d-vectors of scratch a warp) and the moderate N the on-card
+    tests use stage; N = 1024 keeps its particles in global memory."""
     nconst = 3 * d * d + 2 * d + 1 if model == "sv_guided" else 4 + 2 * d * 5
     fn = getattr(host_lib["csmc_block"], f"h_block_lane_staged_{model}")
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_long]
@@ -1568,6 +1591,52 @@ def test_host_col_sample_chain_axis(host_lib, n, N, k):
         np.testing.assert_array_equal(got[sl].numpy(), one.numpy())
     np.testing.assert_array_equal(got.numpy(), ST.col_sample(seeds, rf, cf, cb, 3, chains=Cc)
                                   .numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("N,k", [(128, 1), (256, 5)])
+def test_host_draws_chain_axis(host_lib, dtype, N, k):
+    """stitch_draws' and within_block_cols' chain instances, as the kernels
+    take them (`chain_pair`): the P nodes are C chains' chain_pairs each,
+    chain c's with seeds[c] and its nodes counted within the chain; each
+    chain equals a one-seed call on its nodes, and the whole launch the
+    plain chain twin (`ops.stitching`, `chains=C`), bit for bit."""
+    Cc, per, offset = 3, 2, 4
+    P, nb = Cc * per, N // 128
+    rng = np.random.default_rng(N + k)
+    rf, cf = (torch.as_tensor(0.4 * rng.standard_normal((P, N, k)), dtype=dtype)
+              for _ in range(2))
+    cb = torch.as_tensor(rng.standard_normal((P, N)), dtype=dtype)
+    Lb = ST.block_masses(rf, cf, cb)
+    rl = torch.as_tensor(rng.standard_normal((P, N)), dtype=dtype) + torch.logsumexp(Lb, -1)
+    u = torch.as_tensor(rng.uniform(size=(P, N)), dtype=dtype)
+    blocks = torch.as_tensor(rng.integers(0, nb, (P, 40)))
+    rf_sel = rf[:, :40].contiguous()
+    seeds = torch.tensor([-1, 987654, 7], dtype=torch.int32)
+    suffix = "f64" if dtype == torch.float64 else "f32"
+    lib = host_lib["stitching"]
+    rows, cols, wcols = (torch.full(shape, -1, dtype=torch.int64)
+                         for shape in ((P, N), (P, N), (P, 40)))
+    _call(getattr(lib, f"h_stitch_draws_chains_{suffix}"), P, N, k, seeds, per, offset, rl, u,
+          Lb, rf, cf, cb, rows, cols)
+    _call(getattr(lib, f"h_within_block_cols_chains_{suffix}"), P, 40, N, k, seeds, per, offset,
+          blocks, rf_sel, cf, cb, wcols)
+    for c in range(Cc):
+        sl = slice(c * per, (c + 1) * per)
+        r1, c1, w1 = (torch.full(shape, -1, dtype=torch.int64)
+                      for shape in ((per, N), (per, N), (per, 40)))
+        _call(getattr(lib, f"h_stitch_draws_{suffix}"), per, N, k, int(seeds[c]), offset, rl[sl],
+              u[sl], Lb[sl], rf[sl], cf[sl], cb[sl], r1, c1)
+        _call(getattr(lib, f"h_within_block_cols_{suffix}"), per, 40, N, k, int(seeds[c]),
+              offset, blocks[sl], rf_sel[sl].contiguous(), cf[sl], cb[sl], w1)
+        for got, want in ((rows[sl], r1), (cols[sl], c1), (wcols[sl], w1)):
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
+    want_rows, want_cols = ST.stitch_draws(seeds, rl, u, Lb, rf, cf, cb, offset, chains=Cc)
+    np.testing.assert_array_equal(rows.numpy(), want_rows.numpy())
+    np.testing.assert_array_equal(cols.numpy(), want_cols.numpy())
+    np.testing.assert_array_equal(
+        wcols.numpy(), ST.within_block_cols(seeds, blocks, rf_sel, cf, cb, offset, chains=Cc)
+        .numpy())
 
 
 def test_host_counter_uniform_bitwise(host_lib):

@@ -388,11 +388,14 @@ def test_backward_factor_matches_plain(dev, n, N, k):
                   dev, _factor_launches(N)))
 
 
-@pytest.mark.parametrize("T,D,N", [(12, 3, 16), (40, 30, 25), (9, 30, 1024), (9, 30, 100)])
+@pytest.mark.parametrize("T,D,N", [(12, 3, 16), (40, 30, 25), (9, 30, 1024), (9, 30, 100),
+                                   (6, 70, 25)])
 def test_block_lane_matches_plain(dev, T, D, N):
     """Each path of the sweep (test_torch_csrc_host.py test_host_block_lane_
     staged_plan): staged with the one-warp carry (N <= 32), staged with the
-    block collectives (N = 100), particles in global memory (N = 1024)."""
+    block collectives (N = 100), particles in global memory (N = 1024); and
+    D = 70, past the 64 components of the spatial functor's registers (the
+    SV functor keeps none there)."""
     _, ys = sv.get_data(*SV_PARAMS, D, T, generator=torch.Generator().manual_seed(T),
                         device="cpu")
     rng = np.random.default_rng(D)
@@ -609,10 +612,11 @@ def test_scalar_scans_reject_what_the_kernel_does_not_take(dev):
 
 @pytest.mark.parametrize("gradient", [False, True])
 @pytest.mark.parametrize("T,D,N", [(12, 2, 16), (9, 3, 25), (20, 8, 25), (5, 8, 1024),
-                                   (9, 8, 64)])
+                                   (9, 8, 64), (9, 9, 25), (6, 9, 64), (5, 9, 1024)])
 def test_block_lane_spatial_matches_plain(dev, T, D, N, gradient):
     """Staged with the one-warp carry (N <= 32), staged with the block
-    collectives (N = 64), particles in global memory (N = 1024)."""
+    collectives (N = 64), particles in global memory (N = 1024); at d = 64
+    the lanes' components in registers, at d = 81 in shared memory."""
     from aux_ssm_tpu_torch.models import spatial
     sigma_x, nu, tau, r_y = SP_PARAMS
     rng = np.random.default_rng(T + D)
@@ -805,6 +809,117 @@ def test_stitch_draws_and_within_block_cols_match_plain(dev, P, N, k):
         assert np.isfinite(draws[5].numpy()[np.arange(P)[:, None], got[1].numpy()]).all()
 
 
+@pytest.mark.parametrize("C", [1, 4, 32])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_draw_chain_instances_are_one_chain_launches(dev, C, dtype):
+    """stitch_draws and within_block_cols with `chains` C (a seed a chain,
+    the nodes chain after chain): the C-chain launch equals, chain by chain,
+    one-chain launches with the chains' seeds bit for bit, in float32 and
+    float64; in float64 also the plain chain twin on the CPU."""
+    ST, per, N, k = K.stitching, 2, 256, 3
+    P = C * per
+    draws = _draws_inputs(P, N, k, seed=C, dtype=dtype)
+    g = torch.Generator().manual_seed(C)
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (C,), generator=g, dtype=torch.int64).to(
+        torch.int32)
+    blocks = torch.randint(0, N // 128, (P, 64), generator=g)
+    rf_sel = draws[3][:, :64].contiguous()
+    on = [z.to(dev) for z in draws]
+    sd, bl, rs = seeds.to(dev), blocks.to(dev), rf_sel.to(dev)
+    got = ST.stitch_draws(sd, *on, 5, chains=C)
+    got_c = ST.within_block_cols(sd, bl, rs, *on[4:], 5, chains=C)
+    for c in range(C):
+        sl = slice(c * per, (c + 1) * per)
+        one = ST.stitch_draws(sd[c], *(z[sl] for z in on), 5)
+        one_c = ST.within_block_cols(sd[c], bl[sl], rs[sl], *(z[sl] for z in on[4:]), 5)
+        assert all(torch.equal(a[sl], b) for a, b in zip(got + (got_c,), one + (one_c,)))
+    if dtype == torch.float64:
+        want = ST.stitch_draws(seeds, *draws, 5, chains=C)
+        want_c = ST.within_block_cols(seeds, blocks, rf_sel, *draws[4:], 5, chains=C)
+        for w, g_ in zip(want + (want_c,), got + (got_c,)):
+            np.testing.assert_array_equal(g_.cpu().numpy(), w.numpy())
+
+
+def test_blocked_pit_chains_step_matches_cpu(dev):
+    """A batched blocked PIT step of C = 3 chains (SV D = 2, T = 8, N = 128,
+    both draws modes), float64, on the card and on the CPU given the same
+    noise: identical `updated`, states to rtol 1e-9; one launch of each
+    stitching kernel a level."""
+    from aux_ssm_tpu_torch.kernels import csmc_independent as ind, pit
+    from aux_ssm_tpu_torch.kernels.csmc_base import CSMCState, tree_map
+    C, T, N = 3, 8, 128
+    xs, ys = sv.get_data(0.0, 0.9, 2.0, 0.25, 2, T, generator=torch.Generator().manual_seed(3),
+                         device="cpu")
+    x0 = xs.expand(C, -1, -1).clone()
+    g = torch.Generator().manual_seed(4)
+    noise = ((torch.randn(x0.shape, generator=g, dtype=torch.float64),
+              torch.randn(C, T, N, 2, generator=g, dtype=torch.float64))
+             + pit.draw_noise(T, N, x0, g, chains=C))
+    delta = torch.full((C, T), 0.3, dtype=torch.float64)
+    for draws in ("joint", "fused"):
+        out = {}
+        for where in ("cpu", dev):
+            _, kernel = ind.get_kernel(*sv.get_feynman_kac(ys.to(where), 0.0, 0.9, 2.0, 0.25,
+                                                           True), N, parallel=True,
+                                       stitch="blocked", draws=draws)
+            K.reset_launches()
+            out[str(where)] = kernel(CSMCState(x=x0.to(where), updated=torch.zeros(
+                C, T, dtype=torch.bool, device=where)), delta.to(where),
+                noise=tuple(tree_map(lambda z: z.to(where), n) for n in noise))
+        name = "stitch_draws" if draws == "fused" else "within_block_cols"
+        assert K.launches()[name] == len(pit.level_sizes(T)) - 1
+        np.testing.assert_array_equal(out[str(dev)].updated.cpu().numpy(),
+                                      out["cpu"].updated.numpy())
+        np.testing.assert_allclose(out[str(dev)].x.cpu().numpy(), out["cpu"].x.numpy(),
+                                   rtol=1e-9, atol=1e-12)
+
+
+def test_wide_shapes_take_the_plain_routes_on_the_card(dev):
+    """At D = 33 an SV kalman-1 step launches none of the d x d kernels and
+    equals the CPU's in float64; at d = 81 a spatial csmc-guided step
+    launches the block-lane sweep once (its lanes' components in shared
+    memory) and equals the CPU's."""
+    from aux_ssm_tpu_torch.models import spatial
+    T, D = 8, 33
+    xs, ys = sv.get_data(0.0, 0.9, 2.0, 0.25, D, T, generator=torch.Generator().manual_seed(5),
+                         device="cpu")
+    g = torch.Generator().manual_seed(6)
+    noise = (torch.randn(T, D, generator=g, dtype=torch.float64),
+             torch.randn(T, D, generator=g, dtype=torch.float64),
+             torch.rand((), generator=g, dtype=torch.float64))
+    out = {}
+    for where in ("cpu", dev):
+        init, kernel = sv.get_kalman_kernel(ys.to(where), 0.0, 0.9, 2.0, 0.25, True, 1)
+        K.reset_launches()
+        out[str(where)] = kernel(init(xs.to(where)), 0.05,
+                                 noise=tuple(z.to(where) for z in noise))
+    assert not any(K.launches().values())
+    assert bool(out[str(dev)].updated) == bool(out["cpu"].updated)
+    np.testing.assert_allclose(out[str(dev)].x.cpu().numpy(), out["cpu"].x.numpy(), rtol=1e-9,
+                               atol=1e-12)
+    side, N = 9, 8
+    sxs, sys_ = spatial.get_data(np.random.default_rng(7), 0.3, 1, -0.25, 4.0, side, 6,
+                                 dtype=torch.float64, device="cpu")
+    d = side * side
+    noise = (torch.randn(6, d, generator=g, dtype=torch.float64),
+             torch.randn(N, d, generator=g, dtype=torch.float64),
+             torch.rand(5, N, generator=g, dtype=torch.float64),
+             torch.randn(5, N, d, generator=g, dtype=torch.float64),
+             torch.rand(5, generator=g, dtype=torch.float64),
+             torch.rand(6, generator=g, dtype=torch.float64))
+    for where in ("cpu", dev):
+        init, kernel = spatial.get_guided_csmc_kernel(sys_.to(where), 0.3, 4.0, -0.25, 1, side,
+                                                      N, backward=True)
+        K.reset_launches()
+        out[str(where)] = kernel(init(sxs.to(where)), torch.full((6,), 0.02, dtype=torch.float64,
+                                                                  device=where),
+                                 noise=tuple(z.to(where) for z in noise))
+    assert K.launches()["block_lane_scan"] == 1 and K.launches()["backward_factor_scan"] > 0
+    np.testing.assert_array_equal(out[str(dev)].updated.cpu().numpy(), out["cpu"].updated.numpy())
+    np.testing.assert_allclose(out[str(dev)].x.cpu().numpy(), out["cpu"].x.numpy(), rtol=1e-9,
+                               atol=1e-12)
+
+
 def test_draw_log_matches_logf(dev):
     """The draw kernels' float32 log equals logf bit for bit on every
     positive normal float (the only arguments the draws give it)."""
@@ -925,7 +1040,7 @@ def _block_lane_chain_inputs(model, C, T, D, N, gradient, where):
 @pytest.mark.parametrize("model,C,T,D,N,gradient", [
     ("sv", 3, 12, 3, 16, False), ("sv", 4, 9, 30, 100, False), ("sv", 2, 9, 30, 1024, False),
     ("spatial", 3, 9, 3, 25, False), ("spatial", 5, 12, 8, 25, True),
-    ("spatial", 2, 5, 8, 1024, True)])
+    ("spatial", 2, 5, 8, 1024, True), ("spatial", 3, 7, 9, 25, True)])
 def test_block_lane_chain_axis(dev, model, C, T, D, N, gradient):
     """C chains in one launch (each path: staged with the one-warp carry,
     staged with the block collectives, particles in global memory): the plain

@@ -394,8 +394,8 @@ def test_unknown_cuda_model_raises_on_the_card(monkeypatch):
     CF.block_lane_scan(tMt, tGt, *args)
     assert launched == ["csmc_block_lane_spatial_guided"]
     CF.block_lane_scan.launches -= 1
-    wide = torch.zeros(n, CF.MAX_BLOCK_D + 1, N, dtype=torch.float64)
-    with pytest.raises(ValueError, match="d in 1"):
+    wide = torch.zeros(n, B + 1, N, dtype=torch.float64)
+    with pytest.raises(ValueError, match="expected shape"):
         CF.block_lane_scan(tMt, tGt, wide, *args[1:])
 
 
