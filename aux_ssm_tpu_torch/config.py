@@ -64,8 +64,10 @@ class MeshConfig:
     axis_sizes: Optional[Tuple[int, ...]] = None
 
     def build(self, devices=None):
-        raise NotImplementedError("device meshes are not ported: they need "
-                                  "parallel/mesh.py (multi-device)")
+        """The mesh over `devices` (default every card; `parallel.mesh
+        .make_mesh`)."""
+        from .parallel.mesh import make_mesh
+        return make_mesh(self.axis_sizes, devices, self.axis_names)
 
 
 @dataclass(frozen=True)

@@ -6,8 +6,11 @@ as one batched step where the driver's model offers a kernel over the chain
 axis (marked `chain_axis`: every style of the SV, spatial and Lorenz
 drivers under any options; the rare-event grid batches its own), else a
 one-chain kernel chain after chain (`chains.chain_loop`); the run reports
-split-R-hat. `--mesh-chains` above 0 (a device mesh) raises
-NotImplementedError. `--checkpoint-dir` (with `--checkpoint-every`) makes a run resumable: a
+split-R-hat. `--mesh-chains n` puts the C chains on a `chains` mesh of n
+shards (`parallel/chains.py`): n cards, or n CPU shards under `--platform
+cpu`; asking for more cards than the machine has raises ValueError, where
+the JAX package's `jax.devices()[:n]` would run on fewer.
+`--checkpoint-dir` (with `--checkpoint-every`) makes a run resumable: a
 killed run started again with the same arguments goes on from its newest
 checkpoint, bit for bit (`runner.run_chain`). `--debug-nans` checks the
 chain after every step (`runner.check_finite`).
@@ -95,16 +98,25 @@ def run_config(args, **overrides):
     return RunConfig(**kw)
 
 
-def check_mesh(args):
-    """Raise NotImplementedError for `--mesh-chains` above 0: device meshes
-    are multi-device work (ROADMAP.md queue 2)."""
-    from ..parallel.chains import _MESH_TODO
-    if getattr(args, "mesh_chains", 0):
-        raise NotImplementedError(f"--mesh-chains {args.mesh_chains}: {_MESH_TODO}")
+def shard_devices(n, platform, flag="--mesh-chains"):
+    """The devices of n shards: n CPU shards under `--platform cpu`, else
+    cards 0..n-1 (ValueError where the machine has fewer than n)."""
+    if platform == "cpu":
+        return ["cpu"] * n
+    have = torch.cuda.device_count()
+    if have < n:
+        raise ValueError(f"{flag} {n} asks for {n} cards; this machine has {have}")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+def mesh_devices(args):
+    """The devices of `--mesh-chains n` (`shard_devices`), None for 0."""
+    n = getattr(args, "mesh_chains", 0)
+    return shard_devices(n, getattr(args, "platform", None)) if n else None
 
 
 def run_maybe_sharded(generator, kernel, state, cfg, args, *, collect_samples=False,
-                      delta_init=None, collect_fn=None):
+                      delta_init=None, collect_fn=None, devices=None, kernel_for=None):
     """Single- or multi-chain dispatch shared by the experiment drivers, with
     a one-chain `state` and a one-chain `kernel` or one over the chain axis
     (marked `chain_axis`); checkpointed under `--checkpoint-dir` every
@@ -117,14 +129,28 @@ def run_maybe_sharded(generator, kernel, state, cfg, args, *, collect_samples=Fa
     returns (res, diag), `diag` the chains' mean statistics (`stats`) and
     split-R-hat (`rhat_max`, `rhat_median`): rank-normalised split-R-hat of
     at most 128 evenly spread coordinates of the collected samples, else the
-    moment-based R-hat of every coordinate from the online statistics."""
+    moment-based R-hat of every coordinate from the online statistics.
+
+    A mesh: `devices` (a list, e.g. ["cuda:0"] * 4), else `--mesh-chains`'s
+    (`mesh_devices`), puts C > 1 chains on a `chains` mesh of that many
+    shards (S must divide C); `kernel_for(shard, device)` builds a shard's
+    kernel (`parallel.chains.mesh_kernel`), needed for a shard on another
+    device than the state's."""
     from ..parallel.chains import (aggregate_chain_stats, broadcast_chains, chain_loop,
                                    run_sharded_chains)
     from ..utils.ess import potential_scale_reduction, rhat_from_moments
     from ..utils.stats import variance
 
-    check_mesh(args)
+    from ..parallel.mesh import CHAINS, make_mesh
+
     n_chains = getattr(args, "n_chains", 1)
+    devices = mesh_devices(args) if devices is None else devices
+    mesh = None
+    if devices is not None and n_chains > 1:
+        if n_chains % len(devices):
+            raise ValueError(f"--mesh-chains {len(devices)} does not divide --n-chains "
+                             f"{n_chains}")
+        mesh = make_mesh(devices=devices, axis_names=(CHAINS,))
     ckpt = dict(checkpoint_dir=getattr(args, "checkpoint_dir", None),
                 checkpoint_every=getattr(args, "checkpoint_every", 0),
                 debug_nans=getattr(args, "debug_nans", False))
@@ -141,7 +167,7 @@ def run_maybe_sharded(generator, kernel, state, cfg, args, *, collect_samples=Fa
     res = run_sharded_chains(batched, broadcast_chains(state, n_chains), cfg,
                              generator=generator, collect_samples=collect_samples,
                              delta_init=broadcast_chains(delta0, n_chains),
-                             collect_fn=collect_fn, **ckpt)
+                             collect_fn=collect_fn, mesh=mesh, kernel_for=kernel_for, **ckpt)
     if collect_samples and res.samples is not None and res.samples.size:
         flat = res.samples.reshape(res.samples.shape[0], res.samples.shape[1], -1)
         n_coords = flat.shape[-1]
@@ -152,7 +178,7 @@ def run_maybe_sharded(generator, kernel, state, cfg, args, *, collect_samples=Fa
         rhats = rhat_from_moments(res.stats.mean_x, variance(res.stats),
                                   cfg.n_samples).reshape(-1)
     rhats = rhats.detach().cpu().numpy()
-    diag = dict(stats=aggregate_chain_stats(res.stats), rhat_max=float(np.max(rhats)),
+    diag = dict(stats=aggregate_chain_stats(res.stats, mesh), rhat_max=float(np.max(rhats)),
                 rhat_median=float(np.median(rhats)), n_chains=n_chains)
     return res, diag
 

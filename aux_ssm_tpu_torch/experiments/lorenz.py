@@ -118,8 +118,12 @@ def main(argv=None):
     # The theta trace is small (n_samples x 3): always collected, as the JAX
     # driver does, so a run's .npz carries theta_samples.
     gen = torch.Generator(device=kw["device"]).manual_seed(args.seed + 1)
+    def kernel_for(shard, device):  # a chains mesh shard's kernel, on its device
+        moved = tuple(z.to(device) if isinstance(z, torch.Tensor) else z for z in model)
+        return lorenz.get_gibbs_kernel(*moved, chains=True)[1]
+
     res, diag = cli.run_maybe_sharded(gen, kernel, state, cfg, args, collect_samples=True,
-                                      collect_fn=lambda s: s.theta)
+                                      collect_fn=lambda s: s.theta, kernel_for=kernel_for)
     stats = diag["stats"] if diag else res.stats
 
     theta = res.state.theta.cpu().numpy()

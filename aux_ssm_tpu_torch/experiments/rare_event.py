@@ -9,8 +9,10 @@ take (M,) rho and r2 (`models/rare_event.py`), so a step of all M chains is
 one set of launches (kalman: the scalar scans in the batched scalar layout;
 csmc-guided: the lane and backward factor sweeps; csmc: the PIT tree's
 stitching kernels), and each chain's delta adapts on its own rate
-(`parallel.chains.run_sharded_chains`). `--mesh-chains` (a device mesh)
-raises NotImplementedError.
+(`parallel.chains.run_sharded_chains`). `--mesh-chains n` puts the M
+chains on a `chains` mesh of n shards (n cards, or n CPU shards under
+`--platform cpu`; n must divide M), each shard's kernel built on its own
+M/n cells.
 
     python -m aux_ssm_tpu_torch.experiments.rare_event --precision double \
         --grid-size 10 --n-chains 8 --out grid.csv --figures-dir figs
@@ -27,6 +29,7 @@ from ..kernels.csmc_base import CSMCState
 from ..kernels.kalman import KalmanSampler
 from ..models import rare_event as re_model
 from ..parallel.chains import run_sharded_chains
+from ..parallel.mesh import CHAINS, make_mesh
 from ..utils.ess import effective_sample_size, potential_scale_reduction
 from . import cli
 
@@ -92,7 +95,6 @@ def run_grid(args, *, device=None, dtype=None):
     a cell (rho, r2, err_mean_0/T, err_std_0/T, ess_0/T, rhat_0/T, acc,
     time) and the run's `RunResult` (chain axis M = grid^2 x n_chains, cell
     major)."""
-    cli.check_mesh(args)
     dtype = dtype or torch.get_default_dtype()
     G, C = args.grid_size, args.n_chains
     rho_grid, r2_grid = grid_cells(G)
@@ -110,8 +112,21 @@ def run_grid(args, *, device=None, dtype=None):
 
     kernel = make_batched_kernel(args.style, args, RHO, R2, **kw)
     cfg = cli.run_config(args, verbose=False)
+    mesh, kernel_for = None, None
+    devices = cli.mesh_devices(args)
+    if devices is not None:
+        if M % len(devices):
+            raise ValueError(f"--mesh-chains {len(devices)} does not divide the flat "
+                             f"cell-chain batch (grid^2 * n_chains = {M})")
+        mesh = make_mesh(devices=devices, axis_names=(CHAINS,))
+        n = M // len(devices)
+
+        def kernel_for(shard, dev):  # shard s's kernel: its own M/n cells, on its device
+            cells = slice(shard * n, (shard + 1) * n)
+            return make_batched_kernel(args.style, args, RHO[cells].to(dev),
+                                       R2[cells].to(dev), dtype=dtype, device=dev)
     res = run_sharded_chains(kernel, state0, cfg, generator=gen, collect_samples=True,
-                             delta_init=delta0,
+                             delta_init=delta0, mesh=mesh, kernel_for=kernel_for,
                              checkpoint_dir=getattr(args, "checkpoint_dir", None),
                              checkpoint_every=getattr(args, "checkpoint_every", 0),
                              debug_nans=getattr(args, "debug_nans", False))

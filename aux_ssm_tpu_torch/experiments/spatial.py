@@ -15,8 +15,13 @@ mean_x, var_x, ejsd, delta, xs_true, ys, sampling_time.
 The data come from `np.random.default_rng(--seed)`, the JAX driver's own
 simulation draw for draw, so `xs_true` and `ys` equal the JAX driver's for
 the same seed. The start (`init_x_fn`, seed + 1) and the chain (seed + 2)
-draw from `torch.Generator`s on the run's device. `--batch-sharded` needs
-the multi-device `parallel/batch.py`, which is not ported.
+draw from `torch.Generator`s on the run's device.
+
+`--batch-sharded [n]` (the kalman styles, one chain) puts the B components
+over a `batch` mesh (`parallel/batch.py`): every card, or n shards (n cards,
+or n CPU shards under `--platform cpu`). Each shard runs the proposal
+filters and draw of its B/n columns; the gradient factory and the target,
+which read the whole grid, run on the whole trajectory.
 """
 import numpy as np
 import torch
@@ -56,17 +61,40 @@ def build_kernel(style, ys, args):
     return (init, build(True)[1] if chains else kernel), style.startswith("csmc")
 
 
+def batch_mesh(args):
+    """The `batch` mesh of `--batch-sharded [n]`: n shards
+    (`cli.shard_devices`), or every card without n."""
+    from ..parallel.mesh import BATCH, make_mesh
+    n = args.batch_sharded
+    if n > 0:
+        return make_mesh(devices=cli.shard_devices(n, args.platform, "--batch-sharded"),
+                         axis_names=(BATCH,))
+    if args.platform == "cpu":
+        raise ValueError("--batch-sharded on the CPU needs a shard count (--batch-sharded n)")
+    return make_mesh(axis_names=(BATCH,))
+
+
+def batch_sharded(kernel, args, is_csmc):
+    """The kernel with its components over `batch_mesh(args)`; the cSMC
+    styles and several chains raise, as in the JAX driver."""
+    from ..parallel.batch import batch_sharded_kernel
+    if is_csmc:
+        raise ValueError("--batch-sharded applies to the kalman styles (batched (T, B, 1, 1) "
+                         "layout) only")
+    if getattr(args, "n_chains", 1) > 1:
+        raise ValueError("--batch-sharded and --n-chains > 1 shard different axes over the "
+                         "same devices; pick one")
+    return batch_sharded_kernel(kernel, batch_mesh(args))
+
+
 def main(argv=None):
     p = cli.base_parser("Spatio-temporal Student-t experiment")
     p.add_argument("--T", type=int, default=1024)
     p.add_argument("--D", type=int, default=8, help="grid side; state dim = D^2")
-    p.add_argument("--batch-sharded", action="store_true",
-                   help="shard the B = D^2 component axis over all devices "
+    p.add_argument("--batch-sharded", type=int, nargs="?", const=-1, default=0,
+                   help="shard the B = D^2 component axis over every card, or over n shards "
                         "(kalman styles only)")
     args = p.parse_args(argv)
-    if args.batch_sharded:
-        raise NotImplementedError("--batch-sharded: sharding the component axis over devices "
-                                  "is not ported (it needs parallel/batch.py)")
     backend = cli.apply_backend(args)
     device = backend.device
 
@@ -78,14 +106,17 @@ def main(argv=None):
                       generator=torch.Generator(device=device).manual_seed(args.seed + 1))
 
     (init, kernel), is_csmc = build_kernel(args.style, ys, args)
+    if args.batch_sharded:
+        kernel = batch_sharded(kernel, args, is_csmc)
     state = init(x0)
 
     delta0 = args.delta_init * (torch.ones(args.T, dtype=ys.dtype, device=device)
                                 if is_csmc else 1.0)
     cfg = cli.run_config(args)
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)
-    res, diag = cli.run_maybe_sharded(gen, kernel, state, cfg, args, collect_samples=False,
-                                      delta_init=delta0)
+    res, diag = cli.run_maybe_sharded(
+        gen, kernel, state, cfg, args, collect_samples=False, delta_init=delta0,
+        kernel_for=lambda shard, dev: build_kernel(args.style, ys.to(dev), args)[0][1])
     stats = diag["stats"] if diag else res.stats
 
     print(f"style={args.style} T={args.T} D={args.D} (d={args.D ** 2}): "

@@ -79,8 +79,9 @@ def main(argv=None):
                                 if is_csmc else 1.0)
     cfg = cfg_x.run
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)
-    res, diag = cli.run_maybe_sharded(gen, kernel, state, cfg, args, collect_samples=True,
-                                      delta_init=delta0)
+    res, diag = cli.run_maybe_sharded(
+        gen, kernel, state, cfg, args, collect_samples=True, delta_init=delta0,
+        kernel_for=lambda shard, dev: build_kernel(args.style, ys.to(dev), args)[1])
     stats = diag["stats"] if diag else res.stats
     # Several chains: the coordinates pool each chain's samples.
     samples = res.samples.reshape(-1, *res.samples.shape[-2:]) if diag else res.samples

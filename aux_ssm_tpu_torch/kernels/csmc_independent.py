@@ -31,17 +31,24 @@ _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 def get_kernel(M0, G0, Mt, Gt, N, backward=False, Pt=None, gradient=False, parallel=False,
-               resampling="multinomial", stitch="auto", draws="joint"):
+               resampling="multinomial", stitch="auto", draws="joint", block_max="row",
+               mesh=None, mesh_axis=None):
     """Auxiliary PG kernel with independent per-step proposals; returns
     (init, kernel) with `kernel(state, delta, generator=None, noise=None)`;
     delta a scalar or a (T,) vector. `parallel=False`: the sequential sweep
     (see `csmc_aux.get_kernel` for its noise). `parallel=True`: the PIT
-    cSMC (`_pit_path`; `stitch` forces its stitching route and `draws` picks
-    the blocked route's draws, see `kernels/pit.py`; `backward`, `Pt` and
-    `resampling` do not apply)."""
-    pit.check_routes(stitch, draws)
+    cSMC (`_pit_path`; `stitch` forces its stitching route, `draws` picks
+    the blocked route's draws and `block_max` block_masses' stabiliser, see
+    `kernels/pit.py`; `backward`, `Pt` and `resampling` do not apply). With
+    `mesh`, one chain's PIT step over `mesh[mesh_axis]`
+    (`kernels/pit_sharded.py`): "particles" splits each level's block
+    masses, "time" the tree."""
+    pit.check_routes(stitch, draws, block_max)
     if parallel:
-        return _pit_path(M0, G0, Mt, Gt, N, gradient, stitch, draws)
+        return _pit_path(M0, G0, Mt, Gt, N, gradient, stitch, draws, block_max, mesh,
+                         mesh_axis)
+    if mesh is not None:
+        raise ValueError("a mesh applies to the parallel-in-time path (parallel=True)")
     return _sequential_path(M0, G0, Mt, Gt, N, backward, Pt, gradient, resampling)
 
 
@@ -80,7 +87,8 @@ def _sequential_path(M0, G0, Mt, Gt, N, backward, Pt, gradient, resampling):
     return get_aux_kernel(factory, N, backward, Pt, resampling)
 
 
-def _pit_path(M0, G0, Mt, Gt, N, gradient, stitch, draws):
+def _pit_path(M0, G0, Mt, Gt, N, gradient, stitch, draws, block_max="row", mesh=None,
+              mesh_axis=None):
     """Parallel-in-time execution: the proposals N(u_t + shift_t, s_t^2 I) are
     one time-batched distribution; the gradient correction enters through
     the importance distribution Qt = N(u, s^2 I), not the potentials.
@@ -109,7 +117,19 @@ def _pit_path(M0, G0, Mt, Gt, N, gradient, stitch, draws):
                         params=(Mt.params, Gt.params, (torch.zeros_like(u[..., 1:, :]),
                                                        torch.zeros_like(u[..., 1:, :]),
                                                        torch.ones_like(scale[..., 1:]))))
-        _, pit_kernel = pit.get_kernel(proposals, g0, gt, N, qt, stitch=stitch, draws=draws)
+        if mesh is None:
+            _, pit_kernel = pit.get_kernel(proposals, g0, gt, N, qt, stitch=stitch, draws=draws,
+                                           block_max=block_max)
+        else:
+            from . import pit_sharded
+            from ..parallel.mesh import PARTICLES
+            if mesh_axis == PARTICLES:
+                _, pit_kernel = pit_sharded.get_particle_sharded_kernel(
+                    proposals, g0, gt, N, mesh, qt, draws=draws, stitch=stitch,
+                    block_max=block_max)
+            else:
+                _, pit_kernel = pit_sharded.get_sharded_kernel(proposals, g0, gt, N, mesh, qt,
+                                                               mesh_axis, stitch, draws)
         return pit_kernel(state, noise=(eps, levels, root))
 
     def init(x):

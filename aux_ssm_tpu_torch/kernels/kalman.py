@@ -33,7 +33,7 @@ class KalmanSampler(SamplerState):
 
 
 def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parallel,
-               chains=False, group=1):
+               chains=False, group=1, mesh=None, axis="batch"):
     """Build the auxiliary Kalman sampler.
 
     Parameters
@@ -70,6 +70,12 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
         group)`), the proposal densities and the MH correction are summed
         over each chain's columns, and `log_likelihood_fn` gives one value
         a chain (C,).
+    mesh, axis : optional
+        With `chains`, the batched layout's columns over `mesh[axis]`
+        (`parallel/batch.py`): the factories and the target run on the
+        whole trajectory, each shard's proposal filters, draw and density
+        on its columns. `kernel.batch_sharded(mesh, axis)` builds this
+        kernel so (`parallel.batch.batch_sharded_kernel`).
 
     Returns
     -------
@@ -87,6 +93,9 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
         """One value a chain from one a column."""
         return z.reshape(-1, group).sum(-1) if group > 1 else z
 
+    if mesh is not None and not chains:
+        raise ValueError("a batch mesh needs the batched layout of `chains`")
+
     def propose(delta, eps, u, x, x_eval=None, log_target=None):
         """Build the proposal LGSSM at x; sample from it unless `x_eval` is
         given (reverse-move density evaluation). Returns the proposal logpdf,
@@ -95,10 +104,15 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
         m0, P0, Fs, Qs, bs = dynamics_factory(x)[:5]
         ys, Hs, Rs, cs = observations_factory(x, u, delta)[:4]
         lgssm = LGSSM(m0, P0, Fs, Qs, bs, Hs, Rs, cs)
-        ms, Ps, ell = filtering(ys, lgssm, parallel, keep_batch=chains)
-        if x_eval is None:
-            x_eval = sampling(eps, ms, Ps, lgssm, parallel)
-        log_prop = per_chain(posterior_logpdf(ys, x_eval, ell, lgssm, keep_batch=chains))
+        if mesh is not None:
+            from ..parallel.batch import sharded_proposal
+            log_cols, x_eval = sharded_proposal(mesh, ys, lgssm, eps, x_eval, parallel, axis)
+            log_prop = per_chain(log_cols)
+        else:
+            ms, Ps, ell = filtering(ys, lgssm, parallel, keep_batch=chains)
+            if x_eval is None:
+                x_eval = sampling(eps, ms, Ps, lgssm, parallel)
+            log_prop = per_chain(posterior_logpdf(ys, x_eval, ell, lgssm, keep_batch=chains))
         if log_target is None:
             log_target = log_likelihood_fn(x_eval)
         return log_prop, log_target, x_eval
@@ -132,6 +146,12 @@ def get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parall
                                                      dtype=torch.bool, device=x.device),
                              log_target=log_likelihood_fn(x))
 
+    def batch_sharded(mesh, axis="batch"):
+        return get_kernel(dynamics_factory, observations_factory, log_likelihood_fn, parallel,
+                          chains, group, mesh, axis)[1]
+
+    if chains:
+        kernel.batch_sharded = batch_sharded
     return init, kernel
 
 
@@ -176,6 +196,9 @@ def chain_major(init, kernel, group=None):
         return dataclasses.replace(state, x=outward(state.x))
 
     chained_kernel.chain_axis = True
+    if hasattr(kernel, "batch_sharded"):
+        chained_kernel.batch_sharded = lambda mesh, axis="batch": chain_major(
+            init, kernel.batch_sharded(mesh, axis), group)[1]
     return chained_init, chained_kernel
 
 
@@ -204,6 +227,9 @@ def one_chain(init, kernel):
             noise = tuple(torch.as_tensor(z)[None] for z in noise)
         return first(kernel(unit(state), delta, generator=generator, noise=noise))
 
+    if hasattr(kernel, "batch_sharded"):
+        one_kernel.batch_sharded = lambda mesh, axis="batch": one_chain(
+            init, kernel.batch_sharded(mesh, axis))[1]
     return one_init, one_kernel
 
 

@@ -25,7 +25,13 @@ package's `AUX_SSM_STITCH`). On the blocked route `draws` picks the draws
 (row, block) inverse-CDF draw in plain PyTorch and the within-block columns
 by the within_block_cols kernel; or "fused", every row and column by the
 stitch_draws kernel. The two map the uniforms to other indices under the
-same law. Other potentials take the generic nested (N, N) weights.
+same law. `block_max` picks block_masses' stabiliser (the JAX package's
+`AUX_SSM_BLOCK_MAX`): "row", each row's max (default), or "block", each
+128-column block's own, so that a block's mass depends on its columns
+only: the particle-sharded kernel (`kernels/pit_sharded.py`) computes each
+shard's blocks so, and this route with `stitch="blocked", block_max="block"`
+is its one-device twin, bit for bit. Other potentials take the generic
+nested (N, N) weights.
 
 Random numbers come as `noise`, one entry a tree level: `(u_rows (n_act,
 N), seed)` for each level below the root (the row draws' uniforms and the
@@ -62,6 +68,7 @@ _MAX_BLOCKED_N = 8192
 _INT32_MAX = 2 ** 31 - 1
 STITCH_ROUTES = ("auto", "blocked", "2pass")
 DRAWS_MODES = ("joint", "fused")
+BLOCK_MAX = ("row", "block")
 
 
 # --------------------------------------------------------------------------
@@ -224,16 +231,18 @@ def draw_noise(T, N, like, generator=None, chains=None):
     return levels, (torch.rand(*lead, 1, **kw), torch.rand(*lead, 1, **kw))
 
 
-def check_routes(stitch, draws):
-    """Raise ValueError on a stitching route or draws mode the tree does not
-    know."""
+def check_routes(stitch, draws, block_max="row"):
+    """Raise ValueError on a stitching route, draws mode or block stabiliser
+    the tree does not know."""
+    if block_max not in BLOCK_MAX:
+        raise ValueError(f"block_max must be one of {BLOCK_MAX}, got {block_max!r}")
     if stitch not in STITCH_ROUTES:
         raise ValueError(f"stitch must be one of {STITCH_ROUTES}, got {stitch!r}")
     if draws not in DRAWS_MODES:
         raise ValueError(f"draws must be one of {DRAWS_MODES}, got {draws!r}")
 
 
-def get_kernel(Mt, G0, Gt, N, Qt=None, stitch="auto", draws="joint"):
+def get_kernel(Mt, G0, Gt, N, Qt=None, stitch="auto", draws="joint", block_max="row"):
     """PIT-cSMC kernel over independent per-time proposals.
 
     Targets prod_t Mt[t](x_t) G0(x_0) prod Gt, or with `Qt` the Qt-weighted
@@ -243,16 +252,16 @@ def get_kernel(Mt, G0, Gt, N, Qt=None, stitch="auto", draws="joint"):
 
     Returns (init, kernel) with `kernel(state, generator=None, noise=None)
     -> CSMCState`; `noise = (eps (T, N, d), levels, root)` (module
-    docstring), drawn from `generator` when not given. `stitch` and `draws`:
-    the module docstring."""
-    check_routes(stitch, draws)
+    docstring), drawn from `generator` when not given. `stitch`, `draws` and
+    `block_max`: the module docstring."""
+    check_routes(stitch, draws, block_max)
 
     def kernel(state, generator=None, noise=None):
         x = state.x
         if noise is None:
             noise = (torch.randn(x.shape[0], N, x.shape[1], generator=generator, dtype=x.dtype,
                                  device=x.device),) + draw_noise(x.shape[0], N, x, generator)
-        x_new, picked = _pit_csmc(x, Mt, G0, Gt, N, Qt, noise, stitch, draws)
+        x_new, picked = _pit_csmc(x, Mt, G0, Gt, N, Qt, noise, stitch, draws, block_max)
         return CSMCState(x=x_new, updated=picked != 0)
 
     def init(x_star):
@@ -276,13 +285,9 @@ def _shifted_params(params, chains=False):
     return tree_map(shift, params)
 
 
-def _pit_csmc(x_star, Mt, G0, Gt, N, Qt, noise, stitch="auto", draws="joint"):
-    """Index-composition PIT engine: propose all T x N particles, run the
-    stitching tree on boundary values, resolve the genealogy, gather once.
-    Returns (x (T, d), picked (T,)), each with x_star's chain axis (if any)
-    in front."""
-    eps, levels, root = noise
-    T = x_star.shape[-2]
+def proposals(x_star, Mt, G0, Qt, eps):
+    """Every step's N proposals (T, N, d), particle 0 pinned to x_star, and
+    their normalised initial log weights (T, N)."""
     xs = Mt.sample_from_noise(eps)
     xs[..., 0, :] = x_star
     if Qt is not None:
@@ -290,20 +295,34 @@ def _pit_csmc(x_star, Mt, G0, Gt, N, Qt, noise, stitch="auto", draws="joint"):
     else:
         log_wts = xs.new_zeros(xs.shape[:-1])
     log_wts[..., 0, :] = log_wts[..., 0, :] + G0(xs[..., 0, :, :])
-    log_wts = log_wts - torch.logsumexp(log_wts, -1, keepdim=True)
+    return xs, log_wts - torch.logsumexp(log_wts, -1, keepdim=True)
+
+
+def _pit_csmc(x_star, Mt, G0, Gt, N, Qt, noise, stitch="auto", draws="joint", block_max="row",
+              score_mesh=None, score_axis=None):
+    """Index-composition PIT engine: propose all T x N particles, run the
+    stitching tree on boundary values, resolve the genealogy, gather once.
+    Returns (x (T, d), picked (T,)), each with x_star's chain axis (if any)
+    in front. `score_mesh`: the particle-sharded block-mass pass
+    (`_fused_node_draw`)."""
+    eps, levels, root = noise
+    T = x_star.shape[-2]
+    xs, log_wts = proposals(x_star, Mt, G0, Qt, eps)
 
     if T == 1:
         j = categorical_from_uniforms(log_wts[..., 0, :], root[0].reshape(*x_star.shape[:-2], 1))
         return _take_steps(xs, j), j
 
     noise = list(levels) + [root]
+    route = dict(stitch=stitch, draws=draws, block_max=block_max, score_mesh=score_mesh,
+                 score_axis=score_axis)
     if x_star.dim() == 2:
         sels, root_pair = run_stitch_tree(xs, xs, log_wts, noise, _shifted_params(Gt.params),
-                                          Gt, N, include_root=True, stitch=stitch, draws=draws)
+                                          Gt, N, include_root=True, **route)
         idx = resolve_genealogy(sels, _root_init(root_pair, T, N), T, N)
     else:
         sels, root_pair = _stitch_tree(xs, xs, log_wts, noise, _shifted_params(Gt.params, True),
-                                       Gt, N, include_root=True, stitch=stitch, draws=draws)
+                                       Gt, N, include_root=True, **route)
         idx = _resolve(sels, _root_rows(root_pair, T), T, N)
     return _take_steps(xs, idx), idx
 
@@ -314,9 +333,13 @@ def _take_steps(xs, idx):
     return torch.gather(xs, -2, index)[..., 0, :]
 
 
-def _fresh_weights(log_wts, steps, consumed, n_act, N):
+def _fresh_weights(log_wts, steps, consumed, n_act, N, like):
     """The initial weights (C, n_act, N) of the level's boundary `steps` (a
-    slice) that have not served as a boundary yet, 0 for the others."""
+    slice) that have not served as a boundary yet, 0 for the others (all 0
+    where `log_wts` is None: uniform weights, shaped and placed as
+    `like`)."""
+    if log_wts is None:
+        return like.new_zeros(like.shape[0], n_act, N)
     fresh = ~consumed[steps]
     if fresh.all():
         return log_wts[:, steps]
@@ -327,15 +350,19 @@ def _fresh_weights(log_wts, steps, consumed, n_act, N):
 
 
 def run_stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, include_root,
-                    stitch="auto", draws="joint", pair_offset=0):
+                    stitch="auto", draws="joint", pair_offset=0, block_max="row",
+                    score_mesh=None, score_axis=None, return_bounds=False):
     """Run the stitching levels over S steps, recording each level's draws.
 
     left_vals / right_vals (S, N, d): the particle sets serving as a node's
     left / right boundary values (both the proposals in the one-device
-    tree). log_wts (S, N): initial importance weights.
+    tree; the chunks' boundary sets in the time-sharded kernel's upper
+    tree). log_wts (S, N): initial importance weights, or None for uniform.
     noise: one entry a level (the module docstring). params: the
     right-shifted Gt params. include_root: one unconditional pair at the top
-    level instead of N.
+    level instead of N. pair_offset: the first node's index in its level's
+    pair counters (an int, or one a level): a tree over a slice of a
+    level's nodes then draws what the whole level's tree draws there.
 
     Boundary values are carried forward per node (x_first / x_last, one
     gather per drawn selection). A step's weights enter the pair weights at
@@ -344,29 +371,37 @@ def run_stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, includ
     weights are uniform.
 
     Returns (sels, root): `sels` a list over the recorded levels of (L, R,
-    n_act) with L / R (n_act, N) int64, `root` the (l*, r*) pair (or None).
-    One chain of the tree that `_stitch_tree` runs over a chain axis.
+    n_act) with L / R (n_act, N) int64, `root` the (l*, r*) pair (or None);
+    with `return_bounds` also (x_first, x_last), the top node's first- and
+    last-step particle values (N, d) each. One chain of the tree that
+    `_stitch_tree` runs over a chain axis.
     """
     def one(z):
-        return z[None]
+        return None if z is None else z[None]
 
     noise = [(u[None], seed.reshape(1)) if i < len(noise) - 1 or not include_root
              else tuple(z.reshape(1, -1) for z in (u, seed))
              for i, (u, seed) in enumerate(noise)]
-    sels, root = _stitch_tree(one(left_vals), one(right_vals), one(log_wts), noise,
-                              tree_map(one, params), Gt, N, include_root, stitch, draws,
-                              pair_offset)
-    return [(L[0], R[0], n) for L, R, n in sels], root
+    sels, root, bounds = _stitch_tree(one(left_vals), one(right_vals), one(log_wts), noise,
+                                      tree_map(one, params), Gt, N, include_root, stitch, draws,
+                                      pair_offset, block_max, score_mesh, score_axis,
+                                      return_bounds=True)
+    sels = [(L[0], R[0], n) for L, R, n in sels]
+    if return_bounds:
+        return sels, root, tuple(z[0] for z in bounds)
+    return sels, root
 
 
 def _stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, include_root,
-                 stitch="auto", draws="joint", pair_offset=0):
+                 stitch="auto", draws="joint", pair_offset=0, block_max="row", score_mesh=None,
+                 score_axis=None, return_bounds=False):
     """`run_stitch_tree` over a leading chain axis of C: left_vals /
     right_vals (C, S, N, d), log_wts (C, S, N), params (C, S, ...) (or (1,
     S, ...), every chain's), the
     noise as the module docstring's chain layout. A level's C * n_act nodes
     are drawn as one batch of pairs. Returns `sels` of (L, R, n_act), L / R
-    (C, n_act, N), and `root` (l*, r*), each (C,)."""
+    (C, n_act, N), and `root` (l*, r*), each (C,); with `return_bounds` also
+    the top node's (x_first, x_last), (C, N, d) each."""
     C, S = left_vals.shape[:2]
     # Params every chain shares come with a unit chain axis: a view of C.
     params = tree_map(lambda z: z.expand(C, *z.shape[1:]), params)
@@ -384,8 +419,8 @@ def _stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, include_r
         xf_even, xf_odd = x_first[:, 0::2], x_first[:, 1::2]
         xl_even, xl_odd = x_last[:, 0::2], x_last[:, 1::2]
         xl, xr = xl_even[:, :n_act], xf_odd[:, :n_act]
-        lw_l = _fresh_weights(log_wts, lefts, consumed, n_act, N)
-        lw_r = _fresh_weights(log_wts, rights, consumed, n_act, N)
+        lw_l = _fresh_weights(log_wts, lefts, consumed, n_act, N, xl[..., 0])
+        lw_r = _fresh_weights(log_wts, rights, consumed, n_act, N, xl[..., 0])
         consumed[lefts] = consumed[rights] = True
         last = include_root and k == K - 1
 
@@ -399,8 +434,11 @@ def _stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, include_r
         level = noise[k] if last else (fold(noise[k][0]), noise[k][1])
         new_first = new_last = None
         if fused:
+            off = pair_offset[k] if isinstance(pair_offset, (list, tuple)) else pair_offset
             out = _fused_node_draw(fold(xl), fold(xr), fold(lw_l), fold(lw_r), params_r, Gt, N,
-                                   last, level, stitch, draws, pair_offset=pair_offset,
+                                   last, level, stitch, draws, pair_offset=off,
+                                   block_max=block_max, score_mesh=score_mesh,
+                                   score_axis=score_axis,
                                    row_payload=None if last else fold(xf_even[:, :n_act]),
                                    col_payload=None if last else fold(xl_odd[:, :n_act]),
                                    chains=C)
@@ -424,6 +462,8 @@ def _stitch_tree(left_vals, right_vals, log_wts, noise, params, Gt, N, include_r
             x_first = torch.cat([new_first, xf_even[:, n_act:]], 1)
             x_last = torch.cat([new_last, xl_even[:, n_act:] if n_nodes % 2
                                 else xl_odd[:, n_act:]], 1)
+    if return_bounds:
+        return sels, root, (x_first[:, 0], x_last[:, 0])
     return sels, root
 
 
@@ -493,7 +533,7 @@ def _use_blocked_stitch(N, stitch):
 
 def _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise, stitch="auto",
                      draws="joint", pair_offset=0, row_payload=None, col_payload=None,
-                     chains=None):
+                     chains=None, block_max="row", score_mesh=None, score_axis=None):
     """The factorised draw for one level's nodes. xl / xr (n_act, N, d): the
     left child's last-step and the right child's first-step particles; lw_l /
     lw_r (n_act, N) their fresh weights. Returns (rows, cols), each (n_act, N)
@@ -502,12 +542,14 @@ def _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise, stitch="a
     (0, 0), payloads to index 0's values. `draws` applies on the blocked
     route only. With `chains` C, the nodes are C chains' n_act nodes each,
     chain after chain, and the level's seed is (C,): one a chain, on either
-    route."""
+    route. With `score_mesh`, the blocked route (forced below the root at
+    any N) computes the block masses column-sharded over
+    `score_mesh[score_axis]` (`sharded_block_masses`)."""
     rf, cf, rb, cb = Gt.pairwise_factors(xl, xr, params_r)
     rb = rb + lw_l
     cb = (cb + lw_r).contiguous()
     rf, cf = rf.contiguous(), cf.contiguous()
-    blocked = _use_blocked_stitch(N, stitch) and not last
+    blocked = (_use_blocked_stitch(N, stitch) or score_mesh is not None) and not last
 
     if last:
         u_row, u_col = noise
@@ -518,8 +560,10 @@ def _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise, stitch="a
         return row, categorical_from_uniforms(s, u_col.reshape(-1, 1))
 
     u_rows, seed = noise
-    if blocked:
-        Lb = kernels.block_masses(rf, cf, cb)
+    if blocked and score_mesh is not None:
+        Lb = sharded_block_masses(score_mesh, score_axis, rf, cf, cb)
+    elif blocked:
+        Lb = kernels.block_masses(rf, cf, cb, per_block_max=block_max == "block")
     if blocked and draws == "joint":
         if row_payload is None:
             rows, blocks, rf_sel = st.joint_rowblock_draws(u_rows, rb, Lb, row_feat=rf)
@@ -548,6 +592,24 @@ def _fused_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise, stitch="a
     if row_payload is None:
         return rows, cols
     return rows, cols, take_rows(row_payload, rows), take_rows(col_payload, cols)
+
+
+def sharded_block_masses(mesh, axis, rf, cf, cb):
+    """The block log-masses (P, n, N / 128) with the columns over
+    `mesh[axis]`: each shard runs the block_masses kernel on every row and
+    its own N/S columns, each block about its own max (`per_block_max`), and
+    the masses are all-gathered along the block axis in shard order. A
+    block's mass depends on its columns only, so this is bit-equal to the
+    one-device pass with per-block maxima. N/S must be a multiple of 128."""
+    from ..parallel import collectives as col
+    S, N = mesh.shape[axis], cf.shape[1]
+    if N % (st._COL_BLOCK * S):
+        raise ValueError(f"particle-sharded stitching needs N/S a multiple of 128 "
+                         f"(N={N}, S={S})")
+    cfs, cbs = col.split(mesh, cf, 1, axis), col.split(mesh, cb, 1, axis)
+    parts = [kernels.block_masses(rf.to(c.device), c, b, per_block_max=True)
+             for c, b in zip(cfs, cbs)]
+    return col.gather(mesh, parts, 2, axis).to(rf.device)
 
 
 def _generic_node_draw(xl, xr, lw_l, lw_r, params_r, Gt, N, last, noise):

@@ -330,7 +330,37 @@ column draws, and the shapes past the kernels' instances:
      shared scratch). Then that sweep on a real csmc-guided-grad step's
      inputs at T=1024, d=81, N=25 against its plain version as phase 13
      holds it at d = 64 (f32 step by step, f64 identical ancestors), timed,
-     its entry inside the block-lane entry's `functors`.
+     its entry inside the block-lane entry's `functors`;
+ 35. (after phase 31) the multi-device layer (`aux_ssm_tpu_torch/parallel/`,
+     `kernels/{csmc_sharded,pit_sharded}.py`) on meshes of MESH_SHARDS
+     shards over the cards there are (one card: all four shards on it; the
+     phase's first line names them), f32: the particle-sharded PIT step
+     (SV D=1, T=1024, N=4096: 1024 columns a shard) under both draws, x
+     and `updated` bit-equal to the one-device blocked step with per-block
+     maxima, block_masses launched MESH_SHARDS times a level; the per-shard
+     block_masses launch (P=512, 4096 rows, 1024 columns, k=1, per-block
+     max) against its plain version in f32 and f64, its device time beside
+     the full-width launch's; the time-sharded PIT step (C=4, Tc=256) in
+     f64, `updated` identical, x within MESH_PIT_X_ATOL (f32 timed, its
+     share of equal picks logged: its chunks' launches have a quarter of the
+     nodes, and the plans and cuBLAS's choices that follow the node count
+     round f32 otherwise); the time-sharded filter
+     and affine scans of the flagship step's elements (T=1024, dx=16, f32
+     and f64) against the one-device scan kernels (MESH_SCAN_NREL); SV
+     kalman-1 (T=250, D=30) at C=32 through `cli.run_maybe_sharded` with
+     a device list, one shard bit-equal to the run without a mesh and each
+     of four shards bit-equal to a batched run of its 8 chains with its
+     shard generator; batch-sharded spatial kalman-1 steps (T=1024, 8x8)
+     against the unsharded step on the same noise, one accepted whatever the
+     ratio (the proposals compared) and one drawn (the same accept, x within
+     MESH_BATCH_NREL); then `dryrun_multichip` in one process a card
+     over NCCL, 2 shards each, every check held in every process and the
+     particle-sharded step equal to the one-process run's. Each sharded
+     path's time beside the one-device path's; the process group's set-up
+     and the first NCCL collective timed. Its sharded runs' launches are
+     added to the kernels' counts (the chains mesh's to the chain-instance
+     entries), and the per-shard block_masses numbers sit in block_masses'
+     entry as `per_shard`.
 To make room, phase 3 runs 100 steps (200 before), phase 10 300 + 1000
 iterations (300 + 2000 before), phase 11 is cut for phase 29 (its chains
 ran 500 + 1200 a bounded cell, 300 + 400 the hardest), phase 15's
@@ -350,7 +380,7 @@ N=4096 chains 100 + 200 (100 + 300 before). For phases 33-34, phase 10's
 one-chain run is cut to 300 + 600 (300 + 1000 before), phase 18's N=4096
 one-chain chains become the C = 4 batched runs (with a C = 1 count run and
 a short chain loop beside them), phase 28 draws 256 a sampler (512
-before), and phase 34 drops its d = 64 step (phases 13-14 hold that
+before; for phase 35, 128), and phase 34 drops its d = 64 step (phases 13-14 hold that
 width); phase 29's grid stays at 300 + 600 (at 200 + 400 a csmc-guided
 gradient cell's x_T spread missed its bound at 7.1 standard errors, ESS
 131). The
@@ -358,7 +388,9 @@ whole takes 383-605 s with the build on an H100, as fast as the host is
 (with phase 29: 403-491 s; with phases 30-31: 442-603 s, then 445.5 s after
 the last cuts of phases 15 and 19; with phases 33-34 596.0 s on a host that
 ran one theta-logistic chain at half the usual samples/s, before the last
-cuts of phases 26 and 28); phase 33 ~16 s, phases 20-22 take ~30 s, phases 23-25
+cuts of phases 26 and 28; with phase 35 470.5 s from a `git archive` on
+a host whose phases 0-7 took 109.5 s, 601.5 s on a slow one); phase 35
+~28 s, phase 33 ~16 s, phases 20-22 take ~30 s, phases 23-25
 ~26 s, phases 26-28 27-55 s, phase 29 50-110 s, phase 30 ~12 s, phase 31
 ~21-31 s, the build ~43-56 s.
 Each kernel's entry of the JSON summary carries its bound: the least time the
@@ -3077,7 +3109,7 @@ SV_DRIVER_EVERY = 50               # checkpoint period: burn-in 50, ..., 300, sa
 SV_KEYS = {"samples_mean", "samples_std", "ejsd", "delta", "xs_true", "ys", "sampling_time"}
 SP_KEYS = {"mean_x", "var_x", "ejsd", "delta", "xs_true", "ys", "sampling_time"}
 DNC_Z_MAX = 6.0                    # |z| of the D&C draws' moments against the scan sampler's
-DNC_DRAWS = 256
+DNC_DRAWS = 128
 
 
 class Killed(RuntimeError):
@@ -4684,6 +4716,347 @@ def phase_wide_routes(dev):
                             seen[f64], reps=10, ops_per_particle=4 * nnz + 40 * d)
 
 
+MESH_SHARDS = 4                 # shards of each phase-35 mesh, over the cards there are
+MESH_CHAINS = 32                # SV kalman-1 chains on the chains mesh (T=250, D=30)
+MESH_SCHEDULE = (2, 3)          # their burn-in + sampling iterations
+MESH_PIT_X_ATOL = 1e-6          # time-sharded PIT x against the one-device kernel's (f64)
+MESH_SCAN_NREL = {"float32": 1e-5, "float64": 1e-12}  # time scans vs one-device scans
+MESH_BATCH_NREL = 1e-5          # batch-sharded spatial step's x vs the unsharded one (f32)
+MESH_BATCH_DELTA = 1e-3         # its delta
+MESH_PROC_TIMEOUT = 300         # seconds each process of the multi-process run may take
+
+
+def mesh_devices():
+    """MESH_SHARDS shards over the cards there are, card by card."""
+    import torch
+    n = torch.cuda.device_count()
+    return [f"cuda:{i % n}" for i in range(MESH_SHARDS)]
+
+
+def mesh_launches(fn):
+    """(fn(), the kernel launches of fn(), by wrapper)."""
+    import torch
+    from aux_ssm_tpu_torch.ops import cuda as K
+    K.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in K.launches().items() if v}
+
+
+def add_launches(into, got):
+    for name, count in got.items():
+        into[name] = into.get(name, 0) + count
+
+
+def same_state(label, a, b, x_atol=0.0):
+    import torch
+    if not torch.equal(a.updated, b.updated):
+        raise AssertionError(f"{label}: `updated` differs from the one-device kernel's")
+    gap = float((a.x - b.x).abs().max())
+    if gap > x_atol:
+        raise AssertionError(f"{label}: x differs by {gap:.3g} (> {x_atol:g})")
+    return gap
+
+
+def mesh_pit(dev, devices, card, launches):
+    """Phase 35's PIT part: the SV model at D=1, T=PIT_T, N=PIT_N (phase
+    18's), f32. The particle-sharded step under both draws, bit-equal to the
+    one-device blocked step with per-block maxima, block_masses launched
+    MESH_SHARDS times a level; the per-shard block_masses launch against its
+    plain version, its device time beside the full-width launch's; the
+    time-sharded step (C = MESH_SHARDS): `updated` identical, x within
+    MESH_PIT_X_ATOL. Returns the per-shard block_masses entry."""
+    import torch
+    from aux_ssm_tpu_torch.kernels import csmc_independent as ind
+    from aux_ssm_tpu_torch.kernels import pit
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    from aux_ssm_tpu_torch.ops import stitching as plain
+    from aux_ssm_tpu_torch.ops.cuda import stitching as KS
+    from aux_ssm_tpu_torch.parallel.mesh import PARTICLES, make_mesh
+    from aux_ssm_tpu_torch.parallel.time_scan import TIME
+    f32 = torch.float32
+    xs, ys = pit_big_data(dev, f32)
+    fk = sv.get_feynman_kac(ys, *SV_PARAMS)
+    gen = torch.Generator(device=dev).manual_seed(35)
+    noise = ((torch.randn(PIT_T, 1, generator=gen, device=dev),
+              torch.randn(PIT_T, PIT_N, 1, generator=gen, device=dev))
+             + pit.draw_noise(PIT_T, PIT_N, xs, gen))
+    below = len(pit.level_sizes(PIT_T)) - 1
+    pmesh = make_mesh(devices=devices, axis_names=(PARTICLES,))
+    for draws in ("joint", "fused"):
+        init1, one = ind.get_kernel(*fk, PIT_N, parallel=True, stitch="blocked", draws=draws,
+                                    block_max="block")
+        init_s, shard = ind.get_kernel(*fk, PIT_N, parallel=True, draws=draws, mesh=pmesh,
+                                       mesh_axis=PARTICLES)
+        b, got = mesh_launches(lambda: shard(init_s(xs), PIT_DELTA, noise=noise))
+        a = one(init1(xs), PIT_DELTA, noise=noise)
+        same_state(f"particle-sharded PIT ({draws})", a, b)
+        draw = "stitch_draws" if draws == "fused" else "within_block_cols"
+        want = {"block_masses": MESH_SHARDS * below, draw: below, "row_lse": 1}
+        if got != want:
+            raise AssertionError(f"particle-sharded PIT ({draws}): launches {got}, expected {want}")
+        add_launches(launches, got)
+        ms = cuda_ms(lambda: shard(init_s(xs), PIT_DELTA, noise=noise), 3)
+        ms1 = cuda_ms(lambda: one(init1(xs), PIT_DELTA, noise=noise), 3)
+        log(f"  particle-sharded PIT, SV D=1 T={PIT_T} N={PIT_N}, {draws} draws, S={MESH_SHARDS}: "
+            f"x and updated bit-equal to the one-device blocked step with per-block maxima "
+            f"({int(a.updated.sum())} of {PIT_T} moved); launches {got}; step {ms:.3f} ms, "
+            f"one device {ms1:.3f} ms, on {card}")
+
+    # The per-shard block_masses launch, on level 0's inputs of a real step.
+    with recording_stitching() as seen:
+        one(init1(xs), PIT_DELTA, noise=noise)
+    rf, cf, cb = seen["block_masses"][0][0][:3]
+    n_cols = PIT_N // MESH_SHARDS
+    shard_args = (rf, cf[:, :n_cols].contiguous(), cb[:, :n_cols].contiguous())
+    entry = {}
+    for dt in (f32, torch.float64):
+        args = tuple(z.to(dt) for z in shard_args)
+        err = nrel(KS.block_masses(*args, per_block_max=True),
+                   plain.block_masses(*args, per_block_max=True))
+        bound_ = NREL_F32 if dt == f32 else NREL_F64
+        if not err <= bound_:
+            raise AssertionError(f"block_masses per shard ({dt}): nrel {err:.3g} > {bound_:g}")
+        entry[f"nrel_{str(dt)[6:]}"] = err
+    P, n, k = rf.shape
+    entry.update(shape=f"P={P}, rows={n}, columns={n_cols}, k={k}, per_block_max",
+                 ms=device_ms(lambda: KS.block_masses(*shard_args, per_block_max=True), 10),
+                 full_width_ms=device_ms(lambda: KS.block_masses(rf, cf, cb, per_block_max=True),
+                                         10),
+                 plain_ms=cuda_ms(lambda: plain.block_masses(*shard_args, per_block_max=True),
+                                  3))
+    log(f"  block_masses per shard ({entry['shape']}): nrel f32 {entry['nrel_float32']:.3g}, "
+        f"f64 {entry['nrel_float64']:.3g} against its plain version; device "
+        f"{entry['ms']:.4f} ms a shard, {entry['full_width_ms']:.4f} ms the full width "
+        f"({PIT_N} columns), plain {entry['plain_ms']:.3f} ms, on {card}")
+
+    # The time-sharded step: its chunks' levels have a quarter of the nodes,
+    # and a launch's plan (and cuBLAS's choice for the pair factors) follows
+    # the node count, so f32 values may round otherwise than in the
+    # one-device step: the check runs in f64, f32 is timed and its share of
+    # equal picks logged.
+    tmesh = make_mesh(devices=devices, axis_names=(TIME,))
+    for dt in (torch.float64, f32):
+        xs_t, ys_t = pit_big_data(dev, dt)
+        fk_t = sv.get_feynman_kac(ys_t, *SV_PARAMS)
+        noise_t = (noise[0].to(dt), noise[1].to(dt),
+                   [(u.to(dt), seed) for u, seed in noise[2]], tuple(z.to(dt) for z in noise[3]))
+        init1, one = ind.get_kernel(*fk_t, PIT_N, parallel=True)
+        init_s, shard = ind.get_kernel(*fk_t, PIT_N, parallel=True, mesh=tmesh, mesh_axis=TIME)
+        b, got = mesh_launches(lambda: shard(init_s(xs_t), PIT_DELTA, noise=noise_t))
+        a = one(init1(xs_t), PIT_DELTA, noise=noise_t)
+        ms = cuda_ms(lambda: shard(init_s(xs_t), PIT_DELTA, noise=noise_t), 3)
+        ms1 = cuda_ms(lambda: one(init1(xs_t), PIT_DELTA, noise=noise_t), 3)
+        if dt == torch.float64:
+            gap = same_state("time-sharded PIT (f64)", a, b, MESH_PIT_X_ATOL)
+            what = f"updated identical, x within {gap:.3g}"
+        else:
+            same = float((a.updated == b.updated).double().mean())
+            what = f"a share {same:.4f} of `updated` equal to the one-device step's (not held)"
+        add_launches(launches, got)
+        log(f"  time-sharded PIT, C={MESH_SHARDS}, Tc={PIT_T // MESH_SHARDS}, {str(dt)[6:]}: "
+            f"{what}; launches {got}; step {ms:.3f} ms, one device {ms1:.3f} ms, on {card}")
+    return entry
+
+
+def flagship_scan_inputs(dev, dtype):
+    """The filtering elements and backward maps of one flagship MH step (T,
+    DX; phase 1's model)."""
+    import torch
+    from aux_ssm_tpu_torch.models import lgssm_flagship
+    from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
+    from aux_ssm_tpu_torch.ops.filtering import _make_associative_elements
+    from aux_ssm_tpu_torch.ops.sampling import _backward_maps
+    gen = torch.Generator(device=dev).manual_seed(35)
+    dyn, obs1, _ = lgssm_flagship.build_model(T, DX, device=dev, dtype=dtype)
+    x = torch.zeros(T, DX, dtype=dtype, device=dev)
+    u = x + (0.5 * DELTA) ** 0.5 * torch.randn(T, DX, generator=gen, dtype=dtype, device=dev)
+    steps, m0u, P0u = mh_inputs(dyn, obs1, x, u, DELTA)
+    elems = _make_associative_elements(*steps, m0u, P0u)
+    _, ms, Ps, _, _ = FS.filter_scan(elems)
+    ms, Ps = torch.cat([m0u[None], ms]), torch.cat([P0u[None], Ps])
+    eps = torch.randn(T, DX, generator=gen, dtype=dtype, device=dev)
+    return elems, _backward_maps(eps, ms, Ps, *steps[:3])
+
+
+def mesh_scans(dev, devices, card, launches):
+    """Phase 35's time scans: the flagship step's elements over a `time`
+    mesh, f32 and f64, against the one-device scan kernels (norm-relative,
+    MESH_SCAN_NREL)."""
+    import torch
+    from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
+    from aux_ssm_tpu_torch.parallel import time_scan as ts
+    from aux_ssm_tpu_torch.parallel.mesh import make_mesh
+    tmesh = make_mesh(devices=devices, axis_names=(ts.TIME,))
+    for dt in (torch.float32, torch.float64):
+        elems, (gains, incs) = flagship_scan_inputs(dev, dt)
+        for name, sharded, one in (
+                ("filter", lambda: ts.sharded_filtering_scan(tmesh, elems),
+                 lambda: FS.filter_scan(elems)),
+                ("affine", lambda: ts.sharded_sampling_scan(tmesh, (gains, incs)),
+                 lambda: FS.affine_scan(gains, incs, True))):
+            got, counts = mesh_launches(sharded)
+            err = max(nrel(g, w) for g, w in zip(got, one()))
+            bound_ = MESH_SCAN_NREL[str(dt)[6:]]
+            if not err <= bound_:
+                raise AssertionError(f"time-sharded {name} scan ({dt}): nrel {err:.3g} > {bound_:g}")
+            add_launches(launches, counts)
+            log(f"  time-sharded {name} scan, T={T} dx={DX} {str(dt)[6:]}, S={MESH_SHARDS}: nrel "
+                f"{err:.3g} against the one-device scan; launches {counts}; "
+                f"{cuda_ms(sharded, 5):.3f} ms, one device {cuda_ms(one, 5):.3f} ms, on {card}")
+
+
+def mesh_chains(dev, devices, card, launches):
+    """Phase 35's chains mesh: SV kalman-1 (T=SV_T, D=SV_D) at C =
+    MESH_CHAINS through `cli.run_maybe_sharded` with a device list, f32,
+    MESH_SCHEDULE iterations from the simulated states. One shard: bit for
+    bit the run without a mesh. MESH_SHARDS shards: each shard's chains bit
+    for bit a one-process batched run of its chains with its shard
+    generator."""
+    import argparse
+    import torch
+    from aux_ssm_tpu_torch.experiments import cli
+    from aux_ssm_tpu_torch.experiments.runner import RunConfig
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    from aux_ssm_tpu_torch.parallel.chains import shard_seed
+    xs, ys = sv.get_data(*SV_PARAMS, SV_D, SV_T, generator=torch.Generator().manual_seed(35),
+                         dtype=torch.float32, device=dev)
+    init, kernel = sv.get_kalman_kernel(ys, *SV_PARAMS, True, 1, chains=True)
+    cfg = RunConfig(burnin=MESH_SCHEDULE[0], n_samples=MESH_SCHEDULE[1], delta_init=0.0441)
+    state = sv.get_kalman_kernel(ys, *SV_PARAMS, True, 1)[0](xs)
+
+    def run(n_chains, devices_, seed):
+        args = argparse.Namespace(n_chains=n_chains, mesh_chains=0, checkpoint_dir=None,
+                                  checkpoint_every=0)
+        return cli.run_maybe_sharded(
+            torch.Generator(device=dev).manual_seed(seed), kernel, state, cfg, args,
+            collect_samples=True, devices=devices_,
+            kernel_for=lambda shard, d: sv.get_kalman_kernel(ys.to(d), *SV_PARAMS, True, 1,
+                                                             chains=True)[1])[0]
+
+    def same(label, a, b):
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"chains mesh: {label}")
+
+    def key(res, sl=slice(None)):
+        return res.state.x[sl], res.delta[sl]
+
+    tic = time.perf_counter()
+    plain = run(MESH_CHAINS, None, 35)
+    t_plain = time.perf_counter() - tic
+    one = run(MESH_CHAINS, devices[:1], 35)
+    same("one shard differs from the run without a mesh", key(one), key(plain))
+    tic = time.perf_counter()
+    meshed, got = mesh_launches(lambda: run(MESH_CHAINS, devices, 35))
+    t_mesh = time.perf_counter() - tic
+    n = MESH_CHAINS // MESH_SHARDS
+    for s in range(MESH_SHARDS):
+        alone = run(n, None, shard_seed(35, s))
+        same(f"shard {s} differs from a batched run of its {n} chains", key(meshed, slice(
+            s * n, (s + 1) * n)), key(alone))
+    add_launches(launches, got)
+    rate = float(meshed.stats.accept_cum.mean())
+    log(f"  chains mesh, SV kalman-1 T={SV_T} D={SV_D}, C={MESH_CHAINS} over {MESH_SHARDS} "
+        f"shards, {sum(MESH_SCHEDULE)} iterations: one shard bit-equal to the run without a "
+        f"mesh, each of the {MESH_SHARDS} shards bit-equal to a batched run of its {n} chains "
+        f"with its generator; update rate {rate:.3f}; launches {got}; {t_mesh:.2f} s "
+        f"({t_plain:.2f} s without a mesh), on {card}")
+
+
+def mesh_batch(dev, devices, card, launches):
+    """Phase 35's batch sharding: spatial kalman-1 steps (T=SP_T, SP_D x
+    SP_D, f32) from the simulated states with the components over a `batch`
+    mesh, against the unsharded step on the same noise: one with u = 0
+    (accepted either way: the proposals compared) and one with a drawn u;
+    the same accept, x within MESH_BATCH_NREL (norm-relative)."""
+    import torch
+    from aux_ssm_tpu_torch.parallel.batch import batch_sharded_kernel
+    from aux_ssm_tpu_torch.parallel.mesh import BATCH, make_mesh
+    xs, ys = spatial_data(dev, torch.float32)
+    init, kernel = spatial_kernel("kalman-1", ys, SP_D, SP_N)
+    sharded = batch_sharded_kernel(kernel, make_mesh(devices=devices, axis_names=(BATCH,)))
+    state = init(xs)
+    gen = torch.Generator(device=dev).manual_seed(35)
+    eps = [torch.randn(state.x.shape, generator=gen, device=dev) for _ in range(2)]
+    # u = 0 accepts whatever the ratio: the states are the two proposals.
+    for u, what in ((torch.zeros((), device=dev), "the proposal"),
+                    (torch.rand((), generator=gen, device=dev), "the step")):
+        noise = (eps[0], eps[1], u)
+        b, got = mesh_launches(lambda: sharded(state, MESH_BATCH_DELTA, noise=noise))
+        a = kernel(state, MESH_BATCH_DELTA, noise=noise)
+        if bool(a.updated) != bool(b.updated):
+            raise AssertionError(f"batch-sharded spatial {what}: the accept differs")
+        err = nrel(b.x, a.x)
+        if not err <= MESH_BATCH_NREL:
+            raise AssertionError(f"batch-sharded spatial {what}: x nrel {err:.3g} > "
+                                 f"{MESH_BATCH_NREL:g}")
+        add_launches(launches, got)
+        log(f"  batch-sharded spatial kalman-1, {what}, T={SP_T} {SP_D}x{SP_D} (B={SP_D * SP_D}) "
+            f"over {MESH_SHARDS} shards, delta {MESH_BATCH_DELTA:g}: accept {bool(a.updated)} in "
+            f"both, x nrel {err:.3g}; launches {got}")
+    log(f"  the step {cuda_ms(lambda: sharded(state, MESH_BATCH_DELTA, noise=noise), 5):.3f} ms,"
+        f" unsharded {cuda_ms(lambda: kernel(state, MESH_BATCH_DELTA, noise=noise), 5):.3f} ms, "
+        f"on {card}")
+
+
+def mesh_processes(card, out_dir):
+    """Phase 35's multi-process run: one process a card, 2 shards each,
+    joined over NCCL (`experiments.multichip.run_processes`), each running
+    `dryrun_multichip` with a timeout of its own; every check must hold in
+    every process, and their particle-sharded PIT step must equal the
+    one-process dry run's over the same shards."""
+    import torch
+    from aux_ssm_tpu_torch.experiments import multichip
+    n = torch.cuda.device_count()
+    tic = time.perf_counter()
+    results = multichip.run_processes(n, lambda r: [f"cuda:{r}"] * 2, out_dir,
+                                      timeout_s=MESH_PROC_TIMEOUT)
+    wall = time.perf_counter() - tic
+    one = multichip.dryrun_multichip([f"cuda:{r}" for r in range(n) for _ in range(2)])
+    for r, res in enumerate(results):
+        got = res["result"]
+        bad = [k for k, ok in (("chains", got["chains"]),
+                               ("csmc", all(got["csmc"].values())),
+                               ("time_scan", max(got["time_scan"].values()) < 1e-12),
+                               ("batch", got["batch"]["same_accept"]),
+                               *((k, got["pit"][k]) for k in (
+                                   "time_sharded", "particle_sharded_joint",
+                                   "particle_sharded_fused"))) if not ok]
+        if bad:
+            raise AssertionError(f"multi-process rank {r}: checks failed: {bad}: {got}")
+        if got["pit"]["particle_step"] != one["pit"]["particle_step"]:
+            raise AssertionError(f"multi-process rank {r}: the particle-sharded step differs "
+                                 "from the one-process run's")
+    init = [round(r["init_s"], 3) for r in results]
+    first = [None if r["first_collective_s"] is None else round(r["first_collective_s"], 3)
+             for r in results]
+    log(f"  multi-process: {n} process(es) over NCCL, 2 shards each: every dry-run check holds "
+        f"and the particle-sharded step equals the one-process run's; process group set up in "
+        f"{init} s, first NCCL all_reduce {first} s, {wall:.1f} s in all with the processes' "
+        f"start, on {card}")
+
+
+def phase_mesh(dev, card, out_dir):
+    """Phase 35: the multi-device layer over MESH_SHARDS shards of the cards
+    there are (one card: MESH_SHARDS shards on it). Returns (the kernel
+    launches of its sharded runs by wrapper, those of the chains mesh's run,
+    which are chain instances, and the per-shard block_masses entry)."""
+    import torch
+    devices = mesh_devices()
+    tic = time.perf_counter()
+    log(f"phase 35: meshes of {MESH_SHARDS} shards over {torch.cuda.device_count()} card(s): "
+        f"{devices}")
+    launches, chain_launches = {}, {}
+    entry = mesh_pit(dev, devices, card, launches)
+    mesh_scans(dev, devices, card, launches)
+    mesh_chains(dev, devices, card, chain_launches)
+    mesh_batch(dev, devices, card, launches)
+    mesh_processes(card, out_dir)
+    log(f"  phase 35 took {time.perf_counter() - tic:.1f} s; its sharded runs' launches "
+        f"{launches}, the chains mesh's (chain instances) {chain_launches}")
+    return launches, chain_launches, entry
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4797,6 +5170,14 @@ def main():
             launches[name] = launches.get(name, 0) + count
     log(f"  phase 31 took {time.perf_counter() - t29:.1f} s, phases 0-31 "
         f"{time.perf_counter() - tic:.1f} s with the build, on {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_runs, mesh_chain_runs, per_shard = phase_mesh(dev, card, tmp)
+    for name, count in mesh_runs.items():
+        launches[name] = launches.get(name, 0) + count
+    for name, count in mesh_chain_runs.items():
+        dense_launches[name] = dense_launches.get(name, 0) + count
+    results["block_masses"]["per_shard"] = per_shard
+    log(f"  phases 0-35 took {time.perf_counter() - tic:.1f} s with the build, on {card}")
 
     sources = ({name: entry[:2] for name, entry in KERNELS.items()} | CSMC_KERNELS
                | SCALAR_KERNELS | STITCH_KERNELS)

@@ -179,8 +179,12 @@ def test_run_maybe_sharded_rhat_matches_jax(collect):
 
 
 def test_mesh_raises_naming_the_queue():
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        run_sharded_chains(_mh, broadcast_chains(INIT, 2), CFG, mesh=object())
+    """A chains mesh whose shards do not divide the chains raises, and so
+    does `--mesh-chains` above the card count (none here)."""
+    from aux_ssm_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(ValueError, match="do not divide"):
+        run_sharded_chains(_mh, broadcast_chains(INIT, 2), CFG, mesh=make_mesh(devices=["cpu"] * 3),
+                           generator=torch.Generator().manual_seed(0))
     args = argparse.Namespace(n_chains=2, mesh_chains=2)
-    with pytest.raises(NotImplementedError, match="queue 2"):
+    with pytest.raises(ValueError, match="asks for 2 cards; this machine has 0"):
         cli.run_maybe_sharded(None, _mh, INIT, CFG, args)

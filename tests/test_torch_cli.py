@@ -2,7 +2,7 @@
 (`aux_ssm_tpu_torch.experiments.{cli,lorenz}`, `aux_ssm_tpu_torch.config`)
 against the JAX package's: the same flags with the same defaults, types and
 actions; the driver's synthetic mode on the CPU writes the JAX driver's .npz
-keys; what is not ported (several chains, meshes) raises.
+keys; an option that does not fit the run raises.
 
 Tolerance: none needed. Flags and keys are compared exactly; the driver's
 numbers come from the port's own random streams, so only their shapes and
@@ -68,10 +68,10 @@ def test_lorenz_driver_synthetic_on_cpu(tmp_path, default_dtype, capsys):
     assert "samples/s" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("extra, missing", [(["--n-chains", "2", "--mesh-chains", "2"],
-                                             "queue 2")])
+@pytest.mark.parametrize("extra, missing", [(["--n-chains", "3", "--mesh-chains", "2"],
+                                             "does not divide")])
 def test_lorenz_driver_unported_options_raise(tmp_path, default_dtype, extra, missing):
-    with pytest.raises(NotImplementedError, match=missing):
+    with pytest.raises(ValueError, match=missing):
         tlorenz.main(SMALL + ["--out", str(tmp_path / "x.npz")] + extra)
     assert not (tmp_path / "x.npz").exists()
 
@@ -99,8 +99,11 @@ def test_backend_config(default_dtype):
         tconfig.BackendConfig(platform="tpu").device
     with pytest.raises(ValueError, match="precision"):
         tconfig.BackendConfig(precision="half").dtype
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
+    with pytest.raises(ValueError, match="device_count"):  # no card here, and no CPU fallback
         tconfig.MeshConfig().build()
+    mesh = tconfig.MeshConfig(axis_sizes=(2, -1), axis_names=("chains", "particles")).build(
+        ["cpu"] * 4)
+    assert mesh.shape == {"chains": 2, "particles": 2}
 
 
 def test_from_args_nested_overrides():

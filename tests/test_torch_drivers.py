@@ -140,11 +140,11 @@ def test_lorenz_driver_killed_and_resumed_equals_uninterrupted(tmp_path, monkeyp
 
 
 @pytest.mark.parametrize("driver, extra, missing", [
-    (sv, ["--n-chains", "2", "--mesh-chains", "2"], "queue 2"),
-    (spatial, ["--n-chains", "2", "--mesh-chains", "2"], "queue 2"),
-    (spatial, ["--batch-sharded"], "parallel/batch.py")])
+    (sv, ["--n-chains", "3", "--mesh-chains", "2"], "does not divide"),
+    (spatial, ["--n-chains", "3", "--mesh-chains", "2"], "does not divide"),
+    (spatial, ["--style", "csmc", "--batch-sharded", "2"], "kalman styles")])
 def test_unported_options_raise(tmp_path, driver, extra, missing):
-    with pytest.raises(NotImplementedError, match=missing):
+    with pytest.raises(ValueError, match=missing):
         _run(driver, tmp_path, ["--T", "8", "--D", "2"] + extra)
     assert not (tmp_path / "out.npz").exists()
 

@@ -204,8 +204,12 @@ def test_driver_main_writes_csv_and_heatmaps(tmp_path):
 
 
 def test_mesh_chains_raise():
-    with pytest.raises(NotImplementedError, match="queue 2"):
+    """`--mesh-chains` above the card count raises (no card here), and so
+    does a shard count that does not divide the grid's M = 2^2 x 3 chains."""
+    with pytest.raises(ValueError, match="asks for 2 cards; this machine has 0"):
         tdriver.run_grid(_driver_args("kalman-1", mesh_chains=2), device="cpu")
+    with pytest.raises(ValueError, match="does not divide"):
+        tdriver.run_grid(_driver_args("kalman-1", mesh_chains=5, platform="cpu"), device="cpu")
 
 
 def test_col_sample_chain_seeds_draw_each_chain_as_one_chain_call():
