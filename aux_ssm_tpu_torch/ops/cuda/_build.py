@@ -32,30 +32,41 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
 
 # The compile-time dimensions of the main-path kernels' instances (kalman_fused.cu
-# kElemD / kWideD, scan.cu kNarrowD / kWideD): each call takes the least that
-# holds its max(dx, dy); MAX_DIM is the largest dx, dy they are built for.
-INSTANCE_DIMS = (16, 32)
-MAX_DIM = INSTANCE_DIMS[-1]
+# kElemD / kWideD / kWide48D, scan.cu kNarrowD / kWideD / kWide48D): each call
+# takes the least that holds its max(dx, dy). MAX_DIMS is the largest dx, dy
+# each dtype's instances take: the D = 48 instance is float32 only (the
+# float64 filter scan's plan does not fit a block's shared memory there, and
+# the JAX package's Pallas kernels stop at d = 30 in float64).
+INSTANCE_DIMS = (16, 32, 48)
+MAX_DIMS = {torch.float32: 48, torch.float64: 32}
 
 
-def instance_dim(d):
-    """The compile-time D of the instance that takes dimension d (as the C
-    entries choose it); raises past MAX_DIM."""
+def max_dim(dtype):
+    """The largest dimension the d x d kernels take in `dtype` (MAX_DIMS;
+    32 for a dtype the kernels do not take, which `launch` refuses)."""
+    return MAX_DIMS.get(dtype, MAX_DIMS[torch.float64])
+
+
+def instance_dim(d, dtype):
+    """The compile-time D of the instance that takes dimension d in `dtype`
+    (as the C entries choose it); raises past `max_dim(dtype)`."""
     for D in INSTANCE_DIMS:
-        if d <= D:
+        if d <= D <= max_dim(dtype):
             return D
-    raise ValueError(f"no kernel instance for dimension {d} (at most {MAX_DIM})")
+    raise ValueError(f"no {dtype} kernel instance for dimension {d} (at most {max_dim(dtype)})")
 
 
-def has_instance(*dims):
+def has_instance(*dims, dtype):
     """Whether the d x d kernels have an instance for these state and
-    observation widths: max(dims) <= MAX_DIM. The callers of the d x d
-    wrappers (`ops/filtering.py`, `ops/sampling.py`, `ops/lgssm.py`) run the
-    plain versions where it is false, on any device, as the JAX package
-    leaves a shape whose Pallas instance does not fit to XLA
-    (`aux_ssm_tpu/ops/filtering.py` `use_pallas`); the wrappers themselves
-    still launch or raise."""
-    return max(dims) <= MAX_DIM
+    observation widths in `dtype`: max(dims) <= max_dim(dtype) (48 in
+    float32, 32 in float64). The callers of the d x d wrappers
+    (`ops/filtering.py`, `ops/sampling.py`, `ops/lgssm.py`,
+    `parallel/time_scan.py`) run the plain versions where it is false, on
+    any device, as the JAX package leaves a shape whose Pallas instance does
+    not fit to XLA (`aux_ssm_tpu/ops/filtering.py` `use_pallas`); the
+    wrappers themselves still launch or raise."""
+    return max(dims) <= max_dim(dtype)
+
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

@@ -12,10 +12,13 @@
 // bounds a step is the latency of its dependent chain of small products.
 //
 // All four: one block (a team of NT threads) a step, at a compile-time D
-// (tile.cuh), in two instances chosen by max(dx, dy): D = kElemD = 16 on
-// kElemTeam = 32 threads, and D = kWideD = 32 (the SV model's d = 30) on 128
+// (tile.cuh), in three instances chosen by max(dx, dy): D = kElemD = 16 on
+// kElemTeam = 32 threads; D = kWideD = 32 (the SV model's d = 30) on 128
 // threads for make_elements and backward_maps, 64 for ell and logdensity
-// (kWide*Team); dx, dy <= D are padded exactly (F, Q, P, H,
+// (kWide*Team); and, in float32 only, D = kWide48D = 48 (SV at d = 33-48,
+// where JAX's Pallas kernels run up to d = 43) on 128 threads for
+// make_elements and backward_maps, 96 for ell and logdensity (kWide48*Team:
+// a density half needs D lanes, 48). dx, dy <= D are padded exactly (F, Q, P, H,
 // R, b, m, c, y, x zero outside d, the padded observation rows treated as
 // missing, so He's rows are zero there and Re's diagonal one, S = diag(S, I),
 // the Q of a transition density and of backward_maps diag(Q, I), and every
@@ -45,7 +48,8 @@
 // the innovation of m_pred (the upper half repeats it); logdensity's two at
 // once, the transition's (Q, x_t - F x_{t-1} - b) on lanes 0-15 and the
 // observation's (Re, the masked innovation of x_t) on lanes 16-31 (at D = 32
-// on threads 0-31 and 32-63 of the 64), the same code on other operands.
+// on threads 0-31 and 32-63 of the 64, at D = 48 on threads 0-47 and 48-95
+// of the 96), the same code on other operands.
 //
 // backward_maps: S = sym(F P F^T + Q) and the right-hand side F P, S X = F P
 // by make_elements' Gauss-Jordan, S G^T = S X and cov = sym(P - G S G^T),
@@ -82,8 +86,9 @@ constexpr double kLog2Pi = 1.8378770664093453;
 // The padded steps
 // ---------------------------------------------------------------------------
 
-constexpr int kElemD = 16;  // the compile-time dimension of the narrow instance (dx, dy <= 16)
-constexpr int kWideD = 32;  // and of the wide one (16 < max(dx, dy) <= 32)
+constexpr int kElemD = 16;    // the compile-time dimension of the narrow instance (dx, dy <= 16),
+constexpr int kWideD = 32;    // of the wide one (16 < max(dx, dy) <= 32)
+constexpr int kWide48D = 48;  // and of the widest, float32 only (32 < max(dx, dy) <= 48)
 constexpr int kElemStamps = 6;  // clock64 readings of an elements step (diagnostics)
 constexpr int kMapStamps = 7;   // clock64 readings of a backward_maps step (diagnostics)
 
@@ -437,15 +442,17 @@ struct HalfLay {
                        size = cnt + D;
 };
 
-// v[i] += v[i + W] for i < W, then the same with W / 2, ..., 1: x[0 .. 2 W)
-// summed by pairs into v[0], in the same order on the card and in the host
-// build.
-template <int W, typename S, int N>
+// v[0 .. K) summed by pairs into v[0]: v[i] += v[i + H] for i < K / 2, H =
+// (K + 1) / 2 (an odd K's middle entry waits a level), then the same on
+// v[0 .. H); in the same order on the card and in the host build (for a
+// power of two K: v[i] += v[i + K / 2], then K / 4, ..., 1).
+template <int K, typename S, int N>
 AUX_HD void pair_sums(S (&v)[N]) {
-  if constexpr (W > 0) {
+  if constexpr (K > 1) {
+    constexpr int H = (K + 1) / 2;
 #pragma unroll
-    for (int i = 0; i < W; ++i) v[i] += v[i + W];
-    pair_sums<W / 2>(v);
+    for (int i = 0; i < K / 2; ++i) v[i] += v[i + H];
+    pair_sums<H>(v);
   }
 }
 
@@ -453,7 +460,7 @@ template <typename S, int N>
 AUX_HD S tree_sum(const S* x) {
   S v[N];
   tiles::load_run<S, N>(x, v);
-  pair_sums<N / 2>(v);
+  pair_sums<N>(v);
   return v[0];
 }
 
@@ -847,16 +854,27 @@ namespace {
 // products of make_elements (0.0258 ms against 0.0306) and backward_maps
 // (0.0205 against 0.0243, and no spills in f64), and lost for ell and
 // logdensity, whose density columns take 32 of the threads either way.
+// At kWide48D (float32 only) the density halves take D = 48 lanes each, so
+// ell and logdensity run on 96 threads (a 4 x 6 tile a product), the other
+// two on 128 (3 x 6 tiles; backward_maps' factor on 48 of them).
 constexpr int kElemTeam = 32;          // every kernel at kElemD
 constexpr int kWideElemTeam = 128;     // make_elements at kWideD
 constexpr int kWideMapsTeam = 128;     // backward_maps at kWideD
 constexpr int kWideDensityTeam = 64;   // ell and logdensity at kWideD
+constexpr int kWide48ElemTeam = 128;    // make_elements at kWide48D
+constexpr int kWide48MapsTeam = 128;    // backward_maps at kWide48D
+constexpr int kWide48DensityTeam = 96;  // ell and logdensity at kWide48D
 constexpr int kMaxShmem = 232448;  // bytes of shared memory a block may have (227 KB)
 static_assert(EllLay<kWideD>::size * sizeof(double) <= kMaxShmem &&
                   ElementsLay<kWideD>::size <= EllLay<kWideD>::size &&
                   DensityLay<kWideD>::size * sizeof(double) <= kMaxShmem &&
                   MapsLay<kWideD>::size * sizeof(double) <= kMaxShmem,
               "the wide steps' shared memory fits a block");
+static_assert(EllLay<kWide48D>::size * sizeof(float) <= kMaxShmem &&
+                  ElementsLay<kWide48D>::size <= EllLay<kWide48D>::size &&
+                  DensityLay<kWide48D>::size * sizeof(float) <= kMaxShmem &&
+                  MapsLay<kWide48D>::size * sizeof(float) <= kMaxShmem,
+              "the float32 D = 48 steps' shared memory fits a block");
 
 // Block blockIdx.x's (step, chain) pair of `chains` chains, the operands
 // with bits in `shared` read once for every chain (StepAt).
@@ -907,15 +925,21 @@ backward_maps_kernel(int chains, int shared, int dx, MapsIn<S> in, MapsOut<S> ou
 template <int V>
 using Int = std::integral_constant<int, V>;
 
-// f(D, NT) for the instance that takes dx, dy: kElemD on kElemTeam threads up
-// to 16, kWideD on WideNT up to 32; cudaErrorInvalidValue for anything else
-// (no step, no chain, or more blocks than a grid holds).
-template <int WideNT, class F>
+// f(D, NT) for the instance that takes dx, dy in S: kElemD on kElemTeam
+// threads up to 16, kWideD on WideNT up to 32, in float kWide48D on Wide48NT
+// up to 48; cudaErrorInvalidValue for anything else (no step, no chain, more
+// blocks than a grid holds, or a wider d: float64 stops at 32).
+template <typename S, int WideNT, int Wide48NT, class F>
 int on_instance(int n, int chains, int dx, int dy, F f) {
+  constexpr bool f32 = std::is_same_v<S, float>;
   const int d = dx > dy ? dx : dy;
-  if (n <= 0 || chains <= 0 || (long)n * chains > 0x7fffffffL || dx < 1 || dy < 1 || d > kWideD)
+  if (n <= 0 || chains <= 0 || (long)n * chains > 0x7fffffffL || dx < 1 || dy < 1 ||
+      d > (f32 ? kWide48D : kWideD))
     return (int)cudaErrorInvalidValue;
-  return d <= kElemD ? f(Int<kElemD>(), Int<kElemTeam>()) : f(Int<kWideD>(), Int<WideNT>());
+  if (d <= kElemD) return f(Int<kElemD>(), Int<kElemTeam>());
+  if constexpr (f32)
+    if (d > kWideD) return f(Int<kWide48D>(), Int<Wide48NT>());
+  return f(Int<kWideD>(), Int<WideNT>());
 }
 
 // Launch `kernel` on n blocks of NT threads with `bytes` of dynamic shared
@@ -942,7 +966,8 @@ int launch_steps(void (*kernel)(P...), int n, size_t bytes, cudaStream_t stream,
                                             const S* R, const S* c, const S* y, const S* m,    \
                                             const S* P, S* A, S* bel, S* C, S* eta, S* J,      \
                                             long long* stamps, void* stream) {                 \
-    return on_instance<kWideElemTeam>(n, chains, dx, dy, [&](auto D_, auto NT_) {              \
+    return on_instance<S, kWideElemTeam, kWide48ElemTeam>(                                     \
+        n, chains, dx, dy, [&](auto D_, auto NT_) {                                            \
       constexpr int D = decltype(D_)::value, NT = decltype(NT_)::value;                        \
       return launch_steps<NT>(elements_kernel<S, D, NT>, n * chains,                           \
                               ElementsLay<D>::size * sizeof(S), (cudaStream_t)stream, chains,  \
@@ -953,7 +978,8 @@ int launch_steps(void (*kernel)(P...), int n, size_t bytes, cudaStream_t stream,
   extern "C" int aux_ell_##SUFFIX(int n, int chains, int shared, int dx, int dy, const S* F,   \
                                   const S* Q, const S* b, const S* H, const S* R, const S* c,  \
                                   const S* y, const S* m, const S* P, S* ell, void* stream) {  \
-    return on_instance<kWideDensityTeam>(n, chains, dx, dy, [&](auto D_, auto NT_) {           \
+    return on_instance<S, kWideDensityTeam, kWide48DensityTeam>(                               \
+        n, chains, dx, dy, [&](auto D_, auto NT_) {                                            \
       constexpr int D = decltype(D_)::value, NT = decltype(NT_)::value;                        \
       return launch_steps<NT>(ell_kernel<S, D, NT>, n * chains, EllLay<D>::size * sizeof(S),   \
                               (cudaStream_t)stream, chains, shared, dx, dy,                    \
@@ -964,7 +990,8 @@ int launch_steps(void (*kernel)(P...), int n, size_t bytes, cudaStream_t stream,
                                             const S* Q, const S* b, const S* m, const S* P,    \
                                             const S* eps, S* G, S* inc, long long* stamps,     \
                                             void* stream) {                                    \
-    return on_instance<kWideMapsTeam>(n, chains, dx, 1, [&](auto D_, auto NT_) {               \
+    return on_instance<S, kWideMapsTeam, kWide48MapsTeam>(                                     \
+        n, chains, dx, 1, [&](auto D_, auto NT_) {                                             \
       constexpr int D = decltype(D_)::value, NT = decltype(NT_)::value;                        \
       return launch_steps<NT>(backward_maps_kernel<S, D, NT>, n * chains,                      \
                               MapsLay<D>::size * sizeof(S), (cudaStream_t)stream, chains,      \
@@ -977,7 +1004,8 @@ int launch_steps(void (*kernel)(P...), int n, size_t bytes, cudaStream_t stream,
                                                const S* H, const S* R, const S* c,             \
                                                const S* y, const S* xp, const S* xc, S* out,   \
                                                void* stream) {                                 \
-    return on_instance<kWideDensityTeam>(n, chains, dx, dy, [&](auto D_, auto NT_) {           \
+    return on_instance<S, kWideDensityTeam, kWide48DensityTeam>(                               \
+        n, chains, dx, dy, [&](auto D_, auto NT_) {                                            \
       constexpr int D = decltype(D_)::value, NT = decltype(NT_)::value;                        \
       return launch_steps<NT>(logdensity_kernel<S, D, NT>, n * chains,                         \
                               DensityLay<D>::size * sizeof(S), (cudaStream_t)stream, chains,   \

@@ -43,11 +43,13 @@
 //    two launches at once, so a captured CUDA graph must not be replayed on
 //    two streams at the same time.
 //  - Each combine runs at a compile-time D (tile.cuh: d <= D padded exactly,
-//    the thread's tile of each result in registers), in two instances chosen
-//    by d: D = 16 (the flagship's d) and D = 32 (the SV model's d = 30). Each
-//    instance has its own plan (BlockPlan: the prefixes kept, the chain's
+//    the thread's tile of each result in registers), in three instances
+//    chosen by d: D = 16 (the flagship's d), D = 32 (the SV model's d = 30)
+//    and, in float32 only, D = 48 (SV at d = 33-48). Each instance has its
+//    own plan (BlockPlan: the prefixes kept, the input slots, the chain's
 //    team, the apply's teams), since a D = 32 filter element is 3.5x the
-//    D = 16 one and the block's shared memory holds 227 KB.
+//    D = 16 one, a D = 48 one 7.6x, and the block's shared memory holds
+//    227 KB.
 //
 // The filter combine (FilterOp) is about 11 D x D products and a
 // Gauss-Jordan inverse. The padding: A -> diag(A, I), C and J -> diag(., 0),
@@ -89,21 +91,33 @@
 #endif
 #endif
 
+// A device function the kernel calls rather than inlines (inline in the host
+// build).
+#ifdef __CUDACC__
+#define AUX_CALLED __device__ __noinline__
+#else
+#define AUX_CALLED inline
+#endif
+
 namespace {
 
 using namespace tiles;
 
 constexpr int kNarrowD = 16;    // the instances' compile-time dimensions: d <= 16,
-constexpr int kWideD = 32;      // and 16 < d <= 32
+constexpr int kWideD = 32;      // 16 < d <= 32,
+constexpr int kWide48D = 48;    // and 32 < d <= 48 (float32 only)
 constexpr int kBlock = 256;     // threads of a block
 
 // A block's plan for an op at one D and dtype: `ring` prefixes of the chunk
-// kept in shared memory, the chain's team of `chain` threads, the apply's
-// teams of `narrow` threads (of `wide` for chunks of at most kBlock / 64
-// elements, where the op asks for it), and a working set a narrow team.
-template <int ring_, int chain_, int narrow_, int wide_>
+// kept in shared memory, `ins` input slots for the chain's elements past
+// them (2, double-buffered, or 1: the chain's barrier after each combine
+// already keeps the next store off the slot until every thread has read
+// it), the chain's team of `chain` threads, the apply's teams of `narrow`
+// threads (of `wide` for chunks of at most kBlock / 64 elements, where the
+// op asks for it), and a working set a narrow team.
+template <int ring_, int chain_, int narrow_, int wide_, int ins_ = 2>
 struct BlockPlan {
-  static constexpr int ring = ring_, chain = chain_, narrow = narrow_, wide = wide_;
+  static constexpr int ring = ring_, chain = chain_, narrow = narrow_, wide = wide_, ins = ins_;
   static constexpr int teams = kBlock / narrow;  // working sets beside the slots
 };
 
@@ -409,11 +423,28 @@ AUX_HD void filter_combine(int t, int bar, const S* l, const S* r, S* w,
 // on an H100 against 17.2k on 128 threads in f32, 35k against 54k in f64);
 // f32 7 prefixes and two 128-thread apply teams (218,624 B), f64 1 prefix and
 // one 256-thread team (218,624 B; a chunk's later prefixes are staged back
-// from the output, as past 8 at D = 16).
+// from the output, as past 8 at D = 16). D = 48 (float32), slots of 7584
+// values and a working set of 13,152: f64 D = 32's plan (1 prefix, the
+// chain and the apply on the whole block, 3 x 3 tiles) would take 6 slots
+// and a working set, 234,624 B, 2,176 B over; with one input slot (`ins`)
+// it takes 5, 204,288 B. (The host build runs every D in f64 on these plans.)
 template <typename S, int D>
 using FilterPlan = std::conditional_t<
     D == kNarrowD, BlockPlan<8, 128, 32, 64>,
-    std::conditional_t<sizeof(S) == 4, BlockPlan<7, 256, 128, 128>, BlockPlan<1, 256, 256, 256>>>;
+    std::conditional_t<D == kWide48D, BlockPlan<1, 256, 256, 256, 1>,
+                       std::conditional_t<sizeof(S) == 4, BlockPlan<7, 256, 128, 128>,
+                                          BlockPlan<1, 256, 256, 256>>>>;
+
+// At D = 48 the scan kernel calls the combine where the smaller instances
+// inline it: each of its call sites (the chunk's two loops, the levels, the
+// apply) would carry a copy of ~11 unrolled 48 x 48 products. Inlined, this
+// source took 82 s to build on the H100 machine, called 64 s; the call
+// costs the combine ~15% (70k -> 84k cycles on 256 threads, PERF.md).
+template <typename S, int D, int NT>
+AUX_CALLED void filter_combine_called(int t, int bar, const S* l, const S* r, S* w,
+                                      FilterTile<S, D, NT>& o) {
+  filter_combine<S, D, NT>(t, bar, l, r, w, o);
+}
 
 template <typename S, int D_>
 struct FilterOp : FilterPlan<S, D_> {
@@ -426,7 +457,10 @@ struct FilterOp : FilterPlan<S, D_> {
   template <int NT>
   static AUX_HD void combine(int t, int bar, const S* l, const S* r, S* w,
                              ElemTile<S, D, NT, M, V>& o) {
-    filter_combine<S, D, NT>(t, bar, l, r, w, o);
+    if constexpr (D == kWide48D)
+      filter_combine_called<S, D, NT>(t, bar, l, r, w, o);
+    else
+      filter_combine<S, D, NT>(t, bar, l, r, w, o);
   }
 };
 
@@ -435,8 +469,9 @@ struct FilterOp : FilterPlan<S, D_> {
 // ---------------------------------------------------------------------------
 
 // The affine scan's plans: 8 prefixes (13 slots of 1184 values at D = 32: 123
-// KB in f64) and a 128-thread chain; the apply on warps at D = 16, on 64-thread
-// teams at D = 32 (a warp's tile of 32 entries spilled).
+// KB in f64; of 2544 at D = 48: 129 KB in f32) and a 128-thread chain; the
+// apply on warps at D = 16, on 64-thread teams at D = 32 and 48 (a warp's
+// tile of 32 entries spilled at D = 32).
 template <typename S, int D_>
 struct AffineOp : BlockPlan<8, 128, D_ == kNarrowD ? 32 : 64, D_ == kNarrowD ? 32 : 64> {
   using Scalar = S;
@@ -478,7 +513,7 @@ using OpTile = ElemTile<typename Op::Scalar, Op::D, NT, Op::M, Op::V>;
 // the chain, and prefix i replaces element i there (the apply's first window
 // reads it, and chunk 0 writes it out after the chain, window_out); past
 // kRing, element i + 1 is loaded into registers while the combine of
-// element i runs, stored to in[(i + 1) & 1] after it, prefix i kept in run[i & 1] and
+// element i runs, stored to in[(i + 1) % ins] after it, prefix i kept in run[i & 1] and
 // written to out[k] (a later window of the apply stages it from there). No
 // global store precedes a barrier of the chain for i < kRing: a barrier
 // waits for the team's stores to be performed. Returns the slot of the
@@ -515,7 +550,7 @@ AUX_HD typename Op::Scalar* chunk_scan(int t, int bar, const ScanPlan& pl, int c
   }
   S* prev = pre + (ring - 1) * slot;
   for (int i = kRing; i < cnt; ++i) {
-    S* in_slot = in + (i & 1) * slot;
+    S* in_slot = in + i % Op::ins * slot;
     sv.store(in_slot);
     if (i + 1 < cnt) sv.load(x, at(k0 + i + 1));
     team_sync<NT>(bar);
@@ -574,17 +609,19 @@ AUX_HD void apply_element(int t, int bar, const typename Op::Scalar* pre,
 
 namespace {
 
-// Shared memory of a block: ring prefix slots, two input slots, two running
-// slots, the partner slot, then a working set for each of the apply's teams
-// (the chain's is the first).
+// Shared memory of a block: ring prefix slots, `ins` input slots, two
+// running slots, the partner slot, then a working set for each of the
+// apply's teams (the chain's is the first).
 template <class Op>
 constexpr size_t scan_shmem() {
-  return ((Op::ring + 5) * (size_t)OpLay<Op>::slot + Op::teams * (size_t)Op::work) *
+  return ((Op::ring + Op::ins + 3) * (size_t)OpLay<Op>::slot + Op::teams * (size_t)Op::work) *
          sizeof(typename Op::Scalar);
 }
 static_assert(scan_shmem<FilterOp<float, kWideD>>() <= 232448 &&
                   scan_shmem<FilterOp<double, kWideD>>() <= 232448 &&
-                  scan_shmem<AffineOp<double, kWideD>>() <= 232448,
+                  scan_shmem<AffineOp<double, kWideD>>() <= 232448 &&
+                  scan_shmem<FilterOp<float, kWide48D>>() <= 232448 &&
+                  scan_shmem<AffineOp<float, kWide48D>>() <= 232448,
               "the wide plans fit the 227 KB of a block");
 
 // A hand-over: a padded slot as 64-bit words, each one 32-bit half of the
@@ -670,8 +707,8 @@ scan_kernel(int n, int chains, int d, int reverse, ScanPlan pl, typename Op::Vie
   constexpr int D = Op::D, M = Op::M, V = Op::V, slot = OpLay<Op>::slot, hw = kHandWords<Op>;
   extern __shared__ __align__(16) unsigned char smem[];
   S* ring = reinterpret_cast<S*>(smem);  // the prefixes: the apply's window
-  S* in = ring + kRing * slot;           // two input slots
-  S* run0 = in + 2 * slot;
+  S* in = ring + kRing * slot;           // the input slots
+  S* run0 = in + Op::ins * slot;
   S* run1 = run0 + slot;
   S* partner = run1 + slot;
   S* work = partner + slot;
@@ -683,7 +720,7 @@ scan_kernel(int n, int chains, int d, int reverse, ScanPlan pl, typename Op::Vie
     ticket = atomicAdd(state, 1);
     epoch_sh = *reinterpret_cast<volatile unsigned*>(state + 2) + 1;
   }
-  for (int g = 0; g < kRing + 2; ++g) pad_slot<S, D, M, V>(t, kBlock, d, ring + g * slot);
+  for (int g = 0; g < kRing + Op::ins; ++g) pad_slot<S, D, M, V>(t, kBlock, d, ring + g * slot);
   __syncthreads();
   const int chain = ticket / pl.chunks, c = ticket - chain * pl.chunks;
   const unsigned epoch = epoch_sh;
@@ -810,8 +847,11 @@ int run_combine_cycles(int d, int reps, typename Op::View x, typename Op::View o
   return (int)cudaGetLastError();
 }
 
-// Teams of 32-256 threads at D = 16, of 128 and 256 at D = 32 (a narrower
-// team's tile of 16-32 entries a matrix would not fit its registers).
+// Teams of 32-256 threads at D = 16, of 128 and 256 at D = 32 and 48 (a
+// narrower team's tile of 16-36 entries a matrix would not fit its
+// registers), but the filter combine at D = 48 on its chain's 256 threads
+// alone (on 128 it took ~1.4x the cycles, PERF.md, and its instance was the
+// longest compile of this source).
 template <class Op>
 int combine_cycles_on(int nt, int d, int reps, typename Op::View x, typename Op::View out,
                       long long* cycles, cudaStream_t stream) {
@@ -819,7 +859,8 @@ int combine_cycles_on(int nt, int d, int reps, typename Op::View x, typename Op:
     if (nt == 32) return run_combine_cycles<Op, 32>(d, reps, x, out, cycles, stream);
     if (nt == 64) return run_combine_cycles<Op, 64>(d, reps, x, out, cycles, stream);
   }
-  if (nt == 128) return run_combine_cycles<Op, 128>(d, reps, x, out, cycles, stream);
+  if constexpr (!(Op::D == kWide48D && Op::M == 3))
+    if (nt == 128) return run_combine_cycles<Op, 128>(d, reps, x, out, cycles, stream);
   if (nt == 256) return run_combine_cycles<Op, 256>(d, reps, x, out, cycles, stream);
   return (int)cudaErrorInvalidValue;
 }
@@ -827,12 +868,17 @@ int combine_cycles_on(int nt, int d, int reps, typename Op::View x, typename Op:
 template <int V>
 using Int = std::integral_constant<int, V>;
 
-// f(D) for the instance that takes d: kNarrowD up to 16, kWideD up to 32;
-// cudaErrorInvalidValue for anything else.
-template <class F>
+// f(D) for the instance that takes d in S: kNarrowD up to 16, kWideD up to
+// 32, in float kWide48D up to 48; cudaErrorInvalidValue for anything else
+// (float64 stops at 32).
+template <typename S, class F>
 int on_dim(int d, F f) {
-  if (d < 1 || d > kWideD) return (int)cudaErrorInvalidValue;
-  return d <= kNarrowD ? f(Int<kNarrowD>()) : f(Int<kWideD>());
+  constexpr bool f32 = std::is_same_v<S, float>;
+  if (d < 1 || d > (f32 ? kWide48D : kWideD)) return (int)cudaErrorInvalidValue;
+  if (d <= kNarrowD) return f(Int<kNarrowD>());
+  if constexpr (f32)
+    if (d > kWideD) return f(Int<kWide48D>());
+  return f(Int<kWideD>());
 }
 
 }  // namespace
@@ -846,7 +892,7 @@ int on_dim(int d, F f) {
                                           S* J, S* oA, S* ob, S* oC, S* oe, S* oJ,            \
                                           unsigned long long* hand, int* state,               \
                                           long long* stamps, void* stream) {                  \
-    return on_dim(d, [&](auto D) {                                                            \
+    return on_dim<S>(d, [&](auto D) {                                                         \
       using Op = FilterOp<S, decltype(D)::value>;                                             \
       using V = typename Op::View;                                                            \
       return run_scan<Op>(n, chains, d, 0, V{{A, C, J}, {b, e}}, V{{oA, oC, oJ}, {ob, oe}},   \
@@ -857,7 +903,7 @@ int on_dim(int d, F f) {
                                                     S* C, S* e, S* J, S* oA, S* ob, S* oC,    \
                                                     S* oe, S* oJ, long long* cycles,          \
                                                     void* stream) {                           \
-    return on_dim(d, [&](auto D) {                                                            \
+    return on_dim<S>(d, [&](auto D) {                                                         \
       using Op = FilterOp<S, decltype(D)::value>;                                             \
       using V = typename Op::View;                                                            \
       return combine_cycles_on<Op>(nt, d, reps, V{{A, C, J}, {b, e}},                         \
@@ -867,7 +913,7 @@ int on_dim(int d, F f) {
   extern "C" int aux_affine_combine_cycles_##SUFFIX(int d, int nt, int reps, S* G, S* e,      \
                                                     S* oG, S* oe, long long* cycles,          \
                                                     void* stream) {                           \
-    return on_dim(d, [&](auto D) {                                                            \
+    return on_dim<S>(d, [&](auto D) {                                                         \
       using Op = AffineOp<S, decltype(D)::value>;                                             \
       using V = typename Op::View;                                                            \
       return combine_cycles_on<Op>(nt, d, reps, V{{G}, {e}}, V{{oG}, {oe}}, cycles,           \
@@ -877,7 +923,7 @@ int on_dim(int d, F f) {
   extern "C" int aux_affine_scan_##SUFFIX(int n, int chains, int d, int reverse, S* G, S* e,  \
                                           S* oG, S* oe, unsigned long long* hand, int* state, \
                                           long long* stamps, void* stream) {                  \
-    return on_dim(d, [&](auto D) {                                                            \
+    return on_dim<S>(d, [&](auto D) {                                                         \
       using Op = AffineOp<S, decltype(D)::value>;                                             \
       using V = typename Op::View;                                                            \
       return run_scan<Op>(n, chains, d, reverse, V{{G}, {e}}, V{{oG}, {oe}}, hand, state,     \

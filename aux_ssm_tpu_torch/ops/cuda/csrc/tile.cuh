@@ -40,19 +40,22 @@ AUX_HD S finite_or_zero(S x) {
   return isfinite(x) ? x : (S)0;
 }
 
-// The columns of a tile of E entries: the least power of two whose square is
-// at least E, at most D (2 x 4 tiles of 8, 2 x 2 of 4, 1 x 2 of 2).
+// The columns of a tile of E entries: the least c whose square is at least E
+// such that c divides D and E, and E / c divides D (at D = 16 and 32, where
+// every such c is a power of two: 2 x 4 tiles of 8, 2 x 2 of 4, 1 x 2 of 2;
+// at D = 48: 3 x 6 of 18, 4 x 6 of 24, 3 x 3 of 9, 6 x 6 of 36).
 constexpr int tile_cols(int E, int D) {
   int c = 1;
-  while (c * c < E && c < D) c *= 2;
+  while (c < D && (c * c < E || D % c != 0 || E % c != 0 || D % (E / c) != 0)) ++c;
   return c;
 }
 
 // Thread t of a team of NT owns rows [r0, r0 + RPT) x columns [c0, c0 + CPT)
-// of each D x D result: E = D^2 / NT entries in as square a tile as powers
-// of two allow, since a product's shared-memory reads are D (RPT + CPT) a
-// thread for its E entries (at D = 16: 2 x 4 on 32 threads, 1 x 2 on 128,
-// everything in the host build's one thread).
+// of each D x D result: E = D^2 / NT entries in as square a tile as D's
+// divisors allow, since a product's shared-memory reads are D (RPT + CPT) a
+// thread for its E entries (at D = 16: 2 x 4 on 32 threads, 1 x 2 on 128;
+// at D = 48: 3 x 6 on 128, 4 x 6 on 96; everything in the host build's one
+// thread).
 template <int D, int NT>
 struct Tile {
   static constexpr int E = D * D / NT, CPT = tile_cols(E, D), RPT = E / CPT;

@@ -11,7 +11,8 @@ plain agree to rounding.
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel or raises. On the card each scan is one launch on the
-current stream, of the instance (D = 16 or 32) that d selects: the chunks'
+current stream, of the instance (D = 16, 32, or 48 in float32) that d
+selects: the chunks'
 blocks hand their totals on through words in global memory, with a
 {ticket, blocks done, epoch} state that the kernel leaves ready for the
 next launch. The module keeps one buffer and state for
@@ -29,12 +30,12 @@ its elements; the plain versions run the same chunks, batched over C.
 """
 import torch
 
-from ._build import MAX_DIM, check_cuda_inputs, instance_dim, launch
+from ._build import check_cuda_inputs, instance_dim, launch, max_dim
 from .kalman_fused import _check_shapes, _on_cuda
 
 # Values of one padded element (scan.cu's OpLay<Op>::slot, rows of D + 4) at
 # each instance's D: the filter's A, C, J and b, eta; the affine scan's G and e.
-SLOTS = {"filter": {16: 992, 32: 3520}, "affine": {16: 336, 32: 1184}}
+SLOTS = {"filter": {16: 992, 32: 3520, 48: 7584}, "affine": {16: 336, 32: 1184, 48: 2544}}
 CHUNK_PER, MAX_CHUNKS = 4, 128  # the elements a chunk aims at; chunks at most (a block an SM)
 
 
@@ -112,7 +113,7 @@ def _scan_io(name, kinds, elems):
     n, d = ref.shape[0], ref.shape[-1]
     chains = None if ref.dim() == 2 else ref.shape[1]
     _check_shapes(name, kinds, elems, n, d, d, chains)
-    args = check_cuda_inputs(name, elems, ref.dtype, MAX_DIM, (d,))
+    args = check_cuda_inputs(name, elems, ref.dtype, max_dim(ref.dtype), (d,))
     return (n, chains or 1, d), args, tuple(torch.empty_like(z) for z in args)
 
 
@@ -145,7 +146,7 @@ def _hand_state(scan, n, ref, chains=1):
     (ticket, blocks done, epoch) for the device and dtype of `ref` and the
     current stream; see `hand_state`."""
     chunks = scan_chunks(n)
-    slot = SLOTS[scan][instance_dim(ref.shape[-1])]
+    slot = SLOTS[scan][instance_dim(ref.shape[-1], ref.dtype)]
     words = chunks.bit_length() * chunks * slot * ref.element_size() // 4
     return hand_state(scan, chains * words, ref)
 
@@ -188,12 +189,14 @@ def filter_scan_timeline(elems):
 def combine_cycles(elems, threads, reps, scan="filter"):
     """Diagnostics on the card: clock64 cycles of one combine of `scan`
     ("filter": elems = (A, b, C, eta, J); "affine": elems = (G, e)) on a
-    team of `threads` (32, 64, 128 or 256), the mean over a chain of `reps`
+    team of `threads` (32, 64, 128 or 256 as scan.cu's `combine_cycles_on`
+    takes them: at D = 48 the filter's on 256 alone), the mean over a chain of `reps`
     (l <- l (+) elems[1] from l = elems[0], each result the next one's
     input); returns (cycles, the last result)."""
     args = tuple(z[:2].contiguous() for z in elems)
     d = args[1].shape[1]
-    args = check_cuda_inputs(f"{scan}_combine_cycles", args, args[1].dtype, MAX_DIM, (d,))
+    args = check_cuda_inputs(f"{scan}_combine_cycles", args, args[1].dtype,
+                             max_dim(args[1].dtype), (d,))
     out = tuple(torch.empty_like(z[:1]) for z in args)
     cycles = torch.zeros(1, dtype=torch.int64, device=args[1].device)
     launch(f"{scan}_combine_cycles", args[1].dtype, d, threads, reps, *args, *out, cycles)

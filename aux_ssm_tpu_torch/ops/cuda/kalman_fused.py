@@ -2,11 +2,12 @@
 plain PyTorch versions (counterpart of `aux_ssm_tpu/ops/pallas/kalman_fused.py`).
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
-launches the kernel or raises. On the card each kernel has two compile-time
-instances, chosen in the kernel library by max(dx, dy): D = 16 up to 16, D =
-32 up to 32 (`_build.instance_dim`); past 32 the wrapper raises. Each
-wrapper counts its kernel launches (either instance) in its `launches`
-attribute.
+launches the kernel or raises. On the card each kernel has compile-time
+instances chosen in the kernel library by max(dx, dy) and the dtype: D = 16
+up to 16, D = 32 up to 32, and in float32 D = 48 up to 48
+(`_build.instance_dim`); past the dtype's last (`_build.max_dim`: 48 in
+float32, 32 in float64) the wrapper raises. Each wrapper counts its kernel
+launches (any instance) in its `launches` attribute.
 
 Shapes (n = T - 1 steps): Fs/Qs (n, dx, dx), bs (n, dx), Hs (n, dy, dx),
 Rs (n, dy, dy), cs/ys (n, dy), ms/x (n, dx), Ps (n, dx, dx).
@@ -27,7 +28,7 @@ from ..batched import mT, mv, sym
 from ..chol import cholesky
 from ..lgssm import _masked_step_logpdf, mask_observation
 from ..mvn import logpdf as mvn_logpdf
-from ._build import MAX_DIM, check_cuda_inputs, launch
+from ._build import check_cuda_inputs, launch, max_dim
 
 
 def _on_cuda(name, ref):
@@ -74,7 +75,7 @@ def chain_operands(name, kinds, tensors, dims):
     n = tensors[0].shape[0]
     if all(len(lead) == 1 for lead in leads):
         _check_shapes(name, kinds, tensors, n, dims[0], dims[-1])
-        return (n,), 1, 0, check_cuda_inputs(name, tensors, ref.dtype, MAX_DIM, dims)
+        return (n,), 1, 0, check_cuda_inputs(name, tensors, ref.dtype, max_dim(ref.dtype), dims)
     C = max((lead[1] for lead in leads if len(lead) == 2), default=1)
     shared, out = 0, []
     for i, (kind, t, lead) in enumerate(zip(kinds, tensors, leads)):
@@ -88,7 +89,7 @@ def chain_operands(name, kinds, tensors, dims):
             shared |= 1 << i
             t = t[:, 0]
         out.append(t)
-    return (n, C), C, shared, check_cuda_inputs(name, out, ref.dtype, MAX_DIM, dims)
+    return (n, C), C, shared, check_cuda_inputs(name, out, ref.dtype, max_dim(ref.dtype), dims)
 
 
 # --------------------------------------------------------------------------

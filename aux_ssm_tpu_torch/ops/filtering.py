@@ -10,7 +10,7 @@ Two layouts, told apart by `bs.ndim` (see `lgssm`):
     Fs/Qs (T-1, dx, dx), bs (T-1, dx), Hs (T, dy, dx), Rs (T, dy, dy),
     cs (T, dy). Elements, scan and log-likelihood increments go through the
     d x d wrappers of `ops/cuda/` where max(dx, dy) has a kernel instance
-    (`_build.has_instance`), else through their plain versions on any
+    in the dtype (`_build.has_instance`), else through their plain versions on any
     device; the t = 0 update stays in plain torch.
   - batched scalar, B independent filters with dx = dy = 1 (the spatial
     model): ys (T, B, 1), m0 (B, 1), P0 (B, 1, 1), Fs/Qs (T-1, B, 1, 1),
@@ -122,7 +122,7 @@ def _parallel_filtering(ys, m0, P0, Fs, Qs, bs, Hs, Rs, cs):
     # The t = 0 update is outside the scan; the first element carries it.
     m0, P0, ell0 = kalman_update(ys[0], m0, P0, Hs[0], cs[0], Rs[0])
     elems = _make_associative_elements(Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], m0, P0)
-    kernels = has_instance(m0.shape[-1], ys.shape[-1])
+    kernels = has_instance(m0.shape[-1], ys.shape[-1], dtype=bs.dtype)
     _, ms, Ps, _, _ = (filter_scan if kernels else filter_scan_plain)(elems)
     ms = torch.cat([m0[None], ms])
     Ps = torch.cat([P0[None], Ps])
@@ -239,6 +239,6 @@ def _make_associative_elements(Fs, Qs, bs, Hs, Rs, cs, ys, m0, P0):
     n = bs.shape[0]
     m = torch.cat([m0[None], m0.new_zeros((n - 1,) + m0.shape)])
     P = torch.cat([P0[None], P0.new_zeros((n - 1,) + P0.shape)])
-    make = (_fused.make_elements if has_instance(m0.shape[-1], ys.shape[-1])
+    make = (_fused.make_elements if has_instance(m0.shape[-1], ys.shape[-1], dtype=bs.dtype)
             else _fused.make_elements_plain)
     return make(Fs, Qs, bs, Hs, Rs, cs, ys, m, P)

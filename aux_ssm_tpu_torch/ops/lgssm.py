@@ -146,7 +146,7 @@ def trajectory_logdensity(ys, xs, lgssm, keep_batch=False):
     """log p(x_{0:T}) + log p(y_{0:T} | x_{0:T}). Unbatched and dense batched
     layouts: the t = 0 terms in plain torch, the t >= 1 steps through
     `kalman_fused.logdensity_steps` (all chains in one launch; its plain
-    version where max(dx, dy) has no kernel instance). Batched
+    version where max(dx, dy) has no kernel instance in the dtype). Batched
     scalar layout: the elementwise closed forms of `log_likelihood` and
     `prior_logpdf`. A batched layout sums over its filters, or with
     `keep_batch` gives one value a filter (B,)."""
@@ -157,7 +157,8 @@ def trajectory_logdensity(ys, xs, lgssm, keep_batch=False):
     if batched_scalar_layout(bs, cs):
         return (log_likelihood(ys, xs, lgssm, keep_batch)
                 + prior_logpdf(xs, lgssm, keep_batch))
-    steps = (kalman_fused.logdensity_steps if has_instance(xs.shape[-1], ys.shape[-1])
+    steps = (kalman_fused.logdensity_steps
+             if has_instance(xs.shape[-1], ys.shape[-1], dtype=xs.dtype)
              else kalman_fused.logdensity_steps_plain)(
         Fs, Qs, bs, Hs[1:], Rs[1:], cs[1:], ys[1:], xs[:-1], xs[1:])
     pred0 = mv(Hs[0], xs[0]) + cs[0]

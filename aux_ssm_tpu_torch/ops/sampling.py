@@ -8,7 +8,7 @@ reverse associative scan or a reverse sequential loop.
 
 Two layouts (see `lgssm`). Unbatched, ms (T, dx), Ps (T, dx, dx), eps (T, dx):
 the maps and the scan go through the d x d wrappers of `ops/cuda/` where dx
-has a kernel instance (`_build.has_instance`), else through their plain
+has a kernel instance in the dtype (`_build.has_instance`), else through their plain
 versions on any device; the last step is plain torch. Batched scalar, ms (T, B, 1), Ps (T, B, 1, 1), eps
 (T, B, 1): the maps are elementwise closed forms in plain torch and the scan
 goes through `ops/cuda/scalar_scan.scalar_affine_scan`. Dense batched (C
@@ -49,7 +49,7 @@ def sampling(eps, ms, Ps, lgssm: LGSSM, parallel: bool):
                                 lgssm.Qs[..., 0, 0], lgssm.bs[..., 0], parallel)[..., None]
     gains, incs = _backward_maps(eps, ms, Ps, lgssm.Fs, lgssm.Qs, lgssm.bs)
     if parallel:
-        scan = affine_scan if has_instance(ms.shape[-1]) else affine_scan_plain
+        scan = affine_scan if has_instance(ms.shape[-1], dtype=ms.dtype) else affine_scan_plain
         return scan(gains, incs, reverse=True)[1]
     x = incs[-1]
     xs = [x]
@@ -110,7 +110,7 @@ def backward_map_moments(F, Q, b, m, P):
 
 
 def _backward_maps(eps, ms, Ps, Fs, Qs, bs):
-    maps = backward_maps if has_instance(ms.shape[-1]) else backward_maps_plain
+    maps = backward_maps if has_instance(ms.shape[-1], dtype=ms.dtype) else backward_maps_plain
     gains, incs = maps(Fs, Qs, bs, ms[:-1], Ps[:-1], eps[:-1])
     # The last step is handled outside the kernel.
     P_last = Ps[-1]

@@ -87,7 +87,8 @@ def sharded_filtering_scan(mesh, elems, axis=TIME):
     kernel (its plain version on the CPU, or past the kernels' widths)."""
     from ..ops.cuda.filter_scan import filter_scan, filter_scan_plain
     from ..ops.filtering import filtering_operator
-    scan = filter_scan if has_instance(elems[1].shape[-1]) else filter_scan_plain
+    scan = (filter_scan if has_instance(elems[1].shape[-1], dtype=elems[1].dtype)
+            else filter_scan_plain)
     return sharded_associative_scan(mesh, filtering_operator, elems, axis=axis,
                                     local_scan=scan)
 
@@ -98,6 +99,7 @@ def sharded_sampling_scan(mesh, gains_incs, axis=TIME):
     through the affine scan kernel, reversed."""
     from ..ops.cuda.filter_scan import affine_scan, affine_scan_plain
     from ..ops.sampling import sampling_operator
-    scan = affine_scan if has_instance(gains_incs[1].shape[-1]) else affine_scan_plain
+    scan = (affine_scan if has_instance(gains_incs[1].shape[-1], dtype=gains_incs[1].dtype)
+            else affine_scan_plain)
     return sharded_associative_scan(mesh, sampling_operator, gains_incs, reverse=True,
                                     axis=axis, local_scan=lambda b: scan(*b, reverse=True))

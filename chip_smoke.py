@@ -152,8 +152,9 @@ the MH kernels' D = 32 instance; benchmarks/sv_sweep.sh):
  20. the six MH kernels' D = 32 instance against their plain versions on a
      real SV kalman-1 step's inputs (the committed run's data, xs_true and
      delta), f32 and f64, make_elements, ell and logdensity_steps also with
-     a share NAN_SHARE of the observations missing, then on random
-     well-conditioned models at d = 17 and d = 32 (the instance's edges). At
+     a share NAN_SHARE of the observations missing, then make_elements and
+     the filter scan on random well-conditioned models at d = 17 and d = 32
+     (the instance's edges; `edge_kernels`). At
      D = 30 the f32 plain version itself misses NREL_F32 against f64 on some
      outputs (make_elements' A and C: the cancellation in P_pred - K S K^T,
      1.7e-4 and 7.2e-4), where no f32 kernel can agree with it to NREL_F32:
@@ -320,11 +321,12 @@ column draws, and the shapes past the kernels' instances:
      their seeds (f32 and f64); at C = 4 the launch's time (events and the
      profiler's device ms) beside the C = 1 launch's and 4 one-chain
      launches', the twin's and the bound (operations and issue rate);
- 34. (after phase 21) widths past the kernels' instances, f64 steps on the
+ 34. (after phase 21) widths past the kernels' instances, steps on the
      card against the CPU, given the same noise: SV kalman-1 at D = 33
-     (T=16), none of the six d x d kernels launched (their callers route
-     max(dx, dy) > 32 to the plain versions, `_build.has_instance`);
-     spatial csmc-guided at d = 81 (9 x 9, T=8, N=16), the block-lane sweep
+     (T=16) in f64 and at D = 49 in f32 (to X_F32), none of the six d x d
+     kernels launched (their callers route max(dx, dy) past 32 in f64, past
+     48 in f32, to the plain versions, `_build.has_instance`); spatial
+     csmc-guided at d = 81 in f64 (9 x 9, T=8, N=16), the block-lane sweep
      launched once a step past the 64 components its lanes keep in
      registers (SpatialGuided's wide path: those components in the warp's
      shared scratch). Then that sweep on a real csmc-guided-grad step's
@@ -361,7 +363,30 @@ column draws, and the shapes past the kernels' instances:
      added to the kernels' counts (the chains mesh's to the chain-instance
      entries), and the per-shard block_masses numbers sit in block_masses'
      entry as `per_shard`.
-To make room, phase 3 runs 100 steps (200 before), phase 10 300 + 1000
+The float32 D = 48 instance of the six MH kernels (SV at D = 33-48):
+ 36. (run right after the build, after phase 30's checks) the six kernels'
+     D = 48 instance on a real SV kalman-1 step's inputs at D = SV48_D = 40,
+     T = 128 (simulated, seed 36; delta SV48_DELTA), f32 against the f32
+     plain version and the f64 plain version at phase 20's bounds (no f64
+     kernel: f64 stops at 32), with each kernel's device ms by the profiler;
+     the chain instances at C = SV48_CHAINS = 32 (C = 1 and three chains
+     bit-equal to one-chain launches); make_elements and the filter scan at
+     the edges 33 and 48 on random models; the filter and affine combines'
+     clock64 cycles (the filter's on its chain's 256 threads, the affine's
+    on 128 and 256). Then SV kalman-1 and kalman-2 at
+     C = 1 and C = 32 from the simulated states at their frozen deltas,
+     SV48_SCHEDULE: in f32 through the instance (10 launches a step at both
+     C, nothing else) and in f64 through the plain route on the card (no
+     launch): the f32 update rate within SV48_RATE_SE standard errors
+     (batch means) of the f64 one, samples/s of all chains of both; a
+     profile of the f32 kalman-1 step, its kernels the D = 48 instance's by
+     name.
+For phase 36 (~45 s, and scan.cu's D = 48 instances in the build), phase
+20's edges run make_elements and the filter scan only (all six before: the
+other four pad d as make_elements does, and the card tests and the host
+build run them at the edges), and phase 36's own one-chain runs are 5 + 80
+(10 + 150 before: the f64 plain route takes ~75 ms a step). To make room
+before, phase 3 runs 100 steps (200 before), phase 10 300 + 1000
 iterations (300 + 2000 before), phase 11 is cut for phase 29 (its chains
 ran 500 + 1200 a bounded cell, 300 + 400 the hardest), phase 15's
 replicate chains 300 + 700 (kalman-1) and 300 + 700 (csmc-guided) (300
@@ -389,10 +414,15 @@ whole takes 383-605 s with the build on an H100, as fast as the host is
 the last cuts of phases 15 and 19; with phases 33-34 596.0 s on a host that
 ran one theta-logistic chain at half the usual samples/s, before the last
 cuts of phases 26 and 28; with phase 35 470.5 s from a `git archive` on
-a host whose phases 0-7 took 109.5 s, 601.5 s on a slow one); phase 35
+a host whose phases 0-7 took 109.5 s, 601.5 s on a slow one; with phase
+36 572.4 s on a host whose phases 1-7 took as long as that one's, before
+its cuts and the D = 48 filter combine's call, 668.1 s on a slower one
+after them); phase 36 ~30-48 s, phase 35
 ~28 s, phase 33 ~16 s, phases 20-22 take ~30 s, phases 23-25
 ~26 s, phases 26-28 27-55 s, phase 29 50-110 s, phase 30 ~12 s, phase 31
-~21-31 s, the build ~43-56 s.
+~21-31 s, the build ~43-56 s before phase 36 and 84-88 s in its first
+runs (scan.cu alone 82 s with the D = 48 filter combine inlined; 52 s with
+it called and without its 128-thread cycles instance).
 Each kernel's entry of the JSON summary carries its bound: the least time the
 card could take for the call, the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the 67
@@ -413,6 +443,9 @@ A factor sweep's entry counts the launches of both its kernels, and its
 alone where N <= 32. The line before the last is the kernels' JSON summary;
 the D = 32 instances have entries of their own (`make_elements_d32`, ...:
 phase 20's numbers at the SV shape, phase 22's launches), and so have the
+D = 48 instances (`make_elements_d48`, ...: phase 36's numbers at D = 40,
+C = 1, with its C = 32 entry inside as `chains`; their launches those of
+phase 36's f32 chains, C = 1 and 32), and so have the
 six kernels at the Lorenz shape (`make_elements_lorenz`, ...: phase 23's
 numbers at delta 1e20, phase 25's launches); the launches of phases 26-27's
 uninterrupted driver runs are added to each kernel's count (the SV kalman
@@ -556,9 +589,11 @@ def nrel(got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-300))
 
 
-def compare(name, wrapper, plain, args, ops, reps=20, own_bound=False, device_time=False):
+def compare(name, wrapper, plain, args, ops, reps=20, own_bound=False, device_time=False,
+            f64_kernel=True):
     """Kernel vs plain on the same f32 inputs and vs plain on their f64 cast;
-    the f64 kernel vs the f64 plain version; times of kernel and plain (f32);
+    the f64 kernel vs the f64 plain version (unless not `f64_kernel`: the
+    float32-only D = 48 instance); times of kernel and plain (f32);
     the bound from the call's tensors and `ops` operations. With
     `own_bound`, an output whose f32 plain version itself misses NREL_F32
     against the f64 plain version (its own error e) holds the f32 kernel to
@@ -572,21 +607,25 @@ def compare(name, wrapper, plain, args, ops, reps=20, own_bound=False, device_ti
     got = as_tuple(wrapper(*args))
     want32 = as_tuple(plain(*args))
     want64 = as_tuple(plain(*args64))
-    got64 = as_tuple(wrapper(*args64))
+    got64 = as_tuple(wrapper(*args64)) if f64_kernel else (None,) * len(got)
     torch.cuda.synchronize()
     result = {"max_abs_err": 0.0, "nrel_f32": 0.0, "nrel_f64": 0.0, "nrel_f64_kernel": 0.0,
               "nrel_plain_f32": 0.0}
+    if not f64_kernel:
+        del result["nrel_f64_kernel"]
     bad = {}
     for i, (g, w32, w64, g64) in enumerate(zip(got, want32, want64, got64)):
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{name}: output {i} of the kernel is not finite")
         errs = {"max_abs_err": float((g.double() - w32.double()).abs().max()),
                 "nrel_f32": nrel(g, w32), "nrel_f64": nrel(g, w64),
-                "nrel_f64_kernel": nrel(g64, w64), "nrel_plain_f32": nrel(w32, w64)}
+                "nrel_f64_kernel": nrel(g64, w64) if f64_kernel else None,
+                "nrel_plain_f32": nrel(w32, w64)}
         log(f"  {name}[{i}] shape={tuple(g.shape)} " + " ".join(
-            f"{k}={v:.3e}" for k, v in errs.items()))
+            f"{k}={v:.3e}" for k, v in errs.items() if v is not None))
         for k, v in errs.items():
-            result[k] = max(result[k], v)
+            if v is not None:
+                result[k] = max(result[k], v)
         own = errs["nrel_plain_f32"]
         lifted = own_bound and own > NREL_F32
         if lifted:
@@ -596,7 +635,7 @@ def compare(name, wrapper, plain, args, ops, reps=20, own_bound=False, device_ti
         for k, lim in (("nrel_f32", 3 * own if lifted else NREL_F32),
                        ("nrel_f64", 2 * own if lifted else NREL_F32),
                        ("nrel_f64_kernel", NREL_F64)):
-            if not errs[k] <= lim:
+            if errs[k] is not None and not errs[k] <= lim:
                 bad[f"{k}[{i}]"] = (errs[k], lim)
     if bad:
         raise AssertionError(f"{name}: error above bound (error, bound): {bad}")
@@ -1430,24 +1469,25 @@ def phase_lane_kernel(dev):
     return result
 
 
-def as_noise(z, where):
+def as_noise(z, where, dtype="float64"):
     """A step's noise (NumPy, nested in tuples and lists) as tensors on
-    `where`: floats in float64, integers (the PIT level seeds) in int32."""
+    `where`: floats in `dtype`, integers (the PIT level seeds) in int32."""
     import numpy as np
     import torch
     if isinstance(z, (tuple, list)):
-        return type(z)(as_noise(v, where) for v in z)
+        return type(z)(as_noise(v, where, dtype) for v in z)
     if np.issubdtype(np.asarray(z).dtype, np.integer):
         return torch.as_tensor(np.asarray(z), dtype=torch.int32, device=where)
-    return torch.as_tensor(z, dtype=torch.float64, device=where)
+    return torch.as_tensor(z, dtype=getattr(torch, dtype), device=where)
 
 
-def steps_on_both(label, build, state0, delta, noises, dev, used):
-    """The f64 steps of `build(where) -> (init, kernel)` on the card and on
-    the CPU from the same state and noise: `updated` identical, states to
-    RTOL_F64; the card's steps launched each wrapper of `used` once a step
-    (`used` a tuple), or `used[name]` times a step and no other wrapper at all
-    (`used` a dict)."""
+def steps_on_both(label, build, state0, delta, noises, dev, used, dtype="float64",
+                  bound=RTOL_F64):
+    """The steps of `build(where) -> (init, kernel)` in `dtype` (state0's)
+    on the card and on the CPU from the same state and noise: `updated`
+    identical, states to `bound` (|card - CPU| / (1 + |CPU|)); the card's
+    steps launched each wrapper of `used` once a step (`used` a tuple), or
+    `used[name]` times a step and no other wrapper at all (`used` a dict)."""
     import torch
     from aux_ssm_tpu_torch.ops import cuda as K
     runs = {}
@@ -1457,8 +1497,8 @@ def steps_on_both(label, build, state0, delta, noises, dev, used):
         K.reset_launches()
         out = []
         for noise in noises:
-            noise = as_noise(noise, where)
-            args = () if delta is None else (torch.as_tensor(delta, dtype=torch.float64,
+            noise = as_noise(noise, where, dtype)
+            args = () if delta is None else (torch.as_tensor(delta, dtype=getattr(torch, dtype),
                                                              device=where),)
             state = kernel(state, *args, noise=noise)
             out.append((state.x.cpu(), state.updated.cpu()))
@@ -1474,8 +1514,8 @@ def steps_on_both(label, build, state0, delta, noises, dev, used):
         if not torch.equal(uc, ug):
             raise AssertionError(f"{label}: `updated` differs between card and CPU")
         worst = max(worst, float(((xg - xc).abs() / (1 + xc.abs())).max()))
-    log(f"  {label}, f64: card vs CPU rel err {worst:.3e} (bound {RTOL_F64:g})")
-    if not worst <= RTOL_F64:
+    log(f"  {label}, {dtype}: card vs CPU rel err {worst:.3e} (bound {bound:g})")
+    if not worst <= bound:
         raise AssertionError(f"{label}: card and CPU steps differ by {worst:.3e}")
 
 
@@ -2678,6 +2718,28 @@ def random_mh_inputs(dev, T_, d, seed):
     return tuple(cast[:7]), cast[7], cast[8], cast[9]
 
 
+def edge_kernels(dev, T_, d, **kw):
+    """make_elements and the filter scan on a random well-conditioned model at
+    dx = dy = d (`random_mh_inputs`), an instance's edge, against their plain
+    versions (`compare`, with `kw`). The other four kernels pad d as
+    make_elements does and run at the edges in the card tests
+    (`tests/test_torch_cuda.py`) and the host build."""
+    import torch
+    from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
+    from aux_ssm_tpu_torch.ops.cuda import kalman_fused as KF
+    from aux_ssm_tpu_torch.ops.filtering import _make_associative_elements
+    log(f"  make_elements and the filter scan on a random well-conditioned model at dx=dy={d}, "
+        f"T={T_} (the instance's edge):")
+    steps, m0u, P0u, _ = random_mh_inputs(dev, T_, d, seed=d)
+    n, ops = T_ - 1, mh_ops(T_ - 1, d)
+    m_el = torch.cat([m0u[None], m0u.new_zeros(n - 1, d)])
+    P_el = torch.cat([P0u[None], P0u.new_zeros(n - 1, d, d)])
+    compare(f"make_elements_d{d}_random", KF.make_elements, KF.make_elements_plain,
+            steps + (m_el, P_el), ops["make_elements"], **kw)
+    compare(f"filter_scan_d{d}_random", FS.filter_scan, FS.filter_scan_plain,
+            (_make_associative_elements(*steps, m0u, P0u),), ops["filter_scan"], **kw)
+
+
 def phase_wide_kernels(dev):
     """Phase 20: the six MH kernels' D = 32 instance on a real SV kalman-1
     step's inputs, and on random models at the instance's edges; returns the
@@ -2700,10 +2762,7 @@ def phase_wide_kernels(dev):
     results = check_mh_kernels("_d32", steps, m0u, P0u, eps, holes_seed=20, own_bound=True,
                                device_time=True)[0]
     for d in (17, 32):
-        log(f"  a random well-conditioned model at dx=dy={d}, T={SV_T} (the instance's edge):")
-        steps_r, m0r, P0r, eps_r = random_mh_inputs(dev, SV_T, d, seed=d)
-        check_mh_kernels(f"_d{d}_random", steps_r, m0r, P0r, eps_r, holes_seed=d,
-                         own_bound=True, reps=5)
+        edge_kernels(dev, SV_T, d, own_bound=True, reps=5)
     return results
 
 
@@ -4374,7 +4433,9 @@ DRAW_CHAIN_KERNELS = {  # entry -> (the wrapper whose launches it counts, source
 TL_CHAINS = 32                  # theta-logistic PGAS chains as one batched step (phase 10)
 TL_CHAIN_SCHEDULE = (100, 200)  # burn-in + sampling of that run
 TL_LOOP = (1, 3)                # ... of its chain loop and of its C = 1 count run
-WIDE_SV_D, WIDE_SP_SIDE = 33, 9  # past MAX_DIM = 32 and the 64 components in registers (d = 81)
+WIDE_SV_D, WIDE_SP_SIDE = 33, 9  # past f64's last instance (32) and 64 components in registers
+WIDE_SV_D32 = 49                 # past f32's last instance (48)
+X_F32 = 2e-3                     # f32 steps card vs CPU: float32 moves the drawn path by ~5e-4
 
 
 def blocked_chain_kernel(ys, N, draws, chains=True):
@@ -4665,7 +4726,9 @@ def phase_wide_routes(dev):
     block-lane functors' register width. In f64 on the card against the CPU
     given the same noise (`steps_on_both`, RTOL_F64): two SV kalman-1 steps
     at D = WIDE_SV_D (T=16), the six d x d wrappers launched 0 times (phase
-    21 launches them at D = 30); two spatial csmc-guided steps at d = 81
+    21 launches them at D = 30); the same in f32 at D = WIDE_SV_D32, past the
+    f32 D = 48 instance (phase 36 launches them at D = 40), to X_F32; two
+    spatial csmc-guided steps at d = 81
     (side WIDE_SP_SIDE, T=8, N=16), the block-lane sweep launched once a
     step, its lanes' components in the warp's shared scratch (d = 64, in
     registers, is phases 13-14's). Then the block-lane sweep alone on a real
@@ -4676,9 +4739,10 @@ def phase_wide_routes(dev):
     from aux_ssm_tpu_torch.models import stochastic_volatility as sv
     f32, f64 = torch.float32, torch.float64
     d = WIDE_SP_SIDE ** 2
-    log(f"phase 34: widths past the kernels' instances, f64 card vs CPU: SV kalman-1 at D = "
-        f"{WIDE_SV_D} (the d x d kernels stop at 32: plain versions), spatial csmc-guided at "
-        f"d = {d} (the block-lane sweep past its register width: components in shared memory)")
+    log(f"phase 34: widths past the kernels' instances, card vs CPU: SV kalman-1 at D = "
+        f"{WIDE_SV_D} in f64 and D = {WIDE_SV_D32} in f32 (the d x d kernels stop at 32 in f64, "
+        f"48 in f32: plain versions), spatial csmc-guided at d = {d} in f64 (the block-lane "
+        "sweep past its register width: components in shared memory)")
     rng = np.random.default_rng(34)
     T_ = 16
     xs, ys = sv.get_data(*SV_PARAMS, WIDE_SV_D, T_, generator=torch.Generator().manual_seed(34),
@@ -4688,6 +4752,13 @@ def phase_wide_routes(dev):
                   xs, 0.05, [(rng.standard_normal((T_, WIDE_SV_D)),
                               rng.standard_normal((T_, WIDE_SV_D)), rng.uniform())
                              for _ in range(2)], dev, {})
+    xs, ys = (z.float() for z in sv.get_data(*SV_PARAMS, WIDE_SV_D32, T_, device="cpu",
+                                             generator=torch.Generator().manual_seed(34)))
+    steps_on_both(f"SV kalman-1 step T={T_} D={WIDE_SV_D32}",
+                  lambda where: sv.get_kalman_kernel(ys.to(where), *SV_PARAMS, True, 1),
+                  xs, 0.05, [(rng.standard_normal((T_, WIDE_SV_D32)),
+                              rng.standard_normal((T_, WIDE_SV_D32)), rng.uniform())
+                             for _ in range(2)], dev, {}, dtype="float32", bound=X_F32)
     T_, N_ = 8, 16
     sxs, sys_ = spatial_data("cpu", f64, T_, WIDE_SP_SIDE, seed=34)
     steps_on_both(
@@ -4714,6 +4785,200 @@ def phase_wide_routes(dev):
     nnz = int((seen[f32][1].c.prec != 0).sum())
     return check_block_lane(f"spatial csmc-guided-grad T={SP_T} d={d} N={SP_N}", seen[f32],
                             seen[f64], reps=10, ops_per_particle=4 * nnz + 40 * d)
+
+
+# ---------------------------------------------------------------------------
+# Phase 36: the MH kernels' float32 D = 48 instance (SV at D = 33-48)
+# ---------------------------------------------------------------------------
+
+SV48_D, SV48_T = 40, 128   # inside the JAX package's Pallas range (f32 d <= 43 at T <= 128)
+SV48_EDGES = (33, 48)      # the instance's edges, on random models
+SV48_CHAINS = 32           # chains of the dense batched layout
+SV48_DELTA = {"kalman-1": 0.05, "kalman-2": 0.1}  # frozen: update rate ~0.5 at this shape
+SV48_SCHEDULE = {1: (5, 80), SV48_CHAINS: (5, 40)}  # burn-in + sampling a run, by C
+SV48_BATCHES = 10          # batches of a chain's accepts for the rate's standard error
+SV48_RATE_SE = 4.0         # f32 kernel route's rate vs the f64 plain route's, in standard errors
+# What each kernel's name holds in the profiler at the D = 48 instance.
+WIDE48_NAMES = {"make_elements": r"elements_kernel<float, 48\b",
+                "filter_scan": r"FilterOp<float, 48>",
+                "ell": r"ell_kernel<float, 48\b",
+                "backward_maps": r"backward_maps_kernel<float, 48\b",
+                "affine_scan": r"AffineOp<float, 48>",
+                "logdensity_steps": r"logdensity_kernel<float, 48\b"}
+
+
+def sv48_data(dev, dtype):
+    """(xs, ys) of the SV model at D = SV48_D, T = SV48_T, simulated in
+    float64 on the CPU from seed 36 (xs an exact posterior draw given ys),
+    on `dev` in `dtype`."""
+    import torch
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    xs, ys = sv.get_data(*SV_PARAMS, SV48_D, SV48_T, generator=torch.Generator().manual_seed(36),
+                         device="cpu")
+    return xs.to(device=dev, dtype=dtype), ys.to(device=dev, dtype=dtype)
+
+
+def sv48_step_inputs(dev, C, gen):
+    """A real SV kalman-1 step's kernel inputs at D = SV48_D (f32, `mh_inputs`)
+    from xs, at the frozen delta: one chain (C = 0: (T, D)), or C chains
+    of the dense batched layout (time first, each with its own u and delta
+    0.75-1.25 times it, F, Q and b shared); with the draw's normals."""
+    import torch
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    f32 = torch.float32
+    xs, ys = sv48_data(dev, f32)
+    delta = SV48_DELTA["kalman-1"]
+    if not C:
+        dyn, obs1, _, _ = sv.get_kalman_factories(ys, *SV_PARAMS)
+        u = xs + (0.5 * delta) ** 0.5 * torch.randn(xs.shape, generator=gen, device=dev)
+        return (*mh_inputs(dyn, obs1, xs, u, delta),
+                torch.randn(xs.shape, generator=gen, device=dev))
+    deltas = delta * torch.linspace(0.75, 1.25, C, dtype=f32, device=dev)
+    x = xs[:, None].expand(SV48_T, C, SV48_D)
+    u = x + (0.5 * deltas[:, None]).sqrt() * torch.randn(x.shape, generator=gen, device=dev)
+    dyn, obs1, _, _ = sv.get_kalman_factories(ys, *SV_PARAMS, chains=True)
+    return (*mh_inputs(dyn, obs1, x, u, deltas), torch.randn(x.shape, generator=gen, device=dev))
+
+
+def sv48_kernels(dev):
+    """The six MH kernels' D = 48 instance (float32 only: no f64 kernel to
+    hold) on a real SV kalman-1 step's inputs at D = SV48_D, T = SV48_T,
+    against their plain versions at phase 20's bounds, with device ms by the
+    profiler; the same at C = SV48_CHAINS chains of the dense batched layout
+    (C = 1 and three chains bit-equal to one-chain launches); make_elements
+    and the filter scan at the edges 33 and 48 on random models; the filter
+    combine's cycles on its chain's 256 threads, the affine's on 128 and
+    256. Returns the entries at C = 1, each with its C entry
+    inside."""
+    import torch
+    from aux_ssm_tpu_torch.ops.cuda import filter_scan as FS
+    gen = torch.Generator(device=dev).manual_seed(36)
+    kw = dict(own_bound=True, f64_kernel=False)
+    log(f"phase 36: the MH kernels' float32 D = 48 instance on a real SV kalman-1 step's inputs "
+        f"(T={SV48_T}, dx=dy={SV48_D}, simulated xs, delta {SV48_DELTA['kalman-1']}; f32 kernel "
+        f"vs f32 plain and vs f64 plain at phase 20's bounds; no f64 kernel past 32)")
+    steps, m0u, P0u, eps = sv48_step_inputs(dev, 0, gen)
+    results, elems, gains, incs = check_mh_kernels("_d48", steps, m0u, P0u, eps, holes_seed=36,
+                                                   device_time=True, **kw)
+    aff = {nt: FS.combine_cycles((gains, incs), nt, 20, scan="affine")[0] for nt in (128, 256)}
+    log(f"  combine cycles at D = 48 (clock64, the mean of a chain of 20): filter "
+        f"{FS.combine_cycles(elems, 256, 20)[0]:.0f} on its chain's 256 threads, affine "
+        f"{aff[128]:.0f} on 128, {aff[256]:.0f} on 256")
+    C = SV48_CHAINS
+    log(f"  the chain instances: C = {C} chains of the dense batched layout, F, Q, b shared:")
+    steps, m0u, P0u, eps = sv48_step_inputs(dev, C, gen)
+    chained = check_chain_mh_kernels("_d48", steps, m0u, P0u, eps, reps=5, device_time=True,
+                                     **kw)[0]
+    for d in SV48_EDGES:
+        edge_kernels(dev, SV48_T, d, reps=3, **kw)
+    for k, v in results.items():
+        v["shape"] = f"T={SV48_T}, D={SV48_D}"
+        v["chains"] = {f"T={SV48_T}, D={SV48_D}, C={C}": chained[k]}
+    return results
+
+
+def sv48_chain(dev, style, order, C, dtype, gen):
+    """SV `style` at D = SV48_D, T = SV48_T from xs at its frozen delta, C
+    chains (the one-chain kernel at C = 1, the batched one past it), in
+    `dtype`: (update rate, its standard error by batch means over each
+    chain's SV48_BATCHES batches, samples/s of all chains, launches)."""
+    import numpy as np
+    import torch
+    from aux_ssm_tpu_torch.experiments import RunConfig, runner
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    from aux_ssm_tpu_torch.ops import cuda as K
+    from aux_ssm_tpu_torch.parallel.chains import run_sharded_chains
+    xs, ys = sv48_data(dev, dtype)
+    burnin, n_samples = SV48_SCHEDULE[C]
+    cfg = RunConfig(n_samples=n_samples, burnin=burnin, learning_rate=0.0)
+    delta = SV48_DELTA[style]
+    K.reset_launches()
+    if C == 1:
+        init, kernel = sv.get_kalman_kernel(ys, *SV_PARAMS, True, order)
+        res = runner.run_chain(kernel, init(xs), cfg, generator=gen, delta_init=delta,
+                               collect_samples=True, collect_fn=lambda s: s.updated)
+    else:
+        init, kernel = sv.get_kalman_kernel(ys, *SV_PARAMS, True, order, chains=True)
+        res = run_sharded_chains(kernel, init(xs.expand(C, -1, -1).clone()), cfg, generator=gen,
+                                 delta_init=torch.full((C,), delta, dtype=dtype, device=dev),
+                                 collect_samples=True, collect_fn=lambda s: s.updated)
+    launches = K.launches()
+    if not bool(torch.isfinite(res.state.x).all()):
+        raise AssertionError(f"{style} C = {C} {dtype}: the chain's state is not finite")
+    accepts = np.asarray(res.samples, dtype=np.float64).reshape(C, SV48_BATCHES, -1)
+    means = accepts.mean(-1).ravel()
+    rate, se = float(accepts.mean()), float(means.std(ddof=1) / len(means) ** 0.5)
+    return rate, se, C * n_samples / res.sampling_time, launches
+
+
+def sv48_chains(dev, card):
+    """SV kalman-1 and kalman-2 at D = SV48_D, T = SV48_T, C = 1 and C =
+    SV48_CHAINS, at their frozen deltas: in float32 through the D = 48
+    instance (every MH kernel launched as at D = 30, 10 a step at C = 1 and
+    at C) and in float64 through the plain route on the card (no d x d
+    kernel: float64 stops at 32); the f32 update rate within SV48_RATE_SE
+    standard errors of the f64 one; samples/s of all chains of both.
+    Returns the six kernels' launches over the f32 runs."""
+    import torch
+    total = dict.fromkeys(KERNELS, 0)
+    log(f"  SV kalman chains at T={SV48_T}, D={SV48_D}, frozen delta "
+        f"{SV48_DELTA}, from xs (an exact posterior draw): f32 through the D = 48 instance "
+        f"against f64 through the plain route, both on the card; rates within "
+        f"{SV48_RATE_SE:g} standard errors (batch means)")
+    for style, (_, order) in SV_KALMAN.items():
+        for C in (1, SV48_CHAINS):
+            burnin, n_samples = SV48_SCHEDULE[C]
+            n_iter = burnin + n_samples
+            runs = {}
+            for dtype in (torch.float32, torch.float64):
+                gen = torch.Generator(device=dev).manual_seed(36 + order)
+                runs[dtype] = sv48_chain(dev, style, order, C, dtype, gen)
+            (r32, se32, sps32, l32), (r64, se64, sps64, l64) = runs[torch.float32], runs[
+                torch.float64]
+            want = {k: KERNELS[k][2] * n_iter for k in KERNELS}
+            if {k: l32[k] for k in KERNELS} != want or any(
+                    v for k, v in l32.items() if k not in KERNELS) or any(l64.values()):
+                raise AssertionError(f"{style} C = {C}: launches f32 {l32}, f64 {l64}; expected "
+                                     f"{want} in f32 and none in f64")
+            z = (r32 - r64) / (se32 ** 2 + se64 ** 2) ** 0.5
+            log(f"  {style}, C = {C}, {burnin} + {n_samples}: update rate f32 {r32:.4f} (se "
+                f"{se32:.4f}), f64 plain {r64:.4f} (se {se64:.4f}), z {z:+.2f}; samples/s of all "
+                f"chains f32 {sps32:.2f}, f64 plain {sps64:.2f} on {card}; f32 launches a step "
+                f"{({k: l32[k] // n_iter for k in KERNELS})}")
+            if not abs(z) <= SV48_RATE_SE:
+                raise AssertionError(f"{style} C = {C}: the f32 rate {r32:.4f} is {z:+.2f} "
+                                     f"standard errors from the f64 plain route's {r64:.4f}")
+            for k in KERNELS:
+                total[k] += l32[k]
+    return total
+
+
+def phase_wide48(dev, card):
+    """Phase 36 (right after phase 30): `sv48_kernels`, `sv48_chains`, and a
+    profile of the f32 kalman-1 step at D = SV48_D (its kernels the D = 48
+    instance's, by name). Returns (the kernel entries, their launches over
+    the f32 chain runs)."""
+    import re
+    import torch
+    from aux_ssm_tpu_torch.models import stochastic_volatility as sv
+    tic = time.perf_counter()
+    results = sv48_kernels(dev)
+    launches = sv48_chains(dev, card)
+    xs, ys = sv48_data(dev, torch.float32)
+    init, kernel = sv.get_kalman_kernel(ys, *SV_PARAMS, True, 1)
+    gen = torch.Generator(device=dev).manual_seed(36)
+    box = [init(xs)]
+    events = profile_steps(f"SV kalman-1 at T={SV48_T}, D={SV48_D}, f32",
+                           lambda: box.__setitem__(0, kernel(box[0], SV48_DELTA["kalman-1"],
+                                                             generator=gen)), n=10)
+    names = [e.key for e in events]
+    missing = [k for k, pat in WIDE48_NAMES.items()
+               if not any(re.search(pat, key) for key in names)]
+    if events and missing:
+        raise AssertionError(f"SV kalman-1 at D = {SV48_D}: the profiler shows no D = 48 "
+                             f"instance of {missing}")
+    log(f"  phase 36 took {time.perf_counter() - tic:.1f} s")
+    return results, launches
 
 
 MESH_SHARDS = 4                 # shards of each phase-35 mesh, over the cards there are
@@ -5078,9 +5343,10 @@ def main():
     log("phase 29, its kernel checks first: the chain-axis instances at M=800 (f64)")
     chain_results = phase_chain_kernels(dev)
     dense_results = phase_dense_chain_kernels(dev)
+    wide48, wide48_launches = phase_wide48(dev, card)
     csmc_chain_results = phase_block_lane_chains(dev)
     draw_chain_results = phase_draw_chains(dev)
-    log(f"  phases 0, 29's, 30's, 32's and 33's kernel checks took "
+    log(f"  phases 0, 29's, 30's, 36, 32's and 33's kernel checks took "
         f"{time.perf_counter() - tic:.1f} s")
 
     results = phase_kernels(dev)
@@ -5186,6 +5452,9 @@ def main():
                for name, (src, rep) in sources.items()]
     kernels += [{"name": f"{name}_d32", "route": "cuda", "source": src, "replaces": rep,
                  "launches": wide_launches[name], **wide[name]}
+                for name, (src, rep, _) in KERNELS.items()]
+    kernels += [{"name": f"{name}_d48", "route": "cuda", "source": src, "replaces": rep,
+                 "launches": wide48_launches[name], **wide48[name]}
                 for name, (src, rep, _) in KERNELS.items()]
     kernels += [{"name": f"{name}_lorenz", "route": "cuda", "source": src, "replaces": rep,
                  "launches": lorenz_launches[name], **lorenz[name]}

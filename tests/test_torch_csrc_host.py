@@ -74,7 +74,14 @@ static void host_density(int n, int C, int sh_, int dx, int dy, DensityIn<double
   for (long g = 0; g < (long)n * C; ++g)
     logdensity_step<double, D, 1>(0, StepAt{g, C, (unsigned)sh_}, dx, dy, in, out, sh);
 }
-static bool narrow(int dx, int dy) { return (dx > dy ? dx : dy) <= kElemD; }
+// The instance's D for max(dx, dy), as on_instance picks it in float (the
+// host build runs D = 48 in double too).
+static int host_dim(int dx, int dy) {
+  const int d = dx > dy ? dx : dy;
+  return d <= kElemD ? kElemD : d <= kWideD ? kWideD : kWide48D;
+}
+#define AUX_ON_DIM(D_, CALL) \
+  (D_ == kElemD ? CALL<kElemD> : D_ == kWideD ? CALL<kWideD> : CALL<kWide48D>)
 extern "C" {
 void h_make_elements(int n, int C, int shared, int dx, int dy, const double* F,
     const double* Q, const double* b, const double* H, const double* R, const double* c,
@@ -82,30 +89,26 @@ void h_make_elements(int n, int C, int shared, int dx, int dy, const double* F,
     double* eta, double* J) {
   const ElementsIn<double> in{F, Q, b, H, R, c, y, m, P};
   const ElementsOut<double> out{A, bel, Cm, eta, J};
-  narrow(dx, dy) ? host_elements<kElemD>(n, C, shared, dx, dy, in, out)
-                 : host_elements<kWideD>(n, C, shared, dx, dy, in, out);
+  AUX_ON_DIM(host_dim(dx, dy), host_elements)(n, C, shared, dx, dy, in, out);
 }
 void h_ell(int n, int C, int shared, int dx, int dy, const double* F, const double* Q,
     const double* b, const double* H, const double* R, const double* c, const double* y,
     const double* m, const double* P, double* out) {
   const ElementsIn<double> in{F, Q, b, H, R, c, y, m, P};
-  narrow(dx, dy) ? host_ell<kElemD>(n, C, shared, dx, dy, in, out)
-                 : host_ell<kWideD>(n, C, shared, dx, dy, in, out);
+  AUX_ON_DIM(host_dim(dx, dy), host_ell)(n, C, shared, dx, dy, in, out);
 }
 void h_backward_maps(int n, int C, int shared, int dx, const double* F, const double* Q,
     const double* b, const double* m, const double* P, const double* eps, double* G,
     double* inc) {
   const MapsIn<double> in{F, Q, b, m, P, eps};
   const MapsOut<double> out{G, inc};
-  narrow(dx, 1) ? host_maps<kElemD>(n, C, shared, dx, in, out)
-                : host_maps<kWideD>(n, C, shared, dx, in, out);
+  AUX_ON_DIM(host_dim(dx, 1), host_maps)(n, C, shared, dx, in, out);
 }
 void h_logdensity_steps(int n, int C, int shared, int dx, int dy, const double* F,
     const double* Q, const double* b, const double* H, const double* R, const double* c,
     const double* y, const double* xp, const double* xc, double* out) {
   const DensityIn<double> in{F, Q, b, H, R, c, y, xp, xc};
-  narrow(dx, dy) ? host_density<kElemD>(n, C, shared, dx, dy, in, out)
-                 : host_density<kWideD>(n, C, shared, dx, dy, in, out);
+  AUX_ON_DIM(host_dim(dx, dy), host_density)(n, C, shared, dx, dy, in, out);
 }
 }
 """
@@ -118,30 +121,33 @@ _SCAN = """
 // chunk's scan; the levels (block c takes a copy of block c - 2^L's value,
 // as from global memory); each chunk's apply, on the prefixes its scan left
 // in shared memory (later windows staged from the output), each element on
-// its own "team". The instance is the one the C entries pick by d, with its
-// plan's ring of prefixes (1 at D = 32 in f64: every later prefix staged back).
+// its own "team". The instance is the one the C entries pick by d (D = 48
+// in double too), with its plan's ring of prefixes (1 at D = 32 in f64 and
+// at D = 48: every later prefix staged back) and input slots.
 // Elements (n, C, ...): chain c's scan on its own elements, as its blocks run.
 template <class Op>
 static void host_scan_chain(int n, int C, int chain, int d, bool rev, typename Op::View x,
                             typename Op::View out) {
   using S = typename Op::Scalar;
   constexpr int D = Op::D, M = Op::M, V = Op::V, slot = OpLay<Op>::slot, kRing = Op::ring,
-                per = kRing + 4;
+                ins = Op::ins, per = kRing + ins + 2;
   const Order at{n, rev, C, chain};
   const ScanPlan pl = scan_plan(n);
   std::vector<S> mem((size_t)pl.chunks * per * slot), partner(slot), work(Op::work + 1);
   std::vector<S*> cur(pl.chunks);
-  // Chunk c's slots: kRing prefixes, two inputs, two running totals.
+  // Chunk c's slots: kRing prefixes, `ins` inputs, two running totals.
   auto slot_of = [&](int c, int g) { return mem.data() + ((size_t)c * per + g) * slot; };
   for (int c = 0; c < pl.chunks; ++c) {
-    for (int g = 0; g < kRing + 2; ++g) pad_slot<S, D, M, V>(0, 1, d, slot_of(c, g));
+    for (int g = 0; g < kRing + ins; ++g) pad_slot<S, D, M, V>(0, 1, d, slot_of(c, g));
     cur[c] = chunk_scan<Op, 1>(0, 0, pl, c, n, d, at, x, out, slot_of(c, 0), slot_of(c, kRing),
-                               slot_of(c, kRing + 2), slot_of(c, kRing + 3), work.data());
+                               slot_of(c, kRing + ins), slot_of(c, kRing + ins + 1),
+                               work.data());
   }
   for (int L = 0; L < pl.levels; ++L)
     for (int c = pl.chunks - 1; c >= (1 << L); --c) {
       std::copy(cur[c - (1 << L)], cur[c - (1 << L)] + slot, partner.data());
-      S* dst = cur[c] == slot_of(c, kRing + 2) ? slot_of(c, kRing + 3) : slot_of(c, kRing + 2);
+      S* dst = cur[c] == slot_of(c, kRing + ins) ? slot_of(c, kRing + ins + 1)
+                                                 : slot_of(c, kRing + ins);
       level_combine<Op, 1>(0, 0, partner.data(), cur[c], dst, work.data());
       cur[c] = dst;
     }
@@ -179,14 +185,17 @@ static void host_affine(int n, int C, int d, int rev, double* G, double* e, doub
 extern "C" {
 void h_filter_scan(int n, int Cc, int d, double* A, double* b, double* C, double* e, double* J,
                    double* oA, double* ob, double* oC, double* oe, double* oJ) {
-  (d <= kNarrowD ? host_filter<kNarrowD> : host_filter<kWideD>)(n, Cc, d, A, b, C, e, J, oA,
-                                                                 ob, oC, oe, oJ);
+  (d <= kNarrowD ? host_filter<kNarrowD> : d <= kWideD ? host_filter<kWideD>
+                                                      : host_filter<kWide48D>)(
+      n, Cc, d, A, b, C, e, J, oA, ob, oC, oe, oJ);
 }
 void h_affine_scan(int n, int C, int d, int rev, double* G, double* e, double* oG, double* oe) {
-  (d <= kNarrowD ? host_affine<kNarrowD> : host_affine<kWideD>)(n, C, d, rev, G, e, oG, oe);
+  (d <= kNarrowD ? host_affine<kNarrowD> : d <= kWideD ? host_affine<kWideD>
+                                                      : host_affine<kWide48D>)(
+      n, C, d, rev, G, e, oG, oe);
 }
 // The kernel's plan for n elements (chunks, per, levels) and the values of a
-// padded filter and affine element at D = 16 and D = 32.
+// padded filter and affine element at D = 16, 32 and 48.
 void h_scan_layout(int n, int* out) {
   const ScanPlan pl = scan_plan(n);
   out[0] = pl.chunks;
@@ -196,6 +205,8 @@ void h_scan_layout(int n, int* out) {
   out[4] = OpLay<AffineOp<double, kNarrowD>>::slot;
   out[5] = OpLay<FilterOp<double, kWideD>>::slot;
   out[6] = OpLay<AffineOp<double, kWideD>>::slot;
+  out[7] = OpLay<FilterOp<float, kWide48D>>::slot;
+  out[8] = OpLay<AffineOp<float, kWide48D>>::slot;
 }
 }
 """
@@ -840,7 +851,9 @@ def _close(got, want, rtol=1e-9, atol=1e-11):
 # D = 16 d = 16 exactly (the main path's), dx = 16 over padded observation
 # rows (dy = 5), d = 1, dy < dx and dy > dx, n = 1 and n = 2; at D = 32
 # (16 < max(dx, dy)) the SV model's d = 30, the edges 17 and 32 and dx != dy
-# padded on either side; missing observations on every masking branch (NaN
+# padded on either side; at D = 48 (32 < max(dx, dy), float32 only on the
+# card) the SV width d = 40, the edges 33 and 48 on either side of dx != dy,
+# dy > 32 over dx = 3; missing observations on every masking branch (NaN
 # y; H, R, c NaN where y is; a step missing whole, whose ell increment is 0).
 @pytest.mark.parametrize("T,dx,dy,nan_frac,nan_model", [
     (23, 2, 2, 0.0, False), (64, 4, 3, 0.3, False), (40, 3, 1, 0.0, False),
@@ -849,7 +862,9 @@ def _close(got, want, rtol=1e-9, atol=1e-11):
     (24, 16, 5, 0.3, True),
     (10, 30, 30, 0.0, False), (10, 30, 30, 0.3, True), (8, 17, 30, 0.0, False),
     (8, 17, 30, 0.3, True), (8, 32, 32, 0.0, False), (8, 32, 32, 0.2, True),
-    (8, 30, 17, 0.0, False), (8, 30, 17, 0.4, True)])
+    (8, 30, 17, 0.0, False), (8, 30, 17, 0.4, True),
+    (6, 40, 40, 0.0, False), (6, 40, 40, 0.2, True), (5, 33, 48, 0.0, False),
+    (5, 48, 7, 0.0, False), (6, 3, 41, 0.2, False)])
 def test_host_maps_match_plain(host_lib, T, dx, dy, nan_frac, nan_model):
     lib = host_lib["maps"]
     lg, ys = _model(T, dx, dy, seed=T, nan_frac=nan_frac, nan_model=nan_model, stable=True)
@@ -968,10 +983,13 @@ def test_host_backward_maps_degenerate_covariance(host_lib, case):
 # small d, and chunks longer than the prefixes the kernel keeps (n = 1100: 9);
 # the D = 32 instance at n = 2, the SV model's n = 249 (64 chunks of 4) and
 # n = 1023 (past f64's one kept prefix: later ones staged back from the
-# output), d = 30, 17 and 32 (F scaled to stay stable there).
+# output), d = 30, 17 and 32 (F scaled to stay stable there); the D = 48
+# instance (one kept prefix, one input slot) at the SV shape n = 127 (32
+# chunks of 4), d = 40, and at the edges d = 33 and 48 (n = 2, 20).
 @pytest.mark.parametrize("T,dx,dy", [(17, 2, 2), (300, 3, 2), (129, 1, 1), (2, 2, 2),
                                      (10, 3, 2), (40, 16, 16), (1024, 2, 1), (1101, 1, 1),
-                                     (3, 30, 30), (250, 30, 30), (250, 17, 5), (1024, 32, 32)])
+                                     (3, 30, 30), (250, 30, 30), (250, 17, 5), (1024, 32, 32),
+                                     (128, 40, 40), (3, 33, 48), (21, 48, 7)])
 def test_host_filter_scan_matches_plain(host_lib, T, dx, dy):
     lg, ys = _model(T, dx, dy, seed=3, stable=dx > 16)
     m0, P0, Fs, Qs, bs, Hs, Rs, cs = lg
@@ -989,14 +1007,16 @@ def test_host_filter_scan_matches_plain(host_lib, T, dx, dy):
 # forward and reversed: the main path's n = 1024 at d = 16, d = 1, one chunk
 # (n = 1, 2), an empty chunk and n not a multiple of the chunk (n = 9, 37,
 # 50), chunks longer than the prefixes the kernel keeps (n = 1100: 9); the
-# D = 32 instance at n = 2, 249 and 1023, d = 30, 17 and 32. The gains are
+# D = 32 instance at n = 2, 249 and 1023, d = 30, 17 and 32; the D = 48
+# instance at n = 128 (d = 40), 2 and 50 (d = 48, 33). The gains are
 # 0.4 standard normals, scaled by 2 / sqrt(d) past d = 4 so that their
 # products stay of one size at large d.
 @pytest.mark.parametrize("T,d,reverse", [(50, 3, True), (300, 2, True), (100, 4, False),
                                          (1024, 16, True), (1024, 16, False), (37, 1, True),
                                          (1, 2, False), (2, 1, True), (9, 3, False),
                                          (1100, 2, True), (2, 30, True), (249, 30, True),
-                                         (249, 17, False), (1023, 32, True)])
+                                         (249, 17, False), (1023, 32, True),
+                                         (128, 40, True), (2, 48, True), (50, 33, False)])
 def test_host_affine_scan_matches_plain(host_lib, T, d, reverse):
     rng = np.random.default_rng(1)
     gains = torch.as_tensor(0.4 * min(1.0, 2.0 / np.sqrt(d)) * rng.standard_normal((T, d, d)))
@@ -1016,8 +1036,11 @@ def test_host_affine_scan_matches_plain(host_lib, T, d, reverse):
 # operands equal the same operands copied to every chain, and the outputs
 # equal the plain versions on the (n, C, ...) layout (they broadcast the
 # shared operands) to rtol 1e-9. At D = 16 (dx = 3, dy = 2, a share of the
-# observations missing) and D = 32 (d = 30).
-@pytest.mark.parametrize("T,dx,dy,nan_frac", [(9, 3, 2, 0.3), (5, 30, 30, 0.0)])
+# observations missing), D = 32 (d = 30) and D = 48 (d = 40 with a share
+# missing, dx = 33 under dy = 48, dx = 48 over dy = 7, dy = 41 over dx = 3).
+@pytest.mark.parametrize("T,dx,dy,nan_frac", [(9, 3, 2, 0.3), (5, 30, 30, 0.0),
+                                              (4, 40, 40, 0.2), (3, 33, 48, 0.0),
+                                              (3, 48, 7, 0.0), (3, 3, 41, 0.0)])
 def test_host_maps_chain_axis(host_lib, T, dx, dy, nan_frac):
     lib = host_lib["maps"]
     Cc, n, shared = 3, T - 1, 0b111
@@ -1076,9 +1099,10 @@ def test_host_maps_chain_axis(host_lib, T, dx, dy, nan_frac):
 # chain equals a one-chain call on its elements bit for bit, and all equal
 # the plain versions on the (n, C, ...) layout (the same chunks, batched over
 # C) to rtol 1e-9. The filter scan at D = 16 (n = 8 and n = 1099, chunks
-# longer than the 8 kept prefixes) and D = 32 (d = 30, f64's one kept prefix);
-# the affine scan forward and reversed.
-@pytest.mark.parametrize("T,d", [(9, 3), (1100, 1), (6, 30)])
+# longer than the 8 kept prefixes), D = 32 (d = 30, f64's one kept prefix)
+# and D = 48 (d = 40, 33 and 48: one kept prefix, one input slot); the
+# affine scan forward and reversed.
+@pytest.mark.parametrize("T,d", [(9, 3), (1100, 1), (6, 30), (10, 40), (6, 33), (5, 48)])
 def test_host_scans_chain_axis(host_lib, T, d):
     lib = host_lib["scan"]
     Cc, n = 3, T - 1
@@ -1119,15 +1143,21 @@ def test_host_scans_chain_axis(host_lib, T, d):
 # instance_dim picks).
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 9, 37, 299, 511, 512, 513, 1023, 1024, 1100, 5000])
 def test_host_scan_plan_matches_the_wrappers(host_lib, n):
-    out = torch.zeros(7, dtype=torch.int32)
+    out = torch.zeros(9, dtype=torch.int32)
     _call(host_lib["scan"].h_scan_layout, n, out)
     chunks = FS.scan_chunks(n)
     assert out.tolist() == [chunks, -(-n // chunks), chunks.bit_length() - 1,
                             FS.SLOTS["filter"][16], FS.SLOTS["affine"][16],
-                            FS.SLOTS["filter"][32], FS.SLOTS["affine"][32]]
-    assert [instance_dim(d) for d in (1, 16, 17, 30, 32)] == [16, 16, 32, 32, 32]
+                            FS.SLOTS["filter"][32], FS.SLOTS["affine"][32],
+                            FS.SLOTS["filter"][48], FS.SLOTS["affine"][48]]
+    f32, f64 = torch.float32, torch.float64
+    assert [instance_dim(d, f32) for d in (1, 16, 17, 30, 32, 33, 40, 48)] == [
+        16, 16, 32, 32, 32, 48, 48, 48]
+    assert [instance_dim(d, f64) for d in (1, 16, 17, 32)] == [16, 16, 32, 32]
     with pytest.raises(ValueError):
-        instance_dim(33)
+        instance_dim(49, f32)
+    with pytest.raises(ValueError):
+        instance_dim(33, f64)
 
 
 def _factor_inputs(n, N, k, seed):

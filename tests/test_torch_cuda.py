@@ -300,11 +300,13 @@ def test_step_matches_cpu(dev, order):
         np.testing.assert_allclose(lg, lc, rtol=1e-9)
 
 
-def test_wide_instance_rejects_d33(dev):
-    """Past the D = 32 instance every MH wrapper raises on the card: no
-    plain fallback."""
-    n, d = 4, 33
-    F, v = torch.zeros(n, d, d, device=dev), torch.zeros(n, d, device=dev)
+@pytest.mark.parametrize("dtype,d", [(torch.float64, 33), (torch.float32, 49)])
+def test_wide_instance_rejects_d33(dev, dtype, d):
+    """Past the dtype's last instance (D = 32 in float64, D = 48 in float32)
+    every MH wrapper raises on the card: no plain fallback."""
+    n = 4
+    F = torch.zeros(n, d, d, dtype=dtype, device=dev)
+    v = torch.zeros(n, d, dtype=dtype, device=dev)
     calls = {"make_elements": lambda: KF.make_elements(F, F, v, F, F, v, v, v, F),
              "ell": lambda: KF.ell(F, F, v, F, F, v, v, v, F),
              "backward_maps": lambda: KF.backward_maps(F, F, v, v, F, v),
@@ -314,6 +316,63 @@ def test_wide_instance_rejects_d33(dev):
     for name, call in calls.items():
         with pytest.raises(ValueError, match="dimensions"):
             call()
+
+
+def _nrel(got, want):
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+# The float32 D = 48 instance (no float64 one: past d = 32 float64 takes the
+# plain versions) on random models at the SV width d = 40 with a share of the
+# observations missing, at the edges 33 and 48 with dx != dy, each kernel in
+# float32 on the card against its plain version in float64 on the CPU on the
+# same values, at chip_smoke.NREL_F32 (random well-conditioned models: the
+# float32 plain version itself lies ~1e-6 from float64 there); and C = 3
+# chains of the dense batched layout, each chain bit-equal to a one-chain
+# launch.
+@pytest.mark.parametrize("T,dx,dy,nan_frac", [(128, 40, 40, 0.2), (20, 33, 48, 0.0),
+                                              (20, 48, 7, 0.3)])
+def test_d48_instance_matches_plain_f32(dev, T, dx, dy, nan_frac):
+    f32 = torch.float32
+    lg, ys, args = _element_inputs(T, dx, dy, nan_frac)
+    Fs, Qs, bs, *obs = (z.to(f32).double() for z in args[:7])
+    n = T - 1
+    ms, Ps, _ = filtering(ys, lg, parallel=True)
+    ms, Ps = ms[:-1].to(f32).double(), Ps[:-1].to(f32).double()
+    eps = torch.as_tensor(np.random.default_rng(1).standard_normal((n, dx))).to(f32).double()
+    xs = torch.as_tensor(np.random.default_rng(2).standard_normal((T, dx))).to(f32).double()
+    elems = tuple(z.to(f32).double() for z in _make_associative_elements(
+        *args[:7], *(z.double() for z in args[7:])))
+    gains = 0.4 / np.sqrt(dx) * torch.as_tensor(
+        np.random.default_rng(3).standard_normal((n, dx, dx))).to(f32).double()
+    calls = {KF.make_elements: (Fs, Qs, bs, *obs, *(z.to(f32).double() for z in args[7:])),
+             KF.ell: (Fs, Qs, bs, *obs, ms, Ps),
+             KF.backward_maps: (Fs, Qs, bs, ms, Ps, eps),
+             KF.logdensity_steps: (Fs, Qs, bs, *obs, xs[:-1], xs[1:]),
+             FS.filter_scan: (elems,),
+             FS.affine_scan: (gains, eps, True)}
+    for fn, fargs in calls.items():
+        want = fn(*fargs)
+        before = fn.launches
+        got = fn(*(_to(tuple(z.to(f32) for z in a) if isinstance(a, tuple) else
+                       a.to(f32) if isinstance(a, torch.Tensor) else a, dev) for a in fargs))
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, fn.__name__
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert g.dtype == f32 and bool(torch.isfinite(g).all()), fn.__name__
+            assert _nrel(g.cpu(), w) <= 1e-4, (fn.__name__, _nrel(g.cpu(), w))
+    # C = 3 chains: F, Q and b shared (expanded views), the rest each chain's.
+    C = 3
+    one_chain = tuple(z.to(f32).to(dev) for z in (Fs, Qs, bs))
+    shared = tuple(z[:, None].expand((n, C) + z.shape[1:]) for z in one_chain)
+    scale = torch.tensor([1.0, 0.9, 1.1], dtype=f32, device=dev)[:, None]
+    own = (ms.to(f32).to(dev)[:, None] * scale, Ps.to(f32).to(dev)[:, None].expand(
+        n, C, dx, dx).contiguous(), eps.to(f32).to(dev)[:, None] * scale)
+    G, inc = KF.backward_maps(*shared, *own)
+    for c in range(C):
+        one = KF.backward_maps(*one_chain, *(z[:, c].contiguous() for z in own))
+        assert torch.equal(G[:, c], one[0]) and torch.equal(inc[:, c], one[1]), c
 
 
 @pytest.mark.parametrize("order", [1, 2])
@@ -875,28 +934,31 @@ def test_blocked_pit_chains_step_matches_cpu(dev):
 
 
 def test_wide_shapes_take_the_plain_routes_on_the_card(dev):
-    """At D = 33 an SV kalman-1 step launches none of the d x d kernels and
-    equals the CPU's in float64; at d = 81 a spatial csmc-guided step
-    launches the block-lane sweep once (its lanes' components in shared
-    memory) and equals the CPU's."""
+    """At D = 33 in float64 and D = 49 in float32 an SV kalman-1 step
+    launches none of the d x d kernels and equals the CPU's (float64 to
+    rtol 1e-9; float32 to 2e-3 absolute, what float32 moves the drawn path
+    by at these widths: tests/test_torch_wide_routes.py); at d = 81 a
+    spatial csmc-guided step launches the block-lane sweep once (its lanes'
+    components in shared memory) and equals the CPU's."""
     from aux_ssm_tpu_torch.models import spatial
-    T, D = 8, 33
-    xs, ys = sv.get_data(0.0, 0.9, 2.0, 0.25, D, T, generator=torch.Generator().manual_seed(5),
-                         device="cpu")
+    T = 8
     g = torch.Generator().manual_seed(6)
-    noise = (torch.randn(T, D, generator=g, dtype=torch.float64),
-             torch.randn(T, D, generator=g, dtype=torch.float64),
-             torch.rand((), generator=g, dtype=torch.float64))
-    out = {}
-    for where in ("cpu", dev):
-        init, kernel = sv.get_kalman_kernel(ys.to(where), 0.0, 0.9, 2.0, 0.25, True, 1)
-        K.reset_launches()
-        out[str(where)] = kernel(init(xs.to(where)), 0.05,
-                                 noise=tuple(z.to(where) for z in noise))
-    assert not any(K.launches().values())
-    assert bool(out[str(dev)].updated) == bool(out["cpu"].updated)
-    np.testing.assert_allclose(out[str(dev)].x.cpu().numpy(), out["cpu"].x.numpy(), rtol=1e-9,
-                               atol=1e-12)
+    for dtype, D, tol in ((torch.float64, 33, dict(rtol=1e-9, atol=1e-12)),
+                          (torch.float32, 49, dict(rtol=0, atol=2e-3))):
+        xs, ys = (z.to(dtype) for z in sv.get_data(
+            0.0, 0.9, 2.0, 0.25, D, T, generator=torch.Generator().manual_seed(5), device="cpu"))
+        noise = (torch.randn(T, D, generator=g, dtype=dtype),
+                 torch.randn(T, D, generator=g, dtype=dtype),
+                 torch.rand((), generator=g, dtype=dtype))
+        out = {}
+        for where in ("cpu", dev):
+            init, kernel = sv.get_kalman_kernel(ys.to(where), 0.0, 0.9, 2.0, 0.25, True, 1)
+            K.reset_launches()
+            out[str(where)] = kernel(init(xs.to(where)), 0.05,
+                                     noise=tuple(z.to(where) for z in noise))
+        assert not any(K.launches().values()), dtype
+        assert bool(out[str(dev)].updated) == bool(out["cpu"].updated)
+        np.testing.assert_allclose(out[str(dev)].x.cpu().numpy(), out["cpu"].x.numpy(), **tol)
     side, N = 9, 8
     sxs, sys_ = spatial.get_data(np.random.default_rng(7), 0.3, 1, -0.25, 4.0, side, 6,
                                  dtype=torch.float64, device="cpu")

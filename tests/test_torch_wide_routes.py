@@ -1,14 +1,34 @@
-"""Shapes past the d x d kernels' instances, routed to the plain versions by
-shape; the block-lane sweep past its register width; and the drivers'
-`--debug-nans`, float64 on the CPU:
+"""The d x d kernels' widest instance and the shapes past it, routed by
+shape and dtype; the block-lane sweep past its register width; and the
+drivers' `--debug-nans`, on the CPU:
 
-- `_build.has_instance` (the d x d kernels' widths, max(dx, dy) <= 32), and
-  the block-lane choice, which has no d cap (as in the JAX package);
-- an SV kalman-1 step at D = 33 (T = 8) against the JAX package's, given the
-  noise JAX draws: states to rtol 1e-9, the same accept decisions, and none
-  of the six d x d wrappers called (at D = 32 each is); C = 2 chains of the
+- `_build.has_instance` (the d x d kernels' widths: max(dx, dy) <= 48 in
+  float32, <= 32 in float64), and the block-lane choice, which has no d cap
+  (as in the JAX package);
+- an SV kalman-1 step past the instances against the JAX package's, given
+  the noise JAX draws: at D = 33 (T = 8) in float64, states to rtol 1e-9 and
+  the same accept decisions; at D = 49 in float32 (JAX in float32 too), as
+  the D = 40 steps below are held; none of the six d x d wrappers called (at
+  D = 32 in float64 and D = 48 in float32 each is); C = 2 chains of the
   dense batched layout at D = 33 call none either, each chain the one-chain
   step's values;
+- SV kalman-1 and kalman-2 steps at D = 40 (T = 16) in float32, inside the
+  float32 D = 48 instance (and JAX's Pallas range, d <= 43 at T <= 128),
+  against the JAX package's float32 steps given the noise they draw: the
+  same accept decisions, each of the six wrappers called (10 calls a step),
+  log alpha within LOG_ALPHA_F32 and the states within X_F32 of JAX's. Each
+  package's float32 step lies apart from the float64 step on the same data
+  and noise: log alpha by 0.17-0.51 (JAX's jitted and eager kalman-1 steps)
+  and 0.29-0.42 (the port's), the state by ~5e-4 (|x| ~ 1); mostly the drawn
+  path itself moves, and the target and the auxiliary term at it with it. So
+  the two float32 steps may lie ~1 apart in log alpha and ~1e-3 in the
+  state; a wrong term moves log alpha by units. C = 2 chains of the dense
+  batched layout at D = 40 in float32: one call of each wrapper a step as
+  for one chain, each chain's accept equal to its one-chain step's and its
+  state and target within rtol 1e-6 (the CPU's batched plain ops round a
+  chain's products otherwise than a one-chain call does, a few float32 ulp,
+  at D = 30 as at 40; on the card `chip_smoke.py` phase 36 holds each
+  chain of the kernels' launches to a one-chain launch bit for bit);
 - a spatial csmc-guided step at d = 81 (`--D 9`, T = 4, N = 8) through the
   block-lane sweep (its plain version here; on the card the functor's wide
   path, past the 64 components its lanes keep in registers) against JAX's
@@ -54,9 +74,12 @@ def _t(z):
 
 
 def test_width_predicates():
-    assert _build.MAX_DIM == 32
-    assert _build.has_instance(16, 4) and _build.has_instance(32, 32)
-    assert not _build.has_instance(33, 1) and not _build.has_instance(3, 40)
+    f32, f64 = torch.float32, torch.float64
+    assert _build.MAX_DIMS == {f32: 48, f64: 32}
+    assert _build.has_instance(16, 4, dtype=f64) and _build.has_instance(32, 32, dtype=f64)
+    assert not _build.has_instance(33, 1, dtype=f64) and not _build.has_instance(3, 40, dtype=f64)
+    assert _build.has_instance(32, 32, dtype=f32) and _build.has_instance(3, 48, dtype=f32)
+    assert not _build.has_instance(49, 1, dtype=f32) and not _build.has_instance(3, 49, dtype=f32)
     x = {d: torch.zeros(2, d) for d in (1, 64, 65, 81)}
     Mt = type("Mt", (), {"block_propagate": 1})()
     Gt = type("Gt", (), {"block_logw": 1})()
@@ -87,29 +110,37 @@ def _kalman_noise(key, T, D):
                                  jax.random.uniform(accept_key, (), f64)))
 
 
-def test_sv_kalman_step_past_the_instances_matches_jax(monkeypatch):
-    T, D, delta = 8, 33, 0.05
-    xs, ys = (np.array(z) for z in jsv.get_data(jax.random.key(2), *SV_ARGS, D, T))
-    jinit, jkernel = jsv.get_kalman_kernel(jnp.asarray(ys), *SV_ARGS, True, 1)
-    tinit, tkernel = tsv.get_kalman_kernel(_t(ys), *SV_ARGS, True, order=1)
+@pytest.mark.parametrize("dtype,D", [("float64", 33), ("float32", 49)])
+def test_sv_kalman_step_past_the_instances_matches_jax(monkeypatch, dtype, D):
+    T, delta = 8, 0.05
     calls = _count_dxd(monkeypatch)
-    jstep = jax.jit(lambda k, s: jkernel(k, s, delta))
-    jstate, tstate = jinit(jnp.asarray(xs)), tinit(_t(xs))
-    accepted = []
-    for key in jax.random.split(jax.random.key(5), 3):
-        jstate = jstep(key, jstate)
-        tstate = tkernel(tstate, delta, noise=_kalman_noise(key, T, D))
-        assert bool(tstate.updated) == bool(jstate.updated)
-        np.testing.assert_allclose(tstate.x.numpy(), np.asarray(jstate.x), rtol=1e-9,
-                                   atol=1e-11)
-        accepted.append(bool(tstate.updated))
+    if dtype == "float32":
+        accepted = _f32_steps_against_jax(monkeypatch, T, D, 1, delta, 5, calls, 0)
+    else:
+        xs, ys = (np.array(z) for z in jsv.get_data(jax.random.key(2), *SV_ARGS, D, T))
+        jinit, jkernel = jsv.get_kalman_kernel(jnp.asarray(ys), *SV_ARGS, True, 1)
+        tinit, tkernel = tsv.get_kalman_kernel(_t(ys), *SV_ARGS, True, order=1)
+        jstep = jax.jit(lambda k, s: jkernel(k, s, delta))
+        jstate, tstate = jinit(jnp.asarray(xs)), tinit(_t(xs))
+        accepted = []
+        for key in jax.random.split(jax.random.key(5), 3):
+            jstate = jstep(key, jstate)
+            tstate = tkernel(tstate, delta, noise=_kalman_noise(key, T, D))
+            assert bool(tstate.updated) == bool(jstate.updated)
+            np.testing.assert_allclose(tstate.x.numpy(), np.asarray(jstate.x), rtol=1e-9,
+                                       atol=1e-11)
+            accepted.append(bool(tstate.updated))
     assert any(accepted)
     assert calls == dict.fromkeys(DXD, 0)
-    # At D = 32 the step goes through every wrapper (the CPU runs their
-    # plain versions behind them).
-    xs32, ys32 = xs[:, :32], ys[:, :32]
-    init32, kernel32 = tsv.get_kalman_kernel(_t(ys32), *SV_ARGS, True, order=1)
-    kernel32(init32(_t(xs32)), delta, noise=_kalman_noise(jax.random.key(6), T, 32))
+    # At the dtype's last instance (D = 32 in float64, 48 in float32) the step
+    # goes through every wrapper (the CPU runs their plain versions behind
+    # them).
+    last = _build.MAX_DIMS[getattr(torch, dtype)]
+    xs, ys = (z[:, :last].to(getattr(torch, dtype)) for z in tsv.get_data(
+        *SV_ARGS, D, T, generator=torch.Generator().manual_seed(2), device="cpu"))
+    init, kernel = tsv.get_kalman_kernel(ys, *SV_ARGS, True, order=1)
+    kernel(init(xs), delta, noise=tuple(z.to(xs.dtype) for z in _kalman_noise(
+        jax.random.key(6), T, last)))
     assert all(calls[name] > 0 for name in DXD)
 
 
@@ -133,6 +164,101 @@ def test_sv_kalman_chains_past_the_instances(monkeypatch):
         one = kernel1(init1(x0[c]), delta[c], noise=tuple(z[c] for z in noise))
         assert bool(out.updated[c]) == bool(one.updated)
         np.testing.assert_allclose(out.x[c].numpy(), one.x.numpy(), rtol=1e-12, atol=1e-13)
+
+
+# --------------------------------------------------------------------------
+# float32 steps at D = 40 (the D = 48 instance) and D = 49 against JAX's
+# --------------------------------------------------------------------------
+
+DXD_STEP = {"make_elements": 2, "filter_scan": 2, "ell": 2, "backward_maps": 1,
+            "affine_scan": 1, "logdensity_steps": 2}  # a step's wrapper calls
+LOG_ALPHA_F32, X_F32 = 1.0, 2e-3  # the float32 steps' bounds (the module docstring)
+
+
+def _log_alpha(args):
+    """The MH log ratio of `_acceptance_probability`'s first eight arguments
+    (either package's), in float64, before its clamp and exponential."""
+    lt_p, lt_r, lp_f, lp_r, sd, u, x, xp = (np.asarray(z, dtype=np.float64) for z in args[:8])
+    return float(lt_p - lt_r + lp_r - lp_f - (((xp - u) / sd) ** 2 - ((x - u) / sd) ** 2).sum())
+
+
+def _f32_steps_against_jax(monkeypatch, T, D, order, delta, seed, calls, per_step):
+    """Three float32 SV kalman steps (`order`), each from the simulated
+    states, of JAX (x64 off: its float32 path, jitted) and of the port given
+    the noise JAX draws: the same accept decisions, log alpha within
+    LOG_ALPHA_F32 and the state within X_F32 (absolute) of JAX's, and each
+    step calling each d x d wrapper `per_step` times its DXD_STEP count
+    (`calls`, `_count_dxd`). Returns the accepts."""
+    from aux_ssm_tpu.kernels import kalman as jkalman
+    from aux_ssm_tpu_torch.kernels import kalman as tkalman
+    ratios = {"jax": [], "port": []}
+    jax_ratio = jkalman._acceptance_probability
+    monkeypatch.setattr(jkalman, "_acceptance_probability", lambda *a: jax.debug.callback(
+        lambda *v: ratios["jax"].append(_log_alpha(v)), *a[:8]) or jax_ratio(*a))
+    port_ratio = tkalman._acceptance_probability
+    monkeypatch.setattr(tkalman, "_acceptance_probability", lambda *a: ratios["port"].append(
+        _log_alpha([z.numpy() if torch.is_tensor(z) else z for z in a])) or port_ratio(*a))
+    with jax.enable_x64(False):
+        xs, ys = (np.array(z) for z in jsv.get_data(jax.random.key(2), *SV_ARGS, D, T))
+        jinit, jkernel = jsv.get_kalman_kernel(jnp.asarray(ys), *SV_ARGS, True, order)
+        jstep = jax.jit(lambda k, s: jkernel(k, s, delta))
+        jstate0 = jinit(jnp.asarray(xs))
+        steps = []
+        for key in jax.random.split(jax.random.key(seed), 3):
+            jstate = jstep(key, jstate0)
+            aux_key, sample_key, accept_key = jax.random.split(key, 3)
+            noise = (jax.random.normal(aux_key, (T, D)), jax.random.normal(sample_key, (T, D)),
+                     jax.random.uniform(accept_key, ()))
+            steps.append((np.asarray(jstate.x), bool(jstate.updated),
+                          tuple(_t(z) for z in noise)))
+        jax.effects_barrier()
+    tinit, tkernel = tsv.get_kalman_kernel(_t(ys), *SV_ARGS, True, order)
+    state0 = tinit(_t(xs))
+    for k, (xj, upd, noise) in enumerate(steps):
+        before = dict(calls)
+        state = tkernel(state0, delta, noise=noise)
+        assert state.x.dtype == torch.float32
+        assert {n: calls[n] - before[n] for n in DXD} == {
+            n: per_step * v for n, v in DXD_STEP.items()}, k
+        assert bool(state.updated) == upd, k
+        assert abs(ratios["port"][k] - ratios["jax"][k]) <= LOG_ALPHA_F32, (
+            k, ratios["port"][k], ratios["jax"][k])
+        np.testing.assert_allclose(state.x.numpy(), xj, rtol=0, atol=X_F32)
+    return [upd for _, upd, _ in steps]
+
+
+@pytest.mark.parametrize("order,delta", [(1, 0.05), (2, 0.1)])
+def test_sv_kalman_f32_step_in_the_d48_instance_matches_jax(monkeypatch, order, delta):
+    calls = _count_dxd(monkeypatch)
+    accepted = _f32_steps_against_jax(monkeypatch, 16, 40, order, delta, 5 + order, calls, 1)
+    assert any(accepted)
+
+
+def test_sv_kalman_f32_chains_in_the_d48_instance(monkeypatch):
+    """The dense batched layout at D = 40 in float32: C = 2 chains in one
+    step, each chain the one-chain step on its noise (within a few ulp: the
+    module docstring), and one call of each d x d wrapper a step, as for one
+    chain."""
+    T, D, C = 16, 40, 2
+    f32 = torch.float32
+    xs, ys = (z.to(f32) for z in tsv.get_data(
+        *SV_ARGS, D, T, generator=torch.Generator().manual_seed(3), device="cpu"))
+    init1, kernel1 = tsv.get_kalman_kernel(ys, *SV_ARGS, True, order=1)
+    initC, kernelC = tsv.get_kalman_kernel(ys, *SV_ARGS, True, order=1, chains=True)
+    x0 = xs[None] + 0.05 * torch.randn(C, T, D, generator=torch.Generator().manual_seed(0),
+                                       dtype=f32)
+    delta = torch.tensor([0.04, 0.06], dtype=f32)
+    g = torch.Generator().manual_seed(1)
+    noise = (torch.randn(C, T, D, generator=g, dtype=f32),
+             torch.randn(C, T, D, generator=g, dtype=f32), torch.rand(C, generator=g, dtype=f32))
+    calls = _count_dxd(monkeypatch)
+    out = kernelC(initC(x0), delta, noise=noise)
+    assert calls == DXD_STEP and bool(out.updated.any())
+    for c in range(C):
+        one = kernel1(init1(x0[c]), delta[c], noise=tuple(z[c] for z in noise))
+        assert bool(out.updated[c]) == bool(one.updated)
+        np.testing.assert_allclose(out.x[c].numpy(), one.x.numpy(), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(float(out.log_target[c]), float(one.log_target), rtol=1e-6)
 
 
 def _spatial_guided_noise(key, T, N, d):
